@@ -1,0 +1,4 @@
+from rawaudiovae_kelsey_tpu_torch.compat.from_jax import (  # noqa: F401
+    params_from_jax,
+    params_to_jax,
+)

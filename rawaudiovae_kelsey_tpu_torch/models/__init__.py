@@ -1,0 +1,13 @@
+from rawaudiovae_kelsey_tpu_torch.models.vae import (  # noqa: F401
+    DenseVAE,
+    decode,
+    encode,
+    forward,
+    init_dense,
+    linear,
+    reparameterize,
+)
+from rawaudiovae_kelsey_tpu_torch.models.registry import (  # noqa: F401
+    ModelDef,
+    build_model,
+)

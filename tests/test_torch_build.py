@@ -1,0 +1,84 @@
+"""The kernel build of the port (rawaudiovae_kelsey_tpu_torch/ops/_build.py):
+every csrc/*.cu into one library, cached by a hash of sources and flags, and
+a failure that raises.  nvcc exists only where the GPU is, so a stand-in
+compiler records what the build asks of it; the real build runs in
+chip_smoke.py."""
+
+import os
+import stat
+import sys
+
+import pytest
+
+from rawaudiovae_kelsey_tpu_torch.ops import _build
+
+FAKE_NVCC = """#!{python}
+import json, sys
+from pathlib import Path
+args = sys.argv[1:]
+with open({log!r}, "a") as fh:
+    fh.write(json.dumps(args) + "\\n")
+if {fail!r}:
+    print("error: fake compile failure", file=sys.stderr)
+    sys.exit(2)
+Path(args[args.index("-o") + 1]).write_bytes(b"\\x7fELF")
+print("ptxas info    : Used 32 registers", file=sys.stderr)
+"""
+
+
+def _fake_nvcc(tmp_path, monkeypatch, fail=False):
+    log = tmp_path / "calls.jsonl"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, log=str(log),
+                                     fail=fail))
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{nvcc.parent}{os.pathsep}"
+                       + os.environ.get("PATH", ""))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    return log
+
+
+def test_build_compiles_every_source_once_and_caches(tmp_path, monkeypatch):
+    log = _fake_nvcc(tmp_path, monkeypatch)
+    lib = _build.build()
+    assert lib.parent == tmp_path / "build" and lib.exists()
+    assert "registers" in lib.with_suffix(".log").read_text()
+    calls = log.read_text().splitlines()
+    assert len(calls) == 1
+    for flag in ("arch=compute_90a,code=sm_90a", "-shared", "-O3"):
+        assert flag in calls[0]
+    for src in ("mlp.cu", "quant.cu"):
+        assert src in calls[0]
+    assert _build.build() == lib                # cached: no second compile
+    assert len(log.read_text().splitlines()) == 1
+    assert not list(lib.parent.glob("*.tmp*"))
+
+
+def test_build_key_follows_the_sources(tmp_path, monkeypatch):
+    _fake_nvcc(tmp_path, monkeypatch)
+    first = _build.build()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    (csrc / "gemm.cuh").write_text((csrc / "gemm.cuh").read_text() + "\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert _build.build() != first              # an edited header rebuilds
+
+
+def test_build_failure_raises(tmp_path, monkeypatch):
+    _fake_nvcc(tmp_path, monkeypatch, fail=True)
+    with pytest.raises(RuntimeError, match="fake compile failure"):
+        _build.build()
+    assert not list((tmp_path / "build").glob("*"))
+
+
+def test_missing_toolkit_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if _build.shutil.which("nvcc"):
+        pytest.skip("an nvcc is on PATH")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()

@@ -1,0 +1,57 @@
+"""The port (rawaudiovae_kelsey_tpu_torch) stands alone: none of its
+modules imports JAX or the JAX package, so it runs on a machine that has
+neither."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = "rawaudiovae_kelsey_tpu_torch"
+SOURCES = sorted((REPO / PKG).rglob("*.py"))
+
+SLICE = [
+    "config.schema", "config.ini", "io.wavio", "io.resample",
+    "data.framing", "models.vae", "models.registry", "ops.mlp", "ops.quant",
+    "ops._build", "train.checkpoint", "compat.from_jax", "infer.synthesis",
+    "infer.api", "infer.server", "infer.http", "__main__",
+]
+
+
+def _modules():
+    found = [m.name for m in pkgutil.walk_packages([str(REPO / PKG)],
+                                                   PKG + ".")]
+    return [PKG] + sorted(found)
+
+
+def test_every_slice_module_exists():
+    mods = _modules()
+    for name in SLICE:
+        assert f"{PKG}.{name}" in mods
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'rawaudiovae_kelsey_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO / PKG)))
+def test_no_source_imports_jax(path):
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|rawaudiovae_kelsey_tpu)(\.|\s|$)",
+        re.M)
+    assert not pattern.findall(path.read_text())
