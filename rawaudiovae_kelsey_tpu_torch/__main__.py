@@ -1,12 +1,14 @@
 """CLI of the PyTorch port:  python -m rawaudiovae_kelsey_tpu_torch <command>
 
 Commands:
+  train     the epoch trainer (the ``python train.py`` flow) on a CUDA device:
+            train --config <ini> [--resume] [--device cuda]
   serve     HTTP inference service (batched encode/decode/reconstruct) on a
             CUDA device:
             serve --run <workdir> [--quantize] [--device cuda] [--port 8422]
 
-Training and the other commands of ``python -m rawaudiovae_kelsey_tpu`` are
-not ported yet.
+The other commands of ``python -m rawaudiovae_kelsey_tpu`` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -66,6 +68,10 @@ def main() -> None:
     cmd, rest = argv[0], argv[1:]
     if cmd == "serve":
         serve(rest)
+    elif cmd == "train":
+        from rawaudiovae_kelsey_tpu_torch.train.cli import main as train
+
+        train(rest)
     else:
         print(f"unknown command {cmd!r}\n{__doc__}")
         sys.exit(2)

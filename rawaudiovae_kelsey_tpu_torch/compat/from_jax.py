@@ -1,18 +1,30 @@
-"""Carry weights between the JAX package and the port.
+"""Carry weights and train states between the JAX package and the port.
 
 Both packages keep the dense VAE's params as the same nested dict
 (``{"fc1": {"w": (in, out), "b": (out,)}, ...}``), so the conversion is a
 copy of every leaf, with no transpose: the JAX side hands over NumPy arrays
 (``jax.device_get`` of its tree), the port holds tensors.  A round trip is
 exact.
+
+A train state crosses as the JAX ``TrainState``'s leaves, in
+``jax.tree_util`` flatten order — params, optax Adam's count, mu and nu,
+the threefry key, the step — the layout of the checkpoint files
+(``train/checkpoint.py``).  The JAX side takes them back with
+``jax.tree_util.tree_unflatten(treedef, leaves)``.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
 
 import numpy as np
 import torch
+
+from rawaudiovae_kelsey_tpu_torch.train.checkpoint import (
+    state_from_leaves,
+    state_leaves,
+)
+from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
 
 
 def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> Any:
@@ -29,3 +41,17 @@ def params_to_jax(params: Any) -> Any:
     if isinstance(params, dict):
         return {k: params_to_jax(v) for k, v in params.items()}
     return params.detach().cpu().numpy().copy()
+
+
+def train_state_from_jax(leaves: List[Any], template: TrainState
+                         ) -> TrainState:
+    """``jax.tree_util.tree_leaves`` of a JAX ``TrainState`` (host arrays)
+    → the port's :class:`TrainState`, shaped and placed like
+    ``template``."""
+    return state_from_leaves(leaves, template)
+
+
+def train_state_to_jax(state: TrainState) -> List[np.ndarray]:
+    """The port's :class:`TrainState` → the JAX ``TrainState``'s leaves
+    (NumPy), in its flatten order."""
+    return state_leaves(state)

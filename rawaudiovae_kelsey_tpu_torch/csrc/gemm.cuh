@@ -1,14 +1,29 @@
-// Tiled fp32 GEMM with a fused bias + activation epilogue: the one device
-// routine every dense-VAE forward kernel of this package is built from.
+// Tiled GEMM with a fused epilogue: the one device routine every dense-VAE
+// kernel of this package, forward and backward, is built from.
 //
-//   C[m, n] = act( sum_k A[m, k] * B[k, n] + bias[n] )
+//   C[m, n] = epilogue( sum_k A[m, k] * B[k, n] )
 //
-// A is (M, K) fp32 row-major (activations); B is (K, N) row-major in the
-// model's (in, out) weight layout, either fp32 or int8 with one fp32 scale
-// per output column (dequantized to fp32 as it is staged in shared memory,
-// so the product sees exactly q * scale, as the plain version does).  One
-// launch can carry two outputs that share A (blockIdx.z picks which): the
-// encoder's mu and logvar heads both read h.
+// Operands.  A and B are each read through a View: element (r, k), where r
+// is the row of A (m) or the column of B (n) and k the contraction index,
+// of one matrix or of two joined along k (k < split reads p0, the rest
+// p1).  A View is either k-contiguous (element at r * ld + k) or
+// r-contiguous (element at k * ld + r), a compile-time choice.  That covers
+// every product of the model:
+//   x @ W         A k-contiguous (x row-major), B r-contiguous (W is (in, out));
+//   a @ Wᵀ        A k-contiguous, B k-contiguous (W read by its rows);
+//   [a1 a2] @ [W1ᵀ; W2ᵀ]   the same with two sources joined along k;
+//   aᵀ @ b        A r-contiguous, B r-contiguous (both (batch, ·), k = batch).
+// Element types: fp32 or bf16 (converted to fp32 as they are staged), or
+// int8 B with one fp32 scale per output column (dequantized as q * scale,
+// the product the plain version forms).
+//
+// Epilogue, in fp32: + bias[n] (optional), then ReLU, tanh, or a gate
+// (C = 0 where gate[m, n] <= 0: the ReLU backward), then one rounding to the
+// output type (fp32 or bf16).  Optionally the blocks of the first row of
+// tiles also sum B over k for their columns (colsum[n] = sum_k B[k, n], the
+// bias gradient of a weight-gradient product), in k order.  One launch can
+// carry two outputs that share A (blockIdx.z picks which): the encoder's
+// two heads, or the two head gradients that both contract h.
 //
 // Design: a block of 256 threads (16 x 16) owns a BM x BN tile of C and
 // walks K in BK-deep slabs staged in shared memory, double-buffered: each
@@ -16,96 +31,151 @@
 // one's FMAs, so global latency hides behind arithmetic.  Each thread keeps
 // a (BM/16) x (BN/16) register tile of fp32 accumulators, strided by 16
 // rows and columns so shared-memory reads broadcast and stores coalesce.
-// Every edge (M, N and K) is masked in the kernel, so a ragged batch needs
-// no padding.  fp32 FMAs on the CUDA cores, no tensor cores: serving runs in
-// fp32, and wgmma / TMA pipelines are later work.
+// A k-contiguous operand is loaded with neighbouring threads on
+// neighbouring k and stored transposed (+1 column of padding keeps those
+// stores off one bank).  Every edge (M, N and K) is masked in the kernel,
+// so a ragged batch needs no padding.  A block loops over the whole of K
+// itself: a contraction over the batch is one pass with no atomics and no
+// second reduction, so two runs give identical bits.  fp32 FMAs on the
+// CUDA cores, no tensor cores: wgmma / TMA pipelines are later work.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace rvk {
 namespace {
 
-enum Act : int { kActNone = 0, kActRelu = 1, kActTanh = 2 };
+using bf16 = __nv_bfloat16;
+
+enum Act : int { kActNone = 0, kActRelu = 1, kActTanh = 2, kActGate = 3 };
+// operand dtype codes of the C entry points (ops/mlp.py DTYPE_CODES)
+enum DType : int { kF32 = 0, kBF16 = 1 };
 
 constexpr int kThreads = 256;
 constexpr int kBK = 16;
 
-template <typename TB>
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
+
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+struct View {
+  const T* p0;  // k in [0, split)
+  const T* p1;  // k in [split, K); unused when split >= K
+  int ld0, ld1, split;
+};
+
+template <bool kKC, typename T>
+__device__ __forceinline__ float fetch(const View<T>& v, int r, int k) {
+  const T* p = v.p0;
+  int ld = v.ld0;
+  if (k >= v.split) {
+    p = v.p1;
+    ld = v.ld1;
+    k -= v.split;
+  }
+  const size_t idx = kKC ? static_cast<size_t>(r) * ld + k
+                         : static_cast<size_t>(k) * ld + r;
+  return to_f32(p[idx]);
+}
+
+template <typename TB, typename TC>
 struct GemmOut {
-  const TB* B;         // (K, N) row-major
+  View<TB> b;
   const float* scale;  // (N,) per output column; int8 B only
-  const float* bias;   // (N,)
-  float* C;            // (M, N) row-major
+  const TC* bias;      // (N,) or nullptr
+  const TC* gate;      // (M, N) row-major; kActGate only
+  TC* c;               // (M, N) row-major
+  float* colsum;       // (N,) sum of B over k, or nullptr
 };
 
-template <typename TB>
-struct GemmOuts {
-  GemmOut<TB> out[2];  // blockIdx.z selects one
+template <typename TA, typename TB, typename TC>
+struct Gemm {
+  View<TA> a;
+  GemmOut<TB, TC> out[2];  // blockIdx.z selects one
+  int M, N, K, act;
 };
 
-__device__ __forceinline__ float load_b(const float* B, const float*,
-                                        size_t idx, int) {
-  return B[idx];
-}
-
-__device__ __forceinline__ float load_b(const int8_t* B, const float* scale,
-                                        size_t idx, int n) {
-  return static_cast<float>(B[idx]) * scale[n];
-}
-
-template <int BM, int BN, typename TB>
+template <int BM, int BN, typename TA, bool kAKC, typename TB, bool kBKC,
+          typename TC>
 __global__ void __launch_bounds__(kThreads)
-gemm_bias_act(const float* __restrict__ A, GemmOuts<TB> outs, int M, int N,
-              int K, int act) {
+gemm_kernel(const Gemm<TA, TB, TC> args) {
   constexpr int TM = BM / 16;
   constexpr int TN = BN / 16;
   constexpr int LA = BM * kBK / kThreads;  // A values a thread stages
   constexpr int LB = kBK * BN / kThreads;  // B values a thread stages
   // two slabs of each operand: the next one is stored while the current
-  // one is read, so one barrier a slab suffices.  +1 column of padding on
-  // A: its transposed store would otherwise put a warp's 16 k-values of one
-  // row on the same bank
+  // one is read, so one barrier a slab suffices
   __shared__ float As[2][kBK][BM + 1];
-  __shared__ float Bs[2][kBK][BN];
+  __shared__ float Bs[2][kBK][BN + 1];
 
-  const GemmOut<TB> g = outs.out[blockIdx.z];
+  const GemmOut<TB, TC> g = args.out[blockIdx.z];
+  const int M = args.M, N = args.N, K = args.K;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
 
-  // global → registers: neighbouring threads read neighbouring k of one
-  // row of A and neighbouring output columns of B; out-of-range is 0
+  // staging position (r, k) within the slab of the l-th value a thread
+  // loads: neighbouring threads on the operand's contiguous axis
+  auto a_pos = [](int l, int& r, int& k) {
+    const int idx = threadIdx.x + l * kThreads;
+    r = kAKC ? idx / kBK : idx % BM;
+    k = kAKC ? idx % kBK : idx / BM;
+  };
+  auto b_pos = [](int l, int& r, int& k) {
+    const int idx = threadIdx.x + l * kThreads;
+    r = kBKC ? idx / kBK : idx % BN;
+    k = kBKC ? idx % kBK : idx / BN;
+  };
+
+  // global → registers, out-of-range is 0
   float ra[LA], rb[LB];
   auto load_slab = [&](int k0) {
 #pragma unroll
     for (int l = 0; l < LA; ++l) {
-      const int idx = threadIdx.x + l * kThreads;
-      const int m = m0 + idx / kBK, k = k0 + idx % kBK;
-      ra[l] = (m < M && k < K) ? A[static_cast<size_t>(m) * K + k] : 0.f;
+      int r, k;
+      a_pos(l, r, k);
+      const int m = m0 + r, kk = k0 + k;
+      ra[l] = (m < M && kk < K) ? fetch<kAKC>(args.a, m, kk) : 0.f;
     }
 #pragma unroll
     for (int l = 0; l < LB; ++l) {
-      const int idx = threadIdx.x + l * kThreads;
-      const int k = k0 + idx / BN, n = n0 + idx % BN;
-      rb[l] = (k < K && n < N)
-                  ? load_b(g.B, g.scale, static_cast<size_t>(k) * N + n, n)
-                  : 0.f;
+      int r, k;
+      b_pos(l, r, k);
+      const int n = n0 + r, kk = k0 + k;
+      float v = 0.f;
+      if (n < N && kk < K) {
+        v = fetch<kBKC>(g.b, n, kk);
+        if constexpr (std::is_same<TB, int8_t>::value) v *= g.scale[n];
+      }
+      rb[l] = v;
     }
   };
-  // registers → shared slab s (A transposed to [k][m])
+  // registers → shared slab s, both as [k][r]
   auto store_slab = [&](int s) {
 #pragma unroll
     for (int l = 0; l < LA; ++l) {
-      const int idx = threadIdx.x + l * kThreads;
-      As[s][idx % kBK][idx / kBK] = ra[l];
+      int r, k;
+      a_pos(l, r, k);
+      As[s][k][r] = ra[l];
     }
 #pragma unroll
     for (int l = 0; l < LB; ++l) {
-      const int idx = threadIdx.x + l * kThreads;
-      Bs[s][idx / BN][idx % BN] = rb[l];
+      int r, k;
+      b_pos(l, r, k);
+      Bs[s][k][r] = rb[l];
     }
   };
 
@@ -115,6 +185,12 @@ gemm_bias_act(const float* __restrict__ A, GemmOuts<TB> outs, int M, int N,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   }
+  // the column sums: one thread of each column of threads, first row of
+  // tiles only, adding B's staged values in k order
+  const bool sums = g.colsum != nullptr && blockIdx.x == 0 && ty == 0;
+  float csum[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) csum[j] = 0.f;
 
   load_slab(0);
   store_slab(0);
@@ -137,12 +213,20 @@ gemm_bias_act(const float* __restrict__ A, GemmOuts<TB> outs, int M, int N,
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
     }
+    if (sums) {
+#pragma unroll
+      for (int kk = 0; kk < kBK; ++kk) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) csum[j] += Bs[s][kk][tx + 16 * j];
+      }
+    }
     if (more) store_slab(s ^ 1);
     __syncthreads();
     s ^= 1;
   }
 
   // epilogue: the sum first, then the bias, as the plain `x @ w + b` does
+  const int act = args.act;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty + 16 * i;
@@ -151,13 +235,24 @@ gemm_bias_act(const float* __restrict__ A, GemmOuts<TB> outs, int M, int N,
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
-      float v = acc[i][j] + g.bias[n];
+      const size_t at = static_cast<size_t>(m) * N + n;
+      float v = acc[i][j];
+      if (g.bias != nullptr) v += to_f32(g.bias[n]);
       if (act == kActRelu) {
         v = fmaxf(v, 0.f);
       } else if (act == kActTanh) {
         v = tanhf(v);
+      } else if (act == kActGate) {
+        if (!(to_f32(g.gate[at]) > 0.f)) v = 0.f;
       }
-      g.C[static_cast<size_t>(m) * N + n] = v;
+      store_as(g.c + at, v);
+    }
+  }
+  if (sums) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) g.colsum[n] = csum[j];
     }
   }
 }
@@ -175,26 +270,57 @@ inline int sm_count() {
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// A single-source View: one matrix with leading dimension ld and K extent k.
+template <typename T>
+View<T> view(const T* p, int ld, int k) {
+  return View<T>{p, nullptr, ld, 0, k};
+}
+
 // Launch one GEMM (n_out = 1) or two that share A (n_out = 2).  64 x 64
 // tiles when they give at least half the SMs a block; 32 x 32 tiles
 // otherwise, so that the long-K, narrow-N shapes (the heads, the decoder's
 // output layer) and small batches still spread over the card.  On the H100
 // this picks the faster of the two at every serving shape measured (batch
 // 100 and 256; PERF.md).  Returns the launch's error code.
-template <typename TB>
-cudaError_t launch_gemm(const float* A, const GemmOuts<TB>& outs, int n_out,
-                        int M, int N, int K, int act, cudaStream_t stream) {
+template <bool kAKC, bool kBKC, typename TA, typename TB, typename TC>
+cudaError_t launch_gemm(const Gemm<TA, TB, TC>& args, int n_out,
+                        cudaStream_t stream) {
+  if (args.M <= 0 || args.N <= 0) return cudaSuccess;
   const dim3 block(kThreads);
-  if (2 * cdiv(M, 64) * cdiv(N, 64) * n_out >= sm_count()) {
-    const dim3 grid(cdiv(M, 64), cdiv(N, 64), n_out);
-    gemm_bias_act<64, 64, TB><<<grid, block, 0, stream>>>(A, outs, M, N, K,
-                                                          act);
+  if (2 * cdiv(args.M, 64) * cdiv(args.N, 64) * n_out >= sm_count()) {
+    const dim3 grid(cdiv(args.M, 64), cdiv(args.N, 64), n_out);
+    gemm_kernel<64, 64, TA, kAKC, TB, kBKC, TC>
+        <<<grid, block, 0, stream>>>(args);
   } else {
-    const dim3 grid(cdiv(M, 32), cdiv(N, 32), n_out);
-    gemm_bias_act<32, 32, TB><<<grid, block, 0, stream>>>(A, outs, M, N, K,
-                                                          act);
+    const dim3 grid(cdiv(args.M, 32), cdiv(args.N, 32), n_out);
+    gemm_kernel<32, 32, TA, kAKC, TB, kBKC, TC>
+        <<<grid, block, 0, stream>>>(args);
   }
   return cudaGetLastError();
+}
+
+// The operand layouts of the model's products (see the top of this file).
+constexpr bool kKContig = true;
+constexpr bool kRContig = false;
+
+// The C entry points take untyped pointers and a DType code: with_dtype
+// calls f with a null T* (T = float for kF32, bf16 for kBF16) to name the
+// element type, and src / dst cast each pointer to it.
+template <typename F>
+cudaError_t with_dtype(int dtype, F&& f) {
+  if (dtype == kF32) return f(static_cast<float*>(nullptr));
+  if (dtype == kBF16) return f(static_cast<bf16*>(nullptr));
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+const T* src(const void* p) {
+  return static_cast<const T*>(p);
+}
+
+template <typename T>
+T* dst(void* p) {
+  return static_cast<T*>(p);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
-// Dense-VAE forward kernels, fp32, with a plain C interface for ctypes
-// (ops/_build.py loads the library; ops/mlp.py holds the wrappers and the
-// plain PyTorch versions they are checked against).
+// Dense-VAE forward kernels, fp32 or bf16 operands, with a plain C
+// interface for ctypes (ops/_build.py loads the library; ops/mlp.py holds
+// the wrappers and the plain PyTorch versions they are checked against).
 //
 // rvk_encoder_fwd replaces the TPU kernel encoder_fwd (_enc_fwd_kernel) of
 // rawaudiovae_kelsey_tpu/ops/pallas_mlp.py; rvk_decoder_fwd replaces
@@ -10,19 +10,87 @@
 // GEMM of gemm.cuh, and the hidden activation (h / h3, an output of the
 // TPU kernels too) goes through device memory between them.
 //
+// Types, as the TPU kernels do them: fp32 accumulation; the bias added and
+// the activation applied in fp32; every output (h, mu, logvar, h3, y) in the
+// operand dtype, rounded once.  h and h3 are rounded before they feed the
+// next layer (pallas_mlp.py:238-242, 289), so the heads and fc4 read the
+// same bf16 values the backward later reads back.
+//
 // What bounds them: at the serving batch (256) and full width
 // (1024/2048/256) the encoder does 1.61 GFLOP on 12.6 MB of weights, the
 // decoder 1.34 GFLOP on 10.5 MB — ~128 FLOP per weight byte against a
 // ridge of ~20 (67 TFLOP/s fp32 on the CUDA cores over 3.35 TB/s), so fp32
 // FMA throughput, not HBM, is the limit; h is re-read from the 50 MB L2,
-// not HBM.  The design's
-// answer is register tiling (each shared-memory value feeds 2-4 FMAs) and
-// tile sizes that keep every SM busy at batch 256.
+// not HBM.  At the training microbatch (8192, bf16) the FLOPs per byte only
+// grow, so the same holds.  The design's answer is register tiling (each
+// shared-memory value feeds 2-4 FMAs) and tile sizes that keep every SM
+// busy at batch 256.
 
 #include "gemm.cuh"
 
-using rvk::GemmOuts;
+using rvk::dst;
+using rvk::Gemm;
+using rvk::kKContig;
+using rvk::kRContig;
 using rvk::launch_gemm;
+using rvk::src;
+using rvk::view;
+
+namespace {
+
+// h = relu(x @ w1 + b1); mu = h @ w21 + b21; logvar = h @ w22 + b22.
+template <typename T>
+cudaError_t encoder_fwd(const T* x, const T* w1, const T* b1, const T* w21,
+                        const T* b21, const T* w22, const T* b22, T* mu,
+                        T* logvar, T* h, int batch, int seg, int units,
+                        int latent, cudaStream_t s) {
+  Gemm<T, T, T> hidden = {};
+  hidden.a = view(x, seg, seg);
+  hidden.out[0].b = view(w1, units, seg);
+  hidden.out[0].bias = b1;
+  hidden.out[0].c = h;
+  hidden.M = batch, hidden.N = units, hidden.K = seg;
+  hidden.act = rvk::kActRelu;
+  cudaError_t err = launch_gemm<kKContig, kRContig>(hidden, 1, s);
+  if (err != cudaSuccess) return err;
+  Gemm<T, T, T> heads = {};
+  heads.a = view<T>(h, units, units);
+  heads.out[0].b = view(w21, latent, units);
+  heads.out[0].bias = b21;
+  heads.out[0].c = mu;
+  heads.out[1].b = view(w22, latent, units);
+  heads.out[1].bias = b22;
+  heads.out[1].c = logvar;
+  heads.M = batch, heads.N = latent, heads.K = units;
+  heads.act = rvk::kActNone;
+  return launch_gemm<kKContig, kRContig>(heads, 2, s);
+}
+
+// h3 = relu(z @ w3 + b3); y = tanh(h3 @ w4 + b4).
+template <typename T>
+cudaError_t decoder_fwd(const T* z, const T* w3, const T* b3, const T* w4,
+                        const T* b4, T* y, T* h3, int batch, int latent,
+                        int units, int seg, cudaStream_t s) {
+  Gemm<T, T, T> hidden = {};
+  hidden.a = view(z, latent, latent);
+  hidden.out[0].b = view(w3, units, latent);
+  hidden.out[0].bias = b3;
+  hidden.out[0].c = h3;
+  hidden.M = batch, hidden.N = units, hidden.K = latent;
+  hidden.act = rvk::kActRelu;
+  cudaError_t err = launch_gemm<kKContig, kRContig>(hidden, 1, s);
+  if (err != cudaSuccess) return err;
+  Gemm<T, T, T> out = {};
+  out.a = view<T>(h3, units, units);
+  out.out[0].b = view(w4, seg, units);
+  out.out[0].bias = b4;
+  out.out[0].c = y;
+  out.M = batch, out.N = seg, out.K = units;
+  out.act = rvk::kActTanh;
+  return launch_gemm<kKContig, kRContig>(out, 1, s);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -30,38 +98,36 @@ const char* rvk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// h = relu(x @ w1 + b1); mu = h @ w21 + b21; logvar = h @ w22 + b22.
-// x (batch, seg); w1 (seg, units); w21, w22 (units, latent).
-int rvk_encoder_fwd(const float* x, const float* w1, const float* b1,
-                    const float* w21, const float* b21, const float* w22,
-                    const float* b22, float* mu, float* logvar, float* h,
-                    int batch, int seg, int units, int latent, void* stream) {
+// x (batch, seg); w1 (seg, units); w21, w22 (units, latent); outputs mu,
+// logvar (batch, latent) and h (batch, units).  All of one dtype (rvk::DType).
+int rvk_encoder_fwd(const void* x, const void* w1, const void* b1,
+                    const void* w21, const void* b21, const void* w22,
+                    const void* b22, void* mu, void* logvar, void* h,
+                    int batch, int seg, int units, int latent, int dtype,
+                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GemmOuts<float> hidden = {};
-  hidden.out[0] = {w1, nullptr, b1, h};
-  cudaError_t err = launch_gemm(x, hidden, 1, batch, units, seg,
-                                rvk::kActRelu, s);
-  if (err != cudaSuccess) return err;
-  GemmOuts<float> heads = {};
-  heads.out[0] = {w21, nullptr, b21, mu};
-  heads.out[1] = {w22, nullptr, b22, logvar};
-  return launch_gemm(h, heads, 2, batch, latent, units, rvk::kActNone, s);
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return encoder_fwd(src<T>(x), src<T>(w1), src<T>(b1), src<T>(w21),
+                       src<T>(b21), src<T>(w22), src<T>(b22), dst<T>(mu),
+                       dst<T>(logvar), dst<T>(h), batch, seg, units, latent,
+                       s);
+  });
 }
 
-// h3 = relu(z @ w3 + b3); y = tanh(h3 @ w4 + b4).
-// z (batch, latent); w3 (latent, units); w4 (units, seg).
-int rvk_decoder_fwd(const float* z, const float* w3, const float* b3,
-                    const float* w4, const float* b4, float* y, float* h3,
-                    int batch, int latent, int units, int seg, void* stream) {
+// z (batch, latent); w3 (latent, units); w4 (units, seg); outputs y
+// (batch, seg) and h3 (batch, units).  All of one dtype.
+int rvk_decoder_fwd(const void* z, const void* w3, const void* b3,
+                    const void* w4, const void* b4, void* y, void* h3,
+                    int batch, int latent, int units, int seg, int dtype,
+                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GemmOuts<float> hidden = {};
-  hidden.out[0] = {w3, nullptr, b3, h3};
-  cudaError_t err = launch_gemm(z, hidden, 1, batch, units, latent,
-                                rvk::kActRelu, s);
-  if (err != cudaSuccess) return err;
-  GemmOuts<float> out = {};
-  out.out[0] = {w4, nullptr, b4, y};
-  return launch_gemm(h3, out, 1, batch, seg, units, rvk::kActTanh, s);
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return decoder_fwd(src<T>(z), src<T>(w3), src<T>(b3), src<T>(w4),
+                       src<T>(b4), dst<T>(y), dst<T>(h3), batch, latent,
+                       units, seg, s);
+  });
 }
 
 }  // extern "C"

@@ -17,8 +17,11 @@
 
 #include "gemm.cuh"
 
-using rvk::GemmOuts;
+using rvk::Gemm;
+using rvk::kKContig;
+using rvk::kRContig;
 using rvk::launch_gemm;
+using rvk::view;
 
 extern "C" {
 
@@ -30,14 +33,25 @@ int rvk_quantized_decoder_fwd(const float* z, const int8_t* q3,
                               const float* b4, float* y, float* h3, int batch,
                               int latent, int units, int seg, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GemmOuts<int8_t> hidden = {};
-  hidden.out[0] = {q3, s3, b3, h3};
-  cudaError_t err = launch_gemm(z, hidden, 1, batch, units, latent,
-                                rvk::kActRelu, s);
+  Gemm<float, int8_t, float> hidden = {};
+  hidden.a = view(z, latent, latent);
+  hidden.out[0].b = view(q3, units, latent);
+  hidden.out[0].scale = s3;
+  hidden.out[0].bias = b3;
+  hidden.out[0].c = h3;
+  hidden.M = batch, hidden.N = units, hidden.K = latent;
+  hidden.act = rvk::kActRelu;
+  cudaError_t err = launch_gemm<kKContig, kRContig>(hidden, 1, s);
   if (err != cudaSuccess) return err;
-  GemmOuts<int8_t> out = {};
-  out.out[0] = {q4, s4, b4, y};
-  return launch_gemm(h3, out, 1, batch, seg, units, rvk::kActTanh, s);
+  Gemm<float, int8_t, float> out = {};
+  out.a = view<float>(h3, units, units);
+  out.out[0].b = view(q4, seg, units);
+  out.out[0].scale = s4;
+  out.out[0].bias = b4;
+  out.out[0].c = y;
+  out.M = batch, out.N = seg, out.K = units;
+  out.act = rvk::kActTanh;
+  return launch_gemm<kKContig, kRContig>(out, 1, s);
 }
 
 }  // extern "C"

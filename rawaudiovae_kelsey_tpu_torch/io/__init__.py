@@ -7,4 +7,7 @@ from rawaudiovae_kelsey_tpu_torch.io.wavio import (  # noqa: F401
     wav_info,
     write_wav,
 )
-from rawaudiovae_kelsey_tpu_torch.io.resample import resample  # noqa: F401
+from rawaudiovae_kelsey_tpu_torch.io.resample import (  # noqa: F401
+    load,
+    resample,
+)

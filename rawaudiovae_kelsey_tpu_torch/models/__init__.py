@@ -5,6 +5,8 @@ from rawaudiovae_kelsey_tpu_torch.models.vae import (  # noqa: F401
     forward,
     init_dense,
     linear,
+    loss_components,
+    loss_fn,
     reparameterize,
 )
 from rawaudiovae_kelsey_tpu_torch.models.registry import (  # noqa: F401

@@ -144,6 +144,27 @@ def decode(params: Params, z: Tensor) -> Tensor:
     return torch.tanh(linear(params["fc4"], h3))
 
 
+def loss_components(recon_x: Tensor, x: Tensor, mu: Tensor, logvar: Tensor,
+                    kl_beta: float, segment_length: int,
+                    reduction: str = "mean") -> Tuple[Tensor, Tensor, Tensor]:
+    """``(loss, mse, kld)``: MSE + β·KLD, both mean-reduced by default
+    (model.py:38-46; the comment there says "summed" but the code means —
+    quirk #1, parity kept), or both summed with ``reduction="sum"``."""
+    x = x.reshape(-1, segment_length)
+    red = torch.mean if reduction == "mean" else torch.sum
+    recon_loss = red(torch.square(recon_x - x))
+    kld = -0.5 * red(1.0 + logvar - torch.square(mu) - torch.exp(logvar))
+    return recon_loss + kl_beta * kld, recon_loss, kld
+
+
+def loss_fn(recon_x: Tensor, x: Tensor, mu: Tensor, logvar: Tensor,
+            kl_beta: float, segment_length: int,
+            reduction: str = "mean") -> Tensor:
+    """The loss alone; see :func:`loss_components`."""
+    return loss_components(recon_x, x, mu, logvar, kl_beta, segment_length,
+                           reduction)[0]
+
+
 def forward(params: Params, x: Tensor, segment_length: int,
             generator: Optional[torch.Generator] = None,
             deterministic: bool = False) -> Tuple[Tensor, Tensor, Tensor]:

@@ -1,0 +1,85 @@
+"""Step timing → frames/sec accounting, and profiler capture — the JAX
+package's ``observe/timing.py``, ported.
+
+``StepTimer`` reads the host clock; on a CUDA device it synchronises first,
+so a window ends when the device's queued work has ended, not when the host
+finished enqueueing it.  ``trace_capture`` wraps a window of steps in a
+``torch.profiler`` trace (CPU and, where there is one, CUDA activity),
+written as a Chrome trace into the log directory.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+
+
+def synchronize(device: Optional[torch.device]) -> None:
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclass
+class StepTimer:
+    """Collects per-window durations; excludes the first ``warmup`` ones
+    (kernel build + allocator warmup) from throughput stats."""
+
+    warmup: int = 2
+    device: Optional[torch.device] = None
+    _t0: Optional[float] = None
+    durations: List[float] = field(default_factory=list)
+
+    def start(self) -> None:
+        synchronize(self.device)
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        synchronize(self.device)
+        dt = time.perf_counter() - self._t0
+        self.durations.append(dt)
+        return dt
+
+    @property
+    def steady(self) -> List[float]:
+        """Post-warmup durations.  A run too short to pass warmup falls
+        back to the LAST duration only — never the full list, which would
+        average the first window's one-time costs into the throughput."""
+        if len(self.durations) > self.warmup:
+            return self.durations[self.warmup:]
+        return self.durations[-1:]
+
+    def mean_step_s(self) -> float:
+        s = self.steady
+        return sum(s) / len(s) if s else float("nan")
+
+    def frames_per_sec(self, batch_size: int) -> float:
+        m = self.mean_step_s()
+        return batch_size / m if m and m == m else float("nan")
+
+
+class trace_capture:
+    """``with trace_capture(logdir): ...`` records a ``torch.profiler``
+    trace of the block into ``<logdir>/trace.json`` (viewable in
+    chrome://tracing or Perfetto)."""
+
+    def __init__(self, logdir):
+        self.logdir = Path(logdir)
+        self.prof: Optional[torch.profiler.profile] = None
+
+    def __enter__(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+        self.logdir.mkdir(parents=True, exist_ok=True)
+        self.prof.export_chrome_trace(str(self.logdir / "trace.json"))
+        return False

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels and bind them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into ONE shared library with a
-plain C interface, at first use, in ``build/kernels/`` beside the package
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into ONE shared library with a plain
+C interface, at first use, in ``build/kernels/`` beside the package
 (git-ignored).  The library's name carries a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads the cached
 file.  A build failure raises: nothing runs without the kernels.  Sources
@@ -25,16 +26,20 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point → argument types (pointers and the stream as c_void_p: a
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
-    "rvk_encoder_fwd": [_P] * 10 + [_I] * 4 + [_P],
-    "rvk_decoder_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "rvk_encoder_fwd": [_P] * 10 + [_I] * 5 + [_P],
+    "rvk_decoder_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "rvk_quantized_decoder_fwd": [_P] * 9 + [_I] * 4 + [_P],
+    "rvk_grad_accum": [_P] * 4 + [_I] * 4 + [_P],
+    "rvk_grad_accum2": [_P] * 7 + [_I] * 4 + [_P],
+    "rvk_enc_bwd_dw1": [_P] * 9 + [_I] * 5 + [_P],
+    "rvk_dec_bwd_fused": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -68,15 +73,34 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"kernel build failed (nvcc exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tag = f"tmp{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{out.stem}.{p.stem}.{tag}.o") for p in sources]
+    # one compiler per source, all at once: the templates of each file
+    # compile in parallel; each writes its own report
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out.with_name(f"{out.name}.{tag}")
+    try:
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"kernel build failed (nvcc exit {proc.returncode}):\n"
+                    f"{' '.join(cmd)}\n{log}")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"kernel link failed (nvcc exit {proc.returncode}):\n"
+                f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
     tmp.rename(out)  # atomic: a concurrent loader never sees a torn file
     return out
 

@@ -1,21 +1,27 @@
-"""Dense-VAE forward kernels: the CUDA counterparts of the JAX package's
-``ops/pallas_mlp.py`` ``encoder_fwd`` / ``decoder_fwd``.
+"""Dense-VAE kernels, forward and backward: the CUDA counterparts of the
+JAX package's ``ops/pallas_mlp.py``.
 
 Each op has three parts, side by side:
 
-* the plain PyTorch version (``encoder_fwd_ref``, ``decoder_fwd_ref``):
-  the same arithmetic, in the JAX op order (``x @ w + b``, then the
-  activation);
-* the wrapper (``encoder_fwd``, ``decoder_fwd``): for a CPU tensor it runs
-  the plain version; for a CUDA tensor it checks device, dtype, shape and
-  contiguity, launches the hand-written kernel (``csrc/mlp.cu``) on the
-  current stream, and counts the launch in ``<wrapper>.launches``.  It
-  never falls back: anything the kernel does not take raises;
-* the model-level entry points ``encode`` / ``decode``, which play the
-  roles of ``pallas_encode`` / ``pallas_decode`` (forward only: serving).
+* the plain PyTorch version (``<op>_ref``): the same arithmetic in fp32
+  from the operands upcast to fp32, rounded to the operand dtype exactly
+  where the TPU kernel rounds;
+* the wrapper (``<op>``): for a CPU tensor it runs the plain version; for a
+  CUDA tensor it checks device, dtype, shape and contiguity, launches the
+  hand-written kernel (``csrc/mlp.cu``, ``csrc/bwd.cu``) on the current
+  stream, and counts the launch in ``<op>.launches``.  It never falls back:
+  anything the kernel does not take raises;
+* the model-level entry points ``encode`` / ``decode``: the
+  ``torch.autograd.Function`` s that play the roles of ``pallas_encode`` /
+  ``pallas_decode``, whose backward runs the backward kernels of the JAX
+  package's bf16 "split" backward: ``enc_bwd_dw1`` + ``grad_accum2`` for
+  the encoder, ``dec_bwd_fused`` + ``grad_accum`` for the decoder.
 
 Layouts are the JAX package's: weights ``(in, out)``, biases ``(out,)``.
-fp32 in, fp32 out, fp32 accumulation.  The kernels mask the ragged batch
+Operands are fp32 or bf16, all of one dtype per call; accumulation is fp32;
+forward outputs and ``dz`` come in the operand dtype, weight and bias
+gradients in fp32 (the autograd Functions cast them to the params' dtype,
+as ``pallas_encode``'s backward does).  The kernels mask the ragged batch
 edge themselves; nothing is padded.
 """
 
@@ -29,19 +35,71 @@ from rawaudiovae_kelsey_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
+# operand dtype → the code the C entry points take (csrc/gemm.cuh DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _f(t: Tensor) -> Tensor:
+    return t.to(torch.float32)
+
+
+# ----------------------------------------------------------- plain versions
 
 def encoder_fwd_ref(w1, b1, w21, b21, w22, b22, x
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of :func:`encoder_fwd`."""
-    h = torch.relu(x @ w1 + b1)
-    return h @ w21 + b21, h @ w22 + b22, h
+    dt = x.dtype
+    h = torch.relu(_f(x) @ _f(w1) + _f(b1)).to(dt)
+    mu = (_f(h) @ _f(w21) + _f(b21)).to(dt)
+    logvar = (_f(h) @ _f(w22) + _f(b22)).to(dt)
+    return mu, logvar, h
 
 
 def decoder_fwd_ref(w3, b3, w4, b4, z) -> Tuple[Tensor, Tensor]:
     """Plain version of :func:`decoder_fwd`."""
-    h3 = torch.relu(z @ w3 + b3)
-    return torch.tanh(h3 @ w4 + b4), h3
+    dt = z.dtype
+    h3 = torch.relu(_f(z) @ _f(w3) + _f(b3)).to(dt)
+    return torch.tanh(_f(h3) @ _f(w4) + _f(b4)).to(dt), h3
 
+
+def matmul_nt2_mask_ref(a1, w1, a2, w2, gate) -> Tensor:
+    """``(a1 @ w1ᵀ + a2 @ w2ᵀ) · (gate > 0)`` in ``a1``'s dtype: the
+    encoder's ``dh`` (JAX ``matmul_nt2_mask``; plain version only)."""
+    prod = _f(a1) @ _f(w1).t() + _f(a2) @ _f(w2).t()
+    return torch.where(_f(gate) > 0, prod, 0.0).to(a1.dtype)
+
+
+def matmul_nt_ref(a, w) -> Tensor:
+    """``a @ wᵀ`` in ``a``'s dtype (JAX ``matmul_nt``; plain version
+    only)."""
+    return (_f(a) @ _f(w).t()).to(a.dtype)
+
+
+def grad_accum_ref(a, b) -> Tuple[Tensor, Tensor]:
+    """Plain version of :func:`grad_accum`."""
+    return _f(a).t() @ _f(b), _f(b).sum(0)
+
+
+def grad_accum2_ref(a, b1, b2) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Plain version of :func:`grad_accum2`."""
+    return (*grad_accum_ref(a, b1), *grad_accum_ref(a, b2))
+
+
+def enc_bwd_dw1_ref(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, Tensor]:
+    """Plain version of :func:`enc_bwd_dw1`: ``dh`` rounded to the operand
+    dtype (``pallas_mlp.py:535``), then ``(xᵀ dh, colsum(dh))``."""
+    return grad_accum_ref(x, matmul_nt2_mask_ref(dmu, w21, dlogvar, w22, h))
+
+
+def dec_bwd_fused_ref(da, h3, z, w4, w3) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of :func:`dec_bwd_fused`: ``dh3`` rounded to the
+    operand dtype (``pallas_mlp.py:686``), then ``dz = dh3 @ w3ᵀ`` in it and
+    ``(zᵀ dh3, colsum(dh3))`` in fp32."""
+    dh3 = torch.where(_f(h3) > 0, _f(da) @ _f(w4).t(), 0.0).to(da.dtype)
+    return (matmul_nt_ref(dh3, w3), *grad_accum_ref(z, dh3))
+
+
+# ------------------------------------------------------------------ checks
 
 def require(t: Tensor, name: str, shape: Tuple[int, ...],
             device: torch.device, dtype: torch.dtype = torch.float32) -> None:
@@ -72,6 +130,17 @@ def cuda_device(x: Tensor, name: str) -> torch.device:
     return x.device
 
 
+def operand_dtype(x: Tensor, name: str) -> torch.dtype:
+    """``x``'s dtype if the kernels take it (fp32 or bf16); raises
+    otherwise.  Every other operand of the call must match it."""
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype}, the kernels take "
+                        f"{' or '.join(map(str, DTYPE_CODES))}")
+    return x.dtype
+
+
+# ----------------------------------------------------------- forward kernels
+
 def encoder_fwd(w1, b1, w21, b21, w22, b22, x
                 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Fused ``relu(x@W1+b1)`` → ``(mu, logvar, h)``.
@@ -82,21 +151,23 @@ def encoder_fwd(w1, b1, w21, b21, w22, b22, x
     if x.device.type == "cpu":
         return encoder_fwd_ref(w1, b1, w21, b21, w22, b22, x)
     dev = cuda_device(x, "encoder_fwd: x")
+    dt = operand_dtype(x, "encoder_fwd: x")
     batch, seg = x.shape
     units, latent = w1.shape[1], w21.shape[1]
-    require(x, "x", (batch, seg), dev)
-    require(w1, "w1", (seg, units), dev)
-    require(b1, "b1", (units,), dev)
-    require(w21, "w21", (units, latent), dev)
-    require(b21, "b21", (latent,), dev)
-    require(w22, "w22", (units, latent), dev)
-    require(b22, "b22", (latent,), dev)
-    mu = torch.empty((batch, latent), device=dev, dtype=torch.float32)
-    logvar = torch.empty((batch, latent), device=dev, dtype=torch.float32)
-    h = torch.empty((batch, units), device=dev, dtype=torch.float32)
+    require(x, "x", (batch, seg), dev, dt)
+    require(w1, "w1", (seg, units), dev, dt)
+    require(b1, "b1", (units,), dev, dt)
+    require(w21, "w21", (units, latent), dev, dt)
+    require(b21, "b21", (latent,), dev, dt)
+    require(w22, "w22", (units, latent), dev, dt)
+    require(b22, "b22", (latent,), dev, dt)
+    mu = torch.empty((batch, latent), device=dev, dtype=dt)
+    logvar = torch.empty((batch, latent), device=dev, dtype=dt)
+    h = torch.empty((batch, units), device=dev, dtype=dt)
     if batch:
         _build.launch("rvk_encoder_fwd", dev, x, w1, b1, w21, b21, w22, b22,
-                      mu, logvar, h, batch, seg, units, latent)
+                      mu, logvar, h, batch, seg, units, latent,
+                      DTYPE_CODES[dt])
         encoder_fwd.launches += 1
     return mu, logvar, h
 
@@ -112,43 +183,224 @@ def decoder_fwd(w3, b3, w4, b4, z) -> Tuple[Tensor, Tensor]:
     if z.device.type == "cpu":
         return decoder_fwd_ref(w3, b3, w4, b4, z)
     dev = cuda_device(z, "decoder_fwd: z")
+    dt = operand_dtype(z, "decoder_fwd: z")
     batch, latent = z.shape
     units, seg = w3.shape[1], w4.shape[1]
-    require(z, "z", (batch, latent), dev)
-    require(w3, "w3", (latent, units), dev)
-    require(b3, "b3", (units,), dev)
-    require(w4, "w4", (units, seg), dev)
-    require(b4, "b4", (seg,), dev)
-    y = torch.empty((batch, seg), device=dev, dtype=torch.float32)
-    h3 = torch.empty((batch, units), device=dev, dtype=torch.float32)
+    require(z, "z", (batch, latent), dev, dt)
+    require(w3, "w3", (latent, units), dev, dt)
+    require(b3, "b3", (units,), dev, dt)
+    require(w4, "w4", (units, seg), dev, dt)
+    require(b4, "b4", (seg,), dev, dt)
+    y = torch.empty((batch, seg), device=dev, dtype=dt)
+    h3 = torch.empty((batch, units), device=dev, dtype=dt)
     if batch:
         _build.launch("rvk_decoder_fwd", dev, z, w3, b3, w4, b4, y, h3,
-                      batch, latent, units, seg)
+                      batch, latent, units, seg, DTYPE_CODES[dt])
         decoder_fwd.launches += 1
     return y, h3
 
 
 decoder_fwd.launches = 0
 
+
+# ---------------------------------------------------------- backward kernels
+
+def _grads(dev, *shapes) -> Tuple[Tensor, ...]:
+    return tuple(torch.empty(s, device=dev, dtype=torch.float32)
+                 for s in shapes)
+
+
+def grad_accum(a, b) -> Tuple[Tensor, Tensor]:
+    """Weight and bias gradients of ``y = a @ W + bias`` given the
+    cotangent ``b``: ``(aᵀ b, colsum(b))`` in fp32, contracting the batch.
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``grad_accum``.
+    CUDA: one launch (``csrc/bwd.cu``); each block loops over the whole
+    batch for its tile of dW, so the result is deterministic."""
+    if a.device.type == "cpu":
+        return grad_accum_ref(a, b)
+    dev = cuda_device(a, "grad_accum: a")
+    dt = operand_dtype(a, "grad_accum: a")
+    batch, n = a.shape
+    m = b.shape[1]
+    require(a, "a", (batch, n), dev, dt)
+    require(b, "b", (batch, m), dev, dt)
+    dw, db = _grads(dev, (n, m), (m,))
+    _build.launch("rvk_grad_accum", dev, a, b, dw, db, batch, n, m,
+                  DTYPE_CODES[dt])
+    grad_accum.launches += 1
+    return dw, db
+
+
+grad_accum.launches = 0
+
+
+def grad_accum2(a, b1, b2) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Two :func:`grad_accum` s that share ``a``: ``(aᵀ b1, colsum(b1),
+    aᵀ b2, colsum(b2))`` — the encoder's two latent heads, both
+    contracting ``h``.
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``grad_accum2``.
+    CUDA: one launch carrying both products (``csrc/bwd.cu``)."""
+    if a.device.type == "cpu":
+        return grad_accum2_ref(a, b1, b2)
+    dev = cuda_device(a, "grad_accum2: a")
+    dt = operand_dtype(a, "grad_accum2: a")
+    batch, n = a.shape
+    m = b1.shape[1]
+    require(a, "a", (batch, n), dev, dt)
+    require(b1, "b1", (batch, m), dev, dt)
+    require(b2, "b2", (batch, m), dev, dt)
+    dw1, db1, dw2, db2 = _grads(dev, (n, m), (m,), (n, m), (m,))
+    _build.launch("rvk_grad_accum2", dev, a, b1, b2, dw1, db1, dw2, db2,
+                  batch, n, m, DTYPE_CODES[dt])
+    grad_accum2.launches += 1
+    return dw1, db1, dw2, db2
+
+
+grad_accum2.launches = 0
+
+
+def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, Tensor]:
+    """Encoder first-layer gradients: ``dh = (dmu@w21ᵀ +
+    dlogvar@w22ᵀ)·(h>0)`` rounded to the operand dtype, then ``(xᵀ dh,
+    colsum(dh))`` in fp32.
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``enc_bwd_dw1``.
+    CUDA: two launches (``csrc/bwd.cu``); ``dh`` goes through a scratch
+    buffer between them instead of staying in VMEM."""
+    if x.device.type == "cpu":
+        return enc_bwd_dw1_ref(x, h, dmu, dlogvar, w21, w22)
+    dev = cuda_device(x, "enc_bwd_dw1: x")
+    dt = operand_dtype(x, "enc_bwd_dw1: x")
+    batch, seg = x.shape
+    units, latent = h.shape[1], dmu.shape[1]
+    require(x, "x", (batch, seg), dev, dt)
+    require(h, "h", (batch, units), dev, dt)
+    require(dmu, "dmu", (batch, latent), dev, dt)
+    require(dlogvar, "dlogvar", (batch, latent), dev, dt)
+    require(w21, "w21", (units, latent), dev, dt)
+    require(w22, "w22", (units, latent), dev, dt)
+    dh = torch.empty((batch, units), device=dev, dtype=dt)
+    dw1, db1 = _grads(dev, (seg, units), (units,))
+    _build.launch("rvk_enc_bwd_dw1", dev, x, h, dmu, dlogvar, w21, w22, dh,
+                  dw1, db1, batch, seg, units, latent, DTYPE_CODES[dt])
+    enc_bwd_dw1.launches += 1
+    return dw1, db1
+
+
+enc_bwd_dw1.launches = 0
+
+
+def dec_bwd_fused(da, h3, z, w4, w3) -> Tuple[Tensor, Tensor, Tensor]:
+    """Decoder backward minus the dW4 product: ``dh3 = (da@w4ᵀ)·(h3>0)``
+    rounded to the operand dtype feeds ``dz = dh3@w3ᵀ`` (operand dtype)
+    and ``(zᵀ dh3, colsum(dh3))`` (fp32).
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py``
+    ``dec_bwd_fused``.  CUDA: three launches (``csrc/bwd.cu``); ``dh3``
+    goes through a scratch buffer instead of staying in VMEM."""
+    if da.device.type == "cpu":
+        return dec_bwd_fused_ref(da, h3, z, w4, w3)
+    dev = cuda_device(da, "dec_bwd_fused: da")
+    dt = operand_dtype(da, "dec_bwd_fused: da")
+    batch, seg = da.shape
+    units, latent = h3.shape[1], z.shape[1]
+    require(da, "da", (batch, seg), dev, dt)
+    require(h3, "h3", (batch, units), dev, dt)
+    require(z, "z", (batch, latent), dev, dt)
+    require(w4, "w4", (units, seg), dev, dt)
+    require(w3, "w3", (latent, units), dev, dt)
+    dh3 = torch.empty((batch, units), device=dev, dtype=dt)
+    dz = torch.empty((batch, latent), device=dev, dtype=dt)
+    dw3, db3 = _grads(dev, (latent, units), (units,))
+    _build.launch("rvk_dec_bwd_fused", dev, da, h3, z, w4, w3, dh3, dz, dw3,
+                  db3, batch, seg, units, latent, DTYPE_CODES[dt])
+    dec_bwd_fused.launches += 1
+    return dz, dw3, db3
+
+
+dec_bwd_fused.launches = 0
+
+
+# ------------------------------------------------------ autograd Functions
+
+def encode_input_grad(x, h, dmu, dlogvar, w1, w21, w22) -> Tensor:
+    """The encoder's input gradient ``dx = dh @ w1ᵀ``.  Training never asks
+    for it (the JAX package leaves it to XLA's dead-code elimination); the
+    CUDA kernels for it are not ported yet."""
+    if x.device.type != "cpu":
+        raise NotImplementedError(
+            "the encoder's input gradient on CUDA needs the kernels of "
+            "ROADMAP.md queue B rows 6 (matmul_nt2_mask) and 4 (matmul_nt), "
+            "which are still to port")
+    return matmul_nt_ref(matmul_nt2_mask_ref(dmu, w21, dlogvar, w22, h), w1)
+
+
+class Encode(torch.autograd.Function):
+    """``(x, w1, b1, w21, b21, w22, b22) → (mu, logvar)`` through
+    :func:`encoder_fwd`; backward through :func:`enc_bwd_dw1` and
+    :func:`grad_accum2`.  Saves ``(x, h)`` as residuals."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w21, b21, w22, b22):
+        mu, logvar, h = encoder_fwd(w1, b1, w21, b21, w22, b22, x)
+        ctx.save_for_backward(x, h, w1, w21, w22)
+        return mu, logvar
+
+    @staticmethod
+    def backward(ctx, dmu, dlogvar):
+        x, h, w1, w21, w22 = ctx.saved_tensors
+        dmu, dlogvar = dmu.contiguous(), dlogvar.contiguous()
+        dw1, db1 = enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22)
+        dw21, db21, dw22, db22 = grad_accum2(h, dmu, dlogvar)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = encode_input_grad(x, h, dmu, dlogvar, w1, w21, w22)
+        dt = w1.dtype
+        return (dx, *(g.to(dt) for g in (dw1, db1, dw21, db21, dw22, db22)))
+
+
+class Decode(torch.autograd.Function):
+    """``(z, w3, b3, w4, b4) → y`` through :func:`decoder_fwd`; backward
+    through :func:`dec_bwd_fused` and :func:`grad_accum`.  Saves
+    ``(z, h3, y)`` as residuals."""
+
+    @staticmethod
+    def forward(ctx, z, w3, b3, w4, b4):
+        y, h3 = decoder_fwd(w3, b3, w4, b4, z)
+        ctx.save_for_backward(z, h3, y, w3, w4)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        z, h3, y, w3, w4 = ctx.saved_tensors
+        # tanh derivative: an elementwise pass left to PyTorch, as the JAX
+        # package leaves it to XLA; fp32 inside, one rounding
+        da = (_f(dy) * (1.0 - _f(y) * _f(y))).to(dy.dtype)
+        dz, dw3, db3 = dec_bwd_fused(da, h3, z, w4, w3)
+        dw4, db4 = grad_accum(h3, da)
+        dt = w3.dtype
+        return (dz, *(g.to(dt) for g in (dw3, db3, dw4, db4)))
+
+
 Params = Dict[str, Dict[str, Tensor]]
 
 
 def encode(params: Params, x: Tensor) -> Tuple[Tensor, Tensor]:
-    """``models.vae.encode`` through :func:`encoder_fwd` (the role of the
-    JAX package's ``pallas_encode``)."""
-    mu, logvar, _ = encoder_fwd(
-        params["fc1"]["w"], params["fc1"]["b"],
+    """``models.vae.encode`` through the kernels (the role of the JAX
+    package's ``pallas_encode``)."""
+    return Encode.apply(
+        x, params["fc1"]["w"], params["fc1"]["b"],
         params["fc21"]["w"], params["fc21"]["b"],
-        params["fc22"]["w"], params["fc22"]["b"], x,
+        params["fc22"]["w"], params["fc22"]["b"],
     )
-    return mu, logvar
 
 
 def decode(params: Params, z: Tensor) -> Tensor:
-    """``models.vae.decode`` through :func:`decoder_fwd` (the role of the
-    JAX package's ``pallas_decode``)."""
-    y, _ = decoder_fwd(
-        params["fc3"]["w"], params["fc3"]["b"],
-        params["fc4"]["w"], params["fc4"]["b"], z,
+    """``models.vae.decode`` through the kernels (the role of the JAX
+    package's ``pallas_decode``)."""
+    return Decode.apply(
+        z, params["fc3"]["w"], params["fc3"]["b"],
+        params["fc4"]["w"], params["fc4"]["b"],
     )
-    return y

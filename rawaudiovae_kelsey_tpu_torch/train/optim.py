@@ -1,0 +1,55 @@
+"""Optimizer: Adam with the reference's defaults.
+
+The reference used ``optim.Adam(model.parameters(), lr)`` with every
+default — betas (0.9, 0.999), eps 1e-8, no schedule, no clipping, no weight
+decay (train.py:163); the JAX package runs ``optax.adam`` with the same
+hyperparameters (bias-corrected moments, eps outside the sqrt).
+
+The update here is written out rather than ``torch.optim.Adam``: it
+follows ``optax.adam``'s order of operations (``(1-b1)·g + b1·mu``, the
+bias corrections ``1 - b**count`` in fp32, ``mu_hat / (sqrt(nu_hat) +
+eps)``, then ``p + (-lr)·u``), so the port and the JAX package stay within
+fp32 rounding over coupled steps, and its moments are the tensors of
+:class:`TrainState`, which map one to one onto the JAX checkpoint's leaves.
+It runs in place on the state's tensors.  The JAX update is XLA's, not a
+Pallas kernel, so there is no kernel to port here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from rawaudiovae_kelsey_tpu_torch.config.schema import Config
+from rawaudiovae_kelsey_tpu_torch.train.state import Params, TrainState
+
+
+@dataclass(frozen=True)
+class Adam:
+    learning_rate: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    @torch.no_grad()
+    def update(self, state: TrainState, grads: Params) -> None:
+        """One Adam update of ``state`` (params, moments, count) from fp32
+        ``grads``, in place."""
+        state.count += 1
+        f32 = torch.float32
+        bc1 = 1.0 - torch.tensor(self.b1, dtype=f32) ** state.count
+        bc2 = 1.0 - torch.tensor(self.b2, dtype=f32) ** state.count
+        for name, layer in state.params.items():
+            for k, p in layer.items():
+                g = grads[name][k]
+                mu, nu = state.mu[name][k], state.nu[name][k]
+                mu.copy_((1 - self.b1) * g + self.b1 * mu)
+                nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+                bc1_, bc2_ = bc1.to(p.device), bc2.to(p.device)
+                u = (mu / bc1_) / (torch.sqrt(nu / bc2_) + self.eps)
+                p.add_(-self.learning_rate * u)
+
+
+def build_optimizer(cfg: Config) -> Adam:
+    return Adam(learning_rate=cfg.training.learning_rate)

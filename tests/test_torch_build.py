@@ -1,12 +1,15 @@
 """The kernel build of the port (rawaudiovae_kelsey_tpu_torch/ops/_build.py):
-every csrc/*.cu into one library, cached by a hash of sources and flags, and
-a failure that raises.  nvcc exists only where the GPU is, so a stand-in
+every csrc/*.cu compiled by its own nvcc, linked into one library, cached
+by a hash of sources and flags, and a failure that raises.  nvcc exists
+only where the GPU is, so a stand-in
 compiler records what the build asks of it; the real build runs in
 chip_smoke.py."""
 
+import json
 import os
 import stat
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -44,15 +47,22 @@ def test_build_compiles_every_source_once_and_caches(tmp_path, monkeypatch):
     lib = _build.build()
     assert lib.parent == tmp_path / "build" and lib.exists()
     assert "registers" in lib.with_suffix(".log").read_text()
-    calls = log.read_text().splitlines()
-    assert len(calls) == 1
-    for flag in ("arch=compute_90a,code=sm_90a", "-shared", "-O3"):
-        assert flag in calls[0]
-    for src in ("mlp.cu", "quant.cu"):
-        assert src in calls[0]
+    calls = [json.loads(c) for c in log.read_text().splitlines()]
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    # one compile per source (started together), then one link
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(Path(c[-1]).name for c in compiles) == sources
+    for c in compiles:
+        for flag in ("arch=compute_90a,code=sm_90a", "-O3", "-c"):
+            assert flag in c
+    assert "-shared" in link
+    assert len([a for a in link if a.endswith(".o")]) == len(sources)
+    for src in ("mlp.cu", "quant.cu", "bwd.cu"):
+        assert src in sources
     assert _build.build() == lib                # cached: no second compile
-    assert len(log.read_text().splitlines()) == 1
+    assert len(log.read_text().splitlines()) == len(calls)
     assert not list(lib.parent.glob("*.tmp*"))
+    assert not list(lib.parent.glob("*.o"))
 
 
 def test_build_key_follows_the_sources(tmp_path, monkeypatch):

@@ -15,10 +15,15 @@ PKG = "rawaudiovae_kelsey_tpu_torch"
 SOURCES = sorted((REPO / PKG).rglob("*.py"))
 
 SLICE = [
-    "config.schema", "config.ini", "io.wavio", "io.resample",
-    "data.framing", "models.vae", "models.registry", "ops.mlp", "ops.quant",
-    "ops._build", "train.checkpoint", "compat.from_jax", "infer.synthesis",
-    "infer.api", "infer.server", "infer.http", "__main__",
+    "config.schema", "config.ini", "config.workspace", "io.wavio",
+    "io.resample", "data.framing", "data.corpus", "data.datasets",
+    "data.validate", "data.loader", "models.vae", "models.registry",
+    "ops.mlp", "ops.quant", "ops._build", "parallel.step", "train.state",
+    "train.optim", "train.checkpoint", "train.loop", "train.interrupt",
+    "train.epoch", "train.cli", "eval.fixtures", "observe.tb",
+    "observe.timing", "observe.logging", "compat.from_jax",
+    "infer.synthesis", "infer.api", "infer.server", "infer.http",
+    "__main__",
 ]
 
 
