@@ -16,6 +16,12 @@ any failure exits non-zero with a traceback (no phase is caught):
    two forward kernels in bf16 — against their plain versions at full
    width, batch 8192 (the training microbatch), a ragged 1000 and 1, and
    both times at 8192;
+3c. the fp32 input-gradient kernels (``matmul_nt``, ``matmul_nt_mask``,
+   ``matmul_nt2_mask``) in fp32 and bf16 at batch 8192, 1000 and 1, with
+   the one PyTorch call ``a @ w.t()`` timed beside ``matmul_nt``; the
+   in-kernel sampler at (4096, 256), (1000, 256) and (1, 256): its Philox
+   words bit for bit, ``z``, determinism, both seed words, moments over a
+   million samples, its backward; ``dx`` through ``mlp.encode``;
 4. the serving path: ``configs/default.ini`` (backend = pallas, dense
    1024/2048/256) → a run workspace with seeded random weights saved in the
    JAX npz layout → the HTTP server on 127.0.0.1 (warmup, deterministic)
@@ -31,14 +37,35 @@ any failure exits non-zero with a traceback (no phase is caught):
    losses, the workspace's artifacts, every training kernel launched; a
    ``--resume`` run that takes one more epoch; one step from the trained
    state through the kernels and through the plain ops, same noise, in
-   bf16 and in fp32 (which launches the fp32 backward kernels); training
-   frames/s of both backends and the device's busy share.
+   bf16, in fp32 at ``high`` (the fp32 "split" kernels) and at ``highest``
+   (the fp32 "primitive" kernels); training frames/s of both backends and
+   the device's busy share;
+6. the device-resident path: ``configs/perf_bf16.ini`` uncut (batch 4096,
+   bf16, block shuffle, ``rng = tpu_prng``, ``device_resident = always``)
+   on the corpus of phase 5, with only the datapath, epochs, checkpoint
+   interval and best-model gate changed, so that a boundary fires mid-run;
+   a ``--resume`` for one more epoch; the sampler launched once per step
+   and the host loader never built; one resident epoch against a host-fed
+   loop fed the same bf16 batches (equal losses, bit for bit); one
+   resident epoch at ``highest`` through the primitive kernels against the
+   plain backend; ``dx`` through the model's encoder in fp32 and bf16; the
+   corpus layout under a small budget and the ``always`` error under none;
+   resident and host-fed epoch frames/s of both backends and the device's
+   busy share over a resident epoch.
 
 ``launches`` in the kernel line: the wrapper's count over the path where
-that dtype runs — fp32 forward kernels: serving (phase 4); bf16 forward
-kernels: the training run (its fp32 test-set reconstructions included);
-bf16 backward kernels: the training run; fp32 backward kernels: the fp32
-step of phase 5.
+that dtype runs, set to 0 just before it — fp32 forward kernels: serving
+(phase 4); bf16 forward kernels: the training run of phase 5 (its fp32
+test-set reconstructions included); bf16 "split" backward kernels: that
+run; fp32 "split" backward kernels: the ``high`` step of phase 5; fp32
+``matmul_nt*``: the ``highest`` resident epoch of phase 6; bf16
+``matmul_nt`` / ``matmul_nt2_mask``: the bf16 ``dx`` of phase 6 (no path
+of the package runs ``matmul_nt_mask`` in bf16; phase 3c still holds it
+against its plain version); the sampler: the resident training run.
+``bound_ms`` is the larger of bytes moved (each input read once, each
+output written once) over 3.35 TB/s and operations over the peak of the
+operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
+NVIDIA's H100 SXM data sheet), at the shapes that were timed.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -46,6 +73,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import io
 import json
@@ -82,6 +110,31 @@ HTTP_ATOL = 1e-4
 TRAIN_BATCH, TRAIN_RAGGED = 8192, 1000
 GRAD_REL = 1e-4
 BF16_REL = 2.0 ** -6
+
+
+# roofline peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+SEG, UNITS, LATENT = 1024, 2048, 256
+SAMPLER_SHAPE = (4096, 256)      # configs/perf_bf16.ini: batch x latent
+# per element: ten Philox rounds of 2 mulhi + 2 mullo + 4 xor + 2 add, then
+# ~30 for the bit packing, Box-Muller and the affine step; counted at the
+# fp32 rate (the data sheet gives no integer rate)
+SAMPLER_OPS = 130
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, moved: int, kind: str) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of the operand type, whichever is
+    larger."""
+    by_bytes = moved / HBM_BYTES_S * 1e3
+    by_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -146,6 +199,13 @@ def phase_kernels(gen_params):
             "rawaudiovae_kelsey_tpu_torch/csrc/quant.cu",
             "rawaudiovae_kelsey_tpu/ops/quant.py:74"),
     }
+    # operations and operand bytes at the timed batch
+    enc_flops = 2 * BATCH * (SEG * UNITS + 2 * UNITS * LATENT)
+    dec_flops = 2 * BATCH * (LATENT * UNITS + UNITS * SEG)
+    q_w = [t for layer in qp.values() for t in layer.values()]
+    work = {"encoder_fwd": (enc_flops, enc_w),
+            "decoder_fwd": (dec_flops, dec_w),
+            "quantized_decoder_fwd": (dec_flops, q_w)}
     rows = {}
     for name, (make, kernel, plain, source, replaces) in cases.items():
         err = 0.0
@@ -169,9 +229,12 @@ def phase_kernels(gen_params):
             lambda: kernel(x), lambda: plain(x), 50)
         print(f"  {name:<22} batch {BATCH}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms (runs {t_kern} / {t_plain})")
+        flops, weights = work[name]
         rows[name] = {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "max_abs_err": err, "ms": ms,
-                      "plain_ms": plain_ms}
+                      "plain_ms": plain_ms,
+                      **bound(flops, nbytes(x, *weights, *kernel(x)), "fp32"),
+                      "library_ms": None}
     return rows
 
 
@@ -206,24 +269,33 @@ def phase_train_kernels(gen_params):
         "grad_accum": (
             lambda p, t: mlp.grad_accum(t["h3"], t["da"]),
             lambda p, t: mlp.grad_accum_ref(t["h3"], t["da"]),
-            bwd, f"{tpu}:453", ("fp32", "bf16")),
+            bwd, f"{tpu}:453", ("fp32", "bf16"),
+            2 * UNITS * SEG, lambda p, t: (t["h3"], t["da"])),
         "enc_bwd_dw1": (
             lambda p, t: mlp.enc_bwd_dw1(t["x"], t["h"], t["dmu"], t["dlv"],
                                          p["fc21"]["w"], p["fc22"]["w"]),
             lambda p, t: mlp.enc_bwd_dw1_ref(t["x"], t["h"], t["dmu"],
                                              t["dlv"], p["fc21"]["w"],
                                              p["fc22"]["w"]),
-            bwd, f"{tpu}:542", ("fp32", "bf16")),
+            bwd, f"{tpu}:542", ("fp32", "bf16"),
+            2 * (2 * LATENT * UNITS + SEG * UNITS),
+            lambda p, t: (t["x"], t["h"], t["dmu"], t["dlv"],
+                          p["fc21"]["w"], p["fc22"]["w"])),
         "grad_accum2": (
             lambda p, t: mlp.grad_accum2(t["h"], t["dmu"], t["dlv"]),
             lambda p, t: mlp.grad_accum2_ref(t["h"], t["dmu"], t["dlv"]),
-            bwd, f"{tpu}:624", ("fp32", "bf16")),
+            bwd, f"{tpu}:624", ("fp32", "bf16"),
+            2 * 2 * UNITS * LATENT,
+            lambda p, t: (t["h"], t["dmu"], t["dlv"])),
         "dec_bwd_fused": (
             lambda p, t: mlp.dec_bwd_fused(t["da"], t["h3"], t["z"],
                                            p["fc4"]["w"], p["fc3"]["w"]),
             lambda p, t: mlp.dec_bwd_fused_ref(t["da"], t["h3"], t["z"],
                                                p["fc4"]["w"], p["fc3"]["w"]),
-            bwd, f"{tpu}:695", ("fp32", "bf16")),
+            bwd, f"{tpu}:695", ("fp32", "bf16"),
+            2 * (SEG * UNITS + 2 * UNITS * LATENT),
+            lambda p, t: (t["da"], t["h3"], t["z"], p["fc4"]["w"],
+                          p["fc3"]["w"])),
         "encoder_fwd": (
             lambda p, t: mlp.encoder_fwd(
                 *[p[n][k] for n in ("fc1", "fc21", "fc22")
@@ -231,7 +303,10 @@ def phase_train_kernels(gen_params):
             lambda p, t: mlp.encoder_fwd_ref(
                 *[p[n][k] for n in ("fc1", "fc21", "fc22")
                   for k in ("w", "b")], t["x"]),
-            fwd, f"{tpu}:246", ("bf16",)),
+            fwd, f"{tpu}:246", ("bf16",),
+            2 * (SEG * UNITS + 2 * UNITS * LATENT),
+            lambda p, t: (t["x"], *[p[n][k] for n in ("fc1", "fc21", "fc22")
+                                    for k in ("w", "b")])),
         "decoder_fwd": (
             lambda p, t: mlp.decoder_fwd(
                 *[p[n][k] for n in ("fc3", "fc4") for k in ("w", "b")],
@@ -239,11 +314,15 @@ def phase_train_kernels(gen_params):
             lambda p, t: mlp.decoder_fwd_ref(
                 *[p[n][k] for n in ("fc3", "fc4") for k in ("w", "b")],
                 t["z"]),
-            fwd, f"{tpu}:294", ("bf16",)),
+            fwd, f"{tpu}:294", ("bf16",),
+            2 * (LATENT * UNITS + UNITS * SEG),
+            lambda p, t: (t["z"], *[p[n][k] for n in ("fc3", "fc4")
+                                    for k in ("w", "b")])),
     }
     dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
     rows = {}
-    for name, (kernel, plain, source, replaces, kinds) in cases.items():
+    for name, (kernel, plain, source, replaces, kinds, row_flops,
+               operands) in cases.items():
         for kind in kinds:
             dt = dtypes[kind]
             tol = BF16_REL if dt == torch.bfloat16 else GRAD_REL
@@ -276,7 +355,195 @@ def phase_train_kernels(gen_params):
             rows[f"{name}[{kind}]"] = {
                 "name": f"{name}[{kind}]", "route": "cuda", "source": source,
                 "replaces": replaces, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms}
+                "plain_ms": plain_ms,
+                **bound(TRAIN_BATCH * row_flops,
+                        nbytes(*operands(p, t), *kernel(p, t)), kind),
+                "library_ms": None}
+    return rows
+
+
+def phase_new_kernels(gen_params):
+    """Phase 3c: the input-gradient kernels and the in-kernel sampler
+    against their plain versions."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp, rng
+
+    dev = torch.device("cuda")
+    p32 = gen_params(2468)
+    g = torch.Generator(device=dev).manual_seed(55)
+    bwd = "rawaudiovae_kelsey_tpu_torch/csrc/bwd.cu"
+    tpu = "rawaudiovae_kelsey_tpu/ops/pallas_mlp.py"
+
+    def inputs(b, dt):
+        def rnd(n, relu=False):
+            t = torch.randn((b, n), generator=g, device=dev)
+            return (t.clamp_min(0) if relu else t).to(dt)
+        w = {n: q["w"].to(dt) for n, q in p32.items()}
+        return w, dict(h=rnd(UNITS, True), dmu=rnd(LATENT), dlv=rnd(LATENT),
+                       da=rnd(SEG) * 1e-3, h3=rnd(UNITS, True),
+                       dh3=rnd(UNITS) * 1e-3)
+
+    # (kernel, plain, TPU line, FLOPs per row, operands, library call)
+    cases = {
+        # the step's use: dz = dh3 @ w3ᵀ
+        "matmul_nt": (
+            lambda w, t: mlp.matmul_nt(t["dh3"], w["fc3"]),
+            lambda w, t: mlp.matmul_nt_ref(t["dh3"], w["fc3"]),
+            f"{tpu}:333", 2 * UNITS * LATENT,
+            lambda w, t: (t["dh3"], w["fc3"]),
+            lambda w, t: t["dh3"] @ w["fc3"].t()),
+        "matmul_nt_mask": (
+            lambda w, t: mlp.matmul_nt_mask(t["da"], w["fc4"], t["h3"]),
+            lambda w, t: mlp.matmul_nt_mask_ref(t["da"], w["fc4"], t["h3"]),
+            f"{tpu}:364", 2 * SEG * UNITS,
+            lambda w, t: (t["da"], w["fc4"], t["h3"]), None),
+        "matmul_nt2_mask": (
+            lambda w, t: mlp.matmul_nt2_mask(t["dmu"], w["fc21"], t["dlv"],
+                                             w["fc22"], t["h"]),
+            lambda w, t: mlp.matmul_nt2_mask_ref(t["dmu"], w["fc21"],
+                                                 t["dlv"], w["fc22"], t["h"]),
+            f"{tpu}:398", 2 * 2 * LATENT * UNITS,
+            lambda w, t: (t["dmu"], w["fc21"], t["dlv"], w["fc22"], t["h"]),
+            None),
+    }
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    rows = {}
+    for name, (kernel, plain, replaces, row_flops, operands,
+               library) in cases.items():
+        for kind, dt in dtypes.items():
+            tol = BF16_REL if dt == torch.bfloat16 else GRAD_REL
+            err = 0.0
+            for b in (TRAIN_BATCH, TRAIN_RAGGED, 1):
+                w, t = inputs(b, dt)
+                got = kernel(w, t)
+                torch.cuda.synchronize()
+                want = plain(w, t)
+                check(got.shape == want.shape and got.dtype == want.dtype
+                      and bool(torch.isfinite(got).all()),
+                      f"{name}[{kind}] batch {b}: shape, dtype or non-finite")
+                e = rel_err((got,), (want,))
+                err = max(err, max_err((got.float(),), (want.float(),)))
+                print(f"  {name + '[' + kind + ']':<22} batch {b:>4}: max "
+                      f"|kernel - plain| / max|plain| = {e:.3e} (tolerance "
+                      f"{tol:.3e})")
+                check(e <= tol, f"{name}[{kind}] batch {b}: relative error "
+                      f"{e:.3e} > {tol:.3e}")
+            w, t = inputs(TRAIN_BATCH, dt)
+            ms, plain_ms, t_kern, t_plain = time_both(
+                lambda: kernel(w, t), lambda: plain(w, t), 20)
+            library_ms = None
+            if library is not None:
+                library_ms = cuda_time_ms(lambda: library(w, t), 20)
+            print(f"  {name + '[' + kind + ']':<22} batch {TRAIN_BATCH}: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (runs "
+                  f"{t_kern} / {t_plain})"
+                  + (f", a @ w.t() {library_ms:.4f} ms"
+                     if library_ms is not None else ""))
+            rows[f"{name}[{kind}]"] = {
+                "name": f"{name}[{kind}]", "route": "cuda", "source": bwd,
+                "replaces": replaces, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms,
+                **bound(TRAIN_BATCH * row_flops,
+                        nbytes(*operands(w, t), kernel(w, t)), kind),
+                "library_ms": library_ms}
+    # matmul_nt at its other shape, dx = dh @ w1ᵀ (8192 x 2048 by 1024 x 2048)
+    w, t = inputs(TRAIN_BATCH, torch.float32)
+    dh = t["h"] * 1e-3
+    e = rel_err((mlp.matmul_nt(dh, w["fc1"]),),
+                (mlp.matmul_nt_ref(dh, w["fc1"]),))
+    check(e <= GRAD_REL, f"matmul_nt at the dx shape: {e:.3e}")
+    ms, plain_ms, _, _ = time_both(lambda: mlp.matmul_nt(dh, w["fc1"]),
+                                   lambda: mlp.matmul_nt_ref(dh, w["fc1"]),
+                                   20)
+    print(f"  matmul_nt[fp32] at the dx shape, batch {TRAIN_BATCH}: error "
+          f"{e:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # the sampler
+    name = "reparameterize_prng[fp32]"
+    err = 0.0
+    for i, (b, lat) in enumerate((SAMPLER_SHAPE, (TRAIN_RAGGED, 256),
+                                  (1, 256))):
+        seed = (0x9E3779B9 + i, 0x7F4A7C15)
+        same = torch.equal(rng.philox_words(seed, b, lat, dev),
+                           rng.philox_words_ref(seed, b, lat, dev))
+        check(same, f"sampler ({b}, {lat}): the kernel's Philox words "
+              "differ from the plain version's")
+        mu = torch.randn((b, lat), generator=g, device=dev)
+        logvar = torch.randn((b, lat), generator=g, device=dev) * 0.5
+        z = rng.reparameterize_prng(seed, mu, logvar)
+        torch.cuda.synchronize()
+        want = rng.reparameterize_prng_ref(seed, mu, logvar)
+        check(bool(torch.isfinite(z).all()), f"sampler ({b}, {lat}): "
+              "non-finite z")
+        excess = float(((z - want).abs() / (1 + want.abs())).max())
+        check(excess <= 1e-5, f"sampler ({b}, {lat}): |z - plain| / (1 + "
+              f"|z|) = {excess:.3e} > 1e-5")
+        check(torch.equal(z, rng.reparameterize_prng(seed, mu, logvar)),
+              f"sampler ({b}, {lat}): two launches with one seed differ")
+        check(not torch.equal(z, rng.reparameterize_prng(
+            (seed[0], seed[1] ^ 1), mu, logvar)),
+            f"sampler ({b}, {lat}): the high seed word is ignored")
+        e = float((z - want).abs().max())
+        err = max(err, e)
+        print(f"  {name:<22} ({b}, {lat}): words equal bit for bit; max |z "
+              f"- plain| = {e:.3e}, / (1 + |z|) = {excess:.3e}; "
+              f"deterministic; both seed words used")
+    zeros = torch.zeros(SAMPLER_SHAPE, device=dev)
+    eps = rng.reparameterize_prng((2024, 1), zeros, zeros)
+    mean, var = float(eps.mean()), float(eps.var())
+    check(eps.numel() >= 1_000_000 and bool(torch.isfinite(eps).all()),
+          "sampler: non-finite eps")
+    check(abs(mean) < 5e-3 and abs(var - 1) < 1e-2,
+          f"sampler moments: mean {mean:.3e}, var {var:.6f}")
+    print(f"  {name:<22} {eps.numel()} samples: mean {mean:.3e}, variance "
+          f"{var:.6f}, max |eps| {float(eps.abs().max()):.3f}")
+    mu = torch.randn(SAMPLER_SHAPE, generator=g, device=dev)
+    logvar = torch.randn(SAMPLER_SHAPE, generator=g, device=dev) * 0.5
+    cot = torch.randn(SAMPLER_SHAPE, generator=g, device=dev)
+    with torch.enable_grad():
+        a, b = mu.clone().requires_grad_(), logvar.clone().requires_grad_()
+        ga = torch.autograd.grad(
+            (rng.reparameterize((7, 8), a, b) * cot).sum(), (a, b))
+        gp = torch.autograd.grad(
+            (rng.reparameterize_prng_ref((7, 8), a, b) * cot).sum(), (a, b))
+    e = rel_err(ga, gp)
+    check(e <= 1e-5, f"sampler backward vs autograd of the plain version: "
+          f"{e:.3e}")
+    print(f"  {name:<22} backward vs autograd through the plain version: "
+          f"relative error {e:.3e}")
+    ms, plain_ms, t_kern, t_plain = time_both(
+        lambda: rng.reparameterize_prng((7, 8), mu, logvar),
+        lambda: rng.reparameterize_prng_ref((7, 8), mu, logvar), 20)
+    print(f"  {name:<22} {SAMPLER_SHAPE}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (runs {t_kern} / {t_plain})")
+    n = mu.numel()
+    rows[name] = {
+        "name": name, "route": "cuda",
+        "source": "rawaudiovae_kelsey_tpu_torch/csrc/rng.cu",
+        "replaces": "rawaudiovae_kelsey_tpu/ops/rng.py:69",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **bound(SAMPLER_OPS * n, 3 * 4 * n, "fp32"), "library_ms": None}
+
+    # dx: the encoder's input gradient through the autograd Function
+    enc = {n: {k: t.clone() for k, t in q.items()} for n, q in p32.items()}
+    x = (torch.rand((TRAIN_RAGGED, SEG), generator=g, device=dev) * 2 - 1)
+    cmu = torch.randn((TRAIN_RAGGED, LATENT), generator=g, device=dev)
+    clv = torch.randn((TRAIN_RAGGED, LATENT), generator=g, device=dev)
+    before = (mlp.matmul_nt2_mask.launches, mlp.matmul_nt.launches)
+    with torch.enable_grad():
+        xx = x.clone().requires_grad_()
+        mu, lv = mlp.encode(enc, xx)
+        (dx,) = torch.autograd.grad((mu * cmu).sum() + (lv * clv).sum(), xx)
+    rose = (mlp.matmul_nt2_mask.launches - before[0],
+            mlp.matmul_nt.launches - before[1])
+    check(rose == (1, 1), f"dx: matmul_nt2_mask / matmul_nt rose by {rose}")
+    _, _, h = mlp.encoder_fwd_ref(
+        *[enc[n][k] for n in ("fc1", "fc21", "fc22") for k in ("w", "b")], x)
+    want = mlp.matmul_nt_ref(mlp.matmul_nt2_mask_ref(
+        cmu, enc["fc21"]["w"], clv, enc["fc22"]["w"], h), enc["fc1"]["w"])
+    e = rel_err((dx,), (want,))
+    check(e <= GRAD_REL, f"dx vs the plain composition: {e:.3e}")
+    print(f"  dx through mlp.encode, batch {TRAIN_RAGGED}: relative error "
+          f"{e:.3e}; rows 6 and 4 launched once each")
     return rows
 
 
@@ -404,7 +671,7 @@ def phase_train(data: Path):
     write_corpus(data, frames, hop, seg)
     print(f"  corpus: {frames} frames ({frames * hop / SR:.0f} s of audio) "
           f"written in {time.perf_counter() - t0:.1f} s")
-    epochs = 3
+    epochs = 2
     cfg.dataset.datapath = str(data)
     cfg.training.epochs = epochs
     cfg.training.checkpoint_interval = 1
@@ -475,8 +742,10 @@ def phase_train(data: Path):
         g = torch.Generator().manual_seed(1000 * step + (i or 0))
         return torch.randn(shape, generator=g)
 
-    step_rows = {}
-    for precision, rel_tol in (("bfloat16", 5e-2), ("highest", 1e-3)):
+    # `high` runs the fp32 "split" kernels, `highest` the fp32 "primitive"
+    step_counts = {}
+    for precision, rel_tol in (("bfloat16", 5e-2), ("high", 1e-3),
+                               ("highest", 1e-3)):
         cfg.tpu.precision = precision
         out = {}
         for backend in ("pallas", "xla"):
@@ -486,13 +755,13 @@ def phase_train(data: Path):
                 model.init(torch.Generator().manual_seed(0)), 0))
             before = {n: {k: t.clone() for k, t in q.items()}
                       for n, q in state.params.items()}
-            if backend == "pallas" and precision == "highest":
+            if backend == "pallas":
                 for w in ops.KERNEL_WRAPPERS:
                     w.launches = 0
             state, m = build_train_step(model, cfg, noise=noise)(state, x)
-            if backend == "pallas" and precision == "highest":
-                step_rows = {w.__name__: w.launches
-                             for w in ops.KERNEL_WRAPPERS}
+            if backend == "pallas":
+                step_counts[precision] = {w.__name__: w.launches
+                                          for w in ops.KERNEL_WRAPPERS}
             delta = torch.cat([(state.params[n][k] - before[n][k]).ravel()
                                for n in sorted(before)
                                for k in sorted(before[n])])
@@ -505,10 +774,16 @@ def phase_train(data: Path):
               f"{float((dk - dx).abs().max()):.3e}")
         check(abs(lk / lx - 1) <= rel_tol and upd <= rel_tol,
               f"{precision} step: kernels and plain disagree")
-    print(f"  kernel launches in the fp32 step: {step_rows}")
+    step_rows = step_counts["high"]
+    print(f"  kernel launches in the fp32 `high` step: {step_rows}")
+    print(f"  kernel launches in the fp32 `highest` step: "
+          f"{step_counts['highest']}")
     for w in ops.TRAINING_KERNELS:
         check(step_rows[w.__name__] > 0,
-              f"{w.__name__} was never launched by the fp32 step")
+              f"{w.__name__} was never launched by the fp32 `high` step")
+    for w in ops.PRIMITIVE_KERNELS:
+        check(step_counts["highest"][w.__name__] > 0,
+              f"{w.__name__} was never launched by the `highest` step")
 
     # training rate of both backends on one device-resident batch, and the
     # device's busy share over kernel steps
@@ -541,6 +816,324 @@ def phase_train(data: Path):
     print(f"  device busy share over 2 kernel steps: "
           f"{busy_share(lambda: [step(state, x) for _ in range(2)])}")
     return launches, step_rows
+
+
+def tee_stdout(fn):
+    """Run ``fn()``, echo what it printed, and return it as text."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            fn()
+        finally:
+            sys.__stdout__.write(buf.getvalue())
+            sys.__stdout__.flush()
+    return buf.getvalue()
+
+
+def phase_resident(data: Path, card: str):
+    """Phase 6: the device-resident path of configs/perf_bf16.ini."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
+    from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
+    from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
+    from rawaudiovae_kelsey_tpu_torch.data.datasets import AudioFrameDataset
+    from rawaudiovae_kelsey_tpu_torch.data.loader import (
+        feed_dtype,
+        prefetch_to_device,
+    )
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.parallel import resident as R
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState, epoch
+    from rawaudiovae_kelsey_tpu_torch.train.cli import main as train_cli
+
+    dev = torch.device("cuda")
+    base = load_config(ROOT / "configs" / "perf_bf16.ini")
+    t = base.tpu
+    check((t.precision, t.backend, t.device_resident, t.resident_shuffle,
+           t.rng, base.training.batch_size, base.audio.segment_length,
+           base.vae.n_units, base.vae.latent_dim)
+          == ("bfloat16", "best", "always", "block", "tpu_prng", 4096, SEG,
+              UNITS, LATENT),
+          "configs/perf_bf16.ini is not the resident bf16 block-shuffle "
+          "tpu_prng batch-4096 trainer")
+    batch, seg, hop = base.training.batch_size, SEG, base.audio.hop_length
+    corpus, n_samples = build_corpus(data / "audio", SR)
+    dataset = AudioFrameDataset(corpus, seg, hop, SR)
+    n_frames = len(dataset)
+    n_batches = n_frames // batch
+    layout = R.choose_layout(n_samples, seg, hop, 2,
+                             int(t.resident_budget_gb * (1 << 30)))
+    print(f"  corpus: {n_frames} frames ({n_frames * seg * 2 / 1e6:.0f} MB "
+          f"in bf16), layout {layout}, {n_batches} batches an epoch")
+    check(layout == "frames" and n_batches == 38, "unexpected corpus size")
+
+    def config(**changes):
+        cfg = load_config(ROOT / "configs" / "perf_bf16.ini")
+        cfg.dataset.datapath = str(data)
+        cfg.training.save_best_model_after = 0
+        for key, value in changes.items():
+            section, name = key.split("__")
+            setattr(getattr(cfg, section), name, value)
+        return cfg
+
+    # the host loader must never be built on this path
+    built = []
+    real_prefetch = epoch.prefetch_to_device
+    epoch.prefetch_to_device = lambda *a, **k: (
+        built.append(1), real_prefetch(*a, **k))[1]
+
+    # --- the trainer: 4 epochs, a boundary after epoch 2, then a resume
+    epochs = 4
+    cfg = config(training__epochs=epochs, training__checkpoint_interval=2)
+    ini = data / "resident.ini"
+    save_config(cfg, ini)
+    for w in ops.KERNEL_WRAPPERS:
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = tee_stdout(lambda: train_cli(["--config", str(ini)]))
+    train_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    print(f"  train command: {epochs} resident epochs in {train_s:.1f} s "
+          f"(ingest, upload, checkpoints and reconstructions included)")
+    print(f"  kernel launches in the resident run: {launches}")
+    steps = epochs * n_batches
+    check(launches["reparameterize_prng"] == steps,
+          f"the sampler launched {launches['reparameterize_prng']} times "
+          f"in {steps} steps")
+    for w in ops.TRAINING_KERNELS:
+        check(launches[w.__name__] >= steps,
+              f"{w.__name__}: {launches[w.__name__]} launches in {steps} "
+              "steps")
+    check(not built, "the resident run built the host loader")
+    for line in ("Device-resident corpus (frames layout)", "[drain] 3 epochs",
+                 "[drain] 1 epochs", "====> Resident epochs e2e: 4 epochs",
+                 "Checkpoint - Epoch 2"):
+        check(line in out, f"the resident run did not print {line!r}")
+    runs = iter_runs(data / cfg.extra.description)
+    check(len(runs) == 1, f"expected one run dir, found {runs}")
+    ws = runs[0]
+    losses = read_scalars(ws / "logs", "Loss/Batch")
+    totals = read_scalars(ws / "logs", "Loss/train_total")
+    check(sorted(losses) == list(range(steps)),
+          f"Loss/Batch has {len(losses)} points, expected {steps}")
+    check(all(np.isfinite(v) for v in losses.values()), "non-finite loss")
+    tot = [totals[e] for e in range(epochs)]
+    print(f"  epoch losses {tot}")
+    check(tot[-1] < tot[0], f"the epoch loss did not fall: {tot}")
+    want = ["config.ini", "model/best_model.npz", "model/last_model.npz",
+            "model/checkpoints/ckpt_00002.npz",
+            f"model/checkpoints/ckpt_{epochs:05d}.npz",
+            "audio_logs/test_reconst_00002.wav",
+            f"audio_logs/test_reconst_{epochs:05d}.wav"]
+    for rel in want:
+        check((ws / rel).is_file(), f"workspace lacks {rel}")
+    meta = json.loads((ws / "model" / "checkpoints"
+                       / "ckpt_00002.json").read_text())
+    check(meta["step"] == 3 * n_batches and meta["epoch"] == 2,
+          f"the boundary checkpoint is not the boundary state: {meta}")
+    print(f"  workspace {ws.name}: " + ", ".join(want))
+
+    cfg.training.epochs = epochs + 1
+    save_config(cfg, ini)
+    out = tee_stdout(lambda: train_cli(["--config", str(ini), "--resume"]))
+    check(f"Resuming at epoch {epochs}" in out, "the resume did not resume")
+    runs = iter_runs(data / cfg.extra.description)
+    resumed = read_scalars(runs[1] / "logs", "Loss/Batch")
+    check(sorted(resumed) == list(range(steps, steps + n_batches)),
+          f"the resumed run logged steps {sorted(resumed)}")
+    print(f"  resume: one more epoch, steps {steps}..{steps + n_batches - 1},"
+          f" epoch loss {sum(resumed.values()):.6f}")
+    check(not built, "the resumed resident run built the host loader")
+
+    # --- one epoch, resident against a host-fed loop fed the same bf16
+    # batches: same state, same permutation, same (seeded) noise
+    cfg = config(tpu__rng="threefry")
+    model = build_model(cfg, dev)
+    check(model.backend == "pallas", f"backend {model.backend}")
+    data_dev = R.put_resident(corpus, cfg, "frames", dev)
+    blk = R.pick_block_rows(n_frames, n_batches, batch)
+    check(blk == 32, f"block rows {blk}")
+
+    def perm(epoch_, n):
+        return torch.randperm(n, generator=torch.Generator().manual_seed(
+            1234 + epoch_))
+
+    def fresh():
+        return TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), 11)
+
+    run, nb = R.build_resident_epoch(model, cfg, None, n_samples,
+                                     layout="frames", perm=perm)
+    _, res_losses = run(fresh(), data_dev, 0)
+    n_shuffle = n_frames // blk
+    sel = perm(0, n_shuffle)[: nb * batch // blk]
+    host_frames = data_dev.cpu()
+    host_batches = host_frames[: n_shuffle * blk].view(
+        n_shuffle, blk, seg)[sel].view(nb, batch, seg)
+    step = build_train_step(model, cfg)
+    state = fresh()
+    fed = []
+    for xb in host_batches.unbind(0):
+        state, m = step(state, xb.to(dev))
+        fed.append(m["loss"].float())
+    fed = torch.stack(fed)
+    same = torch.equal(res_losses[0], fed)
+    print(f"  one epoch, resident vs host-fed on the same bf16 batches: "
+          f"losses {'equal bit for bit' if same else 'DIFFER'} "
+          f"({float(fed[0]):.7f} .. {float(fed[-1]):.7f})")
+    check(same, "the resident epoch's losses differ from the host-fed "
+          f"loop's: max |d| {float((res_losses[0] - fed).abs().max()):.3e}")
+    del host_frames, host_batches
+
+    # --- one resident epoch at `highest`: the primitive kernels against
+    # the plain backend (the sampler gives both the same noise)
+    deltas, prim = {}, {}
+    for backend in ("pallas", "xla"):
+        cfg = config(tpu__precision="highest", tpu__backend=backend)
+        model = build_model(cfg, dev)
+        state = fresh()
+        before = torch.cat([t.ravel().clone() for _, t in sorted(
+            (f"{n}.{k}", t) for n, q in state.params.items()
+            for k, t in q.items())])
+        run, _ = R.build_resident_epoch(model, cfg, None, n_samples)
+        d32 = R.put_resident(corpus, cfg, "frames", dev)
+        if backend == "pallas":
+            for w in ops.KERNEL_WRAPPERS:
+                w.launches = 0
+        state, ls = run(state, d32, 0)
+        torch.cuda.synchronize()
+        if backend == "pallas":
+            prim = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+        after = torch.cat([t.ravel() for _, t in sorted(
+            (f"{n}.{k}", t) for n, q in state.params.items()
+            for k, t in q.items())])
+        deltas[backend] = (after - before, ls[0])
+        del d32
+    per_step = {k: v / n_batches for k, v in prim.items() if v}
+    print(f"  `highest` resident epoch, launches per step: {per_step}")
+    check(per_step == {"encoder_fwd": 1, "decoder_fwd": 1,
+                       "matmul_nt2_mask": 1, "matmul_nt_mask": 1,
+                       "matmul_nt": 1, "grad_accum": 5,
+                       "reparameterize_prng": 1},
+          f"unexpected launches per `highest` step: {per_step}")
+    (dk, lk), (dx, lx) = deltas["pallas"], deltas["xla"]
+    upd = float((dk - dx).norm() / dx.norm())
+    print(f"  `highest` resident epoch, kernels vs plain: first loss "
+          f"{float(lk[0]):.7f} vs {float(lx[0]):.7f}, last {float(lk[-1]):.7f}"
+          f" vs {float(lx[-1]):.7f}; |update difference| / |update| = "
+          f"{upd:.3e} (tolerance 1e-3)")
+    check(bool(torch.isfinite(lk).all()) and float(lk[-1]) < float(lk[0]),
+          "the `highest` resident epoch did not train")
+    check(upd <= 1e-3, "`highest` resident epoch: kernels and plain disagree")
+
+    # --- dx through the model's encoder, fp32 and bf16
+    cfg = config()
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator().manual_seed(3))
+    g = torch.Generator(device=dev).manual_seed(3)
+    dx_counts = {}
+    for kind, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        p = {n: {k: v.to(dt) for k, v in q.items()}
+             for n, q in params.items()}
+        x = (torch.rand((batch, seg), generator=g, device=dev) * 2 - 1).to(dt)
+        cmu = torch.randn((batch, LATENT), generator=g, device=dev).to(dt)
+        clv = torch.randn((batch, LATENT), generator=g, device=dev).to(dt)
+        for w in ops.KERNEL_WRAPPERS:
+            w.launches = 0
+        xx = x.clone().requires_grad_()
+        mu, lv = model.encode(p, xx)
+        (dx,) = torch.autograd.grad(
+            (mu.float() * cmu.float()).sum() + (lv.float() * clv.float())
+            .sum(), xx)
+        dx_counts[kind] = {w.__name__: w.launches
+                           for w in ops.KERNEL_WRAPPERS}
+        _, _, h = mlp.encoder_fwd_ref(
+            *[p[n][k] for n in ("fc1", "fc21", "fc22") for k in ("w", "b")],
+            x)
+        want = mlp.matmul_nt_ref(mlp.matmul_nt2_mask_ref(
+            cmu, p["fc21"]["w"], clv, p["fc22"]["w"], h), p["fc1"]["w"])
+        e = rel_err((dx,), (want,))
+        tol = GRAD_REL if kind == "fp32" else BF16_REL
+        print(f"  dx through model.encode [{kind}], batch {batch}: relative "
+              f"error {e:.3e} (tolerance {tol:.3e}); launches "
+              f"matmul_nt2_mask {dx_counts[kind]['matmul_nt2_mask']}, "
+              f"matmul_nt {dx_counts[kind]['matmul_nt']}")
+        check(e <= tol and dx_counts[kind]["matmul_nt2_mask"] == 1
+              and dx_counts[kind]["matmul_nt"] == 1, f"dx [{kind}]")
+
+    # --- the corpus layout under a small budget; the error under none
+    cfg = config(training__epochs=1, training__checkpoint_interval=0,
+                 tpu__resident_budget_gb=0.1, extra__description="perf_corpus")
+    save_config(cfg, ini)
+    out = tee_stdout(lambda: train_cli(["--config", str(ini)]))
+    check("Device-resident corpus (corpus layout)" in out
+          and "[drain] 1 epochs" in out,
+          "a 0.1 GB budget did not take the corpus layout")
+    cfg.tpu.resident_budget_gb = 0.001
+    cfg.extra.description = "perf_nofit"
+    save_config(cfg, ini)
+    try:
+        train_cli(["--config", str(ini)])
+    except ValueError as e:
+        check("device_resident=always" in str(e), f"unexpected error: {e}")
+        print(f"  resident_budget_gb = 0.001: ValueError, as it must "
+              f"({str(e)[:60]}...)")
+    else:
+        check(False, "device_resident = always ran on a corpus that does "
+              "not fit")
+    check(not built, "a resident run built the host loader")
+    epoch.prefetch_to_device = real_prefetch
+
+    # --- epoch rates: resident and host-fed, kernels and plain
+    engines = {}
+    for backend in ("pallas", "xla"):
+        cfg = config(tpu__backend=backend)
+        model = build_model(cfg, dev)
+        run, _ = R.build_resident_epoch(model, cfg, None, n_samples)
+        engines[backend] = (cfg, run, build_train_step(model, cfg),
+                            TrainState.create(model.init(
+                                torch.Generator().manual_seed(0)), 5))
+
+    def resident_epoch(backend, e):
+        cfg, run, _, state = engines[backend]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state, data_dev, e)
+        torch.cuda.synchronize()
+        return n_batches * batch / (time.perf_counter() - t0)
+
+    def hostfed_epoch(backend, e):
+        cfg, _, step, state = engines[backend]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feed = prefetch_to_device(
+            dataset.batches(batch, shuffle=True, seed=cfg.tpu.seed + e),
+            dev, depth=cfg.tpu.prefetch, cast_dtype=feed_dtype(cfg))
+        try:
+            for xb in feed:
+                step(state, xb)
+        finally:
+            feed.close()
+        torch.cuda.synchronize()
+        return n_frames / (time.perf_counter() - t0)
+
+    rates = {(b, k): [] for b in engines for k in ("resident", "host-fed")}
+    for backend in engines:                                   # warm-up
+        resident_epoch(backend, 0)
+        hostfed_epoch(backend, 0)
+    for e, backend in enumerate(("xla", "pallas", "pallas", "xla"), 1):
+        rates[backend, "resident"].append(resident_epoch(backend, e))
+        rates[backend, "host-fed"].append(hostfed_epoch(backend, e))
+    for (backend, kind), rs in rates.items():
+        label = "kernels" if backend == "pallas" else "plain"
+        print(f"  epoch rate, {kind}, {label}: {statistics.mean(rs):,.0f} "
+              f"frames/s (runs {[round(r) for r in rs]}) [{card}]")
+    _, run, _, state = engines["pallas"]
+    print(f"  device busy share over one resident epoch, kernels: "
+          f"{busy_share(lambda: run(state, data_dev, 9))} [{card}]")
+    return launches, prim, dx_counts
 
 
 def http_request(port, method, path, body=None):
@@ -687,6 +1280,11 @@ def main() -> int:
     with torch.inference_mode():
         train_rows = phase_train_kernels(gen_params)
 
+    print("phase 3c: the input-gradient kernels and the sampler against "
+          "their plain versions")
+    with torch.no_grad():
+        new_rows = phase_new_kernels(gen_params)
+
     print("phase 4: the serving path (configs/default.ini)")
     cfg = load_config(ROOT / "configs" / "default.ini")
     check(cfg.tpu.backend == "pallas" and cfg.vae.arch == "dense"
@@ -746,14 +1344,33 @@ def main() -> int:
           f"{int8_ms:.2f} ms")
 
     print("phase 5: the training path (configs/default.ini)")
+    card = smi.stdout.strip()
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, step_launches = phase_train(Path(tmp) / "data")
+        print("phase 6: the device-resident path (configs/perf_bf16.ini)")
+        resident_launches, primitive_launches, dx_launches = phase_resident(
+            Path(tmp) / "data", card)
     for key, row in train_rows.items():
         name, kind = key[:-1].split("[")
         counts = step_launches if kind == "fp32" else train_launches
         row["launches"] = counts[name]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(train_rows)
+    # no path of the package runs matmul_nt_mask on bf16 operands (the bf16
+    # step takes the fused dec_bwd_fused): phase 3c held it against its
+    # plain version, and it stays out of the line of path kernels
+    del new_rows["matmul_nt_mask[bf16]"]
+    for key, row in new_rows.items():
+        name, kind = key[:-1].split("[")
+        if name == "reparameterize_prng":
+            row["launches"] = resident_launches[name]
+        elif kind == "fp32":
+            row["launches"] = primitive_launches[name]
+        else:
+            row["launches"] = dx_launches["bf16"][name]
+        check(row["launches"] > 0, f"{key}: no launch on its main path")
+    rows.update(new_rows)
+    print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

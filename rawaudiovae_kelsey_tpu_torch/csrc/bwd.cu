@@ -3,7 +3,12 @@
 // wrappers, the plain PyTorch versions and the autograd Functions).
 //
 // They replace the TPU kernels of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py
-// that the bf16 training step runs (its "split" backward):
+// that the training step's backward runs.  Its "primitive" backward (fp32
+// operands) is built from
+//   rvk_matmul_nt        matmul_nt        a Wᵀ             (dz, dx)
+//   rvk_matmul_nt_mask   matmul_nt_mask   (a Wᵀ)·(gate>0)  (dh3)
+//   rvk_matmul_nt2_mask  matmul_nt2_mask  (a1 W1ᵀ + a2 W2ᵀ)·(gate>0)  (dh)
+// and rvk_grad_accum; its "split" backward (bf16 operands) from
 //   rvk_grad_accum     grad_accum     dW = aᵀ b, db = colsum(b)
 //   rvk_grad_accum2    grad_accum2    the same for two cotangents sharing a
 //   rvk_enc_bwd_dw1    enc_bwd_dw1    dh = (dmu W21ᵀ + dlv W22ᵀ)·(h>0), then
@@ -31,6 +36,14 @@
 // operand dtype, rounded exactly where the TPU kernels round them
 // (pallas_mlp.py:535, 686), so dW1 / dW3 contract, and db1 / db3 sum, the
 // rounded values, as there.
+//
+// The input-gradient products (matmul_nt and its gated forms) have no
+// contraction over the batch: each is one launch of the GEMM with both
+// operands read along their contiguous axis (a row of a, a row of W), the
+// two-head form as one product over [a1 a2] and [W1ᵀ; W2ᵀ] joined along k.
+// The gate compares in fp32 and the output is rounded once, to the operand
+// dtype, as the TPU kernels do (pallas_mlp.py:359-360, 393-394).  The fused
+// kernels above run the same launches for their dh / dh3 / dz.
 //
 // What bounds them: a microbatch of 8192 at full width is ~150 GFLOP of
 // backward products against ~100 MB of operands — far above the fp32 ridge
@@ -71,6 +84,28 @@ cudaError_t grad_accum(const T* a, const T* b, const T* b2, float* dw,
   return launch_gemm<kRContig, kRContig>(g, b2 != nullptr ? 2 : 1, s);
 }
 
+// out (batch, m) = a @ wᵀ [+ a2 @ w2ᵀ], zeroed where gate <= 0 [if gate],
+// in T.  a, a2 (batch, n); w, w2 (m, n); gate (batch, m).  a2 / w2 and gate
+// may be null.
+template <typename T>
+cudaError_t matmul_nt(const T* a, const T* w, const T* a2, const T* w2,
+                      const T* gate, T* out, int batch, int n, int m,
+                      cudaStream_t s) {
+  Gemm<T, T, T> g = {};
+  if (a2 != nullptr) {
+    g.a = View<T>{a, a2, n, n, n};
+    g.out[0].b = View<T>{w, w2, n, n, n};
+  } else {
+    g.a = view(a, n, n);
+    g.out[0].b = view(w, n, n);
+  }
+  g.out[0].gate = gate;
+  g.out[0].c = out;
+  g.M = batch, g.N = m, g.K = a2 != nullptr ? 2 * n : n;
+  g.act = gate != nullptr ? rvk::kActGate : rvk::kActNone;
+  return launch_gemm<kKContig, kKContig>(g, 1, s);
+}
+
 // dh (batch, units) = ((dmu @ w21ᵀ + dlv @ w22ᵀ) · (h > 0)) in T; then
 // dw1 (seg, units) = xᵀ dh and db1 = colsum(dh).
 template <typename T>
@@ -78,14 +113,8 @@ cudaError_t enc_bwd_dw1(const T* x, const T* h, const T* dmu, const T* dlv,
                         const T* w21, const T* w22, T* dh, float* dw1,
                         float* db1, int batch, int seg, int units, int latent,
                         cudaStream_t s) {
-  Gemm<T, T, T> g = {};
-  g.a = View<T>{dmu, dlv, latent, latent, latent};
-  g.out[0].b = View<T>{w21, w22, latent, latent, latent};
-  g.out[0].gate = h;
-  g.out[0].c = dh;
-  g.M = batch, g.N = units, g.K = 2 * latent;
-  g.act = rvk::kActGate;
-  cudaError_t err = launch_gemm<kKContig, kKContig>(g, 1, s);
+  cudaError_t err =
+      matmul_nt<T>(dmu, w21, dlv, w22, h, dh, batch, latent, units, s);
   if (err != cudaSuccess) return err;
   return grad_accum<T>(x, dh, nullptr, dw1, db1, nullptr, nullptr, batch,
                        seg, units, s);
@@ -98,22 +127,11 @@ cudaError_t dec_bwd_fused(const T* da, const T* h3, const T* z, const T* w4,
                           const T* w3, T* dh3, T* dz, float* dw3, float* db3,
                           int batch, int seg, int units, int latent,
                           cudaStream_t s) {
-  Gemm<T, T, T> g = {};
-  g.a = view(da, seg, seg);
-  g.out[0].b = view(w4, seg, seg);
-  g.out[0].gate = h3;
-  g.out[0].c = dh3;
-  g.M = batch, g.N = units, g.K = seg;
-  g.act = rvk::kActGate;
-  cudaError_t err = launch_gemm<kKContig, kKContig>(g, 1, s);
+  cudaError_t err = matmul_nt<T>(da, w4, nullptr, nullptr, h3, dh3, batch,
+                                 seg, units, s);
   if (err != cudaSuccess) return err;
-  Gemm<T, T, T> gz = {};
-  gz.a = view<T>(dh3, units, units);
-  gz.out[0].b = view(w3, units, units);
-  gz.out[0].c = dz;
-  gz.M = batch, gz.N = latent, gz.K = units;
-  gz.act = rvk::kActNone;
-  err = launch_gemm<kKContig, kKContig>(gz, 1, s);
+  err = matmul_nt<T>(dh3, w3, nullptr, nullptr, nullptr, dz, batch, units,
+                     latent, s);
   if (err != cudaSuccess) return err;
   return grad_accum<T>(z, dh3, nullptr, dw3, db3, nullptr, nullptr, batch,
                        latent, units, s);
@@ -122,6 +140,42 @@ cudaError_t dec_bwd_fused(const T* da, const T* h3, const T* z, const T* w4,
 }  // namespace
 
 extern "C" {
+
+// a (batch, n), w (m, n), out (batch, m), all of one dtype.
+int rvk_matmul_nt(const void* a, const void* w, void* out, int batch, int n,
+                  int m, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return matmul_nt<T>(src<T>(a), src<T>(w), nullptr, nullptr, nullptr,
+                        dst<T>(out), batch, n, m, s);
+  });
+}
+
+// a (batch, n), w (m, n), gate and out (batch, m), all of one dtype.
+int rvk_matmul_nt_mask(const void* a, const void* w, const void* gate,
+                       void* out, int batch, int n, int m, int dtype,
+                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return matmul_nt<T>(src<T>(a), src<T>(w), nullptr, nullptr, src<T>(gate),
+                        dst<T>(out), batch, n, m, s);
+  });
+}
+
+// a1 and a2 (batch, n), w1 and w2 (m, n), gate and out (batch, m), all of
+// one dtype.
+int rvk_matmul_nt2_mask(const void* a1, const void* w1, const void* a2,
+                        const void* w2, const void* gate, void* out,
+                        int batch, int n, int m, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return matmul_nt<T>(src<T>(a1), src<T>(w1), src<T>(a2), src<T>(w2),
+                        src<T>(gate), dst<T>(out), batch, n, m, s);
+  });
+}
 
 // a (batch, n), b (batch, m) of one dtype; dw (n, m), db (m,) fp32.
 int rvk_grad_accum(const void* a, const void* b, float* dw, float* db,

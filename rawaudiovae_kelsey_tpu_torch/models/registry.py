@@ -6,7 +6,11 @@ Only ``arch = dense`` is ported.  ``[tpu] backend`` keeps its values:
 ``pallas`` runs the hand-written CUDA kernels (``ops/mlp.py``; on CPU
 tensors their wrappers run the plain versions), ``xla`` the plain PyTorch
 ops (``models/vae.py``), ``best`` the kernels on a CUDA device and the plain
-ops elsewhere.
+ops elsewhere.  Under ``pallas`` the backward of fp32 operands follows
+``[tpu] precision`` as the JAX package's ``_fusion`` does: ``float32`` and
+``highest`` take the "primitive" composition (``matmul_nt*`` +
+``grad_accum``), ``high`` the "split" kernels until the one-kernel
+``*_full`` backward is ported; bf16 operands always take "split".
 """
 
 from __future__ import annotations
@@ -63,7 +67,9 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
     seg, latent = cfg.audio.segment_length, cfg.vae.latent_dim
     encode_fn, decode_fn = vae.encode, vae.decode
     if backend == "pallas":
-        encode_fn, decode_fn = mlp.encode, mlp.decode
+        fp32_backward = "split" if cfg.tpu.precision == "high" else "primitive"
+        encode_fn = partial(mlp.encode, fp32_backward=fp32_backward)
+        decode_fn = partial(mlp.decode, fp32_backward=fp32_backward)
     return ModelDef(
         name="dense",
         segment_length=seg,
@@ -76,3 +82,15 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
         encode=encode_fn,
         decode=decode_fn,
     )
+
+
+def resident_model(cfg: Config, model: ModelDef) -> ModelDef:
+    """The ModelDef the device-resident epoch engine trains with: ``model``
+    as :func:`resolve_backend` resolved it.  The JAX package re-routes
+    ``backend = best`` to XLA inside its on-chip epoch scan because the
+    Pallas custom calls schedule worse there on a TPU; that is a property
+    of that compiler and that chip.  Here an epoch is a host loop over the
+    same step the host-fed trainer takes, so there is nothing to re-route,
+    and ``best`` keeps the kernels on a CUDA device.  An explicit
+    ``backend = xla`` / ``pallas`` is honoured as everywhere."""
+    return model

@@ -13,9 +13,13 @@ Each op has three parts, side by side:
   anything the kernel does not take raises;
 * the model-level entry points ``encode`` / ``decode``: the
   ``torch.autograd.Function`` s that play the roles of ``pallas_encode`` /
-  ``pallas_decode``, whose backward runs the backward kernels of the JAX
-  package's bf16 "split" backward: ``enc_bwd_dw1`` + ``grad_accum2`` for
-  the encoder, ``dec_bwd_fused`` + ``grad_accum`` for the decoder.
+  ``pallas_decode``.  Their backward has the JAX package's two modes
+  (``pallas_mlp.py`` ``_fusion``): "split", the bf16 step's — ``enc_bwd_dw1``
+  + ``grad_accum2`` for the encoder, ``dec_bwd_fused`` + ``grad_accum`` for
+  the decoder — and "primitive", the fp32 tiers' — ``matmul_nt2_mask`` then
+  three ``grad_accum`` for the encoder, ``matmul_nt_mask``, ``matmul_nt``
+  and two ``grad_accum`` for the decoder.  The encoder's input gradient is
+  ``matmul_nt2_mask`` followed by ``matmul_nt`` in both.
 
 Layouts are the JAX package's: weights ``(in, out)``, biases ``(out,)``.
 Operands are fp32 or bf16, all of one dtype per call; accumulation is fp32;
@@ -63,15 +67,18 @@ def decoder_fwd_ref(w3, b3, w4, b4, z) -> Tuple[Tensor, Tensor]:
 
 
 def matmul_nt2_mask_ref(a1, w1, a2, w2, gate) -> Tensor:
-    """``(a1 @ w1ᵀ + a2 @ w2ᵀ) · (gate > 0)`` in ``a1``'s dtype: the
-    encoder's ``dh`` (JAX ``matmul_nt2_mask``; plain version only)."""
+    """Plain version of :func:`matmul_nt2_mask`."""
     prod = _f(a1) @ _f(w1).t() + _f(a2) @ _f(w2).t()
     return torch.where(_f(gate) > 0, prod, 0.0).to(a1.dtype)
 
 
+def matmul_nt_mask_ref(a, w, gate) -> Tensor:
+    """Plain version of :func:`matmul_nt_mask`."""
+    return torch.where(_f(gate) > 0, _f(a) @ _f(w).t(), 0.0).to(a.dtype)
+
+
 def matmul_nt_ref(a, w) -> Tensor:
-    """``a @ wᵀ`` in ``a``'s dtype (JAX ``matmul_nt``; plain version
-    only)."""
+    """Plain version of :func:`matmul_nt`."""
     return (_f(a) @ _f(w).t()).to(a.dtype)
 
 
@@ -95,7 +102,7 @@ def dec_bwd_fused_ref(da, h3, z, w4, w3) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of :func:`dec_bwd_fused`: ``dh3`` rounded to the
     operand dtype (``pallas_mlp.py:686``), then ``dz = dh3 @ w3ᵀ`` in it and
     ``(zᵀ dh3, colsum(dh3))`` in fp32."""
-    dh3 = torch.where(_f(h3) > 0, _f(da) @ _f(w4).t(), 0.0).to(da.dtype)
+    dh3 = matmul_nt_mask_ref(da, w4, h3)
     return (matmul_nt_ref(dh3, w3), *grad_accum_ref(z, dh3))
 
 
@@ -208,6 +215,90 @@ decoder_fwd.launches = 0
 def _grads(dev, *shapes) -> Tuple[Tensor, ...]:
     return tuple(torch.empty(s, device=dev, dtype=torch.float32)
                  for s in shapes)
+
+
+def matmul_nt(a, w) -> Tensor:
+    """``a @ wᵀ``: ``(batch, n) @ (m, n)ᵀ → (batch, m)`` in the operand
+    dtype — the input-gradient product (``dz``, ``dx``).
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``matmul_nt``.
+    CUDA: one launch of the tiled GEMM (``csrc/bwd.cu``), both operands read
+    along their rows."""
+    if a.device.type == "cpu":
+        return matmul_nt_ref(a, w)
+    dev = cuda_device(a, "matmul_nt: a")
+    dt = operand_dtype(a, "matmul_nt: a")
+    batch, n = a.shape
+    m = w.shape[0]
+    require(a, "a", (batch, n), dev, dt)
+    require(w, "w", (m, n), dev, dt)
+    out = torch.empty((batch, m), device=dev, dtype=dt)
+    if batch:
+        _build.launch("rvk_matmul_nt", dev, a, w, out, batch, n, m,
+                      DTYPE_CODES[dt])
+        matmul_nt.launches += 1
+    return out
+
+
+matmul_nt.launches = 0
+
+
+def matmul_nt_mask(a, w, gate) -> Tensor:
+    """The ReLU-backward step ``(a @ wᵀ) · (gate > 0)``: the decoder's
+    ``dh3`` from ``da``, ``W4`` and ``h3``.  The gate compares in fp32; one
+    rounding to the operand dtype.
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py``
+    ``matmul_nt_mask``.  CUDA: one launch (``csrc/bwd.cu``), the gate as
+    the GEMM's epilogue."""
+    if a.device.type == "cpu":
+        return matmul_nt_mask_ref(a, w, gate)
+    dev = cuda_device(a, "matmul_nt_mask: a")
+    dt = operand_dtype(a, "matmul_nt_mask: a")
+    batch, n = a.shape
+    m = w.shape[0]
+    require(a, "a", (batch, n), dev, dt)
+    require(w, "w", (m, n), dev, dt)
+    require(gate, "gate", (batch, m), dev, dt)
+    out = torch.empty((batch, m), device=dev, dtype=dt)
+    if batch:
+        _build.launch("rvk_matmul_nt_mask", dev, a, w, gate, out, batch, n,
+                      m, DTYPE_CODES[dt])
+        matmul_nt_mask.launches += 1
+    return out
+
+
+matmul_nt_mask.launches = 0
+
+
+def matmul_nt2_mask(a1, w1, a2, w2, gate) -> Tensor:
+    """The two-head ReLU backward ``(a1 @ w1ᵀ + a2 @ w2ᵀ) · (gate > 0)``:
+    the encoder's ``dh`` from ``(dmu, dlogvar)``.  The gate compares in
+    fp32; one rounding to the operand dtype.
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py``
+    ``matmul_nt2_mask``.  CUDA: one launch (``csrc/bwd.cu``): one product
+    over ``[a1 a2]`` and ``[w1ᵀ; w2ᵀ]`` joined along the contraction."""
+    if a1.device.type == "cpu":
+        return matmul_nt2_mask_ref(a1, w1, a2, w2, gate)
+    dev = cuda_device(a1, "matmul_nt2_mask: a1")
+    dt = operand_dtype(a1, "matmul_nt2_mask: a1")
+    batch, n = a1.shape
+    m = w1.shape[0]
+    require(a1, "a1", (batch, n), dev, dt)
+    require(w1, "w1", (m, n), dev, dt)
+    require(a2, "a2", (batch, n), dev, dt)
+    require(w2, "w2", (m, n), dev, dt)
+    require(gate, "gate", (batch, m), dev, dt)
+    out = torch.empty((batch, m), device=dev, dtype=dt)
+    if batch:
+        _build.launch("rvk_matmul_nt2_mask", dev, a1, w1, a2, w2, gate, out,
+                      batch, n, m, DTYPE_CODES[dt])
+        matmul_nt2_mask.launches += 1
+    return out
+
+
+matmul_nt2_mask.launches = 0
 
 
 def grad_accum(a, b) -> Tuple[Tensor, Tensor]:
@@ -325,51 +416,73 @@ dec_bwd_fused.launches = 0
 
 # ------------------------------------------------------ autograd Functions
 
-def encode_input_grad(x, h, dmu, dlogvar, w1, w21, w22) -> Tensor:
-    """The encoder's input gradient ``dx = dh @ w1ᵀ``.  Training never asks
-    for it (the JAX package leaves it to XLA's dead-code elimination); the
-    CUDA kernels for it are not ported yet."""
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "the encoder's input gradient on CUDA needs the kernels of "
-            "ROADMAP.md queue B rows 6 (matmul_nt2_mask) and 4 (matmul_nt), "
-            "which are still to port")
-    return matmul_nt_ref(matmul_nt2_mask_ref(dmu, w21, dlogvar, w22, h), w1)
+# the backward modes of Encode / Decode (the JAX package's ``_fusion``)
+BACKWARD_MODES = ("primitive", "split")
+
+
+def backward_mode(dtype: torch.dtype, fp32_backward: str) -> str:
+    """The backward mode for operands of ``dtype``: bf16 takes "split";
+    fp32 takes ``fp32_backward`` ("primitive" for the ``float32`` and
+    ``highest`` tiers, as ``pallas_mlp.py`` ``_fusion`` picks)."""
+    if fp32_backward not in BACKWARD_MODES:
+        raise ValueError(f"unknown backward mode {fp32_backward!r}; "
+                         f"expected one of {BACKWARD_MODES}")
+    return fp32_backward if dtype == torch.float32 else "split"
+
+
+def encode_input_grad(h, dmu, dlogvar, w1, w21, w22) -> Tensor:
+    """The encoder's input gradient ``dx = dh @ w1ᵀ`` with ``dh`` from
+    :func:`matmul_nt2_mask` (``pallas_mlp.py:1038-1041``).  Training never
+    asks for it (the JAX package leaves it to dead-code elimination)."""
+    return matmul_nt(matmul_nt2_mask(dmu, w21, dlogvar, w22, h), w1)
 
 
 class Encode(torch.autograd.Function):
-    """``(x, w1, b1, w21, b21, w22, b22) → (mu, logvar)`` through
-    :func:`encoder_fwd`; backward through :func:`enc_bwd_dw1` and
-    :func:`grad_accum2`.  Saves ``(x, h)`` as residuals."""
+    """``(mode, x, w1, b1, w21, b21, w22, b22) → (mu, logvar)`` through
+    :func:`encoder_fwd`.  Backward, "split": :func:`enc_bwd_dw1` and
+    :func:`grad_accum2`; "primitive": :func:`matmul_nt2_mask` then three
+    :func:`grad_accum`.  Saves ``(x, h)`` as residuals."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w21, b21, w22, b22):
+    def forward(ctx, mode, x, w1, b1, w21, b21, w22, b22):
         mu, logvar, h = encoder_fwd(w1, b1, w21, b21, w22, b22, x)
         ctx.save_for_backward(x, h, w1, w21, w22)
+        ctx.mode = mode
         return mu, logvar
 
     @staticmethod
     def backward(ctx, dmu, dlogvar):
         x, h, w1, w21, w22 = ctx.saved_tensors
         dmu, dlogvar = dmu.contiguous(), dlogvar.contiguous()
-        dw1, db1 = enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22)
-        dw21, db21, dw22, db22 = grad_accum2(h, dmu, dlogvar)
         dx = None
-        if ctx.needs_input_grad[0]:
-            dx = encode_input_grad(x, h, dmu, dlogvar, w1, w21, w22)
+        if ctx.mode == "primitive":
+            dh = matmul_nt2_mask(dmu, w21, dlogvar, w22, h)
+            dw1, db1 = grad_accum(x, dh)
+            dw21, db21 = grad_accum(h, dmu)
+            dw22, db22 = grad_accum(h, dlogvar)
+            if ctx.needs_input_grad[1]:
+                dx = matmul_nt(dh, w1)   # dh is live already: reuse it
+        else:
+            dw1, db1 = enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22)
+            dw21, db21, dw22, db22 = grad_accum2(h, dmu, dlogvar)
+            if ctx.needs_input_grad[1]:
+                dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22)
         dt = w1.dtype
-        return (dx, *(g.to(dt) for g in (dw1, db1, dw21, db21, dw22, db22)))
+        return (None, dx,
+                *(g.to(dt) for g in (dw1, db1, dw21, db21, dw22, db22)))
 
 
 class Decode(torch.autograd.Function):
-    """``(z, w3, b3, w4, b4) → y`` through :func:`decoder_fwd`; backward
-    through :func:`dec_bwd_fused` and :func:`grad_accum`.  Saves
-    ``(z, h3, y)`` as residuals."""
+    """``(mode, z, w3, b3, w4, b4) → y`` through :func:`decoder_fwd`.
+    Backward, "split": :func:`dec_bwd_fused` and :func:`grad_accum`;
+    "primitive": :func:`matmul_nt_mask`, :func:`matmul_nt` and two
+    :func:`grad_accum`.  Saves ``(z, h3, y)`` as residuals."""
 
     @staticmethod
-    def forward(ctx, z, w3, b3, w4, b4):
+    def forward(ctx, mode, z, w3, b3, w4, b4):
         y, h3 = decoder_fwd(w3, b3, w4, b4, z)
         ctx.save_for_backward(z, h3, y, w3, w4)
+        ctx.mode = mode
         return y
 
     @staticmethod
@@ -378,29 +491,40 @@ class Decode(torch.autograd.Function):
         # tanh derivative: an elementwise pass left to PyTorch, as the JAX
         # package leaves it to XLA; fp32 inside, one rounding
         da = (_f(dy) * (1.0 - _f(y) * _f(y))).to(dy.dtype)
-        dz, dw3, db3 = dec_bwd_fused(da, h3, z, w4, w3)
+        if ctx.mode == "primitive":
+            dh3 = matmul_nt_mask(da, w4, h3)
+            dz = matmul_nt(dh3, w3)
+            dw3, db3 = grad_accum(z, dh3)
+        else:
+            dz, dw3, db3 = dec_bwd_fused(da, h3, z, w4, w3)
         dw4, db4 = grad_accum(h3, da)
         dt = w3.dtype
-        return (dz, *(g.to(dt) for g in (dw3, db3, dw4, db4)))
+        return (None, dz, *(g.to(dt) for g in (dw3, db3, dw4, db4)))
 
 
 Params = Dict[str, Dict[str, Tensor]]
 
 
-def encode(params: Params, x: Tensor) -> Tuple[Tensor, Tensor]:
+def encode(params: Params, x: Tensor, fp32_backward: str = "primitive"
+           ) -> Tuple[Tensor, Tensor]:
     """``models.vae.encode`` through the kernels (the role of the JAX
-    package's ``pallas_encode``)."""
+    package's ``pallas_encode``).  ``fp32_backward`` is the backward mode
+    of fp32 operands (:func:`backward_mode`)."""
     return Encode.apply(
-        x, params["fc1"]["w"], params["fc1"]["b"],
+        backward_mode(x.dtype, fp32_backward), x,
+        params["fc1"]["w"], params["fc1"]["b"],
         params["fc21"]["w"], params["fc21"]["b"],
         params["fc22"]["w"], params["fc22"]["b"],
     )
 
 
-def decode(params: Params, z: Tensor) -> Tensor:
+def decode(params: Params, z: Tensor, fp32_backward: str = "primitive"
+           ) -> Tensor:
     """``models.vae.decode`` through the kernels (the role of the JAX
-    package's ``pallas_decode``)."""
+    package's ``pallas_decode``).  ``fp32_backward`` as in
+    :func:`encode`."""
     return Decode.apply(
-        z, params["fc3"]["w"], params["fc3"]["b"],
+        backward_mode(z.dtype, fp32_backward), z,
+        params["fc3"]["w"], params["fc3"]["b"],
         params["fc4"]["w"], params["fc4"]["b"],
     )

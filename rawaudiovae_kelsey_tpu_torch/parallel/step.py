@@ -9,9 +9,11 @@ forward, reparameterization, loss, backward and Adam, with
   in fp32, casts ``z`` to bf16 for the decoder and the reconstruction back
   to fp32, so the loss and the optimizer run in fp32 on fp32 master params
   (``step.py:86-102``).  ``float32``, ``high`` and ``highest`` all run
-  IEEE fp32 operands (through the same kernels under ``backend = pallas``;
-  TF32 stays off): at least as accurate as each JAX tier, though ``high``
-  does not take the JAX package's 3-pass ``*_full`` kernels;
+  IEEE fp32 operands (TF32 stays off): at least as accurate as each JAX
+  tier.  Under ``backend = pallas`` the backward of ``float32`` and
+  ``highest`` is the JAX package's "primitive" composition, that of
+  ``high`` the "split" kernels (its 3-pass ``*_full`` kernels are not
+  ported; ``models/registry.py``);
 * microbatch accumulation: the fp32 gradient sum of the full microbatches
   is scaled by ``micro/total`` after summing, and a ragged tail is one more
   gradient call weighted ``rem/total``; under ``sum`` reduction both
@@ -21,6 +23,9 @@ forward, reparameterization, loss, backward and Adam, with
   :func:`noise_seed` ``(seed, s, i)`` — a function of those three alone, so
   a resumed run replays it.  It is not JAX's threefry stream; ``noise``
   injects other numbers (the tests feed both packages the same ``eps``).
+  Under ``[tpu] rng = tpu_prng`` no ``eps`` tensor exists: the sampler of
+  ``ops/rng.py`` draws it inside its kernel from the two words of the same
+  seed, and ``noise`` does not apply.
 
 The row-weighted loss of mesh training is not ported (one device only).
 The state is updated in place; clone it first to keep the old one.
@@ -35,6 +40,7 @@ import torch
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.models import vae
 from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef
+from rawaudiovae_kelsey_tpu_torch.ops import rng
 from rawaudiovae_kelsey_tpu_torch.train.checkpoint import flatten, unflatten
 from rawaudiovae_kelsey_tpu_torch.train.optim import Adam, build_optimizer
 from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
@@ -49,7 +55,7 @@ EVAL_STREAM = -1
 _MASK = (1 << 64) - 1
 
 
-def _mix(z: int) -> int:
+def mix64(z: int) -> int:
     """splitmix64's finalizer: a bijection of 64-bit integers."""
     z = (z + 0x9E3779B97F4A7C15) & _MASK
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK
@@ -61,9 +67,9 @@ def noise_seed(seed: int, step: int, i: Optional[int] = None) -> int:
     """The generator seed of step ``step``'s noise (of its microbatch
     ``i``; ``None`` for a step without microbatches): a hash of the three,
     63 bits."""
-    h = _mix(_mix(seed & _MASK) ^ (step & _MASK))
+    h = mix64(mix64(seed & _MASK) ^ (step & _MASK))
     if i is not None:
-        h = _mix(h ^ ((i + 1) & _MASK))
+        h = mix64(h ^ ((i + 1) & _MASK))
     return h >> 1
 
 
@@ -75,12 +81,13 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
 
 def make_loss_fn(model: ModelDef, cfg: Config) -> Callable:
     """``(params, eps, batch) → (loss, (mse, kld))``, all reductions fp32.
-    ``eps`` is the fp32 noise of ``z = mu + eps·exp(logvar/2)``."""
-    if cfg.tpu.rng == "tpu_prng":
-        raise NotImplementedError(
-            "[tpu] rng = tpu_prng needs the in-kernel sampler (ROADMAP.md "
-            "queue B row 13, pallas_reparameterize), not ported yet; use "
-            "rng = threefry")
+    ``eps`` is the fp32 noise of ``z = mu + eps·exp(logvar/2)``; under
+    ``[tpu] rng = tpu_prng`` it is instead the seed's two 32-bit words, and
+    the in-kernel sampler (``ops/rng.py``) draws the noise itself.  The
+    loss compares the reconstruction with ``batch`` as it is stored: a bf16
+    batch (the resident corpus under ``precision = bfloat16``) is the
+    rounded target, as in the JAX step (``step.py:86-102``)."""
+    tpu_prng = cfg.tpu.rng == "tpu_prng"
     if cfg.tpu.remat:
         raise NotImplementedError(
             "[tpu] remat is not ported to the PyTorch package yet "
@@ -97,7 +104,10 @@ def make_loss_fn(model: ModelDef, cfg: Config) -> Callable:
                    for n, p in params.items()}
         mu, logvar = model.encode(cparams, x.to(work))
         mu, logvar = mu.float(), logvar.float()
-        z = vae.reparameterize(mu, logvar, eps=eps).to(work)
+        if tpu_prng:
+            z = rng.reparameterize(eps, mu, logvar).to(work)
+        else:
+            z = vae.reparameterize(mu, logvar, eps=eps).to(work)
         recon = model.decode(cparams, z).float()
         loss, mse, kld = vae.loss_components(recon, x, mu, logvar, kl_beta,
                                              seg, reduction)
@@ -113,8 +123,11 @@ def build_train_step(model: ModelDef, cfg: Config,
                                    Tuple[TrainState, dict]]:
     """The full update ``(state, batch) → (state, metrics)``; ``metrics``
     holds the ``loss``, ``mse`` and ``kld`` as 0-d tensors on the device
-    (no host sync).  ``noise`` replaces the seeded draws."""
+    (no host sync).  ``noise`` replaces the seeded draws; it does not apply
+    under ``[tpu] rng = tpu_prng``, where the sampler's kernel draws the
+    noise from the seed's words."""
     loss_fn = make_loss_fn(model, cfg)
+    tpu_prng = cfg.tpu.rng == "tpu_prng"
     optimizer = optimizer or build_optimizer(cfg)
     micro = cfg.tpu.microbatch_size
     seg, latent = model.segment_length, model.latent_dim
@@ -123,12 +136,15 @@ def build_train_step(model: ModelDef, cfg: Config,
     mean_reduced = cfg.training.loss_reduction.split()[0] == "mean"
 
     def eps_for(state: TrainState, i: Optional[int], rows: int,
-                device: torch.device) -> Tensor:
+                device: torch.device):
+        seed = noise_seed(state.seed, state.step, i)
+        if tpu_prng:
+            return rng.seed_words(seed)
         if noise is not None:
             return noise(state.step, i, (rows, latent)).to(
                 device=device, dtype=torch.float32)
-        g = _generator(device, noise_seed(state.seed, state.step, i))
-        return torch.randn((rows, latent), generator=g, device=device)
+        return torch.randn((rows, latent), generator=_generator(device, seed),
+                           device=device)
 
     def step(state: TrainState, batch: Tensor):
         batch = batch.reshape(-1, seg)

@@ -1,15 +1,19 @@
 """Machinery of the epoch trainer — the JAX package's
 ``train/loop.py``, ported to one device: workspace, writer, test fixture,
-model and state construction, resume, periodic reconstruction, and the
-best/last model bookkeeping.  There is no mesh, no orbax and no multihost
+model and state construction, resume, periodic reconstruction, the
+best/last model bookkeeping, and the boundary machinery of the
+device-resident engine (one shared host copy of the state, the background
+boundary writer).  There is no mesh, no orbax and no multihost
 (each raises earlier, in ``train/epoch.py``).
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +38,7 @@ from rawaudiovae_kelsey_tpu_torch.parallel.step import (
     eval_generator,
 )
 from rawaudiovae_kelsey_tpu_torch.train import checkpoint as ckpt
-from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
+from rawaudiovae_kelsey_tpu_torch.train.state import Params, TrainState
 
 
 @dataclass
@@ -52,6 +56,7 @@ class TrainContext:
     best_loss: float = float("inf")
     start_step: int = 0
     start_meta: dict = field(default_factory=dict)
+    boundary_writer: Optional["AsyncBoundaryWriter"] = None
 
     def close(self) -> None:
         self.writer.close()
@@ -181,12 +186,110 @@ def reconstruct_test_set(ctx: TrainContext, step_label: int) -> np.ndarray:
     return wave
 
 
-def log_param_histograms(ctx: TrainContext, step: int) -> None:
+def fetch_host_state(state: TrainState,
+                     ready: Optional["torch.cuda.Event"] = None
+                     ) -> TrainState:
+    """The whole train state with its tensors on the host, in ONE pass
+    shared by every action of a checkpoint boundary (histograms, the best
+    gate and the checkpoint writer each used to pull their own copy).
+
+    For a state on a CUDA device the copies run on a side stream that
+    waits for ``ready`` (an event recorded after the state was written;
+    by default, everything queued so far on the current stream) and for
+    nothing later: called from the boundary worker with a snapshot, it
+    does not wait for the steps the training thread keeps queueing."""
+    leaves = [t for tree in (state.params, state.mu, state.nu)
+              for layer in tree.values() for t in layer.values()]
+    cuda = next((t.device for t in leaves if t.device.type == "cuda"), None)
+
+    def to_host(tree: Params) -> Params:
+        return {n: {k: t.detach().to("cpu") for k, t in layer.items()}
+                for n, layer in tree.items()}
+
+    def fetch() -> TrainState:
+        return TrainState(params=to_host(state.params),
+                          mu=to_host(state.mu), nu=to_host(state.nu),
+                          count=state.count, seed=state.seed,
+                          step=state.step)
+
+    if cuda is None:
+        return fetch()
+    side = torch.cuda.Stream(cuda)
+    if ready is not None:
+        side.wait_event(ready)
+    else:
+        side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        host = fetch()
+    side.synchronize()
+    return host
+
+
+def boundary_host_state(ctx: TrainContext) -> Tuple[TrainState, Params]:
+    """``(host_state, host_params)`` of the live state for a checkpoint
+    boundary's writers: one device→host pass."""
+    host = fetch_host_state(ctx.state)
+    return host, host.params
+
+
+class AsyncBoundaryWriter:
+    """Checkpoint-boundary host I/O on a background thread.
+
+    With the boundary state snapshotted on the device and the next group
+    of epochs already queued, the training thread would still block on the
+    boundary's host work: one full state fetch plus the histogram, best
+    and checkpoint writes.  Submitting the boundary closure here takes it
+    off the loop: the loop trains ahead while the worker fetches and
+    writes.
+
+    Depth 1 by design: ``submit`` first waits for the previous boundary,
+    so at most one snapshot is alive off-loop and boundaries execute
+    strictly in order (the best gate mutates shared bookkeeping).
+    ``flush()`` joins the in-flight boundary and re-raises any worker
+    exception on the caller — the trainer flushes before interrupt
+    checkpoints and the end-of-run tail, so those always see settled
+    ``best_loss`` and artifacts."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._err: Optional[BaseException] = None
+
+    def submit(self, fn: Callable[[], None]) -> float:
+        """Queue ``fn``; returns the seconds spent waiting for the PREVIOUS
+        boundary to clear (the only part of the I/O left on the loop)."""
+        t0 = time.perf_counter()
+        self.flush()
+        wait_s = time.perf_counter() - t0
+
+        def run() -> None:
+            try:
+                fn()
+            except BaseException as e:  # re-raised on the loop at flush
+                self._err = e
+
+        self._thread = threading.Thread(
+            target=run, name="boundary-io", daemon=True)
+        self._thread.start()
+        return wait_s
+
+    def flush(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise RuntimeError("checkpoint-boundary I/O failed") from err
+
+
+def log_param_histograms(ctx: TrainContext, step: int,
+                         params: Optional[Params] = None) -> None:
     """Per-parameter histograms under the reference's torch names
     (``fc1.weight`` in ``nn.Linear``'s ``(out, in)`` layout, ``fc1.bias``;
-    train.py:203-204)."""
-    for name in sorted(ctx.state.params):
-        layer = ctx.state.params[name]
+    train.py:203-204).  ``params`` may pass a pre-fetched host tree
+    (:func:`fetch_host_state`) to skip the device pull."""
+    params = ctx.state.params if params is None else params
+    for name in sorted(params):
+        layer = params[name]
         ctx.writer.add_histogram(f"{name}.weight",
                                  layer["w"].detach().t().cpu().numpy(), step)
         ctx.writer.add_histogram(f"{name}.bias",
@@ -194,13 +297,16 @@ def log_param_histograms(ctx: TrainContext, step: int) -> None:
 
 
 def save_periodic_checkpoint(ctx: TrainContext, extra: dict,
-                             label: int | None = None) -> Path:
+                             label: int | None = None,
+                             host_state: Optional[TrainState] = None) -> Path:
     """``ckpt_{label:05d}.npz`` of the whole state, then retention
-    (``[training] keep_checkpoints``) and a TB flush."""
+    (``[training] keep_checkpoints``) and a TB flush.  ``host_state`` may
+    pass a pre-fetched host copy (:func:`fetch_host_state`)."""
     extra = dict(extra)
     extra["best_loss"] = ctx.best_loss
-    path = ckpt.save_checkpoint(ctx.workspace.checkpoint_dir, ctx.state,
-                                extra, label=label)
+    path = ckpt.save_checkpoint(
+        ctx.workspace.checkpoint_dir,
+        ctx.state if host_state is None else host_state, extra, label=label)
     # prune AFTER the new save so a failed write can't leave fewer than
     # `keep` on disk
     keep = ctx.cfg.training.keep_checkpoints
@@ -212,14 +318,16 @@ def save_periodic_checkpoint(ctx: TrainContext, extra: dict,
 
 
 def maybe_save_best(ctx: TrainContext, train_loss: float, step_label: int,
-                    after: int) -> bool:
+                    after: int, host_params: Optional[Params] = None) -> bool:
     """Best-model gate with a real best tracker (the reference's
-    ``train_loss_prev`` started at 1e6 and was never updated — quirk #7)."""
+    ``train_loss_prev`` started at 1e6 and was never updated — quirk #7).
+    ``host_params`` may pass a pre-fetched host tree."""
     if step_label > after and train_loss < ctx.best_loss:
         ctx.best_loss = train_loss
         ctx.cfg.training.best_epoch = str(step_label)
         path = ctx.workspace.model_dir / "best_model.npz"
-        ckpt.save_params(path, ctx.state.params)
+        ckpt.save_params(path, ctx.state.params if host_params is None
+                         else host_params)
         print(f"Step {step_label:05d}: Saved {path}")
         return True
     if train_loss > ctx.best_loss:
@@ -227,14 +335,25 @@ def maybe_save_best(ctx: TrainContext, train_loss: float, step_label: int,
     return False
 
 
-def save_last(ctx: TrainContext) -> Path:
+def save_last(ctx: TrainContext, host_params: Optional[Params] = None
+              ) -> Path:
     path = ctx.workspace.model_dir / "last_model.npz"
-    ckpt.save_params(path, ctx.state.params)
+    ckpt.save_params(path, ctx.state.params if host_params is None
+                     else host_params)
     print("Training Finished: Saved the last model")
     return path
 
 
 def finish(ctx: TrainContext) -> None:
+    if ctx.boundary_writer is not None:
+        # exception-path safety net: the trainer flushes on every normal
+        # path, so an error here means the run is already failing — report
+        # the secondary failure without masking the primary one
+        try:
+            ctx.boundary_writer.flush()
+        except Exception as e:
+            print(f"WARNING: checkpoint-boundary I/O failed during "
+                  f"shutdown: {e!r}")
     keep = ctx.cfg.training.keep_checkpoints
     if keep > 0:
         ckpt.prune_checkpoints(ctx.workspace.checkpoint_dir, keep)

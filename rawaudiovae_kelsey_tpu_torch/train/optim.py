@@ -11,8 +11,12 @@ bias corrections ``1 - b**count`` in fp32, ``mu_hat / (sqrt(nu_hat) +
 eps)``, then ``p + (-lr)·u``), so the port and the JAX package stay within
 fp32 rounding over coupled steps, and its moments are the tensors of
 :class:`TrainState`, which map one to one onto the JAX checkpoint's leaves.
-It runs in place on the state's tensors.  The JAX update is XLA's, not a
-Pallas kernel, so there is no kernel to port here.
+It runs in place on the state's tensors, and queues no host-to-device
+copy: the two bias corrections reach the device as filled scalars, so the
+host never waits for the step it has just queued (a copied scalar blocks
+until the stream drains, which idles the device between the small steps of
+a device-resident epoch).  The JAX update is XLA's, not a Pallas kernel, so
+there is no kernel to port here.
 """
 
 from __future__ import annotations
@@ -38,15 +42,20 @@ class Adam:
         ``grads``, in place."""
         state.count += 1
         f32 = torch.float32
-        bc1 = 1.0 - torch.tensor(self.b1, dtype=f32) ** state.count
-        bc2 = 1.0 - torch.tensor(self.b2, dtype=f32) ** state.count
+        bc1 = float(1.0 - torch.tensor(self.b1, dtype=f32) ** state.count)
+        bc2 = float(1.0 - torch.tensor(self.b2, dtype=f32) ** state.count)
+        on_device = {}   # device → the two corrections as 0-d fp32 tensors
         for name, layer in state.params.items():
             for k, p in layer.items():
                 g = grads[name][k]
                 mu, nu = state.mu[name][k], state.nu[name][k]
                 mu.copy_((1 - self.b1) * g + self.b1 * mu)
                 nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-                bc1_, bc2_ = bc1.to(p.device), bc2.to(p.device)
+                if p.device not in on_device:
+                    on_device[p.device] = tuple(
+                        torch.full((), v, dtype=f32, device=p.device)
+                        for v in (bc1, bc2))
+                bc1_, bc2_ = on_device[p.device]
                 u = (mu / bc1_) / (torch.sqrt(nu / bc2_) + self.eps)
                 p.add_(-self.learning_rate * u)
 

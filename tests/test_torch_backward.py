@@ -207,11 +207,21 @@ def test_bf16_functions_return_grads_in_the_params_dtype(jparams):
 
 
 def test_input_grad_on_cuda_raises_naming_the_kernels_to_port():
-    """The encoder's dx needs queue B rows 6 and 4: off the CPU it raises
-    (here a meta tensor stands in for a CUDA one)."""
+    """The encoder's dx runs queue B rows 6 and 4 (``matmul_nt2_mask``,
+    then ``matmul_nt``), which are ported: off the CPU it goes to their
+    kernels and never to the plain version, so a tensor that is on neither
+    the CPU nor a CUDA device is refused by the first of them (here a meta
+    tensor); on the CPU it is the plain composition."""
     t = torch.empty((4, 8), device="meta")
-    with pytest.raises(NotImplementedError, match="rows 6 .*and 4"):
-        mlp.encode_input_grad(t, t, t, t, t, t, t)
+    with pytest.raises(ValueError, match="matmul_nt2_mask.*CUDA"):
+        mlp.encode_input_grad(t, t, t, t, t, t)
+    h, dmu, dlv, w1, w21, w22 = (torch.from_numpy(a) for a in _arrays(
+        9, (6, UNITS), (6, LATENT), (6, LATENT), (SEG, UNITS),
+        (UNITS, LATENT), (UNITS, LATENT), relu=(0,)))
+    dh = torch.where(h > 0, dmu @ w21.t() + dlv @ w22.t(), 0.0)
+    torch.testing.assert_close(
+        mlp.encode_input_grad(h, dmu, dlv, w1, w21, w22), dh @ w1.t(),
+        atol=ATOL, rtol=RTOL)
 
 
 def test_cpu_backward_wrappers_launch_nothing(jparams):

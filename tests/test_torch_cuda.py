@@ -15,6 +15,9 @@ so their fp32 outputs are held relative to the output's largest value,
 ``1e-4 · max|want|``.  bf16 outputs (forward activations, ``dz``) may flip
 by one bf16 ulp where the two fp32 sums straddle a rounding boundary, and
 a rounded hidden cotangent can carry one more: ``2^-6 · max|want|``.
+The sampler's ``z`` is held at ``1e-5 · (1 + |z|)``: the kernel and the
+plain version run the same fp32 operations on the same bits, and differ
+only in the last ulps of ``log`` / ``cos`` / ``exp``.
 """
 
 import numpy as np
@@ -206,12 +209,132 @@ def test_backward_kernels_are_deterministic(cuda):
         assert torch.equal(a, b)
 
 
-def test_encoder_input_grad_raises_on_cuda(cuda):
-    w, t = _backward_inputs(cuda, 4, torch.float32, 64, 128, 16)
-    x = t["x"].requires_grad_()
-    mu, lv = mlp.encode(w, x)
-    with pytest.raises(NotImplementedError, match="rows 6 .*and 4"):
-        (mu.sum() + lv.sum()).backward()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("batch", [8192, 1000, 1])
+def test_input_gradient_kernels_match_plain_versions(cuda, batch, dtype):
+    """Queue B rows 4-6 at full width; each launches once."""
+    w, t = _backward_inputs(cuda, batch, dtype)
+    w1, w21, w22, w3, w4 = (w[n]["w"] for n in ("fc1", "fc21", "fc22", "fc3",
+                                                "fc4"))
+    before = {f.__name__: f.launches for f in ops.KERNEL_WRAPPERS}
+    dh = mlp.matmul_nt2_mask_ref(t["dmu"], w21, t["dlv"], w22, t["h"])
+    cases = [
+        ((mlp.matmul_nt2_mask(t["dmu"], w21, t["dlv"], w22, t["h"]),),
+         (dh,)),
+        ((mlp.matmul_nt_mask(t["da"], w4, t["h3"]),),
+         (mlp.matmul_nt_mask_ref(t["da"], w4, t["h3"]),)),
+        ((mlp.matmul_nt(dh, w1),), (mlp.matmul_nt_ref(dh, w1),)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in cases:
+        _close_rel(got, want, GRAD_REL if dtype == torch.float32
+                   else BF16_REL)
+    for name in ("matmul_nt", "matmul_nt_mask", "matmul_nt2_mask"):
+        assert getattr(mlp, name).launches == before[name] + 1
+
+
+def test_input_gradient_kernels_at_odd_widths(cuda):
+    w, t = _backward_inputs(cuda, 45, torch.float32, 200, 333, 37)
+    got = mlp.matmul_nt2_mask(t["dmu"], w["fc21"]["w"], t["dlv"],
+                              w["fc22"]["w"], t["h"])
+    want = mlp.matmul_nt2_mask_ref(t["dmu"], w["fc21"]["w"], t["dlv"],
+                                   w["fc22"]["w"], t["h"])
+    _close_rel((got,), (want,), GRAD_REL)
+    _close_rel((mlp.matmul_nt(want, w["fc1"]["w"]),),
+               (mlp.matmul_nt_ref(want, w["fc1"]["w"]),), GRAD_REL)
+
+
+def test_encoder_input_grad_on_cuda(cuda):
+    """``dx`` through ``mlp.encode`` on the card: rows 6 and 4 launch once
+    each (split mode) and the result is the plain composition's."""
+    w, t = _backward_inputs(cuda, 300, torch.float32, 64, 128, 16)
+    for mode in mlp.BACKWARD_MODES:
+        x = t["x"].clone().requires_grad_()
+        before = (mlp.matmul_nt2_mask.launches, mlp.matmul_nt.launches)
+        mu, lv = mlp.encode(w, x, fp32_backward=mode)
+        (dx,) = torch.autograd.grad((mu * t["dmu"]).sum()
+                                    + (lv * t["dlv"]).sum(), x)
+        assert (mlp.matmul_nt2_mask.launches, mlp.matmul_nt.launches) == \
+            (before[0] + 1, before[1] + 1)
+        _, _, h = mlp.encoder_fwd_ref(*[w[a][k] for a, k in ENC], t["x"])
+        want = mlp.matmul_nt_ref(mlp.matmul_nt2_mask_ref(
+            t["dmu"], w["fc21"]["w"], t["dlv"], w["fc22"]["w"], h),
+            w["fc1"]["w"])
+        _close_rel((dx,), (want,), GRAD_REL)
+
+
+@pytest.mark.parametrize("batch", [4096, 1000, 1])
+def test_sampler_kernel_matches_plain_version(cuda, batch):
+    """Queue B row 13: the kernel's Philox words equal the plain version's
+    bit for bit; ``z`` within the ulp differences of log / cos / exp; two
+    launches with one seed are identical; the high seed word matters."""
+    from rawaudiovae_kelsey_tpu_torch.ops import rng
+
+    seed = (0x9ABCDEF0 + batch, 0x12345678)
+    assert torch.equal(rng.philox_words(seed, batch, 256, cuda),
+                       rng.philox_words_ref(seed, batch, 256, cuda))
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    mu = torch.randn((batch, 256), generator=g, device=cuda)
+    logvar = torch.randn((batch, 256), generator=g, device=cuda) * 0.5
+    before = rng.reparameterize_prng.launches
+    z = rng.reparameterize_prng(seed, mu, logvar)
+    assert rng.reparameterize_prng.launches == before + 1
+    want = rng.reparameterize_prng_ref(seed, mu, logvar)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(z).all())
+    assert bool(((z - want).abs() <= 1e-5 * (1 + want.abs())).all())
+    assert torch.equal(z, rng.reparameterize_prng(seed, mu, logvar))
+    assert not torch.equal(
+        z, rng.reparameterize_prng((seed[0], seed[1] + 1), mu, logvar))
+    # the plain version on the CPU draws the same noise
+    cpu = rng.reparameterize_prng_ref(seed, mu.cpu(), logvar.cpu())
+    assert bool(((z.cpu() - cpu).abs() <= 1e-5 * (1 + cpu.abs())).all())
+
+
+def test_sampler_backward_on_cuda(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import rng
+
+    mu = torch.randn((100, 256), device=cuda, requires_grad=True)
+    logvar = torch.randn((100, 256), device=cuda, requires_grad=True)
+    cot = torch.randn((100, 256), device=cuda)
+    z = rng.reparameterize((3, 4), mu, logvar)
+    dmu, dlv = torch.autograd.grad((z * cot).sum(), (mu, logvar))
+    eps = rng.eps_ref((3, 4), 100, 256, cuda)
+    assert torch.equal(dmu, cot)
+    torch.testing.assert_close(
+        dlv, 0.5 * eps * torch.exp(0.5 * logvar.detach()) * cot,
+        atol=1e-5, rtol=1e-4)
+
+
+def test_resident_epoch_on_the_card(cuda):
+    """A resident epoch at ``highest`` through the kernels launches the
+    primitive backward once per step: rows 6, 5 and 4 (``dz``) once,
+    ``grad_accum`` five times."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import resident as R
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.precision, cfg.tpu.backend = "highest", "pallas"
+    cfg.tpu.rng = "tpu_prng"
+    cfg.training.batch_size = 512
+    corpus = np.random.default_rng(0).uniform(
+        -0.5, 0.5, 300_000).astype(np.float32)
+    model = build_model(cfg, cuda)
+    run, n_batches = R.build_resident_epoch(model, cfg, None, len(corpus))
+    data = R.put_resident(corpus, cfg, "frames", cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)), 1)
+    names = ("matmul_nt2_mask", "matmul_nt_mask", "matmul_nt", "grad_accum")
+    before = [getattr(mlp, n).launches for n in names]
+    sampler = ops.reparameterize_prng.launches
+    state, losses = run(state, data, 0)
+    torch.cuda.synchronize()
+    assert losses.shape == (1, n_batches) and bool(losses.isfinite().all())
+    got = [getattr(mlp, n).launches - b for n, b in zip(names, before)]
+    assert got == [n_batches, n_batches, n_batches, 5 * n_batches]
+    assert ops.reparameterize_prng.launches == sampler + n_batches
 
 
 def test_train_step_on_the_card_matches_the_plain_backend(cuda):

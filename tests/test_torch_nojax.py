@@ -18,7 +18,8 @@ SLICE = [
     "config.schema", "config.ini", "config.workspace", "io.wavio",
     "io.resample", "data.framing", "data.corpus", "data.datasets",
     "data.validate", "data.loader", "models.vae", "models.registry",
-    "ops.mlp", "ops.quant", "ops._build", "parallel.step", "train.state",
+    "ops.mlp", "ops.quant", "ops.rng", "ops._build", "parallel.step",
+    "parallel.resident", "train.state",
     "train.optim", "train.checkpoint", "train.loop", "train.interrupt",
     "train.epoch", "train.cli", "eval.fixtures", "observe.tb",
     "observe.timing", "observe.logging", "compat.from_jax",

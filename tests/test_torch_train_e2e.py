@@ -183,7 +183,7 @@ def test_missing_test_dir_raises(scratch_dataset):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("device_resident", "always"), ("multihost", True),
+    ("remat", True), ("multihost", True),
     ("data_parallel", 2), ("model_parallel", 2),
     ("checkpoint_format", "orbax")])
 def test_unported_trainer_options_raise(scratch_dataset, key, value):

@@ -189,10 +189,13 @@ def test_seeded_noise_replays_from_the_step():
     assert not torch.equal(ma["loss"], mc["loss"])
 
 
-@pytest.mark.parametrize("key,value", [("rng", "tpu_prng"),
-                                       ("remat", True)])
-def test_unported_step_options_raise(key, value):
+@pytest.mark.parametrize("rng", ["threefry", "tpu_prng"])
+def test_unported_step_options_raise(rng):
+    """``remat`` is the one step option still to port; ``rng = tpu_prng``
+    (the in-kernel sampler) builds."""
     cfg = _configure(Config(), "xla", "highest", "mean", 0)
-    setattr(cfg.tpu, key, value)
+    cfg.tpu.rng = rng
+    build_train_step(build_model(cfg, "cpu"), cfg)
+    cfg.tpu.remat = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_train_step(build_model(cfg, "cpu"), cfg)
