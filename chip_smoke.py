@@ -37,7 +37,7 @@ any failure exits non-zero with a traceback (no phase is caught):
    losses, the workspace's artifacts, every training kernel launched; a
    ``--resume`` run that takes one more epoch; one step from the trained
    state through the kernels and through the plain ops, same noise, in
-   bf16, in fp32 at ``high`` (the fp32 "split" kernels) and at ``highest``
+   bf16, in fp32 at ``high`` (the 3-pass "full" chains) and at ``highest``
    (the fp32 "primitive" kernels); training frames/s of both backends and
    the device's busy share;
 6. the device-resident path: ``configs/perf_bf16.ini`` uncut (batch 4096,
@@ -51,13 +51,42 @@ any failure exits non-zero with a traceback (no phase is caught):
    plain backend; ``dx`` through the model's encoder in fp32 and bf16; the
    corpus layout under a small budget and the ``always`` error under none;
    resident and host-fed epoch frames/s of both backends and the device's
-   busy share over a resident epoch.
+   busy share over a resident epoch;
+3d. (run with the other kernel phases) ``enc_bwd_full`` and ``dec_bwd_full``
+   with fp32 operands in the 3-pass mode and with bf16 operands in one
+   pass, at batch 4096 (the stream's), 8192 and a ragged 4097, against
+   their plain versions, timed at 4096 and at 8192; the 3-pass chains bit
+   for bit against their plain versions on operands built so that every
+   sum has one non-zero term and many values sit on a rounding tie of the
+   hi/lo split (a one-pass product or a split that rounds to nearest even
+   gives other bits); ``loss_sums`` on fp32 and bf16 inputs at batch 4096
+   and 25,810 (equal bits on a second launch) with both times;
+   ``fused_loss`` and its closed-form backward against the plain loss;
+7. the streaming path: ``configs/default_iterable.ini`` (batch 4096, bf16,
+   pallas) on a synthetic folder of five wavs of unequal length, one of
+   them resampled, with only the datapath, the frame budget (40 batches)
+   and the checkpoint and histogram intervals changed → ``python -m
+   rawaudiovae_kelsey_tpu_torch stream`` in-process, once as written and
+   once with ``precision = high`` → finite, falling losses, ``batch_id``
+   checkpoints, the gate's line; per step the bf16 run launches the split
+   kernels and the ``high`` run ``enc_bwd_full`` and ``dec_bwd_full`` once
+   each and no split kernel; one ``high`` step against the plain backend
+   from the same state and noise, and ``fused_loss`` on that step's
+   tensors against its loss; ``--resume`` with a larger budget against a
+   straight run of that budget (equal losses); ``eval`` on the run; the hot
+   loop's frames/s and the device's busy share for both precisions.
 
 ``launches`` in the kernel line: the wrapper's count over the path where
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
 (phase 4); bf16 forward kernels: the training run of phase 5 (its fp32
 test-set reconstructions included); bf16 "split" backward kernels: that
-run; fp32 "split" backward kernels: the ``high`` step of phase 5; fp32
+run; fp32 ``grad_accum``: the ``highest`` step of phase 5 (no path of the
+package runs ``enc_bwd_dw1``, ``grad_accum2`` or ``dec_bwd_fused`` on fp32
+operands since ``high`` takes the full chains: phase 3b still holds them
+against their plain versions, and they stay out of the kernel line);
+``enc_bwd_full`` / ``dec_bwd_full``: the
+``high`` stream run of phase 7; ``loss_sums``: the ``fused_loss`` call on a
+``high`` step's tensors in phase 7 (no step dispatches it); fp32
 ``matmul_nt*``: the ``highest`` resident epoch of phase 6; bf16
 ``matmul_nt`` / ``matmul_nt2_mask``: the bf16 ``dx`` of phase 6 (no path
 of the package runs ``matmul_nt_mask`` in bf16; phase 3c still holds it
@@ -65,7 +94,8 @@ against its plain version); the sampler: the resident training run.
 ``bound_ms`` is the larger of bytes moved (each input read once, each
 output written once) over 3.35 TB/s and operations over the peak of the
 operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
-NVIDIA's H100 SXM data sheet), at the shapes that were timed.
+NVIDIA's H100 SXM data sheet), at the shapes that were timed: those the
+path named above gives the kernel.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -110,6 +140,20 @@ HTTP_ATOL = 1e-4
 TRAIN_BATCH, TRAIN_RAGGED = 8192, 1000
 GRAD_REL = 1e-4
 BF16_REL = 2.0 ** -6
+# phase 3d.  The 3-pass chains split their operands exactly as their plain
+# versions do and add the same bf16 x bf16 products (exact in fp32) in
+# another order: 1e-4 * max|plain| as for the fp32 kernels (measured ~2e-6).
+# That tolerance cannot tell three passes from one, or the split's rounding
+# (both move a product by ~1e-5 of it), so the chains are also held bit for
+# bit on built operands (exact_split_case); only the two bias gradients that
+# sum a dense cotangent over the batch keep a tolerance there, EXACT_DB_REL.
+# The loss sums add up to 26 M fp32 terms in another order than torch.sum:
+# rel 1e-5; two launches on the same inputs must give the same bits.
+STREAM_BATCH, FULL_RAGGED = 4096, 4097
+FULL_REL = 1e-4
+EXACT_DB_REL = 1e-5
+LOSS_BATCH, LOSS_RAGGED = 4096, 25_810
+SUMS_REL = 1e-5
 
 
 # roofline peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
@@ -547,6 +591,250 @@ def phase_new_kernels(gen_params):
     return rows
 
 
+def split_probe_values(g, shape, dev):
+    """fp32 values made from their bits, to tell one hi/lo split from
+    another: random sign, exponent in [-3, 3], random mantissa, and of every
+    eight values two whose low 16 bits are exactly 0x8000 (the tie, where
+    rounding half up and rounding to nearest even part), one just below it
+    (0x7FFF) and one just above (0x8001)."""
+    def draw(lo, hi):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    mant, kind = draw(0, 1 << 23), draw(0, 8)
+    low = mant & 0xFFFF
+    for k, bits in ((0, 0x8000), (1, 0x8000), (2, 0x7FFF), (3, 0x8001)):
+        low = torch.where(kind == k, bits, low)
+    v = ((draw(124, 131) << 23) | (mant & ~0xFFFF) | low).view(torch.float32)
+    return torch.where(draw(0, 2) == 1, -v, v)
+
+
+def exact_split_case(dev, seed=0, seg=SEG, units=UNITS, latent=LATENT):
+    """Operands of ``enc_bwd_full`` and ``dec_bwd_full`` at batch = latent on
+    which the 3-pass product leaves no room for summation order: every
+    contraction of the two chains has at most one non-zero term, so each
+    product is ``(hi·hi + hi·lo) + lo·hi`` of one pair of values (each
+    partial product exact in fp32), and a kernel that splits and adds as the
+    plain version does gives its bits.  The values are
+    :func:`split_probe_values`.  Only ``db1`` and ``db3`` add a dense
+    cotangent over the batch.  Returns ``(enc_args, dec_args)``; needs
+    ``seg >= latent`` and ``units >= latent``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = latent
+
+    def val(*shape):
+        return split_probe_values(g, shape, dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
+    r, cols = torch.arange(b, device=dev), torch.arange(seg, device=dev)
+    # encoder.  x: column i is non-zero in row i % b alone (dW1 = xᵀ dh);
+    # dmu on the even rows' diagonal and dlogvar on the odd rows' (dh, the
+    # head gradients and their bias gradients); h, w21, w22 dense
+    x = zeros(b, seg)
+    x[cols % b, cols] = val(seg)
+    d = val(b)
+    dmu = torch.diag(torch.where(r % 2 == 0, d, 0.0))
+    dlv = torch.diag(torch.where(r % 2 == 1, d, 0.0))
+    enc = (x, val(b, units).clamp_min(0), dmu, dlv, val(units, latent),
+           val(units, latent))
+    # decoder.  da: row r is non-zero in one column of its own (dh3, dW4,
+    # db4); z diagonal (dW3); w3: row l is non-zero in one column of its own
+    # (dz); h3, w4 dense
+    da = zeros(b, seg)
+    da[r, (seg // b) * r] = val(b)
+    w3 = zeros(latent, units)
+    w3[r, (units // latent) * r] = val(latent)
+    dec = (da, val(b, units).clamp_min(0), torch.diag(val(b)),
+           val(units, seg), w3)
+    return enc, dec
+
+
+# outputs of the two chains that sum a dense cotangent over the batch (db1
+# of enc_bwd_full, db3 of dec_bwd_full): the others are exact on
+# exact_split_case
+DENSE_SUMS = {"enc_bwd_full": (1,), "dec_bwd_full": (2,)}
+
+
+def phase_full_kernels(gen_params):
+    """Phase 3d: the full backward chains and the fused loss reduction
+    against their plain versions."""
+    from rawaudiovae_kelsey_tpu_torch.ops import loss, mlp
+
+    dev = torch.device("cuda")
+    p32 = gen_params(1357)
+    g = torch.Generator(device=dev).manual_seed(99)
+    tpu = "rawaudiovae_kelsey_tpu/ops/pallas_mlp.py"
+
+    def inputs(b, dt):
+        def rnd(n, relu=False):
+            t = torch.randn((b, n), generator=g, device=dev)
+            return (t.clamp_min(0) if relu else t).to(dt)
+        w = {n: q["w"].to(dt) for n, q in p32.items()}
+        return w, dict(x=rnd(SEG) * 0.3, h=rnd(UNITS, True), dmu=rnd(LATENT),
+                       dlv=rnd(LATENT), da=rnd(SEG) * 1e-3,
+                       h3=rnd(UNITS, True), z=rnd(LATENT))
+
+    def enc_args(w, t):
+        return (t["x"], t["h"], t["dmu"], t["dlv"], w["fc21"], w["fc22"])
+
+    def dec_args(w, t):
+        return (t["da"], t["h3"], t["z"], w["fc4"], w["fc3"])
+
+    # (kernel, plain, operands, TPU line, FLOPs per row of one pass)
+    cases = {
+        "enc_bwd_full": (mlp.enc_bwd_full, mlp.enc_bwd_full_ref, enc_args,
+                         f"{tpu}:789",
+                         2 * (2 * LATENT * UNITS + SEG * UNITS
+                              + 2 * UNITS * LATENT)),
+        "dec_bwd_full": (mlp.dec_bwd_full, mlp.dec_bwd_full_ref, dec_args,
+                         f"{tpu}:886",
+                         2 * (SEG * UNITS + 2 * UNITS * LATENT
+                              + UNITS * SEG)),
+    }
+    # fp32 operands take the 3-pass product of the `high` tier, bf16 one pass
+    kinds = {"fp32": (torch.float32, 3, FULL_REL),
+             "bf16": (torch.bfloat16, 1, BF16_REL)}
+    rows, at_train_batch = {}, {}
+    for name, (kernel, plain, args, replaces, row_flops) in cases.items():
+        for kind, (dt, passes, tol) in kinds.items():
+            err = 0.0
+            for b in (STREAM_BATCH, TRAIN_BATCH, FULL_RAGGED):
+                w, t = inputs(b, dt)
+                got = kernel(*args(w, t))
+                torch.cuda.synchronize()
+                want = plain(*args(w, t), passes)
+                for a, r in zip(got, want):
+                    check(a.shape == r.shape and a.dtype == r.dtype
+                          and bool(torch.isfinite(a).all()),
+                          f"{name}[{kind}] batch {b}: shape, dtype or "
+                          "non-finite")
+                e = rel_err(got, want)
+                err = max(err, max_err([a.float() for a in got],
+                                       [r.float() for r in want]))
+                print(f"  {name + '[' + kind + ']':<22} batch {b:>4}, "
+                      f"{passes} pass(es): max |kernel - plain| / max|plain| "
+                      f"= {e:.3e} (tolerance {tol:.3e})")
+                check(e <= tol, f"{name}[{kind}] batch {b}: relative error "
+                      f"{e:.3e} > {tol:.3e}")
+            # the stream's batch is the shape the `high` path gives the
+            # chains (the row of the kernel line); the training microbatch
+            # beside it, for the split kernels' rows of phase 3b
+            for b in (STREAM_BATCH, TRAIN_BATCH):
+                w, t = inputs(b, dt)
+                ms, plain_ms, t_kern, t_plain = time_both(
+                    lambda: kernel(*args(w, t)),
+                    lambda: plain(*args(w, t), passes), 5)
+                print(f"  {name + '[' + kind + ']':<22} batch {b}: kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms (runs {t_kern} "
+                      f"/ {t_plain})")
+                if b == TRAIN_BATCH:
+                    at_train_batch[f"{name}[{kind}]"] = ms
+                    continue
+                # three bf16 passes a product under `high`: the tensor
+                # cores' bf16 rate bounds both forms
+                rows[f"{name}[{kind}]"] = {
+                    "name": f"{name}[{kind}]", "route": "cuda",
+                    "source": "rawaudiovae_kelsey_tpu_torch/csrc/bwd.cu",
+                    "replaces": replaces, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms,
+                    **bound(passes * b * row_flops,
+                            nbytes(*args(w, t), *kernel(*args(w, t))),
+                            "bf16"),
+                    "library_ms": None}
+
+    # three passes, and the split itself, bit for bit: built operands on
+    # which every sum has one non-zero term
+    for name, case in zip(cases, exact_split_case(dev)):
+        kernel, plain = cases[name][:2]
+        got = kernel(*case)
+        torch.cuda.synchronize()
+        want = plain(*case, 3)
+        once = plain(*case, 1)
+        exact = [i for i in range(len(got)) if i not in DENSE_SUMS[name]]
+        moved = sum(int((want[i] != once[i]).sum()) for i in exact)
+        total = sum(want[i].numel() for i in exact)
+        off = sum(int((got[i] != want[i]).sum()) for i in exact)
+        print(f"  {name}[fp32] on built operands, batch {case[0].shape[0]}: "
+              f"{off} of {total} values differ from the 3-pass plain version "
+              f"(one fp32 pass would move {moved})")
+        check(moved > total // 10, f"{name}: the built operands do not tell "
+              "three passes from one")
+        check(off == 0 and all(bool(torch.isfinite(a).all()) for a in got),
+              f"{name}[fp32]: {off} values differ from the 3-pass plain "
+              "version bit for bit on the built operands")
+        e = rel_err([got[i] for i in DENSE_SUMS[name]],
+                    [want[i] for i in DENSE_SUMS[name]])
+        check(e <= EXACT_DB_REL, f"{name}[fp32]: dense bias gradient on the "
+              f"built operands off by {e:.3e}")
+
+    # the loss reduction: the stream's batch and a ragged, larger one
+    name = "loss_sums"
+    for kind, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        err = 0.0
+        for b in (LOSS_BATCH, LOSS_RAGGED):
+            recon = torch.tanh(torch.randn((b, SEG), generator=g,
+                                           device=dev)).to(dt)
+            x = (torch.rand((b, SEG), generator=g, device=dev) * 2 - 1).to(dt)
+            mu = torch.randn((b, LATENT), generator=g, device=dev).to(dt)
+            lv = (torch.randn((b, LATENT), generator=g, device=dev)
+                  * 0.5).to(dt)
+            got = loss.loss_sums(recon, x, mu, lv)
+            again = loss.loss_sums(recon, x, mu, lv)
+            torch.cuda.synchronize()
+            want = loss.loss_sums_ref(recon, x, mu, lv)
+            check(all(bool(torch.isfinite(a)) and a.dtype == torch.float32
+                      and a.dim() == 0 for a in got),
+                  f"{name}[{kind}] batch {b}: non-finite or not fp32 scalars")
+            e = max(abs(float(a) / float(r) - 1) for a, r in zip(got, want))
+            err = max(err, max_err(got, want))
+            same = all(torch.equal(a, r) for a, r in zip(got, again))
+            print(f"  {name + '[' + kind + ']':<22} batch {b:>5}: max "
+                  f"|kernel / plain - 1| = {e:.3e} (tolerance {SUMS_REL:g}); "
+                  f"second launch {'equal bit for bit' if same else 'DIFFERS'}")
+            check(e <= SUMS_REL, f"{name}[{kind}] batch {b}: {e:.3e}")
+            check(same, f"{name}[{kind}] batch {b}: two launches differ")
+            if b == LOSS_BATCH:
+                ms, plain_ms, t_kern, t_plain = time_both(
+                    lambda: loss.loss_sums(recon, x, mu, lv),
+                    lambda: loss.loss_sums_ref(recon, x, mu, lv), 50)
+                print(f"  {name + '[' + kind + ']':<22} batch {b}: kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms (runs {t_kern} "
+                      f"/ {t_plain})")
+                # 3 operations an element of recon, ~8 an element of mu
+                # (the exponential counted as 4)
+                row = {"name": f"{name}[{kind}]", "route": "cuda",
+                       "source": "rawaudiovae_kelsey_tpu_torch/csrc/loss.cu",
+                       "replaces":
+                           "rawaudiovae_kelsey_tpu/ops/pallas_loss.py:53",
+                       "ms": ms, "plain_ms": plain_ms,
+                       **bound(3 * recon.numel() + 8 * mu.numel(),
+                               nbytes(recon, x, mu, lv) + 8, "fp32"),
+                       "library_ms": None}
+        row["max_abs_err"] = err
+        rows[f"{name}[{kind}]"] = row
+
+    # the closed-form backward of the fused loss against autograd of the
+    # plain loss, on the card
+    from rawaudiovae_kelsey_tpu_torch.models import vae
+
+    recon, x, mu, lv = (t.float() for t in (recon, x, mu, lv))
+    with torch.enable_grad():
+        a = [t.clone().requires_grad_() for t in (recon, mu, lv)]
+        b_ = [t.clone().requires_grad_() for t in (recon, mu, lv)]
+        fused = loss.fused_loss(a[0], x, a[1], a[2], 1e-4)
+        plain = vae.loss_fn(b_[0], x, b_[1], b_[2], 1e-4, SEG)
+        ga = torch.autograd.grad(fused, a)
+        gp = torch.autograd.grad(plain, b_)
+    e = abs(float(fused) / float(plain) - 1)
+    eg = rel_err(ga, gp)
+    print(f"  fused_loss vs the plain loss, batch {LOSS_RAGGED}: value "
+          f"{e:.3e}, input gradients {eg:.3e}")
+    check(e <= 1e-5 and eg <= 1e-5, "fused_loss disagrees with the plain "
+          "loss")
+    return rows, at_train_batch
+
+
 def read_scalars(log_dir: Path, tag: str) -> dict:
     """{step: value} of one scalar tag from TensorBoard event files
     (TFRecord framing, the Event / Summary / Value protos decoded by hand:
@@ -742,7 +1030,8 @@ def phase_train(data: Path):
         g = torch.Generator().manual_seed(1000 * step + (i or 0))
         return torch.randn(shape, generator=g)
 
-    # `high` runs the fp32 "split" kernels, `highest` the fp32 "primitive"
+    # `high` runs the fp32 "full" chains, `highest` the fp32 "primitive"
+    # kernels; no precision runs the "split" kernels on fp32 operands
     step_counts = {}
     for precision, rel_tol in (("bfloat16", 5e-2), ("high", 1e-3),
                                ("highest", 1e-3)):
@@ -774,13 +1063,16 @@ def phase_train(data: Path):
               f"{float((dk - dx).abs().max()):.3e}")
         check(abs(lk / lx - 1) <= rel_tol and upd <= rel_tol,
               f"{precision} step: kernels and plain disagree")
-    step_rows = step_counts["high"]
-    print(f"  kernel launches in the fp32 `high` step: {step_rows}")
+    print(f"  kernel launches in the fp32 `high` step: {step_counts['high']}")
     print(f"  kernel launches in the fp32 `highest` step: "
           f"{step_counts['highest']}")
-    for w in ops.TRAINING_KERNELS:
-        check(step_rows[w.__name__] > 0,
+    for w in ops.FULL_KERNELS:
+        check(step_counts["high"][w.__name__] > 0,
               f"{w.__name__} was never launched by the fp32 `high` step")
+    for name in ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused"):
+        for precision in ("high", "highest"):
+            check(step_counts[precision][name] == 0,
+                  f"{name} was launched by the fp32 `{precision}` step")
     for w in ops.PRIMITIVE_KERNELS:
         check(step_counts["highest"][w.__name__] > 0,
               f"{w.__name__} was never launched by the `highest` step")
@@ -815,7 +1107,7 @@ def phase_train(data: Path):
     step, state = steps["pallas"]
     print(f"  device busy share over 2 kernel steps: "
           f"{busy_share(lambda: [step(state, x) for _ in range(2)])}")
-    return launches, step_rows
+    return launches, step_counts["highest"]
 
 
 def tee_stdout(fn):
@@ -1136,6 +1428,266 @@ def phase_resident(data: Path, card: str):
     return launches, prim, dx_counts
 
 
+def write_stream_corpus(root: Path, frames: int, hop: int, seg: int) -> None:
+    """About ``frames`` streaming frames of synthetic audio in ``root/audio``
+    as five files of unequal length (one of them at half the sample rate,
+    so the loader resamples it) and 3 s in ``root/test_audio``."""
+    from rawaudiovae_kelsey_tpu_torch.io import write_wav
+
+    rng = np.random.default_rng(11)
+    n = frames * hop
+    t = np.arange(n) / SR
+    wave = (0.3 * np.sin(2 * np.pi * 147 * t * (1 + 0.3 * np.sin(0.7 * t)))
+            + 0.1 * np.sin(2 * np.pi * 1230 * t)
+            + 0.02 * rng.standard_normal(n)).astype(np.float32)
+    (root / "audio").mkdir(parents=True)
+    (root / "test_audio").mkdir()
+    cuts = (np.array([0, 0.07, 0.30, 0.45, 0.81, 1.0]) * n).astype(int)
+    for k in range(5):
+        part = wave[cuts[k]:cuts[k + 1]]
+        if k == 1:
+            write_wav(root / "audio" / f"part{k}.wav", part[::2], SR // 2)
+        else:
+            write_wav(root / "audio" / f"part{k}.wav", part, SR)
+    write_wav(root / "test_audio" / "test.wav", wave[:int(3 * SR)], SR)
+
+
+def phase_stream(tmp: Path):
+    """Phase 7: the streaming path of configs/default_iterable.ini, as
+    written (bf16) and at ``precision = high``."""
+    import itertools
+    import shutil
+
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
+    from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
+    from rawaudiovae_kelsey_tpu_torch.data.datasets import (
+        StreamingFrameDataset,
+    )
+    from rawaudiovae_kelsey_tpu_torch.data.loader import (
+        feed_dtype,
+        prefetch_to_device,
+    )
+    from rawaudiovae_kelsey_tpu_torch.eval.cli import main as eval_cli
+    from rawaudiovae_kelsey_tpu_torch.models import build_model, vae
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import (
+        TrainState,
+        latest_checkpoint,
+        restore_checkpoint,
+    )
+    from rawaudiovae_kelsey_tpu_torch.train.cli import main_stream
+
+    base = load_config(ROOT / "configs" / "default_iterable.ini")
+    check(base.tpu.precision == "bfloat16" and base.tpu.backend == "pallas"
+          and base.training.batch_size == 4096
+          and base.training.total_num_frames == 154314100
+          and (base.audio.segment_length, base.vae.n_units,
+               base.vae.latent_dim) == (SEG, UNITS, LATENT),
+          "configs/default_iterable.ini is not the bf16 pallas batch-4096 "
+          "1024/2048/256 stream trainer")
+    batch, seg, hop = (base.training.batch_size, base.audio.segment_length,
+                       base.audio.hop_length)
+    n_batches, more, interval = 40, 48, 16
+    src = tmp / "corpus"
+    t0 = time.perf_counter()
+    # about 15 batches a pass: the stream wraps the folder and reshuffles it
+    write_stream_corpus(src, 15 * batch, hop, seg)
+    print(f"  corpus: five files, ~{15 * batch} frames a pass, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def run(name, precision, batches, resume=False):
+        """The ``stream`` command on its own copy of the corpus: only the
+        datapath, the frame budget, the two intervals (and the precision,
+        for `high`) differ from the file."""
+        data = tmp / name
+        if not data.exists():
+            shutil.copytree(src, data)
+        cfg = load_config(ROOT / "configs" / "default_iterable.ini")
+        cfg.dataset.datapath = str(data)
+        cfg.training.total_num_frames = batches * batch
+        cfg.training.checkpoint_interval = interval
+        cfg.tpu.histogram_interval = interval
+        cfg.tpu.precision = precision
+        ini = data / "stream.ini"
+        save_config(cfg, ini)
+        for w in ops.KERNEL_WRAPPERS:
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = tee_stdout(lambda: main_stream(
+            ["--config", str(ini)] + (["--resume"] if resume else [])))
+        wall = time.perf_counter() - t0
+        ws = iter_runs(data / cfg.extra.description)[-1]
+        return cfg, ws, out, wall
+
+    def window_rates(out):
+        return [float(ln.split("(")[1].split(" frames/s")[0].replace(",", ""))
+                for ln in out.splitlines() if ln.startswith("Checkpoint - ")]
+
+    results = {}
+    for name, precision in (("bf16", "bfloat16"), ("high", "high")):
+        cfg, ws, out, wall = run(name, precision, n_batches)
+        counts = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+        check("device_resident=auto" in out and "training host-fed" in out,
+              f"{name}: the gate did not say which engine runs")
+        losses = read_scalars(ws / "logs", "Loss/Batch")
+        check(sorted(losses) == list(range(n_batches)),
+              f"{name}: Loss/Batch steps {sorted(losses)}")
+        vals = [losses[k] for k in range(n_batches)]
+        check(all(np.isfinite(v) for v in vals), f"{name}: non-finite loss")
+        head, tail = statistics.mean(vals[:5]), statistics.mean(vals[-5:])
+        check(tail < head, f"{name}: the loss did not fall: {head} → {tail}")
+        want = ["config.ini", "console_log", "model/best_model.npz",
+                "model/last_model.npz"] + [
+            f"model/checkpoints/ckpt_{b:05d}.{ext}"
+            for b in (interval, 2 * interval, n_batches)
+            for ext in ("npz", "json")] + [
+            f"audio_logs/test_reconst_{n_batches:05d}.wav"]
+        for rel in want:
+            check((ws / rel).is_file(), f"{name}: workspace lacks {rel}")
+        meta = json.loads((ws / "model" / "checkpoints"
+                           / f"ckpt_{interval:05d}.json").read_text())
+        check(meta["batch_id"] == interval and meta["step"] == interval + 1,
+              f"{name}: checkpoint meta {meta}")
+        rates = window_rates(out)
+        print(f"  stream[{name}]: {n_batches} batches of {batch} in "
+              f"{wall:.1f} s (set-up, checkpoints and reconstructions "
+              f"included); loss {head:.6f} → {tail:.6f}; window rates "
+              f"{rates} frames/s")
+        print(f"  stream[{name}]: kernel launches {counts}")
+        results[name] = (cfg, ws, counts, rates)
+
+    # which backward ran: the bf16 run takes the split kernels, the `high`
+    # run the full chains, once a step each, and none of the split ones
+    _, _, c_bf16, _ = results["bf16"]
+    cfg_high, ws_high, c_high, _ = results["high"]
+    for w in ops.TRAINING_KERNELS:
+        check(c_bf16[w.__name__] >= n_batches,
+              f"bf16 stream: {w.__name__} launched {c_bf16[w.__name__]} "
+              f"times in {n_batches} steps")
+    check(c_bf16["enc_bwd_full"] == 0 and c_bf16["dec_bwd_full"] == 0,
+          "bf16 stream: a full chain was launched")
+    check(c_high["enc_bwd_full"] == n_batches
+          and c_high["dec_bwd_full"] == n_batches,
+          f"high stream: full chains launched {c_high['enc_bwd_full']} / "
+          f"{c_high['dec_bwd_full']} times in {n_batches} steps")
+    for split in ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused",
+                  "grad_accum"):
+        check(c_high[split] == 0, f"high stream: {split} was launched")
+
+    # one `high` step from the trained state, kernels vs plain, same noise;
+    # the fused loss on that step's tensors
+    dev = torch.device("cuda")
+    ckpt = latest_checkpoint(ws_high / "model" / "checkpoints")
+    dataset = StreamingFrameDataset(
+        tmp / "high" / "audio", SR, hop, seg, seed=cfg_high.tpu.seed,
+        mono=cfg_high.dataset.mono)
+    x = torch.from_numpy(next(dataset.batches(batch))).to(dev)
+
+    def noise(step, i, shape):
+        g = torch.Generator().manual_seed(7000 + step)
+        return torch.randn(shape, generator=g)
+
+    out = {}
+    for backend in ("pallas", "xla"):
+        cfg_high.tpu.backend = backend
+        model = build_model(cfg_high, dev)
+        state, _ = restore_checkpoint(ckpt, TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), 0))
+        before = {n: {k: t.clone() for k, t in q.items()}
+                  for n, q in state.params.items()}
+        step_no = state.step
+        state, m = build_train_step(model, cfg_high, noise=noise)(state, x)
+        delta = torch.cat([(state.params[n][k] - before[n][k]).ravel()
+                           for n in sorted(before) for k in sorted(before[n])])
+        out[backend] = (float(m["loss"]), delta)
+        if backend == "pallas":
+            with torch.no_grad():
+                mu, logvar = model.encode(before, x)
+                eps = noise(step_no, None, mu.shape).to(dev)
+                recon = model.decode(
+                    before, vae.reparameterize(mu, logvar, eps=eps))
+                fused = float(ops.fused_loss(recon, x, mu, logvar,
+                                             cfg_high.vae.kl_beta))
+    cfg_high.tpu.backend = "pallas"
+    (lk, dk), (lx, dx) = out["pallas"], out["xla"]
+    upd = float((dk - dx).norm() / dx.norm())
+    print(f"  one high step, full chains vs plain: loss {lk:.7f} vs {lx:.7f}; "
+          f"|update difference| / |update| = {upd:.3e} (tolerance 1e-3)")
+    check(abs(lk / lx - 1) <= 1e-3 and upd <= 1e-3,
+          "high step: kernels and plain disagree")
+    print(f"  fused_loss on that step's recon, x, mu, logvar: {fused:.9f} vs "
+          f"the step's loss {lk:.9f} (rel {abs(fused / lk - 1):.3e})")
+    check(abs(fused / lk - 1) <= 1e-6, "fused_loss differs from the step's "
+          "loss")
+    # the full chains' counts are the `high` stream run's alone; the loss
+    # reduction is dispatched by no step, so its count is the call above
+    high_counts = dict(c_high, loss_sums=ops.loss_sums.launches)
+    check(high_counts["loss_sums"] >= 1, "loss_sums was never launched")
+
+    # resume the bf16 run with a larger budget; a straight run of that
+    # budget must log the same losses for the batches the resume trained:
+    # the state came back whole and the stream order stayed aligned
+    _, ws_more, out_more, _ = run("bf16", "bfloat16", more, resume=True)
+    check(f"Resuming at batch {n_batches}" in out_more,
+          "the resumed run did not continue at the saved batch_id")
+    resumed = read_scalars(ws_more / "logs", "Loss/Batch")
+    check(sorted(resumed) == list(range(n_batches, more)),
+          f"the resumed run logged steps {sorted(resumed)}")
+    _, ws_straight, _, _ = run("straight", "bfloat16", more)
+    straight = read_scalars(ws_straight / "logs", "Loss/Batch")
+    worst = max(abs(resumed[k] / straight[k] - 1) for k in resumed)
+    print(f"  resume: batches {n_batches}-{more - 1} after --resume; against "
+          f"a straight {more}-batch run, max loss difference {worst:.3e} "
+          f"(relative)")
+    check(worst <= 1e-6, "the resumed run's losses differ from a straight "
+          "run's: the stream order or the state is off")
+
+    # eval on the resumed run, at z = mu, on the card
+    text = tee_stdout(lambda: eval_cli(["--run", str(ws_more),
+                                        "--deterministic"]))
+    report = json.loads([ln for ln in text.splitlines()
+                         if ln.startswith("{")][-1])
+    check(report["frames"] == -(-int(3 * SR) // seg)
+          and 0 < report["recon_mse"] < 1
+          and report["sampling"] == "deterministic", f"eval: {report}")
+    print(f"  eval: recon_mse {report['recon_mse']:.6f} over "
+          f"{report['frames']} test frames")
+
+    # the hot loop's rate and the device's busy share: the stream's own
+    # feed (decode-ahead, pinned prefetch) into the step, 24 batches
+    for name, precision in (("bf16", "bfloat16"), ("high", "high")):
+        cfg = results[name][0]
+        check(cfg.tpu.precision == precision and cfg.tpu.backend == "pallas",
+              f"stream[{name}]: config drifted")
+        model = build_model(cfg, dev)
+        state = TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), 0)
+        step = build_train_step(model, cfg)
+        dataset = StreamingFrameDataset(
+            tmp / name / "audio", SR, hop, seg, seed=cfg.tpu.seed,
+            mono=cfg.dataset.mono)
+
+        def loop(n, state=state, step=step, dataset=dataset, cfg=cfg):
+            feed = prefetch_to_device(
+                itertools.islice(dataset.batches(batch), n), dev,
+                depth=cfg.tpu.prefetch, cast_dtype=feed_dtype(cfg))
+            for b in feed:
+                step(state, b)
+            feed.close()
+
+        loop(4)                                           # warm the cache
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(24)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"  stream[{name}] hot loop: {24 * batch / dt:,.0f} frames/s "
+              f"({dt / 24 * 1e3:.2f} ms a batch of {batch}); device busy "
+              f"share: {busy_share(lambda: loop(24))}")
+    return c_bf16, high_counts
+
+
 def http_request(port, method, path, body=None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -1230,6 +1782,14 @@ def phase_serve(run_dir, audio, quantize):
     return out, statistics.median(lat_ms)
 
 
+def off_path(row: dict) -> None:
+    """Print a row that was held against its plain version and timed, but
+    that no path of the package launches: it stays out of the kernel line."""
+    print(f"  on no path, out of the kernel line: {row['name']}: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda."
           "is_available() is false)")
@@ -1284,6 +1844,11 @@ def main() -> int:
           "their plain versions")
     with torch.no_grad():
         new_rows = phase_new_kernels(gen_params)
+
+    print("phase 3d: the full backward chains and the loss reduction "
+          "against their plain versions")
+    with torch.no_grad():
+        full_rows, full_at_train_batch = phase_full_kernels(gen_params)
 
     print("phase 4: the serving path (configs/default.ini)")
     cfg = load_config(ROOT / "configs" / "default.ini")
@@ -1350,6 +1915,24 @@ def main() -> int:
         print("phase 6: the device-resident path (configs/perf_bf16.ini)")
         resident_launches, primitive_launches, dx_launches = phase_resident(
             Path(tmp) / "data", card)
+    print("phase 7: the streaming path (configs/default_iterable.ini)")
+    with tempfile.TemporaryDirectory() as tmp:
+        stream_launches, high_launches = phase_stream(Path(tmp))
+    # the 3-pass chains against the same products in one fp32 pass: the
+    # fp32 split kernels launch the chains' GEMMs without the split
+    ms = {k: r["ms"] for k, r in train_rows.items()}
+    for chain, parts in (("enc_bwd_full", ("enc_bwd_dw1", "grad_accum2")),
+                         ("dec_bwd_full", ("dec_bwd_fused", "grad_accum"))):
+        one = sum(ms[f"{p}[fp32]"] for p in parts)
+        three = full_at_train_batch[f"{chain}[fp32]"]
+        print(f"  {chain}[fp32] at batch {TRAIN_BATCH}: {three:.4f} ms in "
+              f"three passes, {one:.4f} ms in one fp32 pass ("
+              f"{' + '.join(parts)}): {three / one:.2f}x")
+    # no path of the package runs these three on fp32 operands (`high`
+    # takes the full chains, `highest` the primitive kernels): phase 3b held
+    # them against their plain versions, and they stay out of the line
+    for name in ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused"):
+        off_path(train_rows.pop(f"{name}[fp32]"))
     for key, row in train_rows.items():
         name, kind = key[:-1].split("[")
         counts = step_launches if kind == "fp32" else train_launches
@@ -1359,7 +1942,7 @@ def main() -> int:
     # no path of the package runs matmul_nt_mask on bf16 operands (the bf16
     # step takes the fused dec_bwd_fused): phase 3c held it against its
     # plain version, and it stays out of the line of path kernels
-    del new_rows["matmul_nt_mask[bf16]"]
+    off_path(new_rows.pop("matmul_nt_mask[bf16]"))
     for key, row in new_rows.items():
         name, kind = key[:-1].split("[")
         if name == "reparameterize_prng":
@@ -1370,6 +1953,19 @@ def main() -> int:
             row["launches"] = dx_launches["bf16"][name]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(new_rows)
+    # the full chains run in fp32 under `high` and the loss reduction on a
+    # `high` step's fp32 tensors; their bf16 forms are on no path of the
+    # package (phase 3d held them against their plain versions)
+    for key in ("enc_bwd_full[bf16]", "dec_bwd_full[bf16]",
+                "loss_sums[bf16]"):
+        off_path(full_rows.pop(key))
+    for key, row in full_rows.items():
+        row["launches"] = high_launches[key[:-1].split("[")[0]]
+        check(row["launches"] > 0, f"{key}: no launch on its main path")
+    rows.update(full_rows)
+    for w in ops.TRAINING_KERNELS:
+        check(stream_launches[w.__name__] > 0,
+              f"{w.__name__}: no launch in the bf16 stream run")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

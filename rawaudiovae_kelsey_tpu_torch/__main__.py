@@ -3,12 +3,19 @@
 Commands:
   train     the epoch trainer (the ``python train.py`` flow) on a CUDA device:
             train --config <ini> [--resume] [--device cuda]
+  stream    the streaming trainer (the ``python train_iterable.py`` flow) on a
+            CUDA device:
+            stream --config <ini> [--resume] [--device cuda]
+  eval      reconstruction MSE of a trained run against its test audio:
+            eval --run <workdir> [--deterministic] [--device cuda]
   serve     HTTP inference service (batched encode/decode/reconstruct) on a
             CUDA device:
             serve --run <workdir> [--quantize] [--device cuda] [--port 8422]
 
-The other commands of ``python -m rawaudiovae_kelsey_tpu`` are not ported
-yet.
+``train``, ``stream``, ``eval`` and ``serve`` refuse to start without a CUDA
+device unless ``--device cpu`` is given.  The other commands of ``python -m
+rawaudiovae_kelsey_tpu`` (generate, interpolate, export, bench, ...) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -72,6 +79,14 @@ def main() -> None:
         from rawaudiovae_kelsey_tpu_torch.train.cli import main as train
 
         train(rest)
+    elif cmd == "stream":
+        from rawaudiovae_kelsey_tpu_torch.train.cli import main_stream
+
+        main_stream(rest)
+    elif cmd == "eval":
+        from rawaudiovae_kelsey_tpu_torch.eval.cli import main as evaluate
+
+        evaluate(rest)
     else:
         print(f"unknown command {cmd!r}\n{__doc__}")
         sys.exit(2)

@@ -15,6 +15,12 @@
 //                                     dW1 = xᵀ dh, db1 = colsum(dh)
 //   rvk_dec_bwd_fused  dec_bwd_fused  dh3 = (da W4ᵀ)·(h3>0), then dz = dh3 W3ᵀ,
 //                                     dW3 = zᵀ dh3, db3 = colsum(dh3)
+// and its "full" backward (the `high` tier's: fp32 operands, every product
+// in the 3-pass mode of gemm.cuh; also bf16 operands in one pass) from
+//   rvk_enc_bwd_full   enc_bwd_full   dh as above, kept for the chain, then
+//                                     dW1, db1, dW21, db21, dW22, db22
+//   rvk_dec_bwd_full   dec_bwd_full   dh3 as above, then dz, dW3, db3 and
+//                                     dW4 = h3ᵀ da, db4 = colsum(da)
 //
 // The batch contraction.  The TPU kernels walk the batch as a sequential
 // grid and add each batch tile into a VMEM-resident dW.  Here every block of
@@ -36,6 +42,19 @@
 // operand dtype, rounded exactly where the TPU kernels round them
 // (pallas_mlp.py:535, 686), so dW1 / dW3 contract, and db1 / db3 sum, the
 // rounded values, as there.
+//
+// The full chains.  The TPU kernels enc_bwd_full / dec_bwd_full hold all six
+// (five) fp32 gradient accumulators of a chain in VMEM, 16.5 / 19 MB, and
+// walk the batch once.  That shape does not exist on an SM.  Here one entry
+// point issues the chain's launches of the shared GEMM back to back: dh,
+// then dW1 | db1, then both head gradients from one read of h (three
+// launches); dh3, dz, dW3 | db3, dW4 | db4 (four).  With fp32 operands in
+// the 3-pass mode dh / dh3 stay fp32 in the scratch buffer and are split
+// again by the products that read them, and every bias gradient sums the
+// unsplit fp32 values (pallas_mlp.py:762-775, 859-872); with bf16 operands
+// they are rounded to bf16 as in the split kernels (:777, :874).  Three FMAs
+// a product on the CUDA cores make the 3-pass chain about three times the
+// 1-pass fp32 one; bf16 mma on the split operands is the later step.
 //
 // The input-gradient products (matmul_nt and its gated forms) have no
 // contraction over the batch: each is one launch of the GEMM with both
@@ -65,7 +84,7 @@ namespace {
 
 // dw (n, m) = aᵀ b and db (m,) = colsum(b) [and dw2, db2 from b2], fp32.
 // a (batch, n), b / b2 (batch, m).
-template <typename T>
+template <typename T, int kPasses = 1>
 cudaError_t grad_accum(const T* a, const T* b, const T* b2, float* dw,
                        float* db, float* dw2, float* db2, int batch, int n,
                        int m, cudaStream_t s) {
@@ -81,13 +100,14 @@ cudaError_t grad_accum(const T* a, const T* b, const T* b2, float* dw,
   }
   g.M = n, g.N = m, g.K = batch;
   g.act = rvk::kActNone;
-  return launch_gemm<kRContig, kRContig>(g, b2 != nullptr ? 2 : 1, s);
+  return launch_gemm<kRContig, kRContig, kPasses>(
+      g, b2 != nullptr ? 2 : 1, s);
 }
 
 // out (batch, m) = a @ wᵀ [+ a2 @ w2ᵀ], zeroed where gate <= 0 [if gate],
 // in T.  a, a2 (batch, n); w, w2 (m, n); gate (batch, m).  a2 / w2 and gate
 // may be null.
-template <typename T>
+template <typename T, int kPasses = 1>
 cudaError_t matmul_nt(const T* a, const T* w, const T* a2, const T* w2,
                       const T* gate, T* out, int batch, int n, int m,
                       cudaStream_t s) {
@@ -103,7 +123,7 @@ cudaError_t matmul_nt(const T* a, const T* w, const T* a2, const T* w2,
   g.out[0].c = out;
   g.M = batch, g.N = m, g.K = a2 != nullptr ? 2 * n : n;
   g.act = gate != nullptr ? rvk::kActGate : rvk::kActNone;
-  return launch_gemm<kKContig, kKContig>(g, 1, s);
+  return launch_gemm<kKContig, kKContig, kPasses>(g, 1, s);
 }
 
 // dh (batch, units) = ((dmu @ w21ᵀ + dlv @ w22ᵀ) · (h > 0)) in T; then
@@ -136,6 +156,52 @@ cudaError_t dec_bwd_fused(const T* da, const T* h3, const T* z, const T* w4,
   return grad_accum<T>(z, dh3, nullptr, dw3, db3, nullptr, nullptr, batch,
                        latent, units, s);
 }
+
+// The encoder's whole parameter backward: dh (batch, units) = ((dmu @ w21ᵀ
+// + dlv @ w22ᵀ) · (h > 0)) in T; dw1 (seg, units) = xᵀ dh, db1 = colsum(dh);
+// dw21, dw22 (units, latent) = hᵀ dmu, hᵀ dlv with their column sums.
+template <typename T, int kPasses>
+cudaError_t enc_bwd_full(const T* x, const T* h, const T* dmu, const T* dlv,
+                         const T* w21, const T* w22, T* dh, float* dw1,
+                         float* db1, float* dw21, float* db21, float* dw22,
+                         float* db22, int batch, int seg, int units,
+                         int latent, cudaStream_t s) {
+  cudaError_t err = matmul_nt<T, kPasses>(dmu, w21, dlv, w22, h, dh, batch,
+                                          latent, units, s);
+  if (err != cudaSuccess) return err;
+  err = grad_accum<T, kPasses>(x, dh, nullptr, dw1, db1, nullptr, nullptr,
+                               batch, seg, units, s);
+  if (err != cudaSuccess) return err;
+  return grad_accum<T, kPasses>(h, dmu, dlv, dw21, db21, dw22, db22, batch,
+                                units, latent, s);
+}
+
+// The decoder's whole backward: dh3 (batch, units) = ((da @ w4ᵀ) · (h3 > 0))
+// in T; dz (batch, latent) = dh3 @ w3ᵀ in T; dw3 (latent, units) = zᵀ dh3,
+// db3 = colsum(dh3); dw4 (units, seg) = h3ᵀ da, db4 = colsum(da).
+template <typename T, int kPasses>
+cudaError_t dec_bwd_full(const T* da, const T* h3, const T* z, const T* w4,
+                         const T* w3, T* dh3, T* dz, float* dw3, float* db3,
+                         float* dw4, float* db4, int batch, int seg,
+                         int units, int latent, cudaStream_t s) {
+  cudaError_t err = matmul_nt<T, kPasses>(da, w4, nullptr, nullptr, h3, dh3,
+                                          batch, seg, units, s);
+  if (err != cudaSuccess) return err;
+  err = matmul_nt<T, kPasses>(dh3, w3, nullptr, nullptr, nullptr, dz, batch,
+                              units, latent, s);
+  if (err != cudaSuccess) return err;
+  err = grad_accum<T, kPasses>(z, dh3, nullptr, dw3, db3, nullptr, nullptr,
+                               batch, latent, units, s);
+  if (err != cudaSuccess) return err;
+  return grad_accum<T, kPasses>(h3, da, nullptr, dw4, db4, nullptr, nullptr,
+                                batch, units, seg, s);
+}
+
+// The pass count of a full chain follows from its operand type: fp32
+// operands reach the chains only as the `high` tier and take the 3-pass
+// product, bf16 operands take one pass.
+template <typename T>
+constexpr int kFullPasses = std::is_same<T, float>::value ? 3 : 1;
 
 }  // namespace
 
@@ -230,6 +296,45 @@ int rvk_dec_bwd_fused(const void* da, const void* h3, const void* z,
     return dec_bwd_fused(src<T>(da), src<T>(h3), src<T>(z), src<T>(w4),
                          src<T>(w3), dst<T>(dh3), dst<T>(dz), dw3, db3, batch,
                          seg, units, latent, s);
+  });
+}
+
+// x (batch, seg), h (batch, units), dmu and dlv (batch, latent), w21 and
+// w22 (units, latent), scratch dh (batch, units), all of one dtype; dw1
+// (seg, units), db1 (units,), dw21 and dw22 (units, latent), db21 and db22
+// (latent,) fp32.  fp32 operands take the 3-pass product, bf16 one pass.
+int rvk_enc_bwd_full(const void* x, const void* h, const void* dmu,
+                     const void* dlv, const void* w21, const void* w22,
+                     void* dh, float* dw1, float* db1, float* dw21,
+                     float* db21, float* dw22, float* db22, int batch,
+                     int seg, int units, int latent, int dtype,
+                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return enc_bwd_full<T, kFullPasses<T>>(
+        src<T>(x), src<T>(h), src<T>(dmu), src<T>(dlv), src<T>(w21),
+        src<T>(w22), dst<T>(dh), dw1, db1, dw21, db21, dw22, db22, batch,
+        seg, units, latent, s);
+  });
+}
+
+// da (batch, seg), h3 (batch, units), z (batch, latent), w4 (units, seg),
+// w3 (latent, units), scratch dh3 (batch, units), dz (batch, latent), all
+// of one dtype; dw3 (latent, units), db3 (units,), dw4 (units, seg), db4
+// (seg,) fp32.  fp32 operands take the 3-pass product, bf16 one pass.
+int rvk_dec_bwd_full(const void* da, const void* h3, const void* z,
+                     const void* w4, const void* w3, void* dh3, void* dz,
+                     float* dw3, float* db3, float* dw4, float* db4,
+                     int batch, int seg, int units, int latent, int dtype,
+                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return dec_bwd_full<T, kFullPasses<T>>(
+        src<T>(da), src<T>(h3), src<T>(z), src<T>(w4), src<T>(w3),
+        dst<T>(dh3), dst<T>(dz), dw3, db3, dw4, db4, batch, seg, units,
+        latent, s);
   });
 }
 

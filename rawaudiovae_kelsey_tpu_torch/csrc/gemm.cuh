@@ -38,6 +38,20 @@
 // itself: a contraction over the batch is one pass with no atomics and no
 // second reduction, so two runs give identical bits.  fp32 FMAs on the
 // CUDA cores, no tensor cores: wgmma / TMA pipelines are later work.
+//
+// The 3-pass operand mode (kPasses = 3, fp32 operands only): the product
+// of the `high` precision tier.  Every fp32 element v is split once, as it
+// is staged into shared memory, into hi(v) — v rounded to bf16 by the bit
+// arithmetic (u + 0x8000) & 0xFFFF0000, the split of the TPU kernels
+// (pallas_mlp.py _split_hi_lo) — and lo(v) = bf16_rn(v - hi(v)), kept as
+// bf16-valued floats in a hi slab and a lo slab.  Three fp32 accumulators
+// take hi·hi, hi·lo and lo·hi (each product of two bf16 values is exact in
+// fp32) and are added as (hh + hl) + lh in the epilogue: the arithmetic of
+// three bf16 tensor-core passes, on the CUDA cores.  Out-of-range elements
+// stage as 0 in both slabs.  The column sums add the unsplit values, kept
+// in a third slab of B.  Shared memory: 2 + 3 slabs, double-buffered,
+// 41,600 bytes at 64 x 64 — inside the 48 KB a block gets without opting
+// in, so the tile sizes and the k depth stay those of the 1-pass mode.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,6 +76,13 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) {
   return static_cast<float>(v);
+}
+
+// fp32 → (hi, lo), both bf16-valued, v ≈ hi + lo.  hi rounds the magnitude
+// bits half up (not to even), as pallas_mlp.py _split_hi_lo does.
+__device__ __forceinline__ void split_hi_lo(float v, float& hi, float& lo) {
+  hi = __uint_as_float((__float_as_uint(v) + 0x8000u) & 0xFFFF0000u);
+  lo = __bfloat162float(__float2bfloat16_rn(v - hi));
 }
 
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
@@ -107,18 +128,26 @@ struct Gemm {
   int M, N, K, act;
 };
 
-template <int BM, int BN, typename TA, bool kAKC, typename TB, bool kBKC,
-          typename TC>
+template <int BM, int BN, int kPasses, typename TA, bool kAKC, typename TB,
+          bool kBKC, typename TC>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const Gemm<TA, TB, TC> args) {
+  static_assert(kPasses == 1 || kPasses == 3, "1 or 3 passes");
+  static_assert(kPasses == 1 || (std::is_same<TA, float>::value &&
+                                 std::is_same<TB, float>::value),
+                "the 3-pass mode splits fp32 operands");
+  constexpr bool kSplit = kPasses == 3;
+  // slabs of A: the value (1 pass) or hi, lo (3 passes); of B: the same,
+  // then the unsplit value for the column sums
+  constexpr int kRaw = kSplit ? 2 : 0;
   constexpr int TM = BM / 16;
   constexpr int TN = BN / 16;
   constexpr int LA = BM * kBK / kThreads;  // A values a thread stages
   constexpr int LB = kBK * BN / kThreads;  // B values a thread stages
   // two slabs of each operand: the next one is stored while the current
   // one is read, so one barrier a slab suffices
-  __shared__ float As[2][kBK][BM + 1];
-  __shared__ float Bs[2][kBK][BN + 1];
+  __shared__ float As[kSplit ? 2 : 1][2][kBK][BM + 1];
+  __shared__ float Bs[kSplit ? 3 : 1][2][kBK][BN + 1];
 
   const GemmOut<TB, TC> g = args.out[blockIdx.z];
   const int M = args.M, N = args.N, K = args.K;
@@ -169,21 +198,34 @@ gemm_kernel(const Gemm<TA, TB, TC> args) {
     for (int l = 0; l < LA; ++l) {
       int r, k;
       a_pos(l, r, k);
-      As[s][k][r] = ra[l];
+      if constexpr (kSplit) {
+        split_hi_lo(ra[l], As[0][s][k][r], As[1][s][k][r]);
+      } else {
+        As[0][s][k][r] = ra[l];
+      }
     }
 #pragma unroll
     for (int l = 0; l < LB; ++l) {
       int r, k;
       b_pos(l, r, k);
-      Bs[s][k][r] = rb[l];
+      if constexpr (kSplit) {
+        split_hi_lo(rb[l], Bs[0][s][k][r], Bs[1][s][k][r]);
+        Bs[kRaw][s][k][r] = rb[l];
+      } else {
+        Bs[0][s][k][r] = rb[l];
+      }
     }
   };
 
-  float acc[TM][TN];
+  // acc[0]: the product (1 pass) or hi·hi; acc[1]: hi·lo; acc[2]: lo·hi
+  float acc[kPasses][TM][TN];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+  for (int p = 0; p < kPasses; ++p) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[p][i][j] = 0.f;
+    }
   }
   // the column sums: one thread of each column of threads, first row of
   // tiles only, adding B's staged values in k order
@@ -204,20 +246,39 @@ gemm_kernel(const Gemm<TA, TB, TC> args) {
     for (int kk = 0; kk < kBK; ++kk) {
       float a[TM], b[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[s][kk][ty + 16 * i];
+      for (int i = 0; i < TM; ++i) a[i] = As[0][s][kk][ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[s][kk][tx + 16 * j];
+      for (int j = 0; j < TN; ++j) b[j] = Bs[0][s][kk][tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) {
+          acc[0][i][j] = fmaf(a[i], b[j], acc[0][i][j]);
+        }
+      }
+      if constexpr (kSplit) {
+        float al[TM], bl[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) al[i] = As[1][s][kk][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) bl[j] = Bs[1][s][kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            acc[1][i][j] = fmaf(a[i], bl[j], acc[1][i][j]);
+            acc[2][i][j] = fmaf(al[i], b[j], acc[2][i][j]);
+          }
+        }
       }
     }
     if (sums) {
 #pragma unroll
       for (int kk = 0; kk < kBK; ++kk) {
 #pragma unroll
-        for (int j = 0; j < TN; ++j) csum[j] += Bs[s][kk][tx + 16 * j];
+        for (int j = 0; j < TN; ++j) {
+          csum[j] += Bs[kRaw][s][kk][tx + 16 * j];
+        }
       }
     }
     if (more) store_slab(s ^ 1);
@@ -236,7 +297,8 @@ gemm_kernel(const Gemm<TA, TB, TC> args) {
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
       const size_t at = static_cast<size_t>(m) * N + n;
-      float v = acc[i][j];
+      float v = acc[0][i][j];
+      if constexpr (kSplit) v = (v + acc[1][i][j]) + acc[2][i][j];
       if (g.bias != nullptr) v += to_f32(g.bias[n]);
       if (act == kActRelu) {
         v = fmaxf(v, 0.f);
@@ -281,19 +343,21 @@ View<T> view(const T* p, int ld, int k) {
 // otherwise, so that the long-K, narrow-N shapes (the heads, the decoder's
 // output layer) and small batches still spread over the card.  On the H100
 // this picks the faster of the two at every serving shape measured (batch
-// 100 and 256; PERF.md).  Returns the launch's error code.
-template <bool kAKC, bool kBKC, typename TA, typename TB, typename TC>
+// 100 and 256; PERF.md).  kPasses = 3 takes the 3-pass operand mode (fp32
+// operands).  Returns the launch's error code.
+template <bool kAKC, bool kBKC, int kPasses = 1, typename TA, typename TB,
+          typename TC>
 cudaError_t launch_gemm(const Gemm<TA, TB, TC>& args, int n_out,
                         cudaStream_t stream) {
   if (args.M <= 0 || args.N <= 0) return cudaSuccess;
   const dim3 block(kThreads);
   if (2 * cdiv(args.M, 64) * cdiv(args.N, 64) * n_out >= sm_count()) {
     const dim3 grid(cdiv(args.M, 64), cdiv(args.N, 64), n_out);
-    gemm_kernel<64, 64, TA, kAKC, TB, kBKC, TC>
+    gemm_kernel<64, 64, kPasses, TA, kAKC, TB, kBKC, TC>
         <<<grid, block, 0, stream>>>(args);
   } else {
     const dim3 grid(cdiv(args.M, 32), cdiv(args.N, 32), n_out);
-    gemm_kernel<32, 32, TA, kAKC, TB, kBKC, TC>
+    gemm_kernel<32, 32, kPasses, TA, kAKC, TB, kBKC, TC>
         <<<grid, block, 0, stream>>>(args);
   }
   return cudaGetLastError();

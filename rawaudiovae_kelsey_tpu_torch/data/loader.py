@@ -96,6 +96,9 @@ class DevicePrefetcher:
         return t
 
     def close(self):
+        """Stop the worker and let go of the host iterator.  Safe to call
+        twice and on an exhausted feed; an unbounded iterator (the streaming
+        dataset under ``islice``) is dropped where it stands."""
         self._stop.set()
         self._done = True  # a post-close __next__ must not block on _q.get
         try:  # drain so the worker can exit
@@ -103,6 +106,12 @@ class DevicePrefetcher:
                 self._q.get_nowait()
         except queue.Empty:
             pass
+        # the worker sees the flag within one queue timeout; once it has
+        # returned, the host iterator (and a decode pool it may hold) is
+        # released.  Never block for long: a decode in flight may take a
+        # while, and the thread is a daemon
+        if threading.current_thread() is not self._thread:
+            self._thread.join(timeout=2.0)
 
 
 def prefetch_to_device(host_iter: Iterator[np.ndarray], device,

@@ -9,8 +9,11 @@ ops (``models/vae.py``), ``best`` the kernels on a CUDA device and the plain
 ops elsewhere.  Under ``pallas`` the backward of fp32 operands follows
 ``[tpu] precision`` as the JAX package's ``_fusion`` does: ``float32`` and
 ``highest`` take the "primitive" composition (``matmul_nt*`` +
-``grad_accum``), ``high`` the "split" kernels until the one-kernel
-``*_full`` backward is ported; bf16 operands always take "split".
+``grad_accum``), ``high`` the "full" chains (``enc_bwd_full`` /
+``dec_bwd_full``, every product in three bf16 passes); bf16 operands always
+take "split".  The forward kernels and the input-gradient products run IEEE
+fp32 under ``high`` too: at least as accurate as the 3-pass product the JAX
+package gives them.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
     seg, latent = cfg.audio.segment_length, cfg.vae.latent_dim
     encode_fn, decode_fn = vae.encode, vae.decode
     if backend == "pallas":
-        fp32_backward = "split" if cfg.tpu.precision == "high" else "primitive"
+        fp32_backward = "full" if cfg.tpu.precision == "high" else "primitive"
         encode_fn = partial(mlp.encode, fp32_backward=fp32_backward)
         decode_fn = partial(mlp.decode, fp32_backward=fp32_backward)
     return ModelDef(

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_L = ctypes.c_longlong
 # C entry point → argument types (pointers and the stream as c_void_p: a
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "rvk_grad_accum2": [_P] * 7 + [_I] * 4 + [_P],
     "rvk_enc_bwd_dw1": [_P] * 9 + [_I] * 5 + [_P],
     "rvk_dec_bwd_fused": [_P] * 9 + [_I] * 5 + [_P],
+    "rvk_enc_bwd_full": [_P] * 13 + [_I] * 5 + [_P],
+    "rvk_dec_bwd_full": [_P] * 11 + [_I] * 5 + [_P],
+    "rvk_loss_sums": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P],
     "rvk_matmul_nt": [_P] * 3 + [_I] * 4 + [_P],
     "rvk_matmul_nt_mask": [_P] * 4 + [_I] * 4 + [_P],
     "rvk_matmul_nt2_mask": [_P] * 6 + [_I] * 4 + [_P],

@@ -13,13 +13,16 @@ Each op has three parts, side by side:
   anything the kernel does not take raises;
 * the model-level entry points ``encode`` / ``decode``: the
   ``torch.autograd.Function`` s that play the roles of ``pallas_encode`` /
-  ``pallas_decode``.  Their backward has the JAX package's two modes
+  ``pallas_decode``.  Their backward has the JAX package's three modes
   (``pallas_mlp.py`` ``_fusion``): "split", the bf16 step's — ``enc_bwd_dw1``
   + ``grad_accum2`` for the encoder, ``dec_bwd_fused`` + ``grad_accum`` for
-  the decoder — and "primitive", the fp32 tiers' — ``matmul_nt2_mask`` then
-  three ``grad_accum`` for the encoder, ``matmul_nt_mask``, ``matmul_nt``
-  and two ``grad_accum`` for the decoder.  The encoder's input gradient is
-  ``matmul_nt2_mask`` followed by ``matmul_nt`` in both.
+  the decoder; "primitive", the ``float32`` / ``highest`` tiers' —
+  ``matmul_nt2_mask`` then three ``grad_accum`` for the encoder,
+  ``matmul_nt_mask``, ``matmul_nt`` and two ``grad_accum`` for the decoder;
+  and "full", the ``high`` tier's — ``enc_bwd_full`` and ``dec_bwd_full``,
+  one call per chain, every product of fp32 operands in three bf16 passes
+  (:func:`split_hi_lo`).  The encoder's input gradient is
+  ``matmul_nt2_mask`` followed by ``matmul_nt`` in all three.
 
 Layouts are the JAX package's: weights ``(in, out)``, biases ``(out,)``.
 Operands are fp32 or bf16, all of one dtype per call; accumulation is fp32;
@@ -104,6 +107,65 @@ def dec_bwd_fused_ref(da, h3, z, w4, w3) -> Tuple[Tensor, Tensor, Tensor]:
     ``(zᵀ dh3, colsum(dh3))`` in fp32."""
     dh3 = matmul_nt_mask_ref(da, w4, h3)
     return (matmul_nt_ref(dh3, w3), *grad_accum_ref(z, dh3))
+
+
+def split_hi_lo(v: Tensor) -> Tuple[Tensor, Tensor]:
+    """fp32 → ``(hi, lo)``, both fp32 tensors holding bf16 values, with
+    ``v ≈ hi + lo``: the operand split of the 3-pass product.  ``hi`` is
+    ``v`` rounded to bf16 by integer arithmetic on its bits, ``(u + 0x8000)
+    & 0xFFFF0000`` (round half up on the magnitude, not to even), ``lo``
+    is ``v - hi`` rounded to bf16 (to nearest even) — bit for bit
+    ``pallas_mlp.py`` ``_split_hi_lo``."""
+    u = v.contiguous().view(torch.int32)
+    hi = ((u + 0x8000) & -0x10000).view(torch.float32)
+    return hi, (v - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def mm3(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` of fp32 matrices as the 3-pass product: ``(hi(a)·hi(b) +
+    hi(a)·lo(b)) + lo(a)·hi(b)``, each an fp32 matmul of bf16-valued
+    operands (``pallas_mlp.py`` ``_mm`` at ``passes = 3``)."""
+    ah, al = split_hi_lo(a)
+    bh, bl = split_hi_lo(b)
+    return (ah @ bh + ah @ bl) + al @ bh
+
+
+def _mm(a: Tensor, b: Tensor, passes: int) -> Tensor:
+    return mm3(a, b) if passes == 3 else _f(a) @ _f(b)
+
+
+def check_passes(dtype: torch.dtype, passes: int) -> None:
+    """Raise unless ``passes`` is 1, or 3 with fp32 operands."""
+    if passes not in (1, 3) or (passes == 3 and dtype != torch.float32):
+        raise ValueError(f"passes = {passes} with {dtype} operands: the "
+                         "products take 1 pass, or 3 with fp32 operands")
+
+
+def enc_bwd_full_ref(x, h, dmu, dlogvar, w21, w22, passes: int = 1
+                     ) -> Tuple[Tensor, ...]:
+    """Plain version of :func:`enc_bwd_full` → ``(dw1, db1, dw21, db21,
+    dw22, db22)`` in fp32.  ``passes = 3`` (fp32 operands): every product
+    is :func:`mm3`, ``dh`` stays fp32 and the bias gradients sum the
+    unsplit values (``pallas_mlp.py:761-775``); ``passes = 1``: ``dh`` is
+    rounded to the operand dtype first (``:777``)."""
+    check_passes(x.dtype, passes)
+    prod = _mm(dmu, w21.t(), passes) + _mm(dlogvar, w22.t(), passes)
+    dh = torch.where(_f(h) > 0, prod, 0.0).to(x.dtype)
+    return (_mm(x.t(), dh, passes), _f(dh).sum(0),
+            _mm(h.t(), dmu, passes), _f(dmu).sum(0),
+            _mm(h.t(), dlogvar, passes), _f(dlogvar).sum(0))
+
+
+def dec_bwd_full_ref(da, h3, z, w4, w3, passes: int = 1
+                     ) -> Tuple[Tensor, ...]:
+    """Plain version of :func:`dec_bwd_full` → ``(dz, dw3, db3, dw4,
+    db4)``: ``dz`` in the operand dtype, the rest fp32; ``passes`` as in
+    :func:`enc_bwd_full_ref` (``pallas_mlp.py:858-882``)."""
+    check_passes(da.dtype, passes)
+    dh3 = torch.where(_f(h3) > 0, _mm(da, w4.t(), passes), 0.0).to(da.dtype)
+    return (_mm(dh3, w3.t(), passes).to(da.dtype),
+            _mm(z.t(), dh3, passes), _f(dh3).sum(0),
+            _mm(h3.t(), da, passes), _f(da).sum(0))
 
 
 # ------------------------------------------------------------------ checks
@@ -414,20 +476,100 @@ def dec_bwd_fused(da, h3, z, w4, w3) -> Tuple[Tensor, Tensor, Tensor]:
 dec_bwd_fused.launches = 0
 
 
+def full_passes(dtype: torch.dtype) -> int:
+    """The pass count of a full chain: fp32 operands reach it only as the
+    ``high`` tier, whose products are the 3-pass ones; bf16 operands take
+    one pass."""
+    return 3 if dtype == torch.float32 else 1
+
+
+def enc_bwd_full(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, ...]:
+    """The encoder's whole parameter backward from one call → ``(dw1, db1,
+    dw21, db21, dw22, db22)`` in fp32: ``dh = (dmu@w21ᵀ +
+    dlogvar@w22ᵀ)·(h>0)`` feeds ``(xᵀ dh, colsum(dh))`` and one read of
+    ``h`` feeds both head gradients.  fp32 operands (the ``high`` tier) run
+    every product as the bf16 hi/lo 3-pass product with ``dh`` kept in
+    fp32; bf16 operands take one pass and round ``dh`` to bf16
+    (:func:`full_passes`).
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``enc_bwd_full``.
+    CUDA: three launches of the tiled GEMM (``csrc/bwd.cu``); ``dh`` goes
+    through a scratch buffer instead of staying in VMEM."""
+    if x.device.type == "cpu":
+        return enc_bwd_full_ref(x, h, dmu, dlogvar, w21, w22,
+                                full_passes(x.dtype))
+    dev = cuda_device(x, "enc_bwd_full: x")
+    dt = operand_dtype(x, "enc_bwd_full: x")
+    batch, seg = x.shape
+    units, latent = h.shape[1], dmu.shape[1]
+    require(x, "x", (batch, seg), dev, dt)
+    require(h, "h", (batch, units), dev, dt)
+    require(dmu, "dmu", (batch, latent), dev, dt)
+    require(dlogvar, "dlogvar", (batch, latent), dev, dt)
+    require(w21, "w21", (units, latent), dev, dt)
+    require(w22, "w22", (units, latent), dev, dt)
+    dh = torch.empty((batch, units), device=dev, dtype=dt)
+    grads = _grads(dev, (seg, units), (units,), (units, latent), (latent,),
+                   (units, latent), (latent,))
+    _build.launch("rvk_enc_bwd_full", dev, x, h, dmu, dlogvar, w21, w22, dh,
+                  *grads, batch, seg, units, latent, DTYPE_CODES[dt])
+    enc_bwd_full.launches += 1
+    return grads
+
+
+enc_bwd_full.launches = 0
+
+
+def dec_bwd_full(da, h3, z, w4, w3) -> Tuple[Tensor, ...]:
+    """The decoder's whole backward from one call → ``(dz, dw3, db3, dw4,
+    db4)``: ``dh3 = (da@w4ᵀ)·(h3>0)`` feeds ``dz = dh3@w3ᵀ`` (operand
+    dtype) and ``(zᵀ dh3, colsum(dh3))``; ``(h3ᵀ da, colsum(da))`` comes
+    with them (all fp32).  Three passes or one as in :func:`enc_bwd_full`.
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``dec_bwd_full``.
+    CUDA: four launches of the tiled GEMM (``csrc/bwd.cu``); ``dh3`` goes
+    through a scratch buffer instead of staying in VMEM."""
+    if da.device.type == "cpu":
+        return dec_bwd_full_ref(da, h3, z, w4, w3, full_passes(da.dtype))
+    dev = cuda_device(da, "dec_bwd_full: da")
+    dt = operand_dtype(da, "dec_bwd_full: da")
+    batch, seg = da.shape
+    units, latent = h3.shape[1], z.shape[1]
+    require(da, "da", (batch, seg), dev, dt)
+    require(h3, "h3", (batch, units), dev, dt)
+    require(z, "z", (batch, latent), dev, dt)
+    require(w4, "w4", (units, seg), dev, dt)
+    require(w3, "w3", (latent, units), dev, dt)
+    dh3 = torch.empty((batch, units), device=dev, dtype=dt)
+    dz = torch.empty((batch, latent), device=dev, dtype=dt)
+    grads = _grads(dev, (latent, units), (units,), (units, seg), (seg,))
+    _build.launch("rvk_dec_bwd_full", dev, da, h3, z, w4, w3, dh3, dz,
+                  *grads, batch, seg, units, latent, DTYPE_CODES[dt])
+    dec_bwd_full.launches += 1
+    return (dz, *grads)
+
+
+dec_bwd_full.launches = 0
+
+
 # ------------------------------------------------------ autograd Functions
 
 # the backward modes of Encode / Decode (the JAX package's ``_fusion``)
-BACKWARD_MODES = ("primitive", "split")
+BACKWARD_MODES = ("primitive", "split", "full")
 
 
 def backward_mode(dtype: torch.dtype, fp32_backward: str) -> str:
-    """The backward mode for operands of ``dtype``: bf16 takes "split";
-    fp32 takes ``fp32_backward`` ("primitive" for the ``float32`` and
-    ``highest`` tiers, as ``pallas_mlp.py`` ``_fusion`` picks)."""
+    """The backward mode for operands of ``dtype``: fp32 takes
+    ``fp32_backward`` ("primitive" for the ``float32`` and ``highest``
+    tiers, "full" for ``high``, as ``pallas_mlp.py`` ``_fusion`` picks);
+    bf16 takes "split" unless "full" is asked for by name (the JAX
+    package's ``BWD_FUSION = "full"``)."""
     if fp32_backward not in BACKWARD_MODES:
         raise ValueError(f"unknown backward mode {fp32_backward!r}; "
                          f"expected one of {BACKWARD_MODES}")
-    return fp32_backward if dtype == torch.float32 else "split"
+    if dtype == torch.float32 or fp32_backward == "full":
+        return fp32_backward
+    return "split"
 
 
 def encode_input_grad(h, dmu, dlogvar, w1, w21, w22) -> Tensor:
@@ -441,7 +583,8 @@ class Encode(torch.autograd.Function):
     """``(mode, x, w1, b1, w21, b21, w22, b22) → (mu, logvar)`` through
     :func:`encoder_fwd`.  Backward, "split": :func:`enc_bwd_dw1` and
     :func:`grad_accum2`; "primitive": :func:`matmul_nt2_mask` then three
-    :func:`grad_accum`.  Saves ``(x, h)`` as residuals."""
+    :func:`grad_accum`; "full": :func:`enc_bwd_full`.  Saves ``(x, h)`` as
+    residuals."""
 
     @staticmethod
     def forward(ctx, mode, x, w1, b1, w21, b21, w22, b22):
@@ -462,6 +605,11 @@ class Encode(torch.autograd.Function):
             dw22, db22 = grad_accum(h, dlogvar)
             if ctx.needs_input_grad[1]:
                 dx = matmul_nt(dh, w1)   # dh is live already: reuse it
+        elif ctx.mode == "full":
+            dw1, db1, dw21, db21, dw22, db22 = enc_bwd_full(
+                x, h, dmu, dlogvar, w21, w22)
+            if ctx.needs_input_grad[1]:
+                dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22)
         else:
             dw1, db1 = enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22)
             dw21, db21, dw22, db22 = grad_accum2(h, dmu, dlogvar)
@@ -476,7 +624,8 @@ class Decode(torch.autograd.Function):
     """``(mode, z, w3, b3, w4, b4) → y`` through :func:`decoder_fwd`.
     Backward, "split": :func:`dec_bwd_fused` and :func:`grad_accum`;
     "primitive": :func:`matmul_nt_mask`, :func:`matmul_nt` and two
-    :func:`grad_accum`.  Saves ``(z, h3, y)`` as residuals."""
+    :func:`grad_accum`; "full": :func:`dec_bwd_full`.  Saves ``(z, h3, y)``
+    as residuals."""
 
     @staticmethod
     def forward(ctx, mode, z, w3, b3, w4, b4):
@@ -491,13 +640,16 @@ class Decode(torch.autograd.Function):
         # tanh derivative: an elementwise pass left to PyTorch, as the JAX
         # package leaves it to XLA; fp32 inside, one rounding
         da = (_f(dy) * (1.0 - _f(y) * _f(y))).to(dy.dtype)
-        if ctx.mode == "primitive":
+        if ctx.mode == "full":
+            dz, dw3, db3, dw4, db4 = dec_bwd_full(da, h3, z, w4, w3)
+        elif ctx.mode == "primitive":
             dh3 = matmul_nt_mask(da, w4, h3)
             dz = matmul_nt(dh3, w3)
             dw3, db3 = grad_accum(z, dh3)
+            dw4, db4 = grad_accum(h3, da)
         else:
             dz, dw3, db3 = dec_bwd_fused(da, h3, z, w4, w3)
-        dw4, db4 = grad_accum(h3, da)
+            dw4, db4 = grad_accum(h3, da)
         dt = w3.dtype
         return (None, dz, *(g.to(dt) for g in (dw3, db3, dw4, db4)))
 

@@ -8,12 +8,13 @@ forward, reparameterization, loss, backward and Adam, with
   the batch to bf16, brings ``mu`` / ``logvar`` back to fp32, samples ``z``
   in fp32, casts ``z`` to bf16 for the decoder and the reconstruction back
   to fp32, so the loss and the optimizer run in fp32 on fp32 master params
-  (``step.py:86-102``).  ``float32``, ``high`` and ``highest`` all run
-  IEEE fp32 operands (TF32 stays off): at least as accurate as each JAX
-  tier.  Under ``backend = pallas`` the backward of ``float32`` and
-  ``highest`` is the JAX package's "primitive" composition, that of
-  ``high`` the "split" kernels (its 3-pass ``*_full`` kernels are not
-  ported; ``models/registry.py``);
+  (``step.py:86-102``).  ``float32``, ``high`` and ``highest`` all hold
+  fp32 operands (TF32 stays off).  Under ``backend = pallas`` the backward
+  of ``float32`` and ``highest`` is the JAX package's "primitive"
+  composition in IEEE fp32, that of ``high`` its "full" chains
+  (``enc_bwd_full`` / ``dec_bwd_full``) with every product in three bf16
+  passes; the forward runs IEEE fp32 in all three
+  (``models/registry.py``);
 * microbatch accumulation: the fp32 gradient sum of the full microbatches
   is scaled by ``micro/total`` after summing, and a ragged tail is one more
   gradient call weighted ``rem/total``; under ``sum`` reduction both

@@ -1,13 +1,14 @@
-"""The ``train`` command of the PyTorch port — the counterpart of the JAX
-package's ``train/cli.py`` epoch entry point (``python train.py --config
-default.ini``):
+"""The training commands of the PyTorch port — the counterparts of the JAX
+package's ``train/cli.py`` entry points (``python train.py --config
+default.ini`` and ``python train_iterable.py --config x.ini``):
 
     python -m rawaudiovae_kelsey_tpu_torch train --config x.ini [--resume]
         [--device cuda]
+    python -m rawaudiovae_kelsey_tpu_torch stream --config x.ini [--resume]
+        [--device cuda]
 
-It trains on a CUDA device and refuses to start without one unless
-``--device cpu`` asks for the plain PyTorch path on the CPU.  The streaming
-trainer (``train_iterable.py``) is not ported yet.
+Both train on a CUDA device and refuse to start without one unless
+``--device cpu`` asks for the plain PyTorch path on the CPU.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ import torch
 from rawaudiovae_kelsey_tpu_torch.config import load_config
 
 
-def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(prog="train")
+def _parse(argv, prog: str):
+    """``(cfg, device)`` of a training command's arguments."""
+    parser = argparse.ArgumentParser(prog=prog)
     parser.add_argument("--config", type=str, default="./default.ini",
                         help="path to the config file")
     parser.add_argument("--resume", action="store_true",
@@ -33,7 +35,7 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
-            "train: --device cuda but no CUDA device is available (pass "
+            f"{prog}: --device cuda but no CUDA device is available (pass "
             "--device cpu to train with the plain PyTorch path on the CPU)")
     try:
         cfg = load_config(args.config)
@@ -42,7 +44,19 @@ def main(argv=None) -> None:
         sys.exit(1)
     if args.resume:
         cfg.training.resume = True
+    return cfg, device
+
+
+def main(argv=None) -> None:
+    cfg, device = _parse(argv, "train")
     from rawaudiovae_kelsey_tpu_torch.train.epoch import train
+
+    train(cfg, device=device)
+
+
+def main_stream(argv=None) -> None:
+    cfg, device = _parse(argv, "stream")
+    from rawaudiovae_kelsey_tpu_torch.train.stream import train
 
     train(cfg, device=device)
 

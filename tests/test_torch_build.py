@@ -57,12 +57,38 @@ def test_build_compiles_every_source_once_and_caches(tmp_path, monkeypatch):
             assert flag in c
     assert "-shared" in link
     assert len([a for a in link if a.endswith(".o")]) == len(sources)
-    for src in ("mlp.cu", "quant.cu", "bwd.cu"):
+    for src in ("mlp.cu", "quant.cu", "bwd.cu", "rng.cu", "loss.cu"):
         assert src in sources
     assert _build.build() == lib                # cached: no second compile
     assert len(log.read_text().splitlines()) == len(calls)
     assert not list(lib.parent.glob("*.tmp*"))
     assert not list(lib.parent.glob("*.o"))
+
+
+def test_every_bound_entry_point_is_exported_by_a_source():
+    """Each C entry point the loader binds is defined, ``extern "C"``, in
+    one of the sources, with as many parameters as its ctypes signature
+    (the stream last); and every ``rvk_`` function a source exports is
+    bound."""
+    import re
+
+    text = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    exported = {}
+    for m in re.finditer(r"^int (rvk_\w+)\(([^)]*)\)\s*\{", text, re.M):
+        exported[m.group(1)] = [a.strip() for a in m.group(2).split(",")]
+    assert set(exported) == set(_build._SIGNATURES)
+    for name, argtypes in _build._SIGNATURES.items():
+        params = exported[name]
+        assert len(params) == len(argtypes), name
+        assert params[-1] == "void* stream", name
+        for param, ctype in zip(params, argtypes):
+            pointer = "*" in param
+            assert pointer == (ctype is _build._P), (name, param)
+            if param.startswith("long long"):
+                assert ctype is _build._L, (name, param)
+    for name in ("rvk_enc_bwd_full", "rvk_dec_bwd_full", "rvk_loss_sums"):
+        assert name in exported
+    assert "const char* rvk_error_string(int code)" in text
 
 
 def test_build_key_follows_the_sources(tmp_path, monkeypatch):

@@ -363,3 +363,232 @@ def test_train_step_on_the_card_matches_the_plain_backend(cuda):
     for n, q in out["pallas"][1].items():
         for k, p in q.items():
             assert float((p - out["xla"][1][n][k]).abs().max()) <= 2 * lr
+
+
+@pytest.mark.parametrize("dtype,passes,rel", [
+    (torch.float32, 3, 1e-4), (torch.bfloat16, 1, 2.0 ** -6)],
+    ids=["fp32-3pass", "bf16"])
+@pytest.mark.parametrize("batch", [8192, 4096, 4097, 1])
+def test_full_backward_chains_match_plain_versions(cuda, batch, dtype,
+                                                   passes, rel):
+    """Queue B rows 11-12 at full width, at the training microbatch, the
+    stream's batch, a ragged one and 1: the 3-pass product of the ``high``
+    tier on fp32 operands, one pass on bf16 operands; each chain launches
+    once, and a second launch gives the same bits."""
+    w, t = _backward_inputs(cuda, batch, dtype)
+    w21, w22, w3, w4 = (w[n]["w"] for n in ("fc21", "fc22", "fc3", "fc4"))
+    before = (mlp.enc_bwd_full.launches, mlp.dec_bwd_full.launches)
+    enc = (t["x"], t["h"], t["dmu"], t["dlv"], w21, w22)
+    dec = (t["da"], t["h3"], t["z"], w4, w3)
+    got_e, got_d = mlp.enc_bwd_full(*enc), mlp.dec_bwd_full(*dec)
+    torch.cuda.synchronize()
+    assert (mlp.enc_bwd_full.launches, mlp.dec_bwd_full.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert len(got_e) == 6 and len(got_d) == 5
+    _close_rel(got_e, mlp.enc_bwd_full_ref(*enc, passes), rel)
+    _close_rel(got_d, mlp.dec_bwd_full_ref(*dec, passes), rel)
+    for a, b in zip(got_e + got_d,
+                    mlp.enc_bwd_full(*enc) + mlp.dec_bwd_full(*dec)):
+        assert torch.equal(a, b)
+
+
+def _smoke():
+    """``chip_smoke.py`` of the repository root, as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("widths", [(1024, 2048, 256), (70, 130, 18)],
+                         ids=["full-width", "odd-widths"])
+def test_full_backward_chains_split_and_add_bit_for_bit(cuda, widths):
+    """The 3-pass chains on operands built so that every sum has one
+    non-zero term and a quarter of the values sit on the split's rounding
+    tie: the kernels must give the bits of the 3-pass plain version.  A
+    chain in one pass, or a device split that rounds to nearest even, moves
+    a large share of the values (tests/test_torch_full_backward.py shows it
+    on the plain versions)."""
+    smoke = _smoke()
+    cases = zip(("enc_bwd_full", "dec_bwd_full"),
+                smoke.exact_split_case(cuda, 0, *widths))
+    for name, case in cases:
+        got = getattr(mlp, name)(*case)
+        torch.cuda.synchronize()
+        want = getattr(mlp, name + "_ref")(*case, 3)
+        once = getattr(mlp, name + "_ref")(*case, 1)
+        moved = total = 0
+        for i, (a, b, c) in enumerate(zip(got, want, once)):
+            if i in smoke.DENSE_SUMS[name]:
+                _close_rel((a,), (b,), smoke.EXACT_DB_REL)
+                continue
+            assert torch.equal(a, b), (name, i, int((a != b).sum()))
+            moved, total = moved + int((b != c).sum()), total + b.numel()
+        assert moved > total // 10
+
+
+def test_full_backward_chains_at_odd_widths_and_bad_passes(cuda):
+    w, t = _backward_inputs(cuda, 37, torch.float32, 70, 130, 18)
+    enc = (t["x"], t["h"], t["dmu"], t["dlv"], w["fc21"]["w"],
+           w["fc22"]["w"])
+    dec = (t["da"], t["h3"], t["z"], w["fc4"]["w"], w["fc3"]["w"])
+    _close_rel(mlp.enc_bwd_full(*enc), mlp.enc_bwd_full_ref(*enc, 3), 1e-4)
+    _close_rel(mlp.dec_bwd_full(*dec), mlp.dec_bwd_full_ref(*dec, 3), 1e-4)
+    with pytest.raises(ValueError, match="passes"):
+        mlp.enc_bwd_full_ref(*(a.bfloat16() for a in enc), 3)
+    with pytest.raises(TypeError, match="dtype"):
+        mlp.dec_bwd_full(t["da"], t["h3"].bfloat16(), *dec[2:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("batch", [4096, 25_810, 1])
+def test_loss_sums_kernel_matches_plain_version(cuda, batch, dtype):
+    """Queue B row 14: both sums within rel 1e-5 of two ``torch.sum`` s,
+    the same bits on a second launch, one launch a call."""
+    from rawaudiovae_kelsey_tpu_torch.ops import loss
+
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    recon = torch.tanh(torch.randn((batch, 1024), generator=g,
+                                   device=cuda)).to(dtype)
+    x = (torch.rand((batch, 1024), generator=g, device=cuda) * 2 - 1).to(dtype)
+    mu = torch.randn((batch, 256), generator=g, device=cuda).to(dtype)
+    lv = (torch.randn((batch, 256), generator=g, device=cuda) * 0.5).to(dtype)
+    before = loss.loss_sums.launches
+    got = loss.loss_sums(recon, x, mu, lv)
+    again = loss.loss_sums(recon, x, mu, lv)
+    torch.cuda.synchronize()
+    assert loss.loss_sums.launches == before + 2
+    for a, b, c in zip(got, loss.loss_sums_ref(recon, x, mu, lv), again):
+        assert a.dtype == torch.float32 and a.dim() == 0
+        assert float(a) == pytest.approx(float(b), rel=1e-5)
+        assert torch.equal(a, c)
+
+
+def test_loss_sums_brings_mixed_dtypes_to_fp32(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import loss
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    recon, x = (torch.rand((333, 1024), generator=g, device=cuda).bfloat16()
+                for _ in range(2))
+    mu, lv = (torch.randn((333, 256), generator=g, device=cuda)
+              for _ in range(2))
+    got = loss.loss_sums(recon, x, mu, lv)
+    want = loss.loss_sums(recon.float(), x.float(), mu, lv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_fused_loss_on_the_card_matches_the_plain_loss(cuda):
+    from rawaudiovae_kelsey_tpu_torch.models import vae
+    from rawaudiovae_kelsey_tpu_torch.ops import loss
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    recon = torch.tanh(torch.randn((1000, 1024), generator=g, device=cuda))
+    x = torch.rand((1000, 1024), generator=g, device=cuda) * 2 - 1
+    mu = torch.randn((1000, 256), generator=g, device=cuda)
+    lv = torch.randn((1000, 256), generator=g, device=cuda) * 0.5
+    for reduction in ("mean", "sum"):
+        a = [t.clone().requires_grad_() for t in (recon, x, mu, lv)]
+        b = [t.clone().requires_grad_() for t in (recon, x, mu, lv)]
+        got = loss.fused_loss_components(*a, 1e-4, reduction)
+        want = vae.loss_components(*b, 1e-4, 1024, reduction)
+        for u, v in zip(got, want):
+            assert float(u.detach()) == pytest.approx(float(v.detach()),
+                                                      rel=1e-5)
+        _close_rel(torch.autograd.grad(got[0], a),
+                   torch.autograd.grad(want[0], b), 1e-5)
+
+
+def test_high_step_on_the_card_runs_the_full_chains(cuda):
+    """One ``precision = high`` step through the kernels and one through
+    the plain ops, same state and noise: ``enc_bwd_full`` and
+    ``dec_bwd_full`` launch once each and no split kernel does; the losses
+    and the gradients agree."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.precision = "high"
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.rand((4096, 1024), generator=g, device=cuda) * 2 - 1
+    names = ("enc_bwd_full", "dec_bwd_full", "enc_bwd_dw1", "grad_accum2",
+             "dec_bwd_fused", "grad_accum")
+    out = {}
+    for backend in ("pallas", "xla"):
+        cfg.tpu.backend = backend
+        model = build_model(cfg, cuda)
+        state = TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), seed=1)
+        before = [getattr(mlp, n).launches for n in names]
+        state, m = build_train_step(model, cfg)(state, x)
+        rose = [getattr(mlp, n).launches - b for n, b in zip(names, before)]
+        assert rose == ([1, 1, 0, 0, 0, 0] if backend == "pallas"
+                        else [0] * 6)
+        # Adam's first moment after one step is (1 - b1) * gradient: linear
+        # in the gradient, where the parameter update (lr * g / (|g| + eps))
+        # turns the rounding of a near-zero gradient into a move of up to lr
+        out[backend] = (float(m["loss"]), torch.cat(
+            [t.ravel() for q in state.mu.values() for t in q.values()]))
+    assert out["pallas"][0] == pytest.approx(out["xla"][0], rel=1e-5)
+    gk, gx = out["pallas"][1], out["xla"][1]
+    assert bool(torch.isfinite(gk).all()) and float(gx.norm()) > 0
+    assert float((gk - gx).norm() / gx.norm()) <= 1e-4
+    # the 3-pass product is off IEEE fp32 by ~2^-16 of each product's
+    # scale, and the sums over 4096 rows cancel: measured 5.8e-4 of the
+    # largest gradient on one element; a fault shows as O(1) of it
+    assert float((gk - gx).abs().max()) <= 5e-3 * float(gx.abs().max())
+
+
+def test_stream_trainer_on_the_card(cuda, tmp_path, capsys):
+    """Twenty batches of the stream trainer at full width, bf16 through the
+    kernels, then a resume for four more and ``eval`` on the run."""
+    import json
+
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.eval import cli as eval_cli
+    from rawaudiovae_kelsey_tpu_torch.io import write_wav
+    from rawaudiovae_kelsey_tpu_torch.train import stream
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "audio").mkdir()
+    (tmp_path / "test_audio").mkdir()
+    for i, n in enumerate((400_000, 250_000, 500, 330_000)):
+        wave = (0.4 * np.sin(np.linspace(0, 900 * (i + 1), n))
+                + 0.05 * rng.standard_normal(n)).astype(np.float32)
+        write_wav(tmp_path / "audio" / f"a{i}.wav", wave, 44100)
+    write_wav(tmp_path / "test_audio" / "t.wav",
+              rng.uniform(-0.3, 0.3, 20_000).astype(np.float32), 44100)
+
+    def cfg(batches):
+        c = Config()
+        c.dataset.datapath = str(tmp_path)
+        c.training.batch_size = 4096
+        c.training.total_num_frames = batches * 4096
+        c.training.checkpoint_interval = 8
+        c.extra.description = "cuda_stream"
+        c.tpu.precision, c.tpu.backend = "bfloat16", "pallas"
+        return c
+
+    before = mlp.enc_bwd_dw1.launches
+    ctx = stream.train(cfg(20), verbose=False, device=cuda)
+    assert ctx.state.step == 20
+    assert mlp.enc_bwd_dw1.launches == before + 20
+    assert (ctx.workspace.checkpoint_dir / "ckpt_00016.npz").exists()
+    more = cfg(24)
+    more.training.resume = True
+    ctx = stream.train(more, verbose=False, device=cuda)
+    assert ctx.start_step == 20 and ctx.state.step == 24
+    always = cfg(24)
+    always.tpu.device_resident = "always"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        stream.train(always, verbose=False, device=cuda)
+    capsys.readouterr()
+    eval_cli.main(["--run", str(ctx.workspace.workdir), "--deterministic"])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["frames"] == 20 and 0 < report["recon_mse"] < 1

@@ -18,10 +18,12 @@ SLICE = [
     "config.schema", "config.ini", "config.workspace", "io.wavio",
     "io.resample", "data.framing", "data.corpus", "data.datasets",
     "data.validate", "data.loader", "models.vae", "models.registry",
-    "ops.mlp", "ops.quant", "ops.rng", "ops._build", "parallel.step",
+    "ops.mlp", "ops.quant", "ops.rng", "ops.loss", "ops._build",
+    "parallel.step",
     "parallel.resident", "train.state",
     "train.optim", "train.checkpoint", "train.loop", "train.interrupt",
-    "train.epoch", "train.cli", "eval.fixtures", "observe.tb",
+    "train.epoch", "train.stream", "train.cli", "eval.fixtures", "eval.cli",
+    "observe.tb",
     "observe.timing", "observe.logging", "compat.from_jax",
     "infer.synthesis", "infer.api", "infer.server", "infer.http",
     "__main__",

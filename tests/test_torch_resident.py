@@ -207,12 +207,13 @@ def test_backward_mode_follows_the_jax_rule():
     assert mlp.backward_mode(torch.float32, "primitive") == "primitive"
     assert mlp.backward_mode(torch.float32, "split") == "split"
     assert mlp.backward_mode(torch.bfloat16, "primitive") == "split"
+    assert mlp.backward_mode(torch.float32, "full") == "full"
     with pytest.raises(ValueError, match="backward mode"):
-        mlp.backward_mode(torch.float32, "full")
+        mlp.backward_mode(torch.float32, "fused")
     cfg = Config()
     cfg.tpu.backend = "pallas"
     for precision, want in (("float32", "primitive"), ("highest",
-                            "primitive"), ("high", "split"),
+                            "primitive"), ("high", "full"),
                             ("bfloat16", "primitive")):
         cfg.tpu.precision = precision
         model = build_model(cfg, "cpu")
