@@ -76,6 +76,34 @@ any failure exits non-zero with a traceback (no phase is caught):
    straight run of that budget (equal losses); ``eval`` on the run; the hot
    loop's frames/s and the device's busy share for both precisions.
 
+3e. (run with the other kernel phases) the variants' kernels in fp32 and
+   bf16: ``linear_ksplit_fwd`` at 4096x4096->4096, 4096x1024->512 and a
+   ragged 4097x1088->544 (more than one k slice each, equal bits on a
+   second launch), ``linear_fwd`` at 4096x512->256, 256x4096->4096 (the
+   server's batch) and 96x384->640, both beside ``torch.addmm``;
+   ``toeplitz_fwd`` through ``conv1d_pallas`` / ``conv1d_transpose_pallas``
+   at the eight layers of ``configs/conv1d.ini``, batch 4096 (one also at
+   4097), forward and the ``dx`` launch, against the plain convolutions and
+   beside ``F.conv1d`` / ``F.conv_transpose1d``; ``passes = 4`` against its
+   plain version and against IEEE fp32; odd shifts and lengths;
+8. the deep/wide model: ``configs/deep_wide.ini`` uncut (segment 4096,
+   hidden 4096,2048,1024,512, latent 256, bf16, batch 4096) with ``backend
+   = pallas`` and only the datapath, epochs, checkpoint interval and
+   best-model gate changed → the ``train`` command, a ``--resume``; one
+   step from the trained state through the kernels and through the plain
+   ops, same noise, in bf16 and at ``highest``, with 7 k-split + 4 whole-k
+   launches a forward (0 + 11 at the server's batch 256); the HTTP server
+   on the run's ``best_model.npz`` against the plain backend; frames/s of
+   both backends and the device's busy share;
+9. the conv1d model: ``configs/conv1d.ini`` uncut (channels 32,64,128,256,
+   kernel 9, stride 4, bf16, batch 4096) → the ``train`` command through
+   the registry (plain convolutions, no kernel launched), a ``--resume``;
+   one step through the op-level Toeplitz path (``conv_encode_pallas`` /
+   ``conv_decode_pallas``) against the registry's model from the same state
+   and noise, in bf16 and at ``highest``: 8 forward + 7 ``dx`` Toeplitz
+   launches (the first layer's input is the batch, which needs no
+   gradient) and 3 whole-k linear launches; step time of both.
+
 ``launches`` in the kernel line: the wrapper's count over the path where
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
 (phase 4); bf16 forward kernels: the training run of phase 5 (its fp32
@@ -90,7 +118,11 @@ against their plain versions, and they stay out of the kernel line);
 ``matmul_nt*``: the ``highest`` resident epoch of phase 6; bf16
 ``matmul_nt`` / ``matmul_nt2_mask``: the bf16 ``dx`` of phase 6 (no path
 of the package runs ``matmul_nt_mask`` in bf16; phase 3c still holds it
-against its plain version); the sampler: the resident training run.
+against its plain version); the sampler: the resident training run;
+bf16 ``linear_ksplit_fwd`` / ``linear_fwd``: the deep training runs of
+phase 8; fp32 ``linear_ksplit_fwd``: the deep ``highest`` step; fp32
+``linear_fwd``: the deep server; ``toeplitz_fwd``: the op-level conv1d step
+of phase 9 in bf16 and at ``highest``.
 ``bound_ms`` is the larger of bytes moved (each input read once, each
 output written once) over 3.35 TB/s and operations over the peak of the
 operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
@@ -154,6 +186,22 @@ FULL_REL = 1e-4
 EXACT_DB_REL = 1e-5
 LOSS_BATCH, LOSS_RAGGED = 4096, 25_810
 SUMS_REL = 1e-5
+# phase 3e.  The variants' kernels: fp32 within 1e-4 * max|plain| (the same
+# products summed in another order), bf16 within 2^-6 * max|plain| (a
+# flipped bf16 ulp, and one more carried through an activation); the 4-pass
+# Toeplitz product within 1e-5 * max|plain| of its 4-pass plain version
+# (equal bf16 x bf16 products, exact in fp32, in another order); the k-split
+# kernel: equal bits on a second launch.
+DEEP_BATCH, SERVE_BATCH = 4096, 256
+VARIANT_REL = {"fp32": 1e-4, "bf16": 2.0 ** -6}
+FOUR_PASS_REL = 1e-5
+# configs/conv1d.ini: kernel 9, stride 4, channels 32,64,128,256, segment
+# 1024 → the eight layers as (direction, length in, channels in, out)
+CONV_K, CONV_S = 9, 4
+CONV_LAYERS = [("conv", 1024, 1, 32), ("conv", 256, 32, 64),
+               ("conv", 64, 64, 128), ("conv", 16, 128, 256),
+               ("convT", 4, 256, 128), ("convT", 16, 128, 64),
+               ("convT", 64, 64, 32), ("convT", 256, 32, 1)]
 
 
 # roofline peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
@@ -907,6 +955,34 @@ def busy_share(fn) -> str:
     busy += hi - lo
     return (f"{100 * busy / wall_us:.1f} % ({busy / 1e3:.1f} ms of "
             f"{wall_us / 1e3:.1f} ms wall)")
+
+
+def device_time_by_kernel(fn, top: int = 6) -> str:
+    """Device time of ``fn()`` by kernel name, the ``top`` largest and the
+    rest, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us:
+            times[e.key] = times.get(e.key, 0.0) + us
+    if not times:
+        return "not measured (the profiler saw no device activity)"
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])
+    total = sum(times.values())
+    parts = [f"{name[:60]} {us / 1e3:.2f} ms ({100 * us / total:.1f} %)"
+             for name, us in ranked[:top]]
+    rest = sum(us for _, us in ranked[top:])
+    return (f"{total / 1e3:.2f} ms of device time: " + "; ".join(parts)
+            + f"; the other {max(len(ranked) - top, 0)} kernels "
+              f"{rest / 1e3:.2f} ms")
 
 
 def write_corpus(root: Path, frames: int, hop: int, seg: int) -> None:
@@ -1782,6 +1858,548 @@ def phase_serve(run_dir, audio, quantize):
     return out, statistics.median(lat_ms)
 
 
+def phase_variant_kernels():
+    """Phase 3e: linear_ksplit_fwd, linear_fwd and toeplitz_fwd against
+    their plain versions."""
+    import torch.nn.functional as F
+
+    from rawaudiovae_kelsey_tpu_torch.models import variants
+    from rawaudiovae_kelsey_tpu_torch.ops import conv, linear, toeplitz
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    lin_src = "rawaudiovae_kelsey_tpu_torch/csrc/linear.cu"
+    tpu_lin = "rawaudiovae_kelsey_tpu/ops/pallas_linear.py"
+    rows = {}
+
+    def lin_operands(batch, k, n, dt):
+        x = torch.randn((batch, k), generator=g, device=dev)
+        w = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+        b = torch.randn((n,), generator=g, device=dev) * 0.1
+        return x.to(dt), w.to(dt), b.to(dt)
+
+    def held(name, kind, got, want, tol, what):
+        check(got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.isfinite(got).all()),
+              f"{name}[{kind}] {what}: shape/dtype {tuple(got.shape)} "
+              f"{got.dtype} vs {tuple(want.shape)} {want.dtype}, or "
+              "non-finite")
+        e = rel_err([got], [want])
+        print(f"  {name + '[' + kind + ']':<24} {what}: max |kernel - plain|"
+              f" / max|plain| = {e:.3e} (tolerance {tol:.3e})")
+        check(e <= tol, f"{name}[{kind}] {what}: relative error {e:.3e} > "
+              f"{tol:.3e}")
+        return max_err([got.float()], [want.float()])
+
+    linear_cases = {
+        "linear_ksplit_fwd": (
+            linear.linear_ksplit_fwd, linear.linear_ksplit_fwd_ref,
+            f"{tpu_lin}:77",
+            [(DEEP_BATCH, 4096, 4096, "relu"), (DEEP_BATCH, 1024, 512, "none"),
+             (4097, 1088, 544, "tanh")]),
+        "linear_fwd": (
+            linear.linear_fwd, linear.linear_fwd_ref, f"{tpu_lin}:119",
+            [(DEEP_BATCH, 512, 256, "none"),
+             (SERVE_BATCH, 4096, 4096, "tanh"), (96, 384, 640, "relu")]),
+    }
+    for name, (kernel, plain, replaces, shapes) in linear_cases.items():
+        for kind, dt in dtypes.items():
+            err = 0.0
+            for batch, k, n, act in shapes:
+                x, w, b = lin_operands(batch, k, n, dt)
+                before = kernel.launches
+                got = kernel(x, w, b, act)
+                torch.cuda.synchronize()
+                check(kernel.launches == before + 1,
+                      f"{name}: the launch was not counted")
+                err = max(err, held(name, kind, got, plain(x, w, b, act),
+                                    VARIANT_REL[kind],
+                                    f"{batch}x{k}->{n} {act}"))
+                if name == "linear_ksplit_fwd":
+                    check(linear.ksplit_slices(k) > 1,
+                          f"{name}: k = {k} is one slice")
+                    again = kernel(x, w, b, act)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, again), f"{name}[{kind}] "
+                          f"{batch}x{k}->{n}: a second launch gave other bits")
+            # timed at the first shape: the main path's (the deep model's
+            # 4096->4096 layer; its 512->256 latent head)
+            batch, k, n, act = shapes[0]
+            x, w, b = lin_operands(batch, k, n, dt)
+            iters = 5 if k * n > 1 << 22 else 30
+            ms, plain_ms, t_kern, t_plain = time_both(
+                lambda: kernel(x, w, b, act), lambda: plain(x, w, b, act),
+                iters)
+            lib_ms = cuda_time_ms(lambda: torch.addmm(b, x, w), iters)
+            print(f"  {name + '[' + kind + ']':<24} {batch}x{k}->{n}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.addmm "
+                  f"{lib_ms:.4f} ms (runs {t_kern} / {t_plain})")
+            rows[f"{name}[{kind}]"] = {
+                "name": f"{name}[{kind}]", "route": "cuda", "source": lin_src,
+                "replaces": replaces, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms,
+                **bound(2 * batch * k * n,
+                        nbytes(x, w, b, kernel(x, w, b, act)), kind),
+                "library_ms": lib_ms}
+            if name == "linear_ksplit_fwd":
+                # the same layer through the whole-k kernel, and the server's
+                # largest layer through it
+                whole = cuda_time_ms(lambda: linear.linear_fwd(x, w, b, act),
+                                     iters)
+                print(f"  {'linear_fwd[' + kind + ']':<24} {batch}x{k}->{n} "
+                      f"(the k-split kernel's shape): {whole:.4f} ms, "
+                      f"k-split / whole-k = {ms / whole:.3f}")
+            else:
+                xs, ws, bs = lin_operands(SERVE_BATCH, 4096, 4096, dt)
+                t_s = cuda_time_ms(
+                    lambda: kernel(xs, ws, bs, "tanh"), 10)
+                t_p = cuda_time_ms(lambda: plain(xs, ws, bs, "tanh"), 10)
+                print(f"  {name + '[' + kind + ']':<24} {SERVE_BATCH}x4096->"
+                      f"4096 (the server's batch): kernel {t_s:.4f} ms, "
+                      f"plain {t_p:.4f} ms")
+
+    # the block-Toeplitz kernel through the two convolutions, at every layer
+    # of configs/conv1d.ini, batch 4096: forward and the dx launch
+    toe_src = "rawaudiovae_kelsey_tpu_torch/csrc/toeplitz.cu"
+    tpu_toe = "rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py:166"
+
+    def conv_operands(batch, length, cin, cout, dt):
+        x = torch.randn((batch, length, cin), generator=g, device=dev)
+        w = torch.randn((CONV_K, cin, cout), generator=g, device=dev) \
+            / (CONV_K * cin) ** 0.5
+        b = torch.randn((cout,), generator=g, device=dev) * 0.1
+        return x.to(dt), w.to(dt), b.to(dt)
+
+    def both(direction):
+        if direction == "conv":
+            return conv.conv1d_pallas, variants.conv_same, conv.pack_conv1d
+        return (conv.conv1d_transpose_pallas, variants.conv_transpose_same,
+                conv.pack_conv1d_transpose)
+
+    def library_call(direction, x, w, b):
+        """The one PyTorch call of the same convolution (bias, no
+        activation) on operands laid out for it beforehand: NCW input
+        (SAME-padded for the forward direction: the call pads only
+        symmetrically), (out, in, K) or flipped (in, out, K) weight."""
+        xt = x.transpose(1, 2).contiguous()
+        if direction == "conv":
+            xp = F.pad(xt, variants.same_pad(x.shape[1], CONV_K, CONV_S))
+            wt = w.permute(2, 1, 0).contiguous()
+            return lambda: F.conv1d(xp, wt, b, stride=CONV_S)
+        pb = (CONV_K - CONV_S) // 2
+        wt = w.flip(0).permute(1, 2, 0).contiguous()
+        return lambda: F.conv_transpose1d(
+            xt, wt, b, stride=CONV_S, padding=pb,
+            output_padding=max(0, CONV_S - CONV_K + 2 * pb))
+
+    layer_ms = {}
+    for kind, dt in dtypes.items():
+        err = 0.0
+        for i, (direction, length, cin, cout) in enumerate(CONV_LAYERS):
+            op, plain, pack = both(direction)
+            act = "tanh" if i == len(CONV_LAYERS) - 1 else "relu"
+            for batch in ((DEEP_BATCH, 4097) if i == 2 else (DEEP_BATCH,)):
+                x, w, b = conv_operands(batch, length, cin, cout, dt)
+                x.requires_grad_()
+                toeplitz.toeplitz_fwd.launches = 0
+                with torch.enable_grad():
+                    got = op(x, w, b, CONV_S, act)
+                    (dx,) = torch.autograd.grad(got.float().square().sum(), x)
+                torch.cuda.synchronize()
+                n_toe = toeplitz.toeplitz_fwd.launches
+                check(n_toe == 2, f"{direction} layer {i}: {n_toe} Toeplitz "
+                      "launches, expected the forward and dx")
+                # plain: the fp32 convolution of the same operands, bias
+                # and activation in fp32, one rounding (the kernel's
+                # epilogue); its dx from the same rounded output
+                x32 = x.detach().float().requires_grad_()
+                with torch.enable_grad():
+                    want32 = linear.apply_act(act, plain(
+                        {"w": w.float(), "b": b.float()}, x32, CONV_S))
+                    want = want32.detach().to(dt)
+                    (dx_want,) = torch.autograd.grad(want32, x32,
+                                                     2 * want.float())
+                what = f"layer {i} {direction} {batch}x{length}x{cin}->{cout}"
+                err = max(err, held("toeplitz_fwd", kind, got.detach(), want,
+                                    VARIANT_REL[kind], what))
+                held("toeplitz_fwd", kind, dx, dx_want.to(dt),
+                     VARIANT_REL[kind], what + ", dx")
+            x, w, b = conv_operands(DEEP_BATCH, length, cin, cout, dt)
+            packed = pack(x, w, CONV_S) if direction == "conv" \
+                else pack(x, w, b, CONV_S)
+            if direction == "conv":
+                xf, wp, t_out, shift = packed
+                bp = b
+            else:
+                xf, wp, bp, t_out, shift = packed
+            wp = wp.contiguous()
+            ms, plain_ms, t_kern, t_plain = time_both(
+                lambda: toeplitz.toeplitz_fwd(xf, wp, bp, act, t_out, shift),
+                lambda: toeplitz.toeplitz_fwd_ref(xf, wp, bp, act, t_out,
+                                                  shift), 10)
+            lib_ms = cuda_time_ms(library_call(direction, x, w, b), 10)
+            # the convolution's own multiply-adds (the packed tap stack's
+            # zero rows are not work the function needs)
+            flops = 2 * DEEP_BATCH * length * CONV_K * cin * cout // (
+                CONV_S if direction == "conv" else 1)
+            y = toeplitz.toeplitz_fwd(xf, wp, bp, act, t_out, shift)
+            bd = bound(flops, nbytes(x, w, b, y), kind)
+            layer_ms[kind, i] = (ms, plain_ms, lib_ms, bd["bound_ms"], bd)
+            lib = "F.conv1d" if direction == "conv" else "F.conv_transpose1d"
+            print(f"  {'toeplitz_fwd[' + kind + ']':<24} layer {i} "
+                  f"{direction} {length}x{cin}->{cout}: x {tuple(xf.shape)} w "
+                  f"{tuple(wp.shape)} shift {shift}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound "
+                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) (runs {t_kern} "
+                  f"/ {t_plain})")
+        k_ms, p_ms, l_ms, b_ms = (
+            sum(layer_ms[kind, i][j] for i in range(len(CONV_LAYERS)))
+            for j in range(4))
+        print(f"  {'toeplitz_fwd[' + kind + ']':<24} a forward of the eight "
+              f"layers: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN "
+              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms")
+        # the kernel line's row: the second encoder layer (the first of the
+        # six 12.9 GFLOP layers)
+        ms, plain_ms, lib_ms, _, bd = layer_ms[kind, 1]
+        rows[f"toeplitz_fwd[{kind}]"] = {
+            "name": f"toeplitz_fwd[{kind}]", "route": "cuda",
+            "source": toe_src, "replaces": tpu_toe, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": lib_ms}
+
+    # passes = 4 against its plain version and against IEEE fp32, and odd
+    # shifts and lengths straight through the kernel
+    x, w, b = conv_operands(512, 64, 64, 128, torch.float32)
+    xf, wpad, _, _ = conv.pack_conv1d(x, w, CONV_S)
+    four = toeplitz.toeplitz_fwd(xf, wpad, b, "relu", 16, 1, 4)
+    one = toeplitz.toeplitz_fwd(xf, wpad, b, "relu", 16, 1, 1)
+    torch.cuda.synchronize()
+    held("toeplitz_fwd", "fp32", four,
+         toeplitz.toeplitz_fwd_ref(xf, wpad, b, "relu", 16, 1, 4),
+         FOUR_PASS_REL, "passes = 4 against its 4-pass plain version")
+    held("toeplitz_fwd", "fp32", four, one, FOUR_PASS_REL,
+         "passes = 4 against IEEE fp32")
+    t4 = cuda_time_ms(lambda: toeplitz.toeplitz_fwd(xf, wpad, b, "relu", 16,
+                                                    1, 4), 10)
+    t1 = cuda_time_ms(lambda: toeplitz.toeplitz_fwd(xf, wpad, b, "relu", 16,
+                                                    1, 1), 10)
+    print(f"  toeplitz_fwd[fp32]       512x16x256 (3 taps) ->128: passes = 4 "
+          f"{t4:.4f} ms, passes = 1 {t1:.4f} ms ({t4 / t1:.2f}x)")
+    for kind, dt in dtypes.items():
+        for shift, t_out in ((0, 13), (2, 5), (1, 9), (0, None)):
+            xs = torch.randn((37, 9, 24), generator=g, device=dev).to(dt)
+            ws = (torch.randn((3, 24, 40), generator=g, device=dev) * 0.2
+                  ).to(dt)
+            bs = torch.randn((40,), generator=g, device=dev).to(dt)
+            held("toeplitz_fwd", kind,
+                 toeplitz.toeplitz_fwd(xs, ws, bs, "tanh", t_out, shift),
+                 toeplitz.toeplitz_fwd_ref(xs, ws, bs, "tanh", t_out, shift),
+                 VARIANT_REL[kind], f"37x9x24 shift {shift} t_out {t_out}")
+    return rows
+
+
+def step_pair(cfg, ckpt, x, models, tol, label):
+    """One step from checkpoint ``ckpt`` on batch ``x`` with each of the two
+    models of ``models`` ({name: build(cfg)}), same noise; the first is the
+    kernels', the second the plain one.  Returns the kernel launches of the
+    first."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import (
+        TrainState,
+        restore_checkpoint,
+    )
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves, tree_map
+
+    def noise(step, i, shape):
+        g = torch.Generator().manual_seed(1000 * step + (i or 0))
+        return torch.randn(shape, generator=g)
+
+    out, counts = [], None
+    for k, (name, build) in enumerate(models.items()):
+        model = build(cfg)
+        state, _ = restore_checkpoint(ckpt, TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), 0))
+        before = tree_map(torch.clone, state.params)
+        for w in ops.KERNEL_WRAPPERS:
+            w.launches = 0
+        state, m = build_train_step(model, cfg, noise=noise)(state, x)
+        torch.cuda.synchronize()
+        if k == 0:
+            counts = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+        delta = torch.cat([(a - b).ravel() for a, b in
+                           zip(leaves(state.params), leaves(before))])
+        out.append((float(m["loss"]), delta))
+    (lk, dk), (lx, dx) = out
+    upd = float((dk - dx).norm() / dx.norm())
+    print(f"  one {label} step, {' vs '.join(models)}: loss {lk:.7f} vs "
+          f"{lx:.7f}; |update difference| / |update| = {upd:.3e} (tolerance "
+          f"{tol:g}); max |param difference| = "
+          f"{float((dk - dx).abs().max()):.3e}")
+    check(abs(lk / lx - 1) <= tol and upd <= tol,
+          f"{label} step: {' and '.join(models)} disagree")
+    return counts
+
+
+def step_rates(cfg, x, models, card, n=3):
+    """Steps/s of each model of ``models`` on the device-resident batch
+    ``x``, timed first, second, second, first; the busy share of the first."""
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    steps = {}
+    for name, build in models.items():
+        model = build(cfg)
+        state = TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), 0)
+        steps[name] = (build_train_step(model, cfg), state)
+        steps[name][0](state, x)                              # warmup
+    a, b = models
+    times = {a: [], b: []}
+    for name in (b, a, a, b):
+        step, state = steps[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, x)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / n)
+    for name, ts in times.items():
+        print(f"  training rate, {name}: "
+              f"{x.shape[0] / statistics.mean(ts):,.0f} frames/s (step "
+              f"{statistics.mean(ts) * 1e3:.2f} ms; runs "
+              f"{[round(t * 1e3, 2) for t in ts]} ms) [{card}]")
+    step, state = steps[a]
+    print(f"  device busy share over {n} {a} steps: "
+          f"{busy_share(lambda: [step(state, x) for _ in range(n)])}")
+    for name in (a, b):
+        step, state = steps[name]
+        print(f"  one {name} step by kernel: "
+              f"{device_time_by_kernel(lambda: step(state, x))}")
+
+
+def train_and_resume(name, cfg, data, epochs, n_batches):
+    """The ``train`` command on ``cfg`` for ``epochs`` epochs, then
+    ``--resume`` for one more; returns the two run directories."""
+    from rawaudiovae_kelsey_tpu_torch.config import save_config
+    from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
+    from rawaudiovae_kelsey_tpu_torch.train.cli import main as train_cli
+
+    cfg.dataset.datapath = str(data)
+    cfg.training.epochs = epochs
+    cfg.training.checkpoint_interval = 1
+    cfg.training.save_best_model_after = 0
+    ini = data / f"{name}.ini"
+    save_config(cfg, ini)
+    t0 = time.perf_counter()
+    train_cli(["--config", str(ini)])
+    print(f"  train command: {epochs} epochs in "
+          f"{time.perf_counter() - t0:.1f} s (ingest, checkpoints and "
+          "reconstructions included)")
+    runs = iter_runs(data / cfg.extra.description)
+    check(len(runs) == 1, f"expected one run dir, found {runs}")
+    ws = runs[0]
+    losses = read_scalars(ws / "logs", "Loss/Batch")
+    totals = read_scalars(ws / "logs", "Loss/train_total")
+    check(sorted(losses) == list(range(epochs * n_batches)),
+          f"Loss/Batch steps {sorted(losses)}")
+    check(all(np.isfinite(v) for v in losses.values()), "non-finite loss")
+    tot = [totals[e] for e in range(epochs)]
+    print(f"  epoch losses {tot}; per batch "
+          f"{[round(losses[k], 6) for k in sorted(losses)]}")
+    check(tot[-1] < tot[0], f"the epoch loss did not fall: {tot}")
+    want = ["config.ini", "model/best_model.npz", "model/last_model.npz",
+            f"model/checkpoints/ckpt_{epochs:05d}.npz",
+            f"audio_logs/test_reconst_{epochs:05d}.wav"]
+    for rel in want:
+        check((ws / rel).is_file(), f"workspace lacks {rel}")
+    cfg.training.epochs = epochs + 1
+    save_config(cfg, ini)
+    train_cli(["--config", str(ini), "--resume"])
+    runs = iter_runs(data / cfg.extra.description)
+    check(len(runs) == 2, f"the resume made no new run dir: {runs}")
+    resumed = read_scalars(runs[1] / "logs", "Loss/Batch")
+    check(sorted(resumed) == list(range(epochs * n_batches,
+                                        (epochs + 1) * n_batches)),
+          f"the resumed run logged steps {sorted(resumed)}")
+    check(all(np.isfinite(v) for v in resumed.values()),
+          "non-finite loss after the resume")
+    print(f"  resume: one more epoch, steps {sorted(resumed)}, losses "
+          f"{[round(resumed[k], 6) for k in sorted(resumed)]}")
+    return runs
+
+
+def phase_deep(tmp: Path, audio, card: str):
+    """Phase 8: configs/deep_wide.ini trained and served through the fused
+    linear kernels."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.config import load_config
+    from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
+    from rawaudiovae_kelsey_tpu_torch.data.datasets import AudioFrameDataset
+    from rawaudiovae_kelsey_tpu_torch.infer.api import frame_audio
+    from rawaudiovae_kelsey_tpu_torch.models import build_model, variants
+    from rawaudiovae_kelsey_tpu_torch.train import (
+        latest_checkpoint,
+        load_params,
+    )
+
+    cfg = load_config(ROOT / "configs" / "deep_wide.ini")
+    check(cfg.vae.arch == "deep" and cfg.tpu.precision == "bfloat16"
+          and cfg.vae.hidden_dims.replace(" ", "") == "4096,2048,1024,512"
+          and (cfg.audio.segment_length, cfg.vae.latent_dim,
+               cfg.training.batch_size) == (4096, 256, DEEP_BATCH),
+          "configs/deep_wide.ini is not the bf16 4096/4096,2048,1024,512/256 "
+          "model at batch 4096")
+    cfg.tpu.backend = "pallas"
+    batch = DEEP_BATCH
+    seg, hop = cfg.audio.segment_length, cfg.audio.hop_length
+    n_batches, epochs = 3, 2
+    frames = n_batches * batch
+    data = tmp / "deep"
+    write_corpus(data, frames, hop, seg)
+    for w in ops.KERNEL_WRAPPERS:
+        w.launches = 0
+    runs = train_and_resume("deep", cfg, data, epochs, n_batches)
+    launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    print(f"  kernel launches in the two deep training runs: {launches}")
+    for w in ops.DEEP_KERNELS:
+        check(launches[w.__name__] > 0,
+              f"{w.__name__} was never launched by the deep training run")
+
+    dev = torch.device("cuda")
+    dataset = AudioFrameDataset(build_corpus(data / "audio", SR)[0], seg, hop,
+                                SR)
+    x = torch.from_numpy(next(dataset.batches(batch, seed=99))).to(dev)
+    ckpt = latest_checkpoint(runs[1] / "model" / "checkpoints")
+
+    def build(backend):
+        def make(c):
+            c.tpu.backend = backend
+            return build_model(c, dev)
+        return make
+
+    models = {"kernels": build("pallas"), "plain": build("xla")}
+    step_counts = {}
+    for precision, tol in (("bfloat16", 5e-2), ("highest", 1e-3)):
+        cfg.tpu.precision = precision
+        step_counts[precision] = step_pair(cfg, ckpt, x, models, tol,
+                                           f"deep {precision}")
+        n_k, n_w = (step_counts[precision][k]
+                    for k in ("linear_ksplit_fwd", "linear_fwd"))
+        print(f"  kernel launches in that step: linear_ksplit_fwd {n_k}, "
+              f"linear_fwd {n_w}")
+        check((n_k, n_w) == (7, 4), f"deep {precision} step: {n_k} k-split + "
+              f"{n_w} whole-k launches, expected 7 + 4")
+    # per forward at the server's batch: every layer takes the whole-k kernel
+    cfg.tpu.precision = "bfloat16"
+    model = models["kernels"](cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    for w in ops.DEEP_KERNELS:
+        w.launches = 0
+    with torch.inference_mode():
+        mu, _ = model.encode(params, x[:SERVE_BATCH])
+        model.decode(params, mu)
+    torch.cuda.synchronize()
+    n_k, n_w = (w.launches for w in ops.DEEP_KERNELS)
+    print(f"  a forward at batch {SERVE_BATCH}: linear_ksplit_fwd {n_k}, "
+          f"linear_fwd {n_w}")
+    check((n_k, n_w) == (0, 11), f"batch {SERVE_BATCH}: {n_k} k-split + {n_w} "
+          "whole-k launches, expected 0 + 11")
+
+    # serve the trained run: fp32 master weights through the whole-k kernel
+    for w in ops.KERNEL_WRAPPERS:
+        w.launches = 0
+    out, lat_ms = phase_serve(runs[0], audio, False)
+    serve_launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    print(f"  kernel launches in the deep serving path: "
+          f"{ {k: v for k, v in serve_launches.items() if v} }")
+    check(serve_launches["linear_fwd"] > 0
+          and serve_launches["linear_ksplit_fwd"] == 0,
+          "the deep server did not run on linear_fwd alone")
+    served = load_params(runs[0] / "model" / "best_model.npz", params)
+    with torch.inference_mode():
+        fr = torch.from_numpy(np.ascontiguousarray(
+            frame_audio(audio, seg))).to(dev)
+        mu, _ = variants.encode_deep(served, fr)
+        want = variants.decode_deep(served, mu).cpu().numpy().reshape(-1)
+    e = float(np.abs(out["flat"][:, 0] - want).max())
+    print(f"  /reconstruct vs the plain backend: max err {e:.3e}; median "
+          f"latency {lat_ms:.2f} ms")
+    check(e <= HTTP_ATOL, "deep /reconstruct differs from the plain backend")
+
+    step_rates(cfg, x, models, card)
+    return launches, step_counts["highest"], serve_launches
+
+
+def phase_conv(tmp: Path, card: str):
+    """Phase 9: configs/conv1d.ini trained through the registry, and one
+    step through the block-Toeplitz op-level path."""
+    import dataclasses
+    from functools import partial
+
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.config import load_config
+    from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
+    from rawaudiovae_kelsey_tpu_torch.data.datasets import AudioFrameDataset
+    from rawaudiovae_kelsey_tpu_torch.models import build_model, variants
+    from rawaudiovae_kelsey_tpu_torch.train import latest_checkpoint
+
+    cfg = load_config(ROOT / "configs" / "conv1d.ini")
+    check(cfg.vae.arch == "conv1d" and cfg.tpu.precision == "bfloat16"
+          and cfg.vae.conv_channels.replace(" ", "") == "32,64,128,256"
+          and (cfg.vae.conv_kernel, cfg.vae.conv_stride) == (CONV_K, CONV_S)
+          and (cfg.audio.segment_length, cfg.vae.latent_dim,
+               cfg.training.batch_size) == (1024, 256, DEEP_BATCH),
+          "configs/conv1d.ini is not the bf16 32,64,128,256 / 9 / 4 model at "
+          "batch 4096")
+    batch = DEEP_BATCH
+    seg, hop = cfg.audio.segment_length, cfg.audio.hop_length
+    n_batches, epochs = 3, 2
+    data = tmp / "conv"
+    write_corpus(data, n_batches * batch, hop, seg)
+    for w in ops.KERNEL_WRAPPERS:
+        w.launches = 0
+    runs = train_and_resume("conv1d", cfg, data, epochs, n_batches)
+    check(not any(w.launches for w in ops.KERNEL_WRAPPERS),
+          "the registry's conv1d model launched a kernel: it runs the plain "
+          "convolutions under every backend")
+
+    dev = torch.device("cuda")
+    dataset = AudioFrameDataset(build_corpus(data / "audio", SR)[0], seg, hop,
+                                SR)
+    x = torch.from_numpy(next(dataset.batches(batch, seed=99))).to(dev)
+    ckpt = latest_checkpoint(runs[1] / "model" / "checkpoints")
+    width = variants.conv_latent_width(seg, 4, CONV_S)
+
+    def op_level(c):
+        # the registry's model with its encode / decode replaced by the
+        # Toeplitz path: the explicit op-level API
+        return dataclasses.replace(
+            build_model(c, dev),
+            encode=partial(ops.conv_encode_pallas, stride=CONV_S),
+            decode=partial(ops.conv_decode_pallas, stride=CONV_S,
+                           width=width, channels=256))
+
+    models = {"toeplitz": op_level, "registry": lambda c: build_model(c, dev)}
+    step_counts = {}
+    for precision, tol in (("bfloat16", 5e-2), ("highest", 1e-3)):
+        cfg.tpu.precision = precision
+        counts = step_counts[precision] = step_pair(
+            cfg, ckpt, x, models, tol, f"conv1d {precision}")
+        print(f"  kernel launches in that step: toeplitz_fwd "
+              f"{counts['toeplitz_fwd']}, linear_fwd {counts['linear_fwd']}, "
+              f"linear_ksplit_fwd {counts['linear_ksplit_fwd']}")
+        # 8 forward, 7 for dx: the first layer's input is the batch, which
+        # needs no gradient; the two heads and dec_in take the whole-k kernel
+        check(counts["toeplitz_fwd"] == 15 and counts["linear_fwd"] == 3
+              and counts["linear_ksplit_fwd"] == 0,
+              f"conv1d {precision} step: {counts['toeplitz_fwd']} Toeplitz + "
+              f"{counts['linear_fwd']} whole-k launches, expected 8 + 7 and 3")
+    cfg.tpu.precision = "bfloat16"
+    step_rates(cfg, x, models, card)
+    return step_counts
+
+
 def off_path(row: dict) -> None:
     """Print a row that was held against its plain version and timed, but
     that no path of the package launches: it stays out of the kernel line."""
@@ -1849,6 +2467,11 @@ def main() -> int:
           "against their plain versions")
     with torch.no_grad():
         full_rows, full_at_train_batch = phase_full_kernels(gen_params)
+
+    print("phase 3e: the variants' kernels (linear_ksplit_fwd, linear_fwd, "
+          "toeplitz_fwd) against their plain versions")
+    with torch.no_grad():
+        variant_rows = phase_variant_kernels()
 
     print("phase 4: the serving path (configs/default.ini)")
     cfg = load_config(ROOT / "configs" / "default.ini")
@@ -1918,6 +2541,12 @@ def main() -> int:
     print("phase 7: the streaming path (configs/default_iterable.ini)")
     with tempfile.TemporaryDirectory() as tmp:
         stream_launches, high_launches = phase_stream(Path(tmp))
+    print("phase 8: the deep/wide model (configs/deep_wide.ini)")
+    with tempfile.TemporaryDirectory() as tmp:
+        deep_launches, deep_fp32_launches, deep_serve_launches = phase_deep(
+            Path(tmp), audio, card)
+        print("phase 9: the conv1d model (configs/conv1d.ini)")
+        conv_launches = phase_conv(Path(tmp), card)
     # the 3-pass chains against the same products in one fp32 pass: the
     # fp32 split kernels launch the chains' GEMMs without the split
     ms = {k: r["ms"] for k, r in train_rows.items()}
@@ -1966,6 +2595,23 @@ def main() -> int:
     for w in ops.TRAINING_KERNELS:
         check(stream_launches[w.__name__] > 0,
               f"{w.__name__}: no launch in the bf16 stream run")
+    # the variants' kernels: bf16 linear layers in the deep training runs,
+    # fp32 k-split in the deep `highest` step, fp32 whole-k in the deep
+    # server; the Toeplitz kernel in the conv1d op-level steps
+    for key, row in variant_rows.items():
+        name, kind = key[:-1].split("[")
+        if name == "toeplitz_fwd":
+            counts = conv_launches["bfloat16" if kind == "bf16"
+                                   else "highest"]
+        elif kind == "bf16":
+            counts = deep_launches
+        elif name == "linear_fwd":
+            counts = deep_serve_launches
+        else:
+            counts = deep_fp32_launches
+        row["launches"] = counts[name]
+        check(row["launches"] > 0, f"{key}: no launch on its main path")
+    rows.update(variant_rows)
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Carry weights and train states between the JAX package and the port.
 
-Both packages keep the dense VAE's params as the same nested dict
-(``{"fc1": {"w": (in, out), "b": (out,)}, ...}``), so the conversion is a
-copy of every leaf, with no transpose: the JAX side hands over NumPy arrays
+Both packages keep a model's params as the same tree (the dense VAE's
+``{"fc1": {"w": (in, out), "b": (out,)}, ...}``; lists of layers under
+``enc`` / ``dec`` for the deep and conv1d models, conv weights ``(kernel,
+in, out)``), so the conversion is a copy of every leaf, with no transpose: the JAX side hands over NumPy arrays
 (``jax.device_get`` of its tree), the port holds tensors.  A round trip is
 exact.
 
@@ -25,22 +26,21 @@ from rawaudiovae_kelsey_tpu_torch.train.checkpoint import (
     state_leaves,
 )
 from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
+from rawaudiovae_kelsey_tpu_torch.tree import tree_map
 
 
 def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> Any:
-    """Nested dict of NumPy arrays (a JAX params tree after
-    ``jax.device_get``) → the same structure of tensors on ``device``."""
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    """Tree of NumPy arrays (a JAX params tree after ``jax.device_get``:
+    dicts, and lists of layers for the variants) → the same structure of
+    tensors on ``device``."""
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree)
 
 
 def params_to_jax(params: Any) -> Any:
-    """Nested dict of tensors → the same structure of NumPy arrays, which
+    """Tree of tensors → the same structure of NumPy arrays, which
     ``jax.numpy.asarray`` (or any JAX function) takes as a params tree."""
-    if isinstance(params, dict):
-        return {k: params_to_jax(v) for k, v in params.items()}
-    return params.detach().cpu().numpy().copy()
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), params)
 
 
 def train_state_from_jax(leaves: List[Any], template: TrainState

@@ -1,0 +1,145 @@
+// The fused linear layer y = act(x @ w + b) of the deep/wide MLP VAE, in
+// its two forms, fp32 or bf16 operands, with a plain C interface for
+// ctypes (ops/_build.py loads the library; ops/linear.py holds the
+// wrappers, the dispatch rule and the plain PyTorch versions).
+//
+// rvk_linear_fwd replaces the TPU kernel linear_fwd (_linear_kernel) of
+// rawaudiovae_kelsey_tpu/ops/pallas_linear.py: an output tile owns the
+// whole contraction; bias and activation are applied in fp32 on the
+// accumulator and the result is rounded once.  One launch of the tiled
+// GEMM of gemm.cuh (x read along its rows, w along its rows too, every
+// ragged edge masked).
+//
+// rvk_linear_ksplit_fwd replaces linear_ksplit_fwd (_linear_ksplit_kernel)
+// there.  The TPU kernel tiles the contraction over its grid and carries an
+// fp32 accumulator across the k slices, which its grid visits in order.
+// Blocks of a CUDA grid run in no order, so the counterpart is split-K in
+// two stages:
+//   1. grid (batch tiles, n tiles, k slices): each block contracts one
+//      slice of k and writes its fp32 partial tile to a workspace
+//      (slices, batch, n) — product.cuh, no bias, no activation;
+//   2. one pass over (batch, n) adds the slices in slice order, adds the
+//      bias in fp32, applies the activation and rounds once.
+// No atomics: two launches on the same inputs give equal bits.  The slice
+// depth comes from the caller (KSPLIT_BLOCK_K of ops/linear.py) and the
+// slice count is ceil(k / depth): a function of the shape alone.  A ragged
+// last slice contracts what is left of k; nothing is padded.  Splitting
+// gives a layer slices x as many blocks as the whole-k launch, at the
+// price of the workspace's round trip (2 * 4 * slices bytes per output
+// element against 2 * k FLOPs: noise beside the product for k >= 1024).
+
+#include "product.cuh"
+
+using rvk::dst;
+using rvk::src;
+
+namespace {
+
+template <typename T>
+cudaError_t linear_fwd(const T* x, const T* w, const T* b, T* y, int batch,
+                       int k, int n, int act, cudaStream_t s) {
+  rvk::Gemm<T, T, T> g = {};
+  g.a = rvk::view(x, k, k);
+  g.out[0].b = rvk::view(w, n, k);
+  g.out[0].bias = b;
+  g.out[0].c = y;
+  g.M = batch, g.N = n, g.K = k;
+  g.act = act;
+  return rvk::launch_gemm<rvk::kKContig, rvk::kRContig>(g, 1, s);
+}
+
+// A as a plain row-major (M, ld) matrix.
+template <typename T>
+struct MatrixRows {
+  const T* x;
+  int ld;
+  struct Row {
+    const T* base;  // nullptr past the last row
+  };
+  __device__ __forceinline__ Row row(int m, int M) const {
+    return Row{m < M ? x + static_cast<size_t>(m) * ld : nullptr};
+  }
+  __device__ __forceinline__ float at(const Row& r, int k) const {
+    return r.base != nullptr ? rvk::to_f32(r.base[k]) : 0.f;
+  }
+};
+
+// stage 1's epilogue: the slice's partial sum, as it is, to ws[z][m][n]
+struct PartialStore {
+  float* ws;
+  size_t plane;  // M * N
+  int N;
+  __device__ __forceinline__ void operator()(int m, int n, float v,
+                                             int z) const {
+    ws[z * plane + static_cast<size_t>(m) * N + n] = v;
+  }
+};
+
+// stage 2: y = act(sum_z ws[z] + b), the slices added in order
+template <typename T>
+__global__ void __launch_bounds__(rvk::kThreads)
+ksplit_reduce_kernel(const float* __restrict__ ws, rvk::BiasActStore<T> out,
+                     size_t plane, int slices) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < plane; i += stride) {
+    float v = ws[i];
+    for (int z = 1; z < slices; ++z) v += ws[z * plane + i];
+    out.finish(i, static_cast<int>(i % out.N), v);
+  }
+}
+
+template <typename T>
+cudaError_t linear_ksplit_fwd(const T* x, const T* w, const T* b, T* y,
+                              float* ws, int batch, int k, int n, int slices,
+                              int kslice, int act, cudaStream_t s) {
+  if (batch <= 0 || n <= 0) return cudaSuccess;
+  const size_t plane = static_cast<size_t>(batch) * n;
+  const cudaError_t err = rvk::launch_product<1>(
+      MatrixRows<T>{x, k}, w, n, PartialStore{ws, plane, n}, batch, n, k,
+      slices, kslice, s);
+  if (err != cudaSuccess) return err;
+  const size_t want = (plane + rvk::kThreads - 1) / rvk::kThreads;
+  const size_t cap = static_cast<size_t>(rvk::sm_count()) * 16;
+  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+  ksplit_reduce_kernel<T><<<blocks, rvk::kThreads, 0, s>>>(
+      ws, rvk::BiasActStore<T>{b, y, n, act}, plane, slices);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (batch, k); w (k, n); b (n,); y (batch, n); all of one dtype
+// (rvk::DType); act an rvk::Act (none, relu or tanh).
+int rvk_linear_fwd(const void* x, const void* w, const void* b, void* y,
+                   int batch, int k, int n, int act, int dtype,
+                   void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return linear_fwd(src<T>(x), src<T>(w), src<T>(b), dst<T>(y), batch, k,
+                      n, act, s);
+  });
+}
+
+// The same function through the split-K path; ws is fp32 scratch of
+// slices * batch * n elements, slices = ceil(k / kslice).
+int rvk_linear_ksplit_fwd(const void* x, const void* w, const void* b,
+                          void* y, void* ws, int batch, int k, int n,
+                          int slices, int kslice, int act, int dtype,
+                          void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kslice <= 0 || slices != rvk::cdiv(k, kslice)) {
+    return cudaErrorInvalidValue;
+  }
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return linear_ksplit_fwd(src<T>(x), src<T>(w), src<T>(b), dst<T>(y),
+                             static_cast<float*>(ws), batch, k, n, slices,
+                             kslice, act, s);
+  });
+}
+
+}  // extern "C"

@@ -13,3 +13,7 @@ from rawaudiovae_kelsey_tpu_torch.models.registry import (  # noqa: F401
     ModelDef,
     build_model,
 )
+from rawaudiovae_kelsey_tpu_torch.models.variants import (  # noqa: F401
+    Conv1dVAE,
+    DeepVAE,
+)

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 Tensor = torch.Tensor
+# the dense model's tree; the variants' trees hold lists of such layers
 Params = Dict[str, Dict[str, Tensor]]
 
 LAYERS = ("fc1", "fc21", "fc22", "fc3", "fc4")
@@ -170,7 +171,17 @@ def forward(params: Params, x: Tensor, segment_length: int,
             deterministic: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
     """Full VAE pass; reshapes input to (-1, segment_length) like
     model.py:33's ``x.view(-1, segment_length)``."""
+    return forward_with(lambda x: encode(params, x),
+                        lambda z: decode(params, z), x, segment_length,
+                        generator, deterministic)
+
+
+def forward_with(encode_fn, decode_fn, x: Tensor, segment_length: int,
+                 generator: Optional[torch.Generator] = None,
+                 deterministic: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
+    """:func:`forward` over any family's ``encode_fn(x)`` /
+    ``decode_fn(z)`` pair."""
     x = x.reshape(-1, segment_length)
-    mu, logvar = encode(params, x)
+    mu, logvar = encode_fn(x)
     z = reparameterize(mu, logvar, generator, deterministic)
-    return decode(params, z), mu, logvar
+    return decode_fn(z), mu, logvar

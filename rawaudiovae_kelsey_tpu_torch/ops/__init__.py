@@ -1,10 +1,12 @@
-"""Hand-written CUDA kernels for the dense VAE, each beside its plain
-PyTorch version (``<op>_ref``) and a launch counter (``<op>.launches``):
-the forward kernels of serving and training, the int8 serving decoder, the
-backward kernels of the training step (the bf16 "split" set, the fp32
+"""Hand-written CUDA kernels, each beside its plain PyTorch version
+(``<op>_ref``) and a launch counter (``<op>.launches``).  For the dense
+VAE: the forward kernels of serving and training, the int8 serving decoder,
+the backward kernels of the training step (the bf16 "split" set, the fp32
 "primitive" set and the 3-pass "full" set of the ``high`` tier), the fused
-loss reduction and the in-kernel Gaussian sampler.  Sources in ``csrc/``;
-built by ``ops/_build.py``."""
+loss reduction and the in-kernel Gaussian sampler.  For the model variants:
+the fused linear layer in its whole-k and k-split forms (the deep MLP) and
+the block-Toeplitz product with the two convolutions mapped onto it (the
+conv1d model).  Sources in ``csrc/``; built by ``ops/_build.py``."""
 
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
     Decode,
@@ -47,10 +49,31 @@ from rawaudiovae_kelsey_tpu_torch.ops.quant import (  # noqa: F401
     quantized_decode_ref,
     quantized_decoder_fwd,
 )
-
 from rawaudiovae_kelsey_tpu_torch.ops.rng import (  # noqa: F401
     reparameterize_prng,
     reparameterize_prng_ref,
+)
+from rawaudiovae_kelsey_tpu_torch.ops.linear import (  # noqa: F401
+    PallasLinear,
+    deep_decode_pallas,
+    deep_encode_pallas,
+    linear_fwd,
+    linear_fwd_ref,
+    linear_ksplit_fwd,
+    linear_ksplit_fwd_ref,
+    pallas_linear,
+)
+from rawaudiovae_kelsey_tpu_torch.ops.toeplitz import (  # noqa: F401
+    ToeplitzMatmul,
+    toeplitz_fwd,
+    toeplitz_fwd_ref,
+    toeplitz_matmul,
+)
+from rawaudiovae_kelsey_tpu_torch.ops.conv import (  # noqa: F401
+    conv1d_pallas,
+    conv1d_transpose_pallas,
+    conv_decode_pallas,
+    conv_encode_pallas,
 )
 
 # the kernels each main path launches, and all of them
@@ -63,8 +86,12 @@ PRIMITIVE_KERNELS = (encoder_fwd, decoder_fwd, matmul_nt2_mask,
                      matmul_nt_mask, matmul_nt, grad_accum)
 # the fp32 step of the high tier ("full" backward, 3-pass products)
 FULL_KERNELS = (encoder_fwd, decoder_fwd, enc_bwd_full, dec_bwd_full)
+# the deep model's step and server (the backward is plain products)
+DEEP_KERNELS = (linear_ksplit_fwd, linear_fwd)
+# the conv1d model's op-level step (the heads and dec_in are linear layers)
+CONV_KERNELS = (toeplitz_fwd, linear_fwd)
 KERNEL_WRAPPERS = (encoder_fwd, decoder_fwd, quantized_decoder_fwd,
                    enc_bwd_dw1, grad_accum2, dec_bwd_fused, grad_accum,
                    matmul_nt, matmul_nt_mask, matmul_nt2_mask,
                    reparameterize_prng, enc_bwd_full, dec_bwd_full,
-                   loss_sums)
+                   loss_sums, linear_ksplit_fwd, linear_fwd, toeplitz_fwd)

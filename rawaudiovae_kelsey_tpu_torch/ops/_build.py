@@ -49,6 +49,9 @@ _SIGNATURES = {
     "rvk_matmul_nt2_mask": [_P] * 6 + [_I] * 4 + [_P],
     "rvk_reparameterize": [_U] * 2 + [_P] * 3 + [_I] * 2 + [_P],
     "rvk_philox_words": [_U] * 2 + [_P] + [_I] * 2 + [_P],
+    "rvk_linear_fwd": [_P] * 4 + [_I] * 5 + [_P],
+    "rvk_linear_ksplit_fwd": [_P] * 5 + [_I] * 7 + [_P],
+    "rvk_toeplitz_fwd": [_P] * 4 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

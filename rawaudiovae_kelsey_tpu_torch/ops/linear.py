@@ -1,0 +1,237 @@
+"""The fused linear layer ``act(x @ w + b)`` of the deep/wide MLP VAE: the
+CUDA counterparts of the JAX package's ``ops/pallas_linear.py``.
+
+Two kernels compute the same function (``csrc/linear.cu``):
+
+* :func:`linear_fwd`: an output tile owns the whole contraction, one
+  launch;
+* :func:`linear_ksplit_fwd`: the contraction is cut into slices of
+  ``KSPLIT_BLOCK_K`` over a grid dimension; every block writes the fp32
+  partial sum of its slice to a workspace and a second stage adds the
+  slices in order, adds the bias, applies the activation and rounds once.
+  No atomics, so two launches give equal bits.
+
+:func:`dispatch_fwd` picks between them by the JAX package's rule
+(``_dispatch_fwd``): a layer with batch ≥ ``KSPLIT_BLOCK_B``, k ≥ 2 ·
+``KSPLIT_BLOCK_K`` and n ≥ ``KSPLIT_BLOCK`` takes the k-split kernel, every
+other the whole-k one.  The three constants keep the JAX package's names
+and values because they decide which kernel a layer takes.
+
+As in ``ops/mlp.py`` each kernel stands beside its plain PyTorch version
+(``<op>_ref``) and its wrapper runs the plain version for a CPU tensor
+only; for a CUDA tensor it checks device, dtype, shape and contiguity,
+launches the kernel and counts the launch in ``<op>.launches``, or raises.
+
+:func:`pallas_linear` is the differentiable layer (the role of the JAX
+``pallas_linear``).  Its backward is what the JAX custom VJP does outside
+any kernel: ``da`` from the saved output (ReLU: ``y > 0``; tanh: ``1 -
+y²``) in the cotangent's dtype, then ``da @ wᵀ``, ``xᵀ @ da`` and
+``da.sum(0)`` as plain products.  :func:`deep_encode_pallas` /
+:func:`deep_decode_pallas` run the deep model on it.
+
+Shapes: x ``(B, k)``, w ``(k, n)``, b ``(n,)`` → ``(B, n)`` in x's dtype;
+fp32 or bf16 operands, all of one dtype; fp32 accumulation.  Ragged B, k
+and n are masked in the kernels; nothing is padded.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from rawaudiovae_kelsey_tpu_torch.ops import _build
+from rawaudiovae_kelsey_tpu_torch.ops.mlp import (
+    DTYPE_CODES,
+    _f,
+    cuda_device,
+    operand_dtype,
+    require,
+)
+
+Tensor = torch.Tensor
+
+# activation name → the code the C entry points take (csrc/gemm.cuh Act)
+ACT_CODES = {"none": 0, "relu": 1, "tanh": 2}
+
+# the dispatch rule's constants (pallas_linear.py): the k-split kernel's
+# batch tile, its output tile and its contraction slice there; here the
+# first two only gate the dispatch and the third is also the slice depth
+KSPLIT_BLOCK_B = 1024
+KSPLIT_BLOCK = 512
+KSPLIT_BLOCK_K = 512
+
+
+def apply_act(act: str, v: Tensor) -> Tensor:
+    """``relu`` | ``tanh`` | ``none`` on ``v``; anything else raises."""
+    if act == "relu":
+        return torch.relu(v)
+    if act == "tanh":
+        return torch.tanh(v)
+    if act == "none":
+        return v
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def ksplit_slices(k: int) -> int:
+    """The k-split kernel's slice count for a contraction of ``k``: a
+    function of the shape alone."""
+    return -(-k // KSPLIT_BLOCK_K)
+
+
+# ----------------------------------------------------------- plain versions
+
+def linear_fwd_ref(x, w, b, act: str = "none") -> Tensor:
+    """Plain version of :func:`linear_fwd`."""
+    return apply_act(act, _f(x) @ _f(w) + _f(b)).to(x.dtype)
+
+
+def linear_ksplit_fwd_ref(x, w, b, act: str = "none") -> Tensor:
+    """Plain version of :func:`linear_ksplit_fwd`: the partial product of
+    each ``KSPLIT_BLOCK_K`` slice of the contraction, added in slice order
+    in fp32, then bias, activation and one rounding."""
+    xf, wf = _f(x), _f(w)
+    acc = None
+    for k0 in range(0, x.shape[1], KSPLIT_BLOCK_K):
+        part = xf[:, k0:k0 + KSPLIT_BLOCK_K] @ wf[k0:k0 + KSPLIT_BLOCK_K]
+        acc = part if acc is None else acc + part
+    return apply_act(act, acc + _f(b)).to(x.dtype)
+
+
+# ----------------------------------------------------------------- wrappers
+
+def _check(name: str, x, w, b, act: str):
+    if act not in ACT_CODES:
+        raise ValueError(f"{name}: unknown activation {act!r}")
+    dev = cuda_device(x, f"{name}: x")
+    dt = operand_dtype(x, f"{name}: x")
+    batch, k = x.shape
+    if w.dim() != 2 or k < 1:
+        raise ValueError(f"{name}: x {tuple(x.shape)} against w "
+                         f"{tuple(w.shape)}")
+    n = w.shape[1]
+    require(x, "x", (batch, k), dev, dt)
+    require(w, "w", (k, n), dev, dt)
+    require(b, "b", (n,), dev, dt)
+    return dev, dt, batch, k, n
+
+
+def linear_fwd(x, w, b, act: str = "none") -> Tensor:
+    """``act(x @ w + b)``, the whole contraction in one pass per output
+    tile.
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_linear.py`` ``linear_fwd``.
+    CUDA: one launch of the tiled GEMM (``csrc/linear.cu``)."""
+    if x.device.type == "cpu":
+        return linear_fwd_ref(x, w, b, act)
+    dev, dt, batch, k, n = _check("linear_fwd", x, w, b, act)
+    y = torch.empty((batch, n), device=dev, dtype=dt)
+    if batch and n:
+        _build.launch("rvk_linear_fwd", dev, x, w, b, y, batch, k, n,
+                      ACT_CODES[act], DTYPE_CODES[dt])
+        linear_fwd.launches += 1
+    return y
+
+
+linear_fwd.launches = 0
+
+
+def linear_ksplit_fwd(x, w, b, act: str = "none") -> Tensor:
+    """``act(x @ w + b)`` with the contraction cut into
+    :func:`ksplit_slices` slices over the grid: the large-layer path.
+
+    Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_linear.py``
+    ``linear_ksplit_fwd``.  CUDA: two launches (``csrc/linear.cu``): the
+    per-slice partial products into an fp32 workspace ``(slices, B, n)``,
+    then their ordered sum with the bias and the activation."""
+    if x.device.type == "cpu":
+        return linear_ksplit_fwd_ref(x, w, b, act)
+    dev, dt, batch, k, n = _check("linear_ksplit_fwd", x, w, b, act)
+    y = torch.empty((batch, n), device=dev, dtype=dt)
+    if batch and n:
+        slices = ksplit_slices(k)
+        ws = torch.empty((slices, batch, n), device=dev, dtype=torch.float32)
+        _build.launch("rvk_linear_ksplit_fwd", dev, x, w, b, y, ws, batch, k,
+                      n, slices, KSPLIT_BLOCK_K, ACT_CODES[act],
+                      DTYPE_CODES[dt])
+        linear_ksplit_fwd.launches += 1
+    return y
+
+
+linear_ksplit_fwd.launches = 0
+
+
+def takes_ksplit(batch: int, k: int, n: int) -> bool:
+    """The dispatch rule (``pallas_linear.py`` ``_dispatch_fwd``): large
+    layers, where both operands stream, take the k-split kernel."""
+    return (batch >= KSPLIT_BLOCK_B and k >= 2 * KSPLIT_BLOCK_K
+            and n >= KSPLIT_BLOCK)
+
+
+def dispatch_fwd(x, w, b, act: str = "none") -> Tensor:
+    if takes_ksplit(x.shape[0], w.shape[0], w.shape[1]):
+        return linear_ksplit_fwd(x, w, b, act)
+    return linear_fwd(x, w, b, act)
+
+
+# ------------------------------------------------------- autograd Function
+
+def act_backward(act: str, y: Tensor, dy: Tensor) -> Tensor:
+    """The cotangent before the activation, from the saved output, in
+    ``dy``'s dtype (``pallas_linear.py`` ``_bwd``)."""
+    if act == "relu":
+        da = torch.where(y > 0, dy, torch.zeros((), dtype=dy.dtype,
+                                                device=dy.device))
+    elif act == "tanh":
+        da = dy * (1.0 - y * y)
+    else:
+        da = dy
+    return da.to(dy.dtype)
+
+
+class PallasLinear(torch.autograd.Function):
+    """``(x, w, b, act) → act(x @ w + b)`` through :func:`dispatch_fwd`;
+    saves ``(x, w, y)``.  The backward is plain PyTorch, as the JAX
+    package's is plain XLA."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, act):
+        y = dispatch_fwd(x, w, b, act)
+        ctx.save_for_backward(x, w, y)
+        ctx.act = act
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, y = ctx.saved_tensors
+        da = act_backward(ctx.act, y, dy)
+        dx = (da @ w.t()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = (x.t() @ da).to(w.dtype)
+        db = da.sum(0).to(w.dtype)
+        return dx, dw, db, None
+
+
+def pallas_linear(x, w, b, act: str = "none") -> Tensor:
+    """Differentiable fused linear + activation (relu | tanh | none)."""
+    return PallasLinear.apply(x, w, b, act)
+
+
+def deep_encode_pallas(params, x) -> Tuple[Tensor, Tensor]:
+    """The deep model's encoder (``models/variants.py`` layout) on the
+    fused kernels."""
+    h = x
+    for layer in params["enc"]:
+        h = pallas_linear(h, layer["w"], layer["b"], "relu")
+    mu = pallas_linear(h, params["mu_head"]["w"], params["mu_head"]["b"],
+                       "none")
+    logvar = pallas_linear(h, params["logvar_head"]["w"],
+                           params["logvar_head"]["b"], "none")
+    return mu, logvar
+
+
+def deep_decode_pallas(params, z) -> Tensor:
+    h = z
+    for layer in params["dec"][:-1]:
+        h = pallas_linear(h, layer["w"], layer["b"], "relu")
+    last = params["dec"][-1]
+    return pallas_linear(h, last["w"], last["b"], "tanh")

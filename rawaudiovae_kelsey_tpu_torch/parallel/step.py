@@ -42,9 +42,10 @@ from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.models import vae
 from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef
 from rawaudiovae_kelsey_tpu_torch.ops import rng
-from rawaudiovae_kelsey_tpu_torch.train.checkpoint import flatten, unflatten
 from rawaudiovae_kelsey_tpu_torch.train.optim import Adam, build_optimizer
 from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
+from rawaudiovae_kelsey_tpu_torch.tree import leaves as tree_leaves
+from rawaudiovae_kelsey_tpu_torch.tree import tree_map, unflatten
 
 Tensor = torch.Tensor
 # (step, microbatch index or None, shape) → eps, fp32
@@ -101,8 +102,7 @@ def make_loss_fn(model: ModelDef, cfg: Config) -> Callable:
 
     def loss_fn(params, eps, batch):
         x = batch.reshape(-1, seg)
-        cparams = {n: {k: t.to(work) for k, t in p.items()}
-                   for n, p in params.items()}
+        cparams = tree_map(lambda t: t.to(work), params)
         mu, logvar = model.encode(cparams, x.to(work))
         mu, logvar = mu.float(), logvar.float()
         if tpu_prng:
@@ -149,9 +149,9 @@ def build_train_step(model: ModelDef, cfg: Config,
 
     def step(state: TrainState, batch: Tensor):
         batch = batch.reshape(-1, seg)
-        params = {n: {k: t.detach().requires_grad_() for k, t in p.items()}
-                  for n, p in state.params.items()}
-        leaves = [t for _, t in flatten(params)]
+        params = tree_map(lambda t: t.detach().requires_grad_(),
+                          state.params)
+        leaves = tree_leaves(params)
 
         def value_and_grad(i, rows):
             eps = eps_for(state, i, rows.shape[0], rows.device)

@@ -2,15 +2,18 @@
 either package loads in the other — resume included.
 
 The layout (JAX ``train/checkpoint.py``): one array per leaf, named
-``leaf_00000`` … in ``jax.tree_util`` flatten order — dict keys sorted at
-every level, so for the dense model's params ``fc1.b, fc1.w, fc21.b,
-fc21.w, fc22.b, fc22.w, fc3.b, fc3.w, fc4.b, fc4.w`` — with ``w`` stored
-``(in, out)``.
+``leaf_00000`` … in ``jax.tree_util`` flatten order (``tree.py``) — dict
+keys sorted at every level, lists by index, so for the dense model's params
+``fc1.b, fc1.w, fc21.b, fc21.w, fc22.b, fc22.w, fc3.b, fc3.w, fc4.b,
+fc4.w``, for the deep model's ``dec.0.b, dec.0.w, …, enc.0.b, …,
+logvar_head.b, logvar_head.w, mu_head.b, mu_head.w`` and for the conv1d
+model's ``dec, dec_in, enc, logvar_head, mu_head`` — with a linear ``w``
+stored ``(in, out)`` and a conv ``w`` ``(kernel, in, out)``.
 
 * ``best_model.npz`` / ``last_model.npz`` (:func:`save_params`): the params.
 * ``model/checkpoints/ckpt_{label:05d}.npz`` (:func:`save_checkpoint`): the
-  whole train state, the 33 leaves of the JAX ``TrainState`` for the dense
-  model — the 10 params; optax Adam's ``count`` (int32); its 10 ``mu``; its
+  whole train state, 3n+3 leaves for a model of n param leaves: the 33
+  leaves of the JAX ``TrainState`` for the dense model — the 10 params; optax Adam's ``count`` (int32); its 10 ``mu``; its
   10 ``nu``; the threefry key ``rng`` (uint32[2], ``PRNGKey(seed)`` =
   ``[seed >> 32, seed & 0xffffffff]``); ``step`` (int32) — plus a json
   sidecar of loop metadata (epoch, best_loss, step).
@@ -32,35 +35,13 @@ import numpy as np
 import torch
 
 from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
+from rawaudiovae_kelsey_tpu_torch.tree import flatten, unflatten
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.npz$")
 _ORBAX_RE = re.compile(r"orbax_(\d+)$")
 ORBAX_NOT_PORTED = (
     "orbax checkpoints are not ported to the PyTorch package (ROADMAP.md "
     "queue A); use [tpu] checkpoint_format = npz")
-
-
-def flatten(tree: Any) -> List[Tuple[str, Any]]:
-    """(dotted path, leaf) pairs of a nested dict, in JAX's flatten order
-    (keys sorted at every level)."""
-    if isinstance(tree, dict):
-        return [(f"{k}.{path}" if path else str(k), leaf)
-                for k in sorted(tree)
-                for path, leaf in flatten(tree[k])]
-    return [("", tree)]
-
-
-def unflatten(template: Any, leaves: List[Any]) -> Any:
-    """Rebuild ``template``'s nested-dict structure from ``leaves`` (given
-    in :func:`flatten` order)."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-
-    return build(template)
 
 
 def _unique_tmp(path: Path) -> Path:
@@ -70,7 +51,7 @@ def _unique_tmp(path: Path) -> Path:
 
 
 def save_params(path: Path, params: Any) -> Path:
-    """Write ``params`` (nested dict of tensors or arrays) atomically: best/
+    """Write ``params`` (a tree of tensors or arrays) atomically: best/
     last are overwritten while a server may be reading them."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)

@@ -38,6 +38,7 @@ from rawaudiovae_kelsey_tpu_torch.observe.timing import trace_capture
 from rawaudiovae_kelsey_tpu_torch.parallel import resident as R
 from rawaudiovae_kelsey_tpu_torch.train import loop as L
 from rawaudiovae_kelsey_tpu_torch.train.interrupt import GracefulInterrupt
+from rawaudiovae_kelsey_tpu_torch.tree import leaves as tree_leaves
 
 
 def check_supported(cfg: Config) -> None:
@@ -366,8 +367,7 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
     def _meter_fetch(host, t0: float) -> None:
         link_acc[0] += sum(
             t.numel() * t.element_size()
-            for tree in (host.params, host.mu, host.nu)
-            for layer in tree.values() for t in layer.values())
+            for t in tree_leaves((host.params, host.mu, host.nu)))
         link_acc[1] += time.perf_counter() - t0
 
     # steady-state marker: set when the FIRST group has finished (it

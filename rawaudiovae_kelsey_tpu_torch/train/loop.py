@@ -39,6 +39,8 @@ from rawaudiovae_kelsey_tpu_torch.parallel.step import (
 )
 from rawaudiovae_kelsey_tpu_torch.train import checkpoint as ckpt
 from rawaudiovae_kelsey_tpu_torch.train.state import Params, TrainState
+from rawaudiovae_kelsey_tpu_torch.tree import flatten, tree_map
+from rawaudiovae_kelsey_tpu_torch.tree import leaves as tree_leaves
 
 
 @dataclass
@@ -72,12 +74,11 @@ def describe_device(device: torch.device) -> str:
 
 
 def summarize(params) -> str:
-    """Per-layer shapes and the parameter count (the ``plot_model``
-    summary)."""
-    lines = [f"  {name}.{k}: {tuple(t.shape)}" for name, k, t in
-             ((n, k, params[n][k]) for n in sorted(params)
-              for k in sorted(params[n]))]
-    total = sum(t.numel() for p in params.values() for t in p.values())
+    """Per-leaf shapes under dotted tree names and the parameter count
+    (the ``plot_model`` summary)."""
+    named = flatten(params)
+    lines = [f"  {name}: {tuple(t.shape)}" for name, t in named]
+    total = sum(t.numel() for _, t in named)
     return "\n".join(["Model:", *lines, f"  total parameters: {total:,}"])
 
 
@@ -198,13 +199,11 @@ def fetch_host_state(state: TrainState,
     by default, everything queued so far on the current stream) and for
     nothing later: called from the boundary worker with a snapshot, it
     does not wait for the steps the training thread keeps queueing."""
-    leaves = [t for tree in (state.params, state.mu, state.nu)
-              for layer in tree.values() for t in layer.values()]
+    leaves = tree_leaves((state.params, state.mu, state.nu))
     cuda = next((t.device for t in leaves if t.device.type == "cuda"), None)
 
     def to_host(tree: Params) -> Params:
-        return {n: {k: t.detach().to("cpu") for k, t in layer.items()}
-                for n, layer in tree.items()}
+        return tree_map(lambda t: t.detach().to("cpu"), tree)
 
     def fetch() -> TrainState:
         return TrainState(params=to_host(state.params),
@@ -283,11 +282,17 @@ class AsyncBoundaryWriter:
 
 def log_param_histograms(ctx: TrainContext, step: int,
                          params: Optional[Params] = None) -> None:
-    """Per-parameter histograms under the reference's torch names
-    (``fc1.weight`` in ``nn.Linear``'s ``(out, in)`` layout, ``fc1.bias``;
-    train.py:203-204).  ``params`` may pass a pre-fetched host tree
-    (:func:`fetch_host_state`) to skip the device pull."""
+    """Per-parameter histograms.  The dense model keeps the reference's
+    torch names (``fc1.weight`` in ``nn.Linear``'s ``(out, in)`` layout,
+    ``fc1.bias``; train.py:203-204); the other families log under dotted
+    tree names (``enc.0.w``, ``mu_head.b``), leaves as stored.  ``params``
+    may pass a pre-fetched host tree (:func:`fetch_host_state`) to skip the
+    device pull."""
     params = ctx.state.params if params is None else params
+    if ctx.model.name != "dense":
+        for name, leaf in flatten(params):
+            ctx.writer.add_histogram(name, leaf.detach().cpu().numpy(), step)
+        return
     for name in sorted(params):
         layer = params[name]
         ctx.writer.add_histogram(f"{name}.weight",

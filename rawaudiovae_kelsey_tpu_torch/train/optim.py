@@ -27,6 +27,7 @@ import torch
 
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.train.state import Params, TrainState
+from rawaudiovae_kelsey_tpu_torch.tree import leaves
 
 
 @dataclass(frozen=True)
@@ -45,19 +46,17 @@ class Adam:
         bc1 = float(1.0 - torch.tensor(self.b1, dtype=f32) ** state.count)
         bc2 = float(1.0 - torch.tensor(self.b2, dtype=f32) ** state.count)
         on_device = {}   # device → the two corrections as 0-d fp32 tensors
-        for name, layer in state.params.items():
-            for k, p in layer.items():
-                g = grads[name][k]
-                mu, nu = state.mu[name][k], state.nu[name][k]
-                mu.copy_((1 - self.b1) * g + self.b1 * mu)
-                nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-                if p.device not in on_device:
-                    on_device[p.device] = tuple(
-                        torch.full((), v, dtype=f32, device=p.device)
-                        for v in (bc1, bc2))
-                bc1_, bc2_ = on_device[p.device]
-                u = (mu / bc1_) / (torch.sqrt(nu / bc2_) + self.eps)
-                p.add_(-self.learning_rate * u)
+        for p, g, mu, nu in zip(leaves(state.params), leaves(grads),
+                                leaves(state.mu), leaves(state.nu)):
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            if p.device not in on_device:
+                on_device[p.device] = tuple(
+                    torch.full((), v, dtype=f32, device=p.device)
+                    for v in (bc1, bc2))
+            bc1_, bc2_ = on_device[p.device]
+            u = (mu / bc1_) / (torch.sqrt(nu / bc2_) + self.eps)
+            p.add_(-self.learning_rate * u)
 
 
 def build_optimizer(cfg: Config) -> Adam:

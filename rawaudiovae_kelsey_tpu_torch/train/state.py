@@ -3,31 +3,33 @@
 The counterpart of the JAX package's ``train/state.py``.  There the params,
 the optax Adam state, the threefry key and the step counter travel as one
 donated pytree; here the same quantities are plain fields: fp32 master
-params and the two Adam moments as dicts of tensors on the training device
-(the JAX params layout, ``{"fc1": {"w": (in, out), "b": (out,)}, ...}``),
-and the Adam count, the noise seed and the step as host integers.  The
-update works in place on the tensors.  ``train/checkpoint.py`` maps the
-state onto the JAX package's 33-leaf checkpoint layout and back.
+params and the two Adam moments as trees of tensors on the training device
+(the JAX params layout: ``{"fc1": {"w": (in, out), "b": (out,)}, ...}`` for
+the dense model, lists of layers under ``enc`` / ``dec`` for the variants;
+``tree.py`` walks them), and the Adam count, the noise seed and the step as
+host integers.  The update works in place on the tensors.
+``train/checkpoint.py`` maps the state onto the JAX package's checkpoint
+layout (3n+3 leaves for n param leaves) and back.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Any
 
 import torch
 
-Params = Dict[str, Dict[str, torch.Tensor]]
+from rawaudiovae_kelsey_tpu_torch.tree import tree_map
+
+Params = Any   # a params tree (tree.py): nested dicts / lists of tensors
 
 
 def zeros_like(params: Params) -> Params:
-    return {n: {k: torch.zeros_like(t) for k, t in p.items()}
-            for n, p in params.items()}
+    return tree_map(torch.zeros_like, params)
 
 
 def clone(params: Params) -> Params:
-    return {n: {k: t.detach().clone() for k, t in p.items()}
-            for n, p in params.items()}
+    return tree_map(lambda t: t.detach().clone(), params)
 
 
 @dataclass

@@ -57,7 +57,8 @@ def test_build_compiles_every_source_once_and_caches(tmp_path, monkeypatch):
             assert flag in c
     assert "-shared" in link
     assert len([a for a in link if a.endswith(".o")]) == len(sources)
-    for src in ("mlp.cu", "quant.cu", "bwd.cu", "rng.cu", "loss.cu"):
+    for src in ("mlp.cu", "quant.cu", "bwd.cu", "rng.cu", "loss.cu",
+                "linear.cu", "toeplitz.cu"):
         assert src in sources
     assert _build.build() == lib                # cached: no second compile
     assert len(log.read_text().splitlines()) == len(calls)
@@ -86,7 +87,9 @@ def test_every_bound_entry_point_is_exported_by_a_source():
             assert pointer == (ctype is _build._P), (name, param)
             if param.startswith("long long"):
                 assert ctype is _build._L, (name, param)
-    for name in ("rvk_enc_bwd_full", "rvk_dec_bwd_full", "rvk_loss_sums"):
+    for name in ("rvk_enc_bwd_full", "rvk_dec_bwd_full", "rvk_loss_sums",
+                 "rvk_linear_fwd", "rvk_linear_ksplit_fwd",
+                 "rvk_toeplitz_fwd"):
         assert name in exported
     assert "const char* rvk_error_string(int code)" in text
 

@@ -592,3 +592,212 @@ def test_stream_trainer_on_the_card(cuda, tmp_path, capsys):
     eval_cli.main(["--run", str(ctx.workspace.workdir), "--deterministic"])
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["frames"] == 20 and 0 < report["recon_mse"] < 1
+
+
+# ----------------------------------------- the variants' kernels (rows 15-17)
+# fp32 outputs within 1e-4 · max|want| (the same products in another order),
+# bf16 within 2^-6 · max|want|; the 4-pass Toeplitz product within
+# 1e-5 · max|want| of its 4-pass plain version; split-K: equal bits twice.
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _linear_operands(device, batch, k, n, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, k), generator=g, device=device)
+    w = torch.randn((k, n), generator=g, device=device) / k ** 0.5
+    b = torch.randn((n,), generator=g, device=device) * 0.1
+    return x.to(dtype), w.to(dtype), b.to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -6)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("act", ["none", "relu", "tanh"])
+@pytest.mark.parametrize("shape", [(4096, 1024, 512), (1024, 1088, 544),
+                                   (96, 384, 640), (45, 333, 37), (1, 7, 1)])
+def test_linear_kernels_match_plain_versions(cuda, shape, act, dtype, tol):
+    """Both kernels at every shape, gate or no gate, odd widths included."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    x, w, b = _linear_operands(cuda, *shape, dtype)
+    for kernel, plain in ((linear.linear_fwd, linear.linear_fwd_ref),
+                          (linear.linear_ksplit_fwd,
+                           linear.linear_ksplit_fwd_ref)):
+        before = kernel.launches
+        got = kernel(x, w, b, act)
+        torch.cuda.synchronize()
+        want = plain(x, w, b, act)
+        assert kernel.launches == before + 1
+        assert got.shape == want.shape and got.dtype == dtype
+        assert _rel(got, want) <= tol
+
+
+def test_linear_ksplit_is_deterministic_and_splits(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    x, w, b = _linear_operands(cuda, 1024, 1088, 544, torch.float32)
+    assert linear.ksplit_slices(1088) == 3
+    a = linear.linear_ksplit_fwd(x, w, b, "relu")
+    c = linear.linear_ksplit_fwd(x, w, b, "relu")
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+    # the dispatch takes it at this shape, the whole-k kernel below the gate
+    n_k, n_w = linear.linear_ksplit_fwd.launches, linear.linear_fwd.launches
+    assert torch.equal(linear.pallas_linear(x, w, b, "relu"), a)
+    linear.pallas_linear(x[:100], w, b, "relu")
+    assert (linear.linear_ksplit_fwd.launches, linear.linear_fwd.launches) \
+        == (n_k + 1, n_w + 1)
+
+
+def test_pallas_linear_gradients_on_the_card(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    x, w, b = (t.requires_grad_() for t in
+               _linear_operands(cuda, 1024, 1088, 544, torch.float32))
+    linear.pallas_linear(x, w, b, "tanh").square().mean().backward()
+    got = [t.grad.clone() for t in (x, w, b)]
+    x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
+    torch.tanh(x @ w + b).square().mean().backward()
+    for g, t in zip(got, (x, w, b)):
+        assert _rel(g, t.grad) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -6)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shift,t_out", [(0, None), (0, 13), (1, 9), (2, 5),
+                                         (2, 12)])
+@pytest.mark.parametrize("act", ["none", "relu", "tanh"])
+def test_toeplitz_kernel_matches_plain_version(cuda, act, shift, t_out,
+                                               dtype, tol):
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((37, 9, 24), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((3, 24, 40), generator=g, device=cuda) * 0.2).to(dtype)
+    b = torch.randn((40,), generator=g, device=cuda).to(dtype)
+    before = toeplitz.toeplitz_fwd.launches
+    got = toeplitz.toeplitz_fwd(x, w, b, act, t_out, shift)
+    torch.cuda.synchronize()
+    want = toeplitz.toeplitz_fwd_ref(x, w, b, act, t_out, shift)
+    assert toeplitz.toeplitz_fwd.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("n", [4, 16, 40, 130])
+def test_toeplitz_four_passes_on_the_card(cuda, n):
+    """Every tile shape (narrow, 32x32, 64x64) in the 4-pass mode."""
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((300, 16, 48), generator=g, device=cuda)
+    w = torch.randn((3, 48, n), generator=g, device=cuda) * 0.1
+    b = torch.randn((n,), generator=g, device=cuda)
+    four = toeplitz.toeplitz_fwd(x, w, b, "none", 16, 1, 4)
+    one = toeplitz.toeplitz_fwd(x, w, b, "none", 16, 1, 1)
+    torch.cuda.synchronize()
+    assert _rel(four, toeplitz.toeplitz_fwd_ref(x, w, b, "none", 16, 1, 4)) \
+        <= 1e-5
+    assert _rel(four, one) <= 1e-5
+
+
+@pytest.mark.parametrize("K,S,L", [(9, 4, 64), (5, 2, 48), (3, 4, 32),
+                                   (7, 4, 64), (1, 2, 12), (2, 4, 12)])
+def test_convolutions_on_the_toeplitz_kernel(cuda, K, S, L):
+    """Both directions, forward and the three gradients, against the plain
+    convolutions (cuDNN, TF32 off)."""
+    from rawaudiovae_kelsey_tpu_torch.models import variants
+    from rawaudiovae_kelsey_tpu_torch.ops import conv
+
+    g = torch.Generator(device=cuda).manual_seed(K * 10 + S)
+    x0 = torch.randn((5, L, 3), generator=g, device=cuda)
+    w0 = torch.randn((K, 3, 6), generator=g, device=cuda) * 0.1
+    b0 = torch.randn((6,), generator=g, device=cuda) * 0.1
+    for op, plain in ((conv.conv1d_pallas, variants.conv_same),
+                      (conv.conv1d_transpose_pallas,
+                       variants.conv_transpose_same)):
+        x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
+        y = op(x, w, b, S, "relu")
+        y.square().sum().backward()
+        got = [y.detach(), x.grad, w.grad, b.grad]
+        x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
+        y = torch.relu(plain({"w": w, "b": b}, x, S))
+        y.square().sum().backward()
+        for a, c in zip(got, [y.detach(), x.grad, w.grad, b.grad]):
+            assert a.shape == c.shape and _rel(a, c) <= 1e-4
+
+
+def test_variant_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear, toeplitz
+
+    x, w, b = _linear_operands(cuda, 8, 16, 24, torch.float32)
+    for fn in (linear.linear_fwd, linear.linear_ksplit_fwd):
+        with pytest.raises(ValueError, match="unknown activation"):
+            fn(x, w, b, "gelu")
+        with pytest.raises(TypeError, match="dtype"):
+            fn(x.double(), w, b)
+        with pytest.raises(TypeError, match="dtype"):
+            fn(x, w.bfloat16(), b)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(torch.zeros((16, 8), device=cuda).t(), w, b)
+        with pytest.raises(ValueError, match="shape"):
+            fn(x, w, b[:5])
+        with pytest.raises(ValueError, match="on cpu"):
+            fn(x, w.cpu(), b)
+    xt = torch.zeros((2, 6, 4), device=cuda)
+    wt = torch.zeros((3, 4, 5), device=cuda)
+    bt = torch.zeros((5,), device=cuda)
+    with pytest.raises(ValueError, match="unknown activation"):
+        toeplitz.toeplitz_fwd(xt, wt, bt, "gelu")
+    with pytest.raises(ValueError, match="passes"):
+        toeplitz.toeplitz_fwd(xt.bfloat16(), wt.bfloat16(), bt.bfloat16(),
+                              "none", 4, 0, 4)
+    with pytest.raises(ValueError, match="shift"):
+        toeplitz.toeplitz_fwd(xt, wt, bt, "none", 4, 3)
+    with pytest.raises(ValueError, match="shape"):
+        toeplitz.toeplitz_fwd(xt, torch.zeros((3, 5, 5), device=cuda), bt)
+    with pytest.raises(ValueError, match="contiguous"):
+        toeplitz.toeplitz_fwd(torch.zeros((2, 4, 6), device=cuda)
+                              .transpose(1, 2), wt, bt)
+    with pytest.raises(TypeError, match="dtype"):
+        toeplitz.toeplitz_fwd(xt, wt.bfloat16(), bt)
+
+
+def test_deep_model_kernels_match_plain_backend_on_the_card(cuda):
+    """A deep model wide enough for the k-split gate: one fp32 step through
+    the kernels against the plain backend, same noise (gradient norms, as
+    Adam's first step turns rounding of a near-zero gradient into ±lr)."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves
+
+    cfg = Config()
+    cfg.vae.arch, cfg.vae.hidden_dims = "deep", "1024,512"
+    cfg.audio.segment_length, cfg.vae.latent_dim = 1024, 32
+    cfg.tpu.precision = "highest"
+    x = torch.rand((1024, 1024), device=cuda) * 2 - 1
+
+    def noise(step, i, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(1))
+
+    mus = {}
+    for backend in ("pallas", "xla"):
+        cfg.tpu.backend = backend
+        model = build_model(cfg, cuda)
+        state = TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), 0)
+        n_k = ops.linear_ksplit_fwd.launches
+        state, m = build_train_step(model, cfg, noise=noise)(state, x)
+        if backend == "pallas":
+            # the encoder's 1024->1024 and 1024->512 and the decoder's
+            # 1024->1024 take the k-split kernel
+            assert ops.linear_ksplit_fwd.launches == n_k + 3
+        mus[backend] = torch.cat([t.ravel() for t in leaves(state.mu)])
+    err = float((mus["pallas"] - mus["xla"]).norm() / mus["xla"].norm())
+    assert err <= 1e-4

@@ -18,7 +18,9 @@ SLICE = [
     "config.schema", "config.ini", "config.workspace", "io.wavio",
     "io.resample", "data.framing", "data.corpus", "data.datasets",
     "data.validate", "data.loader", "models.vae", "models.registry",
+    "models.variants", "tree",
     "ops.mlp", "ops.quant", "ops.rng", "ops.loss", "ops._build",
+    "ops.linear", "ops.toeplitz", "ops.conv",
     "parallel.step",
     "parallel.resident", "train.state",
     "train.optim", "train.checkpoint", "train.loop", "train.interrupt",
