@@ -104,6 +104,26 @@ any failure exits non-zero with a traceback (no phase is caught):
    launches (the first layer's input is the batch, which needs no
    gradient) and 3 whole-k linear launches; step time of both.
 
+3f. (run with the other kernel phases) the probes' kernels: ``dw_fused`` and
+   ``dx_fused`` in fp32 and bf16, relu / tanh / none, at the four large
+   layers of ``configs/deep_wide.ini`` at batch 4096 and at ragged sizes
+   (batch 4097 and 1000, k and n no multiples of a tile), against their
+   plain versions, equal bits on a second launch, timed at 4096 x 4096
+   beside the plain backward's three products; ``leaf_update`` against its
+   plain version BIT FOR BIT on leaves of 1, 255, 256 and 4,000,003
+   elements, a 3-D leaf and an unaligned view, in place;
+   ``fused_adam_apply`` against ``Adam.update`` bit for bit over 5 coupled
+   steps on the deep model's tree; its time on the tree's largest leaf and
+   over the whole tree beside ``torch.optim.Adam(fused=True)``, which is
+   timed here and used nowhere in the package;
+10. the probes through their ``main()`` at full width: ``deep_bwd --all``
+   in bf16 (and the largest layer in fp32), ``deep_step`` on the deep
+   model, ``adam_fusion`` on deep/``xla``, deep/``pallas`` and
+   dense/``pallas``: every parity passes, ``dw_fused`` and ``dx_fused``
+   launch once a fused backward, ``leaf_update`` 22 times a deep step, 10 a
+   dense one and never under the plain optimizer, and the two optimizers'
+   states are equal bit for bit.
+
 ``launches`` in the kernel line: the wrapper's count over the path where
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
 (phase 4); bf16 forward kernels: the training run of phase 5 (its fp32
@@ -122,7 +142,9 @@ against its plain version); the sampler: the resident training run;
 bf16 ``linear_ksplit_fwd`` / ``linear_fwd``: the deep training runs of
 phase 8; fp32 ``linear_ksplit_fwd``: the deep ``highest`` step; fp32
 ``linear_fwd``: the deep server; ``toeplitz_fwd``: the op-level conv1d step
-of phase 9 in bf16 and at ``highest``.
+of phase 9 in bf16 and at ``highest``; ``dw_fused`` / ``dx_fused``: the
+``deep_bwd`` probe runs of phase 10 in each dtype; ``leaf_update``: the
+three ``adam_fusion`` probe runs of phase 10.
 ``bound_ms`` is the larger of bytes moved (each input read once, each
 output written once) over 3.35 TB/s and operations over the peak of the
 operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
@@ -202,6 +224,19 @@ CONV_LAYERS = [("conv", 1024, 1, 32), ("conv", 256, 32, 64),
                ("conv", 64, 64, 128), ("conv", 16, 128, 256),
                ("convT", 4, 256, 128), ("convT", 16, 128, 64),
                ("convT", 64, 64, 32), ("convT", 256, 32, 1)]
+
+
+# phase 3f.  dw_fused / dx_fused hold VARIANT_REL against their plain
+# versions (the same products in another order; bf16: one flipped ulp of dx)
+# and equal bits on a second launch; leaf_update holds no tolerance: equal
+# bits.  Shapes: the deep model's four large layers (k, n) at its batch, and
+# two ragged ones (batch, k, n).
+DEEP_LAYERS = ((4096, 4096), (4096, 2048), (2048, 1024), (1024, 512))
+RAGGED_LAYERS = ((4097, 1088, 544), (1000, 70, 33))
+ADAM_LEAVES = ((1,), (255,), (256,), (4_000_003,), (7, 33, 5))
+ADAM_BYTES = 28              # an element: read p, g, m, v; write p, m, v
+ADAM_OPS = 14                # an element: 6 mul, 3 add, 3 div, 1 sqrt, +eps
+DEEP_LEAVES, DENSE_LEAVES = 22, 10
 
 
 # roofline peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
@@ -2098,6 +2133,296 @@ def phase_variant_kernels():
     return rows
 
 
+def phase_probe_kernels():
+    """Phase 3f: dw_fused and dx_fused against their plain versions,
+    leaf_update and fused_adam_apply against theirs bit for bit."""
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import adam, linear_bwd
+    from rawaudiovae_kelsey_tpu_torch.probes import (
+        adam_fusion,
+        common,
+        deep_bwd,
+    )
+    from rawaudiovae_kelsey_tpu_torch.train import Adam, TrainState
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves, unflatten
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41)
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    src = "rawaudiovae_kelsey_tpu_torch/csrc/linear_bwd.cu"
+    tpu = "benchmarks/deep_bwd_probe.py"
+    rows = {}
+
+    def operands(batch, k, n, dt):
+        return deep_bwd.operands(batch, k, n, dt, dev, g)
+
+    def held(name, kind, got, want, what):
+        check(got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.isfinite(got).all()),
+              f"{name}[{kind}] {what}: shape/dtype {tuple(got.shape)} "
+              f"{got.dtype} vs {tuple(want.shape)} {want.dtype}, or "
+              "non-finite")
+        e = rel_err([got], [want])
+        check(e <= VARIANT_REL[kind], f"{name}[{kind}] {what}: relative "
+              f"error {e:.3e} > {VARIANT_REL[kind]:.3e}")
+        return e, max_err([got.float()], [want.float()])
+
+    shapes = [(DEEP_BATCH, k, n) for k, n in DEEP_LAYERS] + list(
+        RAGGED_LAYERS)
+    for kind, dt in dtypes.items():
+        worst = {"dw_fused": (0.0, 0.0), "dx_fused": (0.0, 0.0)}
+        for batch, k, n in shapes:
+            for act in ("relu", "tanh", "none"):
+                x, y, dy, w = operands(batch, k, n, dt)
+                what = f"{batch}x{k}->{n} {act}"
+                before = (linear_bwd.dw_fused.launches,
+                          linear_bwd.dx_fused.launches)
+                dw, db = linear_bwd.dw_fused(x, y, dy, act)
+                dx = linear_bwd.dx_fused(y, dy, w, act)
+                dw2, db2 = linear_bwd.dw_fused(x, y, dy, act)
+                dx2 = linear_bwd.dx_fused(y, dy, w, act)
+                torch.cuda.synchronize()
+                check((linear_bwd.dw_fused.launches,
+                       linear_bwd.dx_fused.launches)
+                      == (before[0] + 2, before[1] + 2),
+                      f"{what}: a launch was not counted")
+                check(torch.equal(dw, dw2) and torch.equal(db, db2)
+                      and torch.equal(dx, dx2),
+                      f"{kind} {what}: a second launch gave other bits")
+                want_dw, want_db = linear_bwd.dw_fused_ref(x, y, dy, act)
+                e_dw = held("dw_fused", kind, dw, want_dw, what + ", dW")
+                e_db = held("dw_fused", kind, db, want_db, what + ", db")
+                e_dx = held("dx_fused", kind, dx,
+                            linear_bwd.dx_fused_ref(y, dy, w, act), what)
+                worst["dw_fused"] = tuple(
+                    max(v) for v in zip(worst["dw_fused"], e_dw, e_db))
+                worst["dx_fused"] = tuple(
+                    max(v) for v in zip(worst["dx_fused"], e_dx))
+        for name, (rel, _) in worst.items():
+            print(f"  {name + '[' + kind + ']':<24} {len(shapes)} shapes x 3 "
+                  f"activations: max |kernel - plain| / max|plain| = "
+                  f"{rel:.3e} (tolerance {VARIANT_REL[kind]:.3e}); equal "
+                  "bits on a second launch")
+        # timed at the deep model's largest layer, relu
+        k, n = DEEP_LAYERS[0]
+        x, y, dy, w = operands(DEEP_BATCH, k, n, dt)
+        flops = 2 * DEEP_BATCH * k * n
+        cases = {
+            "dw_fused": (lambda: linear_bwd.dw_fused(x, y, dy, "relu"),
+                         lambda: linear_bwd.dw_fused_ref(x, y, dy, "relu"),
+                         f"{tpu}:83",
+                         nbytes(x, y, dy) + 4 * (k * n + n)),
+            "dx_fused": (lambda: linear_bwd.dx_fused(y, dy, w, "relu"),
+                         lambda: linear_bwd.dx_fused_ref(y, dy, w, "relu"),
+                         f"{tpu}:134", nbytes(y, dy, w, x)),
+        }
+        for name, (kernel, plain, replaces, moved) in cases.items():
+            ms, plain_ms, t_kern, t_plain = time_both(kernel, plain, 5)
+            bd = bound(flops, moved, kind)
+            print(f"  {name + '[' + kind + ']':<24} {DEEP_BATCH}x{k}->{n}: "
+                  f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                  f"plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ("
+                  f"{bd['bound_by']}) (runs {t_kern} / {t_plain})")
+            rows[f"{name}[{kind}]"] = {
+                "name": f"{name}[{kind}]", "route": "cuda", "source": src,
+                "replaces": replaces, "max_abs_err": worst[name][1],
+                "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
+        # context: the backward the deep model takes today, and its parts
+        da = linear_bwd.cotangent("relu", y, dy)
+        wt, xt = w.t(), x.t()
+        parts = {"plain_bwd": lambda: linear_bwd.plain_bwd(x, y, dy, w,
+                                                           "relu"),
+                 "da @ w.t()": lambda: da @ wt, "x.t() @ da": lambda: xt @ da,
+                 "da.sum(0)": lambda: da.sum(0)}
+        print(f"  {'plain backward[' + kind + ']':<24} {DEEP_BATCH}x{k}->{n}: "
+              + ", ".join(f"{label} {cuda_time_ms(fn, 10):.4f} ms"
+                          for label, fn in parts.items()))
+
+    # ---- the one-pass Adam: equal bits, not a tolerance
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, lr=1e-4)
+
+    def adam_operands(shape):
+        p = torch.randn(shape, generator=g, device=dev)
+        grad = torch.randn(shape, generator=g, device=dev) * 0.1
+        m = torch.randn(shape, generator=g, device=dev) * 0.01
+        v = torch.rand(shape, generator=g, device=dev) * 1e-3
+        return p, grad, m, v
+
+    def bits_differ(a, b):
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+    bc = [torch.full((), c, device=dev)
+          for c in adam.bias_corrections(0.9, 0.999, 3)]
+    unaligned = torch.empty(4 * 1001, device=dev)
+    cases = [(str(shape), adam_operands(shape)) for shape in ADAM_LEAVES]
+    # four views that start 4 bytes past a 16-byte boundary
+    cases.append(("(1000,) unaligned", tuple(
+        unaligned[i * 1001 + 1:(i + 1) * 1001].copy_(t)
+        for i, t in enumerate(adam_operands((1000,))))))
+    for label, (p, grad, m, v) in cases:
+        want = [t.clone() for t in (p, grad, m, v)]
+        ptrs = [t.data_ptr() for t in (p, m, v)]
+        before = adam.leaf_update.launches
+        adam.leaf_update(p, grad, m, v, *bc, **hyper)
+        torch.cuda.synchronize()
+        check(adam.leaf_update.launches == before + 1,
+              "leaf_update: the launch was not counted")
+        adam.leaf_update_ref(*want, *bc, **hyper)
+        check(ptrs == [t.data_ptr() for t in (p, m, v)]
+              and torch.equal(grad, want[1]),
+              f"leaf_update {label}: not in place, or the gradient changed")
+        diff = [bits_differ(a, b) for a, b in zip((p, m, v),
+                                                  (want[0], *want[2:]))]
+        check(diff == [0, 0, 0] and bool(torch.isfinite(p).all()),
+              f"leaf_update {label}: {diff} elements of p, m, v differ from "
+              "the plain version's bits")
+    print(f"  {'leaf_update[fp32]':<24} {len(cases)} leaves "
+          f"({', '.join(label for label, _ in cases)}): p, m and v equal the "
+          "plain version's bit for bit, in place")
+
+    cfg = common.build_cfg("deep", DEEP_BATCH, "bfloat16", "xla")
+    model = build_model(cfg, dev)
+    plain_state = TrainState.create(
+        model.init(torch.Generator().manual_seed(5)), 0)
+    fused_state = plain_state.clone()
+    n_params = sum(t.numel() for t in leaves(plain_state.params))
+    check(len(leaves(plain_state.params)) == DEEP_LEAVES
+          and n_params == 55_987_712,
+          f"the deep tree has {len(leaves(plain_state.params))} leaves, "
+          f"{n_params} parameters")
+    opt = Adam(learning_rate=1e-4)
+    before = adam.leaf_update.launches
+    for step in range(5):
+        grads = unflatten(plain_state.params, [
+            torch.randn(t.shape, generator=g, device=dev)
+            * 10.0 ** (step % 3 - 2) for t in leaves(plain_state.params)])
+        opt.update(plain_state, grads)
+        adam.fused_adam_apply(opt, fused_state, grads)
+    torch.cuda.synchronize()
+    check(adam.leaf_update.launches == before + 5 * DEEP_LEAVES,
+          "fused_adam_apply: not one launch a leaf")
+    bad = adam_fusion.differing_leaves(plain_state, fused_state)
+    check(not bad and plain_state.count == fused_state.count == 5,
+          f"fused_adam_apply differs from Adam.update in {bad}")
+    print(f"  {'fused_adam_apply':<24} 5 coupled steps on the deep tree ("
+          f"{DEEP_LEAVES} leaves, {n_params:,} parameters): params, mu and "
+          "nu equal Adam.update's bit for bit")
+
+    # timed on the tree's largest leaf (the row) and over the whole tree,
+    # beside PyTorch's own fused Adam: a yardstick, used nowhere in the port
+    def torch_fused(params, grads):
+        params = [torch.nn.Parameter(t.clone()) for t in params]
+        for t, grad in zip(params, grads):
+            t.grad = grad
+        lib = torch.optim.Adam(params, lr=1e-4, fused=True)
+        return lib.step
+
+    p, grad, m, v = adam_operands((4096, 4096))
+    ms, plain_ms, t_kern, t_plain = time_both(
+        lambda: adam.leaf_update(p, grad, m, v, *bc, **hyper),
+        lambda: adam.leaf_update_ref(p, grad, m, v, *bc, **hyper), 20)
+    lib_ms = cuda_time_ms(torch_fused([p], [grad]), 20)
+    bd = bound(ADAM_OPS * p.numel(), ADAM_BYTES * p.numel(), "fp32")
+    print(f"  {'leaf_update[fp32]':<24} a 4096x4096 leaf: kernel {ms:.4f} ms "
+          f"({ADAM_BYTES * p.numel() / ms / 1e9:.2f} TB/s), plain "
+          f"{plain_ms:.4f} ms, torch.optim.Adam(fused=True) {lib_ms:.4f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) (runs {t_kern} "
+          f"/ {t_plain})")
+    rows["leaf_update[fp32]"] = {
+        "name": "leaf_update[fp32]", "route": "cuda",
+        "source": "rawaudiovae_kelsey_tpu_torch/csrc/adam.cu",
+        "replaces": "benchmarks/adam_fusion_ab.py:93", "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": lib_ms}
+    grads = unflatten(plain_state.params, [
+        torch.randn(t.shape, generator=g, device=dev) * 0.1
+        for t in leaves(plain_state.params)])
+    tree_ms, tree_plain, t_kern, t_plain = time_both(
+        lambda: adam.fused_adam_apply(opt, fused_state, grads),
+        lambda: opt.update(plain_state, grads), 10)
+    tree_lib = cuda_time_ms(torch_fused(leaves(plain_state.params),
+                                        leaves(grads)), 10)
+    tree_bound = ADAM_BYTES * n_params / HBM_BYTES_S * 1e3
+    print(f"  {'fused_adam_apply':<24} the deep tree, one update: "
+          f"{DEEP_LEAVES} leaf_update launches {tree_ms:.4f} ms, Adam.update "
+          f"{tree_plain:.4f} ms, torch.optim.Adam(fused=True) "
+          f"{tree_lib:.4f} ms, bound {tree_bound:.4f} ms (bytes) (runs "
+          f"{t_kern} / {t_plain})")
+    return rows
+
+
+def phase_probes(card: str):
+    """Phase 10: the three probes through their main() at full width."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.probes import (
+        adam_fusion,
+        deep_bwd,
+        deep_step,
+    )
+
+    def counted(run):
+        for w in ops.KERNEL_WRAPPERS:
+            w.launches = 0
+        out = run()
+        check(out["device"] == card, f"the probe ran on {out['device']!r}, "
+              f"not on {card!r}")
+        return out, {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+
+    launches = {}
+    for kind, argv in (("bf16", ["--all"]),
+                       ("fp32", ["--dtype", "float32", "--launches", "2"])):
+        out, counts = counted(lambda: deep_bwd.main(argv))
+        want = DEEP_LAYERS if kind == "bf16" else DEEP_LAYERS[:1]
+        check([(s["k"], s["n"]) for s in out["shapes"]] == list(map(tuple,
+                                                                    want))
+              and all(s["batch"] == DEEP_BATCH for s in out["shapes"]),
+              f"deep_bwd {argv} ran other shapes")
+        for s in out["shapes"]:
+            check(s["launches_per_fused_bwd"] == {"dw_fused": 1,
+                                                  "dx_fused": 1},
+                  f"a fused backward launched {s['launches_per_fused_bwd']}")
+        # a shape: parity, the count above, then two warm-up and pairs x
+        # launches timed calls of the pair and of each kernel alone
+        n = len(want) * (2 + 2 * (2 + out["pairs"] * out["launches"]))
+        check(counts["dw_fused"] == counts["dx_fused"] == n,
+              f"deep_bwd {argv}: {counts['dw_fused']} + {counts['dx_fused']}"
+              f" launches, expected {n} each")
+        launches[kind] = counts
+
+    out, _ = counted(lambda: deep_step.main([]))
+    check(out["arch"] == "deep" and out["params"] == 55_987_712
+          and out["batch"] == DEEP_BATCH, "deep_step ran another model")
+    t = {k: v["median"] for k, v in out["ms"].items()}
+    check(all(np.isfinite(v) and v > 0 for v in t.values())
+          and t["adam"] >= out["adam_bound_ms"],
+          f"deep_step times {t} against the bound {out['adam_bound_ms']}")
+
+    leaf_launches = 0
+    for arch, backend, n_leaves in (("deep", "xla", DEEP_LEAVES),
+                                    ("deep", "pallas", DEEP_LEAVES),
+                                    ("dense", "pallas", DENSE_LEAVES)):
+        out, counts = counted(lambda: adam_fusion.main(
+            ["--arch", arch, "--backend", backend]))
+        check(out["states_equal"] and out["leaves"] == n_leaves
+              and out["batch"] == DEEP_BATCH and out["backend"] == backend,
+              f"adam_fusion {arch}/{backend}: {out}")
+        check(out["leaf_update_launches_per_step"] == {"plain": 0,
+                                                       "fused": n_leaves},
+              f"adam_fusion {arch}/{backend}: leaf_update launches a step "
+              f"{out['leaf_update_launches_per_step']}")
+        check(counts["leaf_update"] == n_leaves * out["steps_each"],
+              f"adam_fusion {arch}/{backend}: {counts['leaf_update']} "
+              f"launches over {out['steps_each']} steps")
+        if backend == "pallas":
+            used = ops.DEEP_KERNELS if arch == "deep" else \
+                ops.TRAINING_KERNELS
+            for w in used:
+                check(counts[w.__name__] > 0, f"adam_fusion {arch}/pallas "
+                      f"never launched {w.__name__}")
+        leaf_launches += counts["leaf_update"]
+    launches["fp32"] = dict(launches["fp32"], leaf_update=leaf_launches)
+    return launches
+
+
 def step_pair(cfg, ckpt, x, models, tol, label):
     """One step from checkpoint ``ckpt`` on batch ``x`` with each of the two
     models of ``models`` ({name: build(cfg)}), same noise; the first is the
@@ -2473,6 +2798,11 @@ def main() -> int:
     with torch.no_grad():
         variant_rows = phase_variant_kernels()
 
+    print("phase 3f: the probes' kernels (dw_fused, dx_fused, leaf_update) "
+          "against their plain versions")
+    with torch.no_grad():
+        probe_rows = phase_probe_kernels()
+
     print("phase 4: the serving path (configs/default.ini)")
     cfg = load_config(ROOT / "configs" / "default.ini")
     check(cfg.tpu.backend == "pallas" and cfg.vae.arch == "dense"
@@ -2547,6 +2877,8 @@ def main() -> int:
             Path(tmp), audio, card)
         print("phase 9: the conv1d model (configs/conv1d.ini)")
         conv_launches = phase_conv(Path(tmp), card)
+    print("phase 10: the probes (deep_bwd, deep_step, adam_fusion)")
+    probe_launches = phase_probes(card)
     # the 3-pass chains against the same products in one fp32 pass: the
     # fp32 split kernels launch the chains' GEMMs without the split
     ms = {k: r["ms"] for k, r in train_rows.items()}
@@ -2612,6 +2944,13 @@ def main() -> int:
         row["launches"] = counts[name]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(variant_rows)
+    # the probes' kernels: the deep_bwd runs in each dtype, the adam_fusion
+    # runs
+    for key, row in probe_rows.items():
+        name, kind = key[:-1].split("[")
+        row["launches"] = probe_launches[kind][name]
+        check(row["launches"] > 0, f"{key}: no launch on its main path")
+    rows.update(probe_rows)
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,12 @@ Commands:
   serve     HTTP inference service (batched encode/decode/reconstruct) on a
             CUDA device:
             serve --run <workdir> [--quantize] [--device cuda] [--port 8422]
+  validate  dataset audit of a wav folder (needs no device):
+            validate <folder> [--sr 44100] [--deep]
 
 ``train``, ``stream``, ``eval`` and ``serve`` refuse to start without a CUDA
-device unless ``--device cpu`` is given.  The other commands of ``python -m
-rawaudiovae_kelsey_tpu`` (generate, interpolate, export, bench, ...) are not
-ported yet.
+device unless ``--device cpu`` is given.  Not ported yet, of the commands of
+``python -m rawaudiovae_kelsey_tpu``: tutorial, export, som.
 """
 
 from __future__ import annotations
@@ -67,6 +68,23 @@ def serve(argv) -> None:
     ).serve_forever()
 
 
+def validate(argv) -> None:
+    import argparse
+    from pathlib import Path
+
+    from rawaudiovae_kelsey_tpu_torch.data.validate import validate_dataset
+
+    ap = argparse.ArgumentParser(prog="validate")
+    ap.add_argument("folder", type=Path)
+    ap.add_argument("--sr", type=int, default=44100)
+    ap.add_argument("--deep", action="store_true",
+                    help="full decode audit (silent/clipped/non-finite)")
+    args = ap.parse_args(argv)
+    report = validate_dataset(args.folder, args.sr, deep=args.deep)
+    print(report.summary())
+    sys.exit(0 if report.ok else 1)
+
+
 def main() -> None:
     argv = sys.argv[1:]
     if not argv or argv[0] in ("-h", "--help"):
@@ -87,6 +105,8 @@ def main() -> None:
         from rawaudiovae_kelsey_tpu_torch.eval.cli import main as evaluate
 
         evaluate(rest)
+    elif cmd == "validate":
+        validate(rest)
     else:
         print(f"unknown command {cmd!r}\n{__doc__}")
         sys.exit(2)

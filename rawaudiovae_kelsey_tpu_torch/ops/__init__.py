@@ -6,7 +6,10 @@ the backward kernels of the training step (the bf16 "split" set, the fp32
 loss reduction and the in-kernel Gaussian sampler.  For the model variants:
 the fused linear layer in its whole-k and k-split forms (the deep MLP) and
 the block-Toeplitz product with the two convolutions mapped onto it (the
-conv1d model).  Sources in ``csrc/``; built by ``ops/_build.py``."""
+conv1d model).  Beside them the three kernels that no trainer dispatches
+and ``probes/`` measures: the fused backward of one linear layer
+(``dw_fused``, ``dx_fused``) and the one-pass Adam update of a leaf
+(``leaf_update``).  Sources in ``csrc/``; built by ``ops/_build.py``."""
 
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
     Decode,
@@ -75,6 +78,20 @@ from rawaudiovae_kelsey_tpu_torch.ops.conv import (  # noqa: F401
     conv_decode_pallas,
     conv_encode_pallas,
 )
+from rawaudiovae_kelsey_tpu_torch.ops.linear_bwd import (  # noqa: F401
+    dw_fused,
+    dw_fused_ref,
+    dx_fused,
+    dx_fused_ref,
+    fused_bwd,
+    plain_bwd,
+)
+from rawaudiovae_kelsey_tpu_torch.ops.adam import (  # noqa: F401
+    FusedAdam,
+    fused_adam_apply,
+    leaf_update,
+    leaf_update_ref,
+)
 
 # the kernels each main path launches, and all of them
 SERVING_KERNELS = (encoder_fwd, decoder_fwd, quantized_decoder_fwd)
@@ -90,8 +107,11 @@ FULL_KERNELS = (encoder_fwd, decoder_fwd, enc_bwd_full, dec_bwd_full)
 DEEP_KERNELS = (linear_ksplit_fwd, linear_fwd)
 # the conv1d model's op-level step (the heads and dec_in are linear layers)
 CONV_KERNELS = (toeplitz_fwd, linear_fwd)
+# the probes' kernels (probes/deep_bwd.py, probes/adam_fusion.py)
+PROBE_KERNELS = (dw_fused, dx_fused, leaf_update)
 KERNEL_WRAPPERS = (encoder_fwd, decoder_fwd, quantized_decoder_fwd,
                    enc_bwd_dw1, grad_accum2, dec_bwd_fused, grad_accum,
                    matmul_nt, matmul_nt_mask, matmul_nt2_mask,
                    reparameterize_prng, enc_bwd_full, dec_bwd_full,
-                   loss_sums, linear_ksplit_fwd, linear_fwd, toeplitz_fwd)
+                   loss_sums, linear_ksplit_fwd, linear_fwd, toeplitz_fwd,
+                   dw_fused, dx_fused, leaf_update)

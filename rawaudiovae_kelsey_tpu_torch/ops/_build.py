@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-_L = ctypes.c_longlong
+_L, _F = ctypes.c_longlong, ctypes.c_float
 # C entry point → argument types (pointers and the stream as c_void_p: a
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
@@ -52,6 +52,9 @@ _SIGNATURES = {
     "rvk_linear_fwd": [_P] * 4 + [_I] * 5 + [_P],
     "rvk_linear_ksplit_fwd": [_P] * 5 + [_I] * 7 + [_P],
     "rvk_toeplitz_fwd": [_P] * 4 + [_I] * 10 + [_P],
+    "rvk_dw_fused": [_P] * 5 + [_I] * 5 + [_P],
+    "rvk_dx_fused": [_P] * 4 + [_I] * 5 + [_P],
+    "rvk_leaf_update": [_P] * 6 + [_L] + [_F] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -135,7 +138,8 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` on ``device``'s current stream.  Tensor
-    arguments pass as device pointers, ints as ints; the caller has checked
+    arguments pass as device pointers, ints and floats as they are (a float
+    is rounded to the fp32 the entry point takes); the caller has checked
     device, dtype, shape and contiguity.  Raises if the launch failed."""
     lib = library()
     with torch.cuda.device(device):

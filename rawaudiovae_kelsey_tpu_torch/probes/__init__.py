@@ -1,0 +1,16 @@
+"""Probes: small measuring programs of the port, each the counterpart of one
+of the JAX repository's probe scripts under ``benchmarks/``.
+
+* ``deep_bwd``    (``benchmarks/deep_bwd_probe.py``): the fused backward of
+  one large linear layer (``dw_fused`` + ``dx_fused``) against the plain one;
+* ``deep_step``   (``benchmarks/deep_step_probe.py``): one train step split
+  into full / grads / Adam beside its analytic bounds;
+* ``adam_fusion`` (``benchmarks/adam_fusion_ab.py``): the full train step
+  with the plain Adam against the one-pass ``leaf_update``.
+
+Run as ``python -m rawaudiovae_kelsey_tpu_torch.probes.<name>``.  Each runs
+on a CUDA device and refuses to start without one unless ``--device cpu`` is
+given (the plain versions, for checking the program, not for timing),
+prints its lines and ends with one JSON line of results that names the
+device.  ``common`` holds the configurations and the timing they share.
+"""

@@ -41,8 +41,11 @@ from rawaudiovae_kelsey_tpu_torch.train.interrupt import GracefulInterrupt
 from rawaudiovae_kelsey_tpu_torch.tree import leaves as tree_leaves
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise for every setting of the JAX trainer this port lacks."""
+def check_supported(cfg: Config,
+                    device: torch.device | str = "cuda") -> None:
+    """Raise for every setting of the JAX trainer this port lacks, and say
+    so when a default means less here than there: ``data_parallel = 0`` is
+    "all devices on the data axis" in the JAX package, one device here."""
     t = cfg.tpu
     unported = {
         "multihost": t.multihost,
@@ -56,6 +59,12 @@ def check_supported(cfg: Config) -> None:
                 f"[tpu] {what} is not ported to the PyTorch package yet "
                 "(ROADMAP.md queue A); the JAX package rawaudiovae_kelsey_tpu "
                 "runs it")
+    if (t.data_parallel == 0 and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() > 1):
+        print(f"[tpu] data_parallel = 0: {torch.cuda.device_count()} CUDA "
+              f"devices are visible and one is used ({torch.device(device)}"
+              "); training across devices is not ported to the PyTorch "
+              "package yet (ROADMAP.md queue A)")
 
 
 def train(cfg: Config, verbose: bool = True,
@@ -64,7 +73,7 @@ def train(cfg: Config, verbose: bool = True,
     datapath = cfg.dataset.datapath_path
     if not datapath.exists():
         raise FileNotFoundError(datapath.resolve())
-    check_supported(cfg)
+    check_supported(cfg, device)
     ctx = L.setup(cfg, device)
     try:
         with GracefulInterrupt() as stop:

@@ -59,7 +59,7 @@ def train(cfg: Config, verbose: bool = True,
     datapath = cfg.dataset.datapath_path
     if not datapath.exists():
         raise FileNotFoundError(datapath.resolve())
-    check_supported(cfg)
+    check_supported(cfg, device)
     ctx = L.setup(cfg, device)
     try:
         with tee_stdout(ctx.workspace.console_log_path), \

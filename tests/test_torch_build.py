@@ -58,7 +58,7 @@ def test_build_compiles_every_source_once_and_caches(tmp_path, monkeypatch):
     assert "-shared" in link
     assert len([a for a in link if a.endswith(".o")]) == len(sources)
     for src in ("mlp.cu", "quant.cu", "bwd.cu", "rng.cu", "loss.cu",
-                "linear.cu", "toeplitz.cu"):
+                "linear.cu", "toeplitz.cu", "linear_bwd.cu", "adam.cu"):
         assert src in sources
     assert _build.build() == lib                # cached: no second compile
     assert len(log.read_text().splitlines()) == len(calls)
@@ -87,11 +87,35 @@ def test_every_bound_entry_point_is_exported_by_a_source():
             assert pointer == (ctype is _build._P), (name, param)
             if param.startswith("long long"):
                 assert ctype is _build._L, (name, param)
+            assert param.startswith("float ") == (ctype is _build._F), \
+                (name, param)
     for name in ("rvk_enc_bwd_full", "rvk_dec_bwd_full", "rvk_loss_sums",
                  "rvk_linear_fwd", "rvk_linear_ksplit_fwd",
-                 "rvk_toeplitz_fwd"):
+                 "rvk_toeplitz_fwd", "rvk_dw_fused", "rvk_dx_fused",
+                 "rvk_leaf_update"):
         assert name in exported
     assert "const char* rvk_error_string(int code)" in text
+
+
+def test_every_wrapper_names_a_bound_entry_point():
+    """Each kernel wrapper of ``ops`` launches entry points the loader
+    binds, and the three probe kernels are among the wrappers."""
+    import inspect
+    import re
+
+    from rawaudiovae_kelsey_tpu_torch import ops
+
+    names = {w.__name__ for w in ops.KERNEL_WRAPPERS}
+    assert {"dw_fused", "dx_fused", "leaf_update"} <= names
+    assert set(ops.PROBE_KERNELS) <= set(ops.KERNEL_WRAPPERS)
+    for w in ops.KERNEL_WRAPPERS:
+        launched = re.findall(r'launch\(\s*"(rvk_\w+)"',
+                              inspect.getsource(w))
+        assert launched, w.__name__
+        assert set(launched) <= set(_build._SIGNATURES), w.__name__
+        assert w.launches == 0 or isinstance(w.launches, int)
+    assert _build._SIGNATURES["rvk_leaf_update"] == (
+        [_build._P] * 6 + [_build._L] + [_build._F] * 6 + [_build._P])
 
 
 def test_build_key_follows_the_sources(tmp_path, monkeypatch):

@@ -801,3 +801,168 @@ def test_deep_model_kernels_match_plain_backend_on_the_card(cuda):
         mus[backend] = torch.cat([t.ravel() for t in leaves(state.mu)])
     err = float((mus["pallas"] - mus["xla"]).norm() / mus["xla"].norm())
     assert err <= 1e-4
+
+
+# ---- the probes' kernels: dw_fused, dx_fused (csrc/linear_bwd.cu) and
+# leaf_update (csrc/adam.cu).  The two products hold the tolerances of the
+# other GEMM kernels (fp32 1e-4, bf16 2^-6, of max|want|) and equal bits on a
+# second launch; the Adam kernel holds no tolerance: equal bits.
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2.0 ** -6)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("act", ["relu", "tanh", "none"])
+@pytest.mark.parametrize("shape", [(4096, 1024, 512), (4097, 1088, 544),
+                                   (1000, 70, 33), (1, 5, 3), (64, 64, 64)])
+def test_fused_linear_backward_matches_plain_versions(cuda, shape, act,
+                                                      dtype, tol):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear_bwd
+
+    batch, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(batch + k)
+    x = torch.randn((batch, k), generator=g, device=cuda).to(dtype)
+    y = torch.randn((batch, n), generator=g, device=cuda).to(dtype)
+    dy = (torch.randn((batch, n), generator=g, device=cuda) * 0.01).to(dtype)
+    w = (torch.randn((k, n), generator=g, device=cuda) * 0.01).to(dtype)
+    before = (ops.dw_fused.launches, ops.dx_fused.launches)
+    dx, dw, db = linear_bwd.fused_bwd(x, y, dy, w, act)
+    again = linear_bwd.fused_bwd(x, y, dy, w, act)
+    torch.cuda.synchronize()
+    assert (ops.dw_fused.launches, ops.dx_fused.launches) == \
+        (before[0] + 2, before[1] + 2)
+    for a, b in zip((dx, dw, db), again):
+        assert torch.equal(a, b)
+    want_dw, want_db = linear_bwd.dw_fused_ref(x, y, dy, act)
+    want_dx = linear_bwd.dx_fused_ref(y, dy, w, act)
+    for got, want in ((dx, want_dx), (dw, want_dw), (db, want_db)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max()) + 1e-30
+    # and within the same tolerance of the backward the model takes today
+    for got, want in zip((dx, dw, db), linear_bwd.plain_bwd(x, y, dy, w,
+                                                            act)):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -6 * float(want.float().abs().max()) + 1e-30
+
+
+def test_fused_linear_backward_raises_on_what_it_does_not_take(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear_bwd
+
+    x = torch.zeros((8, 6), device=cuda)
+    y = torch.zeros((8, 4), device=cuda)
+    w = torch.zeros((6, 4), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        linear_bwd.dw_fused(x.double(), y.double(), y.double())
+    with pytest.raises(TypeError, match="dtype"):
+        linear_bwd.dw_fused(x, y.bfloat16(), y)
+    with pytest.raises(ValueError, match="shape"):
+        linear_bwd.dw_fused(x, y, y[:4])
+    with pytest.raises(ValueError, match="on cpu"):
+        linear_bwd.dw_fused(x, y.cpu(), y)
+    with pytest.raises(ValueError, match="contiguous"):
+        linear_bwd.dx_fused(y, y, torch.zeros((4, 6), device=cuda).t())
+    with pytest.raises(ValueError, match="shape"):
+        linear_bwd.dx_fused(y, y, w[:, :3].contiguous())
+    with pytest.raises(ValueError, match="unknown activation"):
+        linear_bwd.dx_fused(y, y, w, "gelu")
+
+
+@pytest.mark.parametrize("shape", [(1,), (255,), (256,), (1027,),
+                                   (4_000_003,), (7, 33, 5), (2048, 1024)])
+def test_leaf_update_equals_the_plain_version_bit_for_bit(cuda, shape):
+    from rawaudiovae_kelsey_tpu_torch.ops import adam
+
+    g = torch.Generator(device=cuda).manual_seed(len(shape))
+    p = torch.randn(shape, generator=g, device=cuda)
+    m = torch.zeros(shape, device=cuda)
+    v = torch.zeros(shape, device=cuda)
+    want = [p.clone(), m.clone(), v.clone()]
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, lr=1e-3)
+    before = ops.leaf_update.launches
+    for step in range(1, 6):
+        grad = torch.randn(shape, generator=g, device=cuda) \
+            * 10.0 ** (step % 3 - 2)
+        bc = [torch.full((), c, device=cuda)
+              for c in adam.bias_corrections(0.9, 0.999, step)]
+        adam.leaf_update(p, grad, m, v, *bc, **hyper)
+        adam.leaf_update_ref(want[0], grad, want[1], want[2], *bc, **hyper)
+    torch.cuda.synchronize()
+    assert ops.leaf_update.launches == before + 5
+    for got, ref in zip((p, m, v), want):
+        assert torch.equal(got, ref)
+        assert bool(torch.isfinite(got).all())
+
+
+def test_leaf_update_takes_unaligned_views_and_raises_on_the_rest(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import adam
+
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, lr=1e-3)
+    bc = [torch.full((), c, device=cuda) for c in (0.1, 0.001)]
+    buf = torch.rand(4 * 1001, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(0))
+    views = [buf[i * 1001 + 1:(i + 1) * 1001] for i in range(4)]
+    assert views[0].data_ptr() % 16 == 4
+    want = [t.clone() for t in views]
+    adam.leaf_update(*views, *bc, **hyper)
+    adam.leaf_update_ref(*want, *bc, **hyper)
+    for got, ref in zip(views, want):
+        assert torch.equal(got, ref)
+    t = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        adam.leaf_update(t, t.double(), t, t, *bc, **hyper)
+    with pytest.raises(ValueError, match="shape"):
+        adam.leaf_update(t, t[:2], t, t, *bc, **hyper)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam.leaf_update(t, torch.zeros((3, 4), device=cuda).t(), t, t, *bc,
+                         **hyper)
+    with pytest.raises(ValueError, match="on cpu"):
+        adam.leaf_update(t, t, t.cpu(), t, *bc, **hyper)
+    with pytest.raises(ValueError, match="on cpu"):
+        adam.leaf_update(t, t, t, t, bc[0].cpu(), bc[1], **hyper)
+    with pytest.raises(TypeError, match="expected a tensor"):
+        adam.leaf_update(t, t, t, t, 0.1, bc[1], **hyper)
+
+
+@pytest.mark.parametrize("arch,backend", [("dense", "pallas"),
+                                          ("deep", "xla"),
+                                          ("conv1d", "xla")])
+def test_fused_adam_in_the_train_step_equals_the_plain_one(cuda, arch,
+                                                           backend):
+    """Five coupled steps of the real step under each optimizer, small
+    widths: 0 ULP on params and both moments."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import adam
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import (
+        TrainState,
+        build_optimizer,
+    )
+    from rawaudiovae_kelsey_tpu_torch.tree import flatten, leaves
+
+    cfg = Config()
+    cfg.vae.arch, cfg.vae.latent_dim = arch, 16
+    cfg.audio.segment_length, cfg.vae.n_units = 256, 192
+    cfg.vae.hidden_dims, cfg.vae.conv_channels = "192,96", "4,8"
+    cfg.tpu.precision, cfg.tpu.backend = "bfloat16", backend
+    if arch == "conv1d":
+        torch.backends.cudnn.deterministic = True
+    model = build_model(cfg, cuda)
+    opt = build_optimizer(cfg)
+    first = TrainState.create(model.init(torch.Generator().manual_seed(0)), 0)
+    states = {"plain": first.clone(), "fused": first.clone()}
+    steps = {"plain": build_train_step(model, cfg, optimizer=opt),
+             "fused": build_train_step(model, cfg,
+                                       optimizer=adam.FusedAdam(opt))}
+    x = torch.rand((512, 256), device=cuda) * 2 - 1
+    before = ops.leaf_update.launches
+    for _ in range(5):
+        for name in states:
+            steps[name](states[name], x)
+    torch.cuda.synchronize()
+    assert ops.leaf_update.launches == before + 5 * len(leaves(first.params))
+    for field in ("params", "mu", "nu"):
+        for (name, a), (_, b) in zip(flatten(getattr(states["plain"], field)),
+                                     flatten(getattr(states["fused"], field))):
+            assert torch.equal(a, b), f"{field}.{name}"
+    assert states["plain"].count == states["fused"].count == 5

@@ -20,7 +20,9 @@ SLICE = [
     "data.validate", "data.loader", "models.vae", "models.registry",
     "models.variants", "tree",
     "ops.mlp", "ops.quant", "ops.rng", "ops.loss", "ops._build",
-    "ops.linear", "ops.toeplitz", "ops.conv",
+    "ops.linear", "ops.toeplitz", "ops.conv", "ops.linear_bwd", "ops.adam",
+    "probes.common", "probes.deep_bwd", "probes.deep_step",
+    "probes.adam_fusion",
     "parallel.step",
     "parallel.resident", "train.state",
     "train.optim", "train.checkpoint", "train.loop", "train.interrupt",
@@ -50,7 +52,8 @@ def test_importing_every_module_pulls_in_no_jax():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'rawaudiovae_kelsey_tpu'))\n"
+        "('jax', 'jaxlib', 'rawaudiovae_kelsey_tpu', 'bench', "
+        "'benchmarks'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -62,6 +65,14 @@ def test_importing_every_module_pulls_in_no_jax():
                          ids=lambda p: str(p.relative_to(REPO / PKG)))
 def test_no_source_imports_jax(path):
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|rawaudiovae_kelsey_tpu)(\.|\s|$)",
+        r"^\s*(import|from)\s+(jax|jaxlib|rawaudiovae_kelsey_tpu|bench|"
+        r"benchmarks)(\.|\s|$)",
         re.M)
     assert not pattern.findall(path.read_text())
+
+
+def test_chip_smoke_imports_no_jax_either():
+    text = (REPO / "chip_smoke.py").read_text()
+    assert not re.findall(
+        r"^\s*(import|from)\s+(jax|jaxlib|rawaudiovae_kelsey_tpu|bench|"
+        r"benchmarks)(\.|\s|$)", text, re.M)
