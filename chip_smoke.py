@@ -18,7 +18,12 @@ any failure exits non-zero with a traceback (no phase is caught):
    both times at 8192;
 3c. the fp32 input-gradient kernels (``matmul_nt``, ``matmul_nt_mask``,
    ``matmul_nt2_mask``) in fp32 and bf16 at batch 8192, 1000 and 1, with
-   the one PyTorch call ``a @ w.t()`` timed beside ``matmul_nt``; the
+   the one PyTorch call ``a @ w.t()`` timed beside ``matmul_nt``; bf16
+   ``matmul_nt`` on the tensor cores (``csrc/wgmma.cuh``) at its two
+   main-path shapes (dz, dx), at ragged shapes and at shapes TMA cannot
+   take (which keep the first version), against the plain version and the
+   first version, with which kernel ran printed per shape, and timed in
+   turns beside the first version, the plain version and ``a @ w.t()``; the
    in-kernel sampler at (4096, 256), (1000, 256) and (1, 256): its Philox
    words bit for bit, ``z``, determinism, both seed words, moments over a
    million samples, its backward; ``dx`` through ``mlp.encode``;
@@ -79,7 +84,10 @@ any failure exits non-zero with a traceback (no phase is caught):
 3e. (run with the other kernel phases) the variants' kernels in fp32 and
    bf16: ``linear_ksplit_fwd`` at 4096x4096->4096, 4096x1024->512 and a
    ragged 4097x1088->544 (more than one k slice each, equal bits on a
-   second launch), ``linear_fwd`` at 4096x512->256, 256x4096->4096 (the
+   second launch); its bf16 tensor-core form at the deep model's layers,
+   at ragged shapes and at shapes TMA cannot take, as in 3c, timed in
+   turns beside the first version, the plain version and ``torch.addmm``;
+   ``linear_fwd`` at 4096x512->256, 256x4096->4096 (the
    server's batch) and 96x384->640, both beside ``torch.addmm``;
    ``toeplitz_fwd`` through ``conv1d_pallas`` / ``conv1d_transpose_pallas``
    at the eight layers of ``configs/conv1d.ini``, batch 4096 (one also at
@@ -150,6 +158,10 @@ output written once) over 3.35 TB/s and operations over the peak of the
 operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
 NVIDIA's H100 SXM data sheet), at the shapes that were timed: those the
 path named above gives the kernel.
+
+The rows of bf16 ``matmul_nt`` and ``linear_ksplit_fwd`` describe the
+tensor-core kernel (``ms``) and carry the first version's time on the same
+inputs as ``first_version_ms``.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -239,6 +251,18 @@ ADAM_OPS = 14                # an element: 6 mul, 3 add, 3 div, 1 sqrt, +eps
 DEEP_LEAVES, DENSE_LEAVES = 22, 10
 
 
+# phases 3c / 3e, the bf16 tensor-core kernels.  Held within BF16_REL of
+# the plain version and of the first version (the same products summed in
+# another order: a flipped bf16 ulp), equal bits on a second launch.  Shapes
+# (rows, k, n): ragged ones TMA takes (k and n multiples of 8: rows against
+# the 128-row tile, k = 1096 against the 64-deep stage, k = 24 shorter than
+# one, n = 544, 520 and 8 against the tile width) and ones it does not (k or
+# n no multiple of 8), which must keep the first version.
+TC_RAGGED = ((4097, 1088, 544), (1000, 1096, 520), (1, 24, 8))
+NO_TMA = ((1000, 70, 33), (512, 1028, 520), (512, 1024, 516))
+TC_SOURCE = "rawaudiovae_kelsey_tpu_torch/csrc/wgmma.cuh"
+
+
 # roofline peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
@@ -290,6 +314,15 @@ def time_both(kernel, plain, iters: int):
     t_kern = [cuda_time_ms(kernel, iters), cuda_time_ms(kernel, iters)]
     t_plain.append(cuda_time_ms(plain, iters))
     return statistics.mean(t_kern), statistics.mean(t_plain), t_kern, t_plain
+
+
+def time_in_turns(fns: dict, iters: int):
+    """Mean ms of each of ``fns`` and each one's runs, timed in the order
+    given and then in reverse (``time_both``'s order for more than two)."""
+    runs = {name: [] for name in fns}
+    for name in (*fns, *reversed(fns)):
+        runs[name].append(cuda_time_ms(fns[name], iters))
+    return {name: statistics.mean(t) for name, t in runs.items()}, runs
 
 
 def max_err(got, want) -> float:
@@ -583,6 +616,37 @@ def phase_new_kernels(gen_params):
                                    20)
     print(f"  matmul_nt[fp32] at the dx shape, batch {TRAIN_BATCH}: error "
           f"{e:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # bf16 matmul_nt on the tensor cores: dz = dh3 @ w3ᵀ and dx = dh @ w1ᵀ at
+    # the microbatch, ragged shapes, shapes TMA cannot take
+    # (a generator of its own: the draws of the checks below stay as they
+    # were)
+    g_tc = torch.Generator(device=dev).manual_seed(56)
+
+    def nt_operands(rows, k, m, what):
+        a = torch.randn((rows, k), generator=g_tc, device=dev)
+        if what == "a = 0":
+            a.zero_()
+        a = a.to(torch.bfloat16)
+        wt = (torch.randn((m, k), generator=g_tc, device=dev) / k ** 0.5
+              ).to(torch.bfloat16)
+        return (lambda kernel: mlp.matmul_nt(a, wt, kernel=kernel),
+                lambda: mlp.matmul_nt_ref(a, wt), lambda: a @ wt.t(),
+                (a, wt))
+
+    dz = (TRAIN_BATCH, UNITS, LATENT)
+    dx_shape = (TRAIN_BATCH, UNITS, SEG)
+    err, times = hold_tensor_cores(
+        "matmul_nt", mlp.matmul_nt, nt_operands,
+        [(*dz, ""), (*dx_shape, ""), (256, 512, 256, "a = 0"),
+         *((*sh, "") for sh in TC_RAGGED + NO_TMA)],
+        [(*dz, ""), (*dx_shape, "")])
+    tensor_core_row(rows["matmul_nt[bf16]"], err, times[dz])
+    t = times[dx_shape]
+    print(f"  matmul_nt[bf16] at the dx shape, batch {TRAIN_BATCH}: kernel "
+          f"{t['tensor_cores']:.4f} ms, first version {t['cuda_cores']:.4f} "
+          f"ms, a @ w.t() {t['library']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']})")
 
     # the sampler
     name = "reparameterize_prng[fp32]"
@@ -1020,6 +1084,119 @@ def device_time_by_kernel(fn, top: int = 6) -> str:
               f"{rest / 1e3:.2f} ms")
 
 
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time of one ``fn()``: the kernels' own time in a
+    torch.profiler trace of ``calls`` calls.  For a kernel of a few tens of
+    microseconds the event-timed loop measures the host's launch rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        total += getattr(e, "cuda_time_total", 0.0) if us is None else us
+    return total / 1e3 / calls if total else float("nan")
+
+
+def host_us(fn, calls: int = 500) -> float:
+    """Host time of one ``fn()``, µs: the host clock around ``calls`` calls
+    queued behind one another, the device drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def hold_tensor_cores(name, op, make, shapes, timed):
+    """Phases 3c / 3e: the bf16 tensor-core form of wrapper ``op`` against
+    its plain version and its first version.
+
+    ``make(rows, k, n, what)`` → ``(call, plain, library, tensors)``:
+    ``call(kernel)`` runs the wrapper with that ``kernel=``, ``plain()`` its
+    plain version and ``library()`` the one PyTorch call, all on the same
+    operands ``tensors``.  ``shapes`` are held, ``timed`` are timed in
+    turns.  Returns the largest absolute error and, by shape, the times."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    def held(got, want, what):
+        check(got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.isfinite(got).all()),
+              f"{name}[bf16] {what}: shape, dtype or non-finite")
+        e = rel_err([got], [want])
+        check(e <= BF16_REL, f"{name}[bf16] {what}: relative error {e:.3e} "
+              f"> {BF16_REL:.3e}")
+        return e
+
+    err = 0.0
+    for rows, k, n, what in shapes:
+        call, plain, _, _ = make(rows, k, n, what)
+        code = tensor_cores.resolve_kernel(name, "auto", torch.bfloat16,
+                                           rows, k, n)
+        before = (op.launches, op.tensor_core_launches)
+        got = call("auto")
+        torch.cuda.synchronize()
+        rose = (op.launches - before[0], op.tensor_core_launches - before[1])
+        label = f"{rows}x{k}->{n} {what}".strip()
+        check(rose == (1, int(code != 0)), f"{name}[bf16] {label}: launches "
+              f"/ tensor-core launches rose by {rose}")
+        want = plain()
+        line = (f"  {name + '[bf16]':<24} {label}: ran "
+                f"{'tensor_cores' if code else 'cuda_cores'}; |kernel - "
+                f"plain| / max|plain| = {held(got, want, label):.3e}")
+        err = max(err, max_err([got.float()], [want.float()]))
+        if code:
+            e1 = held(got, call("cuda_cores"), label + " vs the first version")
+            check(torch.equal(got, call("auto")), f"{name}[bf16] {label}: a "
+                  "second launch gave other bits")
+            line += f", vs the first version {e1:.3e}, equal bits twice"
+        print(line + f" (tolerance {BF16_REL:.3e})")
+    times = {}
+    for rows, k, n, what in timed:
+        call, plain, library, tensors = make(rows, k, n, what)
+        iters = 5 if rows * k * n > 1 << 34 else 20
+        ms, runs = time_in_turns(
+            {"library": library, "plain": plain,
+             "cuda_cores": lambda: call("cuda_cores"),
+             "tensor_cores": lambda: call("tensor_cores")}, iters)
+        ms["device_ms"] = device_ms(lambda: call("tensor_cores"))
+        ms["library_device_ms"] = device_ms(library)
+        bd = bound(2 * rows * k * n, nbytes(*tensors, call("auto")), "bf16")
+        print(f"  {name + '[bf16]':<24} {rows}x{k}->{n}: tensor_cores "
+              f"{ms['tensor_cores']:.4f} ms (device time by the profiler "
+              f"{ms['device_ms']:.4f} ms), cuda_cores (first version) "
+              f"{ms['cuda_cores']:.4f} ms, plain {ms['plain']:.4f} ms, "
+              f"library call {ms['library']:.4f} ms (device time "
+              f"{ms['library_device_ms']:.4f} ms), bound {bd['bound_ms']:.4f} "
+              f"ms ({bd['bound_by']}); runs {runs}")
+        times[rows, k, n] = {**ms, **bd}
+    # what a call costs the host, at a shape whose kernels are a few µs: an
+    # event-timed loop of a kernel shorter than this reads this instead
+    call, _, library, _ = make(128, 64, 128, timed[0][3])
+    print(f"  {name + '[bf16]':<24} host time a call, 128x64->128: "
+          f"tensor_cores {host_us(lambda: call('tensor_cores')):.1f} us, "
+          f"cuda_cores {host_us(lambda: call('cuda_cores')):.1f} us, library "
+          f"call {host_us(library):.1f} us")
+    return err, times
+
+
+def tensor_core_row(row: dict, err: float, t: dict) -> None:
+    """Rewrite a kernel-line row from the in-turns times ``t`` of its shape:
+    the tensor-core kernel's numbers, the first version's beside them."""
+    row.update(source=TC_SOURCE, max_abs_err=max(row["max_abs_err"], err),
+               ms=t["tensor_cores"], plain_ms=t["plain"],
+               library_ms=t["library"], first_version_ms=t["cuda_cores"],
+               bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+
+
 def write_corpus(root: Path, frames: int, hop: int, seg: int) -> None:
     """``frames`` overlapping training frames of synthetic audio in
     ``root/audio`` (four files) and 3 s in ``root/test_audio``."""
@@ -1445,6 +1622,7 @@ def phase_resident(data: Path, card: str):
         clv = torch.randn((batch, LATENT), generator=g, device=dev).to(dt)
         for w in ops.KERNEL_WRAPPERS:
             w.launches = 0
+        on_tc = mlp.matmul_nt.tensor_core_launches
         xx = x.clone().requires_grad_()
         mu, lv = model.encode(p, xx)
         (dx,) = torch.autograd.grad(
@@ -1465,6 +1643,9 @@ def phase_resident(data: Path, card: str):
               f"matmul_nt {dx_counts[kind]['matmul_nt']}")
         check(e <= tol and dx_counts[kind]["matmul_nt2_mask"] == 1
               and dx_counts[kind]["matmul_nt"] == 1, f"dx [{kind}]")
+        on_tc = mlp.matmul_nt.tensor_core_launches - on_tc
+        check(on_tc == (kind == "bf16"), f"dx [{kind}]: {on_tc} matmul_nt "
+              "launches on the tensor cores (bf16 takes them, fp32 does not)")
 
     # --- the corpus layout under a small budget; the error under none
     cfg = config(training__epochs=1, training__checkpoint_interval=0,
@@ -1993,6 +2174,42 @@ def phase_variant_kernels():
                 print(f"  {name + '[' + kind + ']':<24} {SERVE_BATCH}x4096->"
                       f"4096 (the server's batch): kernel {t_s:.4f} ms, "
                       f"plain {t_p:.4f} ms")
+
+    # bf16 linear_ksplit_fwd on the tensor cores: the deep model's seven
+    # k-split layers at its batch (six distinct shapes), ragged shapes with
+    # every activation, shapes TMA cannot take
+    # (a generator of its own: the Toeplitz draws below stay as they were)
+    g_tc = torch.Generator(device=dev).manual_seed(32)
+
+    def tc_operands(batch, k, n, what):
+        act = what.split()[0]
+        x = torch.randn((batch, k), generator=g_tc, device=dev)
+        if what.endswith("x = 0"):
+            x.zero_()
+        x = x.to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g_tc, device=dev) / k ** 0.5
+             ).to(torch.bfloat16)
+        b = (torch.randn((n,), generator=g_tc, device=dev) * 0.1
+             ).to(torch.bfloat16)
+        return (lambda kernel: linear.linear_ksplit_fwd(x, w, b, act,
+                                                        kernel=kernel),
+                lambda: linear.linear_ksplit_fwd_ref(x, w, b, act),
+                lambda: torch.addmm(b, x, w), (x, w, b))
+
+    deep = [(4096, 4096), (4096, 2048), (2048, 1024), (1024, 512),
+            (1024, 2048), (2048, 4096)]
+    for k, n in deep:
+        check(linear.takes_ksplit(DEEP_BATCH, k, n), f"{k}->{n} is no "
+              "k-split layer")
+    big, small = (DEEP_BATCH, 4096, 4096), (DEEP_BATCH, 1024, 512)
+    err, times = hold_tensor_cores(
+        "linear_ksplit_fwd", linear.linear_ksplit_fwd, tc_operands,
+        [(DEEP_BATCH, k, n, "relu") for k, n in deep]
+        + [(*big, "tanh"), (1024, 1024, 512, "relu x = 0")]
+        + [(*sh, act) for sh in TC_RAGGED for act in ("none", "relu", "tanh")]
+        + [(*sh, "relu") for sh in NO_TMA],
+        [(*big, "relu"), (*small, "relu")])
+    tensor_core_row(rows["linear_ksplit_fwd[bf16]"], err, times[big])
 
     # the block-Toeplitz kernel through the two convolutions, at every layer
     # of configs/conv1d.ini, batch 4096: forward and the dx launch
@@ -2563,6 +2780,7 @@ def phase_deep(tmp: Path, audio, card: str):
     from rawaudiovae_kelsey_tpu_torch.data.datasets import AudioFrameDataset
     from rawaudiovae_kelsey_tpu_torch.infer.api import frame_audio
     from rawaudiovae_kelsey_tpu_torch.models import build_model, variants
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
     from rawaudiovae_kelsey_tpu_torch.train import (
         latest_checkpoint,
         load_params,
@@ -2607,14 +2825,19 @@ def phase_deep(tmp: Path, audio, card: str):
     step_counts = {}
     for precision, tol in (("bfloat16", 5e-2), ("highest", 1e-3)):
         cfg.tpu.precision = precision
+        on_tc = linear.linear_ksplit_fwd.tensor_core_launches
         step_counts[precision] = step_pair(cfg, ckpt, x, models, tol,
                                            f"deep {precision}")
+        on_tc = linear.linear_ksplit_fwd.tensor_core_launches - on_tc
         n_k, n_w = (step_counts[precision][k]
                     for k in ("linear_ksplit_fwd", "linear_fwd"))
-        print(f"  kernel launches in that step: linear_ksplit_fwd {n_k}, "
-              f"linear_fwd {n_w}")
+        print(f"  kernel launches in that step: linear_ksplit_fwd {n_k} "
+              f"({on_tc} on the tensor cores), linear_fwd {n_w}")
         check((n_k, n_w) == (7, 4), f"deep {precision} step: {n_k} k-split + "
               f"{n_w} whole-k launches, expected 7 + 4")
+        check(on_tc == (7 if precision == "bfloat16" else 0),
+              f"deep {precision} step: {on_tc} k-split launches on the "
+              "tensor cores (bf16 layers take them, fp32 ones do not)")
     # per forward at the server's batch: every layer takes the whole-k kernel
     cfg.tpu.precision = "bfloat16"
     model = models["kernels"](cfg)

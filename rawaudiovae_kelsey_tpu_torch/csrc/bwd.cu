@@ -67,9 +67,15 @@
 // What bounds them: a microbatch of 8192 at full width is ~150 GFLOP of
 // backward products against ~100 MB of operands — far above the fp32 ridge
 // (~20 FLOP/byte), so fp32 FMA throughput on the CUDA cores is the limit.
-// Tensor cores (mma.sync / wgmma on the bf16 operands) are the later step.
+// Tensor cores are the later step for all but the entry point rvk_matmul_nt,
+// whose bf16 form runs on wgmma.cuh (both operands K-major: a block owns a
+// 128-row tile of the output, streams its rows of a once through a TMA ring
+// and rounds once from the fp32 accumulators).  The template matmul_nt<T>
+// below, which the fused kernels and the gated forms launch, stays on
+// gemm.cuh.
 
 #include "gemm.cuh"
+#include "wgmma.cuh"
 
 using rvk::dst;
 using rvk::Gemm;
@@ -203,14 +209,37 @@ cudaError_t dec_bwd_full(const T* da, const T* h3, const T* z, const T* w4,
 template <typename T>
 constexpr int kFullPasses = std::is_same<T, float>::value ? 3 : 1;
 
+// The tensor-core form's epilogue: two adjacent columns of a row, rounded
+// once.  A gate would compare here, before the rounding.
+struct RoundPair {
+  struct Column {};
+  static constexpr int kModes = 1;
+  __device__ __forceinline__ Column column(int) const { return Column{}; }
+  template <int>
+  __device__ __forceinline__ __nv_bfloat162 pair(Column, int, int, float v0,
+                                                 float v1) const {
+    return __floats2bfloat162_rn(v0, v1);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// a (batch, n), w (m, n), out (batch, m), all of one dtype.
+// a (batch, n), w (m, n), out (batch, m), all of one dtype.  kernel (an
+// rvk::tc::Kernel): 0, the tiled GEMM on the CUDA cores; 1, the
+// tensor-core form, bf16 only.
 int rvk_matmul_nt(const void* a, const void* w, void* out, int batch, int n,
-                  int m, int dtype, void* stream) {
+                  int m, int dtype, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16) {
+      return cudaErrorInvalidValue;
+    }
+    using T = rvk::bf16;
+    return rvk::tc::launch_wgmma<false>(src<T>(a), src<T>(w), dst<T>(out),
+                                        RoundPair{}, batch, m, n, s);
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return matmul_nt<T>(src<T>(a), src<T>(w), nullptr, nullptr, nullptr,

@@ -9,7 +9,10 @@ the block-Toeplitz product with the two convolutions mapped onto it (the
 conv1d model).  Beside them the three kernels that no trainer dispatches
 and ``probes/`` measures: the fused backward of one linear layer
 (``dw_fused``, ``dx_fused``) and the one-pass Adam update of a leaf
-(``leaf_update``).  Sources in ``csrc/``; built by ``ops/_build.py``."""
+(``leaf_update``).  ``linear_ksplit_fwd`` and ``matmul_nt`` have two
+kernels each, the first version on the CUDA cores and a bf16 tensor-core
+one; ``ops/tensor_cores.py`` chooses by dtype and shape.  Sources in
+``csrc/``; built by ``ops/_build.py``."""
 
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
     Decode,
@@ -65,6 +68,9 @@ from rawaudiovae_kelsey_tpu_torch.ops.linear import (  # noqa: F401
     linear_ksplit_fwd,
     linear_ksplit_fwd_ref,
     pallas_linear,
+)
+from rawaudiovae_kelsey_tpu_torch.ops.tensor_cores import (  # noqa: F401
+    takes_tensor_cores,
 )
 from rawaudiovae_kelsey_tpu_torch.ops.toeplitz import (  # noqa: F401
     ToeplitzMatmul,

@@ -5,11 +5,17 @@ Two kernels compute the same function (``csrc/linear.cu``):
 
 * :func:`linear_fwd`: an output tile owns the whole contraction, one
   launch;
-* :func:`linear_ksplit_fwd`: the contraction is cut into slices of
-  ``KSPLIT_BLOCK_K`` over a grid dimension; every block writes the fp32
-  partial sum of its slice to a workspace and a second stage adds the
-  slices in order, adds the bias, applies the activation and rounds once.
-  No atomics, so two launches give equal bits.
+* :func:`linear_ksplit_fwd`: the contraction is walked slice by slice in
+  order.  bf16 operands that TMA can address (``ops/tensor_cores.py``) take
+  the tensor-core kernel (``csrc/wgmma.cuh``): one launch, a block owns an
+  output tile and carries one fp32 accumulator across all of k, bias,
+  activation and the one rounding in its epilogue, no workspace.  fp32
+  operands, and bf16 ones TMA cannot take, keep the first version on the
+  CUDA cores: slices of ``KSPLIT_BLOCK_K`` over a grid dimension, every
+  block writes the fp32 partial sum of its slice to a workspace and a
+  second stage adds the slices in order, adds the bias, applies the
+  activation and rounds once.  Neither uses atomics, so two launches give
+  equal bits.
 
 :func:`dispatch_fwd` picks between them by the JAX package's rule
 (``_dispatch_fwd``): a layer with batch ≥ ``KSPLIT_BLOCK_B``, k ≥ 2 ·
@@ -40,7 +46,7 @@ from typing import Tuple
 
 import torch
 
-from rawaudiovae_kelsey_tpu_torch.ops import _build
+from rawaudiovae_kelsey_tpu_torch.ops import _build, tensor_cores
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (
     DTYPE_CODES,
     _f,
@@ -136,29 +142,48 @@ def linear_fwd(x, w, b, act: str = "none") -> Tensor:
 linear_fwd.launches = 0
 
 
-def linear_ksplit_fwd(x, w, b, act: str = "none") -> Tensor:
-    """``act(x @ w + b)`` with the contraction cut into
-    :func:`ksplit_slices` slices over the grid: the large-layer path.
+def linear_ksplit_fwd(x, w, b, act: str = "none",
+                      kernel: str = "auto") -> Tensor:
+    """``act(x @ w + b)`` with the contraction walked in
+    :func:`ksplit_slices` slices, in order: the large-layer path.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_linear.py``
-    ``linear_ksplit_fwd``.  CUDA: two launches (``csrc/linear.cu``): the
-    per-slice partial products into an fp32 workspace ``(slices, B, n)``,
-    then their ordered sum with the bias and the activation."""
+    ``linear_ksplit_fwd``.  CUDA, one of two hand-written kernels, chosen by
+    ``tensor_cores.takes_tensor_cores(dtype, B, k, n)``: bf16 operands with
+    k and n multiples of 8 and 16-byte aligned pointers take the tensor-core
+    kernel (``csrc/wgmma.cuh``; one launch, one fp32 accumulator across all
+    of k, no workspace); everything else the first version
+    (``csrc/linear.cu``; the per-slice partial products into an fp32
+    workspace ``(slices, B, n)``, then their ordered sum with the bias and
+    the activation).  ``kernel`` names one instead (``tensor_cores.
+    KERNEL_CODES``); the tensor-core kernel on operands it cannot take
+    raises.  The two kernels round differently, so the output's bits
+    depend on the choice and hence on the pointers' alignment (an unaligned
+    contiguous view may differ from the aligned tensor by a bf16 ulp).  One
+    call counts once in ``launches``, whichever ran, and in
+    ``tensor_core_launches`` too when that one ran."""
+    tensor_cores.check_name("linear_ksplit_fwd", kernel)
     if x.device.type == "cpu":
         return linear_ksplit_fwd_ref(x, w, b, act)
     dev, dt, batch, k, n = _check("linear_ksplit_fwd", x, w, b, act)
+    code = tensor_cores.resolve_kernel(
+        "linear_ksplit_fwd", kernel, dt, batch, k, n,
+        tensor_cores.pointers_aligned(x, w, b))
     y = torch.empty((batch, n), device=dev, dtype=dt)
     if batch and n:
         slices = ksplit_slices(k)
-        ws = torch.empty((slices, batch, n), device=dev, dtype=torch.float32)
+        ws = None if code else torch.empty((slices, batch, n), device=dev,
+                                           dtype=torch.float32)
         _build.launch("rvk_linear_ksplit_fwd", dev, x, w, b, y, ws, batch, k,
                       n, slices, KSPLIT_BLOCK_K, ACT_CODES[act],
-                      DTYPE_CODES[dt])
+                      DTYPE_CODES[dt], code)
         linear_ksplit_fwd.launches += 1
+        linear_ksplit_fwd.tensor_core_launches += bool(code)
     return y
 
 
 linear_ksplit_fwd.launches = 0
+linear_ksplit_fwd.tensor_core_launches = 0
 
 
 def takes_ksplit(batch: int, k: int, n: int) -> bool:

@@ -38,7 +38,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from rawaudiovae_kelsey_tpu_torch.ops import _build
+from rawaudiovae_kelsey_tpu_torch.ops import _build, tensor_cores
 
 Tensor = torch.Tensor
 
@@ -279,13 +279,24 @@ def _grads(dev, *shapes) -> Tuple[Tensor, ...]:
                  for s in shapes)
 
 
-def matmul_nt(a, w) -> Tensor:
+def matmul_nt(a, w, kernel: str = "auto") -> Tensor:
     """``a @ wᵀ``: ``(batch, n) @ (m, n)ᵀ → (batch, m)`` in the operand
     dtype — the input-gradient product (``dz``, ``dx``).
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``matmul_nt``.
-    CUDA: one launch of the tiled GEMM (``csrc/bwd.cu``), both operands read
-    along their rows."""
+    CUDA, one launch of one of two hand-written kernels, both operands read
+    along their rows, chosen by ``tensor_cores.takes_tensor_cores(dtype,
+    batch, n, m)``: bf16 operands with n and m multiples of 8 and 16-byte
+    aligned pointers take the tensor-core kernel (``csrc/wgmma.cuh``);
+    everything else the tiled GEMM on the CUDA cores (``csrc/bwd.cu``).
+    ``kernel`` names one instead (``tensor_cores.KERNEL_CODES``); the
+    tensor-core kernel on operands it cannot take raises.  The two kernels
+    round differently, so the output's bits depend on the choice and hence
+    on the pointers' alignment (an unaligned contiguous view may differ from
+    the aligned tensor by a bf16 ulp).  One call counts
+    once in ``launches``, whichever ran, and in ``tensor_core_launches`` too
+    when that one ran."""
+    tensor_cores.check_name("matmul_nt", kernel)
     if a.device.type == "cpu":
         return matmul_nt_ref(a, w)
     dev = cuda_device(a, "matmul_nt: a")
@@ -294,15 +305,20 @@ def matmul_nt(a, w) -> Tensor:
     m = w.shape[0]
     require(a, "a", (batch, n), dev, dt)
     require(w, "w", (m, n), dev, dt)
+    code = tensor_cores.resolve_kernel(
+        "matmul_nt", kernel, dt, batch, n, m,
+        tensor_cores.pointers_aligned(a, w))
     out = torch.empty((batch, m), device=dev, dtype=dt)
     if batch:
         _build.launch("rvk_matmul_nt", dev, a, w, out, batch, n, m,
-                      DTYPE_CODES[dt])
+                      DTYPE_CODES[dt], code)
         matmul_nt.launches += 1
+        matmul_nt.tensor_core_launches += bool(code)
     return out
 
 
 matmul_nt.launches = 0
+matmul_nt.tensor_core_launches = 0
 
 
 def matmul_nt_mask(a, w, gate) -> Tensor:

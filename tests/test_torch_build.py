@@ -95,6 +95,14 @@ def test_every_bound_entry_point_is_exported_by_a_source():
                  "rvk_leaf_update"):
         assert name in exported
     assert "const char* rvk_error_string(int code)" in text
+    # the two entry points with a tensor-core form name the kernel to run
+    # last before the stream, and both sources build on the shared mainloop
+    for name in ("rvk_linear_ksplit_fwd", "rvk_matmul_nt"):
+        assert exported[name][-2] == "int kernel", name
+        assert _build._SIGNATURES[name][-2] is _build._I, name
+    for src in ("linear.cu", "bwd.cu"):
+        assert '#include "wgmma.cuh"' in (_build.CSRC / src).read_text()
+    assert (_build.CSRC / "wgmma.cuh").is_file()
 
 
 def test_every_wrapper_names_a_bound_entry_point():
@@ -116,6 +124,17 @@ def test_every_wrapper_names_a_bound_entry_point():
         assert w.launches == 0 or isinstance(w.launches, int)
     assert _build._SIGNATURES["rvk_leaf_update"] == (
         [_build._P] * 6 + [_build._L] + [_build._F] * 6 + [_build._P])
+    # x, w, b, y, ws | batch, k, n, slices, kslice, act, dtype, kernel
+    assert _build._SIGNATURES["rvk_linear_ksplit_fwd"] == (
+        [_build._P] * 5 + [_build._I] * 8 + [_build._P])
+    # a, w, out | batch, n, m, dtype, kernel
+    assert _build._SIGNATURES["rvk_matmul_nt"] == (
+        [_build._P] * 3 + [_build._I] * 5 + [_build._P])
+    for w in ops.KERNEL_WRAPPERS:
+        if w.__name__ in ("linear_ksplit_fwd", "matmul_nt"):
+            assert w.tensor_core_launches == 0 \
+                or isinstance(w.tensor_core_launches, int)
+            assert "kernel" in inspect.signature(w).parameters
 
 
 def test_build_key_follows_the_sources(tmp_path, monkeypatch):

@@ -966,3 +966,183 @@ def test_fused_adam_in_the_train_step_equals_the_plain_one(cuda, arch,
                                      flatten(getattr(states["fused"], field))):
             assert torch.equal(a, b), f"{field}.{name}"
     assert states["plain"].count == states["fused"].count == 5
+
+
+# ---- the bf16 tensor-core kernels (csrc/wgmma.cuh) behind linear_ksplit_fwd
+# and matmul_nt: within 2^-6 · max|plain| of the plain version and of the
+# first version on the CUDA cores (the same products in another order: a
+# flipped bf16 ulp), equal bits on a second launch.  Shapes (rows, k, n):
+# the main path's; ragged rows (4097, 1000, 1); k a multiple of 8 but not
+# of the 64-deep stage (1096) and shorter than one (24); n ragged against
+# the tile (544, 520, 8).  The kernel picks 128 x 256 tiles at 4096 x 4096 ->
+# 4096, 4096 x 2048 -> 4096 and matmul_nt's dx shape, 128 x 128 elsewhere.
+
+BF16_REL = 2.0 ** -6
+TC_SHAPES = [(4096, 4096, 4096), (4096, 1024, 512), (4096, 2048, 4096),
+             (4097, 1088, 544), (1000, 1096, 520), (1, 24, 8),
+             (130, 64, 264)]
+NT_SHAPES = [(8192, 2048, 256), (8192, 2048, 1024), (4097, 1088, 544),
+             (1000, 1096, 520), (1, 24, 8), (130, 64, 264)]
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "tanh"])
+@pytest.mark.parametrize("shape", TC_SHAPES, ids=str)
+def test_tensor_core_ksplit_matches_plain_and_first_version(cuda, shape, act):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    x, w, b = _linear_operands(cuda, *shape, torch.bfloat16)
+    want = linear.linear_ksplit_fwd_ref(x, w, b, act)
+    first = linear.linear_ksplit_fwd(x, w, b, act, kernel="cuda_cores")
+    counts = (linear.linear_ksplit_fwd.launches,
+              linear.linear_ksplit_fwd.tensor_core_launches)
+    got = linear.linear_ksplit_fwd(x, w, b, act)        # auto: tensor cores
+    torch.cuda.synchronize()
+    assert (linear.linear_ksplit_fwd.launches - counts[0],
+            linear.linear_ksplit_fwd.tensor_core_launches - counts[1]) \
+        == (1, 1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= BF16_REL
+    assert _rel(got, first) <= BF16_REL
+    assert torch.equal(got, linear.linear_ksplit_fwd(x, w, b, act))
+    assert torch.equal(got, linear.linear_ksplit_fwd(x, w, b, act,
+                                                     kernel="tensor_cores"))
+
+
+@pytest.mark.parametrize("shape", NT_SHAPES, ids=str)
+def test_tensor_core_matmul_nt_matches_plain_and_first_version(cuda, shape):
+    rows, k, m = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn((rows, k), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((m, k), generator=g, device=cuda) / k ** 0.5).bfloat16()
+    want = mlp.matmul_nt_ref(a, w)
+    first = mlp.matmul_nt(a, w, kernel="cuda_cores")
+    counts = (mlp.matmul_nt.launches, mlp.matmul_nt.tensor_core_launches)
+    got = mlp.matmul_nt(a, w)
+    torch.cuda.synchronize()
+    assert (mlp.matmul_nt.launches - counts[0],
+            mlp.matmul_nt.tensor_core_launches - counts[1]) == (1, 1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert _rel(got, want) <= BF16_REL
+    assert _rel(got, first) <= BF16_REL
+    assert torch.equal(got, mlp.matmul_nt(a, w))
+    assert torch.equal(got, mlp.matmul_nt(a, w, kernel="tensor_cores"))
+
+
+def test_tensor_core_kernels_on_an_all_zero_operand(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    x, w, b = _linear_operands(cuda, 1000, 1096, 520, torch.bfloat16)
+    zero = torch.zeros_like(x)
+    got = linear.linear_ksplit_fwd(zero, w, b, "relu", kernel="tensor_cores")
+    assert torch.equal(got, torch.relu(b).expand_as(got))
+    wt = w.t().contiguous()
+    assert not bool(mlp.matmul_nt(zero, wt, kernel="tensor_cores").any())
+    assert not bool(mlp.matmul_nt(x, torch.zeros_like(wt),
+                                  kernel="tensor_cores").any())
+
+
+def test_tensor_core_dispatch_on_the_card(cuda):
+    """What TMA cannot take keeps the first version under ``auto`` and
+    raises when the tensor-core kernel is asked for by name: fp32, k or n no
+    multiple of 8, a view that starts off a 16-byte boundary."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    def ran(fn, *args, **kw):
+        before = (fn.launches, fn.tensor_core_launches)
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, (fn.launches - before[0],
+                     fn.tensor_core_launches - before[1])
+
+    for shape, dtype in (((1000, 70, 33), torch.bfloat16),
+                         ((512, 1028, 520), torch.bfloat16),
+                         ((512, 1024, 516), torch.bfloat16),
+                         ((512, 1024, 512), torch.float32)):
+        x, w, b = _linear_operands(cuda, *shape, dtype)
+        got, rose = ran(linear.linear_ksplit_fwd, x, w, b, "tanh")
+        assert rose == (1, 0), shape
+        tol = BF16_REL if dtype == torch.bfloat16 else 1e-4
+        assert _rel(got, linear.linear_ksplit_fwd_ref(x, w, b, "tanh")) <= tol
+        with pytest.raises(ValueError, match="takes bf16 operands"):
+            linear.linear_ksplit_fwd(x, w, b, "tanh", kernel="tensor_cores")
+        wt = w.t().contiguous()
+        got, rose = ran(mlp.matmul_nt, x, wt)
+        assert rose == (1, 0), shape
+        assert _rel(got, mlp.matmul_nt_ref(x, wt)) <= tol
+        with pytest.raises(ValueError, match="takes bf16 operands"):
+            mlp.matmul_nt(x, wt, kernel="tensor_cores")
+    # contiguous, but two bytes off a 16-byte boundary
+    x, w, b = _linear_operands(cuda, 256, 1024, 512, torch.bfloat16)
+    off = torch.empty(x.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:] \
+        .view_as(x).copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    got, rose = ran(linear.linear_ksplit_fwd, off, w, b, "relu")
+    assert rose == (1, 0)
+    assert torch.equal(got, linear.linear_ksplit_fwd(x, w, b, "relu",
+                                                     kernel="cuda_cores"))
+    with pytest.raises(ValueError, match="aligned = False"):
+        linear.linear_ksplit_fwd(off, w, b, "relu", kernel="tensor_cores")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        linear.linear_ksplit_fwd(x, w, b, "relu", kernel="wgmma")
+    # a zero-row batch launches nothing
+    _, rose = ran(linear.linear_ksplit_fwd, x[:0], w, b, "relu")
+    assert rose == (0, 0)
+    _, rose = ran(mlp.matmul_nt, x[:0], w.t().contiguous())
+    assert rose == (0, 0)
+
+
+def test_pallas_linear_gradients_through_the_tensor_cores(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    x, w, b = (t.requires_grad_() for t in
+               _linear_operands(cuda, 1024, 1088, 544, torch.bfloat16))
+    on_tc = linear.linear_ksplit_fwd.tensor_core_launches
+    y = linear.pallas_linear(x, w, b, "tanh")
+    assert linear.linear_ksplit_fwd.tensor_core_launches == on_tc + 1
+    y.float().square().mean().backward()
+    got = [t.grad.clone() for t in (x, w, b)]
+    x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
+    yp = torch.tanh(x.float() @ w.float() + b.float()).to(torch.bfloat16)
+    yp.float().square().mean().backward()
+    assert _rel(y, yp) <= BF16_REL
+    for g, t in zip(got, (x, w, b)):
+        assert g.dtype == torch.bfloat16
+        assert _rel(g, t.grad) <= 2 * BF16_REL
+
+
+def test_deep_bf16_forward_through_the_tensor_cores(cuda):
+    """The deep model's forward at widths past the k-split gate, bf16: the
+    kernel backend (k-split layers on the tensor cores) against the plain
+    model on the same parameters."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+    from rawaudiovae_kelsey_tpu_torch.tree import tree_map
+
+    cfg = Config()
+    cfg.vae.arch, cfg.vae.hidden_dims = "deep", "2048,1024,512"
+    cfg.audio.segment_length, cfg.vae.latent_dim = 2048, 64
+    cfg.tpu.precision = "bfloat16"
+    x = (torch.rand((1024, 2048), device=cuda) * 2 - 1).bfloat16()
+    outs = {}
+    for backend in ("pallas", "xla"):
+        cfg.tpu.backend = backend
+        model = build_model(cfg, cuda)
+        params = tree_map(lambda t: t.to(torch.bfloat16), model.init(
+            torch.Generator().manual_seed(0)))
+        counts = (linear.linear_ksplit_fwd.launches,
+                  linear.linear_ksplit_fwd.tensor_core_launches)
+        with torch.no_grad():
+            mu, logvar = model.encode(params, x)
+            y = model.decode(params, mu)
+        torch.cuda.synchronize()
+        if backend == "pallas":
+            # 2048->2048, 2048->1024, 1024->512 | 1024->2048, 2048->2048
+            assert (linear.linear_ksplit_fwd.launches - counts[0],
+                    linear.linear_ksplit_fwd.tensor_core_launches
+                    - counts[1]) == (5, 5)
+        outs[backend] = (mu, logvar, y)
+    for got, want in zip(outs["pallas"], outs["xla"]):
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert _rel(got, want) <= 4 * BF16_REL
