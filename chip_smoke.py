@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py --host-cost   # only the wrappers' host time a call
 
 Drives ``rawaudiovae_kelsey_tpu_torch`` (never JAX) through its serving
 and training paths on the card, in phases; each prints what it found, and
@@ -88,21 +89,34 @@ any failure exits non-zero with a traceback (no phase is caught):
    at ragged shapes and at shapes TMA cannot take, as in 3c, timed in
    turns beside the first version, the plain version and ``torch.addmm``;
    ``linear_fwd`` at 4096x512->256, 256x4096->4096 (the
-   server's batch) and 96x384->640, both beside ``torch.addmm``;
+   server's batch) and 96x384->640, both beside ``torch.addmm``, and its
+   bf16 tensor-core form as the k-split's at the deep model's four whole-k
+   layers, 256x4096->4096, the ragged shapes and those TMA cannot take,
+   with the device time of a deep forward's four whole-k launches;
    ``toeplitz_fwd`` through ``conv1d_pallas`` / ``conv1d_transpose_pallas``
    at the eight layers of ``configs/conv1d.ini``, batch 4096 (one also at
-   4097), forward and the ``dx`` launch, against the plain convolutions and
-   beside ``F.conv1d`` / ``F.conv_transpose1d``; ``passes = 4`` against its
-   plain version and against IEEE fp32; odd shifts and lengths;
+   4097), forward and the ``dx`` launch, against the plain convolutions
+   (bf16: the six middle layers on the tensor cores, both launches), timed
+   in turns with the first version, the plain version and ``F.conv1d`` /
+   ``F.conv_transpose1d`` with each one's device time and the eight-layer
+   sums; the tensor-core form at ragged tile plans (t_out 48, 100, 200,
+   13; shift 0 and KB - 1; G 24, 72, 16; B = 1) against plain and the first
+   version, equal bits twice; ``passes = 4`` against its plain version and
+   against IEEE fp32; odd shifts and lengths; at each tensor-core shape of
+   the deep and conv1d paths the device time of every tile width beside
+   the rule's pick (``tensor_cores.tile_n``), and each tensor-core
+   wrapper's host time a call;
 8. the deep/wide model: ``configs/deep_wide.ini`` uncut (segment 4096,
    hidden 4096,2048,1024,512, latent 256, bf16, batch 4096) with ``backend
    = pallas`` and only the datapath, epochs, checkpoint interval and
    best-model gate changed → the ``train`` command, a ``--resume``; one
    step from the trained state through the kernels and through the plain
    ops, same noise, in bf16 and at ``highest``, with 7 k-split + 4 whole-k
-   launches a forward (0 + 11 at the server's batch 256); the HTTP server
-   on the run's ``best_model.npz`` against the plain backend; frames/s of
-   both backends and the device's busy share;
+   launches a forward, in bf16 all 11 on the tensor cores, at ``highest``
+   none (0 + 11 at the server's batch 256, all on the tensor cores); the
+   HTTP server (fp32, the first version) on the run's ``best_model.npz``
+   against the plain backend; frames/s of both backends and the device's
+   busy share;
 9. the conv1d model: ``configs/conv1d.ini`` uncut (channels 32,64,128,256,
    kernel 9, stride 4, bf16, batch 4096) → the ``train`` command through
    the registry (plain convolutions, no kernel launched), a ``--resume``;
@@ -110,7 +124,8 @@ any failure exits non-zero with a traceback (no phase is caught):
    ``conv_decode_pallas``) against the registry's model from the same state
    and noise, in bf16 and at ``highest``: 8 forward + 7 ``dx`` Toeplitz
    launches (the first layer's input is the batch, which needs no
-   gradient) and 3 whole-k linear launches; step time of both.
+   gradient), 12 of them on the tensor cores in bf16, and 3 whole-k linear
+   launches (bf16: all on the tensor cores); step time of both.
 
 3f. (run with the other kernel phases) the probes' kernels: ``dw_fused`` and
    ``dx_fused`` in fp32 and bf16, relu / tanh / none, at the four large
@@ -159,9 +174,10 @@ operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
 NVIDIA's H100 SXM data sheet), at the shapes that were timed: those the
 path named above gives the kernel.
 
-The rows of bf16 ``matmul_nt`` and ``linear_ksplit_fwd`` describe the
-tensor-core kernel (``ms``) and carry the first version's time on the same
-inputs as ``first_version_ms``.
+The rows of bf16 ``matmul_nt``, ``linear_ksplit_fwd``, ``linear_fwd`` and
+``toeplitz_fwd`` describe the tensor-core kernel (``ms``, and ``launches``:
+those that took it) and carry the first version's time on the same inputs
+as ``first_version_ms``.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -614,8 +630,11 @@ def phase_new_kernels(gen_params):
     ms, plain_ms, _, _ = time_both(lambda: mlp.matmul_nt(dh, w["fc1"]),
                                    lambda: mlp.matmul_nt_ref(dh, w["fc1"]),
                                    20)
+    bd = bound(2 * TRAIN_BATCH * UNITS * SEG,
+               nbytes(dh, w["fc1"]) + 4 * TRAIN_BATCH * SEG, "fp32")
     print(f"  matmul_nt[fp32] at the dx shape, batch {TRAIN_BATCH}: error "
-          f"{e:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"{e:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
 
     # bf16 matmul_nt on the tensor cores: dz = dh3 @ w3ᵀ and dx = dh @ w1ᵀ at
     # the microbatch, ragged shapes, shapes TMA cannot take
@@ -642,6 +661,8 @@ def phase_new_kernels(gen_params):
          *((*sh, "") for sh in TC_RAGGED + NO_TMA)],
         [(*dz, ""), (*dx_shape, "")])
     tensor_core_row(rows["matmul_nt[bf16]"], err, times[dz])
+    sweep_widths("matmul_nt", f"{TRAIN_BATCH}x{UNITS}->{LATENT} (dz)",
+                 nt_operands(*dz, "")[0], TRAIN_BATCH // 128, LATENT)
     t = times[dx_shape]
     print(f"  matmul_nt[bf16] at the dx shape, batch {TRAIN_BATCH}: kernel "
           f"{t['tensor_cores']:.4f} ms, first version {t['cuda_cores']:.4f} "
@@ -1056,9 +1077,10 @@ def busy_share(fn) -> str:
             f"{wall_us / 1e3:.1f} ms wall)")
 
 
-def device_time_by_kernel(fn, top: int = 6) -> str:
+def device_time_by_kernel(fn, top: int = 6, focus=None) -> str:
     """Device time of ``fn()`` by kernel name, the ``top`` largest and the
-    rest, from a torch.profiler trace."""
+    rest, from a torch.profiler trace; and the sum of the kernels whose
+    names hold each string of ``focus`` ({label: substring})."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1079,9 +1101,12 @@ def device_time_by_kernel(fn, top: int = 6) -> str:
     parts = [f"{name[:60]} {us / 1e3:.2f} ms ({100 * us / total:.1f} %)"
              for name, us in ranked[:top]]
     rest = sum(us for _, us in ranked[top:])
+    picked = [(label, sum(us for name, us in ranked if key in name))
+              for label, key in (focus or {}).items()]
     return (f"{total / 1e3:.2f} ms of device time: " + "; ".join(parts)
             + f"; the other {max(len(ranked) - top, 0)} kernels "
-              f"{rest / 1e3:.2f} ms")
+              f"{rest / 1e3:.2f} ms"
+            + "".join(f"; {label} {us / 1e3:.2f} ms" for label, us in picked))
 
 
 def device_ms(fn, calls: int = 10) -> float:
@@ -1114,6 +1139,48 @@ def host_us(fn, calls: int = 500) -> float:
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / calls * 1e6
+
+
+def sweep_widths(name, label, call, tiles_m, n, calls: int = 5) -> dict:
+    """Device ms of ``call("tensor_cores")`` with the tile width forced to
+    each of ``tensor_cores.TILE_WIDTHS`` in turn, beside the width the rule
+    (``tensor_cores.tile_n``) picks for ``tiles_m`` tile rows and ``n``
+    columns: one profiler trace, the widths told apart by the kernel's
+    template arguments."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    rule = tensor_cores.tile_n
+    try:
+        for width in tensor_cores.TILE_WIDTHS:
+            tensor_cores.tile_n = lambda tiles_m, n, sms, w=width: w
+            call("tensor_cores")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for width in tensor_cores.TILE_WIDTHS:
+                tensor_cores.tile_n = lambda tiles_m, n, sms, w=width: w
+                for _ in range(calls):
+                    call("tensor_cores")
+            torch.cuda.synchronize()
+    finally:
+        tensor_cores.tile_n = rule
+    ms = {}
+    for e in prof.key_averages():
+        found = re.search(r"wgmma_gemm_kernel<(\d+),", e.key)
+        us = getattr(e, "device_time_total", None)
+        us = getattr(e, "cuda_time_total", 0.0) if us is None else us
+        if found:
+            width = int(found.group(1))
+            ms[width] = ms.get(width, 0.0) + us / 1e3 / calls
+    picked = rule(tiles_m, n, tensor_cores.sm_count(torch.device("cuda", 0)))
+    print(f"  {name + '[bf16]':<24} {label}: device ms by tile width "
+          + (", ".join(f"{w}: {ms[w]:.4f}" for w in sorted(ms, reverse=True))
+             or "not measured (the profiler saw no wgmma kernel)")
+          + f"; the rule picks {picked}")
+    return ms
 
 
 def hold_tensor_cores(name, op, make, shapes, timed):
@@ -2163,17 +2230,25 @@ def phase_variant_kernels():
                 # largest layer through it
                 whole = cuda_time_ms(lambda: linear.linear_fwd(x, w, b, act),
                                      iters)
+                row = rows[f"{name}[{kind}]"]
                 print(f"  {'linear_fwd[' + kind + ']':<24} {batch}x{k}->{n} "
                       f"(the k-split kernel's shape): {whole:.4f} ms, "
-                      f"k-split / whole-k = {ms / whole:.3f}")
+                      f"k-split / whole-k = {ms / whole:.3f}, torch.addmm "
+                      f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']})")
             else:
                 xs, ws, bs = lin_operands(SERVE_BATCH, 4096, 4096, dt)
                 t_s = cuda_time_ms(
                     lambda: kernel(xs, ws, bs, "tanh"), 10)
                 t_p = cuda_time_ms(lambda: plain(xs, ws, bs, "tanh"), 10)
+                t_l = cuda_time_ms(lambda: torch.addmm(bs, xs, ws), 10)
+                bd = bound(2 * SERVE_BATCH * 4096 * 4096,
+                           nbytes(xs, ws, bs, kernel(xs, ws, bs, "tanh")),
+                           kind)
                 print(f"  {name + '[' + kind + ']':<24} {SERVE_BATCH}x4096->"
                       f"4096 (the server's batch): kernel {t_s:.4f} ms, "
-                      f"plain {t_p:.4f} ms")
+                      f"plain {t_p:.4f} ms, torch.addmm {t_l:.4f} ms, bound "
+                      f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
 
     # bf16 linear_ksplit_fwd on the tensor cores: the deep model's seven
     # k-split layers at its batch (six distinct shapes), ragged shapes with
@@ -2210,6 +2285,43 @@ def phase_variant_kernels():
         + [(*sh, "relu") for sh in NO_TMA],
         [(*big, "relu"), (*small, "relu")])
     tensor_core_row(rows["linear_ksplit_fwd[bf16]"], err, times[big])
+    for k, n in ((1024, 512), (2048, 1024)):
+        sweep_widths("linear_ksplit_fwd", f"{DEEP_BATCH}x{k}->{n}",
+                     tc_operands(DEEP_BATCH, k, n, "relu")[0],
+                     DEEP_BATCH // 128, n)
+
+    # bf16 linear_fwd on the tensor cores: the deep model's four whole-k
+    # layers at its batch (the 512 -> 256 heads twice a forward), the
+    # server's largest layer, ragged shapes, shapes TMA cannot take
+    def fwd_operands(batch, k, n, what):
+        call, _, library, tensors = tc_operands(batch, k, n, what)
+        x, w, b = tensors
+        act = what.split()[0]
+        return (lambda kernel: linear.linear_fwd(x, w, b, act, kernel=kernel),
+                lambda: linear.linear_fwd_ref(x, w, b, act), library, tensors)
+
+    whole_k = [(DEEP_BATCH, 512, 256, "none"), (DEEP_BATCH, 256, 512, "relu"),
+               (DEEP_BATCH, 512, 1024, "relu"),
+               (SERVE_BATCH, 4096, 4096, "tanh")]
+    err, times = hold_tensor_cores(
+        "linear_fwd", linear.linear_fwd, fwd_operands,
+        whole_k + [(*sh, act) for sh in TC_RAGGED
+                   for act in ("none", "relu", "tanh")]
+        + [(*sh, "relu") for sh in NO_TMA], whole_k)
+    tensor_core_row(rows["linear_fwd[bf16]"], err, times[whole_k[0][:3]])
+
+    def forward(key):
+        return sum(times[sh[:3]][key] * c
+                   for sh, c in zip(whole_k, (2, 1, 1)))
+
+    print(f"  {'linear_fwd[bf16]':<24} the four whole-k launches of a deep "
+          f"forward (512->256 twice, 256->512, 512->1024): device time "
+          f"{forward('device_ms'):.4f} ms, torch.addmm "
+          f"{forward('library_device_ms'):.4f} ms (no activation), bound "
+          f"{forward('bound_ms'):.4f} ms")
+    for batch, k, n, act in whole_k:
+        sweep_widths("linear_fwd", f"{batch}x{k}->{n}",
+                     fwd_operands(batch, k, n, act)[0], -(-batch // 128), n)
 
     # the block-Toeplitz kernel through the two convolutions, at every layer
     # of configs/conv1d.ini, batch 4096: forward and the dx launch
@@ -2251,17 +2363,25 @@ def phase_variant_kernels():
         for i, (direction, length, cin, cout) in enumerate(CONV_LAYERS):
             op, plain, pack = both(direction)
             act = "tanh" if i == len(CONV_LAYERS) - 1 else "relu"
+            # bf16: the six middle layers take the tensor cores, forward and
+            # dx; the first (G = 4) and the last (N = 4, its dx G = 4) not
+            on_tc = 2 if kind == "bf16" and 0 < i < len(CONV_LAYERS) - 1 else 0
             for batch in ((DEEP_BATCH, 4097) if i == 2 else (DEEP_BATCH,)):
                 x, w, b = conv_operands(batch, length, cin, cout, dt)
                 x.requires_grad_()
                 toeplitz.toeplitz_fwd.launches = 0
+                toeplitz.toeplitz_fwd.tensor_core_launches = 0
                 with torch.enable_grad():
                     got = op(x, w, b, CONV_S, act)
                     (dx,) = torch.autograd.grad(got.float().square().sum(), x)
                 torch.cuda.synchronize()
                 n_toe = toeplitz.toeplitz_fwd.launches
+                n_tc = toeplitz.toeplitz_fwd.tensor_core_launches
                 check(n_toe == 2, f"{direction} layer {i}: {n_toe} Toeplitz "
                       "launches, expected the forward and dx")
+                check(n_tc == on_tc, f"{kind} {direction} layer {i}: {n_tc} "
+                      f"of 2 Toeplitz launches on the tensor cores, expected "
+                      f"{on_tc}")
                 # plain: the fp32 convolution of the same operands, bias
                 # and activation in fp32, one rounding (the kernel's
                 # epilogue); its dx from the same rounded output
@@ -2272,7 +2392,8 @@ def phase_variant_kernels():
                     want = want32.detach().to(dt)
                     (dx_want,) = torch.autograd.grad(want32, x32,
                                                      2 * want.float())
-                what = f"layer {i} {direction} {batch}x{length}x{cin}->{cout}"
+                what = (f"layer {i} {direction} {batch}x{length}x{cin}->{cout}"
+                        f" ({n_tc} of 2 on the tensor cores)")
                 err = max(err, held("toeplitz_fwd", kind, got.detach(), want,
                                     VARIANT_REL[kind], what))
                 held("toeplitz_fwd", kind, dx, dx_want.to(dt),
@@ -2286,38 +2407,112 @@ def phase_variant_kernels():
             else:
                 xf, wp, bp, t_out, shift = packed
             wp = wp.contiguous()
-            ms, plain_ms, t_kern, t_plain = time_both(
-                lambda: toeplitz.toeplitz_fwd(xf, wp, bp, act, t_out, shift),
-                lambda: toeplitz.toeplitz_fwd_ref(xf, wp, bp, act, t_out,
-                                                  shift), 10)
-            lib_ms = cuda_time_ms(library_call(direction, x, w, b), 10)
+
+            def call(kernel="auto"):
+                return toeplitz.toeplitz_fwd(xf, wp, bp, act, t_out, shift,
+                                             kernel=kernel)
+
+            fns = {"library": library_call(direction, x, w, b),
+                   "plain": lambda: toeplitz.toeplitz_fwd_ref(
+                       xf, wp, bp, act, t_out, shift),
+                   "cuda_cores": lambda: call("cuda_cores")}
+            if on_tc:
+                fns["tensor_cores"] = lambda: call("tensor_cores")
+                y = call()
+                check(torch.equal(y, call()), f"toeplitz_fwd[bf16] layer {i}: "
+                      "a second launch gave other bits")
+                held("toeplitz_fwd", kind, y, call("cuda_cores"),
+                     VARIANT_REL[kind], f"layer {i}, tensor cores against "
+                     "the first version (equal bits twice)")
+            t, runs = time_in_turns(fns, 10)
+            t["kernel"] = t["tensor_cores" if on_tc else "cuda_cores"]
+            t["device"] = device_ms(call)
+            t["library_device"] = device_ms(fns["library"])
             # the convolution's own multiply-adds (the packed tap stack's
             # zero rows are not work the function needs)
             flops = 2 * DEEP_BATCH * length * CONV_K * cin * cout // (
                 CONV_S if direction == "conv" else 1)
-            y = toeplitz.toeplitz_fwd(xf, wp, bp, act, t_out, shift)
-            bd = bound(flops, nbytes(x, w, b, y), kind)
-            layer_ms[kind, i] = (ms, plain_ms, lib_ms, bd["bound_ms"], bd)
+            bd = bound(flops, nbytes(x, w, b, call()), kind)
+            layer_ms[kind, i] = {**t, **bd}
             lib = "F.conv1d" if direction == "conv" else "F.conv_transpose1d"
             print(f"  {'toeplitz_fwd[' + kind + ']':<24} layer {i} "
                   f"{direction} {length}x{cin}->{cout}: x {tuple(xf.shape)} w "
-                  f"{tuple(wp.shape)} shift {shift}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound "
-                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) (runs {t_kern} "
-                  f"/ {t_plain})")
-        k_ms, p_ms, l_ms, b_ms = (
-            sum(layer_ms[kind, i][j] for i in range(len(CONV_LAYERS)))
-            for j in range(4))
+                  f"{tuple(wp.shape)} shift {shift}: ran "
+                  f"{'tensor_cores' if on_tc else 'cuda_cores'}, kernel "
+                  f"{t['kernel']:.4f} ms (device {t['device']:.4f} ms), "
+                  f"first version {t['cuda_cores']:.4f} ms, plain "
+                  f"{t['plain']:.4f} ms, {lib} {t['library']:.4f} ms (device "
+                  f"{t['library_device']:.4f} ms), bound "
+                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) (runs {runs})")
+            if on_tc:
+                sweep_widths("toeplitz_fwd", f"layer {i}", call,
+                             -(-toeplitz.tile_halves(
+                                 DEEP_BATCH, t_out,
+                                 *toeplitz.tile_plan(t_out)) // 2),
+                             wp.shape[2])
+
+        def total(key):
+            return sum(layer_ms[kind, i][key] for i in range(len(CONV_LAYERS)))
+
         print(f"  {'toeplitz_fwd[' + kind + ']':<24} a forward of the eight "
-              f"layers: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cuDNN "
-              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms")
+              f"layers: kernel {total('kernel'):.4f} ms (device "
+              f"{total('device'):.4f} ms), first version "
+              f"{total('cuda_cores'):.4f} ms, plain {total('plain'):.4f} ms, "
+              f"cuDNN {total('library'):.4f} ms (device "
+              f"{total('library_device'):.4f} ms), bound "
+              f"{total('bound_ms'):.4f} ms")
         # the kernel line's row: the second encoder layer (the first of the
         # six 12.9 GFLOP layers)
-        ms, plain_ms, lib_ms, _, bd = layer_ms[kind, 1]
+        t = layer_ms[kind, 1]
         rows[f"toeplitz_fwd[{kind}]"] = {
             "name": f"toeplitz_fwd[{kind}]", "route": "cuda",
-            "source": toe_src, "replaces": tpu_toe, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": lib_ms}
+            "source": TC_SOURCE if kind == "bf16" else toe_src,
+            "replaces": tpu_toe, "max_abs_err": err, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library"]}
+        if kind == "bf16":
+            rows["toeplitz_fwd[bf16]"]["first_version_ms"] = t["cuda_cores"]
+
+    # bf16 on the tensor cores at ragged plans, (B, nb, G, KB, N, t_out,
+    # shift): t_out below 64 that does not divide it, above 64 and above
+    # 128, shift 0 and KB - 1, G no multiple of 64 and below it, B = 1,
+    # output rows past nb
+    for B, nb, G, kb, N, t_out, shift in (
+            (37, 48, 24, 3, 40, 48, 0), (5, 100, 72, 3, 136, 100, 2),
+            (3, 200, 64, 5, 64, 200, 0), (9, 16, 128, 4, 256, 13, 3),
+            (1, 64, 128, 3, 64, 64, 1), (6, 9, 16, 3, 24, 13, 2)):
+        xs = torch.randn((B, nb, G), generator=g_tc, device=dev).bfloat16()
+        ws = (torch.randn((kb, G, N), generator=g_tc, device=dev)
+              / (kb * G) ** 0.5).bfloat16()
+        bs = (torch.randn((N,), generator=g_tc, device=dev) * 0.1).bfloat16()
+        before = toeplitz.toeplitz_fwd.tensor_core_launches
+        got = toeplitz.toeplitz_fwd(xs, ws, bs, "tanh", t_out, shift)
+        torch.cuda.synchronize()
+        what = (f"x {(B, nb, G)} w {(kb, G, N)} t_out {t_out} shift {shift} "
+                f"plan {toeplitz.tile_plan(t_out)}")
+        check(toeplitz.toeplitz_fwd.tensor_core_launches == before + 1,
+              f"toeplitz_fwd[bf16] {what}: not on the tensor cores")
+        check(torch.equal(got, toeplitz.toeplitz_fwd(xs, ws, bs, "tanh",
+                                                     t_out, shift)),
+              f"toeplitz_fwd[bf16] {what}: a second launch gave other bits")
+        held("toeplitz_fwd", "bf16", got, toeplitz.toeplitz_fwd_ref(
+            xs, ws, bs, "tanh", t_out, shift), VARIANT_REL["bf16"],
+            what + ", tensor cores")
+        held("toeplitz_fwd", "bf16", got, toeplitz.toeplitz_fwd(
+            xs, ws, bs, "tanh", t_out, shift, kernel="cuda_cores"),
+            VARIANT_REL["bf16"], what + ", against the first version")
+    # what a call costs the host, at a shape whose kernels are a few µs
+    xh, wh = (torch.zeros(sh, device=dev, dtype=torch.bfloat16)
+              for sh in ((2, 64, 64), (3, 64, 64)))
+    bh = torch.zeros((64,), device=dev, dtype=torch.bfloat16)
+    xt, wt = xh.transpose(1, 2).contiguous(), wh.permute(2, 1, 0).contiguous()
+    costs = {kernel: host_us(lambda: toeplitz.toeplitz_fwd(
+        xh, wh, bh, "relu", 64, 1, kernel=kernel))
+        for kernel in ("tensor_cores", "cuda_cores")}
+    print(f"  {'toeplitz_fwd[bf16]':<24} host time a call, x (2, 64, 64), w "
+          f"(3, 64, 64): tensor_cores {costs['tensor_cores']:.1f} us, "
+          f"cuda_cores {costs['cuda_cores']:.1f} us, library call "
+          f"{host_us(lambda: F.conv1d(xt, wt, bh, padding=1)):.1f} us")
 
     # passes = 4 against its plain version and against IEEE fp32, and odd
     # shifts and lengths straight through the kernel
@@ -2644,7 +2839,8 @@ def step_pair(cfg, ckpt, x, models, tol, label):
     """One step from checkpoint ``ckpt`` on batch ``x`` with each of the two
     models of ``models`` ({name: build(cfg)}), same noise; the first is the
     kernels', the second the plain one.  Returns the kernel launches of the
-    first."""
+    first, and under "<wrapper>@tc" those of a wrapper with a tensor-core
+    form that took it."""
     from rawaudiovae_kelsey_tpu_torch import ops
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
     from rawaudiovae_kelsey_tpu_torch.train import (
@@ -2665,10 +2861,15 @@ def step_pair(cfg, ckpt, x, models, tol, label):
         before = tree_map(torch.clone, state.params)
         for w in ops.KERNEL_WRAPPERS:
             w.launches = 0
+        tc = [w for w in ops.KERNEL_WRAPPERS
+              if hasattr(w, "tensor_core_launches")]
+        on_tc = [w.tensor_core_launches for w in tc]
         state, m = build_train_step(model, cfg, noise=noise)(state, x)
         torch.cuda.synchronize()
         if k == 0:
             counts = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+            counts.update((f"{w.__name__}@tc", w.tensor_core_launches - n)
+                          for w, n in zip(tc, on_tc))
         delta = torch.cat([(a - b).ravel() for a, b in
                            zip(leaves(state.params), leaves(before))])
         out.append((float(m["loss"]), delta))
@@ -2683,9 +2884,10 @@ def step_pair(cfg, ckpt, x, models, tol, label):
     return counts
 
 
-def step_rates(cfg, x, models, card, n=3):
+def step_rates(cfg, x, models, card, n=3, focus=None):
     """Steps/s of each model of ``models`` on the device-resident batch
-    ``x``, timed first, second, second, first; the busy share of the first."""
+    ``x``, timed first, second, second, first; the busy share of the first;
+    each one's device time by kernel (``focus``: device_time_by_kernel's)."""
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
     from rawaudiovae_kelsey_tpu_torch.train import TrainState
 
@@ -2717,7 +2919,7 @@ def step_rates(cfg, x, models, card, n=3):
     for name in (a, b):
         step, state = steps[name]
         print(f"  one {name} step by kernel: "
-              f"{device_time_by_kernel(lambda: step(state, x))}")
+              f"{device_time_by_kernel(lambda: step(state, x), focus=focus)}")
 
 
 def train_and_resume(name, cfg, data, epochs, n_batches):
@@ -2785,6 +2987,7 @@ def phase_deep(tmp: Path, audio, card: str):
         latest_checkpoint,
         load_params,
     )
+    from rawaudiovae_kelsey_tpu_torch.tree import tree_map
 
     cfg = load_config(ROOT / "configs" / "deep_wide.ini")
     check(cfg.vae.arch == "deep" and cfg.tpu.precision == "bfloat16"
@@ -2802,8 +3005,11 @@ def phase_deep(tmp: Path, audio, card: str):
     write_corpus(data, frames, hop, seg)
     for w in ops.KERNEL_WRAPPERS:
         w.launches = 0
+    on_tc = [w.tensor_core_launches for w in ops.DEEP_KERNELS]
     runs = train_and_resume("deep", cfg, data, epochs, n_batches)
     launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    launches.update((f"{w.__name__}@tc", w.tensor_core_launches - n)
+                    for w, n in zip(ops.DEEP_KERNELS, on_tc))
     print(f"  kernel launches in the two deep training runs: {launches}")
     for w in ops.DEEP_KERNELS:
         check(launches[w.__name__] > 0,
@@ -2825,45 +3031,58 @@ def phase_deep(tmp: Path, audio, card: str):
     step_counts = {}
     for precision, tol in (("bfloat16", 5e-2), ("highest", 1e-3)):
         cfg.tpu.precision = precision
-        on_tc = linear.linear_ksplit_fwd.tensor_core_launches
-        step_counts[precision] = step_pair(cfg, ckpt, x, models, tol,
-                                           f"deep {precision}")
-        on_tc = linear.linear_ksplit_fwd.tensor_core_launches - on_tc
-        n_k, n_w = (step_counts[precision][k]
-                    for k in ("linear_ksplit_fwd", "linear_fwd"))
+        counts = step_counts[precision] = step_pair(cfg, ckpt, x, models, tol,
+                                                    f"deep {precision}")
+        n_k, n_w, tc_k, tc_w = (counts[k] for k in (
+            "linear_ksplit_fwd", "linear_fwd", "linear_ksplit_fwd@tc",
+            "linear_fwd@tc"))
         print(f"  kernel launches in that step: linear_ksplit_fwd {n_k} "
-              f"({on_tc} on the tensor cores), linear_fwd {n_w}")
+              f"({tc_k} on the tensor cores), linear_fwd {n_w} ({tc_w} on "
+              f"the tensor cores): {tc_k + tc_w} of {n_k + n_w} linear "
+              "launches on the tensor cores")
         check((n_k, n_w) == (7, 4), f"deep {precision} step: {n_k} k-split + "
               f"{n_w} whole-k launches, expected 7 + 4")
-        check(on_tc == (7 if precision == "bfloat16" else 0),
-              f"deep {precision} step: {on_tc} k-split launches on the "
+        bf16 = precision == "bfloat16"
+        check((tc_k, tc_w) == ((7, 4) if bf16 else (0, 0)),
+              f"deep {precision} step: {tc_k} + {tc_w} linear launches on the "
               "tensor cores (bf16 layers take them, fp32 ones do not)")
-    # per forward at the server's batch: every layer takes the whole-k kernel
+    # per forward at the server's batch: every layer takes the whole-k
+    # kernel; on the fp32 master params its first version, on bf16 ones the
+    # tensor cores
     cfg.tpu.precision = "bfloat16"
     model = models["kernels"](cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    for w in ops.DEEP_KERNELS:
-        w.launches = 0
-    with torch.inference_mode():
-        mu, _ = model.encode(params, x[:SERVE_BATCH])
-        model.decode(params, mu)
-    torch.cuda.synchronize()
-    n_k, n_w = (w.launches for w in ops.DEEP_KERNELS)
-    print(f"  a forward at batch {SERVE_BATCH}: linear_ksplit_fwd {n_k}, "
-          f"linear_fwd {n_w}")
-    check((n_k, n_w) == (0, 11), f"batch {SERVE_BATCH}: {n_k} k-split + {n_w} "
-          "whole-k launches, expected 0 + 11")
+    for dt in (torch.float32, torch.bfloat16):
+        for w in ops.DEEP_KERNELS:
+            w.launches = 0
+        on_tc = linear.linear_fwd.tensor_core_launches
+        with torch.inference_mode():
+            mu, _ = model.encode(tree_map(lambda t: t.to(dt), params),
+                                 x[:SERVE_BATCH].to(dt))
+            model.decode(tree_map(lambda t: t.to(dt), params), mu)
+        torch.cuda.synchronize()
+        n_k, n_w = (w.launches for w in ops.DEEP_KERNELS)
+        on_tc = linear.linear_fwd.tensor_core_launches - on_tc
+        want = 11 if dt == torch.bfloat16 else 0
+        print(f"  a {dt} forward at batch {SERVE_BATCH}: linear_ksplit_fwd "
+              f"{n_k}, linear_fwd {n_w} ({on_tc} on the tensor cores)")
+        check((n_k, n_w, on_tc) == (0, 11, want), f"{dt} batch {SERVE_BATCH}: "
+              f"{n_k} k-split + {n_w} whole-k launches, {on_tc} on the tensor "
+              f"cores, expected 0 + 11, {want} of them")
 
     # serve the trained run: fp32 master weights through the whole-k kernel
     for w in ops.KERNEL_WRAPPERS:
         w.launches = 0
+    on_tc = linear.linear_fwd.tensor_core_launches
     out, lat_ms = phase_serve(runs[0], audio, False)
     serve_launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
     print(f"  kernel launches in the deep serving path: "
           f"{ {k: v for k, v in serve_launches.items() if v} }")
     check(serve_launches["linear_fwd"] > 0
-          and serve_launches["linear_ksplit_fwd"] == 0,
-          "the deep server did not run on linear_fwd alone")
+          and serve_launches["linear_ksplit_fwd"] == 0
+          and linear.linear_fwd.tensor_core_launches == on_tc,
+          "the deep server did not run on the first version of linear_fwd "
+          "alone (it serves fp32)")
     served = load_params(runs[0] / "model" / "best_model.npz", params)
     with torch.inference_mode():
         fr = torch.from_numpy(np.ascontiguousarray(
@@ -2935,7 +3154,9 @@ def phase_conv(tmp: Path, card: str):
         counts = step_counts[precision] = step_pair(
             cfg, ckpt, x, models, tol, f"conv1d {precision}")
         print(f"  kernel launches in that step: toeplitz_fwd "
-              f"{counts['toeplitz_fwd']}, linear_fwd {counts['linear_fwd']}, "
+              f"{counts['toeplitz_fwd']} ({counts['toeplitz_fwd@tc']} on the "
+              f"tensor cores), linear_fwd {counts['linear_fwd']} "
+              f"({counts['linear_fwd@tc']} on the tensor cores), "
               f"linear_ksplit_fwd {counts['linear_ksplit_fwd']}")
         # 8 forward, 7 for dx: the first layer's input is the batch, which
         # needs no gradient; the two heads and dec_in take the whole-k kernel
@@ -2943,8 +3164,20 @@ def phase_conv(tmp: Path, card: str):
               and counts["linear_ksplit_fwd"] == 0,
               f"conv1d {precision} step: {counts['toeplitz_fwd']} Toeplitz + "
               f"{counts['linear_fwd']} whole-k launches, expected 8 + 7 and 3")
+        # bf16: all but the first encoder layer (G = 4) and the last decoder
+        # layer and its dx (N = 4, G = 4) take the tensor cores
+        bf16 = precision == "bfloat16"
+        check((counts["toeplitz_fwd@tc"], counts["linear_fwd@tc"])
+              == ((12, 3) if bf16 else (0, 0)),
+              f"conv1d {precision} step: {counts['toeplitz_fwd@tc']} Toeplitz "
+              f"and {counts['linear_fwd@tc']} whole-k launches on the tensor "
+              f"cores, expected {'12 and 3' if bf16 else 'none'}")
     cfg.tpu.precision = "bfloat16"
-    step_rates(cfg, x, models, card)
+    # the Toeplitz kernels by their template arguments: the tensor-core
+    # tile walk, the first version's implicit A
+    step_rates(cfg, x, models, card, focus={
+        "Toeplitz on the tensor cores": "ToeplitzTiles",
+        "Toeplitz first version": "ToeplitzRows"})
     return step_counts
 
 
@@ -2956,9 +3189,49 @@ def off_path(row: dict) -> None:
           f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
 
 
+def host_cost() -> dict:
+    """``--host-cost``: the host time of one call (µs, ``host_us``, the
+    median of five rounds) of the four wrappers with a tensor-core form, as
+    the package beside this file ships them, on bf16 operands whose kernels
+    take a few µs, beside the one PyTorch call of the same function.  Needs
+    nothing of this script's other phases, so a copy of it in another
+    checkout times that checkout's wrappers."""
+    import torch.nn.functional as F
+
+    from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp, toeplitz
+
+    dev = torch.device("cuda")
+    bf16 = dict(device=dev, dtype=torch.bfloat16)
+    x, w, b = (torch.zeros(sh, **bf16) for sh in ((128, 64), (64, 128),
+                                                   (128,)))
+    wt = w.t().contiguous()
+    xs, ws = (torch.zeros(sh, **bf16) for sh in ((2, 64, 64), (3, 64, 64)))
+    bs = torch.zeros((64,), **bf16)
+    xc, wc = xs.transpose(1, 2).contiguous(), ws.permute(2, 1, 0).contiguous()
+    calls = {
+        "matmul_nt": lambda: mlp.matmul_nt(x, wt),
+        "a @ w.t()": lambda: x @ wt.t(),
+        "linear_ksplit_fwd": lambda: linear.linear_ksplit_fwd(x, w, b),
+        "linear_fwd": lambda: linear.linear_fwd(x, w, b),
+        "torch.addmm": lambda: torch.addmm(b, x, w),
+        "toeplitz_fwd": lambda: toeplitz.toeplitz_fwd(xs, ws, bs, "none", 64,
+                                                      1),
+        "F.conv1d": lambda: F.conv1d(xc, wc, bs, padding=1),
+    }
+    # the host's rate drifts: five rounds of every call in turn, the median
+    rounds = [{name: host_us(fn) for name, fn in calls.items()}
+              for _ in range(5)]
+    return {name: round(statistics.median(r[name] for r in rounds), 2)
+            for name in calls}
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda."
           "is_available() is false)")
+    if sys.argv[1:] == ["--host-cost"]:
+        print(json.dumps({"host_us_a_call": host_cost(),
+                          "package": str(ROOT)}))
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3152,7 +3425,8 @@ def main() -> int:
               f"{w.__name__}: no launch in the bf16 stream run")
     # the variants' kernels: bf16 linear layers in the deep training runs,
     # fp32 k-split in the deep `highest` step, fp32 whole-k in the deep
-    # server; the Toeplitz kernel in the conv1d op-level steps
+    # server; the Toeplitz kernel in the conv1d op-level steps.  A bf16 row
+    # describes the tensor-core kernel: its launches are those that took it
     for key, row in variant_rows.items():
         name, kind = key[:-1].split("[")
         if name == "toeplitz_fwd":
@@ -3164,7 +3438,7 @@ def main() -> int:
             counts = deep_serve_launches
         else:
             counts = deep_fp32_launches
-        row["launches"] = counts[name]
+        row["launches"] = counts[f"{name}@tc" if kind == "bf16" else name]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(variant_rows)
     # the probes' kernels: the deep_bwd runs in each dtype, the adam_fusion

@@ -228,9 +228,11 @@ extern "C" {
 
 // a (batch, n), w (m, n), out (batch, m), all of one dtype.  kernel (an
 // rvk::tc::Kernel): 0, the tiled GEMM on the CUDA cores; 1, the
-// tensor-core form, bf16 only.
+// tensor-core form, bf16 only, in tiles 128 x tile_n (256, 128 or 64; the
+// caller's choice, ops/tensor_cores.py tile_n; the first version ignores
+// it).
 int rvk_matmul_nt(const void* a, const void* w, void* out, int batch, int n,
-                  int m, int dtype, int kernel, void* stream) {
+                  int m, int dtype, int tile_n, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16) {
@@ -238,7 +240,7 @@ int rvk_matmul_nt(const void* a, const void* w, void* out, int batch, int n,
     }
     using T = rvk::bf16;
     return rvk::tc::launch_wgmma<false>(src<T>(a), src<T>(w), dst<T>(out),
-                                        RoundPair{}, batch, m, n, s);
+                                        RoundPair{}, batch, m, n, tile_n, s);
   }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;

@@ -6,9 +6,15 @@
 // rvk_linear_fwd replaces the TPU kernel linear_fwd (_linear_kernel) of
 // rawaudiovae_kelsey_tpu/ops/pallas_linear.py: an output tile owns the
 // whole contraction; bias and activation are applied in fp32 on the
-// accumulator and the result is rounded once.  One launch of the tiled
-// GEMM of gemm.cuh (x read along its rows, w along its rows too, every
-// ragged edge masked).
+// accumulator and the result is rounded once.  bf16 operands that TMA can
+// address take the tensor-core mainloop (wgmma.cuh), the same launch as the
+// tensor-core k-split below: the deep model's whole-k layers (512 -> 256,
+// 256 -> 512, 512 -> 1024 at batch 4096) are below the card's ridge, 6-13
+// MB against 0.5-2 GFLOP, so what matters is enough tiles to read them
+// from every SM (the 128 x 64 tile).  The first version, for fp32 and for
+// bf16 operands TMA cannot take, is one launch of the tiled GEMM of
+// gemm.cuh on the CUDA cores (x read along its rows, w along its rows too,
+// every ragged edge masked).
 //
 // rvk_linear_ksplit_fwd replaces linear_ksplit_fwd (_linear_ksplit_kernel)
 // there.  The TPU kernel tiles the contraction over its grid and carries an
@@ -119,43 +125,38 @@ cudaError_t linear_ksplit_fwd(const T* x, const T* w, const T* b, T* y,
   return cudaGetLastError();
 }
 
-// The tensor-core form's epilogue: bias and activation in fp32 on two
-// adjacent columns of a row, one rounding.  The bias pair of columns n and
-// n + 1 (n even, the bias 4-byte aligned) is one load.
-// Its mode is the activation (an rvk::Act: none, relu, tanh).
-struct BiasActPair {
-  using Column = __nv_bfloat162;
-  static constexpr int kModes = 3;
-  const rvk::bf16* bias;
-  int act;
-  __device__ __forceinline__ int mode() const { return act; }
-  __device__ __forceinline__ Column column(int n) const {
-    return *reinterpret_cast<const __nv_bfloat162*>(bias + n);
+// The tensor-core form of both entry points: bf16 only, the bias 4-byte
+// aligned (its pairs are single loads), tiles 128 x tile_n.
+int tensor_core_linear(const void* x, const void* w, const void* b, void* y,
+                       int batch, int k, int n, int act, int dtype,
+                       int tile_n, cudaStream_t s) {
+  if (dtype != rvk::kBF16 || reinterpret_cast<uintptr_t>(b) % 4 != 0) {
+    return cudaErrorInvalidValue;
   }
-  template <int kAct>
-  __device__ __forceinline__ static float finish(float v) {
-    if (kAct == rvk::kActRelu) return fmaxf(v, 0.f);
-    if (kAct == rvk::kActTanh) return tanhf(v);
-    return v;
-  }
-  template <int kAct>
-  __device__ __forceinline__ __nv_bfloat162 pair(Column b, int, int, float v0,
-                                                 float v1) const {
-    return __floats2bfloat162_rn(finish<kAct>(v0 + __low2float(b)),
-                                 finish<kAct>(v1 + __high2float(b)));
-  }
-};
+  using T = rvk::bf16;
+  return rvk::tc::launch_wgmma<true>(src<T>(x), src<T>(w), dst<T>(y),
+                                     rvk::tc::BiasActPair{src<T>(b), act},
+                                     batch, n, k, tile_n, s);
+}
 
 }  // namespace
 
 extern "C" {
 
 // x (batch, k); w (k, n); b (n,); y (batch, n); all of one dtype
-// (rvk::DType); act an rvk::Act (none, relu or tanh).
+// (rvk::DType); act an rvk::Act (none, relu or tanh).  kernel (an
+// rvk::tc::Kernel): 0, the tiled GEMM on the CUDA cores; 1, the tensor-core
+// form, bf16 only, in tiles 128 x tile_n (256, 128 or 64; the caller's
+// choice, ops/tensor_cores.py tile_n; the first version ignores it).
 int rvk_linear_fwd(const void* x, const void* w, const void* b, void* y,
-                   int batch, int k, int n, int act, int dtype,
-                   void* stream) {
+                   int batch, int k, int n, int act, int dtype, int tile_n,
+                   int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
+    return tensor_core_linear(x, w, b, y, batch, k, n, act, dtype, tile_n,
+                              s);
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return linear_fwd(src<T>(x), src<T>(w), src<T>(b), dst<T>(y), batch, k,
@@ -167,21 +168,17 @@ int rvk_linear_fwd(const void* x, const void* w, const void* b, void* y,
 // rvk::tc::Kernel): 0, the split-K path on the CUDA cores, where ws is
 // fp32 scratch of slices * batch * n elements, slices = ceil(k / kslice);
 // 1, the tensor-core form, bf16 only, which takes no scratch (ws may
-// be null) and walks k in one accumulator.
+// be null) and walks k in one accumulator, in tiles 128 x tile_n: the same
+// launch as rvk_linear_fwd's.
 int rvk_linear_ksplit_fwd(const void* x, const void* w, const void* b,
                           void* y, void* ws, int batch, int k, int n,
                           int slices, int kslice, int act, int dtype,
-                          int kernel, void* stream) {
+                          int tile_n, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kernel != rvk::tc::kCudaCores) {
-    if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16 ||
-        reinterpret_cast<uintptr_t>(b) % 4 != 0) {
-      return cudaErrorInvalidValue;
-    }
-    using T = rvk::bf16;
-    return rvk::tc::launch_wgmma<true>(src<T>(x), src<T>(w), dst<T>(y),
-                                       BiasActPair{src<T>(b), act}, batch, n,
-                                       k, s);
+    if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
+    return tensor_core_linear(x, w, b, y, batch, k, n, act, dtype, tile_n,
+                              s);
   }
   if (kslice <= 0 || slices != rvk::cdiv(k, kslice)) {
     return cudaErrorInvalidValue;

@@ -30,9 +30,23 @@
 // IEEE fp32 FMAs (the TPU runs that case as one bf16 pass; this is at least
 // as accurate); fp32 with passes = 4 forms every product from the bf16
 // hi/lo split of both operands as (hh + ll) + (hl + lh), the arithmetic of
-// the TPU kernel's passes = 4.
+// the TPU kernel's passes = 4.  That is the first version, on the CUDA
+// cores: every element of A is a guarded scalar load, converted to fp32.
+//
+// bf16 operands that TMA can address (G and N multiples of 8, 16-byte
+// aligned pointers) take the tensor-core form instead: the same implicit
+// GEMM on the mainloop of wgmma.cuh, whose ToeplitzTiles walk loads each
+// warpgroup's 64 rows of A as one 3-D TMA box of x (b_half batch rows x
+// t_half positions x 64 channels) at (g0, t0 - shift + j, b0) for tap j:
+// TMA's zero fill is the SAME padding and the batch edge, its clipping the
+// store's.  The conv1d model's middle layers are memory-bound (encoder
+// layer 2: 101 MB against 12.9 GFLOP at batch 4096), so what counts is that
+// x is streamed once from device memory into swizzled tiles by the copy
+// engine, not element by element through the registers; the overlapping
+// windows of neighbouring taps are served by L2.
 
 #include "product.cuh"
+#include "wgmma.cuh"
 
 using rvk::dst;
 using rvk::src;
@@ -79,12 +93,27 @@ extern "C" {
 // x (B, nb, G); w (kb, G, N); bias (N,); y (B, t_out, N); all of one dtype
 // (rvk::DType); act an rvk::Act (none, relu or tanh); passes 1, or 4 with
 // fp32 operands.  B·t_out, nb·G and kb·G must fit an int (the wrapper
-// checks).
+// checks).  kernel (an rvk::tc::Kernel): 0, the first version above; 1, the
+// tensor-core form, bf16 with passes 1 only, walking the output in halves
+// of b_half batch rows x t_half positions (ops/toeplitz.py tile_plan) in
+// tiles 128 x tile_n (ops/tensor_cores.py tile_n); the first version
+// ignores t_half, b_half and tile_n.
 int rvk_toeplitz_fwd(const void* x, const void* w, const void* bias, void* y,
                      int B, int nb, int G, int kb, int N, int t_out,
-                     int shift, int act, int passes, int dtype,
-                     void* stream) {
+                     int shift, int act, int passes, int dtype, int t_half,
+                     int b_half, int tile_n, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16 ||
+        passes != 1 || reinterpret_cast<uintptr_t>(bias) % 4 != 0) {
+      return cudaErrorInvalidValue;
+    }
+    using T = rvk::bf16;
+    return rvk::tc::launch_toeplitz(
+        src<T>(x), src<T>(w), dst<T>(y),
+        rvk::tc::BiasActPair{src<T>(bias), act}, B, nb, G, kb, N, t_out,
+        shift, t_half, b_half, tile_n, s);
+  }
   if (passes == 4) {
     if (dtype != rvk::kF32) return cudaErrorInvalidValue;
     return toeplitz_fwd<4>(src<float>(x), src<float>(w), src<float>(bias),

@@ -1,45 +1,49 @@
 // bf16 tensor-core mainloop for Hopper (sm_90a): the device routine of the
-// bf16 forms of rvk_linear_ksplit_fwd (linear.cu) and rvk_matmul_nt (bwd.cu).
+// bf16 forms of rvk_linear_fwd, rvk_linear_ksplit_fwd (linear.cu),
+// rvk_matmul_nt (bwd.cu) and rvk_toeplitz_fwd (toeplitz.cu).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
-// A is (M, K) row-major bf16.  B is bf16 in one of two layouts, a
-// compile-time choice: K-major, a (N, K) row-major matrix read by its rows
-// (a @ wᵀ: matmul_nt), or N-major, a (K, N) row-major matrix (x @ w: the
-// linear layer), which wgmma transposes as it reads (tnspB = 1): no
-// copy is made of either.  The sum is kept in fp32 registers and handed to
-// the epilogue functor two adjacent columns at a time: epi.column(n) reads
-// what the functor needs for columns n and n + 1 (the bias pair; an
-// Epi::Column of 4 bytes, fetched for the whole tile while the last products
-// are still in flight), and epi.pair<kMode>(column, m, n, v0, v1) does the
-// rest in fp32 (bias, activation, a gate later) and returns the pair rounded
-// once to bf16, which the mainloop stores to C (M, N) row-major.  kMode is
-// epi.mode() in [0, Epi::kModes), turned into a template argument outside
-// the epilogue's unrolled loop: a functor that chooses its activation at run
-// time would otherwise put every activation's code into each of the 64
-// unrolled steps.
+// A is (M, K) row-major bf16, or the implicit A of the block-Toeplitz product
+// (below).  B is bf16 in one of two layouts, a compile-time choice: K-major,
+// a (N, K) row-major matrix read by its rows (a @ wᵀ: matmul_nt), or
+// N-major, a (K, N) row-major matrix (x @ w: the linear layer, the Toeplitz
+// taps), which wgmma transposes as it reads (tnspB = 1): no copy is made of
+// either.  The sum is kept in fp32 registers and handed to the epilogue
+// functor two adjacent columns at a time: epi.column(n) reads what the
+// functor needs for columns n and n + 1 (the bias pair; an Epi::Column of 4
+// bytes, fetched for the whole tile while the last products are still in
+// flight), and epi.pair<kMode>(column, m, n, v0, v1) does the rest in fp32
+// (bias, activation, a gate later) and returns the pair rounded once to
+// bf16, which the mainloop stores to C.  kMode is epi.mode() in [0,
+// Epi::kModes), turned into a template argument outside the epilogue's
+// unrolled loop: a functor that chooses its activation at run time would
+// otherwise put every activation's code into each of the 64 unrolled steps.
 //
-// Which TPU kernels run on it: linear_ksplit_fwd (_linear_ksplit_kernel) of
-// rawaudiovae_kelsey_tpu/ops/pallas_linear.py and matmul_nt of
-// rawaudiovae_kelsey_tpu/ops/pallas_mlp.py.  The TPU kernels carry one fp32
-// accumulator across the k slices, which their grid visits in order; here a
-// block owns an output tile and walks the whole of K itself, in order, in
-// one fp32 accumulator: no split over blocks, no workspace, no atomics, so
-// two launches give equal bits.
+// Which TPU kernels run on it: linear_fwd (_linear_kernel) and
+// linear_ksplit_fwd (_linear_ksplit_kernel) of
+// rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt of
+// rawaudiovae_kelsey_tpu/ops/pallas_mlp.py and toeplitz_fwd
+// (_toeplitz_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py.  The
+// TPU kernels carry one fp32 accumulator across the k slices, which their
+// grid visits in order; here a block owns an output tile and walks the
+// whole of K itself, in order, in one fp32 accumulator: no split over
+// blocks, no workspace, no atomics, so two launches give equal bits.
 //
-// What bounds it.  The deep model's layers at batch 4096 do 2·4096·k·n
-// operations on (4096·k + k·n + 4096·n)·2 bytes: 1365 operations a byte at
-// 4096 x 4096 -> 4096, far above the card's 295, so the tensor cores are the
-// limit and the design is about keeping them fed.  matmul_nt at its dz
-// shape (256 columns out) is below the ridge: there the point is to read a
-// once, from as many SMs as there are tiles.
+// What bounds it.  The deep model's large layers at batch 4096 do
+// 2·4096·k·n operations on (4096·k + k·n + 4096·n)·2 bytes: 1365 operations
+// a byte at 4096 x 4096 -> 4096, far above the card's 295, so the tensor
+// cores are the limit and the design is about keeping them fed.  The
+// whole-k layers (512 -> 256 and the like), matmul_nt at its dz shape and
+// the Toeplitz layers of the conv1d model are below the ridge: there the
+// point is to read the operands once, from as many SMs as there are tiles.
 //
 // Design.
-// * Operands stay bf16.  TMA (cp.async.bulk.tensor.2d) copies a 128 x 64
-//   tile of A and a BN x 64 tile of B into shared memory in the 128-byte
-//   swizzled layout that wgmma reads; what lies outside the matrix arrives
-//   as zeros, so ragged M, N and K need no masks in the loop, and the TMA
-//   store of the epilogue clips what lies outside C.
+// * Operands stay bf16.  TMA (cp.async.bulk.tensor) copies a 128 x 64 tile
+//   of A and a BN x 64 tile of B into shared memory in the 128-byte swizzled
+//   layout that wgmma reads; what lies outside the tensor arrives as zeros,
+//   so ragged M, N and K need no masks in the loop, and the TMA store of the
+//   epilogue clips what lies outside C.
 // * A ring of kStages such stage buffers, each with a "full" mbarrier (the
 //   TMA's bytes have landed) and an "empty" one (every consumer warp is
 //   done reading).  Warp 8's first lane is the producer: it waits for a
@@ -58,30 +62,51 @@
 //   1024), chunks 8192 bytes apart (LBO), and the next k16 is sixteen
 //   k-rows, 2048 bytes, further: k advances by rows of the staged tile, not
 //   by columns.
+// * The tile walk is a template argument (a "Tiles" type): which box of A a
+//   k-step loads into each half of the tile, which k-row of B goes with it,
+//   and where each consumer warpgroup's 64 rows of C are stored.
+//   MatrixTiles is the plain (M, K) x (K or N, ...) product.  ToeplitzTiles
+//   is the block-Toeplitz product y[b, t] = sum_j x[b, t + j - shift] @ w[j]
+//   with x (B, nb, G), w (KB, G, N) read as a (KB·G, N) N-major B and y (B,
+//   t_out, N): each warpgroup's 64 rows are one box of b_half batch rows x
+//   t_half positions (t_half · b_half <= 64, a box never wraps from one
+//   batch row into the next), loaded by one 3-D TMA box of x at (g0, t0 -
+//   shift + j, b0) for k-step (tap j, channels g0 .. g0 + 63) and stored as
+//   one 3-D box of y at (n0, t0, b0).  TMA's zero fill, negative
+//   coordinates included, is the SAME padding and the batch edge; its
+//   clipping drops rows past t_out or B.  The B k-row of that step is j·G +
+//   g0: where G is no multiple of 64 the A box is zero for g >= G, so the
+//   rows of the next tap it meets add nothing (finite weights).  Rows of a
+//   half past t_half · b_half are computed from stale shared memory and
+//   never stored.  The plan (t_half, b_half) comes from the caller
+//   (ops/toeplitz.py tile_plan); the consumers never see where a stage came
+//   from.
 // * Epilogue.  Stores of 4 bytes a thread straight from the accumulator
 //   layout, with the bias fetched and the activation chosen inside the
 //   unrolled loop, made the first epilogue 8 % of the kernel at 4096 x 4096
 //   -> 4096 on an H100 (0.2055 ms against 0.1886 ms with this one).  So
-//   each consumer warpgroup
-//   rounds its 64 x BN half into a staging buffer in shared memory, in the
-//   128-byte swizzled layout (its threads then hit 32 distinct banks), and
-//   one thread hands it to TMA as 64 x 64 boxes; the store drains while the
-//   warpgroup is already in the next tile's products, and is waited for
-//   only before the staging buffer is written again.
-// * Tiles.  128 x 256 where that gives every SM a tile, else 128 x 128 (the
-//   narrow layers and matmul_nt's dz).  One persistent block an SM walks the
-//   tiles, eight tile rows to a group so that the blocks running together
-//   share operands in L2, and the ring runs on across tiles: the producer
-//   loads the next tile while the consumers store this one.  Stages: three
-//   of 48 KB at 128 x 256 (a fourth does not fit), five of 32 KB at 128 x
-//   128 (fewer cost time there; a sixth gained only at 4096 x 4096 -> 4096,
-//   a shape the rule never gives 128 x 128 tiles), beside 64 / 32 KB of
-//   staging, inside the 227 KB a block may take.
+//   each consumer warpgroup rounds its 64 x BN half into a staging buffer in
+//   shared memory, in the 128-byte swizzled layout (its threads then hit 32
+//   distinct banks), and one thread hands it to TMA as 64 x 64 boxes (or
+//   the Toeplitz box); the store drains while the warpgroup is already in
+//   the next tile's products, and is waited for only before the staging
+//   buffer is written again.
+// * Tiles.  128 x BN with BN 256, 128 or 64, chosen by the caller
+//   (ops/tensor_cores.py tile_n: the width with the fewest waves of tiles
+//   times its width, the wider on a tie).  One persistent block an SM walks
+//   the tiles, eight tile rows to a group so that the blocks running
+//   together share operands in L2, and the ring runs on across tiles: the
+//   producer loads the next tile while the consumers store this one.
+//   Stages: three of 48 KB at 128 x 256 (a fourth does not fit), five of 32
+//   KB at 128 x 128 (fewer cost time there; a sixth gained only at 4096 x
+//   4096 -> 4096, a shape the rule never gives 128 x 128 tiles), eight of 24
+//   KB at 128 x 64 (its layers have few k-steps a tile: the ring reaches
+//   into the next tile), beside 64 / 32 / 16 KB of staging, inside the 227
+//   KB a block may take.
 // * What the other products of bwd.cu will need fits this shape: a gate is
 //   an epilogue functor (it sees m, n and both sums before the rounding),
-//   and an A joined from two matrices along k is a second pair of tensor
-//   maps that the producer switches to at the split; the consumers never
-//   see where a stage came from.
+//   and an A joined from two matrices along k is another Tiles type whose
+//   loads switch maps at the split.
 // * A barrier that never completes traps after ~2 s instead of hanging the
 //   card: the launch then fails with an error the wrapper raises.  The trap
 //   ends the process's CUDA context, and a run slowed many times over (a
@@ -106,7 +131,8 @@ enum Kernel : int {
 
 constexpr int kTileM = 128;  // two consumer warpgroups of 64 rows
 constexpr int kTileK = 64;   // 128 bytes of bf16: one swizzle row
-constexpr int kStages128 = 5, kStages256 = 3;
+// the ring's depth by tile width (the header's "Tiles")
+constexpr int stages_for(int BN) { return BN == 256 ? 3 : BN == 128 ? 5 : 8; }
 constexpr int kConsumerWarps = 8;
 constexpr int kBlock = 384;  // 8 consumer warps + the producer's warpgroup
 constexpr uint32_t kATileBytes = kTileM * kTileK * 2;
@@ -176,6 +202,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same from a 3-D tensor, at (c0 innermost, c1, c2).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
 // One box from shared memory to the tensor behind `map`, at (c0 innermost,
 // c1); what lies outside the tensor is not written.  Joins the thread's
 // current bulk group.
@@ -185,6 +223,15 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+// The same into a 3-D tensor, at (c0 innermost, c1, c2).
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_commit() {
@@ -234,6 +281,42 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 // kBT: B is N-major in shared memory.
 template <int BN, bool kBT>
 __device__ __forceinline__ void wgmma_k16(float* d, uint64_t da, uint64_t db);
+
+#define RVK_REGS_32                                                       \
+  "%0, %1, %2, %3, %4, %5, %6, %7, "                                      \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                              \
+  "%24, %25, %26, %27, %28, %29, %30, %31"
+
+template <>
+__device__ __forceinline__ void wgmma_k16<64, false>(float* d, uint64_t da,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" RVK_REGS_32 "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : RVK_D8(d, 0), RVK_D8(d, 8), RVK_D8(d, 16), RVK_D8(d, 24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_k16<64, true>(float* d, uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" RVK_REGS_32 "}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : RVK_D8(d, 0), RVK_D8(d, 8), RVK_D8(d, 16), RVK_D8(d, 24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef RVK_REGS_32
 
 template <>
 __device__ __forceinline__ void wgmma_k16<128, false>(float* d, uint64_t da,
@@ -361,13 +444,14 @@ __device__ __forceinline__ void fence_accumulators(float* acc) {
 
 // A warpgroup's accumulators → its staging buffer (64 rows x BN columns as
 // BN / 64 chunks of 64 rows x 128 bytes, 128-byte swizzle: the layout a TMA
-// store of 64 x 64 boxes reads).  Outside C the functor is not called
-// (its bias or gate has nothing there) and zeros are staged; the store
-// clips them.
+// store of 64 x 64 boxes reads).  Only the first `rows` rows of the half
+// and the columns below N go through the functor (its bias or gate has
+// nothing elsewhere), as rows m0 + r; zeros are staged for the rest and the
+// store clips or skips them.
 template <int BN, int kMode, typename Epi>
 __device__ __forceinline__ void stage_tile(
     float* acc, const Epi& epi, const typename Epi::Column* columns,
-    uint32_t staging, int m0, int n0, int M, int N) {
+    uint32_t staging, int m0, int rows, int n0, int N) {
   fence_accumulators<BN>(acc);
   const int t = threadIdx.x % 128;
   const int r = 16 * (t / 32) + (t % 32) / 4;  // and r + 8: the same r % 8
@@ -377,11 +461,11 @@ __device__ __forceinline__ void stage_tile(
     const int n = n0 + col + 8 * j;
     __nv_bfloat162 lo = __floats2bfloat162_rn(0.f, 0.f), hi = lo;
     if (n < N) {
-      if (m0 + r < M) {
+      if (r < rows) {
         lo = epi.template pair<kMode>(columns[j], m0 + r, n, acc[4 * j],
                                       acc[4 * j + 1]);
       }
-      if (m0 + r + 8 < M) {
+      if (r + 8 < rows) {
         hi = epi.template pair<kMode>(columns[j], m0 + r + 8, n,
                                       acc[4 * j + 2], acc[4 * j + 3]);
       }
@@ -431,15 +515,98 @@ __device__ __forceinline__ void tile_origin(int tile, int tiles_m,
   tn = in_group / rows;
 }
 
+// ------------------------------------------------------------ tile walks
+//
+// A Tiles type (the header's "tile walk") answers, for tile row tm of the
+// output and k-step kb:
+//   tiles_m(), k_steps()        the grid of tile rows and the k-steps of one;
+//   a_bytes(tm)                 the bytes the A loads of a stage bring (a box
+//                               counts whole where TMA zero-fills it);
+//   load_a(dst, map, bar, tm, kb)  those loads, into the 128-row A tile;
+//   b_row(kb)                   the k-row of B that goes with them;
+//   half(tm, wg, m0)            how many of warpgroup wg's 64 rows are
+//                               output (0: none, skip the store), and the
+//                               row index m0 the functor sees for the first;
+//   store(map, src, tm, wg, n)  the TMA store of that half's 64 columns
+//                               from n.
+
+// The plain product: A (M, K) row-major, C (M, N) row-major.
+struct MatrixTiles {
+  int M, K;
+  __host__ __device__ int tiles_m() const { return (M + kTileM - 1) / kTileM; }
+  __device__ int k_steps() const { return (K + kTileK - 1) / kTileK; }
+  __device__ uint32_t a_bytes(int) const { return kATileBytes; }
+  __device__ void load_a(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int tm, int kb) const {
+    tma_load(dst, map, bar, kb * kTileK, tm * kTileM);
+  }
+  __device__ int b_row(int kb) const { return kb * kTileK; }
+  __device__ int half(int tm, int wg, int& m0) const {
+    m0 = tm * kTileM + 64 * wg;
+    return max(0, min(M - m0, 64));
+  }
+  __device__ void store(const CUtensorMap* map, uint32_t src, int tm, int wg,
+                        int n) const {
+    tma_store(map, src, n, tm * kTileM + 64 * wg);
+  }
+};
+
+// The block-Toeplitz product (header, "tile walk"): x (B, nb, G) as a 3-D
+// map (G, nb, B) with boxes (64, t_half, b_half), y (B, t_out, N) as (N,
+// t_out, B) with boxes (64, t_half, b_half).  Half h of the output (tile
+// row h / 2, warpgroup h % 2) is positions [tc·t_half, +t_half) of batch
+// rows [bg·b_half, +b_half), with tc = h % n_t and bg = h / n_t.
+struct ToeplitzTiles {
+  int t_out, shift, G, t_half, b_half;
+  int n_t;      // ceil(t_out / t_half): halves along a batch row
+  int halves;   // n_t · ceil(B / b_half)
+  int g_steps;  // ceil(G / 64): k-steps a tap
+  int steps;    // KB · g_steps
+  __host__ __device__ int tiles_m() const { return (halves + 1) / 2; }
+  __device__ int k_steps() const { return steps; }
+  __device__ uint32_t a_bytes(int tm) const {
+    return (2 * tm + 1 < halves ? 2u : 1u) * t_half * b_half * 128u;
+  }
+  __device__ void load_a(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int tm, int kb) const {
+    const int j = kb / g_steps;
+    const int g0 = (kb - j * g_steps) * kTileK;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = 2 * tm + h;
+      if (at < halves) {
+        const int bg = at / n_t, tc = at - bg * n_t;
+        tma_load(dst + h * (kATileBytes / 2), map, bar, g0,
+                 tc * t_half - shift + j, bg * b_half);
+      }
+    }
+  }
+  __device__ int b_row(int kb) const {
+    const int j = kb / g_steps;
+    return j * G + (kb - j * g_steps) * kTileK;
+  }
+  __device__ int half(int tm, int wg, int& m0) const {
+    m0 = 0;
+    return 2 * tm + wg < halves ? t_half * b_half : 0;
+  }
+  __device__ void store(const CUtensorMap* map, uint32_t src, int tm, int wg,
+                        int n) const {
+    const int at = 2 * tm + wg;
+    const int bg = at / n_t, tc = at - bg * n_t;
+    tma_store(map, src, n, tc * t_half, bg * b_half);
+  }
+};
+
 // ------------------------------------------------------------ the mainloop
 
-template <int BN, int kStages, bool kBT, typename Epi>
+template <int BN, int kStages, bool kBT, typename Epi, typename Tiles>
 __global__ void __launch_bounds__(kBlock, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b,
                   const __grid_constant__ CUtensorMap map_c, const Epi epi,
-                  int M, int N, int K) {
-  static_assert(BN == 128 || BN == 256, "the tile is 128 or 256 wide");
+                  const Tiles tiles, int N) {
+  static_assert(BN == 64 || BN == 128 || BN == 256,
+                "the tile is 64, 128 or 256 wide");
   // a stage is released one step late (one wgmma group stays in flight)
   static_assert(kStages >= 2, "a ring of one stage would deadlock");
   constexpr uint32_t kBTileBytes = BN * kTileK * 2;
@@ -465,10 +632,10 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncthreads();
 
-  const int tiles_m = (M + kTileM - 1) / kTileM;
+  const int tiles_m = tiles.tiles_m();
   const int tiles_n = (N + BN - 1) / BN;
   const int n_tiles = tiles_m * tiles_n;
-  const int n_kb = (K + kTileK - 1) / kTileK;
+  const int n_kb = tiles.k_steps();
 
   if (warp >= kConsumerWarps) {
     // ----- the producer's warpgroup: one lane keeps the loads in flight
@@ -479,23 +646,25 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         int tm, tn;
         tile_origin(tile, tiles_m, tiles_n, tm, tn);
-        const int m0 = tm * kTileM, n0 = tn * BN;
+        const int n0 = tn * BN;
+        const uint32_t stage_bytes = tiles.a_bytes(tm) + kBTileBytes;
         for (int kb = 0; kb < n_kb; ++kb) {
           // a fresh barrier passes a wait on the parity before its first
           mbar_wait(empty + 8 * s, phase ^ 1);
           const uint32_t bar = full + 8 * s;
           const uint32_t a_tile = ring + s * kStageBytes;
           const uint32_t b_tile = a_tile + kATileBytes;
-          mbar_expect_tx(bar, kStageBytes);
-          tma_load(a_tile, &map_a, bar, kb * kTileK, m0);
+          mbar_expect_tx(bar, stage_bytes);
+          tiles.load_a(a_tile, &map_a, bar, tm, kb);
+          const int k0 = tiles.b_row(kb);
           if constexpr (kBT) {
 #pragma unroll
             for (int c = 0; c < BN / 64; ++c) {
               tma_load(b_tile + c * kChunkBytes, &map_b, bar, n0 + 64 * c,
-                       kb * kTileK);
+                       k0);
             }
           } else {
-            tma_load(b_tile, &map_b, bar, kb * kTileK, n0);
+            tma_load(b_tile, &map_b, bar, k0, n0);
           }
           if (++s == kStages) {
             s = 0;
@@ -548,19 +717,21 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       // the staging buffer is free once the last tile's store has read it
       if (leader) tma_store_wait_read();
       named_barrier(1 + wg, 128);
-      const int m0 = tm * kTileM + 64 * wg;
+      int m0;
+      const int rows = tiles.half(tm, wg, m0);
       with_mode(epi, [&](auto mode) {
         stage_tile<BN, decltype(mode)::value>(acc, epi, columns, staged, m0,
-                                              n0, M, N);
+                                              rows, n0, N);
       });
       // generic-proxy stores, read next by the async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       named_barrier(1 + wg, 128);
-      if (leader && m0 < M) {
+      if (leader && rows > 0) {
 #pragma unroll
         for (int c = 0; c < BN / 64; ++c) {
           if (n0 + 64 * c < N) {
-            tma_store(&map_c, staged + c * kChunkBytes, n0 + 64 * c, m0);
+            tiles.store(&map_c, staged + c * kChunkBytes, tm, wg,
+                        n0 + 64 * c);
           }
         }
         tma_store_commit();
@@ -596,39 +767,56 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a row-major (outer, inner) bf16 matrix cut into boxes
-// of box_outer x box_inner (box_inner = 64: 128 bytes), 128-byte swizzle,
-// zeros outside.  The base and the row pitch must be multiples of 16 bytes.
-inline cudaError_t matrix_map(CUtensorMap* map, const bf16* p, int outer,
-                              int inner, int box_outer, int box_inner) {
+// The tensor map of a row-major bf16 tensor of `rank` (2 or 3) dims, dims
+// innermost first, cut into boxes of `box` (box[0] = 64: 128 bytes),
+// 128-byte swizzle, zeros outside.  The base and every pitch must be
+// multiples of 16 bytes.
+inline cudaError_t box_map(CUtensorMap* map, const bf16* p, int rank,
+                           const cuuint64_t* dims, const cuuint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t pitch[1] = {static_cast<cuuint64_t>(inner) * sizeof(bf16)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t step[2] = {1, 1};
+  cuuint64_t pitch[2];
+  cuuint64_t bytes = sizeof(bf16);
+  for (int i = 0; i + 1 < rank; ++i) {
+    bytes *= dims[i];
+    pitch[i] = bytes;
+  }
+  const cuuint32_t step[3] = {1, 1, 1};
   const CUresult rc = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
       const_cast<void*>(static_cast<const void*>(p)), dims, pitch, box, step,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BN, int kStages, bool kBT, typename Epi>
-cudaError_t launch_ring(const bf16* a, const bf16* b, bf16* c, const Epi& epi,
-                        int M, int N, int K, cudaStream_t stream) {
-  CUtensorMap map_a, map_b, map_c;
-  cudaError_t err = matrix_map(&map_a, a, M, K, kTileM, kTileK);
-  if (err != cudaSuccess) return err;
-  err = kBT ? matrix_map(&map_b, b, K, N, kTileK, 64)
-            : matrix_map(&map_b, b, N, K, BN, kTileK);
-  if (err != cudaSuccess) return err;
-  err = matrix_map(&map_c, c, M, N, 64, 64);
-  if (err != cudaSuccess) return err;
-  auto kernel = wgmma_gemm_kernel<BN, kStages, kBT, Epi>;
+// A row-major (outer, inner) matrix in boxes of box_outer x box_inner.
+inline cudaError_t matrix_map(CUtensorMap* map, const bf16* p, int outer,
+                              int inner, int box_outer, int box_inner) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  return box_map(map, p, 2, dims, box);
+}
+
+// A (rows, cols, inner) tensor in boxes of (64, box_cols, box_rows).
+inline cudaError_t cube_map(CUtensorMap* map, const bf16* p, int rows,
+                            int cols, int inner, int box_cols, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  return box_map(map, p, 3, dims, box);
+}
+
+template <int BN, bool kBT, typename Epi, typename Tiles>
+cudaError_t launch_tiles(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                         const CUtensorMap& map_c, const Epi& epi,
+                         const Tiles& tiles, int N, cudaStream_t stream) {
+  constexpr int kStages = stages_for(BN);
+  auto kernel = wgmma_gemm_kernel<BN, kStages, kBT, Epi, Tiles>;
   // the ring, the two staging buffers, the slack to align them to 1024
   // bytes, the barriers
   const int smem = kStages * (kATileBytes + BN * kTileK * 2) +
@@ -638,39 +826,132 @@ cudaError_t launch_ring(const bf16* a, const bf16* b, bf16* c, const Epi& epi,
   int device = 0;
   cudaGetDevice(&device);
   if (device >= 64 || !(opted_in >> device & 1)) {
-    err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     if (device < 64) opted_in |= uint64_t{1} << device;
   }
-  const int tiles = cdiv(M, kTileM) * cdiv(N, BN);
-  const int blocks = tiles < sm_count() ? tiles : sm_count();
-  kernel<<<blocks, kBlock, smem, stream>>>(map_a, map_b, map_c, epi, M, N,
-                                           K);
+  const int n_tiles = tiles.tiles_m() * cdiv(N, BN);
+  const int blocks = n_tiles < sm_count() ? n_tiles : sm_count();
+  kernel<<<blocks, kBlock, smem, stream>>>(map_a, map_b, map_c, epi, tiles,
+                                           N);
   return cudaGetLastError();
 }
 
-// C = epi(A · B) on the tensor cores.  a (M, K) row-major; b (N, K)
-// row-major, or (K, N) row-major with kBT; c (M, N) row-major; all bf16 and
-// 16-byte aligned, K and N multiples of 8 (the caller's dispatch holds
-// that).
-// 128 x 256 tiles where that gives every SM one, else 128 x 128.
+// f(std::integral_constant<int, tile_n>) for a tile width of 256, 128 or
+// 64; anything else is refused.
+template <typename F>
+cudaError_t with_width(int tile_n, F&& f) {
+  switch (tile_n) {
+    case 256:
+      return f(std::integral_constant<int, 256>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// C = epi(A · B) on the tensor cores in 128 x tile_n tiles.  a (M, K)
+// row-major; b (N, K) row-major, or (K, N) row-major with kBT; c (M, N)
+// row-major; all bf16 and 16-byte aligned, K and N multiples of 8 (the
+// caller's dispatch holds that, ops/tensor_cores.py).
 template <bool kBT, typename Epi>
 cudaError_t launch_wgmma(const bf16* a, const bf16* b, bf16* c,
-                         const Epi& epi, int M, int N, int K,
+                         const Epi& epi, int M, int N, int K, int tile_n,
                          cudaStream_t stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
-  if (K <= 0 || K % 8 != 0 || N % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(c) % 16 != 0) {
+  if (K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(a) || !aligned16(b) ||
+      !aligned16(c)) {
     return cudaErrorInvalidValue;
   }
-  if (cdiv(M, kTileM) * cdiv(N, 256) >= sm_count()) {
-    return launch_ring<256, kStages256, kBT>(a, b, c, epi, M, N, K, stream);
-  }
-  return launch_ring<128, kStages128, kBT>(a, b, c, epi, M, N, K, stream);
+  return with_width(tile_n, [&](auto width) {
+    constexpr int BN = decltype(width)::value;
+    CUtensorMap map_a, map_b, map_c;
+    cudaError_t err = matrix_map(&map_a, a, M, K, kTileM, kTileK);
+    if (err != cudaSuccess) return err;
+    err = kBT ? matrix_map(&map_b, b, K, N, kTileK, 64)
+              : matrix_map(&map_b, b, N, K, BN, kTileK);
+    if (err != cudaSuccess) return err;
+    err = matrix_map(&map_c, c, M, N, 64, 64);
+    if (err != cudaSuccess) return err;
+    return launch_tiles<BN, kBT>(map_a, map_b, map_c, epi, MatrixTiles{M, K},
+                                 N, stream);
+  });
 }
+
+// y = epi(the block-Toeplitz product) on the tensor cores (header, "tile
+// walk"): x (B, nb, G), w (KB, G, N), y (B, t_out, N), all bf16 and 16-byte
+// aligned, G and N multiples of 8, 0 <= shift < KB; the plan (t_half,
+// b_half) has t_half · b_half <= 64 and t_half >= t_out where b_half > 1
+// (ops/toeplitz.py tile_plan).
+template <typename Epi>
+cudaError_t launch_toeplitz(const bf16* x, const bf16* w, bf16* y,
+                            const Epi& epi, int B, int nb, int G, int KB,
+                            int N, int t_out, int shift, int t_half,
+                            int b_half, int tile_n, cudaStream_t stream) {
+  if (B <= 0 || t_out <= 0 || N <= 0) return cudaSuccess;
+  if (nb <= 0 || G <= 0 || KB <= 0 || G % 8 != 0 || N % 8 != 0 ||
+      shift < 0 || shift >= KB || t_half < 1 || b_half < 1 ||
+      t_half * b_half > 64 || (b_half > 1 && t_half < t_out) ||
+      !aligned16(x) || !aligned16(w) || !aligned16(y)) {
+    return cudaErrorInvalidValue;
+  }
+  ToeplitzTiles tiles;
+  tiles.t_out = t_out;
+  tiles.shift = shift;
+  tiles.G = G;
+  tiles.t_half = t_half;
+  tiles.b_half = b_half;
+  tiles.n_t = cdiv(t_out, t_half);
+  tiles.halves = tiles.n_t * cdiv(B, b_half);
+  tiles.g_steps = cdiv(G, kTileK);
+  tiles.steps = KB * tiles.g_steps;
+  return with_width(tile_n, [&](auto width) {
+    constexpr int BN = decltype(width)::value;
+    CUtensorMap map_a, map_b, map_c;
+    cudaError_t err = cube_map(&map_a, x, B, nb, G, t_half, b_half);
+    if (err != cudaSuccess) return err;
+    err = matrix_map(&map_b, w, KB * G, N, kTileK, 64);
+    if (err != cudaSuccess) return err;
+    err = cube_map(&map_c, y, B, t_out, N, t_half, b_half);
+    if (err != cudaSuccess) return err;
+    return launch_tiles<BN, true>(map_a, map_b, map_c, epi, tiles, N, stream);
+  });
+}
+
+// The linear layer's epilogue, and the Toeplitz product's: bias and
+// activation in fp32 on two adjacent columns of a row, one rounding.  The
+// bias pair of columns n and n + 1 (n even, the bias 4-byte aligned) is one
+// load.  Its mode is the activation (an rvk::Act: none, relu, tanh).
+struct BiasActPair {
+  using Column = __nv_bfloat162;
+  static constexpr int kModes = 3;
+  const bf16* bias;
+  int act;
+  __device__ __forceinline__ int mode() const { return act; }
+  __device__ __forceinline__ Column column(int n) const {
+    return *reinterpret_cast<const __nv_bfloat162*>(bias + n);
+  }
+  template <int kAct>
+  __device__ __forceinline__ static float finish(float v) {
+    if (kAct == kActRelu) return fmaxf(v, 0.f);
+    if (kAct == kActTanh) return tanhf(v);
+    return v;
+  }
+  template <int kAct>
+  __device__ __forceinline__ __nv_bfloat162 pair(Column b, int, int, float v0,
+                                                 float v1) const {
+    return __floats2bfloat162_rn(finish<kAct>(v0 + __low2float(b)),
+                                 finish<kAct>(v1 + __high2float(b)));
+  }
+};
 
 }  // namespace
 }  // namespace tc

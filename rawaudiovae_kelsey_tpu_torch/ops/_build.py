@@ -44,14 +44,14 @@ _SIGNATURES = {
     "rvk_enc_bwd_full": [_P] * 13 + [_I] * 5 + [_P],
     "rvk_dec_bwd_full": [_P] * 11 + [_I] * 5 + [_P],
     "rvk_loss_sums": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P],
-    "rvk_matmul_nt": [_P] * 3 + [_I] * 5 + [_P],
+    "rvk_matmul_nt": [_P] * 3 + [_I] * 6 + [_P],
     "rvk_matmul_nt_mask": [_P] * 4 + [_I] * 4 + [_P],
     "rvk_matmul_nt2_mask": [_P] * 6 + [_I] * 4 + [_P],
     "rvk_reparameterize": [_U] * 2 + [_P] * 3 + [_I] * 2 + [_P],
     "rvk_philox_words": [_U] * 2 + [_P] + [_I] * 2 + [_P],
-    "rvk_linear_fwd": [_P] * 4 + [_I] * 5 + [_P],
-    "rvk_linear_ksplit_fwd": [_P] * 5 + [_I] * 8 + [_P],
-    "rvk_toeplitz_fwd": [_P] * 4 + [_I] * 10 + [_P],
+    "rvk_linear_fwd": [_P] * 4 + [_I] * 7 + [_P],
+    "rvk_linear_ksplit_fwd": [_P] * 5 + [_I] * 9 + [_P],
+    "rvk_toeplitz_fwd": [_P] * 4 + [_I] * 14 + [_P],
     "rvk_dw_fused": [_P] * 5 + [_I] * 5 + [_P],
     "rvk_dx_fused": [_P] * 4 + [_I] * 5 + [_P],
     "rvk_leaf_update": [_P] * 6 + [_L] + [_F] * 6 + [_P],
@@ -59,6 +59,13 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# entry point name → its bound ctypes function, filled when the library
+# loads: a launch then costs one dict lookup, not an attribute walk
+_entry: dict = {}
+# the raw cudaStream_t of a device's current stream, as an int, without
+# building a torch.cuda.Stream object (the public call builds one); a build
+# of torch without CUDA has none, and never launches
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _nvcc() -> str:
@@ -130,6 +137,7 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _entry[name] = fn
             lib.rvk_error_string.argtypes = [ctypes.c_int]
             lib.rvk_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -140,14 +148,25 @@ def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry point ``name`` on ``device``'s current stream.  Tensor
     arguments pass as device pointers, ints and floats as they are (a float
     is rounded to the fp32 the entry point takes); the caller has checked
-    device, dtype, shape and contiguity.  Raises if the launch failed."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-                 for a in args]
-        rc = getattr(lib, name)(*cargs, stream)
+    device, dtype, shape and contiguity.  Raises if the launch failed.
+
+    The entry points launch on the calling thread's current device: it is
+    switched to ``device`` only where it is another (a ``device`` without
+    an index is the current one)."""
+    fn = _entry.get(name)
+    if fn is None:
+        library()
+        fn = _entry[name]
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+             for a in args]
+    if index == current:
+        rc = fn(*cargs, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*cargs, _raw_stream(index))
     if rc != 0:
         raise RuntimeError(
             f"{name}: CUDA error {rc} "
-            f"({lib.rvk_error_string(rc).decode()})")
+            f"({library().rvk_error_string(rc).decode()})")

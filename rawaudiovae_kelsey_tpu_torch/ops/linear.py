@@ -6,16 +6,19 @@ Two kernels compute the same function (``csrc/linear.cu``):
 * :func:`linear_fwd`: an output tile owns the whole contraction, one
   launch;
 * :func:`linear_ksplit_fwd`: the contraction is walked slice by slice in
-  order.  bf16 operands that TMA can address (``ops/tensor_cores.py``) take
-  the tensor-core kernel (``csrc/wgmma.cuh``): one launch, a block owns an
-  output tile and carries one fp32 accumulator across all of k, bias,
-  activation and the one rounding in its epilogue, no workspace.  fp32
-  operands, and bf16 ones TMA cannot take, keep the first version on the
-  CUDA cores: slices of ``KSPLIT_BLOCK_K`` over a grid dimension, every
-  block writes the fp32 partial sum of its slice to a workspace and a
-  second stage adds the slices in order, adds the bias, applies the
-  activation and rounds once.  Neither uses atomics, so two launches give
-  equal bits.
+  order.
+
+bf16 operands that TMA can address (``ops/tensor_cores.py``) take the
+tensor-core kernel (``csrc/wgmma.cuh``) in both: one launch, a block owns an
+output tile and carries one fp32 accumulator across all of k, bias,
+activation and the one rounding in its epilogue, no workspace.  fp32
+operands, and bf16 ones TMA cannot take, keep the first versions on the
+CUDA cores: for :func:`linear_fwd` one tiled GEMM; for
+:func:`linear_ksplit_fwd` slices of ``KSPLIT_BLOCK_K`` over a grid
+dimension, every block writes the fp32 partial sum of its slice to a
+workspace and a second stage adds the slices in order, adds the bias,
+applies the activation and rounds once.  None uses atomics, so two launches
+give equal bits.
 
 :func:`dispatch_fwd` picks between them by the JAX package's rule
 (``_dispatch_fwd``): a layer with batch ≥ ``KSPLIT_BLOCK_B``, k ≥ 2 ·
@@ -122,24 +125,46 @@ def _check(name: str, x, w, b, act: str):
     return dev, dt, batch, k, n
 
 
-def linear_fwd(x, w, b, act: str = "none") -> Tensor:
+def linear_fwd(x, w, b, act: str = "none", kernel: str = "auto") -> Tensor:
     """``act(x @ w + b)``, the whole contraction in one pass per output
     tile.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_linear.py`` ``linear_fwd``.
-    CUDA: one launch of the tiled GEMM (``csrc/linear.cu``)."""
+    CUDA, one launch of one of two hand-written kernels, chosen as
+    :func:`linear_ksplit_fwd` chooses: bf16 operands TMA can address take
+    the tensor-core kernel (``csrc/wgmma.cuh``), everything else the tiled
+    GEMM on the CUDA cores (``csrc/linear.cu``).  ``kernel`` names one
+    instead; the tensor-core kernel on operands it cannot take raises.  One
+    call counts once in ``launches`` and in ``tensor_core_launches`` too
+    when that kernel ran."""
+    tensor_cores.check_name("linear_fwd", kernel)
     if x.device.type == "cpu":
         return linear_fwd_ref(x, w, b, act)
-    dev, dt, batch, k, n = _check("linear_fwd", x, w, b, act)
+    dev, dt, batch, k, n, code, tile = _prepare("linear_fwd", x, w, b, act,
+                                                kernel)
     y = torch.empty((batch, n), device=dev, dtype=dt)
     if batch and n:
         _build.launch("rvk_linear_fwd", dev, x, w, b, y, batch, k, n,
-                      ACT_CODES[act], DTYPE_CODES[dt])
+                      ACT_CODES[act], DTYPE_CODES[dt], tile, code)
         linear_fwd.launches += 1
+        linear_fwd.tensor_core_launches += bool(code)
     return y
 
 
 linear_fwd.launches = 0
+linear_fwd.tensor_core_launches = 0
+
+
+def _prepare(name: str, x, w, b, act: str, kernel: str):
+    """The checks and the kernel choice of :func:`linear_fwd` and
+    :func:`linear_ksplit_fwd` on CUDA tensors → ``(device, dtype, batch, k,
+    n, kernel code, tile width)``."""
+    dev, dt, batch, k, n = _check(name, x, w, b, act)
+    code = tensor_cores.resolve_kernel(
+        name, kernel, dt, batch, k, n, tensor_cores.pointers_aligned(x, w, b))
+    tile = tensor_cores.width(code, dev, -(-batch // tensor_cores.TILE_M), n) \
+        if batch and n else 0
+    return dev, dt, batch, k, n, code, tile
 
 
 def linear_ksplit_fwd(x, w, b, act: str = "none",
@@ -165,10 +190,8 @@ def linear_ksplit_fwd(x, w, b, act: str = "none",
     tensor_cores.check_name("linear_ksplit_fwd", kernel)
     if x.device.type == "cpu":
         return linear_ksplit_fwd_ref(x, w, b, act)
-    dev, dt, batch, k, n = _check("linear_ksplit_fwd", x, w, b, act)
-    code = tensor_cores.resolve_kernel(
-        "linear_ksplit_fwd", kernel, dt, batch, k, n,
-        tensor_cores.pointers_aligned(x, w, b))
+    dev, dt, batch, k, n, code, tile = _prepare("linear_ksplit_fwd", x, w, b,
+                                                act, kernel)
     y = torch.empty((batch, n), device=dev, dtype=dt)
     if batch and n:
         slices = ksplit_slices(k)
@@ -176,7 +199,7 @@ def linear_ksplit_fwd(x, w, b, act: str = "none",
                                            dtype=torch.float32)
         _build.launch("rvk_linear_ksplit_fwd", dev, x, w, b, y, ws, batch, k,
                       n, slices, KSPLIT_BLOCK_K, ACT_CODES[act],
-                      DTYPE_CODES[dt], code)
+                      DTYPE_CODES[dt], tile, code)
         linear_ksplit_fwd.launches += 1
         linear_ksplit_fwd.tensor_core_launches += bool(code)
     return y

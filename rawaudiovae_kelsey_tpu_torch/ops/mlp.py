@@ -174,6 +174,10 @@ def require(t: Tensor, name: str, shape: Tuple[int, ...],
             device: torch.device, dtype: torch.dtype = torch.float32) -> None:
     """Raise unless ``t`` is what a kernel takes: on ``device``, of
     ``dtype``, of ``shape``, contiguous."""
+    # one fused test on the launch path; the messages only on a failure
+    if (isinstance(t, Tensor) and t.device == device and t.dtype == dtype
+            and t.shape == shape and t.is_contiguous()):
+        return
     if not isinstance(t, Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -310,8 +314,10 @@ def matmul_nt(a, w, kernel: str = "auto") -> Tensor:
         tensor_cores.pointers_aligned(a, w))
     out = torch.empty((batch, m), device=dev, dtype=dt)
     if batch:
+        tile = tensor_cores.width(code, dev, -(-batch // tensor_cores.TILE_M),
+                                  m)
         _build.launch("rvk_matmul_nt", dev, a, w, out, batch, n, m,
-                      DTYPE_CODES[dt], code)
+                      DTYPE_CODES[dt], tile, code)
         matmul_nt.launches += 1
         matmul_nt.tensor_core_launches += bool(code)
     return out

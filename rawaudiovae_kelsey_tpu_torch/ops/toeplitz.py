@@ -11,13 +11,26 @@ and blocks outside ``[0, nb)`` read as zero, which is how SAME padding is
 expressed: through ``shift``, with no padded copy.  Both convolution
 directions map onto it (``ops/conv.py``).
 
-The kernel (``csrc/toeplitz.cu``) runs the whole op as one implicit GEMM of
-``B·t_out`` rows against ``w`` viewed as ``(KB·G, N)``.  Operand modes:
-bf16 with fp32 accumulation; fp32 with ``passes = 1``, IEEE fp32; fp32 with
-``passes = 4``, every product formed from the bf16 hi/lo split of both
-operands as ``(hh + ll) + (hl + lh)``.  ``passes`` is an explicit argument
-here: the JAX package reads it from the ambient
-``jax.default_matmul_precision``, and this package has no ambient tier.
+Two hand-written kernels run the whole op as one implicit GEMM of
+``B·t_out`` rows against ``w`` viewed as ``(KB·G, N)``:
+
+* bf16 operands with ``passes = 1`` that TMA can address (``G`` and ``N``
+  multiples of 8, 16-byte aligned pointers: :func:`takes_tensor_cores`)
+  take the tensor-core kernel (``csrc/wgmma.cuh``, its Toeplitz tile walk):
+  each consumer warpgroup's 64 output rows are one box of ``b_half`` batch
+  rows by ``t_half`` positions (:func:`tile_plan`), and tap ``j``'s rows
+  of A are the same box of x shifted by ``j - shift`` positions, loaded by
+  TMA with the rows outside ``[0, nb)`` and past the batch zero-filled;
+* everything else the first version on the CUDA cores
+  (``csrc/toeplitz.cu``).  Operand modes: bf16 with fp32 accumulation; fp32
+  with ``passes = 1``, IEEE fp32; fp32 with ``passes = 4``, every product
+  formed from the bf16 hi/lo split of both operands as ``(hh + ll) + (hl +
+  lh)``.
+
+``passes`` is an explicit argument here: the JAX package reads it from the
+ambient ``jax.default_matmul_precision``, and this package has no ambient
+tier.  The two kernels add the same fp32 products in another order, so the
+output's bits follow the choice (as in ``ops/tensor_cores.py``).
 
 :func:`toeplitz_matmul` is the differentiable op.  It is closed under
 differentiation: ``dx`` is the same kernel on the cotangent with the taps
@@ -33,7 +46,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from rawaudiovae_kelsey_tpu_torch.ops import _build
+from rawaudiovae_kelsey_tpu_torch.ops import _build, tensor_cores
 from rawaudiovae_kelsey_tpu_torch.ops.linear import (
     ACT_CODES,
     act_backward,
@@ -64,6 +77,55 @@ def tap_ranges(kb: int, shift: int, t: int, nb: int
         if e > a:
             out.append((j, o, a, e))
     return out
+
+
+def tile_plan(t_out: int) -> Tuple[int, int]:
+    """The tensor-core kernel's half tile for ``t_out`` output positions a
+    batch row → ``(t_half, b_half)``: each consumer warpgroup's 64 rows are
+    ``b_half`` whole batch rows of ``t_half = t_out`` positions where
+    ``t_out < 64`` (the conv1d model's 16 and 4: every row used), else 64
+    positions of one batch row.  A box never runs from one batch row into
+    the next, and its dims (64 channels, ``t_half``, ``b_half``) stay
+    within TMA's 256."""
+    if t_out >= 64:
+        return 64, 1
+    return t_out, 64 // t_out
+
+
+def tile_halves(B: int, t_out: int, t_half: int, b_half: int) -> int:
+    """How many half tiles (warpgroup boxes) cover the ``(B, t_out)``
+    output: ``ceil(t_out / t_half)`` along a batch row times ``ceil(B /
+    b_half)``; tile row ``h // 2`` holds halves ``h`` and ``h + 1``."""
+    return -(-t_out // t_half) * -(-B // b_half)
+
+
+def half_origin(h: int, t_out: int, t_half: int, b_half: int
+                ) -> Tuple[int, int]:
+    """Half tile ``h`` → its first batch row and position ``(b0, t0)``: the
+    halves of one group of ``b_half`` batch rows are consecutive
+    (``csrc/wgmma.cuh`` ToeplitzTiles)."""
+    n_t = -(-t_out // t_half)
+    return (h // n_t) * b_half, (h % n_t) * t_half
+
+
+def k_step(kb: int, G: int) -> Tuple[int, int]:
+    """k-step ``kb`` of the tensor-core kernel → ``(tap j, channel g0)``:
+    the A box at ``(g0, t0 - shift + j, b0)`` meets the rows ``j·G + g0``
+    onwards of w viewed as ``(KB·G, N)``.  A tap takes ``ceil(G / 64)``
+    steps of 64 channels."""
+    steps = -(-G // 64)
+    return kb // steps, (kb % steps) * 64
+
+
+def takes_tensor_cores(dtype: torch.dtype, B: int, nb: int, t_out: int,
+                       G: int, N: int, passes: int = 1,
+                       aligned: bool = True) -> bool:
+    """Whether a Toeplitz product runs on the tensor-core kernel:
+    ``tensor_cores.takes_tensor_cores`` with the contraction ``G`` a tap
+    and output width ``N`` (row pitches of x, w and y of 16 bytes), one
+    pass, and an input with rows (``nb >= 1``)."""
+    return (passes == 1 and nb >= 1 and tensor_cores.takes_tensor_cores(
+        dtype, B * t_out, G, N, aligned))
 
 
 def check_passes(dtype: torch.dtype, passes: int) -> None:
@@ -98,22 +160,36 @@ def toeplitz_fwd_ref(x, w, b, act: str = "none", t_out: Optional[int] = None,
     return apply_act(act, acc + _f(b)).to(x.dtype)
 
 
+def kernel_device(x: Tensor) -> torch.device:
+    """The device a launch for ``x`` runs on; raises for anything but a
+    CUDA tensor (CPU tensors never reach here)."""
+    if x.device.type != "cuda":
+        raise ValueError("toeplitz_fwd: the kernel runs on CUDA tensors, "
+                         f"got {x.device}")
+    return x.device
+
+
 def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
-                 shift: int = 0, passes: int = 1) -> Tensor:
+                 shift: int = 0, passes: int = 1,
+                 kernel: str = "auto") -> Tensor:
     """``act(Σ_j x[:, t+j-shift, :] @ w[j] + b)``: x ``(B, nb, G)``, w
     ``(KB, G, N)``, b ``(N,)`` → ``(B, t_out, N)``; input rows out of range
     contribute zero.  ``t_out`` defaults to ``nb - KB + 1``.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py``
-    ``toeplitz_fwd``.  CUDA: one launch (``csrc/toeplitz.cu``)."""
+    ``toeplitz_fwd``.  CUDA: one launch of one of two hand-written
+    kernels, chosen by :func:`takes_tensor_cores`: the tensor-core kernel
+    (``csrc/wgmma.cuh``) or the first version (``csrc/toeplitz.cu``).
+    ``kernel`` names one instead (``tensor_cores.KERNEL_CODES``); the
+    tensor-core kernel on operands it cannot take raises.  One call counts
+    once in ``launches`` and in ``tensor_core_launches`` too when that
+    kernel ran."""
+    tensor_cores.check_name("toeplitz_fwd", kernel)
     if x.device.type == "cpu":
         return toeplitz_fwd_ref(x, w, b, act, t_out, shift, passes)
-    if x.device.type != "cuda":
-        raise ValueError("toeplitz_fwd: the kernel runs on CUDA tensors, "
-                         f"got {x.device}")
+    dev = kernel_device(x)
     if act not in ACT_CODES:
         raise ValueError(f"toeplitz_fwd: unknown activation {act!r}")
-    dev = x.device
     dt = operand_dtype(x, "toeplitz_fwd: x")
     check_passes(dt, passes)
     if x.dim() != 3 or w.dim() != 3:
@@ -133,15 +209,29 @@ def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
     require(x, "x", (B, nb, G), dev, dt)
     require(w, "w", (kb, G, N), dev, dt)
     require(b, "b", (N,), dev, dt)
+    aligned = tensor_cores.pointers_aligned(x, w, b)
+    code = tensor_cores.resolve(
+        "toeplitz_fwd", kernel,
+        takes_tensor_cores(dt, B, nb, t, G, N, passes, aligned),
+        lambda: f"{dt}, passes = {passes}, x {tuple(x.shape)}, w "
+                f"{tuple(w.shape)}, t_out = {t}, aligned = {aligned}")
     y = torch.empty((B, t, N), device=dev, dtype=dt)
     if y.numel():
+        t_half = b_half = tile = 0
+        if code:
+            t_half, b_half = tile_plan(t)
+            halves = tile_halves(B, t, t_half, b_half)
+            tile = tensor_cores.width(code, dev, -(-halves // 2), N)
         _build.launch("rvk_toeplitz_fwd", dev, x, w, b, y, B, nb, G, kb, N,
-                      t, shift, ACT_CODES[act], passes, DTYPE_CODES[dt])
+                      t, shift, ACT_CODES[act], passes, DTYPE_CODES[dt],
+                      t_half, b_half, tile, code)
         toeplitz_fwd.launches += 1
+        toeplitz_fwd.tensor_core_launches += bool(code)
     return y
 
 
 toeplitz_fwd.launches = 0
+toeplitz_fwd.tensor_core_launches = 0
 
 
 class ToeplitzMatmul(torch.autograd.Function):

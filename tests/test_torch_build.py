@@ -95,12 +95,15 @@ def test_every_bound_entry_point_is_exported_by_a_source():
                  "rvk_leaf_update"):
         assert name in exported
     assert "const char* rvk_error_string(int code)" in text
-    # the two entry points with a tensor-core form name the kernel to run
-    # last before the stream, and both sources build on the shared mainloop
-    for name in ("rvk_linear_ksplit_fwd", "rvk_matmul_nt"):
+    # the entry points with a tensor-core form name the kernel to run last
+    # before the stream, its tile width before that, and their sources
+    # build on the shared mainloop
+    for name in ("rvk_linear_fwd", "rvk_linear_ksplit_fwd", "rvk_matmul_nt",
+                 "rvk_toeplitz_fwd"):
         assert exported[name][-2] == "int kernel", name
+        assert exported[name][-3] == "int tile_n", name
         assert _build._SIGNATURES[name][-2] is _build._I, name
-    for src in ("linear.cu", "bwd.cu"):
+    for src in ("linear.cu", "bwd.cu", "toeplitz.cu"):
         assert '#include "wgmma.cuh"' in (_build.CSRC / src).read_text()
     assert (_build.CSRC / "wgmma.cuh").is_file()
 
@@ -124,14 +127,23 @@ def test_every_wrapper_names_a_bound_entry_point():
         assert w.launches == 0 or isinstance(w.launches, int)
     assert _build._SIGNATURES["rvk_leaf_update"] == (
         [_build._P] * 6 + [_build._L] + [_build._F] * 6 + [_build._P])
-    # x, w, b, y, ws | batch, k, n, slices, kslice, act, dtype, kernel
+    # x, w, b, y, ws | batch, k, n, slices, kslice, act, dtype, tile_n,
+    # kernel
     assert _build._SIGNATURES["rvk_linear_ksplit_fwd"] == (
-        [_build._P] * 5 + [_build._I] * 8 + [_build._P])
-    # a, w, out | batch, n, m, dtype, kernel
+        [_build._P] * 5 + [_build._I] * 9 + [_build._P])
+    # a, w, out | batch, n, m, dtype, tile_n, kernel
     assert _build._SIGNATURES["rvk_matmul_nt"] == (
-        [_build._P] * 3 + [_build._I] * 5 + [_build._P])
+        [_build._P] * 3 + [_build._I] * 6 + [_build._P])
+    # x, w, b, y | batch, k, n, act, dtype, tile_n, kernel
+    assert _build._SIGNATURES["rvk_linear_fwd"] == (
+        [_build._P] * 4 + [_build._I] * 7 + [_build._P])
+    # x, w, bias, y | B, nb, G, kb, N, t_out, shift, act, passes, dtype,
+    # t_half, b_half, tile_n, kernel
+    assert _build._SIGNATURES["rvk_toeplitz_fwd"] == (
+        [_build._P] * 4 + [_build._I] * 14 + [_build._P])
     for w in ops.KERNEL_WRAPPERS:
-        if w.__name__ in ("linear_ksplit_fwd", "matmul_nt"):
+        if w.__name__ in ("linear_fwd", "linear_ksplit_fwd", "matmul_nt",
+                          "toeplitz_fwd"):
             assert w.tensor_core_launches == 0 \
                 or isinstance(w.tensor_core_launches, int)
             assert "kernel" in inspect.signature(w).parameters
@@ -164,3 +176,30 @@ def test_missing_toolkit_raises(tmp_path, monkeypatch):
         pytest.skip("an nvcc is on PATH")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_launch_passes_pointers_and_the_current_stream(monkeypatch):
+    """``launch`` hands the entry point each tensor's data pointer, every
+    other argument as it is, and the raw current stream of the device last;
+    a ``cuda`` device without an index is the current one; a non-zero
+    return code raises with the library's message."""
+    import types
+
+    import torch
+
+    calls = []
+    monkeypatch.setitem(_build._entry, "rvk_stand_in",
+                        lambda *a: calls.append(a) or 0)
+    monkeypatch.setitem(_build._entry, "rvk_failing", lambda *a: 700)
+    monkeypatch.setattr(_build.torch.cuda, "current_device", lambda: 2)
+    monkeypatch.setattr(_build, "_raw_stream", lambda index: 1000 + index)
+    monkeypatch.setattr(_build, "library", lambda: types.SimpleNamespace(
+        rvk_error_string=lambda rc: b"an illegal memory access"))
+    t = torch.zeros(4)
+    _build.launch("rvk_stand_in", torch.device("cuda"), t, 7, 1.5, None)
+    _build.launch("rvk_stand_in", torch.device("cuda", 2), t)
+    assert calls == [(t.data_ptr(), 7, 1.5, None, 1002),
+                     (t.data_ptr(), 1002)]
+    with pytest.raises(RuntimeError, match="rvk_failing: CUDA error 700 "
+                       r"\(an illegal memory access\)"):
+        _build.launch("rvk_failing", torch.device("cuda", 2), t)

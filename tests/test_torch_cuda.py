@@ -1146,3 +1146,201 @@ def test_deep_bf16_forward_through_the_tensor_cores(cuda):
     for got, want in zip(outs["pallas"], outs["xla"]):
         assert got.dtype == want.dtype == torch.bfloat16
         assert _rel(got, want) <= 4 * BF16_REL
+
+
+# linear_fwd (row 16) and toeplitz_fwd (row 17) on the tensor cores: bf16
+# operands TMA can take run csrc/wgmma.cuh, held within BF16_REL of the
+# plain version and of the first version (kernel="cuda_cores"), equal bits
+# on a second launch.  Shapes: the deep model's four whole-k layers at its
+# batch and the server's largest layer; ragged rows, k and n; the six
+# Toeplitz layers of configs/conv1d.ini that take the tensor cores (their
+# dx launches have the same shapes, the forward and the transposed roles
+# swapped) at batch 4096 and 4097; ragged Toeplitz plans: t_out below 64
+# that does not divide it, above 64 and above 128, shift 0 and KB - 1, G no
+# multiple of 64 (and below it), B = 1, output rows past nb.
+
+WHOLE_K = [(4096, 512, 256), (4096, 256, 512), (4096, 512, 1024),
+           (256, 4096, 4096), (4097, 1088, 544), (1000, 1096, 520),
+           (1, 24, 8), (130, 64, 264)]
+# (B, nb, G, KB, N, t_out, shift)
+CONV_TC = [(4096, 64, 128, 3, 64, 64, 1), (4096, 16, 256, 3, 128, 16, 1),
+           (4096, 4, 512, 3, 256, 4, 1), (4096, 4, 256, 3, 512, 4, 1),
+           (4096, 16, 128, 3, 256, 16, 1), (4096, 64, 64, 3, 128, 64, 1),
+           (4097, 16, 256, 3, 128, 16, 1)]
+TOE_RAGGED = [(37, 48, 24, 3, 40, 48, 0), (5, 100, 72, 3, 136, 100, 2),
+              (3, 200, 64, 5, 64, 200, 0), (9, 16, 128, 4, 256, 13, 3),
+              (1, 64, 128, 3, 64, 64, 1), (6, 9, 16, 3, 24, 13, 2)]
+
+
+def _toeplitz_operands(device, B, nb, G, kb, N, dtype=torch.bfloat16,
+                       seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, nb, G), generator=g, device=device)
+    w = torch.randn((kb, G, N), generator=g, device=device) / (kb * G) ** 0.5
+    b = torch.randn((N,), generator=g, device=device) * 0.1
+    return x.to(dtype), w.to(dtype), b.to(dtype)
+
+
+def _ran(fn, *args, **kw):
+    before = (fn.launches, fn.tensor_core_launches)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, (fn.launches - before[0], fn.tensor_core_launches - before[1])
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "tanh"])
+@pytest.mark.parametrize("shape", WHOLE_K, ids=str)
+def test_tensor_core_linear_fwd_matches_plain_and_first_version(cuda, shape,
+                                                                act):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    x, w, b = _linear_operands(cuda, *shape, torch.bfloat16)
+    want = linear.linear_fwd_ref(x, w, b, act)
+    first, rose = _ran(linear.linear_fwd, x, w, b, act, kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran(linear.linear_fwd, x, w, b, act)      # auto
+    assert rose == (1, 1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= BF16_REL
+    assert _rel(got, first) <= BF16_REL
+    assert torch.equal(got, linear.linear_fwd(x, w, b, act))
+    assert torch.equal(got, linear.linear_fwd(x, w, b, act,
+                                              kernel="tensor_cores"))
+
+
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("case", CONV_TC + TOE_RAGGED, ids=str)
+def test_tensor_core_toeplitz_matches_plain_and_first_version(cuda, case,
+                                                              act):
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    B, nb, G, kb, N, t_out, shift = case
+    x, w, b = _toeplitz_operands(cuda, B, nb, G, kb, N)
+    want = toeplitz.toeplitz_fwd_ref(x, w, b, act, t_out, shift)
+    first, rose = _ran(toeplitz.toeplitz_fwd, x, w, b, act, t_out, shift,
+                       kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran(toeplitz.toeplitz_fwd, x, w, b, act, t_out, shift)
+    assert rose == (1, 1)
+    assert got.shape == want.shape == (B, t_out, N)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= BF16_REL
+    assert _rel(got, first) <= BF16_REL
+    assert torch.equal(got, toeplitz.toeplitz_fwd(x, w, b, act, t_out, shift))
+
+
+def test_tensor_core_toeplitz_dispatch_on_the_card(cuda):
+    """G = 4 (the first encoder layer), N = 4 (the last decoder layer),
+    fp32 (one pass and four) and a view off a 16-byte boundary keep the
+    first version under ``auto`` and raise when the tensor-core kernel is
+    asked for by name."""
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    cases = [((64, 256, 4, 3, 32, 256, 1), torch.bfloat16, 1),
+             ((64, 256, 32, 3, 4, 256, 1), torch.bfloat16, 1),
+             ((64, 64, 128, 3, 64, 64, 1), torch.float32, 1),
+             ((64, 64, 128, 3, 64, 64, 1), torch.float32, 4)]
+    for (B, nb, G, kb, N, t_out, shift), dtype, passes in cases:
+        x, w, b = _toeplitz_operands(cuda, B, nb, G, kb, N, dtype)
+        got, rose = _ran(toeplitz.toeplitz_fwd, x, w, b, "relu", t_out,
+                         shift, passes)
+        assert rose == (1, 0), (G, N, dtype, passes)
+        tol = BF16_REL if dtype == torch.bfloat16 else 1e-4
+        assert _rel(got, toeplitz.toeplitz_fwd_ref(
+            x, w, b, "relu", t_out, shift, passes)) <= tol
+        with pytest.raises(ValueError, match="takes bf16 operands"):
+            toeplitz.toeplitz_fwd(x, w, b, "relu", t_out, shift, passes,
+                                  kernel="tensor_cores")
+    x, w, b = _toeplitz_operands(cuda, 8, 64, 128, 3, 64)
+    off = torch.empty(x.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:] \
+        .view_as(x).copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    got, rose = _ran(toeplitz.toeplitz_fwd, off, w, b, "relu", 64, 1)
+    assert rose == (1, 0)
+    assert torch.equal(got, toeplitz.toeplitz_fwd(x, w, b, "relu", 64, 1,
+                                                  kernel="cuda_cores"))
+    with pytest.raises(ValueError, match="aligned = False"):
+        toeplitz.toeplitz_fwd(off, w, b, "relu", 64, 1, kernel="tensor_cores")
+
+
+def test_tensor_core_linear_fwd_dispatch_on_the_card(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    for shape, dtype in (((1000, 70, 33), torch.bfloat16),
+                         ((512, 1028, 520), torch.bfloat16),
+                         ((512, 1024, 516), torch.bfloat16),
+                         ((512, 1024, 512), torch.float32)):
+        x, w, b = _linear_operands(cuda, *shape, dtype)
+        got, rose = _ran(linear.linear_fwd, x, w, b, "tanh")
+        assert rose == (1, 0), shape
+        tol = BF16_REL if dtype == torch.bfloat16 else 1e-4
+        assert _rel(got, linear.linear_fwd_ref(x, w, b, "tanh")) <= tol
+        with pytest.raises(ValueError, match="takes bf16 operands"):
+            linear.linear_fwd(x, w, b, "tanh", kernel="tensor_cores")
+    x, w, b = _linear_operands(cuda, 256, 1024, 512, torch.bfloat16)
+    _, rose = _ran(linear.linear_fwd, x[:0], w, b, "relu")
+    assert rose == (0, 0)
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_every_tile_width_matches_plain(cuda, width, monkeypatch):
+    """The three tile widths of csrc/wgmma.cuh, forced, on both tile walks
+    and both B layouts."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear, tensor_cores, \
+        toeplitz
+
+    monkeypatch.setattr(tensor_cores, "tile_n",
+                        lambda tiles_m, n, sms: width)
+    x, w, b = _linear_operands(cuda, 1000, 1096, 520, torch.bfloat16)
+    for fn, plain in ((linear.linear_fwd, linear.linear_fwd_ref),
+                      (linear.linear_ksplit_fwd,
+                       linear.linear_ksplit_fwd_ref)):
+        got, rose = _ran(fn, x, w, b, "relu")
+        assert rose == (1, 1)
+        assert _rel(got, plain(x, w, b, "relu")) <= BF16_REL
+    wt = w.t().contiguous()
+    got, rose = _ran(mlp.matmul_nt, x, wt)
+    assert rose == (1, 1)
+    assert _rel(got, mlp.matmul_nt_ref(x, wt)) <= BF16_REL
+    for B, nb, G, kb, N, t_out, shift in (CONV_TC[1], TOE_RAGGED[1]):
+        xs, ws, bs = _toeplitz_operands(cuda, B, nb, G, kb, N)
+        got, rose = _ran(toeplitz.toeplitz_fwd, xs, ws, bs, "tanh", t_out,
+                         shift)
+        assert rose == (1, 1)
+        assert _rel(got, toeplitz.toeplitz_fwd_ref(xs, ws, bs, "tanh", t_out,
+                                                   shift)) <= BF16_REL
+
+
+def test_conv1d_op_level_step_takes_the_tensor_cores(cuda):
+    """configs/conv1d.ini's widths at a small batch, bf16, forward and
+    backward through conv_encode_pallas / conv_decode_pallas: 8 + 7 Toeplitz
+    launches, 12 of them on the tensor cores (not the first encoder layer,
+    G = 4, nor the last decoder layer, N = 4, nor its dx, G = 4), and the
+    three whole-k linear launches all on them."""
+    from rawaudiovae_kelsey_tpu_torch.models import variants
+    from rawaudiovae_kelsey_tpu_torch.ops import conv, linear, toeplitz
+    from rawaudiovae_kelsey_tpu_torch.tree import tree_map
+
+    params = tree_map(
+        lambda t: t.to(cuda, torch.bfloat16).requires_grad_(),
+        variants.init_conv1d(torch.Generator().manual_seed(0), 1024,
+                             (32, 64, 128, 256), 9, 4, 256))
+    x = (torch.rand((64, 1024), device=cuda) * 2 - 1).bfloat16()
+    width = variants.conv_latent_width(1024, 4, 4)
+    fns = (toeplitz.toeplitz_fwd, linear.linear_fwd)
+    before = [(f.launches, f.tensor_core_launches) for f in fns]
+    mu, _ = conv.conv_encode_pallas(params, x, 4)
+    y = conv.conv_decode_pallas(params, mu, 4, width, 256)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    rose = [(f.launches - a, f.tensor_core_launches - c)
+            for f, (a, c) in zip(fns, before)]
+    assert rose == [(15, 12), (3, 3)]
+    # the plain convolutions on the same bf16 operands, rounded per layer
+    fixed = tree_map(lambda t: t.detach(), params)
+    with torch.no_grad():
+        plain = variants.decode_conv1d(
+            fixed, variants.encode_conv1d(fixed, x, 4)[0], 4, width, 256)
+    assert y.shape == plain.shape
+    assert _rel(y.detach(), plain) <= 4 * BF16_REL

@@ -1,16 +1,21 @@
-"""The choice between the two hand-written kernels of ``linear_ksplit_fwd``
-and ``matmul_nt`` (rawaudiovae_kelsey_tpu_torch/ops/tensor_cores.py): a pure
-function of dtype, shape and alignment, checked here on the CPU.  The
-kernels themselves run only on the card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+"""The choice between the two hand-written kernels of ``linear_fwd``,
+``linear_ksplit_fwd``, ``matmul_nt`` and ``toeplitz_fwd``
+(rawaudiovae_kelsey_tpu_torch/ops/tensor_cores.py, ops/toeplitz.py): a pure
+function of dtype, shape and alignment; the tensor-core kernel's tile width
+and the Toeplitz tile plan; what the wrappers hand the C entry points.
+Checked here on the CPU; the kernels themselves run only on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from rawaudiovae_kelsey_tpu_torch.config import load_config
-from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp, tensor_cores
+from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp, tensor_cores, \
+    toeplitz
 
 ROOT = Path(__file__).resolve().parents[1]
 BF16, F32 = torch.bfloat16, torch.float32
@@ -157,11 +162,13 @@ def test_wrappers_refuse_what_is_neither_cpu_nor_cuda():
 
 def _stand_in(monkeypatch):
     """The device check stood in for and the launch recorded, so that the
-    checks a CUDA tensor passes through run on ``meta`` tensors."""
+    checks a CUDA tensor passes through run on ``meta`` tensors (an H100's
+    132 SMs for the tile width)."""
     launched = []
     monkeypatch.setattr(mlp, "cuda_device", lambda t, name: t.device)
     monkeypatch.setattr(linear, "cuda_device", lambda t, name: t.device)
     monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: True)
+    monkeypatch.setattr(tensor_cores, "sm_count", lambda device: 132)
     monkeypatch.setattr(
         mlp._build, "launch",
         lambda name, dev, *args: launched.append((name, args)))
@@ -230,7 +237,8 @@ def test_the_wrappers_pass_the_kernel_code_and_no_workspace(monkeypatch):
     out = mlp.matmul_nt(x, wt, kernel="tensor_cores")
     assert out.shape == (8, 24)
     name, args = launched.pop()
-    assert name == "rvk_matmul_nt" and args[3:] == (8, 1024, 24, 1, 1)
+    # batch, n, m, dtype, tile width (one tile row, 24 columns: 64), kernel
+    assert name == "rvk_matmul_nt" and args[3:] == (8, 1024, 24, 1, 64, 1)
     mlp.matmul_nt(x[:, :1016].contiguous(), wt[:, :1016].contiguous())
     assert launched.pop()[1][-1] == 1               # k = 1016: 8 | k
     xs = torch.empty((8, 1020), device="meta", dtype=BF16)
@@ -273,3 +281,287 @@ def test_pointers_aligned_reads_the_data_pointers():
     assert tensor_cores.pointers_aligned(buf, buf[8:], buf[16:])
     assert not tensor_cores.pointers_aligned(buf, buf[1:])
     assert not tensor_cores.pointers_aligned(buf[4:])
+
+
+# ------------------------------------------------ linear_fwd and toeplitz_fwd
+#
+# The whole-k linear layer and the block-Toeplitz product take the same
+# tensor-core mainloop in bf16 (csrc/wgmma.cuh); its tile width comes from
+# tensor_cores.tile_n, the Toeplitz tile walk from toeplitz.tile_plan.
+
+
+def test_the_deep_config_has_four_whole_k_layers():
+    """The layers below the k-split gate at batch 4096: the two heads (512
+    -> 256) and the decoder's first two (256 -> 512, 512 -> 1024)."""
+    layers = _deep_layers()
+    whole = [kn for kn in layers if not linear.takes_ksplit(BATCH, *kn)]
+    assert whole == [(512, 256), (512, 256), (256, 512), (512, 1024)]
+
+
+@pytest.mark.parametrize("rows,k,n", [(BATCH, 512, 256), (BATCH, 256, 512),
+                                      (BATCH, 512, 1024), (256, 4096, 4096),
+                                      (256, 512, 256)])
+def test_whole_k_layers_take_the_tensor_cores_in_bf16(rows, k, n):
+    """The deep model's four whole-k layers at its batch and the server's
+    layers at batch 256 (every layer whole-k there)."""
+    assert tensor_cores.resolve_kernel("linear_fwd", "auto", BF16, rows, k,
+                                       n) == 1
+    assert tensor_cores.resolve_kernel("linear_fwd", "auto", F32, rows, k,
+                                       n) == 0
+    assert not linear.takes_ksplit(rows, k, n)
+
+
+@pytest.mark.parametrize("rows,n,width", [
+    (4096, 4096, 256),      # row 15's shape: four waves of 128 x 256
+    (4096, 512, 128),       # 4096 x 1024 -> 512: one wave either way
+    (8192, 256, 128),       # matmul_nt's dz: 128 tiles, one wave
+    (8192, 1024, 256),      # matmul_nt's dx
+    (4096, 256, 64),        # the deep heads 512 -> 256: 128 tiles of 64
+    (4096, 512, 128),       # 256 -> 512
+    (4096, 1024, 256),      # 512 -> 1024
+    (256, 4096, 64),        # the server's largest layer
+    (1, 8, 64),             # one ragged row, 8 columns
+])
+def test_tile_width_rule_at_the_main_path_shapes(rows, n, width):
+    assert tensor_cores.tile_n(-(-rows // tensor_cores.TILE_M), n,
+                               132) == width
+
+
+@settings(max_examples=300, deadline=None)
+@given(tiles_m=st.integers(1, 5000), n=st.integers(1, 9000),
+       sms=st.integers(1, 200))
+def test_tile_width_rule_takes_the_fewest_waves_times_width(tiles_m, n, sms):
+    def cost(width):
+        return -(-tiles_m * -(-n // width) // sms) * width
+
+    width = tensor_cores.tile_n(tiles_m, n, sms)
+    assert width in tensor_cores.TILE_WIDTHS
+    assert cost(width) == min(map(cost, tensor_cores.TILE_WIDTHS))
+    # the widest of those that cost the least
+    assert width == max(w for w in tensor_cores.TILE_WIDTHS
+                        if cost(w) == cost(width))
+
+
+def _conv1d_toeplitz_calls(dtype, passes=1):
+    """The Toeplitz launches of one forward and backward of the conv1d
+    model at configs/conv1d.ini's widths (batch 2), recorded as
+    ``(dtype, B, nb, t_out, G, N, passes)`` through the plain versions."""
+    from rawaudiovae_kelsey_tpu_torch.models import variants
+    from rawaudiovae_kelsey_tpu_torch.ops import conv
+    from rawaudiovae_kelsey_tpu_torch.tree import tree_map
+
+    cfg = load_config(ROOT / "configs" / "conv1d.ini")
+    channels = [int(c) for c in cfg.vae.conv_channels.split(",")]
+    seg, k, s = (cfg.audio.segment_length, cfg.vae.conv_kernel,
+                 cfg.vae.conv_stride)
+    params = tree_map(lambda t: t.to(dtype).requires_grad_(),
+                      variants.init_conv1d(torch.Generator().manual_seed(0),
+                                           seg, channels, k, s,
+                                           cfg.vae.latent_dim))
+    calls = []
+    real = toeplitz.toeplitz_fwd
+
+    def record(x, w, b, act="none", t_out=None, shift=0, passes=1, **kw):
+        t = toeplitz._t_out(x, w, t_out)
+        calls.append((x.dtype, x.shape[0], x.shape[1], t, x.shape[2],
+                      w.shape[2], passes))
+        return real(x, w, b, act, t_out, shift, passes, **kw)
+
+    x = torch.zeros((2, seg), dtype=dtype)
+    width = variants.conv_latent_width(seg, len(channels), s)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(toeplitz, "toeplitz_fwd", record)
+    try:
+        mu, _ = conv.conv_encode_pallas(params, x, s, passes)
+        y = conv.conv_decode_pallas(params, mu, s, width, channels[-1],
+                                    passes)
+        y.float().square().sum().backward()
+    finally:
+        mp.undo()
+    return calls
+
+
+def test_twelve_of_the_fifteen_conv1d_launches_take_the_tensor_cores():
+    """bf16: 8 forward + 7 dx launches; all but the first encoder layer (G
+    = 4), the last decoder layer (N = 4) and its dx (G = 4) take them; fp32
+    one pass and four, none."""
+    calls = _conv1d_toeplitz_calls(BF16)
+    assert len(calls) == 15
+    takes = [toeplitz.takes_tensor_cores(*c[:6], passes=c[6]) for c in calls]
+    assert sum(takes) == 12
+    for call, took in zip(calls, takes):
+        assert took == (call[4] % 8 == 0 and call[5] % 8 == 0), call
+    assert sorted(c[4] for c, t in zip(calls, takes) if not t) == [4, 4, 32]
+    for passes in (1, 4):
+        calls = _conv1d_toeplitz_calls(F32, passes)
+        assert len(calls) == 15
+        assert not any(toeplitz.takes_tensor_cores(*c[:6], passes=c[6])
+                       for c in calls)
+
+
+@pytest.mark.parametrize("dtype,B,nb,t_out,G,N,passes,aligned", [
+    (F32, 64, 64, 64, 128, 64, 1, True),      # fp32 promises IEEE products
+    (F32, 64, 64, 64, 128, 64, 4, True),      # the 4-pass hi/lo mode
+    (BF16, 64, 256, 256, 4, 32, 1, True),     # the first encoder layer
+    (BF16, 64, 256, 256, 32, 4, 1, True),     # the last decoder layer
+    (BF16, 64, 64, 64, 124, 64, 1, True),     # G % 8 != 0
+    (BF16, 64, 64, 64, 128, 60, 1, True),     # N % 8 != 0
+    (BF16, 64, 0, 4, 128, 64, 1, True),       # no input rows
+    (BF16, 0, 64, 64, 128, 64, 1, True),      # no batch
+    (BF16, 64, 64, 64, 128, 64, 1, False),    # an unaligned view
+], ids=["fp32", "4-pass", "G=4", "N=4", "G%8", "N%8", "nb=0", "B=0",
+        "unaligned"])
+def test_what_keeps_the_first_toeplitz_kernel(dtype, B, nb, t_out, G, N,
+                                               passes, aligned):
+    assert not toeplitz.takes_tensor_cores(dtype, B, nb, t_out, G, N, passes,
+                                           aligned)
+    assert toeplitz.takes_tensor_cores(BF16, 64, 64, 64, 128, 64)
+
+
+@settings(max_examples=200, deadline=None)
+@given(B=st.integers(1, 70), t_out=st.integers(1, 300))
+def test_toeplitz_tile_plan_covers_every_row_once(B, t_out):
+    """Every output row (b, t) lies in exactly one half tile; a half never
+    runs from one batch row into the next (it holds b_half whole rows, or
+    positions of one); its box dims stay within TMA's 256 and its rows
+    within a warpgroup's 64."""
+    t_half, b_half = toeplitz.tile_plan(t_out)
+    assert 1 <= t_half <= 256 and 1 <= b_half <= 256
+    assert t_half * b_half <= 64
+    assert b_half == 1 or t_half >= t_out
+    covered = np.zeros((B, t_out), dtype=np.int64)
+    halves = toeplitz.tile_halves(B, t_out, t_half, b_half)
+    for h in range(halves):
+        b0, t0 = toeplitz.half_origin(h, t_out, t_half, b_half)
+        assert b0 < B and t0 < t_out           # no half lies wholly outside
+        covered[b0:b0 + b_half, t0:t0 + t_half] += 1
+    assert (covered == 1).all()
+    # two halves a 128-row tile
+    assert -(-halves // 2) * 2 >= halves
+
+
+def test_toeplitz_tile_plan_at_the_conv1d_layers():
+    """t_out 64, 16 and 4: every row of a half used."""
+    assert [toeplitz.tile_plan(t) for t in (256, 64, 16, 4)] == \
+        [(64, 1), (64, 1), (16, 4), (4, 16)]
+    assert toeplitz.tile_halves(4096, 16, 16, 4) == 1024
+
+
+@pytest.mark.parametrize("G", [8, 64, 72, 128, 512])
+def test_toeplitz_k_steps_walk_every_tap_in_64_channel_steps(G):
+    steps = [toeplitz.k_step(kb, G) for kb in range(3 * -(-G // 64))]
+    assert steps == [(j, g0) for j in range(3) for g0 in range(0, G, 64)]
+
+
+def _toeplitz_stand_in(monkeypatch):
+    launched = _stand_in(monkeypatch)
+    monkeypatch.setattr(toeplitz, "kernel_device", lambda x: x.device)
+    return launched
+
+
+def test_linear_fwd_and_toeplitz_pass_the_kernel_code_and_plan(monkeypatch):
+    """What reaches rvk_linear_fwd and rvk_toeplitz_fwd: the tile width and
+    the kernel code last, the Toeplitz plan before them; the first version
+    gets zeros for what it does not read."""
+    launched = _toeplitz_stand_in(monkeypatch)
+    x = torch.empty((4096, 512), device="meta", dtype=BF16)
+    w = torch.empty((512, 256), device="meta", dtype=BF16)
+    b = torch.empty((256,), device="meta", dtype=BF16)
+    counts = (linear.linear_fwd.launches,
+              linear.linear_fwd.tensor_core_launches)
+    y = linear.linear_fwd(x, w, b, "relu")
+    assert y.shape == (4096, 256) and y.dtype == BF16
+    name, args = launched.pop()
+    # batch, k, n, act, dtype, tile width, kernel
+    assert name == "rvk_linear_fwd" and args[4:] == (4096, 512, 256, 1, 1,
+                                                     64, 1)
+    linear.linear_fwd(x, w, b, "relu", kernel="cuda_cores")
+    assert launched.pop()[1][-2:] == (0, 0)
+    linear.linear_fwd(x.float(), w.float(), b.float(), "tanh")
+    assert launched.pop()[1][4:] == (4096, 512, 256, 2, 0, 0, 0)
+    assert (linear.linear_fwd.launches - counts[0],
+            linear.linear_fwd.tensor_core_launches - counts[1]) == (3, 1)
+
+    # encoder layer 2 of configs/conv1d.ini at batch 4096
+    xs = torch.empty((4096, 64, 128), device="meta", dtype=BF16)
+    ws = torch.empty((3, 128, 64), device="meta", dtype=BF16)
+    bs = torch.empty((64,), device="meta", dtype=BF16)
+    counts = (toeplitz.toeplitz_fwd.launches,
+              toeplitz.toeplitz_fwd.tensor_core_launches)
+    y = toeplitz.toeplitz_fwd(xs, ws, bs, "relu", 64, 1)
+    assert y.shape == (4096, 64, 64)
+    name, args = launched.pop()
+    # B, nb, G, KB, N, t_out, shift, act, passes, dtype | t_half, b_half,
+    # tile width, kernel
+    assert name == "rvk_toeplitz_fwd"
+    assert args[4:14] == (4096, 64, 128, 3, 64, 64, 1, 1, 1, 1)
+    assert args[14:] == (64, 1, 64, 1)
+    toeplitz.toeplitz_fwd(xs[:, :16].contiguous(), ws, bs, "relu", 16, 1)
+    assert launched.pop()[1][14:] == (16, 4, 64, 1)
+    toeplitz.toeplitz_fwd(xs, ws, bs, "relu", 64, 1, kernel="cuda_cores")
+    assert launched.pop()[1][14:] == (0, 0, 0, 0)
+    toeplitz.toeplitz_fwd(xs.float(), ws.float(), bs.float(), "relu", 64, 1,
+                          4)
+    assert launched.pop()[1][12:] == (4, 0, 0, 0, 0, 0)
+    assert (toeplitz.toeplitz_fwd.launches - counts[0],
+            toeplitz.toeplitz_fwd.tensor_core_launches - counts[1]) == (4, 2)
+
+
+def test_named_tensor_cores_raise_for_linear_fwd_and_toeplitz(monkeypatch):
+    launched = _toeplitz_stand_in(monkeypatch)
+    x = torch.empty((8, 70), device="meta", dtype=BF16)
+    w = torch.empty((70, 33), device="meta", dtype=BF16)
+    b = torch.empty((33,), device="meta", dtype=BF16)
+    with pytest.raises(ValueError, match="takes bf16 operands"):
+        linear.linear_fwd(x, w, b, "relu", kernel="tensor_cores")
+    for shapes, dtype, passes in (
+            (((8, 256, 4), (3, 4, 32), (32,)), BF16, 1),        # G = 4
+            (((8, 256, 32), (3, 32, 4), (4,)), BF16, 1),        # N = 4
+            (((8, 64, 128), (3, 128, 64), (64,)), F32, 1),
+            (((8, 64, 128), (3, 128, 64), (64,)), F32, 4)):
+        xs, ws, bs = (torch.empty(sh, device="meta", dtype=dtype)
+                      for sh in shapes)
+        with pytest.raises(ValueError, match="takes bf16 operands"):
+            toeplitz.toeplitz_fwd(xs, ws, bs, "relu", xs.shape[1], 1,
+                                  passes, kernel="tensor_cores")
+    monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
+    xs, ws, bs = (torch.empty(sh, device="meta", dtype=BF16)
+                  for sh in ((8, 64, 128), (3, 128, 64), (64,)))
+    with pytest.raises(ValueError, match="aligned = False"):
+        toeplitz.toeplitz_fwd(xs, ws, bs, "relu", 64, 1,
+                              kernel="tensor_cores")
+    assert launched == []
+    toeplitz.toeplitz_fwd(xs, ws, bs, "relu", 64, 1)
+    assert launched.pop()[1][-1] == 0
+
+
+@pytest.mark.parametrize("kernel", ["tensor-cores", "wgmma", "", None])
+def test_an_unknown_kernel_raises_for_linear_fwd_and_toeplitz(kernel):
+    x, w, b = torch.zeros((4, 8)), torch.zeros((8, 8)), torch.zeros((8,))
+    with pytest.raises(ValueError, match="unknown kernel"):
+        linear.linear_fwd(x, w, b, "relu", kernel=kernel)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        toeplitz.toeplitz_fwd(torch.zeros((2, 6, 8)), torch.zeros((3, 8, 8)),
+                              b, kernel=kernel)
+
+
+@pytest.mark.parametrize("kernel", ["auto", *tensor_cores.KERNEL_CODES])
+def test_cpu_tensors_take_the_plain_linear_fwd_and_toeplitz(kernel):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((5, 16), generator=g).to(BF16)
+    w = torch.randn((16, 8), generator=g).to(BF16)
+    b = torch.randn((8,), generator=g).to(BF16)
+    xs = torch.randn((3, 9, 16), generator=g).to(BF16)
+    ws = torch.randn((3, 16, 8), generator=g).to(BF16)
+    before = (linear.linear_fwd.launches, toeplitz.toeplitz_fwd.launches,
+              linear.linear_fwd.tensor_core_launches,
+              toeplitz.toeplitz_fwd.tensor_core_launches)
+    assert torch.equal(linear.linear_fwd(x, w, b, "tanh", kernel=kernel),
+                       linear.linear_fwd_ref(x, w, b, "tanh"))
+    assert torch.equal(
+        toeplitz.toeplitz_fwd(xs, ws, b, "relu", 9, 1, kernel=kernel),
+        toeplitz.toeplitz_fwd_ref(xs, ws, b, "relu", 9, 1))
+    assert before == (linear.linear_fwd.launches,
+                      toeplitz.toeplitz_fwd.launches,
+                      linear.linear_fwd.tensor_core_launches,
+                      toeplitz.toeplitz_fwd.tensor_core_launches)

@@ -246,3 +246,66 @@ def test_conv_model_heads_go_through_the_fused_linear(monkeypatch):
     mu, _ = conv.conv_encode_pallas(tp, torch.zeros(2, 64), 4)
     conv.conv_decode_pallas(tp, mu, 4, 4, 8)
     assert seen == ["none", "none", "relu"]
+
+
+# The tensor-core kernel's tile walk (csrc/wgmma.cuh ToeplitzTiles), emulated
+# in fp32 on the CPU: each half tile of toeplitz.tile_plan is one 3-D box of
+# x, zero outside the tensor, at (g0, t0 - shift + j, b0) for k-step (tap j,
+# channels g0..g0+63), against rows j·G + g0 .. + 63 of w viewed as (KB·G,
+# N), zero past its end; the sum over the k-steps in order, then bias,
+# activation and the clipped store.  Held against the plain version and the
+# JAX kernel at small widths: shifts 0 .. KB-1, t_out that does not divide
+# the half, above 64 and past nb, G below 64 and no multiple of it.
+
+def _box(x, g0, t0, b0, t_half, b_half):
+    """The (b_half · t_half, 64) rows a TMA box of x brings, zero outside."""
+    B, nb, G = x.shape
+    out = torch.zeros((b_half, t_half, 64), dtype=torch.float32)
+    b1, t1, g1 = min(b0 + b_half, B), min(t0 + t_half, nb), min(g0 + 64, G)
+    ta, ga = max(t0, 0), max(g0, 0)
+    if b1 > b0 and t1 > ta and g1 > ga:
+        out[:b1 - b0, ta - t0:t1 - t0, ga - g0:g1 - g0] = \
+            x[b0:b1, ta:t1, ga:g1].float()
+    return out.reshape(b_half * t_half, 64)
+
+
+def _tile_walk(x, w, b, act, t_out, shift):
+    B, nb, G = x.shape
+    kb, _, N = w.shape
+    t_half, b_half = toeplitz.tile_plan(t_out)
+    w_rows = torch.cat([w.reshape(kb * G, N).float(),
+                        torch.zeros((64, N))])        # zero past the end
+    y = torch.zeros((B, t_out, N), dtype=torch.float32)
+    for h in range(toeplitz.tile_halves(B, t_out, t_half, b_half)):
+        b0, t0 = toeplitz.half_origin(h, t_out, t_half, b_half)
+        acc = torch.zeros((b_half * t_half, N))
+        for step in range(kb * -(-G // 64)):
+            j, g0 = toeplitz.k_step(step, G)
+            acc += _box(x, g0, t0 - shift + j, b0, t_half, b_half) \
+                @ w_rows[j * G + g0:j * G + g0 + 64]
+        out = linear.apply_act(act, acc + b.float()).reshape(
+            b_half, t_half, N)
+        nb_, nt_ = min(b_half, B - b0), min(t_half, t_out - t0)
+        y[b0:b0 + nb_, t0:t0 + nt_] = out[:nb_, :nt_]
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("B,nb,G,kb,N,t_out,shift", [
+    (3, 10, 8, 3, 16, 10, 1),         # G below 64; t_out below 64
+    (2, 12, 72, 3, 8, 13, 2),         # G no multiple of 64; t_out past nb
+    (5, 9, 24, 4, 24, 9, 0),          # shift 0, four taps
+    (5, 9, 24, 4, 24, 9, 3),          # shift KB - 1
+    (2, 70, 16, 3, 8, 70, 1),         # t_out above 64: two halves a row
+    (17, 4, 64, 3, 40, 4, 1),         # 16 batch rows a half, ragged B
+    (1, 6, 128, 2, 16, 5, 1),         # B = 1
+], ids=str)
+def test_the_tensor_core_tile_walk_matches_plain_and_jax(B, nb, G, kb, N,
+                                                         t_out, shift):
+    x, w, b = _toeplitz_operands(B * 100 + G, B, nb, G, kb, N)
+    got = _tile_walk(*_t((x, w, b)), "relu", t_out, shift)
+    want = toeplitz.toeplitz_fwd_ref(*_t((x, w, b)), "relu", t_out, shift)
+    assert got.shape == want.shape == (B, t_out, N)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **FWD)
+    jwant = np.asarray(jtoep.toeplitz_fwd(*_j((x, w, b)), "relu", t_out,
+                                          shift))
+    np.testing.assert_allclose(got.numpy(), jwant, **FWD)
