@@ -25,6 +25,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    take (which keep the first version), against the plain version and the
    first version, with which kernel ran printed per shape, and timed in
    turns beside the first version, the plain version and ``a @ w.t()``; the
+   same for fp32 ``matmul_nt`` on the register-tiled fp32 kernel
+   (``csrc/sgemm.cuh``) at dz and dx, ragged shapes, batch 1 and shapes it
+   cannot take (k or n no multiple of 4), with the device time of every
+   tile beside the rule's pick (``tensor_cores.sgemm_tile``); the
    in-kernel sampler at (4096, 256), (1000, 256) and (1, 256): its Philox
    words bit for bit, ``z``, determinism, both seed words, moments over a
    million samples, its backward; ``dx`` through ``mlp.encode``;
@@ -49,12 +53,14 @@ any failure exits non-zero with a traceback (no phase is caught):
 6. the device-resident path: ``configs/perf_bf16.ini`` uncut (batch 4096,
    bf16, block shuffle, ``rng = tpu_prng``, ``device_resident = always``)
    on the corpus of phase 5, with only the datapath, epochs, checkpoint
-   interval and best-model gate changed, so that a boundary fires mid-run;
+   interval and best-model gate changed and ``backend = pallas`` named (the
+   file's ``best`` resolves to the plain ops), so that a boundary fires
+   mid-run;
    a ``--resume`` for one more epoch; the sampler launched once per step
    and the host loader never built; one resident epoch against a host-fed
    loop fed the same bf16 batches (equal losses, bit for bit); one
-   resident epoch at ``highest`` through the primitive kernels against the
-   plain backend; ``dx`` through the model's encoder in fp32 and bf16; the
+   resident epoch at ``highest`` through the primitive kernels (``matmul_nt``
+   on the fp32 kernel once a step) against the plain backend; ``dx`` through the model's encoder in fp32 and bf16; the
    corpus layout under a small budget and the ``always`` error under none;
    resident and host-fed epoch frames/s of both backends and the device's
    busy share over a resident epoch;
@@ -89,10 +95,15 @@ any failure exits non-zero with a traceback (no phase is caught):
    at ragged shapes and at shapes TMA cannot take, as in 3c, timed in
    turns beside the first version, the plain version and ``torch.addmm``;
    ``linear_fwd`` at 4096x512->256, 256x4096->4096 (the
-   server's batch) and 96x384->640, both beside ``torch.addmm``, and its
+   server's batch) and 96x384->640, the first beside ``torch.addmm``, and its
    bf16 tensor-core form as the k-split's at the deep model's four whole-k
    layers, 256x4096->4096, the ragged shapes and those TMA cannot take,
-   with the device time of a deep forward's four whole-k launches;
+   with the device time of a deep forward's four whole-k launches; fp32
+   ``linear_fwd`` on the fp32 kernel (``csrc/sgemm.cuh``) at the deep
+   server's nine distinct shapes (batch 256), 4096x512->256, 4096^3,
+   ragged shapes with every activation and shapes it cannot take, timed in
+   turns with the first version, the plain version and ``torch.addmm``, the
+   device time of the server's eleven launches, the tile sweep;
    ``toeplitz_fwd`` through ``conv1d_pallas`` / ``conv1d_transpose_pallas``
    at the eight layers of ``configs/conv1d.ini``, batch 4096 (one also at
    4097), forward and the ``dx`` launch, against the plain convolutions
@@ -113,8 +124,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    step from the trained state through the kernels and through the plain
    ops, same noise, in bf16 and at ``highest``, with 7 k-split + 4 whole-k
    launches a forward, in bf16 all 11 on the tensor cores, at ``highest``
-   none (0 + 11 at the server's batch 256, all on the tensor cores); the
-   HTTP server (fp32, the first version) on the run's ``best_model.npz``
+   none (the 4 whole-k ones on the fp32 kernel; 0 + 11 at the server's
+   batch 256, all on the tensor cores in bf16, all on the fp32 kernel in
+   fp32); the HTTP server (fp32, every launch on the fp32 kernel) on the
+   run's ``best_model.npz``
    against the plain backend; frames/s of both backends and the device's
    busy share;
 9. the conv1d model: ``configs/conv1d.ini`` uncut (channels 32,64,128,256,
@@ -158,13 +171,14 @@ against their plain versions, and they stay out of the kernel line);
 ``enc_bwd_full`` / ``dec_bwd_full``: the
 ``high`` stream run of phase 7; ``loss_sums``: the ``fused_loss`` call on a
 ``high`` step's tensors in phase 7 (no step dispatches it); fp32
-``matmul_nt*``: the ``highest`` resident epoch of phase 6; bf16
+``matmul_nt*``: the ``highest`` resident epoch of phase 6 (``matmul_nt``:
+those on the fp32 kernel); bf16
 ``matmul_nt`` / ``matmul_nt2_mask``: the bf16 ``dx`` of phase 6 (no path
 of the package runs ``matmul_nt_mask`` in bf16; phase 3c still holds it
 against its plain version); the sampler: the resident training run;
 bf16 ``linear_ksplit_fwd`` / ``linear_fwd``: the deep training runs of
 phase 8; fp32 ``linear_ksplit_fwd``: the deep ``highest`` step; fp32
-``linear_fwd``: the deep server; ``toeplitz_fwd``: the op-level conv1d step
+``linear_fwd``: the deep server (those on the fp32 kernel); ``toeplitz_fwd``: the op-level conv1d step
 of phase 9 in bf16 and at ``highest``; ``dw_fused`` / ``dx_fused``: the
 ``deep_bwd`` probe runs of phase 10 in each dtype; ``leaf_update``: the
 three ``adam_fusion`` probe runs of phase 10.
@@ -175,9 +189,11 @@ NVIDIA's H100 SXM data sheet), at the shapes that were timed: those the
 path named above gives the kernel.
 
 The rows of bf16 ``matmul_nt``, ``linear_ksplit_fwd``, ``linear_fwd`` and
-``toeplitz_fwd`` describe the tensor-core kernel (``ms``, and ``launches``:
-those that took it) and carry the first version's time on the same inputs
-as ``first_version_ms``.
+``toeplitz_fwd`` describe the tensor-core kernel, those of fp32
+``matmul_nt`` and ``linear_fwd`` the fp32 kernel of ``csrc/sgemm.cuh``
+(``ms``, and ``launches``: those that took it; fp32 ``linear_fwd`` at the
+server's 256x4096->4096), and carry the first version's time on the same
+inputs as ``first_version_ms``.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -260,6 +276,13 @@ CONV_LAYERS = [("conv", 1024, 1, 32), ("conv", 256, 32, 64),
 # bits.  Shapes: the deep model's four large layers (k, n) at its batch, and
 # two ragged ones (batch, k, n).
 DEEP_LAYERS = ((4096, 4096), (4096, 2048), (2048, 1024), (1024, 512))
+# configs/deep_wide.ini's eleven layers (k, n, activation) in the order of
+# a forward: the server's eleven whole-k launches at its batch
+SERVER_LAYERS = ((4096, 4096, "relu"), (4096, 2048, "relu"),
+                 (2048, 1024, "relu"), (1024, 512, "relu"),
+                 (512, 256, "none"), (512, 256, "none"), (256, 512, "relu"),
+                 (512, 1024, "relu"), (1024, 2048, "relu"),
+                 (2048, 4096, "relu"), (4096, 4096, "tanh"))
 RAGGED_LAYERS = ((4097, 1088, 544), (1000, 70, 33))
 ADAM_LEAVES = ((1,), (255,), (256,), (4_000_003,), (7, 33, 5))
 ADAM_BYTES = 28              # an element: read p, g, m, v; write p, m, v
@@ -277,6 +300,14 @@ DEEP_LEAVES, DENSE_LEAVES = 22, 10
 TC_RAGGED = ((4097, 1088, 544), (1000, 1096, 520), (1, 24, 8))
 NO_TMA = ((1000, 70, 33), (512, 1028, 520), (512, 1024, 516))
 TC_SOURCE = "rawaudiovae_kelsey_tpu_torch/csrc/wgmma.cuh"
+# phases 3c / 3e, the fp32 kernel (csrc/sgemm.cuh): held within GRAD_REL of
+# the plain version (fp32 sums in another order), equal bits twice.  Ragged
+# shapes it takes (k and n multiples of 4) and ones it does not (k or n no
+# multiple of 4), which must keep the first version.
+SGEMM_RAGGED = ((4097, 1088, 544), (1000, 1096, 520), (1, 24, 8),
+                (7, 12, 20))
+NO_SGEMM = ((1000, 70, 33), (512, 1026, 520), (512, 1024, 514))
+SGEMM_SOURCE = "rawaudiovae_kelsey_tpu_torch/csrc/sgemm.cuh"
 
 
 # roofline peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
@@ -621,20 +652,9 @@ def phase_new_kernels(gen_params):
                 **bound(TRAIN_BATCH * row_flops,
                         nbytes(*operands(w, t), kernel(w, t)), kind),
                 "library_ms": library_ms}
-    # matmul_nt at its other shape, dx = dh @ w1ᵀ (8192 x 2048 by 1024 x 2048)
-    w, t = inputs(TRAIN_BATCH, torch.float32)
-    dh = t["h"] * 1e-3
-    e = rel_err((mlp.matmul_nt(dh, w["fc1"]),),
-                (mlp.matmul_nt_ref(dh, w["fc1"]),))
-    check(e <= GRAD_REL, f"matmul_nt at the dx shape: {e:.3e}")
-    ms, plain_ms, _, _ = time_both(lambda: mlp.matmul_nt(dh, w["fc1"]),
-                                   lambda: mlp.matmul_nt_ref(dh, w["fc1"]),
-                                   20)
-    bd = bound(2 * TRAIN_BATCH * UNITS * SEG,
-               nbytes(dh, w["fc1"]) + 4 * TRAIN_BATCH * SEG, "fp32")
-    print(f"  matmul_nt[fp32] at the dx shape, batch {TRAIN_BATCH}: error "
-          f"{e:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    # (a draw of the first version's check at the dx shape, which the fp32
+    # kernel's section below replaces: the draws below stay as they were)
+    inputs(TRAIN_BATCH, torch.float32)
 
     # bf16 matmul_nt on the tensor cores: dz = dh3 @ w3ᵀ and dx = dh @ w1ᵀ at
     # the microbatch, ragged shapes, shapes TMA cannot take
@@ -655,19 +675,50 @@ def phase_new_kernels(gen_params):
 
     dz = (TRAIN_BATCH, UNITS, LATENT)
     dx_shape = (TRAIN_BATCH, UNITS, SEG)
-    err, times = hold_tensor_cores(
+    err, times = hold_kernel(
         "matmul_nt", mlp.matmul_nt, nt_operands,
         [(*dz, ""), (*dx_shape, ""), (256, 512, 256, "a = 0"),
          *((*sh, "") for sh in TC_RAGGED + NO_TMA)],
         [(*dz, ""), (*dx_shape, "")])
-    tensor_core_row(rows["matmul_nt[bf16]"], err, times[dz])
-    sweep_widths("matmul_nt", f"{TRAIN_BATCH}x{UNITS}->{LATENT} (dz)",
-                 nt_operands(*dz, "")[0], TRAIN_BATCH // 128, LATENT)
+    fast_row(rows["matmul_nt[bf16]"], err, times[dz])
+    sweep_tiles("matmul_nt", f"{TRAIN_BATCH}x{UNITS}->{LATENT} (dz)",
+                nt_operands(*dz, "")[0], (TRAIN_BATCH // 128, LATENT))
     t = times[dx_shape]
     print(f"  matmul_nt[bf16] at the dx shape, batch {TRAIN_BATCH}: kernel "
           f"{t['tensor_cores']:.4f} ms, first version {t['cuda_cores']:.4f} "
           f"ms, a @ w.t() {t['library']:.4f} ms, bound {t['bound_ms']:.4f} ms "
           f"({t['bound_by']})")
+
+    # fp32 matmul_nt on the register-tiled kernel (csrc/sgemm.cuh): dz and dx
+    # at the microbatch, ragged shapes, batch 1, shapes it cannot take
+    # (a generator of its own, as above)
+    g_sg = torch.Generator(device=dev).manual_seed(57)
+
+    def nt32_operands(rows, k, m, what):
+        a = torch.randn((rows, k), generator=g_sg, device=dev) * 1e-3
+        wt = torch.randn((m, k), generator=g_sg, device=dev) / k ** 0.5
+        return (lambda kernel: mlp.matmul_nt(a, wt, kernel=kernel),
+                lambda: mlp.matmul_nt_ref(a, wt), lambda: a @ wt.t(),
+                (a, wt))
+
+    err, times = hold_kernel(
+        "matmul_nt", mlp.matmul_nt, nt32_operands,
+        [(*dz, ""), (*dx_shape, ""),
+         *((*sh, "") for sh in SGEMM_RAGGED + NO_SGEMM)],
+        [(*dz, ""), (*dx_shape, "")], kernel="sgemm")
+    fast_row(rows["matmul_nt[fp32]"], err, times[dz], "sgemm")
+    for shape, label in ((dz, "dz"), (dx_shape, "dx")):
+        sweep_tiles("matmul_nt", f"{shape[0]}x{shape[1]}->{shape[2]} "
+                    f"({label})", nt32_operands(*shape, "")[0],
+                    (shape[0], shape[2]), "sgemm")
+    t = times[dx_shape]
+    print(f"  matmul_nt[fp32] at the dx shape, batch {TRAIN_BATCH}: kernel "
+          f"{t['sgemm']:.4f} ms (device {t['device_ms']:.4f} ms), first "
+          f"version {t['cuda_cores']:.4f} ms, a @ w.t() {t['library']:.4f} "
+          f"ms (device {t['library_device_ms']:.4f} ms), bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}): "
+          f"{2 * TRAIN_BATCH * UNITS * SEG / t['device_ms'] / 1e9:.1f} "
+          f"TFLOP/s by device time")
 
     # the sampler
     name = "reparameterize_prng[fp32]"
@@ -1141,91 +1192,102 @@ def host_us(fn, calls: int = 500) -> float:
     return dt / calls * 1e6
 
 
-def sweep_widths(name, label, call, tiles_m, n, calls: int = 5) -> dict:
-    """Device ms of ``call("tensor_cores")`` with the tile width forced to
-    each of ``tensor_cores.TILE_WIDTHS`` in turn, beside the width the rule
-    (``tensor_cores.tile_n``) picks for ``tiles_m`` tile rows and ``n``
-    columns: one profiler trace, the widths told apart by the kernel's
-    template arguments."""
-    import re
+# the two redesigned kernels' families: their operand type, tolerance
+# against plain, launch counter, source, and tile rule with its choices
+FAST = {
+    "tensor_cores": dict(kind="bf16", tol=BF16_REL,
+                         counter="tensor_core_launches", source=TC_SOURCE,
+                         rule="tile_n", tiles="TILE_WIDTHS"),
+    "sgemm": dict(kind="fp32", tol=GRAD_REL, counter="sgemm_launches",
+                  source=SGEMM_SOURCE, rule="sgemm_tile",
+                  tiles="SGEMM_TILES"),
+}
 
-    from torch.profiler import ProfilerActivity, profile
 
+def sweep_tiles(name, label, call, rule_args, kernel="tensor_cores",
+                calls: int = 5) -> dict:
+    """Device ms of ``call(kernel)`` with the tile forced to each of the
+    kernel's tiles in turn (the tensor-core kernel's widths
+    ``tensor_cores.TILE_WIDTHS``, the fp32 kernel's ``SGEMM_TILES``), one
+    profiler trace a tile, beside the tile its rule
+    (``tensor_cores.tile_n`` / ``sgemm_tile``) picks for ``rule_args``
+    (``(tiles_m, n)`` / ``(rows, n)``)."""
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
-    rule = tensor_cores.tile_n
-    try:
-        for width in tensor_cores.TILE_WIDTHS:
-            tensor_cores.tile_n = lambda tiles_m, n, sms, w=width: w
-            call("tensor_cores")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for width in tensor_cores.TILE_WIDTHS:
-                tensor_cores.tile_n = lambda tiles_m, n, sms, w=width: w
-                for _ in range(calls):
-                    call("tensor_cores")
-            torch.cuda.synchronize()
-    finally:
-        tensor_cores.tile_n = rule
+    fast = FAST[kernel]
+    rule = getattr(tensor_cores, fast["rule"])
+
+    def text(tile):
+        return "x".join(map(str, tile)) if isinstance(tile, tuple) \
+            else str(tile)
+
     ms = {}
-    for e in prof.key_averages():
-        found = re.search(r"wgmma_gemm_kernel<(\d+),", e.key)
-        us = getattr(e, "device_time_total", None)
-        us = getattr(e, "cuda_time_total", 0.0) if us is None else us
-        if found:
-            width = int(found.group(1))
-            ms[width] = ms.get(width, 0.0) + us / 1e3 / calls
-    picked = rule(tiles_m, n, tensor_cores.sm_count(torch.device("cuda", 0)))
-    print(f"  {name + '[bf16]':<24} {label}: device ms by tile width "
-          + (", ".join(f"{w}: {ms[w]:.4f}" for w in sorted(ms, reverse=True))
-             or "not measured (the profiler saw no wgmma kernel)")
-          + f"; the rule picks {picked}")
+    try:
+        for tile in getattr(tensor_cores, fast["tiles"]):
+            setattr(tensor_cores, fast["rule"], lambda *args, t=tile: t)
+            ms[text(tile)] = device_ms(lambda: call(kernel), calls)
+    finally:
+        setattr(tensor_cores, fast["rule"], rule)
+    picked = rule(*rule_args, tensor_cores.sm_count(torch.device("cuda", 0)))
+    print(f"  {name + '[' + fast['kind'] + ']':<24} {label}: device ms by "
+          "tile " + ", ".join(f"{t}: {v:.4f}" for t, v in ms.items())
+          + f"; the rule picks {text(picked)}")
     return ms
 
 
-def hold_tensor_cores(name, op, make, shapes, timed):
-    """Phases 3c / 3e: the bf16 tensor-core form of wrapper ``op`` against
-    its plain version and its first version.
+def hold_kernel(name, op, make, shapes, timed, kernel="tensor_cores"):
+    """Phases 3c / 3e: the redesigned form ``kernel`` (``"tensor_cores"``,
+    bf16; ``"sgemm"``, fp32) of wrapper ``op`` against its plain version
+    and its first version.
 
     ``make(rows, k, n, what)`` → ``(call, plain, library, tensors)``:
     ``call(kernel)`` runs the wrapper with that ``kernel=``, ``plain()`` its
     plain version and ``library()`` the one PyTorch call, all on the same
-    operands ``tensors``.  ``shapes`` are held, ``timed`` are timed in
-    turns.  Returns the largest absolute error and, by shape, the times."""
+    operands ``tensors`` of the kernel's type.  ``shapes`` are held (those
+    the kernel cannot take must run the first version), ``timed`` are timed
+    in turns with the first version, the plain version and the library
+    call, and by the profiler's device time.  Returns the largest absolute
+    error and, by shape, the times."""
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    fast = FAST[kernel]
+    kind, tol, code_fast = fast["kind"], fast["tol"], \
+        tensor_cores.KERNEL_CODES[kernel]
+    label_of = f"{name}[{kind}]"
 
     def held(got, want, what):
         check(got.shape == want.shape and got.dtype == want.dtype
               and bool(torch.isfinite(got).all()),
-              f"{name}[bf16] {what}: shape, dtype or non-finite")
+              f"{label_of} {what}: shape, dtype or non-finite")
         e = rel_err([got], [want])
-        check(e <= BF16_REL, f"{name}[bf16] {what}: relative error {e:.3e} "
-              f"> {BF16_REL:.3e}")
+        check(e <= tol, f"{label_of} {what}: relative error {e:.3e} > "
+              f"{tol:.3e}")
         return e
 
     err = 0.0
     for rows, k, n, what in shapes:
-        call, plain, _, _ = make(rows, k, n, what)
-        code = tensor_cores.resolve_kernel(name, "auto", torch.bfloat16,
+        call, plain, _, tensors = make(rows, k, n, what)
+        code = tensor_cores.resolve_kernel(name, "auto", tensors[0].dtype,
                                            rows, k, n)
-        before = (op.launches, op.tensor_core_launches)
+        before = (op.launches, getattr(op, fast["counter"]))
         got = call("auto")
         torch.cuda.synchronize()
-        rose = (op.launches - before[0], op.tensor_core_launches - before[1])
+        rose = (op.launches - before[0],
+                getattr(op, fast["counter"]) - before[1])
         label = f"{rows}x{k}->{n} {what}".strip()
-        check(rose == (1, int(code != 0)), f"{name}[bf16] {label}: launches "
-              f"/ tensor-core launches rose by {rose}")
+        check(rose == (1, int(code == code_fast)), f"{label_of} {label}: "
+              f"launches / {kernel} launches rose by {rose}")
         want = plain()
-        line = (f"  {name + '[bf16]':<24} {label}: ran "
-                f"{'tensor_cores' if code else 'cuda_cores'}; |kernel - "
-                f"plain| / max|plain| = {held(got, want, label):.3e}")
+        line = (f"  {label_of:<24} {label}: ran "
+                f"{kernel if code == code_fast else 'cuda_cores'}; |kernel "
+                f"- plain| / max|plain| = {held(got, want, label):.3e}")
         err = max(err, max_err([got.float()], [want.float()]))
-        if code:
+        if code == code_fast:
             e1 = held(got, call("cuda_cores"), label + " vs the first version")
-            check(torch.equal(got, call("auto")), f"{name}[bf16] {label}: a "
+            check(torch.equal(got, call("auto")), f"{label_of} {label}: a "
                   "second launch gave other bits")
             line += f", vs the first version {e1:.3e}, equal bits twice"
-        print(line + f" (tolerance {BF16_REL:.3e})")
+        print(line + f" (tolerance {tol:.3e})")
     times = {}
     for rows, k, n, what in timed:
         call, plain, library, tensors = make(rows, k, n, what)
@@ -1233,35 +1295,40 @@ def hold_tensor_cores(name, op, make, shapes, timed):
         ms, runs = time_in_turns(
             {"library": library, "plain": plain,
              "cuda_cores": lambda: call("cuda_cores"),
-             "tensor_cores": lambda: call("tensor_cores")}, iters)
-        ms["device_ms"] = device_ms(lambda: call("tensor_cores"))
+             kernel: lambda: call(kernel)}, iters)
+        ms["device_ms"] = device_ms(lambda: call(kernel))
+        ms["first_version_device_ms"] = device_ms(lambda: call("cuda_cores"))
         ms["library_device_ms"] = device_ms(library)
-        bd = bound(2 * rows * k * n, nbytes(*tensors, call("auto")), "bf16")
-        print(f"  {name + '[bf16]':<24} {rows}x{k}->{n}: tensor_cores "
-              f"{ms['tensor_cores']:.4f} ms (device time by the profiler "
+        bd = bound(2 * rows * k * n, nbytes(*tensors, call("auto")), kind)
+        print(f"  {label_of:<24} {rows}x{k}->{n}: {kernel} "
+              f"{ms[kernel]:.4f} ms (device time by the profiler "
               f"{ms['device_ms']:.4f} ms), cuda_cores (first version) "
-              f"{ms['cuda_cores']:.4f} ms, plain {ms['plain']:.4f} ms, "
-              f"library call {ms['library']:.4f} ms (device time "
-              f"{ms['library_device_ms']:.4f} ms), bound {bd['bound_ms']:.4f} "
-              f"ms ({bd['bound_by']}); runs {runs}")
+              f"{ms['cuda_cores']:.4f} ms (device "
+              f"{ms['first_version_device_ms']:.4f} ms), plain "
+              f"{ms['plain']:.4f} ms, library call {ms['library']:.4f} ms "
+              f"(device time {ms['library_device_ms']:.4f} ms), bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); device time / "
+              f"library's {ms['device_ms'] / ms['library_device_ms']:.3f}, "
+              f"/ bound {ms['device_ms'] / bd['bound_ms']:.3f}; runs {runs}")
         times[rows, k, n] = {**ms, **bd}
     # what a call costs the host, at a shape whose kernels are a few µs: an
     # event-timed loop of a kernel shorter than this reads this instead
     call, _, library, _ = make(128, 64, 128, timed[0][3])
-    print(f"  {name + '[bf16]':<24} host time a call, 128x64->128: "
-          f"tensor_cores {host_us(lambda: call('tensor_cores')):.1f} us, "
-          f"cuda_cores {host_us(lambda: call('cuda_cores')):.1f} us, library "
-          f"call {host_us(library):.1f} us")
+    print(f"  {label_of:<24} host time a call, 128x64->128: {kernel} "
+          f"{host_us(lambda: call(kernel)):.1f} us, cuda_cores "
+          f"{host_us(lambda: call('cuda_cores')):.1f} us, library call "
+          f"{host_us(library):.1f} us")
     return err, times
 
 
-def tensor_core_row(row: dict, err: float, t: dict) -> None:
+def fast_row(row: dict, err: float, t: dict, kernel="tensor_cores") -> None:
     """Rewrite a kernel-line row from the in-turns times ``t`` of its shape:
-    the tensor-core kernel's numbers, the first version's beside them."""
-    row.update(source=TC_SOURCE, max_abs_err=max(row["max_abs_err"], err),
-               ms=t["tensor_cores"], plain_ms=t["plain"],
-               library_ms=t["library"], first_version_ms=t["cuda_cores"],
-               bound_ms=t["bound_ms"], bound_by=t["bound_by"])
+    the redesigned kernel's numbers, the first version's beside them."""
+    row.update(source=FAST[kernel]["source"],
+               max_abs_err=max(row["max_abs_err"], err), ms=t[kernel],
+               plain_ms=t["plain"], library_ms=t["library"],
+               first_version_ms=t["cuda_cores"], bound_ms=t["bound_ms"],
+               bound_by=t["bound_by"])
 
 
 def write_corpus(root: Path, frames: int, hop: int, seg: int) -> None:
@@ -1520,6 +1587,9 @@ def phase_resident(data: Path, card: str):
         cfg = load_config(ROOT / "configs" / "perf_bf16.ini")
         cfg.dataset.datapath = str(data)
         cfg.training.save_best_model_after = 0
+        # the kernels by name: the file's `best` is the measured winner, the
+        # plain ops (models/registry.py resolve_backend)
+        cfg.tpu.backend = "pallas"
         for key, value in changes.items():
             section, name = key.split("__")
             setattr(getattr(cfg, section), name, value)
@@ -1649,10 +1719,12 @@ def phase_resident(data: Path, card: str):
         if backend == "pallas":
             for w in ops.KERNEL_WRAPPERS:
                 w.launches = 0
+            on_sgemm = mlp.matmul_nt.sgemm_launches
         state, ls = run(state, d32, 0)
         torch.cuda.synchronize()
         if backend == "pallas":
             prim = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+            prim["matmul_nt@sgemm"] = mlp.matmul_nt.sgemm_launches - on_sgemm
         after = torch.cat([t.ravel() for _, t in sorted(
             (f"{n}.{k}", t) for n, q in state.params.items()
             for k, t in q.items())])
@@ -1662,9 +1734,10 @@ def phase_resident(data: Path, card: str):
     print(f"  `highest` resident epoch, launches per step: {per_step}")
     check(per_step == {"encoder_fwd": 1, "decoder_fwd": 1,
                        "matmul_nt2_mask": 1, "matmul_nt_mask": 1,
-                       "matmul_nt": 1, "grad_accum": 5,
+                       "matmul_nt": 1, "matmul_nt@sgemm": 1, "grad_accum": 5,
                        "reparameterize_prng": 1},
-          f"unexpected launches per `highest` step: {per_step}")
+          f"unexpected launches per `highest` step (matmul_nt on the fp32 "
+          f"kernel of csrc/sgemm.cuh, once a step): {per_step}")
     (dk, lk), (dx, lx) = deltas["pallas"], deltas["xla"]
     upd = float((dk - dx).norm() / dx.norm())
     print(f"  `highest` resident epoch, kernels vs plain: first loss "
@@ -2237,18 +2310,9 @@ def phase_variant_kernels():
                       f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
                       f"({row['bound_by']})")
             else:
-                xs, ws, bs = lin_operands(SERVE_BATCH, 4096, 4096, dt)
-                t_s = cuda_time_ms(
-                    lambda: kernel(xs, ws, bs, "tanh"), 10)
-                t_p = cuda_time_ms(lambda: plain(xs, ws, bs, "tanh"), 10)
-                t_l = cuda_time_ms(lambda: torch.addmm(bs, xs, ws), 10)
-                bd = bound(2 * SERVE_BATCH * 4096 * 4096,
-                           nbytes(xs, ws, bs, kernel(xs, ws, bs, "tanh")),
-                           kind)
-                print(f"  {name + '[' + kind + ']':<24} {SERVE_BATCH}x4096->"
-                      f"4096 (the server's batch): kernel {t_s:.4f} ms, "
-                      f"plain {t_p:.4f} ms, torch.addmm {t_l:.4f} ms, bound "
-                      f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+                # (the operands of the server's 256x4096->4096, timed below
+                # in both dtypes: the draws after it stay as they were)
+                lin_operands(SERVE_BATCH, 4096, 4096, dt)
 
     # bf16 linear_ksplit_fwd on the tensor cores: the deep model's seven
     # k-split layers at its batch (six distinct shapes), ragged shapes with
@@ -2277,18 +2341,18 @@ def phase_variant_kernels():
         check(linear.takes_ksplit(DEEP_BATCH, k, n), f"{k}->{n} is no "
               "k-split layer")
     big, small = (DEEP_BATCH, 4096, 4096), (DEEP_BATCH, 1024, 512)
-    err, times = hold_tensor_cores(
+    err, times = hold_kernel(
         "linear_ksplit_fwd", linear.linear_ksplit_fwd, tc_operands,
         [(DEEP_BATCH, k, n, "relu") for k, n in deep]
         + [(*big, "tanh"), (1024, 1024, 512, "relu x = 0")]
         + [(*sh, act) for sh in TC_RAGGED for act in ("none", "relu", "tanh")]
         + [(*sh, "relu") for sh in NO_TMA],
         [(*big, "relu"), (*small, "relu")])
-    tensor_core_row(rows["linear_ksplit_fwd[bf16]"], err, times[big])
+    fast_row(rows["linear_ksplit_fwd[bf16]"], err, times[big])
     for k, n in ((1024, 512), (2048, 1024)):
-        sweep_widths("linear_ksplit_fwd", f"{DEEP_BATCH}x{k}->{n}",
-                     tc_operands(DEEP_BATCH, k, n, "relu")[0],
-                     DEEP_BATCH // 128, n)
+        sweep_tiles("linear_ksplit_fwd", f"{DEEP_BATCH}x{k}->{n}",
+                    tc_operands(DEEP_BATCH, k, n, "relu")[0],
+                    (DEEP_BATCH // 128, n))
 
     # bf16 linear_fwd on the tensor cores: the deep model's four whole-k
     # layers at its batch (the 512 -> 256 heads twice a forward), the
@@ -2303,12 +2367,12 @@ def phase_variant_kernels():
     whole_k = [(DEEP_BATCH, 512, 256, "none"), (DEEP_BATCH, 256, 512, "relu"),
                (DEEP_BATCH, 512, 1024, "relu"),
                (SERVE_BATCH, 4096, 4096, "tanh")]
-    err, times = hold_tensor_cores(
+    err, times = hold_kernel(
         "linear_fwd", linear.linear_fwd, fwd_operands,
         whole_k + [(*sh, act) for sh in TC_RAGGED
                    for act in ("none", "relu", "tanh")]
         + [(*sh, "relu") for sh in NO_TMA], whole_k)
-    tensor_core_row(rows["linear_fwd[bf16]"], err, times[whole_k[0][:3]])
+    fast_row(rows["linear_fwd[bf16]"], err, times[whole_k[0][:3]])
 
     def forward(key):
         return sum(times[sh[:3]][key] * c
@@ -2320,8 +2384,47 @@ def phase_variant_kernels():
           f"{forward('library_device_ms'):.4f} ms (no activation), bound "
           f"{forward('bound_ms'):.4f} ms")
     for batch, k, n, act in whole_k:
-        sweep_widths("linear_fwd", f"{batch}x{k}->{n}",
-                     fwd_operands(batch, k, n, act)[0], -(-batch // 128), n)
+        sweep_tiles("linear_fwd", f"{batch}x{k}->{n}",
+                    fwd_operands(batch, k, n, act)[0], (-(-batch // 128), n))
+
+    # fp32 linear_fwd on the register-tiled kernel (csrc/sgemm.cuh): the
+    # deep server's eleven launches at its batch (nine distinct shapes), the
+    # deep heads at the training batch, 4096^3, ragged shapes with every
+    # activation, shapes it cannot take (a generator of its own, as above)
+    g_sg = torch.Generator(device=dev).manual_seed(33)
+
+    def fwd32_operands(batch, k, n, what):
+        act = what.split()[0]
+        x = torch.randn((batch, k), generator=g_sg, device=dev)
+        w = torch.randn((k, n), generator=g_sg, device=dev) / k ** 0.5
+        b = torch.randn((n,), generator=g_sg, device=dev) * 0.1
+        return (lambda kernel: linear.linear_fwd(x, w, b, act, kernel=kernel),
+                lambda: linear.linear_fwd_ref(x, w, b, act),
+                lambda: torch.addmm(b, x, w), (x, w, b))
+
+    server = [(SERVE_BATCH, k, n, act) for (k, n), act in
+              {(k, n): act for k, n, act in SERVER_LAYERS}.items()]
+    timed = server + [(DEEP_BATCH, 512, 256, "none"),
+                      (DEEP_BATCH, 4096, 4096, "relu")]
+    err, times = hold_kernel(
+        "linear_fwd", linear.linear_fwd, fwd32_operands,
+        timed + [(*sh, act) for sh in SGEMM_RAGGED
+                 for act in ("none", "relu", "tanh")]
+        + [(*sh, "relu") for sh in NO_SGEMM], timed, kernel="sgemm")
+    widest = (SERVE_BATCH, 4096, 4096)
+    fast_row(rows["linear_fwd[fp32]"], err, times[widest], "sgemm")
+
+    def served(key):
+        return sum(times[SERVE_BATCH, k, n][key] for k, n, _ in SERVER_LAYERS)
+
+    print(f"  {'linear_fwd[fp32]':<24} the deep server's eleven launches at "
+          f"batch {SERVE_BATCH}: device time {served('device_ms'):.4f} ms, "
+          f"first version {served('first_version_device_ms'):.4f} ms, "
+          f"torch.addmm {served('library_device_ms'):.4f} ms (no "
+          f"activation), bound {served('bound_ms'):.4f} ms")
+    for batch, k, n, act in timed:
+        sweep_tiles("linear_fwd", f"{batch}x{k}->{n}",
+                    fwd32_operands(batch, k, n, act)[0], (batch, n), "sgemm")
 
     # the block-Toeplitz kernel through the two convolutions, at every layer
     # of configs/conv1d.ini, batch 4096: forward and the dx launch
@@ -2445,11 +2548,11 @@ def phase_variant_kernels():
                   f"{t['library_device']:.4f} ms), bound "
                   f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) (runs {runs})")
             if on_tc:
-                sweep_widths("toeplitz_fwd", f"layer {i}", call,
-                             -(-toeplitz.tile_halves(
-                                 DEEP_BATCH, t_out,
-                                 *toeplitz.tile_plan(t_out)) // 2),
-                             wp.shape[2])
+                sweep_tiles("toeplitz_fwd", f"layer {i}", call,
+                            (-(-toeplitz.tile_halves(
+                                DEEP_BATCH, t_out,
+                                *toeplitz.tile_plan(t_out)) // 2),
+                             wp.shape[2]))
 
         def total(key):
             return sum(layer_ms[kind, i][key] for i in range(len(CONV_LAYERS)))
@@ -2839,8 +2942,8 @@ def step_pair(cfg, ckpt, x, models, tol, label):
     """One step from checkpoint ``ckpt`` on batch ``x`` with each of the two
     models of ``models`` ({name: build(cfg)}), same noise; the first is the
     kernels', the second the plain one.  Returns the kernel launches of the
-    first, and under "<wrapper>@tc" those of a wrapper with a tensor-core
-    form that took it."""
+    first, and under "<wrapper>@tc" / "<wrapper>@sgemm" those of a wrapper
+    with a tensor-core / fp32 form that took it."""
     from rawaudiovae_kelsey_tpu_torch import ops
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
     from rawaudiovae_kelsey_tpu_torch.train import (
@@ -2861,15 +2964,17 @@ def step_pair(cfg, ckpt, x, models, tol, label):
         before = tree_map(torch.clone, state.params)
         for w in ops.KERNEL_WRAPPERS:
             w.launches = 0
-        tc = [w for w in ops.KERNEL_WRAPPERS
-              if hasattr(w, "tensor_core_launches")]
-        on_tc = [w.tensor_core_launches for w in tc]
+        fast = [(w, attr, tag) for w in ops.KERNEL_WRAPPERS
+                for attr, tag in (("tensor_core_launches", "tc"),
+                                  ("sgemm_launches", "sgemm"))
+                if hasattr(w, attr)]
+        on_fast = [getattr(w, attr) for w, attr, _ in fast]
         state, m = build_train_step(model, cfg, noise=noise)(state, x)
         torch.cuda.synchronize()
         if k == 0:
             counts = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
-            counts.update((f"{w.__name__}@tc", w.tensor_core_launches - n)
-                          for w, n in zip(tc, on_tc))
+            counts.update((f"{w.__name__}@{tag}", getattr(w, attr) - n)
+                          for (w, attr, tag), n in zip(fast, on_fast))
         delta = torch.cat([(a - b).ravel() for a, b in
                            zip(leaves(state.params), leaves(before))])
         out.append((float(m["loss"]), delta))
@@ -3033,22 +3138,23 @@ def phase_deep(tmp: Path, audio, card: str):
         cfg.tpu.precision = precision
         counts = step_counts[precision] = step_pair(cfg, ckpt, x, models, tol,
                                                     f"deep {precision}")
-        n_k, n_w, tc_k, tc_w = (counts[k] for k in (
+        n_k, n_w, tc_k, tc_w, sg_w = (counts[k] for k in (
             "linear_ksplit_fwd", "linear_fwd", "linear_ksplit_fwd@tc",
-            "linear_fwd@tc"))
+            "linear_fwd@tc", "linear_fwd@sgemm"))
         print(f"  kernel launches in that step: linear_ksplit_fwd {n_k} "
               f"({tc_k} on the tensor cores), linear_fwd {n_w} ({tc_w} on "
-              f"the tensor cores): {tc_k + tc_w} of {n_k + n_w} linear "
-              "launches on the tensor cores")
+              f"the tensor cores, {sg_w} on the fp32 kernel): {tc_k + tc_w} "
+              f"of {n_k + n_w} linear launches on the tensor cores")
         check((n_k, n_w) == (7, 4), f"deep {precision} step: {n_k} k-split + "
               f"{n_w} whole-k launches, expected 7 + 4")
         bf16 = precision == "bfloat16"
-        check((tc_k, tc_w) == ((7, 4) if bf16 else (0, 0)),
+        check((tc_k, tc_w, sg_w) == ((7, 4, 0) if bf16 else (0, 0, 4)),
               f"deep {precision} step: {tc_k} + {tc_w} linear launches on the "
-              "tensor cores (bf16 layers take them, fp32 ones do not)")
+              f"tensor cores, {sg_w} on the fp32 kernel (bf16 layers take "
+              "the tensor cores, fp32 whole-k ones csrc/sgemm.cuh)")
     # per forward at the server's batch: every layer takes the whole-k
-    # kernel; on the fp32 master params its first version, on bf16 ones the
-    # tensor cores
+    # kernel; on the fp32 master params the fp32 kernel (csrc/sgemm.cuh), on
+    # bf16 ones the tensor cores
     cfg.tpu.precision = "bfloat16"
     model = models["kernels"](cfg)
     params = model.init(torch.Generator().manual_seed(0))
@@ -3056,6 +3162,7 @@ def phase_deep(tmp: Path, audio, card: str):
         for w in ops.DEEP_KERNELS:
             w.launches = 0
         on_tc = linear.linear_fwd.tensor_core_launches
+        on_sg = linear.linear_fwd.sgemm_launches
         with torch.inference_mode():
             mu, _ = model.encode(tree_map(lambda t: t.to(dt), params),
                                  x[:SERVE_BATCH].to(dt))
@@ -3063,26 +3170,35 @@ def phase_deep(tmp: Path, audio, card: str):
         torch.cuda.synchronize()
         n_k, n_w = (w.launches for w in ops.DEEP_KERNELS)
         on_tc = linear.linear_fwd.tensor_core_launches - on_tc
-        want = 11 if dt == torch.bfloat16 else 0
+        on_sg = linear.linear_fwd.sgemm_launches - on_sg
+        want = (11, 0) if dt == torch.bfloat16 else (0, 11)
         print(f"  a {dt} forward at batch {SERVE_BATCH}: linear_ksplit_fwd "
-              f"{n_k}, linear_fwd {n_w} ({on_tc} on the tensor cores)")
-        check((n_k, n_w, on_tc) == (0, 11, want), f"{dt} batch {SERVE_BATCH}: "
-              f"{n_k} k-split + {n_w} whole-k launches, {on_tc} on the tensor "
-              f"cores, expected 0 + 11, {want} of them")
+              f"{n_k}, linear_fwd {n_w} ({on_tc} on the tensor cores, "
+              f"{on_sg} on the fp32 kernel)")
+        check((n_k, n_w, on_tc, on_sg) == (0, 11, *want),
+              f"{dt} batch {SERVE_BATCH}: {n_k} k-split + {n_w} whole-k "
+              f"launches, {on_tc} on the tensor cores and {on_sg} on the fp32 "
+              f"kernel, expected 0 + 11, {want[0]} and {want[1]}")
 
-    # serve the trained run: fp32 master weights through the whole-k kernel
+    # serve the trained run: fp32 master weights through the whole-k
+    # layer's fp32 kernel (csrc/sgemm.cuh)
     for w in ops.KERNEL_WRAPPERS:
         w.launches = 0
     on_tc = linear.linear_fwd.tensor_core_launches
+    on_sg = linear.linear_fwd.sgemm_launches
     out, lat_ms = phase_serve(runs[0], audio, False)
     serve_launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    serve_launches["linear_fwd@sgemm"] = \
+        linear.linear_fwd.sgemm_launches - on_sg
     print(f"  kernel launches in the deep serving path: "
           f"{ {k: v for k, v in serve_launches.items() if v} }")
     check(serve_launches["linear_fwd"] > 0
+          and serve_launches["linear_fwd@sgemm"]
+          == serve_launches["linear_fwd"]
           and serve_launches["linear_ksplit_fwd"] == 0
           and linear.linear_fwd.tensor_core_launches == on_tc,
-          "the deep server did not run on the first version of linear_fwd "
-          "alone (it serves fp32)")
+          "the deep server did not run every launch on the fp32 kernel of "
+          "linear_fwd (it serves fp32)")
     served = load_params(runs[0] / "model" / "best_model.npz", params)
     with torch.inference_mode():
         fr = torch.from_numpy(np.ascontiguousarray(
@@ -3193,9 +3309,11 @@ def host_cost() -> dict:
     """``--host-cost``: the host time of one call (µs, ``host_us``, the
     median of five rounds) of the four wrappers with a tensor-core form, as
     the package beside this file ships them, on bf16 operands whose kernels
-    take a few µs, beside the one PyTorch call of the same function.  Needs
-    nothing of this script's other phases, so a copy of it in another
-    checkout times that checkout's wrappers."""
+    take a few µs, and of the two with an fp32 form (``linear_fwd``,
+    ``matmul_nt``; "[fp32]") on fp32 operands, each beside the one PyTorch
+    call of the same function.  Needs nothing of this script's other
+    phases, so a copy of it in another checkout times that checkout's
+    wrappers."""
     import torch.nn.functional as F
 
     from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp, toeplitz
@@ -3218,6 +3336,13 @@ def host_cost() -> dict:
                                                       1),
         "F.conv1d": lambda: F.conv1d(xc, wc, bs, padding=1),
     }
+    x32, w32, b32, wt32 = (t.float() for t in (x, w, b, wt))
+    calls.update({
+        "matmul_nt[fp32]": lambda: mlp.matmul_nt(x32, wt32),
+        "a @ w.t()[fp32]": lambda: x32 @ wt32.t(),
+        "linear_fwd[fp32]": lambda: linear.linear_fwd(x32, w32, b32),
+        "torch.addmm[fp32]": lambda: torch.addmm(b32, x32, w32),
+    })
     # the host's rate drifts: five rounds of every call in turn, the median
     rounds = [{name: host_us(fn) for name, fn in calls.items()}
               for _ in range(5)]
@@ -3404,6 +3529,9 @@ def main() -> int:
         name, kind = key[:-1].split("[")
         if name == "reparameterize_prng":
             row["launches"] = resident_launches[name]
+        elif name == "matmul_nt" and kind == "fp32":
+            # the row describes the fp32 kernel: the launches that took it
+            row["launches"] = primitive_launches["matmul_nt@sgemm"]
         elif kind == "fp32":
             row["launches"] = primitive_launches[name]
         else:
@@ -3438,7 +3566,9 @@ def main() -> int:
             counts = deep_serve_launches
         else:
             counts = deep_fp32_launches
-        row["launches"] = counts[f"{name}@tc" if kind == "bf16" else name]
+        row["launches"] = counts[
+            f"{name}@tc" if kind == "bf16"
+            else f"{name}@sgemm" if name == "linear_fwd" else name]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(variant_rows)
     # the probes' kernels: the deep_bwd runs in each dtype, the adam_fusion

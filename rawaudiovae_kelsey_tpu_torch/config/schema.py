@@ -146,8 +146,8 @@ class TPUConfig:
     precision: str = "highest"
     # Kernel backend for the hot path: "xla" (the plain PyTorch ops) |
     # "pallas" (the hand-written CUDA kernels; on CPU tensors their plain
-    # versions) | "best" (the kernels for the dense model on a CUDA
-    # device, the plain ops otherwise).
+    # versions) | "best" (the measured winner per family and tier: the
+    # plain ops, which won every cell measured on a CUDA device).
     backend: str = "xla"
     # Microbatch size for gradient accumulation; 0 disables.  Lets the
     # reference's default batch_size=131072 (default.ini:27, reduced to 4096

@@ -70,11 +70,14 @@
 // Tensor cores are the later step for all but the entry point rvk_matmul_nt,
 // whose bf16 form runs on wgmma.cuh (both operands K-major: a block owns a
 // 128-row tile of the output, streams its rows of a once through a TMA ring
-// and rounds once from the fp32 accumulators).  The template matmul_nt<T>
+// and rounds once from the fp32 accumulators) and whose fp32 form runs on
+// the register-tiled mainloop of sgemm.cuh (both operands K-major, staged by
+// cp.async and stored k-major in shared memory).  The template matmul_nt<T>
 // below, which the fused kernels and the gated forms launch, stays on
 // gemm.cuh.
 
 #include "gemm.cuh"
+#include "sgemm.cuh"
 #include "wgmma.cuh"
 
 using rvk::dst;
@@ -229,11 +232,19 @@ extern "C" {
 // a (batch, n), w (m, n), out (batch, m), all of one dtype.  kernel (an
 // rvk::tc::Kernel): 0, the tiled GEMM on the CUDA cores; 1, the
 // tensor-core form, bf16 only, in tiles 128 x tile_n (256, 128 or 64; the
-// caller's choice, ops/tensor_cores.py tile_n; the first version ignores
-// it).
+// caller's choice, ops/tensor_cores.py tile_n); 2, the fp32 mainloop of
+// sgemm.cuh, fp32 only, n and m multiples of 4, 16-byte aligned pointers,
+// on the tile sgemm::kTiles[tile_n] (ops/tensor_cores.py sgemm_tile).  The
+// first version ignores tile_n.
 int rvk_matmul_nt(const void* a, const void* w, void* out, int batch, int n,
                   int m, int dtype, int tile_n, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32) return cudaErrorInvalidValue;
+    return rvk::sgemm::launch<true, rvk::kActNone>(
+        src<float>(a), src<float>(w), nullptr, dst<float>(out), batch, m, n,
+        tile_n, s);
+  }
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16) {
       return cudaErrorInvalidValue;

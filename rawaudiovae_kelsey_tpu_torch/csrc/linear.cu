@@ -11,7 +11,10 @@
 // tensor-core k-split below: the deep model's whole-k layers (512 -> 256,
 // 256 -> 512, 512 -> 1024 at batch 4096) are below the card's ridge, 6-13
 // MB against 0.5-2 GFLOP, so what matters is enough tiles to read them
-// from every SM (the 128 x 64 tile).  The first version, for fp32 and for
+// from every SM (the 128 x 64 tile).  fp32 operands with k and n multiples
+// of 4 and 16-byte aligned pointers take the register-tiled fp32 mainloop
+// of sgemm.cuh (x K-major, w N-major: IEEE fp32 FFMAs, one accumulator
+// across all of k).  The first version, for the other fp32 shapes and for
 // bf16 operands TMA cannot take, is one launch of the tiled GEMM of
 // gemm.cuh on the CUDA cores (x read along its rows, w along its rows too,
 // every ragged edge masked).
@@ -46,6 +49,7 @@
 // rate, more than twice the whole product's bound on the tensor cores.
 
 #include "product.cuh"
+#include "sgemm.cuh"
 #include "wgmma.cuh"
 
 using rvk::dst;
@@ -147,11 +151,20 @@ extern "C" {
 // (rvk::DType); act an rvk::Act (none, relu or tanh).  kernel (an
 // rvk::tc::Kernel): 0, the tiled GEMM on the CUDA cores; 1, the tensor-core
 // form, bf16 only, in tiles 128 x tile_n (256, 128 or 64; the caller's
-// choice, ops/tensor_cores.py tile_n; the first version ignores it).
+// choice, ops/tensor_cores.py tile_n); 2, the fp32 mainloop of sgemm.cuh,
+// fp32 only, k and n multiples of 4, 16-byte aligned pointers, on the tile
+// sgemm::kTiles[tile_n] (ops/tensor_cores.py sgemm_tile).  The first
+// version ignores tile_n.
 int rvk_linear_fwd(const void* x, const void* w, const void* b, void* y,
                    int batch, int k, int n, int act, int dtype, int tile_n,
                    int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32) return cudaErrorInvalidValue;
+    return rvk::sgemm::launch_act<false>(src<float>(x), src<float>(w),
+                                         src<float>(b), dst<float>(y), batch,
+                                         n, k, act, tile_n, s);
+  }
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
     return tensor_core_linear(x, w, b, y, batch, k, n, act, dtype, tile_n,

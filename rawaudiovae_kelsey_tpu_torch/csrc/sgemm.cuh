@@ -1,0 +1,407 @@
+// fp32 mainloop for Hopper's CUDA cores (sm_90a): the device routine of the
+// fp32 forms of rvk_linear_fwd (linear.cu) and rvk_matmul_nt (bwd.cu).
+//
+//   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
+//
+// IEEE fp32 FFMAs, one fp32 accumulator per output, k in order: the
+// `float32` and `highest` tiers promise IEEE fp32 products, so neither TF32
+// nor a bf16 split of the operands.  A is (M, K) row-major (K-major: x of
+// the linear layer, a of matmul_nt).  B is one of two layouts, a
+// compile-time choice: K-major, a (N, K) row-major matrix read by its rows
+// (a @ wᵀ: matmul_nt's w), or N-major, a (K, N) row-major matrix (x @ w:
+// the linear layer's w).  The epilogue adds the bias (optional) and applies
+// none / relu / tanh, a template argument, then stores 16 bytes a thread.
+//
+// Which TPU kernels run on it: linear_fwd (_linear_kernel) of
+// rawaudiovae_kelsey_tpu/ops/pallas_linear.py and matmul_nt of
+// rawaudiovae_kelsey_tpu/ops/pallas_mlp.py, in fp32.  As there, an output
+// tile carries one accumulator across the whole contraction; here a block
+// walks all of K itself: no split over blocks, no workspace, no atomics, so
+// two launches give equal bits.
+//
+// What bounds it.  At 4096 x 4096 -> 4096 the product is 137 GFLOP on 201
+// MB: 683 FLOPs a byte against the card's fp32 ridge of 20 (67 TFLOP/s
+// over 3.35 TB/s), so FFMA issue is the limit.  An SM issues 128 FFMA
+// lanes a clock from four schedulers, one warp instruction each, and its
+// shared memory returns 128 bytes a clock; the design is about keeping
+// every issue slot on an FFMA.
+//
+// Design.
+// * Tiles and threads.  A block of 256 threads owns a BM x BN tile of C,
+//   128 x 128, 128 x 64 or 64 x 64, chosen by the caller (ops/
+//   tensor_cores.py sgemm_tile: the fewest waves of tiles times the tile's
+//   area, the larger on a tie; kTiles below).  Its eight warps stand 2 (m)
+//   x 4 (n), each over a warp tile of BM / 2 x BN / 4; a warp's 32 lanes
+//   stand 8 (m) x 4 (n), and each lane keeps RM x RN sub-tiles of 4 x 4
+//   accumulators (RM = BM / 64, RN = BN / 64): 8 x 8 at 128 x 128, 64 FMAs
+//   for every 16 floats read.  A k-step reads a lane's 4 rows of A and 4
+//   columns of B of each sub-tile as one 16-byte load each (LDS.128): the
+//   eight lanes of a quarter warp read eight neighbouring 16-byte chunks of
+//   A and one chunk of B (a broadcast), so no read waits on a bank.
+// * Staging.  K is walked in slabs of kBK, 16 deep at 128 x 128 and 32 for
+//   the narrower tiles, through a ring of kStages = 4 slabs in shared memory
+//   filled by 16-byte cp.async.cg copies (three slabs in flight while the
+//   fourth is computed).  An N-major operand is copied as it lies, k-rows
+//   of BN floats, and read straight from the ring.  A K-major operand
+//   arrives as rows of kBK k; after its slab has landed each thread reads
+//   back the 16-byte chunks it copied itself (no barrier: a thread's own
+//   cp.async writes are visible to it once waited for) and stores them
+//   k-major into one of two compute buffers, As[k][m], so that the k-step
+//   reads m-contiguous chunks.  A warp's copies cover 32 / (kBK / 4) rows x
+//   kBK / 4 k-quads; the chunk index is XORed with the quad (scaled to
+//   spread over 8 chunks) so that its transposed stores hit 32 distinct
+//   banks, and the readers apply the same XOR, which keeps their eight
+//   chunks distinct.  One __syncthreads a slab; within it the fragments of
+//   k-step k + 1 are read while k-step k's FMAs run.
+// * Ragged edges.  Copies of rows past M or N and of k past K are zero
+//   fills (cp.async with a source size of 0), so the loop has no mask; the
+//   epilogue skips rows past M and 16-byte column chunks past N.
+// * What it takes: k and n multiples of 4 (16-byte rows and chunks) and
+//   16-byte aligned base pointers; the callers check, and every other fp32
+//   shape keeps the first version (gemm.cuh).
+// * Registers.  __launch_bounds__(256, 2): two blocks an SM, at most 128
+//   registers a thread; the build's ptxas report shows the count and any
+//   spill.  Shared memory, (4 + 2) slabs of a K-major operand and 4 of an
+//   N-major one: 80 KB at 128 x 128 for x @ w, 96 KB for a @ wᵀ; 128 and
+//   144 KB at 128 x 64, where the grids hold about one block an SM.
+// The slab depths, the ring's depth and the fragment pipelining are the
+// fastest of the variants timed against one another on an H100 (PERF.md).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "gemm.cuh"
+
+namespace rvk {
+namespace sgemm {
+namespace {
+
+constexpr int kThreads = 256;
+// tile index (the entry points' `tile` argument) → (BM, BN);
+// ops/tensor_cores.py SGEMM_TILES
+constexpr int kTiles[3][2] = {{128, 128}, {128, 64}, {64, 64}};
+
+constexpr int kStages = 4;  // the cp.async ring, in slabs
+// The slab's depth in k, by tile: 16 at 128 x 128 (the large grids, two
+// blocks an SM); 32 for the narrower tiles (grids of about one block an SM,
+// where each slab's barrier and transposition stand exposed).
+template <int BM, int BN>
+constexpr int kSlabDepth = BM * BN >= 128 * 128 ? 16 : 32;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest `kPending` has landed (this thread's copies)
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One operand seen as R rows (M of A, N of B) by K, staged in slabs of
+// kBK.  kKMajor: element (r, k) at p[r * ld + k]; otherwise at p[k * ld +
+// r].  Its shared memory, in floats: the ring of kStages slabs, and for a
+// K-major operand two transposed compute buffers after it.
+template <int R, bool kKMajor, int kBK>
+struct Operand {
+  static constexpr int kSlab = R * kBK;
+  static constexpr int kFloats = (kStages + (kKMajor ? 2 : 0)) * kSlab;
+  static constexpr int kCopies = kSlab / 4 / kThreads;  // a thread's, a slab
+  static_assert(kCopies >= 1 && kSlab % (4 * kThreads) == 0,
+                "a slab is whole 16-byte copies, the same count a thread");
+  static constexpr int kQuads = kBK / 4;  // 16-byte copies a row of a slab
+  static_assert((kQuads & (kQuads - 1)) == 0 && kQuads <= 8,
+                "a power of two of k-quads, at most 8");
+
+  // The XOR of a K-major compute buffer's 16-byte chunk index at k-row k.
+  // A warp's copies cover 32 / kQuads rows x kQuads k-quads; the quad q
+  // of k (k / 4) moves the chunk by q * 8 / kQuads, so that the warp's
+  // transposed stores of one k-offset hit 32 distinct banks.  Readers XOR
+  // the same value, a permutation within an aligned group of 8 chunks.
+  __device__ __forceinline__ static int swizzle(int k) {
+    return ((k >> 2) & (kQuads - 1)) * (8 / kQuads);
+  }
+
+  // the slab's i-th 16-byte copy of this thread: row r (of R) and k offset
+  // kq for a K-major operand; k-row kq and column r for an N-major one
+  __device__ __forceinline__ static void place(int i, int& r, int& kq) {
+    const int idx = threadIdx.x + i * kThreads;
+    if (kKMajor) {
+      r = idx / kQuads, kq = (idx % kQuads) * 4;
+    } else {
+      kq = idx / (R / 4), r = (idx % (R / 4)) * 4;
+    }
+  }
+
+  // start the copies of slab `slab` into ring stage `stage`; rows from r0
+  // of `rows`, k of K
+  __device__ __forceinline__ static void issue(float* sm, const float* p,
+                                               int ld, int r0, int rows,
+                                               int K, int slab, int stage) {
+    float* ring = sm + stage * kSlab;
+    const int k0 = slab * kBK;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      int r, kq;
+      place(i, r, kq);
+      const int row = r0 + r, k = k0 + kq;
+      const bool valid = row < rows && k < K;
+      const float* src =
+          !valid ? p
+          : kKMajor ? p + static_cast<size_t>(row) * ld + k
+                    : p + static_cast<size_t>(k) * ld + row;
+      cp_async16(ring + (kKMajor ? r * kBK + kq : kq * R + r), src, valid);
+    }
+  }
+
+  // K-major only: this thread's copies of ring stage `stage`, k-major into
+  // compute buffer `buf` (swizzled)
+  __device__ __forceinline__ static void transpose(float* sm, int stage,
+                                                   int buf) {
+    if (!kKMajor) return;
+    const float* ring = sm + stage * kSlab;
+    float* out = sm + (kStages + buf) * kSlab;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      int r, kq;
+      place(i, r, kq);
+      const float4 v =
+          *reinterpret_cast<const float4*>(ring + r * kBK + kq);
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = kq + j;
+        out[k * R + (((r >> 2) ^ swizzle(k)) << 2) + (r & 3)] = e[j];
+      }
+    }
+  }
+
+  // the buffer the k-steps of slab t read
+  __device__ __forceinline__ static const float* compute(const float* sm,
+                                                          int t) {
+    return sm + (kKMajor ? kStages + (t & 1) : t % kStages) * kSlab;
+  }
+
+  // rows r .. r + 3 (r a multiple of 4) at k-row k of a compute buffer
+  __device__ __forceinline__ static float4 frag(const float* buf, int k,
+                                                int r) {
+    const int at = kKMajor ? (((r >> 2) ^ swizzle(k)) << 2) : r;
+    return *reinterpret_cast<const float4*>(buf + k * R + at);
+  }
+};
+
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <int kAct>
+__device__ __forceinline__ float activate(float v) {
+  if (kAct == kActRelu) return fmaxf(v, 0.f);
+  if (kAct == kActTanh) return tanhf(v);
+  return v;
+}
+
+// C (M, N) = act(A (M, K) · B + bias): B (N, K) if kBKMajor, else (K, N);
+// bias (N,) or null.
+template <int BM, int BN, bool kBKMajor, int kAct>
+__global__ void __launch_bounds__(kThreads, 2)
+sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+             const float* __restrict__ bias, float* __restrict__ c, int M,
+             int N, int K) {
+  constexpr int kBK = kSlabDepth<BM, BN>;
+  using OpA = Operand<BM, true, kBK>;
+  using OpB = Operand<BN, kBKMajor, kBK>;
+  constexpr int RM = BM / 64, RN = BN / 64;  // 4 x 4 sub-tiles a lane
+  constexpr int WM = BM / 2, WN = BN / 4;    // the warp tile
+  extern __shared__ float4 smem4[];
+  float* sa = reinterpret_cast<float*>(smem4);
+  float* sb = sa + OpA::kFloats;
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int warp = threadIdx.x / 32, lane_id = threadIdx.x % 32;
+  const int am = (warp / 4) * WM + (lane_id % 8) * 4;  // a lane's first row
+  const int bn = (warp % 4) * WN + (lane_id / 8) * 4;  // and column
+  const int ldb = kBKMajor ? K : N;
+  const int slabs = (K + kBK - 1) / kBK;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < slabs) {
+      OpA::issue(sa, a, K, m0, M, K, s, s);
+      OpB::issue(sb, b, ldb, n0, N, K, s, s);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  OpA::transpose(sa, 0, 0);
+  OpB::transpose(sb, 0, 0);
+  __syncthreads();
+
+  float acc[RM][RN][4][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][u][v] = 0.f;
+
+  for (int t = 0; t < slabs; ++t) {
+    // slab t + 2 into the stage slab t - 1 left: every thread passed the
+    // barrier after computing it, and read back its own copies of it
+    const int next = t + kStages - 1;
+    if (next < slabs) {
+      OpA::issue(sa, a, K, m0, M, K, next, next % kStages);
+      OpB::issue(sb, b, ldb, n0, N, K, next, next % kStages);
+    }
+    cp_async_commit();
+
+    // the fragments of k-step k + 1 are read while k-step k's FMAs run
+    const float* as = OpA::compute(sa, t);
+    const float* bs = OpB::compute(sb, t);
+    float4 fa[2][RM], fb[2][RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) fa[0][i] = OpA::frag(as, 0, am + 32 * i);
+#pragma unroll
+    for (int j = 0; j < RN; ++j) fb[0][j] = OpB::frag(bs, 0, bn + 16 * j);
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      if (k + 1 < kBK) {
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+          fa[(k + 1) & 1][i] = OpA::frag(as, k + 1, am + 32 * i);
+#pragma unroll
+        for (int j = 0; j < RN; ++j)
+          fb[(k + 1) & 1][j] = OpB::frag(bs, k + 1, bn + 16 * j);
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int v = 0; v < 4; ++v)
+              acc[i][j][u][v] = fmaf(lane(fa[k & 1][i], u),
+                                     lane(fb[k & 1][j], v), acc[i][j][u][v]);
+    }
+
+    if (t + 1 < slabs) {
+      // slab t + 1 has landed (this thread's copies); a K-major operand's
+      // goes k-major into the compute buffer slab t - 1 used
+      cp_async_wait<kStages - 2>();
+      OpA::transpose(sa, (t + 1) % kStages, (t + 1) & 1);
+      OpB::transpose(sb, (t + 1) % kStages, (t + 1) & 1);
+    }
+    __syncthreads();
+  }
+
+  // epilogue: the sum first, then the bias, as the plain `x @ w + b` does
+#pragma unroll
+  for (int j = 0; j < RN; ++j) {
+    const int n = n0 + bn + 16 * j;
+    if (n >= N) continue;
+    float4 bj = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (bias != nullptr) bj = *reinterpret_cast<const float4*>(bias + n);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int m = m0 + am + 32 * i + u;
+        if (m >= M) continue;
+        float4 out;
+        out.x = activate<kAct>(acc[i][j][u][0] + bj.x);
+        out.y = activate<kAct>(acc[i][j][u][1] + bj.y);
+        out.z = activate<kAct>(acc[i][j][u][2] + bj.z);
+        out.w = activate<kAct>(acc[i][j][u][3] + bj.w);
+        *reinterpret_cast<float4*>(c + static_cast<size_t>(m) * N + n) = out;
+      }
+    }
+  }
+}
+
+template <int BM, int BN, bool kBKMajor, int kAct>
+cudaError_t launch_tile(const float* a, const float* b, const float* bias,
+                        float* c, int M, int N, int K, cudaStream_t stream) {
+  auto kernel = sgemm_kernel<BM, BN, kBKMajor, kAct>;
+  constexpr int kBK = kSlabDepth<BM, BN>;
+  constexpr int smem = (Operand<BM, true, kBK>::kFloats +
+                        Operand<BN, kBKMajor, kBK>::kFloats) * 4;
+  // above the 48 KB a block gets without opting in: once a device
+  static uint64_t opted_in = 0;
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device >= 64 || !(opted_in >> device & 1)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (device < 64) opted_in |= uint64_t{1} << device;
+  }
+  const dim3 grid(cdiv(N, BN), cdiv(M, BM));
+  kernel<<<grid, kThreads, smem, stream>>>(a, b, bias, c, M, N, K);
+  return cudaGetLastError();
+}
+
+// Whether the kernel takes these operands: k and n multiples of 4, every
+// base pointer on a 16-byte boundary (the callers check too).
+inline bool takes(int K, int N, std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return K > 0 && K % 4 == 0 && N % 4 == 0 && bits % 16 == 0;
+}
+
+// C (M, N) = act(A (M, K) · B + bias) on the tile kTiles[tile], kAct an
+// rvk::Act (none, relu, tanh).  Nothing to compute launches nothing.
+template <bool kBKMajor, int kAct>
+cudaError_t launch(const float* a, const float* b, const float* bias,
+                   float* c, int M, int N, int K, int tile,
+                   cudaStream_t stream) {
+  if (!takes(K, N, {a, b, bias, c})) return cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  switch (tile) {
+    case 0:
+      return launch_tile<kTiles[0][0], kTiles[0][1], kBKMajor, kAct>(
+          a, b, bias, c, M, N, K, stream);
+    case 1:
+      return launch_tile<kTiles[1][0], kTiles[1][1], kBKMajor, kAct>(
+          a, b, bias, c, M, N, K, stream);
+    case 2:
+      return launch_tile<kTiles[2][0], kTiles[2][1], kBKMajor, kAct>(
+          a, b, bias, c, M, N, K, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The same with the activation chosen at run time (an rvk::Act code).
+template <bool kBKMajor>
+cudaError_t launch_act(const float* a, const float* b, const float* bias,
+                       float* c, int M, int N, int K, int act, int tile,
+                       cudaStream_t stream) {
+  switch (act) {
+    case kActNone:
+      return launch<kBKMajor, kActNone>(a, b, bias, c, M, N, K, tile, stream);
+    case kActRelu:
+      return launch<kBKMajor, kActRelu>(a, b, bias, c, M, N, K, tile, stream);
+    case kActTanh:
+      return launch<kBKMajor, kActTanh>(a, b, bias, c, M, N, K, tile, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+}  // namespace sgemm
+}  // namespace rvk

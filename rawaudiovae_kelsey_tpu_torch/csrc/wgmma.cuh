@@ -127,6 +127,7 @@ namespace {
 enum Kernel : int {
   kCudaCores = 0,    // the first-version kernels: not handled here
   kTensorCores = 1,  // this mainloop, the tile width chosen by shape
+  kSgemm = 2,        // the fp32 mainloop of sgemm.cuh, its tile by shape
 };
 
 constexpr int kTileM = 128;  // two consumer warpgroups of 64 rows

@@ -8,8 +8,10 @@ architecture), ``deep`` (the deep/wide MLP) and ``conv1d``
 runs the hand-written CUDA kernels (``ops/mlp.py`` for the dense model,
 ``ops/linear.py`` for the deep one; on CPU tensors their wrappers run the
 plain versions), ``xla`` the plain PyTorch ops (``models/vae.py``,
-``models/variants.py``), ``best`` the kernels for the dense model on a CUDA
-device and the plain ops elsewhere.  The conv1d model runs the plain
+``models/variants.py``), ``best`` the measured winner per family and
+precision tier, as the JAX registry defines it: on a CUDA device the plain
+ops won every cell measured (PERF.md §5), and unmeasured corners take them
+as in JAX, so ``best`` resolves to ``xla``.  The conv1d model runs the plain
 convolutions under every backend, as the JAX registry routes it on purpose;
 its block-Toeplitz path (``ops/conv.py``) is an explicit op-level API.
 Under ``pallas`` the dense model's backward of fp32 operands follows
@@ -53,13 +55,20 @@ class ModelDef:
 
 
 def resolve_backend(cfg: Config, device: torch.device) -> str:
-    """``best`` → ``pallas`` for the dense model on a CUDA device, ``xla``
-    otherwise; an explicit ``pallas`` / ``xla`` is kept."""
+    """``best`` → the measured winner for ``cfg``'s family and precision
+    tier on ``device``; an explicit ``pallas`` / ``xla`` is kept.
+
+    The JAX registry's rule (``_resolve_backend``): the kernels only where
+    they were measured to win, the plain ops for every unmeasured corner
+    (dense ``float32`` among them) and on the CPU.  On a CUDA device the
+    plain ops won every measured cell (PERF.md §5): the dense model's bf16
+    step 2,445,634 against 436,563 frames/s and its resident epoch 911,799
+    against 419,444; the deep and conv1d steps too.  So ``best`` is ``xla``
+    on every device today, and ``pallas`` is the explicit way to the
+    kernels."""
+    del device  # the measured winner is the same on every device
     backend = cfg.tpu.backend
-    if backend != "best":
-        return backend
-    return ("pallas" if cfg.vae.arch == "dense" and device.type == "cuda"
-            else "xla")
+    return "xla" if backend == "best" else backend
 
 
 def _parse_int_list(s: str, default: Sequence[int]) -> List[int]:
@@ -137,10 +146,9 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
 def resident_model(cfg: Config, model: ModelDef) -> ModelDef:
     """The ModelDef the device-resident epoch engine trains with: ``model``
     as :func:`resolve_backend` resolved it.  The JAX package re-routes
-    ``backend = best`` to XLA inside its on-chip epoch scan because the
-    Pallas custom calls schedule worse there on a TPU; that is a property
-    of that compiler and that chip.  Here an epoch is a host loop over the
-    same step the host-fed trainer takes, so there is nothing to re-route,
-    and ``best`` keeps the kernels on a CUDA device.  An explicit
-    ``backend = xla`` / ``pallas`` is honoured as everywhere."""
+    ``backend = best`` to XLA inside its on-chip epoch scan; here
+    :func:`resolve_backend` already resolves ``best`` to the plain ops, so
+    the resident engine trains on them under ``best`` as the JAX one does,
+    with nothing to re-route.  An explicit ``backend = xla`` / ``pallas``
+    is honoured as everywhere."""
     return model

@@ -9,9 +9,10 @@ the block-Toeplitz product with the two convolutions mapped onto it (the
 conv1d model).  Beside them the three kernels that no trainer dispatches
 and ``probes/`` measures: the fused backward of one linear layer
 (``dw_fused``, ``dx_fused``) and the one-pass Adam update of a leaf
-(``leaf_update``).  ``linear_ksplit_fwd`` and ``matmul_nt`` have two
-kernels each, the first version on the CUDA cores and a bf16 tensor-core
-one; ``ops/tensor_cores.py`` chooses by dtype and shape.  Sources in
+(``leaf_update``).  ``linear_ksplit_fwd``, ``linear_fwd``, ``matmul_nt``
+and ``toeplitz_fwd`` have a first version on the CUDA cores and a bf16
+tensor-core kernel; ``linear_fwd`` and ``matmul_nt`` also a register-tiled
+fp32 one; ``ops/tensor_cores.py`` chooses by dtype, shape and alignment.  Sources in
 ``csrc/``; built by ``ops/_build.py``."""
 
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401

@@ -8,12 +8,15 @@ Two kernels compute the same function (``csrc/linear.cu``):
 * :func:`linear_ksplit_fwd`: the contraction is walked slice by slice in
   order.
 
+fp32 operands of :func:`linear_fwd` with k and n multiples of 4 take the
+register-tiled fp32 kernel (``csrc/sgemm.cuh``: a block owns an output tile
+and carries one fp32 accumulator per output across all of k, IEEE FFMAs).
 bf16 operands that TMA can address (``ops/tensor_cores.py``) take the
 tensor-core kernel (``csrc/wgmma.cuh``) in both: one launch, a block owns an
 output tile and carries one fp32 accumulator across all of k, bias,
-activation and the one rounding in its epilogue, no workspace.  fp32
-operands, and bf16 ones TMA cannot take, keep the first versions on the
-CUDA cores: for :func:`linear_fwd` one tiled GEMM; for
+activation and the one rounding in its epilogue, no workspace.  The other
+fp32 operands, and bf16 ones TMA cannot take, keep the first versions on
+the CUDA cores: for :func:`linear_fwd` one tiled GEMM; for
 :func:`linear_ksplit_fwd` slices of ``KSPLIT_BLOCK_K`` over a grid
 dimension, every block writes the fp32 partial sum of its slice to a
 workspace and a second stage adds the slices in order, adds the bias,
@@ -130,12 +133,14 @@ def linear_fwd(x, w, b, act: str = "none", kernel: str = "auto") -> Tensor:
     tile.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_linear.py`` ``linear_fwd``.
-    CUDA, one launch of one of two hand-written kernels, chosen as
-    :func:`linear_ksplit_fwd` chooses: bf16 operands TMA can address take
-    the tensor-core kernel (``csrc/wgmma.cuh``), everything else the tiled
-    GEMM on the CUDA cores (``csrc/linear.cu``).  ``kernel`` names one
-    instead; the tensor-core kernel on operands it cannot take raises.  One
-    call counts once in ``launches`` and in ``tensor_core_launches`` too
+    CUDA, one launch of one of three hand-written kernels
+    (``ops/tensor_cores.py``): bf16 operands TMA can address take the
+    tensor-core kernel (``csrc/wgmma.cuh``), fp32 operands with k and n
+    multiples of 4 and 16-byte aligned pointers the register-tiled fp32
+    kernel (``csrc/sgemm.cuh``), everything else the tiled GEMM on the CUDA
+    cores (``csrc/linear.cu``).  ``kernel`` names one instead; a kernel
+    named on operands it cannot take raises.  One call counts once in
+    ``launches``, and in ``tensor_core_launches`` or ``sgemm_launches`` too
     when that kernel ran."""
     tensor_cores.check_name("linear_fwd", kernel)
     if x.device.type == "cpu":
@@ -147,12 +152,14 @@ def linear_fwd(x, w, b, act: str = "none", kernel: str = "auto") -> Tensor:
         _build.launch("rvk_linear_fwd", dev, x, w, b, y, batch, k, n,
                       ACT_CODES[act], DTYPE_CODES[dt], tile, code)
         linear_fwd.launches += 1
-        linear_fwd.tensor_core_launches += bool(code)
+        linear_fwd.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+        linear_fwd.sgemm_launches += code == tensor_cores.SGEMM
     return y
 
 
 linear_fwd.launches = 0
 linear_fwd.tensor_core_launches = 0
+linear_fwd.sgemm_launches = 0
 
 
 def _prepare(name: str, x, w, b, act: str, kernel: str):
@@ -162,8 +169,7 @@ def _prepare(name: str, x, w, b, act: str, kernel: str):
     dev, dt, batch, k, n = _check(name, x, w, b, act)
     code = tensor_cores.resolve_kernel(
         name, kernel, dt, batch, k, n, tensor_cores.pointers_aligned(x, w, b))
-    tile = tensor_cores.width(code, dev, -(-batch // tensor_cores.TILE_M), n) \
-        if batch and n else 0
+    tile = tensor_cores.tile(code, dev, batch, n) if batch and n else 0
     return dev, dt, batch, k, n, code, tile
 
 

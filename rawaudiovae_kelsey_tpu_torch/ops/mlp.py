@@ -288,18 +288,19 @@ def matmul_nt(a, w, kernel: str = "auto") -> Tensor:
     dtype — the input-gradient product (``dz``, ``dx``).
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``matmul_nt``.
-    CUDA, one launch of one of two hand-written kernels, both operands read
-    along their rows, chosen by ``tensor_cores.takes_tensor_cores(dtype,
-    batch, n, m)``: bf16 operands with n and m multiples of 8 and 16-byte
-    aligned pointers take the tensor-core kernel (``csrc/wgmma.cuh``);
-    everything else the tiled GEMM on the CUDA cores (``csrc/bwd.cu``).
-    ``kernel`` names one instead (``tensor_cores.KERNEL_CODES``); the
-    tensor-core kernel on operands it cannot take raises.  The two kernels
-    round differently, so the output's bits depend on the choice and hence
-    on the pointers' alignment (an unaligned contiguous view may differ from
-    the aligned tensor by a bf16 ulp).  One call counts
-    once in ``launches``, whichever ran, and in ``tensor_core_launches`` too
-    when that one ran."""
+    CUDA, one launch of one of three hand-written kernels, both operands
+    read along their rows, chosen by ``tensor_cores.resolve_kernel``: bf16
+    operands with n and m multiples of 8 and 16-byte aligned pointers take
+    the tensor-core kernel (``csrc/wgmma.cuh``); fp32 operands with n and m
+    multiples of 4 and 16-byte aligned pointers the register-tiled fp32
+    kernel (``csrc/sgemm.cuh``); everything else the tiled GEMM on the CUDA
+    cores (``csrc/bwd.cu``).  ``kernel`` names one instead
+    (``tensor_cores.KERNEL_CODES``); a kernel named on operands it cannot
+    take raises.  The kernels round differently, so the output's bits
+    depend on the choice and hence on the pointers' alignment (an unaligned
+    contiguous view may differ from the aligned tensor by a bf16 ulp).  One
+    call counts once in ``launches``, whichever ran, and in
+    ``tensor_core_launches`` or ``sgemm_launches`` too when that one ran."""
     tensor_cores.check_name("matmul_nt", kernel)
     if a.device.type == "cpu":
         return matmul_nt_ref(a, w)
@@ -314,17 +315,18 @@ def matmul_nt(a, w, kernel: str = "auto") -> Tensor:
         tensor_cores.pointers_aligned(a, w))
     out = torch.empty((batch, m), device=dev, dtype=dt)
     if batch:
-        tile = tensor_cores.width(code, dev, -(-batch // tensor_cores.TILE_M),
-                                  m)
         _build.launch("rvk_matmul_nt", dev, a, w, out, batch, n, m,
-                      DTYPE_CODES[dt], tile, code)
+                      DTYPE_CODES[dt], tensor_cores.tile(code, dev, batch, m),
+                      code)
         matmul_nt.launches += 1
-        matmul_nt.tensor_core_launches += bool(code)
+        matmul_nt.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+        matmul_nt.sgemm_launches += code == tensor_cores.SGEMM
     return out
 
 
 matmul_nt.launches = 0
 matmul_nt.tensor_core_launches = 0
+matmul_nt.sgemm_launches = 0
 
 
 def matmul_nt_mask(a, w, gate) -> Tensor:

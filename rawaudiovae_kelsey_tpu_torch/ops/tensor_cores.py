@@ -1,37 +1,45 @@
 """Which hand-written kernel a product takes: the first version on the CUDA
-cores, or the bf16 tensor-core form (``csrc/wgmma.cuh``); and the tile
-width of the latter.
+cores, the bf16 tensor-core form (``csrc/wgmma.cuh``) or the fp32
+register-tiled form (``csrc/sgemm.cuh``); and the tile of the latter two.
 
-Four ops have both: :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
-linear_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
+Four ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
+linear.linear_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
 linear_ksplit_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.matmul_nt`
 and :func:`~rawaudiovae_kelsey_tpu_torch.ops.toeplitz.toeplitz_fwd` (whose
-contraction is ``G`` a tap and output width ``N``).  The choice is a
-function of dtype, shape and pointer alignment alone
-(:func:`takes_tensor_cores`), made in the wrapper before the launch:
+contraction is ``G`` a tap and output width ``N``); two of them,
+``linear_fwd`` and ``matmul_nt`` (:data:`SGEMM_OPS`), also an fp32 form.
+The choice is a function of dtype, shape and pointer alignment alone
+(:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in the wrapper
+before the launch:
 
-* fp32 operands keep the CUDA-core kernels: the ``float32`` and ``highest``
-  tiers promise IEEE fp32 products, and the tensor cores offer fp32 data
-  only TF32 or bf16 splits, which is another result;
 * bf16 operands take the tensor-core kernel when TMA can address them: the
   contraction ``k`` and the output width ``n`` multiples of 8 (row pitches
   of 16 bytes; the epilogue stores adjacent column pairs) and base pointers
-  on 16-byte boundaries; every other bf16 shape keeps the CUDA-core kernel.
+  on 16-byte boundaries; every other bf16 shape keeps the CUDA-core kernel;
+* fp32 operands never take the tensor cores: the ``float32`` and
+  ``highest`` tiers promise IEEE fp32 products, and the tensor cores offer
+  fp32 data only TF32 or bf16 splits, which is another result.  Where the
+  op has an fp32 form they take it when ``k`` and ``n`` are multiples of 4
+  (16-byte rows) and every base pointer is on a 16-byte boundary; every
+  other fp32 product keeps the first version.
 
-Nothing falls back at run time: a tensor-core launch that fails raises, and
-asking for ``kernel="tensor_cores"`` on operands it cannot take raises.
+Nothing falls back at run time: a launch that fails raises, and asking for
+``kernel="tensor_cores"`` or ``kernel="sgemm"`` on operands that kernel
+cannot take raises.
 
-A wrapper's ``kernel`` keyword is ``"auto"`` (the rule above),
-``"cuda_cores"`` or ``"tensor_cores"``: the checks on the card hold and time
-both kernels on one shape by naming them.  The tensor-core kernel's tiles
-are 128 rows by :func:`tile_n` columns, which the wrapper passes down.
+A wrapper's ``kernel`` keyword is ``"auto"`` (the rules above) or a key of
+:data:`KERNEL_CODES`: the checks on the card hold and time the kernels on
+one shape by naming them.  The tensor-core kernel's tiles are 128 rows by
+:func:`tile_n` columns, the fp32 kernel's one of :data:`SGEMM_TILES`
+(:func:`sgemm_tile`); the wrapper passes the choice down (:func:`tile`).
 
-The two kernels round differently (one fp32 accumulator across all of k
-against an ordered sum of per-slice partial sums), so the output's bits
-follow the choice, and through it the pointers' alignment: the same values
-in a contiguous view that starts 2 bytes off a 16-byte boundary take the
-CUDA-core kernel and may differ from the aligned tensor's result by a bf16
-ulp.  No tensor that ``torch`` allocates itself is such a view.
+The kernels round differently (one fp32 accumulator across all of k
+against an ordered sum of per-slice partial sums; fp32 sums in another
+order), so the output's bits follow the choice, and through it the
+pointers' alignment: the same values in a contiguous view that starts 2
+bytes off a 16-byte boundary take the CUDA-core kernel and may differ from
+the aligned tensor's result by a bf16 ulp (an fp32 one by a few ulps).  No
+tensor that ``torch`` allocates itself is such a view.
 """
 
 from __future__ import annotations
@@ -42,7 +50,10 @@ from typing import Callable
 import torch
 
 # kernel name → the code the C entry points take (csrc/wgmma.cuh Kernel)
-KERNEL_CODES = {"cuda_cores": 0, "tensor_cores": 1}
+KERNEL_CODES = {"cuda_cores": 0, "tensor_cores": 1, "sgemm": 2}
+TENSOR_CORES, SGEMM = KERNEL_CODES["tensor_cores"], KERNEL_CODES["sgemm"]
+# the ops whose C entry points have the fp32 form (code 2)
+SGEMM_OPS = frozenset({"linear_fwd", "matmul_nt"})
 
 # TMA's unit: base pointers and row pitches are multiples of 16 bytes
 TMA_ALIGN_BYTES = 16
@@ -52,6 +63,11 @@ TMA_ALIGN_BF16 = TMA_ALIGN_BYTES // 2
 # one of these widths (csrc/wgmma.cuh, widest first)
 TILE_M = 128
 TILE_WIDTHS = (256, 128, 64)
+# the fp32 kernel's tiles (rows, columns), largest first; the C entry
+# points take the index (csrc/sgemm.cuh kTiles)
+SGEMM_TILES = ((128, 128), (128, 64), (64, 64))
+# its unit: k and n multiples of 4 floats (16-byte rows and chunks)
+SGEMM_ALIGN_F32 = TMA_ALIGN_BYTES // 4
 
 _sm_counts = {}
 
@@ -64,6 +80,17 @@ def takes_tensor_cores(dtype: torch.dtype, rows: int, k: int, n: int,
     pointer on a 16-byte boundary."""
     return (dtype == torch.bfloat16 and rows > 0 and k > 0 and n > 0
             and k % TMA_ALIGN_BF16 == 0 and n % TMA_ALIGN_BF16 == 0
+            and aligned)
+
+
+def takes_sgemm(dtype: torch.dtype, rows: int, k: int, n: int,
+                aligned: bool = True) -> bool:
+    """Whether a product of ``rows`` rows, contraction ``k`` and output
+    width ``n`` runs on the fp32 kernel of an op in :data:`SGEMM_OPS`:
+    fp32, something to compute, ``k`` and ``n`` multiples of 4, and
+    (``aligned``) every operand's base pointer on a 16-byte boundary."""
+    return (dtype == torch.float32 and rows > 0 and k > 0 and n > 0
+            and k % SGEMM_ALIGN_F32 == 0 and n % SGEMM_ALIGN_F32 == 0
             and aligned)
 
 
@@ -86,10 +113,35 @@ def tile_n(tiles_m: int, n: int, sms: int) -> int:
     return best[1]
 
 
-def width(code: int, device: torch.device, tiles_m: int, n: int) -> int:
-    """The ``tile_n`` argument of a C entry point: :func:`tile_n` for the
-    tensor-core kernel (``code`` 1), 0 for the first version."""
-    return tile_n(tiles_m, n, sm_count(device)) if code else 0
+@functools.lru_cache(maxsize=1024)
+def sgemm_tile(rows: int, n: int, sms: int) -> tuple:
+    """The tile ``(rows, columns)`` of the fp32 kernel for a product of
+    ``rows`` rows and output width ``n`` on a card of ``sms`` SMs: the tile
+    of :data:`SGEMM_TILES` whose grid takes the fewest waves (one tile an
+    SM) times its area (a tile's time grows with it), the larger on a tie
+    (it reads the operands fewer times a product).  So 4096 x 4096 -> 4096
+    and the backward's 8192-row products keep 128 x 128, and the server's
+    256 rows take 128 x 64 or 64 x 64 tiles that give more SMs work."""
+    best = None
+    for bm, bn in SGEMM_TILES:
+        tiles = -(-rows // bm) * -(-n // bn)
+        cost = -(-tiles // sms) * bm * bn
+        if best is None or cost < best[0]:
+            best = (cost, (bm, bn))
+    return best[1]
+
+
+def tile(code: int, device: torch.device, rows: int, n: int) -> int:
+    """The ``tile_n`` argument of a C entry point for a product of ``rows``
+    rows and output width ``n``: :func:`tile_n` for the tensor-core kernel
+    (``code`` 1, tiles of :data:`TILE_M` rows), the index of
+    :func:`sgemm_tile` in :data:`SGEMM_TILES` for the fp32 kernel (``code``
+    2), 0 for the first version."""
+    if code == TENSOR_CORES:
+        return tile_n(-(-rows // TILE_M), n, sm_count(device))
+    if code == SGEMM:
+        return SGEMM_TILES.index(sgemm_tile(rows, n, sm_count(device)))
+    return 0
 
 
 def sm_count(device: torch.device) -> int:
@@ -121,26 +173,39 @@ def check_name(op: str, kernel: str) -> None:
 def resolve_kernel(op: str, kernel: str, dtype: torch.dtype, rows: int,
                    k: int, n: int, aligned: bool = True) -> int:
     """``kernel`` (``"auto"`` or a key of :data:`KERNEL_CODES`) → the code
-    to launch ``op`` with.  ``"auto"`` follows :func:`takes_tensor_cores`;
-    a tensor-core kernel asked for by name on operands it cannot take
-    raises instead of switching."""
+    to launch ``op`` with.  ``"auto"`` follows :func:`takes_tensor_cores`,
+    then, for an op of :data:`SGEMM_OPS`, :func:`takes_sgemm`; a kernel
+    asked for by name on operands it cannot take raises instead of
+    switching."""
     return resolve(op, kernel, takes_tensor_cores(dtype, rows, k, n, aligned),
                    lambda: f"{dtype}, {rows} rows, k = {k}, n = {n}, "
-                           f"aligned = {aligned}")
+                           f"aligned = {aligned}",
+                   op in SGEMM_OPS
+                   and takes_sgemm(dtype, rows, k, n, aligned))
 
 
-def resolve(op: str, kernel: str, fits: bool,
-            got: Callable[[], str]) -> int:
-    """:func:`resolve_kernel` on what the rule found, ``fits``; ``got()``
-    describes the operands in the error (built only then: a call's host
-    time matters)."""
+def resolve(op: str, kernel: str, fits: bool, got: Callable[[], str],
+            fits_sgemm: bool = False) -> int:
+    """:func:`resolve_kernel` on what the rules found: ``fits`` the
+    tensor-core kernel, ``fits_sgemm`` the fp32 one; ``got()`` describes
+    the operands in the error (built only then: a call's host time
+    matters)."""
     check_name(op, kernel)
     if kernel == "auto":
-        return KERNEL_CODES["tensor_cores" if fits else "cuda_cores"]
+        return KERNEL_CODES["tensor_cores" if fits else
+                            "sgemm" if fits_sgemm else "cuda_cores"]
     if kernel == "tensor_cores" and not fits:
         raise ValueError(
             f"{op}: kernel {kernel!r} takes bf16 operands with the "
             f"contraction and the output width multiples of "
             f"{TMA_ALIGN_BF16} and 16-byte aligned pointers; got "
             f"{got()}")
+    if kernel == "sgemm" and op not in SGEMM_OPS:
+        raise ValueError(f"{op}: no kernel {kernel!r} (only "
+                         f"{', '.join(sorted(SGEMM_OPS))} have one)")
+    if kernel == "sgemm" and not fits_sgemm:
+        raise ValueError(
+            f"{op}: kernel {kernel!r} takes fp32 operands with the "
+            f"contraction and the output width multiples of "
+            f"{SGEMM_ALIGN_F32} and 16-byte aligned pointers; got {got()}")
     return KERNEL_CODES[kernel]

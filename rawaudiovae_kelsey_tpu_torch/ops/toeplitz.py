@@ -221,7 +221,9 @@ def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
         if code:
             t_half, b_half = tile_plan(t)
             halves = tile_halves(B, t, t_half, b_half)
-            tile = tensor_cores.width(code, dev, -(-halves // 2), N)
+            # two halves of TILE_M / 2 rows a tile
+            tile = tensor_cores.tile(code, dev,
+                                     halves * (tensor_cores.TILE_M // 2), N)
         _build.launch("rvk_toeplitz_fwd", dev, x, w, b, y, B, nb, G, kb, N,
                       t, shift, ACT_CODES[act], passes, DTYPE_CODES[dt],
                       t_half, b_half, tile, code)

@@ -149,16 +149,38 @@ def test_every_wrapper_names_a_bound_entry_point():
             assert "kernel" in inspect.signature(w).parameters
 
 
-def test_build_key_follows_the_sources(tmp_path, monkeypatch):
+@pytest.mark.parametrize("header", ["gemm.cuh", "wgmma.cuh", "sgemm.cuh"])
+def test_build_key_follows_the_sources(tmp_path, monkeypatch, header):
     _fake_nvcc(tmp_path, monkeypatch)
     first = _build.build()
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for p in _build.CSRC.iterdir():
         (csrc / p.name).write_bytes(p.read_bytes())
-    (csrc / "gemm.cuh").write_text((csrc / "gemm.cuh").read_text() + "\n")
+    (csrc / header).write_text((csrc / header).read_text() + "\n")
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert _build.build() != first              # an edited header rebuilds
+
+
+def test_the_fp32_entry_points_build_on_sgemm_cuh():
+    """rvk_linear_fwd and rvk_matmul_nt launch the fp32 mainloop of
+    csrc/sgemm.cuh for kernel code 2 (the rvk::tc::Kernel enum), and its
+    tile table is the wrappers' SGEMM_TILES."""
+    import re
+
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    for src, call in (("linear.cu", "rvk::sgemm::launch_act<false>"),
+                      ("bwd.cu", "rvk::sgemm::launch<true, rvk::kActNone>")):
+        text = (_build.CSRC / src).read_text()
+        assert '#include "sgemm.cuh"' in text
+        assert "kernel == rvk::tc::kSgemm" in text and call in text, src
+    assert "kSgemm = 2" in (_build.CSRC / "wgmma.cuh").read_text()
+    tiles = re.search(r"kTiles\[3\]\[2\] = \{(.*?)\};",
+                      (_build.CSRC / "sgemm.cuh").read_text()).group(1)
+    assert tuple(tuple(int(v) for v in pair) for pair in
+                 re.findall(r"\{(\d+), (\d+)\}", tiles)) == \
+        tensor_cores.SGEMM_TILES
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):

@@ -1344,3 +1344,167 @@ def test_conv1d_op_level_step_takes_the_tensor_cores(cuda):
             fixed, variants.encode_conv1d(fixed, x, 4)[0], 4, width, 256)
     assert y.shape == plain.shape
     assert _rel(y.detach(), plain) <= 4 * BF16_REL
+
+
+# ---- fp32 linear_fwd (row 16) and matmul_nt (row 4) on the register-tiled
+# fp32 kernel (csrc/sgemm.cuh): within 1e-4 · max|plain| of the plain
+# version and of the first version (IEEE fp32 FFMAs, the sums in another
+# order), equal bits on a second launch.  Shapes: the deep server's nine
+# distinct layers at its batch of 256, the deep heads at 4096 rows,
+# 4096^3, matmul_nt's dz and dx at the microbatch; ragged rows against the
+# 128- and 64-row tiles (4097, 1000, 130, 7), k against the 16-deep slab
+# (1088, 1096, 68, 12, 4 and 24 shorter than one), n against the tile (544,
+# 520, 260, 20, 8); batch 1.  What the kernel cannot take (k or n no
+# multiple of 4, a view off a 16-byte boundary) keeps the first version.
+
+SGEMM_REL = 1e-4
+SERVER_SHAPES = [(256, 4096, 4096), (256, 4096, 2048), (256, 2048, 1024),
+                 (256, 1024, 512), (256, 512, 256), (256, 256, 512),
+                 (256, 512, 1024), (256, 1024, 2048), (256, 2048, 4096)]
+SGEMM_RAGGED = [(4097, 1088, 544), (1000, 1096, 520), (130, 68, 260),
+                (7, 12, 20), (1, 24, 8), (1, 4, 4), (1, 4096, 4096)]
+SGEMM_LINEAR = SERVER_SHAPES + [(4096, 512, 256),
+                                (4096, 4096, 4096)] + SGEMM_RAGGED
+SGEMM_NT = [(8192, 2048, 256), (8192, 2048, 1024)] + SGEMM_RAGGED
+
+
+def _ran_sgemm(fn, *args, **kw):
+    before = (fn.launches, fn.sgemm_launches)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, (fn.launches - before[0], fn.sgemm_launches - before[1])
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "tanh"])
+@pytest.mark.parametrize("shape", SGEMM_LINEAR, ids=str)
+def test_sgemm_linear_fwd_matches_plain_and_first_version(cuda, shape, act):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    x, w, b = _linear_operands(cuda, *shape, torch.float32)
+    want = linear.linear_fwd_ref(x, w, b, act)
+    first, rose = _ran_sgemm(linear.linear_fwd, x, w, b, act,
+                             kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran_sgemm(linear.linear_fwd, x, w, b, act)     # auto
+    assert rose == (1, 1)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= SGEMM_REL
+    assert _rel(got, first) <= SGEMM_REL
+    assert torch.equal(got, linear.linear_fwd(x, w, b, act))
+    assert torch.equal(got, linear.linear_fwd(x, w, b, act, kernel="sgemm"))
+
+
+@pytest.mark.parametrize("shape", SGEMM_NT, ids=str)
+def test_sgemm_matmul_nt_matches_plain_and_first_version(cuda, shape):
+    rows, k, m = shape
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn((rows, k), generator=g, device=cuda)
+    w = torch.randn((m, k), generator=g, device=cuda) / k ** 0.5
+    want = mlp.matmul_nt_ref(a, w)
+    first, rose = _ran_sgemm(mlp.matmul_nt, a, w, kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran_sgemm(mlp.matmul_nt, a, w)
+    assert rose == (1, 1)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) <= SGEMM_REL
+    assert _rel(got, first) <= SGEMM_REL
+    assert torch.equal(got, mlp.matmul_nt(a, w))
+    assert torch.equal(got, mlp.matmul_nt(a, w, kernel="sgemm"))
+
+
+@pytest.mark.parametrize("tile", [(128, 128), (128, 64), (64, 64)])
+def test_every_sgemm_tile_matches_plain(cuda, tile, monkeypatch):
+    """The three tiles of csrc/sgemm.cuh, forced, on both B layouts and a
+    ragged shape."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear, tensor_cores
+
+    monkeypatch.setattr(tensor_cores, "sgemm_tile",
+                        lambda rows, n, sms: tile)
+    x, w, b = _linear_operands(cuda, 1000, 1096, 520, torch.float32)
+    got, rose = _ran_sgemm(linear.linear_fwd, x, w, b, "tanh")
+    assert rose == (1, 1)
+    assert _rel(got, linear.linear_fwd_ref(x, w, b, "tanh")) <= SGEMM_REL
+    wt = w.t().contiguous()
+    got, rose = _ran_sgemm(mlp.matmul_nt, x, wt)
+    assert rose == (1, 1)
+    assert _rel(got, mlp.matmul_nt_ref(x, wt)) <= SGEMM_REL
+
+
+def test_sgemm_dispatch_on_the_card(cuda):
+    """k or n no multiple of 4 and a view off a 16-byte boundary keep the
+    first version under ``auto`` and raise when the fp32 kernel is asked
+    for by name; bf16 operands never take it; a zero-row batch launches
+    nothing."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    for shape in ((1000, 70, 36), (1000, 72, 33), (512, 1026, 520)):
+        x, w, b = _linear_operands(cuda, *shape, torch.float32)
+        got, rose = _ran_sgemm(linear.linear_fwd, x, w, b, "relu")
+        assert rose == (1, 0), shape
+        assert _rel(got, linear.linear_fwd_ref(x, w, b, "relu")) <= SGEMM_REL
+        with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+            linear.linear_fwd(x, w, b, "relu", kernel="sgemm")
+        wt = w.t().contiguous()
+        got, rose = _ran_sgemm(mlp.matmul_nt, x, wt)
+        assert rose == (1, 0), shape
+        assert _rel(got, mlp.matmul_nt_ref(x, wt)) <= SGEMM_REL
+        with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+            mlp.matmul_nt(x, wt, kernel="sgemm")
+    # contiguous, but four bytes off a 16-byte boundary
+    x, w, b = _linear_operands(cuda, 256, 1024, 512, torch.float32)
+    off = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x).copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    got, rose = _ran_sgemm(linear.linear_fwd, off, w, b, "relu")
+    assert rose == (1, 0)
+    assert torch.equal(got, linear.linear_fwd(x, w, b, "relu",
+                                              kernel="cuda_cores"))
+    with pytest.raises(ValueError, match="aligned = False"):
+        linear.linear_fwd(off, w, b, "relu", kernel="sgemm")
+    got, rose = _ran_sgemm(mlp.matmul_nt, off, w.t().contiguous())
+    assert rose == (1, 0)
+    with pytest.raises(ValueError, match="aligned = False"):
+        mlp.matmul_nt(off, w.t().contiguous(), kernel="sgemm")
+    xb, wb, bb = (t.bfloat16() for t in (x, w, b))
+    _, rose = _ran_sgemm(linear.linear_fwd, xb, wb, bb, "relu")
+    assert rose == (1, 0)
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        linear.linear_fwd(xb, wb, bb, "relu", kernel="sgemm")
+    _, rose = _ran_sgemm(linear.linear_fwd, x[:0], w, b, "relu")
+    assert rose == (0, 0)
+    _, rose = _ran_sgemm(mlp.matmul_nt, x[:0], w.t().contiguous())
+    assert rose == (0, 0)
+
+
+def test_deep_fp32_server_forward_takes_the_sgemm_kernel(cuda):
+    """The deep model's fp32 forward at the server's batch through the
+    kernel backend: eleven whole-k launches, all on the fp32 kernel,
+    against the plain model on the same parameters."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    cfg = Config()
+    cfg.vae.arch = "deep"
+    cfg.audio.segment_length, cfg.vae.latent_dim = 4096, 256
+    x = torch.rand((256, 4096), device=cuda) * 2 - 1
+    outs = {}
+    for backend in ("pallas", "xla"):
+        cfg.tpu.backend = backend
+        model = build_model(cfg, cuda)
+        params = model.init(torch.Generator().manual_seed(0))
+        counts = (linear.linear_fwd.launches,
+                  linear.linear_fwd.sgemm_launches,
+                  linear.linear_ksplit_fwd.launches)
+        with torch.inference_mode():
+            mu, logvar = model.encode(params, x)
+            y = model.decode(params, mu)
+        torch.cuda.synchronize()
+        if backend == "pallas":
+            assert (linear.linear_fwd.launches - counts[0],
+                    linear.linear_fwd.sgemm_launches - counts[1],
+                    linear.linear_ksplit_fwd.launches - counts[2]) \
+                == (11, 11, 0)
+        outs[backend] = (mu, logvar, y)
+    for got, want in zip(outs["pallas"], outs["xla"]):
+        assert _rel(got, want) <= SGEMM_REL

@@ -201,11 +201,22 @@ def test_registry_backends_on_cpu(backend, resolved, encode):
     assert p["fc4"]["w"].shape == (UNITS, SEG)
 
 
-def test_registry_best_picks_the_kernels_for_a_cuda_device():
+@pytest.mark.parametrize("precision",
+                         ["bfloat16", "float32", "high", "highest"])
+def test_registry_best_picks_the_kernels_for_a_cuda_device(precision):
+    """``best`` is the measured winner per family and tier, as in the JAX
+    registry: on a CUDA device the plain ops won every dense cell measured
+    (and the unmeasured ones, dense ``float32`` among them, take them as in
+    JAX), so it picks ``xla``; the kernels are ``pallas`` by name."""
     from rawaudiovae_kelsey_tpu_torch.models.registry import resolve_backend
 
-    assert resolve_backend(_cfg("best"), torch.device("cuda")) == "pallas"
-    assert resolve_backend(_cfg("xla"), torch.device("cuda")) == "xla"
+    cfg = _cfg("best")
+    cfg.tpu.precision = precision
+    cfg.validate()
+    assert resolve_backend(cfg, torch.device("cuda")) == "xla"
+    for backend in ("xla", "pallas"):
+        cfg.tpu.backend = backend
+        assert resolve_backend(cfg, torch.device("cuda")) == backend
 
 
 @pytest.mark.parametrize("arch", ["deep", "conv1d"])

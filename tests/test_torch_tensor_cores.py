@@ -80,20 +80,21 @@ def test_what_keeps_the_cuda_cores(dtype, rows, k, n, aligned):
                                        aligned) == 0
     assert tensor_cores.resolve_kernel("op", "cuda_cores", dtype, rows, k, n,
                                        aligned) == 0
-    for name, code in tensor_cores.KERNEL_CODES.items():
-        if code:
-            with pytest.raises(ValueError, match="takes bf16 operands"):
-                tensor_cores.resolve_kernel("op", name, dtype, rows, k, n,
-                                            aligned)
+    with pytest.raises(ValueError, match="takes bf16 operands"):
+        tensor_cores.resolve_kernel("op", "tensor_cores", dtype, rows, k, n,
+                                    aligned)
+    # an op with no fp32 form has no "sgemm" to ask for
+    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+        tensor_cores.resolve_kernel("op", "sgemm", dtype, rows, k, n, aligned)
 
 
 @pytest.mark.parametrize("rows,k,n", [(4097, 1088, 544), (1000, 1096, 520),
                                       (1, 24, 8), (1, 8, 8)])
 def test_ragged_shapes_tma_can_take(rows, k, n):
     assert tensor_cores.takes_tensor_cores(BF16, rows, k, n)
-    for name, code in tensor_cores.KERNEL_CODES.items():
+    for name in ("cuda_cores", "tensor_cores"):
         assert tensor_cores.resolve_kernel("op", name, BF16, rows, k,
-                                           n) == code
+                                           n) == tensor_cores.KERNEL_CODES[name]
 
 
 def test_kernel_codes_are_the_c_side_codes():
@@ -106,7 +107,8 @@ def test_kernel_codes_are_the_c_side_codes():
     codes = [int(v) for v in re.findall(r"=\s*(\d+)", body)]
     assert codes == sorted(tensor_cores.KERNEL_CODES.values()) == \
         list(range(len(codes)))
-    assert tensor_cores.KERNEL_CODES == {"cuda_cores": 0, "tensor_cores": 1}
+    assert tensor_cores.KERNEL_CODES == {"cuda_cores": 0, "tensor_cores": 1,
+                                         "sgemm": 2}
 
 
 @pytest.mark.parametrize("batch,k,n,want", [
@@ -306,8 +308,9 @@ def test_whole_k_layers_take_the_tensor_cores_in_bf16(rows, k, n):
     layers at batch 256 (every layer whole-k there)."""
     assert tensor_cores.resolve_kernel("linear_fwd", "auto", BF16, rows, k,
                                        n) == 1
+    # fp32: the register-tiled kernel (csrc/sgemm.cuh)
     assert tensor_cores.resolve_kernel("linear_fwd", "auto", F32, rows, k,
-                                       n) == 0
+                                       n) == tensor_cores.KERNEL_CODES["sgemm"]
     assert not linear.takes_ksplit(rows, k, n)
 
 
@@ -478,7 +481,8 @@ def test_linear_fwd_and_toeplitz_pass_the_kernel_code_and_plan(monkeypatch):
     linear.linear_fwd(x, w, b, "relu", kernel="cuda_cores")
     assert launched.pop()[1][-2:] == (0, 0)
     linear.linear_fwd(x.float(), w.float(), b.float(), "tanh")
-    assert launched.pop()[1][4:] == (4096, 512, 256, 2, 0, 0, 0)
+    # fp32: the register-tiled kernel (code 2) on its 128 x 64 tile (index 1)
+    assert launched.pop()[1][4:] == (4096, 512, 256, 2, 0, 1, 2)
     assert (linear.linear_fwd.launches - counts[0],
             linear.linear_fwd.tensor_core_launches - counts[1]) == (3, 1)
 
@@ -565,3 +569,186 @@ def test_cpu_tensors_take_the_plain_linear_fwd_and_toeplitz(kernel):
                       toeplitz.toeplitz_fwd.launches,
                       linear.linear_fwd.tensor_core_launches,
                       toeplitz.toeplitz_fwd.tensor_core_launches)
+
+
+# ------------------------------------------------ fp32: csrc/sgemm.cuh
+#
+# fp32 operands of linear_fwd and matmul_nt take the register-tiled fp32
+# kernel when k and n are multiples of 4 and every pointer is on a 16-byte
+# boundary; its tile is one of SGEMM_TILES (tensor_cores.sgemm_tile).
+
+SGEMM = tensor_cores.KERNEL_CODES["sgemm"]
+
+
+def _server_layers():
+    """(k, n) of the deep server's eleven launches: every layer of
+    configs/deep_wide.ini, at the server's batch of 256 all whole-k."""
+    layers = _deep_layers()
+    assert not any(linear.takes_ksplit(256, *kn) for kn in layers)
+    return layers
+
+
+@pytest.mark.parametrize("k,n", _server_layers())
+def test_the_deep_server_takes_the_fp32_kernel(k, n):
+    assert tensor_cores.takes_sgemm(F32, 256, k, n)
+    assert tensor_cores.resolve_kernel("linear_fwd", "auto", F32, 256, k,
+                                       n) == SGEMM
+    assert tensor_cores.resolve_kernel("linear_fwd", "sgemm", F32, 256, k,
+                                       n) == SGEMM
+    # bf16 stays on the tensor cores; the k-split op has no fp32 form
+    assert tensor_cores.resolve_kernel("linear_fwd", "auto", BF16, 256, k,
+                                       n) == 1
+    assert tensor_cores.resolve_kernel("linear_ksplit_fwd", "auto", F32, 256,
+                                       k, n) == 0
+
+
+@pytest.mark.parametrize("rows,k,m", [(8192, 2048, 256), (8192, 2048, 1024)],
+                         ids=["dz", "dx"])
+def test_matmul_nt_shapes_take_the_fp32_kernel(rows, k, m):
+    assert tensor_cores.resolve_kernel("matmul_nt", "auto", F32, rows, k,
+                                       m) == SGEMM
+    assert tensor_cores.resolve_kernel("matmul_nt", "auto", BF16, rows, k,
+                                       m) == 1
+
+
+@pytest.mark.parametrize("op", sorted(tensor_cores.SGEMM_OPS))
+@pytest.mark.parametrize("dtype,rows,k,n,aligned", [
+    (BF16, 256, 4096, 4096, True),       # bf16: the tensor cores
+    (torch.float16, 256, 4096, 4096, True),
+    (F32, 1000, 70, 36, True),           # k % 4 != 0
+    (F32, 1000, 72, 33, True),           # n % 4 != 0
+    (F32, 0, 1024, 512, True),           # a zero-row batch
+    (F32, 256, 1024, 0, True),
+    (F32, 256, 1024, 512, False),        # an unaligned view
+], ids=["bf16", "fp16", "k%4", "n%4", "no-rows", "no-columns", "unaligned"])
+def test_what_keeps_the_fp32_kernel_away(op, dtype, rows, k, n, aligned):
+    assert not tensor_cores.takes_sgemm(dtype, rows, k, n, aligned)
+    assert tensor_cores.resolve_kernel(op, "auto", dtype, rows, k, n,
+                                       aligned) != SGEMM
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        tensor_cores.resolve_kernel(op, "sgemm", dtype, rows, k, n, aligned)
+
+
+@pytest.mark.parametrize("rows,k,n", [(4097, 1088, 544), (1000, 1096, 520),
+                                      (1, 4, 4), (7, 12, 20), (130, 64, 264)])
+def test_ragged_fp32_shapes_the_kernel_takes(rows, k, n):
+    for op in tensor_cores.SGEMM_OPS:
+        assert tensor_cores.resolve_kernel(op, "auto", F32, rows, k,
+                                           n) == SGEMM
+
+
+@pytest.mark.parametrize("rows,n,tile", [
+    (4096, 4096, (128, 128)),   # 4096 x 4096 -> 4096: 1024 tiles
+    (8192, 256, (128, 128)),    # matmul_nt's dz: 128 tiles, one wave
+    (8192, 1024, (128, 128)),   # matmul_nt's dx
+    (4096, 256, (128, 64)),     # the deep heads 512 -> 256
+    (256, 4096, (128, 64)),     # the server's widest layers
+    (256, 2048, (64, 64)),
+    (256, 1024, (64, 64)),
+    (256, 512, (64, 64)),
+    (256, 256, (64, 64)),
+    (1, 8, (64, 64)),
+])
+def test_sgemm_tile_rule_at_the_main_path_shapes(rows, n, tile):
+    assert tensor_cores.sgemm_tile(rows, n, 132) == tile
+
+
+def test_the_server_takes_narrower_tiles_than_4096_cubed():
+    big = tensor_cores.sgemm_tile(4096, 4096, 132)
+    for k, n in _server_layers():
+        bm, bn = tensor_cores.sgemm_tile(256, n, 132)
+        assert bm * bn < big[0] * big[1], (k, n)
+
+
+@settings(max_examples=300, deadline=None)
+@given(rows=st.integers(1, 20000), n=st.integers(1, 9000),
+       sms=st.integers(1, 200))
+def test_sgemm_tile_rule_takes_the_fewest_waves_times_area(rows, n, sms):
+    def cost(tile):
+        bm, bn = tile
+        return -(-(-(-rows // bm) * -(-n // bn)) // sms) * bm * bn
+
+    tile = tensor_cores.sgemm_tile(rows, n, sms)
+    assert tile in tensor_cores.SGEMM_TILES
+    assert cost(tile) == min(map(cost, tensor_cores.SGEMM_TILES))
+    # the largest of those that cost the least
+    assert tile[0] * tile[1] == max(t[0] * t[1]
+                                    for t in tensor_cores.SGEMM_TILES
+                                    if cost(t) == cost(tile))
+
+
+def test_the_fp32_wrappers_pass_the_kernel_code_and_tile(monkeypatch):
+    """What reaches rvk_linear_fwd and rvk_matmul_nt for fp32 operands:
+    kernel code 2 and the index of the rule's tile, or the first version
+    (code 0, tile 0) by name or for what the kernel cannot take; the
+    counters follow."""
+    launched = _stand_in(monkeypatch)
+    counts = (linear.linear_fwd.launches, linear.linear_fwd.sgemm_launches,
+              linear.linear_fwd.tensor_core_launches)
+    for n, tile in ((4096, 1), (2048, 2), (256, 2)):
+        x = torch.empty((256, 4096), device="meta", dtype=F32)
+        w = torch.empty((4096, n), device="meta", dtype=F32)
+        b = torch.empty((n,), device="meta", dtype=F32)
+        y = linear.linear_fwd(x, w, b, "tanh")
+        assert y.shape == (256, n) and y.dtype == F32
+        name, args = launched.pop()
+        # batch, k, n, act, dtype, tile, kernel
+        assert name == "rvk_linear_fwd"
+        assert args[4:] == (256, 4096, n, 2, 0, tile, SGEMM)
+    linear.linear_fwd(x, w, b, "relu", kernel="cuda_cores")
+    assert launched.pop()[1][-2:] == (0, 0)
+    xs = torch.empty((256, 70), device="meta", dtype=F32)
+    linear.linear_fwd(xs, torch.empty((70, 256), device="meta", dtype=F32),
+                      b, "relu")
+    assert launched.pop()[1][-2:] == (0, 0)        # k % 4: the first version
+    assert (linear.linear_fwd.launches - counts[0],
+            linear.linear_fwd.sgemm_launches - counts[1],
+            linear.linear_fwd.tensor_core_launches - counts[2]) == (5, 3, 0)
+
+    counts = (mlp.matmul_nt.launches, mlp.matmul_nt.sgemm_launches)
+    for m, tile in ((256, 0), (1024, 0)):
+        a = torch.empty((8192, 2048), device="meta", dtype=F32)
+        wt = torch.empty((m, 2048), device="meta", dtype=F32)
+        out = mlp.matmul_nt(a, wt)
+        assert out.shape == (8192, m) and out.dtype == F32
+        name, args = launched.pop()
+        # batch, n, m, dtype, tile, kernel
+        assert name == "rvk_matmul_nt"
+        assert args[3:] == (8192, 2048, m, 0, tile, SGEMM)
+    mlp.matmul_nt(a, wt, kernel="cuda_cores")
+    assert launched.pop()[1][-2:] == (0, 0)
+    assert (mlp.matmul_nt.launches - counts[0],
+            mlp.matmul_nt.sgemm_launches - counts[1]) == (3, 2)
+
+
+def test_a_named_fp32_kernel_raises_on_what_it_cannot_take(monkeypatch):
+    launched = _stand_in(monkeypatch)
+    x = torch.empty((8, 64), device="meta", dtype=BF16)
+    w = torch.empty((64, 32), device="meta", dtype=BF16)
+    b = torch.empty((32,), device="meta", dtype=BF16)
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        linear.linear_fwd(x, w, b, "relu", kernel="sgemm")
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        mlp.matmul_nt(x, w.t().contiguous(), kernel="sgemm")
+    # the k-split op and the Toeplitz product have no fp32 form
+    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+        linear.linear_ksplit_fwd(x.float(), w.float(), b.float(), "relu",
+                                 kernel="sgemm")
+    monkeypatch.setattr(toeplitz, "kernel_device", lambda x: x.device)
+    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+        toeplitz.toeplitz_fwd(
+            *(torch.empty(sh, device="meta") for sh in ((8, 64, 128),
+                                                        (3, 128, 64), (64,))),
+            "relu", 64, 1, kernel="sgemm")
+    # an unaligned view
+    monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
+    xf, wf, bf = x.float(), w.float(), b.float()
+    with pytest.raises(ValueError, match="aligned = False"):
+        linear.linear_fwd(xf, wf, bf, "relu", kernel="sgemm")
+    with pytest.raises(ValueError, match="aligned = False"):
+        mlp.matmul_nt(xf, wf.t().contiguous(), kernel="sgemm")
+    assert launched == []
+    linear.linear_fwd(xf, wf, bf, "relu")
+    assert launched.pop()[1][-1] == 0
+    mlp.matmul_nt(xf, wf.t().contiguous())
+    assert launched.pop()[1][-1] == 0
