@@ -16,7 +16,13 @@ any failure exits non-zero with a traceback (no phase is caught):
 3b. the training kernels — the four backward kernels in fp32 and bf16, the
    two forward kernels in bf16 — against their plain versions at full
    width, batch 8192 (the training microbatch), a ragged 1000 and 1, and
-   both times at 8192;
+   both times at 8192; bf16 ``encoder_fwd`` on the tensor cores
+   (``csrc/wgmma.cuh``: h, then both heads in one launch) also at latent 72
+   and a narrow 4097x256->512->200 model, against the first version
+   (``kernel="cuda_cores"``), equal bits twice, timed in turns with the
+   first version, the plain version and the library sequence ``addmm`` →
+   ``relu`` → ``addmm`` → ``addmm``, each one's device time and that of the
+   hidden and the heads' launch apart;
 3c. the fp32 input-gradient kernels (``matmul_nt``, ``matmul_nt_mask``,
    ``matmul_nt2_mask``) in fp32 and bf16 at batch 8192, 1000 and 1, with
    the one PyTorch call ``a @ w.t()`` timed beside ``matmul_nt``; bf16
@@ -49,7 +55,9 @@ any failure exits non-zero with a traceback (no phase is caught):
    state through the kernels and through the plain ops, same noise, in
    bf16, in fp32 at ``high`` (the 3-pass "full" chains) and at ``highest``
    (the fp32 "primitive" kernels); training frames/s of both backends and
-   the device's busy share;
+   the device's busy share; the bf16 step's ``encoder_fwd`` launches, one
+   a microbatch, all on the tensor cores, and one kernel step's device time
+   by kernel;
 6. the device-resident path: ``configs/perf_bf16.ini`` uncut (batch 4096,
    bf16, block shuffle, ``rng = tpu_prng``, ``device_resident = always``)
    on the corpus of phase 5, with only the datapath, epochs, checkpoint
@@ -103,7 +111,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    server's nine distinct shapes (batch 256), 4096x512->256, 4096^3,
    ragged shapes with every activation and shapes it cannot take, timed in
    turns with the first version, the plain version and ``torch.addmm``, the
-   device time of the server's eleven launches, the tile sweep;
+   device time of the server's eleven launches, the tile sweep; the same
+   for fp32 ``linear_ksplit_fwd`` on that kernel (the deep model's k-split
+   layers, timed at 4096^3 and 4096x1024->512), equal bits with
+   ``linear_fwd(kernel="sgemm")``;
    ``toeplitz_fwd`` through ``conv1d_pallas`` / ``conv1d_transpose_pallas``
    at the eight layers of ``configs/conv1d.ini``, batch 4096 (one also at
    4097), forward and the ``dx`` launch, against the plain convolutions
@@ -124,7 +135,7 @@ any failure exits non-zero with a traceback (no phase is caught):
    step from the trained state through the kernels and through the plain
    ops, same noise, in bf16 and at ``highest``, with 7 k-split + 4 whole-k
    launches a forward, in bf16 all 11 on the tensor cores, at ``highest``
-   none (the 4 whole-k ones on the fp32 kernel; 0 + 11 at the server's
+   all 11 on the fp32 kernel (0 + 11 at the server's
    batch 256, all on the tensor cores in bf16, all on the fp32 kernel in
    fp32); the HTTP server (fp32, every launch on the fp32 kernel) on the
    run's ``best_model.npz``
@@ -164,7 +175,9 @@ any failure exits non-zero with a traceback (no phase is caught):
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
 (phase 4); bf16 forward kernels: the training run of phase 5 (its fp32
 test-set reconstructions included); bf16 "split" backward kernels: that
-run; fp32 ``grad_accum``: the ``highest`` step of phase 5 (no path of the
+run (bf16 ``encoder_fwd``: those on the tensor cores; the run's fp32
+reconstructions take the first version); fp32 ``grad_accum``: the
+``highest`` step of phase 5 (no path of the
 package runs ``enc_bwd_dw1``, ``grad_accum2`` or ``dec_bwd_fused`` on fp32
 operands since ``high`` takes the full chains: phase 3b still holds them
 against their plain versions, and they stay out of the kernel line);
@@ -177,7 +190,8 @@ those on the fp32 kernel); bf16
 of the package runs ``matmul_nt_mask`` in bf16; phase 3c still holds it
 against its plain version); the sampler: the resident training run;
 bf16 ``linear_ksplit_fwd`` / ``linear_fwd``: the deep training runs of
-phase 8; fp32 ``linear_ksplit_fwd``: the deep ``highest`` step; fp32
+phase 8; fp32 ``linear_ksplit_fwd``: the deep ``highest`` step (those on
+the fp32 kernel); fp32
 ``linear_fwd``: the deep server (those on the fp32 kernel); ``toeplitz_fwd``: the op-level conv1d step
 of phase 9 in bf16 and at ``highest``; ``dw_fused`` / ``dx_fused``: the
 ``deep_bwd`` probe runs of phase 10 in each dtype; ``leaf_update``: the
@@ -188,12 +202,15 @@ operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
 NVIDIA's H100 SXM data sheet), at the shapes that were timed: those the
 path named above gives the kernel.
 
-The rows of bf16 ``matmul_nt``, ``linear_ksplit_fwd``, ``linear_fwd`` and
-``toeplitz_fwd`` describe the tensor-core kernel, those of fp32
-``matmul_nt`` and ``linear_fwd`` the fp32 kernel of ``csrc/sgemm.cuh``
-(``ms``, and ``launches``: those that took it; fp32 ``linear_fwd`` at the
-server's 256x4096->4096), and carry the first version's time on the same
-inputs as ``first_version_ms``.
+The rows of bf16 ``matmul_nt``, ``linear_ksplit_fwd``, ``linear_fwd``,
+``toeplitz_fwd`` and ``encoder_fwd`` describe the tensor-core kernel, those
+of fp32 ``matmul_nt``, ``linear_ksplit_fwd`` and ``linear_fwd`` the fp32
+kernel of ``csrc/sgemm.cuh`` (``ms``, and ``launches``: those that took it;
+fp32 ``linear_fwd`` at the server's 256x4096->4096, fp32
+``linear_ksplit_fwd`` at 4096^3), and carry the first version's time on the
+same inputs as ``first_version_ms``.  bf16 ``encoder_fwd``'s
+``library_ms`` is the device time of a sequence of library calls (its
+``library`` key says which): no one PyTorch call computes it.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -566,7 +583,110 @@ def phase_train_kernels(gen_params):
                 **bound(TRAIN_BATCH * row_flops,
                         nbytes(*operands(p, t), *kernel(p, t)), kind),
                 "library_ms": None}
+    encoder_tensor_cores(rows["encoder_fwd[bf16]"], inputs)
     return rows
+
+
+# phase 3b, bf16 encoder_fwd on the tensor cores: no one PyTorch call
+# computes it, so its row's library_ms is the device time of this sequence
+# of calls on the same operands, summed
+ENCODER_LIBRARY = ("the sequence addmm -> relu -> addmm -> addmm, device "
+                   "time summed (no one PyTorch call computes encoder_fwd)")
+
+
+def encoder_tensor_cores(row, inputs):
+    """Phase 3b: bf16 ``encoder_fwd`` on the tensor cores (csrc/wgmma.cuh: h,
+    then both heads in one launch) against its plain version and its first
+    version (``kernel="cuda_cores"``) at the training microbatch, the ragged
+    1000, batch 1, a latent no multiple of a tile width and a narrow model,
+    equal bits on a second launch; timed in turns with the first version,
+    the plain version and the library sequence, each one's device time and
+    that of the hidden and the heads' launch apart.  ``row`` (the kernel
+    line's) takes the tensor-core kernel's numbers."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    def operands(p, t):
+        return [p[n][k] for n in ("fc1", "fc21", "fc22")
+                for k in ("w", "b")] + [t["x"]]
+
+    # a generator of its own: the draws of the later phases stay as they were
+    g = torch.Generator(device="cuda").manual_seed(41)
+
+    def narrow(batch, seg, units, latent):
+        shapes = (((seg, units), seg ** -0.5), ((units,), 0.1),
+                  ((units, latent), units ** -0.5), ((latent,), 0.1),
+                  ((units, latent), units ** -0.5), ((latent,), 0.1),
+                  ((batch, seg), 0.3))
+        return [(torch.randn(sh, generator=g, device="cuda") * sc).bfloat16()
+                for sh, sc in shapes]
+
+    cases = [(f"batch {b}", operands(*inputs(b, torch.bfloat16)))
+             for b in (TRAIN_BATCH, TRAIN_RAGGED, 1)]
+    cases += [("batch 1000, latent 72", narrow(1000, SEG, UNITS, 72)),
+              ("4097x256->512->200", narrow(4097, 256, 512, 200))]
+    err = 0.0
+    for what, ops in cases:
+        before = (mlp.encoder_fwd.launches,
+                  mlp.encoder_fwd.tensor_core_launches)
+        got = mlp.encoder_fwd(*ops)
+        torch.cuda.synchronize()
+        rose = (mlp.encoder_fwd.launches - before[0],
+                mlp.encoder_fwd.tensor_core_launches - before[1])
+        check(rose == (1, 1), f"encoder_fwd[bf16] {what}: launches / tensor "
+              f"core launches rose by {rose}")
+        want = mlp.encoder_fwd_ref(*ops)
+        first = mlp.encoder_fwd(*ops, kernel="cuda_cores")
+        for a, w in zip(got, want):
+            check(a.shape == w.shape and a.dtype == w.dtype
+                  and bool(torch.isfinite(a).all()),
+                  f"encoder_fwd[bf16] {what}: shape, dtype or non-finite")
+        e, e1 = rel_err(got, want), rel_err(got, first)
+        check(max(e, e1) <= BF16_REL, f"encoder_fwd[bf16] {what}: relative "
+              f"error {e:.3e} (vs the first version {e1:.3e}) > "
+              f"{BF16_REL:.3e}")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got, mlp.encoder_fwd(*ops))),
+              f"encoder_fwd[bf16] {what}: a second launch gave other bits")
+        err = max(err, max_err([a.float() for a in got],
+                               [w.float() for w in want]))
+        print(f"  {'encoder_fwd[bf16]':<24} {what}: ran tensor_cores; "
+              f"|kernel - plain| / max|plain| = {e:.3e} (mu, logvar, h), vs "
+              f"the first version {e1:.3e}, equal bits twice (tolerance "
+              f"{BF16_REL:.3e})")
+    ops = operands(*inputs(TRAIN_BATCH, torch.bfloat16))
+    w1, b1, w21, b21, w22, b22, x = ops
+
+    def library():
+        h = torch.relu(torch.addmm(b1, x, w1))
+        return torch.addmm(b21, h, w21), torch.addmm(b22, h, w22), h
+
+    fns = {"library": library, "plain": lambda: mlp.encoder_fwd_ref(*ops),
+           "cuda_cores": lambda: mlp.encoder_fwd(*ops, kernel="cuda_cores"),
+           "tensor_cores": lambda: mlp.encoder_fwd(*ops,
+                                                   kernel="tensor_cores")}
+    ms, runs = time_in_turns(fns, 20)
+    dev = {name: device_ms(fn) for name, fn in fns.items()}
+    tc = fns["tensor_cores"]
+    hidden = device_ms(tc, match="BiasActPair")
+    heads = device_ms(tc, match="HeadsBias")
+    print(f"  {'encoder_fwd[bf16]':<24} batch {TRAIN_BATCH}: tensor_cores "
+          f"{ms['tensor_cores']:.4f} ms (device {dev['tensor_cores']:.4f} "
+          f"ms: hidden {hidden:.4f} + both heads in one launch {heads:.4f}), "
+          f"cuda_cores (first version) {ms['cuda_cores']:.4f} ms (device "
+          f"{dev['cuda_cores']:.4f}), plain {ms['plain']:.4f} ms (device "
+          f"{dev['plain']:.4f}), library sequence {ms['library']:.4f} ms "
+          f"(device {dev['library']:.4f}), bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}); device time / the sequence's "
+          f"{dev['tensor_cores'] / dev['library']:.3f}, / bound "
+          f"{dev['tensor_cores'] / row['bound_ms']:.3f}; runs {runs}")
+    row.update(source=TC_SOURCE, max_abs_err=max(row["max_abs_err"], err),
+               ms=ms["tensor_cores"], plain_ms=ms["plain"],
+               library_ms=dev["library"], library=ENCODER_LIBRARY,
+               library_event_ms=ms["library"],
+               first_version_ms=ms["cuda_cores"],
+               device_ms=dev["tensor_cores"],
+               first_version_device_ms=dev["cuda_cores"],
+               hidden_device_ms=hidden, heads_device_ms=heads)
 
 
 def phase_new_kernels(gen_params):
@@ -1160,10 +1280,11 @@ def device_time_by_kernel(fn, top: int = 6, focus=None) -> str:
             + "".join(f"; {label} {us / 1e3:.2f} ms" for label, us in picked))
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def device_ms(fn, calls: int = 10, match: str = "") -> float:
     """Device time of one ``fn()``: the kernels' own time in a
-    torch.profiler trace of ``calls`` calls.  For a kernel of a few tens of
-    microseconds the event-timed loop measures the host's launch rate."""
+    torch.profiler trace of ``calls`` calls (only the kernels whose names
+    hold ``match``).  For a kernel of a few tens of microseconds the
+    event-timed loop measures the host's launch rate."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1174,6 +1295,8 @@ def device_ms(fn, calls: int = 10) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for e in prof.key_averages():
+        if match not in e.key:
+            continue
         us = getattr(e, "device_time_total", None)
         total += getattr(e, "cuda_time_total", 0.0) if us is None else us
     return total / 1e3 / calls if total else float("nan")
@@ -1391,10 +1514,14 @@ def phase_train(data: Path):
 
     for w in ops.KERNEL_WRAPPERS:
         w.launches = 0
+    on_tc = ops.encoder_fwd.tensor_core_launches
     t0 = time.perf_counter()
     train_cli(["--config", str(ini)])
     train_s = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    # the bf16 encoder's launches on the tensor cores (the run's fp32
+    # test-set reconstructions take the first version)
+    launches["encoder_fwd@tc"] = ops.encoder_fwd.tensor_core_launches - on_tc
     print(f"  train command: {epochs} epochs in {train_s:.1f} s (ingest, "
           f"checkpoints and reconstructions included)")
     print(f"  kernel launches in the training run: {launches}")
@@ -1469,10 +1596,13 @@ def phase_train(data: Path):
             if backend == "pallas":
                 for w in ops.KERNEL_WRAPPERS:
                     w.launches = 0
+                on_tc = ops.encoder_fwd.tensor_core_launches
             state, m = build_train_step(model, cfg, noise=noise)(state, x)
             if backend == "pallas":
                 step_counts[precision] = {w.__name__: w.launches
                                           for w in ops.KERNEL_WRAPPERS}
+                step_counts[precision]["encoder_fwd@tc"] = \
+                    ops.encoder_fwd.tensor_core_launches - on_tc
             delta = torch.cat([(state.params[n][k] - before[n][k]).ravel()
                                for n in sorted(before)
                                for k in sorted(before[n])])
@@ -1498,6 +1628,17 @@ def phase_train(data: Path):
     for w in ops.PRIMITIVE_KERNELS:
         check(step_counts["highest"][w.__name__] > 0,
               f"{w.__name__} was never launched by the `highest` step")
+    # the bf16 step's encoder: one launch a microbatch, every one on the
+    # tensor cores; the fp32 tiers keep the first version
+    micro = -(-batch // cfg.tpu.microbatch_size)
+    enc = {p: (c["encoder_fwd"], c["encoder_fwd@tc"])
+           for p, c in step_counts.items()}
+    print(f"  encoder_fwd launches a step (all, on the tensor cores): {enc}")
+    check(enc["bfloat16"] == (micro, micro), f"bf16 step: {enc['bfloat16']} "
+          f"encoder_fwd launches (all, tensor cores), expected {micro} of "
+          f"{micro} on the tensor cores")
+    check(enc["high"][1] == enc["highest"][1] == 0,
+          "an fp32 step ran encoder_fwd on the tensor cores")
 
     # training rate of both backends on one device-resident batch, and the
     # device's busy share over kernel steps
@@ -1529,6 +1670,13 @@ def phase_train(data: Path):
     step, state = steps["pallas"]
     print(f"  device busy share over 2 kernel steps: "
           f"{busy_share(lambda: [step(state, x) for _ in range(2)])}")
+    focus = {"encoder_fwd hidden (tensor cores)": "BiasActPair",
+             "encoder_fwd heads (tensor cores)": "HeadsBias"}
+    by_kernel = device_time_by_kernel(lambda: step(state, x), top=8,
+                                      focus=focus)
+    print(f"  one kernel step by kernel (with the first-version encoder the "
+          f"step ran at 441,960 frames/s, PERF.md section 5; no gain "
+          f"claimed): {by_kernel}")
     return launches, step_counts["highest"]
 
 
@@ -2426,6 +2574,40 @@ def phase_variant_kernels():
         sweep_tiles("linear_fwd", f"{batch}x{k}->{n}",
                     fwd32_operands(batch, k, n, act)[0], (batch, n), "sgemm")
 
+    # fp32 linear_ksplit_fwd on the fp32 kernel (csrc/sgemm.cuh, the launch
+    # of fp32 linear_fwd): the deep model's k-split layers at its batch,
+    # ragged shapes with every activation, shapes it cannot take, and equal
+    # bits with linear_fwd(kernel="sgemm") (a generator of its own)
+    g_ks = torch.Generator(device=dev).manual_seed(34)
+
+    def ksplit32_operands(batch, k, n, what):
+        act = what.split()[0]
+        x = torch.randn((batch, k), generator=g_ks, device=dev)
+        w = torch.randn((k, n), generator=g_ks, device=dev) / k ** 0.5
+        b = torch.randn((n,), generator=g_ks, device=dev) * 0.1
+        return (lambda kernel: linear.linear_ksplit_fwd(x, w, b, act,
+                                                        kernel=kernel),
+                lambda: linear.linear_ksplit_fwd_ref(x, w, b, act),
+                lambda: torch.addmm(b, x, w), (x, w, b))
+
+    big32, small32 = (DEEP_BATCH, 4096, 4096), (DEEP_BATCH, 1024, 512)
+    deep32 = [(DEEP_BATCH, k, n, "relu") for k, n in deep]
+    err, times = hold_kernel(
+        "linear_ksplit_fwd", linear.linear_ksplit_fwd, ksplit32_operands,
+        deep32 + [(*sh, act) for sh in SGEMM_RAGGED
+                  for act in ("none", "relu", "tanh")]
+        + [(*sh, "relu") for sh in NO_SGEMM],
+        [(*big32, "relu"), (*small32, "relu")], kernel="sgemm")
+    fast_row(rows["linear_ksplit_fwd[fp32]"], err, times[big32], "sgemm")
+    same = deep32 + [(*sh, "tanh") for sh in SGEMM_RAGGED]
+    for batch, k, n, act in same:
+        call, _, _, (x, w, b) = ksplit32_operands(batch, k, n, act)
+        check(torch.equal(call("auto"), linear.linear_fwd(
+            x, w, b, act, kernel="sgemm")), f"linear_ksplit_fwd[fp32] "
+              f"{batch}x{k}->{n}: other bits than linear_fwd(kernel='sgemm')")
+    print(f"  {'linear_ksplit_fwd[fp32]':<24} equal bits with linear_fwd("
+          f"kernel='sgemm') at all {len(same)} shapes (the same launch)")
+
     # the block-Toeplitz kernel through the two convolutions, at every layer
     # of configs/conv1d.ini, batch 4096: forward and the dx launch
     toe_src = "rawaudiovae_kelsey_tpu_torch/csrc/toeplitz.cu"
@@ -3138,20 +3320,22 @@ def phase_deep(tmp: Path, audio, card: str):
         cfg.tpu.precision = precision
         counts = step_counts[precision] = step_pair(cfg, ckpt, x, models, tol,
                                                     f"deep {precision}")
-        n_k, n_w, tc_k, tc_w, sg_w = (counts[k] for k in (
+        n_k, n_w, tc_k, tc_w, sg_k, sg_w = (counts[k] for k in (
             "linear_ksplit_fwd", "linear_fwd", "linear_ksplit_fwd@tc",
-            "linear_fwd@tc", "linear_fwd@sgemm"))
+            "linear_fwd@tc", "linear_ksplit_fwd@sgemm", "linear_fwd@sgemm"))
         print(f"  kernel launches in that step: linear_ksplit_fwd {n_k} "
-              f"({tc_k} on the tensor cores), linear_fwd {n_w} ({tc_w} on "
-              f"the tensor cores, {sg_w} on the fp32 kernel): {tc_k + tc_w} "
-              f"of {n_k + n_w} linear launches on the tensor cores")
+              f"({tc_k} on the tensor cores, {sg_k} on the fp32 kernel), "
+              f"linear_fwd {n_w} ({tc_w} on the tensor cores, {sg_w} on the "
+              f"fp32 kernel): {tc_k + tc_w} of {n_k + n_w} linear launches on "
+              f"the tensor cores, {sg_k + sg_w} on the fp32 kernel")
         check((n_k, n_w) == (7, 4), f"deep {precision} step: {n_k} k-split + "
               f"{n_w} whole-k launches, expected 7 + 4")
         bf16 = precision == "bfloat16"
-        check((tc_k, tc_w, sg_w) == ((7, 4, 0) if bf16 else (0, 0, 4)),
+        check((tc_k, tc_w, sg_k, sg_w) == ((7, 4, 0, 0) if bf16
+                                           else (0, 0, 7, 4)),
               f"deep {precision} step: {tc_k} + {tc_w} linear launches on the "
-              f"tensor cores, {sg_w} on the fp32 kernel (bf16 layers take "
-              "the tensor cores, fp32 whole-k ones csrc/sgemm.cuh)")
+              f"tensor cores, {sg_k} + {sg_w} on the fp32 kernel (bf16 layers "
+              "take the tensor cores, fp32 ones csrc/sgemm.cuh)")
     # per forward at the server's batch: every layer takes the whole-k
     # kernel; on the fp32 master params the fp32 kernel (csrc/sgemm.cuh), on
     # bf16 ones the tensor cores
@@ -3518,7 +3702,9 @@ def main() -> int:
     for key, row in train_rows.items():
         name, kind = key[:-1].split("[")
         counts = step_launches if kind == "fp32" else train_launches
-        row["launches"] = counts[name]
+        # the bf16 encoder's row describes the tensor-core kernel
+        row["launches"] = counts[f"{name}@tc" if key == "encoder_fwd[bf16]"
+                                 else name]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(train_rows)
     # no path of the package runs matmul_nt_mask on bf16 operands (the bf16
@@ -3566,9 +3752,11 @@ def main() -> int:
             counts = deep_serve_launches
         else:
             counts = deep_fp32_launches
+        # a bf16 row describes the tensor-core kernel, an fp32 linear row
+        # csrc/sgemm.cuh
         row["launches"] = counts[
             f"{name}@tc" if kind == "bf16"
-            else f"{name}@sgemm" if name == "linear_fwd" else name]
+            else name if name == "toeplitz_fwd" else f"{name}@sgemm"]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(variant_rows)
     # the probes' kernels: the deep_bwd runs in each dtype, the adam_fusion

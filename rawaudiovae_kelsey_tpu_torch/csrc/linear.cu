@@ -36,17 +36,22 @@
 // gives a layer slices x as many blocks as the whole-k launch, at the
 // price of the workspace's round trip (2 * 4 * slices bytes per output
 // element against 2 * k FLOPs: noise beside the product for k >= 1024).
-// That is the first version, on the CUDA cores: fp32 operands take it, and
-// bf16 operands that TMA cannot (k or n no multiple of 8, an unaligned
-// pointer).
+// That is the first version, on the CUDA cores: fp32 operands with k or n
+// no multiple of 4 or an unaligned pointer take it, and bf16 operands that
+// TMA cannot (k or n no multiple of 8, an unaligned pointer).
 //
-// bf16 operands otherwise take the tensor-core form (wgmma.cuh): one launch
-// in which a block owns an output tile and walks all of k, slice after
-// slice in order, in one fp32 accumulator - what the TPU kernel does - with
-// bias, activation and the single rounding in the epilogue, from registers.
-// No workspace: at 4096 x 4096 -> 4096 the first version's eight fp32
-// partial planes are 1.07 GB written and read back, 0.32 ms at the memory
-// rate, more than twice the whole product's bound on the tensor cores.
+// The other operands take a form in which a block owns an output tile and
+// walks all of k, slice after slice in order, in one fp32 accumulator -
+// what the TPU kernel does - with bias, activation and the single rounding
+// in its epilogue: the same launch as rvk_linear_fwd's.  No workspace: at
+// 4096 x 4096 -> 4096 the first version's eight fp32 partial planes are
+// 1.07 GB written and read back, 0.32 ms at the memory rate.
+// * bf16 operands: the tensor-core form (wgmma.cuh); the workspace's round
+//   trip alone would take more than twice its product's bound.
+// * fp32 operands with k and n multiples of 4 and 16-byte aligned pointers:
+//   the register-tiled fp32 mainloop of sgemm.cuh, x K-major, w N-major,
+//   one IEEE FFMA chain an output in k order.  Its bits are those of
+//   rvk_linear_fwd's code 2 on the same operands.
 
 #include "product.cuh"
 #include "sgemm.cuh"
@@ -180,14 +185,22 @@ int rvk_linear_fwd(const void* x, const void* w, const void* b, void* y,
 // The same function with the contraction walked slice by slice.  kernel (an
 // rvk::tc::Kernel): 0, the split-K path on the CUDA cores, where ws is
 // fp32 scratch of slices * batch * n elements, slices = ceil(k / kslice);
-// 1, the tensor-core form, bf16 only, which takes no scratch (ws may
-// be null) and walks k in one accumulator, in tiles 128 x tile_n: the same
-// launch as rvk_linear_fwd's.
+// 1, the tensor-core form, bf16 only, in tiles 128 x tile_n; 2, the fp32
+// mainloop of sgemm.cuh, fp32 only, k and n multiples of 4, 16-byte aligned
+// pointers, on the tile sgemm::kTiles[tile_n].  Codes 1 and 2 take no
+// scratch (ws may be null) and walk k in one accumulator: the same launches
+// as rvk_linear_fwd's.
 int rvk_linear_ksplit_fwd(const void* x, const void* w, const void* b,
                           void* y, void* ws, int batch, int k, int n,
                           int slices, int kslice, int act, int dtype,
                           int tile_n, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32) return cudaErrorInvalidValue;
+    return rvk::sgemm::launch_act<false>(src<float>(x), src<float>(w),
+                                         src<float>(b), dst<float>(y), batch,
+                                         n, k, act, tile_n, s);
+  }
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
     return tensor_core_linear(x, w, b, y, batch, k, n, act, dtype, tile_n,

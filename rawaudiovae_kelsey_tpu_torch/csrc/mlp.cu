@@ -6,9 +6,22 @@
 // rawaudiovae_kelsey_tpu/ops/pallas_mlp.py; rvk_decoder_fwd replaces
 // decoder_fwd (_dec_fwd_kernel) there.  The TPU kernels pin every weight in
 // VMEM for the whole batch grid; on this card W1 alone (8 MB fp32) is ~36x
-// a block's shared memory, so each chain runs as two launches of the tiled
-// GEMM of gemm.cuh, and the hidden activation (h / h3, an output of the
-// TPU kernels too) goes through device memory between them.
+// a block's shared memory, so each chain runs as two launches, and the
+// hidden activation (h / h3, an output of the TPU kernels too) goes through
+// device memory between them.
+//
+// Which kernel runs them (the caller's `kernel`, ops/tensor_cores.py):
+// * the encoder's bf16 form, with seg, units and latent multiples of 8 and
+//   16-byte aligned pointers, takes the tensor-core mainloop of wgmma.cuh:
+//   h = relu(x @ w1 + b1) as one launch of the linear layer's form (bias
+//   and ReLU in the epilogue), then BOTH heads in one launch (HeadsTiles:
+//   mu's tile columns, then logvar's, each reading its own W and writing
+//   its own output, the bias of its head in the epilogue).  At the training
+//   microbatch (8192, latent 256) that is 128 tiles of 128 x 256 in one
+//   wave of the 132 SMs, where a launch a head would run 64 tiles twice;
+// * everything else (fp32; the decoder; odd widths, unaligned views) runs
+//   the first version: two launches of the tiled GEMM of gemm.cuh on the
+//   CUDA cores, the encoder's second computing both heads (Gemm::out[0..1]).
 //
 // Types, as the TPU kernels do them: fp32 accumulation; the bias added and
 // the activation applied in fp32; every output (h, mu, logvar, h3, y) in the
@@ -22,11 +35,13 @@
 // ridge of ~20 (67 TFLOP/s fp32 on the CUDA cores over 3.35 TB/s), so fp32
 // FMA throughput, not HBM, is the limit; h is re-read from the 50 MB L2,
 // not HBM.  At the training microbatch (8192, bf16) the FLOPs per byte only
-// grow, so the same holds.  The design's answer is register tiling (each
-// shared-memory value feeds 2-4 FMAs) and tile sizes that keep every SM
-// busy at batch 256.
+// grow, so the same holds: 51.5 GFLOP for the encoder, 0.052 ms at the
+// tensor cores' 989 TFLOP/s.  The first version's answer is register tiling
+// (each shared-memory value feeds 2-4 FMAs) and tile sizes that keep every
+// SM busy at batch 256.
 
 #include "gemm.cuh"
+#include "wgmma.cuh"
 
 using rvk::dst;
 using rvk::Gemm;
@@ -90,6 +105,31 @@ cudaError_t decoder_fwd(const T* z, const T* w3, const T* b3, const T* w4,
   return launch_gemm<kKContig, kRContig>(out, 1, s);
 }
 
+// The tensor-core form of the encoder: bf16 only, the biases 4-byte
+// aligned (their pairs are single loads); the hidden product in tiles 128 x
+// tile_hidden, the heads in tiles 128 x tile_heads.
+int tensor_core_encoder(const void* x, const void* w1, const void* b1,
+                        const void* w21, const void* b21, const void* w22,
+                        const void* b22, void* mu, void* logvar, void* h,
+                        int batch, int seg, int units, int latent, int dtype,
+                        int tile_hidden, int tile_heads, cudaStream_t s) {
+  if (dtype != rvk::kBF16 ||
+      (reinterpret_cast<uintptr_t>(b1) | reinterpret_cast<uintptr_t>(b21) |
+       reinterpret_cast<uintptr_t>(b22)) % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  using T = rvk::bf16;
+  const cudaError_t err = rvk::tc::launch_wgmma<true>(
+      src<T>(x), src<T>(w1), dst<T>(h),
+      rvk::tc::BiasActPair{src<T>(b1), rvk::kActRelu}, batch, units, seg,
+      tile_hidden, s);
+  if (err != cudaSuccess) return err;
+  return rvk::tc::launch_heads(
+      dst<T>(h), src<T>(w21), src<T>(w22), dst<T>(mu), dst<T>(logvar),
+      rvk::tc::HeadsBias{src<T>(b21), src<T>(b22), latent}, batch, latent,
+      units, tile_heads, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -100,12 +140,24 @@ const char* rvk_error_string(int code) {
 
 // x (batch, seg); w1 (seg, units); w21, w22 (units, latent); outputs mu,
 // logvar (batch, latent) and h (batch, units).  All of one dtype (rvk::DType).
+// kernel (an rvk::tc::Kernel): 0, the two launches of the tiled GEMM on the
+// CUDA cores (tile widths ignored); 1, the tensor-core form, bf16 only, seg,
+// units and latent multiples of 8, 16-byte aligned pointers: h in tiles 128
+// x tile_hidden, both heads in one launch in tiles 128 x tile_heads (256,
+// 128 or 64 each; ops/tensor_cores.py tile_n).
 int rvk_encoder_fwd(const void* x, const void* w1, const void* b1,
                     const void* w21, const void* b21, const void* w22,
                     const void* b22, void* mu, void* logvar, void* h,
                     int batch, int seg, int units, int latent, int dtype,
+                    int tile_hidden, int tile_heads, int kernel,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
+    return tensor_core_encoder(x, w1, b1, w21, b21, w22, b22, mu, logvar, h,
+                               batch, seg, units, latent, dtype, tile_hidden,
+                               tile_heads, s);
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return encoder_fwd(src<T>(x), src<T>(w1), src<T>(b1), src<T>(w21),

@@ -1,6 +1,7 @@
 // bf16 tensor-core mainloop for Hopper (sm_90a): the device routine of the
 // bf16 forms of rvk_linear_fwd, rvk_linear_ksplit_fwd (linear.cu),
-// rvk_matmul_nt (bwd.cu) and rvk_toeplitz_fwd (toeplitz.cu).
+// rvk_matmul_nt (bwd.cu), rvk_toeplitz_fwd (toeplitz.cu) and
+// rvk_encoder_fwd (mlp.cu).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -22,13 +23,14 @@
 //
 // Which TPU kernels run on it: linear_fwd (_linear_kernel) and
 // linear_ksplit_fwd (_linear_ksplit_kernel) of
-// rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt of
-// rawaudiovae_kelsey_tpu/ops/pallas_mlp.py and toeplitz_fwd
-// (_toeplitz_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py.  The
-// TPU kernels carry one fp32 accumulator across the k slices, which their
-// grid visits in order; here a block owns an output tile and walks the
-// whole of K itself, in order, in one fp32 accumulator: no split over
-// blocks, no workspace, no atomics, so two launches give equal bits.
+// rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt and encoder_fwd
+// (_enc_fwd_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py and
+// toeplitz_fwd (_toeplitz_kernel) of
+// rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py.  The TPU kernels carry
+// one fp32 accumulator across the k slices, which their grid visits in
+// order; here a block owns an output tile and walks the whole of K itself,
+// in order, in one fp32 accumulator: no split over blocks, no workspace, no
+// atomics, so two launches give equal bits.
 //
 // What bounds it.  The deep model's large layers at batch 4096 do
 // 2·4096·k·n operations on (4096·k + k·n + 4096·n)·2 bytes: 1365 operations
@@ -81,6 +83,17 @@
 //   never stored.  The plan (t_half, b_half) comes from the caller
 //   (ops/toeplitz.py tile_plan); the consumers never see where a stage came
 //   from.
+// * A launch may write kOuts outputs side by side (the Tiles type's kOuts):
+//   one A map and kOuts (B, C) map pairs, each output N wide, read by the
+//   walk as one joined output of kOuts · ceil(N / BN) tile columns.  Tile
+//   column tn belongs to output tn / ceil(N / BN): its loads read that
+//   output's B, its store writes that output's C, and the epilogue sees the
+//   joined column out · N + n (for kOuts = 1, the column of C).  TMA clips
+//   and zero-fills at each map's own N, so an N that is no multiple of BN
+//   needs no mask.  HeadsTiles is the encoder's two heads, mu = h · W21 and
+//   logvar = h · W22: one launch of 2 · ceil(latent / BN) tile columns,
+//   where two launches would each leave half the SMs idle at the training
+//   microbatch (64 tiles of 128 x 256 for 132 SMs).
 // * Epilogue.  Stores of 4 bytes a thread straight from the accumulator
 //   layout, with the bias fetched and the activation chosen inside the
 //   unrolled loop, made the first epilogue 8 % of the kernel at 4096 x 4096
@@ -447,12 +460,12 @@ __device__ __forceinline__ void fence_accumulators(float* acc) {
 // BN / 64 chunks of 64 rows x 128 bytes, 128-byte swizzle: the layout a TMA
 // store of 64 x 64 boxes reads).  Only the first `rows` rows of the half
 // and the columns below N go through the functor (its bias or gate has
-// nothing elsewhere), as rows m0 + r; zeros are staged for the rest and the
-// store clips or skips them.
+// nothing elsewhere), as rows m0 + r and columns joined + n; zeros are
+// staged for the rest and the store clips or skips them.
 template <int BN, int kMode, typename Epi>
 __device__ __forceinline__ void stage_tile(
     float* acc, const Epi& epi, const typename Epi::Column* columns,
-    uint32_t staging, int m0, int rows, int n0, int N) {
+    uint32_t staging, int m0, int rows, int n0, int N, int joined) {
   fence_accumulators<BN>(acc);
   const int t = threadIdx.x % 128;
   const int r = 16 * (t / 32) + (t % 32) / 4;  // and r + 8: the same r % 8
@@ -463,11 +476,11 @@ __device__ __forceinline__ void stage_tile(
     __nv_bfloat162 lo = __floats2bfloat162_rn(0.f, 0.f), hi = lo;
     if (n < N) {
       if (r < rows) {
-        lo = epi.template pair<kMode>(columns[j], m0 + r, n, acc[4 * j],
-                                      acc[4 * j + 1]);
+        lo = epi.template pair<kMode>(columns[j], m0 + r, joined + n,
+                                      acc[4 * j], acc[4 * j + 1]);
       }
       if (r + 8 < rows) {
-        hi = epi.template pair<kMode>(columns[j], m0 + r + 8, n,
+        hi = epi.template pair<kMode>(columns[j], m0 + r + 8, joined + n,
                                       acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
@@ -529,10 +542,14 @@ __device__ __forceinline__ void tile_origin(int tile, int tiles_m,
 //                               output (0: none, skip the store), and the
 //                               row index m0 the functor sees for the first;
 //   store(map, src, tm, wg, n)  the TMA store of that half's 64 columns
-//                               from n.
+//                               from n;
+//   kOuts                       the outputs written side by side (above).
 
-// The plain product: A (M, K) row-major, C (M, N) row-major.
-struct MatrixTiles {
+// The plain product: A (M, K) row-major, each of the kOuts C (M, N)
+// row-major.  MatrixTiles writes one output, HeadsTiles two (the heads).
+template <int kOutputs>
+struct RowTiles {
+  static constexpr int kOuts = kOutputs;
   int M, K;
   __host__ __device__ int tiles_m() const { return (M + kTileM - 1) / kTileM; }
   __device__ int k_steps() const { return (K + kTileK - 1) / kTileK; }
@@ -551,6 +568,8 @@ struct MatrixTiles {
     tma_store(map, src, n, tm * kTileM + 64 * wg);
   }
 };
+using MatrixTiles = RowTiles<1>;
+using HeadsTiles = RowTiles<2>;
 
 // The block-Toeplitz product (header, "tile walk"): x (B, nb, G) as a 3-D
 // map (G, nb, B) with boxes (64, t_half, b_half), y (B, t_out, N) as (N,
@@ -558,6 +577,7 @@ struct MatrixTiles {
 // row h / 2, warpgroup h % 2) is positions [tc·t_half, +t_half) of batch
 // rows [bg·b_half, +b_half), with tc = h % n_t and bg = h / n_t.
 struct ToeplitzTiles {
+  static constexpr int kOuts = 1;
   int t_out, shift, G, t_half, b_half;
   int n_t;      // ceil(t_out / t_half): halves along a batch row
   int halves;   // n_t · ceil(B / b_half)
@@ -598,14 +618,22 @@ struct ToeplitzTiles {
   }
 };
 
+// The tensor maps of one launch: A, and a (B, C) pair for each of the
+// kOuts outputs.  A kernel parameter (__grid_constant__): TMA reads the maps
+// where the launch put them.
+template <int kOuts>
+struct Maps {
+  CUtensorMap a;
+  CUtensorMap b[kOuts];
+  CUtensorMap c[kOuts];
+};
+
 // ------------------------------------------------------------ the mainloop
 
 template <int BN, int kStages, bool kBT, typename Epi, typename Tiles>
 __global__ void __launch_bounds__(kBlock, 1)
-wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
-                  const __grid_constant__ CUtensorMap map_b,
-                  const __grid_constant__ CUtensorMap map_c, const Epi epi,
-                  const Tiles tiles, int N) {
+wgmma_gemm_kernel(const __grid_constant__ Maps<Tiles::kOuts> maps,
+                  const Epi epi, const Tiles tiles, int N) {
   static_assert(BN == 64 || BN == 128 || BN == 256,
                 "the tile is 64, 128 or 256 wide");
   // a stage is released one step late (one wgmma group stays in flight)
@@ -634,7 +662,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   __syncthreads();
 
   const int tiles_m = tiles.tiles_m();
-  const int tiles_n = (N + BN - 1) / BN;
+  // tile columns an output; the joined output has kOuts times as many
+  const int per_out = (N + BN - 1) / BN;
+  const int tiles_n = Tiles::kOuts * per_out;
   const int n_tiles = tiles_m * tiles_n;
   const int n_kb = tiles.k_steps();
 
@@ -647,7 +677,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         int tm, tn;
         tile_origin(tile, tiles_m, tiles_n, tm, tn);
-        const int n0 = tn * BN;
+        const int out = tn / per_out;
+        const int n0 = (tn - out * per_out) * BN;
+        const CUtensorMap* map_b = &maps.b[out];
         const uint32_t stage_bytes = tiles.a_bytes(tm) + kBTileBytes;
         for (int kb = 0; kb < n_kb; ++kb) {
           // a fresh barrier passes a wait on the parity before its first
@@ -656,16 +688,16 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
           const uint32_t a_tile = ring + s * kStageBytes;
           const uint32_t b_tile = a_tile + kATileBytes;
           mbar_expect_tx(bar, stage_bytes);
-          tiles.load_a(a_tile, &map_a, bar, tm, kb);
+          tiles.load_a(a_tile, &maps.a, bar, tm, kb);
           const int k0 = tiles.b_row(kb);
           if constexpr (kBT) {
 #pragma unroll
             for (int c = 0; c < BN / 64; ++c) {
-              tma_load(b_tile + c * kChunkBytes, &map_b, bar, n0 + 64 * c,
+              tma_load(b_tile + c * kChunkBytes, map_b, bar, n0 + 64 * c,
                        k0);
             }
           } else {
-            tma_load(b_tile, &map_b, bar, k0, n0);
+            tma_load(b_tile, map_b, bar, k0, n0);
           }
           if (++s == kStages) {
             s = 0;
@@ -705,13 +737,14 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         }
       }
       // what the epilogue reads per column pair, fetched while the last
-      // products are in flight
-      const int n0 = tn * BN;
+      // products are in flight; the functor sees the joined column
+      const int out = tn / per_out;
+      const int n0 = (tn - out * per_out) * BN;
       typename Epi::Column columns[BN / 8] = {};
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int n = n0 + 2 * (lane % 4) + 8 * j;
-        if (n < N) columns[j] = epi.column(n);
+        if (n < N) columns[j] = epi.column(out * N + n);
       }
       wgmma_wait<0>();
       if (lane == 0) mbar_arrive(empty + 8 * prev);
@@ -722,7 +755,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       const int rows = tiles.half(tm, wg, m0);
       with_mode(epi, [&](auto mode) {
         stage_tile<BN, decltype(mode)::value>(acc, epi, columns, staged, m0,
-                                              rows, n0, N);
+                                              rows, n0, N, out * N);
       });
       // generic-proxy stores, read next by the async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -731,7 +764,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
         for (int c = 0; c < BN / 64; ++c) {
           if (n0 + 64 * c < N) {
-            tiles.store(&map_c, staged + c * kChunkBytes, tm, wg,
+            tiles.store(&maps.c[out], staged + c * kChunkBytes, tm, wg,
                         n0 + 64 * c);
           }
         }
@@ -813,8 +846,7 @@ inline cudaError_t cube_map(CUtensorMap* map, const bf16* p, int rows,
 }
 
 template <int BN, bool kBT, typename Epi, typename Tiles>
-cudaError_t launch_tiles(const CUtensorMap& map_a, const CUtensorMap& map_b,
-                         const CUtensorMap& map_c, const Epi& epi,
+cudaError_t launch_tiles(const Maps<Tiles::kOuts>& maps, const Epi& epi,
                          const Tiles& tiles, int N, cudaStream_t stream) {
   constexpr int kStages = stages_for(BN);
   auto kernel = wgmma_gemm_kernel<BN, kStages, kBT, Epi, Tiles>;
@@ -832,10 +864,9 @@ cudaError_t launch_tiles(const CUtensorMap& map_a, const CUtensorMap& map_b,
     if (err != cudaSuccess) return err;
     if (device < 64) opted_in |= uint64_t{1} << device;
   }
-  const int n_tiles = tiles.tiles_m() * cdiv(N, BN);
+  const int n_tiles = tiles.tiles_m() * Tiles::kOuts * cdiv(N, BN);
   const int blocks = n_tiles < sm_count() ? n_tiles : sm_count();
-  kernel<<<blocks, kBlock, smem, stream>>>(map_a, map_b, map_c, epi, tiles,
-                                           N);
+  kernel<<<blocks, kBlock, smem, stream>>>(maps, epi, tiles, N);
   return cudaGetLastError();
 }
 
@@ -859,32 +890,57 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// C = epi(A · B) on the tensor cores in 128 x tile_n tiles.  a (M, K)
-// row-major; b (N, K) row-major, or (K, N) row-major with kBT; c (M, N)
-// row-major; all bf16 and 16-byte aligned, K and N multiples of 8 (the
-// caller's dispatch holds that, ops/tensor_cores.py).
+// C[i] = epi(A · B[i]) for each of the Tiles::kOuts outputs, on the
+// tensor cores in 128 x tile_n tiles.  a (M, K) row-major; each b[i] (N, K)
+// row-major, or (K, N) row-major with kBT; each c[i] (M, N) row-major; all
+// bf16 and 16-byte aligned, K and N multiples of 8 (the caller's dispatch
+// holds that, ops/tensor_cores.py).
+template <bool kBT, typename Tiles, typename Epi>
+cudaError_t launch_rows(const bf16* a, const bf16* const* b, bf16* const* c,
+                        const Epi& epi, int M, int N, int K, int tile_n,
+                        cudaStream_t stream) {
+  constexpr int kOuts = Tiles::kOuts;
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(a)) {
+    return cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < kOuts; ++i) {
+    if (!aligned16(b[i]) || !aligned16(c[i])) return cudaErrorInvalidValue;
+  }
+  return with_width(tile_n, [&](auto width) {
+    constexpr int BN = decltype(width)::value;
+    Maps<kOuts> maps;
+    cudaError_t err = matrix_map(&maps.a, a, M, K, kTileM, kTileK);
+    for (int i = 0; i < kOuts && err == cudaSuccess; ++i) {
+      err = kBT ? matrix_map(&maps.b[i], b[i], K, N, kTileK, 64)
+                : matrix_map(&maps.b[i], b[i], N, K, BN, kTileK);
+      if (err == cudaSuccess) err = matrix_map(&maps.c[i], c[i], M, N, 64, 64);
+    }
+    if (err != cudaSuccess) return err;
+    return launch_tiles<BN, kBT>(maps, epi, Tiles{M, K}, N, stream);
+  });
+}
+
+// C = epi(A · B): launch_rows with one output.
 template <bool kBT, typename Epi>
 cudaError_t launch_wgmma(const bf16* a, const bf16* b, bf16* c,
                          const Epi& epi, int M, int N, int K, int tile_n,
                          cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return cudaSuccess;
-  if (K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(a) || !aligned16(b) ||
-      !aligned16(c)) {
-    return cudaErrorInvalidValue;
-  }
-  return with_width(tile_n, [&](auto width) {
-    constexpr int BN = decltype(width)::value;
-    CUtensorMap map_a, map_b, map_c;
-    cudaError_t err = matrix_map(&map_a, a, M, K, kTileM, kTileK);
-    if (err != cudaSuccess) return err;
-    err = kBT ? matrix_map(&map_b, b, K, N, kTileK, 64)
-              : matrix_map(&map_b, b, N, K, BN, kTileK);
-    if (err != cudaSuccess) return err;
-    err = matrix_map(&map_c, c, M, N, 64, 64);
-    if (err != cudaSuccess) return err;
-    return launch_tiles<BN, kBT>(map_a, map_b, map_c, epi, MatrixTiles{M, K},
-                                 N, stream);
-  });
+  return launch_rows<kBT, MatrixTiles>(a, &b, &c, epi, M, N, K, tile_n,
+                                       stream);
+}
+
+// The encoder's heads in one launch (HeadsTiles): mu = epi(h · w21) and
+// logvar = epi(h · w22), h (M, K), w21 and w22 (K, N) row-major (N-major B),
+// mu and logvar (M, N); the functor sees the joined column (mu's columns,
+// then logvar's).
+template <typename Epi>
+cudaError_t launch_heads(const bf16* h, const bf16* w21, const bf16* w22,
+                         bf16* mu, bf16* logvar, const Epi& epi, int M, int N,
+                         int K, int tile_n, cudaStream_t stream) {
+  const bf16* const b[2] = {w21, w22};
+  bf16* const c[2] = {mu, logvar};
+  return launch_rows<true, HeadsTiles>(h, b, c, epi, M, N, K, tile_n, stream);
 }
 
 // y = epi(the block-Toeplitz product) on the tensor cores (header, "tile
@@ -916,14 +972,14 @@ cudaError_t launch_toeplitz(const bf16* x, const bf16* w, bf16* y,
   tiles.steps = KB * tiles.g_steps;
   return with_width(tile_n, [&](auto width) {
     constexpr int BN = decltype(width)::value;
-    CUtensorMap map_a, map_b, map_c;
-    cudaError_t err = cube_map(&map_a, x, B, nb, G, t_half, b_half);
+    Maps<1> maps;
+    cudaError_t err = cube_map(&maps.a, x, B, nb, G, t_half, b_half);
     if (err != cudaSuccess) return err;
-    err = matrix_map(&map_b, w, KB * G, N, kTileK, 64);
+    err = matrix_map(&maps.b[0], w, KB * G, N, kTileK, 64);
     if (err != cudaSuccess) return err;
-    err = cube_map(&map_c, y, B, t_out, N, t_half, b_half);
+    err = cube_map(&maps.c[0], y, B, t_out, N, t_half, b_half);
     if (err != cudaSuccess) return err;
-    return launch_tiles<BN, true>(map_a, map_b, map_c, epi, tiles, N, stream);
+    return launch_tiles<BN, true>(maps, epi, tiles, N, stream);
   });
 }
 
@@ -951,6 +1007,27 @@ struct BiasActPair {
                                                  float v1) const {
     return __floats2bfloat162_rn(finish<kAct>(v0 + __low2float(b)),
                                  finish<kAct>(v1 + __high2float(b)));
+  }
+};
+
+// The encoder heads' epilogue (launch_heads): the bias of the head that
+// joined column n belongs to (b21 below N, b22 from it) added in fp32, no
+// activation, one rounding.  A pair never straddles the heads (N is even).
+struct HeadsBias {
+  using Column = __nv_bfloat162;
+  static constexpr int kModes = 1;
+  const bf16* b21;
+  const bf16* b22;
+  int N;
+  __device__ __forceinline__ int mode() const { return 0; }
+  __device__ __forceinline__ Column column(int n) const {
+    const bf16* b = n < N ? b21 + n : b22 + (n - N);
+    return *reinterpret_cast<const __nv_bfloat162*>(b);
+  }
+  template <int>
+  __device__ __forceinline__ __nv_bfloat162 pair(Column b, int, int, float v0,
+                                                 float v1) const {
+    return __floats2bfloat162_rn(v0 + __low2float(b), v1 + __high2float(b));
   }
 };
 

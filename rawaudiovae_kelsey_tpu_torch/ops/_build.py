@@ -5,9 +5,11 @@ together, and the objects are linked into ONE shared library with a plain
 C interface, at first use, in ``build/kernels/`` beside the package
 (git-ignored).  The library's name carries a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads the cached
-file.  A build failure raises: nothing runs without the kernels.  Sources
-in the package are the only input; no PyTorch headers are compiled, which
-keeps the build to seconds.
+file.  A build failure raises: nothing runs without the kernels.  The
+failure is remembered for that hash, so every later call in the process
+raises it again at once instead of running the compiler again; an edited
+source has another hash and builds.  Sources in the package are the only
+input; no PyTorch headers are compiled, which keeps the build to seconds.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 # C entry point → argument types (pointers and the stream as c_void_p: a
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
-    "rvk_encoder_fwd": [_P] * 10 + [_I] * 5 + [_P],
+    "rvk_encoder_fwd": [_P] * 10 + [_I] * 8 + [_P],
     "rvk_decoder_fwd": [_P] * 7 + [_I] * 5 + [_P],
     "rvk_quantized_decoder_fwd": [_P] * 9 + [_I] * 4 + [_P],
     "rvk_grad_accum": [_P] * 4 + [_I] * 4 + [_P],
@@ -59,6 +61,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# the sources' hash → the error its build raised, raised again by library()
+_failed: dict = {}
 # entry point name → its bound ctypes function, filled when the library
 # loads: a launch then costs one dict lookup, not an attribute walk
 _entry: dict = {}
@@ -82,16 +86,21 @@ def _nvcc() -> str:
     return str(path)
 
 
+def source_digest() -> str:
+    """The hash of the sources and the flags that names the library."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` (or reuse the cached library) → its path.
     The compiler's ``-Xptxas -v`` report (registers, shared memory,
     spills per kernel) is kept beside it as ``<library>.log``."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources + sorted(CSRC.glob("*.cuh")):
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    out = BUILD_DIR / f"librvk_{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"librvk_{source_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -128,11 +137,20 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call.  A build that failed
+    is not run again for the same sources: the call raises its error."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            digest = source_digest()
+            if digest in _failed:
+                raise _failed[digest]
+            try:
+                path = build()
+            except RuntimeError as err:
+                _failed[digest] = err
+                raise
+            lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

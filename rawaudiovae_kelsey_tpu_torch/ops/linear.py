@@ -8,17 +8,18 @@ Two kernels compute the same function (``csrc/linear.cu``):
 * :func:`linear_ksplit_fwd`: the contraction is walked slice by slice in
   order.
 
-fp32 operands of :func:`linear_fwd` with k and n multiples of 4 take the
-register-tiled fp32 kernel (``csrc/sgemm.cuh``: a block owns an output tile
-and carries one fp32 accumulator per output across all of k, IEEE FFMAs).
-bf16 operands that TMA can address (``ops/tensor_cores.py``) take the
-tensor-core kernel (``csrc/wgmma.cuh``) in both: one launch, a block owns an
-output tile and carries one fp32 accumulator across all of k, bias,
-activation and the one rounding in its epilogue, no workspace.  The other
-fp32 operands, and bf16 ones TMA cannot take, keep the first versions on
-the CUDA cores: for :func:`linear_fwd` one tiled GEMM; for
-:func:`linear_ksplit_fwd` slices of ``KSPLIT_BLOCK_K`` over a grid
-dimension, every block writes the fp32 partial sum of its slice to a
+fp32 operands with k and n multiples of 4 and 16-byte aligned pointers take
+the register-tiled fp32 kernel (``csrc/sgemm.cuh``) in both: a block owns an
+output tile and carries one fp32 accumulator per output across all of k
+(IEEE FFMAs, in k order), no workspace; the two ops then launch the same
+kernel and give the same bits.  bf16 operands that TMA can address
+(``ops/tensor_cores.py``) take the tensor-core kernel (``csrc/wgmma.cuh``)
+in both: one launch, a block owns an output tile and carries one fp32
+accumulator across all of k, bias, activation and the one rounding in its
+epilogue, no workspace.  The other fp32 operands, and bf16 ones TMA cannot
+take, keep the first versions on the CUDA cores: for :func:`linear_fwd` one
+tiled GEMM; for :func:`linear_ksplit_fwd` slices of ``KSPLIT_BLOCK_K`` over
+a grid dimension, every block writes the fp32 partial sum of its slice to a
 workspace and a second stage adds the slices in order, adds the bias,
 applies the activation and rounds once.  None uses atomics, so two launches
 give equal bits.
@@ -179,20 +180,24 @@ def linear_ksplit_fwd(x, w, b, act: str = "none",
     :func:`ksplit_slices` slices, in order: the large-layer path.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_linear.py``
-    ``linear_ksplit_fwd``.  CUDA, one of two hand-written kernels, chosen by
-    ``tensor_cores.takes_tensor_cores(dtype, B, k, n)``: bf16 operands with
-    k and n multiples of 8 and 16-byte aligned pointers take the tensor-core
-    kernel (``csrc/wgmma.cuh``; one launch, one fp32 accumulator across all
-    of k, no workspace); everything else the first version
-    (``csrc/linear.cu``; the per-slice partial products into an fp32
-    workspace ``(slices, B, n)``, then their ordered sum with the bias and
-    the activation).  ``kernel`` names one instead (``tensor_cores.
-    KERNEL_CODES``); the tensor-core kernel on operands it cannot take
-    raises.  The two kernels round differently, so the output's bits
-    depend on the choice and hence on the pointers' alignment (an unaligned
-    contiguous view may differ from the aligned tensor by a bf16 ulp).  One
-    call counts once in ``launches``, whichever ran, and in
-    ``tensor_core_launches`` too when that one ran."""
+    ``linear_ksplit_fwd``.  CUDA, one of three hand-written kernels, chosen
+    by ``tensor_cores.resolve_kernel``: bf16 operands with k and n multiples
+    of 8 and 16-byte aligned pointers take the tensor-core kernel
+    (``csrc/wgmma.cuh``), fp32 operands with k and n multiples of 4 and
+    16-byte aligned pointers the register-tiled fp32 kernel
+    (``csrc/sgemm.cuh``; the same launch as :func:`linear_fwd`'s, equal
+    bits), both one launch with one fp32 accumulator across all of k and
+    no workspace; everything else the first version (``csrc/linear.cu``;
+    the per-slice partial products into an fp32 workspace ``(slices, B,
+    n)``, then their ordered sum with the bias and the activation).
+    ``kernel`` names one instead (``tensor_cores.KERNEL_CODES``); a kernel
+    named on operands it cannot take raises.  The kernels round
+    differently, so the output's bits depend on the choice and hence on
+    the pointers' alignment (an unaligned contiguous view may differ from
+    the aligned tensor by a bf16 ulp, an fp32 one by a few ulps).  One call
+    counts once in ``launches``, whichever ran, and in
+    ``tensor_core_launches`` or ``sgemm_launches`` too when that one
+    ran."""
     tensor_cores.check_name("linear_ksplit_fwd", kernel)
     if x.device.type == "cpu":
         return linear_ksplit_fwd_ref(x, w, b, act)
@@ -207,12 +212,15 @@ def linear_ksplit_fwd(x, w, b, act: str = "none",
                       n, slices, KSPLIT_BLOCK_K, ACT_CODES[act],
                       DTYPE_CODES[dt], tile, code)
         linear_ksplit_fwd.launches += 1
-        linear_ksplit_fwd.tensor_core_launches += bool(code)
+        linear_ksplit_fwd.tensor_core_launches += \
+            code == tensor_cores.TENSOR_CORES
+        linear_ksplit_fwd.sgemm_launches += code == tensor_cores.SGEMM
     return y
 
 
 linear_ksplit_fwd.launches = 0
 linear_ksplit_fwd.tensor_core_launches = 0
+linear_ksplit_fwd.sgemm_launches = 0
 
 
 def takes_ksplit(batch: int, k: int, n: int) -> bool:

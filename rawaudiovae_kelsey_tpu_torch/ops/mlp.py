@@ -214,13 +214,23 @@ def operand_dtype(x: Tensor, name: str) -> torch.dtype:
 
 # ----------------------------------------------------------- forward kernels
 
-def encoder_fwd(w1, b1, w21, b21, w22, b22, x
+def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto"
                 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Fused ``relu(x@W1+b1)`` → ``(mu, logvar, h)``.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``encoder_fwd``.
-    CUDA: two launches of the tiled GEMM (``csrc/mlp.cu``), h then both
-    heads in one."""
+    CUDA, two launches (``csrc/mlp.cu``), h then both heads in one, of one
+    of two hand-written kernels chosen by ``tensor_cores.resolve``: bf16
+    operands with seg, units and latent multiples of 8 and 16-byte aligned
+    pointers take the tensor-core kernel (``csrc/wgmma.cuh``; the heads as
+    one walk over both outputs), everything else the tiled GEMM on the
+    CUDA cores.  ``kernel`` (``"auto"``, ``"cuda_cores"`` or
+    ``"tensor_cores"``) names one instead; the tensor-core kernel named on
+    operands it cannot take raises.  Either way h, mu and logvar are each
+    rounded once to the operand dtype from fp32 sums, and the heads read the
+    rounded h.  One call counts once in ``launches``, and in
+    ``tensor_core_launches`` too when the tensor cores ran it."""
+    tensor_cores.check_name("encoder_fwd", kernel)
     if x.device.type == "cpu":
         return encoder_fwd_ref(w1, b1, w21, b21, w22, b22, x)
     dev = cuda_device(x, "encoder_fwd: x")
@@ -234,18 +244,40 @@ def encoder_fwd(w1, b1, w21, b21, w22, b22, x
     require(b21, "b21", (latent,), dev, dt)
     require(w22, "w22", (units, latent), dev, dt)
     require(b22, "b22", (latent,), dev, dt)
+    code = resolve_encoder(kernel, dt, batch, seg, units, latent,
+                           tensor_cores.pointers_aligned(x, w1, b1, w21, b21,
+                                                         w22, b22))
     mu = torch.empty((batch, latent), device=dev, dtype=dt)
     logvar = torch.empty((batch, latent), device=dev, dtype=dt)
     h = torch.empty((batch, units), device=dev, dtype=dt)
     if batch:
         _build.launch("rvk_encoder_fwd", dev, x, w1, b1, w21, b21, w22, b22,
                       mu, logvar, h, batch, seg, units, latent,
-                      DTYPE_CODES[dt])
+                      DTYPE_CODES[dt], tensor_cores.tile(code, dev, batch,
+                                                         units),
+                      tensor_cores.tile(code, dev, batch, latent, 2), code)
         encoder_fwd.launches += 1
+        encoder_fwd.tensor_core_launches += code == tensor_cores.TENSOR_CORES
     return mu, logvar, h
 
 
 encoder_fwd.launches = 0
+encoder_fwd.tensor_core_launches = 0
+
+
+def resolve_encoder(kernel: str, dtype: torch.dtype, batch: int, seg: int,
+                    units: int, latent: int, aligned: bool = True) -> int:
+    """The kernel code :func:`encoder_fwd` launches with: the tensor cores
+    when both of its products fit them (``tensor_cores.takes_tensor_cores``
+    of the hidden layer, contraction ``seg`` and width ``units``, and of the
+    heads, ``units`` and ``latent``), else the first version; ``kernel``
+    names one instead (``tensor_cores.resolve``)."""
+    return tensor_cores.resolve(
+        "encoder_fwd", kernel,
+        tensor_cores.takes_tensor_cores(dtype, batch, seg, units, aligned)
+        and tensor_cores.takes_tensor_cores(dtype, batch, units, latent),
+        lambda: f"{dtype}, batch {batch}, seg {seg}, units {units}, latent "
+                f"{latent}, aligned = {aligned}")
 
 
 def decoder_fwd(w3, b3, w4, b4, z) -> Tuple[Tensor, Tensor]:

@@ -2,15 +2,17 @@
 cores, the bf16 tensor-core form (``csrc/wgmma.cuh``) or the fp32
 register-tiled form (``csrc/sgemm.cuh``); and the tile of the latter two.
 
-Four ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
+Five ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
 linear.linear_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
-linear_ksplit_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.matmul_nt`
-and :func:`~rawaudiovae_kelsey_tpu_torch.ops.toeplitz.toeplitz_fwd` (whose
-contraction is ``G`` a tap and output width ``N``); two of them,
-``linear_fwd`` and ``matmul_nt`` (:data:`SGEMM_OPS`), also an fp32 form.
-The choice is a function of dtype, shape and pointer alignment alone
-(:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in the wrapper
-before the launch:
+linear_ksplit_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.matmul_nt`,
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.toeplitz.toeplitz_fwd` (whose
+contraction is ``G`` a tap and output width ``N``) and
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.encoder_fwd` (two products, the
+hidden layer and the two heads, each of which must fit); three of them,
+``linear_fwd``, ``linear_ksplit_fwd`` and ``matmul_nt`` (:data:`SGEMM_OPS`),
+also an fp32 form.  The choice is a function of dtype, shape and pointer
+alignment alone (:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in
+the wrapper before the launch:
 
 * bf16 operands take the tensor-core kernel when TMA can address them: the
   contraction ``k`` and the output width ``n`` multiples of 8 (row pitches
@@ -53,7 +55,7 @@ import torch
 KERNEL_CODES = {"cuda_cores": 0, "tensor_cores": 1, "sgemm": 2}
 TENSOR_CORES, SGEMM = KERNEL_CODES["tensor_cores"], KERNEL_CODES["sgemm"]
 # the ops whose C entry points have the fp32 form (code 2)
-SGEMM_OPS = frozenset({"linear_fwd", "matmul_nt"})
+SGEMM_OPS = frozenset({"linear_fwd", "linear_ksplit_fwd", "matmul_nt"})
 
 # TMA's unit: base pointers and row pitches are multiples of 16 bytes
 TMA_ALIGN_BYTES = 16
@@ -131,14 +133,17 @@ def sgemm_tile(rows: int, n: int, sms: int) -> tuple:
     return best[1]
 
 
-def tile(code: int, device: torch.device, rows: int, n: int) -> int:
+def tile(code: int, device: torch.device, rows: int, n: int,
+         outputs: int = 1) -> int:
     """The ``tile_n`` argument of a C entry point for a product of ``rows``
     rows and output width ``n``: :func:`tile_n` for the tensor-core kernel
-    (``code`` 1, tiles of :data:`TILE_M` rows), the index of
+    (``code`` 1, tiles of :data:`TILE_M` rows; ``outputs`` outputs of width
+    ``n`` side by side in one launch, as the encoder's two heads, give as
+    many tiles as that many times the tile rows), the index of
     :func:`sgemm_tile` in :data:`SGEMM_TILES` for the fp32 kernel (``code``
     2), 0 for the first version."""
     if code == TENSOR_CORES:
-        return tile_n(-(-rows // TILE_M), n, sm_count(device))
+        return tile_n(outputs * -(-rows // TILE_M), n, sm_count(device))
     if code == SGEMM:
         return SGEMM_TILES.index(sgemm_tile(rows, n, sm_count(device)))
     return 0

@@ -103,7 +103,10 @@ def test_every_bound_entry_point_is_exported_by_a_source():
         assert exported[name][-2] == "int kernel", name
         assert exported[name][-3] == "int tile_n", name
         assert _build._SIGNATURES[name][-2] is _build._I, name
-    for src in ("linear.cu", "bwd.cu", "toeplitz.cu"):
+    # the encoder: the hidden product's tile width, then the heads'
+    assert exported["rvk_encoder_fwd"][-4:-1] == [
+        "int tile_hidden", "int tile_heads", "int kernel"]
+    for src in ("linear.cu", "bwd.cu", "toeplitz.cu", "mlp.cu"):
         assert '#include "wgmma.cuh"' in (_build.CSRC / src).read_text()
     assert (_build.CSRC / "wgmma.cuh").is_file()
 
@@ -137,13 +140,17 @@ def test_every_wrapper_names_a_bound_entry_point():
     # x, w, b, y | batch, k, n, act, dtype, tile_n, kernel
     assert _build._SIGNATURES["rvk_linear_fwd"] == (
         [_build._P] * 4 + [_build._I] * 7 + [_build._P])
+    # x, w1, b1, w21, b21, w22, b22, mu, logvar, h | batch, seg, units,
+    # latent, dtype, tile_hidden, tile_heads, kernel
+    assert _build._SIGNATURES["rvk_encoder_fwd"] == (
+        [_build._P] * 10 + [_build._I] * 8 + [_build._P])
     # x, w, bias, y | B, nb, G, kb, N, t_out, shift, act, passes, dtype,
     # t_half, b_half, tile_n, kernel
     assert _build._SIGNATURES["rvk_toeplitz_fwd"] == (
         [_build._P] * 4 + [_build._I] * 14 + [_build._P])
     for w in ops.KERNEL_WRAPPERS:
         if w.__name__ in ("linear_fwd", "linear_ksplit_fwd", "matmul_nt",
-                          "toeplitz_fwd"):
+                          "toeplitz_fwd", "encoder_fwd"):
             assert w.tensor_core_launches == 0 \
                 or isinstance(w.tensor_core_launches, int)
             assert "kernel" in inspect.signature(w).parameters
@@ -163,24 +170,80 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch, header):
 
 
 def test_the_fp32_entry_points_build_on_sgemm_cuh():
-    """rvk_linear_fwd and rvk_matmul_nt launch the fp32 mainloop of
-    csrc/sgemm.cuh for kernel code 2 (the rvk::tc::Kernel enum), and its
-    tile table is the wrappers' SGEMM_TILES."""
+    """rvk_linear_fwd, rvk_linear_ksplit_fwd and rvk_matmul_nt launch the
+    fp32 mainloop of csrc/sgemm.cuh for kernel code 2 (the rvk::tc::Kernel
+    enum), the two linear entry points with the same call, and its tile
+    table is the wrappers' SGEMM_TILES."""
     import re
 
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
-    for src, call in (("linear.cu", "rvk::sgemm::launch_act<false>"),
-                      ("bwd.cu", "rvk::sgemm::launch<true, rvk::kActNone>")):
+    for src, call, times in (
+            ("linear.cu", "rvk::sgemm::launch_act<false>", 2),
+            ("bwd.cu", "rvk::sgemm::launch<true, rvk::kActNone>", 1)):
         text = (_build.CSRC / src).read_text()
         assert '#include "sgemm.cuh"' in text
-        assert "kernel == rvk::tc::kSgemm" in text and call in text, src
+        assert text.count("kernel == rvk::tc::kSgemm") == times, src
+        assert text.count(call) == times, src
+    ksplit = (_build.CSRC / "linear.cu").read_text().split(
+        "int rvk_linear_ksplit_fwd(")[1]
+    assert "kernel == rvk::tc::kSgemm" in ksplit
     assert "kSgemm = 2" in (_build.CSRC / "wgmma.cuh").read_text()
     tiles = re.search(r"kTiles\[3\]\[2\] = \{(.*?)\};",
                       (_build.CSRC / "sgemm.cuh").read_text()).group(1)
     assert tuple(tuple(int(v) for v in pair) for pair in
                  re.findall(r"\{(\d+), (\d+)\}", tiles)) == \
         tensor_cores.SGEMM_TILES
+
+
+def test_a_failed_build_is_not_run_again(monkeypatch):
+    """library() remembers a failed build for the sources' hash: a second
+    call raises the same error without building; a changed hash (an edited
+    source) builds again."""
+    calls = []
+
+    def failing_build():
+        calls.append(_build.source_digest())
+        raise RuntimeError("kernel build failed (nvcc exit 2)")
+
+    monkeypatch.setattr(_build, "build", failing_build)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_failed", {})
+    with pytest.raises(RuntimeError, match="nvcc exit 2") as first:
+        _build.library()
+    with pytest.raises(RuntimeError, match="nvcc exit 2") as second:
+        _build.library()
+    assert second.value is first.value
+    assert len(calls) == 1
+    monkeypatch.setattr(_build, "source_digest", lambda: "another")
+    with pytest.raises(RuntimeError, match="nvcc exit 2"):
+        _build.library()
+    assert calls == [calls[0], "another"]
+    with pytest.raises(RuntimeError, match="nvcc exit 2"):
+        _build.launch("rvk_encoder_fwd", None)
+    assert len(calls) == 2
+
+
+def test_a_failed_compile_runs_the_compiler_once(tmp_path, monkeypatch):
+    """With a compiler that fails: the first library() call runs one nvcc a
+    source, later calls none; an edited source compiles again."""
+    log = _fake_nvcc(tmp_path, monkeypatch, fail=True)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_failed", {})
+    n_sources = len(list(_build.CSRC.glob("*.cu")))
+    for _ in range(3):
+        with pytest.raises(RuntimeError, match="fake compile failure"):
+            _build.library()
+    assert len(log.read_text().splitlines()) == n_sources
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    (csrc / "mlp.cu").write_text((csrc / "mlp.cu").read_text() + "\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    with pytest.raises(RuntimeError, match="fake compile failure"):
+        _build.library()
+    assert len(log.read_text().splitlines()) == 2 * n_sources
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):

@@ -1508,3 +1508,216 @@ def test_deep_fp32_server_forward_takes_the_sgemm_kernel(cuda):
         outs[backend] = (mu, logvar, y)
     for got, want in zip(outs["pallas"], outs["xla"]):
         assert _rel(got, want) <= SGEMM_REL
+
+
+# ---- row 15 in fp32 on csrc/sgemm.cuh and row 1 in bf16 on csrc/wgmma.cuh.
+# fp32 linear_ksplit_fwd takes the fp32 kernel of linear_fwd (the same
+# launch): within SGEMM_REL of its plain version (the per-slice partials
+# added in slice order) and of the first version (the split-K partials),
+# equal bits with linear_fwd(kernel="sgemm") and on a second launch.  bf16
+# encoder_fwd runs h and both heads on the tensor cores: every output within
+# BF16_REL of its plain version and of the first version, equal bits on a
+# second launch; shapes: the training microbatch, the ragged 1000, batch 1,
+# latents that are no multiple of the tile width (72, 200) and a narrow
+# model (ragged rows, k and n against the tile).
+
+SGEMM_KSPLIT = [(4096, 4096, 4096), (4096, 1024, 512), (4096, 2048, 1024),
+                (4097, 1088, 544), (1000, 1096, 520), (130, 68, 260),
+                (7, 12, 20), (1, 24, 8)]
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "tanh"])
+@pytest.mark.parametrize("shape", SGEMM_KSPLIT, ids=str)
+def test_sgemm_ksplit_matches_plain_and_linear_fwd(cuda, shape, act):
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    x, w, b = _linear_operands(cuda, *shape, torch.float32)
+    want = linear.linear_ksplit_fwd_ref(x, w, b, act)
+    first, rose = _ran_sgemm(linear.linear_ksplit_fwd, x, w, b, act,
+                             kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran_sgemm(linear.linear_ksplit_fwd, x, w, b, act)   # auto
+    assert rose == (1, 1)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= SGEMM_REL
+    assert _rel(got, first) <= SGEMM_REL
+    assert torch.equal(got, linear.linear_ksplit_fwd(x, w, b, act))
+    assert torch.equal(got, linear.linear_ksplit_fwd(x, w, b, act,
+                                                     kernel="sgemm"))
+    assert torch.equal(got, linear.linear_fwd(x, w, b, act, kernel="sgemm"))
+
+
+def test_sgemm_ksplit_dispatch_on_the_card(cuda):
+    """k or n no multiple of 4 and an unaligned view keep the split-K first
+    version under ``auto`` and raise for ``kernel="sgemm"``; bf16 raises
+    too; the deep config's k-split layers in a ``highest`` step take it."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    for shape in ((1000, 70, 36), (1000, 72, 33), (512, 1026, 520)):
+        x, w, b = _linear_operands(cuda, *shape, torch.float32)
+        got, rose = _ran_sgemm(linear.linear_ksplit_fwd, x, w, b, "relu")
+        assert rose == (1, 0), shape
+        assert _rel(got, linear.linear_ksplit_fwd_ref(x, w, b, "relu")) \
+            <= SGEMM_REL
+        with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+            linear.linear_ksplit_fwd(x, w, b, "relu", kernel="sgemm")
+    x, w, b = _linear_operands(cuda, 1024, 1024, 512, torch.float32)
+    off = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x).copy_(x)
+    got, rose = _ran_sgemm(linear.linear_ksplit_fwd, off, w, b, "relu")
+    assert rose == (1, 0)
+    assert torch.equal(got, linear.linear_ksplit_fwd(x, w, b, "relu",
+                                                     kernel="cuda_cores"))
+    with pytest.raises(ValueError, match="aligned = False"):
+        linear.linear_ksplit_fwd(off, w, b, "relu", kernel="sgemm")
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        linear.linear_ksplit_fwd(x.bfloat16(), w.bfloat16(), b.bfloat16(),
+                                 "relu", kernel="sgemm")
+
+
+def test_deep_highest_step_runs_the_ksplit_layers_on_sgemm(cuda):
+    """The deep model's ``highest`` step at widths past the k-split gate:
+    every k-split launch on the fp32 kernel, against the plain backend."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves
+
+    cfg = Config()
+    cfg.vae.arch, cfg.vae.hidden_dims = "deep", "2048,1024,512"
+    cfg.audio.segment_length, cfg.vae.latent_dim = 2048, 64
+    cfg.tpu.precision = "highest"
+    x = torch.rand((1024, 2048), device=cuda) * 2 - 1
+
+    def noise(step, i, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(1))
+
+    mus = {}
+    for backend in ("pallas", "xla"):
+        cfg.tpu.backend = backend
+        model = build_model(cfg, cuda)
+        state = TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), 0)
+        counts = (linear.linear_ksplit_fwd.launches,
+                  linear.linear_ksplit_fwd.sgemm_launches)
+        state, _ = build_train_step(model, cfg, noise=noise)(state, x)
+        torch.cuda.synchronize()
+        if backend == "pallas":
+            # 2048->2048, 2048->1024, 1024->512 | 1024->2048, 2048->2048
+            assert (linear.linear_ksplit_fwd.launches - counts[0],
+                    linear.linear_ksplit_fwd.sgemm_launches - counts[1]) \
+                == (5, 5)
+        mus[backend] = torch.cat([t.ravel() for t in leaves(state.mu)])
+    err = float((mus["pallas"] - mus["xla"]).norm() / mus["xla"].norm())
+    assert err <= 1e-4
+
+
+ENCODER_TC = [(8192, 1024, 2048, 256), (1000, 1024, 2048, 256),
+              (1, 1024, 2048, 256), (1000, 1024, 2048, 72),
+              (4097, 256, 512, 200), (130, 72, 136, 8)]
+
+
+def _encoder_operands(device, batch, seg, units, latent, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    shapes = (((seg, units), seg ** -0.5), ((units,), 0.1),
+              ((units, latent), units ** -0.5), ((latent,), 0.1),
+              ((units, latent), units ** -0.5), ((latent,), 0.1),
+              ((batch, seg), 0.5))
+    return [(torch.randn(s, generator=g, device=device) * scale).bfloat16()
+            for s, scale in shapes]
+
+
+def _ran_tc(fn, *args, **kw):
+    before = (fn.launches, fn.tensor_core_launches)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, (fn.launches - before[0], fn.tensor_core_launches - before[1])
+
+
+@pytest.mark.parametrize("shape", ENCODER_TC, ids=str)
+def test_tensor_core_encoder_matches_plain_and_first_version(cuda, shape):
+    ops_ = _encoder_operands(cuda, *shape)
+    want = mlp.encoder_fwd_ref(*ops_)
+    first, rose = _ran_tc(mlp.encoder_fwd, *ops_, kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran_tc(mlp.encoder_fwd, *ops_)                       # auto
+    assert rose == (1, 1)
+    for g, w, f in zip(got, want, first):          # mu, logvar, h
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= BF16_REL
+        assert _rel(g, f) <= BF16_REL
+    for g, a in zip(got, mlp.encoder_fwd(*ops_, kernel="tensor_cores")):
+        assert torch.equal(g, a)
+
+
+def test_tensor_core_encoder_dispatch_on_the_card(cuda):
+    """fp32, a latent no multiple of 8 and an unaligned view keep the first
+    version under ``auto`` and raise for ``kernel="tensor_cores"``; a
+    zero-row batch launches nothing."""
+    ops_ = _encoder_operands(cuda, 1000, 1024, 2048, 36)
+    got, rose = _ran_tc(mlp.encoder_fwd, *ops_)
+    assert rose == (1, 0)
+    for g, w in zip(got, mlp.encoder_fwd_ref(*ops_)):
+        assert _rel(g, w) <= BF16_REL
+    with pytest.raises(ValueError, match="latent 36"):
+        mlp.encoder_fwd(*ops_, kernel="tensor_cores")
+    ops_ = _encoder_operands(cuda, 256, 1024, 2048, 256)
+    f32 = [t.float() for t in ops_]
+    _, rose = _ran_tc(mlp.encoder_fwd, *f32)
+    assert rose == (1, 0)
+    with pytest.raises(ValueError, match="takes bf16 operands"):
+        mlp.encoder_fwd(*f32, kernel="tensor_cores")
+    x = ops_[-1]
+    off = torch.empty(x.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:] \
+        .view_as(x).copy_(x)
+    got, rose = _ran_tc(mlp.encoder_fwd, *ops_[:-1], off)
+    assert rose == (1, 0)
+    for g, f in zip(got, mlp.encoder_fwd(*ops_, kernel="cuda_cores")):
+        assert torch.equal(g, f)
+    with pytest.raises(ValueError, match="aligned = False"):
+        mlp.encoder_fwd(*ops_[:-1], off, kernel="tensor_cores")
+    _, rose = _ran_tc(mlp.encoder_fwd, *ops_[:-1], x[:0])
+    assert rose == (0, 0)
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_every_heads_tile_width_matches_plain(cuda, width, monkeypatch):
+    """The tensor-core encoder with the tile width of both launches forced:
+    the heads' walk at 1, 2 and 4 tile columns a head (latent 256)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    monkeypatch.setattr(tensor_cores, "tile_n",
+                        lambda tiles_m, n, sms: width)
+    ops_ = _encoder_operands(cuda, 1000, 1024, 2048, 256, seed=3)
+    got, rose = _ran_tc(mlp.encoder_fwd, *ops_)
+    assert rose == (1, 1)
+    for g, w in zip(got, mlp.encoder_fwd_ref(*ops_)):
+        assert _rel(g, w) <= BF16_REL
+
+
+def test_bf16_dense_step_runs_the_encoder_on_the_tensor_cores(cuda):
+    """One bf16 step of the dense kernel backend at batch 3 x 1024 with
+    microbatch 1024 plus a ragged tail: every encoder_fwd launch on the
+    tensor cores."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.backend, cfg.tpu.precision = "pallas", "bfloat16"
+    cfg.tpu.microbatch_size = 1024
+    x = torch.rand((3 * 1024 + 100, cfg.audio.segment_length),
+                   device=cuda) * 2 - 1
+    model = build_model(cfg, cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    before = (mlp.encoder_fwd.launches, mlp.encoder_fwd.tensor_core_launches)
+    state, m = build_train_step(model, cfg)(state, x)
+    torch.cuda.synchronize()
+    assert (mlp.encoder_fwd.launches - before[0],
+            mlp.encoder_fwd.tensor_core_launches - before[1]) == (4, 4)
+    assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))

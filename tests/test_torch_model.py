@@ -203,7 +203,7 @@ def test_registry_backends_on_cpu(backend, resolved, encode):
 
 @pytest.mark.parametrize("precision",
                          ["bfloat16", "float32", "high", "highest"])
-def test_registry_best_picks_the_kernels_for_a_cuda_device(precision):
+def test_registry_best_resolves_to_xla_on_a_cuda_device(precision):
     """``best`` is the measured winner per family and tier, as in the JAX
     registry: on a CUDA device the plain ops won every dense cell measured
     (and the unmeasured ones, dense ``float32`` among them, take them as in
@@ -220,7 +220,7 @@ def test_registry_best_picks_the_kernels_for_a_cuda_device(precision):
 
 
 @pytest.mark.parametrize("arch", ["deep", "conv1d"])
-def test_registry_unported_variants_raise(arch):
+def test_registry_builds_every_variant_and_rejects_unknown_arch(arch):
     """No family is left unported: ``deep`` and ``conv1d`` build (their
     routing is held in tests/test_torch_variants.py), and only an arch the
     JAX package does not know either raises."""

@@ -1,8 +1,9 @@
-"""The choice between the two hand-written kernels of ``linear_fwd``,
-``linear_ksplit_fwd``, ``matmul_nt`` and ``toeplitz_fwd``
-(rawaudiovae_kelsey_tpu_torch/ops/tensor_cores.py, ops/toeplitz.py): a pure
-function of dtype, shape and alignment; the tensor-core kernel's tile width
-and the Toeplitz tile plan; what the wrappers hand the C entry points.
+"""The choice between the hand-written kernels of ``linear_fwd``,
+``linear_ksplit_fwd``, ``matmul_nt``, ``toeplitz_fwd`` and ``encoder_fwd``
+(rawaudiovae_kelsey_tpu_torch/ops/tensor_cores.py, ops/toeplitz.py,
+ops/mlp.py): a pure function of dtype, shape and alignment; the tensor-core
+kernel's tile width, the Toeplitz tile plan and the encoder heads' tile
+walk; what the wrappers hand the C entry points.
 Checked here on the CPU; the kernels themselves run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
@@ -229,7 +230,8 @@ def test_the_wrappers_pass_the_kernel_code_and_no_workspace(monkeypatch):
     assert tuple(args[4].shape) == (2, 8, 24) and args[4].dtype == F32
     assert args[-1] == 0
     linear.linear_ksplit_fwd(x.float(), w.float(), b.float(), "relu")
-    assert launched.pop()[1][-1] == 0               # fp32: the first version
+    args = launched.pop()[1]
+    assert args[4] is None and args[-1] == 2        # fp32: csrc/sgemm.cuh
     assert (linear.linear_ksplit_fwd.launches - counts[0],
             linear.linear_ksplit_fwd.tensor_core_launches - counts[1]) \
         == (3, 1)
@@ -595,11 +597,12 @@ def test_the_deep_server_takes_the_fp32_kernel(k, n):
                                        n) == SGEMM
     assert tensor_cores.resolve_kernel("linear_fwd", "sgemm", F32, 256, k,
                                        n) == SGEMM
-    # bf16 stays on the tensor cores; the k-split op has no fp32 form
+    # bf16 stays on the tensor cores; the k-split op takes the fp32 kernel
+    # too (the same launch)
     assert tensor_cores.resolve_kernel("linear_fwd", "auto", BF16, 256, k,
                                        n) == 1
     assert tensor_cores.resolve_kernel("linear_ksplit_fwd", "auto", F32, 256,
-                                       k, n) == 0
+                                       k, n) == SGEMM
 
 
 @pytest.mark.parametrize("rows,k,m", [(8192, 2048, 256), (8192, 2048, 1024)],
@@ -730,10 +733,12 @@ def test_a_named_fp32_kernel_raises_on_what_it_cannot_take(monkeypatch):
         linear.linear_fwd(x, w, b, "relu", kernel="sgemm")
     with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
         mlp.matmul_nt(x, w.t().contiguous(), kernel="sgemm")
-    # the k-split op and the Toeplitz product have no fp32 form
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        linear.linear_ksplit_fwd(x, w, b, "relu", kernel="sgemm")
+    # the Toeplitz product and the encoder have no fp32 form
     with pytest.raises(ValueError, match="no kernel 'sgemm'"):
-        linear.linear_ksplit_fwd(x.float(), w.float(), b.float(), "relu",
-                                 kernel="sgemm")
+        mlp.encoder_fwd(*_encoder_operands(8, 64, 32, 16, F32),
+                        kernel="sgemm")
     monkeypatch.setattr(toeplitz, "kernel_device", lambda x: x.device)
     with pytest.raises(ValueError, match="no kernel 'sgemm'"):
         toeplitz.toeplitz_fwd(
@@ -747,8 +752,349 @@ def test_a_named_fp32_kernel_raises_on_what_it_cannot_take(monkeypatch):
         linear.linear_fwd(xf, wf, bf, "relu", kernel="sgemm")
     with pytest.raises(ValueError, match="aligned = False"):
         mlp.matmul_nt(xf, wf.t().contiguous(), kernel="sgemm")
+    with pytest.raises(ValueError, match="aligned = False"):
+        linear.linear_ksplit_fwd(xf, wf, bf, "relu", kernel="sgemm")
     assert launched == []
     linear.linear_fwd(xf, wf, bf, "relu")
     assert launched.pop()[1][-1] == 0
     mlp.matmul_nt(xf, wf.t().contiguous())
     assert launched.pop()[1][-1] == 0
+    linear.linear_ksplit_fwd(xf, wf, bf, "relu")
+    assert launched.pop()[1][-1] == 0
+
+
+# ------------------------------------------- linear_ksplit_fwd in fp32 (row 15)
+#
+# fp32 k-split layers take the register-tiled fp32 kernel of linear_fwd
+# (csrc/sgemm.cuh, code 2) under the same rule: the two ops launch the same
+# kernel on the same operands.
+
+@pytest.mark.parametrize("k,n", KSPLIT_LAYERS)
+def test_the_deep_ksplit_layers_take_the_fp32_kernel(k, n):
+    assert tensor_cores.resolve_kernel("linear_ksplit_fwd", "auto", F32,
+                                       BATCH, k, n) == SGEMM
+    assert tensor_cores.resolve_kernel("linear_ksplit_fwd", "sgemm", F32,
+                                       BATCH, k, n) == SGEMM
+    assert tensor_cores.resolve_kernel("linear_ksplit_fwd", "cuda_cores",
+                                       F32, BATCH, k, n) == 0
+    assert tensor_cores.resolve_kernel("linear_ksplit_fwd", "auto", BF16,
+                                       BATCH, k, n) == 1
+
+
+@pytest.mark.parametrize("kernel", ["auto", "cuda_cores", "tensor_cores",
+                                    "sgemm"])
+@pytest.mark.parametrize("dtype,rows,k,n,aligned", [
+    (F32, 4096, 4096, 4096, True),
+    (F32, 4097, 1088, 544, True),
+    (F32, 1000, 70, 36, True),           # k % 4 != 0
+    (F32, 1000, 72, 33, True),           # n % 4 != 0
+    (F32, 4096, 1024, 512, False),       # an unaligned view
+    (F32, 0, 1024, 512, True),
+    (BF16, 4096, 1024, 512, True),       # bf16 named "sgemm" raises
+    (BF16, 1000, 70, 33, True),
+], ids=["4096^3", "ragged", "k%4", "n%4", "unaligned", "no-rows", "bf16",
+        "bf16-ragged"])
+def test_the_ksplit_rule_is_linear_fwds(kernel, dtype, rows, k, n, aligned):
+    """Whatever linear_fwd resolves to (or raises), linear_ksplit_fwd does
+    too, with its own name in the message."""
+    def outcome(op):
+        try:
+            return tensor_cores.resolve_kernel(op, kernel, dtype, rows, k, n,
+                                               aligned)
+        except ValueError as err:
+            return str(err).split(":", 1)[1]
+
+    assert outcome("linear_ksplit_fwd") == outcome("linear_fwd")
+
+
+def test_fp32_ksplit_passes_code_2_and_no_workspace(monkeypatch):
+    """What reaches rvk_linear_ksplit_fwd for fp32 operands the fp32 kernel
+    takes: no workspace, the tile's index in SGEMM_TILES, code 2; the
+    first version by name keeps its (slices, batch, n) workspace; the
+    counters follow."""
+    launched = _stand_in(monkeypatch)
+    counts = (linear.linear_ksplit_fwd.launches,
+              linear.linear_ksplit_fwd.sgemm_launches,
+              linear.linear_ksplit_fwd.tensor_core_launches)
+    x = torch.empty((BATCH, 4096), device="meta", dtype=F32)
+    for n, tile in ((4096, 0), (2048, 0), (512, 0)):
+        w = torch.empty((4096, n), device="meta", dtype=F32)
+        b = torch.empty((n,), device="meta", dtype=F32)
+        y = linear.linear_ksplit_fwd(x, w, b, "relu")
+        assert y.shape == (BATCH, n) and y.dtype == F32
+        name, args = launched.pop()
+        # x, w, b, y, ws | batch, k, n, slices, kslice, act, dtype, tile,
+        # kernel
+        assert name == "rvk_linear_ksplit_fwd" and args[4] is None
+        assert args[5:] == (BATCH, 4096, n, 8, 512, 1, 0, tile, SGEMM)
+    linear.linear_ksplit_fwd(x, w, b, "relu", kernel="cuda_cores")
+    args = launched.pop()[1]
+    assert tuple(args[4].shape) == (8, BATCH, 512) and args[-2:] == (0, 0)
+    assert (linear.linear_ksplit_fwd.launches - counts[0],
+            linear.linear_ksplit_fwd.sgemm_launches - counts[1],
+            linear.linear_ksplit_fwd.tensor_core_launches - counts[2]) \
+        == (4, 3, 0)
+
+
+# ------------------------------------------------------ encoder_fwd (row 1)
+#
+# bf16 encoder_fwd takes the tensor-core mainloop when both of its products
+# fit it: the hidden layer (k = seg, n = units) and the heads (k = units,
+# n = latent, two outputs side by side in one launch).
+
+def _encoder_operands(batch, seg, units, latent, dtype, device="meta"):
+    """(w1, b1, w21, b21, w22, b22, x), empty, of the given widths."""
+    shapes = ((seg, units), (units,), (units, latent), (latent,),
+              (units, latent), (latent,), (batch, seg))
+    return tuple(torch.empty(s, device=device, dtype=dtype) for s in shapes)
+
+
+DENSE = (1024, 2048, 256)      # configs/default.ini: seg, units, latent
+MICROBATCH = 8192
+
+
+def test_the_dense_config_is_the_encoders_main_path():
+    cfg = load_config(ROOT / "configs" / "default.ini")
+    assert (cfg.audio.segment_length, cfg.vae.n_units,
+            cfg.vae.latent_dim) == DENSE
+    assert cfg.tpu.microbatch_size == MICROBATCH
+    assert cfg.tpu.precision == "bfloat16" and cfg.tpu.backend == "pallas"
+
+
+@pytest.mark.parametrize("batch", [MICROBATCH, 1000, 1, 256])
+def test_the_dense_encoder_takes_the_tensor_cores_in_bf16(batch):
+    assert mlp.resolve_encoder("auto", BF16, batch, *DENSE) == 1
+    assert mlp.resolve_encoder("tensor_cores", BF16, batch, *DENSE) == 1
+    assert mlp.resolve_encoder("cuda_cores", BF16, batch, *DENSE) == 0
+    # fp32 (the server, the fp32 tiers) keeps the first version
+    assert mlp.resolve_encoder("auto", F32, batch, *DENSE) == 0
+
+
+@pytest.mark.parametrize("dtype,batch,seg,units,latent,aligned", [
+    (F32, MICROBATCH, 1024, 2048, 256, True),    # fp32: queue B.5
+    (BF16, MICROBATCH, 1024, 2048, 36, True),    # latent % 8 != 0
+    (BF16, MICROBATCH, 1024, 2044, 256, True),   # units % 8 != 0
+    (BF16, MICROBATCH, 1020, 2048, 256, True),   # seg % 8 != 0
+    (BF16, 1000, 70, 130, 18, True),             # the GPU tests' odd widths
+    (BF16, MICROBATCH, 1024, 2048, 256, False),  # an unaligned view
+    (BF16, 0, 1024, 2048, 256, True),            # no rows
+    (torch.float16, MICROBATCH, 1024, 2048, 256, True),
+], ids=["fp32", "latent%8", "units%8", "seg%8", "odd", "unaligned",
+        "no-rows", "fp16"])
+def test_what_keeps_the_encoder_on_the_cuda_cores(dtype, batch, seg, units,
+                                                  latent, aligned):
+    widths = (batch, seg, units, latent, aligned)
+    assert mlp.resolve_encoder("auto", dtype, *widths) == 0
+    assert mlp.resolve_encoder("cuda_cores", dtype, *widths) == 0
+    with pytest.raises(ValueError, match="encoder_fwd: kernel "
+                       "'tensor_cores' takes bf16 operands"):
+        mlp.resolve_encoder("tensor_cores", dtype, *widths)
+    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+        mlp.resolve_encoder("sgemm", dtype, *widths)
+
+
+def test_the_encoder_passes_the_kernel_code_and_both_tile_widths(
+        monkeypatch):
+    """What reaches rvk_encoder_fwd: the dtype, the hidden product's tile
+    width, the heads' tile width (both heads' tile columns counted), the
+    kernel code; the first version gets zeros for the widths."""
+    launched = _stand_in(monkeypatch)
+    counts = (mlp.encoder_fwd.launches, mlp.encoder_fwd.tensor_core_launches)
+    # batch → (hidden width, heads width) on 132 SMs: at 8192, 64 tile rows
+    # x 8 columns of 256 (four waves, fewest waves x width ties, the wider
+    # wins) and 64 x 2 heads' columns of 256, one wave (128 tiles); at the
+    # server's 256, 2 tile rows: 64-wide tiles in both
+    for batch, widths in ((MICROBATCH, (256, 256)), (256, (64, 64)),
+                          (1, (64, 64))):
+        ops = _encoder_operands(batch, *DENSE, BF16)
+        mu, logvar, h = mlp.encoder_fwd(*ops)
+        assert (mu.shape, logvar.shape, h.shape) == (
+            (batch, 256), (batch, 256), (batch, 2048))
+        name, args = launched.pop()
+        # x, w1, b1, w21, b21, w22, b22, mu, logvar, h | batch, seg, units,
+        # latent, dtype, tile_hidden, tile_heads, kernel
+        assert name == "rvk_encoder_fwd" and args[0] is ops[-1]
+        assert args[10:] == (batch, *DENSE, 1, *widths, 1)
+    mlp.encoder_fwd(*_encoder_operands(MICROBATCH, *DENSE, BF16),
+                    kernel="cuda_cores")
+    assert launched.pop()[1][14:] == (1, 0, 0, 0)
+    mlp.encoder_fwd(*_encoder_operands(256, *DENSE, F32))
+    assert launched.pop()[1][14:] == (0, 0, 0, 0)
+    mlp.encoder_fwd(*_encoder_operands(100, 1024, 2048, 36, BF16))
+    assert launched.pop()[1][14:] == (1, 0, 0, 0)   # latent % 8: the first
+    assert (mlp.encoder_fwd.launches - counts[0],
+            mlp.encoder_fwd.tensor_core_launches - counts[1]) == (6, 3)
+    # nothing to compute: no launch
+    mlp.encoder_fwd(*_encoder_operands(0, *DENSE, BF16))
+    assert launched == []
+
+
+def test_a_named_tensor_core_encoder_raises_on_what_it_cannot_take(
+        monkeypatch):
+    launched = _stand_in(monkeypatch)
+    with pytest.raises(ValueError, match="latent 36"):
+        mlp.encoder_fwd(*_encoder_operands(8, 1024, 2048, 36, BF16),
+                        kernel="tensor_cores")
+    with pytest.raises(ValueError, match="takes bf16 operands"):
+        mlp.encoder_fwd(*_encoder_operands(8, *DENSE, F32),
+                        kernel="tensor_cores")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        mlp.encoder_fwd(*_encoder_operands(8, *DENSE, BF16), kernel="wgmma")
+    monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
+    with pytest.raises(ValueError, match="aligned = False"):
+        mlp.encoder_fwd(*_encoder_operands(8, *DENSE, BF16),
+                        kernel="tensor_cores")
+    assert launched == []
+    mlp.encoder_fwd(*_encoder_operands(8, *DENSE, BF16))
+    assert launched.pop()[1][-1] == 0
+
+
+def test_the_encoder_checks_every_pointer_for_alignment(monkeypatch):
+    """The rule reads all seven operands' pointers, biases included (the
+    epilogue loads bias pairs)."""
+    _stand_in(monkeypatch)
+    seen = []
+    monkeypatch.setattr(tensor_cores, "pointers_aligned",
+                        lambda *t: seen.append(t) or True)
+    ops = _encoder_operands(8, *DENSE, BF16)
+    mlp.encoder_fwd(*ops)
+    assert len(seen) == 1 and len(seen[0]) == 7
+    assert {id(t) for t in seen[0]} == {id(t) for t in ops}
+
+
+def test_a_cpu_encoder_takes_the_plain_version_whatever_the_kernel():
+    g = torch.Generator().manual_seed(0)
+    ops = [torch.randn(t.shape, generator=g).to(BF16)
+           for t in _encoder_operands(5, 16, 24, 8, BF16, "cpu")]
+    before = (mlp.encoder_fwd.launches, mlp.encoder_fwd.tensor_core_launches)
+    want = mlp.encoder_fwd_ref(*ops)
+    for kernel in ("auto", "cuda_cores", "tensor_cores", "sgemm"):
+        for got, w in zip(mlp.encoder_fwd(*ops, kernel=kernel), want):
+            assert torch.equal(got, w)
+    assert before == (mlp.encoder_fwd.launches,
+                      mlp.encoder_fwd.tensor_core_launches)
+
+
+# The heads' tile walk (csrc/wgmma.cuh HeadsTiles, the mainloop's column
+# split), modelled in Python: the joined output has 2 · ceil(latent / BN)
+# tile columns; column tn belongs to head tn // per_out at n0 = (tn mod
+# per_out) · BN, stores the 64-wide boxes that start below latent (TMA clips
+# the last), and its epilogue reads the bias of the joined column; tile_origin
+# walks groups of eight tile rows.
+
+def _tile_origin(tile, tiles_m, tiles_n):
+    group = tile // (8 * tiles_n)
+    first = group * 8
+    rows = min(tiles_m - first, 8)
+    in_group = tile - group * 8 * tiles_n
+    return first + in_group % rows, in_group // rows
+
+
+def _heads_column(tn, latent, bn):
+    per_out = -(-latent // bn)
+    out = tn // per_out
+    return out, (tn - out * per_out) * bn
+
+
+def _stored_columns(tn, latent, bn):
+    """Joined columns tile column tn writes: its head's boxes of 64 that
+    start below latent, each clipped at latent."""
+    out, n0 = _heads_column(tn, latent, bn)
+    cols = []
+    for c in range(bn // 64):
+        start = n0 + 64 * c
+        if start < latent:
+            cols += [out * latent + n
+                     for n in range(start, min(start + 64, latent))]
+    return out, cols
+
+
+@settings(max_examples=300, deadline=None)
+@given(latent=st.integers(1, 160).map(lambda v: 8 * v),
+       bn=st.sampled_from(tensor_cores.TILE_WIDTHS))
+def test_every_heads_column_is_written_by_exactly_one_tile(latent, bn):
+    per_out = -(-latent // bn)
+    written = np.zeros(2 * latent, dtype=np.int64)
+    for tn in range(2 * per_out):
+        out, cols = _stored_columns(tn, latent, bn)
+        assert cols, tn                      # no tile column lies outside
+        # no tile crosses the heads: its columns and its bias all lie in one
+        assert {c // latent for c in cols} == {out}
+        assert all(c % 2 == 0 or c - 1 in cols for c in cols)
+        written[cols] += 1
+    assert (written == 1).all()
+
+
+@settings(max_examples=200, deadline=None)
+@given(tiles_m=st.integers(1, 200), latent=st.integers(1, 80).map(
+    lambda v: 8 * v), bn=st.sampled_from(tensor_cores.TILE_WIDTHS))
+def test_the_tile_walk_visits_each_heads_tile_once(tiles_m, latent, bn):
+    """tile_origin over the joined grid is a bijection onto (tile row, tile
+    column): every (row, head, column) of both heads is one tile."""
+    tiles_n = 2 * -(-latent // bn)
+    seen = {_tile_origin(t, tiles_m, tiles_n)
+            for t in range(tiles_m * tiles_n)}
+    assert seen == {(tm, tn) for tm in range(tiles_m)
+                    for tn in range(tiles_n)}
+
+
+def test_the_heads_launch_at_the_microbatch_is_one_wave():
+    """8192 rows, latent 256: 64 tile rows x 2 heads' columns of 256 = 128
+    tiles for 132 SMs; a launch a head would be 64 tiles twice."""
+    tiles_m = MICROBATCH // tensor_cores.TILE_M
+    width = tensor_cores.tile_n(2 * tiles_m, 256, 132)
+    assert width == 256
+    assert tiles_m * 2 * -(-256 // width) == 128 <= 132
+
+
+def _emulate_heads(h, w21, b21, w22, b22, bn):
+    """mu and logvar as the heads' tile walk computes them: each tile
+    column's (h · its head's W columns) in fp32 from bf16 values, plus the
+    bias of the joined column, rounded once."""
+    latent = w21.shape[1]
+    out = [torch.empty((h.shape[0], latent), dtype=h.dtype)
+           for _ in range(2)]
+    hf = h.float()
+    for tn in range(2 * -(-latent // bn)):
+        head, n0 = _heads_column(tn, latent, bn)
+        w, b = ((w21, b21), (w22, b22))[head]
+        n1 = min(n0 + bn, latent)
+        out[head][:, n0:n1] = (hf @ w[:, n0:n1].float()
+                               + b[n0:n1].float()).to(h.dtype)
+    return out
+
+
+@pytest.mark.parametrize("latent,bn", [(64, 64), (72, 64), (200, 128),
+                                       (24, 256)])
+def test_the_heads_tile_walk_computes_the_plain_heads(latent, bn):
+    """The emulated walk against the plain version and against the JAX
+    kernel in interpret mode, bf16, at a latent that is and ones that are
+    not a multiple of the tile width."""
+    import jax.numpy as jnp
+
+    from rawaudiovae_kelsey_tpu.ops import pallas_mlp as jmlp
+
+    rng = np.random.default_rng(latent)
+    seg, units, batch = 64, 128, 40
+    arrays = [rng.standard_normal((seg, units)) / seg ** 0.5,
+              rng.standard_normal(units) * 0.1,
+              rng.standard_normal((units, latent)) / units ** 0.5,
+              rng.standard_normal(latent) * 0.1,
+              rng.standard_normal((units, latent)) / units ** 0.5,
+              rng.standard_normal(latent) * 0.1,
+              rng.uniform(-1, 1, (batch, seg))]
+    ops = [torch.from_numpy(a.astype(np.float32)).to(BF16) for a in arrays]
+    mu, logvar, h = mlp.encoder_fwd_ref(*ops)
+    got = _emulate_heads(h, *ops[2:6], bn)
+    for g, w in zip(got, (mu, logvar)):
+        # the same fp32 sums, cut along n: at most one bf16 ulp apart
+        assert float((g.float() - w.float()).abs().max()) \
+            <= 2.0 ** -8 * float(w.float().abs().max())
+    jax_ops = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+               for t in ops]
+    want = jmlp.encoder_fwd(*jax_ops)
+    for g, w in zip((*got, h), want):
+        w = torch.from_numpy(np.array(w.astype(jnp.float32)))
+        assert g.shape == w.shape
+        assert float((g.float() - w).abs().max()) \
+            <= 2.0 ** -6 * float(w.abs().max())
