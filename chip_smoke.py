@@ -22,7 +22,17 @@ any failure exits non-zero with a traceback (no phase is caught):
    (``kernel="cuda_cores"``), equal bits twice, timed in turns with the
    first version, the plain version and the library sequence ``addmm`` →
    ``relu`` → ``addmm`` → ``addmm``, each one's device time and that of the
-   hidden and the heads' launch apart;
+   hidden and the heads' launch apart; the same for bf16 ``decoder_fwd``
+   (h3, then y; beside ``addmm`` → ``relu`` → ``addmm`` → ``tanh``) and bf16
+   ``dec_bwd_fused`` (dh3 with the gate in the epilogue, dz, then dW3 and db3
+   over slices of the batch; beside ``da @ w4.t()`` → ``where`` → ``@
+   w3.t()`` → ``z.t() @ dh3`` → ``dh3.float().sum(0)``) at the ragged width
+   72->520->264 too, a latent of 36 keeping the first version, with dh3's
+   launch timed beside the same product without the gate and with a simple
+   gate (a 4-byte load a pair, built from a patched copy of ``bwd.cu``) and
+   the weight gradient's plan swept; the library sequences of
+   ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2`` by device time beside
+   their first versions;
 3c. the fp32 input-gradient kernels (``matmul_nt``, ``matmul_nt_mask``,
    ``matmul_nt2_mask``) in fp32 and bf16 at batch 8192, 1000 and 1, with
    the one PyTorch call ``a @ w.t()`` timed beside ``matmul_nt``; bf16
@@ -55,9 +65,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    state through the kernels and through the plain ops, same noise, in
    bf16, in fp32 at ``high`` (the 3-pass "full" chains) and at ``highest``
    (the fp32 "primitive" kernels); training frames/s of both backends and
-   the device's busy share; the bf16 step's ``encoder_fwd`` launches, one
-   a microbatch, all on the tensor cores, and one kernel step's device time
-   by kernel;
+   the device's busy share; the bf16 step's ``encoder_fwd``,
+   ``decoder_fwd`` and ``dec_bwd_fused`` launches, one each a microbatch,
+   all on the tensor cores (none at ``high`` or ``highest``), and one
+   kernel step's device time by kernel;
 6. the device-resident path: ``configs/perf_bf16.ini`` uncut (batch 4096,
    bf16, block shuffle, ``rng = tpu_prng``, ``device_resident = always``)
    on the corpus of phase 5, with only the datapath, epochs, checkpoint
@@ -175,8 +186,9 @@ any failure exits non-zero with a traceback (no phase is caught):
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
 (phase 4); bf16 forward kernels: the training run of phase 5 (its fp32
 test-set reconstructions included); bf16 "split" backward kernels: that
-run (bf16 ``encoder_fwd``: those on the tensor cores; the run's fp32
-reconstructions take the first version); fp32 ``grad_accum``: the
+run (bf16 ``encoder_fwd``, ``decoder_fwd`` and ``dec_bwd_fused``: those
+on the tensor cores; the run's fp32 reconstructions take the first
+version); fp32 ``grad_accum``: the
 ``highest`` step of phase 5 (no path of the
 package runs ``enc_bwd_dw1``, ``grad_accum2`` or ``dec_bwd_fused`` on fp32
 operands since ``high`` takes the full chains: phase 3b still holds them
@@ -203,14 +215,17 @@ NVIDIA's H100 SXM data sheet), at the shapes that were timed: those the
 path named above gives the kernel.
 
 The rows of bf16 ``matmul_nt``, ``linear_ksplit_fwd``, ``linear_fwd``,
-``toeplitz_fwd`` and ``encoder_fwd`` describe the tensor-core kernel, those
+``toeplitz_fwd``, ``encoder_fwd``, ``decoder_fwd`` and ``dec_bwd_fused``
+describe the tensor-core kernel, those
 of fp32 ``matmul_nt``, ``linear_ksplit_fwd`` and ``linear_fwd`` the fp32
 kernel of ``csrc/sgemm.cuh`` (``ms``, and ``launches``: those that took it;
 fp32 ``linear_fwd`` at the server's 256x4096->4096, fp32
 ``linear_ksplit_fwd`` at 4096^3), and carry the first version's time on the
-same inputs as ``first_version_ms``.  bf16 ``encoder_fwd``'s
-``library_ms`` is the device time of a sequence of library calls (its
-``library`` key says which): no one PyTorch call computes it.
+same inputs as ``first_version_ms``.  The ``library_ms`` of bf16
+``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``, ``grad_accum``,
+``enc_bwd_dw1`` and ``grad_accum2`` is the device time of a sequence of
+library calls (its ``library`` key says which): no one PyTorch call
+computes any of them.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -584,25 +599,128 @@ def phase_train_kernels(gen_params):
                         nbytes(*operands(p, t), *kernel(p, t)), kind),
                 "library_ms": None}
     encoder_tensor_cores(rows["encoder_fwd[bf16]"], inputs)
+    decoder_tensor_cores(rows["decoder_fwd[bf16]"], inputs)
+    dec_bwd_tensor_cores(rows["dec_bwd_fused[bf16]"], inputs)
+    backward_libraries(rows, inputs)
     return rows
 
 
-# phase 3b, bf16 encoder_fwd on the tensor cores: no one PyTorch call
-# computes it, so its row's library_ms is the device time of this sequence
-# of calls on the same operands, summed
+# phase 3b, the bf16 dense kernels on the tensor cores: no one PyTorch call
+# computes any of them, so a row's library_ms is the device time of a
+# sequence of calls on the same operands, summed (its `library` key says
+# which); the backward rows still on their first versions get theirs too
 ENCODER_LIBRARY = ("the sequence addmm -> relu -> addmm -> addmm, device "
                    "time summed (no one PyTorch call computes encoder_fwd)")
+DECODER_LIBRARY = ("the sequence addmm -> relu -> addmm -> tanh, device "
+                   "time summed (no one PyTorch call computes decoder_fwd)")
+DEC_BWD_LIBRARY = ("the sequence da @ w4.t() -> where(h3 > 0, ., 0) -> "
+                   "@ w3.t() -> z.t() @ dh3 -> dh3.float().sum(0), device "
+                   "time summed (no one PyTorch call computes dec_bwd_fused)")
+BWD_LIBRARY = {
+    "grad_accum": "the sequence a.t() @ b -> b.float().sum(0), device time "
+                  "summed (no one PyTorch call computes grad_accum)",
+    "enc_bwd_dw1": "the sequence addmm(dmu @ w21.t(), dlv, w22.t()) -> "
+                   "where(h > 0, ., 0) -> x.t() @ dh -> dh.float().sum(0), "
+                   "device time summed (no one PyTorch call computes "
+                   "enc_bwd_dw1)",
+    "grad_accum2": "the sequence h.t() @ dmu -> dmu.float().sum(0) -> "
+                   "h.t() @ dlv -> dlv.float().sum(0), device time summed "
+                   "(no one PyTorch call computes grad_accum2)",
+}
+# the shapes held on the tensor cores besides the microbatch, the ragged
+# 1000 and batch 1: a ragged width TMA takes, as (latent, units, seg)
+TC_RAGGED_DENSE = (72, 520, 264)
+
+
+def hold_tensor_cores(name, op, plain, cases, odd=()):
+    """Phase 3b: bf16 ``op`` (``encoder_fwd``, ``decoder_fwd``,
+    ``dec_bwd_fused``) on the tensor cores against its plain version and
+    its first version (``kernel="cuda_cores"``), every output within
+    BF16_REL, equal bits on a second launch, one launch counted on the
+    tensor cores; ``cases`` are ``(what, operands)``.  The ``odd`` cases
+    (a width no multiple of 8) must keep the first version under ``auto``
+    and raise for ``kernel="tensor_cores"``.  Returns the largest absolute
+    error against the plain version."""
+    label = f"{name}[bf16]"
+    err = 0.0
+    for what, ops in cases:
+        before = (op.launches, op.tensor_core_launches)
+        got = op(*ops)
+        torch.cuda.synchronize()
+        rose = (op.launches - before[0], op.tensor_core_launches - before[1])
+        check(rose == (1, 1), f"{label} {what}: launches / tensor core "
+              f"launches rose by {rose}")
+        want = plain(*ops)
+        first = op(*ops, kernel="cuda_cores")
+        for a, w in zip(got, want):
+            check(a.shape == w.shape and a.dtype == w.dtype
+                  and bool(torch.isfinite(a).all()),
+                  f"{label} {what}: shape, dtype or non-finite")
+        e, e1 = rel_err(got, want), rel_err(got, first)
+        check(max(e, e1) <= BF16_REL, f"{label} {what}: relative error "
+              f"{e:.3e} (vs the first version {e1:.3e}) > {BF16_REL:.3e}")
+        check(all(torch.equal(a, b) for a, b in zip(got, op(*ops))),
+              f"{label} {what}: a second launch gave other bits")
+        err = max(err, max_err([a.float() for a in got],
+                               [w.float() for w in want]))
+        print(f"  {label:<24} {what}: ran tensor_cores; |kernel - plain| / "
+              f"max|plain| = {e:.3e}, vs the first version {e1:.3e}, equal "
+              f"bits twice (tolerance {BF16_REL:.3e})")
+    for what, ops in odd:
+        before = (op.launches, op.tensor_core_launches)
+        got = op(*ops)
+        torch.cuda.synchronize()
+        rose = (op.launches - before[0], op.tensor_core_launches - before[1])
+        check(rose == (1, 0), f"{label} {what}: launches / tensor core "
+              f"launches rose by {rose}, expected the first version")
+        e = rel_err(got, plain(*ops))
+        check(e <= BF16_REL, f"{label} {what}: relative error {e:.3e}")
+        try:
+            op(*ops, kernel="tensor_cores")
+        except ValueError:
+            pass
+        else:
+            check(False, f"{label} {what}: kernel='tensor_cores' did not "
+                  "raise")
+        print(f"  {label:<24} {what}: ran cuda_cores (the first version); "
+              f"|kernel - plain| / max|plain| = {e:.3e}; kernel="
+              f"'tensor_cores' raised")
+    return err
+
+
+def time_tensor_cores(name, row, fns, parts, library_text):
+    """Phase 3b: ``fns`` (library, plain, cuda_cores, tensor_cores) timed in
+    turns at the microbatch and by the profiler's device time, with the
+    device time of each of ``parts`` ({label: fn() -> ms}); ``row`` (the
+    kernel line's) takes the tensor-core kernel's numbers."""
+    ms, runs = time_in_turns(fns, 20)
+    dev = {key: device_ms(fn) for key, fn in fns.items()}
+    split = {label: part() for label, part in parts.items()}
+    print(f"  {name + '[bf16]':<24} batch {TRAIN_BATCH}: tensor_cores "
+          f"{ms['tensor_cores']:.4f} ms (device {dev['tensor_cores']:.4f} "
+          f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"), cuda_cores (first version) {ms['cuda_cores']:.4f} ms "
+          f"(device {dev['cuda_cores']:.4f}), plain {ms['plain']:.4f} ms "
+          f"(device {dev['plain']:.4f}), library sequence "
+          f"{ms['library']:.4f} ms (device {dev['library']:.4f}), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); device time / the "
+          f"sequence's {dev['tensor_cores'] / dev['library']:.3f}, / bound "
+          f"{dev['tensor_cores'] / row['bound_ms']:.3f}; runs {runs}")
+    row.update(source=TC_SOURCE, ms=ms["tensor_cores"], plain_ms=ms["plain"],
+               library_ms=dev["library"], library=library_text,
+               library_event_ms=ms["library"],
+               first_version_ms=ms["cuda_cores"],
+               device_ms=dev["tensor_cores"],
+               first_version_device_ms=dev["cuda_cores"],
+               **{f"{k.replace(' ', '_')}_device_ms": v
+                  for k, v in split.items()})
 
 
 def encoder_tensor_cores(row, inputs):
     """Phase 3b: bf16 ``encoder_fwd`` on the tensor cores (csrc/wgmma.cuh: h,
-    then both heads in one launch) against its plain version and its first
-    version (``kernel="cuda_cores"``) at the training microbatch, the ragged
-    1000, batch 1, a latent no multiple of a tile width and a narrow model,
-    equal bits on a second launch; timed in turns with the first version,
-    the plain version and the library sequence, each one's device time and
-    that of the hidden and the heads' launch apart.  ``row`` (the kernel
-    line's) takes the tensor-core kernel's numbers."""
+    then both heads in one launch) at the training microbatch, the ragged
+    1000, batch 1, a latent no multiple of a tile width and a narrow model;
+    timed with the hidden and the heads' launch apart."""
     from rawaudiovae_kelsey_tpu_torch.ops import mlp
 
     def operands(p, t):
@@ -624,35 +742,8 @@ def encoder_tensor_cores(row, inputs):
              for b in (TRAIN_BATCH, TRAIN_RAGGED, 1)]
     cases += [("batch 1000, latent 72", narrow(1000, SEG, UNITS, 72)),
               ("4097x256->512->200", narrow(4097, 256, 512, 200))]
-    err = 0.0
-    for what, ops in cases:
-        before = (mlp.encoder_fwd.launches,
-                  mlp.encoder_fwd.tensor_core_launches)
-        got = mlp.encoder_fwd(*ops)
-        torch.cuda.synchronize()
-        rose = (mlp.encoder_fwd.launches - before[0],
-                mlp.encoder_fwd.tensor_core_launches - before[1])
-        check(rose == (1, 1), f"encoder_fwd[bf16] {what}: launches / tensor "
-              f"core launches rose by {rose}")
-        want = mlp.encoder_fwd_ref(*ops)
-        first = mlp.encoder_fwd(*ops, kernel="cuda_cores")
-        for a, w in zip(got, want):
-            check(a.shape == w.shape and a.dtype == w.dtype
-                  and bool(torch.isfinite(a).all()),
-                  f"encoder_fwd[bf16] {what}: shape, dtype or non-finite")
-        e, e1 = rel_err(got, want), rel_err(got, first)
-        check(max(e, e1) <= BF16_REL, f"encoder_fwd[bf16] {what}: relative "
-              f"error {e:.3e} (vs the first version {e1:.3e}) > "
-              f"{BF16_REL:.3e}")
-        check(all(torch.equal(a, b) for a, b in
-                  zip(got, mlp.encoder_fwd(*ops))),
-              f"encoder_fwd[bf16] {what}: a second launch gave other bits")
-        err = max(err, max_err([a.float() for a in got],
-                               [w.float() for w in want]))
-        print(f"  {'encoder_fwd[bf16]':<24} {what}: ran tensor_cores; "
-              f"|kernel - plain| / max|plain| = {e:.3e} (mu, logvar, h), vs "
-              f"the first version {e1:.3e}, equal bits twice (tolerance "
-              f"{BF16_REL:.3e})")
+    err = hold_tensor_cores("encoder_fwd", mlp.encoder_fwd,
+                            mlp.encoder_fwd_ref, cases)
     ops = operands(*inputs(TRAIN_BATCH, torch.bfloat16))
     w1, b1, w21, b21, w22, b22, x = ops
 
@@ -664,29 +755,268 @@ def encoder_tensor_cores(row, inputs):
            "cuda_cores": lambda: mlp.encoder_fwd(*ops, kernel="cuda_cores"),
            "tensor_cores": lambda: mlp.encoder_fwd(*ops,
                                                    kernel="tensor_cores")}
-    ms, runs = time_in_turns(fns, 20)
-    dev = {name: device_ms(fn) for name, fn in fns.items()}
     tc = fns["tensor_cores"]
-    hidden = device_ms(tc, match="BiasActPair")
-    heads = device_ms(tc, match="HeadsBias")
-    print(f"  {'encoder_fwd[bf16]':<24} batch {TRAIN_BATCH}: tensor_cores "
-          f"{ms['tensor_cores']:.4f} ms (device {dev['tensor_cores']:.4f} "
-          f"ms: hidden {hidden:.4f} + both heads in one launch {heads:.4f}), "
-          f"cuda_cores (first version) {ms['cuda_cores']:.4f} ms (device "
-          f"{dev['cuda_cores']:.4f}), plain {ms['plain']:.4f} ms (device "
-          f"{dev['plain']:.4f}), library sequence {ms['library']:.4f} ms "
-          f"(device {dev['library']:.4f}), bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}); device time / the sequence's "
-          f"{dev['tensor_cores'] / dev['library']:.3f}, / bound "
-          f"{dev['tensor_cores'] / row['bound_ms']:.3f}; runs {runs}")
-    row.update(source=TC_SOURCE, max_abs_err=max(row["max_abs_err"], err),
-               ms=ms["tensor_cores"], plain_ms=ms["plain"],
-               library_ms=dev["library"], library=ENCODER_LIBRARY,
-               library_event_ms=ms["library"],
-               first_version_ms=ms["cuda_cores"],
-               device_ms=dev["tensor_cores"],
-               first_version_device_ms=dev["cuda_cores"],
-               hidden_device_ms=hidden, heads_device_ms=heads)
+    time_tensor_cores("encoder_fwd", row, fns, {
+        "hidden": lambda: device_ms(tc, match="BiasActPair"),
+        "heads": lambda: device_ms(tc, match="HeadsBias")}, ENCODER_LIBRARY)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+
+
+def decoder_tensor_cores(row, inputs):
+    """Phase 3b: bf16 ``decoder_fwd`` on the tensor cores (csrc/wgmma.cuh: h3,
+    then y, each the linear layer's launch) at the training microbatch, the
+    ragged 1000, batch 1 and a ragged width, a latent of 36 on the first
+    version; timed with each launch apart (the same launch as
+    ``linear_fwd``'s on the same operands)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp
+
+    def operands(p, t):
+        return [p[n][k] for n in ("fc3", "fc4") for k in ("w", "b")] \
+            + [t["z"]]
+
+    g = torch.Generator(device="cuda").manual_seed(43)
+
+    def narrow(batch, latent, units, seg):
+        shapes = (((latent, units), latent ** -0.5), ((units,), 0.1),
+                  ((units, seg), units ** -0.5), ((seg,), 0.1),
+                  ((batch, latent), 1.0))
+        return [(torch.randn(sh, generator=g, device="cuda") * sc).bfloat16()
+                for sh, sc in shapes]
+
+    cases = [(f"batch {b}", operands(*inputs(b, torch.bfloat16)))
+             for b in (TRAIN_BATCH, TRAIN_RAGGED, 1)]
+    cases.append(("batch 1000, {}->{}->{}".format(*TC_RAGGED_DENSE),
+                  narrow(1000, *TC_RAGGED_DENSE)))
+    err = hold_tensor_cores("decoder_fwd", mlp.decoder_fwd,
+                            mlp.decoder_fwd_ref, cases,
+                            [("batch 1000, latent 36",
+                              narrow(1000, 36, UNITS, SEG))])
+    ops = operands(*inputs(TRAIN_BATCH, torch.bfloat16))
+    w3, b3, w4, b4, z = ops
+
+    def library():
+        h3 = torch.relu(torch.addmm(b3, z, w3))
+        return torch.tanh(torch.addmm(b4, h3, w4)), h3
+
+    fns = {"library": library, "plain": lambda: mlp.decoder_fwd_ref(*ops),
+           "cuda_cores": lambda: mlp.decoder_fwd(*ops, kernel="cuda_cores"),
+           "tensor_cores": lambda: mlp.decoder_fwd(*ops,
+                                                   kernel="tensor_cores")}
+    _, h3 = fns["tensor_cores"]()
+    time_tensor_cores("decoder_fwd", row, fns, {
+        "h3": lambda: device_ms(lambda: linear.linear_fwd(
+            z, w3, b3, "relu", kernel="tensor_cores")),
+        "y": lambda: device_ms(lambda: linear.linear_fwd(
+            h3, w4, b4, "tanh", kernel="tensor_cores"))}, DECODER_LIBRARY)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+
+
+# the weight gradient's plans swept at the microbatch (tile width, slices)
+WGRAD_PLANS = ((256, 8), (256, 4), (128, 8), (128, 4), (128, 2), (64, 4),
+               (64, 2), (256, 1))
+
+# phase 3b: the simple form of dh3's gate, built only to be timed beside the
+# kept one (which has TMA load h3's boxes into the staging buffer under the
+# products, csrc/wgmma.cuh): h3's pair read by a 4-byte global load in the
+# epilogue's pair(), spliced into a copy of csrc/bwd.cu
+SIMPLE_GATE = r'''struct GateLoad {
+  struct Column {};
+  static constexpr int kModes = 1;
+  const rvk::bf16* gate;
+  int N;
+  __device__ __forceinline__ Column column(int) const { return Column{}; }
+  template <int>
+  __device__ __forceinline__ __nv_bfloat162 pair(Column, int m, int n,
+                                                 float v0, float v1) const {
+    const __nv_bfloat162 g =
+        *reinterpret_cast<const __nv_bfloat162*>(gate + size_t(m) * N + n);
+    return __floats2bfloat162_rn(__low2float(g) > 0.f ? v0 : 0.f,
+                                 __high2float(g) > 0.f ? v1 : 0.f);
+  }
+};
+
+'''
+KEPT_GATE = ("GatePair{}, batch, units, seg,\n      tile_dh3, s, "
+             "src<T>(h3));")
+SIMPLE_GATE_LAUNCH = "GateLoad{src<T>(h3), units}, batch, units, seg, " \
+                     "tile_dh3, s);"
+
+
+def simple_gate_ms(ops) -> float:
+    """Device ms of dh3's launch with the simple gate (SIMPLE_GATE, built
+    from a copy of csrc/bwd.cu and its headers into a temporary directory),
+    after a check that the whole call gives the kept kernel's bits."""
+    import ctypes
+    import shutil
+
+    from rawaudiovae_kelsey_tpu_torch.ops import _build, mlp, tensor_cores
+
+    da, h3, z, w4, w3 = ops
+    (batch, seg), units, latent = da.shape, h3.shape[1], z.shape[1]
+    dev = da.device
+    with tempfile.TemporaryDirectory() as tmp:
+        csrc = Path(tmp) / "csrc"
+        csrc.mkdir()
+        for name in ("bwd.cu", "gemm.cuh", "sgemm.cuh", "wgmma.cuh"):
+            shutil.copy(_build.CSRC / name, csrc / name)
+        text = (csrc / "bwd.cu").read_text()
+        check(text.count(KEPT_GATE) == 1
+              and text.count("struct GatePair {") == 1,
+              "csrc/bwd.cu no longer has the gated launch the simple gate "
+              "replaces")
+        text = text.replace("struct GatePair {",
+                            SIMPLE_GATE + "struct GatePair {")
+        (csrc / "bwd.cu").write_text(text.replace(KEPT_GATE,
+                                                  SIMPLE_GATE_LAUNCH))
+        saved = _build.CSRC, _build.BUILD_DIR
+        _build.CSRC, _build.BUILD_DIR = csrc, Path(tmp) / "lib"
+        try:
+            path = _build.build()
+        finally:
+            _build.CSRC, _build.BUILD_DIR = saved
+        fn = ctypes.CDLL(str(path)).rvk_dec_bwd_fused
+    fn.argtypes = _build._SIGNATURES["rvk_dec_bwd_fused"]
+    fn.restype = ctypes.c_int
+    code = tensor_cores.TENSOR_CORES
+    tile_dw, split = tensor_cores.wgrad(code, dev, latent, units, batch)
+    out = [torch.empty(s, device=dev, dtype=t) for s, t in (
+        ((batch, units), torch.bfloat16), ((batch, latent), torch.bfloat16),
+        ((latent, units), torch.float32), ((units,), torch.float32))]
+    work = torch.empty((split, latent * units + units), device=dev)
+    args = [t.data_ptr() for t in (*ops, *out, work)] + [
+        batch, seg, units, latent, 1, tensor_cores.tile(code, dev, batch,
+                                                        units),
+        tensor_cores.tile(code, dev, batch, latent), tile_dw, split, code]
+
+    def call():
+        rc = fn(*args, _build._raw_stream(dev.index or 0))
+        check(rc == 0, f"the simple gate's launch failed: CUDA error {rc}")
+
+    call()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in
+              zip(out[1:], mlp.dec_bwd_fused(*ops))),
+          "the simple gate gave other bits than the kept one")
+    return device_ms(call, match="GateLoad")
+
+
+def dec_bwd_tensor_cores(row, inputs):
+    """Phase 3b: bf16 ``dec_bwd_fused`` on the tensor cores (csrc/bwd.cu
+    tensor_core_dec_bwd: dh3 with the gate in the epilogue, dz, then dW3 and
+    db3 over slices of the batch) as ``decoder_tensor_cores``; timed with
+    each launch apart, beside the same dh3 product without the gate
+    (``matmul_nt``), and with the weight gradient's plan swept."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp, tensor_cores
+
+    def operands(p, t):
+        return [t["da"], t["h3"], t["z"], p["fc4"]["w"], p["fc3"]["w"]]
+
+    g = torch.Generator(device="cuda").manual_seed(47)
+
+    def narrow(batch, latent, units, seg):
+        shapes = (((batch, seg), 1e-3, False), ((batch, units), 1.0, True),
+                  ((batch, latent), 1.0, False),
+                  ((units, seg), seg ** -0.5, False),
+                  ((latent, units), units ** -0.5, False))
+        out = []
+        for sh, sc, relu in shapes:
+            t = torch.randn(sh, generator=g, device="cuda") * sc
+            out.append((t.clamp_min(0) if relu else t).bfloat16())
+        return out
+
+    cases = [(f"batch {b}", operands(*inputs(b, torch.bfloat16)))
+             for b in (TRAIN_BATCH, TRAIN_RAGGED, 1)]
+    cases.append(("batch 1000, {}->{}->{}".format(*TC_RAGGED_DENSE),
+                  narrow(1000, *TC_RAGGED_DENSE)))
+    err = hold_tensor_cores("dec_bwd_fused", mlp.dec_bwd_fused,
+                            mlp.dec_bwd_fused_ref, cases,
+                            [("batch 1000, latent 36",
+                              narrow(1000, 36, UNITS, SEG))])
+    ops = operands(*inputs(TRAIN_BATCH, torch.bfloat16))
+    da, h3, z, w4, w3 = ops
+
+    def library():
+        dh3 = torch.where(h3 > 0, da @ w4.t(), 0)
+        return dh3 @ w3.t(), z.t() @ dh3, dh3.float().sum(0)
+
+    fns = {"library": library, "plain": lambda: mlp.dec_bwd_fused_ref(*ops),
+           "cuda_cores": lambda: mlp.dec_bwd_fused(*ops, kernel="cuda_cores"),
+           "tensor_cores": lambda: mlp.dec_bwd_fused(*ops,
+                                                     kernel="tensor_cores")}
+    tc = fns["tensor_cores"]
+    time_tensor_cores("dec_bwd_fused", row, fns, {
+        "dh3 gated": lambda: device_ms(tc, match="GatePair"),
+        "dh3 ungated": lambda: device_ms(
+            lambda: mlp.matmul_nt(da, w4, kernel="tensor_cores")),
+        "dz": lambda: device_ms(tc, match="RoundPair"),
+        "dW3 db3": lambda: device_ms(tc, match="WgradOut"),
+        "sum slices": lambda: device_ms(tc, match="sum_slices")},
+        DEC_BWD_LIBRARY)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["dh3_simple_gate_device_ms"] = simple = simple_gate_ms(ops)
+    print(f"  {'dec_bwd_fused[bf16]':<24} batch {TRAIN_BATCH}: dh3 with the "
+          f"simple gate (a 4-byte global load a pair in the epilogue) "
+          f"{simple:.4f} ms of device time against "
+          f"{row['dh3_gated_device_ms']:.4f} with the gate's boxes loaded by "
+          f"TMA (kept), {row['dh3_ungated_device_ms']:.4f} with no gate; "
+          f"equal bits")
+    rule = tensor_cores.wgrad_plan
+    picked = rule(LATENT, UNITS, TRAIN_BATCH,
+                  tensor_cores.sm_count(torch.device("cuda", 0)))
+    swept = {}
+    try:
+        for plan in WGRAD_PLANS:
+            tensor_cores.wgrad_plan = lambda *args, plan=plan: plan
+            e = rel_err(tc(), mlp.dec_bwd_fused_ref(*ops))
+            check(e <= BF16_REL, f"dec_bwd_fused[bf16] plan {plan}: "
+                  f"relative error {e:.3e}")
+            swept[plan] = (device_ms(tc, match="WgradOut")
+                           + (device_ms(tc, match="sum_slices")
+                              if plan[1] > 1 else 0.0))
+    finally:
+        tensor_cores.wgrad_plan = rule
+    print(f"  {'dec_bwd_fused[bf16]':<24} batch {TRAIN_BATCH}: dW3 + db3 "
+          f"device ms by plan (tile width, slices), the slices' sum "
+          f"included: " + ", ".join(f"{w}x{s}: {v:.4f}"
+                                    for (w, s), v in swept.items())
+          + f"; the rule (tensor_cores.wgrad_plan) picks "
+            f"{picked[0]}x{picked[1]}")
+    row["wgrad_plan_device_ms"] = {f"{w}x{s}": v
+                                   for (w, s), v in swept.items()}
+
+
+def backward_libraries(rows, inputs):
+    """Phase 3b: the device time of the library sequences of the bf16
+    backward rows still on their first versions (grad_accum,
+    enc_bwd_dw1, grad_accum2) at the microbatch, beside each first
+    version's device time, into their rows' library_ms."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    p, t = inputs(TRAIN_BATCH, torch.bfloat16)
+    w21, w22 = p["fc21"]["w"], p["fc22"]["w"]
+    x, h, dmu, dlv, da, h3 = (t[k] for k in ("x", "h", "dmu", "dlv", "da",
+                                             "h3"))
+
+    def dw1():
+        dh = torch.where(h > 0, torch.addmm(dmu @ w21.t(), dlv, w22.t()), 0)
+        return x.t() @ dh, dh.float().sum(0)
+
+    cases = {
+        "grad_accum": (lambda: (h3.t() @ da, da.float().sum(0)),
+                       lambda: mlp.grad_accum(h3, da)),
+        "enc_bwd_dw1": (dw1, lambda: mlp.enc_bwd_dw1(x, h, dmu, dlv, w21,
+                                                     w22)),
+        "grad_accum2": (lambda: (h.t() @ dmu, dmu.float().sum(0),
+                                 h.t() @ dlv, dlv.float().sum(0)),
+                        lambda: mlp.grad_accum2(h, dmu, dlv)),
+    }
+    for name, (library, kernel) in cases.items():
+        row = rows[f"{name}[bf16]"]
+        lib, dev = device_ms(library), device_ms(kernel)
+        print(f"  {name + '[bf16]':<24} batch {TRAIN_BATCH}: library "
+              f"sequence {lib:.4f} ms of device time, the first version "
+              f"{dev:.4f} ({dev / lib:.1f}x), bound {row['bound_ms']:.4f} ms")
+        row.update(library_ms=lib, library=BWD_LIBRARY[name], device_ms=dev)
 
 
 def phase_new_kernels(gen_params):
@@ -1478,6 +1808,9 @@ def write_corpus(root: Path, frames: int, hop: int, seg: int) -> None:
 def phase_train(data: Path):
     """Phase 5: the training path of configs/default.ini."""
     from rawaudiovae_kelsey_tpu_torch import ops
+
+    # the bf16 dense kernels on the tensor cores
+    dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.dec_bwd_fused)
     from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
     from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
     from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
@@ -1514,14 +1847,16 @@ def phase_train(data: Path):
 
     for w in ops.KERNEL_WRAPPERS:
         w.launches = 0
-    on_tc = ops.encoder_fwd.tensor_core_launches
+    for w in dense_tc:
+        w.tensor_core_launches = 0
     t0 = time.perf_counter()
     train_cli(["--config", str(ini)])
     train_s = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
-    # the bf16 encoder's launches on the tensor cores (the run's fp32
+    # the bf16 dense kernels' launches on the tensor cores (the run's fp32
     # test-set reconstructions take the first version)
-    launches["encoder_fwd@tc"] = ops.encoder_fwd.tensor_core_launches - on_tc
+    launches.update((f"{w.__name__}@tc", w.tensor_core_launches)
+                    for w in dense_tc)
     print(f"  train command: {epochs} epochs in {train_s:.1f} s (ingest, "
           f"checkpoints and reconstructions included)")
     print(f"  kernel launches in the training run: {launches}")
@@ -1596,13 +1931,15 @@ def phase_train(data: Path):
             if backend == "pallas":
                 for w in ops.KERNEL_WRAPPERS:
                     w.launches = 0
-                on_tc = ops.encoder_fwd.tensor_core_launches
+                for w in dense_tc:
+                    w.tensor_core_launches = 0
             state, m = build_train_step(model, cfg, noise=noise)(state, x)
             if backend == "pallas":
                 step_counts[precision] = {w.__name__: w.launches
                                           for w in ops.KERNEL_WRAPPERS}
-                step_counts[precision]["encoder_fwd@tc"] = \
-                    ops.encoder_fwd.tensor_core_launches - on_tc
+                step_counts[precision].update(
+                    (f"{w.__name__}@tc", w.tensor_core_launches)
+                    for w in dense_tc)
             delta = torch.cat([(state.params[n][k] - before[n][k]).ravel()
                                for n in sorted(before)
                                for k in sorted(before[n])])
@@ -1628,17 +1965,19 @@ def phase_train(data: Path):
     for w in ops.PRIMITIVE_KERNELS:
         check(step_counts["highest"][w.__name__] > 0,
               f"{w.__name__} was never launched by the `highest` step")
-    # the bf16 step's encoder: one launch a microbatch, every one on the
-    # tensor cores; the fp32 tiers keep the first version
+    # the bf16 step's encoder, decoder and decoder backward: one launch each
+    # a microbatch, every one on the tensor cores; the fp32 tiers keep the
+    # first version (and take other backward kernels)
     micro = -(-batch // cfg.tpu.microbatch_size)
-    enc = {p: (c["encoder_fwd"], c["encoder_fwd@tc"])
-           for p, c in step_counts.items()}
-    print(f"  encoder_fwd launches a step (all, on the tensor cores): {enc}")
-    check(enc["bfloat16"] == (micro, micro), f"bf16 step: {enc['bfloat16']} "
-          f"encoder_fwd launches (all, tensor cores), expected {micro} of "
-          f"{micro} on the tensor cores")
-    check(enc["high"][1] == enc["highest"][1] == 0,
-          "an fp32 step ran encoder_fwd on the tensor cores")
+    for w in dense_tc:
+        name = w.__name__
+        seen = {p: (c[name], c[f"{name}@tc"]) for p, c in step_counts.items()}
+        print(f"  {name} launches a step (all, on the tensor cores): {seen}")
+        check(seen["bfloat16"] == (micro, micro), f"bf16 step: "
+              f"{seen['bfloat16']} {name} launches (all, tensor cores), "
+              f"expected {micro} of {micro} on the tensor cores")
+        check(seen["high"][1] == seen["highest"][1] == 0,
+              f"an fp32 step ran {name} on the tensor cores")
 
     # training rate of both backends on one device-resident batch, and the
     # device's busy share over kernel steps
@@ -1670,13 +2009,19 @@ def phase_train(data: Path):
     step, state = steps["pallas"]
     print(f"  device busy share over 2 kernel steps: "
           f"{busy_share(lambda: [step(state, x) for _ in range(2)])}")
-    focus = {"encoder_fwd hidden (tensor cores)": "BiasActPair",
-             "encoder_fwd heads (tensor cores)": "HeadsBias"}
+    focus = {"encoder_fwd hidden + decoder_fwd h3 and y (tensor cores)":
+             "BiasActPair",
+             "encoder_fwd heads (tensor cores)": "HeadsBias",
+             "dec_bwd_fused dh3 (tensor cores)": "GatePair",
+             "dec_bwd_fused dz (tensor cores)": "RoundPair",
+             "dec_bwd_fused dW3 db3 (tensor cores)": "WgradOut",
+             "dec_bwd_fused slices' sum": "sum_slices",
+             "first-version GEMMs (gemm.cuh)": "::gemm_kernel"}
     by_kernel = device_time_by_kernel(lambda: step(state, x), top=8,
                                       focus=focus)
-    print(f"  one kernel step by kernel (with the first-version encoder the "
-          f"step ran at 441,960 frames/s, PERF.md section 5; no gain "
-          f"claimed): {by_kernel}")
+    print(f"  one kernel step by kernel (with the first-version decoder and "
+          f"decoder backward the step ran at 581,162 frames/s, PERF.md "
+          f"section 5; no gain claimed): {by_kernel}")
     return launches, step_counts["highest"]
 
 
@@ -3702,8 +4047,10 @@ def main() -> int:
     for key, row in train_rows.items():
         name, kind = key[:-1].split("[")
         counts = step_launches if kind == "fp32" else train_launches
-        # the bf16 encoder's row describes the tensor-core kernel
-        row["launches"] = counts[f"{name}@tc" if key == "encoder_fwd[bf16]"
+        # the bf16 rows of the encoder, the decoder and the decoder's
+        # backward describe the tensor-core kernel
+        on_tc = f"{name}@tc"
+        row["launches"] = counts[on_tc if kind == "bf16" and on_tc in counts
                                  else name]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(train_rows)

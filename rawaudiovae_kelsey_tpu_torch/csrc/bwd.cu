@@ -67,13 +67,16 @@
 // What bounds them: a microbatch of 8192 at full width is ~150 GFLOP of
 // backward products against ~100 MB of operands — far above the fp32 ridge
 // (~20 FLOP/byte), so fp32 FMA throughput on the CUDA cores is the limit.
-// Tensor cores are the later step for all but the entry point rvk_matmul_nt,
-// whose bf16 form runs on wgmma.cuh (both operands K-major: a block owns a
-// 128-row tile of the output, streams its rows of a once through a TMA ring
-// and rounds once from the fp32 accumulators) and whose fp32 form runs on
-// the register-tiled mainloop of sgemm.cuh (both operands K-major, staged by
-// cp.async and stored k-major in shared memory).  The template matmul_nt<T>
-// below, which the fused kernels and the gated forms launch, stays on
+// Tensor cores are the later step for all but the entry points
+// rvk_matmul_nt, whose bf16 form runs on wgmma.cuh (both operands K-major: a
+// block owns a 128-row tile of the output, streams its rows of a once
+// through a TMA ring and rounds once from the fp32 accumulators) and whose
+// fp32 form runs on the register-tiled mainloop of sgemm.cuh (both operands
+// K-major, staged by cp.async and stored k-major in shared memory), and
+// rvk_dec_bwd_fused, whose bf16 form runs all three of its products on
+// wgmma.cuh (tensor_core_dec_bwd below: the gate in dh3's epilogue, the
+// weight gradient over slices of the batch).  The template matmul_nt<T>
+// below, which the other fused kernels and the gated forms launch, stays on
 // gemm.cuh.
 
 #include "gemm.cuh"
@@ -213,7 +216,7 @@ template <typename T>
 constexpr int kFullPasses = std::is_same<T, float>::value ? 3 : 1;
 
 // The tensor-core form's epilogue: two adjacent columns of a row, rounded
-// once.  A gate would compare here, before the rounding.
+// once.
 struct RoundPair {
   struct Column {};
   static constexpr int kModes = 1;
@@ -224,6 +227,58 @@ struct RoundPair {
     return __floats2bfloat162_rn(v0, v1);
   }
 };
+
+// dh3's epilogue on the tensor cores: where(gate > 0, sum, 0), the gate
+// (h3's pair at the same place, which the mainloop has TMA load into the
+// staging buffer) compared in fp32 and the pair rounded once
+// (pallas_mlp.py:670-672, 686).
+struct GatePair {
+  struct Column {};
+  static constexpr int kModes = 1;
+  static constexpr bool kGate = true;
+  __device__ __forceinline__ Column column(int) const { return Column{}; }
+  template <int>
+  __device__ __forceinline__ __nv_bfloat162 gated(uint32_t gate, float v0,
+                                                  float v1) const {
+    const __nv_bfloat162 g = *reinterpret_cast<const __nv_bfloat162*>(&gate);
+    return __floats2bfloat162_rn(__low2float(g) > 0.f ? v0 : 0.f,
+                                 __high2float(g) > 0.f ? v1 : 0.f);
+  }
+};
+
+// The tensor-core form of dec_bwd_fused, bf16 only, three launches in
+// stream order (each reads what the one before wrote):
+// * dh3 = (da @ w4ᵀ)·(h3 > 0), both operands K-major (row 4's launch) with
+//   the gate in the epilogue, rounded to bf16 into the scratch dh3, in tiles
+//   128 x tile_dh3;
+// * dz = dh3 @ w3ᵀ, row 4's launch as it is, tiles 128 x tile_dz;
+// * dw3 = zᵀ dh3 and db3 = colsum(dh3) from the rounded dh3
+//   (rvk::tc::launch_wgrad: z read M-major, dh3 N-major, the batch cut into
+//   `split` slices added in order through `workspace`), tiles 128 x tile_dw.
+// db3 is summed by the dw3 launch from the dh3 stages it has in shared
+// memory (the tiles of dW3's first tile row, in k order): it costs no read
+// of dh3's 32 MB beyond the one the product makes, and the ragged batch's
+// rows are TMA's zeros there.  A separate column reduction in batch order
+// would read dh3 again.
+int tensor_core_dec_bwd(const void* da, const void* h3, const void* z,
+                        const void* w4, const void* w3, void* dh3, void* dz,
+                        float* dw3, float* db3, float* workspace, int batch,
+                        int seg, int units, int latent, int dtype,
+                        int tile_dh3, int tile_dz, int tile_dw, int split,
+                        cudaStream_t s) {
+  if (dtype != rvk::kBF16 || batch <= 0) return cudaErrorInvalidValue;
+  using T = rvk::bf16;
+  cudaError_t err = rvk::tc::launch_wgmma<false>(
+      src<T>(da), src<T>(w4), dst<T>(dh3), GatePair{}, batch, units, seg,
+      tile_dh3, s, src<T>(h3));
+  if (err != cudaSuccess) return err;
+  err = rvk::tc::launch_wgmma<false>(src<T>(dh3), src<T>(w3), dst<T>(dz),
+                                     RoundPair{}, batch, latent, units,
+                                     tile_dz, s);
+  if (err != cudaSuccess) return err;
+  return rvk::tc::launch_wgrad(src<T>(z), src<T>(dh3), dw3, db3, workspace,
+                               latent, units, batch, tile_dw, split, s);
+}
 
 }  // namespace
 
@@ -327,12 +382,27 @@ int rvk_enc_bwd_dw1(const void* x, const void* h, const void* dmu,
 
 // da (batch, seg), h3 (batch, units), z (batch, latent), w4 (units, seg),
 // w3 (latent, units), scratch dh3 (batch, units), dz (batch, latent), all
-// of one dtype; dw3 (latent, units) and db3 (units,) fp32.
+// of one dtype; dw3 (latent, units) and db3 (units,) fp32.  kernel (an
+// rvk::tc::Kernel): 0, the three launches of the tiled GEMM on the CUDA
+// cores (the tile widths, split and workspace ignored); 1, the tensor-core
+// form (tensor_core_dec_bwd), bf16 only, seg, units and latent multiples of
+// 8, 16-byte aligned pointers, batch > 0: dh3 in tiles 128 x tile_dh3, dz in
+// 128 x tile_dz, dw3 and db3 in 128 x tile_dw over `split` slices of the
+// batch, through `workspace` (split · (latent · units + units) floats) when
+// split > 1 (ops/tensor_cores.py tile_n and wgrad_plan).
 int rvk_dec_bwd_fused(const void* da, const void* h3, const void* z,
                       const void* w4, const void* w3, void* dh3, void* dz,
-                      float* dw3, float* db3, int batch, int seg, int units,
-                      int latent, int dtype, void* stream) {
+                      float* dw3, float* db3, float* workspace, int batch,
+                      int seg, int units, int latent, int dtype,
+                      int tile_dh3, int tile_dz, int tile_dw, int split,
+                      int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
+    return tensor_core_dec_bwd(da, h3, z, w4, w3, dh3, dz, dw3, db3,
+                               workspace, batch, seg, units, latent, dtype,
+                               tile_dh3, tile_dz, tile_dw, split, s);
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return dec_bwd_fused(src<T>(da), src<T>(h3), src<T>(z), src<T>(w4),

@@ -19,9 +19,12 @@
 //   its own output, the bias of its head in the epilogue).  At the training
 //   microbatch (8192, latent 256) that is 128 tiles of 128 x 256 in one
 //   wave of the 132 SMs, where a launch a head would run 64 tiles twice;
-// * everything else (fp32; the decoder; odd widths, unaligned views) runs
-//   the first version: two launches of the tiled GEMM of gemm.cuh on the
-//   CUDA cores, the encoder's second computing both heads (Gemm::out[0..1]).
+// * the decoder's bf16 form, under the same conditions, takes it too: h3 =
+//   relu(z @ w3 + b3), then y = tanh(h3 @ w4 + b4), each one launch of the
+//   linear layer's form;
+// * everything else (fp32; odd widths, unaligned views) runs the first
+//   version: two launches of the tiled GEMM of gemm.cuh on the CUDA cores,
+//   the encoder's second computing both heads (Gemm::out[0..1]).
 //
 // Types, as the TPU kernels do them: fp32 accumulation; the bias added and
 // the activation applied in fp32; every output (h, mu, logvar, h3, y) in the
@@ -130,6 +133,34 @@ int tensor_core_encoder(const void* x, const void* w1, const void* b1,
       units, tile_heads, s);
 }
 
+// The tensor-core form of the decoder: bf16 only, the biases 4-byte
+// aligned; h3 = relu(z @ w3 + b3) in tiles 128 x tile_hidden, then y =
+// tanh(h3 @ w4 + b4) from the rounded h3 in tiles 128 x tile_out, both the
+// linear layer's launch (w3 and w4 are (in, out): N-major B).  At the
+// training microbatch the first product has K = latent = 256, four k-steps a
+// tile: the ring runs on across tiles, so the loads of the next tile overlap
+// this one's epilogue.
+int tensor_core_decoder(const void* z, const void* w3, const void* b3,
+                        const void* w4, const void* b4, void* y, void* h3,
+                        int batch, int latent, int units, int seg, int dtype,
+                        int tile_hidden, int tile_out, cudaStream_t s) {
+  if (dtype != rvk::kBF16 ||
+      (reinterpret_cast<uintptr_t>(b3) | reinterpret_cast<uintptr_t>(b4)) %
+              4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  using T = rvk::bf16;
+  const cudaError_t err = rvk::tc::launch_wgmma<true>(
+      src<T>(z), src<T>(w3), dst<T>(h3),
+      rvk::tc::BiasActPair{src<T>(b3), rvk::kActRelu}, batch, units, latent,
+      tile_hidden, s);
+  if (err != cudaSuccess) return err;
+  return rvk::tc::launch_wgmma<true>(
+      dst<T>(h3), src<T>(w4), dst<T>(y),
+      rvk::tc::BiasActPair{src<T>(b4), rvk::kActTanh}, batch, seg, units,
+      tile_out, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -168,12 +199,22 @@ int rvk_encoder_fwd(const void* x, const void* w1, const void* b1,
 }
 
 // z (batch, latent); w3 (latent, units); w4 (units, seg); outputs y
-// (batch, seg) and h3 (batch, units).  All of one dtype.
+// (batch, seg) and h3 (batch, units).  All of one dtype.  kernel: 0, the
+// two launches of the tiled GEMM on the CUDA cores (tile widths ignored);
+// 1, the tensor-core form, bf16 only, latent, units and seg multiples of 8,
+// 16-byte aligned pointers: h3 in tiles 128 x tile_hidden, y in tiles 128 x
+// tile_out (ops/tensor_cores.py tile_n).
 int rvk_decoder_fwd(const void* z, const void* w3, const void* b3,
                     const void* w4, const void* b4, void* y, void* h3,
                     int batch, int latent, int units, int seg, int dtype,
+                    int tile_hidden, int tile_out, int kernel,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
+    return tensor_core_decoder(z, w3, b3, w4, b4, y, h3, batch, latent,
+                               units, seg, dtype, tile_hidden, tile_out, s);
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return decoder_fwd(src<T>(z), src<T>(w3), src<T>(b3), src<T>(w4),

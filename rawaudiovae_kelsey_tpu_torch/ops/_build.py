@@ -37,12 +37,12 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
     "rvk_encoder_fwd": [_P] * 10 + [_I] * 8 + [_P],
-    "rvk_decoder_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    "rvk_decoder_fwd": [_P] * 7 + [_I] * 8 + [_P],
     "rvk_quantized_decoder_fwd": [_P] * 9 + [_I] * 4 + [_P],
     "rvk_grad_accum": [_P] * 4 + [_I] * 4 + [_P],
     "rvk_grad_accum2": [_P] * 7 + [_I] * 4 + [_P],
     "rvk_enc_bwd_dw1": [_P] * 9 + [_I] * 5 + [_P],
-    "rvk_dec_bwd_fused": [_P] * 9 + [_I] * 5 + [_P],
+    "rvk_dec_bwd_fused": [_P] * 10 + [_I] * 10 + [_P],
     "rvk_enc_bwd_full": [_P] * 13 + [_I] * 5 + [_P],
     "rvk_dec_bwd_full": [_P] * 11 + [_I] * 5 + [_P],
     "rvk_loss_sums": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P],

@@ -280,11 +280,22 @@ def resolve_encoder(kernel: str, dtype: torch.dtype, batch: int, seg: int,
                 f"{latent}, aligned = {aligned}")
 
 
-def decoder_fwd(w3, b3, w4, b4, z) -> Tuple[Tensor, Tensor]:
+def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
+                ) -> Tuple[Tensor, Tensor]:
     """Fused ``tanh(relu(z@W3+b3)@W4+b4)`` → ``(y, h3)``.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``decoder_fwd``.
-    CUDA: two launches of the tiled GEMM (``csrc/mlp.cu``), h3 then y."""
+    CUDA, two launches (``csrc/mlp.cu``), h3 then y, of one of two
+    hand-written kernels chosen by :func:`resolve_decoder`: bf16 operands
+    with latent, units and seg multiples of 8 and 16-byte aligned pointers
+    take the tensor-core kernel (``csrc/wgmma.cuh``), everything else the
+    tiled GEMM on the CUDA cores.  ``kernel`` (``"auto"``, ``"cuda_cores"``
+    or ``"tensor_cores"``) names one instead; the tensor-core kernel named
+    on operands it cannot take raises.  Either way h3 and y are each
+    rounded once to the operand dtype from fp32 sums, and y reads the
+    rounded h3.  One call counts once in ``launches``, and in
+    ``tensor_core_launches`` too when the tensor cores ran it."""
+    tensor_cores.check_name("decoder_fwd", kernel)
     if z.device.type == "cpu":
         return decoder_fwd_ref(w3, b3, w4, b4, z)
     dev = cuda_device(z, "decoder_fwd: z")
@@ -296,16 +307,37 @@ def decoder_fwd(w3, b3, w4, b4, z) -> Tuple[Tensor, Tensor]:
     require(b3, "b3", (units,), dev, dt)
     require(w4, "w4", (units, seg), dev, dt)
     require(b4, "b4", (seg,), dev, dt)
+    code = resolve_decoder(kernel, dt, batch, latent, units, seg,
+                           tensor_cores.pointers_aligned(z, w3, b3, w4, b4))
     y = torch.empty((batch, seg), device=dev, dtype=dt)
     h3 = torch.empty((batch, units), device=dev, dtype=dt)
     if batch:
         _build.launch("rvk_decoder_fwd", dev, z, w3, b3, w4, b4, y, h3,
-                      batch, latent, units, seg, DTYPE_CODES[dt])
+                      batch, latent, units, seg, DTYPE_CODES[dt],
+                      tensor_cores.tile(code, dev, batch, units),
+                      tensor_cores.tile(code, dev, batch, seg), code)
         decoder_fwd.launches += 1
+        decoder_fwd.tensor_core_launches += code == tensor_cores.TENSOR_CORES
     return y, h3
 
 
 decoder_fwd.launches = 0
+decoder_fwd.tensor_core_launches = 0
+
+
+def resolve_decoder(kernel: str, dtype: torch.dtype, batch: int, latent: int,
+                    units: int, seg: int, aligned: bool = True) -> int:
+    """The kernel code :func:`decoder_fwd` launches with: the tensor cores
+    when both of its products fit them (``tensor_cores.takes_tensor_cores``
+    of the hidden layer, contraction ``latent`` and width ``units``, and of
+    the output layer, ``units`` and ``seg``), else the first version;
+    ``kernel`` names one instead (``tensor_cores.resolve``)."""
+    return tensor_cores.resolve(
+        "decoder_fwd", kernel,
+        tensor_cores.takes_tensor_cores(dtype, batch, latent, units, aligned)
+        and tensor_cores.takes_tensor_cores(dtype, batch, units, seg),
+        lambda: f"{dtype}, batch {batch}, latent {latent}, units {units}, "
+                f"seg {seg}, aligned = {aligned}")
 
 
 # ---------------------------------------------------------- backward kernels
@@ -501,14 +533,26 @@ def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, Tensor]:
 enc_bwd_dw1.launches = 0
 
 
-def dec_bwd_fused(da, h3, z, w4, w3) -> Tuple[Tensor, Tensor, Tensor]:
+def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
     """Decoder backward minus the dW4 product: ``dh3 = (da@w4ᵀ)·(h3>0)``
     rounded to the operand dtype feeds ``dz = dh3@w3ᵀ`` (operand dtype)
     and ``(zᵀ dh3, colsum(dh3))`` (fp32).
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py``
-    ``dec_bwd_fused``.  CUDA: three launches (``csrc/bwd.cu``); ``dh3``
-    goes through a scratch buffer instead of staying in VMEM."""
+    ``dec_bwd_fused``.  CUDA: three launches (``csrc/bwd.cu``) of one of two
+    hand-written kernels chosen by :func:`resolve_dec_bwd`: bf16 operands
+    with seg, units and latent multiples of 8, 16-byte aligned pointers and
+    at least one row take the tensor-core kernel (``csrc/wgmma.cuh``: dh3
+    with the gate in its epilogue, dz, then dW3 and db3 over the batch cut
+    into ``tensor_cores.wgrad_plan`` 's slices, added in order through a
+    workspace allocated here), everything else the tiled GEMM on the CUDA
+    cores.  ``kernel`` names one instead, as for :func:`decoder_fwd`.
+    ``dh3`` goes through a scratch buffer instead of staying in VMEM.  Both
+    kernels give equal bits on a second launch.  One call counts once in
+    ``launches``, and in ``tensor_core_launches`` too when the tensor cores
+    ran it."""
+    tensor_cores.check_name("dec_bwd_fused", kernel)
     if da.device.type == "cpu":
         return dec_bwd_fused_ref(da, h3, z, w4, w3)
     dev = cuda_device(da, "dec_bwd_fused: da")
@@ -520,16 +564,42 @@ def dec_bwd_fused(da, h3, z, w4, w3) -> Tuple[Tensor, Tensor, Tensor]:
     require(z, "z", (batch, latent), dev, dt)
     require(w4, "w4", (units, seg), dev, dt)
     require(w3, "w3", (latent, units), dev, dt)
+    code = resolve_dec_bwd(kernel, dt, batch, seg, units, latent,
+                           tensor_cores.pointers_aligned(da, h3, z, w4, w3))
     dh3 = torch.empty((batch, units), device=dev, dtype=dt)
     dz = torch.empty((batch, latent), device=dev, dtype=dt)
     dw3, db3 = _grads(dev, (latent, units), (units,))
+    tile_dw, split = tensor_cores.wgrad(code, dev, latent, units, batch)
+    workspace = (torch.empty((split, latent * units + units), device=dev,
+                             dtype=torch.float32) if split > 1 else None)
     _build.launch("rvk_dec_bwd_fused", dev, da, h3, z, w4, w3, dh3, dz, dw3,
-                  db3, batch, seg, units, latent, DTYPE_CODES[dt])
+                  db3, workspace, batch, seg, units, latent, DTYPE_CODES[dt],
+                  tensor_cores.tile(code, dev, batch, units),
+                  tensor_cores.tile(code, dev, batch, latent), tile_dw,
+                  split, code)
     dec_bwd_fused.launches += 1
+    dec_bwd_fused.tensor_core_launches += code == tensor_cores.TENSOR_CORES
     return dz, dw3, db3
 
 
 dec_bwd_fused.launches = 0
+dec_bwd_fused.tensor_core_launches = 0
+
+
+def resolve_dec_bwd(kernel: str, dtype: torch.dtype, batch: int, seg: int,
+                    units: int, latent: int, aligned: bool = True) -> int:
+    """The kernel code :func:`dec_bwd_fused` launches with: the tensor
+    cores when its products fit them (``tensor_cores.takes_tensor_cores`` of
+    dh3, contraction ``seg`` and width ``units``, and of dz, ``units`` and
+    ``latent``; the weight gradient contracts the batch, of any length,
+    with the rows of ``z`` and dh3 as 16-byte TMA rows), else the first
+    version; ``kernel`` names one instead (``tensor_cores.resolve``)."""
+    return tensor_cores.resolve(
+        "dec_bwd_fused", kernel,
+        tensor_cores.takes_tensor_cores(dtype, batch, seg, units, aligned)
+        and tensor_cores.takes_tensor_cores(dtype, batch, units, latent),
+        lambda: f"{dtype}, batch {batch}, seg {seg}, units {units}, latent "
+                f"{latent}, aligned = {aligned}")
 
 
 def full_passes(dtype: torch.dtype) -> int:

@@ -2,13 +2,17 @@
 cores, the bf16 tensor-core form (``csrc/wgmma.cuh``) or the fp32
 register-tiled form (``csrc/sgemm.cuh``); and the tile of the latter two.
 
-Five ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
+Seven ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
 linear.linear_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
 linear_ksplit_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.matmul_nt`,
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.toeplitz.toeplitz_fwd` (whose
-contraction is ``G`` a tap and output width ``N``) and
-:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.encoder_fwd` (two products, the
-hidden layer and the two heads, each of which must fit); three of them,
+contraction is ``G`` a tap and output width ``N``),
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.encoder_fwd`,
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.decoder_fwd` (two products
+each, every one of which must fit) and
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.dec_bwd_fused` (dh3 and dz must
+fit; its weight gradient contracts the batch, split into slices by
+:func:`wgrad_plan`); three of them,
 ``linear_fwd``, ``linear_ksplit_fwd`` and ``matmul_nt`` (:data:`SGEMM_OPS`),
 also an fp32 form.  The choice is a function of dtype, shape and pointer
 alignment alone (:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in
@@ -70,6 +74,13 @@ TILE_WIDTHS = (256, 128, 64)
 SGEMM_TILES = ((128, 128), (128, 64), (64, 64))
 # its unit: k and n multiples of 4 floats (16-byte rows and chunks)
 SGEMM_ALIGN_F32 = TMA_ALIGN_BYTES // 4
+# the fewest k-steps of 64 batch rows a slice of a weight gradient takes
+# (wgrad_plan).  Shorter slices cost more than their extra blocks gain: each
+# fills its ring from nothing and writes, and the reduction reads back, a
+# whole fp32 dW.  On an H100, dW3 at microbatch 8192 ran faster as 4 slices
+# of 32 k-steps in 128 x 128 tiles than as 8 of 16 in 128 x 256, the same
+# single wave (chip_smoke.py phase 3b sweeps the plans; PERF.md section 6).
+WGRAD_MIN_STEPS = 32
 
 _sm_counts = {}
 
@@ -131,6 +142,41 @@ def sgemm_tile(rows: int, n: int, sms: int) -> tuple:
         if best is None or cost < best[0]:
             best = (cost, (bm, bn))
     return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def wgrad_plan(m: int, n: int, k: int, sms: int) -> tuple:
+    """``(tile width, slices)`` of the tensor-core weight gradient ``dW (m,
+    n) = aᵀ b`` over a contraction of ``k`` rows (the batch) on a card of
+    ``sms`` SMs (``csrc/wgmma.cuh`` ``launch_wgrad``).  Its grid is small
+    (dW3 at 256 x 2048 is 16 tiles of 128 x 256), so the batch is cut into
+    slices, each a whole dW's tiles, added in order afterwards: for each
+    width of :data:`TILE_WIDTHS`, as many slices as fill one wave, at least
+    :data:`WGRAD_MIN_STEPS` k-steps of 64 rows each, and the fewest that
+    keep that many k-steps a slice (no slice is empty).  The width whose
+    grid takes the fewest waves times width times k-steps a slice wins, the
+    wider on a tie (it reads the operands fewer times, each slice reading
+    all of A and B's rows once)."""
+    steps = -(-k // 64)
+    best = None
+    for width in TILE_WIDTHS:
+        tiles = -(-m // TILE_M) * -(-n // width)
+        split = max(1, min(sms // tiles, steps // WGRAD_MIN_STEPS))
+        per = -(-steps // split)
+        split = -(-steps // per)
+        cost = -(-tiles * split // sms) * width * per
+        if best is None or cost < best[0]:
+            best = (cost, width, split)
+    return best[1], best[2]
+
+
+def wgrad(code: int, device: torch.device, m: int, n: int, k: int) -> tuple:
+    """The ``(tile_dw, split)`` arguments of a C entry point's weight
+    gradient: :func:`wgrad_plan` for the tensor-core kernel (``code`` 1),
+    ``(0, 0)`` for the first version."""
+    if code == TENSOR_CORES:
+        return wgrad_plan(m, n, k, sm_count(device))
+    return 0, 0
 
 
 def tile(code: int, device: torch.device, rows: int, n: int,

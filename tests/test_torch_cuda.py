@@ -1721,3 +1721,133 @@ def test_bf16_dense_step_runs_the_encoder_on_the_tensor_cores(cuda):
     assert (mlp.encoder_fwd.launches - before[0],
             mlp.encoder_fwd.tensor_core_launches - before[1]) == (4, 4)
     assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
+
+
+# ---- rows 2 and 10 in bf16 on csrc/wgmma.cuh.  decoder_fwd runs h3 and y on
+# the tensor cores (the linear layer's launch), dec_bwd_fused dh3 (the gate
+# in the epilogue), dz and the weight gradient (an M-major A, fp32 output,
+# the batch cut into slices added in order): every output within BF16_REL
+# of its plain version and of the first version, equal bits on a second
+# launch; shapes (batch, latent, units, seg): the training microbatch, the
+# ragged 1000, batch 1, a ragged width TMA takes and a narrow model.
+
+DECODER_TC = [(8192, 256, 2048, 1024), (1000, 256, 2048, 1024),
+              (1, 256, 2048, 1024), (1000, 72, 520, 264),
+              (4097, 256, 2048, 1024), (130, 8, 136, 72)]
+
+
+def _decoder_operands(device, batch, latent, units, seg, seed=0):
+    """(w3, b3, w4, b4, z) and (da, h3, z, w4, w3), bf16."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, relu=False):
+        t = torch.randn(shape, generator=g, device=device) * scale
+        return (t.clamp_min(0) if relu else t).bfloat16()
+
+    w3, b3 = rnd(latent, units, scale=latent ** -0.5), rnd(units, scale=0.1)
+    w4, b4 = rnd(units, seg, scale=units ** -0.5), rnd(seg, scale=0.1)
+    z = rnd(batch, latent)
+    da, h3 = rnd(batch, seg, scale=1e-2), rnd(batch, units, relu=True)
+    return (w3, b3, w4, b4, z), (da, h3, z, w4, w3)
+
+
+@pytest.mark.parametrize("shape", DECODER_TC, ids=str)
+def test_tensor_core_decoder_matches_plain_and_first_version(cuda, shape):
+    fwd, bwd = _decoder_operands(cuda, *shape)
+    for op, plain, ops_ in ((mlp.decoder_fwd, mlp.decoder_fwd_ref, fwd),
+                            (mlp.dec_bwd_fused, mlp.dec_bwd_fused_ref, bwd)):
+        want = plain(*ops_)
+        first, rose = _ran_tc(op, *ops_, kernel="cuda_cores")
+        assert rose == (1, 0)
+        got, rose = _ran_tc(op, *ops_)                                # auto
+        assert rose == (1, 1)
+        for g, w, f in zip(got, want, first):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert bool(torch.isfinite(g).all())
+            assert _rel(g, w) <= BF16_REL
+            assert _rel(g, f) <= BF16_REL
+        for g, a in zip(got, op(*ops_, kernel="tensor_cores")):
+            assert torch.equal(g, a)
+
+
+def test_tensor_core_decoder_dispatch_on_the_card(cuda):
+    """fp32, a latent no multiple of 8 and an unaligned view keep the first
+    version under ``auto`` and raise for ``kernel="tensor_cores"``; a
+    zero-row batch launches no decoder and gives zero gradients."""
+    fwd, bwd = _decoder_operands(cuda, 1000, 36, 2048, 1024)
+    for op, plain, ops_ in ((mlp.decoder_fwd, mlp.decoder_fwd_ref, fwd),
+                            (mlp.dec_bwd_fused, mlp.dec_bwd_fused_ref, bwd)):
+        got, rose = _ran_tc(op, *ops_)
+        assert rose == (1, 0)
+        for g, w in zip(got, plain(*ops_)):
+            assert _rel(g, w) <= BF16_REL
+        with pytest.raises(ValueError, match="latent 36"):
+            op(*ops_, kernel="tensor_cores")
+    fwd, bwd = _decoder_operands(cuda, 256, 256, 2048, 1024)
+    for op, ops_, at in ((mlp.decoder_fwd, fwd, 4), (mlp.dec_bwd_fused, bwd,
+                                                     0)):
+        f32 = [t.float() for t in ops_]
+        _, rose = _ran_tc(op, *f32)
+        assert rose == (1, 0)
+        with pytest.raises(ValueError, match="takes bf16 operands"):
+            op(*f32, kernel="tensor_cores")
+        x = ops_[at]
+        off = torch.empty(x.numel() + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view_as(x).copy_(x)
+        moved = [off if i == at else t for i, t in enumerate(ops_)]
+        got, rose = _ran_tc(op, *moved)
+        assert rose == (1, 0)
+        for g, f in zip(got, op(*ops_, kernel="cuda_cores")):
+            assert torch.equal(g, f)
+        with pytest.raises(ValueError, match="aligned = False"):
+            op(*moved, kernel="tensor_cores")
+    _, rose = _ran_tc(mlp.decoder_fwd, *fwd[:-1], fwd[-1][:0])
+    assert rose == (0, 0)
+    dz, dw3, db3 = mlp.dec_bwd_fused(*(t[:0] for t in bwd[:3]), *bwd[3:])
+    torch.cuda.synchronize()
+    assert dz.shape == (0, 256)
+    assert not dw3.any() and not db3.any()
+
+
+@pytest.mark.parametrize("plan", [(256, 8), (256, 1), (128, 4), (64, 3),
+                                  (64, 16)])
+def test_every_weight_gradient_plan_matches_plain(cuda, plan, monkeypatch):
+    """The weight gradient with the plan forced: one slice, slices that cut
+    the ragged batch unevenly, every tile width; equal bits twice."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    monkeypatch.setattr(tensor_cores, "wgrad_plan",
+                        lambda m, n, k, sms: plan)
+    _, bwd = _decoder_operands(cuda, 8100, 256, 2048, 1024, seed=5)
+    got, rose = _ran_tc(mlp.dec_bwd_fused, *bwd)
+    assert rose == (1, 1)
+    for g, w in zip(got, mlp.dec_bwd_fused_ref(*bwd)):
+        assert _rel(g, w) <= BF16_REL
+    for g, a in zip(got, mlp.dec_bwd_fused(*bwd)):
+        assert torch.equal(g, a)
+
+
+def test_bf16_dense_step_runs_the_decoder_on_the_tensor_cores(cuda):
+    """One bf16 step of the dense kernel backend at batch 3 x 1024 with
+    microbatch 1024 plus a ragged tail: every decoder_fwd and
+    dec_bwd_fused launch on the tensor cores."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.backend, cfg.tpu.precision = "pallas", "bfloat16"
+    cfg.tpu.microbatch_size = 1024
+    x = torch.rand((3 * 1024 + 100, cfg.audio.segment_length),
+                   device=cuda) * 2 - 1
+    model = build_model(cfg, cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    ops_ = (mlp.decoder_fwd, mlp.dec_bwd_fused)
+    before = [(f.launches, f.tensor_core_launches) for f in ops_]
+    state, m = build_train_step(model, cfg)(state, x)
+    torch.cuda.synchronize()
+    for f, (n, n_tc) in zip(ops_, before):
+        assert (f.launches - n, f.tensor_core_launches - n_tc) == (4, 4)
+    assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))

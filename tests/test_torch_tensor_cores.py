@@ -1,9 +1,10 @@
 """The choice between the hand-written kernels of ``linear_fwd``,
-``linear_ksplit_fwd``, ``matmul_nt``, ``toeplitz_fwd`` and ``encoder_fwd``
-(rawaudiovae_kelsey_tpu_torch/ops/tensor_cores.py, ops/toeplitz.py,
-ops/mlp.py): a pure function of dtype, shape and alignment; the tensor-core
-kernel's tile width, the Toeplitz tile plan and the encoder heads' tile
-walk; what the wrappers hand the C entry points.
+``linear_ksplit_fwd``, ``matmul_nt``, ``toeplitz_fwd``, ``encoder_fwd``,
+``decoder_fwd`` and ``dec_bwd_fused`` (rawaudiovae_kelsey_tpu_torch/ops/
+tensor_cores.py, ops/toeplitz.py, ops/mlp.py): a pure function of dtype,
+shape and alignment; the tensor-core kernel's tile width, the Toeplitz tile
+plan and the encoder heads' tile walk; what the wrappers hand the C entry
+points (tests/test_torch_wgrad.py: the weight gradient's walk).
 Checked here on the CPU; the kernels themselves run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
@@ -1098,3 +1099,215 @@ def test_the_heads_tile_walk_computes_the_plain_heads(latent, bn):
         assert g.shape == w.shape
         assert float((g.float() - w).abs().max()) \
             <= 2.0 ** -6 * float(w.abs().max())
+
+
+# ---- bf16 decoder_fwd and dec_bwd_fused on the tensor cores
+#
+# decoder_fwd takes the tensor-core mainloop when both of its products fit
+# it (h3: k = latent, n = units; y: k = units, n = seg); dec_bwd_fused when
+# dh3 (k = seg, n = units) and dz (k = units, n = latent) do, the weight
+# gradient contracting the batch, of any length.
+
+def _decoder_operands(batch, latent, units, seg, dtype, device="meta"):
+    """(w3, b3, w4, b4, z), empty, of the given widths."""
+    shapes = ((latent, units), (units,), (units, seg), (seg,),
+              (batch, latent))
+    return tuple(torch.empty(s, device=device, dtype=dtype) for s in shapes)
+
+
+def _dec_bwd_operands(batch, seg, units, latent, dtype, device="meta"):
+    """(da, h3, z, w4, w3), empty, of the given widths."""
+    shapes = ((batch, seg), (batch, units), (batch, latent), (units, seg),
+              (latent, units))
+    return tuple(torch.empty(s, device=device, dtype=dtype) for s in shapes)
+
+
+DECODER = (256, 2048, 1024)    # configs/default.ini: latent, units, seg
+
+
+@pytest.mark.parametrize("batch", [MICROBATCH, 1000, 1, 256])
+def test_the_dense_decoder_and_its_backward_take_the_tensor_cores(batch):
+    for resolve, widths in ((mlp.resolve_decoder, DECODER),
+                            (mlp.resolve_dec_bwd, DENSE)):
+        assert resolve("auto", BF16, batch, *widths) == 1
+        assert resolve("tensor_cores", BF16, batch, *widths) == 1
+        assert resolve("cuda_cores", BF16, batch, *widths) == 0
+        # fp32 (the server, the fp32 tiers) keeps the first version
+        assert resolve("auto", F32, batch, *widths) == 0
+
+
+@pytest.mark.parametrize("op", ["decoder_fwd", "dec_bwd_fused"])
+@pytest.mark.parametrize("dtype,batch,a,b,c,aligned", [
+    (F32, MICROBATCH, 1024, 2048, 256, True),    # fp32: queue B.5
+    (BF16, MICROBATCH, 1024, 2048, 36, True),    # latent % 8 != 0
+    (BF16, MICROBATCH, 1024, 2044, 256, True),   # units % 8 != 0
+    (BF16, MICROBATCH, 1020, 2048, 256, True),   # seg % 8 != 0
+    (BF16, 1000, 70, 130, 18, True),             # the GPU tests' odd widths
+    (BF16, MICROBATCH, 1024, 2048, 256, False),  # an unaligned view
+    (BF16, 0, 1024, 2048, 256, True),            # no rows
+    (torch.float16, MICROBATCH, 1024, 2048, 256, True),
+], ids=["fp32", "latent%8", "units%8", "seg%8", "odd", "unaligned",
+        "no-rows", "fp16"])
+def test_what_keeps_the_decoder_on_the_cuda_cores(op, dtype, batch, a, b, c,
+                                                  aligned):
+    """(a, b, c) = (seg, units, latent); the decoder takes them as (latent,
+    units, seg)."""
+    if op == "decoder_fwd":
+        resolve, widths = mlp.resolve_decoder, (batch, c, b, a, aligned)
+    else:
+        resolve, widths = mlp.resolve_dec_bwd, (batch, a, b, c, aligned)
+    assert resolve("auto", dtype, *widths) == 0
+    assert resolve("cuda_cores", dtype, *widths) == 0
+    with pytest.raises(ValueError, match=f"{op}: kernel 'tensor_cores' "
+                       "takes bf16 operands"):
+        resolve("tensor_cores", dtype, *widths)
+    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+        resolve("sgemm", dtype, *widths)
+
+
+def test_the_decoder_passes_the_kernel_code_and_both_tile_widths(
+        monkeypatch):
+    """What reaches rvk_decoder_fwd: 15 arguments, the dtype, h3's tile
+    width, y's tile width, the kernel code; the first version gets zeros
+    for the widths."""
+    launched = _stand_in(monkeypatch)
+    counts = (mlp.decoder_fwd.launches, mlp.decoder_fwd.tensor_core_launches)
+    # batch → (h3 width, y width) on 132 SMs: at 8192, 64 tile rows x 8
+    # columns of 256 for h3 (four waves; fewest waves x width ties, the
+    # wider wins) and x 4 for y (two waves); at 256, 2 tile rows: 64 wide
+    for batch, widths in ((MICROBATCH, (256, 256)), (256, (64, 64)),
+                          (1, (64, 64))):
+        ops = _decoder_operands(batch, *DECODER, BF16)
+        y, h3 = mlp.decoder_fwd(*ops)
+        assert (y.shape, h3.shape) == ((batch, 1024), (batch, 2048))
+        name, args = launched.pop()
+        # z, w3, b3, w4, b4, y, h3 | batch, latent, units, seg, dtype,
+        # tile_hidden, tile_out, kernel
+        assert name == "rvk_decoder_fwd" and len(args) == 15
+        assert args[0] is ops[-1] and args[5] is y and args[6] is h3
+        assert args[7:] == (batch, *DECODER, 1, *widths, 1)
+    mlp.decoder_fwd(*_decoder_operands(MICROBATCH, *DECODER, BF16),
+                    kernel="cuda_cores")
+    assert launched.pop()[1][11:] == (1, 0, 0, 0)
+    mlp.decoder_fwd(*_decoder_operands(256, *DECODER, F32))
+    assert launched.pop()[1][11:] == (0, 0, 0, 0)
+    mlp.decoder_fwd(*_decoder_operands(100, 36, 2048, 1024, BF16))
+    assert launched.pop()[1][11:] == (1, 0, 0, 0)   # latent % 8: the first
+    assert (mlp.decoder_fwd.launches - counts[0],
+            mlp.decoder_fwd.tensor_core_launches - counts[1]) == (6, 3)
+    mlp.decoder_fwd(*_decoder_operands(0, *DECODER, BF16))
+    assert launched == []
+
+
+def test_dec_bwd_passes_the_kernel_code_tiles_split_and_workspace(
+        monkeypatch):
+    """What reaches rvk_dec_bwd_fused: 20 arguments, the dtype, the tile
+    widths of dh3, dz and dW3, the batch split, the kernel code, and a
+    (split, latent·units + units) fp32 workspace where the split is more
+    than one; the first version gets zeros and no workspace."""
+    launched = _stand_in(monkeypatch)
+    counts = (mlp.dec_bwd_fused.launches,
+              mlp.dec_bwd_fused.tensor_core_launches)
+    # batch → (dh3, dz, dW3 widths, split): at 8192 dh3 is 64 x 8 tiles of
+    # 256, dz 64 tile rows x 2 of 128 (one wave), dW3 32 tiles of 128 x 4
+    # slices of 2048 rows; at 4096, dz 32 x 4 tiles of 64 (one wave) and
+    # dW3 64 tiles of 64 x 2 slices
+    for batch, plan in ((MICROBATCH, (256, 128, 128, 4)),
+                        (4096, (256, 64, 64, 2)), (1, (64, 64, 64, 1))):
+        ops = _dec_bwd_operands(batch, *DENSE, BF16)
+        dz, dw3, db3 = mlp.dec_bwd_fused(*ops)
+        assert (dz.shape, dw3.shape, db3.shape) == (
+            (batch, 256), (256, 2048), (2048,))
+        assert dz.dtype == BF16 and dw3.dtype == db3.dtype == F32
+        name, args = launched.pop()
+        # da, h3, z, w4, w3, dh3, dz, dw3, db3, workspace | batch, seg,
+        # units, latent, dtype, tile_dh3, tile_dz, tile_dw, split, kernel
+        assert name == "rvk_dec_bwd_fused" and len(args) == 20
+        assert args[:5] == ops and args[6] is dz and args[7] is dw3
+        assert args[5].shape == (batch, 2048) and args[5].dtype == BF16
+        assert args[10:] == (batch, *DENSE, 1, *plan, 1)
+        split = plan[-1]
+        if split > 1:
+            assert args[9].shape == (split, 256 * 2048 + 2048)
+            assert args[9].dtype == F32
+        else:
+            assert args[9] is None
+    mlp.dec_bwd_fused(*_dec_bwd_operands(MICROBATCH, *DENSE, BF16),
+                      kernel="cuda_cores")
+    args = launched.pop()[1]
+    assert args[9] is None and args[14:] == (1, 0, 0, 0, 0, 0)
+    mlp.dec_bwd_fused(*_dec_bwd_operands(256, *DENSE, F32))
+    assert launched.pop()[1][14:] == (0, 0, 0, 0, 0, 0)
+    # no rows: the first version, which writes zero gradients
+    mlp.dec_bwd_fused(*_dec_bwd_operands(0, *DENSE, BF16))
+    assert launched.pop()[1][14:] == (1, 0, 0, 0, 0, 0)
+    assert (mlp.dec_bwd_fused.launches - counts[0],
+            mlp.dec_bwd_fused.tensor_core_launches - counts[1]) == (6, 3)
+
+
+@pytest.mark.parametrize("op", ["decoder_fwd", "dec_bwd_fused"])
+def test_a_named_tensor_core_decoder_raises_on_what_it_cannot_take(
+        monkeypatch, op):
+    launched = _stand_in(monkeypatch)
+    if op == "decoder_fwd":
+        fn = mlp.decoder_fwd
+        odd = _decoder_operands(8, 36, 2048, 1024, BF16)
+        dense = _decoder_operands(8, *DECODER, BF16)
+    else:
+        fn = mlp.dec_bwd_fused
+        odd = _dec_bwd_operands(8, 1024, 2048, 36, BF16)
+        dense = _dec_bwd_operands(8, *DENSE, BF16)
+    with pytest.raises(ValueError, match="latent 36"):
+        fn(*odd, kernel="tensor_cores")
+    with pytest.raises(ValueError, match="takes bf16 operands"):
+        fn(*[t.float() for t in dense], kernel="tensor_cores")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        fn(*dense, kernel="wgmma")
+    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+        fn(*dense, kernel="sgemm")
+    monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
+    with pytest.raises(ValueError, match="aligned = False"):
+        fn(*dense, kernel="tensor_cores")
+    assert launched == []
+    fn(*dense)
+    assert launched.pop()[1][-1] == 0
+
+
+@pytest.mark.parametrize("op", ["decoder_fwd", "dec_bwd_fused"])
+def test_the_decoder_checks_every_pointer_for_alignment(monkeypatch, op):
+    """The rule reads all five operands' pointers (the decoder's biases
+    too: the epilogue loads bias pairs)."""
+    _stand_in(monkeypatch)
+    seen = []
+    monkeypatch.setattr(tensor_cores, "pointers_aligned",
+                        lambda *t: seen.append(t) or True)
+    if op == "decoder_fwd":
+        ops = _decoder_operands(8, *DECODER, BF16)
+        mlp.decoder_fwd(*ops)
+    else:
+        ops = _dec_bwd_operands(8, *DENSE, BF16)
+        mlp.dec_bwd_fused(*ops)
+    assert len(seen) == 1 and len(seen[0]) == 5
+    assert {id(t) for t in seen[0]} == {id(t) for t in ops}
+
+
+def test_a_cpu_decoder_takes_the_plain_version_whatever_the_kernel():
+    g = torch.Generator().manual_seed(0)
+    dec = [torch.randn(t.shape, generator=g).to(BF16)
+           for t in _decoder_operands(5, 8, 24, 16, BF16, "cpu")]
+    bwd = [torch.randn(t.shape, generator=g).to(BF16)
+           for t in _dec_bwd_operands(5, 16, 24, 8, BF16, "cpu")]
+    before = (mlp.decoder_fwd.launches, mlp.decoder_fwd.tensor_core_launches,
+              mlp.dec_bwd_fused.launches,
+              mlp.dec_bwd_fused.tensor_core_launches)
+    want = mlp.decoder_fwd_ref(*dec)
+    want_bwd = mlp.dec_bwd_fused_ref(*bwd)
+    for kernel in ("auto", "cuda_cores", "tensor_cores", "sgemm"):
+        for got, w in zip(mlp.decoder_fwd(*dec, kernel=kernel), want):
+            assert torch.equal(got, w)
+        for got, w in zip(mlp.dec_bwd_fused(*bwd, kernel=kernel), want_bwd):
+            assert torch.equal(got, w)
+    assert before == (mlp.decoder_fwd.launches,
+                      mlp.decoder_fwd.tensor_core_launches,
+                      mlp.dec_bwd_fused.launches,
+                      mlp.dec_bwd_fused.tensor_core_launches)
