@@ -30,9 +30,14 @@ any failure exits non-zero with a traceback (no phase is caught):
    72->520->264 too, a latent of 36 keeping the first version, with dh3's
    launch timed beside the same product without the gate and with a simple
    gate (a 4-byte load a pair, built from a patched copy of ``bwd.cu``) and
-   the weight gradient's plan swept; the library sequences of
-   ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2`` by device time beside
-   their first versions;
+   the weight gradient's plan swept; the same for bf16 ``grad_accum`` (the
+   weight gradient's launch alone, dW4 and db4, then the slices' sum; beside
+   ``a.t() @ b`` → ``b.float().sum(0)``) and bf16 ``enc_bwd_dw1`` (dh as one
+   product joined along k with the gate in its epilogue, dW1 and db1, the
+   slices' sum; beside ``addmm(dmu @ w21.t(), dlv, w22.t())`` → ``where`` →
+   ``x.t() @ dh`` → ``dh.float().sum(0)``), each at the ragged width too,
+   a width no multiple of 8 keeping the first version, with the plan swept
+   at dW4 and dW1;
 3c. the fp32 input-gradient kernels (``matmul_nt``, ``matmul_nt_mask``,
    ``matmul_nt2_mask``) in fp32 and bf16 at batch 8192, 1000 and 1, with
    the one PyTorch call ``a @ w.t()`` timed beside ``matmul_nt``; bf16
@@ -67,8 +72,9 @@ any failure exits non-zero with a traceback (no phase is caught):
    (the fp32 "primitive" kernels); training frames/s of both backends and
    the device's busy share; the bf16 step's ``encoder_fwd``,
    ``decoder_fwd`` and ``dec_bwd_fused`` launches, one each a microbatch,
-   all on the tensor cores (none at ``high`` or ``highest``), and one
-   kernel step's device time by kernel;
+   all on the tensor cores (none at ``high`` or ``highest``), the same for
+   ``grad_accum`` and ``enc_bwd_dw1``, and one kernel step's device time by
+   kernel;
 6. the device-resident path: ``configs/perf_bf16.ini`` uncut (batch 4096,
    bf16, block shuffle, ``rng = tpu_prng``, ``device_resident = always``)
    on the corpus of phase 5, with only the datapath, epochs, checkpoint
@@ -186,9 +192,9 @@ any failure exits non-zero with a traceback (no phase is caught):
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
 (phase 4); bf16 forward kernels: the training run of phase 5 (its fp32
 test-set reconstructions included); bf16 "split" backward kernels: that
-run (bf16 ``encoder_fwd``, ``decoder_fwd`` and ``dec_bwd_fused``: those
-on the tensor cores; the run's fp32 reconstructions take the first
-version); fp32 ``grad_accum``: the
+run (bf16 ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``,
+``grad_accum`` and ``enc_bwd_dw1``: those on the tensor cores; the run's
+fp32 reconstructions take the first version); fp32 ``grad_accum``: the
 ``highest`` step of phase 5 (no path of the
 package runs ``enc_bwd_dw1``, ``grad_accum2`` or ``dec_bwd_fused`` on fp32
 operands since ``high`` takes the full chains: phase 3b still holds them
@@ -215,17 +221,18 @@ NVIDIA's H100 SXM data sheet), at the shapes that were timed: those the
 path named above gives the kernel.
 
 The rows of bf16 ``matmul_nt``, ``linear_ksplit_fwd``, ``linear_fwd``,
-``toeplitz_fwd``, ``encoder_fwd``, ``decoder_fwd`` and ``dec_bwd_fused``
-describe the tensor-core kernel, those
+``toeplitz_fwd``, ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``,
+``grad_accum`` and ``enc_bwd_dw1`` describe the tensor-core kernel, those
 of fp32 ``matmul_nt``, ``linear_ksplit_fwd`` and ``linear_fwd`` the fp32
 kernel of ``csrc/sgemm.cuh`` (``ms``, and ``launches``: those that took it;
 fp32 ``linear_fwd`` at the server's 256x4096->4096, fp32
 ``linear_ksplit_fwd`` at 4096^3), and carry the first version's time on the
 same inputs as ``first_version_ms``.  The ``library_ms`` of bf16
 ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``, ``grad_accum``,
-``enc_bwd_dw1`` and ``grad_accum2`` is the device time of a sequence of
-library calls (its ``library`` key says which): no one PyTorch call
-computes any of them.
+``enc_bwd_dw1`` and ``grad_accum2`` and of fp32 ``grad_accum``,
+``matmul_nt_mask`` and ``matmul_nt2_mask`` is the device time of a
+sequence of library calls at microbatch 8192 (its ``library`` key says
+which): no one PyTorch call computes any of them.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -601,7 +608,8 @@ def phase_train_kernels(gen_params):
     encoder_tensor_cores(rows["encoder_fwd[bf16]"], inputs)
     decoder_tensor_cores(rows["decoder_fwd[bf16]"], inputs)
     dec_bwd_tensor_cores(rows["dec_bwd_fused[bf16]"], inputs)
-    backward_libraries(rows, inputs)
+    grad_accum_tensor_cores(rows["grad_accum[bf16]"], inputs)
+    enc_bwd_tensor_cores(rows["enc_bwd_dw1[bf16]"], inputs)
     return rows
 
 
@@ -609,6 +617,7 @@ def phase_train_kernels(gen_params):
 # computes any of them, so a row's library_ms is the device time of a
 # sequence of calls on the same operands, summed (its `library` key says
 # which); the backward rows still on their first versions get theirs too
+# (backward_libraries), in fp32 as the primitive backward's
 ENCODER_LIBRARY = ("the sequence addmm -> relu -> addmm -> addmm, device "
                    "time summed (no one PyTorch call computes encoder_fwd)")
 DECODER_LIBRARY = ("the sequence addmm -> relu -> addmm -> tanh, device "
@@ -626,6 +635,11 @@ BWD_LIBRARY = {
     "grad_accum2": "the sequence h.t() @ dmu -> dmu.float().sum(0) -> "
                    "h.t() @ dlv -> dlv.float().sum(0), device time summed "
                    "(no one PyTorch call computes grad_accum2)",
+    "matmul_nt_mask": "the sequence (a @ w.t()) * (gate > 0), device time "
+                      "summed (no one PyTorch call computes matmul_nt_mask)",
+    "matmul_nt2_mask": "the sequence where(gate > 0, addmm(a1 @ w1.t(), a2, "
+                       "w2.t()), 0), device time summed (no one PyTorch "
+                       "call computes matmul_nt2_mask)",
 }
 # the shapes held on the tensor cores besides the microbatch, the ragged
 # 1000 and batch 1: a ragged width TMA takes, as (latent, units, seg)
@@ -634,7 +648,8 @@ TC_RAGGED_DENSE = (72, 520, 264)
 
 def hold_tensor_cores(name, op, plain, cases, odd=()):
     """Phase 3b: bf16 ``op`` (``encoder_fwd``, ``decoder_fwd``,
-    ``dec_bwd_fused``) on the tensor cores against its plain version and
+    ``dec_bwd_fused``, ``grad_accum``, ``enc_bwd_dw1``) on the tensor cores
+    against its plain version and
     its first version (``kernel="cuda_cores"``), every output within
     BF16_REL, equal bits on a second launch, one launch counted on the
     tensor cores; ``cases`` are ``(what, operands)``.  The ``odd`` cases
@@ -811,9 +826,10 @@ def decoder_tensor_cores(row, inputs):
     row["max_abs_err"] = max(row["max_abs_err"], err)
 
 
-# the weight gradient's plans swept at the microbatch (tile width, slices)
-WGRAD_PLANS = ((256, 8), (256, 4), (128, 8), (128, 4), (128, 2), (64, 4),
-               (64, 2), (256, 1))
+# the weight gradient's plans swept at the microbatch (tile width, slices):
+# the rule's picks at dW3 (128 x 4) and at dW4 and dW1 (128 x 1) among them
+WGRAD_PLANS = ((256, 8), (256, 4), (256, 2), (128, 8), (128, 4), (128, 2),
+               (128, 1), (64, 4), (64, 2), (256, 1))
 
 # phase 3b: the simple form of dh3's gate, built only to be timed beside the
 # kept one (which has TMA load h3's boxes into the staging buffer under the
@@ -906,7 +922,7 @@ def dec_bwd_tensor_cores(row, inputs):
     db3 over slices of the batch) as ``decoder_tensor_cores``; timed with
     each launch apart, beside the same dh3 product without the gate
     (``matmul_nt``), and with the weight gradient's plan swept."""
-    from rawaudiovae_kelsey_tpu_torch.ops import mlp, tensor_cores
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
 
     def operands(p, t):
         return [t["da"], t["h3"], t["z"], p["fc4"]["w"], p["fc3"]["w"]]
@@ -960,63 +976,189 @@ def dec_bwd_tensor_cores(row, inputs):
           f"{row['dh3_gated_device_ms']:.4f} with the gate's boxes loaded by "
           f"TMA (kept), {row['dh3_ungated_device_ms']:.4f} with no gate; "
           f"equal bits")
+    sweep_wgrad(row, "dW3 + db3", tc, lambda: mlp.dec_bwd_fused_ref(*ops),
+                LATENT, UNITS)
+
+
+def sweep_wgrad(row, label, call, plain, m, n):
+    """Phase 3b: the device ms of the weight gradient ``(m, n)`` in
+    ``call()`` (the launches of WgradOut, and sum_slices where the plan has
+    more than one slice) at the microbatch with each plan of WGRAD_PLANS
+    forced, every output within BF16_REL of ``plain()``, beside the rule's
+    pick (tensor_cores.wgrad_plan); into ``row["wgrad_plan_device_ms"]``."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
     rule = tensor_cores.wgrad_plan
-    picked = rule(LATENT, UNITS, TRAIN_BATCH,
+    picked = rule(m, n, TRAIN_BATCH,
                   tensor_cores.sm_count(torch.device("cuda", 0)))
     swept = {}
     try:
         for plan in WGRAD_PLANS:
             tensor_cores.wgrad_plan = lambda *args, plan=plan: plan
-            e = rel_err(tc(), mlp.dec_bwd_fused_ref(*ops))
-            check(e <= BF16_REL, f"dec_bwd_fused[bf16] plan {plan}: "
-                  f"relative error {e:.3e}")
-            swept[plan] = (device_ms(tc, match="WgradOut")
-                           + (device_ms(tc, match="sum_slices")
+            e = rel_err(call(), plain())
+            check(e <= BF16_REL, f"{row['name']} plan {plan}: relative "
+                  f"error {e:.3e}")
+            swept[plan] = (device_ms(call, match="WgradOut")
+                           + (device_ms(call, match="sum_slices")
                               if plan[1] > 1 else 0.0))
     finally:
         tensor_cores.wgrad_plan = rule
-    print(f"  {'dec_bwd_fused[bf16]':<24} batch {TRAIN_BATCH}: dW3 + db3 "
-          f"device ms by plan (tile width, slices), the slices' sum "
-          f"included: " + ", ".join(f"{w}x{s}: {v:.4f}"
-                                    for (w, s), v in swept.items())
+    best = min(swept, key=swept.get)
+    print(f"  {row['name']:<24} batch {TRAIN_BATCH}: {label} device ms by "
+          f"plan (tile width, slices), the slices' sum included: "
+          + ", ".join(f"{w}x{s}: {v:.4f}" for (w, s), v in swept.items())
           + f"; the rule (tensor_cores.wgrad_plan) picks "
-            f"{picked[0]}x{picked[1]}")
+            f"{picked[0]}x{picked[1]}, the fastest is {best[0]}x{best[1]}")
     row["wgrad_plan_device_ms"] = {f"{w}x{s}": v
                                    for (w, s), v in swept.items()}
 
 
-def backward_libraries(rows, inputs):
-    """Phase 3b: the device time of the library sequences of the bf16
-    backward rows still on their first versions (grad_accum,
-    enc_bwd_dw1, grad_accum2) at the microbatch, beside each first
-    version's device time, into their rows' library_ms."""
+def slices_ms(call, m, n) -> float:
+    """Device ms of the slices' sum in ``call()``: 0.0 where the plan of
+    the weight gradient ``(m, n)`` at the microbatch has one slice (no sum
+    runs)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    _, split = tensor_cores.wgrad_plan(
+        m, n, TRAIN_BATCH, tensor_cores.sm_count(torch.device("cuda", 0)))
+    return device_ms(call, match="sum_slices") if split > 1 else 0.0
+
+
+def grad_accum_tensor_cores(row, inputs):
+    """Phase 3b: bf16 ``grad_accum`` on the tensor cores (csrc/wgmma.cuh
+    launch_wgrad: dW4 = h3ᵀ da and db4 over slices of the batch) as
+    ``dec_bwd_tensor_cores``; timed with the weight gradient and the
+    slices' sum apart, and with its plan swept."""
     from rawaudiovae_kelsey_tpu_torch.ops import mlp
 
-    p, t = inputs(TRAIN_BATCH, torch.bfloat16)
-    w21, w22 = p["fc21"]["w"], p["fc22"]["w"]
-    x, h, dmu, dlv, da, h3 = (t[k] for k in ("x", "h", "dmu", "dlv", "da",
-                                             "h3"))
+    g = torch.Generator(device="cuda").manual_seed(53)
 
-    def dw1():
+    def narrow(batch, units, seg):
+        h3 = torch.randn((batch, units), generator=g, device="cuda")
+        da = torch.randn((batch, seg), generator=g, device="cuda") * 1e-3
+        return [h3.clamp_min(0).bfloat16(), da.bfloat16()]
+
+    cases = [(f"batch {b}", [t[k] for k in ("h3", "da")])
+             for b in (TRAIN_BATCH, TRAIN_RAGGED, 1)
+             for t in (inputs(b, torch.bfloat16)[1],)]
+    cases.append(("batch 1000, units {1}, seg {2}".format(*TC_RAGGED_DENSE),
+                  narrow(1000, *TC_RAGGED_DENSE[1:])))
+    err = hold_tensor_cores("grad_accum", mlp.grad_accum, mlp.grad_accum_ref,
+                            cases, [("batch 1000, m 1020",
+                                     narrow(1000, UNITS, 1020))])
+    h3, da = (inputs(TRAIN_BATCH, torch.bfloat16)[1][k] for k in ("h3", "da"))
+    fns = {"library": lambda: (h3.t() @ da, da.float().sum(0)),
+           "plain": lambda: mlp.grad_accum_ref(h3, da),
+           "cuda_cores": lambda: mlp.grad_accum(h3, da, kernel="cuda_cores"),
+           "tensor_cores": lambda: mlp.grad_accum(h3, da,
+                                                  kernel="tensor_cores")}
+    tc = fns["tensor_cores"]
+    time_tensor_cores("grad_accum", row, fns, {
+        "dW4 db4": lambda: device_ms(tc, match="WgradOut"),
+        "sum slices": lambda: slices_ms(tc, UNITS, SEG)},
+        BWD_LIBRARY["grad_accum"])
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    sweep_wgrad(row, "dW4 + db4", tc, fns["plain"], UNITS, SEG)
+
+
+def enc_bwd_tensor_cores(row, inputs):
+    """Phase 3b: bf16 ``enc_bwd_dw1`` on the tensor cores (csrc/bwd.cu
+    tensor_core_enc_bwd_dw1: dh as one product joined along k, dmu and w21
+    then dlv and w22, with the gate in its epilogue; then dW1 and db1 over
+    slices of the batch) as ``dec_bwd_tensor_cores``; timed with each launch
+    apart and with the weight gradient's plan swept."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    def operands(p, t):
+        return [t["x"], t["h"], t["dmu"], t["dlv"], p["fc21"]["w"],
+                p["fc22"]["w"]]
+
+    g = torch.Generator(device="cuda").manual_seed(59)
+
+    def narrow(batch, latent, units, seg):
+        shapes = (((batch, seg), 0.3, False), ((batch, units), 1.0, True),
+                  ((batch, latent), 1.0, False),
+                  ((batch, latent), 1.0, False),
+                  ((units, latent), units ** -0.5, False),
+                  ((units, latent), units ** -0.5, False))
+        out = []
+        for sh, sc, relu in shapes:
+            t = torch.randn(sh, generator=g, device="cuda") * sc
+            out.append((t.clamp_min(0) if relu else t).bfloat16())
+        return out
+
+    cases = [(f"batch {b}", operands(*inputs(b, torch.bfloat16)))
+             for b in (TRAIN_BATCH, TRAIN_RAGGED, 1)]
+    cases.append(("batch 1000, {}->{}->{}".format(*TC_RAGGED_DENSE),
+                  narrow(1000, *TC_RAGGED_DENSE)))
+    err = hold_tensor_cores("enc_bwd_dw1", mlp.enc_bwd_dw1,
+                            mlp.enc_bwd_dw1_ref, cases,
+                            [("batch 1000, latent 36",
+                              narrow(1000, 36, UNITS, SEG))])
+    ops = operands(*inputs(TRAIN_BATCH, torch.bfloat16))
+    x, h, dmu, dlv, w21, w22 = ops
+
+    def library():
         dh = torch.where(h > 0, torch.addmm(dmu @ w21.t(), dlv, w22.t()), 0)
         return x.t() @ dh, dh.float().sum(0)
 
+    fns = {"library": library, "plain": lambda: mlp.enc_bwd_dw1_ref(*ops),
+           "cuda_cores": lambda: mlp.enc_bwd_dw1(*ops, kernel="cuda_cores"),
+           "tensor_cores": lambda: mlp.enc_bwd_dw1(*ops,
+                                                   kernel="tensor_cores")}
+    tc = fns["tensor_cores"]
+    time_tensor_cores("enc_bwd_dw1", row, fns, {
+        "dh gated joined": lambda: device_ms(tc, match="JoinedKTiles"),
+        "dW1 db1": lambda: device_ms(tc, match="WgradOut"),
+        "sum slices": lambda: slices_ms(tc, SEG, UNITS)},
+        BWD_LIBRARY["enc_bwd_dw1"])
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    sweep_wgrad(row, "dW1 + db1", tc, fns["plain"], SEG, UNITS)
+
+
+def backward_libraries(rows, gen_params):
+    """Phases 3b-3c: the device time of the library sequences of the
+    backward rows still on their first versions at the microbatch (bf16
+    grad_accum2; fp32 grad_accum, matmul_nt_mask and matmul_nt2_mask, the
+    primitive backward's), beside each first version's device time, into
+    their rows' library_ms."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    p = gen_params(4321)
+    # a generator of its own: the draws of the other phases stay as they were
+    g = torch.Generator(device="cuda").manual_seed(61)
+
+    def rnd(n, dt, relu=False, scale=1.0):
+        t = torch.randn((TRAIN_BATCH, n), generator=g, device="cuda") * scale
+        return (t.clamp_min(0) if relu else t).to(dt)
+
+    b16, f32 = torch.bfloat16, torch.float32
+    h, dmu, dlv = rnd(UNITS, b16, True), rnd(LATENT, b16), rnd(LATENT, b16)
+    h3, da = rnd(UNITS, f32, True), rnd(SEG, f32, scale=1e-3)
+    hf, dmuf, dlvf = rnd(UNITS, f32, True), rnd(LATENT, f32), rnd(LATENT, f32)
+    w4, w21, w22 = p["fc4"]["w"], p["fc21"]["w"], p["fc22"]["w"]
     cases = {
-        "grad_accum": (lambda: (h3.t() @ da, da.float().sum(0)),
-                       lambda: mlp.grad_accum(h3, da)),
-        "enc_bwd_dw1": (dw1, lambda: mlp.enc_bwd_dw1(x, h, dmu, dlv, w21,
-                                                     w22)),
-        "grad_accum2": (lambda: (h.t() @ dmu, dmu.float().sum(0),
-                                 h.t() @ dlv, dlv.float().sum(0)),
-                        lambda: mlp.grad_accum2(h, dmu, dlv)),
+        "grad_accum2[bf16]": (
+            lambda: (h.t() @ dmu, dmu.float().sum(0), h.t() @ dlv,
+                     dlv.float().sum(0)),
+            lambda: mlp.grad_accum2(h, dmu, dlv)),
+        "grad_accum[fp32]": (lambda: (h3.t() @ da, da.sum(0)),
+                             lambda: mlp.grad_accum(h3, da)),
+        "matmul_nt_mask[fp32]": (lambda: (da @ w4.t()) * (h3 > 0),
+                                 lambda: mlp.matmul_nt_mask(da, w4, h3)),
+        "matmul_nt2_mask[fp32]": (
+            lambda: torch.where(hf > 0, torch.addmm(dmuf @ w21.t(), dlvf,
+                                                    w22.t()), 0),
+            lambda: mlp.matmul_nt2_mask(dmuf, w21, dlvf, w22, hf)),
     }
-    for name, (library, kernel) in cases.items():
-        row = rows[f"{name}[bf16]"]
+    for key, (library, kernel) in cases.items():
+        row = rows[key]
         lib, dev = device_ms(library), device_ms(kernel)
-        print(f"  {name + '[bf16]':<24} batch {TRAIN_BATCH}: library "
-              f"sequence {lib:.4f} ms of device time, the first version "
-              f"{dev:.4f} ({dev / lib:.1f}x), bound {row['bound_ms']:.4f} ms")
-        row.update(library_ms=lib, library=BWD_LIBRARY[name], device_ms=dev)
+        print(f"  {key:<24} batch {TRAIN_BATCH}: library sequence "
+              f"{lib:.4f} ms of device time, the first version {dev:.4f} "
+              f"({dev / lib:.1f}x), bound {row['bound_ms']:.4f} ms")
+        row.update(library_ms=lib, library=BWD_LIBRARY[key.split("[")[0]],
+                   device_ms=dev)
 
 
 def phase_new_kernels(gen_params):
@@ -1810,7 +1952,8 @@ def phase_train(data: Path):
     from rawaudiovae_kelsey_tpu_torch import ops
 
     # the bf16 dense kernels on the tensor cores
-    dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.dec_bwd_fused)
+    dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.dec_bwd_fused,
+                ops.grad_accum, ops.enc_bwd_dw1)
     from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
     from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
     from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
@@ -1965,9 +2108,10 @@ def phase_train(data: Path):
     for w in ops.PRIMITIVE_KERNELS:
         check(step_counts["highest"][w.__name__] > 0,
               f"{w.__name__} was never launched by the `highest` step")
-    # the bf16 step's encoder, decoder and decoder backward: one launch each
-    # a microbatch, every one on the tensor cores; the fp32 tiers keep the
-    # first version (and take other backward kernels)
+    # the bf16 step's encoder, decoder, decoder backward, dW4 and encoder
+    # backward: one launch each a microbatch, every one on the tensor cores;
+    # the fp32 tiers keep the first version (and take other backward
+    # kernels)
     micro = -(-batch // cfg.tpu.microbatch_size)
     for w in dense_tc:
         name = w.__name__
@@ -2012,16 +2156,18 @@ def phase_train(data: Path):
     focus = {"encoder_fwd hidden + decoder_fwd h3 and y (tensor cores)":
              "BiasActPair",
              "encoder_fwd heads (tensor cores)": "HeadsBias",
-             "dec_bwd_fused dh3 (tensor cores)": "GatePair",
+             "dec_bwd_fused dh3 + enc_bwd_dw1 dh (tensor cores, gated)":
+             "GatePair",
+             "enc_bwd_dw1 dh (tensor cores, joined along k)": "JoinedKTiles",
              "dec_bwd_fused dz (tensor cores)": "RoundPair",
-             "dec_bwd_fused dW3 db3 (tensor cores)": "WgradOut",
-             "dec_bwd_fused slices' sum": "sum_slices",
+             "dW3 db3 + dW4 db4 + dW1 db1 (tensor cores)": "WgradOut",
+             "weight gradients' slices' sum": "sum_slices",
              "first-version GEMMs (gemm.cuh)": "::gemm_kernel"}
     by_kernel = device_time_by_kernel(lambda: step(state, x), top=8,
                                       focus=focus)
-    print(f"  one kernel step by kernel (with the first-version decoder and "
-          f"decoder backward the step ran at 581,162 frames/s, PERF.md "
-          f"section 5; no gain claimed): {by_kernel}")
+    print(f"  one kernel step by kernel (with the first-version grad_accum "
+          f"and enc_bwd_dw1 the step ran at 1,137,692 frames/s, 111.51 ms of "
+          f"device time, PERF.md section 5; no gain claimed): {by_kernel}")
     return launches, step_counts["highest"]
 
 
@@ -3937,6 +4083,7 @@ def main() -> int:
           "their plain versions")
     with torch.no_grad():
         new_rows = phase_new_kernels(gen_params)
+        backward_libraries({**train_rows, **new_rows}, gen_params)
 
     print("phase 3d: the full backward chains and the loss reduction "
           "against their plain versions")

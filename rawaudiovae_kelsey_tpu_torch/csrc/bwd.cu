@@ -72,10 +72,16 @@
 // block owns a 128-row tile of the output, streams its rows of a once
 // through a TMA ring and rounds once from the fp32 accumulators) and whose
 // fp32 form runs on the register-tiled mainloop of sgemm.cuh (both operands
-// K-major, staged by cp.async and stored k-major in shared memory), and
+// K-major, staged by cp.async and stored k-major in shared memory);
 // rvk_dec_bwd_fused, whose bf16 form runs all three of its products on
 // wgmma.cuh (tensor_core_dec_bwd below: the gate in dh3's epilogue, the
-// weight gradient over slices of the batch).  The template matmul_nt<T>
+// weight gradient over slices of the batch); rvk_grad_accum, whose bf16
+// form is that weight gradient alone (rvk::tc::launch_wgrad); and
+// rvk_enc_bwd_dw1, whose bf16 form is dh as one k-joined product with the
+// gate in its epilogue, then that weight gradient (tensor_core_enc_bwd_dw1
+// below).  At the step's microbatch the bf16 weight gradients are far above
+// the ridge (dW1 and dW4: 34 GFLOP on 58 MB of operands and output, ~590
+// FLOP a byte), so the tensor cores bound them.  The template matmul_nt<T>
 // below, which the other fused kernels and the gated forms launch, stays on
 // gemm.cuh.
 
@@ -280,6 +286,35 @@ int tensor_core_dec_bwd(const void* da, const void* h3, const void* z,
                                latent, units, batch, tile_dw, split, s);
 }
 
+// The tensor-core form of enc_bwd_dw1, bf16 only, two launches in stream
+// order (three with the slices' sum):
+// * dh = (dmu @ w21ᵀ + dlv @ w22ᵀ)·(h > 0): one k-joined product
+//   (rvk::tc::launch_joined: the first ceil(latent / 64) k-steps read dmu
+//   and w21, the next as many dlv and w22, all K-major, into one fp32
+//   accumulator) with dh3's gated epilogue, rounded to bf16 into the
+//   scratch dh (pallas_mlp.py:535), in tiles 128 x tile_dh;
+// * dw1 = xᵀ dh and db1 = colsum(dh) from the rounded dh, as dW3 and db3
+//   are (launch_wgrad: x read M-major, dh N-major, `split` slices of the
+//   batch added in order through `workspace`), tiles 128 x tile_dw.
+// The TPU kernel keeps dh in VMEM between its two products; here it goes
+// through the scratch buffer, 32 MB written and read back at the step's
+// microbatch.
+int tensor_core_enc_bwd_dw1(const void* x, const void* h, const void* dmu,
+                            const void* dlv, const void* w21, const void* w22,
+                            void* dh, float* dw1, float* db1,
+                            float* workspace, int batch, int seg, int units,
+                            int latent, int dtype, int tile_dh, int tile_dw,
+                            int split, cudaStream_t s) {
+  if (dtype != rvk::kBF16 || batch <= 0) return cudaErrorInvalidValue;
+  using T = rvk::bf16;
+  const cudaError_t err = rvk::tc::launch_joined(
+      src<T>(dmu), src<T>(w21), src<T>(dlv), src<T>(w22), dst<T>(dh),
+      GatePair{}, batch, units, latent, tile_dh, s, src<T>(h));
+  if (err != cudaSuccess) return err;
+  return rvk::tc::launch_wgrad(src<T>(x), src<T>(dh), dw1, db1, workspace,
+                               seg, units, batch, tile_dw, split, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -341,9 +376,25 @@ int rvk_matmul_nt2_mask(const void* a1, const void* w1, const void* a2,
 }
 
 // a (batch, n), b (batch, m) of one dtype; dw (n, m), db (m,) fp32.
+// kernel (an rvk::tc::Kernel): 0, the tiled GEMM on the CUDA cores (tile_dw,
+// split and workspace ignored); 1, the tensor-core weight gradient
+// (rvk::tc::launch_wgrad), bf16 only, n and m multiples of 8, 16-byte
+// aligned pointers, batch > 0, in tiles 128 x tile_dw over `split` slices of
+// the batch, through `workspace` (split · (n · m + m) floats) when split > 1
+// (ops/tensor_cores.py wgrad_plan).
 int rvk_grad_accum(const void* a, const void* b, float* dw, float* db,
-                   int batch, int n, int m, int dtype, void* stream) {
+                   float* workspace, int batch, int n, int m, int dtype,
+                   int tile_dw, int split, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16 ||
+        batch <= 0) {
+      return cudaErrorInvalidValue;
+    }
+    using T = rvk::bf16;
+    return rvk::tc::launch_wgrad(src<T>(a), src<T>(b), dw, db, workspace, n,
+                                 m, batch, tile_dw, split, s);
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return grad_accum<T>(src<T>(a), src<T>(b), nullptr, dw, db, nullptr,
@@ -366,12 +417,27 @@ int rvk_grad_accum2(const void* a, const void* b1, const void* b2, float* dw1,
 
 // x (batch, seg), h (batch, units), dmu and dlv (batch, latent), w21 and
 // w22 (units, latent), scratch dh (batch, units), all of one dtype; dw1
-// (seg, units) and db1 (units,) fp32.
+// (seg, units) and db1 (units,) fp32.  kernel (an rvk::tc::Kernel): 0, the
+// two launches of the tiled GEMM on the CUDA cores (the tile widths, split
+// and workspace ignored); 1, the tensor-core form (tensor_core_enc_bwd_dw1),
+// bf16 only, seg, units and latent multiples of 8, 16-byte aligned
+// pointers, batch > 0: dh in tiles 128 x tile_dh, dw1 and db1 in 128 x
+// tile_dw over `split` slices of the batch, through `workspace` (split ·
+// (seg · units + units) floats) when split > 1 (ops/tensor_cores.py tile_n
+// and wgrad_plan).
 int rvk_enc_bwd_dw1(const void* x, const void* h, const void* dmu,
                     const void* dlv, const void* w21, const void* w22,
-                    void* dh, float* dw1, float* db1, int batch, int seg,
-                    int units, int latent, int dtype, void* stream) {
+                    void* dh, float* dw1, float* db1, float* workspace,
+                    int batch, int seg, int units, int latent, int dtype,
+                    int tile_dh, int tile_dw, int split, int kernel,
+                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
+    return tensor_core_enc_bwd_dw1(x, h, dmu, dlv, w21, w22, dh, dw1, db1,
+                                   workspace, batch, seg, units, latent,
+                                   dtype, tile_dh, tile_dw, split, s);
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return enc_bwd_dw1(src<T>(x), src<T>(h), src<T>(dmu), src<T>(dlv),

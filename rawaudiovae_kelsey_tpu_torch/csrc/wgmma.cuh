@@ -1,7 +1,8 @@
 // bf16 tensor-core mainloop for Hopper (sm_90a): the device routine of the
 // bf16 forms of rvk_linear_fwd, rvk_linear_ksplit_fwd (linear.cu),
-// rvk_matmul_nt and rvk_dec_bwd_fused (bwd.cu), rvk_toeplitz_fwd
-// (toeplitz.cu), rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu).
+// rvk_matmul_nt, rvk_grad_accum, rvk_enc_bwd_dw1 and rvk_dec_bwd_fused
+// (bwd.cu), rvk_toeplitz_fwd (toeplitz.cu), rvk_encoder_fwd and
+// rvk_decoder_fwd (mlp.cu).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -27,7 +28,8 @@
 // Which TPU kernels run on it: linear_fwd (_linear_kernel) and
 // linear_ksplit_fwd (_linear_ksplit_kernel) of
 // rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt, encoder_fwd
-// (_enc_fwd_kernel), decoder_fwd (_dec_fwd_kernel) and dec_bwd_fused
+// (_enc_fwd_kernel), decoder_fwd (_dec_fwd_kernel), grad_accum
+// (_grad_accum_kernel), enc_bwd_dw1 (_enc_bwd_dw1_kernel) and dec_bwd_fused
 // (_dec_bwd_fused_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py and
 // toeplitz_fwd (_toeplitz_kernel) of
 // rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py.  The TPU kernels carry
@@ -98,6 +100,13 @@
 //   logvar = h · W22: one launch of 2 · ceil(latent / BN) tile columns,
 //   where two launches would each leave half the SMs idle at the training
 //   microbatch (64 tiles of 128 x 256 for 132 SMs).
+// * Two products may be joined along k (JoinedKTiles): C = A1 · B1 + A2 ·
+//   B2, the encoder's dh = dmu · W21ᵀ + dlv · W22ᵀ.  The walk's first
+//   ceil(K / 64) k-steps read the first (A, B) pair, the next as many the
+//   second (Maps<kOuts, true>: a second A map and a second B map), into one
+//   fp32 accumulator; TMA zero-fills each pair's columns past K, so any K
+//   that is a multiple of 8 adds nothing past it.  No copy joins the
+//   operands in memory.
 // * Epilogue.  Stores of 4 bytes a thread straight from the accumulator
 //   layout, with the bias fetched and the activation chosen inside the
 //   unrolled loop, made the first epilogue 8 % of the kernel at 4096 x 4096
@@ -449,6 +458,10 @@ template <typename T, typename = void>
 constexpr bool kMMajorA = false;
 template <typename T>
 constexpr bool kMMajorA<T, std::void_t<decltype(T::kAT)>> = T::kAT;
+template <typename T, typename = void>
+constexpr bool kJoinedK = false;
+template <typename T>
+constexpr bool kJoinedK<T, std::void_t<decltype(T::kJoined)>> = T::kJoined;
 
 // A warpgroup's accumulators → its staging buffer (64 rows x BN columns as
 // BN / 64 chunks of 64 rows x 128 bytes, 128-byte swizzle: the layout a TMA
@@ -646,7 +659,9 @@ __device__ __forceinline__ void tile_origin(int tile, int tiles_m,
 //                               from n (load_c: the same box, loaded from a
 //                               tensor of C's shape, the gate);
 //   kOuts                       the outputs written side by side (above);
-//   kAT                         (optional) A is M-major.
+//   kAT                         (optional) A is M-major;
+//   kJoined, second(kb)         (optional) two products joined along k:
+//                               k-step kb reads the second (A, B) pair.
 
 // The plain product: A (M, K) row-major, each of the kOuts C (M, N)
 // row-major.  MatrixTiles writes one output, HeadsTiles two (the heads).
@@ -677,6 +692,24 @@ struct RowTiles {
 };
 using MatrixTiles = RowTiles<1>;
 using HeadsTiles = RowTiles<2>;
+
+// Two plain products joined along k (header, "joined along k"): C = A1 ·
+// B1 + A2 · B2, each A (M, K) row-major and each B read as MatrixTiles
+// reads it; K is one product's contraction.  k-steps 0 .. steps() - 1 read
+// the first pair, the next steps() the second, each from its column 0.
+struct JoinedKTiles : MatrixTiles {
+  static constexpr bool kJoined = true;
+  __device__ int steps() const { return (K + kTileK - 1) / kTileK; }
+  __device__ int k_steps(int) const { return 2 * steps(); }
+  __device__ bool second(int kb) const { return kb >= steps(); }
+  __device__ void load_a(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                         int tm, int kb) const {
+    tma_load(dst, map, bar, b_row(tm, kb), tm * kTileM);
+  }
+  __device__ int b_row(int, int kb) const {
+    return (second(kb) ? kb - steps() : kb) * kTileK;
+  }
+};
 
 // The block-Toeplitz product (header, "tile walk"): x (B, nb, G) as a 3-D
 // map (G, nb, B) with boxes (64, t_half, b_half), y (B, t_out, N) as (N,
@@ -774,22 +807,29 @@ struct WgradOut {
 
 // The tensor maps of one launch: A, and a (B, C) pair for each of the
 // kOuts outputs, and the gate of a gated functor (C's shape; unused
-// otherwise).  A kernel parameter (__grid_constant__): TMA reads the maps
-// where the launch put them.
-template <int kOuts>
+// otherwise); a k-joined walk's (kJoined) also the second pair's A and B.
+// A kernel parameter (__grid_constant__): TMA reads the maps where the
+// launch put them.
+template <int kOuts, bool kJoined = false>
 struct Maps {
   CUtensorMap a;
   CUtensorMap b[kOuts];
   CUtensorMap c[kOuts];
   CUtensorMap gate;
 };
+template <int kOuts>
+struct Maps<kOuts, true> : Maps<kOuts, false> {
+  CUtensorMap a2;
+  CUtensorMap b2;
+};
 
 // ------------------------------------------------------------ the mainloop
 
 template <int BN, int kStages, bool kBT, typename Epi, typename Tiles>
 __global__ void __launch_bounds__(kBlock, 1)
-wgmma_gemm_kernel(const __grid_constant__ Maps<Tiles::kOuts> maps,
-                  const Epi epi, const Tiles tiles, int N) {
+wgmma_gemm_kernel(
+    const __grid_constant__ Maps<Tiles::kOuts, kJoinedK<Tiles>> maps,
+    const Epi epi, const Tiles tiles, int N) {
   static_assert(BN == 64 || BN == 128 || BN == 256,
                 "the tile is 64, 128 or 256 wide");
   // a stage is released one step late (one wgmma group stays in flight)
@@ -855,16 +895,25 @@ wgmma_gemm_kernel(const __grid_constant__ Maps<Tiles::kOuts> maps,
           const uint32_t a_tile = ring + s * kStageBytes;
           const uint32_t b_tile = a_tile + kATileBytes;
           mbar_expect_tx(bar, stage_bytes);
-          tiles.load_a(a_tile, &maps.a, bar, tm, kb);
+          // a k-joined walk's second product reads the second pair
+          const CUtensorMap* step_a = &maps.a;
+          const CUtensorMap* step_b = map_b;
+          if constexpr (kJoinedK<Tiles>) {
+            if (tiles.second(kb)) {
+              step_a = &maps.a2;
+              step_b = &maps.b2;
+            }
+          }
+          tiles.load_a(a_tile, step_a, bar, tm, kb);
           const int k0 = tiles.b_row(tm, kb);
           if constexpr (kBT) {
 #pragma unroll
             for (int c = 0; c < BN / 64; ++c) {
-              tma_load(b_tile + c * kChunkBytes, map_b, bar, n0 + 64 * c,
+              tma_load(b_tile + c * kChunkBytes, step_b, bar, n0 + 64 * c,
                        k0);
             }
           } else {
-            tma_load(b_tile, map_b, bar, k0, n0);
+            tma_load(b_tile, step_b, bar, k0, n0);
           }
           if (++s == kStages) {
             s = 0;
@@ -1054,8 +1103,9 @@ inline cudaError_t cube_map(CUtensorMap* map, const bf16* p, int rows,
 }
 
 template <int BN, bool kBT, typename Epi, typename Tiles>
-cudaError_t launch_tiles(const Maps<Tiles::kOuts>& maps, const Epi& epi,
-                         const Tiles& tiles, int N, cudaStream_t stream) {
+cudaError_t launch_tiles(const Maps<Tiles::kOuts, kJoinedK<Tiles>>& maps,
+                         const Epi& epi, const Tiles& tiles, int N,
+                         cudaStream_t stream) {
   constexpr int kStages = stages_for(BN);
   auto kernel = wgmma_gemm_kernel<BN, kStages, kBT, Epi, Tiles>;
   // the ring, the two staging buffers, the slack to align them to 1024
@@ -1142,6 +1192,41 @@ cudaError_t launch_wgmma(const bf16* a, const bf16* b, bf16* c,
                          cudaStream_t stream, const bf16* gate = nullptr) {
   return launch_rows<kBT, MatrixTiles>(a, &b, &c, epi, M, N, K, tile_n,
                                        stream, gate);
+}
+
+// C = epi(a1 · b1ᵀ + a2 · b2ᵀ) on the tensor cores in 128 x tile_n tiles,
+// one k-joined walk (JoinedKTiles): a1 and a2 (M, K), b1 and b2 (N, K)
+// (K-major, matmul_nt's B), c (M, N), all row-major bf16 and 16-byte
+// aligned, K and N multiples of 8.  A gated functor reads `gate`, (M, N)
+// row-major bf16 and 16-byte aligned, as C's boxes.
+template <typename Epi>
+cudaError_t launch_joined(const bf16* a1, const bf16* b1, const bf16* a2,
+                          const bf16* b2, bf16* c, const Epi& epi, int M,
+                          int N, int K, int tile_n, cudaStream_t stream,
+                          const bf16* gate = nullptr) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(a1) ||
+      !aligned16(b1) || !aligned16(a2) || !aligned16(b2) || !aligned16(c) ||
+      kGated<Epi> != (gate != nullptr) || !aligned16(gate)) {
+    return cudaErrorInvalidValue;
+  }
+  return with_width(tile_n, [&](auto width) {
+    constexpr int BN = decltype(width)::value;
+    Maps<1, true> maps;
+    const cudaError_t errs[] = {
+        matrix_map(&maps.a, a1, M, K, kTileM, kTileK),
+        matrix_map(&maps.a2, a2, M, K, kTileM, kTileK),
+        matrix_map(&maps.b[0], b1, N, K, BN, kTileK),
+        matrix_map(&maps.b2, b2, N, K, BN, kTileK),
+        matrix_map(&maps.c[0], c, M, N, 64, 64),
+        gate != nullptr ? matrix_map(&maps.gate, gate, M, N, 64, 64)
+                        : cudaSuccess};
+    for (const cudaError_t err : errs) {
+      if (err != cudaSuccess) return err;
+    }
+    return launch_tiles<BN, false>(maps, epi, JoinedKTiles{{M, K}}, N,
+                                   stream);
+  });
 }
 
 // dst[i] = sum over s of src[s · (mn + n) + i] in slice order, i < mn + n;

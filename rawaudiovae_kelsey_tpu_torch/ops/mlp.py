@@ -451,13 +451,32 @@ def matmul_nt2_mask(a1, w1, a2, w2, gate) -> Tensor:
 matmul_nt2_mask.launches = 0
 
 
-def grad_accum(a, b) -> Tuple[Tensor, Tensor]:
+def _workspace(dev, split: int, m: int, n: int):
+    """The fp32 workspace of a weight gradient ``(m, n)`` cut into
+    ``split`` slices of the batch (each slice's dW and column sums), or
+    None for one slice."""
+    if split <= 1:
+        return None
+    return torch.empty((split, m * n + n), device=dev, dtype=torch.float32)
+
+
+def grad_accum(a, b, kernel: str = "auto") -> Tuple[Tensor, Tensor]:
     """Weight and bias gradients of ``y = a @ W + bias`` given the
     cotangent ``b``: ``(aᵀ b, colsum(b))`` in fp32, contracting the batch.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``grad_accum``.
-    CUDA: one launch (``csrc/bwd.cu``); each block loops over the whole
-    batch for its tile of dW, so the result is deterministic."""
+    CUDA: one launch (``csrc/bwd.cu``) of one of two hand-written kernels
+    chosen by :func:`resolve_grad_accum`: bf16 operands with n and m
+    multiples of 8, 16-byte aligned pointers and at least one row take the
+    tensor-core weight gradient (``csrc/wgmma.cuh`` ``launch_wgrad``: the
+    batch cut into ``tensor_cores.wgrad_plan`` 's slices, added in order
+    through a workspace allocated here; the column sums from the staged
+    ``b``), everything else the tiled GEMM on the CUDA cores, each of whose
+    blocks loops over the whole batch for its tile of dW.  ``kernel`` names
+    one instead, as for :func:`decoder_fwd`.  Both kernels give equal bits
+    on a second launch.  One call counts once in ``launches``, and in
+    ``tensor_core_launches`` too when the tensor cores ran it."""
+    tensor_cores.check_name("grad_accum", kernel)
     if a.device.type == "cpu":
         return grad_accum_ref(a, b)
     dev = cuda_device(a, "grad_accum: a")
@@ -466,14 +485,33 @@ def grad_accum(a, b) -> Tuple[Tensor, Tensor]:
     m = b.shape[1]
     require(a, "a", (batch, n), dev, dt)
     require(b, "b", (batch, m), dev, dt)
+    code = resolve_grad_accum(kernel, dt, batch, n, m,
+                              tensor_cores.pointers_aligned(a, b))
     dw, db = _grads(dev, (n, m), (m,))
-    _build.launch("rvk_grad_accum", dev, a, b, dw, db, batch, n, m,
-                  DTYPE_CODES[dt])
+    tile_dw, split = tensor_cores.wgrad(code, dev, n, m, batch)
+    _build.launch("rvk_grad_accum", dev, a, b, dw, db,
+                  _workspace(dev, split, n, m), batch, n, m, DTYPE_CODES[dt],
+                  tile_dw, split, code)
     grad_accum.launches += 1
+    grad_accum.tensor_core_launches += code == tensor_cores.TENSOR_CORES
     return dw, db
 
 
 grad_accum.launches = 0
+grad_accum.tensor_core_launches = 0
+
+
+def resolve_grad_accum(kernel: str, dtype: torch.dtype, batch: int, n: int,
+                       m: int, aligned: bool = True) -> int:
+    """The kernel code :func:`grad_accum` launches with: the tensor cores
+    when ``tensor_cores.takes_tensor_cores`` holds for ``batch`` rows, ``n``
+    and ``m`` (the rows of ``a`` and ``b`` are TMA's 16-byte rows; the
+    contraction is the batch, of any length), else the first version;
+    ``kernel`` names one instead (``tensor_cores.resolve``)."""
+    return tensor_cores.resolve(
+        "grad_accum", kernel,
+        tensor_cores.takes_tensor_cores(dtype, batch, n, m, aligned),
+        lambda: f"{dtype}, batch {batch}, n {n}, m {m}, aligned = {aligned}")
 
 
 def grad_accum2(a, b1, b2) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -502,14 +540,27 @@ def grad_accum2(a, b1, b2) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
 grad_accum2.launches = 0
 
 
-def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, Tensor]:
+def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
+                ) -> Tuple[Tensor, Tensor]:
     """Encoder first-layer gradients: ``dh = (dmu@w21ᵀ +
     dlogvar@w22ᵀ)·(h>0)`` rounded to the operand dtype, then ``(xᵀ dh,
     colsum(dh))`` in fp32.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``enc_bwd_dw1``.
-    CUDA: two launches (``csrc/bwd.cu``); ``dh`` goes through a scratch
-    buffer between them instead of staying in VMEM."""
+    CUDA: two launches (``csrc/bwd.cu``) of one of two hand-written kernels
+    chosen by :func:`resolve_enc_bwd_dw1`: bf16 operands with seg, units and
+    latent multiples of 8, 16-byte aligned pointers and at least one row
+    take the tensor-core kernel (``csrc/wgmma.cuh``: dh as one product
+    joined along k, dmu and w21 then dlogvar and w22, with the gate in its
+    epilogue; then dW1 and db1 as :func:`grad_accum` 's weight gradient,
+    through a workspace allocated here), everything else the tiled GEMM on
+    the CUDA cores.  ``kernel`` names one instead, as for
+    :func:`decoder_fwd`.  ``dh`` goes through a scratch buffer between the
+    two instead of staying in VMEM: at the step's microbatch 32 MB written
+    and read back, ~0.02 ms of an H100's memory time.  Both kernels give
+    equal bits on a second launch.  One call counts once in ``launches``,
+    and in ``tensor_core_launches`` too when the tensor cores ran it."""
+    tensor_cores.check_name("enc_bwd_dw1", kernel)
     if x.device.type == "cpu":
         return enc_bwd_dw1_ref(x, h, dmu, dlogvar, w21, w22)
     dev = cuda_device(x, "enc_bwd_dw1: x")
@@ -522,15 +573,40 @@ def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, Tensor]:
     require(dlogvar, "dlogvar", (batch, latent), dev, dt)
     require(w21, "w21", (units, latent), dev, dt)
     require(w22, "w22", (units, latent), dev, dt)
+    code = resolve_enc_bwd_dw1(
+        kernel, dt, batch, seg, units, latent,
+        tensor_cores.pointers_aligned(x, h, dmu, dlogvar, w21, w22))
     dh = torch.empty((batch, units), device=dev, dtype=dt)
     dw1, db1 = _grads(dev, (seg, units), (units,))
+    tile_dw, split = tensor_cores.wgrad(code, dev, seg, units, batch)
     _build.launch("rvk_enc_bwd_dw1", dev, x, h, dmu, dlogvar, w21, w22, dh,
-                  dw1, db1, batch, seg, units, latent, DTYPE_CODES[dt])
+                  dw1, db1, _workspace(dev, split, seg, units), batch, seg,
+                  units, latent, DTYPE_CODES[dt],
+                  tensor_cores.tile(code, dev, batch, units), tile_dw, split,
+                  code)
     enc_bwd_dw1.launches += 1
+    enc_bwd_dw1.tensor_core_launches += code == tensor_cores.TENSOR_CORES
     return dw1, db1
 
 
 enc_bwd_dw1.launches = 0
+enc_bwd_dw1.tensor_core_launches = 0
+
+
+def resolve_enc_bwd_dw1(kernel: str, dtype: torch.dtype, batch: int,
+                        seg: int, units: int, latent: int,
+                        aligned: bool = True) -> int:
+    """The kernel code :func:`enc_bwd_dw1` launches with: the tensor cores
+    when ``tensor_cores.takes_tensor_cores`` holds for dh (contraction
+    ``latent``, width ``units``) and for the rows of ``x`` (``seg``, TMA's
+    16-byte rows of the weight gradient's A), else the first version;
+    ``kernel`` names one instead (``tensor_cores.resolve``)."""
+    return tensor_cores.resolve(
+        "enc_bwd_dw1", kernel,
+        tensor_cores.takes_tensor_cores(dtype, batch, latent, units, aligned)
+        and tensor_cores.takes_tensor_cores(dtype, batch, seg, units),
+        lambda: f"{dtype}, batch {batch}, seg {seg}, units {units}, latent "
+                f"{latent}, aligned = {aligned}")
 
 
 def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
@@ -570,10 +646,9 @@ def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
     dz = torch.empty((batch, latent), device=dev, dtype=dt)
     dw3, db3 = _grads(dev, (latent, units), (units,))
     tile_dw, split = tensor_cores.wgrad(code, dev, latent, units, batch)
-    workspace = (torch.empty((split, latent * units + units), device=dev,
-                             dtype=torch.float32) if split > 1 else None)
     _build.launch("rvk_dec_bwd_fused", dev, da, h3, z, w4, w3, dh3, dz, dw3,
-                  db3, workspace, batch, seg, units, latent, DTYPE_CODES[dt],
+                  db3, _workspace(dev, split, latent, units), batch, seg,
+                  units, latent, DTYPE_CODES[dt],
                   tensor_cores.tile(code, dev, batch, units),
                   tensor_cores.tile(code, dev, batch, latent), tile_dw,
                   split, code)

@@ -2,17 +2,20 @@
 cores, the bf16 tensor-core form (``csrc/wgmma.cuh``) or the fp32
 register-tiled form (``csrc/sgemm.cuh``); and the tile of the latter two.
 
-Seven ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
+Nine ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
 linear.linear_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
 linear_ksplit_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.matmul_nt`,
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.toeplitz.toeplitz_fwd` (whose
 contraction is ``G`` a tap and output width ``N``),
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.encoder_fwd`,
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.decoder_fwd` (two products
-each, every one of which must fit) and
+each, every one of which must fit),
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.dec_bwd_fused` (dh3 and dz must
-fit; its weight gradient contracts the batch, split into slices by
-:func:`wgrad_plan`); three of them,
+fit), :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.enc_bwd_dw1` (dh, two
+products joined along k, must fit, and ``seg`` be a multiple of 8) and
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.grad_accum` (its rows of 16
+bytes); the last three contract the batch in a weight gradient, split
+into slices by :func:`wgrad_plan`; three of them,
 ``linear_fwd``, ``linear_ksplit_fwd`` and ``matmul_nt`` (:data:`SGEMM_OPS`),
 also an fp32 form.  The choice is a function of dtype, shape and pointer
 alignment alone (:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in
@@ -154,9 +157,13 @@ def wgrad_plan(m: int, n: int, k: int, sms: int) -> tuple:
     width of :data:`TILE_WIDTHS`, as many slices as fill one wave, at least
     :data:`WGRAD_MIN_STEPS` k-steps of 64 rows each, and the fewest that
     keep that many k-steps a slice (no slice is empty).  The width whose
-    grid takes the fewest waves times width times k-steps a slice wins, the
-    wider on a tie (it reads the operands fewer times, each slice reading
-    all of A and B's rows once)."""
+    grid takes the fewest waves times width times k-steps a slice wins; on
+    a tie, a plan of one slice (it writes dW once and needs no reduction),
+    then the wider (it reads the operands fewer times, each slice reading
+    all of A and B's rows once).  On an H100, dW4 and dW1 at microbatch
+    8192 (2048 x 1024, 1024 x 2048) ran 5.8 % and 3.9 % faster as one slice
+    of 128 x 128 tiles than as 2 slices of 128 x 256, the same single wave
+    (chip_smoke.py phase 3b; PERF.md section 6)."""
     steps = -(-k // 64)
     best = None
     for width in TILE_WIDTHS:
@@ -164,7 +171,7 @@ def wgrad_plan(m: int, n: int, k: int, sms: int) -> tuple:
         split = max(1, min(sms // tiles, steps // WGRAD_MIN_STEPS))
         per = -(-steps // split)
         split = -(-steps // per)
-        cost = -(-tiles * split // sms) * width * per
+        cost = (-(-tiles * split // sms) * width * per, split > 1)
         if best is None or cost < best[0]:
             best = (cost, width, split)
     return best[1], best[2]

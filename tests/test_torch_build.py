@@ -106,6 +106,15 @@ def test_every_bound_entry_point_is_exported_by_a_source():
     # the encoder: the hidden product's tile width, then the heads'
     assert exported["rvk_encoder_fwd"][-4:-1] == [
         "int tile_hidden", "int tile_heads", "int kernel"]
+    # the weight gradients on the tensor cores: the tile width and the
+    # batch's slices before the kernel, the slices' workspace after the
+    # outputs
+    assert exported["rvk_grad_accum"][-4:-1] == [
+        "int tile_dw", "int split", "int kernel"]
+    assert exported["rvk_enc_bwd_dw1"][-5:-1] == [
+        "int tile_dh", "int tile_dw", "int split", "int kernel"]
+    for name in ("rvk_grad_accum", "rvk_enc_bwd_dw1", "rvk_dec_bwd_fused"):
+        assert "float* workspace" in exported[name], name
     for src in ("linear.cu", "bwd.cu", "toeplitz.cu", "mlp.cu"):
         assert '#include "wgmma.cuh"' in (_build.CSRC / src).read_text()
     assert (_build.CSRC / "wgmma.cuh").is_file()
@@ -150,7 +159,8 @@ def test_every_wrapper_names_a_bound_entry_point():
         [_build._P] * 4 + [_build._I] * 14 + [_build._P])
     for w in ops.KERNEL_WRAPPERS:
         if w.__name__ in ("linear_fwd", "linear_ksplit_fwd", "matmul_nt",
-                          "toeplitz_fwd", "encoder_fwd"):
+                          "toeplitz_fwd", "encoder_fwd", "decoder_fwd",
+                          "dec_bwd_fused", "grad_accum", "enc_bwd_dw1"):
             assert w.tensor_core_launches == 0 \
                 or isinstance(w.tensor_core_launches, int)
             assert "kernel" in inspect.signature(w).parameters

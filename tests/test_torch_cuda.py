@@ -1851,3 +1851,150 @@ def test_bf16_dense_step_runs_the_decoder_on_the_tensor_cores(cuda):
     for f, (n, n_tc) in zip(ops_, before):
         assert (f.launches - n, f.tensor_core_launches - n_tc) == (4, 4)
     assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
+
+
+# ---- rows 7 and 8 in bf16 on csrc/wgmma.cuh.  grad_accum is the weight
+# gradient's launch alone (dW4 = h3ᵀ da at the step); enc_bwd_dw1 runs dh as
+# one product joined along k (dmu and w21, then dlv and w22) with the gate
+# in its epilogue, then that weight gradient: every output within BF16_REL
+# of its plain version and of the first version, equal bits on a second
+# launch; shapes (batch, latent, units, seg) as DECODER_TC's (latent 8: one
+# k-step a product, zero-filled past column 8).
+
+def _weight_gradient_operands(device, batch, latent, units, seg, seed=0):
+    """(x, h, dmu, dlv, w21, w22) for enc_bwd_dw1 and (h3, da) for
+    grad_accum, bf16."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, relu=False):
+        t = torch.randn(shape, generator=g, device=device) * scale
+        return (t.clamp_min(0) if relu else t).bfloat16()
+
+    x, h = rnd(batch, seg, scale=0.3), rnd(batch, units, relu=True)
+    dmu, dlv = rnd(batch, latent), rnd(batch, latent)
+    w21 = rnd(units, latent, scale=units ** -0.5)
+    w22 = rnd(units, latent, scale=units ** -0.5)
+    h3, da = rnd(batch, units, relu=True), rnd(batch, seg, scale=1e-2)
+    return (x, h, dmu, dlv, w21, w22), (h3, da)
+
+
+def _weight_gradient_ops(cuda, shape, seed=0):
+    enc, dec = _weight_gradient_operands(cuda, *shape, seed=seed)
+    return ((mlp.grad_accum, mlp.grad_accum_ref, dec),
+            (mlp.enc_bwd_dw1, mlp.enc_bwd_dw1_ref, enc))
+
+
+@pytest.mark.parametrize("shape", DECODER_TC, ids=str)
+def test_tensor_core_weight_gradients_match_plain_and_first_version(cuda,
+                                                                   shape):
+    for op, plain, ops_ in _weight_gradient_ops(cuda, shape):
+        want = plain(*ops_)
+        first, rose = _ran_tc(op, *ops_, kernel="cuda_cores")
+        assert rose == (1, 0)
+        got, rose = _ran_tc(op, *ops_)                                # auto
+        assert rose == (1, 1)
+        for g, w, f in zip(got, want, first):
+            assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+            assert bool(torch.isfinite(g).all())
+            assert _rel(g, w) <= BF16_REL
+            assert _rel(g, f) <= BF16_REL
+        for g, a in zip(got, op(*ops_, kernel="tensor_cores")):
+            assert torch.equal(g, a)
+
+
+def test_tensor_core_weight_gradient_dispatch_on_the_card(cuda):
+    """A width no multiple of 8, fp32 and an unaligned view keep the first
+    version under ``auto`` and raise for ``kernel="tensor_cores"``; a
+    zero-row batch gives zero gradients."""
+    (enc, dec) = _weight_gradient_operands(cuda, 1000, 36, 2048, 1020)
+    for op, plain, ops_, what in (
+            (mlp.grad_accum, mlp.grad_accum_ref, dec, "m 1020"),
+            (mlp.enc_bwd_dw1, mlp.enc_bwd_dw1_ref, enc, "seg 1020")):
+        got, rose = _ran_tc(op, *ops_)
+        assert rose == (1, 0)
+        for g, w in zip(got, plain(*ops_)):
+            assert _rel(g, w) <= BF16_REL
+        with pytest.raises(ValueError, match=what):
+            op(*ops_, kernel="tensor_cores")
+    for (op, _, ops_), at in zip(
+            _weight_gradient_ops(cuda, (256, 256, 2048, 1024)), (1, 0)):
+        f32 = [t.float() for t in ops_]
+        _, rose = _ran_tc(op, *f32)
+        assert rose == (1, 0)
+        with pytest.raises(ValueError, match="takes bf16 operands"):
+            op(*f32, kernel="tensor_cores")
+        t = ops_[at]
+        off = torch.empty(t.numel() + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view_as(t).copy_(t)
+        moved = [off if i == at else u for i, u in enumerate(ops_)]
+        got, rose = _ran_tc(op, *moved)
+        assert rose == (1, 0)
+        for g, f in zip(got, op(*ops_, kernel="cuda_cores")):
+            assert torch.equal(g, f)
+        with pytest.raises(ValueError, match="aligned = False"):
+            op(*moved, kernel="tensor_cores")
+        empty = [u[:0] if u.shape[0] == 256 else u for u in ops_]
+        for g in op(*empty):
+            torch.cuda.synchronize()
+            assert not g.any()
+
+
+@pytest.mark.parametrize("plan", [(256, 8), (256, 1), (128, 4), (64, 3),
+                                  (64, 16)])
+def test_every_plan_of_rows_7_and_8_matches_plain(cuda, plan, monkeypatch):
+    """grad_accum and enc_bwd_dw1 with the weight gradient's plan forced at
+    the ragged 8100 rows: one slice, uneven slices, every tile width; equal
+    bits twice."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    monkeypatch.setattr(tensor_cores, "wgrad_plan",
+                        lambda m, n, k, sms: plan)
+    for op, plain, ops_ in _weight_gradient_ops(
+            cuda, (8100, 256, 2048, 1024), seed=5):
+        got, rose = _ran_tc(op, *ops_)
+        assert rose == (1, 1)
+        for g, w in zip(got, plain(*ops_)):
+            assert _rel(g, w) <= BF16_REL
+        for g, a in zip(got, op(*ops_)):
+            assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("width", [64, 128, 256])
+def test_every_joined_dh_tile_width_matches_plain(cuda, width, monkeypatch):
+    """enc_bwd_dw1 with dh's tile width forced (the weight gradient's plan
+    as the rule gives it)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    monkeypatch.setattr(tensor_cores, "tile_n",
+                        lambda tiles_m, n, sms: width)
+    enc, _ = _weight_gradient_operands(cuda, 1000, 72, 2048, 1024, seed=7)
+    got, rose = _ran_tc(mlp.enc_bwd_dw1, *enc)
+    assert rose == (1, 1)
+    for g, w in zip(got, mlp.enc_bwd_dw1_ref(*enc)):
+        assert _rel(g, w) <= BF16_REL
+
+
+def test_bf16_dense_step_runs_the_weight_gradients_on_the_tensor_cores(cuda):
+    """One bf16 step of the dense kernel backend at batch 3 x 1024 with
+    microbatch 1024 plus a ragged tail: every grad_accum and enc_bwd_dw1
+    launch on the tensor cores."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.backend, cfg.tpu.precision = "pallas", "bfloat16"
+    cfg.tpu.microbatch_size = 1024
+    x = torch.rand((3 * 1024 + 100, cfg.audio.segment_length),
+                   device=cuda) * 2 - 1
+    model = build_model(cfg, cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    ops_ = (mlp.grad_accum, mlp.enc_bwd_dw1)
+    before = [(f.launches, f.tensor_core_launches) for f in ops_]
+    state, m = build_train_step(model, cfg)(state, x)
+    torch.cuda.synchronize()
+    for f, (n, n_tc) in zip(ops_, before):
+        assert (f.launches - n, f.tensor_core_launches - n_tc) == (4, 4)
+    assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))

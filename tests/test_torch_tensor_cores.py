@@ -1311,3 +1311,260 @@ def test_a_cpu_decoder_takes_the_plain_version_whatever_the_kernel():
                       mlp.decoder_fwd.tensor_core_launches,
                       mlp.dec_bwd_fused.launches,
                       mlp.dec_bwd_fused.tensor_core_launches)
+
+
+# ---- bf16 grad_accum and enc_bwd_dw1 on the tensor cores
+#
+# grad_accum takes the tensor-core weight gradient (csrc/wgmma.cuh
+# launch_wgrad) when its operands' rows are TMA's 16-byte rows (n and m
+# multiples of 8) and there is a row; enc_bwd_dw1 when dh, two products
+# joined along k, fits (k = latent, n = units) and seg is a multiple of 8.
+# The step's uses: dW4 = h3ᵀ da (n = units, m = seg) and dW1 = xᵀ dh.
+
+DW4 = (2048, 1024)             # configs/default.ini: units, seg
+
+
+def _grad_accum_operands(batch, n, m, dtype, device="meta"):
+    """(a, b), empty, of the given widths."""
+    return tuple(torch.empty(s, device=device, dtype=dtype)
+                 for s in ((batch, n), (batch, m)))
+
+
+def _enc_bwd_operands(batch, seg, units, latent, dtype, device="meta"):
+    """(x, h, dmu, dlogvar, w21, w22), empty, of the given widths."""
+    shapes = ((batch, seg), (batch, units), (batch, latent), (batch, latent),
+              (units, latent), (units, latent))
+    return tuple(torch.empty(s, device=device, dtype=dtype) for s in shapes)
+
+
+@pytest.mark.parametrize("batch", [MICROBATCH, 1000, 1, 256])
+def test_the_dense_weight_gradients_take_the_tensor_cores(batch):
+    for resolve, widths in ((mlp.resolve_grad_accum, DW4),
+                            (mlp.resolve_enc_bwd_dw1, DENSE)):
+        assert resolve("auto", BF16, batch, *widths) == 1
+        assert resolve("tensor_cores", BF16, batch, *widths) == 1
+        assert resolve("cuda_cores", BF16, batch, *widths) == 0
+        # fp32 (the `float32` / `highest` tiers) keeps the first version
+        assert resolve("auto", F32, batch, *widths) == 0
+
+
+def _kept_off_the_tensor_cores(op, resolve, dtype, widths):
+    assert resolve("auto", dtype, *widths) == 0
+    assert resolve("cuda_cores", dtype, *widths) == 0
+    with pytest.raises(ValueError, match=f"{op}: kernel 'tensor_cores' "
+                       "takes bf16 operands"):
+        resolve("tensor_cores", dtype, *widths)
+    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+        resolve("sgemm", dtype, *widths)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        resolve("wgmma", dtype, *widths)
+
+
+@pytest.mark.parametrize("dtype,batch,n,m,aligned", [
+    (F32, MICROBATCH, 2048, 1024, True),      # fp32: queue B.5
+    (BF16, MICROBATCH, 2044, 1024, True),     # n % 8 != 0
+    (BF16, MICROBATCH, 2048, 1020, True),     # m % 8 != 0
+    (BF16, 1000, 70, 18, True),               # odd widths
+    (BF16, MICROBATCH, 2048, 1024, False),    # an unaligned view
+    (BF16, 0, 2048, 1024, True),              # no rows
+    (torch.float16, MICROBATCH, 2048, 1024, True),
+], ids=["fp32", "n%8", "m%8", "odd", "unaligned", "no-rows", "fp16"])
+def test_what_keeps_grad_accum_on_the_cuda_cores(dtype, batch, n, m,
+                                                 aligned):
+    _kept_off_the_tensor_cores("grad_accum", mlp.resolve_grad_accum, dtype,
+                               (batch, n, m, aligned))
+
+
+@pytest.mark.parametrize("dtype,batch,seg,units,latent,aligned", [
+    (F32, MICROBATCH, 1024, 2048, 256, True),     # fp32: queue B.5
+    (BF16, MICROBATCH, 1024, 2048, 36, True),     # latent % 8 != 0
+    (BF16, MICROBATCH, 1024, 2044, 256, True),    # units % 8 != 0
+    (BF16, MICROBATCH, 1020, 2048, 256, True),    # seg % 8 != 0
+    (BF16, 1000, 70, 130, 18, True),              # odd widths
+    (BF16, MICROBATCH, 1024, 2048, 256, False),   # an unaligned view
+    (BF16, 0, 1024, 2048, 256, True),             # no rows
+    (torch.float16, MICROBATCH, 1024, 2048, 256, True),
+], ids=["fp32", "latent%8", "units%8", "seg%8", "odd", "unaligned",
+        "no-rows", "fp16"])
+def test_what_keeps_enc_bwd_dw1_on_the_cuda_cores(dtype, batch, seg, units,
+                                                  latent, aligned):
+    _kept_off_the_tensor_cores("enc_bwd_dw1", mlp.resolve_enc_bwd_dw1, dtype,
+                               (batch, seg, units, latent, aligned))
+
+
+def test_grad_accum_passes_the_kernel_code_plan_and_workspace(monkeypatch):
+    """What reaches rvk_grad_accum: 12 arguments, the workspace ((split,
+    n·m + m) fp32 where the plan has more than one slice), the dtype, the
+    weight gradient's tile width and split (tensor_cores.wgrad_plan), the
+    kernel code; the first version gets zeros and no workspace."""
+    launched = _stand_in(monkeypatch)
+    counts = (mlp.grad_accum.launches, mlp.grad_accum.tensor_core_launches)
+    for batch in (MICROBATCH, 4096, 1000, 1):
+        ops = _grad_accum_operands(batch, *DW4, BF16)
+        dw, db = mlp.grad_accum(*ops)
+        assert (dw.shape, db.shape) == ((2048, 1024), (1024,))
+        assert dw.dtype == db.dtype == F32
+        name, args = launched.pop()
+        # a, b, dw, db, workspace | batch, n, m, dtype, tile_dw, split,
+        # kernel
+        assert name == "rvk_grad_accum" and len(args) == 12
+        assert args[:2] == ops and args[2] is dw and args[3] is db
+        plan = tensor_cores.wgrad_plan(*DW4, batch, 132)
+        assert args[5:] == (batch, *DW4, 1, *plan, 1)
+        if plan[1] > 1:
+            assert args[4].shape == (plan[1], 2048 * 1024 + 1024)
+            assert args[4].dtype == F32
+        else:
+            assert args[4] is None
+    mlp.grad_accum(*_grad_accum_operands(MICROBATCH, *DW4, BF16),
+                   kernel="cuda_cores")
+    args = launched.pop()[1]
+    assert args[4] is None and args[8:] == (1, 0, 0, 0)
+    mlp.grad_accum(*_grad_accum_operands(256, *DW4, F32))
+    assert launched.pop()[1][8:] == (0, 0, 0, 0)
+    # no rows: the first version, which writes zero gradients
+    mlp.grad_accum(*_grad_accum_operands(0, *DW4, BF16))
+    assert launched.pop()[1][8:] == (1, 0, 0, 0)
+    # a plan of more than one slice: the workspace holds each slice's dW
+    # and column sums
+    monkeypatch.setattr(tensor_cores, "wgrad_plan",
+                        lambda m, n, k, sms: (256, 2))
+    mlp.grad_accum(*_grad_accum_operands(MICROBATCH, *DW4, BF16))
+    args = launched.pop()[1]
+    assert args[4].shape == (2, 2048 * 1024 + 1024) and args[4].dtype == F32
+    assert args[9:] == (256, 2, 1)
+    assert (mlp.grad_accum.launches - counts[0],
+            mlp.grad_accum.tensor_core_launches - counts[1]) == (8, 5)
+
+
+def test_enc_bwd_dw1_passes_the_kernel_code_tiles_plan_and_workspace(
+        monkeypatch):
+    """What reaches rvk_enc_bwd_dw1: 19 arguments, the scratch dh, the
+    workspace ((split, seg·units + units) fp32 where the plan has more
+    than one slice), the dtype, dh's tile width, the weight gradient's
+    tile width and split, the kernel code; the first version gets zeros
+    and no workspace."""
+    launched = _stand_in(monkeypatch)
+    counts = (mlp.enc_bwd_dw1.launches, mlp.enc_bwd_dw1.tensor_core_launches)
+    # dh at 8192 is 64 tile rows x 8 of 256 (as dh3), at 1 one tile row of
+    # 64
+    for batch, tile_dh in ((MICROBATCH, 256), (4096, 256), (1, 64)):
+        ops = _enc_bwd_operands(batch, *DENSE, BF16)
+        dw1, db1 = mlp.enc_bwd_dw1(*ops)
+        assert (dw1.shape, db1.shape) == ((1024, 2048), (2048,))
+        name, args = launched.pop()
+        # x, h, dmu, dlogvar, w21, w22, dh, dw1, db1, workspace | batch,
+        # seg, units, latent, dtype, tile_dh, tile_dw, split, kernel
+        assert name == "rvk_enc_bwd_dw1" and len(args) == 19
+        assert args[:6] == ops and args[7] is dw1 and args[8] is db1
+        assert args[6].shape == (batch, 2048) and args[6].dtype == BF16
+        plan = tensor_cores.wgrad_plan(1024, 2048, batch, 132)
+        assert args[10:] == (batch, *DENSE, 1, tile_dh, *plan, 1)
+        if plan[1] > 1:
+            assert args[9].shape == (plan[1], 1024 * 2048 + 2048)
+        else:
+            assert args[9] is None
+    mlp.enc_bwd_dw1(*_enc_bwd_operands(MICROBATCH, *DENSE, BF16),
+                    kernel="cuda_cores")
+    args = launched.pop()[1]
+    assert args[9] is None and args[14:] == (1, 0, 0, 0, 0)
+    mlp.enc_bwd_dw1(*_enc_bwd_operands(256, *DENSE, F32))
+    assert launched.pop()[1][14:] == (0, 0, 0, 0, 0)
+    monkeypatch.setattr(tensor_cores, "wgrad_plan",
+                        lambda m, n, k, sms: (64, 3))
+    mlp.enc_bwd_dw1(*_enc_bwd_operands(MICROBATCH, *DENSE, BF16))
+    args = launched.pop()[1]
+    assert args[9].shape == (3, 1024 * 2048 + 2048) and args[9].dtype == F32
+    assert args[15:] == (256, 64, 3, 1)
+    assert (mlp.enc_bwd_dw1.launches - counts[0],
+            mlp.enc_bwd_dw1.tensor_core_launches - counts[1]) == (6, 4)
+
+
+@pytest.mark.parametrize("op", ["grad_accum", "enc_bwd_dw1"])
+def test_a_named_tensor_core_weight_gradient_raises_on_what_it_cannot_take(
+        monkeypatch, op):
+    launched = _stand_in(monkeypatch)
+    if op == "grad_accum":
+        fn = mlp.grad_accum
+        odd, what = _grad_accum_operands(8, 2048, 1020, BF16), "m 1020"
+        dense = _grad_accum_operands(8, *DW4, BF16)
+    else:
+        fn = mlp.enc_bwd_dw1
+        odd, what = _enc_bwd_operands(8, 1024, 2048, 36, BF16), "latent 36"
+        dense = _enc_bwd_operands(8, *DENSE, BF16)
+    with pytest.raises(ValueError, match=what):
+        fn(*odd, kernel="tensor_cores")
+    with pytest.raises(ValueError, match="takes bf16 operands"):
+        fn(*[t.float() for t in dense], kernel="tensor_cores")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        fn(*dense, kernel="wgmma")
+    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+        fn(*dense, kernel="sgemm")
+    monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
+    with pytest.raises(ValueError, match="aligned = False"):
+        fn(*dense, kernel="tensor_cores")
+    assert launched == []
+    fn(*dense)
+    assert launched.pop()[1][-1] == 0
+
+
+@pytest.mark.parametrize("op", ["grad_accum", "enc_bwd_dw1"])
+def test_the_weight_gradients_check_every_pointer_for_alignment(monkeypatch,
+                                                                op):
+    _stand_in(monkeypatch)
+    seen = []
+    monkeypatch.setattr(tensor_cores, "pointers_aligned",
+                        lambda *t: seen.append(t) or True)
+    if op == "grad_accum":
+        ops = _grad_accum_operands(8, *DW4, BF16)
+        mlp.grad_accum(*ops)
+    else:
+        ops = _enc_bwd_operands(8, *DENSE, BF16)
+        mlp.enc_bwd_dw1(*ops)
+    assert len(seen) == 1 and len(seen[0]) == len(ops)
+    assert {id(t) for t in seen[0]} == {id(t) for t in ops}
+
+
+def test_cpu_weight_gradients_take_the_plain_version_whatever_the_kernel():
+    g = torch.Generator().manual_seed(0)
+    acc = [torch.randn(t.shape, generator=g).to(BF16)
+           for t in _grad_accum_operands(5, 24, 16, BF16, "cpu")]
+    enc = [torch.randn(t.shape, generator=g).to(BF16)
+           for t in _enc_bwd_operands(5, 16, 24, 8, BF16, "cpu")]
+    ops_ = (mlp.grad_accum, mlp.enc_bwd_dw1)
+    before = [(f.launches, f.tensor_core_launches) for f in ops_]
+    want = mlp.grad_accum_ref(*acc)
+    want_enc = mlp.enc_bwd_dw1_ref(*enc)
+    for kernel in ("auto", "cuda_cores", "tensor_cores", "sgemm"):
+        for got, w in zip(mlp.grad_accum(*acc, kernel=kernel), want):
+            assert torch.equal(got, w)
+        for got, w in zip(mlp.enc_bwd_dw1(*enc, kernel=kernel), want_enc):
+            assert torch.equal(got, w)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        mlp.grad_accum(*acc, kernel="wgmma")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        mlp.enc_bwd_dw1(*enc, kernel="wgmma")
+    assert before == [(f.launches, f.tensor_core_launches) for f in ops_]
+
+
+@pytest.mark.parametrize("m,n", [DW4, DW4[::-1]], ids=["dW4", "dW1"])
+@pytest.mark.parametrize("batch", [MICROBATCH, 4096, 1000, 1])
+def test_the_weight_gradient_plan_at_dw4_and_dw1(m, n, batch):
+    """dW4 (2048 x 1024) and dW1 (1024 x 2048) on 132 SMs: no empty slice,
+    one wave, and at the microbatch the plan chip_smoke.py phase 3b's sweep
+    confirms."""
+    width, split = tensor_cores.wgrad_plan(m, n, batch, 132)
+    total = -(-batch // 64)
+    steps = -(-total // split)
+    assert -(-total // steps) == split
+    tiles = -(-m // 128) * -(-n // width)
+    assert tiles * split <= max(132, tiles)
+    assert (width, split) == WGRAD_PLANS[batch]
+
+
+# the rule's plans (tile width, slices) for dW4 and dW1 by batch: one slice
+# of 128 x 128 tiles, 128 of them at 8192 (one wave); the sweep on the card
+# found it 5.8 % (dW4) and 3.9 % (dW1) ahead of 2 slices of 128 x 256,
+# which ties it on the rule's cost
+WGRAD_PLANS = {MICROBATCH: (128, 1), 4096: (128, 1), 1000: (128, 1),
+               1: (128, 1)}

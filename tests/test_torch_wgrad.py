@@ -1,18 +1,23 @@
-"""The tensor-core form of bf16 ``dec_bwd_fused`` (rawaudiovae_kelsey_tpu_torch
-/csrc/bwd.cu ``tensor_core_dec_bwd`` on csrc/wgmma.cuh), modelled in Python:
-the M-major A staging of the weight gradient, its split of the batch and
-the fixed-order sums of the slices and of the column-sum groups, and the
-three launches emulated at a small width against the plain version and the
-JAX kernel.  The kernels themselves run only on the card
-(tests/test_torch_cuda.py, chip_smoke.py phase 3b).
+"""The tensor-core forms of bf16 ``dec_bwd_fused``, ``grad_accum`` and
+``enc_bwd_dw1`` (rawaudiovae_kelsey_tpu_torch/csrc/bwd.cu on
+csrc/wgmma.cuh), modelled in Python: the M-major A staging of the weight
+gradient, its split of the batch and the fixed-order sums of the slices and
+of the column-sum groups, the k-joined walk of ``enc_bwd_dw1`` 's dh (which
+map and columns each k-step reads), and the launches emulated at a small
+width against the plain versions and the JAX kernels.  The kernels
+themselves run only on the card (tests/test_torch_cuda.py, chip_smoke.py
+phase 3b).
 
 Tolerances.  The emulation forms the same fp32 sums of exact bf16 products
 as the plain version, cut along the batch and the columns and added in
 another order: dz (bf16) may flip one bf16 ulp where the two sums straddle a
-rounding boundary, ``2^-8 · max|plain|``; dW3 and db3 are fp32 sums of at
-most 300 terms, ``1e-5 · max|plain|`` (measured ~1e-7).  Against the JAX
-kernel in interpret mode the bound is tests/test_torch_backward.py's for
-outputs behind the rounded ``dh3``, ``2^-7 · max|JAX|``.
+rounding boundary, ``2^-8 · max|plain|``; a weight gradient from exact bf16
+products (dW3 and db3 from the emulated dh3, dW4 and db4, dW1 and db1 from
+the emulated dh) is an fp32 sum of at most 300 terms, ``1e-5 · max|plain|``
+(measured ~1e-7).  Outputs behind a rounded hidden cotangent held against
+a version that rounds its own (the JAX kernel in interpret mode, the plain
+``enc_bwd_dw1``) take tests/test_torch_backward.py's bound, ``2^-7 ·
+max|JAX|``: one element of dh may flip by a bf16 ulp.
 """
 
 import jax.numpy as jnp
@@ -160,12 +165,41 @@ def _gate_tile(da, w4, h3, m0, n0, bn):
     return torch.where(h3[rows, cols].float() > 0, prod, 0.0).to(BF16)
 
 
+def _wgrad(a, b, bn_dw, split):
+    """(dW, db) = (aᵀ b, colsum(b)) in fp32 as launch_wgrad computes them
+    from bf16 a (K, M) and b (K, N): slice by slice (each slice's tiles a
+    whole fp32 dW, the slices added in order: sum_slices); db from the
+    staged b of dW's first tile row, summed per thread over the rows of its
+    group in k order, the groups in order, then the slices in order."""
+    batch, m, n = a.shape[0], a.shape[1], b.shape[1]
+    groups, rows_a_group = 512 // bn_dw, bn_dw // 8
+    work = torch.zeros((split, m * n + n))
+    for s, steps in enumerate(_slices(batch, split)):
+        rows = slice(steps[0] * TILE_K, min(batch, (steps[-1] + 1) * TILE_K))
+        part = a[rows].float().t() @ b[rows].float()
+        work[s, :m * n] = part.reshape(-1)
+        sums = torch.zeros((groups, n))
+        for kb in steps:
+            stage = torch.zeros((TILE_K, n))
+            k0 = kb * TILE_K
+            stage[:min(batch, k0 + TILE_K) - k0] = b[k0:k0 + TILE_K].float()
+            for g in range(groups):
+                for r in range(g * rows_a_group, (g + 1) * rows_a_group):
+                    sums[g] += stage[r]
+        col = torch.zeros(n)
+        for g in range(groups):
+            col += sums[g]
+        work[s, m * n:] = col
+    total = work[0].clone()
+    for s in range(1, split):
+        total += work[s]
+    return total[:m * n].reshape(m, n), total[m * n:]
+
+
 def _emulate(da, h3, z, w4, w3, bn_dh3, bn_dz, bn_dw, split):
     """(dz, dW3, db3) as tensor_core_dec_bwd's three launches compute them:
-    dh3 and dz tile by tile; dW3 slice by slice (each slice's tiles a whole
-    fp32 dW, the slices added in order: sum_slices); db3 from the staged
-    dh3 of dW3's first tile row, summed per thread over the rows of its
-    group in k order, the groups in order, then the slices in order."""
+    dh3 and dz tile by tile, then dW3 and db3 as launch_wgrad does
+    (_wgrad)."""
     batch, units, latent = h3.shape[0], h3.shape[1], z.shape[1]
     dh3 = torch.empty((batch, units), dtype=BF16)
     for m0 in range(0, batch, TILE_M):
@@ -178,29 +212,7 @@ def _emulate(da, h3, z, w4, w3, bn_dh3, bn_dz, bn_dw, split):
             dz[m0:m0 + TILE_M, n0:n0 + bn_dz] = (
                 dh3[m0:m0 + TILE_M].float()
                 @ w3[n0:n0 + bn_dz].float().t()).to(BF16)
-    groups, rows_a_group = 512 // bn_dw, bn_dw // 8
-    work = torch.zeros((split, latent * units + units))
-    for s, steps in enumerate(_slices(batch, split)):
-        rows = slice(steps[0] * TILE_K, min(batch, (steps[-1] + 1) * TILE_K))
-        part = z[rows].float().t() @ dh3[rows].float()
-        work[s, :latent * units] = part.reshape(-1)
-        sums = torch.zeros((groups, units))
-        for kb in steps:
-            stage = torch.zeros((TILE_K, units))
-            k0 = kb * TILE_K
-            stage[:min(batch, k0 + TILE_K) - k0] = dh3[k0:k0 + TILE_K].float()
-            for g in range(groups):
-                for r in range(g * rows_a_group, (g + 1) * rows_a_group):
-                    sums[g] += stage[r]
-        col = torch.zeros(units)
-        for g in range(groups):
-            col += sums[g]
-        work[s, latent * units:] = col
-    total = work[0].clone()
-    for s in range(1, split):
-        total += work[s]
-    return dz, total[:latent * units].reshape(latent, units), \
-        total[latent * units:]
+    return (dz, *_wgrad(z, dh3, bn_dw, split))
 
 
 def _operands(batch, seg, units, latent, seed=0):
@@ -273,3 +285,150 @@ def test_the_slice_workspace_layout_is_sum_slices():
         (dw[i:i + 4] if i < M * N else db[i - M * N:i - M * N + 4])[:] = acc
     total = work[0] + work[1] + work[2]
     assert torch.equal(dw, total[:M * N]) and torch.equal(db, total[M * N:])
+
+
+# ---- rows 7 and 8: grad_accum on launch_wgrad alone, enc_bwd_dw1 as the
+# k-joined gated dh, then launch_wgrad
+
+def _joined_steps(latent):
+    """The loads of each k-step of the k-joined walk (JoinedKTiles) for a
+    contraction of ``latent`` columns a product: (pair, A's first column,
+    B's first column); pair 0 is (dmu, w21), pair 1 (dlv, w22)."""
+    steps = -(-latent // TILE_K)
+    out = []
+    for kb in range(2 * steps):
+        second = kb >= steps
+        col = (kb - steps if second else kb) * TILE_K
+        out.append((int(second), col, col))
+    return out
+
+
+@pytest.mark.parametrize("latent", [256, 72, 8])
+def test_the_joined_walk_reads_every_column_of_both_products_once(latent):
+    """Each product's k-steps come in a run, the first pair's first; A and
+    B of a step start at the same column; every column below ``latent`` of
+    dmu / w21 and of dlv / w22 is read by exactly one step, and the
+    columns of the last box past ``latent`` (TMA's zeros) by none."""
+    walk = _joined_steps(latent)
+    steps = -(-latent // TILE_K)
+    assert len(walk) == 2 * steps
+    assert [p for p, _, _ in walk] == [0] * steps + [1] * steps
+    for pair in (0, 1):
+        seen = np.zeros(steps * TILE_K, dtype=np.int64)
+        for p, col_a, col_b in walk:
+            if p == pair:
+                assert col_a == col_b
+                seen[col_a:col_a + TILE_K] += 1
+        assert (seen == 1).all()
+        assert steps * TILE_K - latent == {256: 0, 72: 56, 8: 56}[latent]
+
+
+def _joined_dh_tile(dmu, dlv, w21, w22, h, m0, n0, bn):
+    """dh of one 128 x bn tile as the k-joined walk forms it: one fp32
+    accumulator that adds each k-step's 64 columns, TMA's zeros past
+    ``latent`` included, the first pair's steps first; then where(h > 0,
+    ·, 0) with the gate read as bf16 from h's box, rounded once."""
+    rows, cols = slice(m0, m0 + TILE_M), slice(n0, n0 + bn)
+    latent = dmu.shape[1]
+    boxes = -(-latent // TILE_K) * TILE_K
+    acc = torch.zeros((dmu[rows].shape[0], w21[cols].shape[0]))
+    for pair, col, _ in _joined_steps(latent):
+        a, b = (dmu, w21) if pair == 0 else (dlv, w22)
+        sa = torch.zeros((acc.shape[0], boxes))
+        sb = torch.zeros((acc.shape[1], boxes))
+        sa[:, :latent], sb[:, :latent] = a[rows].float(), b[cols].float()
+        acc += sa[:, col:col + TILE_K] @ sb[:, col:col + TILE_K].t()
+    return torch.where(h[rows, cols].float() > 0, acc, 0.0).to(BF16)
+
+
+def _emulate_enc(x, h, dmu, dlv, w21, w22, bn_dh, bn_dw, split):
+    """(dW1, db1) and the rounded dh as tensor_core_enc_bwd_dw1's launches
+    compute them: dh tile by tile (_joined_dh_tile), then launch_wgrad
+    (_wgrad) of x and dh."""
+    batch, units = h.shape
+    dh = torch.empty((batch, units), dtype=BF16)
+    for m0 in range(0, batch, TILE_M):
+        for n0 in range(0, units, bn_dh):
+            dh[m0:m0 + TILE_M, n0:n0 + bn_dh] = _joined_dh_tile(
+                dmu, dlv, w21, w22, h, m0, n0, bn_dh)
+    return _wgrad(x, dh, bn_dw, split), dh
+
+
+def _enc_operands(batch, seg, units, latent, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((batch, seg)) * 0.3,
+              np.maximum(rng.standard_normal((batch, units)), 0),
+              rng.standard_normal((batch, latent)),
+              rng.standard_normal((batch, latent)),
+              rng.standard_normal((units, latent)) / units ** 0.5,
+              rng.standard_normal((units, latent)) / units ** 0.5]
+    return [torch.from_numpy(a.astype(np.float32)).to(BF16) for a in arrays]
+
+
+def _to_jax(ops):
+    return [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in ops]
+
+
+def _from_jax(w):
+    return torch.from_numpy(np.array(jnp.asarray(w).astype(jnp.float32)))
+
+
+def test_the_joined_dh_is_the_sum_of_both_products():
+    """The k-joined tile's fp32 sum (before the gate and the rounding)
+    equals dmu @ w21ᵀ + dlv @ w22ᵀ: the zero-filled columns past a
+    ragged latent add nothing."""
+    x, h, dmu, dlv, w21, w22 = _enc_operands(130, 16, 40, 72, seed=2)
+    ones = torch.ones_like(h)
+    got = _joined_dh_tile(dmu, dlv, w21, w22, ones, 0, 0, 64).float()
+    want = (dmu[:128].float() @ w21.float().t()
+            + dlv[:128].float() @ w22.float().t())
+    assert got.shape == want.shape == (128, 40)
+    assert _rel(got, want.to(BF16)) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("latent", [72, 8])
+@pytest.mark.parametrize("bn_dh,bn_dw,split", [
+    (64, 64, 1), (64, 256, 2), (128, 128, 3), (256, 64, 5)])
+def test_the_emulated_launches_compute_enc_bwd_dw1(latent, bn_dh, bn_dw,
+                                                    split):
+    """Batch 300 (five k-steps of 64, the last ragged), seg 40, units 72
+    and a latent of two zero-filled k-steps a product (72) or one (8):
+    the weight gradient from the emulated dh against the plain product of
+    that dh, and the whole against the plain version and the JAX kernel in
+    interpret mode."""
+    ops = _enc_operands(300, 40, 72, latent)
+    (dw1, db1), dh = _emulate_enc(*ops, bn_dh, bn_dw, split)
+    assert dw1.dtype == db1.dtype == torch.float32
+    exact = mlp.grad_accum_ref(ops[0], dh)
+    assert _rel(dw1, exact[0]) <= 1e-5 and _rel(db1, exact[1]) <= 1e-5
+    assert _rel(dh, mlp.matmul_nt2_mask_ref(ops[2], ops[4], ops[3], ops[5],
+                                            ops[1])) <= 2.0 ** -8
+    for g, w in zip((dw1, db1), mlp.enc_bwd_dw1_ref(*ops)):
+        assert g.shape == w.shape and _rel(g, w) <= 2.0 ** -7
+    for g, w in zip((dw1, db1), jmlp.enc_bwd_dw1(*_to_jax(ops))):
+        w = _from_jax(w)
+        assert g.shape == w.shape and _rel(g, w) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("batch", [300, 1000, 1])
+@pytest.mark.parametrize("bn_dw,split", [(64, 1), (128, 2), (256, 3)])
+def test_the_emulated_weight_gradient_computes_grad_accum(batch, bn_dw,
+                                                          split):
+    """grad_accum's one launch (launch_wgrad of h3 and da) at a ragged
+    batch, slices that cut it unevenly and tile widths wider than the
+    output, against the plain version and the JAX kernel in interpret
+    mode: fp32 sums of exact bf16 products."""
+    # a split that would leave a slice empty is one launch_wgrad refuses
+    # (wgrad_plan never gives it): batch 1 takes one slice
+    if not all(_slices(batch, split)):
+        split = len([s for s in _slices(batch, split) if s])
+    rng = np.random.default_rng(batch + split)
+    h3 = np.maximum(rng.standard_normal((batch, 72)), 0)
+    da = rng.standard_normal((batch, 40)) * 1e-2
+    ops = [torch.from_numpy(a.astype(np.float32)).to(BF16) for a in (h3, da)]
+    got = _wgrad(*ops, bn_dw, split)
+    for g, w in zip(got, mlp.grad_accum_ref(*ops)):
+        assert g.dtype == torch.float32 and _rel(g, w) <= 1e-5
+    for g, w in zip(got, jmlp.grad_accum(*_to_jax(ops))):
+        w = _from_jax(w)
+        assert g.shape == w.shape and _rel(g, w) <= 1e-5
