@@ -37,7 +37,11 @@ any failure exits non-zero with a traceback (no phase is caught):
    slices' sum; beside ``addmm(dmu @ w21.t(), dlv, w22.t())`` → ``where`` →
    ``x.t() @ dh`` → ``dh.float().sum(0)``), each at the ragged width too,
    a width no multiple of 8 keeping the first version, with the plan swept
-   at dW4 and dW1;
+   at dW4 and dW1; the same for bf16 ``grad_accum2`` (dW21 and dW22 with
+   their column sums in one launch, both outputs side by side, then the
+   slices' sum; beside ``h.t() @ dmu`` → ``dmu.float().sum(0)`` → ``h.t() @
+   dlv`` → ``dlv.float().sum(0)``) at latent 72 too, a latent of 36 keeping
+   the first version, with the plan swept for two outputs;
 3c. the fp32 input-gradient kernels (``matmul_nt``, ``matmul_nt_mask``,
    ``matmul_nt2_mask``) in fp32 and bf16 at batch 8192, 1000 and 1, with
    the one PyTorch call ``a @ w.t()`` timed beside ``matmul_nt``; bf16
@@ -49,7 +53,13 @@ any failure exits non-zero with a traceback (no phase is caught):
    same for fp32 ``matmul_nt`` on the register-tiled fp32 kernel
    (``csrc/sgemm.cuh``) at dz and dx, ragged shapes, batch 1 and shapes it
    cannot take (k or n no multiple of 4), with the device time of every
-   tile beside the rule's pick (``tensor_cores.sgemm_tile``); the
+   tile beside the rule's pick (``tensor_cores.sgemm_tile``); fp32
+   ``grad_accum`` on ``csrc/sgemm.cuh``'s weight gradient (aᵀ read M-major,
+   the batch cut into slices) at the ``highest`` step's five
+   weight-gradient shapes at 8192, the ragged 1000, batch 1 and an m no
+   multiple of 4 (first version), dW4, dW21 and dW3 timed in turns beside
+   the first version, the plain version and ``a.t() @ b`` → ``b.sum(0)``,
+   the plan swept at dW4 and dW21; the
    in-kernel sampler at (4096, 256), (1000, 256) and (1, 256): its Philox
    words bit for bit, ``z``, determinism, both seed words, moments over a
    million samples, its backward; ``dx`` through ``mlp.encode``;
@@ -73,8 +83,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    the device's busy share; the bf16 step's ``encoder_fwd``,
    ``decoder_fwd`` and ``dec_bwd_fused`` launches, one each a microbatch,
    all on the tensor cores (none at ``high`` or ``highest``), the same for
-   ``grad_accum`` and ``enc_bwd_dw1``, and one kernel step's device time by
-   kernel;
+   ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2``; the ``highest``
+   step's five ``grad_accum`` launches a microbatch, all on
+   ``csrc/sgemm.cuh``; the device time by kernel of one bf16 kernel step
+   and of one ``highest`` kernel step;
 6. the device-resident path: ``configs/perf_bf16.ini`` uncut (batch 4096,
    bf16, block shuffle, ``rng = tpu_prng``, ``device_resident = always``)
    on the corpus of phase 5, with only the datapath, epochs, checkpoint
@@ -193,9 +205,10 @@ that dtype runs, set to 0 just before it — fp32 forward kernels: serving
 (phase 4); bf16 forward kernels: the training run of phase 5 (its fp32
 test-set reconstructions included); bf16 "split" backward kernels: that
 run (bf16 ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``,
-``grad_accum`` and ``enc_bwd_dw1``: those on the tensor cores; the run's
-fp32 reconstructions take the first version); fp32 ``grad_accum``: the
-``highest`` step of phase 5 (no path of the
+``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2``: those on the tensor
+cores; the run's fp32 reconstructions take the first version); fp32
+``grad_accum``: the ``highest`` step of phase 5 (those on the fp32 kernel
+of ``csrc/sgemm.cuh``; no path of the
 package runs ``enc_bwd_dw1``, ``grad_accum2`` or ``dec_bwd_fused`` on fp32
 operands since ``high`` takes the full chains: phase 3b still holds them
 against their plain versions, and they stay out of the kernel line);
@@ -222,17 +235,19 @@ path named above gives the kernel.
 
 The rows of bf16 ``matmul_nt``, ``linear_ksplit_fwd``, ``linear_fwd``,
 ``toeplitz_fwd``, ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``,
-``grad_accum`` and ``enc_bwd_dw1`` describe the tensor-core kernel, those
-of fp32 ``matmul_nt``, ``linear_ksplit_fwd`` and ``linear_fwd`` the fp32
-kernel of ``csrc/sgemm.cuh`` (``ms``, and ``launches``: those that took it;
-fp32 ``linear_fwd`` at the server's 256x4096->4096, fp32
-``linear_ksplit_fwd`` at 4096^3), and carry the first version's time on the
-same inputs as ``first_version_ms``.  The ``library_ms`` of bf16
-``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``, ``grad_accum``,
-``enc_bwd_dw1`` and ``grad_accum2`` and of fp32 ``grad_accum``,
-``matmul_nt_mask`` and ``matmul_nt2_mask`` is the device time of a
-sequence of library calls at microbatch 8192 (its ``library`` key says
-which): no one PyTorch call computes any of them.
+``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2`` describe the
+tensor-core kernel, those of fp32 ``matmul_nt``, ``linear_ksplit_fwd``,
+``linear_fwd`` and ``grad_accum`` the fp32 kernel of ``csrc/sgemm.cuh``
+(``ms``, and ``launches``: those that took it; fp32 ``linear_fwd`` at the
+server's 256x4096->4096, fp32 ``linear_ksplit_fwd`` at 4096^3, fp32
+``grad_accum`` at dW4, 8192x2048->1024, with dW21 and dW3 in keys of their
+own), and carry the first version's time on the same inputs as
+``first_version_ms``.  The ``library_ms`` of bf16 ``encoder_fwd``,
+``decoder_fwd``, ``dec_bwd_fused``, ``grad_accum``, ``enc_bwd_dw1`` and
+``grad_accum2`` and of fp32 ``grad_accum``, ``matmul_nt_mask`` and
+``matmul_nt2_mask`` is the device time of a sequence of library calls at
+microbatch 8192 (its ``library`` key says which): no one PyTorch call
+computes any of them.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -610,6 +625,7 @@ def phase_train_kernels(gen_params):
     dec_bwd_tensor_cores(rows["dec_bwd_fused[bf16]"], inputs)
     grad_accum_tensor_cores(rows["grad_accum[bf16]"], inputs)
     enc_bwd_tensor_cores(rows["enc_bwd_dw1[bf16]"], inputs)
+    grad_accum2_tensor_cores(rows["grad_accum2[bf16]"], inputs)
     return rows
 
 
@@ -646,24 +662,28 @@ BWD_LIBRARY = {
 TC_RAGGED_DENSE = (72, 520, 264)
 
 
-def hold_tensor_cores(name, op, plain, cases, odd=()):
-    """Phase 3b: bf16 ``op`` (``encoder_fwd``, ``decoder_fwd``,
-    ``dec_bwd_fused``, ``grad_accum``, ``enc_bwd_dw1``) on the tensor cores
-    against its plain version and
-    its first version (``kernel="cuda_cores"``), every output within
-    BF16_REL, equal bits on a second launch, one launch counted on the
-    tensor cores; ``cases`` are ``(what, operands)``.  The ``odd`` cases
-    (a width no multiple of 8) must keep the first version under ``auto``
-    and raise for ``kernel="tensor_cores"``.  Returns the largest absolute
-    error against the plain version."""
-    label = f"{name}[bf16]"
+def hold_tensor_cores(name, op, plain, cases, odd=(),
+                      kernel="tensor_cores"):
+    """Phases 3b / 3c: ``op`` (bf16 ``encoder_fwd``, ``decoder_fwd``,
+    ``dec_bwd_fused``, ``grad_accum``, ``enc_bwd_dw1``, ``grad_accum2`` on
+    the tensor cores; fp32 ``grad_accum`` on ``kernel="sgemm"``) against
+    its plain version and its first version (``kernel="cuda_cores"``),
+    every output within the kernel's tolerance (FAST: BF16_REL, GRAD_REL),
+    equal bits on a second launch, one launch counted on the kernel;
+    ``cases`` are ``(what, operands)``.  The ``odd`` cases (a width the
+    kernel cannot take) must keep the first version under ``auto`` and
+    raise for ``kernel``.  Returns the largest absolute error against the
+    plain version."""
+    fast = FAST[kernel]
+    label, tol, counter = f"{name}[{fast['kind']}]", fast["tol"], \
+        fast["counter"]
     err = 0.0
     for what, ops in cases:
-        before = (op.launches, op.tensor_core_launches)
+        before = (op.launches, getattr(op, counter))
         got = op(*ops)
         torch.cuda.synchronize()
-        rose = (op.launches - before[0], op.tensor_core_launches - before[1])
-        check(rose == (1, 1), f"{label} {what}: launches / tensor core "
+        rose = (op.launches - before[0], getattr(op, counter) - before[1])
+        check(rose == (1, 1), f"{label} {what}: launches / {kernel} "
               f"launches rose by {rose}")
         want = plain(*ops)
         first = op(*ops, kernel="cuda_cores")
@@ -672,63 +692,66 @@ def hold_tensor_cores(name, op, plain, cases, odd=()):
                   and bool(torch.isfinite(a).all()),
                   f"{label} {what}: shape, dtype or non-finite")
         e, e1 = rel_err(got, want), rel_err(got, first)
-        check(max(e, e1) <= BF16_REL, f"{label} {what}: relative error "
-              f"{e:.3e} (vs the first version {e1:.3e}) > {BF16_REL:.3e}")
+        check(max(e, e1) <= tol, f"{label} {what}: relative error "
+              f"{e:.3e} (vs the first version {e1:.3e}) > {tol:.3e}")
         check(all(torch.equal(a, b) for a, b in zip(got, op(*ops))),
               f"{label} {what}: a second launch gave other bits")
         err = max(err, max_err([a.float() for a in got],
                                [w.float() for w in want]))
-        print(f"  {label:<24} {what}: ran tensor_cores; |kernel - plain| / "
+        print(f"  {label:<24} {what}: ran {kernel}; |kernel - plain| / "
               f"max|plain| = {e:.3e}, vs the first version {e1:.3e}, equal "
-              f"bits twice (tolerance {BF16_REL:.3e})")
+              f"bits twice (tolerance {tol:.3e})")
     for what, ops in odd:
-        before = (op.launches, op.tensor_core_launches)
+        before = (op.launches, getattr(op, counter))
         got = op(*ops)
         torch.cuda.synchronize()
-        rose = (op.launches - before[0], op.tensor_core_launches - before[1])
-        check(rose == (1, 0), f"{label} {what}: launches / tensor core "
+        rose = (op.launches - before[0], getattr(op, counter) - before[1])
+        check(rose == (1, 0), f"{label} {what}: launches / {kernel} "
               f"launches rose by {rose}, expected the first version")
         e = rel_err(got, plain(*ops))
-        check(e <= BF16_REL, f"{label} {what}: relative error {e:.3e}")
+        check(e <= tol, f"{label} {what}: relative error {e:.3e}")
         try:
-            op(*ops, kernel="tensor_cores")
+            op(*ops, kernel=kernel)
         except ValueError:
             pass
         else:
-            check(False, f"{label} {what}: kernel='tensor_cores' did not "
-                  "raise")
+            check(False, f"{label} {what}: kernel={kernel!r} did not raise")
         print(f"  {label:<24} {what}: ran cuda_cores (the first version); "
-              f"|kernel - plain| / max|plain| = {e:.3e}; kernel="
-              f"'tensor_cores' raised")
+              f"|kernel - plain| / max|plain| = {e:.3e}; kernel={kernel!r} "
+              f"raised")
     return err
 
 
-def time_tensor_cores(name, row, fns, parts, library_text):
-    """Phase 3b: ``fns`` (library, plain, cuda_cores, tensor_cores) timed in
-    turns at the microbatch and by the profiler's device time, with the
-    device time of each of ``parts`` ({label: fn() -> ms}); ``row`` (the
-    kernel line's) takes the tensor-core kernel's numbers."""
+def time_tensor_cores(name, row, fns, parts, library_text,
+                      kernel="tensor_cores"):
+    """Phases 3b / 3c: ``fns`` (library, plain, cuda_cores, and ``kernel``:
+    tensor_cores or sgemm) timed in turns at the microbatch and by the
+    profiler's device time, with the device time of each of ``parts``
+    ({label: fn() -> ms}); ``row`` (the kernel line's) takes ``kernel`` 's
+    numbers.  Returns the device times."""
+    fast = FAST[kernel]
     ms, runs = time_in_turns(fns, 20)
     dev = {key: device_ms(fn) for key, fn in fns.items()}
     split = {label: part() for label, part in parts.items()}
-    print(f"  {name + '[bf16]':<24} batch {TRAIN_BATCH}: tensor_cores "
-          f"{ms['tensor_cores']:.4f} ms (device {dev['tensor_cores']:.4f} "
+    print(f"  {name + '[' + fast['kind'] + ']':<24} batch {TRAIN_BATCH}: "
+          f"{kernel} {ms[kernel]:.4f} ms (device {dev[kernel]:.4f} "
           f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
           + f"), cuda_cores (first version) {ms['cuda_cores']:.4f} ms "
           f"(device {dev['cuda_cores']:.4f}), plain {ms['plain']:.4f} ms "
           f"(device {dev['plain']:.4f}), library sequence "
           f"{ms['library']:.4f} ms (device {dev['library']:.4f}), bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}); device time / the "
-          f"sequence's {dev['tensor_cores'] / dev['library']:.3f}, / bound "
-          f"{dev['tensor_cores'] / row['bound_ms']:.3f}; runs {runs}")
-    row.update(source=TC_SOURCE, ms=ms["tensor_cores"], plain_ms=ms["plain"],
+          f"sequence's {dev[kernel] / dev['library']:.3f}, / bound "
+          f"{dev[kernel] / row['bound_ms']:.3f}; runs {runs}")
+    row.update(source=fast["source"], ms=ms[kernel], plain_ms=ms["plain"],
                library_ms=dev["library"], library=library_text,
                library_event_ms=ms["library"],
                first_version_ms=ms["cuda_cores"],
-               device_ms=dev["tensor_cores"],
+               device_ms=dev[kernel],
                first_version_device_ms=dev["cuda_cores"],
                **{f"{k.replace(' ', '_')}_device_ms": v
                   for k, v in split.items()})
+    return dev
 
 
 def encoder_tensor_cores(row, inputs):
@@ -829,7 +852,11 @@ def decoder_tensor_cores(row, inputs):
 # the weight gradient's plans swept at the microbatch (tile width, slices):
 # the rule's picks at dW3 (128 x 4) and at dW4 and dW1 (128 x 1) among them
 WGRAD_PLANS = ((256, 8), (256, 4), (256, 2), (128, 8), (128, 4), (128, 2),
-               (128, 1), (64, 4), (64, 2), (256, 1))
+               (128, 1), (64, 4), (64, 2), (256, 1), (64, 1))
+# the fp32 weight gradient's plans (index of SGEMM_TILES, slices), swept at
+# dW4 (the rule's 128 x 128 x 1) and dW21 (128 x 128 x 4)
+SGEMM_WGRAD_PLANS = ((0, 1), (0, 2), (0, 4), (0, 8), (1, 1), (1, 2), (1, 4),
+                     (2, 1), (2, 2))
 
 # phase 3b: the simple form of dh3's gate, built only to be timed beside the
 # kept one (which has TMA load h3's boxes into the staging buffer under the
@@ -873,8 +900,8 @@ def simple_gate_ms(ops) -> float:
     with tempfile.TemporaryDirectory() as tmp:
         csrc = Path(tmp) / "csrc"
         csrc.mkdir()
-        for name in ("bwd.cu", "gemm.cuh", "sgemm.cuh", "wgmma.cuh"):
-            shutil.copy(_build.CSRC / name, csrc / name)
+        for path in [_build.CSRC / "bwd.cu", *_build.CSRC.glob("*.cuh")]:
+            shutil.copy(path, csrc / path.name)
         text = (csrc / "bwd.cu").read_text()
         check(text.count(KEPT_GATE) == 1
               and text.count("struct GatePair {") == 1,
@@ -980,47 +1007,65 @@ def dec_bwd_tensor_cores(row, inputs):
                 LATENT, UNITS)
 
 
-def sweep_wgrad(row, label, call, plain, m, n):
-    """Phase 3b: the device ms of the weight gradient ``(m, n)`` in
-    ``call()`` (the launches of WgradOut, and sum_slices where the plan has
-    more than one slice) at the microbatch with each plan of WGRAD_PLANS
-    forced, every output within BF16_REL of ``plain()``, beside the rule's
-    pick (tensor_cores.wgrad_plan); into ``row["wgrad_plan_device_ms"]``."""
+def sweep_wgrad(row, label, call, plain, m, n, outputs=1, kernel=
+                "tensor_cores"):
+    """Phases 3b / 3c: the device ms of the weight gradient ``(m, n)`` in
+    ``call()`` (the launches of WgradOut, or of sgemm.cuh's kernel, and
+    sum_slices where the plan has more than one slice) at the microbatch
+    with each plan of WGRAD_PLANS (``outputs`` outputs side by side) or
+    SGEMM_WGRAD_PLANS forced, every output within the kernel's tolerance
+    of ``plain()``, beside the rule's pick (tensor_cores.wgrad_plan /
+    sgemm_wgrad_plan) and how far it is behind the fastest; into
+    ``row["wgrad_plan_device_ms"]`` (or ``row[f"{label}_plan_device_ms"]``
+    for a second shape)."""
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
-    rule = tensor_cores.wgrad_plan
-    picked = rule(m, n, TRAIN_BATCH,
-                  tensor_cores.sm_count(torch.device("cuda", 0)))
+    sms = tensor_cores.sm_count(torch.device("cuda", 0))
+    if kernel == "sgemm":
+        name, plans, match = "sgemm_wgrad_plan", SGEMM_WGRAD_PLANS, \
+            "sgemm_kernel"
+        picked = tensor_cores.sgemm_wgrad_plan(m, n, TRAIN_BATCH, sms)
+    else:
+        name, plans, match = "wgrad_plan", WGRAD_PLANS, "WgradOut"
+        picked = tensor_cores.wgrad_plan(m, n, TRAIN_BATCH, sms, outputs)
+    rule, tol = getattr(tensor_cores, name), FAST[kernel]["tol"]
     swept = {}
     try:
-        for plan in WGRAD_PLANS:
-            tensor_cores.wgrad_plan = lambda *args, plan=plan: plan
+        for plan in plans:
+            setattr(tensor_cores, name,
+                    lambda *args, plan=plan, **kw: plan)
             e = rel_err(call(), plain())
-            check(e <= BF16_REL, f"{row['name']} plan {plan}: relative "
-                  f"error {e:.3e}")
-            swept[plan] = (device_ms(call, match="WgradOut")
+            check(e <= tol, f"{row['name']} plan {plan}: relative error "
+                  f"{e:.3e}")
+            swept[plan] = (device_ms(call, match=match)
                            + (device_ms(call, match="sum_slices")
                               if plan[1] > 1 else 0.0))
     finally:
-        tensor_cores.wgrad_plan = rule
+        setattr(tensor_cores, name, rule)
     best = min(swept, key=swept.get)
+    behind = swept[picked] / swept[best] - 1 if picked in swept \
+        else float("nan")
     print(f"  {row['name']:<24} batch {TRAIN_BATCH}: {label} device ms by "
-          f"plan (tile width, slices), the slices' sum included: "
+          f"plan ({'tile index' if kernel == 'sgemm' else 'tile width'}, "
+          f"slices), the slices' sum included: "
           + ", ".join(f"{w}x{s}: {v:.4f}" for (w, s), v in swept.items())
-          + f"; the rule (tensor_cores.wgrad_plan) picks "
-            f"{picked[0]}x{picked[1]}, the fastest is {best[0]}x{best[1]}")
-    row["wgrad_plan_device_ms"] = {f"{w}x{s}": v
-                                   for (w, s), v in swept.items()}
+          + f"; the rule (tensor_cores.{name}) picks "
+            f"{picked[0]}x{picked[1]}, the fastest is {best[0]}x{best[1]}; "
+            f"the pick is {100 * behind:.1f} % behind it")
+    key = "wgrad_plan_device_ms" if "wgrad_plan_device_ms" not in row \
+        else f"{label.split()[0]}_plan_device_ms"
+    row[key] = {f"{w}x{s}": v for (w, s), v in swept.items()}
 
 
-def slices_ms(call, m, n) -> float:
+def slices_ms(call, m, n, outputs=1) -> float:
     """Device ms of the slices' sum in ``call()``: 0.0 where the plan of
-    the weight gradient ``(m, n)`` at the microbatch has one slice (no sum
-    runs)."""
+    the weight gradient ``(m, n)`` (``outputs`` side by side) at the
+    microbatch has one slice (no sum runs)."""
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
     _, split = tensor_cores.wgrad_plan(
-        m, n, TRAIN_BATCH, tensor_cores.sm_count(torch.device("cuda", 0)))
+        m, n, TRAIN_BATCH, tensor_cores.sm_count(torch.device("cuda", 0)),
+        outputs)
     return device_ms(call, match="sum_slices") if split > 1 else 0.0
 
 
@@ -1116,12 +1161,119 @@ def enc_bwd_tensor_cores(row, inputs):
     sweep_wgrad(row, "dW1 + db1", tc, fns["plain"], SEG, UNITS)
 
 
+def grad_accum2_tensor_cores(row, inputs):
+    """Phase 3b: bf16 ``grad_accum2`` on the tensor cores (csrc/wgmma.cuh
+    launch_wgrad2: dW21 = hᵀ dmu and dW22 = hᵀ dlv with their column sums
+    in one launch, both outputs side by side, over slices of the batch) as
+    ``grad_accum_tensor_cores``: the microbatch, the ragged 1000, batch 1
+    and a ragged width, a latent of 36 on the first version; timed with the
+    weight gradients and the slices' sum apart, and with its plan swept."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    g = torch.Generator(device="cuda").manual_seed(67)
+
+    def narrow(batch, units, latent):
+        h = torch.randn((batch, units), generator=g, device="cuda")
+        heads = [torch.randn((batch, latent), generator=g, device="cuda")
+                 for _ in range(2)]
+        return [t.bfloat16() for t in (h.clamp_min(0), *heads)]
+
+    keys = ("h", "dmu", "dlv")
+    cases = [(f"batch {b}", [t[k] for k in keys])
+             for b in (TRAIN_BATCH, TRAIN_RAGGED, 1)
+             for t in (inputs(b, torch.bfloat16)[1],)]
+    latent, units, _ = TC_RAGGED_DENSE
+    cases.append((f"batch 1000, units {units}, latent {latent}",
+                  narrow(1000, units, latent)))
+    err = hold_tensor_cores("grad_accum2", mlp.grad_accum2,
+                            mlp.grad_accum2_ref, cases,
+                            [("batch 1000, latent 36",
+                              narrow(1000, UNITS, 36))])
+    h, dmu, dlv = (inputs(TRAIN_BATCH, torch.bfloat16)[1][k] for k in keys)
+    fns = {"library": lambda: (h.t() @ dmu, dmu.float().sum(0),
+                               h.t() @ dlv, dlv.float().sum(0)),
+           "plain": lambda: mlp.grad_accum2_ref(h, dmu, dlv),
+           "cuda_cores": lambda: mlp.grad_accum2(h, dmu, dlv,
+                                                 kernel="cuda_cores"),
+           "tensor_cores": lambda: mlp.grad_accum2(h, dmu, dlv,
+                                                   kernel="tensor_cores")}
+    tc = fns["tensor_cores"]
+    time_tensor_cores("grad_accum2", row, fns, {
+        "dW21 db21 dW22 db22": lambda: device_ms(tc, match="WgradOut"),
+        "sum slices": lambda: slices_ms(tc, UNITS, LATENT, outputs=2)},
+        BWD_LIBRARY["grad_accum2"])
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    sweep_wgrad(row, "dW21 + dW22 with their column sums", tc, fns["plain"],
+                UNITS, LATENT, outputs=2)
+
+
+def grad_accum_sgemm(row):
+    """Phase 3c: fp32 ``grad_accum`` on csrc/sgemm.cuh (launch_wgrad: aᵀ
+    read M-major where it lies, IEEE fp32 FFMAs, the batch cut into slices
+    added in order, the column sums from the staged b) at the `highest`
+    step's five weight-gradient shapes at the microbatch (dW1 = xᵀ dh,
+    dW21 = hᵀ dmu, dW22 = hᵀ dlv, dW3 = zᵀ dh3, dW4 = h3ᵀ da), the ragged
+    1000, batch 1, and an m no multiple of 4 (first version); dW4, dW21 and
+    dW3 timed in turns with the library sequence, the plain version and the
+    first version, and the plan swept at dW4 and dW21.  ``row`` (fp32
+    grad_accum's, at dW4) takes the fp32 kernel's numbers."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    g = torch.Generator(device="cuda").manual_seed(71)
+
+    def operands(batch, n, m):
+        a = torch.randn((batch, n), generator=g, device="cuda").clamp_min(0)
+        return [a, torch.randn((batch, m), generator=g, device="cuda") * 1e-3]
+
+    shapes = {"dW1": (SEG, UNITS), "dW21": (UNITS, LATENT),
+              "dW22": (UNITS, LATENT), "dW3": (LATENT, UNITS),
+              "dW4": (UNITS, SEG)}
+    cases = [(f"{k} {TRAIN_BATCH}x{n}x{m}", operands(TRAIN_BATCH, n, m))
+             for k, (n, m) in shapes.items()]
+    cases += [(f"dW21 {TRAIN_RAGGED}x{UNITS}x{LATENT}",
+               operands(TRAIN_RAGGED, UNITS, LATENT)),
+              (f"dW4 1x{UNITS}x{SEG}", operands(1, UNITS, SEG))]
+    err = hold_tensor_cores("grad_accum", mlp.grad_accum, mlp.grad_accum_ref,
+                            cases, [(f"batch 1000, m {SEG - 2}",
+                                     operands(1000, UNITS, SEG - 2))],
+                            kernel="sgemm")
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    for key in ("dW4", "dW21", "dW3"):
+        n, m = shapes[key]
+        a, b = operands(TRAIN_BATCH, n, m)
+        fns = {"library": lambda: (a.t() @ b, b.sum(0)),
+               "plain": lambda: mlp.grad_accum_ref(a, b),
+               "cuda_cores": lambda: mlp.grad_accum(a, b,
+                                                    kernel="cuda_cores"),
+               "sgemm": lambda: mlp.grad_accum(a, b, kernel="sgemm")}
+        fast = fns["sgemm"]
+        shape_row = row if key == "dW4" else dict(
+            name=row["name"], **bound(2 * TRAIN_BATCH * n * m,
+                                      4 * (TRAIN_BATCH * (n + m) + n * m + m),
+                                      "fp32"))
+        dev = time_tensor_cores(f"grad_accum {key}", shape_row, fns, {
+            "weight gradient": lambda: device_ms(fast, match="sgemm_kernel"),
+            "sum slices": lambda: device_ms(fast, match="sum_slices")},
+            BWD_LIBRARY["grad_accum"], kernel="sgemm")
+        if key != "dW4":
+            row[f"{key}_{n}x{m}"] = {
+                k: v for k, v in shape_row.items()
+                if k not in ("name", "library")}
+        print(f"  grad_accum[fp32] {key} {n}x{m}: device time "
+              f"{dev['sgemm']:.4f} ms, {dev['sgemm'] / dev['library']:.3f}x "
+              f"the library "
+              f"sequence's, {dev['cuda_cores'] / dev['sgemm']:.2f}x faster "
+              f"than the first version")
+        if key in ("dW4", "dW21"):
+            sweep_wgrad(row, f"{key} + db", fast,
+                        fns["plain"], n, m, kernel="sgemm")
+
+
 def backward_libraries(rows, gen_params):
     """Phases 3b-3c: the device time of the library sequences of the
-    backward rows still on their first versions at the microbatch (bf16
-    grad_accum2; fp32 grad_accum, matmul_nt_mask and matmul_nt2_mask, the
-    primitive backward's), beside each first version's device time, into
-    their rows' library_ms."""
+    backward rows still on their first versions at the microbatch (fp32
+    matmul_nt_mask and matmul_nt2_mask, the primitive backward's), beside
+    each first version's device time, into their rows' library_ms."""
     from rawaudiovae_kelsey_tpu_torch.ops import mlp
 
     p = gen_params(4321)
@@ -1132,18 +1284,11 @@ def backward_libraries(rows, gen_params):
         t = torch.randn((TRAIN_BATCH, n), generator=g, device="cuda") * scale
         return (t.clamp_min(0) if relu else t).to(dt)
 
-    b16, f32 = torch.bfloat16, torch.float32
-    h, dmu, dlv = rnd(UNITS, b16, True), rnd(LATENT, b16), rnd(LATENT, b16)
+    f32 = torch.float32
     h3, da = rnd(UNITS, f32, True), rnd(SEG, f32, scale=1e-3)
     hf, dmuf, dlvf = rnd(UNITS, f32, True), rnd(LATENT, f32), rnd(LATENT, f32)
     w4, w21, w22 = p["fc4"]["w"], p["fc21"]["w"], p["fc22"]["w"]
     cases = {
-        "grad_accum2[bf16]": (
-            lambda: (h.t() @ dmu, dmu.float().sum(0), h.t() @ dlv,
-                     dlv.float().sum(0)),
-            lambda: mlp.grad_accum2(h, dmu, dlv)),
-        "grad_accum[fp32]": (lambda: (h3.t() @ da, da.sum(0)),
-                             lambda: mlp.grad_accum(h3, da)),
         "matmul_nt_mask[fp32]": (lambda: (da @ w4.t()) * (h3 > 0),
                                  lambda: mlp.matmul_nt_mask(da, w4, h3)),
         "matmul_nt2_mask[fp32]": (
@@ -1755,8 +1900,11 @@ def device_time_by_kernel(fn, top: int = 6, focus=None) -> str:
 def device_ms(fn, calls: int = 10, match: str = "") -> float:
     """Device time of one ``fn()``: the kernels' own time in a
     torch.profiler trace of ``calls`` calls (only the kernels whose names
-    hold ``match``).  For a kernel of a few tens of microseconds the
-    event-timed loop measures the host's launch rate."""
+    hold ``match``), each kernel's mean over the launches the trace
+    recorded times its launches a call: a trace that missed some launches
+    (on an H100 one read dW4's weight gradient at half its time) does not
+    read short.  For a kernel of a few tens of microseconds the event-timed
+    loop measures the host's launch rate."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1767,11 +1915,12 @@ def device_ms(fn, calls: int = 10, match: str = "") -> float:
         torch.cuda.synchronize()
     total = 0.0
     for e in prof.key_averages():
-        if match not in e.key:
+        if match not in e.key or not e.count:
             continue
         us = getattr(e, "device_time_total", None)
-        total += getattr(e, "cuda_time_total", 0.0) if us is None else us
-    return total / 1e3 / calls if total else float("nan")
+        us = getattr(e, "cuda_time_total", 0.0) if us is None else us
+        total += us / e.count * max(1, round(e.count / calls))
+    return total / 1e3 if total else float("nan")
 
 
 def host_us(fn, calls: int = 500) -> float:
@@ -1953,7 +2102,7 @@ def phase_train(data: Path):
 
     # the bf16 dense kernels on the tensor cores
     dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.dec_bwd_fused,
-                ops.grad_accum, ops.enc_bwd_dw1)
+                ops.grad_accum, ops.enc_bwd_dw1, ops.grad_accum2)
     from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
     from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
     from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
@@ -2060,6 +2209,7 @@ def phase_train(data: Path):
     # `high` runs the fp32 "full" chains, `highest` the fp32 "primitive"
     # kernels; no precision runs the "split" kernels on fp32 operands
     step_counts = {}
+    highest_by_kernel = ""
     for precision, rel_tol in (("bfloat16", 5e-2), ("high", 1e-3),
                                ("highest", 1e-3)):
         cfg.tpu.precision = precision
@@ -2076,17 +2226,32 @@ def phase_train(data: Path):
                     w.launches = 0
                 for w in dense_tc:
                     w.tensor_core_launches = 0
-            state, m = build_train_step(model, cfg, noise=noise)(state, x)
+                ops.grad_accum.sgemm_launches = 0
+            step = build_train_step(model, cfg, noise=noise)
+            start = state
+            state, m = step(start, x)
             if backend == "pallas":
                 step_counts[precision] = {w.__name__: w.launches
                                           for w in ops.KERNEL_WRAPPERS}
                 step_counts[precision].update(
                     (f"{w.__name__}@tc", w.tensor_core_launches)
                     for w in dense_tc)
+                step_counts[precision]["grad_accum@sgemm"] = \
+                    ops.grad_accum.sgemm_launches
             delta = torch.cat([(state.params[n][k] - before[n][k]).ravel()
                                for n in sorted(before)
                                for k in sorted(before[n])])
             out[backend] = (float(m["loss"]), delta)
+            # the `highest` step's device time by kernel, once its update
+            # has been read
+            if backend == "pallas" and precision == "highest":
+                highest_by_kernel = device_time_by_kernel(
+                    lambda: step(start, x), top=8, focus={
+                        "fp32 weight gradients (sgemm.cuh, M-major A)":
+                        "false, false, 0>",
+                        "matmul_nt dz (sgemm.cuh)": "true, true, 0>",
+                        "weight gradients' slices' sum": "sum_slices",
+                        "first-version GEMMs (gemm.cuh)": "::gemm_kernel"})
         (lk, dk), (lx, dx) = out["pallas"], out["xla"]
         upd = float((dk - dx).norm() / dx.norm())
         print(f"  one {precision} step, kernels vs plain: loss {lk:.7f} vs "
@@ -2108,11 +2273,22 @@ def phase_train(data: Path):
     for w in ops.PRIMITIVE_KERNELS:
         check(step_counts["highest"][w.__name__] > 0,
               f"{w.__name__} was never launched by the `highest` step")
-    # the bf16 step's encoder, decoder, decoder backward, dW4 and encoder
-    # backward: one launch each a microbatch, every one on the tensor cores;
-    # the fp32 tiers keep the first version (and take other backward
-    # kernels)
+    # the primitive backward's five weight gradients a microbatch, every
+    # one on the fp32 kernel of csrc/sgemm.cuh
     micro = -(-batch // cfg.tpu.microbatch_size)
+    seen = (step_counts["highest"]["grad_accum"],
+            step_counts["highest"]["grad_accum@sgemm"])
+    print(f"  grad_accum launches in the `highest` step (all, on "
+          f"csrc/sgemm.cuh): {seen}")
+    check(seen == (5 * micro, 5 * micro), f"`highest` step: {seen} "
+          f"grad_accum launches (all, sgemm.cuh), expected {5 * micro} of "
+          f"{5 * micro} on csrc/sgemm.cuh")
+    print(f"  one `highest` kernel step by kernel (its first record; no gain "
+          f"claimed): {highest_by_kernel}")
+    # the bf16 step's encoder, decoder, decoder backward, dW4, encoder
+    # backward and the heads' weight gradients: one launch each a
+    # microbatch, every one on the tensor cores; the fp32 tiers keep the
+    # first version or the fp32 kernel (and take other backward kernels)
     for w in dense_tc:
         name = w.__name__
         seen = {p: (c[name], c[f"{name}@tc"]) for p, c in step_counts.items()}
@@ -2160,14 +2336,17 @@ def phase_train(data: Path):
              "GatePair",
              "enc_bwd_dw1 dh (tensor cores, joined along k)": "JoinedKTiles",
              "dec_bwd_fused dz (tensor cores)": "RoundPair",
-             "dW3 db3 + dW4 db4 + dW1 db1 (tensor cores)": "WgradOut",
+             "dW3 db3 + dW4 db4 + dW1 db1 (tensor cores)":
+             "WgradTiles<1>",
+             "dW21 db21 + dW22 db22 (tensor cores, one launch)":
+             "WgradTiles<2>",
              "weight gradients' slices' sum": "sum_slices",
              "first-version GEMMs (gemm.cuh)": "::gemm_kernel"}
     by_kernel = device_time_by_kernel(lambda: step(state, x), top=8,
                                       focus=focus)
-    print(f"  one kernel step by kernel (with the first-version grad_accum "
-          f"and enc_bwd_dw1 the step ran at 1,137,692 frames/s, 111.51 ms of "
-          f"device time, PERF.md section 5; no gain claimed): {by_kernel}")
+    print(f"  one kernel step by kernel (with the first-version grad_accum2 "
+          f"the step took 35.63 ms of device time, PERF.md section 5; no "
+          f"gain claimed): {by_kernel}")
     return launches, step_counts["highest"]
 
 
@@ -2358,12 +2537,16 @@ def phase_resident(data: Path, card: str):
         if backend == "pallas":
             for w in ops.KERNEL_WRAPPERS:
                 w.launches = 0
-            on_sgemm = mlp.matmul_nt.sgemm_launches
+            on_sgemm = (mlp.matmul_nt.sgemm_launches,
+                        mlp.grad_accum.sgemm_launches)
         state, ls = run(state, d32, 0)
         torch.cuda.synchronize()
         if backend == "pallas":
             prim = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
-            prim["matmul_nt@sgemm"] = mlp.matmul_nt.sgemm_launches - on_sgemm
+            prim["matmul_nt@sgemm"] = (mlp.matmul_nt.sgemm_launches
+                                       - on_sgemm[0])
+            prim["grad_accum@sgemm"] = (mlp.grad_accum.sgemm_launches
+                                        - on_sgemm[1])
         after = torch.cat([t.ravel() for _, t in sorted(
             (f"{n}.{k}", t) for n, q in state.params.items()
             for k, t in q.items())])
@@ -2374,9 +2557,9 @@ def phase_resident(data: Path, card: str):
     check(per_step == {"encoder_fwd": 1, "decoder_fwd": 1,
                        "matmul_nt2_mask": 1, "matmul_nt_mask": 1,
                        "matmul_nt": 1, "matmul_nt@sgemm": 1, "grad_accum": 5,
-                       "reparameterize_prng": 1},
-          f"unexpected launches per `highest` step (matmul_nt on the fp32 "
-          f"kernel of csrc/sgemm.cuh, once a step): {per_step}")
+                       "grad_accum@sgemm": 5, "reparameterize_prng": 1},
+          f"unexpected launches per `highest` step (matmul_nt and the five "
+          f"grad_accum on the fp32 kernel of csrc/sgemm.cuh): {per_step}")
     (dk, lk), (dx, lx) = deltas["pallas"], deltas["xla"]
     upd = float((dk - dx).norm() / dx.norm())
     print(f"  `highest` resident epoch, kernels vs plain: first loss "
@@ -4083,6 +4266,7 @@ def main() -> int:
           "their plain versions")
     with torch.no_grad():
         new_rows = phase_new_kernels(gen_params)
+        grad_accum_sgemm(train_rows["grad_accum[fp32]"])
         backward_libraries({**train_rows, **new_rows}, gen_params)
 
     print("phase 3d: the full backward chains and the loss reduction "
@@ -4194,11 +4378,10 @@ def main() -> int:
     for key, row in train_rows.items():
         name, kind = key[:-1].split("[")
         counts = step_launches if kind == "fp32" else train_launches
-        # the bf16 rows of the encoder, the decoder and the decoder's
-        # backward describe the tensor-core kernel
-        on_tc = f"{name}@tc"
-        row["launches"] = counts[on_tc if kind == "bf16" and on_tc in counts
-                                 else name]
+        # the bf16 dense rows describe the tensor-core kernel, fp32
+        # grad_accum's the fp32 kernel of csrc/sgemm.cuh
+        on_fast = f"{name}@tc" if kind == "bf16" else f"{name}@sgemm"
+        row["launches"] = counts[on_fast if on_fast in counts else name]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(train_rows)
     # no path of the package runs matmul_nt_mask on bf16 operands (the bf16

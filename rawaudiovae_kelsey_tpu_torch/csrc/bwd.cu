@@ -76,14 +76,18 @@
 // rvk_dec_bwd_fused, whose bf16 form runs all three of its products on
 // wgmma.cuh (tensor_core_dec_bwd below: the gate in dh3's epilogue, the
 // weight gradient over slices of the batch); rvk_grad_accum, whose bf16
-// form is that weight gradient alone (rvk::tc::launch_wgrad); and
-// rvk_enc_bwd_dw1, whose bf16 form is dh as one k-joined product with the
-// gate in its epilogue, then that weight gradient (tensor_core_enc_bwd_dw1
-// below).  At the step's microbatch the bf16 weight gradients are far above
-// the ridge (dW1 and dW4: 34 GFLOP on 58 MB of operands and output, ~590
-// FLOP a byte), so the tensor cores bound them.  The template matmul_nt<T>
-// below, which the other fused kernels and the gated forms launch, stays on
-// gemm.cuh.
+// form is that weight gradient alone (rvk::tc::launch_wgrad) and whose fp32
+// form is sgemm.cuh's (rvk::sgemm::launch_wgrad: aᵀ read M-major as it
+// lies, the batch cut into slices added in order, the column sums from the
+// staged b); rvk_grad_accum2, whose bf16 form is both heads' weight
+// gradients in one launch of that weight gradient (rvk::tc::launch_wgrad2:
+// h read once for dW21 and dW22); and rvk_enc_bwd_dw1, whose bf16 form is
+// dh as one k-joined product with the gate in its epilogue, then that
+// weight gradient (tensor_core_enc_bwd_dw1 below).  At the step's
+// microbatch the bf16 weight gradients are far above the ridge (dW1 and
+// dW4: 34 GFLOP on 58 MB of operands and output, ~590 FLOP a byte), so the
+// tensor cores bound them.  The template matmul_nt<T> below, which the
+// other fused kernels and the gated forms launch, stays on gemm.cuh.
 
 #include "gemm.cuh"
 #include "sgemm.cuh"
@@ -101,7 +105,9 @@ using rvk::view;
 namespace {
 
 // dw (n, m) = aᵀ b and db (m,) = colsum(b) [and dw2, db2 from b2], fp32.
-// a (batch, n), b / b2 (batch, m).
+// a (batch, n), b / b2 (batch, m).  The second output is there when dw2
+// is: an empty batch's b2 may come as a null pointer, and its gradients
+// are zeros all the same.
 template <typename T, int kPasses = 1>
 cudaError_t grad_accum(const T* a, const T* b, const T* b2, float* dw,
                        float* db, float* dw2, float* db2, int batch, int n,
@@ -111,7 +117,7 @@ cudaError_t grad_accum(const T* a, const T* b, const T* b2, float* dw,
   g.out[0].b = view(b, m, batch);
   g.out[0].c = dw;
   g.out[0].colsum = db;
-  if (b2 != nullptr) {
+  if (dw2 != nullptr) {
     g.out[1].b = view(b2, m, batch);
     g.out[1].c = dw2;
     g.out[1].colsum = db2;
@@ -119,7 +125,7 @@ cudaError_t grad_accum(const T* a, const T* b, const T* b2, float* dw,
   g.M = n, g.N = m, g.K = batch;
   g.act = rvk::kActNone;
   return launch_gemm<kRContig, kRContig, kPasses>(
-      g, b2 != nullptr ? 2 : 1, s);
+      g, dw2 != nullptr ? 2 : 1, s);
 }
 
 // out (batch, m) = a @ wᵀ [+ a2 @ w2ᵀ], zeroed where gate <= 0 [if gate],
@@ -381,11 +387,21 @@ int rvk_matmul_nt2_mask(const void* a1, const void* w1, const void* a2,
 // (rvk::tc::launch_wgrad), bf16 only, n and m multiples of 8, 16-byte
 // aligned pointers, batch > 0, in tiles 128 x tile_dw over `split` slices of
 // the batch, through `workspace` (split · (n · m + m) floats) when split > 1
-// (ops/tensor_cores.py wgrad_plan).
+// (ops/tensor_cores.py wgrad_plan); 2, the fp32 weight gradient of
+// sgemm.cuh (rvk::sgemm::launch_wgrad), fp32 only, n and m multiples of 4,
+// 16-byte aligned pointers, batch > 0, on the tile sgemm::kTiles[tile_dw]
+// over `split` slices, through `workspace` as above (ops/tensor_cores.py
+// sgemm_wgrad_plan).
 int rvk_grad_accum(const void* a, const void* b, float* dw, float* db,
                    float* workspace, int batch, int n, int m, int dtype,
                    int tile_dw, int split, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32 || batch <= 0) return cudaErrorInvalidValue;
+    return rvk::sgemm::launch_wgrad(src<float>(a), src<float>(b), dw, db,
+                                    workspace, n, m, batch, tile_dw, split,
+                                    s);
+  }
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16 ||
         batch <= 0) {
@@ -403,11 +419,29 @@ int rvk_grad_accum(const void* a, const void* b, float* dw, float* db,
 }
 
 // a (batch, n), b1 and b2 (batch, m) of one dtype; dw1, dw2 (n, m) and
-// db1, db2 (m,) fp32.
+// db1, db2 (m,) fp32.  kernel (an rvk::tc::Kernel): 0, one launch of the
+// tiled GEMM on the CUDA cores carrying both products (tile_dw, split and
+// workspace ignored); 1, both weight gradients in one launch of the
+// tensor-core weight gradient (rvk::tc::launch_wgrad2), bf16 only, n and m
+// multiples of 8, 16-byte aligned pointers, batch > 0, in tiles 128 x
+// tile_dw over `split` slices of the batch, through `workspace` (2 · split
+// · (n · m + m) floats) when split > 1 (ops/tensor_cores.py wgrad_plan
+// with two outputs).
 int rvk_grad_accum2(const void* a, const void* b1, const void* b2, float* dw1,
-                    float* db1, float* dw2, float* db2, int batch, int n,
-                    int m, int dtype, void* stream) {
+                    float* db1, float* dw2, float* db2, float* workspace,
+                    int batch, int n, int m, int dtype, int tile_dw,
+                    int split, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16 ||
+        batch <= 0) {
+      return cudaErrorInvalidValue;
+    }
+    using T = rvk::bf16;
+    return rvk::tc::launch_wgrad2(src<T>(a), src<T>(b1), src<T>(b2), dw1,
+                                  db1, dw2, db2, workspace, n, m, batch,
+                                  tile_dw, split, s);
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return grad_accum(src<T>(a), src<T>(b1), src<T>(b2), dw1, db1, dw2, db2,

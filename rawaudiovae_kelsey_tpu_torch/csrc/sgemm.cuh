@@ -1,23 +1,35 @@
 // fp32 mainloop for Hopper's CUDA cores (sm_90a): the device routine of the
-// fp32 forms of rvk_linear_fwd (linear.cu) and rvk_matmul_nt (bwd.cu).
+// fp32 forms of rvk_linear_fwd (linear.cu), rvk_matmul_nt and
+// rvk_grad_accum (bwd.cu).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
 // IEEE fp32 FFMAs, one fp32 accumulator per output, k in order: the
 // `float32` and `highest` tiers promise IEEE fp32 products, so neither TF32
-// nor a bf16 split of the operands.  A is (M, K) row-major (K-major: x of
-// the linear layer, a of matmul_nt).  B is one of two layouts, a
-// compile-time choice: K-major, a (N, K) row-major matrix read by its rows
-// (a @ wᵀ: matmul_nt's w), or N-major, a (K, N) row-major matrix (x @ w:
-// the linear layer's w).  The epilogue adds the bias (optional) and applies
-// none / relu / tanh, a template argument, then stores 16 bytes a thread.
+// nor a bf16 split of the operands.  A is one of two layouts, a
+// compile-time choice: K-major, a (M, K) row-major matrix (x of the linear
+// layer, a of matmul_nt), or M-major, a (K, M) row-major matrix read as its
+// transpose (aᵀ of the weight gradient aᵀ b, the contraction over the
+// batch).  B is one of two layouts too: K-major, a (N, K) row-major matrix
+// read by its rows (a @ wᵀ: matmul_nt's w), or N-major, a (K, N) row-major
+// matrix (x @ w: the linear layer's w; b of the weight gradient).  The
+// epilogue adds the bias (optional) and applies none / relu / tanh, a
+// template argument, then stores 16 bytes a thread.
 //
 // Which TPU kernels run on it: linear_fwd (_linear_kernel) of
-// rawaudiovae_kelsey_tpu/ops/pallas_linear.py and matmul_nt of
-// rawaudiovae_kelsey_tpu/ops/pallas_mlp.py, in fp32.  As there, an output
-// tile carries one accumulator across the whole contraction; here a block
-// walks all of K itself: no split over blocks, no workspace, no atomics, so
-// two launches give equal bits.
+// rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt and grad_accum
+// (_grad_accum_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py, in
+// fp32.  As there, an output tile carries one accumulator across its
+// contraction, and a block walks its k range itself, in order.  The
+// forward products take all of K in one slice: no workspace, no atomics,
+// so two launches give equal bits.  The weight gradient (launch_wgrad)
+// computes dW = aᵀ b and db = colsum(b): at the training microbatch dW21,
+// dW22 (2048 x 256) and dW3 (256 x 2048) are 32 tiles of 128 x 128 for
+// 132 SMs, so the batch is cut into slices (the grid's z), each slice a
+// whole dW written to a workspace, added in order afterwards (sum_slices,
+// slices.cuh): the same bits on every launch.  The TPU kernel carries dW
+// in VMEM across its sequential batch grid; here each slice is one block's
+// walk over its rows of the batch.
 //
 // What bounds it.  At 4096 x 4096 -> 4096 the product is 137 GFLOP on 201
 // MB: 683 FLOPs a byte against the card's fp32 ridge of 20 (67 TFLOP/s
@@ -56,9 +68,19 @@
 // * Ragged edges.  Copies of rows past M or N and of k past K are zero
 //   fills (cp.async with a source size of 0), so the loop has no mask; the
 //   epilogue skips rows past M and 16-byte column chunks past N.
-// * What it takes: k and n multiples of 4 (16-byte rows and chunks) and
-//   16-byte aligned base pointers; the callers check, and every other fp32
-//   shape keeps the first version (gemm.cuh).
+// * An M-major A is staged as an N-major B is: copied as it lies, k-rows of
+//   BM floats, read straight from the ring (no compute buffers, no
+//   transposition), so the weight gradient takes the x @ w form's shared
+//   memory for both operands.
+// * The bias gradient colsum(b) of the weight gradient is summed by the
+//   blocks of dW's first tile row from the B slabs they already hold in
+//   shared memory, while the FFMAs run: thread t adds column t % BN over
+//   the rows of its group t / BN (kThreads / BN groups of kBK · BN /
+//   kThreads rows a slab), in k order; the groups are added in order at the
+//   end.  No second read of b; rows past the batch are zero fills.
+// * What it takes: k and n multiples of 4 (16-byte rows and chunks; m and n
+//   for the weight gradient) and 16-byte aligned base pointers; the callers
+//   check, and every other fp32 shape keeps the first version (gemm.cuh).
 // * Registers.  __launch_bounds__(256, 2): two blocks an SM, at most 128
 //   registers a thread; the build's ptxas report shows the count and any
 //   spill.  Shared memory, (4 + 2) slabs of a K-major operand and 4 of an
@@ -74,6 +96,7 @@
 #include <initializer_list>
 
 #include "gemm.cuh"
+#include "slices.cuh"
 
 namespace rvk {
 namespace sgemm {
@@ -85,6 +108,9 @@ constexpr int kThreads = 256;
 constexpr int kTiles[3][2] = {{128, 128}, {128, 64}, {64, 64}};
 
 constexpr int kStages = 4;  // the cp.async ring, in slabs
+// a slice of a weight gradient's batch is a whole number of these rows
+// (ops/tensor_cores.py sgemm_wgrad_plan; the tensor-core form's k-step)
+constexpr int kSliceRows = 64;
 // The slab's depth in k, by tile: 16 at 128 x 128 (the large grids, two
 // blocks an SM); 32 for the narrower tiles (grids of about one block an SM,
 // where each slab's barrier and transposition stand exposed).
@@ -212,18 +238,30 @@ __device__ __forceinline__ float activate(float v) {
   return v;
 }
 
-// C (M, N) = act(A (M, K) · B + bias): B (N, K) if kBKMajor, else (K, N);
-// bias (N,) or null.
-template <int BM, int BN, bool kBKMajor, int kAct>
+// C (M, N) = act(A · B + bias): A (M, K) if kAKMajor, else (K, M); B (N,
+// K) if kBKMajor, else (K, N); bias (N,) or null.  Slice z = blockIdx.z of
+// the contraction is k in [z · rows, min(K, (z + 1) · rows)), `rows` a
+// multiple of kSliceRows (or all of K in one slice); it writes its sums to
+// c + z · stride and, for a weight gradient (M-major A), the column sums of
+// its B to colsum + z · stride from the blocks of the first tile row.
+template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct>
 __global__ void __launch_bounds__(kThreads, 2)
 sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-             const float* __restrict__ bias, float* __restrict__ c, int M,
-             int N, int K) {
+             const float* __restrict__ bias, float* __restrict__ c,
+             float* __restrict__ colsum, int M, int N, int K, int rows,
+             size_t stride) {
   constexpr int kBK = kSlabDepth<BM, BN>;
-  using OpA = Operand<BM, true, kBK>;
+  using OpA = Operand<BM, kAKMajor, kBK>;
   using OpB = Operand<BN, kBKMajor, kBK>;
   constexpr int RM = BM / 64, RN = BN / 64;  // 4 x 4 sub-tiles a lane
   constexpr int WM = BM / 2, WN = BN / 4;    // the warp tile
+  // a weight gradient sums B's columns: kGroups groups of kGroupRows rows
+  // of each slab
+  constexpr bool kColsum = !kAKMajor;
+  constexpr int kGroups = kThreads / BN;
+  constexpr int kGroupRows = kBK / kGroups;
+  static_assert(!kColsum || (!kBKMajor && kGroupRows * kGroups == kBK),
+                "the column sums read whole rows of an N-major B slab");
   extern __shared__ float4 smem4[];
   float* sa = reinterpret_cast<float*>(smem4);
   float* sb = sa + OpA::kFloats;
@@ -232,14 +270,22 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int warp = threadIdx.x / 32, lane_id = threadIdx.x % 32;
   const int am = (warp / 4) * WM + (lane_id % 8) * 4;  // a lane's first row
   const int bn = (warp % 4) * WN + (lane_id / 8) * 4;  // and column
+  const int lda = kAKMajor ? K : M;
   const int ldb = kBKMajor ? K : N;
-  const int slabs = (K + kBK - 1) / kBK;
+  // this slice's k range, in slabs from `first`
+  const int z = blockIdx.z;
+  const int k_end = min(K, (z + 1) * rows);
+  const int first = z * rows / kBK;
+  const int slabs = (k_end + kBK - 1) / kBK - first;
+  c += z * stride;
+  const bool sums = kColsum && blockIdx.y == 0;
+  float csum = 0.f;
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < slabs) {
-      OpA::issue(sa, a, K, m0, M, K, s, s);
-      OpB::issue(sb, b, ldb, n0, N, K, s, s);
+      OpA::issue(sa, a, lda, m0, M, k_end, first + s, s);
+      OpB::issue(sb, b, ldb, n0, N, k_end, first + s, s);
     }
     cp_async_commit();
   }
@@ -263,8 +309,8 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
     // barrier after computing it, and read back its own copies of it
     const int next = t + kStages - 1;
     if (next < slabs) {
-      OpA::issue(sa, a, K, m0, M, K, next, next % kStages);
-      OpB::issue(sb, b, ldb, n0, N, K, next, next % kStages);
+      OpA::issue(sa, a, lda, m0, M, k_end, first + next, next % kStages);
+      OpB::issue(sb, b, ldb, n0, N, k_end, first + next, next % kStages);
     }
     cp_async_commit();
 
@@ -298,6 +344,16 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
                                      lane(fb[k & 1][j], v), acc[i][j][u][v]);
     }
 
+    if constexpr (kColsum) {
+      // this slab's rows of B, in k order, for the bias gradient
+      if (sums) {
+        const float* col = bs + (threadIdx.x / BN) * kGroupRows * BN +
+                           threadIdx.x % BN;
+#pragma unroll
+        for (int r = 0; r < kGroupRows; ++r) csum += col[r * BN];
+      }
+    }
+
     if (t + 1 < slabs) {
       // slab t + 1 has landed (this thread's copies); a K-major operand's
       // goes k-major into the compute buffer slab t - 1 used
@@ -306,6 +362,22 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
       OpB::transpose(sb, (t + 1) % kStages, (t + 1) & 1);
     }
     __syncthreads();
+  }
+
+  if constexpr (kColsum) {
+    // the groups' sums added in order (the ring is idle: every copy has
+    // landed and every thread passed the last slab's barrier)
+    if (sums) {
+      const int t = threadIdx.x;
+      sa[t] = csum;
+      __syncthreads();
+      if (t < BN && n0 + t < N) {
+        float v = 0.f;
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) v += sa[g * BN + t];
+        colsum[z * stride + n0 + t] = v;
+      }
+    }
   }
 
   // epilogue: the sum first, then the bias, as the plain `x @ w + b` does
@@ -332,12 +404,16 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-template <int BM, int BN, bool kBKMajor, int kAct>
+// sgemm_kernel on tile BM x BN over `slices` slices of `rows` rows of the
+// contraction each (one slice of K rows: the plain product).
+template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct>
 cudaError_t launch_tile(const float* a, const float* b, const float* bias,
-                        float* c, int M, int N, int K, cudaStream_t stream) {
-  auto kernel = sgemm_kernel<BM, BN, kBKMajor, kAct>;
+                        float* c, float* colsum, int M, int N, int K,
+                        int rows, int slices, size_t stride,
+                        cudaStream_t stream) {
+  auto kernel = sgemm_kernel<BM, BN, kAKMajor, kBKMajor, kAct>;
   constexpr int kBK = kSlabDepth<BM, BN>;
-  constexpr int smem = (Operand<BM, true, kBK>::kFloats +
+  constexpr int smem = (Operand<BM, kAKMajor, kBK>::kFloats +
                         Operand<BN, kBKMajor, kBK>::kFloats) * 4;
   // above the 48 KB a block gets without opting in: once a device
   static uint64_t opted_in = 0;
@@ -349,17 +425,39 @@ cudaError_t launch_tile(const float* a, const float* b, const float* bias,
     if (err != cudaSuccess) return err;
     if (device < 64) opted_in |= uint64_t{1} << device;
   }
-  const dim3 grid(cdiv(N, BN), cdiv(M, BM));
-  kernel<<<grid, kThreads, smem, stream>>>(a, b, bias, c, M, N, K);
+  const dim3 grid(cdiv(N, BN), cdiv(M, BM), slices);
+  kernel<<<grid, kThreads, smem, stream>>>(a, b, bias, c, colsum, M, N, K,
+                                           rows, stride);
   return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, tile>) for a tile index of kTiles; anything
+// else is refused.
+template <typename F>
+cudaError_t with_tile(int tile, F&& f) {
+  switch (tile) {
+    case 0:
+      return f(std::integral_constant<int, 0>{});
+    case 1:
+      return f(std::integral_constant<int, 1>{});
+    case 2:
+      return f(std::integral_constant<int, 2>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Whether every base pointer is on a 16-byte boundary (null is).
+inline bool aligned(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return bits % 16 == 0;
 }
 
 // Whether the kernel takes these operands: k and n multiples of 4, every
 // base pointer on a 16-byte boundary (the callers check too).
 inline bool takes(int K, int N, std::initializer_list<const void*> ptrs) {
-  uintptr_t bits = 0;
-  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
-  return K > 0 && K % 4 == 0 && N % 4 == 0 && bits % 16 == 0;
+  return K > 0 && K % 4 == 0 && N % 4 == 0 && aligned(ptrs);
 }
 
 // C (M, N) = act(A (M, K) · B + bias) on the tile kTiles[tile], kAct an
@@ -370,19 +468,49 @@ cudaError_t launch(const float* a, const float* b, const float* bias,
                    cudaStream_t stream) {
   if (!takes(K, N, {a, b, bias, c})) return cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return cudaSuccess;
-  switch (tile) {
-    case 0:
-      return launch_tile<kTiles[0][0], kTiles[0][1], kBKMajor, kAct>(
-          a, b, bias, c, M, N, K, stream);
-    case 1:
-      return launch_tile<kTiles[1][0], kTiles[1][1], kBKMajor, kAct>(
-          a, b, bias, c, M, N, K, stream);
-    case 2:
-      return launch_tile<kTiles[2][0], kTiles[2][1], kBKMajor, kAct>(
-          a, b, bias, c, M, N, K, stream);
-    default:
-      return cudaErrorInvalidValue;
+  return with_tile(tile, [&](auto index) {
+    constexpr int i = decltype(index)::value;
+    return launch_tile<kTiles[i][0], kTiles[i][1], true, kBKMajor, kAct>(
+        a, b, bias, c, nullptr, M, N, K, K, 1, 0, stream);
+  });
+}
+
+// dw (M, N) = aᵀ · b and db (N,) = colsum(b) in IEEE fp32 (the weight
+// gradient of y = a @ w + bias, contracting the batch): a (K, M) and b (K,
+// N) row-major fp32, M and N multiples of 4, every pointer 16-byte aligned,
+// K > 0 (the batch, any length).  The batch is cut into `split` slices of
+// ceil(ceil(K / 64) / split) · 64 rows, which must leave no slice empty
+// (ops/tensor_cores.py sgemm_wgrad_plan holds that); with more than one,
+// slice s writes its dw and db to `workspace` at s · (M·N + N) (split ·
+// (M·N + N) floats, 16-byte aligned) and sum_slices adds them in order.
+// Tile kTiles[tile].
+inline cudaError_t launch_wgrad(const float* a, const float* b, float* dw,
+                                float* db, float* workspace, int M, int N,
+                                int K, int tile, int split,
+                                cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const int k_total = cdiv(K, kSliceRows);
+  const int steps = split > 0 ? cdiv(k_total, split) : 0;
+  if (K <= 0 || M % 4 != 0 || N % 4 != 0 || split < 1 ||
+      cdiv(k_total, steps) != split || !aligned({a, b, dw, db, workspace}) ||
+      (split > 1 && workspace == nullptr)) {
+    return cudaErrorInvalidValue;
   }
+  const size_t mn = size_t(M) * N;
+  float* c = split == 1 ? dw : workspace;
+  float* colsum = split == 1 ? db : workspace + mn;
+  const size_t stride = split == 1 ? 0 : mn + N;
+  const cudaError_t err = with_tile(tile, [&](auto index) {
+    constexpr int i = decltype(index)::value;
+    return launch_tile<kTiles[i][0], kTiles[i][1], false, false, kActNone>(
+        a, b, nullptr, c, colsum, M, N, K, steps * kSliceRows, split,
+        stride, stream);
+  });
+  if (err != cudaSuccess || split == 1) return err;
+  SliceOut out{};
+  out.dw[0] = dw;
+  out.db[0] = db;
+  return add_slices(workspace, out, mn, N, split, 1, stream);
 }
 
 // The same with the activation chosen at run time (an rvk::Act code).

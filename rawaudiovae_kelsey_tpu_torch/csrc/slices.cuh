@@ -1,0 +1,78 @@
+// The ordered sum of a weight gradient's slices, shared by the two
+// mainloops that cut the batch contraction of a weight gradient into
+// slices: the bf16 tensor-core one (wgmma.cuh launch_wgrad_outs) and the
+// fp32 one of the CUDA cores (sgemm.cuh launch_wgrad).
+//
+// A weight gradient dW = aᵀ b over a batch of K rows whose grid of output
+// tiles is small (dW3 at the training microbatch is 256 x 2048) cuts the
+// batch into slices, each slice a whole dW and its column sums written to
+// a workspace; this kernel then adds the slices in slice order.  No
+// atomics, so two launches give equal bits.  It reads split · (M·N + N)
+// floats and writes M·N + N an output: memory-bound, a few microseconds at
+// the training microbatch's shapes on an H100.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace rvk {
+namespace {
+
+// the most outputs one launch writes side by side (grad_accum2's two heads)
+constexpr int kMaxOuts = 2;
+
+// Where each output's sums go: dW (M, N) row-major and db (N,).
+struct SliceOut {
+  float* dw[kMaxOuts];
+  float* db[kMaxOuts];
+};
+
+// p[o] for a run-time o < kMaxOuts, by selects: an array in a kernel's
+// parameters indexed at run time would be copied to local memory.
+__device__ __forceinline__ float* pick(float* const (&p)[kMaxOuts], int o) {
+  float* out = p[0];
+#pragma unroll
+  for (int i = 1; i < kMaxOuts; ++i) {
+    if (o == i) out = p[i];
+  }
+  return out;
+}
+
+// For each output o < outs and i < M·N + N: the sum over slices s, in
+// order, of src[(o · slices + s) · (M·N + N) + i]; the first M·N values go
+// to out.dw[o], the next N to out.db[o].  Four floats a thread: mn and n
+// multiples of 4 (a quad never straddles dW and db, or two outputs),
+// everything 16-byte aligned.
+__global__ void sum_slices(const float* __restrict__ src, SliceOut out,
+                           size_t mn, int n, int slices, int outs) {
+  const size_t stride = mn + n;
+  const size_t q = 4 * (size_t(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (q >= outs * stride) return;
+  const int o = static_cast<int>(q / stride);
+  const size_t i = q - o * stride;
+  const float* first = src + o * slices * stride + i;
+  float4 sum = *reinterpret_cast<const float4*>(first);
+  for (int s = 1; s < slices; ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(first + s * stride);
+    sum.x += v.x;
+    sum.y += v.y;
+    sum.z += v.z;
+    sum.w += v.w;
+  }
+  *reinterpret_cast<float4*>(i < mn ? pick(out.dw, o) + i
+                                    : pick(out.db, o) + (i - mn)) = sum;
+}
+
+// sum_slices over `outs` outputs of (mn + n) floats a slice, on `stream`.
+inline cudaError_t add_slices(const float* workspace, const SliceOut& out,
+                              size_t mn, int n, int slices, int outs,
+                              cudaStream_t stream) {
+  const int threads = 256;
+  const size_t quads = outs * (mn + n) / 4;
+  sum_slices<<<static_cast<unsigned>((quads + threads - 1) / threads),
+               threads, 0, stream>>>(workspace, out, mn, n, slices, outs);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace rvk

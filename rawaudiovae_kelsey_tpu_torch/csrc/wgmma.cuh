@@ -1,8 +1,8 @@
 // bf16 tensor-core mainloop for Hopper (sm_90a): the device routine of the
 // bf16 forms of rvk_linear_fwd, rvk_linear_ksplit_fwd (linear.cu),
-// rvk_matmul_nt, rvk_grad_accum, rvk_enc_bwd_dw1 and rvk_dec_bwd_fused
-// (bwd.cu), rvk_toeplitz_fwd (toeplitz.cu), rvk_encoder_fwd and
-// rvk_decoder_fwd (mlp.cu).
+// rvk_matmul_nt, rvk_grad_accum, rvk_grad_accum2, rvk_enc_bwd_dw1 and
+// rvk_dec_bwd_fused (bwd.cu), rvk_toeplitz_fwd (toeplitz.cu),
+// rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -29,7 +29,8 @@
 // linear_ksplit_fwd (_linear_ksplit_kernel) of
 // rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt, encoder_fwd
 // (_enc_fwd_kernel), decoder_fwd (_dec_fwd_kernel), grad_accum
-// (_grad_accum_kernel), enc_bwd_dw1 (_enc_bwd_dw1_kernel) and dec_bwd_fused
+// (_grad_accum_kernel), grad_accum2 (_grad_accum2_kernel), enc_bwd_dw1
+// (_enc_bwd_dw1_kernel) and dec_bwd_fused
 // (_dec_bwd_fused_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py and
 // toeplitz_fwd (_toeplitz_kernel) of
 // rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py.  The TPU kernels carry
@@ -146,15 +147,20 @@
 //   128 KB in fp32 at BN = 256).  dW3 at the training microbatch is 256 x
 //   2048: 16 to 64 tiles for 132 SMs, each a long walk over 8192 rows.  So
 //   the batch is cut into slices (WgradTiles), each slice a whole dW of
-//   tiles written to a workspace, and sum_slices adds the slices in order:
-//   one wave of blocks instead of an eighth of one, and the same bits on
-//   every launch (no atomics).  Tiles covering all 256 rows (four
-//   warpgroups) would read dh3 once, but 256 x 64 tiles give 32 blocks:
-//   the card stays idle without the split anyway.  The bias gradient,
+//   tiles written to a workspace, and sum_slices (slices.cuh) adds the
+//   slices in order: one wave of blocks instead of an eighth of one, and
+//   the same bits on every launch (no atomics).  Tiles covering all 256
+//   rows (four warpgroups) would read dh3 once, but 256 x 64 tiles give 32
+//   blocks: the card stays idle without the split anyway.  The bias gradient,
 //   colsum(B), is summed by the tiles of dW's first tile row from the B
 //   stages they have in shared memory, in k order, while the products run
 //   (add_columns): no second read of B, and TMA's zeros past the batch add
-//   nothing.
+//   nothing.  Two weight gradients that share A (grad_accum2: dW21 = hᵀ dmu
+//   and dW22 = hᵀ dlv) are one launch of kOuts = 2 outputs side by side
+//   (WgradTiles<2>): tile column tn takes output tn / ceil(N / BN), its B
+//   and its (dW, db) pair, and the tiles of each output's first tile row sum
+//   that output's B; one read of h for both heads, one wave where two
+//   launches would each fill half of one, one sum of the slices.
 // * A barrier that never completes traps after ~2 s instead of hanging the
 //   card: the launch then fails with an error the wrapper raises.  The trap
 //   ends the process's CUDA context, and a run slowed many times over (a
@@ -166,6 +172,7 @@
 #include <cuda.h>
 
 #include "gemm.cuh"
+#include "slices.cuh"
 
 namespace rvk {
 namespace tc {
@@ -765,9 +772,11 @@ struct ToeplitzTiles {
 // tm is slice tm / m_tiles at rows (tm % m_tiles) · 128 of dW, so a slice's
 // tiles are a whole dW and the launch has m_tiles · slices · ceil(N / BN)
 // tiles.  Rows past K are TMA's zeros in both operands: a ragged batch adds
-// nothing.
+// nothing.  kOutputs weight gradients of one A side by side (header,
+// "weight gradients"): the walk's tile columns are kOutputs · ceil(N / BN).
+template <int kOutputs>
 struct WgradTiles {
-  static constexpr int kOuts = 1;
+  static constexpr int kOuts = kOutputs;
   static constexpr bool kAT = true;
   int M, m_tiles, steps, k_total, slices;  // k_total = ceil(K / 64)
   __host__ __device__ int tiles_m() const { return m_tiles * slices; }
@@ -794,14 +803,14 @@ struct WgradTiles {
   __device__ bool sums_columns(int tm) const { return tm % m_tiles == 0; }
 };
 
-// The weight gradient's epilogue: slice s of the walk writes its fp32 dW
-// (M, N) at dw + s · stride and its column sums at db + s · stride; one
-// slice writes the outputs themselves, more write the workspace that
-// sum_slices adds up.
+// The weight gradient's epilogue: slice s of the walk writes output o's
+// fp32 dW (M, N) at dw[o] + s · stride and its column sums at db[o] + s ·
+// stride; one slice writes the outputs themselves, more write the
+// workspace that sum_slices adds up.
 struct WgradOut {
   static constexpr bool kWgrad = true;
-  float* dw;
-  float* db;
+  float* dw[kMaxOuts];
+  float* db[kMaxOuts];
   size_t stride;
 };
 
@@ -839,6 +848,8 @@ wgmma_gemm_kernel(
   constexpr bool kWgrad = kWgradOut<Epi>;
   static_assert(!kWgrad || kBT, "the column sums read an N-major B");
   static_assert(!kGate || Tiles::kOuts == 1, "a gate has C's shape");
+  static_assert(!kWgrad || Tiles::kOuts <= kMaxOuts,
+                "a weight gradient writes at most kMaxOuts outputs");
   constexpr uint32_t kBTileBytes = BN * kTileK * 2;
   constexpr uint32_t kStageBytes = kATileBytes + kBTileBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -989,8 +1000,10 @@ wgmma_gemm_kernel(
         wgmma_wait<0>();
         if (lane == 0) mbar_arrive(empty + 8 * prev);
         const size_t at = size_t(tiles.slice(tm)) * epi.stride;
-        store_f32<BN>(acc, epi.dw + at, m0, rows, n0, N);
-        if (sums) finish_columns<BN>(s0, s1, staging, epi.db + at, n0, N);
+        store_f32<BN>(acc, pick(epi.dw, out) + at, m0, rows, n0, N);
+        if (sums) {
+          finish_columns<BN>(s0, s1, staging, pick(epi.db, out) + at, n0, N);
+        }
       } else {
         // what the epilogue reads per column pair, fetched while the last
         // products are in flight; the functor sees the joined column
@@ -1229,67 +1242,82 @@ cudaError_t launch_joined(const bf16* a1, const bf16* b1, const bf16* a2,
   });
 }
 
-// dst[i] = sum over s of src[s · (mn + n) + i] in slice order, i < mn + n;
-// the first mn go to dw, the next n to db.  Four floats a thread (mn and n
-// multiples of 4, everything 16-byte aligned): the split weight gradient's
-// reduction, in a fixed order, so two launches give equal bits.
-__global__ void sum_slices(const float* __restrict__ src,
-                           float* __restrict__ dw, float* __restrict__ db,
-                           size_t mn, int n, int slices) {
-  const size_t stride = mn + n;
-  const size_t i = 4 * (size_t(blockIdx.x) * blockDim.x + threadIdx.x);
-  if (i >= stride) return;
-  float4 sum = *reinterpret_cast<const float4*>(src + i);
-  for (int s = 1; s < slices; ++s) {
-    const float4 v = *reinterpret_cast<const float4*>(src + s * stride + i);
-    sum.x += v.x;
-    sum.y += v.y;
-    sum.z += v.z;
-    sum.w += v.w;
-  }
-  *reinterpret_cast<float4*>(i < mn ? dw + i : db + (i - mn)) = sum;
-}
-
-// dw (M, N) = aᵀ · b and db (N,) = colsum(b), fp32, on the tensor cores
-// (WgradTiles): a (K, M) and b (K, N) row-major bf16, 16-byte aligned, M
-// and N multiples of 8, K > 0 (the batch, any length).  The batch is cut
-// into `split` slices of ceil(ceil(K / 64) / split) k-steps, which must
-// leave no slice empty (ops/tensor_cores.py wgrad_plan holds that); with
-// more than one, each slice writes its dw and db to `workspace` (split ·
-// (M·N + N) floats, 16-byte aligned) and sum_slices adds them in order.
+// dw[o] (M, N) = aᵀ · b[o] and db[o] (N,) = colsum(b[o]) for each of the
+// kOuts outputs, fp32, on the tensor cores in one launch (WgradTiles<kOuts>):
+// a (K, M) and each b[o] (K, N) row-major bf16, 16-byte aligned, M and N
+// multiples of 8, K > 0 (the batch, any length).  The batch is cut into
+// `split` slices of ceil(ceil(K / 64) / split) k-steps, which must leave
+// no slice empty (ops/tensor_cores.py wgrad_plan holds that); with more
+// than one, slice s of output o writes its dW and db to `workspace` at (o ·
+// split + s) · (M·N + N) (kOuts · split · (M·N + N) floats, 16-byte
+// aligned) and sum_slices adds them in order, every output in one launch.
 // Tiles 128 x tile_n.
-inline cudaError_t launch_wgrad(const bf16* a, const bf16* b, float* dw,
-                                float* db, float* workspace, int M, int N,
-                                int K, int tile_n, int split,
-                                cudaStream_t stream) {
+template <int kOuts>
+cudaError_t launch_wgrad_outs(const bf16* a, const bf16* const* b,
+                              float* const* dw, float* const* db,
+                              float* workspace, int M, int N, int K,
+                              int tile_n, int split, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   const int k_total = cdiv(K, kTileK);
   const int steps = split > 0 ? cdiv(k_total, split) : 0;
   if (K <= 0 || M % 8 != 0 || N % 8 != 0 || split < 1 ||
-      cdiv(k_total, steps) != split || !aligned16(a) || !aligned16(b) ||
-      !aligned16(dw) || !aligned16(db) ||
+      cdiv(k_total, steps) != split || !aligned16(a) ||
       (split > 1 && (workspace == nullptr || !aligned16(workspace)))) {
     return cudaErrorInvalidValue;
   }
+  for (int o = 0; o < kOuts; ++o) {
+    if (!aligned16(b[o]) || !aligned16(dw[o]) || !aligned16(db[o])) {
+      return cudaErrorInvalidValue;
+    }
+  }
   const size_t mn = size_t(M) * N;
-  const WgradOut epi = split == 1 ? WgradOut{dw, db, 0}
-                                  : WgradOut{workspace, workspace + mn,
-                                             mn + N};
-  const WgradTiles tiles{M, cdiv(M, kTileM), steps, k_total, split};
-  cudaError_t err = with_width(tile_n, [&](auto width) {
+  WgradOut epi{};
+  SliceOut out{};
+  for (int o = 0; o < kOuts; ++o) {
+    out.dw[o] = dw[o];
+    out.db[o] = db[o];
+    epi.dw[o] = split == 1 ? dw[o] : workspace + o * split * (mn + N);
+    epi.db[o] = split == 1 ? db[o] : epi.dw[o] + mn;
+  }
+  epi.stride = split == 1 ? 0 : mn + N;
+  const WgradTiles<kOuts> tiles{M, cdiv(M, kTileM), steps, k_total, split};
+  const cudaError_t err = with_width(tile_n, [&](auto width) {
     constexpr int BN = decltype(width)::value;
-    Maps<1> maps;
+    Maps<kOuts> maps;
     cudaError_t e = matrix_map(&maps.a, a, K, M, kTileK, 64);
-    if (e == cudaSuccess) e = matrix_map(&maps.b[0], b, K, N, kTileK, 64);
+    for (int o = 0; o < kOuts && e == cudaSuccess; ++o) {
+      e = matrix_map(&maps.b[o], b[o], K, N, kTileK, 64);
+    }
     if (e != cudaSuccess) return e;
     return launch_tiles<BN, true>(maps, epi, tiles, N, stream);
   });
   if (err != cudaSuccess || split == 1) return err;
-  const int threads = 256;
-  const size_t quads = (mn + N) / 4;
-  sum_slices<<<static_cast<unsigned>((quads + threads - 1) / threads),
-               threads, 0, stream>>>(workspace, dw, db, mn, N, split);
-  return cudaGetLastError();
+  return add_slices(workspace, out, mn, N, split, kOuts, stream);
+}
+
+// dw (M, N) = aᵀ · b and db (N,) = colsum(b): launch_wgrad_outs with one
+// output (workspace split · (M·N + N) floats).
+inline cudaError_t launch_wgrad(const bf16* a, const bf16* b, float* dw,
+                                float* db, float* workspace, int M, int N,
+                                int K, int tile_n, int split,
+                                cudaStream_t stream) {
+  return launch_wgrad_outs<1>(a, &b, &dw, &db, workspace, M, N, K, tile_n,
+                              split, stream);
+}
+
+// dw1 = aᵀ · b1, db1 = colsum(b1), dw2 = aᵀ · b2, db2 = colsum(b2): the two
+// weight gradients of one A in one launch (launch_wgrad_outs with two
+// outputs; workspace 2 · split · (M·N + N) floats).
+inline cudaError_t launch_wgrad2(const bf16* a, const bf16* b1,
+                                 const bf16* b2, float* dw1, float* db1,
+                                 float* dw2, float* db2, float* workspace,
+                                 int M, int N, int K, int tile_n, int split,
+                                 cudaStream_t stream) {
+  const bf16* const b[2] = {b1, b2};
+  float* const dw[2] = {dw1, dw2};
+  float* const db[2] = {db1, db2};
+  return launch_wgrad_outs<2>(a, b, dw, db, workspace, M, N, K, tile_n,
+                              split, stream);
 }
 
 // The encoder's heads in one launch (HeadsTiles): mu = epi(h · w21) and

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "rvk_decoder_fwd": [_P] * 7 + [_I] * 8 + [_P],
     "rvk_quantized_decoder_fwd": [_P] * 9 + [_I] * 4 + [_P],
     "rvk_grad_accum": [_P] * 5 + [_I] * 7 + [_P],
-    "rvk_grad_accum2": [_P] * 7 + [_I] * 4 + [_P],
+    "rvk_grad_accum2": [_P] * 8 + [_I] * 7 + [_P],
     "rvk_enc_bwd_dw1": [_P] * 10 + [_I] * 9 + [_P],
     "rvk_dec_bwd_fused": [_P] * 10 + [_I] * 10 + [_P],
     "rvk_enc_bwd_full": [_P] * 13 + [_I] * 5 + [_P],

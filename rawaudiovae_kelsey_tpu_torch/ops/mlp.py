@@ -451,13 +451,14 @@ def matmul_nt2_mask(a1, w1, a2, w2, gate) -> Tensor:
 matmul_nt2_mask.launches = 0
 
 
-def _workspace(dev, split: int, m: int, n: int):
-    """The fp32 workspace of a weight gradient ``(m, n)`` cut into
-    ``split`` slices of the batch (each slice's dW and column sums), or
-    None for one slice."""
+def _workspace(dev, split: int, m: int, n: int, outputs: int = 1):
+    """The fp32 workspace of ``outputs`` weight gradients ``(m, n)`` cut
+    into ``split`` slices of the batch (each slice's dW and column sums,
+    output by output), or None for one slice."""
     if split <= 1:
         return None
-    return torch.empty((split, m * n + n), device=dev, dtype=torch.float32)
+    return torch.empty((outputs * split, m * n + n), device=dev,
+                       dtype=torch.float32)
 
 
 def grad_accum(a, b, kernel: str = "auto") -> Tuple[Tensor, Tensor]:
@@ -465,17 +466,23 @@ def grad_accum(a, b, kernel: str = "auto") -> Tuple[Tensor, Tensor]:
     cotangent ``b``: ``(aᵀ b, colsum(b))`` in fp32, contracting the batch.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``grad_accum``.
-    CUDA: one launch (``csrc/bwd.cu``) of one of two hand-written kernels
+    CUDA: one launch (``csrc/bwd.cu``) of one of three hand-written kernels
     chosen by :func:`resolve_grad_accum`: bf16 operands with n and m
     multiples of 8, 16-byte aligned pointers and at least one row take the
     tensor-core weight gradient (``csrc/wgmma.cuh`` ``launch_wgrad``: the
     batch cut into ``tensor_cores.wgrad_plan`` 's slices, added in order
     through a workspace allocated here; the column sums from the staged
-    ``b``), everything else the tiled GEMM on the CUDA cores, each of whose
-    blocks loops over the whole batch for its tile of dW.  ``kernel`` names
-    one instead, as for :func:`decoder_fwd`.  Both kernels give equal bits
-    on a second launch.  One call counts once in ``launches``, and in
-    ``tensor_core_launches`` too when the tensor cores ran it."""
+    ``b``); fp32 operands with n and m multiples of 4, 16-byte aligned
+    pointers and at least one row the fp32 weight gradient of
+    ``csrc/sgemm.cuh`` (``launch_wgrad``: IEEE fp32 FFMAs, ``a`` read as
+    its transpose where it lies, the batch cut into
+    ``tensor_cores.sgemm_wgrad_plan`` 's slices through a workspace, the
+    column sums from the staged ``b``); everything else the tiled GEMM on
+    the CUDA cores, each of whose blocks loops over the whole batch for its
+    tile of dW.  ``kernel`` names one instead, as for :func:`decoder_fwd`.
+    Every kernel gives equal bits on a second launch.  One call counts once
+    in ``launches``, and in ``tensor_core_launches`` or ``sgemm_launches``
+    too when the tensor cores or the fp32 kernel ran it."""
     tensor_cores.check_name("grad_accum", kernel)
     if a.device.type == "cpu":
         return grad_accum_ref(a, b)
@@ -494,11 +501,13 @@ def grad_accum(a, b, kernel: str = "auto") -> Tuple[Tensor, Tensor]:
                   tile_dw, split, code)
     grad_accum.launches += 1
     grad_accum.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+    grad_accum.sgemm_launches += code == tensor_cores.SGEMM
     return dw, db
 
 
 grad_accum.launches = 0
 grad_accum.tensor_core_launches = 0
+grad_accum.sgemm_launches = 0
 
 
 def resolve_grad_accum(kernel: str, dtype: torch.dtype, batch: int, n: int,
@@ -506,21 +515,36 @@ def resolve_grad_accum(kernel: str, dtype: torch.dtype, batch: int, n: int,
     """The kernel code :func:`grad_accum` launches with: the tensor cores
     when ``tensor_cores.takes_tensor_cores`` holds for ``batch`` rows, ``n``
     and ``m`` (the rows of ``a`` and ``b`` are TMA's 16-byte rows; the
-    contraction is the batch, of any length), else the first version;
-    ``kernel`` names one instead (``tensor_cores.resolve``)."""
+    contraction is the batch, of any length), the fp32 kernel when
+    ``tensor_cores.takes_sgemm`` does (16-byte rows of fp32), else the
+    first version; ``kernel`` names one instead
+    (``tensor_cores.resolve``)."""
     return tensor_cores.resolve(
         "grad_accum", kernel,
         tensor_cores.takes_tensor_cores(dtype, batch, n, m, aligned),
-        lambda: f"{dtype}, batch {batch}, n {n}, m {m}, aligned = {aligned}")
+        lambda: f"{dtype}, batch {batch}, n {n}, m {m}, aligned = {aligned}",
+        tensor_cores.takes_sgemm(dtype, batch, n, m, aligned))
 
 
-def grad_accum2(a, b1, b2) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+def grad_accum2(a, b1, b2, kernel: str = "auto"
+                ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Two :func:`grad_accum` s that share ``a``: ``(aᵀ b1, colsum(b1),
     aᵀ b2, colsum(b2))`` — the encoder's two latent heads, both
     contracting ``h``.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``grad_accum2``.
-    CUDA: one launch carrying both products (``csrc/bwd.cu``)."""
+    CUDA: one launch (``csrc/bwd.cu``) carrying both products, of one of
+    two hand-written kernels chosen by :func:`resolve_grad_accum2`: bf16
+    operands with n and m multiples of 8, 16-byte aligned pointers and at
+    least one row take the tensor-core weight gradient with both outputs
+    side by side (``csrc/wgmma.cuh`` ``launch_wgrad2``: ``a`` read once for
+    both, the batch cut into ``tensor_cores.wgrad_plan`` 's slices for two
+    outputs, added in order through a workspace allocated here), everything
+    else the tiled GEMM on the CUDA cores.  ``kernel`` names one instead,
+    as for :func:`decoder_fwd`.  Both kernels give equal bits on a second
+    launch.  One call counts once in ``launches``, and in
+    ``tensor_core_launches`` too when the tensor cores ran it."""
+    tensor_cores.check_name("grad_accum2", kernel)
     if a.device.type == "cpu":
         return grad_accum2_ref(a, b1, b2)
     dev = cuda_device(a, "grad_accum2: a")
@@ -530,14 +554,33 @@ def grad_accum2(a, b1, b2) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     require(a, "a", (batch, n), dev, dt)
     require(b1, "b1", (batch, m), dev, dt)
     require(b2, "b2", (batch, m), dev, dt)
+    code = resolve_grad_accum2(kernel, dt, batch, n, m,
+                               tensor_cores.pointers_aligned(a, b1, b2))
     dw1, db1, dw2, db2 = _grads(dev, (n, m), (m,), (n, m), (m,))
+    tile_dw, split = tensor_cores.wgrad(code, dev, n, m, batch, outputs=2)
     _build.launch("rvk_grad_accum2", dev, a, b1, b2, dw1, db1, dw2, db2,
-                  batch, n, m, DTYPE_CODES[dt])
+                  _workspace(dev, split, n, m, outputs=2), batch, n, m,
+                  DTYPE_CODES[dt], tile_dw, split, code)
     grad_accum2.launches += 1
+    grad_accum2.tensor_core_launches += code == tensor_cores.TENSOR_CORES
     return dw1, db1, dw2, db2
 
 
 grad_accum2.launches = 0
+grad_accum2.tensor_core_launches = 0
+
+
+def resolve_grad_accum2(kernel: str, dtype: torch.dtype, batch: int, n: int,
+                        m: int, aligned: bool = True) -> int:
+    """The kernel code :func:`grad_accum2` launches with: the tensor cores
+    when ``tensor_cores.takes_tensor_cores`` holds for ``batch`` rows, ``n``
+    and ``m`` (as for :func:`resolve_grad_accum`), else the first version;
+    ``kernel`` names one instead (``tensor_cores.resolve``; it has no fp32
+    form: no path runs it on fp32 operands)."""
+    return tensor_cores.resolve(
+        "grad_accum2", kernel,
+        tensor_cores.takes_tensor_cores(dtype, batch, n, m, aligned),
+        lambda: f"{dtype}, batch {batch}, n {n}, m {m}, aligned = {aligned}")
 
 
 def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"

@@ -13,11 +13,13 @@ each, every one of which must fit),
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.dec_bwd_fused` (dh3 and dz must
 fit), :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.enc_bwd_dw1` (dh, two
 products joined along k, must fit, and ``seg`` be a multiple of 8) and
-:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.grad_accum` (its rows of 16
-bytes); the last three contract the batch in a weight gradient, split
-into slices by :func:`wgrad_plan`; three of them,
-``linear_fwd``, ``linear_ksplit_fwd`` and ``matmul_nt`` (:data:`SGEMM_OPS`),
-also an fp32 form.  The choice is a function of dtype, shape and pointer
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.grad_accum` and
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.grad_accum2` (their rows of 16
+bytes; ``grad_accum2`` 's two weight gradients in one launch); the last
+four contract the batch in a weight gradient, split into slices by
+:func:`wgrad_plan`; four of them, ``linear_fwd``, ``linear_ksplit_fwd``,
+``matmul_nt`` and ``grad_accum`` (:data:`SGEMM_OPS`), also an fp32 form,
+``grad_accum`` 's split into slices by :func:`sgemm_wgrad_plan`.  The choice is a function of dtype, shape and pointer
 alignment alone (:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in
 the wrapper before the launch:
 
@@ -62,7 +64,8 @@ import torch
 KERNEL_CODES = {"cuda_cores": 0, "tensor_cores": 1, "sgemm": 2}
 TENSOR_CORES, SGEMM = KERNEL_CODES["tensor_cores"], KERNEL_CODES["sgemm"]
 # the ops whose C entry points have the fp32 form (code 2)
-SGEMM_OPS = frozenset({"linear_fwd", "linear_ksplit_fwd", "matmul_nt"})
+SGEMM_OPS = frozenset({"linear_fwd", "linear_ksplit_fwd", "matmul_nt",
+                       "grad_accum"})
 
 # TMA's unit: base pointers and row pitches are multiples of 16 bytes
 TMA_ALIGN_BYTES = 16
@@ -84,6 +87,10 @@ SGEMM_ALIGN_F32 = TMA_ALIGN_BYTES // 4
 # of 32 k-steps in 128 x 128 tiles than as 8 of 16 in 128 x 256, the same
 # single wave (chip_smoke.py phase 3b sweeps the plans; PERF.md section 6).
 WGRAD_MIN_STEPS = 32
+# the same for the fp32 weight gradient (sgemm_wgrad_plan): a k-step of 64
+# rows takes the CUDA cores about fifteen times as long as the tensor
+# cores, so a slice of 8 (512 rows) is still long beside what it writes
+SGEMM_WGRAD_MIN_STEPS = 8
 
 _sm_counts = {}
 
@@ -147,42 +154,91 @@ def sgemm_tile(rows: int, n: int, sms: int) -> tuple:
     return best[1]
 
 
+def _slice_plan(tiles: int, steps: int, slots: int, least: int) -> tuple:
+    """``(waves, k-steps a slice, slices)`` of a weight gradient of
+    ``tiles`` output tiles over ``steps`` k-steps of 64 rows on ``slots``
+    blocks a wave: as many slices as fill one wave, each at least ``least``
+    k-steps, and the fewest that keep that many k-steps a slice (no slice
+    is empty)."""
+    split = max(1, min(slots // tiles, steps // least))
+    per = -(-steps // split)
+    split = -(-steps // per)
+    return -(-tiles * split // slots), per, split
+
+
 @functools.lru_cache(maxsize=1024)
-def wgrad_plan(m: int, n: int, k: int, sms: int) -> tuple:
+def wgrad_plan(m: int, n: int, k: int, sms: int, outputs: int = 1) -> tuple:
     """``(tile width, slices)`` of the tensor-core weight gradient ``dW (m,
     n) = aᵀ b`` over a contraction of ``k`` rows (the batch) on a card of
-    ``sms`` SMs (``csrc/wgmma.cuh`` ``launch_wgrad``).  Its grid is small
-    (dW3 at 256 x 2048 is 16 tiles of 128 x 256), so the batch is cut into
-    slices, each a whole dW's tiles, added in order afterwards: for each
-    width of :data:`TILE_WIDTHS`, as many slices as fill one wave, at least
+    ``sms`` SMs (``csrc/wgmma.cuh`` ``launch_wgrad_outs``), for ``outputs``
+    weight gradients of one ``a`` side by side in one launch (each ``(m,
+    n)``: ``grad_accum2`` 's two heads).  Its grid is small (dW3 at 256 x
+    2048 is 16 tiles of 128 x 256), so the batch is cut into slices, each a
+    whole dW's tiles, added in order afterwards: for each width of
+    :data:`TILE_WIDTHS`, as many slices as fill one wave, at least
     :data:`WGRAD_MIN_STEPS` k-steps of 64 rows each, and the fewest that
     keep that many k-steps a slice (no slice is empty).  The width whose
     grid takes the fewest waves times width times k-steps a slice wins; on
-    a tie, a plan of one slice (it writes dW once and needs no reduction),
-    then the wider (it reads the operands fewer times, each slice reading
-    all of A and B's rows once).  On an H100, dW4 and dW1 at microbatch
-    8192 (2048 x 1024, 1024 x 2048) ran 5.8 % and 3.9 % faster as one slice
-    of 128 x 128 tiles than as 2 slices of 128 x 256, the same single wave
-    (chip_smoke.py phase 3b; PERF.md section 6)."""
+    a tie, 128 wide (its ring has five stages where 256 has three, and a
+    64-wide tile reads A from L2 twice as often a product), then a plan of
+    one slice (it writes dW once and needs no reduction), then the wider
+    (it reads the operands fewer times, each slice reading all of A and
+    B's rows once).  On an H100, at microbatch 8192, dW4 and dW1 (2048 x
+    1024, 1024 x 2048) ran 5.8 % and 3.9 % faster as one slice of 128 x
+    128 tiles than as 2 slices of 128 x 256, the same single wave, and
+    grad_accum2's two 2048 x 256 outputs faster as 2 slices of 128 x 128
+    than as one of 128 x 64 or 4 of 128 x 256, which tie with it on the
+    cost (chip_smoke.py phase 3b; PERF.md section 6)."""
     steps = -(-k // 64)
     best = None
     for width in TILE_WIDTHS:
-        tiles = -(-m // TILE_M) * -(-n // width)
-        split = max(1, min(sms // tiles, steps // WGRAD_MIN_STEPS))
-        per = -(-steps // split)
-        split = -(-steps // per)
-        cost = (-(-tiles * split // sms) * width * per, split > 1)
+        tiles = outputs * -(-m // TILE_M) * -(-n // width)
+        waves, per, split = _slice_plan(tiles, steps, sms, WGRAD_MIN_STEPS)
+        cost = (waves * width * per, width != 128, split > 1)
         if best is None or cost < best[0]:
             best = (cost, width, split)
     return best[1], best[2]
 
 
-def wgrad(code: int, device: torch.device, m: int, n: int, k: int) -> tuple:
+@functools.lru_cache(maxsize=1024)
+def sgemm_wgrad_plan(m: int, n: int, k: int, sms: int) -> tuple:
+    """``(tile index, slices)`` of the fp32 weight gradient ``dW (m, n) =
+    aᵀ b`` over a contraction of ``k`` rows (the batch) on a card of
+    ``sms`` SMs (``csrc/sgemm.cuh`` ``launch_wgrad``; the index into
+    :data:`SGEMM_TILES`), in the spirit of :func:`wgrad_plan`: for each
+    tile, as many slices as fill one wave of two blocks an SM (the
+    kernel's launch bounds), at least :data:`SGEMM_WGRAD_MIN_STEPS` k-steps
+    of 64 rows each, no slice empty.  The tile whose grid takes the fewest
+    waves times tile area times k-steps a slice wins; on a tie, the larger
+    tile: a lane of a 128 x 128 tile does 64 FFMAs for the 16 floats it
+    reads from shared memory a k-step, one of a 64 x 64 tile 16 for 8,
+    which leaves the FFMAs waiting on shared memory.  dW4 and dW1 at
+    microbatch 8192 (128 tiles of 128 x 128) take two slices; dW21, dW22
+    (2048 x 256) and dW3 (256 x 2048), 32 such tiles, eight.  On an H100
+    those ran faster than one wave of one block an SM (one slice, four)
+    (chip_smoke.py phase 3c; PERF.md section 6)."""
+    steps = -(-k // 64)
+    best = None
+    for index, (bm, bn) in enumerate(SGEMM_TILES):
+        tiles = -(-m // bm) * -(-n // bn)
+        waves, per, split = _slice_plan(tiles, steps, 2 * sms,
+                                        SGEMM_WGRAD_MIN_STEPS)
+        cost = waves * bm * bn * per
+        if best is None or cost < best[0]:
+            best = (cost, index, split)
+    return best[1], best[2]
+
+
+def wgrad(code: int, device: torch.device, m: int, n: int, k: int,
+          outputs: int = 1) -> tuple:
     """The ``(tile_dw, split)`` arguments of a C entry point's weight
-    gradient: :func:`wgrad_plan` for the tensor-core kernel (``code`` 1),
-    ``(0, 0)`` for the first version."""
+    gradient: :func:`wgrad_plan` for the tensor-core kernel (``code`` 1,
+    ``outputs`` weight gradients in one launch), :func:`sgemm_wgrad_plan`
+    for the fp32 one (``code`` 2), ``(0, 0)`` for the first version."""
     if code == TENSOR_CORES:
-        return wgrad_plan(m, n, k, sm_count(device))
+        return wgrad_plan(m, n, k, sm_count(device), outputs)
+    if code == SGEMM:
+        return sgemm_wgrad_plan(m, n, k, sm_count(device))
     return 0, 0
 
 

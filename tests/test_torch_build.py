@@ -180,21 +180,28 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch, header):
 
 
 def test_the_fp32_entry_points_build_on_sgemm_cuh():
-    """rvk_linear_fwd, rvk_linear_ksplit_fwd and rvk_matmul_nt launch the
-    fp32 mainloop of csrc/sgemm.cuh for kernel code 2 (the rvk::tc::Kernel
-    enum), the two linear entry points with the same call, and its tile
-    table is the wrappers' SGEMM_TILES."""
+    """rvk_linear_fwd, rvk_linear_ksplit_fwd, rvk_matmul_nt and
+    rvk_grad_accum launch the fp32 mainloop of csrc/sgemm.cuh for kernel
+    code 2 (the rvk::tc::Kernel enum), the two linear entry points with the
+    same call, rvk_grad_accum its weight-gradient form, and its tile table
+    is the wrappers' SGEMM_TILES."""
     import re
 
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
-    for src, call, times in (
-            ("linear.cu", "rvk::sgemm::launch_act<false>", 2),
-            ("bwd.cu", "rvk::sgemm::launch<true, rvk::kActNone>", 1)):
+    for src, calls in (
+            ("linear.cu", {"rvk::sgemm::launch_act<false>": 2}),
+            ("bwd.cu", {"rvk::sgemm::launch<true, rvk::kActNone>": 1,
+                        "rvk::sgemm::launch_wgrad(src<float>": 1})):
         text = (_build.CSRC / src).read_text()
         assert '#include "sgemm.cuh"' in text
-        assert text.count("kernel == rvk::tc::kSgemm") == times, src
-        assert text.count(call) == times, src
+        assert text.count("kernel == rvk::tc::kSgemm") == sum(
+            calls.values()), src
+        for call, times in calls.items():
+            assert text.count(call) == times, (src, call)
+    grad = (_build.CSRC / "bwd.cu").read_text().split(
+        "int rvk_grad_accum(")[1].split("int rvk_grad_accum2(")[0]
+    assert "rvk::sgemm::launch_wgrad(src<float>" in grad
     ksplit = (_build.CSRC / "linear.cu").read_text().split(
         "int rvk_linear_ksplit_fwd(")[1]
     assert "kernel == rvk::tc::kSgemm" in ksplit

@@ -1817,7 +1817,7 @@ def test_every_weight_gradient_plan_matches_plain(cuda, plan, monkeypatch):
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
     monkeypatch.setattr(tensor_cores, "wgrad_plan",
-                        lambda m, n, k, sms: plan)
+                        lambda m, n, k, sms, outputs=1: plan)
     _, bwd = _decoder_operands(cuda, 8100, 256, 2048, 1024, seed=5)
     got, rose = _ran_tc(mlp.dec_bwd_fused, *bwd)
     assert rose == (1, 1)
@@ -1948,7 +1948,7 @@ def test_every_plan_of_rows_7_and_8_matches_plain(cuda, plan, monkeypatch):
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
     monkeypatch.setattr(tensor_cores, "wgrad_plan",
-                        lambda m, n, k, sms: plan)
+                        lambda m, n, k, sms, outputs=1: plan)
     for op, plain, ops_ in _weight_gradient_ops(
             cuda, (8100, 256, 2048, 1024), seed=5):
         got, rose = _ran_tc(op, *ops_)
@@ -1997,4 +1997,238 @@ def test_bf16_dense_step_runs_the_weight_gradients_on_the_tensor_cores(cuda):
     torch.cuda.synchronize()
     for f, (n, n_tc) in zip(ops_, before):
         assert (f.launches - n, f.tensor_core_launches - n_tc) == (4, 4)
+    assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
+
+
+# ---- row 9, bf16 grad_accum2: both heads' weight gradients in one launch
+# of the tensor-core weight gradient (csrc/wgmma.cuh launch_wgrad2), every
+# output within BF16_REL of its plain version and of the first version,
+# equal bits on a second launch; shapes (batch, units, latent).
+
+GRAD2_TC = [(8192, 2048, 256), (1000, 2048, 256), (1, 2048, 256),
+            (1000, 520, 72), (8100, 2048, 8)]
+
+
+def _grad_accum2_operands(device, batch, units, latent, seed=0,
+                          dtype=torch.bfloat16):
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn((batch, units), generator=g, device=device).clamp_min(0)
+    dmu = torch.randn((batch, latent), generator=g, device=device)
+    dlv = torch.randn((batch, latent), generator=g, device=device)
+    return tuple(t.to(dtype) for t in (h, dmu, dlv))
+
+
+@pytest.mark.parametrize("shape", GRAD2_TC, ids=str)
+def test_tensor_core_grad_accum2_matches_plain_and_first_version(cuda,
+                                                                 shape):
+    ops_ = _grad_accum2_operands(cuda, *shape)
+    want = mlp.grad_accum2_ref(*ops_)
+    first, rose = _ran_tc(mlp.grad_accum2, *ops_, kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran_tc(mlp.grad_accum2, *ops_)                      # auto
+    assert rose == (1, 1)
+    for g, w, f in zip(got, want, first):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= BF16_REL
+        assert _rel(g, f) <= BF16_REL
+    for g, a in zip(got, mlp.grad_accum2(*ops_, kernel="tensor_cores")):
+        assert torch.equal(g, a)
+    # each head's pair is the one-output weight gradient of that head
+    for head, pair in ((1, got[:2]), (2, got[2:])):
+        for g, w in zip(pair, mlp.grad_accum_ref(ops_[0], ops_[head])):
+            assert _rel(g, w) <= BF16_REL
+
+
+@pytest.mark.parametrize("plan", [(256, 8), (256, 1), (128, 4), (128, 2),
+                                  (64, 3), (64, 1), (64, 16)])
+def test_every_grad_accum2_plan_matches_plain(cuda, plan, monkeypatch):
+    """grad_accum2 with the plan forced at the ragged 8100 rows: one slice,
+    slices that cut the batch unevenly, every tile width; equal bits
+    twice."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    monkeypatch.setattr(tensor_cores, "wgrad_plan",
+                        lambda m, n, k, sms, outputs=1: plan)
+    ops_ = _grad_accum2_operands(cuda, 8100, 2048, 256, seed=5)
+    got, rose = _ran_tc(mlp.grad_accum2, *ops_)
+    assert rose == (1, 1)
+    for g, w in zip(got, mlp.grad_accum2_ref(*ops_)):
+        assert _rel(g, w) <= BF16_REL
+    for g, a in zip(got, mlp.grad_accum2(*ops_)):
+        assert torch.equal(g, a)
+
+
+def test_tensor_core_grad_accum2_dispatch_on_the_card(cuda):
+    """A latent no multiple of 8, fp32 and an unaligned view keep the first
+    version under ``auto`` and raise for ``kernel="tensor_cores"``; a
+    zero-row batch gives zero gradients; no fp32 form exists."""
+    ops_ = _grad_accum2_operands(cuda, 1000, 2048, 36)
+    got, rose = _ran_tc(mlp.grad_accum2, *ops_)
+    assert rose == (1, 0)
+    for g, w in zip(got, mlp.grad_accum2_ref(*ops_)):
+        assert _rel(g, w) <= BF16_REL
+    with pytest.raises(ValueError, match="m 36"):
+        mlp.grad_accum2(*ops_, kernel="tensor_cores")
+    ops_ = _grad_accum2_operands(cuda, 256, 2048, 256)
+    f32 = [t.float() for t in ops_]
+    _, rose = _ran_tc(mlp.grad_accum2, *f32)
+    assert rose == (1, 0)
+    with pytest.raises(ValueError, match="takes bf16 operands"):
+        mlp.grad_accum2(*f32, kernel="tensor_cores")
+    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+        mlp.grad_accum2(*f32, kernel="sgemm")
+    for at in range(3):
+        t = ops_[at]
+        off = torch.empty(t.numel() + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view_as(t).copy_(t)
+        moved = [off if i == at else u for i, u in enumerate(ops_)]
+        got, rose = _ran_tc(mlp.grad_accum2, *moved)
+        assert rose == (1, 0)
+        for g, f in zip(got, mlp.grad_accum2(*ops_, kernel="cuda_cores")):
+            assert torch.equal(g, f)
+        with pytest.raises(ValueError, match="aligned = False"):
+            mlp.grad_accum2(*moved, kernel="tensor_cores")
+    for g in mlp.grad_accum2(*(t[:0] for t in ops_)):
+        torch.cuda.synchronize()
+        assert not g.any()
+
+
+def test_bf16_dense_step_runs_grad_accum2_on_the_tensor_cores(cuda):
+    """One bf16 step of the dense kernel backend at batch 3 x 1024 with
+    microbatch 1024 plus a ragged tail: every grad_accum2 launch on the
+    tensor cores."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.backend, cfg.tpu.precision = "pallas", "bfloat16"
+    cfg.tpu.microbatch_size = 1024
+    x = torch.rand((3 * 1024 + 100, cfg.audio.segment_length),
+                   device=cuda) * 2 - 1
+    model = build_model(cfg, cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    f = mlp.grad_accum2
+    before = (f.launches, f.tensor_core_launches)
+    state, m = build_train_step(model, cfg)(state, x)
+    torch.cuda.synchronize()
+    assert (f.launches - before[0], f.tensor_core_launches - before[1]) \
+        == (4, 4)
+    assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
+
+
+# ---- row 7, fp32 grad_accum on csrc/sgemm.cuh (launch_wgrad: aᵀ read
+# M-major, the batch cut into slices added in order, the column sums from
+# the staged b), within SGEMM_REL of the plain version and of the first
+# version, equal bits on a second launch; shapes (batch, n, m).  The first
+# four are the `highest` step's five weight gradients at the microbatch
+# (dW21 and dW22 share a shape).
+
+SGEMM_WGRAD = [(8192, 1024, 2048), (8192, 2048, 256), (8192, 256, 2048),
+               (8192, 2048, 1024), (1000, 2048, 256), (1, 2048, 1024),
+               (4097, 1088, 544), (130, 68, 260), (7, 12, 20)]
+
+
+def _grad_accum_operands(device, batch, n, m, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((batch, n), generator=g, device=device).clamp_min(0)
+    b = torch.randn((batch, m), generator=g, device=device) * 1e-2
+    return a, b
+
+
+@pytest.mark.parametrize("shape", SGEMM_WGRAD, ids=str)
+def test_sgemm_grad_accum_matches_plain_and_first_version(cuda, shape):
+    a, b = _grad_accum_operands(cuda, *shape)
+    want = mlp.grad_accum_ref(a, b)
+    first, rose = _ran_sgemm(mlp.grad_accum, a, b, kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran_sgemm(mlp.grad_accum, a, b)                    # auto
+    assert rose == (1, 1)
+    for g, w, f in zip(got, want, first):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= SGEMM_REL
+        assert _rel(g, f) <= SGEMM_REL
+    for g, again in zip(got, mlp.grad_accum(a, b, kernel="sgemm")):
+        assert torch.equal(g, again)
+
+
+@pytest.mark.parametrize("plan", [(0, 1), (0, 4), (0, 8), (1, 3), (2, 1),
+                                  (2, 16)])
+def test_every_sgemm_weight_gradient_plan_matches_plain(cuda, plan,
+                                                        monkeypatch):
+    """fp32 grad_accum with the plan (tile index, slices) forced at the
+    ragged 8100 rows: every tile, one slice, slices that cut the batch
+    unevenly; equal bits twice."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    monkeypatch.setattr(tensor_cores, "sgemm_wgrad_plan",
+                        lambda m, n, k, sms: plan)
+    a, b = _grad_accum_operands(cuda, 8100, 2048, 260, seed=5)
+    got, rose = _ran_sgemm(mlp.grad_accum, a, b)
+    assert rose == (1, 1)
+    for g, w in zip(got, mlp.grad_accum_ref(a, b)):
+        assert _rel(g, w) <= SGEMM_REL
+    for g, again in zip(got, mlp.grad_accum(a, b)):
+        assert torch.equal(g, again)
+
+
+def test_sgemm_grad_accum_dispatch_on_the_card(cuda):
+    """n or m no multiple of 4 and a view off a 16-byte boundary keep the
+    first version under ``auto`` and raise for ``kernel="sgemm"``; bf16
+    operands never take it; a zero-row batch gives zero gradients."""
+    for shape in ((1000, 2048, 1022), (1000, 70, 256)):
+        a, b = _grad_accum_operands(cuda, *shape)
+        got, rose = _ran_sgemm(mlp.grad_accum, a, b)
+        assert rose == (1, 0), shape
+        for g, w in zip(got, mlp.grad_accum_ref(a, b)):
+            assert _rel(g, w) <= SGEMM_REL
+        with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+            mlp.grad_accum(a, b, kernel="sgemm")
+    a, b = _grad_accum_operands(cuda, 256, 2048, 256)
+    for at in range(2):
+        t = (a, b)[at]
+        off = torch.empty(t.numel() + 1, device=cuda)[1:].view_as(t).copy_(t)
+        moved = [off if i == at else u for i, u in enumerate((a, b))]
+        got, rose = _ran_sgemm(mlp.grad_accum, *moved)
+        assert rose == (1, 0)
+        for g, f in zip(got, mlp.grad_accum(a, b, kernel="cuda_cores")):
+            assert torch.equal(g, f)
+        with pytest.raises(ValueError, match="aligned = False"):
+            mlp.grad_accum(*moved, kernel="sgemm")
+    _, rose = _ran_sgemm(mlp.grad_accum, a.bfloat16(), b.bfloat16())
+    assert rose == (1, 0)
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        mlp.grad_accum(a.bfloat16(), b.bfloat16(), kernel="sgemm")
+    for g in mlp.grad_accum(a[:0], b[:0]):
+        torch.cuda.synchronize()
+        assert not g.any()
+
+
+def test_highest_step_runs_grad_accum_on_sgemm(cuda):
+    """One `highest` step of the dense kernel backend at batch 3 x 1024
+    with microbatch 1024 plus a ragged tail: the primitive backward's five
+    weight gradients a microbatch, every one on csrc/sgemm.cuh."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.backend, cfg.tpu.precision = "pallas", "highest"
+    cfg.tpu.microbatch_size = 1024
+    x = torch.rand((3 * 1024 + 100, cfg.audio.segment_length),
+                   device=cuda) * 2 - 1
+    model = build_model(cfg, cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    f = mlp.grad_accum
+    before = (f.launches, f.sgemm_launches)
+    state, m = build_train_step(model, cfg)(state, x)
+    torch.cuda.synchronize()
+    assert (f.launches - before[0], f.sgemm_launches - before[1]) \
+        == (20, 20)
     assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))

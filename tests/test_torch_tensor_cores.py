@@ -1317,9 +1317,11 @@ def test_a_cpu_decoder_takes_the_plain_version_whatever_the_kernel():
 #
 # grad_accum takes the tensor-core weight gradient (csrc/wgmma.cuh
 # launch_wgrad) when its operands' rows are TMA's 16-byte rows (n and m
-# multiples of 8) and there is a row; enc_bwd_dw1 when dh, two products
-# joined along k, fits (k = latent, n = units) and seg is a multiple of 8.
-# The step's uses: dW4 = h3ᵀ da (n = units, m = seg) and dW1 = xᵀ dh.
+# multiples of 8) and there is a row, and the fp32 weight gradient of
+# csrc/sgemm.cuh on fp32 rows of 16 bytes (n and m multiples of 4);
+# enc_bwd_dw1 the tensor cores when dh, two products joined along k, fits
+# (k = latent, n = units) and seg is a multiple of 8.  The step's uses: dW4
+# = h3ᵀ da (n = units, m = seg) and dW1 = xᵀ dh.
 
 DW4 = (2048, 1024)             # configs/default.ini: units, seg
 
@@ -1344,24 +1346,28 @@ def test_the_dense_weight_gradients_take_the_tensor_cores(batch):
         assert resolve("auto", BF16, batch, *widths) == 1
         assert resolve("tensor_cores", BF16, batch, *widths) == 1
         assert resolve("cuda_cores", BF16, batch, *widths) == 0
-        # fp32 (the `float32` / `highest` tiers) keeps the first version
-        assert resolve("auto", F32, batch, *widths) == 0
+    # fp32 (the `float32` / `highest` tiers): grad_accum takes the fp32
+    # kernel, enc_bwd_dw1 (on no fp32 path) keeps the first version
+    assert mlp.resolve_grad_accum("auto", F32, batch, *DW4) == SGEMM
+    assert mlp.resolve_grad_accum("sgemm", F32, batch, *DW4) == SGEMM
+    assert mlp.resolve_enc_bwd_dw1("auto", F32, batch, *DENSE) == 0
 
 
-def _kept_off_the_tensor_cores(op, resolve, dtype, widths):
+def _kept_off_the_tensor_cores(op, resolve, dtype, widths,
+                               sgemm="no kernel 'sgemm'"):
     assert resolve("auto", dtype, *widths) == 0
     assert resolve("cuda_cores", dtype, *widths) == 0
     with pytest.raises(ValueError, match=f"{op}: kernel 'tensor_cores' "
                        "takes bf16 operands"):
         resolve("tensor_cores", dtype, *widths)
-    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+    with pytest.raises(ValueError, match=sgemm):
         resolve("sgemm", dtype, *widths)
     with pytest.raises(ValueError, match="unknown kernel"):
         resolve("wgmma", dtype, *widths)
 
 
 @pytest.mark.parametrize("dtype,batch,n,m,aligned", [
-    (F32, MICROBATCH, 2048, 1024, True),      # fp32: queue B.5
+    (F32, MICROBATCH, 2048, 1022, True),      # fp32, m % 4 != 0
     (BF16, MICROBATCH, 2044, 1024, True),     # n % 8 != 0
     (BF16, MICROBATCH, 2048, 1020, True),     # m % 8 != 0
     (BF16, 1000, 70, 18, True),               # odd widths
@@ -1371,8 +1377,10 @@ def _kept_off_the_tensor_cores(op, resolve, dtype, widths):
 ], ids=["fp32", "n%8", "m%8", "odd", "unaligned", "no-rows", "fp16"])
 def test_what_keeps_grad_accum_on_the_cuda_cores(dtype, batch, n, m,
                                                  aligned):
+    # grad_accum has an fp32 form, which none of these operands fit
     _kept_off_the_tensor_cores("grad_accum", mlp.resolve_grad_accum, dtype,
-                               (batch, n, m, aligned))
+                               (batch, n, m, aligned),
+                               "'sgemm' takes fp32 operands")
 
 
 @pytest.mark.parametrize("dtype,batch,seg,units,latent,aligned", [
@@ -1398,7 +1406,8 @@ def test_grad_accum_passes_the_kernel_code_plan_and_workspace(monkeypatch):
     weight gradient's tile width and split (tensor_cores.wgrad_plan), the
     kernel code; the first version gets zeros and no workspace."""
     launched = _stand_in(monkeypatch)
-    counts = (mlp.grad_accum.launches, mlp.grad_accum.tensor_core_launches)
+    counts = (mlp.grad_accum.launches, mlp.grad_accum.tensor_core_launches,
+              mlp.grad_accum.sgemm_launches)
     for batch in (MICROBATCH, 4096, 1000, 1):
         ops = _grad_accum_operands(batch, *DW4, BF16)
         dw, db = mlp.grad_accum(*ops)
@@ -1420,21 +1429,26 @@ def test_grad_accum_passes_the_kernel_code_plan_and_workspace(monkeypatch):
                    kernel="cuda_cores")
     args = launched.pop()[1]
     assert args[4] is None and args[8:] == (1, 0, 0, 0)
+    # fp32: the fp32 kernel, its tile's index and slices
     mlp.grad_accum(*_grad_accum_operands(256, *DW4, F32))
-    assert launched.pop()[1][8:] == (0, 0, 0, 0)
+    args = launched.pop()[1]
+    plan = tensor_cores.sgemm_wgrad_plan(*DW4, 256, 132)
+    assert args[8:] == (0, *plan, SGEMM)
+    assert (args[4] is None) == (plan[1] == 1)
     # no rows: the first version, which writes zero gradients
     mlp.grad_accum(*_grad_accum_operands(0, *DW4, BF16))
     assert launched.pop()[1][8:] == (1, 0, 0, 0)
     # a plan of more than one slice: the workspace holds each slice's dW
     # and column sums
     monkeypatch.setattr(tensor_cores, "wgrad_plan",
-                        lambda m, n, k, sms: (256, 2))
+                        lambda m, n, k, sms, outputs=1: (256, 2))
     mlp.grad_accum(*_grad_accum_operands(MICROBATCH, *DW4, BF16))
     args = launched.pop()[1]
     assert args[4].shape == (2, 2048 * 1024 + 1024) and args[4].dtype == F32
     assert args[9:] == (256, 2, 1)
     assert (mlp.grad_accum.launches - counts[0],
-            mlp.grad_accum.tensor_core_launches - counts[1]) == (8, 5)
+            mlp.grad_accum.tensor_core_launches - counts[1],
+            mlp.grad_accum.sgemm_launches - counts[2]) == (8, 5, 1)
 
 
 def test_enc_bwd_dw1_passes_the_kernel_code_tiles_plan_and_workspace(
@@ -1471,7 +1485,7 @@ def test_enc_bwd_dw1_passes_the_kernel_code_tiles_plan_and_workspace(
     mlp.enc_bwd_dw1(*_enc_bwd_operands(256, *DENSE, F32))
     assert launched.pop()[1][14:] == (0, 0, 0, 0, 0)
     monkeypatch.setattr(tensor_cores, "wgrad_plan",
-                        lambda m, n, k, sms: (64, 3))
+                        lambda m, n, k, sms, outputs=1: (64, 3))
     mlp.enc_bwd_dw1(*_enc_bwd_operands(MICROBATCH, *DENSE, BF16))
     args = launched.pop()[1]
     assert args[9].shape == (3, 1024 * 2048 + 2048) and args[9].dtype == F32
@@ -1498,7 +1512,9 @@ def test_a_named_tensor_core_weight_gradient_raises_on_what_it_cannot_take(
         fn(*[t.float() for t in dense], kernel="tensor_cores")
     with pytest.raises(ValueError, match="unknown kernel"):
         fn(*dense, kernel="wgmma")
-    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+    # grad_accum's fp32 form takes no bf16 operands; enc_bwd_dw1 has none
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"
+                       if op == "grad_accum" else "no kernel 'sgemm'"):
         fn(*dense, kernel="sgemm")
     monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
     with pytest.raises(ValueError, match="aligned = False"):
