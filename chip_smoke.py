@@ -12,7 +12,17 @@ any failure exits non-zero with a traceback (no phase is caught):
 2. builds the CUDA kernels from ``rawaudiovae_kelsey_tpu_torch/csrc``;
 3. the serving kernels against their plain PyTorch versions at full width
    (1024/2048/256), batch 256 (the server's) and a ragged batch of 100,
-   fp32 with TF32 off, and both times at batch 256;
+   fp32 with TF32 off, and both times at batch 256; fp32 ``encoder_fwd`` and
+   ``decoder_fwd`` on the register-tiled fp32 kernel (``csrc/sgemm.cuh``:
+   h, then both heads in one grid; h3, then y; each product's tile and
+   slices of its contraction from ``tensor_cores.sgemm_fwd_plan``) also at
+   batch 1 and 8192, against the first version (``kernel="cuda_cores"``),
+   equal bits twice, a latent of 38 keeping the first version and raising
+   for ``kernel="sgemm"``, timed in turns with the first version, the plain
+   version and the library sequence (``addmm`` → ``relu`` → ``addmm`` →
+   ``addmm``; ``addmm`` → ``relu`` → ``addmm`` → ``tanh``) at 256 and 8192
+   with each launch's device time apart, and every product's plan (tile,
+   slices) swept at both beside the rule's pick;
 3b. the training kernels — the four backward kernels in fp32 and bf16, the
    two forward kernels in bf16 — against their plain versions at full
    width, batch 8192 (the training microbatch), a ragged 1000 and 1, and
@@ -85,6 +95,8 @@ any failure exits non-zero with a traceback (no phase is caught):
    all on the tensor cores (none at ``high`` or ``highest``), the same for
    ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2``; the ``highest``
    step's five ``grad_accum`` launches a microbatch, all on
+   ``csrc/sgemm.cuh``, and the ``encoder_fwd`` and ``decoder_fwd`` launches
+   of the ``high`` and ``highest`` steps, one each a microbatch, all on
    ``csrc/sgemm.cuh``; the device time by kernel of one bf16 kernel step
    and of one ``highest`` kernel step;
 6. the device-resident path: ``configs/perf_bf16.ini`` uncut (batch 4096,
@@ -202,11 +214,12 @@ any failure exits non-zero with a traceback (no phase is caught):
 
 ``launches`` in the kernel line: the wrapper's count over the path where
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
-(phase 4); bf16 forward kernels: the training run of phase 5 (its fp32
-test-set reconstructions included); bf16 "split" backward kernels: that
+(phase 4; fp32 ``encoder_fwd`` / ``decoder_fwd``: those on the fp32
+kernel, every one); bf16 forward kernels: the training run of phase 5 (its
+fp32 test-set reconstructions included); bf16 "split" backward kernels: that
 run (bf16 ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``,
 ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2``: those on the tensor
-cores; the run's fp32 reconstructions take the first version); fp32
+cores; the run's fp32 reconstructions take ``csrc/sgemm.cuh``); fp32
 ``grad_accum``: the ``highest`` step of phase 5 (those on the fp32 kernel
 of ``csrc/sgemm.cuh``; no path of the
 package runs ``enc_bwd_dw1``, ``grad_accum2`` or ``dec_bwd_fused`` on fp32
@@ -237,17 +250,19 @@ The rows of bf16 ``matmul_nt``, ``linear_ksplit_fwd``, ``linear_fwd``,
 ``toeplitz_fwd``, ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``,
 ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2`` describe the
 tensor-core kernel, those of fp32 ``matmul_nt``, ``linear_ksplit_fwd``,
-``linear_fwd`` and ``grad_accum`` the fp32 kernel of ``csrc/sgemm.cuh``
-(``ms``, and ``launches``: those that took it; fp32 ``linear_fwd`` at the
-server's 256x4096->4096, fp32 ``linear_ksplit_fwd`` at 4096^3, fp32
-``grad_accum`` at dW4, 8192x2048->1024, with dW21 and dW3 in keys of their
-own), and carry the first version's time on the same inputs as
-``first_version_ms``.  The ``library_ms`` of bf16 ``encoder_fwd``,
-``decoder_fwd``, ``dec_bwd_fused``, ``grad_accum``, ``enc_bwd_dw1`` and
-``grad_accum2`` and of fp32 ``grad_accum``, ``matmul_nt_mask`` and
-``matmul_nt2_mask`` is the device time of a sequence of library calls at
-microbatch 8192 (its ``library`` key says which): no one PyTorch call
-computes any of them.
+``linear_fwd``, ``grad_accum``, ``encoder_fwd`` and ``decoder_fwd`` the
+fp32 kernel of ``csrc/sgemm.cuh`` (``ms``, and ``launches``: those that
+took it; fp32 ``linear_fwd`` at the server's 256x4096->4096, fp32
+``linear_ksplit_fwd`` at 4096^3, fp32 ``grad_accum`` at dW4,
+8192x2048->1024, with dW21 and dW3 in keys of their own, fp32
+``encoder_fwd`` / ``decoder_fwd`` at the server's batch of 256, with the
+microbatch's numbers under ``at_8192``), and carry the first version's
+time on the same inputs as ``first_version_ms``.  The ``library_ms`` of
+bf16 ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``, ``grad_accum``,
+``enc_bwd_dw1`` and ``grad_accum2`` and of fp32 ``encoder_fwd``,
+``decoder_fwd``, ``grad_accum``, ``matmul_nt_mask`` and ``matmul_nt2_mask``
+is the device time of a sequence of library calls on the same inputs (its
+``library`` key says which): no one PyTorch call computes any of them.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -723,17 +738,18 @@ def hold_tensor_cores(name, op, plain, cases, odd=(),
 
 
 def time_tensor_cores(name, row, fns, parts, library_text,
-                      kernel="tensor_cores"):
-    """Phases 3b / 3c: ``fns`` (library, plain, cuda_cores, and ``kernel``:
-    tensor_cores or sgemm) timed in turns at the microbatch and by the
-    profiler's device time, with the device time of each of ``parts``
-    ({label: fn() -> ms}); ``row`` (the kernel line's) takes ``kernel`` 's
-    numbers.  Returns the device times."""
+                      kernel="tensor_cores", batch=TRAIN_BATCH):
+    """Phases 3-3c: ``fns`` (library, plain, cuda_cores, and ``kernel``:
+    tensor_cores or sgemm) timed in turns at ``batch`` rows (the
+    microbatch unless named) and by the profiler's device time, with the
+    device time of each of ``parts`` ({label: fn() -> ms}); ``row`` (the
+    kernel line's) takes ``kernel`` 's numbers.  Returns the device
+    times."""
     fast = FAST[kernel]
     ms, runs = time_in_turns(fns, 20)
     dev = {key: device_ms(fn) for key, fn in fns.items()}
     split = {label: part() for label, part in parts.items()}
-    print(f"  {name + '[' + fast['kind'] + ']':<24} batch {TRAIN_BATCH}: "
+    print(f"  {name + '[' + fast['kind'] + ']':<24} batch {batch}: "
           f"{kernel} {ms[kernel]:.4f} ms (device {dev[kernel]:.4f} "
           f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
           + f"), cuda_cores (first version) {ms['cuda_cores']:.4f} ms "
@@ -1268,6 +1284,176 @@ def grad_accum_sgemm(row):
             sweep_wgrad(row, f"{key} + db", fast,
                         fns["plain"], n, m, kernel="sgemm")
 
+
+# phase 3, fp32 encoder_fwd and decoder_fwd on csrc/sgemm.cuh: each
+# product's plans (index of SGEMM_TILES, slices of the contraction) swept
+# at the server's batch and at the microbatch (those that leave a slice
+# empty are skipped); the rule's pick, tensor_cores.sgemm_fwd_plan, among
+# them
+FWD_PLANS = tuple((t, s) for t in range(3) for s in (1, 2, 4, 8, 16))
+FWD_LIBRARY = {"encoder_fwd": ENCODER_LIBRARY, "decoder_fwd": DECODER_LIBRARY}
+# the dense model's fp32 forward products: (label, k, n, outputs)
+FWD_PRODUCTS = {
+    "encoder_fwd": (("h", SEG, UNITS, 1), ("heads", UNITS, LATENT, 2)),
+    "decoder_fwd": (("h3", LATENT, UNITS, 1), ("y", UNITS, SEG, 1)),
+}
+
+
+def fwd_plans_valid(k: int):
+    """The plans of FWD_PLANS that leave no slice of a contraction of
+    ``k`` empty (csrc/sgemm.cuh launch_fwd refuses the others)."""
+    steps = -(-k // 64)
+    return [(t, s) for t, s in FWD_PLANS
+            if s <= steps and -(-steps // -(-steps // s)) == s]
+
+
+def sweep_fwd(row, name, call, plain, batch, label, k, n, outputs):
+    """Phase 3: the device ms of one ``call()`` of fp32 ``name`` at
+    ``batch`` rows with the plan of its product ``label`` (contraction
+    ``k``, width ``n``, ``outputs`` side by side) forced to each plan of
+    FWD_PLANS in turn, the other product on the rule's plan, every output
+    within GRAD_REL of ``plain()``; beside the rule's pick
+    (tensor_cores.sgemm_fwd_plan), how far it is behind the fastest, and
+    the fastest unsplit plan.  Into ``row[f"{label}_plans_{batch}"]``."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    sms = tensor_cores.sm_count(torch.device("cuda", 0))
+    rule = tensor_cores.sgemm_fwd_plan
+    picked = rule(batch, k, n, sms, outputs)
+    swept = {}
+    try:
+        for plan in fwd_plans_valid(k):
+            def forced(rows, kk, nn, sm, o=1, plan=plan):
+                return plan if (kk, nn, o) == (k, n, outputs) \
+                    else rule(rows, kk, nn, sm, o)
+            tensor_cores.sgemm_fwd_plan = forced
+            e = rel_err(call(), plain())
+            check(e <= GRAD_REL, f"{name}[fp32] batch {batch}, {label} "
+                  f"plan {plan}: relative error {e:.3e}")
+            swept[plan] = device_ms(call)
+    finally:
+        tensor_cores.sgemm_fwd_plan = rule
+    # a plan whose traces all came back empty reads NaN: it is left out
+    swept = {plan: v for plan, v in swept.items() if v == v}
+    best = min(swept, key=swept.get)
+    whole = min((p for p in swept if p[1] == 1), key=swept.get)
+    at = swept.get(picked, float("nan"))
+    behind, gain = at / swept[best] - 1, 1 - at / swept[whole]
+    print(f"  {name + '[fp32]':<24} batch {batch}: device ms of a call by "
+          f"the plan of {label} ({k}->{n} x{outputs}; tile index x slices): "
+          + ", ".join(f"{t}x{s}: {v:.4f}" for (t, s), v in swept.items())
+          + f"; the rule (tensor_cores.sgemm_fwd_plan) picks "
+            f"{picked[0]}x{picked[1]}, {100 * behind:.1f} % behind the "
+            f"fastest {best[0]}x{best[1]}; the fastest unsplit plan "
+            f"{whole[0]}x1 {swept[whole]:.4f}, the pick {100 * gain:.1f} % "
+            f"faster than it")
+    row[f"{label}_plans_{batch}"] = {f"{t}x{s}": v
+                                     for (t, s), v in swept.items()}
+
+
+def forward_sgemm(rows, gen_params):
+    """Phase 3: fp32 ``encoder_fwd`` and ``decoder_fwd`` on csrc/sgemm.cuh
+    (launch_fwd: h, then both heads in one grid; h3, then y; each product's
+    tile and slices of its contraction from tensor_cores.sgemm_fwd_plan, a
+    split product's slices added in order with the bias and the activation
+    after them) against the plain version and the first version at the
+    server's batch, the ragged 100, batch 1 and the training microbatch, a
+    latent of 38 on the first version; timed in turns with the first
+    version, the plain version and the library sequence at 256 and 8192,
+    each launch's device time apart, and each product's plan swept at both.
+    ``rows`` (phase 3's fp32 rows) take the numbers at 256 and those at
+    8192 under ``at_8192``."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp, tensor_cores
+
+    p = gen_params(1234)
+    # a generator of its own: the draws of the later phases stay as they were
+    g = torch.Generator(device="cuda").manual_seed(83)
+    weights = {
+        "encoder_fwd": [p[n][k] for n in ("fc1", "fc21", "fc22")
+                        for k in ("w", "b")],
+        "decoder_fwd": [p[n][k] for n in ("fc3", "fc4") for k in ("w", "b")]}
+    make = {"encoder_fwd": lambda b: torch.rand(
+                (b, SEG), generator=g, device="cuda") * 2 - 1,
+            "decoder_fwd": lambda b: torch.randn(
+                (b, LATENT), generator=g, device="cuda")}
+    ops_of = {"encoder_fwd": (mlp.encoder_fwd, mlp.encoder_fwd_ref),
+              "decoder_fwd": (mlp.decoder_fwd, mlp.decoder_fwd_ref)}
+
+    def odd(name, batch, latent):
+        # a latent no multiple of 4: widths the fp32 kernel refuses
+        if name == "encoder_fwd":
+            shapes = (((SEG, UNITS), SEG ** -0.5), ((UNITS,), 0.1),
+                      ((UNITS, latent), UNITS ** -0.5), ((latent,), 0.1),
+                      ((UNITS, latent), UNITS ** -0.5), ((latent,), 0.1),
+                      ((batch, SEG), 0.5))
+        else:
+            shapes = (((latent, UNITS), latent ** -0.5), ((UNITS,), 0.1),
+                      ((UNITS, SEG), UNITS ** -0.5), ((SEG,), 0.1),
+                      ((batch, latent), 1.0))
+        return [torch.randn(sh, generator=g, device="cuda") * sc
+                for sh, sc in shapes]
+
+    def library(name, ops):
+        if name == "encoder_fwd":
+            w1, b1, w21, b21, w22, b22, x = ops
+            h = torch.relu(torch.addmm(b1, x, w1))
+            return torch.addmm(b21, h, w21), torch.addmm(b22, h, w22), h
+        w3, b3, w4, b4, z = ops
+        h3 = torch.relu(torch.addmm(b3, z, w3))
+        return torch.tanh(torch.addmm(b4, h3, w4)), h3
+
+    sms = tensor_cores.sm_count(torch.device("cuda", 0))
+    for name, (op, plain) in ops_of.items():
+        row = rows[name]
+        cases = [(f"batch {b}", [*weights[name], make[name](b)])
+                 for b in (BATCH, RAGGED, 1, TRAIN_BATCH)]
+        err = hold_tensor_cores(name, op, plain, cases,
+                                [("batch 100, latent 38", odd(name, 100, 38))],
+                                kernel="sgemm")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        for batch in (BATCH, TRAIN_BATCH):
+            ops = [*weights[name], make[name](batch)]
+            fns = {"library": lambda: library(name, ops),
+                   "plain": lambda: plain(*ops),
+                   "cuda_cores": lambda: op(*ops, kernel="cuda_cores"),
+                   "sgemm": lambda: op(*ops, kernel="sgemm")}
+            fast = fns["sgemm"]
+            plans = [tensor_cores.sgemm_fwd_plan(batch, k, n, sms, o)
+                     for _, k, n, o in FWD_PRODUCTS[name]]
+            parts = ({"h": "sgemm_kernel", "heads": "sgemm_heads_kernel"}
+                     if name == "encoder_fwd" else
+                     {"h3 and y": "sgemm_kernel"})
+            if any(s > 1 for _, s in plans):
+                parts["slices epilogue"] = "slices_epilogue"
+            if batch == BATCH:
+                shape_row = row
+            else:
+                (_, k0, n0, _), (_, k1, n1, o1) = FWD_PRODUCTS[name]
+                shape_row = dict(name=row["name"], **bound(
+                    2 * batch * (k0 * n0 + o1 * k1 * n1),
+                    nbytes(*ops, *fast()), "fp32"))
+            dev = time_tensor_cores(
+                name, shape_row, fns,
+                {label: (lambda m=m: device_ms(fast, match=m))
+                 for label, m in parts.items()},
+                FWD_LIBRARY[name], kernel="sgemm", batch=batch)
+            print(f"  {name}[fp32] batch {batch}: plans (tile index x "
+                  f"slices) " + ", ".join(
+                      f"{label} {t}x{s}" for (label, *_), (t, s)
+                      in zip(FWD_PRODUCTS[name], plans))
+                  + f"; device time {dev['sgemm']:.4f} ms, "
+                    f"{dev['sgemm'] / dev['library']:.3f}x the library "
+                    f"sequence's, {dev['cuda_cores'] / dev['sgemm']:.2f}x "
+                    f"faster than the first version, "
+                    f"{dev['plain'] / dev['sgemm']:.2f}x than the plain "
+                    f"version, {dev['sgemm'] / shape_row['bound_ms']:.2f}x "
+                    f"its bound")
+            if batch != BATCH:
+                row[f"at_{batch}"] = {k: v for k, v in shape_row.items()
+                                      if k not in ("name", "library")}
+            for label, k, n, o in FWD_PRODUCTS[name]:
+                sweep_fwd(row, name, fast, fns["plain"], batch, label, k, n,
+                          o)
 
 def backward_libraries(rows, gen_params):
     """Phases 3b-3c: the device time of the library sequences of the
@@ -1901,26 +2087,37 @@ def device_ms(fn, calls: int = 10, match: str = "") -> float:
     """Device time of one ``fn()``: the kernels' own time in a
     torch.profiler trace of ``calls`` calls (only the kernels whose names
     hold ``match``), each kernel's mean over the launches the trace
-    recorded times its launches a call: a trace that missed some launches
-    (on an H100 one read dW4's weight gradient at half its time) does not
-    read short.  For a kernel of a few tens of microseconds the event-timed
-    loop measures the host's launch rate."""
+    recorded times its launches a call, counted in a trace of one call: a
+    trace that missed some launches (on an H100 one read dW4's weight
+    gradient at half its time, and a library sequence whose two launches a
+    call of one kernel lost half of them at a third under its bound) does
+    not read short.  A trace that recorded no kernel at all (one did on an
+    H100) is taken again, up to three times, before the reading is NaN.
+    For a kernel of a few tens of microseconds the event-timed loop
+    measures the host's launch rate."""
     from torch.profiler import ProfilerActivity, profile
 
+    def traced(n):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.key_averages()
+                if match in e.key and e.count]
+
     fn()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if match not in e.key or not e.count:
-            continue
-        us = getattr(e, "device_time_total", None)
-        us = getattr(e, "cuda_time_total", 0.0) if us is None else us
-        total += us / e.count * max(1, round(e.count / calls))
-    return total / 1e3 if total else float("nan")
+    per_call = {e.key: e.count for e in traced(1)}
+    for _ in range(3):
+        total = 0.0
+        for e in traced(calls):
+            us = getattr(e, "device_time_total", None)
+            us = getattr(e, "cuda_time_total", 0.0) if us is None else us
+            total += us / e.count * max(per_call.get(e.key, 0),
+                                        round(e.count / calls), 1)
+        if total:
+            return total / 1e3
+    return float("nan")
 
 
 def host_us(fn, calls: int = 500) -> float:
@@ -2100,9 +2297,11 @@ def phase_train(data: Path):
     """Phase 5: the training path of configs/default.ini."""
     from rawaudiovae_kelsey_tpu_torch import ops
 
-    # the bf16 dense kernels on the tensor cores
+    # the bf16 dense kernels on the tensor cores; the fp32 ones on
+    # csrc/sgemm.cuh
     dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.dec_bwd_fused,
                 ops.grad_accum, ops.enc_bwd_dw1, ops.grad_accum2)
+    fp32_sgemm = (ops.encoder_fwd, ops.decoder_fwd, ops.grad_accum)
     from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
     from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
     from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
@@ -2146,7 +2345,7 @@ def phase_train(data: Path):
     train_s = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
     # the bf16 dense kernels' launches on the tensor cores (the run's fp32
-    # test-set reconstructions take the first version)
+    # test-set reconstructions take csrc/sgemm.cuh)
     launches.update((f"{w.__name__}@tc", w.tensor_core_launches)
                     for w in dense_tc)
     print(f"  train command: {epochs} epochs in {train_s:.1f} s (ingest, "
@@ -2226,7 +2425,8 @@ def phase_train(data: Path):
                     w.launches = 0
                 for w in dense_tc:
                     w.tensor_core_launches = 0
-                ops.grad_accum.sgemm_launches = 0
+                for w in fp32_sgemm:
+                    w.sgemm_launches = 0
             step = build_train_step(model, cfg, noise=noise)
             start = state
             state, m = step(start, x)
@@ -2236,8 +2436,9 @@ def phase_train(data: Path):
                 step_counts[precision].update(
                     (f"{w.__name__}@tc", w.tensor_core_launches)
                     for w in dense_tc)
-                step_counts[precision]["grad_accum@sgemm"] = \
-                    ops.grad_accum.sgemm_launches
+                step_counts[precision].update(
+                    (f"{w.__name__}@sgemm", w.sgemm_launches)
+                    for w in fp32_sgemm)
             delta = torch.cat([(state.params[n][k] - before[n][k]).ravel()
                                for n in sorted(before)
                                for k in sorted(before[n])])
@@ -2247,6 +2448,10 @@ def phase_train(data: Path):
             if backend == "pallas" and precision == "highest":
                 highest_by_kernel = device_time_by_kernel(
                     lambda: step(start, x), top=8, focus={
+                        "encoder h, decoder h3 and y (sgemm.cuh)":
+                        "true, false, ",
+                        "encoder heads (sgemm.cuh, one launch)":
+                        "sgemm_heads_kernel",
                         "fp32 weight gradients (sgemm.cuh, M-major A)":
                         "false, false, 0>",
                         "matmul_nt dz (sgemm.cuh)": "true, true, 0>",
@@ -2283,12 +2488,26 @@ def phase_train(data: Path):
     check(seen == (5 * micro, 5 * micro), f"`highest` step: {seen} "
           f"grad_accum launches (all, sgemm.cuh), expected {5 * micro} of "
           f"{5 * micro} on csrc/sgemm.cuh")
-    print(f"  one `highest` kernel step by kernel (its first record; no gain "
-          f"claimed): {highest_by_kernel}")
+    # the fp32 encoder and decoder: one launch each a microbatch of both
+    # fp32 steps, every one on csrc/sgemm.cuh
+    for name in ("encoder_fwd", "decoder_fwd"):
+        seen = {p: (step_counts[p][name], step_counts[p][f"{name}@sgemm"])
+                for p in ("high", "highest")}
+        print(f"  {name} launches in the fp32 steps (all, on "
+              f"csrc/sgemm.cuh): {seen}")
+        for precision, got in seen.items():
+            check(got == (micro, micro), f"`{precision}` step: {got} {name} "
+                  f"launches (all, sgemm.cuh), expected {micro} of {micro} "
+                  f"on csrc/sgemm.cuh")
+        check(step_counts["bfloat16"][f"{name}@sgemm"] == 0,
+              f"the bf16 step ran {name} on csrc/sgemm.cuh")
+    print(f"  one `highest` kernel step by kernel (187.02 ms of device time "
+          f"with the first-version encoder and decoder, PERF.md section 5; "
+          f"no gain claimed): {highest_by_kernel}")
     # the bf16 step's encoder, decoder, decoder backward, dW4, encoder
     # backward and the heads' weight gradients: one launch each a
-    # microbatch, every one on the tensor cores; the fp32 tiers keep the
-    # first version or the fp32 kernel (and take other backward kernels)
+    # microbatch, every one on the tensor cores; the fp32 tiers run them on
+    # the fp32 kernel or the first version (and other backward kernels)
     for w in dense_tc:
         name = w.__name__
         seen = {p: (c[name], c[f"{name}@tc"]) for p, c in step_counts.items()}
@@ -2525,6 +2744,8 @@ def phase_resident(data: Path, card: str):
     # --- one resident epoch at `highest`: the primitive kernels against
     # the plain backend (the sampler gives both the same noise)
     deltas, prim = {}, {}
+    fp32_sgemm = (mlp.encoder_fwd, mlp.decoder_fwd, mlp.matmul_nt,
+                  mlp.grad_accum)
     for backend in ("pallas", "xla"):
         cfg = config(tpu__precision="highest", tpu__backend=backend)
         model = build_model(cfg, dev)
@@ -2537,16 +2758,13 @@ def phase_resident(data: Path, card: str):
         if backend == "pallas":
             for w in ops.KERNEL_WRAPPERS:
                 w.launches = 0
-            on_sgemm = (mlp.matmul_nt.sgemm_launches,
-                        mlp.grad_accum.sgemm_launches)
+            on_sgemm = {w: w.sgemm_launches for w in fp32_sgemm}
         state, ls = run(state, d32, 0)
         torch.cuda.synchronize()
         if backend == "pallas":
             prim = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
-            prim["matmul_nt@sgemm"] = (mlp.matmul_nt.sgemm_launches
-                                       - on_sgemm[0])
-            prim["grad_accum@sgemm"] = (mlp.grad_accum.sgemm_launches
-                                        - on_sgemm[1])
+            prim.update((f"{w.__name__}@sgemm", w.sgemm_launches - n)
+                        for w, n in on_sgemm.items())
         after = torch.cat([t.ravel() for _, t in sorted(
             (f"{n}.{k}", t) for n, q in state.params.items()
             for k, t in q.items())])
@@ -2554,12 +2772,14 @@ def phase_resident(data: Path, card: str):
         del d32
     per_step = {k: v / n_batches for k, v in prim.items() if v}
     print(f"  `highest` resident epoch, launches per step: {per_step}")
-    check(per_step == {"encoder_fwd": 1, "decoder_fwd": 1,
+    check(per_step == {"encoder_fwd": 1, "encoder_fwd@sgemm": 1,
+                       "decoder_fwd": 1, "decoder_fwd@sgemm": 1,
                        "matmul_nt2_mask": 1, "matmul_nt_mask": 1,
                        "matmul_nt": 1, "matmul_nt@sgemm": 1, "grad_accum": 5,
                        "grad_accum@sgemm": 5, "reparameterize_prng": 1},
-          f"unexpected launches per `highest` step (matmul_nt and the five "
-          f"grad_accum on the fp32 kernel of csrc/sgemm.cuh): {per_step}")
+          f"unexpected launches per `highest` step (the encoder, the "
+          f"decoder, matmul_nt and the five grad_accum on the fp32 kernel "
+          f"of csrc/sgemm.cuh): {per_step}")
     (dk, lk), (dx, lx) = deltas["pallas"], deltas["xla"]
     upd = float((dk - dx).norm() / dx.norm())
     print(f"  `highest` resident epoch, kernels vs plain: first loss "
@@ -4257,6 +4477,7 @@ def main() -> int:
     print("phase 3: serving kernels against their plain versions")
     with torch.inference_mode():
         rows = phase_kernels(gen_params)
+        forward_sgemm(rows, gen_params)
 
     print("phase 3b: training kernels against their plain versions")
     with torch.inference_mode():
@@ -4300,14 +4521,25 @@ def main() -> int:
         save_config(cfg, run_dir / "config.ini")
         params = gen_params(7)
         save_params(run_dir / "model" / "best_model.npz", params)
+        dense = (ops.encoder_fwd, ops.decoder_fwd)
         for w in ops.KERNEL_WRAPPERS:
             w.launches = 0
+        for w in dense:
+            w.sgemm_launches = 0
         fp32, fp32_ms = phase_serve(run_dir, audio, False)
         int8, int8_ms = phase_serve(run_dir, audio, True)
         launches = {w.__name__: w.launches for w in ops.SERVING_KERNELS}
+        on_sgemm = {w.__name__: w.sgemm_launches for w in dense}
     print(f"  kernel launches in the serving path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched by the serving path")
+    # the fp32 encoder and decoder: every launch on csrc/sgemm.cuh
+    print("  fp32 launches in the serving path on csrc/sgemm.cuh: "
+          + ", ".join(f"{name} {n}/{launches[name]}"
+                      for name, n in on_sgemm.items()))
+    for name, n in on_sgemm.items():
+        check(n == launches[name], f"{name}: {n} of {launches[name]} "
+              "serving launches on csrc/sgemm.cuh")
 
     # the same requests through the plain versions on the same card
     frames = frame_audio(audio, 1024)

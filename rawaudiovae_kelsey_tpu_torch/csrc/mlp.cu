@@ -22,9 +22,22 @@
 // * the decoder's bf16 form, under the same conditions, takes it too: h3 =
 //   relu(z @ w3 + b3), then y = tanh(h3 @ w4 + b4), each one launch of the
 //   linear layer's form;
-// * everything else (fp32; odd widths, unaligned views) runs the first
-//   version: two launches of the tiled GEMM of gemm.cuh on the CUDA cores,
-//   the encoder's second computing both heads (Gemm::out[0..1]).
+// * the fp32 forms, with the widths multiples of 4 and 16-byte aligned
+//   pointers, take the register-tiled fp32 mainloop of sgemm.cuh (IEEE
+//   FFMAs: the fp32 tiers promise IEEE fp32 products, so no TF32): h =
+//   relu(x @ w1 + b1), then both heads in ONE launch whose tile columns run
+//   over mu's then logvar's (sgemm_heads_kernel: at the training microbatch
+//   one head is 128 tiles of 128 x 128, under half of one wave of two blocks
+//   an SM, both heads one wave); h3 = relu(z @ w3 + b3), then y = tanh(h3 @
+//   w4 + b4).  Each product's tile and the slices of its contraction are
+//   the caller's (ops/tensor_cores.py sgemm_fwd_plan): at the server's 256
+//   rows a product may be cut into slices along k, added in order through a
+//   workspace with the bias and the activation after the sum
+//   (sgemm::launch_fwd); at the training microbatch every product fills the
+//   card in one slice;
+// * everything else (odd widths, unaligned views) runs the first version:
+//   two launches of the tiled GEMM of gemm.cuh on the CUDA cores, the
+//   encoder's second computing both heads (Gemm::out[0..1]).
 //
 // Types, as the TPU kernels do them: fp32 accumulation; the bias added and
 // the activation applied in fp32; every output (h, mu, logvar, h3, y) in the
@@ -44,6 +57,7 @@
 // SM busy at batch 256.
 
 #include "gemm.cuh"
+#include "sgemm.cuh"
 #include "wgmma.cuh"
 
 using rvk::dst;
@@ -161,6 +175,64 @@ int tensor_core_decoder(const void* z, const void* w3, const void* b3,
       tile_out, s);
 }
 
+// The fp32 form of the encoder on sgemm.cuh: h in one launch on tile
+// kTiles[tile_hidden] over split_hidden slices of seg, then both heads in
+// one launch on tile kTiles[tile_heads] over split_heads slices of units;
+// a split product goes through `workspace` (max(split_hidden · batch ·
+// units, 2 · split_heads · batch · latent) floats; null when both are 1).
+int sgemm_encoder(const void* x, const void* w1, const void* b1,
+                  const void* w21, const void* b21, const void* w22,
+                  const void* b22, void* mu, void* logvar, void* h,
+                  float* workspace, int batch, int seg, int units, int latent,
+                  int dtype, int split_hidden, int split_heads,
+                  int tile_hidden, int tile_heads, cudaStream_t s) {
+  if (dtype != rvk::kF32) return cudaErrorInvalidValue;
+  rvk::sgemm::Outs hidden{};
+  hidden.b[0] = src<float>(w1);
+  hidden.bias[0] = src<float>(b1);
+  hidden.c[0] = dst<float>(h);
+  const cudaError_t err = rvk::sgemm::launch_fwd<1, rvk::kActRelu>(
+      src<float>(x), hidden, workspace, batch, units, seg, tile_hidden,
+      split_hidden, s);
+  if (err != cudaSuccess) return err;
+  rvk::sgemm::Outs heads{};
+  heads.b[0] = src<float>(w21), heads.b[1] = src<float>(w22);
+  heads.bias[0] = src<float>(b21), heads.bias[1] = src<float>(b22);
+  heads.c[0] = dst<float>(mu), heads.c[1] = dst<float>(logvar);
+  return rvk::sgemm::launch_fwd<2, rvk::kActNone>(
+      dst<float>(h), heads, workspace, batch, latent, units, tile_heads,
+      split_heads, s);
+}
+
+// The fp32 form of the decoder on sgemm.cuh: h3 in one launch on tile
+// kTiles[tile_hidden] over split_hidden slices of latent, then y from h3 on
+// tile kTiles[tile_out] over split_out slices of units, as the first
+// version reads it (fp32: no rounding between the layers); `workspace` as
+// for the encoder (max(split_hidden · batch · units, split_out · batch ·
+// seg) floats).
+int sgemm_decoder(const void* z, const void* w3, const void* b3,
+                  const void* w4, const void* b4, void* y, void* h3,
+                  float* workspace, int batch, int latent, int units,
+                  int seg, int dtype, int split_hidden, int split_out,
+                  int tile_hidden, int tile_out, cudaStream_t s) {
+  if (dtype != rvk::kF32) return cudaErrorInvalidValue;
+  rvk::sgemm::Outs hidden{};
+  hidden.b[0] = src<float>(w3);
+  hidden.bias[0] = src<float>(b3);
+  hidden.c[0] = dst<float>(h3);
+  const cudaError_t err = rvk::sgemm::launch_fwd<1, rvk::kActRelu>(
+      src<float>(z), hidden, workspace, batch, units, latent, tile_hidden,
+      split_hidden, s);
+  if (err != cudaSuccess) return err;
+  rvk::sgemm::Outs out{};
+  out.b[0] = src<float>(w4);
+  out.bias[0] = src<float>(b4);
+  out.c[0] = dst<float>(y);
+  return rvk::sgemm::launch_fwd<1, rvk::kActTanh>(
+      dst<float>(h3), out, workspace, batch, seg, units, tile_out, split_out,
+      s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -172,17 +244,31 @@ const char* rvk_error_string(int code) {
 // x (batch, seg); w1 (seg, units); w21, w22 (units, latent); outputs mu,
 // logvar (batch, latent) and h (batch, units).  All of one dtype (rvk::DType).
 // kernel (an rvk::tc::Kernel): 0, the two launches of the tiled GEMM on the
-// CUDA cores (tile widths ignored); 1, the tensor-core form, bf16 only, seg,
-// units and latent multiples of 8, 16-byte aligned pointers: h in tiles 128
-// x tile_hidden, both heads in one launch in tiles 128 x tile_heads (256,
-// 128 or 64 each; ops/tensor_cores.py tile_n).
+// CUDA cores (tiles, splits and workspace ignored); 1, the tensor-core
+// form, bf16 only, seg, units and latent multiples of 8, 16-byte aligned
+// pointers: h in tiles 128 x tile_hidden, both heads in one launch in tiles
+// 128 x tile_heads (256, 128 or 64 each; ops/tensor_cores.py tile_n;
+// splits and workspace ignored); 2, the fp32 form of sgemm.cuh, fp32 only,
+// seg, units and latent multiples of 4, 16-byte aligned pointers: h on the
+// tile sgemm::kTiles[tile_hidden] over split_hidden slices of seg, both
+// heads in one launch on kTiles[tile_heads] over split_heads slices of
+// units, through `workspace` where a split is more than 1 (max(split_hidden
+// · batch · units, 2 · split_heads · batch · latent) floats;
+// ops/tensor_cores.py sgemm_fwd_plan).
 int rvk_encoder_fwd(const void* x, const void* w1, const void* b1,
                     const void* w21, const void* b21, const void* w22,
                     const void* b22, void* mu, void* logvar, void* h,
-                    int batch, int seg, int units, int latent, int dtype,
+                    float* workspace, int batch, int seg, int units,
+                    int latent, int dtype, int split_hidden, int split_heads,
                     int tile_hidden, int tile_heads, int kernel,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    return sgemm_encoder(x, w1, b1, w21, b21, w22, b22, mu, logvar, h,
+                         workspace, batch, seg, units, latent, dtype,
+                         split_hidden, split_heads, tile_hidden, tile_heads,
+                         s);
+  }
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
     return tensor_core_encoder(x, w1, b1, w21, b21, w22, b22, mu, logvar, h,
@@ -200,16 +286,28 @@ int rvk_encoder_fwd(const void* x, const void* w1, const void* b1,
 
 // z (batch, latent); w3 (latent, units); w4 (units, seg); outputs y
 // (batch, seg) and h3 (batch, units).  All of one dtype.  kernel: 0, the
-// two launches of the tiled GEMM on the CUDA cores (tile widths ignored);
-// 1, the tensor-core form, bf16 only, latent, units and seg multiples of 8,
-// 16-byte aligned pointers: h3 in tiles 128 x tile_hidden, y in tiles 128 x
-// tile_out (ops/tensor_cores.py tile_n).
+// two launches of the tiled GEMM on the CUDA cores (tiles, splits and
+// workspace ignored); 1, the tensor-core form, bf16 only, latent, units and
+// seg multiples of 8, 16-byte aligned pointers: h3 in tiles 128 x
+// tile_hidden, y in tiles 128 x tile_out (ops/tensor_cores.py tile_n;
+// splits and workspace ignored); 2, the fp32 form of sgemm.cuh, fp32 only,
+// latent, units and seg multiples of 4, 16-byte aligned pointers: h3 on the
+// tile sgemm::kTiles[tile_hidden] over split_hidden slices of latent, y on
+// kTiles[tile_out] over split_out slices of units, through `workspace`
+// where a split is more than 1 (max(split_hidden · batch · units, split_out
+// · batch · seg) floats; ops/tensor_cores.py sgemm_fwd_plan).
 int rvk_decoder_fwd(const void* z, const void* w3, const void* b3,
                     const void* w4, const void* b4, void* y, void* h3,
-                    int batch, int latent, int units, int seg, int dtype,
+                    float* workspace, int batch, int latent, int units,
+                    int seg, int dtype, int split_hidden, int split_out,
                     int tile_hidden, int tile_out, int kernel,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    return sgemm_decoder(z, w3, b3, w4, b4, y, h3, workspace, batch, latent,
+                         units, seg, dtype, split_hidden, split_out,
+                         tile_hidden, tile_out, s);
+  }
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
     return tensor_core_decoder(z, w3, b3, w4, b4, y, h3, batch, latent,

@@ -1,6 +1,6 @@
 // fp32 mainloop for Hopper's CUDA cores (sm_90a): the device routine of the
 // fp32 forms of rvk_linear_fwd (linear.cu), rvk_matmul_nt and
-// rvk_grad_accum (bwd.cu).
+// rvk_grad_accum (bwd.cu), rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -17,12 +17,18 @@
 // template argument, then stores 16 bytes a thread.
 //
 // Which TPU kernels run on it: linear_fwd (_linear_kernel) of
-// rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt and grad_accum
-// (_grad_accum_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py, in
-// fp32.  As there, an output tile carries one accumulator across its
-// contraction, and a block walks its k range itself, in order.  The
-// forward products take all of K in one slice: no workspace, no atomics,
-// so two launches give equal bits.  The weight gradient (launch_wgrad)
+// rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt, grad_accum
+// (_grad_accum_kernel), encoder_fwd and decoder_fwd of
+// rawaudiovae_kelsey_tpu/ops/pallas_mlp.py, in fp32.  As there, an output
+// tile carries one accumulator across its contraction, and a block walks
+// its k range itself, in order.  The forward products of launch take all
+// of K in one slice: no workspace, no atomics, so two launches give equal
+// bits.  The encoder and decoder (launch_fwd) may cut K into slices (the
+// grid's z) where their output is too few tiles to fill the card (the
+// server's 256 rows), each slice's sums written to a workspace and added
+// in order, the bias and the activation after them (slices_epilogue,
+// slices.cuh); the encoder's two heads are one grid whose tile columns run
+// over both outputs (sgemm_heads_kernel).  The weight gradient (launch_wgrad)
 // computes dW = aᵀ b and db = colsum(b): at the training microbatch dW21,
 // dW22 (2048 x 256) and dW3 (256 x 2048) are 32 tiles of 128 x 128 for
 // 132 SMs, so the batch is cut into slices (the grid's z), each slice a
@@ -231,25 +237,19 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-template <int kAct>
-__device__ __forceinline__ float activate(float v) {
-  if (kAct == kActRelu) return fmaxf(v, 0.f);
-  if (kAct == kActTanh) return tanhf(v);
-  return v;
-}
-
-// C (M, N) = act(A · B + bias): A (M, K) if kAKMajor, else (K, M); B (N,
-// K) if kBKMajor, else (K, N); bias (N,) or null.  Slice z = blockIdx.z of
-// the contraction is k in [z · rows, min(K, (z + 1) · rows)), `rows` a
-// multiple of kSliceRows (or all of K in one slice); it writes its sums to
-// c + z · stride and, for a weight gradient (M-major A), the column sums of
-// its B to colsum + z · stride from the blocks of the first tile row.
+// One block's output tile of C (M, N) = act(A · B + bias), its columns
+// from n0: A (M, K) if kAKMajor, else (K, M); B (N, K) if kBKMajor, else
+// (K, N); bias (N,) or null.  Slice z = blockIdx.z of the contraction is k
+// in [z · rows, min(K, (z + 1) · rows)), `rows` a multiple of kSliceRows
+// (or all of K in one slice); it writes its sums to c + z · stride and, for
+// a weight gradient (M-major A), the column sums of its B to colsum + z ·
+// stride from the blocks of the first tile row.
 template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct>
-__global__ void __launch_bounds__(kThreads, 2)
-sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-             const float* __restrict__ bias, float* __restrict__ c,
-             float* __restrict__ colsum, int M, int N, int K, int rows,
-             size_t stride) {
+__device__ __forceinline__ void product_tile(
+    const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ bias, float* __restrict__ c,
+    float* __restrict__ colsum, int M, int N, int K, int rows, size_t stride,
+    int n0) {
   constexpr int kBK = kSlabDepth<BM, BN>;
   using OpA = Operand<BM, kAKMajor, kBK>;
   using OpB = Operand<BN, kBKMajor, kBK>;
@@ -266,7 +266,7 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
   float* sa = reinterpret_cast<float*>(smem4);
   float* sb = sa + OpA::kFloats;
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
   const int warp = threadIdx.x / 32, lane_id = threadIdx.x % 32;
   const int am = (warp / 4) * WM + (lane_id % 8) * 4;  // a lane's first row
   const int bn = (warp % 4) * WN + (lane_id / 8) * 4;  // and column
@@ -404,6 +404,63 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// product_tile over a grid of ceil(N / BN) tile columns, ceil(M / BM) tile
+// rows and the contraction's slices.
+template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct>
+__global__ void __launch_bounds__(kThreads, 2)
+sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+             const float* __restrict__ bias, float* __restrict__ c,
+             float* __restrict__ colsum, int M, int N, int K, int rows,
+             size_t stride) {
+  product_tile<BM, BN, kAKMajor, kBKMajor, kAct>(
+      a, b, bias, c, colsum, M, N, K, rows, stride, blockIdx.x * BN);
+}
+
+// Outputs of one A side by side (the encoder's two heads, mu = h · W21 and
+// logvar = h · W22): output o's B (K, N) N-major, its bias (N,) or null,
+// and its C (M, N).
+struct Outs {
+  const float* b[kMaxOuts];
+  const float* bias[kMaxOuts];
+  float* c[kMaxOuts];
+};
+
+// Both heads in one grid: 2 · ceil(N / BN) tile columns, column tn of
+// output tn / ceil(N / BN), whose B, bias and C the block takes by selects
+// (pick: a parameter array indexed at run time would go to local memory).
+// At the training microbatch one head is 128 tiles of 128 x 128, under half
+// a wave of two blocks an SM; both are one wave.
+template <int BM, int BN, int kAct>
+__global__ void __launch_bounds__(kThreads, 2)
+sgemm_heads_kernel(const float* __restrict__ a, Outs outs, int M, int N,
+                   int K, int rows, size_t stride) {
+  const int cols = (N + BN - 1) / BN;
+  const int o = blockIdx.x / cols;
+  product_tile<BM, BN, true, false, kAct>(
+      a, pick(outs.b, o), pick(outs.bias, o), pick(outs.c, o), nullptr, M,
+      N, K, rows, stride, (blockIdx.x - o * cols) * BN);
+}
+
+// Opt `kernel` in to `smem` bytes of dynamic shared memory (above the 48 KB
+// a block gets without asking), once a device: `opted_in` is the caller's
+// bit set of the devices done, one for each kernel.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int smem, uint64_t& opted_in) {
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device < 64 && (opted_in >> device & 1)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < 64) opted_in |= uint64_t{1} << device;
+  return err;
+}
+
+// the dynamic shared memory of a tile's ring (and compute buffers)
+template <int BM, int BN, bool kAKMajor, bool kBKMajor>
+constexpr int kSmemBytes =
+    (Operand<BM, kAKMajor, kSlabDepth<BM, BN>>::kFloats +
+     Operand<BN, kBKMajor, kSlabDepth<BM, BN>>::kFloats) * 4;
+
 // sgemm_kernel on tile BM x BN over `slices` slices of `rows` rows of the
 // contraction each (one slice of K rows: the plain product).
 template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct>
@@ -412,19 +469,10 @@ cudaError_t launch_tile(const float* a, const float* b, const float* bias,
                         int rows, int slices, size_t stride,
                         cudaStream_t stream) {
   auto kernel = sgemm_kernel<BM, BN, kAKMajor, kBKMajor, kAct>;
-  constexpr int kBK = kSlabDepth<BM, BN>;
-  constexpr int smem = (Operand<BM, kAKMajor, kBK>::kFloats +
-                        Operand<BN, kBKMajor, kBK>::kFloats) * 4;
-  // above the 48 KB a block gets without opting in: once a device
+  constexpr int smem = kSmemBytes<BM, BN, kAKMajor, kBKMajor>;
   static uint64_t opted_in = 0;
-  int device = 0;
-  cudaGetDevice(&device);
-  if (device >= 64 || !(opted_in >> device & 1)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    if (device < 64) opted_in |= uint64_t{1} << device;
-  }
+  const cudaError_t err = opt_in(kernel, smem, opted_in);
+  if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(N, BN), cdiv(M, BM), slices);
   kernel<<<grid, kThreads, smem, stream>>>(a, b, bias, c, colsum, M, N, K,
                                            rows, stride);
@@ -511,6 +559,91 @@ inline cudaError_t launch_wgrad(const float* a, const float* b, float* dw,
   out.dw[0] = dw;
   out.db[0] = db;
   return add_slices(workspace, out, mn, N, split, 1, stream);
+}
+
+// sgemm_heads_kernel on tile BM x BN over `slices` slices of `rows` rows
+// of the contraction each.
+template <int BM, int BN, int kAct>
+cudaError_t launch_heads_tile(const float* a, const Outs& outs, int M, int N,
+                              int K, int rows, int slices, size_t stride,
+                              cudaStream_t stream) {
+  auto kernel = sgemm_heads_kernel<BM, BN, kAct>;
+  constexpr int smem = kSmemBytes<BM, BN, true, false>;
+  static uint64_t opted_in = 0;
+  const cudaError_t err = opt_in(kernel, smem, opted_in);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(2 * cdiv(N, BN), cdiv(M, BM), slices);
+  kernel<<<grid, kThreads, smem, stream>>>(a, outs, M, N, K, rows, stride);
+  return cudaGetLastError();
+}
+
+// kOuts outputs of one A side by side (1; or 2, the encoder's heads in one
+// grid), each C_o (M, N) = act(A (M, K) · B_o (K, N) + bias_o) in IEEE
+// fp32: A K-major, B N-major (the linear layer's (in, out) weights), kAct an
+// rvk::Act, on the tile kTiles[tile]; k and n multiples of 4, every
+// pointer 16-byte aligned.  The contraction is cut into `split` slices of
+// ceil(ceil(K / 64) / split) · 64 k, which must leave no slice empty
+// (ops/tensor_cores.py sgemm_fwd_plan holds that).  One slice: the bias and
+// the activation in the epilogue, straight into C_o (kOuts 1: launch's
+// launch).  More (the server's batch of 256 rows is too few tiles to fill
+// the card): slice s of output o writes its sums to workspace + (o · split
+// + s) · M·N (kOuts · split · M·N floats), then slices_epilogue
+// (slices.cuh) adds the slices in order, adds the bias and applies the
+// activation.  No atomics: two launches give equal bits.  Nothing to
+// compute launches nothing.
+template <int kOuts, int kAct>
+cudaError_t launch_fwd(const float* a, const Outs& outs, float* workspace,
+                       int M, int N, int K, int tile, int split,
+                       cudaStream_t stream) {
+  static_assert(kOuts == 1 || kOuts == 2, "one output, or both heads");
+  if (!takes(K, N, {a, workspace})) return cudaErrorInvalidValue;
+  for (int o = 0; o < kOuts; ++o) {
+    if (!aligned({outs.b[o], outs.bias[o], outs.c[o]})) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const int k_total = cdiv(K, kSliceRows);
+  const int steps = split > 0 ? cdiv(k_total, split) : 0;
+  if (split < 1 || cdiv(k_total, steps) != split ||
+      (split > 1 && workspace == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const size_t mn = size_t(M) * N;
+  Outs into = outs;
+  if (split > 1) {
+    for (int o = 0; o < kOuts; ++o) {
+      into.c[o] = workspace + o * split * mn;
+      into.bias[o] = nullptr;
+    }
+  }
+  const auto product = [&](auto act) {
+    constexpr int kA = decltype(act)::value;
+    return with_tile(tile, [&](auto index) {
+      constexpr int i = decltype(index)::value;
+      constexpr int BM = kTiles[i][0], BN = kTiles[i][1];
+      const int rows = steps * kSliceRows;
+      const size_t stride = split == 1 ? 0 : mn;
+      if constexpr (kOuts == 1) {
+        return launch_tile<BM, BN, true, false, kA>(
+            a, into.b[0], into.bias[0], into.c[0], nullptr, M, N, K, rows,
+            split, stride, stream);
+      } else {
+        return launch_heads_tile<BM, BN, kA>(a, into, M, N, K, rows, split,
+                                             stride, stream);
+      }
+    });
+  };
+  if (split == 1) return product(std::integral_constant<int, kAct>{});
+  const cudaError_t err =
+      product(std::integral_constant<int, kActNone>{});
+  if (err != cudaSuccess) return err;
+  SliceAct out{};
+  for (int o = 0; o < kOuts; ++o) {
+    out.c[o] = outs.c[o];
+    out.bias[o] = outs.bias[o];
+  }
+  return add_slices_act<kAct>(workspace, out, mn, N, split, kOuts, stream);
 }
 
 // The same with the activation chosen at run time (an rvk::Act code).

@@ -36,8 +36,8 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 # C entry point → argument types (pointers and the stream as c_void_p: a
 # bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
-    "rvk_encoder_fwd": [_P] * 10 + [_I] * 8 + [_P],
-    "rvk_decoder_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    "rvk_encoder_fwd": [_P] * 11 + [_I] * 10 + [_P],
+    "rvk_decoder_fwd": [_P] * 8 + [_I] * 10 + [_P],
     "rvk_quantized_decoder_fwd": [_P] * 9 + [_I] * 4 + [_P],
     "rvk_grad_accum": [_P] * 5 + [_I] * 7 + [_P],
     "rvk_grad_accum2": [_P] * 8 + [_I] * 7 + [_P],

@@ -219,17 +219,24 @@ def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto"
     """Fused ``relu(x@W1+b1)`` → ``(mu, logvar, h)``.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``encoder_fwd``.
-    CUDA, two launches (``csrc/mlp.cu``), h then both heads in one, of one
-    of two hand-written kernels chosen by ``tensor_cores.resolve``: bf16
-    operands with seg, units and latent multiples of 8 and 16-byte aligned
-    pointers take the tensor-core kernel (``csrc/wgmma.cuh``; the heads as
-    one walk over both outputs), everything else the tiled GEMM on the
-    CUDA cores.  ``kernel`` (``"auto"``, ``"cuda_cores"`` or
-    ``"tensor_cores"``) names one instead; the tensor-core kernel named on
+    CUDA, two products (``csrc/mlp.cu``), h then both heads in one launch,
+    of one of three hand-written kernels chosen by :func:`resolve_encoder`:
+    bf16 operands with seg, units and latent multiples of 8 and 16-byte
+    aligned pointers take the tensor-core kernel (``csrc/wgmma.cuh``; the
+    heads as one walk over both outputs); fp32 operands with them multiples
+    of 4 and 16-byte aligned pointers the register-tiled fp32 kernel
+    (``csrc/sgemm.cuh``: IEEE FFMAs, the heads as one grid over both
+    outputs, each product's tile and slices of its contraction from
+    ``tensor_cores.sgemm_fwd_plan``; a product cut into slices adds them in
+    order through a workspace allocated here, with the bias and the
+    activation after the sum); everything else the tiled GEMM on the CUDA
+    cores.  ``kernel`` (``"auto"`` or a key of
+    ``tensor_cores.KERNEL_CODES``) names one instead; a kernel named on
     operands it cannot take raises.  Either way h, mu and logvar are each
     rounded once to the operand dtype from fp32 sums, and the heads read the
     rounded h.  One call counts once in ``launches``, and in
-    ``tensor_core_launches`` too when the tensor cores ran it."""
+    ``tensor_core_launches`` or ``sgemm_launches`` too when that kernel ran
+    it."""
     tensor_cores.check_name("encoder_fwd", kernel)
     if x.device.type == "cpu":
         return encoder_fwd_ref(w1, b1, w21, b21, w22, b22, x)
@@ -251,18 +258,36 @@ def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto"
     logvar = torch.empty((batch, latent), device=dev, dtype=dt)
     h = torch.empty((batch, units), device=dev, dtype=dt)
     if batch:
+        (tile_h, split_h), (tile_o, split_o), ws = _forward_plans(
+            code, dev, batch, ((seg, units, 1), (units, latent, 2)))
         _build.launch("rvk_encoder_fwd", dev, x, w1, b1, w21, b21, w22, b22,
-                      mu, logvar, h, batch, seg, units, latent,
-                      DTYPE_CODES[dt], tensor_cores.tile(code, dev, batch,
-                                                         units),
-                      tensor_cores.tile(code, dev, batch, latent, 2), code)
+                      mu, logvar, h, ws, batch, seg, units, latent,
+                      DTYPE_CODES[dt], split_h, split_o, tile_h, tile_o, code)
         encoder_fwd.launches += 1
         encoder_fwd.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+        encoder_fwd.sgemm_launches += code == tensor_cores.SGEMM
     return mu, logvar, h
 
 
 encoder_fwd.launches = 0
 encoder_fwd.tensor_core_launches = 0
+encoder_fwd.sgemm_launches = 0
+
+
+def _forward_plans(code: int, dev, batch: int, products):
+    """``(tile, split)`` of each product ``(k, n, outputs)`` of a forward
+    kernel launched with ``code`` (``tensor_cores.fwd``), then the fp32
+    workspace the split ones share, one after the other: ``split ·
+    outputs · batch · n`` floats for the largest, or None where no product
+    is split."""
+    plans = [tensor_cores.fwd(code, dev, batch, k, n, outputs)
+             for k, n, outputs in products]
+    size = max((split * outputs * batch * n
+                for (_, split), (_, n, outputs) in zip(plans, products)
+                if split > 1), default=0)
+    ws = torch.empty((size,), device=dev, dtype=torch.float32) \
+        if size else None
+    return (*plans, ws)
 
 
 def resolve_encoder(kernel: str, dtype: torch.dtype, batch: int, seg: int,
@@ -270,14 +295,17 @@ def resolve_encoder(kernel: str, dtype: torch.dtype, batch: int, seg: int,
     """The kernel code :func:`encoder_fwd` launches with: the tensor cores
     when both of its products fit them (``tensor_cores.takes_tensor_cores``
     of the hidden layer, contraction ``seg`` and width ``units``, and of the
-    heads, ``units`` and ``latent``), else the first version; ``kernel``
+    heads, ``units`` and ``latent``), the fp32 kernel when both fit it
+    (``tensor_cores.takes_sgemm``), else the first version; ``kernel``
     names one instead (``tensor_cores.resolve``)."""
     return tensor_cores.resolve(
         "encoder_fwd", kernel,
         tensor_cores.takes_tensor_cores(dtype, batch, seg, units, aligned)
         and tensor_cores.takes_tensor_cores(dtype, batch, units, latent),
         lambda: f"{dtype}, batch {batch}, seg {seg}, units {units}, latent "
-                f"{latent}, aligned = {aligned}")
+                f"{latent}, aligned = {aligned}",
+        tensor_cores.takes_sgemm(dtype, batch, seg, units, aligned)
+        and tensor_cores.takes_sgemm(dtype, batch, units, latent))
 
 
 def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
@@ -285,16 +313,19 @@ def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
     """Fused ``tanh(relu(z@W3+b3)@W4+b4)`` → ``(y, h3)``.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``decoder_fwd``.
-    CUDA, two launches (``csrc/mlp.cu``), h3 then y, of one of two
+    CUDA, two products (``csrc/mlp.cu``), h3 then y, of one of three
     hand-written kernels chosen by :func:`resolve_decoder`: bf16 operands
     with latent, units and seg multiples of 8 and 16-byte aligned pointers
-    take the tensor-core kernel (``csrc/wgmma.cuh``), everything else the
-    tiled GEMM on the CUDA cores.  ``kernel`` (``"auto"``, ``"cuda_cores"``
-    or ``"tensor_cores"``) names one instead; the tensor-core kernel named
-    on operands it cannot take raises.  Either way h3 and y are each
-    rounded once to the operand dtype from fp32 sums, and y reads the
-    rounded h3.  One call counts once in ``launches``, and in
-    ``tensor_core_launches`` too when the tensor cores ran it."""
+    take the tensor-core kernel (``csrc/wgmma.cuh``); fp32 operands with
+    them multiples of 4 and 16-byte aligned pointers the register-tiled
+    fp32 kernel (``csrc/sgemm.cuh``, planned and split as for
+    :func:`encoder_fwd`); everything else the tiled GEMM on the CUDA cores.
+    ``kernel`` (``"auto"`` or a key of ``tensor_cores.KERNEL_CODES``) names
+    one instead; a kernel named on operands it cannot take raises.  Either
+    way h3 and y are each rounded once to the operand dtype from fp32 sums,
+    and y reads the rounded h3.  One call counts once in ``launches``, and
+    in ``tensor_core_launches`` or ``sgemm_launches`` too when that kernel
+    ran it."""
     tensor_cores.check_name("decoder_fwd", kernel)
     if z.device.type == "cpu":
         return decoder_fwd_ref(w3, b3, w4, b4, z)
@@ -312,17 +343,20 @@ def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
     y = torch.empty((batch, seg), device=dev, dtype=dt)
     h3 = torch.empty((batch, units), device=dev, dtype=dt)
     if batch:
-        _build.launch("rvk_decoder_fwd", dev, z, w3, b3, w4, b4, y, h3,
-                      batch, latent, units, seg, DTYPE_CODES[dt],
-                      tensor_cores.tile(code, dev, batch, units),
-                      tensor_cores.tile(code, dev, batch, seg), code)
+        (tile_h, split_h), (tile_o, split_o), ws = _forward_plans(
+            code, dev, batch, ((latent, units, 1), (units, seg, 1)))
+        _build.launch("rvk_decoder_fwd", dev, z, w3, b3, w4, b4, y, h3, ws,
+                      batch, latent, units, seg, DTYPE_CODES[dt], split_h,
+                      split_o, tile_h, tile_o, code)
         decoder_fwd.launches += 1
         decoder_fwd.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+        decoder_fwd.sgemm_launches += code == tensor_cores.SGEMM
     return y, h3
 
 
 decoder_fwd.launches = 0
 decoder_fwd.tensor_core_launches = 0
+decoder_fwd.sgemm_launches = 0
 
 
 def resolve_decoder(kernel: str, dtype: torch.dtype, batch: int, latent: int,
@@ -330,14 +364,17 @@ def resolve_decoder(kernel: str, dtype: torch.dtype, batch: int, latent: int,
     """The kernel code :func:`decoder_fwd` launches with: the tensor cores
     when both of its products fit them (``tensor_cores.takes_tensor_cores``
     of the hidden layer, contraction ``latent`` and width ``units``, and of
-    the output layer, ``units`` and ``seg``), else the first version;
-    ``kernel`` names one instead (``tensor_cores.resolve``)."""
+    the output layer, ``units`` and ``seg``), the fp32 kernel when both fit
+    it (``tensor_cores.takes_sgemm``), else the first version; ``kernel``
+    names one instead (``tensor_cores.resolve``)."""
     return tensor_cores.resolve(
         "decoder_fwd", kernel,
         tensor_cores.takes_tensor_cores(dtype, batch, latent, units, aligned)
         and tensor_cores.takes_tensor_cores(dtype, batch, units, seg),
         lambda: f"{dtype}, batch {batch}, latent {latent}, units {units}, "
-                f"seg {seg}, aligned = {aligned}")
+                f"seg {seg}, aligned = {aligned}",
+        tensor_cores.takes_sgemm(dtype, batch, latent, units, aligned)
+        and tensor_cores.takes_sgemm(dtype, batch, units, seg))
 
 
 # ---------------------------------------------------------- backward kernels

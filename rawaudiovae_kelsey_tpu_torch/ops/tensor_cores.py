@@ -17,11 +17,14 @@ products joined along k, must fit, and ``seg`` be a multiple of 8) and
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.grad_accum2` (their rows of 16
 bytes; ``grad_accum2`` 's two weight gradients in one launch); the last
 four contract the batch in a weight gradient, split into slices by
-:func:`wgrad_plan`; four of them, ``linear_fwd``, ``linear_ksplit_fwd``,
-``matmul_nt`` and ``grad_accum`` (:data:`SGEMM_OPS`), also an fp32 form,
-``grad_accum`` 's split into slices by :func:`sgemm_wgrad_plan`.  The choice is a function of dtype, shape and pointer
-alignment alone (:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in
-the wrapper before the launch:
+:func:`wgrad_plan`; six of them, ``linear_fwd``, ``linear_ksplit_fwd``,
+``matmul_nt``, ``grad_accum``, ``encoder_fwd`` and ``decoder_fwd``
+(:data:`SGEMM_OPS`), also an fp32 form, ``grad_accum`` 's split into slices
+by :func:`sgemm_wgrad_plan`, each product of ``encoder_fwd`` and
+``decoder_fwd`` planned by :func:`sgemm_fwd_plan`.  The choice is a
+function of dtype, shape and pointer alignment alone
+(:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in the wrapper
+before the launch:
 
 * bf16 operands take the tensor-core kernel when TMA can address them: the
   contraction ``k`` and the output width ``n`` multiples of 8 (row pitches
@@ -65,7 +68,7 @@ KERNEL_CODES = {"cuda_cores": 0, "tensor_cores": 1, "sgemm": 2}
 TENSOR_CORES, SGEMM = KERNEL_CODES["tensor_cores"], KERNEL_CODES["sgemm"]
 # the ops whose C entry points have the fp32 form (code 2)
 SGEMM_OPS = frozenset({"linear_fwd", "linear_ksplit_fwd", "matmul_nt",
-                       "grad_accum"})
+                       "grad_accum", "encoder_fwd", "decoder_fwd"})
 
 # TMA's unit: base pointers and row pitches are multiples of 16 bytes
 TMA_ALIGN_BYTES = 16
@@ -91,6 +94,18 @@ WGRAD_MIN_STEPS = 32
 # rows takes the CUDA cores about fifteen times as long as the tensor
 # cores, so a slice of 8 (512 rows) is still long beside what it writes
 SGEMM_WGRAD_MIN_STEPS = 8
+# fp32 forward products (sgemm_fwd_plan): the time a unit of tile area takes
+# a k-step of 64 on each tile of SGEMM_TILES, one block an SM, relative to
+# 128 x 128 (a lane of a 64 x 64 tile does 16 FFMAs for the 8 floats it
+# reads from shared memory a k-step, one of a 128 x 128 tile 64 for 16).  On
+# an H100 such a k-step took 6.4, 3.6 and 2.1 us on the three tiles
+# (chip_smoke.py phase 3's plan sweep at 256 x 2048 -> 1024; PERF.md
+# section 6)
+SGEMM_TILE_RATE = (1.0, 1.125, 1.31)
+# and what cutting the contraction into slices adds, in the same units
+# (tile area times k-steps): about half a k-step of a 128 x 128 tile, the
+# slices' epilogue (3-6 us there)
+SGEMM_SPLIT_COST = 8192
 
 _sm_counts = {}
 
@@ -227,6 +242,56 @@ def sgemm_wgrad_plan(m: int, n: int, k: int, sms: int) -> tuple:
         if best is None or cost < best[0]:
             best = (cost, index, split)
     return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=1024)
+def sgemm_fwd_plan(rows: int, k: int, n: int, sms: int,
+                   outputs: int = 1) -> tuple:
+    """``(tile index, slices)`` of one forward product of the fp32
+    encoder or decoder, ``rows`` rows, contraction ``k`` and output width
+    ``n`` (``outputs`` outputs of that width side by side in one grid: the
+    encoder's two heads), on a card of ``sms`` SMs (``csrc/sgemm.cuh``
+    ``launch_fwd``; the index into :data:`SGEMM_TILES`).  A contraction is
+    cut only to fill the card: for each tile, one slice, and each power of
+    two of slices whose blocks still fit one wave of one block an SM and
+    leave no slice empty.  The cost of each is the waves of blocks times
+    tile area times k-steps of 64 a slice times the tile's
+    :data:`SGEMM_TILE_RATE`, plus :data:`SGEMM_SPLIT_COST` where there is
+    more than one slice; the least wins, and on a tie fewer slices, then
+    the larger tile.  A wave is one block an SM, not the two the launch
+    bounds allow: on an H100 two blocks an SM took longer than one block
+    doing both blocks' k-steps.  At the server's 256 rows h takes 128 x
+    128 tiles over 4 slices, the heads 16 and y 8, h3 (k = 256) 64 x 64
+    tiles whole; at the training microbatch (8192 rows) every product is
+    more than a wave of 128 x 128 tiles, so none is cut (chip_smoke.py
+    phase 3 sweeps the plans; PERF.md section 6)."""
+    steps = -(-k // 64)
+    best = None
+    for index, (bm, bn) in enumerate(SGEMM_TILES):
+        tiles = outputs * -(-rows // bm) * -(-n // bn)
+        split = 1
+        while split == 1 or (tiles * split <= sms and split <= steps):
+            per = -(-steps // split)
+            if -(-steps // per) == split:
+                work = -(-tiles * split // sms) * bm * bn * per
+                cost = (work * SGEMM_TILE_RATE[index]
+                        + (split > 1) * SGEMM_SPLIT_COST, split, index)
+                if best is None or cost < best[0]:
+                    best = (cost, index, split)
+            split *= 2
+    return best[1], best[2]
+
+
+def fwd(code: int, device: torch.device, rows: int, k: int, n: int,
+        outputs: int = 1) -> tuple:
+    """The ``(tile, split)`` arguments of a C entry point's forward
+    product of ``rows`` rows, contraction ``k`` and output width ``n``:
+    :func:`sgemm_fwd_plan` for the fp32 kernel (``code`` 2), else
+    :func:`tile` and one slice for the tensor-core kernel (``code`` 1) and
+    ``(0, 0)`` for the first version."""
+    if code == SGEMM:
+        return sgemm_fwd_plan(rows, k, n, sm_count(device), outputs)
+    return tile(code, device, rows, n, outputs), int(code == TENSOR_CORES)
 
 
 def wgrad(code: int, device: torch.device, m: int, n: int, k: int,

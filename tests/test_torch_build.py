@@ -149,10 +149,15 @@ def test_every_wrapper_names_a_bound_entry_point():
     # x, w, b, y | batch, k, n, act, dtype, tile_n, kernel
     assert _build._SIGNATURES["rvk_linear_fwd"] == (
         [_build._P] * 4 + [_build._I] * 7 + [_build._P])
-    # x, w1, b1, w21, b21, w22, b22, mu, logvar, h | batch, seg, units,
-    # latent, dtype, tile_hidden, tile_heads, kernel
+    # x, w1, b1, w21, b21, w22, b22, mu, logvar, h, workspace | batch, seg,
+    # units, latent, dtype, split_hidden, split_heads, tile_hidden,
+    # tile_heads, kernel
     assert _build._SIGNATURES["rvk_encoder_fwd"] == (
-        [_build._P] * 10 + [_build._I] * 8 + [_build._P])
+        [_build._P] * 11 + [_build._I] * 10 + [_build._P])
+    # z, w3, b3, w4, b4, y, h3, workspace | batch, latent, units, seg,
+    # dtype, split_hidden, split_out, tile_hidden, tile_out, kernel
+    assert _build._SIGNATURES["rvk_decoder_fwd"] == (
+        [_build._P] * 8 + [_build._I] * 10 + [_build._P])
     # x, w, bias, y | B, nb, G, kb, N, t_out, shift, act, passes, dtype,
     # t_half, b_half, tile_n, kernel
     assert _build._SIGNATURES["rvk_toeplitz_fwd"] == (
@@ -178,6 +183,25 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch, header):
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert _build.build() != first              # an edited header rebuilds
 
+
+def test_the_fp32_forward_entry_points_build_on_sgemm_cuh():
+    """rvk_encoder_fwd and rvk_decoder_fwd launch sgemm.cuh's launch_fwd for
+    kernel code 2: h with the ReLU, then both heads in one two-output
+    launch; h3 with the ReLU, then y with tanh.  The two-output grid and
+    the epilogue of a split product are sgemm.cuh's and slices.cuh's."""
+    text = (_build.CSRC / "mlp.cu").read_text()
+    assert '#include "sgemm.cuh"' in text
+    assert text.count("kernel == rvk::tc::kSgemm") == 2
+    encoder = text.split("int sgemm_encoder(")[1].split(
+        "int sgemm_decoder(")[0]
+    decoder = text.split("int sgemm_decoder(")[1].split("}  // namespace")[0]
+    assert encoder.count("rvk::sgemm::launch_fwd<1, rvk::kActRelu>") == 1
+    assert encoder.count("rvk::sgemm::launch_fwd<2, rvk::kActNone>") == 1
+    assert decoder.count("rvk::sgemm::launch_fwd<1, rvk::kActRelu>") == 1
+    assert decoder.count("rvk::sgemm::launch_fwd<1, rvk::kActTanh>") == 1
+    assert "sgemm_heads_kernel" in (_build.CSRC / "sgemm.cuh").read_text()
+    assert "__global__ void slices_epilogue(" in (
+        _build.CSRC / "slices.cuh").read_text()
 
 def test_the_fp32_entry_points_build_on_sgemm_cuh():
     """rvk_linear_fwd, rvk_linear_ksplit_fwd, rvk_matmul_nt and

@@ -2232,3 +2232,156 @@ def test_highest_step_runs_grad_accum_on_sgemm(cuda):
     assert (f.launches - before[0], f.sgemm_launches - before[1]) \
         == (20, 20)
     assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
+
+
+# ---- rows 1 and 2 in fp32 on csrc/sgemm.cuh.  encoder_fwd runs h, then both
+# heads in one grid; decoder_fwd h3, then y; each product on the tile and
+# slices of its contraction that tensor_cores.sgemm_fwd_plan picks, a split
+# product's slices added in order with the bias and the activation after
+# them.  Within ATOL of the plain version at the server's batch and below,
+# SGEMM_REL of max|want| elsewhere, of the first version too; equal bits on
+# a second launch.  Shapes (batch, seg, units, latent): the dense model at
+# the server's batch, a ragged 100, 1 and the microbatch; narrow widths at
+# batch 300 (latent 8 and 72: one and two tile columns a head).
+
+SGEMM_DENSE = [(256, 1024, 2048, 256), (100, 1024, 2048, 256),
+               (1, 1024, 2048, 256), (8192, 1024, 2048, 256),
+               (300, 64, 128, 8), (300, 64, 128, 72), (130, 68, 260, 12)]
+
+
+def _dense_fp32_operands(device, kind, batch, seg, units, latent, seed=0):
+    """The encoder's (w1, b1, w21, b21, w22, b22, x) or the decoder's (w3,
+    b3, w4, b4, z), fp32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    if kind == "encoder":
+        return [rnd(seg, units, scale=seg ** -0.5), rnd(units, scale=0.1),
+                rnd(units, latent, scale=units ** -0.5),
+                rnd(latent, scale=0.1),
+                rnd(units, latent, scale=units ** -0.5),
+                rnd(latent, scale=0.1), rnd(batch, seg, scale=0.5)]
+    return [rnd(latent, units, scale=latent ** -0.5), rnd(units, scale=0.1),
+            rnd(units, seg, scale=units ** -0.5), rnd(seg, scale=0.1),
+            rnd(batch, latent)]
+
+
+def _dense_fp32(kind):
+    return ((mlp.encoder_fwd, mlp.encoder_fwd_ref) if kind == "encoder"
+            else (mlp.decoder_fwd, mlp.decoder_fwd_ref))
+
+
+def _held_fp32(got, want, batch):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        assert bool(torch.isfinite(g).all())
+        if batch <= 256:
+            assert float((g - w).abs().max()) <= ATOL
+        assert _rel(g, w) <= SGEMM_REL
+
+
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+@pytest.mark.parametrize("shape", SGEMM_DENSE, ids=str)
+def test_sgemm_dense_forward_matches_plain_and_first_version(cuda, kind,
+                                                             shape):
+    op, plain = _dense_fp32(kind)
+    ops_ = _dense_fp32_operands(cuda, kind, *shape)
+    first, rose = _ran_sgemm(op, *ops_, kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran_sgemm(op, *ops_)                                 # auto
+    assert rose == (1, 1)
+    _held_fp32(got, plain(*ops_), shape[0])
+    _held_fp32(got, first, shape[0])
+    for g, again in zip(got, op(*ops_, kernel="sgemm")):
+        assert torch.equal(g, again)
+
+
+def _largest_valid_split(k, split):
+    """The most slices, at most ``split``, that leave no slice of a
+    contraction of ``k`` empty (steps of 64)."""
+    steps = -(-k // 64)
+    while split > 1 and (split > steps
+                         or -(-steps // -(-steps // split)) != split):
+        split -= 1
+    return split
+
+
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+@pytest.mark.parametrize("plan", [(0, 1), (0, 4), (1, 2), (2, 1), (2, 3),
+                                  (2, 8)])
+def test_every_sgemm_forward_plan_matches_plain(cuda, kind, plan,
+                                                monkeypatch):
+    """The fp32 encoder and decoder with every product's plan (tile index,
+    slices) forced at the ragged 300 rows and full width: every tile, one
+    slice, slices that cut the contraction unevenly; equal bits twice."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    monkeypatch.setattr(
+        tensor_cores, "sgemm_fwd_plan",
+        lambda rows, k, n, sms, outputs=1: (plan[0], _largest_valid_split(
+            k, plan[1])))
+    op, plain = _dense_fp32(kind)
+    ops_ = _dense_fp32_operands(cuda, kind, 300, 1024, 2048, 256, seed=7)
+    got, rose = _ran_sgemm(op, *ops_)
+    assert rose == (1, 1)
+    _held_fp32(got, plain(*ops_), 300)
+    for g, again in zip(got, op(*ops_)):
+        assert torch.equal(g, again)
+
+
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+def test_sgemm_dense_forward_dispatch_on_the_card(cuda, kind):
+    """A latent no multiple of 4 and a view off a 16-byte boundary keep the
+    first version under ``auto`` and raise for ``kernel="sgemm"``; bf16
+    operands never take it; a zero-row batch launches nothing."""
+    op, plain = _dense_fp32(kind)
+    ops_ = _dense_fp32_operands(cuda, kind, 100, 1024, 2048, 38)
+    got, rose = _ran_sgemm(op, *ops_)
+    assert rose == (1, 0)
+    _held_fp32(got, plain(*ops_), 100)
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        op(*ops_, kernel="sgemm")
+    ops_ = _dense_fp32_operands(cuda, kind, 256, 1024, 2048, 256)
+    x = ops_[-1]
+    off = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x).copy_(x)
+    got, rose = _ran_sgemm(op, *ops_[:-1], off)
+    assert rose == (1, 0)
+    for g, f in zip(got, op(*ops_, kernel="cuda_cores")):
+        assert torch.equal(g, f)
+    with pytest.raises(ValueError, match="aligned = False"):
+        op(*ops_[:-1], off, kernel="sgemm")
+    _, rose = _ran_sgemm(op, *[t.bfloat16() for t in ops_])
+    assert rose == (1, 0)
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        op(*[t.bfloat16() for t in ops_], kernel="sgemm")
+    _, rose = _ran_sgemm(op, *ops_[:-1], x[:0])
+    assert rose == (0, 0)
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+def test_fp32_steps_run_the_dense_forward_on_sgemm(cuda, precision):
+    """One fp32 step of the dense kernel backend at batch 3 x 1024 with
+    microbatch 1024 plus a ragged tail: the encoder and the decoder once a
+    microbatch, every launch on csrc/sgemm.cuh."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.backend, cfg.tpu.precision = "pallas", precision
+    cfg.tpu.microbatch_size = 1024
+    x = torch.rand((3 * 1024 + 100, cfg.audio.segment_length),
+                   device=cuda) * 2 - 1
+    model = build_model(cfg, cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    fns = (mlp.encoder_fwd, mlp.decoder_fwd)
+    before = [(f.launches, f.sgemm_launches) for f in fns]
+    state, m = build_train_step(model, cfg)(state, x)
+    torch.cuda.synchronize()
+    for f, (n, n_sgemm) in zip(fns, before):
+        assert (f.launches - n, f.sgemm_launches - n_sgemm) == (4, 4)
+    assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))

@@ -736,9 +736,10 @@ def test_a_named_fp32_kernel_raises_on_what_it_cannot_take(monkeypatch):
         mlp.matmul_nt(x, w.t().contiguous(), kernel="sgemm")
     with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
         linear.linear_ksplit_fwd(x, w, b, "relu", kernel="sgemm")
-    # the Toeplitz product and the encoder have no fp32 form
-    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
-        mlp.encoder_fwd(*_encoder_operands(8, 64, 32, 16, F32),
+    # the encoder's fp32 form takes latent widths of multiples of 4 only;
+    # the Toeplitz product has no fp32 form
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        mlp.encoder_fwd(*_encoder_operands(8, 64, 32, 18, F32),
                         kernel="sgemm")
     monkeypatch.setattr(toeplitz, "kernel_device", lambda x: x.device)
     with pytest.raises(ValueError, match="no kernel 'sgemm'"):
@@ -867,12 +868,12 @@ def test_the_dense_encoder_takes_the_tensor_cores_in_bf16(batch):
     assert mlp.resolve_encoder("auto", BF16, batch, *DENSE) == 1
     assert mlp.resolve_encoder("tensor_cores", BF16, batch, *DENSE) == 1
     assert mlp.resolve_encoder("cuda_cores", BF16, batch, *DENSE) == 0
-    # fp32 (the server, the fp32 tiers) keeps the first version
-    assert mlp.resolve_encoder("auto", F32, batch, *DENSE) == 0
+    # fp32 (the server, the fp32 tiers) takes the fp32 kernel
+    assert mlp.resolve_encoder("auto", F32, batch, *DENSE) == SGEMM
 
 
 @pytest.mark.parametrize("dtype,batch,seg,units,latent,aligned", [
-    (F32, MICROBATCH, 1024, 2048, 256, True),    # fp32: queue B.5
+    (F32, MICROBATCH, 1024, 2048, 38, True),     # fp32, latent % 4 != 0
     (BF16, MICROBATCH, 1024, 2048, 36, True),    # latent % 8 != 0
     (BF16, MICROBATCH, 1024, 2044, 256, True),   # units % 8 != 0
     (BF16, MICROBATCH, 1020, 2048, 256, True),   # seg % 8 != 0
@@ -890,17 +891,21 @@ def test_what_keeps_the_encoder_on_the_cuda_cores(dtype, batch, seg, units,
     with pytest.raises(ValueError, match="encoder_fwd: kernel "
                        "'tensor_cores' takes bf16 operands"):
         mlp.resolve_encoder("tensor_cores", dtype, *widths)
-    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+    with pytest.raises(ValueError, match="encoder_fwd: kernel 'sgemm' "
+                       "takes fp32 operands"):
         mlp.resolve_encoder("sgemm", dtype, *widths)
 
 
 def test_the_encoder_passes_the_kernel_code_and_both_tile_widths(
         monkeypatch):
-    """What reaches rvk_encoder_fwd: the dtype, the hidden product's tile
-    width, the heads' tile width (both heads' tile columns counted), the
-    kernel code; the first version gets zeros for the widths."""
+    """What reaches rvk_encoder_fwd: the dtype, one slice of each product,
+    the hidden product's tile width, the heads' tile width (both heads'
+    tile columns counted), the kernel code, no workspace; the first version
+    gets zeros for the slices and widths; fp32 takes the fp32 kernel's
+    plans (``tensor_cores.sgemm_fwd_plan``)."""
     launched = _stand_in(monkeypatch)
-    counts = (mlp.encoder_fwd.launches, mlp.encoder_fwd.tensor_core_launches)
+    counts = (mlp.encoder_fwd.launches, mlp.encoder_fwd.tensor_core_launches,
+              mlp.encoder_fwd.sgemm_launches)
     # batch → (hidden width, heads width) on 132 SMs: at 8192, 64 tile rows
     # x 8 columns of 256 (four waves, fewest waves x width ties, the wider
     # wins) and 64 x 2 heads' columns of 256, one wave (128 tiles); at the
@@ -912,19 +917,28 @@ def test_the_encoder_passes_the_kernel_code_and_both_tile_widths(
         assert (mu.shape, logvar.shape, h.shape) == (
             (batch, 256), (batch, 256), (batch, 2048))
         name, args = launched.pop()
-        # x, w1, b1, w21, b21, w22, b22, mu, logvar, h | batch, seg, units,
-        # latent, dtype, tile_hidden, tile_heads, kernel
+        # x, w1, b1, w21, b21, w22, b22, mu, logvar, h, workspace | batch,
+        # seg, units, latent, dtype, split_hidden, split_heads, tile_hidden,
+        # tile_heads, kernel
         assert name == "rvk_encoder_fwd" and args[0] is ops[-1]
-        assert args[10:] == (batch, *DENSE, 1, *widths, 1)
+        assert args[10] is None
+        assert args[11:] == (batch, *DENSE, 1, 1, 1, *widths, 1)
     mlp.encoder_fwd(*_encoder_operands(MICROBATCH, *DENSE, BF16),
                     kernel="cuda_cores")
-    assert launched.pop()[1][14:] == (1, 0, 0, 0)
+    assert launched.pop()[1][15:] == (1, 0, 0, 0, 0, 0)
     mlp.encoder_fwd(*_encoder_operands(256, *DENSE, F32))
-    assert launched.pop()[1][14:] == (0, 0, 0, 0)
+    (tile_h, split_h), (tile_o, split_o) = (
+        tensor_cores.sgemm_fwd_plan(256, 1024, 2048, 132),
+        tensor_cores.sgemm_fwd_plan(256, 2048, 256, 132, 2))
+    args = launched.pop()[1]
+    assert args[15:] == (0, split_h, split_o, tile_h, tile_o, SGEMM)
     mlp.encoder_fwd(*_encoder_operands(100, 1024, 2048, 36, BF16))
-    assert launched.pop()[1][14:] == (1, 0, 0, 0)   # latent % 8: the first
+    assert launched.pop()[1][15:] == (1, 0, 0, 0, 0, 0)   # latent % 8
+    mlp.encoder_fwd(*_encoder_operands(100, 1024, 2048, 38, F32))
+    assert launched.pop()[1][15:] == (0, 0, 0, 0, 0, 0)   # latent % 4
     assert (mlp.encoder_fwd.launches - counts[0],
-            mlp.encoder_fwd.tensor_core_launches - counts[1]) == (6, 3)
+            mlp.encoder_fwd.tensor_core_launches - counts[1],
+            mlp.encoder_fwd.sgemm_launches - counts[2]) == (7, 3, 1)
     # nothing to compute: no launch
     mlp.encoder_fwd(*_encoder_operands(0, *DENSE, BF16))
     assert launched == []
@@ -1132,13 +1146,15 @@ def test_the_dense_decoder_and_its_backward_take_the_tensor_cores(batch):
         assert resolve("auto", BF16, batch, *widths) == 1
         assert resolve("tensor_cores", BF16, batch, *widths) == 1
         assert resolve("cuda_cores", BF16, batch, *widths) == 0
-        # fp32 (the server, the fp32 tiers) keeps the first version
-        assert resolve("auto", F32, batch, *widths) == 0
+    # fp32 (the server, the fp32 tiers): the decoder takes the fp32 kernel,
+    # its fused backward (on no fp32 path) keeps the first version
+    assert mlp.resolve_decoder("auto", F32, batch, *DECODER) == SGEMM
+    assert mlp.resolve_dec_bwd("auto", F32, batch, *DENSE) == 0
 
 
 @pytest.mark.parametrize("op", ["decoder_fwd", "dec_bwd_fused"])
 @pytest.mark.parametrize("dtype,batch,a,b,c,aligned", [
-    (F32, MICROBATCH, 1024, 2048, 256, True),    # fp32: queue B.5
+    (F32, MICROBATCH, 1024, 2048, 38, True),     # fp32, latent % 4 != 0
     (BF16, MICROBATCH, 1024, 2048, 36, True),    # latent % 8 != 0
     (BF16, MICROBATCH, 1024, 2044, 256, True),   # units % 8 != 0
     (BF16, MICROBATCH, 1020, 2048, 256, True),   # seg % 8 != 0
@@ -1161,17 +1177,21 @@ def test_what_keeps_the_decoder_on_the_cuda_cores(op, dtype, batch, a, b, c,
     with pytest.raises(ValueError, match=f"{op}: kernel 'tensor_cores' "
                        "takes bf16 operands"):
         resolve("tensor_cores", dtype, *widths)
-    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+    # the decoder has an fp32 form, which these operands do not fit
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"
+                       if op == "decoder_fwd" else "no kernel 'sgemm'"):
         resolve("sgemm", dtype, *widths)
 
 
 def test_the_decoder_passes_the_kernel_code_and_both_tile_widths(
         monkeypatch):
-    """What reaches rvk_decoder_fwd: 15 arguments, the dtype, h3's tile
-    width, y's tile width, the kernel code; the first version gets zeros
-    for the widths."""
+    """What reaches rvk_decoder_fwd: 18 arguments, the dtype, one slice
+    of each product, h3's tile width, y's tile width, the kernel code, no
+    workspace; the first version gets zeros for the slices and widths;
+    fp32 takes the fp32 kernel's plans (``tensor_cores.sgemm_fwd_plan``)."""
     launched = _stand_in(monkeypatch)
-    counts = (mlp.decoder_fwd.launches, mlp.decoder_fwd.tensor_core_launches)
+    counts = (mlp.decoder_fwd.launches, mlp.decoder_fwd.tensor_core_launches,
+              mlp.decoder_fwd.sgemm_launches)
     # batch → (h3 width, y width) on 132 SMs: at 8192, 64 tile rows x 8
     # columns of 256 for h3 (four waves; fewest waves x width ties, the
     # wider wins) and x 4 for y (two waves); at 256, 2 tile rows: 64 wide
@@ -1181,20 +1201,28 @@ def test_the_decoder_passes_the_kernel_code_and_both_tile_widths(
         y, h3 = mlp.decoder_fwd(*ops)
         assert (y.shape, h3.shape) == ((batch, 1024), (batch, 2048))
         name, args = launched.pop()
-        # z, w3, b3, w4, b4, y, h3 | batch, latent, units, seg, dtype,
-        # tile_hidden, tile_out, kernel
-        assert name == "rvk_decoder_fwd" and len(args) == 15
+        # z, w3, b3, w4, b4, y, h3, workspace | batch, latent, units, seg,
+        # dtype, split_hidden, split_out, tile_hidden, tile_out, kernel
+        assert name == "rvk_decoder_fwd" and len(args) == 18
         assert args[0] is ops[-1] and args[5] is y and args[6] is h3
-        assert args[7:] == (batch, *DECODER, 1, *widths, 1)
+        assert args[7] is None
+        assert args[8:] == (batch, *DECODER, 1, 1, 1, *widths, 1)
     mlp.decoder_fwd(*_decoder_operands(MICROBATCH, *DECODER, BF16),
                     kernel="cuda_cores")
-    assert launched.pop()[1][11:] == (1, 0, 0, 0)
+    assert launched.pop()[1][12:] == (1, 0, 0, 0, 0, 0)
     mlp.decoder_fwd(*_decoder_operands(256, *DECODER, F32))
-    assert launched.pop()[1][11:] == (0, 0, 0, 0)
+    (tile_h, split_h), (tile_o, split_o) = (
+        tensor_cores.sgemm_fwd_plan(256, 256, 2048, 132),
+        tensor_cores.sgemm_fwd_plan(256, 2048, 1024, 132))
+    assert launched.pop()[1][12:] == (0, split_h, split_o, tile_h, tile_o,
+                                      SGEMM)
     mlp.decoder_fwd(*_decoder_operands(100, 36, 2048, 1024, BF16))
-    assert launched.pop()[1][11:] == (1, 0, 0, 0)   # latent % 8: the first
+    assert launched.pop()[1][12:] == (1, 0, 0, 0, 0, 0)   # latent % 8
+    mlp.decoder_fwd(*_decoder_operands(100, 38, 2048, 1024, F32))
+    assert launched.pop()[1][12:] == (0, 0, 0, 0, 0, 0)   # latent % 4
     assert (mlp.decoder_fwd.launches - counts[0],
-            mlp.decoder_fwd.tensor_core_launches - counts[1]) == (6, 3)
+            mlp.decoder_fwd.tensor_core_launches - counts[1],
+            mlp.decoder_fwd.sgemm_launches - counts[2]) == (7, 3, 1)
     mlp.decoder_fwd(*_decoder_operands(0, *DECODER, BF16))
     assert launched == []
 
@@ -1263,7 +1291,8 @@ def test_a_named_tensor_core_decoder_raises_on_what_it_cannot_take(
         fn(*[t.float() for t in dense], kernel="tensor_cores")
     with pytest.raises(ValueError, match="unknown kernel"):
         fn(*dense, kernel="wgmma")
-    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"
+                       if op == "decoder_fwd" else "no kernel 'sgemm'"):
         fn(*dense, kernel="sgemm")
     monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
     with pytest.raises(ValueError, match="aligned = False"):
