@@ -193,11 +193,18 @@ any failure exits non-zero with a traceback (no phase is caught):
    launches (bf16: all on the tensor cores); step time of both.
 
 3f. (run with the other kernel phases) the probes' kernels: ``dw_fused`` and
-   ``dx_fused`` in fp32 and bf16, relu / tanh / none, at the four large
-   layers of ``configs/deep_wide.ini`` at batch 4096 and at ragged sizes
-   (batch 4097 and 1000, k and n no multiples of a tile), against their
-   plain versions, equal bits on a second launch, timed at 4096 x 4096
-   beside the plain backward's three products; ``leaf_update`` against its
+   ``dx_fused`` in fp32 (on ``csrc/sgemm.cuh``) and bf16 (on the tensor
+   cores), relu / tanh / none, at the four large layers of
+   ``configs/deep_wide.ini`` at batch 4096 and at ragged sizes (batch 4097
+   and 1000, k and n no multiples of a tile), against their plain versions
+   and their first versions, equal bits on a second launch, each launch
+   counted on the new form ((1000, 70, 33) keeps the first version, and
+   naming the new form there raises), timed at 4096 x 4096 in turns with
+   the first version, the plain version and the library sequence
+   (cotangent -> product, -> sum for dW) and by device time beside the
+   bare product, their plans swept at the deep layers; the library
+   sequences of the int8 decoder, the sampler and the loss sums beside
+   their kernels' device time; ``leaf_update`` against its
    plain version BIT FOR BIT on leaves of 1, 255, 256 and 4,000,003
    elements, a 3-D leaf and an unaligned view, in place;
    ``fused_adam_apply`` against ``Adam.update`` bit for bit over 5 coupled
@@ -208,7 +215,9 @@ any failure exits non-zero with a traceback (no phase is caught):
    in bf16 (and the largest layer in fp32), ``deep_step`` on the deep
    model, ``adam_fusion`` on deep/``xla``, deep/``pallas`` and
    dense/``pallas``: every parity passes, ``dw_fused`` and ``dx_fused``
-   launch once a fused backward, ``leaf_update`` 22 times a deep step, 10 a
+   launch once a fused backward, every launch on the new form (the tensor
+   cores in bf16, ``csrc/sgemm.cuh`` in fp32), ``leaf_update`` 22 times a
+   deep step, 10 a
    dense one and never under the plain optimizer, and the two optimizers'
    states are equal bit for bit.
 
@@ -238,7 +247,8 @@ phase 8; fp32 ``linear_ksplit_fwd``: the deep ``highest`` step (those on
 the fp32 kernel); fp32
 ``linear_fwd``: the deep server (those on the fp32 kernel); ``toeplitz_fwd``: the op-level conv1d step
 of phase 9 in bf16 and at ``highest``; ``dw_fused`` / ``dx_fused``: the
-``deep_bwd`` probe runs of phase 10 in each dtype; ``leaf_update``: the
+``deep_bwd`` probe runs of phase 10 in each dtype (those on the new form,
+every one); ``leaf_update``: the
 three ``adam_fusion`` probe runs of phase 10.
 ``bound_ms`` is the larger of bytes moved (each input read once, each
 output written once) over 3.35 TB/s and operations over the peak of the
@@ -260,9 +270,13 @@ microbatch's numbers under ``at_8192``), and carry the first version's
 time on the same inputs as ``first_version_ms``.  The ``library_ms`` of
 bf16 ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``, ``grad_accum``,
 ``enc_bwd_dw1`` and ``grad_accum2`` and of fp32 ``encoder_fwd``,
-``decoder_fwd``, ``grad_accum``, ``matmul_nt_mask`` and ``matmul_nt2_mask``
-is the device time of a sequence of library calls on the same inputs (its
-``library`` key says which): no one PyTorch call computes any of them.
+``decoder_fwd``, ``grad_accum``, ``matmul_nt_mask`` and ``matmul_nt2_mask``,
+of bf16 ``matmul_nt2_mask``, of ``dw_fused`` and ``dx_fused`` in both
+dtypes (whose rows describe the tensor-core form in bf16 and the
+``csrc/sgemm.cuh`` form in fp32), of ``quantized_decoder_fwd``, of the
+sampler and of ``loss_sums`` is the device time of a sequence of library
+calls on the same inputs (its ``library`` key says which): no one PyTorch
+call computes any of them.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1458,8 +1472,9 @@ def forward_sgemm(rows, gen_params):
 def backward_libraries(rows, gen_params):
     """Phases 3b-3c: the device time of the library sequences of the
     backward rows still on their first versions at the microbatch (fp32
-    matmul_nt_mask and matmul_nt2_mask, the primitive backward's), beside
-    each first version's device time, into their rows' library_ms."""
+    matmul_nt_mask and matmul_nt2_mask, the primitive backward's; bf16
+    matmul_nt2_mask, the bf16 dx's), beside each first version's device
+    time, into their rows' library_ms."""
     from rawaudiovae_kelsey_tpu_torch.ops import mlp
 
     p = gen_params(4321)
@@ -1474,6 +1489,9 @@ def backward_libraries(rows, gen_params):
     h3, da = rnd(UNITS, f32, True), rnd(SEG, f32, scale=1e-3)
     hf, dmuf, dlvf = rnd(UNITS, f32, True), rnd(LATENT, f32), rnd(LATENT, f32)
     w4, w21, w22 = p["fc4"]["w"], p["fc21"]["w"], p["fc22"]["w"]
+    bf = torch.bfloat16
+    hb, dmub, dlvb = hf.to(bf), dmuf.to(bf), dlvf.to(bf)
+    w21b, w22b = w21.to(bf), w22.to(bf)
     cases = {
         "matmul_nt_mask[fp32]": (lambda: (da @ w4.t()) * (h3 > 0),
                                  lambda: mlp.matmul_nt_mask(da, w4, h3)),
@@ -1481,6 +1499,11 @@ def backward_libraries(rows, gen_params):
             lambda: torch.where(hf > 0, torch.addmm(dmuf @ w21.t(), dlvf,
                                                     w22.t()), 0),
             lambda: mlp.matmul_nt2_mask(dmuf, w21, dlvf, w22, hf)),
+        # the bf16 dx's: the same sequence on bf16 operands
+        "matmul_nt2_mask[bf16]": (
+            lambda: torch.where(hb > 0, torch.addmm(dmub @ w21b.t(), dlvb,
+                                                    w22b.t()), 0),
+            lambda: mlp.matmul_nt2_mask(dmub, w21b, dlvb, w22b, hb)),
     }
     for key, (library, kernel) in cases.items():
         row = rows[key]
@@ -1489,6 +1512,72 @@ def backward_libraries(rows, gen_params):
               f"{lib:.4f} ms of device time, the first version {dev:.4f} "
               f"({dev / lib:.1f}x), bound {row['bound_ms']:.4f} ms")
         row.update(library_ms=lib, library=BWD_LIBRARY[key.split("[")[0]],
+                   device_ms=dev)
+
+
+# phase 3f: the library sequences of the rows with no one PyTorch call of
+# their function: the int8 decoder, the sampler and the loss sums
+ROW_LIBRARY = {
+    "quantized_decoder_fwd": "the sequence q.float() * scale (both layers) "
+                             "-> addmm -> relu -> addmm -> tanh, device time "
+                             "summed",
+    "reparameterize_prng": "mu + torch.randn_like(mu) * exp(0.5 * logvar), "
+                           "device time summed (PyTorch's own Philox stream, "
+                           "not the kernel's words)",
+    "loss_sums": "the two sums ((recon - x)^2).sum() and (1 + logvar - mu^2 "
+                 "- exp(logvar)).sum() in fp32, device time summed",
+}
+
+
+def row_libraries(rows, gen_params):
+    """Phase 3f: each row of ROW_LIBRARY timed beside its library sequence,
+    both by device time, on operands of the row's timed shape: the int8
+    decoder at the server's batch, the sampler at SAMPLER_SHAPE, the loss
+    sums at LOSS_BATCH; into the rows' library_ms and device_ms."""
+    from rawaudiovae_kelsey_tpu_torch.ops import loss, quant, rng
+
+    # a generator of its own: the draws of the other phases stay as they were
+    g = torch.Generator(device="cuda").manual_seed(67)
+    qp = quant.quantize_decoder(gen_params(7))
+    z = torch.randn((BATCH, LATENT), generator=g, device="cuda")
+
+    def dequantized_decoder():
+        w3, w4 = (qp[n]["q"].float() * qp[n]["scale"] for n in ("fc3", "fc4"))
+        h3 = torch.relu(torch.addmm(qp["fc3"]["b"], z, w3))
+        return torch.tanh(torch.addmm(qp["fc4"]["b"], h3, w4))
+
+    mu = torch.randn(SAMPLER_SHAPE, generator=g, device="cuda")
+    logvar = torch.randn(SAMPLER_SHAPE, generator=g, device="cuda") * 0.5
+    cases = {
+        "quantized_decoder_fwd": (dequantized_decoder,
+                                  lambda: quant.quantized_decoder_fwd(qp, z)),
+        "reparameterize_prng[fp32]": (
+            lambda: mu + torch.randn_like(mu) * torch.exp(0.5 * logvar),
+            lambda: rng.reparameterize_prng((7, 8), mu, logvar)),
+    }
+    for kind, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        recon = torch.tanh(torch.randn((LOSS_BATCH, SEG), generator=g,
+                                       device="cuda")).to(dt)
+        x = (torch.rand((LOSS_BATCH, SEG), generator=g, device="cuda") * 2
+             - 1).to(dt)
+        m = torch.randn((LOSS_BATCH, LATENT), generator=g,
+                        device="cuda").to(dt)
+        lv = (torch.randn((LOSS_BATCH, LATENT), generator=g, device="cuda")
+              * 0.5).to(dt)
+        cases[f"loss_sums[{kind}]"] = (
+            lambda recon=recon, x=x, m=m, lv=lv: (
+                torch.square(recon.float() - x.float()).sum(),
+                (1.0 + lv.float() - torch.square(m.float())
+                 - torch.exp(lv.float())).sum()),
+            lambda recon=recon, x=x, m=m, lv=lv: loss.loss_sums(recon, x, m,
+                                                                lv))
+    for key, (library, kernel) in cases.items():
+        row = rows[key]
+        lib, dev = device_ms(library), device_ms(kernel)
+        print(f"  {key:<24} library sequence {lib:.4f} ms of device time, "
+              f"the kernel {dev:.4f} ({dev / lib:.2f}x), bound "
+              f"{row['bound_ms']:.4f} ms")
+        row.update(library_ms=lib, library=ROW_LIBRARY[key.split("[")[0]],
                    device_ms=dev)
 
 
@@ -3724,11 +3813,97 @@ def phase_variant_kernels():
     return rows
 
 
+# phase 3f: the new form of each dtype of dw_fused / dx_fused, the library
+# sequence each is timed against, and the plans swept at the deep layers:
+# (tensor_cores rule, plans, kernel names in a trace) for dx and for dW
+FORMED = {"bf16": "tensor_cores", "fp32": "sgemm"}
+FORMED_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+FUSED_LIBRARY = {
+    "dw_fused": "the sequence cotangent -> x.t() @ da -> da.sum(0), device "
+                "time summed (no one PyTorch call computes dw_fused)",
+    "dx_fused": "the sequence cotangent -> da @ w.t(), device time summed "
+                "(no one PyTorch call computes dx_fused)",
+}
+FORMED_PLANS = {
+    "bf16": (("cotangent_tile_n", (256, 128, 64), "CotangentRows"),
+             ("cotangent_wgrad_plan", ((256, 1), (256, 2), (128, 1),
+                                       (128, 2), (64, 1), (64, 2)),
+              "CotangentWgrad")),
+    "fp32": (("sgemm_tile", ((128, 128), (128, 64), (64, 64)),
+              "sgemm_fused_kernel"),
+             ("sgemm_wgrad_plan", SGEMM_WGRAD_PLANS, "sgemm_fused_kernel")),
+}
+
+
+def sweep_formed(kind, operands, rows):
+    """Phase 3f: the device ms of the new forms of dx_fused and dw_fused
+    (relu) with each plan of FORMED_PLANS forced, beside the rule's pick
+    and the library product's device time, at the four deep layers in bf16
+    and at the largest and the narrowest in fp32; a plan of more than one
+    slice counts the slices' sum.  Into the rows' ``plan_device_ms``."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear_bwd, tensor_cores
+
+    layers = DEEP_LAYERS if kind == "bf16" else (DEEP_LAYERS[0],
+                                                 DEEP_LAYERS[-1])
+    tol = VARIANT_REL[kind]
+    for (rule, plans, match), name in zip(FORMED_PLANS[kind],
+                                          ("dx_fused", "dw_fused")):
+        real = getattr(tensor_cores, rule)
+        table = {}
+        for k, n in layers:
+            x, y, dy, w = operands(DEEP_BATCH, k, n, FORMED_DTYPES[kind])
+            da = linear_bwd.cotangent("relu", y, dy)
+            if name == "dx_fused":
+                call = lambda: linear_bwd.dx_fused(y, dy, w, "relu")
+                plain = lambda: [linear_bwd.dx_fused_ref(y, dy, w, "relu")]
+                bare = device_ms(lambda: da @ w.t(), 5)
+            else:
+                call = lambda: linear_bwd.dw_fused(x, y, dy, "relu")
+                plain = lambda: linear_bwd.dw_fused_ref(x, y, dy, "relu")
+                bare = device_ms(lambda: x.t() @ da, 5)
+            sms = tensor_cores.sm_count(x.device)
+            pick = real(*{
+                "cotangent_tile_n": (-(-DEEP_BATCH // 128), k, sms),
+                "cotangent_wgrad_plan": (n, k, DEEP_BATCH, sms),
+                "sgemm_tile": (DEEP_BATCH, k, sms),
+                "sgemm_wgrad_plan": (k, n, DEEP_BATCH, sms)}[rule])
+            swept = {}
+            try:
+                for plan in plans:
+                    setattr(tensor_cores, rule,
+                            lambda *a, plan=plan, **kw: plan)
+                    got = call()
+                    got = list(got) if isinstance(got, tuple) else [got]
+                    e = rel_err(got, plain())
+                    check(e <= tol, f"{name}[{kind}] {k}->{n} plan {plan}: "
+                          f"relative error {e:.3e}")
+                    split = plan[1] if name == "dw_fused" else 1
+                    swept[plan] = device_ms(call, 5, match) + (
+                        device_ms(call, 5, "sum_slices") if split > 1
+                        else 0.0)
+            finally:
+                setattr(tensor_cores, rule, real)
+            best = min(swept, key=swept.get)
+            behind = swept[pick] / swept[best] - 1 if pick in swept \
+                else float("nan")
+            print(f"  {name + '[' + kind + ']':<24} {DEEP_BATCH}x{k}->{n}: "
+                  f"device ms by plan: "
+                  + ", ".join(f"{p}: {v:.4f}" for p, v in swept.items())
+                  + f"; the rule picks {pick}, the fastest is {best} (the "
+                    f"pick {100 * behind:.1f} % behind it); the library "
+                    f"product {bare:.4f} ms (the pick at "
+                    f"{swept.get(pick, float('nan')) / bare:.3f}x)")
+            table[f"{k}->{n}"] = {"plans": {str(p): v for p, v in
+                                            swept.items()},
+                                  "pick": str(pick), "product_ms": bare}
+        rows[f"{name}[{kind}]"]["plan_device_ms"] = table
+
+
 def phase_probe_kernels():
     """Phase 3f: dw_fused and dx_fused against their plain versions,
     leaf_update and fused_adam_apply against theirs bit for bit."""
     from rawaudiovae_kelsey_tpu_torch.models import build_model
-    from rawaudiovae_kelsey_tpu_torch.ops import adam, linear_bwd
+    from rawaudiovae_kelsey_tpu_torch.ops import adam, linear_bwd, tensor_cores
     from rawaudiovae_kelsey_tpu_torch.probes import (
         adam_fusion,
         common,
@@ -3761,22 +3936,30 @@ def phase_probe_kernels():
     shapes = [(DEEP_BATCH, k, n) for k, n in DEEP_LAYERS] + list(
         RAGGED_LAYERS)
     for kind, dt in dtypes.items():
+        # the new form of each dtype: the tensor cores in bf16, csrc/
+        # sgemm.cuh in fp32; a shape it cannot take keeps the first version
+        form = FORMED[kind]
+        counter = FAST[form]["counter"]
+        takes = tensor_cores.takes_tensor_cores if kind == "bf16" \
+            else tensor_cores.takes_sgemm
         worst = {"dw_fused": (0.0, 0.0), "dx_fused": (0.0, 0.0)}
         for batch, k, n in shapes:
+            fits = takes(dt, batch, k, n)
             for act in ("relu", "tanh", "none"):
                 x, y, dy, w = operands(batch, k, n, dt)
                 what = f"{batch}x{k}->{n} {act}"
-                before = (linear_bwd.dw_fused.launches,
-                          linear_bwd.dx_fused.launches)
+                ops = (linear_bwd.dw_fused, linear_bwd.dx_fused)
+                before = [(op.launches, getattr(op, counter)) for op in ops]
                 dw, db = linear_bwd.dw_fused(x, y, dy, act)
                 dx = linear_bwd.dx_fused(y, dy, w, act)
                 dw2, db2 = linear_bwd.dw_fused(x, y, dy, act)
                 dx2 = linear_bwd.dx_fused(y, dy, w, act)
                 torch.cuda.synchronize()
-                check((linear_bwd.dw_fused.launches,
-                       linear_bwd.dx_fused.launches)
-                      == (before[0] + 2, before[1] + 2),
-                      f"{what}: a launch was not counted")
+                rose = [(op.launches - b[0], getattr(op, counter) - b[1])
+                        for op, b in zip(ops, before)]
+                check(rose == [(2, 2 * fits)] * 2,
+                      f"{kind} {what}: launches / {form} launches rose by "
+                      f"{rose}, expected {2 * fits} on {form}")
                 check(torch.equal(dw, dw2) and torch.equal(db, db2)
                       and torch.equal(dx, dx2),
                       f"{kind} {what}: a second launch gave other bits")
@@ -3785,48 +3968,104 @@ def phase_probe_kernels():
                 e_db = held("dw_fused", kind, db, want_db, what + ", db")
                 e_dx = held("dx_fused", kind, dx,
                             linear_bwd.dx_fused_ref(y, dy, w, act), what)
+                if fits:
+                    # and against the first version on the same inputs
+                    first = linear_bwd.fused_bwd(x, y, dy, w, act,
+                                                 kernel="cuda_cores")
+                    for got, old, label in zip((dx, dw, db), first,
+                                               ("dx", "dW", "db")):
+                        held(f"{label} of the fused pair", kind, got, old,
+                             what + ", against the first version")
                 worst["dw_fused"] = tuple(
                     max(v) for v in zip(worst["dw_fused"], e_dw, e_db))
                 worst["dx_fused"] = tuple(
                     max(v) for v in zip(worst["dx_fused"], e_dx))
+            if not fits:
+                for call in (lambda: linear_bwd.dw_fused(x, y, dy, act,
+                                                         kernel=form),
+                             lambda: linear_bwd.dx_fused(y, dy, w, act,
+                                                         kernel=form)):
+                    try:
+                        call()
+                    except ValueError:
+                        continue
+                    check(False, f"{kind} {batch}x{k}->{n}: kernel={form!r} "
+                          "did not raise on a shape it cannot take")
+            print(f"  {'fused pair[' + kind + ']':<24} {batch}x{k}->{n}: "
+                  + (f"every launch on {form}" if fits else
+                     f"the first version (kernel={form!r} raised)"))
         for name, (rel, _) in worst.items():
             print(f"  {name + '[' + kind + ']':<24} {len(shapes)} shapes x 3 "
                   f"activations: max |kernel - plain| / max|plain| = "
                   f"{rel:.3e} (tolerance {VARIANT_REL[kind]:.3e}); equal "
                   "bits on a second launch")
-        # timed at the deep model's largest layer, relu
+        # timed at the deep model's largest layer, relu: the new form, the
+        # first version, the plain version and the library sequence in
+        # turns, and each one's device time
         k, n = DEEP_LAYERS[0]
         x, y, dy, w = operands(DEEP_BATCH, k, n, dt)
         flops = 2 * DEEP_BATCH * k * n
-        cases = {
-            "dw_fused": (lambda: linear_bwd.dw_fused(x, y, dy, "relu"),
-                         lambda: linear_bwd.dw_fused_ref(x, y, dy, "relu"),
-                         f"{tpu}:83",
-                         nbytes(x, y, dy) + 4 * (k * n + n)),
-            "dx_fused": (lambda: linear_bwd.dx_fused(y, dy, w, "relu"),
-                         lambda: linear_bwd.dx_fused_ref(y, dy, w, "relu"),
-                         f"{tpu}:134", nbytes(y, dy, w, x)),
-        }
-        for name, (kernel, plain, replaces, moved) in cases.items():
-            ms, plain_ms, t_kern, t_plain = time_both(kernel, plain, 5)
-            bd = bound(flops, moved, kind)
-            print(f"  {name + '[' + kind + ']':<24} {DEEP_BATCH}x{k}->{n}: "
-                  f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                  f"plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ("
-                  f"{bd['bound_by']}) (runs {t_kern} / {t_plain})")
-            rows[f"{name}[{kind}]"] = {
-                "name": f"{name}[{kind}]", "route": "cuda", "source": src,
-                "replaces": replaces, "max_abs_err": worst[name][1],
-                "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": None}
-        # context: the backward the deep model takes today, and its parts
         da = linear_bwd.cotangent("relu", y, dy)
         wt, xt = w.t(), x.t()
+        cases = {
+            "dw_fused": (
+                {form: lambda: linear_bwd.dw_fused(x, y, dy, "relu"),
+                 "cuda_cores": lambda: linear_bwd.dw_fused(
+                     x, y, dy, "relu", kernel="cuda_cores"),
+                 "plain": lambda: linear_bwd.dw_fused_ref(x, y, dy, "relu"),
+                 "library": lambda: (lambda d: (xt @ d, d.sum(0)))(
+                     linear_bwd.cotangent("relu", y, dy))},
+                "x.t() @ da", lambda: xt @ da, f"{tpu}:83",
+                nbytes(x, y, dy) + 4 * (k * n + n)),
+            "dx_fused": (
+                {form: lambda: linear_bwd.dx_fused(y, dy, w, "relu"),
+                 "cuda_cores": lambda: linear_bwd.dx_fused(
+                     y, dy, w, "relu", kernel="cuda_cores"),
+                 "plain": lambda: linear_bwd.dx_fused_ref(y, dy, w, "relu"),
+                 "library": lambda: linear_bwd.cotangent("relu", y, dy)
+                 @ wt},
+                "da @ w.t()", lambda: da @ wt, f"{tpu}:134",
+                nbytes(y, dy, w, x)),
+        }
+        for name, (fns, label, product, replaces, moved) in cases.items():
+            ms, runs = time_in_turns(fns, 20 if kind == "bf16" else 5)
+            dms = {key: device_ms(fn, 5) for key, fn in fns.items()}
+            bare = device_ms(product, 5)
+            bd = bound(flops, moved, kind)
+            print(f"  {name + '[' + kind + ']':<24} {DEEP_BATCH}x{k}->{n} "
+                  f"relu: {form} {ms[form]:.4f} ms (device {dms[form]:.4f} "
+                  f"ms, {flops / dms[form] / 1e9:.1f} TFLOP/s), cuda_cores "
+                  f"(first version) {ms['cuda_cores']:.4f} ms (device "
+                  f"{dms['cuda_cores']:.4f}: "
+                  f"{dms['cuda_cores'] / dms[form]:.1f}x), plain {ms['plain']:.4f} ms (device "
+                  f"{dms['plain']:.4f}), library sequence "
+                  f"{ms['library']:.4f} ms (device {dms['library']:.4f}), "
+                  f"{label} alone device {bare:.4f} ms, bound "
+                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); device time /"
+                  f" the sequence's {dms[form] / dms['library']:.3f}, / the "
+                  f"product's {dms[form] / bare:.3f}, / bound "
+                  f"{dms[form] / bd['bound_ms']:.3f}; runs {runs}")
+            rows[f"{name}[{kind}]"] = {
+                "name": f"{name}[{kind}]", "route": "cuda",
+                "source": FAST[form]["source"], "replaces": replaces,
+                "max_abs_err": worst[name][1], "ms": ms[form],
+                "plain_ms": ms["plain"], **bd,
+                "library_ms": dms["library"],
+                "library": FUSED_LIBRARY[name],
+                "library_event_ms": ms["library"],
+                "product_device_ms": bare, "device_ms": dms[form],
+                "first_version_ms": ms["cuda_cores"],
+                "first_version_device_ms": dms["cuda_cores"]}
+        sweep_formed(kind, operands, rows)
+        # context: the backward the deep model takes today, and its parts
         parts = {"plain_bwd": lambda: linear_bwd.plain_bwd(x, y, dy, w,
+                                                           "relu"),
+                 "fused_bwd": lambda: linear_bwd.fused_bwd(x, y, dy, w,
                                                            "relu"),
                  "da @ w.t()": lambda: da @ wt, "x.t() @ da": lambda: xt @ da,
                  "da.sum(0)": lambda: da.sum(0)}
         print(f"  {'plain backward[' + kind + ']':<24} {DEEP_BATCH}x{k}->{n}: "
-              + ", ".join(f"{label} {cuda_time_ms(fn, 10):.4f} ms"
+              + ", ".join(f"{label} device {device_ms(fn, 5):.4f} ms"
                           for label, fn in parts.items()))
 
     # ---- the one-pass Adam: equal bits, not a tolerance
@@ -3950,13 +4189,21 @@ def phase_probes(card: str):
         deep_step,
     )
 
+    fused = (ops.dw_fused, ops.dx_fused)
+
     def counted(run):
         for w in ops.KERNEL_WRAPPERS:
             w.launches = 0
+        for w in fused:
+            w.tensor_core_launches = w.sgemm_launches = 0
         out = run()
         check(out["device"] == card, f"the probe ran on {out['device']!r}, "
               f"not on {card!r}")
-        return out, {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+        counts = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+        for w in fused:
+            counts[f"{w.__name__}@tc"] = w.tensor_core_launches
+            counts[f"{w.__name__}@sgemm"] = w.sgemm_launches
+        return out, counts
 
     launches = {}
     for kind, argv in (("bf16", ["--all"]),
@@ -3977,6 +4224,16 @@ def phase_probes(card: str):
         check(counts["dw_fused"] == counts["dx_fused"] == n,
               f"deep_bwd {argv}: {counts['dw_fused']} + {counts['dx_fused']}"
               f" launches, expected {n} each")
+        # every launch on the new form: the tensor cores in bf16, csrc/
+        # sgemm.cuh in fp32 (the deep layers take both)
+        tag = "tc" if kind == "bf16" else "sgemm"
+        on_form = {name: counts[f"{name}@{tag}"]
+                   for name in ("dw_fused", "dx_fused")}
+        print(f"  deep_bwd {' '.join(argv)}: launches on {tag}: "
+              + ", ".join(f"{name} {v}/{counts[name]}"
+                          for name, v in on_form.items()))
+        check(all(v == n for v in on_form.values()),
+              f"deep_bwd {argv}: {on_form} of {n} launches on {tag}")
         launches[kind] = counts
 
     out, _ = counted(lambda: deep_step.main([]))
@@ -4504,6 +4761,7 @@ def main() -> int:
           "against their plain versions")
     with torch.no_grad():
         probe_rows = phase_probe_kernels()
+        row_libraries({**rows, **new_rows, **full_rows}, gen_params)
 
     print("phase 4: the serving path (configs/default.ini)")
     cfg = load_config(ROOT / "configs" / "default.ini")
@@ -4672,7 +4930,10 @@ def main() -> int:
     # runs
     for key, row in probe_rows.items():
         name, kind = key[:-1].split("[")
-        row["launches"] = probe_launches[kind][name]
+        # dw_fused / dx_fused rows describe the new form: its launches
+        counts = probe_launches[kind]
+        tag = f"{name}@{'tc' if kind == 'bf16' else 'sgemm'}"
+        row["launches"] = counts.get(tag, counts[name])
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(probe_rows)
     print(card)

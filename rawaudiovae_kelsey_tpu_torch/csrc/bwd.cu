@@ -99,6 +99,7 @@ using rvk::kKContig;
 using rvk::kRContig;
 using rvk::launch_gemm;
 using rvk::src;
+using rvk::tc::RoundPair;
 using rvk::View;
 using rvk::view;
 
@@ -226,19 +227,6 @@ cudaError_t dec_bwd_full(const T* da, const T* h3, const T* z, const T* w4,
 // product, bf16 operands take one pass.
 template <typename T>
 constexpr int kFullPasses = std::is_same<T, float>::value ? 3 : 1;
-
-// The tensor-core form's epilogue: two adjacent columns of a row, rounded
-// once.
-struct RoundPair {
-  struct Column {};
-  static constexpr int kModes = 1;
-  __device__ __forceinline__ Column column(int) const { return Column{}; }
-  template <int>
-  __device__ __forceinline__ __nv_bfloat162 pair(Column, int, int, float v0,
-                                                 float v1) const {
-    return __floats2bfloat162_rn(v0, v1);
-  }
-};
 
 // dh3's epilogue on the tensor cores: where(gate > 0, sum, 0), the gate
 // (h3's pair at the same place, which the mainloop has TMA load into the

@@ -85,6 +85,19 @@ __device__ __forceinline__ void split_hi_lo(float v, float& hi, float& lo) {
   lo = __bfloat162float(__float2bfloat16_rn(v - hi));
 }
 
+// The cotangent before an activation, da = act'(y) · dy, from the layer's
+// output y and its cotangent g = dy, in fp32 (benchmarks/deep_bwd_probe.py
+// _da): relu passes g where y > 0, tanh gives g · (1 − y · y), none g; act
+// an Act.  tanh is written with the rounding intrinsics so that the
+// compiler cannot contract 1 − y · y into one fused multiply-add: it gives
+// the bits of the plain version's three operations.  The callers round the
+// result to the operand dtype.
+__device__ __forceinline__ float cotangent(int act, float y, float g) {
+  if (act == kActRelu) return y > 0.f ? g : 0.f;
+  if (act == kActTanh) return __fmul_rn(g, __fsub_rn(1.f, __fmul_rn(y, y)));
+  return g;
+}
+
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);

@@ -1,6 +1,7 @@
 // fp32 mainloop for Hopper's CUDA cores (sm_90a): the device routine of the
 // fp32 forms of rvk_linear_fwd (linear.cu), rvk_matmul_nt and
-// rvk_grad_accum (bwd.cu), rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu).
+// rvk_grad_accum (bwd.cu), rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu),
+// rvk_dx_fused and rvk_dw_fused (linear_bwd.cu: sgemm_fused_kernel).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -142,13 +143,19 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // One operand seen as R rows (M of A, N of B) by K, staged in slabs of
-// kBK.  kKMajor: element (r, k) at p[r * ld + k]; otherwise at p[k * ld +
-// r].  Its shared memory, in floats: the ring of kStages slabs, and for a
-// K-major operand two transposed compute buffers after it.
-template <int R, bool kKMajor, int kBK>
+// kBK through a ring of kS slabs.  kKMajor: element (r, k) at p[r * ld +
+// k]; otherwise at p[k * ld + r].  Its shared memory, in floats: the ring,
+// and for a K-major operand two transposed compute buffers after it.  A
+// formed operand (kForm: the cotangent da = act'(y) · dy of the fused
+// linear backward, linear_bwd.cu) has a second ring for dy beside y's, and
+// the pass that reads a slab back forms da from the two (rvk::cotangent):
+// into the compute buffer as it transposes a K-major operand, in place of
+// y in its own ring for an N-major one.
+template <int R, bool kKMajor, int kBK, int kS = kStages, bool kForm = false>
 struct Operand {
   static constexpr int kSlab = R * kBK;
-  static constexpr int kFloats = (kStages + (kKMajor ? 2 : 0)) * kSlab;
+  static constexpr int kRings = kForm ? 2 : 1;
+  static constexpr int kFloats = (kRings * kS + (kKMajor ? 2 : 0)) * kSlab;
   static constexpr int kCopies = kSlab / 4 / kThreads;  // a thread's, a slab
   static_assert(kCopies >= 1 && kSlab % (4 * kThreads) == 0,
                 "a slab is whole 16-byte copies, the same count a thread");
@@ -177,10 +184,12 @@ struct Operand {
   }
 
   // start the copies of slab `slab` into ring stage `stage`; rows from r0
-  // of `rows`, k of K
+  // of `rows`, k of K; a formed operand's q (dy, laid out as p) into the
+  // second ring
   __device__ __forceinline__ static void issue(float* sm, const float* p,
-                                               int ld, int r0, int rows,
-                                               int K, int slab, int stage) {
+                                               const float* q, int ld, int r0,
+                                               int rows, int K, int slab,
+                                               int stage) {
     float* ring = sm + stage * kSlab;
     const int k0 = slab * kBK;
 #pragma unroll
@@ -189,32 +198,47 @@ struct Operand {
       place(i, r, kq);
       const int row = r0 + r, k = k0 + kq;
       const bool valid = row < rows && k < K;
-      const float* src =
-          !valid ? p
-          : kKMajor ? p + static_cast<size_t>(row) * ld + k
-                    : p + static_cast<size_t>(k) * ld + row;
-      cp_async16(ring + (kKMajor ? r * kBK + kq : kq * R + r), src, valid);
+      const size_t at = kKMajor ? static_cast<size_t>(row) * ld + k
+                                : static_cast<size_t>(k) * ld + row;
+      const int to = kKMajor ? r * kBK + kq : kq * R + r;
+      cp_async16(ring + to, valid ? p + at : p, valid);
+      if constexpr (kForm) {
+        cp_async16(ring + kS * kSlab + to, valid ? q + at : q, valid);
+      }
     }
   }
 
-  // K-major only: this thread's copies of ring stage `stage`, k-major into
-  // compute buffer `buf` (swizzled)
+  // This thread's copies of ring stage `stage`, read back: a K-major
+  // operand's k-major into compute buffer `buf` (swizzled); a formed one's
+  // as da (act an rvk::Act), an N-major one's in place.  Nothing for an
+  // N-major operand that is loaded as it is.
   __device__ __forceinline__ static void transpose(float* sm, int stage,
-                                                   int buf) {
-    if (!kKMajor) return;
-    const float* ring = sm + stage * kSlab;
-    float* out = sm + (kStages + buf) * kSlab;
+                                                   int buf, int act) {
+    if constexpr (kKMajor || kForm) {
+      float* ring = sm + stage * kSlab;
+      float* out = sm + (kRings * kS + buf) * kSlab;
 #pragma unroll
-    for (int i = 0; i < kCopies; ++i) {
-      int r, kq;
-      place(i, r, kq);
-      const float4 v =
-          *reinterpret_cast<const float4*>(ring + r * kBK + kq);
-      const float e[4] = {v.x, v.y, v.z, v.w};
+      for (int i = 0; i < kCopies; ++i) {
+        int r, kq;
+        place(i, r, kq);
+        const int at = kKMajor ? r * kBK + kq : kq * R + r;
+        float4 v = *reinterpret_cast<const float4*>(ring + at);
+        if constexpr (kForm) {
+          const float4 g =
+              *reinterpret_cast<const float4*>(ring + kS * kSlab + at);
+          v = make_float4(cotangent(act, v.x, g.x), cotangent(act, v.y, g.y),
+                          cotangent(act, v.z, g.z), cotangent(act, v.w, g.w));
+        }
+        if constexpr (kKMajor) {
+          const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = kq + j;
-        out[k * R + (((r >> 2) ^ swizzle(k)) << 2) + (r & 3)] = e[j];
+          for (int j = 0; j < 4; ++j) {
+            const int k = kq + j;
+            out[k * R + (((r >> 2) ^ swizzle(k)) << 2) + (r & 3)] = e[j];
+          }
+        } else {
+          *reinterpret_cast<float4*>(ring + at) = v;
+        }
       }
     }
   }
@@ -222,7 +246,7 @@ struct Operand {
   // the buffer the k-steps of slab t read
   __device__ __forceinline__ static const float* compute(const float* sm,
                                                           int t) {
-    return sm + (kKMajor ? kStages + (t & 1) : t % kStages) * kSlab;
+    return sm + (kKMajor ? kRings * kS + (t & 1) : t % kS) * kSlab;
   }
 
   // rows r .. r + 3 (r a multiple of 4) at k-row k of a compute buffer
@@ -243,16 +267,21 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
 // in [z · rows, min(K, (z + 1) · rows)), `rows` a multiple of kSliceRows
 // (or all of K in one slice); it writes its sums to c + z · stride and, for
 // a weight gradient (M-major A), the column sums of its B to colsum + z ·
-// stride from the blocks of the first tile row.
-template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct>
+// stride from the blocks of the first tile row.  A formed operand (kFormA,
+// kFormB: the fused linear backward's cotangent) is da = act'(y) · dy with
+// y at a (or b) and dy at a2 (or b2), both laid out as the operand, and
+// `form` the activation (an rvk::Act); kS is the ring's depth in slabs.
+template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct,
+          bool kFormA = false, bool kFormB = false, int kS = kStages>
 __device__ __forceinline__ void product_tile(
     const float* __restrict__ a, const float* __restrict__ b,
     const float* __restrict__ bias, float* __restrict__ c,
     float* __restrict__ colsum, int M, int N, int K, int rows, size_t stride,
-    int n0) {
+    int n0, const float* __restrict__ a2 = nullptr,
+    const float* __restrict__ b2 = nullptr, int form = kActNone) {
   constexpr int kBK = kSlabDepth<BM, BN>;
-  using OpA = Operand<BM, kAKMajor, kBK>;
-  using OpB = Operand<BN, kBKMajor, kBK>;
+  using OpA = Operand<BM, kAKMajor, kBK, kS, kFormA>;
+  using OpB = Operand<BN, kBKMajor, kBK, kS, kFormB>;
   constexpr int RM = BM / 64, RN = BN / 64;  // 4 x 4 sub-tiles a lane
   constexpr int WM = BM / 2, WN = BN / 4;    // the warp tile
   // a weight gradient sums B's columns: kGroups groups of kGroupRows rows
@@ -282,16 +311,16 @@ __device__ __forceinline__ void product_tile(
   float csum = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < kS - 1; ++s) {
     if (s < slabs) {
-      OpA::issue(sa, a, lda, m0, M, k_end, first + s, s);
-      OpB::issue(sb, b, ldb, n0, N, k_end, first + s, s);
+      OpA::issue(sa, a, a2, lda, m0, M, k_end, first + s, s);
+      OpB::issue(sb, b, b2, ldb, n0, N, k_end, first + s, s);
     }
     cp_async_commit();
   }
-  cp_async_wait<kStages - 2>();
-  OpA::transpose(sa, 0, 0);
-  OpB::transpose(sb, 0, 0);
+  cp_async_wait<kS - 2>();
+  OpA::transpose(sa, 0, 0, form);
+  OpB::transpose(sb, 0, 0, form);
   __syncthreads();
 
   float acc[RM][RN][4][4];
@@ -307,10 +336,10 @@ __device__ __forceinline__ void product_tile(
   for (int t = 0; t < slabs; ++t) {
     // slab t + 2 into the stage slab t - 1 left: every thread passed the
     // barrier after computing it, and read back its own copies of it
-    const int next = t + kStages - 1;
+    const int next = t + kS - 1;
     if (next < slabs) {
-      OpA::issue(sa, a, lda, m0, M, k_end, first + next, next % kStages);
-      OpB::issue(sb, b, ldb, n0, N, k_end, first + next, next % kStages);
+      OpA::issue(sa, a, a2, lda, m0, M, k_end, first + next, next % kS);
+      OpB::issue(sb, b, b2, ldb, n0, N, k_end, first + next, next % kS);
     }
     cp_async_commit();
 
@@ -357,9 +386,9 @@ __device__ __forceinline__ void product_tile(
     if (t + 1 < slabs) {
       // slab t + 1 has landed (this thread's copies); a K-major operand's
       // goes k-major into the compute buffer slab t - 1 used
-      cp_async_wait<kStages - 2>();
-      OpA::transpose(sa, (t + 1) % kStages, (t + 1) & 1);
-      OpB::transpose(sb, (t + 1) % kStages, (t + 1) & 1);
+      cp_async_wait<kS - 2>();
+      OpA::transpose(sa, (t + 1) % kS, (t + 1) & 1, form);
+      OpB::transpose(sb, (t + 1) % kS, (t + 1) & 1, form);
     }
     __syncthreads();
   }
@@ -455,11 +484,12 @@ cudaError_t opt_in(Kernel kernel, int smem, uint64_t& opted_in) {
   return err;
 }
 
-// the dynamic shared memory of a tile's ring (and compute buffers)
-template <int BM, int BN, bool kAKMajor, bool kBKMajor>
+// the dynamic shared memory of a tile's rings (and compute buffers)
+template <int BM, int BN, bool kAKMajor, bool kBKMajor, bool kFormA = false,
+          bool kFormB = false, int kS = kStages>
 constexpr int kSmemBytes =
-    (Operand<BM, kAKMajor, kSlabDepth<BM, BN>>::kFloats +
-     Operand<BN, kBKMajor, kSlabDepth<BM, BN>>::kFloats) * 4;
+    (Operand<BM, kAKMajor, kSlabDepth<BM, BN>, kS, kFormA>::kFloats +
+     Operand<BN, kBKMajor, kSlabDepth<BM, BN>, kS, kFormB>::kFloats) * 4;
 
 // sgemm_kernel on tile BM x BN over `slices` slices of `rows` rows of the
 // contraction each (one slice of K rows: the plain product).
@@ -644,6 +674,43 @@ cudaError_t launch_fwd(const float* a, const Outs& outs, float* workspace,
     out.bias[o] = outs.bias[o];
   }
   return add_slices_act<kAct>(workspace, out, mn, N, split, kOuts, stream);
+}
+
+// The fused linear backward's two products (linear_bwd.cu), with the
+// cotangent da = act'(y) · dy formed as its slabs are read back (Operand,
+// kForm) and never written to device memory.  kDx: dx (M, N) = da · wᵀ, da
+// (M, K) the K-major A (formed as it is transposed), w (N, K) the K-major
+// B.  Otherwise dW (M, N) = xᵀ · da, x (K, M) the M-major A, da (K, N) the
+// N-major B (formed in place in y's ring), and db = colsum(da) summed from
+// the formed slabs by the blocks of the first tile row.  The rings: three
+// slabs for dx (its A and B are both K-major, and two blocks an SM fit
+// only so: 104 KB at 128 x 128), four for dW (96 KB).
+template <int BM, int BN, bool kDx>
+__global__ void __launch_bounds__(kThreads, 2)
+sgemm_fused_kernel(const float* __restrict__ a, const float* __restrict__ a2,
+                   const float* __restrict__ b, const float* __restrict__ b2,
+                   float* __restrict__ c, float* __restrict__ colsum, int M,
+                   int N, int K, int rows, size_t stride, int act) {
+  product_tile<BM, BN, kDx, kDx, kActNone, kDx, !kDx, kDx ? 3 : kStages>(
+      a, b, nullptr, c, colsum, M, N, K, rows, stride, blockIdx.x * BN, a2,
+      b2, act);
+}
+
+template <int BM, int BN, bool kDx>
+cudaError_t launch_fused_tile(const float* a, const float* a2, const float* b,
+                              const float* b2, float* c, float* colsum, int M,
+                              int N, int K, int rows, int slices,
+                              size_t stride, int act, cudaStream_t stream) {
+  auto kernel = sgemm_fused_kernel<BM, BN, kDx>;
+  constexpr int smem =
+      kSmemBytes<BM, BN, kDx, kDx, kDx, !kDx, kDx ? 3 : kStages>;
+  static uint64_t opted_in = 0;
+  const cudaError_t err = opt_in(kernel, smem, opted_in);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(N, BN), cdiv(M, BM), slices);
+  kernel<<<grid, kThreads, smem, stream>>>(a, a2, b, b2, c, colsum, M, N, K,
+                                           rows, stride, act);
+  return cudaGetLastError();
 }
 
 // The same with the activation chosen at run time (an rvk::Act code).

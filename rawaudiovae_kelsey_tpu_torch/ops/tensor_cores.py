@@ -2,7 +2,7 @@
 cores, the bf16 tensor-core form (``csrc/wgmma.cuh``) or the fp32
 register-tiled form (``csrc/sgemm.cuh``); and the tile of the latter two.
 
-Nine ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
+Twelve ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
 linear.linear_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
 linear_ksplit_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.matmul_nt`,
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.toeplitz.toeplitz_fwd` (whose
@@ -17,9 +17,15 @@ products joined along k, must fit, and ``seg`` be a multiple of 8) and
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.grad_accum2` (their rows of 16
 bytes; ``grad_accum2`` 's two weight gradients in one launch); the last
 four contract the batch in a weight gradient, split into slices by
-:func:`wgrad_plan`; six of them, ``linear_fwd``, ``linear_ksplit_fwd``,
-``matmul_nt``, ``grad_accum``, ``encoder_fwd`` and ``decoder_fwd``
-(:data:`SGEMM_OPS`), also an fp32 form, ``grad_accum`` 's split into slices
+:func:`wgrad_plan`; and the fused linear backward's
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.linear_bwd.dx_fused` (tile width
+:func:`cotangent_tile_n`) and
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.linear_bwd.dw_fused` (a weight
+gradient walked as its transpose, :func:`cotangent_wgrad_plan`), whose A is
+the cotangent formed in registers.  Eight of them, ``linear_fwd``,
+``linear_ksplit_fwd``, ``matmul_nt``, ``grad_accum``, ``encoder_fwd``,
+``decoder_fwd``, ``dx_fused`` and ``dw_fused`` (:data:`SGEMM_OPS`), also
+have an fp32 form, ``grad_accum`` 's and ``dw_fused`` 's split into slices
 by :func:`sgemm_wgrad_plan`, each product of ``encoder_fwd`` and
 ``decoder_fwd`` planned by :func:`sgemm_fwd_plan`.  The choice is a
 function of dtype, shape and pointer alignment alone
@@ -68,7 +74,8 @@ KERNEL_CODES = {"cuda_cores": 0, "tensor_cores": 1, "sgemm": 2}
 TENSOR_CORES, SGEMM = KERNEL_CODES["tensor_cores"], KERNEL_CODES["sgemm"]
 # the ops whose C entry points have the fp32 form (code 2)
 SGEMM_OPS = frozenset({"linear_fwd", "linear_ksplit_fwd", "matmul_nt",
-                       "grad_accum", "encoder_fwd", "decoder_fwd"})
+                       "grad_accum", "encoder_fwd", "decoder_fwd",
+                       "dw_fused", "dx_fused"})
 
 # TMA's unit: base pointers and row pitches are multiples of 16 bytes
 TMA_ALIGN_BYTES = 16
@@ -280,6 +287,57 @@ def sgemm_fwd_plan(rows: int, k: int, n: int, sms: int,
                     best = (cost, index, split)
             split *= 2
     return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=1024)
+def cotangent_tile_n(tiles_m: int, n: int, sms: int) -> int:
+    """The tile width of the tensor-core ``dx_fused`` (``dx = da · wᵀ``,
+    ``da`` formed in registers) for ``tiles_m`` tile rows and output width
+    ``n``: :func:`tile_n`."""
+    return tile_n(tiles_m, n, sms)
+
+
+@functools.lru_cache(maxsize=1024)
+def cotangent_wgrad_plan(m: int, n: int, k: int, sms: int) -> tuple:
+    """``(tile width, slices)`` of the tensor-core ``dw_fused``, whose walk
+    is the transpose ``dWᵀ (m, n) = daᵀ · x`` (``m`` the layer's output
+    width, ``n`` its input width) over a batch of ``k`` rows: the slices
+    and the cost of :func:`wgrad_plan`, a tie going to the wider tile, then
+    to fewer slices.  The formed A turns wgrad_plan's reasons around: each
+    tile forms its rows of ``da`` again (``n / width`` times a row of
+    tiles), and the ring at 128 x 256 has three stages to 128 x 128's four,
+    not to five."""
+    steps = -(-k // 64)
+    best = None
+    for width in TILE_WIDTHS:
+        tiles = -(-m // TILE_M) * -(-n // width)
+        waves, per, split = _slice_plan(tiles, steps, sms, WGRAD_MIN_STEPS)
+        cost = (waves * width * per, -width, split)
+        if best is None or cost < best[0]:
+            best = (cost, width, split)
+    return best[1], best[2]
+
+
+def cotangent_tile(code: int, device: torch.device, batch: int, k: int,
+                   n: int) -> int:
+    """The ``tile`` argument of ``rvk_dx_fused`` (``dx (batch, k) = da ·
+    wᵀ``, contraction ``n``): :func:`cotangent_tile_n` for the tensor-core
+    form (``code`` 1), the index of :func:`sgemm_tile` for the fp32 one
+    (``code`` 2), 0 for the first version."""
+    if code == TENSOR_CORES:
+        return cotangent_tile_n(-(-batch // TILE_M), k, sm_count(device))
+    return tile(code, device, batch, k)
+
+
+def cotangent_wgrad(code: int, device: torch.device, k: int, n: int,
+                    batch: int) -> tuple:
+    """The ``(tile, split)`` arguments of ``rvk_dw_fused`` (``dW (k, n) =
+    xᵀ · da`` over ``batch`` rows): :func:`cotangent_wgrad_plan` of the
+    transpose for the tensor-core form (``code`` 1), :func:`sgemm_wgrad_plan`
+    for the fp32 one (``code`` 2), ``(0, 0)`` for the first version."""
+    if code == TENSOR_CORES:
+        return cotangent_wgrad_plan(n, k, batch, sm_count(device))
+    return wgrad(code, device, k, n, batch)
 
 
 def fwd(code: int, device: torch.device, rows: int, k: int, n: int,

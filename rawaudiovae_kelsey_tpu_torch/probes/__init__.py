@@ -6,7 +6,11 @@ of the JAX repository's probe scripts under ``benchmarks/``.
 * ``deep_step``   (``benchmarks/deep_step_probe.py``): one train step split
   into full / grads / Adam beside its analytic bounds;
 * ``adam_fusion`` (``benchmarks/adam_fusion_ab.py``): the full train step
-  with the plain Adam against the one-pass ``leaf_update``.
+  with the plain Adam against the one-pass ``leaf_update``;
+* ``gate_ties`` (the port's own, no JAX counterpart): the deep model's fp32
+  step through the kernels against the plain backend, and the ReLU gates
+  the two decide differently by rounding (``tests/test_torch_cuda.py``'s
+  deep checks replace the rows that hold one).
 
 Run as ``python -m rawaudiovae_kelsey_tpu_torch.probes.<name>``.  Each runs
 on a CUDA device and refuses to start without one unless ``--device cpu`` is

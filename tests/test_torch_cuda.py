@@ -767,10 +767,28 @@ def test_variant_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         toeplitz.toeplitz_fwd(xt, wt.bfloat16(), bt)
 
 
+def _untied(cfg, x, device):
+    """``x`` with every row that holds a tied ReLU gate replaced by a fresh
+    row, the batch and so the dispatch unchanged (``probes/gate_ties.py``
+    ``untie``).  The two backends sum each pre-activation in another order;
+    where one lies within those last bits of zero, one backend passes it and
+    the other does not, and that row's gradient moves by a whole term: 1e-4
+    to 4e-4 of the moment's norm at these widths, with both backends right
+    (PERF.md section 7).  ``untie`` raises where a flipped gate is no tie (its
+    passed side above 1e-5 of the layer's largest output) or where a layer's
+    outputs differ by more than that: a kernel fault still fails here."""
+    from rawaudiovae_kelsey_tpu_torch.probes import gate_ties
+
+    untied, _ = gate_ties.untie(cfg, x,
+                                torch.Generator(device=device).manual_seed(7))
+    return untied
+
+
 def test_deep_model_kernels_match_plain_backend_on_the_card(cuda):
     """A deep model wide enough for the k-split gate: one fp32 step through
     the kernels against the plain backend, same noise (gradient norms, as
-    Adam's first step turns rounding of a near-zero gradient into ±lr)."""
+    Adam's first step turns rounding of a near-zero gradient into ±lr), on
+    an input whose ReLU gates both backends decide alike (_untied)."""
     from rawaudiovae_kelsey_tpu_torch.config import Config
     from rawaudiovae_kelsey_tpu_torch.models import build_model
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
@@ -781,7 +799,7 @@ def test_deep_model_kernels_match_plain_backend_on_the_card(cuda):
     cfg.vae.arch, cfg.vae.hidden_dims = "deep", "1024,512"
     cfg.audio.segment_length, cfg.vae.latent_dim = 1024, 32
     cfg.tpu.precision = "highest"
-    x = torch.rand((1024, 1024), device=cuda) * 2 - 1
+    x = _untied(cfg, torch.rand((1024, 1024), device=cuda) * 2 - 1, cuda)
 
     def noise(step, i, shape):
         return torch.randn(shape, generator=torch.Generator().manual_seed(1))
@@ -843,6 +861,131 @@ def test_fused_linear_backward_matches_plain_versions(cuda, shape, act,
                                                             act)):
         err = float((got.float() - want.float()).abs().max())
         assert err <= 2.0 ** -6 * float(want.float().abs().max()) + 1e-30
+
+
+# the new forms: bf16 on the tensor cores (csrc/wgmma.cuh, da formed in
+# registers), fp32 on csrc/sgemm.cuh (da formed as the slabs are read
+# back).  The deep model's four large layers at batch 512, and ragged ones
+FUSED_FORMS = {torch.bfloat16: ("tensor_cores", "tensor_core_launches",
+                                2.0 ** -6),
+               torch.float32: ("sgemm", "sgemm_launches", 1e-4)}
+FUSED_SHAPES = [(512, 4096, 4096), (512, 4096, 2048), (512, 2048, 1024),
+                (512, 1024, 512), (4097, 1088, 544), (1000, 136, 72),
+                (130, 72, 8)]
+
+
+def _fused_operands(device, batch, k, n, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((batch, k), generator=g, device=device).to(dtype),
+            torch.randn((batch, n), generator=g, device=device).to(dtype),
+            (torch.randn((batch, n), generator=g, device=device)
+             * 0.01).to(dtype),
+            (torch.randn((k, n), generator=g, device=device)
+             * 0.01).to(dtype))
+
+
+def _fused_close(got, want, tol):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max()) + 1e-30
+
+
+@pytest.mark.parametrize("dtype", list(FUSED_FORMS), ids=["bf16", "fp32"])
+@pytest.mark.parametrize("act", ["relu", "tanh", "none"])
+@pytest.mark.parametrize("shape", FUSED_SHAPES, ids=str)
+def test_fused_new_forms_match_plain_and_first_versions(cuda, shape, act,
+                                                        dtype):
+    """Every launch takes the dtype's new form, counted in its counter;
+    two launches give equal bits; dx, dW and db hold the plain versions'
+    and the first versions' tolerance."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear_bwd
+
+    form, counter, tol = FUSED_FORMS[dtype]
+    x, y, dy, w = _fused_operands(cuda, *shape, dtype, sum(shape))
+    ops_ = (ops.dw_fused, ops.dx_fused)
+    before = [(op.launches, getattr(op, counter)) for op in ops_]
+    got = linear_bwd.fused_bwd(x, y, dy, w, act)
+    again = linear_bwd.fused_bwd(x, y, dy, w, act)
+    torch.cuda.synchronize()
+    assert [(op.launches - b[0], getattr(op, counter) - b[1])
+            for op, b in zip(ops_, before)] == [(2, 2), (2, 2)]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want_dw, want_db = linear_bwd.dw_fused_ref(x, y, dy, act)
+    want = (linear_bwd.dx_fused_ref(y, dy, w, act), want_dw, want_db)
+    first = linear_bwd.fused_bwd(x, y, dy, w, act, kernel="cuda_cores")
+    for a, p, f in zip(got, want, first):
+        _fused_close(a, p, tol)
+        _fused_close(a, f, tol)
+
+
+@pytest.mark.parametrize("dtype", list(FUSED_FORMS), ids=["bf16", "fp32"])
+def test_fused_forms_named_and_refused(cuda, dtype):
+    """``kernel`` forces a form: ``cuda_cores`` the first version on any
+    shape; the dtype's new form where it takes the operands, and a raise
+    where it does not (a width no multiple of 8 or 4, a view off a 16-byte
+    boundary, the other dtype's form)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear_bwd
+
+    form, counter, tol = FUSED_FORMS[dtype]
+    other = "sgemm" if form == "tensor_cores" else "tensor_cores"
+    x, y, dy, w = _fused_operands(cuda, 300, 136, 72, dtype, 3)
+    before = (ops.dx_fused.launches, getattr(ops.dx_fused, counter))
+    first = linear_bwd.dx_fused(y, dy, w, "tanh", kernel="cuda_cores")
+    named = linear_bwd.dx_fused(y, dy, w, "tanh", kernel=form)
+    torch.cuda.synchronize()
+    assert (ops.dx_fused.launches - before[0],
+            getattr(ops.dx_fused, counter) - before[1]) == (2, 1)
+    _fused_close(named, first, tol)
+    with pytest.raises(ValueError, match=other):
+        linear_bwd.dw_fused(x, y, dy, "relu", kernel=other)
+    with pytest.raises(ValueError, match=other):
+        linear_bwd.dx_fused(y, dy, w, "relu", kernel=other)
+    # k = 70: no multiple of 8 (bf16) nor of 4 (fp32)
+    x, y, dy, w = _fused_operands(cuda, 300, 70, 72, dtype, 4)
+    with pytest.raises(ValueError, match=form):
+        linear_bwd.dw_fused(x, y, dy, "relu", kernel=form)
+    with pytest.raises(ValueError, match=form):
+        linear_bwd.dx_fused(y, dy, w, "relu", kernel=form)
+    before = (ops.dw_fused.launches, getattr(ops.dw_fused, counter))
+    dw, db = linear_bwd.dw_fused(x, y, dy, "relu")
+    torch.cuda.synchronize()
+    assert (ops.dw_fused.launches - before[0],
+            getattr(ops.dw_fused, counter) - before[1]) == (1, 0)
+    _fused_close(dw, linear_bwd.dw_fused_ref(x, y, dy, "relu")[0], tol)
+    # a contiguous view 4 bytes off a 16-byte boundary
+    x, y, dy, w = _fused_operands(cuda, 300, 136, 72, dtype, 5)
+    buf = torch.empty(y.numel() + 8, device=cuda, dtype=dtype)
+    off = buf[4 // y.element_size():][:y.numel()].view(y.shape)
+    off.copy_(y)
+    with pytest.raises(ValueError, match="aligned = False"):
+        linear_bwd.dx_fused(off, dy, w, "relu", kernel=form)
+    before = (ops.dx_fused.launches, getattr(ops.dx_fused, counter))
+    got = linear_bwd.dx_fused(off, dy, w, "relu")
+    torch.cuda.synchronize()
+    assert (ops.dx_fused.launches - before[0],
+            getattr(ops.dx_fused, counter) - before[1]) == (1, 0)
+    _fused_close(got, linear_bwd.dx_fused_ref(y, dy, w, "relu"), tol)
+
+
+@pytest.mark.parametrize("plan", [(256, 1), (256, 3), (128, 2), (64, 1),
+                                  (64, 4)], ids=str)
+def test_fused_tensor_core_plans_agree(cuda, monkeypatch, plan):
+    """Each tile width of dx and each (tile width, slices) plan of dW, forced,
+    holds the plain versions' tolerance at a ragged batch: the plan moves
+    the bits, not the result."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear_bwd, tensor_cores
+
+    x, y, dy, w = _fused_operands(cuda, 1000, 264, 392, torch.bfloat16, 6)
+    monkeypatch.setattr(tensor_cores, "cotangent_wgrad_plan",
+                        lambda *a: plan)
+    monkeypatch.setattr(tensor_cores, "cotangent_tile_n", lambda *a: plan[0])
+    dx, dw, db = linear_bwd.fused_bwd(x, y, dy, w, "tanh")
+    want_dw, want_db = linear_bwd.dw_fused_ref(x, y, dy, "tanh")
+    _fused_close(dx, linear_bwd.dx_fused_ref(y, dy, w, "tanh"), 2.0 ** -6)
+    _fused_close(dw, want_dw, 2.0 ** -6)
+    _fused_close(db, want_db, 2.0 ** -6)
 
 
 def test_fused_linear_backward_raises_on_what_it_does_not_take(cuda):
@@ -1577,7 +1720,8 @@ def test_sgemm_ksplit_dispatch_on_the_card(cuda):
 
 def test_deep_highest_step_runs_the_ksplit_layers_on_sgemm(cuda):
     """The deep model's ``highest`` step at widths past the k-split gate:
-    every k-split launch on the fp32 kernel, against the plain backend."""
+    every k-split launch on the fp32 kernel, against the plain backend, on
+    an input whose ReLU gates both backends decide alike (_untied)."""
     from rawaudiovae_kelsey_tpu_torch.config import Config
     from rawaudiovae_kelsey_tpu_torch.models import build_model
     from rawaudiovae_kelsey_tpu_torch.ops import linear
@@ -1589,7 +1733,7 @@ def test_deep_highest_step_runs_the_ksplit_layers_on_sgemm(cuda):
     cfg.vae.arch, cfg.vae.hidden_dims = "deep", "2048,1024,512"
     cfg.audio.segment_length, cfg.vae.latent_dim = 2048, 64
     cfg.tpu.precision = "highest"
-    x = torch.rand((1024, 2048), device=cuda) * 2 - 1
+    x = _untied(cfg, torch.rand((1024, 2048), device=cuda) * 2 - 1, cuda)
 
     def noise(step, i, shape):
         return torch.randn(shape, generator=torch.Generator().manual_seed(1))
