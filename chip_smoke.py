@@ -69,7 +69,18 @@ any failure exits non-zero with a traceback (no phase is caught):
    weight-gradient shapes at 8192, the ragged 1000, batch 1 and an m no
    multiple of 4 (first version), dW4, dW21 and dW3 timed in turns beside
    the first version, the plain version and ``a.t() @ b`` → ``b.sum(0)``,
-   the plan swept at dW4 and dW21; the
+   the plan swept at dW4 and dW21; ``matmul_nt_mask`` and
+   ``matmul_nt2_mask`` (rows 5 and 6) on their new forms — bf16 on the
+   tensor cores (``dec_bwd_fused`` 's gated dh3 launch; ``enc_bwd_dw1`` 's
+   dh launch, the two pairs joined along k), fp32 on ``csrc/sgemm.cuh`` 's
+   gated product (the gate read where the output goes; the pairs joined as
+   the slabs are copied) — at batch 8192, 1000 and 1, at the ragged width
+   1000x264->520 and at a width neither takes (a pair's n of 36 in bf16, 38
+   in fp32: the first version, and naming the new form raises), against
+   the plain version and the first version, equal bits twice, timed at 8192
+   in turns with the first version, the plain version and the library
+   sequence (``(a @ w.t()) * (gate > 0)``; ``where(gate > 0, addmm(a1 @
+   w1.t(), a2, w2.t()), 0)``) and by device time; the
    in-kernel sampler at (4096, 256), (1000, 256) and (1, 256): its Philox
    words bit for bit, ``z``, determinism, both seed words, moments over a
    million samples, its backward; ``dx`` through ``mlp.encode``;
@@ -94,8 +105,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    ``decoder_fwd`` and ``dec_bwd_fused`` launches, one each a microbatch,
    all on the tensor cores (none at ``high`` or ``highest``), the same for
    ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2``; the ``highest``
-   step's five ``grad_accum`` launches a microbatch, all on
-   ``csrc/sgemm.cuh``, and the ``encoder_fwd`` and ``decoder_fwd`` launches
+   step's five ``grad_accum`` launches a microbatch and its
+   ``matmul_nt_mask`` and ``matmul_nt2_mask`` launches, one each a
+   microbatch, all on ``csrc/sgemm.cuh``, and the ``encoder_fwd`` and
+   ``decoder_fwd`` launches
    of the ``high`` and ``highest`` steps, one each a microbatch, all on
    ``csrc/sgemm.cuh``; the device time by kernel of one bf16 kernel step
    and of one ``highest`` kernel step;
@@ -108,15 +121,23 @@ any failure exits non-zero with a traceback (no phase is caught):
    a ``--resume`` for one more epoch; the sampler launched once per step
    and the host loader never built; one resident epoch against a host-fed
    loop fed the same bf16 batches (equal losses, bit for bit); one
-   resident epoch at ``highest`` through the primitive kernels (``matmul_nt``
-   on the fp32 kernel once a step) against the plain backend; ``dx`` through the model's encoder in fp32 and bf16; the
+   resident epoch at ``highest`` through the primitive kernels (``matmul_nt``,
+   ``matmul_nt_mask`` and ``matmul_nt2_mask`` on the fp32 kernel once a
+   step each) against the plain backend; ``dx`` through the model's encoder
+   in fp32 and bf16 (its dh on ``csrc/sgemm.cuh`` and on the tensor cores);
+   the
    corpus layout under a small budget and the ``always`` error under none;
    resident and host-fed epoch frames/s of both backends and the device's
    busy share over a resident epoch;
 3d. (run with the other kernel phases) ``enc_bwd_full`` and ``dec_bwd_full``
    with fp32 operands in the 3-pass mode and with bf16 operands in one
    pass, at batch 4096 (the stream's), 8192 and a ragged 4097, against
-   their plain versions, timed at 4096 and at 8192; the 3-pass chains bit
+   their plain versions, timed at 4096 and at 8192, the fp32 chains at 4096
+   by device time beside their library sequence (each operand split as the
+   kernels split it, three ``torch.mm`` of bf16 operands with an fp32
+   output a product, where the card's PyTorch has that product; held
+   against the plain version first) and beside the IEEE fp32 sequence,
+   another function; the 3-pass chains bit
    for bit against their plain versions on operands built so that every
    sum has one non-zero term and many values sit on a rounding tie of the
    hi/lo split (a one-pass product or a split that rounds to nearest even
@@ -237,11 +258,12 @@ against their plain versions, and they stay out of the kernel line);
 ``enc_bwd_full`` / ``dec_bwd_full``: the
 ``high`` stream run of phase 7; ``loss_sums``: the ``fused_loss`` call on a
 ``high`` step's tensors in phase 7 (no step dispatches it); fp32
-``matmul_nt*``: the ``highest`` resident epoch of phase 6 (``matmul_nt``:
-those on the fp32 kernel); bf16
-``matmul_nt`` / ``matmul_nt2_mask``: the bf16 ``dx`` of phase 6 (no path
-of the package runs ``matmul_nt_mask`` in bf16; phase 3c still holds it
-against its plain version); the sampler: the resident training run;
+``matmul_nt*``: the ``highest`` resident epoch of phase 6 (those on the
+fp32 kernel); bf16
+``matmul_nt`` / ``matmul_nt2_mask``: the bf16 ``dx`` of phase 6
+(``matmul_nt2_mask``: those on the tensor cores; no path of the package
+runs ``matmul_nt_mask`` in bf16; phase 3c still holds it against its
+plain version and its first version); the sampler: the resident training run;
 bf16 ``linear_ksplit_fwd`` / ``linear_fwd``: the deep training runs of
 phase 8; fp32 ``linear_ksplit_fwd``: the deep ``highest`` step (those on
 the fp32 kernel); fp32
@@ -256,10 +278,11 @@ operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
 NVIDIA's H100 SXM data sheet), at the shapes that were timed: those the
 path named above gives the kernel.
 
-The rows of bf16 ``matmul_nt``, ``linear_ksplit_fwd``, ``linear_fwd``,
-``toeplitz_fwd``, ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``,
-``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2`` describe the
-tensor-core kernel, those of fp32 ``matmul_nt``, ``linear_ksplit_fwd``,
+The rows of bf16 ``matmul_nt``, ``matmul_nt2_mask``, ``linear_ksplit_fwd``,
+``linear_fwd``, ``toeplitz_fwd``, ``encoder_fwd``, ``decoder_fwd``,
+``dec_bwd_fused``, ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2``
+describe the tensor-core kernel, those of fp32 ``matmul_nt``,
+``matmul_nt_mask``, ``matmul_nt2_mask``, ``linear_ksplit_fwd``,
 ``linear_fwd``, ``grad_accum``, ``encoder_fwd`` and ``decoder_fwd`` the
 fp32 kernel of ``csrc/sgemm.cuh`` (``ms``, and ``launches``: those that
 took it; fp32 ``linear_fwd`` at the server's 256x4096->4096, fp32
@@ -270,10 +293,13 @@ microbatch's numbers under ``at_8192``), and carry the first version's
 time on the same inputs as ``first_version_ms``.  The ``library_ms`` of
 bf16 ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``, ``grad_accum``,
 ``enc_bwd_dw1`` and ``grad_accum2`` and of fp32 ``encoder_fwd``,
-``decoder_fwd``, ``grad_accum``, ``matmul_nt_mask`` and ``matmul_nt2_mask``,
-of bf16 ``matmul_nt2_mask``, of ``dw_fused`` and ``dx_fused`` in both
+``decoder_fwd``, ``grad_accum``, ``matmul_nt_mask`` and ``matmul_nt2_mask``
+(rows 5 and 6 at the microbatch, with ``first_version_ms``), of bf16
+``matmul_nt2_mask``, of ``dw_fused`` and ``dx_fused`` in both
 dtypes (whose rows describe the tensor-core form in bf16 and the
-``csrc/sgemm.cuh`` form in fp32), of ``quantized_decoder_fwd``, of the
+``csrc/sgemm.cuh`` form in fp32), of fp32 ``enc_bwd_full`` and
+``dec_bwd_full`` (the 3-pass sequence, with the IEEE fp32 sequence's time
+as ``fp32_sequence_ms``), of ``quantized_decoder_fwd``, of the
 sampler and of ``loss_sums`` is the device time of a sequence of library
 calls on the same inputs (its ``library`` key says which): no one PyTorch
 call computes any of them.
@@ -661,8 +687,8 @@ def phase_train_kernels(gen_params):
 # phase 3b, the bf16 dense kernels on the tensor cores: no one PyTorch call
 # computes any of them, so a row's library_ms is the device time of a
 # sequence of calls on the same operands, summed (its `library` key says
-# which); the backward rows still on their first versions get theirs too
-# (backward_libraries), in fp32 as the primitive backward's
+# which); so do phase 3c's gated input gradients (rows 5 and 6) in both
+# dtypes
 ENCODER_LIBRARY = ("the sequence addmm -> relu -> addmm -> addmm, device "
                    "time summed (no one PyTorch call computes encoder_fwd)")
 DECODER_LIBRARY = ("the sequence addmm -> relu -> addmm -> tanh, device "
@@ -1469,52 +1495,6 @@ def forward_sgemm(rows, gen_params):
                 sweep_fwd(row, name, fast, fns["plain"], batch, label, k, n,
                           o)
 
-def backward_libraries(rows, gen_params):
-    """Phases 3b-3c: the device time of the library sequences of the
-    backward rows still on their first versions at the microbatch (fp32
-    matmul_nt_mask and matmul_nt2_mask, the primitive backward's; bf16
-    matmul_nt2_mask, the bf16 dx's), beside each first version's device
-    time, into their rows' library_ms."""
-    from rawaudiovae_kelsey_tpu_torch.ops import mlp
-
-    p = gen_params(4321)
-    # a generator of its own: the draws of the other phases stay as they were
-    g = torch.Generator(device="cuda").manual_seed(61)
-
-    def rnd(n, dt, relu=False, scale=1.0):
-        t = torch.randn((TRAIN_BATCH, n), generator=g, device="cuda") * scale
-        return (t.clamp_min(0) if relu else t).to(dt)
-
-    f32 = torch.float32
-    h3, da = rnd(UNITS, f32, True), rnd(SEG, f32, scale=1e-3)
-    hf, dmuf, dlvf = rnd(UNITS, f32, True), rnd(LATENT, f32), rnd(LATENT, f32)
-    w4, w21, w22 = p["fc4"]["w"], p["fc21"]["w"], p["fc22"]["w"]
-    bf = torch.bfloat16
-    hb, dmub, dlvb = hf.to(bf), dmuf.to(bf), dlvf.to(bf)
-    w21b, w22b = w21.to(bf), w22.to(bf)
-    cases = {
-        "matmul_nt_mask[fp32]": (lambda: (da @ w4.t()) * (h3 > 0),
-                                 lambda: mlp.matmul_nt_mask(da, w4, h3)),
-        "matmul_nt2_mask[fp32]": (
-            lambda: torch.where(hf > 0, torch.addmm(dmuf @ w21.t(), dlvf,
-                                                    w22.t()), 0),
-            lambda: mlp.matmul_nt2_mask(dmuf, w21, dlvf, w22, hf)),
-        # the bf16 dx's: the same sequence on bf16 operands
-        "matmul_nt2_mask[bf16]": (
-            lambda: torch.where(hb > 0, torch.addmm(dmub @ w21b.t(), dlvb,
-                                                    w22b.t()), 0),
-            lambda: mlp.matmul_nt2_mask(dmub, w21b, dlvb, w22b, hb)),
-    }
-    for key, (library, kernel) in cases.items():
-        row = rows[key]
-        lib, dev = device_ms(library), device_ms(kernel)
-        print(f"  {key:<24} batch {TRAIN_BATCH}: library sequence "
-              f"{lib:.4f} ms of device time, the first version {dev:.4f} "
-              f"({dev / lib:.1f}x), bound {row['bound_ms']:.4f} ms")
-        row.update(library_ms=lib, library=BWD_LIBRARY[key.split("[")[0]],
-                   device_ms=dev)
-
-
 # phase 3f: the library sequences of the rows with no one PyTorch call of
 # their function: the int8 decoder, the sampler and the loss sums
 ROW_LIBRARY = {
@@ -1732,6 +1712,63 @@ def phase_new_kernels(gen_params):
           f"{2 * TRAIN_BATCH * UNITS * SEG / t['device_ms'] / 1e9:.1f} "
           f"TFLOP/s by device time")
 
+    # rows 5 and 6, the gated input gradients, on their new forms: bf16 on
+    # the tensor cores (dec_bwd_fused's dh3 launch; enc_bwd_dw1's dh launch,
+    # joined along k), fp32 on csrc/sgemm.cuh's gated product (the pairs
+    # joined as the slabs are copied); each beside the library sequence of
+    # its function (a generator of its own, as above)
+    g_gt = torch.Generator(device=dev).manual_seed(58)
+    for op, n, pairs in (("matmul_nt_mask", SEG, 1),
+                         ("matmul_nt2_mask", LATENT, 2)):
+        fn, plain = getattr(mlp, op), getattr(mlp, f"{op}_ref")
+        for kind, dt in dtypes.items():
+            kernel = "sgemm" if dt == torch.float32 else "tensor_cores"
+
+            def gated_operands(rows, k, m, what, pairs=pairs, fn=fn,
+                               plain=plain, dt=dt):
+                ts = []
+                for _ in range(pairs):
+                    ts += [torch.randn((rows, k), generator=g_gt,
+                                       device=dev),
+                           torch.randn((m, k), generator=g_gt, device=dev)
+                           / k ** 0.5]
+                ts = [t.to(dt) for t in ts] + [torch.randn(
+                    (rows, m), generator=g_gt, device=dev).clamp_min(0)
+                    .to(dt)]
+                if pairs == 1:
+                    a, w, gate = ts
+                    library = lambda: (a @ w.t()) * (gate > 0)  # noqa: E731
+                else:
+                    a1, w1, a2, w2, gate = ts
+                    library = lambda: torch.where(  # noqa: E731
+                        gate > 0, torch.addmm(a1 @ w1.t(), a2, w2.t()), 0)
+                return (lambda kernel: fn(*ts, kernel=kernel),
+                        lambda: plain(*ts), library, tuple(ts))
+
+            full = (TRAIN_BATCH, n, UNITS)
+            odd = 36 if dt == torch.bfloat16 else 38
+            err, times = hold_kernel(
+                op, fn, gated_operands,
+                [(*full, ""), (TRAIN_RAGGED, n, UNITS, ""), (1, n, UNITS, ""),
+                 (TRAIN_RAGGED, 264, 520, ""), (TRAIN_RAGGED, odd, 520, "")],
+                [(*full, "")], kernel, pairs=pairs, named_raises=True)
+            t = times[full]
+            row = rows[f"{op}[{kind}]"]
+            fast_row(row, err, t, kernel)
+            row.update(library_ms=t["library_device_ms"],
+                       library_event_ms=t["library"],
+                       library=BWD_LIBRARY[op], device_ms=t["device_ms"],
+                       first_version_device_ms=t["first_version_device_ms"])
+            print(f"  {op + '[' + kind + ']':<24} batch {TRAIN_BATCH}, by "
+                  f"device time: {kernel} {t['device_ms']:.4f} ms, "
+                  f"{t['first_version_device_ms'] / t['device_ms']:.2f}x "
+                  f"faster than the first version "
+                  f"({t['first_version_device_ms']:.4f} ms), "
+                  f"{t['device_ms'] / t['library_device_ms']:.3f}x the "
+                  f"library sequence ({t['library_device_ms']:.4f} ms), "
+                  f"{t['device_ms'] / t['bound_ms']:.2f}x its bound "
+                  f"({t['bound_ms']:.4f} ms, {t['bound_by']})")
+
     # the sampler
     name = "reparameterize_prng[fp32]"
     err = 0.0
@@ -1887,6 +1924,91 @@ def exact_split_case(dev, seed=0, seg=SEG, units=UNITS, latent=LATENT):
 DENSE_SUMS = {"enc_bwd_full": (1,), "dec_bwd_full": (2,)}
 
 
+# phase 3d: rows 11 and 12's library sequence, the 3-pass chain of library
+# calls where the card's PyTorch has a bf16 product with an fp32 output;
+# beside it the IEEE fp32 sequence, which computes another function
+FULL_LIBRARY = ("the sequence split_hi_lo of each operand -> three "
+                "torch.mm(bf16, bf16, out_dtype=float32) a product, added "
+                "(hh + hl) + lh -> where / sum(0) as the plain version, "
+                "device time summed (no one PyTorch call computes {})")
+FP32_SEQUENCE = ("the plain version in one IEEE fp32 pass (fp32 matmuls, "
+                 "TF32 off): another function, the `highest` tier's")
+
+
+def full_chain_library(name, args):
+    """``name`` 's 3-pass chain (enc_bwd_full or dec_bwd_full) on the fp32
+    ``args`` as library calls: each operand split as the kernels split it
+    (``mlp.split_hi_lo``, both halves exact in bf16), each product three
+    ``torch.mm`` of bf16 operands with an fp32 output added ``(hh + hl) +
+    lh``, the gate and the bias gradients as in the plain version.  None
+    where the card's PyTorch has no such product."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    def split(v):
+        hi, lo = mlp.split_hi_lo(v)
+        return hi.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+    def tr(pair):
+        return pair[0].t(), pair[1].t()
+
+    def mm3(a, b):
+        def mm(u, v):
+            return torch.mm(u, v, out_dtype=torch.float32)
+        return (mm(a[0], b[0]) + mm(a[0], b[1])) + mm(a[1], b[0])
+
+    try:
+        probe = split(args[0][:16, :16])
+        mm3(tr(probe), probe)
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        print(f"  {name}: no bf16 product with an fp32 output in this "
+              f"PyTorch ({type(e).__name__}: {str(e)[:80]})")
+        return None
+    if name == "enc_bwd_full":
+        x, h, dmu, dlv, w21, w22 = args
+
+        def run():
+            sh, smu, slv = split(h), split(dmu), split(dlv)
+            dh = torch.where(h > 0, mm3(smu, tr(split(w21)))
+                             + mm3(slv, tr(split(w22))), 0.0)
+            return (mm3(tr(split(x)), split(dh)), dh.sum(0),
+                    mm3(tr(sh), smu), dmu.sum(0), mm3(tr(sh), slv),
+                    dlv.sum(0))
+        return run
+    da, h3, z, w4, w3 = args
+
+    def run():
+        sda = split(da)
+        dh3 = torch.where(h3 > 0, mm3(sda, tr(split(w4))), 0.0)
+        sdh3 = split(dh3)
+        return (mm3(sdh3, tr(split(w3))), mm3(tr(split(z)), sdh3),
+                dh3.sum(0), mm3(tr(split(h3)), sda), da.sum(0))
+    return run
+
+
+def full_libraries(row, name, kernel, plain, ops):
+    """Phase 3d: the device time of the 3-pass chain ``kernel`` (row 11 or
+    12) on ``ops``, of its library sequence (full_chain_library, held
+    against the plain version first) and of the IEEE fp32 sequence, into
+    the row."""
+    dev = device_ms(lambda: kernel(*ops))
+    fp32 = device_ms(lambda: plain(*ops, 1))
+    library = full_chain_library(name, ops)
+    row.update(device_ms=dev, fp32_sequence_ms=fp32,
+               fp32_sequence=FP32_SEQUENCE)
+    text = (f"  {name}[fp32]           batch {ops[0].shape[0]}, by device "
+            f"time: the kernel {dev:.4f} ms")
+    if library is not None:
+        e = rel_err(library(), plain(*ops, 3))
+        check(e <= FULL_REL, f"{name}: the library sequence is {e:.3e} "
+              "from the 3-pass plain version")
+        lib = device_ms(library)
+        row.update(library_ms=lib, library=FULL_LIBRARY.format(name))
+        text += (f", the 3-pass library sequence {lib:.4f} ms ({dev / lib:.3f}"
+                 f"x; {e:.3e} from the plain version)")
+    print(text + f", the IEEE fp32 sequence (another function) {fp32:.4f} "
+          f"ms ({dev / fp32:.3f}x)")
+
+
 def phase_full_kernels(gen_params):
     """Phase 3d: the full backward chains and the fused loss reduction
     against their plain versions."""
@@ -1973,6 +2095,9 @@ def phase_full_kernels(gen_params):
                             nbytes(*args(w, t), *kernel(*args(w, t))),
                             "bf16"),
                     "library_ms": None}
+                if kind == "fp32":
+                    full_libraries(rows[f"{name}[{kind}]"], name, kernel,
+                                   plain, args(w, t))
 
     # three passes, and the split itself, bit for bit: built operands on
     # which every sum has one non-zero term
@@ -2265,7 +2390,8 @@ def sweep_tiles(name, label, call, rule_args, kernel="tensor_cores",
     return ms
 
 
-def hold_kernel(name, op, make, shapes, timed, kernel="tensor_cores"):
+def hold_kernel(name, op, make, shapes, timed, kernel="tensor_cores",
+                pairs=1, named_raises=False):
     """Phases 3c / 3e: the redesigned form ``kernel`` (``"tensor_cores"``,
     bf16; ``"sgemm"``, fp32) of wrapper ``op`` against its plain version
     and its first version.
@@ -2276,8 +2402,11 @@ def hold_kernel(name, op, make, shapes, timed, kernel="tensor_cores"):
     operands ``tensors`` of the kernel's type.  ``shapes`` are held (those
     the kernel cannot take must run the first version), ``timed`` are timed
     in turns with the first version, the plain version and the library
-    call, and by the profiler's device time.  Returns the largest absolute
-    error and, by shape, the times."""
+    call, and by the profiler's device time.  ``pairs``: operand pairs
+    joined along k (the bound counts ``2 · pairs · rows · k · n``
+    operations).  ``named_raises``: a shape that keeps the first version
+    must also raise when ``kernel`` is named.  Returns the largest
+    absolute error and, by shape, the times."""
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
     fast = FAST[kernel]
@@ -2317,6 +2446,14 @@ def hold_kernel(name, op, make, shapes, timed, kernel="tensor_cores"):
             check(torch.equal(got, call("auto")), f"{label_of} {label}: a "
                   "second launch gave other bits")
             line += f", vs the first version {e1:.3e}, equal bits twice"
+        elif named_raises:
+            try:
+                call(kernel)
+            except ValueError:
+                line += f"; kernel={kernel!r} raised"
+            else:
+                check(False, f"{label_of} {label}: kernel={kernel!r} did "
+                      "not raise")
         print(line + f" (tolerance {tol:.3e})")
     times = {}
     for rows, k, n, what in timed:
@@ -2329,7 +2466,8 @@ def hold_kernel(name, op, make, shapes, timed, kernel="tensor_cores"):
         ms["device_ms"] = device_ms(lambda: call(kernel))
         ms["first_version_device_ms"] = device_ms(lambda: call("cuda_cores"))
         ms["library_device_ms"] = device_ms(library)
-        bd = bound(2 * rows * k * n, nbytes(*tensors, call("auto")), kind)
+        bd = bound(2 * pairs * rows * k * n, nbytes(*tensors, call("auto")),
+                   kind)
         print(f"  {label_of:<24} {rows}x{k}->{n}: {kernel} "
               f"{ms[kernel]:.4f} ms (device time by the profiler "
               f"{ms['device_ms']:.4f} ms), cuda_cores (first version) "
@@ -2390,7 +2528,8 @@ def phase_train(data: Path):
     # csrc/sgemm.cuh
     dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.dec_bwd_fused,
                 ops.grad_accum, ops.enc_bwd_dw1, ops.grad_accum2)
-    fp32_sgemm = (ops.encoder_fwd, ops.decoder_fwd, ops.grad_accum)
+    fp32_sgemm = (ops.encoder_fwd, ops.decoder_fwd, ops.grad_accum,
+                  ops.matmul_nt_mask, ops.matmul_nt2_mask)
     from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
     from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
     from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
@@ -2544,8 +2683,11 @@ def phase_train(data: Path):
                         "fp32 weight gradients (sgemm.cuh, M-major A)":
                         "false, false, 0>",
                         "matmul_nt dz (sgemm.cuh)": "true, true, 0>",
+                        "gated dh3 and joined dh (sgemm.cuh)":
+                        "sgemm_gated_kernel",
                         "weight gradients' slices' sum": "sum_slices",
-                        "first-version GEMMs (gemm.cuh)": "::gemm_kernel"})
+                        "first-version GEMMs (gemm.cuh)": "::gemm_kernel",
+                        "host-to-device copies": "Memcpy HtoD"})
         (lk, dk), (lx, dx) = out["pallas"], out["xla"]
         upd = float((dk - dx).norm() / dx.norm())
         print(f"  one {precision} step, kernels vs plain: loss {lk:.7f} vs "
@@ -2577,6 +2719,16 @@ def phase_train(data: Path):
     check(seen == (5 * micro, 5 * micro), f"`highest` step: {seen} "
           f"grad_accum launches (all, sgemm.cuh), expected {5 * micro} of "
           f"{5 * micro} on csrc/sgemm.cuh")
+    # its dh3 and dh (rows 5 and 6): one launch each a microbatch, every
+    # one on csrc/sgemm.cuh's gated product
+    for name in ("matmul_nt_mask", "matmul_nt2_mask"):
+        seen = (step_counts["highest"][name],
+                step_counts["highest"][f"{name}@sgemm"])
+        print(f"  {name} launches in the `highest` step (all, on "
+              f"csrc/sgemm.cuh): {seen}")
+        check(seen == (micro, micro), f"`highest` step: {seen} {name} "
+              f"launches (all, sgemm.cuh), expected {micro} of {micro} on "
+              f"csrc/sgemm.cuh")
     # the fp32 encoder and decoder: one launch each a microbatch of both
     # fp32 steps, every one on csrc/sgemm.cuh
     for name in ("encoder_fwd", "decoder_fwd"):
@@ -2590,9 +2742,9 @@ def phase_train(data: Path):
                   f"on csrc/sgemm.cuh")
         check(step_counts["bfloat16"][f"{name}@sgemm"] == 0,
               f"the bf16 step ran {name} on csrc/sgemm.cuh")
-    print(f"  one `highest` kernel step by kernel (187.02 ms of device time "
-          f"with the first-version encoder and decoder, PERF.md section 5; "
-          f"no gain claimed): {highest_by_kernel}")
+    print(f"  one `highest` kernel step by kernel (132.05 ms of device time "
+          f"with the first-version rows 5 and 6, PERF.md section 5): "
+          f"{highest_by_kernel}")
     # the bf16 step's encoder, decoder, decoder backward, dW4, encoder
     # backward and the heads' weight gradients: one launch each a
     # microbatch, every one on the tensor cores; the fp32 tiers run them on
@@ -2834,7 +2986,7 @@ def phase_resident(data: Path, card: str):
     # the plain backend (the sampler gives both the same noise)
     deltas, prim = {}, {}
     fp32_sgemm = (mlp.encoder_fwd, mlp.decoder_fwd, mlp.matmul_nt,
-                  mlp.grad_accum)
+                  mlp.grad_accum, mlp.matmul_nt_mask, mlp.matmul_nt2_mask)
     for backend in ("pallas", "xla"):
         cfg = config(tpu__precision="highest", tpu__backend=backend)
         model = build_model(cfg, dev)
@@ -2863,12 +3015,14 @@ def phase_resident(data: Path, card: str):
     print(f"  `highest` resident epoch, launches per step: {per_step}")
     check(per_step == {"encoder_fwd": 1, "encoder_fwd@sgemm": 1,
                        "decoder_fwd": 1, "decoder_fwd@sgemm": 1,
-                       "matmul_nt2_mask": 1, "matmul_nt_mask": 1,
+                       "matmul_nt2_mask": 1, "matmul_nt2_mask@sgemm": 1,
+                       "matmul_nt_mask": 1, "matmul_nt_mask@sgemm": 1,
                        "matmul_nt": 1, "matmul_nt@sgemm": 1, "grad_accum": 5,
                        "grad_accum@sgemm": 5, "reparameterize_prng": 1},
           f"unexpected launches per `highest` step (the encoder, the "
-          f"decoder, matmul_nt and the five grad_accum on the fp32 kernel "
-          f"of csrc/sgemm.cuh): {per_step}")
+          f"decoder, matmul_nt, matmul_nt_mask, matmul_nt2_mask and the "
+          f"five grad_accum on the fp32 kernel of csrc/sgemm.cuh): "
+          f"{per_step}")
     (dk, lk), (dx, lx) = deltas["pallas"], deltas["xla"]
     upd = float((dk - dx).norm() / dx.norm())
     print(f"  `highest` resident epoch, kernels vs plain: first loss "
@@ -2893,7 +3047,9 @@ def phase_resident(data: Path, card: str):
         clv = torch.randn((batch, LATENT), generator=g, device=dev).to(dt)
         for w in ops.KERNEL_WRAPPERS:
             w.launches = 0
+        dh_fn = mlp.matmul_nt2_mask
         on_tc = mlp.matmul_nt.tensor_core_launches
+        dh_on = (dh_fn.tensor_core_launches, dh_fn.sgemm_launches)
         xx = x.clone().requires_grad_()
         mu, lv = model.encode(p, xx)
         (dx,) = torch.autograd.grad(
@@ -2901,6 +3057,10 @@ def phase_resident(data: Path, card: str):
             .sum(), xx)
         dx_counts[kind] = {w.__name__: w.launches
                            for w in ops.KERNEL_WRAPPERS}
+        dx_counts[kind]["matmul_nt2_mask@tc"] = \
+            dh_fn.tensor_core_launches - dh_on[0]
+        dx_counts[kind]["matmul_nt2_mask@sgemm"] = \
+            dh_fn.sgemm_launches - dh_on[1]
         _, _, h = mlp.encoder_fwd_ref(
             *[p[n][k] for n in ("fc1", "fc21", "fc22") for k in ("w", "b")],
             x)
@@ -2917,6 +3077,14 @@ def phase_resident(data: Path, card: str):
         on_tc = mlp.matmul_nt.tensor_core_launches - on_tc
         check(on_tc == (kind == "bf16"), f"dx [{kind}]: {on_tc} matmul_nt "
               "launches on the tensor cores (bf16 takes them, fp32 does not)")
+        # its dh: the tensor cores in bf16, csrc/sgemm.cuh in fp32
+        dh_on = (dx_counts[kind]["matmul_nt2_mask@tc"],
+                 dx_counts[kind]["matmul_nt2_mask@sgemm"])
+        print(f"  dx [{kind}]: matmul_nt2_mask launches on the tensor cores, "
+              f"on csrc/sgemm.cuh: {dh_on}")
+        check(dh_on == ((1, 0) if kind == "bf16" else (0, 1)),
+              f"dx [{kind}]: matmul_nt2_mask launches on the tensor cores, "
+              f"on csrc/sgemm.cuh: {dh_on}")
 
     # --- the corpus layout under a small budget; the error under none
     cfg = config(training__epochs=1, training__checkpoint_interval=0,
@@ -4745,7 +4913,6 @@ def main() -> int:
     with torch.no_grad():
         new_rows = phase_new_kernels(gen_params)
         grad_accum_sgemm(train_rows["grad_accum[fp32]"])
-        backward_libraries({**train_rows, **new_rows}, gen_params)
 
     print("phase 3d: the full backward chains and the loss reduction "
           "against their plain versions")
@@ -4876,19 +5043,21 @@ def main() -> int:
     rows.update(train_rows)
     # no path of the package runs matmul_nt_mask on bf16 operands (the bf16
     # step takes the fused dec_bwd_fused): phase 3c held it against its
-    # plain version, and it stays out of the line of path kernels
+    # plain version and its first version, and it stays out of the line of
+    # path kernels
     off_path(new_rows.pop("matmul_nt_mask[bf16]"))
     for key, row in new_rows.items():
         name, kind = key[:-1].split("[")
         if name == "reparameterize_prng":
             row["launches"] = resident_launches[name]
-        elif name == "matmul_nt" and kind == "fp32":
-            # the row describes the fp32 kernel: the launches that took it
-            row["launches"] = primitive_launches["matmul_nt@sgemm"]
         elif kind == "fp32":
-            row["launches"] = primitive_launches[name]
+            # the rows describe the fp32 kernel: the launches that took it
+            row["launches"] = primitive_launches[f"{name}@sgemm"]
         else:
-            row["launches"] = dx_launches["bf16"][name]
+            # matmul_nt2_mask's describes the tensor cores: its launches
+            # that took them (the dx checks hold matmul_nt's there)
+            counts = dx_launches["bf16"]
+            row["launches"] = counts.get(f"{name}@tc", counts[name])
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(new_rows)
     # the full chains run in fp32 under `high` and the loss reduction on a

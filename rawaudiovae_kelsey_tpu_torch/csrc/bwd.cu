@@ -72,7 +72,12 @@
 // block owns a 128-row tile of the output, streams its rows of a once
 // through a TMA ring and rounds once from the fp32 accumulators) and whose
 // fp32 form runs on the register-tiled mainloop of sgemm.cuh (both operands
-// K-major, staged by cp.async and stored k-major in shared memory);
+// K-major, staged by cp.async and stored k-major in shared memory); its
+// gated forms rvk_matmul_nt_mask and rvk_matmul_nt2_mask, whose bf16 forms
+// are the launches of dh3 and dh below (the gate in the epilogue; dh's two
+// products joined along k) and whose fp32 forms are sgemm.cuh's gated
+// product (rvk::sgemm::launch_gated: the gate read where the output goes;
+// [a1 a2] and [w1 w2] joined along k as the slabs are copied);
 // rvk_dec_bwd_fused, whose bf16 form runs all three of its products on
 // wgmma.cuh (tensor_core_dec_bwd below: the gate in dh3's epilogue, the
 // weight gradient over slices of the batch); rvk_grad_accum, whose bf16
@@ -86,8 +91,10 @@
 // weight gradient (tensor_core_enc_bwd_dw1 below).  At the step's
 // microbatch the bf16 weight gradients are far above the ridge (dW1 and
 // dW4: 34 GFLOP on 58 MB of operands and output, ~590 FLOP a byte), so the
-// tensor cores bound them.  The template matmul_nt<T> below, which the
-// other fused kernels and the gated forms launch, stays on gemm.cuh.
+// tensor cores bound them.  The template matmul_nt<T> below stays on
+// gemm.cuh: the first versions of the entry points above (kernel code 0,
+// and every shape their new forms do not take) and the full chains launch
+// it.
 
 #include "gemm.cuh"
 #include "sgemm.cuh"
@@ -344,11 +351,35 @@ int rvk_matmul_nt(const void* a, const void* w, void* out, int batch, int n,
   });
 }
 
-// a (batch, n), w (m, n), gate and out (batch, m), all of one dtype.
+// a (batch, n), w (m, n), gate and out (batch, m), all of one dtype: out
+// = where(gate > 0, a @ wᵀ, 0).  kernel (an rvk::tc::Kernel): 0, the tiled
+// GEMM on the CUDA cores with the gate in its epilogue; 1, bf16 only, the
+// tensor-core product of rvk_matmul_nt with dh3's gated epilogue (GatePair:
+// the gate's boxes TMA-loaded into the staging buffer), in tiles 128 x
+// tile_n (ops/tensor_cores.py tile_n); 2, fp32 only, sgemm.cuh's gated
+// product (rvk::sgemm::launch_gated: the gate's 16-byte chunk read where
+// the output's goes), n and m multiples of 4, 16-byte aligned pointers, on
+// the tile sgemm::kTiles[tile_n] (ops/tensor_cores.py sgemm_tile).  The
+// first version ignores tile_n.
 int rvk_matmul_nt_mask(const void* a, const void* w, const void* gate,
                        void* out, int batch, int n, int m, int dtype,
-                       void* stream) {
+                       int tile_n, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32) return cudaErrorInvalidValue;
+    return rvk::sgemm::launch_gated<false>(
+        src<float>(a), src<float>(w), nullptr, nullptr, src<float>(gate),
+        dst<float>(out), batch, m, n, tile_n, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16) {
+      return cudaErrorInvalidValue;
+    }
+    using T = rvk::bf16;
+    return rvk::tc::launch_wgmma<false>(src<T>(a), src<T>(w), dst<T>(out),
+                                        GatePair{}, batch, m, n, tile_n, s,
+                                        src<T>(gate));
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return matmul_nt<T>(src<T>(a), src<T>(w), nullptr, nullptr, src<T>(gate),
@@ -357,11 +388,34 @@ int rvk_matmul_nt_mask(const void* a, const void* w, const void* gate,
 }
 
 // a1 and a2 (batch, n), w1 and w2 (m, n), gate and out (batch, m), all of
-// one dtype.
+// one dtype: out = where(gate > 0, a1 @ w1ᵀ + a2 @ w2ᵀ, 0), one product
+// over [a1 a2] and [w1 w2] joined along k (the first pair's k, then the
+// second's, into one fp32 accumulator).  kernel: 0, the tiled GEMM on the
+// CUDA cores; 1, bf16 only, enc_bwd_dw1's dh launch (rvk::tc::launch_joined
+// with GatePair), in tiles 128 x tile_n; 2, fp32 only, sgemm.cuh's gated
+// product with both operands joined (rvk::sgemm::launch_gated), n and m
+// multiples of 4, 16-byte aligned pointers, on the tile
+// sgemm::kTiles[tile_n].  The first version ignores tile_n.
 int rvk_matmul_nt2_mask(const void* a1, const void* w1, const void* a2,
                         const void* w2, const void* gate, void* out,
-                        int batch, int n, int m, int dtype, void* stream) {
+                        int batch, int n, int m, int dtype, int tile_n,
+                        int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32) return cudaErrorInvalidValue;
+    return rvk::sgemm::launch_gated<true>(
+        src<float>(a1), src<float>(w1), src<float>(a2), src<float>(w2),
+        src<float>(gate), dst<float>(out), batch, m, n, tile_n, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16) {
+      return cudaErrorInvalidValue;
+    }
+    using T = rvk::bf16;
+    return rvk::tc::launch_joined(src<T>(a1), src<T>(w1), src<T>(a2),
+                                  src<T>(w2), dst<T>(out), GatePair{}, batch,
+                                  m, n, tile_n, s, src<T>(gate));
+  }
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return matmul_nt<T>(src<T>(a1), src<T>(w1), src<T>(a2), src<T>(w2),

@@ -1,7 +1,8 @@
 // fp32 mainloop for Hopper's CUDA cores (sm_90a): the device routine of the
-// fp32 forms of rvk_linear_fwd (linear.cu), rvk_matmul_nt and
-// rvk_grad_accum (bwd.cu), rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu),
-// rvk_dx_fused and rvk_dw_fused (linear_bwd.cu: sgemm_fused_kernel).
+// fp32 forms of rvk_linear_fwd (linear.cu), rvk_matmul_nt, rvk_grad_accum,
+// rvk_matmul_nt_mask and rvk_matmul_nt2_mask (bwd.cu: sgemm_gated_kernel),
+// rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu), rvk_dx_fused and
+// rvk_dw_fused (linear_bwd.cu: sgemm_fused_kernel).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -15,12 +16,15 @@
 // read by its rows (a @ wᵀ: matmul_nt's w), or N-major, a (K, N) row-major
 // matrix (x @ w: the linear layer's w; b of the weight gradient).  The
 // epilogue adds the bias (optional) and applies none / relu / tanh, a
-// template argument, then stores 16 bytes a thread.
+// template argument, then stores 16 bytes a thread; or, as the gate
+// (kActGate), keeps the sum where the gate's value at the same place is
+// above zero and stores 0 elsewhere.
 //
 // Which TPU kernels run on it: linear_fwd (_linear_kernel) of
-// rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt, grad_accum
-// (_grad_accum_kernel), encoder_fwd and decoder_fwd of
-// rawaudiovae_kelsey_tpu/ops/pallas_mlp.py, in fp32.  As there, an output
+// rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt, matmul_nt_mask,
+// matmul_nt2_mask, grad_accum (_grad_accum_kernel), encoder_fwd and
+// decoder_fwd of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py, and dw_fused and
+// dx_fused of benchmarks/deep_bwd_probe.py, in fp32.  As there, an output
 // tile carries one accumulator across its contraction, and a block walks
 // its k range itself, in order.  The forward products of launch take all
 // of K in one slice: no workspace, no atomics, so two launches give equal
@@ -36,7 +40,12 @@
 // whole dW written to a workspace, added in order afterwards (sum_slices,
 // slices.cuh): the same bits on every launch.  The TPU kernel carries dW
 // in VMEM across its sequential batch grid; here each slice is one block's
-// walk over its rows of the batch.
+// walk over its rows of the batch.  The gated input gradients
+// (launch_gated) are a @ wᵀ with the gate in the epilogue, and the encoder's
+// dh the two heads' products joined along k: A = [a1 a2] and B = [w1 w2],
+// both K-major, the first pair's k read from a1 / w1 and the rest from a2 /
+// w2 as the slabs are copied (Operand, kJoin), one accumulator over both in
+// k order.
 //
 // What bounds it.  At 4096 x 4096 -> 4096 the product is 137 GFLOP on 201
 // MB: 683 FLOPs a byte against the card's fp32 ridge of 20 (67 TFLOP/s
@@ -86,13 +95,17 @@
 //   kThreads rows a slab), in k order; the groups are added in order at the
 //   end.  No second read of b; rows past the batch are zero fills.
 // * What it takes: k and n multiples of 4 (16-byte rows and chunks; m and n
-//   for the weight gradient) and 16-byte aligned base pointers; the callers
-//   check, and every other fp32 shape keeps the first version (gemm.cuh).
+//   for the weight gradient; each pair's k for a joined product, so that no
+//   16-byte copy straddles the join) and 16-byte aligned base pointers; the
+//   callers check, and every other fp32 shape keeps the first version
+//   (gemm.cuh).
 // * Registers.  __launch_bounds__(256, 2): two blocks an SM, at most 128
 //   registers a thread; the build's ptxas report shows the count and any
 //   spill.  Shared memory, (4 + 2) slabs of a K-major operand and 4 of an
-//   N-major one: 80 KB at 128 x 128 for x @ w, 96 KB for a @ wᵀ; 128 and
-//   144 KB at 128 x 64, where the grids hold about one block an SM.
+//   N-major one: 80 KB at 128 x 128 for x @ w, 96 KB for a @ wᵀ and its
+//   gated and joined forms (the gate is read from device memory in the
+//   epilogue, once a tile); 128 and 144 KB at 128 x 64, where the grids
+//   hold about one block an SM.
 // The slab depths, the ring's depth and the fragment pipelining are the
 // fastest of the variants timed against one another on an H100 (PERF.md).
 #pragma once
@@ -150,9 +163,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // linear backward, linear_bwd.cu) has a second ring for dy beside y's, and
 // the pass that reads a slab back forms da from the two (rvk::cotangent):
 // into the compute buffer as it transposes a K-major operand, in place of
-// y in its own ring for an N-major one.
-template <int R, bool kKMajor, int kBK, int kS = kStages, bool kForm = false>
+// y in its own ring for an N-major one.  A joined operand (kJoin, K-major
+// only: the encoder's dh, [a1 a2] and [w1 w2]) is two matrices of `ld`
+// columns side by side along k: k below ld from p, the rest from q at k -
+// ld.  ld is a multiple of 4, so a 16-byte copy never straddles the join.
+template <int R, bool kKMajor, int kBK, int kS = kStages, bool kForm = false,
+          bool kJoin = false>
 struct Operand {
+  static_assert(!kJoin || (kKMajor && !kForm),
+                "a joined operand is K-major and not formed");
   static constexpr int kSlab = R * kBK;
   static constexpr int kRings = kForm ? 2 : 1;
   static constexpr int kFloats = (kRings * kS + (kKMajor ? 2 : 0)) * kSlab;
@@ -185,7 +204,7 @@ struct Operand {
 
   // start the copies of slab `slab` into ring stage `stage`; rows from r0
   // of `rows`, k of K; a formed operand's q (dy, laid out as p) into the
-  // second ring
+  // second ring; a joined operand's k from ld on from q
   __device__ __forceinline__ static void issue(float* sm, const float* p,
                                                const float* q, int ld, int r0,
                                                int rows, int K, int slab,
@@ -198,10 +217,13 @@ struct Operand {
       place(i, r, kq);
       const int row = r0 + r, k = k0 + kq;
       const bool valid = row < rows && k < K;
-      const size_t at = kKMajor ? static_cast<size_t>(row) * ld + k
-                                : static_cast<size_t>(k) * ld + row;
       const int to = kKMajor ? r * kBK + kq : kq * R + r;
-      cp_async16(ring + to, valid ? p + at : p, valid);
+      // a joined operand's k from ld on is q's at k - ld
+      const bool second = kJoin && k >= ld;
+      const int kk = second ? k - ld : k;
+      const size_t at = kKMajor ? static_cast<size_t>(row) * ld + kk
+                                : static_cast<size_t>(kk) * ld + row;
+      cp_async16(ring + to, valid ? (second ? q : p) + at : p, valid);
       if constexpr (kForm) {
         cp_async16(ring + kS * kSlab + to, valid ? q + at : q, valid);
       }
@@ -270,18 +292,23 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
 // stride from the blocks of the first tile row.  A formed operand (kFormA,
 // kFormB: the fused linear backward's cotangent) is da = act'(y) · dy with
 // y at a (or b) and dy at a2 (or b2), both laid out as the operand, and
-// `form` the activation (an rvk::Act); kS is the ring's depth in slabs.
+// `form` the activation (an rvk::Act); kS is the ring's depth in slabs.  A
+// joined product (kJoin: both operands K-major) contracts [a a2] with [b
+// b2] along k, K the sum of both pairs' (equal) k.  kAct == kActGate: C =
+// where(gate > 0, A · B, 0), gate (M, N) laid out as C, no bias.
 template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct,
-          bool kFormA = false, bool kFormB = false, int kS = kStages>
+          bool kFormA = false, bool kFormB = false, int kS = kStages,
+          bool kJoin = false>
 __device__ __forceinline__ void product_tile(
     const float* __restrict__ a, const float* __restrict__ b,
     const float* __restrict__ bias, float* __restrict__ c,
     float* __restrict__ colsum, int M, int N, int K, int rows, size_t stride,
     int n0, const float* __restrict__ a2 = nullptr,
-    const float* __restrict__ b2 = nullptr, int form = kActNone) {
+    const float* __restrict__ b2 = nullptr, int form = kActNone,
+    const float* __restrict__ gate = nullptr) {
   constexpr int kBK = kSlabDepth<BM, BN>;
-  using OpA = Operand<BM, kAKMajor, kBK, kS, kFormA>;
-  using OpB = Operand<BN, kBKMajor, kBK, kS, kFormB>;
+  using OpA = Operand<BM, kAKMajor, kBK, kS, kFormA, kJoin>;
+  using OpB = Operand<BN, kBKMajor, kBK, kS, kFormB, kJoin>;
   constexpr int RM = BM / 64, RN = BN / 64;  // 4 x 4 sub-tiles a lane
   constexpr int WM = BM / 2, WN = BN / 4;    // the warp tile
   // a weight gradient sums B's columns: kGroups groups of kGroupRows rows
@@ -299,8 +326,9 @@ __device__ __forceinline__ void product_tile(
   const int warp = threadIdx.x / 32, lane_id = threadIdx.x % 32;
   const int am = (warp / 4) * WM + (lane_id % 8) * 4;  // a lane's first row
   const int bn = (warp % 4) * WN + (lane_id / 8) * 4;  // and column
-  const int lda = kAKMajor ? K : M;
-  const int ldb = kBKMajor ? K : N;
+  // a joined operand's rows are each pair's k long
+  const int lda = kJoin ? K / 2 : kAKMajor ? K : M;
+  const int ldb = kJoin ? K / 2 : kBKMajor ? K : N;
   // this slice's k range, in slabs from `first`
   const int z = blockIdx.z;
   const int k_end = min(K, (z + 1) * rows);
@@ -409,7 +437,9 @@ __device__ __forceinline__ void product_tile(
     }
   }
 
-  // epilogue: the sum first, then the bias, as the plain `x @ w + b` does
+  // epilogue: the sum first, then the bias, as the plain `x @ w + b` does;
+  // or the gate: its 16-byte chunk where the output's goes, compared in
+  // fp32 (pallas_mlp.py:359-360, 393-394)
 #pragma unroll
   for (int j = 0; j < RN; ++j) {
     const int n = n0 + bn + 16 * j;
@@ -422,12 +452,21 @@ __device__ __forceinline__ void product_tile(
       for (int u = 0; u < 4; ++u) {
         const int m = m0 + am + 32 * i + u;
         if (m >= M) continue;
+        const size_t at = static_cast<size_t>(m) * N + n;
         float4 out;
-        out.x = activate<kAct>(acc[i][j][u][0] + bj.x);
-        out.y = activate<kAct>(acc[i][j][u][1] + bj.y);
-        out.z = activate<kAct>(acc[i][j][u][2] + bj.z);
-        out.w = activate<kAct>(acc[i][j][u][3] + bj.w);
-        *reinterpret_cast<float4*>(c + static_cast<size_t>(m) * N + n) = out;
+        if constexpr (kAct == kActGate) {
+          const float4 g = *reinterpret_cast<const float4*>(gate + at);
+          out.x = g.x > 0.f ? acc[i][j][u][0] : 0.f;
+          out.y = g.y > 0.f ? acc[i][j][u][1] : 0.f;
+          out.z = g.z > 0.f ? acc[i][j][u][2] : 0.f;
+          out.w = g.w > 0.f ? acc[i][j][u][3] : 0.f;
+        } else {
+          out.x = activate<kAct>(acc[i][j][u][0] + bj.x);
+          out.y = activate<kAct>(acc[i][j][u][1] + bj.y);
+          out.z = activate<kAct>(acc[i][j][u][2] + bj.z);
+          out.w = activate<kAct>(acc[i][j][u][3] + bj.w);
+        }
+        *reinterpret_cast<float4*>(c + at) = out;
       }
     }
   }
@@ -711,6 +750,55 @@ cudaError_t launch_fused_tile(const float* a, const float* a2, const float* b,
   kernel<<<grid, kThreads, smem, stream>>>(a, a2, b, b2, c, colsum, M, N, K,
                                            rows, stride, act);
   return cudaGetLastError();
+}
+
+// The gated input gradients of the primitive backward (bwd.cu
+// rvk_matmul_nt_mask, rvk_matmul_nt2_mask): C (M, N) = where(gate > 0, A ·
+// Bᵀ, 0), A (M, K) and B (N, K) both K-major, gate (M, N) as C.  kJoin: the
+// two heads' dh, A = [a a2] and B = [b b2] joined along k, K = 2 · each
+// pair's k: the first pair's k, then the second's, into one accumulator,
+// the order of the first version's k-joined View (gemm.cuh).
+template <int BM, int BN, bool kJoin>
+__global__ void __launch_bounds__(kThreads, 2)
+sgemm_gated_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   const float* __restrict__ a2,
+                   const float* __restrict__ b2,
+                   const float* __restrict__ gate, float* __restrict__ c,
+                   int M, int N, int K) {
+  product_tile<BM, BN, true, true, kActGate, false, false, kStages, kJoin>(
+      a, b, nullptr, c, nullptr, M, N, K, K, 0, blockIdx.x * BN, a2, b2,
+      kActNone, gate);
+}
+
+// C (M, N) = where(gate > 0, a · bᵀ [+ a2 · b2ᵀ], 0) in IEEE fp32, the gate
+// compared in fp32: a and a2 (M, K), b and b2 (N, K), gate and c (M, N),
+// all row-major, K and N multiples of 4, every pointer 16-byte aligned; a2
+// and b2 null (matmul_nt_mask) or, with kJoin, both set (matmul_nt2_mask:
+// one product over 2K joined along k).  Tile kTiles[tile], the whole
+// contraction in one slice: two launches give equal bits.  Nothing to
+// compute launches nothing.
+template <bool kJoin>
+cudaError_t launch_gated(const float* a, const float* b, const float* a2,
+                         const float* b2, const float* gate, float* c, int M,
+                         int N, int K, int tile, cudaStream_t stream) {
+  if (!takes(K, N, {a, b, a2, b2, gate, c}) || gate == nullptr ||
+      kJoin != (a2 != nullptr) || kJoin != (b2 != nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  return with_tile(tile, [&](auto index) {
+    constexpr int i = decltype(index)::value;
+    constexpr int BM = kTiles[i][0], BN = kTiles[i][1];
+    auto kernel = sgemm_gated_kernel<BM, BN, kJoin>;
+    constexpr int smem = kSmemBytes<BM, BN, true, true>;
+    static uint64_t opted_in = 0;
+    const cudaError_t err = opt_in(kernel, smem, opted_in);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(cdiv(N, BN), cdiv(M, BM), 1);
+    kernel<<<grid, kThreads, smem, stream>>>(a, b, a2, b2, gate, c, M, N,
+                                             kJoin ? 2 * K : K);
+    return cudaGetLastError();
+  });
 }
 
 // The same with the activation chosen at run time (an rvk::Act code).

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "rvk_dec_bwd_full": [_P] * 11 + [_I] * 5 + [_P],
     "rvk_loss_sums": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P],
     "rvk_matmul_nt": [_P] * 3 + [_I] * 6 + [_P],
-    "rvk_matmul_nt_mask": [_P] * 4 + [_I] * 4 + [_P],
-    "rvk_matmul_nt2_mask": [_P] * 6 + [_I] * 4 + [_P],
+    "rvk_matmul_nt_mask": [_P] * 4 + [_I] * 6 + [_P],
+    "rvk_matmul_nt2_mask": [_P] * 6 + [_I] * 6 + [_P],
     "rvk_reparameterize": [_U] * 2 + [_P] * 3 + [_I] * 2 + [_P],
     "rvk_philox_words": [_U] * 2 + [_P] + [_I] * 2 + [_P],
     "rvk_linear_fwd": [_P] * 4 + [_I] * 7 + [_P],

@@ -430,14 +430,27 @@ matmul_nt.tensor_core_launches = 0
 matmul_nt.sgemm_launches = 0
 
 
-def matmul_nt_mask(a, w, gate) -> Tensor:
+def matmul_nt_mask(a, w, gate, kernel: str = "auto") -> Tensor:
     """The ReLU-backward step ``(a @ wᵀ) · (gate > 0)``: the decoder's
     ``dh3`` from ``da``, ``W4`` and ``h3``.  The gate compares in fp32; one
     rounding to the operand dtype.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py``
-    ``matmul_nt_mask``.  CUDA: one launch (``csrc/bwd.cu``), the gate as
-    the GEMM's epilogue."""
+    ``matmul_nt_mask``.  CUDA, one launch (``csrc/bwd.cu``) of one of three
+    hand-written kernels, the gate in each one's epilogue, chosen by
+    ``tensor_cores.resolve_kernel`` as for :func:`matmul_nt` (every
+    operand's pointer, the gate's too, counts for the alignment): bf16
+    operands with n and m multiples of 8 take the tensor-core kernel
+    (``csrc/wgmma.cuh``, ``dec_bwd_fused`` 's dh3 launch: the gate's boxes
+    TMA-loaded where the output goes); fp32 operands with n and m multiples
+    of 4 the register-tiled fp32 kernel (``csrc/sgemm.cuh``
+    ``launch_gated``: IEEE FFMAs, the gate's 16-byte chunk read where the
+    output's goes); everything else the tiled GEMM on the CUDA cores.
+    ``kernel`` names one instead; a kernel named on operands it cannot take
+    raises.  Every kernel gives equal bits on a second launch.  One call
+    counts once in ``launches``, and in ``tensor_core_launches`` or
+    ``sgemm_launches`` too when that one ran."""
+    tensor_cores.check_name("matmul_nt_mask", kernel)
     if a.device.type == "cpu":
         return matmul_nt_mask_ref(a, w, gate)
     dev = cuda_device(a, "matmul_nt_mask: a")
@@ -447,25 +460,43 @@ def matmul_nt_mask(a, w, gate) -> Tensor:
     require(a, "a", (batch, n), dev, dt)
     require(w, "w", (m, n), dev, dt)
     require(gate, "gate", (batch, m), dev, dt)
+    code = tensor_cores.resolve_kernel(
+        "matmul_nt_mask", kernel, dt, batch, n, m,
+        tensor_cores.pointers_aligned(a, w, gate))
     out = torch.empty((batch, m), device=dev, dtype=dt)
     if batch:
         _build.launch("rvk_matmul_nt_mask", dev, a, w, gate, out, batch, n,
-                      m, DTYPE_CODES[dt])
+                      m, DTYPE_CODES[dt],
+                      tensor_cores.tile(code, dev, batch, m), code)
         matmul_nt_mask.launches += 1
+        matmul_nt_mask.tensor_core_launches += \
+            code == tensor_cores.TENSOR_CORES
+        matmul_nt_mask.sgemm_launches += code == tensor_cores.SGEMM
     return out
 
 
 matmul_nt_mask.launches = 0
+matmul_nt_mask.tensor_core_launches = 0
+matmul_nt_mask.sgemm_launches = 0
 
 
-def matmul_nt2_mask(a1, w1, a2, w2, gate) -> Tensor:
+def matmul_nt2_mask(a1, w1, a2, w2, gate, kernel: str = "auto") -> Tensor:
     """The two-head ReLU backward ``(a1 @ w1ᵀ + a2 @ w2ᵀ) · (gate > 0)``:
     the encoder's ``dh`` from ``(dmu, dlogvar)``.  The gate compares in
     fp32; one rounding to the operand dtype.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py``
-    ``matmul_nt2_mask``.  CUDA: one launch (``csrc/bwd.cu``): one product
-    over ``[a1 a2]`` and ``[w1ᵀ; w2ᵀ]`` joined along the contraction."""
+    ``matmul_nt2_mask``.  CUDA, one launch (``csrc/bwd.cu``) of one of three
+    hand-written kernels, each one product over ``[a1 a2]`` and ``[w1 w2]``
+    joined along the contraction (the first pair's k, then the second's,
+    into one fp32 accumulator) with the gate in its epilogue, chosen as for
+    :func:`matmul_nt_mask` on a pair's contraction ``n``: bf16 operands
+    take the tensor-core kernel (``csrc/wgmma.cuh``, ``enc_bwd_dw1`` 's dh
+    launch), fp32 ones the register-tiled fp32 kernel (``csrc/sgemm.cuh``
+    ``launch_gated``, both operands joined as their slabs are copied),
+    everything else the tiled GEMM on the CUDA cores.  ``kernel``, the
+    counters and the bits as for :func:`matmul_nt_mask`."""
+    tensor_cores.check_name("matmul_nt2_mask", kernel)
     if a1.device.type == "cpu":
         return matmul_nt2_mask_ref(a1, w1, a2, w2, gate)
     dev = cuda_device(a1, "matmul_nt2_mask: a1")
@@ -477,15 +508,24 @@ def matmul_nt2_mask(a1, w1, a2, w2, gate) -> Tensor:
     require(a2, "a2", (batch, n), dev, dt)
     require(w2, "w2", (m, n), dev, dt)
     require(gate, "gate", (batch, m), dev, dt)
+    code = tensor_cores.resolve_kernel(
+        "matmul_nt2_mask", kernel, dt, batch, n, m,
+        tensor_cores.pointers_aligned(a1, w1, a2, w2, gate))
     out = torch.empty((batch, m), device=dev, dtype=dt)
     if batch:
         _build.launch("rvk_matmul_nt2_mask", dev, a1, w1, a2, w2, gate, out,
-                      batch, n, m, DTYPE_CODES[dt])
+                      batch, n, m, DTYPE_CODES[dt],
+                      tensor_cores.tile(code, dev, batch, m), code)
         matmul_nt2_mask.launches += 1
+        matmul_nt2_mask.tensor_core_launches += \
+            code == tensor_cores.TENSOR_CORES
+        matmul_nt2_mask.sgemm_launches += code == tensor_cores.SGEMM
     return out
 
 
 matmul_nt2_mask.launches = 0
+matmul_nt2_mask.tensor_core_launches = 0
+matmul_nt2_mask.sgemm_launches = 0
 
 
 def _workspace(dev, split: int, m: int, n: int, outputs: int = 1):

@@ -2,11 +2,14 @@
 cores, the bf16 tensor-core form (``csrc/wgmma.cuh``) or the fp32
 register-tiled form (``csrc/sgemm.cuh``); and the tile of the latter two.
 
-Twelve ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.ops.
-linear.linear_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
-linear_ksplit_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.matmul_nt`,
-:func:`~rawaudiovae_kelsey_tpu_torch.ops.toeplitz.toeplitz_fwd` (whose
-contraction is ``G`` a tap and output width ``N``),
+Fourteen ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.
+ops.linear.linear_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
+linear_ksplit_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.matmul_nt`
+and its gated forms :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.
+matmul_nt_mask` and :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.
+matmul_nt2_mask` (two products joined along k, the contraction ``n`` a
+pair's), :func:`~rawaudiovae_kelsey_tpu_torch.ops.toeplitz.toeplitz_fwd`
+(whose contraction is ``G`` a tap and output width ``N``),
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.encoder_fwd`,
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.decoder_fwd` (two products
 each, every one of which must fit),
@@ -22,11 +25,12 @@ four contract the batch in a weight gradient, split into slices by
 :func:`cotangent_tile_n`) and
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear_bwd.dw_fused` (a weight
 gradient walked as its transpose, :func:`cotangent_wgrad_plan`), whose A is
-the cotangent formed in registers.  Eight of them, ``linear_fwd``,
-``linear_ksplit_fwd``, ``matmul_nt``, ``grad_accum``, ``encoder_fwd``,
-``decoder_fwd``, ``dx_fused`` and ``dw_fused`` (:data:`SGEMM_OPS`), also
-have an fp32 form, ``grad_accum`` 's and ``dw_fused`` 's split into slices
-by :func:`sgemm_wgrad_plan`, each product of ``encoder_fwd`` and
+the cotangent formed in registers.  Ten of them, ``linear_fwd``,
+``linear_ksplit_fwd``, ``matmul_nt``, ``matmul_nt_mask``,
+``matmul_nt2_mask``, ``grad_accum``, ``encoder_fwd``, ``decoder_fwd``,
+``dx_fused`` and ``dw_fused`` (:data:`SGEMM_OPS`), also have an fp32
+form, ``grad_accum`` 's and ``dw_fused`` 's split into slices by
+:func:`sgemm_wgrad_plan`, each product of ``encoder_fwd`` and
 ``decoder_fwd`` planned by :func:`sgemm_fwd_plan`.  The choice is a
 function of dtype, shape and pointer alignment alone
 (:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in the wrapper
@@ -74,8 +78,8 @@ KERNEL_CODES = {"cuda_cores": 0, "tensor_cores": 1, "sgemm": 2}
 TENSOR_CORES, SGEMM = KERNEL_CODES["tensor_cores"], KERNEL_CODES["sgemm"]
 # the ops whose C entry points have the fp32 form (code 2)
 SGEMM_OPS = frozenset({"linear_fwd", "linear_ksplit_fwd", "matmul_nt",
-                       "grad_accum", "encoder_fwd", "decoder_fwd",
-                       "dw_fused", "dx_fused"})
+                       "matmul_nt_mask", "matmul_nt2_mask", "grad_accum",
+                       "encoder_fwd", "decoder_fwd", "dw_fused", "dx_fused"})
 
 # TMA's unit: base pointers and row pitches are multiples of 16 bytes
 TMA_ALIGN_BYTES = 16

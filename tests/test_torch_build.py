@@ -204,11 +204,12 @@ def test_the_fp32_forward_entry_points_build_on_sgemm_cuh():
         _build.CSRC / "slices.cuh").read_text()
 
 def test_the_fp32_entry_points_build_on_sgemm_cuh():
-    """rvk_linear_fwd, rvk_linear_ksplit_fwd, rvk_matmul_nt and
-    rvk_grad_accum launch the fp32 mainloop of csrc/sgemm.cuh for kernel
-    code 2 (the rvk::tc::Kernel enum), the two linear entry points with the
-    same call, rvk_grad_accum its weight-gradient form, and its tile table
-    is the wrappers' SGEMM_TILES."""
+    """rvk_linear_fwd, rvk_linear_ksplit_fwd, rvk_matmul_nt,
+    rvk_matmul_nt_mask, rvk_matmul_nt2_mask and rvk_grad_accum launch the
+    fp32 mainloop of csrc/sgemm.cuh for kernel code 2 (the rvk::tc::Kernel
+    enum), the two linear entry points with the same call, the gated ones
+    its gated form, rvk_grad_accum its weight-gradient form, and its tile
+    table is the wrappers' SGEMM_TILES."""
     import re
 
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
@@ -216,6 +217,8 @@ def test_the_fp32_entry_points_build_on_sgemm_cuh():
     for src, calls in (
             ("linear.cu", {"rvk::sgemm::launch_act<false>": 2}),
             ("bwd.cu", {"rvk::sgemm::launch<true, rvk::kActNone>": 1,
+                        "rvk::sgemm::launch_gated<false>(": 1,
+                        "rvk::sgemm::launch_gated<true>(": 1,
                         "rvk::sgemm::launch_wgrad(src<float>": 1})):
         text = (_build.CSRC / src).read_text()
         assert '#include "sgemm.cuh"' in text

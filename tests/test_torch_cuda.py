@@ -2529,3 +2529,156 @@ def test_fp32_steps_run_the_dense_forward_on_sgemm(cuda, precision):
     for f, (n, n_sgemm) in zip(fns, before):
         assert (f.launches - n, f.sgemm_launches - n_sgemm) == (4, 4)
     assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
+
+
+# ---- rows 5 and 6, the gated input gradients: bf16 on the tensor cores
+# (matmul_nt_mask: dec_bwd_fused's dh3 launch; matmul_nt2_mask:
+# enc_bwd_dw1's k-joined dh launch, both with the gate in the epilogue),
+# fp32 on csrc/sgemm.cuh's gated product (matmul_nt2_mask with both
+# operands joined along k).  Held against the plain version and the first
+# version (bf16 within BF16_REL: a flipped ulp; fp32 within SGEMM_REL:
+# sums in another order), equal bits on a second launch.  Shapes (batch, n,
+# m): the dense model's dh3 (n = seg) and dh (n = latent, a pair's) at the
+# microbatch, 1000 and 1, and a ragged width both new forms take.
+
+GATED_SHAPES = {"matmul_nt_mask": [(8192, 1024, 2048), (1000, 1024, 2048),
+                                   (1, 1024, 2048), (1000, 264, 520)],
+                "matmul_nt2_mask": [(8192, 256, 2048), (1000, 256, 2048),
+                                    (1, 256, 2048), (1000, 264, 520)]}
+GATED_FORMS = {torch.bfloat16: ("tensor_cores", "tensor_core_launches",
+                                BF16_REL),
+               torch.float32: ("sgemm", "sgemm_launches", SGEMM_REL)}
+
+
+def _gated_operands(device, op, batch, n, m, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    pairs = 1 if op == "matmul_nt_mask" else 2
+    ops_ = []
+    for _ in range(pairs):
+        ops_ += [rnd(batch, n), rnd(m, n, scale=n ** -0.5)]
+    return [t.to(dtype) for t in ops_ + [rnd(batch, m).clamp_min(0)]]
+
+
+def _ran_gated(op, counter, *args, **kw):
+    fn = getattr(mlp, op)
+    before = (fn.launches, getattr(fn, counter))
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, (fn.launches - before[0], getattr(fn, counter) - before[1])
+
+
+@pytest.mark.parametrize("dtype", list(GATED_FORMS), ids=["bf16", "fp32"])
+@pytest.mark.parametrize("op,shape", [(op, s) for op, shapes in
+                                      GATED_SHAPES.items() for s in shapes],
+                         ids=str)
+def test_gated_new_forms_match_plain_and_first_version(cuda, op, shape,
+                                                       dtype):
+    kernel, counter, tol = GATED_FORMS[dtype]
+    fn = getattr(mlp, op)
+    args = _gated_operands(cuda, op, *shape, dtype, seed=shape[0])
+    want = getattr(mlp, f"{op}_ref")(*args)
+    first, rose = _ran_gated(op, counter, *args, kernel="cuda_cores")
+    assert rose == (1, 0)
+    got, rose = _ran_gated(op, counter, *args)                  # auto
+    assert rose == (1, 1)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= tol
+    assert _rel(got, first) <= tol
+    assert torch.equal(got, fn(*args))
+    assert torch.equal(got, fn(*args, kernel=kernel))
+
+
+@pytest.mark.parametrize("tile", [64, 128, 256, (128, 128), (128, 64),
+                                  (64, 64)], ids=str)
+def test_every_gated_tile_matches_plain(cuda, tile, monkeypatch):
+    """The tensor cores' three tile widths (bf16) and sgemm.cuh's three
+    tiles (fp32), forced, on both gated forms at a ragged width."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    wide = isinstance(tile, int)
+    rule = "tile_n" if wide else "sgemm_tile"
+    monkeypatch.setattr(tensor_cores, rule, lambda *args: tile)
+    dtype = torch.bfloat16 if wide else torch.float32
+    _, counter, tol = GATED_FORMS[dtype]
+    for op in GATED_SHAPES:
+        args = _gated_operands(cuda, op, 1000, 264, 520, dtype)
+        got, rose = _ran_gated(op, counter, *args)
+        assert rose == (1, 1)
+        assert _rel(got, getattr(mlp, f"{op}_ref")(*args)) <= tol
+
+
+@pytest.mark.parametrize("dtype", list(GATED_FORMS), ids=["bf16", "fp32"])
+def test_gated_forms_named_and_refused(cuda, dtype):
+    """A pair's n no multiple of 8 (bf16: 36) or of 4 (fp32: 38), and a
+    gate off a 16-byte boundary, keep the first version under ``auto`` and
+    raise for the new form by name; each dtype refuses the other's form; a
+    zero-row batch launches nothing."""
+    kernel, counter, tol = GATED_FORMS[dtype]
+    other = "sgemm" if kernel == "tensor_cores" else "tensor_cores"
+    odd = 36 if dtype == torch.bfloat16 else 38
+    for op in GATED_SHAPES:
+        fn = getattr(mlp, op)
+        args = _gated_operands(cuda, op, 1000, odd, 520, dtype)
+        got, rose = _ran_gated(op, counter, *args)
+        assert rose == (1, 0)
+        assert _rel(got, getattr(mlp, f"{op}_ref")(*args)) <= tol
+        with pytest.raises(ValueError, match=f"'{kernel}' takes"):
+            fn(*args, kernel=kernel)
+        args = _gated_operands(cuda, op, 1000, 264, 520, dtype)
+        gate = args[-1]
+        off = torch.empty(gate.numel() + 8, device=cuda,
+                          dtype=dtype)[1:1 + gate.numel()].view_as(gate)
+        off.copy_(gate)
+        got, rose = _ran_gated(op, counter, *args[:-1], off)
+        assert rose == (1, 0)
+        assert torch.equal(got, fn(*args, kernel="cuda_cores"))
+        with pytest.raises(ValueError, match="aligned = False"):
+            fn(*args[:-1], off, kernel=kernel)
+        with pytest.raises(ValueError, match=f"'{other}' takes"):
+            fn(*args, kernel=other)
+        _, rose = _ran_gated(op, counter, *[t[:0] if t.shape[0] == 1000
+                                            else t for t in args])
+        assert rose == (0, 0)
+
+
+def test_highest_step_runs_the_gated_products_on_sgemm(cuda):
+    """One `highest` step of the dense kernel backend at batch 3 x 1024
+    with microbatch 1024 plus a ragged tail: the primitive backward's dh3
+    and dh once a microbatch, every one on csrc/sgemm.cuh; and the bf16
+    ``dx`` of the encoder takes the tensor cores for its dh."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.backend, cfg.tpu.precision = "pallas", "highest"
+    cfg.tpu.microbatch_size = 1024
+    x = torch.rand((3 * 1024 + 100, cfg.audio.segment_length),
+                   device=cuda) * 2 - 1
+    model = build_model(cfg, cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    fns = (mlp.matmul_nt_mask, mlp.matmul_nt2_mask)
+    before = [(f.launches, f.sgemm_launches, f.tensor_core_launches)
+              for f in fns]
+    state, m = build_train_step(model, cfg)(state, x)
+    torch.cuda.synchronize()
+    for f, (n, n_sgemm, n_tc) in zip(fns, before):
+        assert (f.launches - n, f.sgemm_launches - n_sgemm,
+                f.tensor_core_launches - n_tc) == (4, 4, 0)
+    assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
+    w, t = _backward_inputs(cuda, 300, torch.bfloat16, 64, 128, 16)
+    xx = t["x"].clone().requires_grad_()
+    f = mlp.matmul_nt2_mask
+    before = (f.launches, f.tensor_core_launches)
+    mu, lv = mlp.encode(w, xx)
+    torch.autograd.grad((mu.float() * t["dmu"].float()).sum()
+                        + (lv.float() * t["dlv"].float()).sum(), xx)
+    assert (f.launches - before[0], f.tensor_core_launches - before[1]) \
+        == (1, 1)
