@@ -110,8 +110,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    microbatch, all on ``csrc/sgemm.cuh``, and the ``encoder_fwd`` and
    ``decoder_fwd`` launches
    of the ``high`` and ``highest`` steps, one each a microbatch, all on
-   ``csrc/sgemm.cuh``; the device time by kernel of one bf16 kernel step
-   and of one ``highest`` kernel step;
+   ``csrc/sgemm.cuh``; the ``high`` step's ``enc_bwd_full`` and
+   ``dec_bwd_full`` launches, one each a microbatch, all on the tensor
+   cores; the device time by kernel of one bf16 kernel step, of one
+   ``high`` and of one ``highest`` kernel step;
 6. the device-resident path: ``configs/perf_bf16.ini`` uncut (batch 4096,
    bf16, block shuffle, ``rng = tpu_prng``, ``device_resident = always``)
    on the corpus of phase 5, with only the datapath, epochs, checkpoint
@@ -131,13 +133,18 @@ any failure exits non-zero with a traceback (no phase is caught):
    busy share over a resident epoch;
 3d. (run with the other kernel phases) ``enc_bwd_full`` and ``dec_bwd_full``
    with fp32 operands in the 3-pass mode and with bf16 operands in one
-   pass, at batch 4096 (the stream's), 8192 and a ragged 4097, against
-   their plain versions, timed at 4096 and at 8192, the fp32 chains at 4096
-   by device time beside their library sequence (each operand split as the
-   kernels split it, three ``torch.mm`` of bf16 operands with an fp32
-   output a product, where the card's PyTorch has that product; held
-   against the plain version first) and beside the IEEE fp32 sequence,
-   another function; the 3-pass chains bit
+   pass, each on its tensor-core form (fp32: ``csrc/full.cu``, the split
+   pass and three bf16 passes a product in three accumulators; bf16: the
+   split backward's launches) and on its first version, named, at batch
+   4096 (the stream's), 8192 and a ragged 4097, against their plain
+   versions; timed in turns (new form, first version, plain) at 4096 and
+   at 8192, and at 4096 by device time beside their library sequence (fp32:
+   each operand split as the kernels split it, three ``torch.mm`` of bf16
+   operands with an fp32 output a product; bf16: one such product a
+   weight gradient; held against the plain version first), the IEEE fp32
+   sequence (another function), the split pass alone and the new form's
+   parts by kernel name, with a sweep of the 3-pass tile widths at 4096
+   and 8192; both forms of the 3-pass chains bit
    for bit against their plain versions on operands built so that every
    sum has one non-zero term and many values sit on a rounding tie of the
    hi/lo split (a one-pass product or a split that rounds to nearest even
@@ -152,7 +159,8 @@ any failure exits non-zero with a traceback (no phase is caught):
    once with ``precision = high`` → finite, falling losses, ``batch_id``
    checkpoints, the gate's line; per step the bf16 run launches the split
    kernels and the ``high`` run ``enc_bwd_full`` and ``dec_bwd_full`` once
-   each and no split kernel; one ``high`` step against the plain backend
+   each, every one on the tensor cores, and no split kernel; one ``high``
+   step against the plain backend
    from the same state and noise, and ``fused_loss`` on that step's
    tensors against its loss; ``--resume`` with a larger budget against a
    straight run of that budget (equal losses); ``eval`` on the run; the hot
@@ -256,7 +264,8 @@ package runs ``enc_bwd_dw1``, ``grad_accum2`` or ``dec_bwd_fused`` on fp32
 operands since ``high`` takes the full chains: phase 3b still holds them
 against their plain versions, and they stay out of the kernel line);
 ``enc_bwd_full`` / ``dec_bwd_full``: the
-``high`` stream run of phase 7; ``loss_sums``: the ``fused_loss`` call on a
+``high`` stream run of phase 7 (those on the tensor cores, every one);
+``loss_sums``: the ``fused_loss`` call on a
 ``high`` step's tensors in phase 7 (no step dispatches it); fp32
 ``matmul_nt*``: the ``highest`` resident epoch of phase 6 (those on the
 fp32 kernel); bf16
@@ -297,9 +306,12 @@ bf16 ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``, ``grad_accum``,
 (rows 5 and 6 at the microbatch, with ``first_version_ms``), of bf16
 ``matmul_nt2_mask``, of ``dw_fused`` and ``dx_fused`` in both
 dtypes (whose rows describe the tensor-core form in bf16 and the
-``csrc/sgemm.cuh`` form in fp32), of fp32 ``enc_bwd_full`` and
-``dec_bwd_full`` (the 3-pass sequence, with the IEEE fp32 sequence's time
-as ``fp32_sequence_ms``), of ``quantized_decoder_fwd``, of the
+``csrc/sgemm.cuh`` form in fp32), of ``enc_bwd_full`` and ``dec_bwd_full``
+in both dtypes (fp32: the 3-pass sequence, with the IEEE fp32 sequence's
+time as ``fp32_sequence_ms`` and the split pass alone as
+``split_pass_ms``; bf16: the one-pass sequence; their rows describe the
+tensor-core form and carry the first version's time as
+``first_version_ms``), of ``quantized_decoder_fwd``, of the
 sampler and of ``loss_sums`` is the device time of a sequence of library
 calls on the same inputs (its ``library`` key says which): no one PyTorch
 call computes any of them.
@@ -943,8 +955,9 @@ SIMPLE_GATE_LAUNCH = "GateLoad{src<T>(h3), units}, batch, units, seg, " \
 
 def simple_gate_ms(ops) -> float:
     """Device ms of dh3's launch with the simple gate (SIMPLE_GATE, built
-    from a copy of csrc/bwd.cu and its headers into a temporary directory),
-    after a check that the whole call gives the kept kernel's bits."""
+    from a copy of csrc/bwd.cu, csrc/full.cu, whose 3-pass chains bwd.cu's
+    entry points call, and their headers into a temporary directory), after
+    a check that the whole call gives the kept kernel's bits."""
     import ctypes
     import shutil
 
@@ -956,7 +969,8 @@ def simple_gate_ms(ops) -> float:
     with tempfile.TemporaryDirectory() as tmp:
         csrc = Path(tmp) / "csrc"
         csrc.mkdir()
-        for path in [_build.CSRC / "bwd.cu", *_build.CSRC.glob("*.cuh")]:
+        for path in [_build.CSRC / "bwd.cu", _build.CSRC / "full.cu",
+                     *_build.CSRC.glob("*.cuh")]:
             shutil.copy(path, csrc / path.name)
         text = (csrc / "bwd.cu").read_text()
         check(text.count(KEPT_GATE) == 1
@@ -1935,13 +1949,47 @@ FP32_SEQUENCE = ("the plain version in one IEEE fp32 pass (fp32 matmuls, "
                  "TF32 off): another function, the `highest` tier's")
 
 
+FULL_LIBRARY_BF16 = ("the sequence addmm(dmu @ w21.t(), dlv, w22.t()) / "
+                     "da @ w4.t() -> where -> torch.mm(bf16, bf16, "
+                     "out_dtype=float32) a weight gradient (dz: dh3 @ "
+                     "w3.t()) -> sum(0) in fp32, device time summed (no one "
+                     "PyTorch call computes {})")
+
+
+def full_chain_library_bf16(name, args):
+    """``name`` 's one-pass chain on the bf16 ``args`` as library calls: the
+    hidden cotangent a bf16 product gated, each weight gradient one
+    ``torch.mm`` of bf16 operands with an fp32 output, the bias gradients
+    fp32 sums (the function of the split backward's kernels)."""
+    def mm(u, v):
+        return torch.mm(u, v, out_dtype=torch.float32)
+
+    if name == "enc_bwd_full":
+        x, h, dmu, dlv, w21, w22 = args
+
+        def run():
+            dh = torch.where(h > 0, torch.addmm(dmu @ w21.t(), dlv,
+                                                w22.t()), 0.0).to(h.dtype)
+            return (mm(x.t(), dh), dh.float().sum(0), mm(h.t(), dmu),
+                    dmu.float().sum(0), mm(h.t(), dlv), dlv.float().sum(0))
+        return run
+    da, h3, z, w4, w3 = args
+
+    def run():
+        dh3 = torch.where(h3 > 0, da @ w4.t(), 0.0).to(da.dtype)
+        return (dh3 @ w3.t(), mm(z.t(), dh3), dh3.float().sum(0),
+                mm(h3.t(), da), da.float().sum(0))
+    return run
+
+
 def full_chain_library(name, args):
     """``name`` 's 3-pass chain (enc_bwd_full or dec_bwd_full) on the fp32
     ``args`` as library calls: each operand split as the kernels split it
     (``mlp.split_hi_lo``, both halves exact in bf16), each product three
     ``torch.mm`` of bf16 operands with an fp32 output added ``(hh + hl) +
-    lh``, the gate and the bias gradients as in the plain version.  None
-    where the card's PyTorch has no such product."""
+    lh``, the gate and the bias gradients as in the plain version; on bf16
+    ``args`` full_chain_library_bf16.  None where the card's PyTorch has no
+    bf16 product with an fp32 output."""
     from rawaudiovae_kelsey_tpu_torch.ops import mlp
 
     def split(v):
@@ -1957,12 +2005,14 @@ def full_chain_library(name, args):
         return (mm(a[0], b[0]) + mm(a[0], b[1])) + mm(a[1], b[0])
 
     try:
-        probe = split(args[0][:16, :16])
+        probe = split(args[0][:16, :16].float())
         mm3(tr(probe), probe)
     except (RuntimeError, TypeError, NotImplementedError) as e:
         print(f"  {name}: no bf16 product with an fp32 output in this "
               f"PyTorch ({type(e).__name__}: {str(e)[:80]})")
         return None
+    if args[0].dtype == torch.bfloat16:
+        return full_chain_library_bf16(name, args)
     if name == "enc_bwd_full":
         x, h, dmu, dlv, w21, w22 = args
 
@@ -1985,28 +2035,82 @@ def full_chain_library(name, args):
     return run
 
 
-def full_libraries(row, name, kernel, plain, ops):
-    """Phase 3d: the device time of the 3-pass chain ``kernel`` (row 11 or
-    12) on ``ops``, of its library sequence (full_chain_library, held
-    against the plain version first) and of the IEEE fp32 sequence, into
-    the row."""
+def split_pass_alone(name, ops):
+    """The split pass as ``name`` 's 3-pass chain runs it on ``ops`` (fp32):
+    every operand, and a matrix of the hidden cotangent's shape, the
+    summed ones with their column sums."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    summed = {"enc_bwd_full": (2, 3), "dec_bwd_full": (0,)}[name]
+    hidden = torch.zeros_like(ops[1])
+
+    def run():
+        for i, v in enumerate((*ops, hidden)):
+            mlp.split_pass(v, sums=i in summed or v is hidden)
+    return run
+
+
+# the parts of a 3-pass chain's device time, by the kernels' names
+FULL_PARTS = {"split pass": "split_", "gated / plain rows": "SplitRows",
+              "weight gradients": "SplitWgradOut",
+              "slices' sum": "sum_slices"}
+
+
+def full_libraries(row, name, kernel, plain, ops, kind, passes):
+    """Phase 3d: by device time, the chain ``kernel`` (row 11 or 12) on
+    ``ops`` on its new form and its first version, its library sequence
+    (full_chain_library, held against the plain version first), the IEEE
+    fp32 sequence (fp32) and the split pass alone (fp32), into the row."""
     dev = device_ms(lambda: kernel(*ops))
-    fp32 = device_ms(lambda: plain(*ops, 1))
+    first = device_ms(lambda: kernel(*ops, kernel="cuda_cores"))
+    row.update(device_ms=dev, first_version_device_ms=first)
+    text = (f"  {name}[{kind}]           batch {ops[0].shape[0]}, by device "
+            f"time: the new form {dev:.4f} ms, the first version "
+            f"{first:.4f} ms ({first / dev:.2f}x)")
     library = full_chain_library(name, ops)
-    row.update(device_ms=dev, fp32_sequence_ms=fp32,
-               fp32_sequence=FP32_SEQUENCE)
-    text = (f"  {name}[fp32]           batch {ops[0].shape[0]}, by device "
-            f"time: the kernel {dev:.4f} ms")
     if library is not None:
-        e = rel_err(library(), plain(*ops, 3))
-        check(e <= FULL_REL, f"{name}: the library sequence is {e:.3e} "
-              "from the 3-pass plain version")
+        tol = FULL_REL if kind == "fp32" else BF16_REL
+        e = rel_err(library(), plain(*ops, passes))
+        check(e <= tol, f"{name}[{kind}]: the library sequence is {e:.3e} "
+              "from the plain version")
         lib = device_ms(library)
-        row.update(library_ms=lib, library=FULL_LIBRARY.format(name))
-        text += (f", the 3-pass library sequence {lib:.4f} ms ({dev / lib:.3f}"
-                 f"x; {e:.3e} from the plain version)")
-    print(text + f", the IEEE fp32 sequence (another function) {fp32:.4f} "
-          f"ms ({dev / fp32:.3f}x)")
+        row.update(library_ms=lib, library=(
+            FULL_LIBRARY if kind == "fp32" else FULL_LIBRARY_BF16
+        ).format(name))
+        text += (f", the {passes}-pass library sequence {lib:.4f} ms "
+                 f"({dev / lib:.3f}x; {e:.3e} from the plain version)")
+    if kind == "fp32":
+        fp32 = device_ms(lambda: plain(*ops, 1))
+        split = device_ms(split_pass_alone(name, ops))
+        parts = {label: device_ms(lambda: kernel(*ops), match=key)
+                 for label, key in FULL_PARTS.items()}
+        row.update(fp32_sequence_ms=fp32, fp32_sequence=FP32_SEQUENCE,
+                   split_pass_ms=split, parts_ms=parts)
+        text += (f", the IEEE fp32 sequence (another function) {fp32:.4f} "
+                 f"ms ({dev / fp32:.3f}x), the split pass alone {split:.4f} "
+                 "ms; the new form's parts: " + ", ".join(
+                     f"{k} {v:.4f} ms" for k, v in parts.items()))
+    print(text)
+
+
+def sweep_split_widths(name, call):
+    """Phase 3d: the 3-pass chain's device time with each tile width of the
+    3-pass mode forced on all its products (``tensor_cores.SPLIT_WIDTHS``),
+    beside the rule's pick."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    rule = tensor_cores.SPLIT_WIDTHS
+    times = {}
+    try:
+        for widths in ((128,), (64,), rule):
+            tensor_cores.SPLIT_WIDTHS = widths
+            times["rule " + str(rule) if widths == rule else widths[0]] = \
+                device_ms(call)
+    finally:
+        tensor_cores.SPLIT_WIDTHS = rule
+    print(f"  {name}[fp32] tile widths, device ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
+    return times
 
 
 def phase_full_kernels(gen_params):
@@ -2049,80 +2153,102 @@ def phase_full_kernels(gen_params):
     kinds = {"fp32": (torch.float32, 3, FULL_REL),
              "bf16": (torch.bfloat16, 1, BF16_REL)}
     rows, at_train_batch = {}, {}
+    # each form: the new one on the tensor cores (every shape here takes
+    # it) and the first version, named
+    forms = {"tensor cores": "auto", "first version": "cuda_cores"}
     for name, (kernel, plain, args, replaces, row_flops) in cases.items():
         for kind, (dt, passes, tol) in kinds.items():
             err = 0.0
             for b in (STREAM_BATCH, TRAIN_BATCH, FULL_RAGGED):
                 w, t = inputs(b, dt)
-                got = kernel(*args(w, t))
-                torch.cuda.synchronize()
                 want = plain(*args(w, t), passes)
-                for a, r in zip(got, want):
-                    check(a.shape == r.shape and a.dtype == r.dtype
-                          and bool(torch.isfinite(a).all()),
-                          f"{name}[{kind}] batch {b}: shape, dtype or "
-                          "non-finite")
-                e = rel_err(got, want)
-                err = max(err, max_err([a.float() for a in got],
-                                       [r.float() for r in want]))
-                print(f"  {name + '[' + kind + ']':<22} batch {b:>4}, "
-                      f"{passes} pass(es): max |kernel - plain| / max|plain| "
-                      f"= {e:.3e} (tolerance {tol:.3e})")
-                check(e <= tol, f"{name}[{kind}] batch {b}: relative error "
-                      f"{e:.3e} > {tol:.3e}")
+                for form, named in forms.items():
+                    before = kernel.tensor_core_launches
+                    got = kernel(*args(w, t), kernel=named)
+                    torch.cuda.synchronize()
+                    check((kernel.tensor_core_launches - before)
+                          == (named == "auto"), f"{name}[{kind}] batch {b}: "
+                          f"the {form} form did not run")
+                    for a, r in zip(got, want):
+                        check(a.shape == r.shape and a.dtype == r.dtype
+                              and bool(torch.isfinite(a).all()),
+                              f"{name}[{kind}] batch {b} ({form}): shape, "
+                              "dtype or non-finite")
+                    e = rel_err(got, want)
+                    if named == "auto":
+                        err = max(err, max_err([a.float() for a in got],
+                                               [r.float() for r in want]))
+                    print(f"  {name + '[' + kind + ']':<22} batch {b:>4}, "
+                          f"{passes} pass(es), {form}: max |kernel - plain| "
+                          f"/ max|plain| = {e:.3e} (tolerance {tol:.3e})")
+                    check(e <= tol, f"{name}[{kind}] batch {b} ({form}): "
+                          f"relative error {e:.3e} > {tol:.3e}")
             # the stream's batch is the shape the `high` path gives the
             # chains (the row of the kernel line); the training microbatch
-            # beside it, for the split kernels' rows of phase 3b
+            # beside it, the `high` step's
             for b in (STREAM_BATCH, TRAIN_BATCH):
                 w, t = inputs(b, dt)
-                ms, plain_ms, t_kern, t_plain = time_both(
-                    lambda: kernel(*args(w, t)),
-                    lambda: plain(*args(w, t), passes), 5)
-                print(f"  {name + '[' + kind + ']':<22} batch {b}: kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms (runs {t_kern} "
-                      f"/ {t_plain})")
+                ms, runs = time_in_turns({
+                    "kernel": lambda: kernel(*args(w, t)),
+                    "first": lambda: kernel(*args(w, t),
+                                            kernel="cuda_cores"),
+                    "plain": lambda: plain(*args(w, t), passes)}, 5)
+                print(f"  {name + '[' + kind + ']':<22} batch {b}: new form "
+                      f"{ms['kernel']:.4f} ms, first version "
+                      f"{ms['first']:.4f} ms ({ms['first'] / ms['kernel']:.2f}"
+                      f"x), plain {ms['plain']:.4f} ms (runs {runs})")
                 if b == TRAIN_BATCH:
-                    at_train_batch[f"{name}[{kind}]"] = ms
+                    at_train_batch[f"{name}[{kind}]"] = ms["kernel"]
+                    if kind == "fp32":
+                        sweep_split_widths(name, lambda: kernel(*args(w, t)))
                     continue
                 # three bf16 passes a product under `high`: the tensor
                 # cores' bf16 rate bounds both forms
                 rows[f"{name}[{kind}]"] = {
                     "name": f"{name}[{kind}]", "route": "cuda",
-                    "source": "rawaudiovae_kelsey_tpu_torch/csrc/bwd.cu",
-                    "replaces": replaces, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms,
+                    "source": ("rawaudiovae_kelsey_tpu_torch/csrc/full.cu"
+                               if kind == "fp32" else
+                               "rawaudiovae_kelsey_tpu_torch/csrc/bwd.cu"),
+                    "replaces": replaces, "max_abs_err": err,
+                    "ms": ms["kernel"], "plain_ms": ms["plain"],
+                    "first_version_ms": ms["first"],
                     **bound(passes * b * row_flops,
                             nbytes(*args(w, t), *kernel(*args(w, t))),
                             "bf16"),
                     "library_ms": None}
+                full_libraries(rows[f"{name}[{kind}]"], name, kernel, plain,
+                               args(w, t), kind, passes)
                 if kind == "fp32":
-                    full_libraries(rows[f"{name}[{kind}]"], name, kernel,
-                                   plain, args(w, t))
+                    sweep_split_widths(name, lambda: kernel(*args(w, t)))
 
     # three passes, and the split itself, bit for bit: built operands on
-    # which every sum has one non-zero term
+    # which every sum has one non-zero term; the new form and the first
+    # version alike
     for name, case in zip(cases, exact_split_case(dev)):
         kernel, plain = cases[name][:2]
-        got = kernel(*case)
-        torch.cuda.synchronize()
         want = plain(*case, 3)
         once = plain(*case, 1)
-        exact = [i for i in range(len(got)) if i not in DENSE_SUMS[name]]
+        exact = [i for i in range(len(want)) if i not in DENSE_SUMS[name]]
         moved = sum(int((want[i] != once[i]).sum()) for i in exact)
         total = sum(want[i].numel() for i in exact)
-        off = sum(int((got[i] != want[i]).sum()) for i in exact)
-        print(f"  {name}[fp32] on built operands, batch {case[0].shape[0]}: "
-              f"{off} of {total} values differ from the 3-pass plain version "
-              f"(one fp32 pass would move {moved})")
         check(moved > total // 10, f"{name}: the built operands do not tell "
               "three passes from one")
-        check(off == 0 and all(bool(torch.isfinite(a).all()) for a in got),
-              f"{name}[fp32]: {off} values differ from the 3-pass plain "
-              "version bit for bit on the built operands")
-        e = rel_err([got[i] for i in DENSE_SUMS[name]],
-                    [want[i] for i in DENSE_SUMS[name]])
-        check(e <= EXACT_DB_REL, f"{name}[fp32]: dense bias gradient on the "
-              f"built operands off by {e:.3e}")
+        for form, named in forms.items():
+            got = kernel(*case, kernel=named)
+            torch.cuda.synchronize()
+            off = sum(int((got[i] != want[i]).sum()) for i in exact)
+            print(f"  {name}[fp32] on built operands, batch "
+                  f"{case[0].shape[0]}, {form}: {off} of {total} values "
+                  f"differ from the 3-pass plain version (one fp32 pass "
+                  f"would move {moved})")
+            check(off == 0 and all(bool(torch.isfinite(a).all())
+                                   for a in got),
+                  f"{name}[fp32] ({form}): {off} values differ from the "
+                  "3-pass plain version bit for bit on the built operands")
+            e = rel_err([got[i] for i in DENSE_SUMS[name]],
+                        [want[i] for i in DENSE_SUMS[name]])
+            check(e <= EXACT_DB_REL, f"{name}[fp32] ({form}): dense bias "
+                  f"gradient on the built operands off by {e:.3e}")
 
     # the loss reduction: the stream's batch and a ragged, larger one
     name = "loss_sums"
@@ -2530,6 +2656,8 @@ def phase_train(data: Path):
                 ops.grad_accum, ops.enc_bwd_dw1, ops.grad_accum2)
     fp32_sgemm = (ops.encoder_fwd, ops.decoder_fwd, ops.grad_accum,
                   ops.matmul_nt_mask, ops.matmul_nt2_mask)
+    # the `high` step's full chains, on the tensor cores (3-pass)
+    full_tc = (ops.enc_bwd_full, ops.dec_bwd_full)
     from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
     from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
     from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
@@ -2636,7 +2764,7 @@ def phase_train(data: Path):
     # `high` runs the fp32 "full" chains, `highest` the fp32 "primitive"
     # kernels; no precision runs the "split" kernels on fp32 operands
     step_counts = {}
-    highest_by_kernel = ""
+    highest_by_kernel = high_by_kernel = ""
     for precision, rel_tol in (("bfloat16", 5e-2), ("high", 1e-3),
                                ("highest", 1e-3)):
         cfg.tpu.precision = precision
@@ -2651,7 +2779,7 @@ def phase_train(data: Path):
             if backend == "pallas":
                 for w in ops.KERNEL_WRAPPERS:
                     w.launches = 0
-                for w in dense_tc:
+                for w in dense_tc + full_tc:
                     w.tensor_core_launches = 0
                 for w in fp32_sgemm:
                     w.sgemm_launches = 0
@@ -2663,7 +2791,7 @@ def phase_train(data: Path):
                                           for w in ops.KERNEL_WRAPPERS}
                 step_counts[precision].update(
                     (f"{w.__name__}@tc", w.tensor_core_launches)
-                    for w in dense_tc)
+                    for w in dense_tc + full_tc)
                 step_counts[precision].update(
                     (f"{w.__name__}@sgemm", w.sgemm_launches)
                     for w in fp32_sgemm)
@@ -2671,8 +2799,23 @@ def phase_train(data: Path):
                                for n in sorted(before)
                                for k in sorted(before[n])])
             out[backend] = (float(m["loss"]), delta)
-            # the `highest` step's device time by kernel, once its update
-            # has been read
+            # the `high` and `highest` steps' device time by kernel, once
+            # the update has been read
+            if backend == "pallas" and precision == "high":
+                high_by_kernel = device_time_by_kernel(
+                    lambda: step(start, x), top=8, focus={
+                        "encoder h, decoder h3 and y (sgemm.cuh)":
+                        "true, false, ",
+                        "encoder heads (sgemm.cuh, one launch)":
+                        "sgemm_heads_kernel",
+                        "full chains' split pass (split.cuh)": "split_",
+                        "full chains' dh, dh3, dz (3-pass, SplitRows)":
+                        "SplitRows",
+                        "full chains' weight gradients (3-pass)":
+                        "SplitWgradOut",
+                        "weight gradients' slices' sum": "sum_slices",
+                        "first-version GEMMs (gemm.cuh)": "::gemm_kernel",
+                        "host-to-device copies": "Memcpy HtoD"})
             if backend == "pallas" and precision == "highest":
                 highest_by_kernel = device_time_by_kernel(
                     lambda: step(start, x), top=8, focus={
@@ -2702,6 +2845,20 @@ def phase_train(data: Path):
     for w in ops.FULL_KERNELS:
         check(step_counts["high"][w.__name__] > 0,
               f"{w.__name__} was never launched by the fp32 `high` step")
+    # the full chains: one launch each a microbatch, every one on the
+    # tensor cores (the 3-pass chain of csrc/full.cu)
+    micro = -(-batch // cfg.tpu.microbatch_size)
+    for w in full_tc:
+        name = w.__name__
+        seen = (step_counts["high"][name], step_counts["high"][f"{name}@tc"])
+        print(f"  {name} launches in the `high` step (all, on the tensor "
+              f"cores): {seen}")
+        check(seen == (micro, micro), f"`high` step: {seen} {name} launches "
+              f"(all, tensor cores), expected {micro} of {micro} on the "
+              "tensor cores")
+    print(f"  one `high` kernel step by kernel (the first-version chains "
+          f"took 16 x (7.1535 + 9.1311) ms of it, PERF.md section 6): "
+          f"{high_by_kernel}")
     for name in ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused"):
         for precision in ("high", "highest"):
             check(step_counts[precision][name] == 0,
@@ -2711,7 +2868,6 @@ def phase_train(data: Path):
               f"{w.__name__} was never launched by the `highest` step")
     # the primitive backward's five weight gradients a microbatch, every
     # one on the fp32 kernel of csrc/sgemm.cuh
-    micro = -(-batch // cfg.tpu.microbatch_size)
     seen = (step_counts["highest"]["grad_accum"],
             step_counts["highest"]["grad_accum@sgemm"])
     print(f"  grad_accum launches in the `highest` step (all, on "
@@ -3244,6 +3400,8 @@ def phase_stream(tmp: Path):
         save_config(cfg, ini)
         for w in ops.KERNEL_WRAPPERS:
             w.launches = 0
+        for w in (ops.enc_bwd_full, ops.dec_bwd_full):
+            w.tensor_core_launches = 0
         t0 = time.perf_counter()
         out = tee_stdout(lambda: main_stream(
             ["--config", str(ini)] + (["--resume"] if resume else [])))
@@ -3259,6 +3417,8 @@ def phase_stream(tmp: Path):
     for name, precision in (("bf16", "bfloat16"), ("high", "high")):
         cfg, ws, out, wall = run(name, precision, n_batches)
         counts = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+        counts.update((f"{w.__name__}@tc", w.tensor_core_launches)
+                      for w in (ops.enc_bwd_full, ops.dec_bwd_full))
         check("device_resident=auto" in out and "training host-fed" in out,
               f"{name}: the gate did not say which engine runs")
         losses = read_scalars(ws / "logs", "Loss/Batch")
@@ -3302,6 +3462,12 @@ def phase_stream(tmp: Path):
           and c_high["dec_bwd_full"] == n_batches,
           f"high stream: full chains launched {c_high['enc_bwd_full']} / "
           f"{c_high['dec_bwd_full']} times in {n_batches} steps")
+    # every one on the tensor cores (the 3-pass chain of csrc/full.cu)
+    on_tc = (c_high["enc_bwd_full@tc"], c_high["dec_bwd_full@tc"])
+    print(f"  stream[high]: full chains on the tensor cores {on_tc} of "
+          f"{n_batches} each")
+    check(on_tc == (n_batches, n_batches), f"high stream: {on_tc} full "
+          f"chain launches on the tensor cores, expected {n_batches} each")
     for split in ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused",
                   "grad_accum"):
         check(c_high[split] == 0, f"high stream: {split} was launched")
@@ -5067,7 +5233,10 @@ def main() -> int:
                 "loss_sums[bf16]"):
         off_path(full_rows.pop(key))
     for key, row in full_rows.items():
-        row["launches"] = high_launches[key[:-1].split("[")[0]]
+        # the full chains' rows describe the tensor-core form: its launches
+        name = key[:-1].split("[")[0]
+        row["launches"] = high_launches.get(f"{name}@tc",
+                                            high_launches[name])
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(full_rows)
     for w in ops.TRAINING_KERNELS:

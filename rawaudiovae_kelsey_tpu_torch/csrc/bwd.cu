@@ -16,7 +16,7 @@
 //   rvk_dec_bwd_fused  dec_bwd_fused  dh3 = (da W4ᵀ)·(h3>0), then dz = dh3 W3ᵀ,
 //                                     dW3 = zᵀ dh3, db3 = colsum(dh3)
 // and its "full" backward (the `high` tier's: fp32 operands, every product
-// in the 3-pass mode of gemm.cuh; also bf16 operands in one pass) from
+// in three bf16 passes; also bf16 operands in one pass) from
 //   rvk_enc_bwd_full   enc_bwd_full   dh as above, kept for the chain, then
 //                                     dW1, db1, dW21, db21, dW22, db22
 //   rvk_dec_bwd_full   dec_bwd_full   dh3 as above, then dz, dW3, db3 and
@@ -46,15 +46,22 @@
 // The full chains.  The TPU kernels enc_bwd_full / dec_bwd_full hold all six
 // (five) fp32 gradient accumulators of a chain in VMEM, 16.5 / 19 MB, and
 // walk the batch once.  That shape does not exist on an SM.  Here one entry
-// point issues the chain's launches of the shared GEMM back to back: dh,
-// then dW1 | db1, then both head gradients from one read of h (three
-// launches); dh3, dz, dW3 | db3, dW4 | db4 (four).  With fp32 operands in
-// the 3-pass mode dh / dh3 stay fp32 in the scratch buffer and are split
-// again by the products that read them, and every bias gradient sums the
-// unsplit fp32 values (pallas_mlp.py:762-775, 859-872); with bf16 operands
-// they are rounded to bf16 as in the split kernels (:777, :874).  Three FMAs
-// a product on the CUDA cores make the 3-pass chain about three times the
-// 1-pass fp32 one; bf16 mma on the split operands is the later step.
+// point issues the chain's launches back to back, in one of three forms
+// (the kernel code).  With fp32 operands on the tensor cores (code 1,
+// full.cu enc_bwd_split / dec_bwd_split): the split pass (split.cuh) makes
+// every operand's bf16 halves once, with the bias gradients' fp32 column
+// sums of the unsplit values (pallas_mlp.py:762-775, 859-872), and each
+// product is one launch of wgmma.cuh's 3-pass mode (three accumulators, (hh
+// + hl) + lh); dh / dh3 stay fp32 and are split in turn.  With bf16
+// operands on the tensor cores (code 1): the launches of the split
+// backward, which computes the same function (pallas_mlp.py:776-787,
+// 873-883): tensor_core_enc_bwd_dw1 then both head gradients in one
+// launch_wgrad2; tensor_core_dec_bwd then dW4 | db4 on launch_wgrad; dh /
+// dh3 rounded to bf16 (:777, :874).  The first version (code 0, every other
+// shape): the tiled GEMM of gemm.cuh, dh, then dW1 | db1, then both head
+// gradients from one read of h (three launches); dh3, dz, dW3 | db3, dW4 |
+// db4 (four); fp32 operands in its 3-pass mode (three FMAs a product on the
+// CUDA cores), bf16 in one pass.
 //
 // The input-gradient products (matmul_nt and its gated forms) have no
 // contraction over the batch: each is one launch of the GEMM with both
@@ -93,8 +100,8 @@
 // dW4: 34 GFLOP on 58 MB of operands and output, ~590 FLOP a byte), so the
 // tensor cores bound them.  The template matmul_nt<T> below stays on
 // gemm.cuh: the first versions of the entry points above (kernel code 0,
-// and every shape their new forms do not take) and the full chains launch
-// it.
+// and every shape their new forms do not take) and the full chains' first
+// versions launch it.
 
 #include "gemm.cuh"
 #include "sgemm.cuh"
@@ -109,6 +116,26 @@ using rvk::src;
 using rvk::tc::RoundPair;
 using rvk::View;
 using rvk::view;
+
+namespace rvk {
+// the fp32 full chains on the tensor cores (full.cu)
+cudaError_t enc_bwd_split(const float* x, const float* h, const float* dmu,
+                          const float* dlv, const float* w21,
+                          const float* w22, float* dh, float* dw1,
+                          float* db1, float* dw21, float* db21, float* dw22,
+                          float* db22, void* splits, float* workspace,
+                          int batch, int seg, int units, int latent,
+                          int tile_dh, int tile_dw1, int split_dw1,
+                          int tile_dw2, int split_dw2, cudaStream_t s);
+cudaError_t dec_bwd_split(const float* da, const float* h3, const float* z,
+                          const float* w4, const float* w3, float* dh3,
+                          float* dz, float* dw3, float* db3, float* dw4,
+                          float* db4, void* splits, float* workspace,
+                          int batch, int seg, int units, int latent,
+                          int tile_dh3, int tile_dz, int tile_dw3,
+                          int split_dw3, int tile_dw4, int split_dw4,
+                          cudaStream_t s);
+}  // namespace rvk
 
 namespace {
 
@@ -556,14 +583,44 @@ int rvk_dec_bwd_fused(const void* da, const void* h3, const void* z,
 // x (batch, seg), h (batch, units), dmu and dlv (batch, latent), w21 and
 // w22 (units, latent), scratch dh (batch, units), all of one dtype; dw1
 // (seg, units), db1 (units,), dw21 and dw22 (units, latent), db21 and db22
-// (latent,) fp32.  fp32 operands take the 3-pass product, bf16 one pass.
+// (latent,) fp32.  kernel (an rvk::tc::Kernel): 0, the first version, three
+// launches of the tiled GEMM on the CUDA cores, fp32 operands in its 3-pass
+// mode and bf16 in one pass (the tiles, splits, `splits` and `workspace`
+// ignored); 1, the tensor cores, seg, units and latent multiples of 8,
+// 16-byte aligned pointers, batch > 0: fp32 operands the 3-pass chain
+// (rvk::enc_bwd_split, full.cu: `splits` the bf16 halves of x, h, dmu, dlv,
+// w21, w22 and dh, `workspace` the column sums' partials and the slices),
+// bf16 operands tensor_core_enc_bwd_dw1 then launch_wgrad2 (`workspace` the
+// slices); dh in tiles 128 x tile_dh, dW1 in 128 x tile_dw1 over split_dw1
+// slices of the batch, dW21 | dW22 in 128 x tile_dw2 over split_dw2
+// (ops/tensor_cores.py full_plan).
 int rvk_enc_bwd_full(const void* x, const void* h, const void* dmu,
                      const void* dlv, const void* w21, const void* w22,
                      void* dh, float* dw1, float* db1, float* dw21,
-                     float* db21, float* dw22, float* db22, int batch,
-                     int seg, int units, int latent, int dtype,
+                     float* db21, float* dw22, float* db22, void* splits,
+                     float* workspace, int batch, int seg, int units,
+                     int latent, int dtype, int tile_dh, int tile_dw1,
+                     int split_dw1, int tile_dw2, int split_dw2, int kernel,
                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores && dtype == rvk::kF32) {
+    return rvk::enc_bwd_split(
+        src<float>(x), src<float>(h), src<float>(dmu), src<float>(dlv),
+        src<float>(w21), src<float>(w22), dst<float>(dh), dw1, db1, dw21,
+        db21, dw22, db22, splits, workspace, batch, seg, units, latent,
+        tile_dh, tile_dw1, split_dw1, tile_dw2, split_dw2, s);
+  }
+  if (kernel == rvk::tc::kTensorCores) {
+    const int err = tensor_core_enc_bwd_dw1(
+        x, h, dmu, dlv, w21, w22, dh, dw1, db1, workspace, batch, seg, units,
+        latent, dtype, tile_dh, tile_dw1, split_dw1, s);
+    if (err != cudaSuccess) return err;
+    using T = rvk::bf16;
+    return rvk::tc::launch_wgrad2(src<T>(h), src<T>(dmu), src<T>(dlv), dw21,
+                                  db21, dw22, db22, workspace, units, latent,
+                                  batch, tile_dw2, split_dw2, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return enc_bwd_full<T, kFullPasses<T>>(
@@ -576,13 +633,39 @@ int rvk_enc_bwd_full(const void* x, const void* h, const void* dmu,
 // da (batch, seg), h3 (batch, units), z (batch, latent), w4 (units, seg),
 // w3 (latent, units), scratch dh3 (batch, units), dz (batch, latent), all
 // of one dtype; dw3 (latent, units), db3 (units,), dw4 (units, seg), db4
-// (seg,) fp32.  fp32 operands take the 3-pass product, bf16 one pass.
+// (seg,) fp32.  kernel: 0, the first version, four launches of the tiled
+// GEMM (fp32 3-pass, bf16 one pass); 1, the tensor cores, seg, units and
+// latent multiples of 8, 16-byte aligned pointers, batch > 0: fp32 operands
+// the 3-pass chain (rvk::dec_bwd_split, full.cu: `splits` the halves of da,
+// h3, z, w4, w3 and dh3), bf16 operands tensor_core_dec_bwd then dW4 | db4
+// on launch_wgrad; dh3 in tiles 128 x tile_dh3, dz in 128 x tile_dz, dW3
+// in 128 x tile_dw3 over split_dw3 slices, dW4 in 128 x tile_dw4 over
+// split_dw4 (ops/tensor_cores.py full_plan).
 int rvk_dec_bwd_full(const void* da, const void* h3, const void* z,
                      const void* w4, const void* w3, void* dh3, void* dz,
                      float* dw3, float* db3, float* dw4, float* db4,
-                     int batch, int seg, int units, int latent, int dtype,
-                     void* stream) {
+                     void* splits, float* workspace, int batch, int seg,
+                     int units, int latent, int dtype, int tile_dh3,
+                     int tile_dz, int tile_dw3, int split_dw3, int tile_dw4,
+                     int split_dw4, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores && dtype == rvk::kF32) {
+    return rvk::dec_bwd_split(
+        src<float>(da), src<float>(h3), src<float>(z), src<float>(w4),
+        src<float>(w3), dst<float>(dh3), dst<float>(dz), dw3, db3, dw4, db4,
+        splits, workspace, batch, seg, units, latent, tile_dh3, tile_dz,
+        tile_dw3, split_dw3, tile_dw4, split_dw4, s);
+  }
+  if (kernel == rvk::tc::kTensorCores) {
+    const int err = tensor_core_dec_bwd(
+        da, h3, z, w4, w3, dh3, dz, dw3, db3, workspace, batch, seg, units,
+        latent, dtype, tile_dh3, tile_dz, tile_dw3, split_dw3, s);
+    if (err != cudaSuccess) return err;
+    using T = rvk::bf16;
+    return rvk::tc::launch_wgrad(src<T>(h3), src<T>(da), dw4, db4, workspace,
+                                 units, seg, batch, tile_dw4, split_dw4, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return dec_bwd_full<T, kFullPasses<T>>(

@@ -47,9 +47,10 @@ __device__ __forceinline__ T* pick(T* const (&p)[kMaxOuts], int o) {
 
 // For each output o < outs and i < M·N + N: the sum over slices s, in
 // order, of src[(o · slices + s) · (M·N + N) + i]; the first M·N values go
-// to out.dw[o], the next N to out.db[o].  Four floats a thread: mn and n
-// multiples of 4 (a quad never straddles dW and db, or two outputs),
-// everything 16-byte aligned.
+// to out.dw[o], the next N to out.db[o] (dropped where out.db[o] is null:
+// a 3-pass weight gradient's db comes from the split pass).  Four floats a
+// thread: mn and n multiples of 4 (a quad never straddles dW and db, or two
+// outputs), everything 16-byte aligned.
 __global__ void sum_slices(const float* __restrict__ src, SliceOut out,
                            size_t mn, int n, int slices, int outs) {
   const size_t stride = mn + n;
@@ -57,6 +58,7 @@ __global__ void sum_slices(const float* __restrict__ src, SliceOut out,
   if (q >= outs * stride) return;
   const int o = static_cast<int>(q / stride);
   const size_t i = q - o * stride;
+  if (i >= mn && pick(out.db, o) == nullptr) return;
   const float* first = src + o * slices * stride + i;
   float4 sum = *reinterpret_cast<const float4*>(first);
   for (int s = 1; s < slices; ++s) {

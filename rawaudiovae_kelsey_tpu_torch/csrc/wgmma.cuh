@@ -3,7 +3,8 @@
 // rvk_matmul_nt, rvk_grad_accum, rvk_grad_accum2, rvk_enc_bwd_dw1 and
 // rvk_dec_bwd_fused (bwd.cu), rvk_toeplitz_fwd (toeplitz.cu),
 // rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu), rvk_dx_fused and
-// rvk_dw_fused (linear_bwd.cu).
+// rvk_dw_fused (linear_bwd.cu), and of both forms of rvk_enc_bwd_full and
+// rvk_dec_bwd_full (bf16: bwd.cu; fp32 in three bf16 passes: full.cu).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -31,8 +32,9 @@
 // rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt, encoder_fwd
 // (_enc_fwd_kernel), decoder_fwd (_dec_fwd_kernel), grad_accum
 // (_grad_accum_kernel), grad_accum2 (_grad_accum2_kernel), enc_bwd_dw1
-// (_enc_bwd_dw1_kernel) and dec_bwd_fused
-// (_dec_bwd_fused_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py and
+// (_enc_bwd_dw1_kernel), dec_bwd_fused (_dec_bwd_fused_kernel),
+// enc_bwd_full (_enc_bwd_full_kernel) and dec_bwd_full
+// (_dec_bwd_full_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py and
 // toeplitz_fwd (_toeplitz_kernel) of
 // rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py.  The TPU kernels carry
 // one fp32 accumulator across the k slices, which their grid visits in
@@ -121,7 +123,8 @@
 //   buffer is written again.
 // * Tiles.  128 x BN with BN 256, 128 or 64, chosen by the caller
 //   (ops/tensor_cores.py tile_n: the width with the fewest waves of tiles
-//   times its width, the wider on a tie).  One persistent block an SM walks
+//   times its width, the wider on a tie; a 3-pass product, below, 128 or
+//   64 by the same rule).  One persistent block an SM walks
 //   the tiles, eight tile rows to a group so that the blocks running
 //   together share operands in L2, and the ring runs on across tiles: the
 //   producer loads the next tile while the consumers store this one.
@@ -183,6 +186,27 @@
 //   columns; dW has no staging), 4 at 128 x 128, 5 at 128 x 64.  da is
 //   formed once a tile: for dx k / BN times a row block, for dW k / BN
 //   times a column block of dW.
+// * The 3-pass product (an epilogue with kSplit: SplitRows, SplitWgradOut;
+//   the `high` tier's full chains, full.cu): fp32 operands split by the
+//   split pass (split.cuh) into bf16 halves, A ≈ A_hi + A_lo and B ≈ B_hi
+//   + B_lo, and A·B taken as (A_hi·B_hi + A_hi·B_lo) + A_lo·B_hi, the
+//   product of the TPU kernels' _mm at passes = 3.  Each stage holds four
+//   boxes (A_hi, A_lo, B_hi, B_lo; the maps of the lo halves in
+//   SplitMaps::lo), its full barrier armed with all four; the consumers
+//   issue the three products of a stage into three fp32 accumulators in one
+//   wgmma group, and the epilogue adds them with IEEE adds in that order
+//   before anything else.  One accumulator for all three would let the
+//   tensor core's own accumulation, which does not round to nearest, add hl
+//   and lh: on operands where every sum has one term (chip_smoke.py
+//   exact_split_case) three accumulators each hold one exact product, and
+//   the two adds are the plain version's.  The outputs are fp32, stored
+//   from the accumulators as the weight gradients' are: dh, dh3 and dz with
+//   an fp32 gate (h > 0, read at the output's place) or none, and the
+//   weight gradients over slices of the batch without column sums (the
+//   split pass takes them from the unsplit values).  A stage is twice a
+//   plain one and three accumulators take 3 · BN / 2 registers a thread:
+//   tiles 128 x 64 (four stages of 48 KB, 96 accumulators) or 128 x 128
+//   (three of 64 KB, 192), no staging buffers.
 // * A barrier that never completes traps after ~2 s instead of hanging the
 //   card: the launch then fails with an error the wrapper raises.  The trap
 //   ends the process's CUDA context, and a run slowed many times over (a
@@ -652,6 +676,12 @@ constexpr bool kFormedA<T, std::void_t<decltype(T::kFormed)>> = T::kFormed;
 // a walk that reads a second A map: the k-joined one, or a formed one (dy)
 template <typename T>
 constexpr bool kTwoA = kJoinedK<T> || kFormedA<T>;
+// A 3-pass functor (Epi::kSplit, header "the 3-pass product"): every
+// operand comes as two bf16 halves, multiplied into three accumulators.
+template <typename E, typename = void>
+constexpr bool kSplitPass = false;
+template <typename E>
+constexpr bool kSplitPass<E, std::void_t<decltype(E::kSplit)>> = E::kSplit;
 
 // A warpgroup's accumulators → its staging buffer (64 rows x BN columns as
 // BN / 64 chunks of 64 rows x 128 bytes, 128-byte swizzle: the layout a TMA
@@ -712,26 +742,33 @@ __device__ __forceinline__ void stage_tile(
 // column pair: its rows m0 .. m0 + rows - 1, columns n0 .. below N.  A warp's
 // store covers eight rows of 32 bytes each, whole sectors; a weight gradient
 // is written once per tile after all of its k-steps, so the bf16 staging
-// (and its 128 KB at BN = 256 in fp32) is not worth having.
+// (and its 128 KB at BN = 256 in fp32) is not worth having.  With a `gate`
+// (fp32, out's shape: a 3-pass dh or dh3), a value is kept where the gate's
+// value at its place is > 0 and is 0 elsewhere, the pair read as one float2
+// beside where it goes.
 template <int BN>
 __device__ __forceinline__ void store_f32(float* acc, float* out, int m0,
-                                          int rows, int n0, int N) {
+                                          int rows, int n0, int N,
+                                          const float* gate = nullptr) {
   fence_accumulators<BN>(acc);
   const int t = threadIdx.x % 128;
   const int r = 16 * (t / 32) + (t % 32) / 4;
   const int col = 2 * (t % 4);
+  auto put = [&](int row, int n, float v0, float v1) {
+    const size_t at = size_t(m0 + row) * N + n;
+    if (gate != nullptr) {
+      const float2 g = __ldg(reinterpret_cast<const float2*>(gate + at));
+      v0 = g.x > 0.f ? v0 : 0.f;
+      v1 = g.y > 0.f ? v1 : 0.f;
+    }
+    *reinterpret_cast<float2*>(out + at) = make_float2(v0, v1);
+  };
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int n = n0 + col + 8 * j;
     if (n < N) {
-      if (r < rows) {
-        *reinterpret_cast<float2*>(out + size_t(m0 + r) * N + n) =
-            make_float2(acc[4 * j], acc[4 * j + 1]);
-      }
-      if (r + 8 < rows) {
-        *reinterpret_cast<float2*>(out + size_t(m0 + r + 8) * N + n) =
-            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-      }
+      if (r < rows) put(r, n, acc[4 * j], acc[4 * j + 1]);
+      if (r + 8 < rows) put(r + 8, n, acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
 }
@@ -1043,6 +1080,19 @@ struct WgradOut {
   size_t stride;
 };
 
+// The 3-pass epilogues (header, "the 3-pass product"): a weight gradient's
+// fp32 dW from the three sums, its db left to the split pass (db unused);
+// and a product's fp32 rows C (M, N) row-major, zeroed where `gate` (fp32,
+// C's shape) is not > 0 if there is one.
+struct SplitWgradOut : WgradOut {
+  static constexpr bool kSplit = true;
+};
+struct SplitRows {
+  static constexpr bool kSplit = true;
+  float* out;
+  const float* gate;
+};
+
 // The tensor maps of one launch: A, and a (B, C) pair for each of the
 // kOuts outputs, and the gate of a gated functor (C's shape; unused
 // otherwise); a k-joined walk's (kJoined) also the second pair's A and B.
@@ -1060,6 +1110,16 @@ struct Maps<kOuts, true> : Maps<kOuts, false> {
   CUtensorMap a2;
   CUtensorMap b2;
 };
+// A 3-pass launch's: the hi halves' maps as a 1-pass launch has its
+// operands', and the lo halves' in `lo` (its c and gate unused).
+template <int kOuts, bool kJoined>
+struct SplitMaps : Maps<kOuts, kJoined> {
+  Maps<kOuts, kJoined> lo;
+};
+template <typename Tiles, typename Epi>
+using KernelMaps =
+    std::conditional_t<kSplitPass<Epi>, SplitMaps<Tiles::kOuts, kTwoA<Tiles>>,
+                       Maps<Tiles::kOuts, kTwoA<Tiles>>>;
 
 // The shared memory of a launch: kStages stages of A and B (a formed A
 // stages y and dy, two A tiles), two staging buffers of 64 rows x
@@ -1068,16 +1128,22 @@ struct Maps<kOuts, true> : Maps<kOuts, false> {
 // A's stage is 16 KB larger: at 128 x 256 three stages fit only beside
 // staging buffers half the tile wide, which the epilogue fills and stores
 // twice; at 128 x 128 four, at 128 x 64 five (header, "the fused linear
-// backward").
+// backward").  A 3-pass stage holds both halves of A and of B, twice a
+// plain one, and needs no staging: four stages at 128 x 64, three at 128 x
+// 128 (header, "the 3-pass product").
 template <int BN, typename Tiles, typename Epi>
 struct Ring {
   static constexpr bool kFormed = kFormedA<Tiles>;
-  static constexpr uint32_t kABytes = (kFormed ? 2 : 1) * kATileBytes;
-  static constexpr uint32_t kStageBytes = kABytes + BN * kTileK * 2;
+  static constexpr bool kSplit = kSplitPass<Epi>;
+  static constexpr uint32_t kABytes =
+      (kFormed || kSplit ? 2 : 1) * kATileBytes;
+  static constexpr uint32_t kBBytes = (kSplit ? 2 : 1) * BN * kTileK * 2;
+  static constexpr uint32_t kStageBytes = kABytes + kBBytes;
   static constexpr int kStagingCols = kFormed && BN == 256 ? 128 : BN;
   static constexpr uint32_t kStagingBytes =
-      kFormed && kWgradOut<Epi> ? 0 : 64 * kStagingCols * 2;
-  static constexpr int kStages = !kFormed ? stages_for(BN)
+      (kFormed && kWgradOut<Epi>) || kSplit ? 0 : 64 * kStagingCols * 2;
+  static constexpr int kStages = kSplit      ? (BN == 64 ? 4 : 3)
+                                 : !kFormed  ? stages_for(BN)
                                  : BN == 256 ? 3
                                  : BN == 128 ? 4
                                              : 5;
@@ -1091,9 +1157,8 @@ struct Ring {
 
 template <int BN, int kStages, bool kBT, typename Epi, typename Tiles>
 __global__ void __launch_bounds__(kBlock, 1)
-wgmma_gemm_kernel(
-    const __grid_constant__ Maps<Tiles::kOuts, kTwoA<Tiles>> maps,
-    const Epi epi, const Tiles tiles, int N) {
+wgmma_gemm_kernel(const __grid_constant__ KernelMaps<Tiles, Epi> maps,
+                  const Epi epi, const Tiles tiles, int N) {
   static_assert(BN == 64 || BN == 128 || BN == 256,
                 "the tile is 64, 128 or 256 wide");
   // a stage is released one step late (one wgmma group stays in flight)
@@ -1107,9 +1172,12 @@ wgmma_gemm_kernel(
                 "a weight gradient writes at most kMaxOuts outputs");
   constexpr bool kFormed = kFormedA<Tiles>;
   static_assert(!kFormed || Tiles::kOuts == 1, "one formed output");
+  constexpr bool kSplit = kSplitPass<Epi>;
+  static_assert(!kSplit || (!kFormed && !kGate && BN <= 128),
+                "a 3-pass product: plain operands, 64 or 128 wide");
   constexpr uint32_t kBTileBytes = BN * kTileK * 2;
   constexpr uint32_t kABytes = Ring<BN, Tiles, Epi>::kABytes;
-  constexpr uint32_t kStageBytes = kABytes + kBTileBytes;
+  constexpr uint32_t kStageBytes = Ring<BN, Tiles, Epi>::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle atoms are 1024 bytes: align the ring to that
   const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -1156,8 +1224,10 @@ wgmma_gemm_kernel(
         const int out = tn / per_out;
         const int n0 = (tn - out * per_out) * BN;
         const CUtensorMap* map_b = &maps.b[out];
+        // a formed A's y and dy, a 3-pass stage's two halves of each
         const uint32_t stage_bytes =
-            (kFormed ? 2 : 1) * tiles.a_bytes(tm) + kBTileBytes;
+            (kFormed || kSplit ? 2 : 1) * tiles.a_bytes(tm) +
+            (kSplit ? 2 : 1) * kBTileBytes;
         const int n_kb = tiles.k_steps(tm);
         for (int kb = 0; kb < n_kb; ++kb) {
           // a fresh barrier passes a wait on the parity before its first
@@ -1181,14 +1251,29 @@ wgmma_gemm_kernel(
             tiles.load_a(a_tile + kATileBytes, &maps.a2, bar, tm, kb);
           }
           const int k0 = tiles.b_row(tm, kb);
-          if constexpr (kBT) {
+          auto load_b = [&](uint32_t dst, const CUtensorMap* map) {
+            if constexpr (kBT) {
 #pragma unroll
-            for (int c = 0; c < BN / 64; ++c) {
-              tma_load(b_tile + c * kChunkBytes, step_b, bar, n0 + 64 * c,
-                       k0);
+              for (int c = 0; c < BN / 64; ++c) {
+                tma_load(dst + c * kChunkBytes, map, bar, n0 + 64 * c, k0);
+              }
+            } else {
+              tma_load(dst, map, bar, k0, n0);
             }
-          } else {
-            tma_load(b_tile, step_b, bar, k0, n0);
+          };
+          load_b(b_tile, step_b);
+          // a 3-pass stage: the lo halves' boxes after the hi ones'
+          if constexpr (kSplit) {
+            const CUtensorMap* lo_a = &maps.lo.a;
+            const CUtensorMap* lo_b = &maps.lo.b[out];
+            if constexpr (kJoinedK<Tiles>) {
+              if (tiles.second(kb)) {
+                lo_a = &maps.lo.a2;
+                lo_b = &maps.lo.b2;
+              }
+            }
+            tiles.load_a(a_tile + kATileBytes, lo_a, bar, tm, kb);
+            load_b(b_tile + kBTileBytes, lo_b);
           }
           if (++s == kStages) {
             s = 0;
@@ -1204,6 +1289,8 @@ wgmma_gemm_kernel(
     const bool leader = threadIdx.x % 128 == 0;
     const uint32_t staged = staging + wg * kStagingBytes;
     float acc[BN / 2];
+    // a 3-pass product's A_hi·B_lo and A_lo·B_hi (acc takes A_hi·B_hi)
+    float acc_hl[kSplit ? BN / 2 : 1], acc_lh[kSplit ? BN / 2 : 1];
     // a formed A's fragments: two sets, taken by turns (formed_product)
     uint32_t frag[2][kTileK / 16][4];
     int s = 0, prev = 0;
@@ -1219,11 +1306,18 @@ wgmma_gemm_kernel(
       // a weight gradient's bias gradient: the column sums of B from the
       // first tile row, or a formed one's row sums of daᵀ from the first
       // tile column
+      // (a 3-pass one's come from the split pass)
       bool sums = false;
-      if constexpr (kWgrad) sums = kFormed ? tn == 0 : tiles.sums_columns(tm);
+      if constexpr (kWgrad && !kSplit) {
+        sums = kFormed ? tn == 0 : tiles.sums_columns(tm);
+      }
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      if constexpr (kSplit) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc_hl[i] = acc_lh[i] = 0.f;
+      }
       // one k-step; a formed A's registers are `a`
       auto k_step = [&](int kb, uint32_t(&a)[kTileK / 16][4]) {
         mbar_wait(full + 8 * s, phase);
@@ -1234,14 +1328,20 @@ wgmma_gemm_kernel(
               acc, a, y_tile, y_tile + kATileBytes, a_tile + kABytes, sums,
               s0, s1);
         } else {
+          const uint32_t a_wg = a_tile + wg * (kATileBytes / 2);
+          const uint32_t b_tile = a_tile + kABytes;
           wgmma_fence();
-          stage_product<BN, kAT, kBT>(acc, a_tile + wg * (kATileBytes / 2),
-                                      a_tile + kATileBytes);
+          stage_product<BN, kAT, kBT>(acc, a_wg, b_tile);
+          // a 3-pass stage: A_lo after A_hi, B_lo after B_hi; one group
+          if constexpr (kSplit) {
+            stage_product<BN, kAT, kBT>(acc_hl, a_wg, b_tile + kBTileBytes);
+            stage_product<BN, kAT, kBT>(acc_lh, a_wg + kATileBytes, b_tile);
+          }
         }
         wgmma_commit();
         // while the products run: the column sums read the same stage
         if constexpr (kWgrad && !kFormed) {
-          if (sums) add_columns<BN>(a_tile + kATileBytes, s0, s1);
+          if (sums) add_columns<BN>(a_tile + kABytes, s0, s1);
         }
         // the gate's boxes go to the staging buffer once the last tile's
         // store has read it, early enough to land under this tile's
@@ -1284,7 +1384,27 @@ wgmma_gemm_kernel(
       } else {
         for (int kb = 0; kb < n_kb; ++kb) k_step(kb, frag[0]);
       }
-      if constexpr (kWgrad) {
+      if constexpr (kSplit) {
+        // (hh + hl) + lh with IEEE adds, then the fp32 store: a weight
+        // gradient's slice to its place, a product's rows through the gate
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+        fence_accumulators<BN>(acc);
+        fence_accumulators<BN>(acc_hl);
+        fence_accumulators<BN>(acc_lh);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          acc[i] = __fadd_rn(__fadd_rn(acc[i], acc_hl[i]), acc_lh[i]);
+        }
+        if constexpr (kWgrad) {
+          store_f32<BN>(acc,
+                        pick(epi.dw, out) + size_t(tiles.slice(tm)) *
+                                                epi.stride,
+                        m0, rows, n0, N);
+        } else {
+          store_f32<BN>(acc, epi.out, m0, rows, n0, N, epi.gate);
+        }
+      } else if constexpr (kWgrad) {
         wgmma_wait<0>();
         if (lane == 0) mbar_arrive(empty + 8 * prev);
         const size_t at = size_t(tiles.slice(tm)) * epi.stride;
@@ -1420,9 +1540,8 @@ inline cudaError_t cube_map(CUtensorMap* map, const bf16* p, int rows,
 }
 
 template <int BN, bool kBT, typename Epi, typename Tiles>
-cudaError_t launch_tiles(const Maps<Tiles::kOuts, kTwoA<Tiles>>& maps,
-                         const Epi& epi, const Tiles& tiles, int N,
-                         cudaStream_t stream) {
+cudaError_t launch_tiles(const KernelMaps<Tiles, Epi>& maps, const Epi& epi,
+                         const Tiles& tiles, int N, cudaStream_t stream) {
   using R = Ring<BN, Tiles, Epi>;
   auto kernel = wgmma_gemm_kernel<BN, R::kStages, kBT, Epi, Tiles>;
   const int smem = R::kSmem;
@@ -1443,12 +1562,13 @@ cudaError_t launch_tiles(const Maps<Tiles::kOuts, kTwoA<Tiles>>& maps,
 }
 
 // f(std::integral_constant<int, tile_n>) for a tile width of 256, 128 or
-// 64; anything else is refused.
-template <typename F>
+// 64 (a 3-pass product, kSplit: 128 or 64); anything else is refused.
+template <bool kSplit = false, typename F>
 cudaError_t with_width(int tile_n, F&& f) {
   switch (tile_n) {
     case 256:
-      return f(std::integral_constant<int, 256>{});
+      if constexpr (kSplit) return cudaErrorInvalidValue;
+      else return f(std::integral_constant<int, 256>{});
     case 128:
       return f(std::integral_constant<int, 128>{});
     case 64:
@@ -1543,6 +1663,63 @@ cudaError_t launch_joined(const bf16* a1, const bf16* b1, const bf16* a2,
   });
 }
 
+// The 3-pass product's rows (header, "the 3-pass product"): c (M, N) =
+// where(gate > 0, a[0] · b[0]ᵀ [+ a[1] · b[1]ᵀ, kJoined: one walk joined
+// along k], 0), fp32, on the tensor cores in 128 x tile_n tiles (128 or
+// 64).  Each a[i] (M, K) and b[i] (N, K) row-major are the bf16 halves of
+// an fp32 matrix (the split pass's hi and lo); c and the fp32 gate (c's
+// shape, or null for none) row-major; all 16-byte aligned, K and N
+// multiples of 8.
+struct Halves {
+  const bf16* hi;
+  const bf16* lo;
+};
+template <bool kJoined>
+cudaError_t launch_split_rows(const Halves* a, const Halves* b, float* c,
+                              const float* gate, int M, int N, int K,
+                              int tile_n, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(c) ||
+      !aligned16(gate)) {
+    return cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < (kJoined ? 2 : 1); ++i) {
+    if (!aligned16(a[i].hi) || !aligned16(a[i].lo) || !aligned16(b[i].hi) ||
+        !aligned16(b[i].lo)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  using Tiles = std::conditional_t<kJoined, JoinedKTiles, MatrixTiles>;
+  Tiles tiles{};
+  tiles.M = M;
+  tiles.K = K;
+  return with_width<true>(tile_n, [&](auto width) {
+    constexpr int BN = decltype(width)::value;
+    KernelMaps<Tiles, SplitRows> maps;
+    // the hi halves' maps, then the lo halves'
+    Maps<1, kJoined>* const halves[2] = {&maps, &maps.lo};
+    for (int h = 0; h < 2; ++h) {
+      Maps<1, kJoined>& m = *halves[h];
+      cudaError_t e = matrix_map(&m.a, h ? a[0].lo : a[0].hi, M, K, kTileM,
+                                 kTileK);
+      if (e == cudaSuccess) {
+        e = matrix_map(&m.b[0], h ? b[0].lo : b[0].hi, N, K, BN, kTileK);
+      }
+      if constexpr (kJoined) {
+        if (e == cudaSuccess) {
+          e = matrix_map(&m.a2, h ? a[1].lo : a[1].hi, M, K, kTileM, kTileK);
+        }
+        if (e == cudaSuccess) {
+          e = matrix_map(&m.b2, h ? b[1].lo : b[1].hi, N, K, BN, kTileK);
+        }
+      }
+      if (e != cudaSuccess) return e;
+    }
+    return launch_tiles<BN, false>(maps, SplitRows{c, gate}, tiles, N,
+                                   stream);
+  });
+}
+
 // dw[o] (M, N) = aᵀ · b[o] and db[o] (N,) = colsum(b[o]) for each of the
 // kOuts outputs, fp32, on the tensor cores in one launch (WgradTiles<kOuts>):
 // a (K, M) and each b[o] (K, N) row-major bf16, 16-byte aligned, M and N
@@ -1552,42 +1729,55 @@ cudaError_t launch_joined(const bf16* a1, const bf16* b1, const bf16* a2,
 // than one, slice s of output o writes its dW and db to `workspace` at (o ·
 // split + s) · (M·N + N) (kOuts · split · (M·N + N) floats, 16-byte
 // aligned) and sum_slices adds them in order, every output in one launch.
-// Tiles 128 x tile_n.
-template <int kOuts>
+// Tiles 128 x tile_n.  kSplit: the 3-pass weight gradient (header, "the
+// 3-pass product") of the fp32 matrices whose halves are a / a_lo and b[o]
+// / b_lo[o]; no column sums (db ignored), tiles 128 x 128 or 128 x 64.
+template <int kOuts, bool kSplit = false>
 cudaError_t launch_wgrad_outs(const bf16* a, const bf16* const* b,
                               float* const* dw, float* const* db,
                               float* workspace, int M, int N, int K,
-                              int tile_n, int split, cudaStream_t stream) {
+                              int tile_n, int split, cudaStream_t stream,
+                              const bf16* a_lo = nullptr,
+                              const bf16* const* b_lo = nullptr) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   const int k_total = cdiv(K, kTileK);
   const int steps = split > 0 ? cdiv(k_total, split) : 0;
   if (K <= 0 || M % 8 != 0 || N % 8 != 0 || split < 1 ||
       cdiv(k_total, steps) != split || !aligned16(a) ||
-      (split > 1 && (workspace == nullptr || !aligned16(workspace)))) {
+      (split > 1 && (workspace == nullptr || !aligned16(workspace))) ||
+      (kSplit && (a_lo == nullptr || !aligned16(a_lo)))) {
     return cudaErrorInvalidValue;
   }
   for (int o = 0; o < kOuts; ++o) {
-    if (!aligned16(b[o]) || !aligned16(dw[o]) || !aligned16(db[o])) {
+    if (!aligned16(b[o]) || !aligned16(dw[o]) ||
+        (kSplit ? !aligned16(b_lo[o]) : !aligned16(db[o]))) {
       return cudaErrorInvalidValue;
     }
   }
   const size_t mn = size_t(M) * N;
-  WgradOut epi{};
+  using Epi = std::conditional_t<kSplit, SplitWgradOut, WgradOut>;
+  Epi epi{};
   SliceOut out{};
   for (int o = 0; o < kOuts; ++o) {
     out.dw[o] = dw[o];
-    out.db[o] = db[o];
+    out.db[o] = kSplit ? nullptr : db[o];
     epi.dw[o] = split == 1 ? dw[o] : workspace + o * split * (mn + N);
-    epi.db[o] = split == 1 ? db[o] : epi.dw[o] + mn;
+    epi.db[o] = kSplit ? nullptr : split == 1 ? db[o] : epi.dw[o] + mn;
   }
   epi.stride = split == 1 ? 0 : mn + N;
   const WgradTiles<kOuts> tiles{M, cdiv(M, kTileM), steps, k_total, split};
-  const cudaError_t err = with_width(tile_n, [&](auto width) {
+  const cudaError_t err = with_width<kSplit>(tile_n, [&](auto width) {
     constexpr int BN = decltype(width)::value;
-    Maps<kOuts> maps;
+    KernelMaps<WgradTiles<kOuts>, Epi> maps;
     cudaError_t e = matrix_map(&maps.a, a, K, M, kTileK, 64);
     for (int o = 0; o < kOuts && e == cudaSuccess; ++o) {
       e = matrix_map(&maps.b[o], b[o], K, N, kTileK, 64);
+    }
+    if constexpr (kSplit) {
+      if (e == cudaSuccess) e = matrix_map(&maps.lo.a, a_lo, K, M, kTileK, 64);
+      for (int o = 0; o < kOuts && e == cudaSuccess; ++o) {
+        e = matrix_map(&maps.lo.b[o], b_lo[o], K, N, kTileK, 64);
+      }
     }
     if (e != cudaSuccess) return e;
     return launch_tiles<BN, true>(maps, epi, tiles, N, stream);

@@ -42,6 +42,8 @@ from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
     matmul_nt_mask,
     matmul_nt_mask_ref,
     matmul_nt_ref,
+    split_pass,
+    split_pass_ref,
 )
 from rawaudiovae_kelsey_tpu_torch.ops.loss import (  # noqa: F401
     fused_loss,

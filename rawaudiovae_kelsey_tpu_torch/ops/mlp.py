@@ -121,6 +121,13 @@ def split_hi_lo(v: Tensor) -> Tuple[Tensor, Tensor]:
     return hi, (v - hi).to(torch.bfloat16).to(torch.float32)
 
 
+def split_pass_ref(v: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of :func:`split_pass`: :func:`split_hi_lo` 's halves
+    as bf16 tensors, and ``v.sum(0)`` of the unsplit values in fp32."""
+    hi, lo = split_hi_lo(v)
+    return hi.to(torch.bfloat16), lo.to(torch.bfloat16), _f(v).sum(0)
+
+
 def mm3(a: Tensor, b: Tensor) -> Tensor:
     """``a @ b`` of fp32 matrices as the 3-pass product: ``(hi(a)·hi(b) +
     hi(a)·lo(b)) + lo(a)·hi(b)``, each an fp32 matmul of bf16-valued
@@ -804,7 +811,102 @@ def full_passes(dtype: torch.dtype) -> int:
     return 3 if dtype == torch.float32 else 1
 
 
-def enc_bwd_full(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, ...]:
+# rows a block of the split pass sums (csrc/split.cuh kSplitRows): a column
+# sum over more rows goes through one partial a block
+SPLIT_ROWS = 64
+
+
+def split_pass(v: Tensor, sums: bool = False
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The split pass of the 3-pass product on its own: fp32 ``v`` (rows,
+    cols) → ``(hi, lo, colsum)``, ``hi`` and ``lo`` bf16 with the bits of
+    :func:`split_hi_lo` 's halves, ``colsum`` the fp32 column sums of the
+    unsplit ``v`` (``sums``; None otherwise).  The full chains run it on
+    every operand inside their launch (``csrc/full.cu``); this entry point
+    holds and times it alone.  CUDA: ``csrc/split.cuh`` through
+    ``rvk_split_hi_lo``, ``cols`` a multiple of 4, 16-byte aligned; the
+    column sums in a fixed order (a partial a block of
+    :data:`SPLIT_ROWS` rows, then the partials in order), equal bits on a
+    second launch.  It replaces no TPU kernel of its own (the TPU kernels
+    split their tiles in VMEM), so it counts no launches."""
+    if v.device.type == "cpu":
+        hi, lo, colsum = split_pass_ref(v)
+        return hi, lo, colsum if sums else None
+    dev = cuda_device(v, "split_pass: v")
+    rows, cols = v.shape
+    require(v, "v", (rows, cols), dev)
+    if cols % 4 or not tensor_cores.pointers_aligned(v):
+        raise ValueError(f"split_pass: {cols} columns or an unaligned v; "
+                         "the kernel takes 16-byte aligned rows")
+    hi = torch.empty((rows, cols), device=dev, dtype=torch.bfloat16)
+    lo = torch.empty_like(hi)
+    colsum = torch.empty((cols,), device=dev) if sums else None
+    blocks = -(-rows // SPLIT_ROWS)
+    partial = (torch.empty((blocks * cols,), device=dev)
+               if sums and blocks > 1 else None)
+    _build.launch("rvk_split_hi_lo", dev, v, hi, lo, colsum, partial, rows,
+                  cols, int(sums))
+    return hi, lo, colsum
+
+
+def full_scratch(dev, code: int, dtype: torch.dtype, chain: str, batch: int,
+                 seg: int, units: int, latent: int, plan: tuple):
+    """``(splits, workspace)`` of a full chain (``chain`` "enc" or "dec")
+    launched with ``code`` and ``plan`` (``tensor_cores.full_plan``):
+    ``splits`` the bf16 halves of every fp32 operand the tensor-core chain
+    splits, in the order ``csrc/full.cu`` takes them (fp32 on the tensor
+    cores only); ``workspace`` fp32 room for the largest of the weight
+    gradients' slices and the split pass's column-sum partials, which run
+    one after another on one stream and share it.  None where nothing is
+    needed (and for the first version)."""
+    if code != tensor_cores.TENSOR_CORES:
+        return None, None
+    if chain == "enc":
+        slices = ((plan[2], seg, units, 1), (plan[4], units, latent, 2))
+        halves = ((batch, seg), (batch, units), (batch, latent),
+                  (batch, latent), (units, latent), (units, latent),
+                  (batch, units))
+        summed = (latent, units)            # dmu and dlogvar; dh
+    else:
+        slices = ((plan[3], latent, units, 1), (plan[5], units, seg, 1))
+        halves = ((batch, seg), (batch, units), (batch, latent),
+                  (units, seg), (latent, units), (batch, units))
+        summed = (seg, units)               # da; dh3
+    need = max([outs * split * (m * n + n) for split, m, n, outs in slices
+                if split > 1], default=0)
+    splits = None
+    if dtype == torch.float32:
+        blocks = -(-batch // SPLIT_ROWS)
+        if blocks > 1:
+            need = max(need, blocks * max(summed))
+        splits = torch.empty((2 * sum(r * c for r, c in halves),),
+                             device=dev, dtype=torch.bfloat16)
+    workspace = torch.empty((need,), device=dev) if need else None
+    return splits, workspace
+
+
+def resolve_full(op: str, kernel: str, dtype: torch.dtype, batch: int,
+                 seg: int, units: int, latent: int,
+                 aligned: bool = True) -> int:
+    """The kernel code a full chain (``op``: ``enc_bwd_full`` or
+    ``dec_bwd_full``) launches with: the tensor cores when
+    ``tensor_cores.takes_full_chain`` holds (fp32: the 3-pass chain of
+    ``csrc/full.cu``; bf16: the split backward's tensor-core launches),
+    else the first version; ``kernel`` names one instead
+    (``tensor_cores.resolve``; it has no fp32 ``sgemm`` form)."""
+    return tensor_cores.resolve(
+        op, kernel,
+        tensor_cores.takes_full_chain(dtype, batch, seg, units, latent,
+                                      aligned=aligned),
+        lambda: f"{dtype}, batch {batch}, seg {seg}, units {units}, latent "
+                f"{latent}, aligned = {aligned}",
+        takes="fp32 or bf16 operands with seg, units and latent multiples "
+              f"of {tensor_cores.TMA_ALIGN_BF16}, at least one row and "
+              "16-byte aligned pointers")
+
+
+def enc_bwd_full(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
+                 ) -> Tuple[Tensor, ...]:
     """The encoder's whole parameter backward from one call → ``(dw1, db1,
     dw21, db21, dw22, db22)`` in fp32: ``dh = (dmu@w21ᵀ +
     dlogvar@w22ᵀ)·(h>0)`` feeds ``(xᵀ dh, colsum(dh))`` and one read of
@@ -814,8 +916,26 @@ def enc_bwd_full(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, ...]:
     (:func:`full_passes`).
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``enc_bwd_full``.
-    CUDA: three launches of the tiled GEMM (``csrc/bwd.cu``); ``dh`` goes
-    through a scratch buffer instead of staying in VMEM."""
+    CUDA: one call of ``rvk_enc_bwd_full`` (``csrc/bwd.cu``), a chain of
+    launches of one of two hand-written forms chosen by
+    :func:`resolve_full`: with seg, units and latent multiples of 8,
+    16-byte aligned pointers and at least one row, the tensor cores — fp32
+    operands the 3-pass chain (``csrc/full.cu``: the split pass makes each
+    operand's bf16 halves once, with db21, db22 and db1 as fp32 column
+    sums of the unsplit values; dh as one k-joined 3-pass product gated in
+    fp32, dW1 and dW21 | dW22 on the 3-pass weight gradient, three fp32
+    accumulators added ``(hh + hl) + lh``), bf16 operands the split
+    backward's launches (:func:`enc_bwd_dw1` 's, then :func:`grad_accum2`
+    's), each product's tile and slices from ``tensor_cores.full_plan``
+    and the halves and slices in scratch allocated here
+    (:func:`full_scratch`); everything else the first version, three
+    launches of the tiled GEMM on the CUDA cores.  ``kernel`` names one
+    instead; naming the tensor cores for operands they cannot take raises.
+    ``dh`` goes through a scratch buffer instead of staying in VMEM.  Both
+    forms give equal bits on a second launch.  One call counts once in
+    ``launches``, and in ``tensor_core_launches`` too when the tensor
+    cores ran it."""
+    tensor_cores.check_name("enc_bwd_full", kernel)
     if x.device.type == "cpu":
         return enc_bwd_full_ref(x, h, dmu, dlogvar, w21, w22,
                                 full_passes(x.dtype))
@@ -829,27 +949,46 @@ def enc_bwd_full(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, ...]:
     require(dlogvar, "dlogvar", (batch, latent), dev, dt)
     require(w21, "w21", (units, latent), dev, dt)
     require(w22, "w22", (units, latent), dev, dt)
+    code = resolve_full(
+        "enc_bwd_full", kernel, dt, batch, seg, units, latent,
+        tensor_cores.pointers_aligned(x, h, dmu, dlogvar, w21, w22))
     dh = torch.empty((batch, units), device=dev, dtype=dt)
     grads = _grads(dev, (seg, units), (units,), (units, latent), (latent,),
                    (units, latent), (latent,))
+    plan = tensor_cores.full_plan(code, dt, dev, "enc", batch, seg, units,
+                                  latent)
+    splits, workspace = full_scratch(dev, code, dt, "enc", batch, seg, units,
+                                     latent, plan)
     _build.launch("rvk_enc_bwd_full", dev, x, h, dmu, dlogvar, w21, w22, dh,
-                  *grads, batch, seg, units, latent, DTYPE_CODES[dt])
+                  *grads, splits, workspace, batch, seg, units, latent,
+                  DTYPE_CODES[dt], *plan, code)
     enc_bwd_full.launches += 1
+    enc_bwd_full.tensor_core_launches += code == tensor_cores.TENSOR_CORES
     return grads
 
 
 enc_bwd_full.launches = 0
+enc_bwd_full.tensor_core_launches = 0
 
 
-def dec_bwd_full(da, h3, z, w4, w3) -> Tuple[Tensor, ...]:
+def dec_bwd_full(da, h3, z, w4, w3, kernel: str = "auto"
+                 ) -> Tuple[Tensor, ...]:
     """The decoder's whole backward from one call → ``(dz, dw3, db3, dw4,
     db4)``: ``dh3 = (da@w4ᵀ)·(h3>0)`` feeds ``dz = dh3@w3ᵀ`` (operand
     dtype) and ``(zᵀ dh3, colsum(dh3))``; ``(h3ᵀ da, colsum(da))`` comes
     with them (all fp32).  Three passes or one as in :func:`enc_bwd_full`.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``dec_bwd_full``.
-    CUDA: four launches of the tiled GEMM (``csrc/bwd.cu``); ``dh3`` goes
-    through a scratch buffer instead of staying in VMEM."""
+    CUDA: one call of ``rvk_dec_bwd_full`` (``csrc/bwd.cu``), the forms of
+    :func:`enc_bwd_full` chosen the same way: fp32 operands on the tensor
+    cores the 3-pass chain (``csrc/full.cu``: da's and dh3's halves with
+    db4 and db3 as fp32 column sums; dh3 gated in fp32, dz, dW3 and dW4 as
+    3-pass products), bf16 ones the split backward's launches
+    (:func:`dec_bwd_fused` 's, then :func:`grad_accum` 's for dW4 and db4);
+    everything else four launches of the tiled GEMM.  ``dh3`` goes through
+    a scratch buffer instead of staying in VMEM.  Counted as
+    :func:`enc_bwd_full` is."""
+    tensor_cores.check_name("dec_bwd_full", kernel)
     if da.device.type == "cpu":
         return dec_bwd_full_ref(da, h3, z, w4, w3, full_passes(da.dtype))
     dev = cuda_device(da, "dec_bwd_full: da")
@@ -861,16 +1000,26 @@ def dec_bwd_full(da, h3, z, w4, w3) -> Tuple[Tensor, ...]:
     require(z, "z", (batch, latent), dev, dt)
     require(w4, "w4", (units, seg), dev, dt)
     require(w3, "w3", (latent, units), dev, dt)
+    code = resolve_full("dec_bwd_full", kernel, dt, batch, seg, units,
+                        latent,
+                        tensor_cores.pointers_aligned(da, h3, z, w4, w3))
     dh3 = torch.empty((batch, units), device=dev, dtype=dt)
     dz = torch.empty((batch, latent), device=dev, dtype=dt)
     grads = _grads(dev, (latent, units), (units,), (units, seg), (seg,))
+    plan = tensor_cores.full_plan(code, dt, dev, "dec", batch, seg, units,
+                                  latent)
+    splits, workspace = full_scratch(dev, code, dt, "dec", batch, seg, units,
+                                     latent, plan)
     _build.launch("rvk_dec_bwd_full", dev, da, h3, z, w4, w3, dh3, dz,
-                  *grads, batch, seg, units, latent, DTYPE_CODES[dt])
+                  *grads, splits, workspace, batch, seg, units, latent,
+                  DTYPE_CODES[dt], *plan, code)
     dec_bwd_full.launches += 1
+    dec_bwd_full.tensor_core_launches += code == tensor_cores.TENSOR_CORES
     return (dz, *grads)
 
 
 dec_bwd_full.launches = 0
+dec_bwd_full.tensor_core_launches = 0
 
 
 # ------------------------------------------------------ autograd Functions

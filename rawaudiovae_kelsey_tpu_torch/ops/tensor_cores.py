@@ -2,7 +2,7 @@
 cores, the bf16 tensor-core form (``csrc/wgmma.cuh``) or the fp32
 register-tiled form (``csrc/sgemm.cuh``); and the tile of the latter two.
 
-Fourteen ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.
+Sixteen ops have a tensor-core form: :func:`~rawaudiovae_kelsey_tpu_torch.
 ops.linear.linear_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear.
 linear_ksplit_fwd`, :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.matmul_nt`
 and its gated forms :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.
@@ -25,7 +25,10 @@ four contract the batch in a weight gradient, split into slices by
 :func:`cotangent_tile_n`) and
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.linear_bwd.dw_fused` (a weight
 gradient walked as its transpose, :func:`cotangent_wgrad_plan`), whose A is
-the cotangent formed in registers.  Ten of them, ``linear_fwd``,
+the cotangent formed in registers; and the full chains
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.enc_bwd_full` and
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.dec_bwd_full`, in both dtypes
+(:func:`takes_full_chain`, :func:`full_plan`).  Ten of them, ``linear_fwd``,
 ``linear_ksplit_fwd``, ``matmul_nt``, ``matmul_nt_mask``,
 ``matmul_nt2_mask``, ``grad_accum``, ``encoder_fwd``, ``decoder_fwd``,
 ``dx_fused`` and ``dw_fused`` (:data:`SGEMM_OPS`), also have an fp32
@@ -40,9 +43,13 @@ before the launch:
   contraction ``k`` and the output width ``n`` multiples of 8 (row pitches
   of 16 bytes; the epilogue stores adjacent column pairs) and base pointers
   on 16-byte boundaries; every other bf16 shape keeps the CUDA-core kernel;
-* fp32 operands never take the tensor cores: the ``float32`` and
+* fp32 operands take the tensor cores only in the ``high`` tier's full
+  chains (:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.enc_bwd_full`,
+  :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.dec_bwd_full`;
+  :func:`takes_full_chain`), whose product is three bf16 passes on the
+  operands' hi and lo halves, the TPU kernels' own; the ``float32`` and
   ``highest`` tiers promise IEEE fp32 products, and the tensor cores offer
-  fp32 data only TF32 or bf16 splits, which is another result.  Where the
+  fp32 data only TF32 or bf16 splits, which is another result.  Where an
   op has an fp32 form they take it when ``k`` and ``n`` are multiples of 4
   (16-byte rows) and every base pointer is on a 16-byte boundary; every
   other fp32 product keeps the first version.
@@ -89,6 +96,9 @@ TMA_ALIGN_BF16 = TMA_ALIGN_BYTES // 2
 # one of these widths (csrc/wgmma.cuh, widest first)
 TILE_M = 128
 TILE_WIDTHS = (256, 128, 64)
+# the widths of the 3-pass mode: three accumulators of 128 x 256 would take
+# 384 registers a thread (csrc/wgmma.cuh, "the 3-pass product")
+SPLIT_WIDTHS = (128, 64)
 # the fp32 kernel's tiles (rows, columns), largest first; the C entry
 # points take the index (csrc/sgemm.cuh kTiles)
 SGEMM_TILES = ((128, 128), (128, 64), (64, 64))
@@ -144,7 +154,8 @@ def takes_sgemm(dtype: torch.dtype, rows: int, k: int, n: int,
 
 
 @functools.lru_cache(maxsize=1024)
-def tile_n(tiles_m: int, n: int, sms: int) -> int:
+def tile_n(tiles_m: int, n: int, sms: int,
+           widths: tuple = TILE_WIDTHS) -> int:
     """The tile width of the tensor-core kernel for ``tiles_m`` tile rows
     and output width ``n`` on a card of ``sms`` SMs: the width of
     :data:`TILE_WIDTHS` whose grid takes the fewest waves times that width
@@ -152,9 +163,10 @@ def tile_n(tiles_m: int, n: int, sms: int) -> int:
     its width), the wider on a tie (it reads A fewer times).  So a grid
     that fills the card in one wave of wide tiles keeps them, and a small
     one (the deep model's 4096 x 512 -> 256, the server's batch of 256)
-    takes 64-wide tiles that give more SMs work."""
+    takes 64-wide tiles that give more SMs work.  ``widths``: the widths to
+    choose from (:data:`SPLIT_WIDTHS` for a 3-pass product)."""
     best = None
-    for width in TILE_WIDTHS:
+    for width in widths:
         tiles = tiles_m * -(-n // width)
         cost = -(-tiles // sms) * width
         if best is None or cost < best[0]:
@@ -193,7 +205,8 @@ def _slice_plan(tiles: int, steps: int, slots: int, least: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=1024)
-def wgrad_plan(m: int, n: int, k: int, sms: int, outputs: int = 1) -> tuple:
+def wgrad_plan(m: int, n: int, k: int, sms: int, outputs: int = 1,
+               widths: tuple = TILE_WIDTHS) -> tuple:
     """``(tile width, slices)`` of the tensor-core weight gradient ``dW (m,
     n) = aᵀ b`` over a contraction of ``k`` rows (the batch) on a card of
     ``sms`` SMs (``csrc/wgmma.cuh`` ``launch_wgrad_outs``), for ``outputs``
@@ -214,10 +227,11 @@ def wgrad_plan(m: int, n: int, k: int, sms: int, outputs: int = 1) -> tuple:
     128 tiles than as 2 slices of 128 x 256, the same single wave, and
     grad_accum2's two 2048 x 256 outputs faster as 2 slices of 128 x 128
     than as one of 128 x 64 or 4 of 128 x 256, which tie with it on the
-    cost (chip_smoke.py phase 3b; PERF.md section 6)."""
+    cost (chip_smoke.py phase 3b; PERF.md section 6).  ``widths``: the
+    widths to choose from (:data:`SPLIT_WIDTHS` for a 3-pass product)."""
     steps = -(-k // 64)
     best = None
-    for width in TILE_WIDTHS:
+    for width in widths:
         tiles = outputs * -(-m // TILE_M) * -(-n // width)
         waves, per, split = _slice_plan(tiles, steps, sms, WGRAD_MIN_STEPS)
         cost = (waves * width * per, width != 128, split > 1)
@@ -385,6 +399,49 @@ def tile(code: int, device: torch.device, rows: int, n: int,
     return 0
 
 
+def takes_full_chain(dtype: torch.dtype, batch: int, *widths: int,
+                     aligned: bool = True) -> bool:
+    """Whether a full chain (``enc_bwd_full`` or ``dec_bwd_full``, widths
+    seg, units and latent) runs on the tensor cores: fp32 operands (three
+    bf16 passes, the ``high`` tier's product) or bf16 ones (one pass), at
+    least one row, every width a positive multiple of 8 (the TMA rows of
+    every product and weight gradient of the chain) and (``aligned``) every
+    base pointer on a 16-byte boundary."""
+    return (dtype in (torch.float32, torch.bfloat16) and batch > 0
+            and all(w > 0 and w % TMA_ALIGN_BF16 == 0 for w in widths)
+            and aligned)
+
+
+def full_plan(code: int, dtype: torch.dtype, device: torch.device,
+              chain: str, batch: int, seg: int, units: int,
+              latent: int) -> tuple:
+    """The tile and slice arguments of ``rvk_enc_bwd_full`` (``chain``
+    "enc": ``tile_dh, tile_dw1, split_dw1, tile_dw2, split_dw2``) or
+    ``rvk_dec_bwd_full`` ("dec": ``tile_dh3, tile_dz, tile_dw3, split_dw3,
+    tile_dw4, split_dw4``).  On the tensor cores (``code`` 1) each product
+    takes :func:`tile_n` and each weight gradient :func:`wgrad_plan` (dW21
+    and dW22 as two outputs of one launch), from :data:`SPLIT_WIDTHS` for
+    fp32 operands (the 3-pass mode) and from :data:`TILE_WIDTHS` for bf16
+    (the split backward's launches, with the plans those take); zeros for
+    the first version."""
+    if code != TENSOR_CORES:
+        return (0,) * (5 if chain == "enc" else 6)
+    widths = SPLIT_WIDTHS if dtype == torch.float32 else TILE_WIDTHS
+    sms = sm_count(device)
+    tiles_m = -(-batch // TILE_M)
+
+    def rows(n):
+        return tile_n(tiles_m, n, sms, widths)
+
+    def weights(m, n, outputs=1):
+        return wgrad_plan(m, n, batch, sms, outputs, widths)
+
+    if chain == "enc":
+        return (rows(units), *weights(seg, units), *weights(units, latent, 2))
+    return (rows(units), rows(latent), *weights(latent, units),
+            *weights(units, seg))
+
+
 def sm_count(device: torch.device) -> int:
     """The SM count of CUDA ``device``, read once."""
     index = device.index
@@ -425,22 +482,26 @@ def resolve_kernel(op: str, kernel: str, dtype: torch.dtype, rows: int,
                    and takes_sgemm(dtype, rows, k, n, aligned))
 
 
+# what the tensor-core kernel of an op takes, in resolve's error
+TAKES_TENSOR_CORES = (f"bf16 operands with the contraction and the output "
+                      f"width multiples of {TMA_ALIGN_BF16} and 16-byte "
+                      f"aligned pointers")
+
+
 def resolve(op: str, kernel: str, fits: bool, got: Callable[[], str],
-            fits_sgemm: bool = False) -> int:
+            fits_sgemm: bool = False,
+            takes: str = TAKES_TENSOR_CORES) -> int:
     """:func:`resolve_kernel` on what the rules found: ``fits`` the
     tensor-core kernel, ``fits_sgemm`` the fp32 one; ``got()`` describes
     the operands in the error (built only then: a call's host time
-    matters)."""
+    matters), ``takes`` what the tensor-core kernel takes."""
     check_name(op, kernel)
     if kernel == "auto":
         return KERNEL_CODES["tensor_cores" if fits else
                             "sgemm" if fits_sgemm else "cuda_cores"]
     if kernel == "tensor_cores" and not fits:
-        raise ValueError(
-            f"{op}: kernel {kernel!r} takes bf16 operands with the "
-            f"contraction and the output width multiples of "
-            f"{TMA_ALIGN_BF16} and 16-byte aligned pointers; got "
-            f"{got()}")
+        raise ValueError(f"{op}: kernel {kernel!r} takes {takes}; got "
+                         f"{got()}")
     if kernel == "sgemm" and op not in SGEMM_OPS:
         raise ValueError(f"{op}: no kernel {kernel!r} (only "
                          f"{', '.join(sorted(SGEMM_OPS))} have one)")

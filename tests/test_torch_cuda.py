@@ -2682,3 +2682,125 @@ def test_highest_step_runs_the_gated_products_on_sgemm(cuda):
                         + (lv.float() * t["dlv"].float()).sum(), xx)
     assert (f.launches - before[0], f.tensor_core_launches - before[1]) \
         == (1, 1)
+
+
+# ---- rows 11 and 12 on the tensor cores: fp32 operands the 3-pass chain
+# of csrc/full.cu (the split pass, then every product as three bf16 passes
+# in three fp32 accumulators, (hh + hl) + lh), bf16 operands the split
+# backward's tensor-core launches.  Held within 1e-4 of max|want| of the
+# 3-pass plain version and of the first version (fp32; the same bf16 x bf16
+# products added in another order), 2^-6 in bf16; equal bits on a second
+# launch; every tile width the plans may take.
+
+FULL_OPS = ("enc_bwd_full", "dec_bwd_full")
+
+
+def _full_args(t, w, op):
+    if op == "enc_bwd_full":
+        return (t["x"], t["h"], t["dmu"], t["dlv"], w["fc21"]["w"],
+                w["fc22"]["w"])
+    return (t["da"], t["h3"], t["z"], w["fc4"]["w"], w["fc3"]["w"])
+
+
+@pytest.mark.parametrize("op", FULL_OPS)
+@pytest.mark.parametrize("dtype,passes,rel", [
+    (torch.float32, 3, 1e-4), (torch.bfloat16, 1, 2.0 ** -6)],
+    ids=["fp32-3pass", "bf16"])
+@pytest.mark.parametrize("batch", [4096, 8192, 4097, 1])
+def test_full_chains_on_the_tensor_cores(cuda, op, batch, dtype, passes,
+                                         rel):
+    w, t = _backward_inputs(cuda, batch, dtype)
+    args = _full_args(t, w, op)
+    f = getattr(mlp, op)
+    before = (f.launches, f.tensor_core_launches)
+    got = f(*args)
+    again = f(*args)
+    first = f(*args, kernel="cuda_cores")
+    torch.cuda.synchronize()
+    assert (f.launches - before[0], f.tensor_core_launches - before[1]) \
+        == (3, 2)
+    want = getattr(mlp, op + "_ref")(*args, passes)
+    _close_rel(got, want, rel)
+    _close_rel(got, first, rel)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("op", FULL_OPS)
+@pytest.mark.parametrize("widths", [(128,), (64,)], ids=["128", "64"])
+@pytest.mark.parametrize("batch", [4096, 4097])
+def test_full_chains_at_every_3_pass_width(cuda, monkeypatch, op, widths,
+                                           batch):
+    """Each tile width of the 3-pass mode forced on every product and
+    weight gradient of the chain (the plans recomputed for it)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    monkeypatch.setattr(tensor_cores, "SPLIT_WIDTHS", widths)
+    w, t = _backward_inputs(cuda, batch, torch.float32)
+    args = _full_args(t, w, op)
+    f = getattr(mlp, op)
+    before = f.tensor_core_launches
+    got = f(*args)
+    torch.cuda.synchronize()
+    assert f.tensor_core_launches == before + 1
+    _close_rel(got, getattr(mlp, op + "_ref")(*args, 3), 1e-4)
+
+
+@pytest.mark.parametrize("op", FULL_OPS)
+def test_full_chains_refuse_the_tensor_cores_at_odd_widths(cuda, op):
+    w, t = _backward_inputs(cuda, 37, torch.float32, 70, 130, 18)
+    args = _full_args(t, w, op)
+    with pytest.raises(ValueError, match="takes fp32 or bf16"):
+        getattr(mlp, op)(*args, kernel="tensor_cores")
+
+
+@pytest.mark.parametrize("shape", [(4096, 2048), (4097, 256), (1, 8),
+                                   (64, 1024)])
+def test_split_pass_on_the_card(cuda, shape):
+    """The split pass alone: both halves bit for bit the plain split's, the
+    column sums of the unsplit values within 1e-5 of max|sum(0)| (fp32 in
+    another order), equal bits on a second launch."""
+    smoke = _smoke()
+    v = smoke.split_probe_values(
+        torch.Generator(device=cuda).manual_seed(shape[0]), shape, cuda)
+    hi, lo, colsum = mlp.split_pass(v, sums=True)
+    again = mlp.split_pass(v, sums=True)
+    torch.cuda.synchronize()
+    want = mlp.split_pass_ref(v)
+    assert torch.equal(hi.view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(lo.view(torch.int16), want[1].view(torch.int16))
+    _close_rel((colsum,), (want[2],), 1e-5)
+    for a, b in zip((hi, lo, colsum), again):
+        assert torch.equal(a, b)
+    assert mlp.split_pass(v)[2] is None
+
+
+def test_high_step_runs_the_full_chains_on_the_tensor_cores(cuda):
+    """The default ``high`` step (configs/default.ini's batch 131072 in
+    microbatches of 8192, at ``precision = high``): all 16 + 16 launches of
+    the full chains on the tensor cores, the loss finite."""
+    from pathlib import Path
+
+    from rawaudiovae_kelsey_tpu_torch.config import load_config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = load_config(Path(__file__).resolve().parents[1] / "configs"
+                      / "default.ini")
+    cfg.tpu.backend, cfg.tpu.precision = "pallas", "high"
+    batch, micro = cfg.training.batch_size, cfg.tpu.microbatch_size
+    assert (batch, micro) == (131072, 8192)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.rand((batch, cfg.audio.segment_length), generator=g,
+                   device=cuda) * 2 - 1
+    model = build_model(cfg, cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    chains = (mlp.enc_bwd_full, mlp.dec_bwd_full)
+    before = [(f.launches, f.tensor_core_launches) for f in chains]
+    state, m = build_train_step(model, cfg)(state, x)
+    torch.cuda.synchronize()
+    for f, (n, tc) in zip(chains, before):
+        assert (f.launches - n, f.tensor_core_launches - tc) == (16, 16)
+    assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
