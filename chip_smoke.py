@@ -22,7 +22,17 @@ any failure exits non-zero with a traceback (no phase is caught):
    version and the library sequence (``addmm`` → ``relu`` → ``addmm`` →
    ``addmm``; ``addmm`` → ``relu`` → ``addmm`` → ``tanh``) at 256 and 8192
    with each launch's device time apart, and every product's plan (tile,
-   slices) swept at both beside the rule's pick;
+   slices) swept at both beside the rule's pick; the int8 decoder
+   ``quantized_decoder_fwd`` on ``csrc/sgemm.cuh`` (h3, then y, each int8
+   weight copied into shared memory as it lies and dequantized as its slab
+   is read back, on the fp32 decoder's plans) at batch 256, 33, 1, 100 and
+   8192 against the plain version and the first version, bit for bit
+   against the fp32 ``decoder_fwd(kernel="sgemm")`` on the dequantized
+   weights, a latent of 38 keeping the first version, timed at 256 in
+   turns with the first version, the plain version, that fp32 decoder and
+   the library sequence (dequantize → ``addmm`` → ``relu`` → ``addmm`` →
+   ``tanh``), by device time with its parts apart, and every product's plan
+   swept;
 3b. the training kernels — the four backward kernels in fp32 and bf16, the
    two forward kernels in bf16 — against their plain versions at full
    width, batch 8192 (the training microbatch), a ragged 1000 and 1, and
@@ -51,7 +61,15 @@ any failure exits non-zero with a traceback (no phase is caught):
    their column sums in one launch, both outputs side by side, then the
    slices' sum; beside ``h.t() @ dmu`` → ``dmu.float().sum(0)`` → ``h.t() @
    dlv`` → ``dlv.float().sum(0)``) at latent 72 too, a latent of 36 keeping
-   the first version, with the plan swept for two outputs;
+   the first version, with the plan swept for two outputs; fp32
+   ``enc_bwd_dw1``, ``grad_accum2`` and ``dec_bwd_fused`` on
+   ``csrc/sgemm.cuh`` (the fp32 launches of ``matmul_nt2_mask`` /
+   ``matmul_nt_mask``, ``matmul_nt`` and ``grad_accum`` one after
+   another) at 8192, 1000 and 1 against the plain version and the first
+   version, bit for bit against those launches called one by one, a latent
+   of 38 keeping the first version, timed at 8192 in turns with the first
+   version, the plain version and the fp32 library sequence (TF32 off) and
+   by device time with each launch apart;
 3c. the fp32 input-gradient kernels (``matmul_nt``, ``matmul_nt_mask``,
    ``matmul_nt2_mask``) in fp32 and bf16 at batch 8192, 1000 and 1, with
    the one PyTorch call ``a @ w.t()`` timed beside ``matmul_nt``; bf16
@@ -232,8 +250,8 @@ any failure exits non-zero with a traceback (no phase is caught):
    the first version, the plain version and the library sequence
    (cotangent -> product, -> sum for dW) and by device time beside the
    bare product, their plans swept at the deep layers; the library
-   sequences of the int8 decoder, the sampler and the loss sums beside
-   their kernels' device time; ``leaf_update`` against its
+   sequences of the sampler and the loss sums beside their kernels' device
+   time; ``leaf_update`` against its
    plain version BIT FOR BIT on leaves of 1, 255, 256 and 4,000,003
    elements, a 3-D leaf and an unaligned view, in place;
    ``fused_adam_apply`` against ``Adam.update`` bit for bit over 5 coupled
@@ -252,8 +270,8 @@ any failure exits non-zero with a traceback (no phase is caught):
 
 ``launches`` in the kernel line: the wrapper's count over the path where
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
-(phase 4; fp32 ``encoder_fwd`` / ``decoder_fwd``: those on the fp32
-kernel, every one); bf16 forward kernels: the training run of phase 5 (its
+(phase 4; fp32 ``encoder_fwd`` / ``decoder_fwd`` and the int8
+``quantized_decoder_fwd``: those on the fp32 kernel, every one); bf16 forward kernels: the training run of phase 5 (its
 fp32 test-set reconstructions included); bf16 "split" backward kernels: that
 run (bf16 ``encoder_fwd``, ``decoder_fwd``, ``dec_bwd_fused``,
 ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2``: those on the tensor
@@ -261,8 +279,10 @@ cores; the run's fp32 reconstructions take ``csrc/sgemm.cuh``); fp32
 ``grad_accum``: the ``highest`` step of phase 5 (those on the fp32 kernel
 of ``csrc/sgemm.cuh``; no path of the
 package runs ``enc_bwd_dw1``, ``grad_accum2`` or ``dec_bwd_fused`` on fp32
-operands since ``high`` takes the full chains: phase 3b still holds them
-against their plain versions, and they stay out of the kernel line);
+operands since ``high`` takes the full chains: phase 3b still holds their
+``csrc/sgemm.cuh`` forms against their plain versions and times them
+beside their fp32 library sequences, and they stay out of the kernel line,
+printed as "on no path");
 ``enc_bwd_full`` / ``dec_bwd_full``: the
 ``high`` stream run of phase 7 (those on the tensor cores, every one);
 ``loss_sums``: the ``fused_loss`` call on a
@@ -292,9 +312,11 @@ The rows of bf16 ``matmul_nt``, ``matmul_nt2_mask``, ``linear_ksplit_fwd``,
 ``dec_bwd_fused``, ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2``
 describe the tensor-core kernel, those of fp32 ``matmul_nt``,
 ``matmul_nt_mask``, ``matmul_nt2_mask``, ``linear_ksplit_fwd``,
-``linear_fwd``, ``grad_accum``, ``encoder_fwd`` and ``decoder_fwd`` the
-fp32 kernel of ``csrc/sgemm.cuh`` (``ms``, and ``launches``: those that
-took it; fp32 ``linear_fwd`` at the server's 256x4096->4096, fp32
+``linear_fwd``, ``grad_accum``, ``encoder_fwd``, ``decoder_fwd`` and
+``quantized_decoder_fwd`` the fp32 kernel of ``csrc/sgemm.cuh`` (``ms``,
+and ``launches``: those that took it; ``quantized_decoder_fwd`` with an
+int8 B, at the server's batch, with the fp32 decoder's times on the
+dequantized weights as ``fp32_decoder_ms`` / ``fp32_decoder_device_ms``; fp32 ``linear_fwd`` at the server's 256x4096->4096, fp32
 ``linear_ksplit_fwd`` at 4096^3, fp32 ``grad_accum`` at dW4,
 8192x2048->1024, with dW21 and dW3 in keys of their own, fp32
 ``encoder_fwd`` / ``decoder_fwd`` at the server's batch of 256, with the
@@ -693,7 +715,139 @@ def phase_train_kernels(gen_params):
     grad_accum_tensor_cores(rows["grad_accum[bf16]"], inputs)
     enc_bwd_tensor_cores(rows["enc_bwd_dw1[bf16]"], inputs)
     grad_accum2_tensor_cores(rows["grad_accum2[bf16]"], inputs)
+    backward_sgemm(rows, inputs)
     return rows
+
+
+# phase 3b, rows 8-10 in fp32 on csrc/sgemm.cuh: each is the fp32 launches
+# of rows 6 / 5, 4 and 7 one after another; no one PyTorch call computes
+# any of them, so library_ms is the device time of a sequence of fp32 calls
+# (TF32 off) on the same operands, summed
+BWD_SGEMM_LIBRARY = {
+    "enc_bwd_dw1": "the sequence addmm(dmu @ w21.t(), dlv, w22.t()) -> "
+                   "where(h > 0, ., 0) -> x.t() @ dh -> dh.sum(0) in fp32, "
+                   "TF32 off, device time summed",
+    "grad_accum2": "the sequence h.t() @ dmu -> dmu.sum(0) -> h.t() @ dlv "
+                   "-> dlv.sum(0) in fp32, TF32 off, device time summed",
+    "dec_bwd_fused": "the sequence da @ w4.t() -> where(h3 > 0, ., 0) -> "
+                     "@ w3.t() -> z.t() @ dh3 -> dh3.sum(0) in fp32, TF32 "
+                     "off, device time summed",
+}
+# each form's launches by kernel name: the gated product, the plain and
+# weight-gradient products, the slices' sum
+BWD_SGEMM_PARTS = {
+    "enc_bwd_dw1": {"dh gated joined": "sgemm_gated_kernel",
+                    "dW1 db1": "sgemm_kernel", "sum slices": "sum_slices"},
+    "grad_accum2": {"dW21 db21 dW22 db22": "sgemm_kernel",
+                    "sum slices": "sum_slices"},
+    "dec_bwd_fused": {"dh3 gated": "sgemm_gated_kernel",
+                      "dz and dW3 db3": "sgemm_kernel",
+                      "sum slices": "sum_slices"},
+}
+
+
+def backward_sgemm(rows, inputs):
+    """Phase 3b: fp32 ``enc_bwd_dw1``, ``grad_accum2`` and
+    ``dec_bwd_fused`` (rows 8-10) on csrc/sgemm.cuh (csrc/bwd.cu
+    sgemm_enc_bwd_dw1, sgemm_grad_accum2, sgemm_dec_bwd: the fp32 launches
+    of ``matmul_nt2_mask`` / ``matmul_nt_mask``, ``matmul_nt`` and
+    ``grad_accum`` one after another) at the microbatch, the ragged 1000
+    and batch 1: against the plain version and the first version, equal
+    bits twice and equal bits with the same launches called one by one at
+    their plans; a latent of 38 on the first version; timed at the
+    microbatch in turns with the first version, the plain version and the
+    fp32 library sequence, and by device time with each launch apart.  No
+    path runs them on fp32 operands: their rows stay out of the kernel
+    line (``off_path``)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    operands = {
+        "enc_bwd_dw1": lambda p, t: [t["x"], t["h"], t["dmu"], t["dlv"],
+                                     p["fc21"]["w"], p["fc22"]["w"]],
+        "grad_accum2": lambda p, t: [t["h"], t["dmu"], t["dlv"]],
+        "dec_bwd_fused": lambda p, t: [t["da"], t["h3"], t["z"],
+                                       p["fc4"]["w"], p["fc3"]["w"]]}
+
+    def one_by_one(name, ops):
+        if name == "enc_bwd_dw1":
+            x, h, dmu, dlv, w21, w22 = ops
+            dh = mlp.matmul_nt2_mask(dmu, w21, dlv, w22, h, kernel="sgemm")
+            return mlp.grad_accum(x, dh, kernel="sgemm")
+        if name == "grad_accum2":
+            h, dmu, dlv = ops
+            return (*mlp.grad_accum(h, dmu, kernel="sgemm"),
+                    *mlp.grad_accum(h, dlv, kernel="sgemm"))
+        da, h3, z, w4, w3 = ops
+        dh3 = mlp.matmul_nt_mask(da, w4, h3, kernel="sgemm")
+        return (mlp.matmul_nt(dh3, w3, kernel="sgemm"),
+                *mlp.grad_accum(z, dh3, kernel="sgemm"))
+
+    def library(name, ops):
+        if name == "enc_bwd_dw1":
+            x, h, dmu, dlv, w21, w22 = ops
+            dh = torch.where(h > 0, torch.addmm(dmu @ w21.t(), dlv,
+                                                w22.t()), 0)
+            return x.t() @ dh, dh.sum(0)
+        if name == "grad_accum2":
+            h, dmu, dlv = ops
+            return h.t() @ dmu, dmu.sum(0), h.t() @ dlv, dlv.sum(0)
+        da, h3, z, w4, w3 = ops
+        dh3 = torch.where(h3 > 0, da @ w4.t(), 0)
+        return dh3 @ w3.t(), z.t() @ dh3, dh3.sum(0)
+
+    g = torch.Generator(device="cuda").manual_seed(71)
+
+    def odd(name, batch, latent=38):
+        # a latent no multiple of 4: widths the fp32 form refuses
+        def rnd(*shape, scale=1.0, relu=False):
+            t = torch.randn(shape, generator=g, device="cuda") * scale
+            return t.clamp_min(0) if relu else t
+        if name == "enc_bwd_dw1":
+            return [rnd(batch, SEG, scale=0.3), rnd(batch, UNITS, relu=True),
+                    rnd(batch, latent), rnd(batch, latent),
+                    rnd(UNITS, latent, scale=UNITS ** -0.5),
+                    rnd(UNITS, latent, scale=UNITS ** -0.5)]
+        if name == "grad_accum2":
+            return [rnd(batch, UNITS, relu=True), rnd(batch, latent),
+                    rnd(batch, latent)]
+        return [rnd(batch, SEG, scale=1e-3), rnd(batch, UNITS, relu=True),
+                rnd(batch, latent), rnd(UNITS, SEG, scale=SEG ** -0.5),
+                rnd(latent, UNITS, scale=UNITS ** -0.5)]
+
+    for name in ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused"):
+        op, plain = getattr(mlp, name), getattr(mlp, f"{name}_ref")
+        row = rows[f"{name}[fp32]"]
+        cases = [(f"batch {b}", operands[name](*inputs(b, torch.float32)))
+                 for b in (TRAIN_BATCH, TRAIN_RAGGED, 1)]
+        err = hold_tensor_cores(name, op, plain, cases,
+                                [("batch 1000, latent 38", odd(name, 1000))],
+                                kernel="sgemm")
+        for what, ops in cases:
+            check(all(torch.equal(a, b) for a, b in
+                      zip(op(*ops), one_by_one(name, ops))),
+                  f"{name}[fp32] {what}: other bits than its launches one "
+                  "by one")
+        print(f"  {name + '[fp32]':<24} equal bits with its sgemm.cuh "
+              f"launches called one by one at batch {TRAIN_BATCH}, "
+              f"{TRAIN_RAGGED} and 1")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        ops = operands[name](*inputs(TRAIN_BATCH, torch.float32))
+        fns = {"library": lambda: library(name, ops),
+               "plain": lambda: plain(*ops),
+               "cuda_cores": lambda: op(*ops, kernel="cuda_cores"),
+               "sgemm": lambda: op(*ops, kernel="sgemm")}
+        fast = fns["sgemm"]
+        dev = time_tensor_cores(
+            name, row, fns,
+            {label: (lambda m=m: device_ms(fast, match=m))
+             for label, m in BWD_SGEMM_PARTS[name].items()},
+            BWD_SGEMM_LIBRARY[name], kernel="sgemm")
+        print(f"  {name + '[fp32]':<24} batch {TRAIN_BATCH}: device time "
+              f"{dev['sgemm']:.4f} ms, {dev['sgemm'] / dev['library']:.3f}x "
+              f"the fp32 library sequence's, "
+              f"{dev['cuda_cores'] / dev['sgemm']:.2f}x faster than the "
+              f"first version, {dev['sgemm'] / row['bound_ms']:.2f}x its "
+              f"bound")
 
 
 # phase 3b, the bf16 dense kernels on the tensor cores: no one PyTorch call
@@ -819,6 +973,12 @@ def time_tensor_cores(name, row, fns, parts, library_text,
                first_version_device_ms=dev["cuda_cores"],
                **{f"{k.replace(' ', '_')}_device_ms": v
                   for k, v in split.items()})
+    # any other callable timed beside them (the int8 decoder's fp32
+    # decoder on the dequantized weights)
+    for key in fns:
+        if key not in ("library", "plain", "cuda_cores", kernel):
+            row[f"{key.replace(' ', '_')}_ms"] = ms[key]
+            row[f"{key.replace(' ', '_')}_device_ms"] = dev[key]
     return dev
 
 
@@ -1509,8 +1669,117 @@ def forward_sgemm(rows, gen_params):
                 sweep_fwd(row, name, fast, fns["plain"], batch, label, k, n,
                           o)
 
+def quantized_sgemm(rows, gen_params):
+    """Phase 3: row 3, the int8 decoder on csrc/sgemm.cuh (csrc/quant.cu:
+    h3, then y, each launch_fwd with the int8 B copied into shared memory
+    as it lies and dequantized as its slabs are read back, on the fp32
+    decoder's plans) at the server's batch, 33, 1, the ragged 100 and the
+    microbatch: against the plain version and the first version
+    (``kernel="cuda_cores"``), each within KERNEL_ATOL, bit for bit
+    against the fp32 ``decoder_fwd`` on ``sgemm.cuh`` with the dequantized
+    weights, equal bits twice; a latent of 38 on the first version; timed
+    at 256 in turns with the first version, the plain version, that fp32
+    decoder and the library sequence (dequantize -> addmm -> relu -> addmm
+    -> tanh), and by device time with the products and the slices'
+    epilogue apart; each product's plan swept.  ``rows`` (phase 3's) take
+    the numbers."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp, quant
+
+    name = "quantized_decoder_fwd"
+    op = quant.quantized_decoder_fwd
+    qp = quant.quantize_decoder(gen_params(1234))
+    w3, w4 = (quant.dequantize_weight(qp[n]["q"], qp[n]["scale"])
+              for n in ("fc3", "fc4"))
+    b3, b4 = qp["fc3"]["b"], qp["fc4"]["b"]
+    # a generator of its own: the draws of the later phases stay as they were
+    g = torch.Generator(device="cuda").manual_seed(89)
+    row = rows[name]
+    err = 0.0
+    for b in (BATCH, 33, 1, RAGGED, TRAIN_BATCH):
+        z = torch.randn((b, LATENT), generator=g, device="cuda")
+        before = (op.launches, op.sgemm_launches)
+        got = op(qp, z)
+        torch.cuda.synchronize()
+        rose = (op.launches - before[0], op.sgemm_launches - before[1])
+        check(rose == (1, 1), f"{name} batch {b}: launches / sgemm "
+              f"launches rose by {rose}")
+        check(got.shape == (b, SEG) and bool(torch.isfinite(got).all()),
+              f"{name} batch {b}: shape {tuple(got.shape)} or non-finite")
+        fp32, _ = mlp.decoder_fwd(w3, b3, w4, b4, z, kernel="sgemm")
+        check(torch.equal(got, fp32), f"{name} batch {b}: other bits than "
+              "decoder_fwd(kernel='sgemm') on the dequantized weights")
+        check(torch.equal(got, op(qp, z)), f"{name} batch {b}: a second "
+              "launch gave other bits")
+        want = quant.quantized_decode_ref(qp, z)
+        first = op(qp, z, kernel="cuda_cores")
+        e, e1 = max_err([got], [want]), max_err([first], [want])
+        check(max(e, e1) <= KERNEL_ATOL, f"{name} batch {b}: error {e:.3e} "
+              f"(first version {e1:.3e}) > {KERNEL_ATOL}")
+        err = max(err, e)
+        print(f"  {name:<24} batch {b:>4}: ran sgemm; bit for bit the fp32 "
+              f"decoder_fwd(kernel='sgemm') on the dequantized weights, "
+              f"equal bits twice; max |kernel - plain| = {e:.3e}, the "
+              f"first version's {e1:.3e} (tolerance {KERNEL_ATOL:.0e})")
+    odd = quant.quantize_decoder(
+        {"fc3": {"w": torch.randn((38, UNITS), generator=g, device="cuda")
+                 * 38 ** -0.5, "b": b3},
+         "fc4": {"w": torch.randn((UNITS, SEG), generator=g, device="cuda")
+                 * UNITS ** -0.5, "b": b4}})
+    z = torch.randn((RAGGED, 38), generator=g, device="cuda")
+    before = (op.launches, op.sgemm_launches)
+    got = op(odd, z)
+    torch.cuda.synchronize()
+    rose = (op.launches - before[0], op.sgemm_launches - before[1])
+    e = max_err([got], [quant.quantized_decode_ref(odd, z)])
+    check(rose == (1, 0) and e <= KERNEL_ATOL, f"{name} latent 38: rose "
+          f"by {rose}, error {e:.3e}")
+    try:
+        op(odd, z, kernel="sgemm")
+    except ValueError:
+        pass
+    else:
+        check(False, f"{name} latent 38: kernel='sgemm' did not raise")
+    print(f"  {name:<24} batch {RAGGED}, latent 38: ran cuda_cores (the "
+          f"first version); max |kernel - plain| = {e:.3e}; kernel='sgemm' "
+          "raised")
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    z = torch.randn((BATCH, LATENT), generator=g, device="cuda")
+
+    def library():
+        v3, v4 = (qp[n]["q"].float() * qp[n]["scale"] for n in ("fc3", "fc4"))
+        h3 = torch.relu(torch.addmm(b3, z, v3))
+        return (torch.tanh(torch.addmm(b4, h3, v4)),)
+
+    fns = {"library": library,
+           "plain": lambda: (quant.quantized_decode_ref(qp, z),),
+           "cuda_cores": lambda: (op(qp, z, kernel="cuda_cores"),),
+           "sgemm": lambda: (op(qp, z, kernel="sgemm"),),
+           "fp32 decoder": lambda: mlp.decoder_fwd(w3, b3, w4, b4, z,
+                                                   kernel="sgemm")}
+    fast = fns["sgemm"]
+    check(max_err(library(), fns["plain"]()) <= KERNEL_ATOL,
+          f"{name}: the library sequence is another function")
+    dev = time_tensor_cores(
+        name, row, fns,
+        {"h3 and y": lambda: device_ms(fast, match="sgemm_kernel"),
+         "slices epilogue": lambda: device_ms(fast, match="slices_epilogue")},
+        ROW_LIBRARY[name] + ", TF32 off", kernel="sgemm", batch=BATCH)
+    print(f"  {name:<24} batch {BATCH}: device time {dev['sgemm']:.4f} ms, "
+          f"{dev['cuda_cores'] / dev['sgemm']:.2f}x faster than the first "
+          f"version ({dev['cuda_cores']:.4f}), "
+          f"{dev['sgemm'] / dev['library']:.3f}x the library sequence's "
+          f"({dev['library']:.4f}), {dev['sgemm'] / dev['fp32 decoder']:.3f}"
+          f"x the fp32 decoder's on the dequantized weights "
+          f"({dev['fp32 decoder']:.4f}), "
+          f"{dev['sgemm'] / row['bound_ms']:.2f}x its bound")
+    for label, k, n in (("h3", LATENT, UNITS), ("y", UNITS, SEG)):
+        sweep_fwd(row, name, fast, fns["plain"], BATCH, label, k, n, 1)
+
+
 # phase 3f: the library sequences of the rows with no one PyTorch call of
-# their function: the int8 decoder, the sampler and the loss sums
+# their function: the sampler and the loss sums (the int8 decoder's is
+# timed with it in phase 3, quantized_sgemm)
 ROW_LIBRARY = {
     "quantized_decoder_fwd": "the sequence q.float() * scale (both layers) "
                              "-> addmm -> relu -> addmm -> tanh, device time "
@@ -1524,27 +1793,17 @@ ROW_LIBRARY = {
 
 
 def row_libraries(rows, gen_params):
-    """Phase 3f: each row of ROW_LIBRARY timed beside its library sequence,
-    both by device time, on operands of the row's timed shape: the int8
-    decoder at the server's batch, the sampler at SAMPLER_SHAPE, the loss
-    sums at LOSS_BATCH; into the rows' library_ms and device_ms."""
-    from rawaudiovae_kelsey_tpu_torch.ops import loss, quant, rng
+    """Phase 3f: the sampler and the loss sums timed beside their library
+    sequences (ROW_LIBRARY), both by device time, on operands of the row's
+    timed shape: the sampler at SAMPLER_SHAPE, the loss sums at
+    LOSS_BATCH; into the rows' library_ms and device_ms."""
+    from rawaudiovae_kelsey_tpu_torch.ops import loss, rng
 
     # a generator of its own: the draws of the other phases stay as they were
     g = torch.Generator(device="cuda").manual_seed(67)
-    qp = quant.quantize_decoder(gen_params(7))
-    z = torch.randn((BATCH, LATENT), generator=g, device="cuda")
-
-    def dequantized_decoder():
-        w3, w4 = (qp[n]["q"].float() * qp[n]["scale"] for n in ("fc3", "fc4"))
-        h3 = torch.relu(torch.addmm(qp["fc3"]["b"], z, w3))
-        return torch.tanh(torch.addmm(qp["fc4"]["b"], h3, w4))
-
     mu = torch.randn(SAMPLER_SHAPE, generator=g, device="cuda")
     logvar = torch.randn(SAMPLER_SHAPE, generator=g, device="cuda") * 0.5
     cases = {
-        "quantized_decoder_fwd": (dequantized_decoder,
-                                  lambda: quant.quantized_decoder_fwd(qp, z)),
         "reparameterize_prng[fp32]": (
             lambda: mu + torch.randn_like(mu) * torch.exp(0.5 * logvar),
             lambda: rng.reparameterize_prng((7, 8), mu, logvar)),
@@ -4968,10 +5227,19 @@ def phase_conv(tmp: Path, card: str):
 
 def off_path(row: dict) -> None:
     """Print a row that was held against its plain version and timed, but
-    that no path of the package launches: it stays out of the kernel line."""
+    that no path of the package launches: it stays out of the kernel line.
+    A row whose new form was timed beside its library sequence and its
+    first version (fp32 rows 8-10) prints those too."""
+    extra = "".join(
+        f", {label} {row[key]:.4f} ms" for key, label in (
+            ("device_ms", "device"), ("library_ms", "library sequence "
+                                                    "(device)"),
+            ("first_version_ms", "first version"),
+            ("first_version_device_ms", "first version (device)"))
+        if row.get(key) is not None)
     print(f"  on no path, out of the kernel line: {row['name']}: kernel "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}){extra}")
 
 
 def host_cost() -> dict:
@@ -5069,6 +5337,7 @@ def main() -> int:
     with torch.inference_mode():
         rows = phase_kernels(gen_params)
         forward_sgemm(rows, gen_params)
+        quantized_sgemm(rows, gen_params)
 
     print("phase 3b: training kernels against their plain versions")
     with torch.inference_mode():
@@ -5112,7 +5381,9 @@ def main() -> int:
         save_config(cfg, run_dir / "config.ini")
         params = gen_params(7)
         save_params(run_dir / "model" / "best_model.npz", params)
-        dense = (ops.encoder_fwd, ops.decoder_fwd)
+        # the fp32 encoder and decoder and the int8 decoder: every serving
+        # launch on csrc/sgemm.cuh
+        dense = (ops.encoder_fwd, ops.decoder_fwd, ops.quantized_decoder_fwd)
         for w in ops.KERNEL_WRAPPERS:
             w.launches = 0
         for w in dense:
@@ -5124,8 +5395,9 @@ def main() -> int:
     print(f"  kernel launches in the serving path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched by the serving path")
-    # the fp32 encoder and decoder: every launch on csrc/sgemm.cuh
-    print("  fp32 launches in the serving path on csrc/sgemm.cuh: "
+    # the fp32 encoder and decoder and the int8 decoder (--quantize): every
+    # launch on csrc/sgemm.cuh
+    print("  serving launches on csrc/sgemm.cuh: "
           + ", ".join(f"{name} {n}/{launches[name]}"
                       for name, n in on_sgemm.items()))
     for name, n in on_sgemm.items():
@@ -5161,7 +5433,9 @@ def main() -> int:
                   f"{label} /reconstruct differs from the plain path")
 
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        # the rows describe csrc/sgemm.cuh's forms: the launches that took
+        # them (all of them, checked above)
+        row["launches"] = on_sgemm[name]
     print(f"  /reconstruct latency: fp32 {fp32_ms:.2f} ms, int8 "
           f"{int8_ms:.2f} ms")
 

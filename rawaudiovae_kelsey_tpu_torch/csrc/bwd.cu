@@ -95,10 +95,15 @@
 // gradients in one launch of that weight gradient (rvk::tc::launch_wgrad2:
 // h read once for dW21 and dW22); and rvk_enc_bwd_dw1, whose bf16 form is
 // dh as one k-joined product with the gate in its epilogue, then that
-// weight gradient (tensor_core_enc_bwd_dw1 below).  At the step's
-// microbatch the bf16 weight gradients are far above the ridge (dW1 and
-// dW4: 34 GFLOP on 58 MB of operands and output, ~590 FLOP a byte), so the
-// tensor cores bound them.  The template matmul_nt<T> below stays on
+// weight gradient (tensor_core_enc_bwd_dw1 below).  The fp32 forms of
+// rvk_enc_bwd_dw1, rvk_grad_accum2 and rvk_dec_bwd_fused are sgemm.cuh's
+// launches of the entry points above, one after another (sgemm_enc_bwd_dw1,
+// sgemm_grad_accum2, sgemm_dec_bwd below): no path runs them on fp32
+// operands (the `float32` and `highest` tiers take the primitive backward,
+// `high` the full chains), and each computes what those launches compute
+// one by one.  At the step's microbatch the bf16 weight gradients are far
+// above the ridge (dW1 and dW4: 34 GFLOP on 58 MB of operands and output,
+// ~590 FLOP a byte), so the tensor cores bound them.  The template matmul_nt<T> below stays on
 // gemm.cuh: the first versions of the entry points above (kernel code 0,
 // and every shape their new forms do not take) and the full chains' first
 // versions launch it.
@@ -343,6 +348,70 @@ int tensor_core_enc_bwd_dw1(const void* x, const void* h, const void* dmu,
                                seg, units, batch, tile_dw, split, s);
 }
 
+// The fp32 form of enc_bwd_dw1 on sgemm.cuh, two launches in stream order
+// (three with the slices' sum): dh = (dmu @ w21ᵀ + dlv @ w22ᵀ)·(h > 0) as
+// rvk_matmul_nt2_mask's fp32 launch (launch_gated<true>: the pairs joined
+// along k as the slabs are copied) on tile kTiles[tile_dh] into the scratch
+// dh; then dw1 = xᵀ dh and db1 = colsum(dh) as rvk_grad_accum's
+// (launch_wgrad) on kTiles[tile_dw] over `split` slices of the batch.
+int sgemm_enc_bwd_dw1(const void* x, const void* h, const void* dmu,
+                      const void* dlv, const void* w21, const void* w22,
+                      void* dh, float* dw1, float* db1, float* workspace,
+                      int batch, int seg, int units, int latent, int dtype,
+                      int tile_dh, int tile_dw, int split, cudaStream_t s) {
+  if (dtype != rvk::kF32 || batch <= 0) return cudaErrorInvalidValue;
+  const cudaError_t err = rvk::sgemm::launch_gated<true>(
+      src<float>(dmu), src<float>(w21), src<float>(dlv), src<float>(w22),
+      src<float>(h), dst<float>(dh), batch, units, latent, tile_dh, s);
+  if (err != cudaSuccess) return err;
+  return rvk::sgemm::launch_wgrad(src<float>(x), dst<float>(dh), dw1, db1,
+                                  workspace, seg, units, batch, tile_dw,
+                                  split, s);
+}
+
+// The fp32 form of grad_accum2 on sgemm.cuh: rvk_grad_accum's fp32 launch
+// (launch_wgrad) twice, dw1 and db1 from b1, then dw2 and db2 from b2, each
+// on kTiles[tile_dw] over `split` slices of the batch through `workspace`
+// (the second reuses the first's: stream order).
+int sgemm_grad_accum2(const void* a, const void* b1, const void* b2,
+                      float* dw1, float* db1, float* dw2, float* db2,
+                      float* workspace, int batch, int n, int m, int dtype,
+                      int tile_dw, int split, cudaStream_t s) {
+  if (dtype != rvk::kF32 || batch <= 0) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      rvk::sgemm::launch_wgrad(src<float>(a), src<float>(b1), dw1, db1,
+                               workspace, n, m, batch, tile_dw, split, s);
+  if (err != cudaSuccess) return err;
+  return rvk::sgemm::launch_wgrad(src<float>(a), src<float>(b2), dw2, db2,
+                                  workspace, n, m, batch, tile_dw, split, s);
+}
+
+// The fp32 form of dec_bwd_fused on sgemm.cuh, three launches in stream
+// order (four with the slices' sum): dh3 = (da @ w4ᵀ)·(h3 > 0) as
+// rvk_matmul_nt_mask's fp32 launch (launch_gated<false>) on
+// kTiles[tile_dh3] into the scratch dh3; dz = dh3 @ w3ᵀ as rvk_matmul_nt's
+// (sgemm::launch) on kTiles[tile_dz]; dw3 = zᵀ dh3 and db3 = colsum(dh3)
+// as rvk_grad_accum's (launch_wgrad) on kTiles[tile_dw] over `split`
+// slices of the batch.
+int sgemm_dec_bwd(const void* da, const void* h3, const void* z,
+                  const void* w4, const void* w3, void* dh3, void* dz,
+                  float* dw3, float* db3, float* workspace, int batch,
+                  int seg, int units, int latent, int dtype, int tile_dh3,
+                  int tile_dz, int tile_dw, int split, cudaStream_t s) {
+  if (dtype != rvk::kF32 || batch <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = rvk::sgemm::launch_gated<false>(
+      src<float>(da), src<float>(w4), nullptr, nullptr, src<float>(h3),
+      dst<float>(dh3), batch, units, seg, tile_dh3, s);
+  if (err != cudaSuccess) return err;
+  err = rvk::sgemm::launch<true, rvk::kActNone>(
+      dst<float>(dh3), src<float>(w3), nullptr, dst<float>(dz), batch, latent,
+      units, tile_dz, s);
+  if (err != cudaSuccess) return err;
+  return rvk::sgemm::launch_wgrad(src<float>(z), dst<float>(dh3), dw3, db3,
+                                  workspace, latent, units, batch, tile_dw,
+                                  split, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -495,12 +564,20 @@ int rvk_grad_accum(const void* a, const void* b, float* dw, float* db,
 // multiples of 8, 16-byte aligned pointers, batch > 0, in tiles 128 x
 // tile_dw over `split` slices of the batch, through `workspace` (2 · split
 // · (n · m + m) floats) when split > 1 (ops/tensor_cores.py wgrad_plan
-// with two outputs).
+// with two outputs); 2, the fp32 form (sgemm_grad_accum2: rvk_grad_accum's
+// fp32 launch for each output), fp32 only, n and m multiples of 4, 16-byte
+// aligned pointers, batch > 0, on the tile sgemm::kTiles[tile_dw] over
+// `split` slices, through `workspace` (split · (n · m + m) floats at least;
+// ops/tensor_cores.py sgemm_wgrad_plan).
 int rvk_grad_accum2(const void* a, const void* b1, const void* b2, float* dw1,
                     float* db1, float* dw2, float* db2, float* workspace,
                     int batch, int n, int m, int dtype, int tile_dw,
                     int split, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    return sgemm_grad_accum2(a, b1, b2, dw1, db1, dw2, db2, workspace, batch,
+                             n, m, dtype, tile_dw, split, s);
+  }
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16 ||
         batch <= 0) {
@@ -527,7 +604,11 @@ int rvk_grad_accum2(const void* a, const void* b1, const void* b2, float* dw1,
 // pointers, batch > 0: dh in tiles 128 x tile_dh, dw1 and db1 in 128 x
 // tile_dw over `split` slices of the batch, through `workspace` (split ·
 // (seg · units + units) floats) when split > 1 (ops/tensor_cores.py tile_n
-// and wgrad_plan).
+// and wgrad_plan); 2, the fp32 form (sgemm_enc_bwd_dw1), fp32 only, seg,
+// units and latent multiples of 4, 16-byte aligned pointers, batch > 0: dh
+// on the tile sgemm::kTiles[tile_dh], dw1 and db1 on kTiles[tile_dw] over
+// `split` slices, through `workspace` as above (ops/tensor_cores.py
+// sgemm_tile and sgemm_wgrad_plan).
 int rvk_enc_bwd_dw1(const void* x, const void* h, const void* dmu,
                     const void* dlv, const void* w21, const void* w22,
                     void* dh, float* dw1, float* db1, float* workspace,
@@ -535,6 +616,11 @@ int rvk_enc_bwd_dw1(const void* x, const void* h, const void* dmu,
                     int tile_dh, int tile_dw, int split, int kernel,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    return sgemm_enc_bwd_dw1(x, h, dmu, dlv, w21, w22, dh, dw1, db1,
+                             workspace, batch, seg, units, latent, dtype,
+                             tile_dh, tile_dw, split, s);
+  }
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
     return tensor_core_enc_bwd_dw1(x, h, dmu, dlv, w21, w22, dh, dw1, db1,
@@ -558,7 +644,12 @@ int rvk_enc_bwd_dw1(const void* x, const void* h, const void* dmu,
 // 8, 16-byte aligned pointers, batch > 0: dh3 in tiles 128 x tile_dh3, dz in
 // 128 x tile_dz, dw3 and db3 in 128 x tile_dw over `split` slices of the
 // batch, through `workspace` (split · (latent · units + units) floats) when
-// split > 1 (ops/tensor_cores.py tile_n and wgrad_plan).
+// split > 1 (ops/tensor_cores.py tile_n and wgrad_plan); 2, the fp32 form
+// (sgemm_dec_bwd), fp32 only, seg, units and latent multiples of 4, 16-byte
+// aligned pointers, batch > 0: dh3 on the tile sgemm::kTiles[tile_dh3], dz
+// on kTiles[tile_dz], dw3 and db3 on kTiles[tile_dw] over `split` slices,
+// through `workspace` as above (ops/tensor_cores.py sgemm_tile and
+// sgemm_wgrad_plan).
 int rvk_dec_bwd_fused(const void* da, const void* h3, const void* z,
                       const void* w4, const void* w3, void* dh3, void* dz,
                       float* dw3, float* db3, float* workspace, int batch,
@@ -566,6 +657,11 @@ int rvk_dec_bwd_fused(const void* da, const void* h3, const void* z,
                       int tile_dh3, int tile_dz, int tile_dw, int split,
                       int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    return sgemm_dec_bwd(da, h3, z, w4, w3, dh3, dz, dw3, db3, workspace,
+                         batch, seg, units, latent, dtype, tile_dh3, tile_dz,
+                         tile_dw, split, s);
+  }
   if (kernel != rvk::tc::kCudaCores) {
     if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
     return tensor_core_dec_bwd(da, h3, z, w4, w3, dh3, dz, dw3, db3,

@@ -1,8 +1,11 @@
 // fp32 mainloop for Hopper's CUDA cores (sm_90a): the device routine of the
 // fp32 forms of rvk_linear_fwd (linear.cu), rvk_matmul_nt, rvk_grad_accum,
 // rvk_matmul_nt_mask and rvk_matmul_nt2_mask (bwd.cu: sgemm_gated_kernel),
-// rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu), rvk_dx_fused and
-// rvk_dw_fused (linear_bwd.cu: sgemm_fused_kernel).
+// rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu), rvk_quantized_decoder_fwd
+// (quant.cu: an int8 B), rvk_dx_fused and rvk_dw_fused (linear_bwd.cu:
+// sgemm_fused_kernel), and the fp32 forms of rvk_enc_bwd_dw1,
+// rvk_grad_accum2 and rvk_dec_bwd_fused (bwd.cu: the launches above, one
+// after another).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -23,8 +26,9 @@
 // Which TPU kernels run on it: linear_fwd (_linear_kernel) of
 // rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt, matmul_nt_mask,
 // matmul_nt2_mask, grad_accum (_grad_accum_kernel), encoder_fwd and
-// decoder_fwd of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py, and dw_fused and
-// dx_fused of benchmarks/deep_bwd_probe.py, in fp32.  As there, an output
+// decoder_fwd of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py,
+// quantized_decoder_fwd of rawaudiovae_kelsey_tpu/ops/quant.py, and dw_fused
+// and dx_fused of benchmarks/deep_bwd_probe.py, in fp32.  As there, an output
 // tile carries one accumulator across its contraction, and a block walks
 // its k range itself, in order.  The forward products of launch take all
 // of K in one slice: no workspace, no atomics, so two launches give equal
@@ -88,24 +92,41 @@
 //   BM floats, read straight from the ring (no compute buffers, no
 //   transposition), so the weight gradient takes the x @ w form's shared
 //   memory for both operands.
+// * An int8 N-major B with one fp32 scale a column (the int8 decoder's q
+//   (K, N) and s (N,)) is copied as it lies into a ring of int8 slabs, a
+//   quarter of the fp32 ring's bytes, by 4-byte cp.async.ca copies, one a
+//   4 columns, placed as the fp32 operand's 16-byte copies are.  After a
+//   slab has landed each thread reads back the copies it made itself (no
+//   barrier, as for a K-major operand), dequantizes each value as q · s
+//   (one fp32 multiply, rounded to nearest: dequantize_weight's bits) and
+//   stores it into one of two fp32 compute buffers, which the k-steps read
+//   as they read an fp32 ring.  A thread's columns are the same in every
+//   slab, so its four scales are loaded once.  Each element is dequantized
+//   once a block, 1/64 of the FFMAs at 64 x 64; the k order and the FFMAs
+//   are the fp32 operand's, so the product equals the fp32 kernel's on the
+//   dequantized matrix bit for bit.
 // * The bias gradient colsum(b) of the weight gradient is summed by the
 //   blocks of dW's first tile row from the B slabs they already hold in
 //   shared memory, while the FFMAs run: thread t adds column t % BN over
 //   the rows of its group t / BN (kThreads / BN groups of kBK · BN /
 //   kThreads rows a slab), in k order; the groups are added in order at the
 //   end.  No second read of b; rows past the batch are zero fills.
-// * What it takes: k and n multiples of 4 (16-byte rows and chunks; m and n
+// * What it takes: k and n multiples of 4 (16-byte rows and chunks, 4-byte
+//   ones for an int8 B; m and n
 //   for the weight gradient; each pair's k for a joined product, so that no
 //   16-byte copy straddles the join) and 16-byte aligned base pointers; the
 //   callers check, and every other fp32 shape keeps the first version
 //   (gemm.cuh).
 // * Registers.  __launch_bounds__(256, 2): two blocks an SM, at most 128
 //   registers a thread; the build's ptxas report shows the count and any
-//   spill.  Shared memory, (4 + 2) slabs of a K-major operand and 4 of an
-//   N-major one: 80 KB at 128 x 128 for x @ w, 96 KB for a @ wᵀ and its
-//   gated and joined forms (the gate is read from device memory in the
-//   epilogue, once a tile); 128 and 144 KB at 128 x 64, where the grids
-//   hold about one block an SM.
+//   spill; an int8 B's four scales take four more, and at 128 x 128 that
+//   form spills 20 bytes.  Shared memory, (4 + 2) slabs of a K-major
+//   operand and 4 of an N-major one: 80 KB at 128 x 128 for x @ w, 96 KB
+//   for a @ wᵀ and its gated and joined forms (the gate is read from
+//   device memory in the epilogue, once a tile); 128 and 144 KB at 128 x
+//   64, where the grids hold about one block an SM; an int8 B's ring is a
+//   quarter of an fp32 one, beside its two fp32 compute buffers (72 KB at
+//   128 x 128).
 // The slab depths, the ring's depth and the fragment pipelining are the
 // fastest of the variants timed against one another on an H100 (PERF.md).
 #pragma once
@@ -114,6 +135,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "gemm.cuh"
 #include "slices.cuh"
@@ -145,6 +167,25 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                : "memory");
 }
 
+// the 4-byte copy of an int8 operand: four values, a column each
+__device__ __forceinline__ void cp_async4(int8_t* dst, const int8_t* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one copy of four consecutive elements: 16 bytes of fp32, 4 of int8
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void copy4(int8_t* dst, const int8_t* src,
+                                      bool valid) {
+  cp_async4(dst, src, valid);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -167,17 +208,32 @@ __device__ __forceinline__ void cp_async_wait() {
 // only: the encoder's dh, [a1 a2] and [w1 w2]) is two matrices of `ld`
 // columns side by side along k: k below ld from p, the rest from q at k -
 // ld.  ld is a multiple of 4, so a 16-byte copy never straddles the join.
+// An int8 operand (T = int8_t, N-major only: the int8 decoder's weights)
+// has a ring of int8 slabs and, after it, two fp32 compute buffers that
+// the read-back pass fills with the dequantized values q · s[column].
 template <int R, bool kKMajor, int kBK, int kS = kStages, bool kForm = false,
-          bool kJoin = false>
+          bool kJoin = false, typename T = float>
 struct Operand {
   static_assert(!kJoin || (kKMajor && !kForm),
                 "a joined operand is K-major and not formed");
-  static constexpr int kSlab = R * kBK;
+  static constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  static_assert(!kQuant || (!kKMajor && !kForm && !kJoin),
+                "an int8 operand is N-major, neither formed nor joined");
+  static constexpr int kSlab = R * kBK;  // elements
   static constexpr int kRings = kForm ? 2 : 1;
-  static constexpr int kFloats = (kRings * kS + (kKMajor ? 2 : 0)) * kSlab;
+  // the ring's floats (an int8 slab is a quarter of an fp32 one), then the
+  // compute buffers of a K-major or an int8 operand
+  static constexpr int kRingFloats =
+      static_cast<int>(kRings * kS * kSlab * sizeof(T) / 4);
+  static constexpr bool kBuffers = kKMajor || kQuant;
+  static constexpr int kFloats = kRingFloats + (kBuffers ? 2 : 0) * kSlab;
   static constexpr int kCopies = kSlab / 4 / kThreads;  // a thread's, a slab
   static_assert(kCopies >= 1 && kSlab % (4 * kThreads) == 0,
-                "a slab is whole 16-byte copies, the same count a thread");
+                "a slab is whole copies of 4 elements, the same count a "
+                "thread");
+  static_assert(kKMajor || kThreads % (R / 4) == 0,
+                "an N-major operand's thread copies the same columns in "
+                "every slab");
   static constexpr int kQuads = kBK / 4;  // 16-byte copies a row of a slab
   static_assert((kQuads & (kQuads - 1)) == 0 && kQuads <= 8,
                 "a power of two of k-quads, at most 8");
@@ -191,8 +247,9 @@ struct Operand {
     return ((k >> 2) & (kQuads - 1)) * (8 / kQuads);
   }
 
-  // the slab's i-th 16-byte copy of this thread: row r (of R) and k offset
-  // kq for a K-major operand; k-row kq and column r for an N-major one
+  // the slab's i-th copy of 4 elements of this thread: row r (of R) and k
+  // offset kq for a K-major operand; k-row kq and column r for an N-major
+  // one (the same r in every copy and slab)
   __device__ __forceinline__ static void place(int i, int& r, int& kq) {
     const int idx = threadIdx.x + i * kThreads;
     if (kKMajor) {
@@ -205,11 +262,11 @@ struct Operand {
   // start the copies of slab `slab` into ring stage `stage`; rows from r0
   // of `rows`, k of K; a formed operand's q (dy, laid out as p) into the
   // second ring; a joined operand's k from ld on from q
-  __device__ __forceinline__ static void issue(float* sm, const float* p,
-                                               const float* q, int ld, int r0,
+  __device__ __forceinline__ static void issue(float* sm, const T* p,
+                                               const T* q, int ld, int r0,
                                                int rows, int K, int slab,
                                                int stage) {
-    float* ring = sm + stage * kSlab;
+    T* ring = reinterpret_cast<T*>(sm) + stage * kSlab;
     const int k0 = slab * kBK;
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {
@@ -223,22 +280,41 @@ struct Operand {
       const int kk = second ? k - ld : k;
       const size_t at = kKMajor ? static_cast<size_t>(row) * ld + kk
                                 : static_cast<size_t>(kk) * ld + row;
-      cp_async16(ring + to, valid ? (second ? q : p) + at : p, valid);
+      copy4(ring + to, valid ? (second ? q : p) + at : p, valid);
       if constexpr (kForm) {
-        cp_async16(ring + kS * kSlab + to, valid ? q + at : q, valid);
+        copy4(ring + kS * kSlab + to, valid ? q + at : q, valid);
       }
     }
   }
 
   // This thread's copies of ring stage `stage`, read back: a K-major
   // operand's k-major into compute buffer `buf` (swizzled); a formed one's
-  // as da (act an rvk::Act), an N-major one's in place.  Nothing for an
-  // N-major operand that is loaded as it is.
+  // as da (act an rvk::Act), an N-major one's in place; an int8 one's
+  // dequantized, q · scale (its four columns' scales) rounded once, into
+  // compute buffer `buf` as it lies.  Nothing for an fp32 N-major operand
+  // that is loaded as it is.
   __device__ __forceinline__ static void transpose(float* sm, int stage,
-                                                   int buf, int act) {
-    if constexpr (kKMajor || kForm) {
+                                                   int buf, int act,
+                                                   float4 scale = {}) {
+    if constexpr (kQuant) {
+      const int8_t* ring =
+          reinterpret_cast<const int8_t*>(sm) + stage * kSlab;
+      float* out = sm + kRingFloats + buf * kSlab;
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i) {
+        int r, kq;
+        place(i, r, kq);
+        const int at = kq * R + r;
+        const char4 q = *reinterpret_cast<const char4*>(ring + at);
+        *reinterpret_cast<float4*>(out + at) =
+            make_float4(__fmul_rn(static_cast<float>(q.x), scale.x),
+                        __fmul_rn(static_cast<float>(q.y), scale.y),
+                        __fmul_rn(static_cast<float>(q.z), scale.z),
+                        __fmul_rn(static_cast<float>(q.w), scale.w));
+      }
+    } else if constexpr (kKMajor || kForm) {
       float* ring = sm + stage * kSlab;
-      float* out = sm + (kRings * kS + buf) * kSlab;
+      float* out = sm + kRingFloats + buf * kSlab;
 #pragma unroll
       for (int i = 0; i < kCopies; ++i) {
         int r, kq;
@@ -268,7 +344,21 @@ struct Operand {
   // the buffer the k-steps of slab t read
   __device__ __forceinline__ static const float* compute(const float* sm,
                                                           int t) {
-    return sm + (kKMajor ? kRings * kS + (t & 1) : t % kS) * kSlab;
+    return kBuffers ? sm + kRingFloats + (t & 1) * kSlab
+                    : sm + (t % kS) * kSlab;
+  }
+
+  // an int8 operand's scales of this thread's four columns from n0 (zeros
+  // past N, whose values are zero fills); zeros for any other operand
+  __device__ __forceinline__ static float4 scales(const float* s, int n0,
+                                                  int N) {
+    float4 v = {};
+    if constexpr (kQuant) {
+      int r, kq;
+      place(0, r, kq);
+      if (n0 + r < N) v = *reinterpret_cast<const float4*>(s + n0 + r);
+    }
+    return v;
   }
 
   // rows r .. r + 3 (r a multiple of 4) at k-row k of a compute buffer
@@ -295,20 +385,23 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
 // `form` the activation (an rvk::Act); kS is the ring's depth in slabs.  A
 // joined product (kJoin: both operands K-major) contracts [a a2] with [b
 // b2] along k, K the sum of both pairs' (equal) k.  kAct == kActGate: C =
-// where(gate > 0, A · B, 0), gate (M, N) laid out as C, no bias.
+// where(gate > 0, A · B, 0), gate (M, N) laid out as C, no bias.  TB =
+// int8_t: B is the int8 q (K, N), N-major, dequantized with the column
+// scales `scale` (N,) as its slabs are read back.
 template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct,
           bool kFormA = false, bool kFormB = false, int kS = kStages,
-          bool kJoin = false>
+          bool kJoin = false, typename TB = float>
 __device__ __forceinline__ void product_tile(
-    const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ a, const TB* __restrict__ b,
     const float* __restrict__ bias, float* __restrict__ c,
     float* __restrict__ colsum, int M, int N, int K, int rows, size_t stride,
     int n0, const float* __restrict__ a2 = nullptr,
-    const float* __restrict__ b2 = nullptr, int form = kActNone,
-    const float* __restrict__ gate = nullptr) {
+    const TB* __restrict__ b2 = nullptr, int form = kActNone,
+    const float* __restrict__ gate = nullptr,
+    const float* __restrict__ scale = nullptr) {
   constexpr int kBK = kSlabDepth<BM, BN>;
   using OpA = Operand<BM, kAKMajor, kBK, kS, kFormA, kJoin>;
-  using OpB = Operand<BN, kBKMajor, kBK, kS, kFormB, kJoin>;
+  using OpB = Operand<BN, kBKMajor, kBK, kS, kFormB, kJoin, TB>;
   constexpr int RM = BM / 64, RN = BN / 64;  // 4 x 4 sub-tiles a lane
   constexpr int WM = BM / 2, WN = BN / 4;    // the warp tile
   // a weight gradient sums B's columns: kGroups groups of kGroupRows rows
@@ -346,9 +439,11 @@ __device__ __forceinline__ void product_tile(
     }
     cp_async_commit();
   }
+  // an int8 B's column scales, for every slab this thread reads back
+  const float4 bscale = OpB::scales(scale, n0, N);
   cp_async_wait<kS - 2>();
   OpA::transpose(sa, 0, 0, form);
-  OpB::transpose(sb, 0, 0, form);
+  OpB::transpose(sb, 0, 0, form, bscale);
   __syncthreads();
 
   float acc[RM][RN][4][4];
@@ -413,10 +508,11 @@ __device__ __forceinline__ void product_tile(
 
     if (t + 1 < slabs) {
       // slab t + 1 has landed (this thread's copies); a K-major operand's
-      // goes k-major into the compute buffer slab t - 1 used
+      // goes k-major, an int8 one's dequantized, into the compute buffer
+      // slab t - 1 used
       cp_async_wait<kS - 2>();
       OpA::transpose(sa, (t + 1) % kS, (t + 1) & 1, form);
-      OpB::transpose(sb, (t + 1) % kS, (t + 1) & 1, form);
+      OpB::transpose(sb, (t + 1) % kS, (t + 1) & 1, form, bscale);
     }
     __syncthreads();
   }
@@ -473,25 +569,33 @@ __device__ __forceinline__ void product_tile(
 }
 
 // product_tile over a grid of ceil(N / BN) tile columns, ceil(M / BM) tile
-// rows and the contraction's slices.
-template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct>
+// rows and the contraction's slices; TB = int8_t: an int8 B and its column
+// scales.
+template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct,
+          typename TB = float>
 __global__ void __launch_bounds__(kThreads, 2)
-sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-             const float* __restrict__ bias, float* __restrict__ c,
-             float* __restrict__ colsum, int M, int N, int K, int rows,
-             size_t stride) {
-  product_tile<BM, BN, kAKMajor, kBKMajor, kAct>(
-      a, b, bias, c, colsum, M, N, K, rows, stride, blockIdx.x * BN);
+sgemm_kernel(const float* __restrict__ a, const TB* __restrict__ b,
+             const float* __restrict__ scale, const float* __restrict__ bias,
+             float* __restrict__ c, float* __restrict__ colsum, int M, int N,
+             int K, int rows, size_t stride) {
+  product_tile<BM, BN, kAKMajor, kBKMajor, kAct, false, false, kStages,
+               false, TB>(a, b, bias, c, colsum, M, N, K, rows, stride,
+                          blockIdx.x * BN, nullptr, nullptr, kActNone,
+                          nullptr, scale);
 }
 
 // Outputs of one A side by side (the encoder's two heads, mu = h · W21 and
 // logvar = h · W22): output o's B (K, N) N-major, its bias (N,) or null,
-// and its C (M, N).
-struct Outs {
-  const float* b[kMaxOuts];
+// and its C (M, N); for an int8 B (TB = int8_t, one output: a layer of the
+// int8 decoder) its column scales (N,), unused for fp32.
+template <typename TB>
+struct OutsOf {
+  const TB* b[kMaxOuts];
+  const float* scale[kMaxOuts];
   const float* bias[kMaxOuts];
   float* c[kMaxOuts];
 };
+using Outs = OutsOf<float>;
 
 // Both heads in one grid: 2 · ceil(N / BN) tile columns, column tn of
 // output tn / ceil(N / BN), whose B, bias and C the block takes by selects
@@ -525,26 +629,30 @@ cudaError_t opt_in(Kernel kernel, int smem, uint64_t& opted_in) {
 
 // the dynamic shared memory of a tile's rings (and compute buffers)
 template <int BM, int BN, bool kAKMajor, bool kBKMajor, bool kFormA = false,
-          bool kFormB = false, int kS = kStages>
+          bool kFormB = false, int kS = kStages, typename TB = float>
 constexpr int kSmemBytes =
     (Operand<BM, kAKMajor, kSlabDepth<BM, BN>, kS, kFormA>::kFloats +
-     Operand<BN, kBKMajor, kSlabDepth<BM, BN>, kS, kFormB>::kFloats) * 4;
+     Operand<BN, kBKMajor, kSlabDepth<BM, BN>, kS, kFormB, false,
+             TB>::kFloats) * 4;
 
 // sgemm_kernel on tile BM x BN over `slices` slices of `rows` rows of the
-// contraction each (one slice of K rows: the plain product).
-template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct>
-cudaError_t launch_tile(const float* a, const float* b, const float* bias,
+// contraction each (one slice of K rows: the plain product); TB = int8_t:
+// an int8 B with its column scales `scale`.
+template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct,
+          typename TB = float>
+cudaError_t launch_tile(const float* a, const TB* b, const float* bias,
                         float* c, float* colsum, int M, int N, int K,
                         int rows, int slices, size_t stride,
-                        cudaStream_t stream) {
-  auto kernel = sgemm_kernel<BM, BN, kAKMajor, kBKMajor, kAct>;
-  constexpr int smem = kSmemBytes<BM, BN, kAKMajor, kBKMajor>;
+                        cudaStream_t stream, const float* scale = nullptr) {
+  auto kernel = sgemm_kernel<BM, BN, kAKMajor, kBKMajor, kAct, TB>;
+  constexpr int smem =
+      kSmemBytes<BM, BN, kAKMajor, kBKMajor, false, false, kStages, TB>;
   static uint64_t opted_in = 0;
   const cudaError_t err = opt_in(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(N, BN), cdiv(M, BM), slices);
-  kernel<<<grid, kThreads, smem, stream>>>(a, b, bias, c, colsum, M, N, K,
-                                           rows, stride);
+  kernel<<<grid, kThreads, smem, stream>>>(a, b, scale, bias, c, colsum, M,
+                                           N, K, rows, stride);
   return cudaGetLastError();
 }
 
@@ -659,15 +767,20 @@ cudaError_t launch_heads_tile(const float* a, const Outs& outs, int M, int N,
 // + s) · M·N (kOuts · split · M·N floats), then slices_epilogue
 // (slices.cuh) adds the slices in order, adds the bias and applies the
 // activation.  No atomics: two launches give equal bits.  Nothing to
-// compute launches nothing.
-template <int kOuts, int kAct>
-cudaError_t launch_fwd(const float* a, const Outs& outs, float* workspace,
-                       int M, int N, int K, int tile, int split,
-                       cudaStream_t stream) {
+// compute launches nothing.  TB = int8_t (one output): B is the int8 q (K,
+// N) with its column scales outs.scale[0] (N,), dequantized as its slabs
+// are read back, the rest as for fp32: a layer of the int8 decoder.
+template <int kOuts, int kAct, typename TB = float>
+cudaError_t launch_fwd(const float* a, const OutsOf<TB>& outs,
+                       float* workspace, int M, int N, int K, int tile,
+                       int split, cudaStream_t stream) {
   static_assert(kOuts == 1 || kOuts == 2, "one output, or both heads");
+  constexpr bool kQuant = std::is_same<TB, int8_t>::value;
+  static_assert(!kQuant || kOuts == 1, "an int8 B has one output");
   if (!takes(K, N, {a, workspace})) return cudaErrorInvalidValue;
   for (int o = 0; o < kOuts; ++o) {
-    if (!aligned({outs.b[o], outs.bias[o], outs.c[o]})) {
+    if (!aligned({outs.b[o], outs.bias[o], outs.c[o]}) ||
+        (kQuant && (outs.scale[o] == nullptr || !aligned({outs.scale[o]})))) {
       return cudaErrorInvalidValue;
     }
   }
@@ -679,7 +792,7 @@ cudaError_t launch_fwd(const float* a, const Outs& outs, float* workspace,
   }
   if (M <= 0 || N <= 0) return cudaSuccess;
   const size_t mn = size_t(M) * N;
-  Outs into = outs;
+  OutsOf<TB> into = outs;
   if (split > 1) {
     for (int o = 0; o < kOuts; ++o) {
       into.c[o] = workspace + o * split * mn;
@@ -694,9 +807,9 @@ cudaError_t launch_fwd(const float* a, const Outs& outs, float* workspace,
       const int rows = steps * kSliceRows;
       const size_t stride = split == 1 ? 0 : mn;
       if constexpr (kOuts == 1) {
-        return launch_tile<BM, BN, true, false, kA>(
+        return launch_tile<BM, BN, true, false, kA, TB>(
             a, into.b[0], into.bias[0], into.c[0], nullptr, M, N, K, rows,
-            split, stride, stream);
+            split, stride, stream, into.scale[0]);
       } else {
         return launch_heads_tile<BM, BN, kA>(a, into, M, N, K, rows, split,
                                              stride, stream);

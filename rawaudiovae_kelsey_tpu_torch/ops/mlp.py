@@ -265,7 +265,7 @@ def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto"
     logvar = torch.empty((batch, latent), device=dev, dtype=dt)
     h = torch.empty((batch, units), device=dev, dtype=dt)
     if batch:
-        (tile_h, split_h), (tile_o, split_o), ws = _forward_plans(
+        (tile_h, split_h), (tile_o, split_o), ws = forward_plans(
             code, dev, batch, ((seg, units, 1), (units, latent, 2)))
         _build.launch("rvk_encoder_fwd", dev, x, w1, b1, w21, b21, w22, b22,
                       mu, logvar, h, ws, batch, seg, units, latent,
@@ -281,7 +281,7 @@ encoder_fwd.tensor_core_launches = 0
 encoder_fwd.sgemm_launches = 0
 
 
-def _forward_plans(code: int, dev, batch: int, products):
+def forward_plans(code: int, dev, batch: int, products):
     """``(tile, split)`` of each product ``(k, n, outputs)`` of a forward
     kernel launched with ``code`` (``tensor_cores.fwd``), then the fp32
     workspace the split ones share, one after the other: ``split ·
@@ -350,7 +350,7 @@ def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
     y = torch.empty((batch, seg), device=dev, dtype=dt)
     h3 = torch.empty((batch, units), device=dev, dtype=dt)
     if batch:
-        (tile_h, split_h), (tile_o, split_o), ws = _forward_plans(
+        (tile_h, split_h), (tile_o, split_o), ws = forward_plans(
             code, dev, batch, ((latent, units, 1), (units, seg, 1)))
         _build.launch("rvk_decoder_fwd", dev, z, w3, b3, w4, b4, y, h3, ws,
                       batch, latent, units, seg, DTYPE_CODES[dt], split_h,
@@ -617,17 +617,22 @@ def grad_accum2(a, b1, b2, kernel: str = "auto"
     contracting ``h``.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``grad_accum2``.
-    CUDA: one launch (``csrc/bwd.cu``) carrying both products, of one of
-    two hand-written kernels chosen by :func:`resolve_grad_accum2`: bf16
-    operands with n and m multiples of 8, 16-byte aligned pointers and at
-    least one row take the tensor-core weight gradient with both outputs
-    side by side (``csrc/wgmma.cuh`` ``launch_wgrad2``: ``a`` read once for
-    both, the batch cut into ``tensor_cores.wgrad_plan`` 's slices for two
-    outputs, added in order through a workspace allocated here), everything
-    else the tiled GEMM on the CUDA cores.  ``kernel`` names one instead,
-    as for :func:`decoder_fwd`.  Both kernels give equal bits on a second
-    launch.  One call counts once in ``launches``, and in
-    ``tensor_core_launches`` too when the tensor cores ran it."""
+    CUDA (``csrc/bwd.cu``), one of three hand-written kernels chosen by
+    :func:`resolve_grad_accum2`: bf16 operands with n and m multiples of 8,
+    16-byte aligned pointers and at least one row take the tensor-core
+    weight gradient with both outputs side by side in one launch
+    (``csrc/wgmma.cuh`` ``launch_wgrad2``: ``a`` read once for both, the
+    batch cut into ``tensor_cores.wgrad_plan`` 's slices for two outputs,
+    added in order through a workspace allocated here); fp32 operands with
+    n and m multiples of 4, 16-byte aligned pointers and at least one row
+    :func:`grad_accum` 's fp32 launch once for each output
+    (``csrc/sgemm.cuh`` ``launch_wgrad``, ``tensor_cores.sgemm_wgrad_plan``
+    's slices through one workspace); everything else one launch of the
+    tiled GEMM on the CUDA cores carrying both products.  ``kernel`` names
+    one instead, as for :func:`decoder_fwd`.  Every kernel gives equal bits
+    on a second launch.  One call counts once in ``launches``, and in
+    ``tensor_core_launches`` or ``sgemm_launches`` too when that kernel ran
+    it."""
     tensor_cores.check_name("grad_accum2", kernel)
     if a.device.type == "cpu":
         return grad_accum2_ref(a, b1, b2)
@@ -642,29 +647,36 @@ def grad_accum2(a, b1, b2, kernel: str = "auto"
                                tensor_cores.pointers_aligned(a, b1, b2))
     dw1, db1, dw2, db2 = _grads(dev, (n, m), (m,), (n, m), (m,))
     tile_dw, split = tensor_cores.wgrad(code, dev, n, m, batch, outputs=2)
+    # the tensor cores' two outputs slice into one workspace side by side;
+    # the fp32 form's two launches take turns with one output's
+    outputs = 2 if code == tensor_cores.TENSOR_CORES else 1
     _build.launch("rvk_grad_accum2", dev, a, b1, b2, dw1, db1, dw2, db2,
-                  _workspace(dev, split, n, m, outputs=2), batch, n, m,
+                  _workspace(dev, split, n, m, outputs), batch, n, m,
                   DTYPE_CODES[dt], tile_dw, split, code)
     grad_accum2.launches += 1
     grad_accum2.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+    grad_accum2.sgemm_launches += code == tensor_cores.SGEMM
     return dw1, db1, dw2, db2
 
 
 grad_accum2.launches = 0
 grad_accum2.tensor_core_launches = 0
+grad_accum2.sgemm_launches = 0
 
 
 def resolve_grad_accum2(kernel: str, dtype: torch.dtype, batch: int, n: int,
                         m: int, aligned: bool = True) -> int:
-    """The kernel code :func:`grad_accum2` launches with: the tensor cores
-    when ``tensor_cores.takes_tensor_cores`` holds for ``batch`` rows, ``n``
-    and ``m`` (as for :func:`resolve_grad_accum`), else the first version;
-    ``kernel`` names one instead (``tensor_cores.resolve``; it has no fp32
-    form: no path runs it on fp32 operands)."""
+    """The kernel code :func:`grad_accum2` launches with, as for
+    :func:`resolve_grad_accum`: the tensor cores when
+    ``tensor_cores.takes_tensor_cores`` holds for ``batch`` rows, ``n`` and
+    ``m``, the fp32 kernel when ``tensor_cores.takes_sgemm`` does, else the
+    first version; ``kernel`` names one instead
+    (``tensor_cores.resolve``)."""
     return tensor_cores.resolve(
         "grad_accum2", kernel,
         tensor_cores.takes_tensor_cores(dtype, batch, n, m, aligned),
-        lambda: f"{dtype}, batch {batch}, n {n}, m {m}, aligned = {aligned}")
+        lambda: f"{dtype}, batch {batch}, n {n}, m {m}, aligned = {aligned}",
+        tensor_cores.takes_sgemm(dtype, batch, n, m, aligned))
 
 
 def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
@@ -674,19 +686,23 @@ def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
     colsum(dh))`` in fp32.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``enc_bwd_dw1``.
-    CUDA: two launches (``csrc/bwd.cu``) of one of two hand-written kernels
-    chosen by :func:`resolve_enc_bwd_dw1`: bf16 operands with seg, units and
-    latent multiples of 8, 16-byte aligned pointers and at least one row
-    take the tensor-core kernel (``csrc/wgmma.cuh``: dh as one product
-    joined along k, dmu and w21 then dlogvar and w22, with the gate in its
-    epilogue; then dW1 and db1 as :func:`grad_accum` 's weight gradient,
-    through a workspace allocated here), everything else the tiled GEMM on
-    the CUDA cores.  ``kernel`` names one instead, as for
+    CUDA: two launches (``csrc/bwd.cu``) of one of three hand-written
+    kernels chosen by :func:`resolve_enc_bwd_dw1`: bf16 operands with seg,
+    units and latent multiples of 8, 16-byte aligned pointers and at least
+    one row take the tensor-core kernel (``csrc/wgmma.cuh``: dh as one
+    product joined along k, dmu and w21 then dlogvar and w22, with the gate
+    in its epilogue; then dW1 and db1 as :func:`grad_accum` 's weight
+    gradient, through a workspace allocated here); fp32 operands with them
+    multiples of 4, 16-byte aligned pointers and at least one row the fp32
+    launches of :func:`matmul_nt2_mask` and :func:`grad_accum` one after
+    the other (``csrc/sgemm.cuh``, at their plans); everything else the
+    tiled GEMM on the CUDA cores.  ``kernel`` names one instead, as for
     :func:`decoder_fwd`.  ``dh`` goes through a scratch buffer between the
     two instead of staying in VMEM: at the step's microbatch 32 MB written
-    and read back, ~0.02 ms of an H100's memory time.  Both kernels give
+    and read back, ~0.02 ms of an H100's memory time.  Every kernel gives
     equal bits on a second launch.  One call counts once in ``launches``,
-    and in ``tensor_core_launches`` too when the tensor cores ran it."""
+    and in ``tensor_core_launches`` or ``sgemm_launches`` too when that
+    kernel ran it."""
     tensor_cores.check_name("enc_bwd_dw1", kernel)
     if x.device.type == "cpu":
         return enc_bwd_dw1_ref(x, h, dmu, dlogvar, w21, w22)
@@ -713,11 +729,13 @@ def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
                   code)
     enc_bwd_dw1.launches += 1
     enc_bwd_dw1.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+    enc_bwd_dw1.sgemm_launches += code == tensor_cores.SGEMM
     return dw1, db1
 
 
 enc_bwd_dw1.launches = 0
 enc_bwd_dw1.tensor_core_launches = 0
+enc_bwd_dw1.sgemm_launches = 0
 
 
 def resolve_enc_bwd_dw1(kernel: str, dtype: torch.dtype, batch: int,
@@ -726,14 +744,17 @@ def resolve_enc_bwd_dw1(kernel: str, dtype: torch.dtype, batch: int,
     """The kernel code :func:`enc_bwd_dw1` launches with: the tensor cores
     when ``tensor_cores.takes_tensor_cores`` holds for dh (contraction
     ``latent``, width ``units``) and for the rows of ``x`` (``seg``, TMA's
-    16-byte rows of the weight gradient's A), else the first version;
+    16-byte rows of the weight gradient's A), the fp32 kernel when
+    ``tensor_cores.takes_sgemm`` does for both, else the first version;
     ``kernel`` names one instead (``tensor_cores.resolve``)."""
     return tensor_cores.resolve(
         "enc_bwd_dw1", kernel,
         tensor_cores.takes_tensor_cores(dtype, batch, latent, units, aligned)
         and tensor_cores.takes_tensor_cores(dtype, batch, seg, units),
         lambda: f"{dtype}, batch {batch}, seg {seg}, units {units}, latent "
-                f"{latent}, aligned = {aligned}")
+                f"{latent}, aligned = {aligned}",
+        tensor_cores.takes_sgemm(dtype, batch, latent, units, aligned)
+        and tensor_cores.takes_sgemm(dtype, batch, seg, units))
 
 
 def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
@@ -743,18 +764,22 @@ def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
     and ``(zᵀ dh3, colsum(dh3))`` (fp32).
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py``
-    ``dec_bwd_fused``.  CUDA: three launches (``csrc/bwd.cu``) of one of two
-    hand-written kernels chosen by :func:`resolve_dec_bwd`: bf16 operands
-    with seg, units and latent multiples of 8, 16-byte aligned pointers and
-    at least one row take the tensor-core kernel (``csrc/wgmma.cuh``: dh3
-    with the gate in its epilogue, dz, then dW3 and db3 over the batch cut
-    into ``tensor_cores.wgrad_plan`` 's slices, added in order through a
-    workspace allocated here), everything else the tiled GEMM on the CUDA
-    cores.  ``kernel`` names one instead, as for :func:`decoder_fwd`.
-    ``dh3`` goes through a scratch buffer instead of staying in VMEM.  Both
-    kernels give equal bits on a second launch.  One call counts once in
-    ``launches``, and in ``tensor_core_launches`` too when the tensor cores
-    ran it."""
+    ``dec_bwd_fused``.  CUDA: three launches (``csrc/bwd.cu``) of one of
+    three hand-written kernels chosen by :func:`resolve_dec_bwd`: bf16
+    operands with seg, units and latent multiples of 8, 16-byte aligned
+    pointers and at least one row take the tensor-core kernel
+    (``csrc/wgmma.cuh``: dh3 with the gate in its epilogue, dz, then dW3
+    and db3 over the batch cut into ``tensor_cores.wgrad_plan`` 's slices,
+    added in order through a workspace allocated here); fp32 operands with
+    them multiples of 4, 16-byte aligned pointers and at least one row the
+    fp32 launches of :func:`matmul_nt_mask`, :func:`matmul_nt` and
+    :func:`grad_accum` one after the other (``csrc/sgemm.cuh``, at their
+    plans); everything else the tiled GEMM on the CUDA cores.  ``kernel``
+    names one instead, as for :func:`decoder_fwd`.  ``dh3`` goes through a
+    scratch buffer instead of staying in VMEM.  Every kernel gives equal
+    bits on a second launch.  One call counts once in ``launches``, and in
+    ``tensor_core_launches`` or ``sgemm_launches`` too when that kernel ran
+    it."""
     tensor_cores.check_name("dec_bwd_fused", kernel)
     if da.device.type == "cpu":
         return dec_bwd_fused_ref(da, h3, z, w4, w3)
@@ -781,11 +806,13 @@ def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
                   split, code)
     dec_bwd_fused.launches += 1
     dec_bwd_fused.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+    dec_bwd_fused.sgemm_launches += code == tensor_cores.SGEMM
     return dz, dw3, db3
 
 
 dec_bwd_fused.launches = 0
 dec_bwd_fused.tensor_core_launches = 0
+dec_bwd_fused.sgemm_launches = 0
 
 
 def resolve_dec_bwd(kernel: str, dtype: torch.dtype, batch: int, seg: int,
@@ -794,14 +821,18 @@ def resolve_dec_bwd(kernel: str, dtype: torch.dtype, batch: int, seg: int,
     cores when its products fit them (``tensor_cores.takes_tensor_cores`` of
     dh3, contraction ``seg`` and width ``units``, and of dz, ``units`` and
     ``latent``; the weight gradient contracts the batch, of any length,
-    with the rows of ``z`` and dh3 as 16-byte TMA rows), else the first
-    version; ``kernel`` names one instead (``tensor_cores.resolve``)."""
+    with the rows of ``z`` and dh3 as 16-byte TMA rows), the fp32 kernel
+    when ``tensor_cores.takes_sgemm`` does for both products, else the
+    first version; ``kernel`` names one instead
+    (``tensor_cores.resolve``)."""
     return tensor_cores.resolve(
         "dec_bwd_fused", kernel,
         tensor_cores.takes_tensor_cores(dtype, batch, seg, units, aligned)
         and tensor_cores.takes_tensor_cores(dtype, batch, units, latent),
         lambda: f"{dtype}, batch {batch}, seg {seg}, units {units}, latent "
-                f"{latent}, aligned = {aligned}")
+                f"{latent}, aligned = {aligned}",
+        tensor_cores.takes_sgemm(dtype, batch, seg, units, aligned)
+        and tensor_cores.takes_sgemm(dtype, batch, units, latent))
 
 
 def full_passes(dtype: torch.dtype) -> int:

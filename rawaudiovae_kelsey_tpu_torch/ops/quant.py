@@ -4,9 +4,13 @@ of the JAX package's ``ops/quant.py``.
 Per-output-channel symmetric int8 (``w ≈ q * scale``, ``q ∈ [-127, 127]``,
 scale 1.0 for an all-zero column), with the same rounding as the JAX
 package, so both quantize a weight to identical ``q`` and equal ``scale``.
-``quantized_decoder_fwd`` is the hand-written kernel (``csrc/quant.cu``);
-``quantized_decode_ref`` is its plain version, in the JAX op order:
-dequantize, then matmul.  Opt-in: ``InferenceServer(..., quantize=True)``.
+``quantized_decoder_fwd`` is the hand-written kernel (``csrc/quant.cu``):
+the fp32 mainloop of ``csrc/sgemm.cuh`` with the int8 weights dequantized
+as they are staged, on the fp32 decoder's plans, or the first version's
+two launches of ``csrc/gemm.cuh`` for widths it cannot take
+(:func:`resolve_quantized_decoder`).  ``quantized_decode_ref`` is its
+plain version, in the JAX op order: dequantize, then matmul.  Opt-in:
+``InferenceServer(..., quantize=True)``.
 """
 
 from __future__ import annotations
@@ -15,8 +19,12 @@ from typing import Dict, Tuple
 
 import torch
 
-from rawaudiovae_kelsey_tpu_torch.ops import _build
-from rawaudiovae_kelsey_tpu_torch.ops.mlp import cuda_device, require
+from rawaudiovae_kelsey_tpu_torch.ops import _build, tensor_cores
+from rawaudiovae_kelsey_tpu_torch.ops.mlp import (
+    cuda_device,
+    forward_plans,
+    require,
+)
 
 Tensor = torch.Tensor
 
@@ -53,12 +61,31 @@ def quantized_decode_ref(qparams, z: Tensor) -> Tensor:
     return torch.tanh(h3 @ w4 + qparams["fc4"]["b"])
 
 
-def quantized_decoder_fwd(qparams, z: Tensor) -> Tensor:
+def quantized_decoder_fwd(qparams, z: Tensor, kernel: str = "auto"
+                          ) -> Tensor:
     """Int8-weight decode ``tanh(relu(z@W3+b3)@W4+b4)``, W3/W4 dequantized
     per output column inside the kernel.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/quant.py``
-    ``quantized_decoder_fwd``.  CPU tensors run the plain version."""
+    ``quantized_decoder_fwd``.  CUDA, two products (``csrc/quant.cu``), h3
+    then y, of one of two hand-written kernels chosen by
+    :func:`resolve_quantized_decoder`: fp32 ``z`` with latent, units and seg
+    multiples of 4 and 16-byte aligned pointers takes the register-tiled
+    fp32 kernel (``csrc/sgemm.cuh``) with each int8 weight copied into
+    shared memory as it lies and dequantized, ``q · scale`` rounded once,
+    as its slab is read back; each product's tile and slices of its
+    contraction are the fp32 decoder's (``tensor_cores.sgemm_fwd_plan``; a
+    product cut into slices adds them in order through a workspace
+    allocated here), so the result equals
+    ``mlp.decoder_fwd(dequantize_weight(q3, s3), b3, dequantize_weight(q4,
+    s4), b4, z, kernel="sgemm")`` bit for bit.  Everything else runs the
+    first version, the tiled GEMM on the CUDA cores.  ``kernel`` (``"auto"``
+    or a key of ``tensor_cores.KERNEL_CODES``) names one instead; a kernel
+    named on operands it cannot take raises.  ``z`` is fp32 whichever
+    runs.  CPU tensors run the plain version.  One call counts once in
+    ``launches``, and in ``sgemm_launches`` too when the fp32 kernel ran
+    it."""
+    tensor_cores.check_name("quantized_decoder_fwd", kernel)
     if z.device.type == "cpu":
         return quantized_decode_ref(qparams, z)
     dev = cuda_device(z, "quantized_decoder_fwd: z")
@@ -66,6 +93,9 @@ def quantized_decoder_fwd(qparams, z: Tensor) -> Tensor:
     q3, s3, b3 = (qparams["fc3"][k] for k in ("q", "scale", "b"))
     q4, s4, b4 = (qparams["fc4"][k] for k in ("q", "scale", "b"))
     units, seg = q3.shape[1], q4.shape[1]
+    code = resolve_quantized_decoder(
+        kernel, z.dtype, batch, latent, units, seg,
+        tensor_cores.pointers_aligned(z, q3, s3, b3, q4, s4, b4))
     require(z, "z", (batch, latent), dev)
     require(q3, "fc3.q", (latent, units), dev, torch.int8)
     require(s3, "fc3.scale", (1, units), dev)
@@ -76,10 +106,35 @@ def quantized_decoder_fwd(qparams, z: Tensor) -> Tensor:
     y = torch.empty((batch, seg), device=dev, dtype=torch.float32)
     if batch:
         h3 = torch.empty((batch, units), device=dev, dtype=torch.float32)
+        (tile_h, split_h), (tile_o, split_o), ws = forward_plans(
+            code, dev, batch, ((latent, units, 1), (units, seg, 1)))
         _build.launch("rvk_quantized_decoder_fwd", dev, z, q3, s3, b3,
-                      q4, s4, b4, y, h3, batch, latent, units, seg)
+                      q4, s4, b4, y, h3, ws, batch, latent, units, seg,
+                      split_h, split_o, tile_h, tile_o, code)
         quantized_decoder_fwd.launches += 1
+        quantized_decoder_fwd.sgemm_launches += code == tensor_cores.SGEMM
     return y
 
 
 quantized_decoder_fwd.launches = 0
+quantized_decoder_fwd.sgemm_launches = 0
+
+
+def resolve_quantized_decoder(kernel: str, dtype: torch.dtype, batch: int,
+                              latent: int, units: int, seg: int,
+                              aligned: bool = True) -> int:
+    """The kernel code :func:`quantized_decoder_fwd` launches with: the
+    fp32 kernel when ``z`` is fp32 and both of its products fit it
+    (``tensor_cores.takes_sgemm`` of the hidden layer, contraction
+    ``latent`` and width ``units``, and of the output layer, ``units`` and
+    ``seg``; ``aligned``: every pointer, the int8 weights' and the scales'
+    too, on a 16-byte boundary), else the first version; ``kernel`` names
+    one instead (``tensor_cores.resolve``).  It has no tensor-core form:
+    naming one raises."""
+    return tensor_cores.resolve(
+        "quantized_decoder_fwd", kernel, False,
+        lambda: f"{dtype}, batch {batch}, latent {latent}, units {units}, "
+                f"seg {seg}, aligned = {aligned}",
+        tensor_cores.takes_sgemm(dtype, batch, latent, units, aligned)
+        and tensor_cores.takes_sgemm(dtype, batch, units, seg),
+        takes="no operands: the int8 decoder has no tensor-core form")

@@ -28,13 +28,18 @@ gradient walked as its transpose, :func:`cotangent_wgrad_plan`), whose A is
 the cotangent formed in registers; and the full chains
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.enc_bwd_full` and
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.dec_bwd_full`, in both dtypes
-(:func:`takes_full_chain`, :func:`full_plan`).  Ten of them, ``linear_fwd``,
-``linear_ksplit_fwd``, ``matmul_nt``, ``matmul_nt_mask``,
-``matmul_nt2_mask``, ``grad_accum``, ``encoder_fwd``, ``decoder_fwd``,
-``dx_fused`` and ``dw_fused`` (:data:`SGEMM_OPS`), also have an fp32
-form, ``grad_accum`` 's and ``dw_fused`` 's split into slices by
-:func:`sgemm_wgrad_plan`, each product of ``encoder_fwd`` and
-``decoder_fwd`` planned by :func:`sgemm_fwd_plan`.  The choice is a
+(:func:`takes_full_chain`, :func:`full_plan`).  Thirteen of them,
+``linear_fwd``, ``linear_ksplit_fwd``, ``matmul_nt``, ``matmul_nt_mask``,
+``matmul_nt2_mask``, ``grad_accum``, ``grad_accum2``, ``enc_bwd_dw1``,
+``dec_bwd_fused``, ``encoder_fwd``, ``decoder_fwd``, ``dx_fused`` and
+``dw_fused``, and the int8 decoder
+:func:`~rawaudiovae_kelsey_tpu_torch.ops.quant.quantized_decoder_fwd`,
+which has no tensor-core form (:data:`SGEMM_OPS`), have an fp32 form,
+the weight gradients of ``grad_accum``, ``grad_accum2``, ``enc_bwd_dw1``,
+``dec_bwd_fused`` and ``dw_fused`` split into slices by
+:func:`sgemm_wgrad_plan`, each product of ``encoder_fwd``,
+``decoder_fwd`` and ``quantized_decoder_fwd`` planned by
+:func:`sgemm_fwd_plan`.  The choice is a
 function of dtype, shape and pointer alignment alone
 (:func:`takes_tensor_cores`, :func:`takes_sgemm`), made in the wrapper
 before the launch:
@@ -86,7 +91,9 @@ TENSOR_CORES, SGEMM = KERNEL_CODES["tensor_cores"], KERNEL_CODES["sgemm"]
 # the ops whose C entry points have the fp32 form (code 2)
 SGEMM_OPS = frozenset({"linear_fwd", "linear_ksplit_fwd", "matmul_nt",
                        "matmul_nt_mask", "matmul_nt2_mask", "grad_accum",
-                       "encoder_fwd", "decoder_fwd", "dw_fused", "dx_fused"})
+                       "grad_accum2", "enc_bwd_dw1", "dec_bwd_fused",
+                       "encoder_fwd", "decoder_fwd", "quantized_decoder_fwd",
+                       "dw_fused", "dx_fused"})
 
 # TMA's unit: base pointers and row pitches are multiples of 16 bytes
 TMA_ALIGN_BYTES = 16

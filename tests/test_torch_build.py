@@ -205,25 +205,29 @@ def test_the_fp32_forward_entry_points_build_on_sgemm_cuh():
 
 def test_the_fp32_entry_points_build_on_sgemm_cuh():
     """rvk_linear_fwd, rvk_linear_ksplit_fwd, rvk_matmul_nt,
-    rvk_matmul_nt_mask, rvk_matmul_nt2_mask and rvk_grad_accum launch the
-    fp32 mainloop of csrc/sgemm.cuh for kernel code 2 (the rvk::tc::Kernel
+    rvk_matmul_nt_mask, rvk_matmul_nt2_mask, rvk_grad_accum,
+    rvk_grad_accum2, rvk_enc_bwd_dw1 and rvk_dec_bwd_fused launch the fp32
+    mainloop of csrc/sgemm.cuh for kernel code 2 (the rvk::tc::Kernel
     enum), the two linear entry points with the same call, the gated ones
-    its gated form, rvk_grad_accum its weight-gradient form, and its tile
-    table is the wrappers' SGEMM_TILES."""
+    its gated form, rvk_grad_accum its weight-gradient form, the last three
+    those launches one after another (grad_accum2: the weight gradient
+    twice; enc_bwd_dw1: the joined gated form, then the weight gradient;
+    dec_bwd_fused: the gated form, the plain one, the weight gradient), and
+    its tile table is the wrappers' SGEMM_TILES."""
     import re
 
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
-    for src, calls in (
-            ("linear.cu", {"rvk::sgemm::launch_act<false>": 2}),
-            ("bwd.cu", {"rvk::sgemm::launch<true, rvk::kActNone>": 1,
-                        "rvk::sgemm::launch_gated<false>(": 1,
-                        "rvk::sgemm::launch_gated<true>(": 1,
-                        "rvk::sgemm::launch_wgrad(src<float>": 1})):
+    # source → (entry points with an fp32 branch, the launches' calls)
+    for src, branches, calls in (
+            ("linear.cu", 2, {"rvk::sgemm::launch_act<false>": 2}),
+            ("bwd.cu", 7, {"rvk::sgemm::launch<true, rvk::kActNone>": 2,
+                           "rvk::sgemm::launch_gated<false>(": 2,
+                           "rvk::sgemm::launch_gated<true>(": 2,
+                           "rvk::sgemm::launch_wgrad(src<float>": 5})):
         text = (_build.CSRC / src).read_text()
         assert '#include "sgemm.cuh"' in text
-        assert text.count("kernel == rvk::tc::kSgemm") == sum(
-            calls.values()), src
+        assert text.count("kernel == rvk::tc::kSgemm") == branches, src
         for call, times in calls.items():
             assert text.count(call) == times, (src, call)
     grad = (_build.CSRC / "bwd.cu").read_text().split(

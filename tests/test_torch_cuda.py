@@ -2206,7 +2206,8 @@ def test_every_grad_accum2_plan_matches_plain(cuda, plan, monkeypatch):
 def test_tensor_core_grad_accum2_dispatch_on_the_card(cuda):
     """A latent no multiple of 8, fp32 and an unaligned view keep the first
     version under ``auto`` and raise for ``kernel="tensor_cores"``; a
-    zero-row batch gives zero gradients; no fp32 form exists."""
+    zero-row batch gives zero gradients; the fp32 form takes no bf16
+    operands."""
     ops_ = _grad_accum2_operands(cuda, 1000, 2048, 36)
     got, rose = _ran_tc(mlp.grad_accum2, *ops_)
     assert rose == (1, 0)
@@ -2220,8 +2221,8 @@ def test_tensor_core_grad_accum2_dispatch_on_the_card(cuda):
     assert rose == (1, 0)
     with pytest.raises(ValueError, match="takes bf16 operands"):
         mlp.grad_accum2(*f32, kernel="tensor_cores")
-    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
-        mlp.grad_accum2(*f32, kernel="sgemm")
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        mlp.grad_accum2(*ops_, kernel="sgemm")
     for at in range(3):
         t = ops_[at]
         off = torch.empty(t.numel() + 1, device=cuda,
@@ -2804,3 +2805,159 @@ def test_high_step_runs_the_full_chains_on_the_tensor_cores(cuda):
     for f, (n, tc) in zip(chains, before):
         assert (f.launches - n, f.tensor_core_launches - tc) == (16, 16)
     assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
+
+
+# ---- row 3, the int8 decoder on csrc/sgemm.cuh (an int8 B dequantized as
+# its slabs are read back, the fp32 decoder's plans): bit for bit the fp32
+# decoder of sgemm.cuh on the dequantized weights, within ATOL of plain
+
+def _quantized(device, batch, latent=256, units=2048, seg=1024, seed=0):
+    p = _params(device, seg, units, latent)
+    qp = quant.quantize_decoder(p)
+    g = torch.Generator(device=device).manual_seed(seed)
+    return qp, torch.randn((batch, latent), generator=g, device=device)
+
+
+def _dequantized_decoder(qp, z, **kw):
+    w3, w4 = (quant.dequantize_weight(qp[n]["q"], qp[n]["scale"])
+              for n in ("fc3", "fc4"))
+    y, _ = mlp.decoder_fwd(w3, qp["fc3"]["b"], w4, qp["fc4"]["b"], z, **kw)
+    return y
+
+
+@pytest.mark.parametrize("batch", [256, 33, 1, 100, 8192])
+def test_sgemm_quantized_decoder_is_the_fp32_decoder_bit_for_bit(cuda,
+                                                                 batch):
+    qp, z = _quantized(cuda, batch, seed=batch)
+    got, rose = _ran_sgemm(quant.quantized_decoder_fwd, qp, z)
+    assert rose == (1, 1)
+    assert got.shape == (batch, 1024) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, _dequantized_decoder(qp, z, kernel="sgemm"))
+    assert float((got - quant.quantized_decode_ref(qp, z)).abs().max()) \
+        <= ATOL
+    assert torch.equal(got, quant.quantized_decoder_fwd(qp, z,
+                                                        kernel="sgemm"))
+
+
+@pytest.mark.parametrize("plan", [(0, 1), (0, 8), (1, 2), (2, 1), (2, 3),
+                                  (2, 16)])
+def test_every_quantized_plan_is_the_fp32_decoders(cuda, plan, monkeypatch):
+    """Every product's plan (tile index, slices) forced at the ragged 300
+    rows: every tile, one slice, slices that cut k unevenly; the same bits
+    as the fp32 decoder on the same plans."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
+
+    monkeypatch.setattr(
+        tensor_cores, "sgemm_fwd_plan",
+        lambda rows, k, n, sms, outputs=1: (plan[0], _largest_valid_split(
+            k, plan[1])))
+    qp, z = _quantized(cuda, 300, seed=7)
+    got, rose = _ran_sgemm(quant.quantized_decoder_fwd, qp, z)
+    assert rose == (1, 1)
+    assert torch.equal(got, _dequantized_decoder(qp, z))
+    assert float((got - quant.quantized_decode_ref(qp, z)).abs().max()) \
+        <= ATOL
+
+
+def test_quantized_decoder_first_version_and_dispatch_on_the_card(cuda):
+    """The first version by name; a latent no multiple of 4 and a view off
+    a 16-byte boundary keep it under ``auto`` and raise for
+    ``kernel="sgemm"``; no tensor-core form; no rows, no launch."""
+    qp, z = _quantized(cuda, 256)
+    want = quant.quantized_decode_ref(qp, z)
+    first, rose = _ran_sgemm(quant.quantized_decoder_fwd, qp, z,
+                             kernel="cuda_cores")
+    assert rose == (1, 0)
+    assert float((first - want).abs().max()) <= ATOL
+    with pytest.raises(ValueError, match="no tensor-core form"):
+        quant.quantized_decoder_fwd(qp, z, kernel="tensor_cores")
+    qo, zo = _quantized(cuda, 100, latent=38)
+    got, rose = _ran_sgemm(quant.quantized_decoder_fwd, qo, zo)
+    assert rose == (1, 0)
+    assert float((got - quant.quantized_decode_ref(qo, zo)).abs().max()) \
+        <= ATOL
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+        quant.quantized_decoder_fwd(qo, zo, kernel="sgemm")
+    off = torch.empty(z.numel() + 1, device=cuda)[1:].view_as(z).copy_(z)
+    got, rose = _ran_sgemm(quant.quantized_decoder_fwd, qp, off)
+    assert rose == (1, 0)
+    assert torch.equal(got, first)
+    with pytest.raises(ValueError, match="aligned = False"):
+        quant.quantized_decoder_fwd(qp, off, kernel="sgemm")
+    _, rose = _ran_sgemm(quant.quantized_decoder_fwd, qp, z[:0])
+    assert rose == (0, 0)
+
+
+def test_quantized_server_launches_only_the_new_form(cuda):
+    """``InferenceServer(quantize=True)`` decodes every batch through the
+    int8 decoder on csrc/sgemm.cuh."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.infer import InferenceServer
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+
+    cfg = Config()
+    cfg.tpu.backend = "pallas"
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator().manual_seed(3))
+    audio = np.random.default_rng(1).uniform(-0.5, 0.5, 30000) \
+        .astype(np.float32)
+    f = quant.quantized_decoder_fwd
+    before = (f.launches, f.sgemm_launches)
+    with InferenceServer(model, params, deterministic=True,
+                         quantize=True) as s:
+        out = s.reconstruct(audio, hop=128, ola=True).result(60)
+    rose = (f.launches - before[0], f.sgemm_launches - before[1])
+    assert rose[0] > 0 and rose[0] == rose[1]
+    assert bool(np.isfinite(out).all())
+
+
+# ---- rows 8-10 in fp32: sgemm.cuh's launches one after another, each
+# equal bit for bit to the same launches called one by one at their plans
+
+@pytest.mark.parametrize("batch", [8192, 1000, 1])
+def test_sgemm_backward_forms_are_their_launches_one_by_one(cuda, batch):
+    w, t = _backward_inputs(cuda, batch, torch.float32)
+    w21, w22, w3, w4 = (w[n]["w"] for n in ("fc21", "fc22", "fc3", "fc4"))
+    x, h, dmu, dlv, da, h3, z = (t[k] for k in ("x", "h", "dmu", "dlv",
+                                                "da", "h3", "z"))
+    dh = mlp.matmul_nt2_mask(dmu, w21, dlv, w22, h, kernel="sgemm")
+    dh3 = mlp.matmul_nt_mask(da, w4, h3, kernel="sgemm")
+    cases = (
+        (mlp.enc_bwd_dw1, (x, h, dmu, dlv, w21, w22),
+         mlp.grad_accum(x, dh, kernel="sgemm")),
+        (mlp.grad_accum2, (h, dmu, dlv),
+         (*mlp.grad_accum(h, dmu, kernel="sgemm"),
+          *mlp.grad_accum(h, dlv, kernel="sgemm"))),
+        (mlp.dec_bwd_fused, (da, h3, z, w4, w3),
+         (mlp.matmul_nt(dh3, w3, kernel="sgemm"),
+          *mlp.grad_accum(z, dh3, kernel="sgemm"))),
+    )
+    for op, ops_, one_by_one in cases:
+        got, rose = _ran_sgemm(op, *ops_)
+        assert rose == (1, 1)
+        for g, a in zip(got, one_by_one):
+            assert torch.equal(g, a)
+        want = getattr(mlp, f"{op.__name__}_ref")(*ops_)
+        _close_rel(got, want, GRAD_REL)
+        first, rose = _ran_sgemm(op, *ops_, kernel="cuda_cores")
+        assert rose == (1, 0)
+        _close_rel(got, first, GRAD_REL)
+        for g, a in zip(got, op(*ops_, kernel="sgemm")):
+            assert torch.equal(g, a)
+
+
+def test_sgemm_backward_forms_dispatch_on_the_card(cuda):
+    """A latent no multiple of 4 keeps the first version under ``auto``
+    and raises for ``kernel="sgemm"``."""
+    w, t = _backward_inputs(cuda, 300, torch.float32, latent=38)
+    w21, w22, w3, w4 = (w[n]["w"] for n in ("fc21", "fc22", "fc3", "fc4"))
+    for op, ops_ in (
+            (mlp.enc_bwd_dw1, (t["x"], t["h"], t["dmu"], t["dlv"], w21,
+                               w22)),
+            (mlp.grad_accum2, (t["h"], t["dmu"], t["dlv"])),
+            (mlp.dec_bwd_fused, (t["da"], t["h3"], t["z"], w4, w3))):
+        got, rose = _ran_sgemm(op, *ops_)
+        assert rose == (1, 0)
+        _close_rel(got, getattr(mlp, f"{op.__name__}_ref")(*ops_), GRAD_REL)
+        with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
+            op(*ops_, kernel="sgemm")

@@ -1147,9 +1147,10 @@ def test_the_dense_decoder_and_its_backward_take_the_tensor_cores(batch):
         assert resolve("tensor_cores", BF16, batch, *widths) == 1
         assert resolve("cuda_cores", BF16, batch, *widths) == 0
     # fp32 (the server, the fp32 tiers): the decoder takes the fp32 kernel,
-    # its fused backward (on no fp32 path) keeps the first version
+    # and so does its fused backward (on no fp32 path: sgemm.cuh's launches
+    # one after another)
     assert mlp.resolve_decoder("auto", F32, batch, *DECODER) == SGEMM
-    assert mlp.resolve_dec_bwd("auto", F32, batch, *DENSE) == 0
+    assert mlp.resolve_dec_bwd("auto", F32, batch, *DENSE) == SGEMM
 
 
 @pytest.mark.parametrize("op", ["decoder_fwd", "dec_bwd_fused"])
@@ -1177,9 +1178,8 @@ def test_what_keeps_the_decoder_on_the_cuda_cores(op, dtype, batch, a, b, c,
     with pytest.raises(ValueError, match=f"{op}: kernel 'tensor_cores' "
                        "takes bf16 operands"):
         resolve("tensor_cores", dtype, *widths)
-    # the decoder has an fp32 form, which these operands do not fit
-    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"
-                       if op == "decoder_fwd" else "no kernel 'sgemm'"):
+    # both have an fp32 form, which these operands do not fit
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
         resolve("sgemm", dtype, *widths)
 
 
@@ -1264,8 +1264,17 @@ def test_dec_bwd_passes_the_kernel_code_tiles_split_and_workspace(
                       kernel="cuda_cores")
     args = launched.pop()[1]
     assert args[9] is None and args[14:] == (1, 0, 0, 0, 0, 0)
+    # fp32: sgemm.cuh's launches, each at its own op's plan
     mlp.dec_bwd_fused(*_dec_bwd_operands(256, *DENSE, F32))
-    assert launched.pop()[1][14:] == (0, 0, 0, 0, 0, 0)
+    args = launched.pop()[1]
+    plan = tensor_cores.sgemm_wgrad_plan(256, 2048, 256, 132)
+    assert args[14:] == (
+        0, tensor_cores.SGEMM_TILES.index(tensor_cores.sgemm_tile(256, 2048,
+                                                                  132)),
+        tensor_cores.SGEMM_TILES.index(tensor_cores.sgemm_tile(256, 256,
+                                                               132)),
+        *plan, SGEMM)
+    assert (args[9] is None) == (plan[1] == 1)
     # no rows: the first version, which writes zero gradients
     mlp.dec_bwd_fused(*_dec_bwd_operands(0, *DENSE, BF16))
     assert launched.pop()[1][14:] == (1, 0, 0, 0, 0, 0)
@@ -1291,8 +1300,7 @@ def test_a_named_tensor_core_decoder_raises_on_what_it_cannot_take(
         fn(*[t.float() for t in dense], kernel="tensor_cores")
     with pytest.raises(ValueError, match="unknown kernel"):
         fn(*dense, kernel="wgmma")
-    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"
-                       if op == "decoder_fwd" else "no kernel 'sgemm'"):
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
         fn(*dense, kernel="sgemm")
     monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
     with pytest.raises(ValueError, match="aligned = False"):
@@ -1376,10 +1384,11 @@ def test_the_dense_weight_gradients_take_the_tensor_cores(batch):
         assert resolve("tensor_cores", BF16, batch, *widths) == 1
         assert resolve("cuda_cores", BF16, batch, *widths) == 0
     # fp32 (the `float32` / `highest` tiers): grad_accum takes the fp32
-    # kernel, enc_bwd_dw1 (on no fp32 path) keeps the first version
+    # kernel, and so does enc_bwd_dw1 (on no fp32 path: sgemm.cuh's
+    # launches one after another)
     assert mlp.resolve_grad_accum("auto", F32, batch, *DW4) == SGEMM
     assert mlp.resolve_grad_accum("sgemm", F32, batch, *DW4) == SGEMM
-    assert mlp.resolve_enc_bwd_dw1("auto", F32, batch, *DENSE) == 0
+    assert mlp.resolve_enc_bwd_dw1("auto", F32, batch, *DENSE) == SGEMM
 
 
 def _kept_off_the_tensor_cores(op, resolve, dtype, widths,
@@ -1413,7 +1422,7 @@ def test_what_keeps_grad_accum_on_the_cuda_cores(dtype, batch, n, m,
 
 
 @pytest.mark.parametrize("dtype,batch,seg,units,latent,aligned", [
-    (F32, MICROBATCH, 1024, 2048, 256, True),     # fp32: queue B.5
+    (F32, MICROBATCH, 1024, 2048, 38, True),      # fp32, latent % 4 != 0
     (BF16, MICROBATCH, 1024, 2048, 36, True),     # latent % 8 != 0
     (BF16, MICROBATCH, 1024, 2044, 256, True),    # units % 8 != 0
     (BF16, MICROBATCH, 1020, 2048, 256, True),    # seg % 8 != 0
@@ -1425,8 +1434,10 @@ def test_what_keeps_grad_accum_on_the_cuda_cores(dtype, batch, n, m,
         "no-rows", "fp16"])
 def test_what_keeps_enc_bwd_dw1_on_the_cuda_cores(dtype, batch, seg, units,
                                                   latent, aligned):
+    # enc_bwd_dw1 has an fp32 form, which none of these operands fit
     _kept_off_the_tensor_cores("enc_bwd_dw1", mlp.resolve_enc_bwd_dw1, dtype,
-                               (batch, seg, units, latent, aligned))
+                               (batch, seg, units, latent, aligned),
+                               "'sgemm' takes fp32 operands")
 
 
 def test_grad_accum_passes_the_kernel_code_plan_and_workspace(monkeypatch):
@@ -1511,8 +1522,15 @@ def test_enc_bwd_dw1_passes_the_kernel_code_tiles_plan_and_workspace(
                     kernel="cuda_cores")
     args = launched.pop()[1]
     assert args[9] is None and args[14:] == (1, 0, 0, 0, 0)
+    # fp32: sgemm.cuh's launches, each at its own op's plan
     mlp.enc_bwd_dw1(*_enc_bwd_operands(256, *DENSE, F32))
-    assert launched.pop()[1][14:] == (0, 0, 0, 0, 0)
+    args = launched.pop()[1]
+    plan = tensor_cores.sgemm_wgrad_plan(1024, 2048, 256, 132)
+    assert args[14:] == (
+        0, tensor_cores.SGEMM_TILES.index(tensor_cores.sgemm_tile(256, 2048,
+                                                                  132)),
+        *plan, SGEMM)
+    assert (args[9] is None) == (plan[1] == 1)
     monkeypatch.setattr(tensor_cores, "wgrad_plan",
                         lambda m, n, k, sms, outputs=1: (64, 3))
     mlp.enc_bwd_dw1(*_enc_bwd_operands(MICROBATCH, *DENSE, BF16))
@@ -1541,9 +1559,8 @@ def test_a_named_tensor_core_weight_gradient_raises_on_what_it_cannot_take(
         fn(*[t.float() for t in dense], kernel="tensor_cores")
     with pytest.raises(ValueError, match="unknown kernel"):
         fn(*dense, kernel="wgmma")
-    # grad_accum's fp32 form takes no bf16 operands; enc_bwd_dw1 has none
-    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"
-                       if op == "grad_accum" else "no kernel 'sgemm'"):
+    # neither fp32 form takes bf16 operands
+    with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
         fn(*dense, kernel="sgemm")
     monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
     with pytest.raises(ValueError, match="aligned = False"):
