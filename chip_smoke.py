@@ -205,11 +205,19 @@ any failure exits non-zero with a traceback (no phase is caught):
    ``linear_fwd(kernel="sgemm")``;
    ``toeplitz_fwd`` through ``conv1d_pallas`` / ``conv1d_transpose_pallas``
    at the eight layers of ``configs/conv1d.ini``, batch 4096 (one also at
-   4097), forward and the ``dx`` launch, against the plain convolutions
-   (bf16: the six middle layers on the tensor cores, both launches), timed
-   in turns with the first version, the plain version and ``F.conv1d`` /
-   ``F.conv_transpose1d`` with each one's device time and the eight-layer
-   sums; the tensor-core form at ragged tile plans (t_out 48, 100, 200,
+   4097), forward and the ``dx`` launch, against the plain convolutions,
+   each layer's both launches on its form (the first and the last layer
+   the narrow-channel kernel; the six between the tensor cores in bf16 and
+   the fp32 kernel, over the packed stack's window, in fp32), the narrow
+   and fp32 forms equal to the first version bit for bit (forward and dx),
+   timed in turns with the first version, the plain version and
+   ``F.conv1d`` / ``F.conv_transpose1d`` with each one's device time and
+   the eight-layer sums; the narrow rule's sweep (each form at layers 0 and
+   7 and their dx and at ragged shapes, the narrow kernel's column chunks
+   and positions a thread), the fp32 tiles' sweep and the window against
+   the whole packed stack at layers 1-3; the narrow and fp32 forms at
+   ragged shapes (passes = 4 too); the tensor-core form at ragged tile
+   plans (t_out 48, 100, 200,
    13; shift 0 and KB - 1; G 24, 72, 16; B = 1) against plain and the first
    version, equal bits twice; ``passes = 4`` against its plain version and
    against IEEE fp32; odd shifts and lengths; at each tensor-core shape of
@@ -236,8 +244,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    ``conv_decode_pallas``) against the registry's model from the same state
    and noise, in bf16 and at ``highest``: 8 forward + 7 ``dx`` Toeplitz
    launches (the first layer's input is the batch, which needs no
-   gradient), 12 of them on the tensor cores in bf16, and 3 whole-k linear
-   launches (bf16: all on the tensor cores); step time of both.
+   gradient), 12 of them on the tensor cores in bf16 and on the fp32
+   kernel at ``highest``, the other 3 on the narrow-channel kernel, none on
+   the first version, and 3 whole-k linear launches (bf16: all on the
+   tensor cores); step time of both; each step's device time by kernel.
 
 3f. (run with the other kernel phases) the probes' kernels: ``dw_fused`` and
    ``dx_fused`` in fp32 (on ``csrc/sgemm.cuh``) and bf16 (on the tensor
@@ -296,8 +306,11 @@ plain version and its first version); the sampler: the resident training run;
 bf16 ``linear_ksplit_fwd`` / ``linear_fwd``: the deep training runs of
 phase 8; fp32 ``linear_ksplit_fwd``: the deep ``highest`` step (those on
 the fp32 kernel); fp32
-``linear_fwd``: the deep server (those on the fp32 kernel); ``toeplitz_fwd``: the op-level conv1d step
-of phase 9 in bf16 and at ``highest``; ``dw_fused`` / ``dx_fused``: the
+``linear_fwd``: the deep server (those on the fp32 kernel);
+``toeplitz_fwd``: the op-level conv1d step of phase 9 in bf16 (those on the
+tensor cores) and at ``highest`` (those on the fp32 kernel);
+``toeplitz_fwd_narrow``: the same two steps' launches on the
+narrow-channel kernel; ``dw_fused`` / ``dx_fused``: the
 ``deep_bwd`` probe runs of phase 10 in each dtype (those on the new form,
 every one); ``leaf_update``: the
 three ``adam_fusion`` probe runs of phase 10.
@@ -312,8 +325,12 @@ The rows of bf16 ``matmul_nt``, ``matmul_nt2_mask``, ``linear_ksplit_fwd``,
 ``dec_bwd_fused``, ``grad_accum``, ``enc_bwd_dw1`` and ``grad_accum2``
 describe the tensor-core kernel, those of fp32 ``matmul_nt``,
 ``matmul_nt_mask``, ``matmul_nt2_mask``, ``linear_ksplit_fwd``,
-``linear_fwd``, ``grad_accum``, ``encoder_fwd``, ``decoder_fwd`` and
-``quantized_decoder_fwd`` the fp32 kernel of ``csrc/sgemm.cuh`` (``ms``,
+``linear_fwd``, ``toeplitz_fwd``, ``grad_accum``, ``encoder_fwd``,
+``decoder_fwd`` and ``quantized_decoder_fwd`` the fp32 kernel of
+``csrc/sgemm.cuh`` (``toeplitz_fwd`` at conv1d.ini's layer 1, with the
+window; the ``toeplitz_fwd_narrow`` rows the narrow-channel kernel of
+``csrc/narrow.cuh`` at its layer 7; each with ``device_ms``,
+``library_device_ms`` and ``first_version_device_ms``) (``ms``,
 and ``launches``: those that took it; ``quantized_decoder_fwd`` with an
 int8 B, at the server's batch, with the fp32 decoder's times on the
 dequantized weights as ``fp32_decoder_ms`` / ``fp32_decoder_device_ms``; fp32 ``linear_fwd`` at the server's 256x4096->4096, fp32
@@ -451,6 +468,18 @@ SGEMM_RAGGED = ((4097, 1088, 544), (1000, 1096, 520), (1, 24, 8),
                 (7, 12, 20))
 NO_SGEMM = ((1000, 70, 33), (512, 1026, 520), (512, 1024, 514))
 SGEMM_SOURCE = "rawaudiovae_kelsey_tpu_torch/csrc/sgemm.cuh"
+# phase 3e, the narrow-channel Toeplitz kernel: its source, and ragged
+# shapes (B, nb, G, KB, N, t_out, shift) held in both dtypes and swept
+# against the other forms: G or N below 8 (3, 4, 6; N = 40 over two column
+# chunks, t_out above nb over three blocks of 128 positions), and three it
+# does not take (G and N of 8 or more; the last at the rule's edge at full
+# batch).
+NARROW_SOURCE = "rawaudiovae_kelsey_tpu_torch/csrc/narrow.cuh"
+NARROW_RAGGED = ((37, 9, 4, 3, 24, 13, 0), (1, 9, 24, 3, 4, 5, 2),
+                 (37, 40, 3, 3, 8, 40, 2), (5, 300, 6, 5, 40, 301, 4),
+                 (2, 20, 8, 3, 4, 17, 1), (3, 33, 12, 2, 6, 33, 1),
+                 (37, 9, 24, 3, 40, 13, 2), (4, 130, 16, 3, 72, 129, 0),
+                 (4096, 256, 8, 3, 8, 256, 1))
 
 
 # roofline peaks of one H100 SXM (NVIDIA's data sheet, dense rates)
@@ -2745,16 +2774,17 @@ FAST = {
 
 
 def sweep_tiles(name, label, call, rule_args, kernel="tensor_cores",
-                calls: int = 5) -> dict:
+                calls: int = 5, rule: str = "") -> dict:
     """Device ms of ``call(kernel)`` with the tile forced to each of the
     kernel's tiles in turn (the tensor-core kernel's widths
     ``tensor_cores.TILE_WIDTHS``, the fp32 kernel's ``SGEMM_TILES``), one
     profiler trace a tile, beside the tile its rule
-    (``tensor_cores.tile_n`` / ``sgemm_tile``) picks for ``rule_args``
-    (``(tiles_m, n)`` / ``(rows, n)``)."""
+    (``tensor_cores.tile_n`` / ``sgemm_tile``, or the function of
+    ``tensor_cores`` named ``rule``) picks for ``rule_args`` (``(tiles_m,
+    n)`` / ``(rows, n)``)."""
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
 
-    fast = FAST[kernel]
+    fast = dict(FAST[kernel], **({"rule": rule} if rule else {}))
     rule = getattr(tensor_cores, fast["rule"])
 
     def text(tile):
@@ -2772,6 +2802,89 @@ def sweep_tiles(name, label, call, rule_args, kernel="tensor_cores",
     print(f"  {name + '[' + fast['kind'] + ']':<24} {label}: device ms by "
           "tile " + ", ".join(f"{t}: {v:.4f}" for t, v in ms.items())
           + f"; the rule picks {text(picked)}")
+    return ms
+
+
+def conv_form(kind: str, i: int) -> str:
+    """The form both Toeplitz launches (forward and dx) of
+    ``configs/conv1d.ini`` layer ``i`` take: the first and the last layers
+    (G or N of 4) the narrow kernel, the six between the tensor cores in
+    bf16 and the fp32 kernel in fp32."""
+    if i in (0, len(CONV_LAYERS) - 1):
+        return "narrow"
+    return "tensor_cores" if kind == "bf16" else "sgemm"
+
+
+def narrow_sweep(kind, label, args, calls: int = 5, plans=False) -> dict:
+    """The narrow rule's sweep: device ms of the Toeplitz product ``args``
+    (x, w, b, act, t_out, shift) on each form that can run it, named, the
+    narrow kernel also where its rule would not take the widths (its rule's
+    width limit lifted, its shared-memory limit kept), beside the form
+    ``"auto"`` picks; with ``plans``, the narrow kernel's too: each column
+    chunk and one or two positions a thread forced in turn, beside the
+    rules' picks (``toeplitz.narrow_chunk``, ``narrow_rows``)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores, toeplitz
+
+    x, w, b, act, t_out, shift = args
+    B, nb, G = x.shape
+    kb, _, N = w.shape
+    aligned = tensor_cores.pointers_aligned(x, w, b)
+    runs = {"narrow": toeplitz.narrow_smem(G, kb, N, 1, x.element_size())
+            <= toeplitz.NARROW_SMEM_BYTES,
+            "sgemm": toeplitz.takes_sgemm(x.dtype, B, nb, t_out, G, N,
+                                          (0, kb * G), 1, aligned),
+            "tensor_cores": toeplitz.takes_tensor_cores(
+                x.dtype, B, nb, t_out, G, N, 1, aligned),
+            "cuda_cores": True}
+    below = toeplitz.NARROW_BELOW
+    ms = {}
+    try:
+        toeplitz.NARROW_BELOW = 1 << 30
+        for kernel in (k for k, ok in runs.items() if ok):
+            ms[kernel] = device_ms(lambda: toeplitz.toeplitz_fwd(
+                x, w, b, act, t_out, shift, kernel=kernel), calls)
+    finally:
+        toeplitz.NARROW_BELOW = below
+    counters = {"narrow": "narrow_launches", "sgemm": "sgemm_launches",
+                "tensor_cores": "tensor_core_launches"}
+    before = {k: getattr(toeplitz.toeplitz_fwd, c)
+              for k, c in counters.items()}
+    toeplitz.toeplitz_fwd(x, w, b, act, t_out, shift)
+    picked = next((k for k, c in counters.items()
+                   if getattr(toeplitz.toeplitz_fwd, c) > before[k]),
+                  "cuda_cores")
+    print(f"  {'toeplitz_fwd[' + kind + ']':<24} {label} x {tuple(x.shape)} "
+          f"w {tuple(w.shape)}: device ms by form "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; the rule picks {picked}")
+    if plans:
+        rules = {"narrow_chunk": toeplitz.narrow_chunk,
+                 "narrow_rows": toeplitz.narrow_rows}
+        plan_ms = {}
+        try:
+            for name, values in (("narrow_chunk", toeplitz.NARROW_CHUNKS),
+                                 ("narrow_rows", (1, 2))):
+                for v in values:
+                    setattr(toeplitz, name, lambda _, v=v: v)
+                    if toeplitz.takes_narrow(x.dtype, B, nb, t_out, G, N,
+                                             kb, 1, aligned):
+                        plan_ms[name, v] = device_ms(
+                            lambda: toeplitz.toeplitz_fwd(
+                                x, w, b, act, t_out, shift,
+                                kernel="narrow"), calls)
+                    setattr(toeplitz, name, rules[name])
+        finally:
+            for name, rule in rules.items():
+                setattr(toeplitz, name, rule)
+        print(f"  {'toeplitz_fwd[' + kind + ']':<24} {label}: narrow device "
+              "ms by column chunk "
+              + ", ".join(f"{v}: {t:.4f}" for (n, v), t in plan_ms.items()
+                          if n == "narrow_chunk")
+              + f" (the rule picks {toeplitz.narrow_chunk(N)}), by "
+              "positions a thread "
+              + ", ".join(f"{v}: {t:.4f}" for (n, v), t in plan_ms.items()
+                          if n == "narrow_rows")
+              + f" (the rule picks {toeplitz.narrow_rows(x.dtype)})")
     return ms
 
 
@@ -4219,30 +4332,36 @@ def phase_variant_kernels():
             output_padding=max(0, CONV_S - CONV_K + 2 * pb))
 
     layer_ms = {}
+    counter = {"tensor_cores": "tensor_core_launches",
+               "sgemm": "sgemm_launches", "narrow": "narrow_launches"}
+    fp32_windows = {}
+    # the dx launches' cotangents (a generator of their own: the draws
+    # below stay as they were)
+    g_da = torch.Generator(device=dev).manual_seed(34)
     for kind, dt in dtypes.items():
         err = 0.0
         for i, (direction, length, cin, cout) in enumerate(CONV_LAYERS):
             op, plain, pack = both(direction)
             act = "tanh" if i == len(CONV_LAYERS) - 1 else "relu"
-            # bf16: the six middle layers take the tensor cores, forward and
-            # dx; the first (G = 4) and the last (N = 4, its dx G = 4) not
-            on_tc = 2 if kind == "bf16" and 0 < i < len(CONV_LAYERS) - 1 else 0
+            form = conv_form(kind, i)
             for batch in ((DEEP_BATCH, 4097) if i == 2 else (DEEP_BATCH,)):
                 x, w, b = conv_operands(batch, length, cin, cout, dt)
                 x.requires_grad_()
-                toeplitz.toeplitz_fwd.launches = 0
-                toeplitz.toeplitz_fwd.tensor_core_launches = 0
+                before = {c: getattr(toeplitz.toeplitz_fwd, c)
+                          for c in ("launches", *counter.values())}
                 with torch.enable_grad():
                     got = op(x, w, b, CONV_S, act)
                     (dx,) = torch.autograd.grad(got.float().square().sum(), x)
                 torch.cuda.synchronize()
-                n_toe = toeplitz.toeplitz_fwd.launches
-                n_tc = toeplitz.toeplitz_fwd.tensor_core_launches
-                check(n_toe == 2, f"{direction} layer {i}: {n_toe} Toeplitz "
-                      "launches, expected the forward and dx")
-                check(n_tc == on_tc, f"{kind} {direction} layer {i}: {n_tc} "
-                      f"of 2 Toeplitz launches on the tensor cores, expected "
-                      f"{on_tc}")
+                rose = {c: getattr(toeplitz.toeplitz_fwd, c) - n
+                        for c, n in before.items()}
+                check(rose["launches"] == 2, f"{direction} layer {i}: "
+                      f"{rose['launches']} Toeplitz launches, expected the "
+                      "forward and dx")
+                check(rose[counter[form]] == 2
+                      and sum(rose[c] for c in counter.values()) == 2,
+                      f"{kind} {direction} layer {i}: launches by form "
+                      f"{rose}, expected both on {form}")
                 # plain: the fp32 convolution of the same operands, bias
                 # and activation in fp32, one rounding (the kernel's
                 # epilogue); its dx from the same rounded output
@@ -4254,7 +4373,7 @@ def phase_variant_kernels():
                     (dx_want,) = torch.autograd.grad(want32, x32,
                                                      2 * want.float())
                 what = (f"layer {i} {direction} {batch}x{length}x{cin}->{cout}"
-                        f" ({n_tc} of 2 on the tensor cores)")
+                        f" (both launches on {form})")
                 err = max(err, held("toeplitz_fwd", kind, got.detach(), want,
                                     VARIANT_REL[kind], what))
                 held("toeplitz_fwd", kind, dx, dx_want.to(dt),
@@ -4265,52 +4384,96 @@ def phase_variant_kernels():
             if direction == "conv":
                 xf, wp, t_out, shift = packed
                 bp = b
+                window = conv.conv1d_window(length, CONV_K, cin, CONV_S)
             else:
                 xf, wp, bp, t_out, shift = packed
+                window = None
             wp = wp.contiguous()
 
-            def call(kernel="auto"):
+            def call(kernel="auto", window=window):
                 return toeplitz.toeplitz_fwd(xf, wp, bp, act, t_out, shift,
-                                             kernel=kernel)
+                                             kernel=kernel, window=window)
 
-            fns = {"library": library_call(direction, x, w, b),
-                   "plain": lambda: toeplitz.toeplitz_fwd_ref(
-                       xf, wp, bp, act, t_out, shift),
-                   "cuda_cores": lambda: call("cuda_cores")}
-            if on_tc:
-                fns["tensor_cores"] = lambda: call("tensor_cores")
-                y = call()
-                check(torch.equal(y, call()), f"toeplitz_fwd[bf16] layer {i}: "
-                      "a second launch gave other bits")
+            # the dx launch of the same layer: the reversed taps over a
+            # cotangent, zero bias, no activation
+            da = torch.randn((DEEP_BATCH, t_out, wp.shape[2]),
+                             generator=g_da, device=dev).to(dt)
+            wrev = wp.flip(0).transpose(1, 2).contiguous()
+            zero = torch.zeros((wp.shape[1],), device=dev, dtype=dt)
+
+            def call_dx(kernel="auto"):
+                return toeplitz.toeplitz_fwd(
+                    da, wrev, zero, "none", xf.shape[1],
+                    wp.shape[0] - 1 - shift, kernel=kernel)
+
+            y = call()
+            check(torch.equal(y, call()), f"toeplitz_fwd[{kind}] layer {i}: "
+                  "a second launch gave other bits")
+            if form == "tensor_cores":
                 held("toeplitz_fwd", kind, y, call("cuda_cores"),
                      VARIANT_REL[kind], f"layer {i}, tensor cores against "
                      "the first version (equal bits twice)")
+            else:
+                # the first version's FMA chains: equal bits, forward (over
+                # the window where the layer has one) and dx
+                for name, fn in (("forward", call), ("dx", call_dx)):
+                    check(torch.equal(fn(), fn("cuda_cores")),
+                          f"toeplitz_fwd[{kind}] layer {i} {name}: {form} "
+                          "and the first version gave other bits")
+                print(f"  {'toeplitz_fwd[' + kind + ']':<24} layer {i}: "
+                      f"{form} gives the first version's bits, forward and "
+                      "dx, and equal bits on a second launch")
+            fns = {"library": library_call(direction, x, w, b),
+                   "plain": lambda: toeplitz.toeplitz_fwd_ref(
+                       xf, wp, bp, act, t_out, shift),
+                   "cuda_cores": lambda: call("cuda_cores"),
+                   form: lambda: call(form)}
             t, runs = time_in_turns(fns, 10)
-            t["kernel"] = t["tensor_cores" if on_tc else "cuda_cores"]
+            t["kernel"] = t[form]
             t["device"] = device_ms(call)
+            t["first_device"] = device_ms(lambda: call("cuda_cores"))
             t["library_device"] = device_ms(fns["library"])
+            t["dx_device"] = device_ms(call_dx)
+            t["dx_first_device"] = device_ms(lambda: call_dx("cuda_cores"))
             # the convolution's own multiply-adds (the packed tap stack's
             # zero rows are not work the function needs)
             flops = 2 * DEEP_BATCH * length * CONV_K * cin * cout // (
                 CONV_S if direction == "conv" else 1)
-            bd = bound(flops, nbytes(x, w, b, call()), kind)
-            layer_ms[kind, i] = {**t, **bd}
+            bd = bound(flops, nbytes(x, w, b, y), kind)
+            layer_ms[kind, i] = {**t, **bd, "form": form}
             lib = "F.conv1d" if direction == "conv" else "F.conv_transpose1d"
             print(f"  {'toeplitz_fwd[' + kind + ']':<24} layer {i} "
                   f"{direction} {length}x{cin}->{cout}: x {tuple(xf.shape)} w "
-                  f"{tuple(wp.shape)} shift {shift}: ran "
-                  f"{'tensor_cores' if on_tc else 'cuda_cores'}, kernel "
-                  f"{t['kernel']:.4f} ms (device {t['device']:.4f} ms), "
-                  f"first version {t['cuda_cores']:.4f} ms, plain "
-                  f"{t['plain']:.4f} ms, {lib} {t['library']:.4f} ms (device "
+                  f"{tuple(wp.shape)} shift {shift} window {window}: ran "
+                  f"{form}, kernel {t['kernel']:.4f} ms (device "
+                  f"{t['device']:.4f} ms), first version "
+                  f"{t['cuda_cores']:.4f} ms (device "
+                  f"{t['first_device']:.4f} ms), plain {t['plain']:.4f} ms, "
+                  f"{lib} {t['library']:.4f} ms (device "
                   f"{t['library_device']:.4f} ms), bound "
-                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}) (runs {runs})")
-            if on_tc:
+                  f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); dx device "
+                  f"{t['dx_device']:.4f} ms, first version "
+                  f"{t['dx_first_device']:.4f} ms (runs {runs})")
+            if form == "tensor_cores":
                 sweep_tiles("toeplitz_fwd", f"layer {i}", call,
                             (-(-toeplitz.tile_halves(
                                 DEEP_BATCH, t_out,
                                 *toeplitz.tile_plan(t_out)) // 2),
                              wp.shape[2]))
+            elif form == "sgemm":
+                sweep_tiles("toeplitz_fwd", f"layer {i}", call,
+                            (DEEP_BATCH * t_out, wp.shape[2]), kernel="sgemm",
+                            rule="sgemm_whole_tile")
+                if window is not None:
+                    fp32_windows[i] = (t["device"], device_ms(
+                        lambda: call("sgemm", None)), window,
+                        wp.shape[0] * wp.shape[1])
+            else:
+                narrow_sweep(kind, f"layer {i}", (xf, wp, bp, act, t_out,
+                                                  shift), plans=True)
+                narrow_sweep(kind, f"layer {i} dx",
+                             (da, wrev, zero, "none", xf.shape[1],
+                              wp.shape[0] - 1 - shift), plans=True)
 
         def total(key):
             return sum(layer_ms[kind, i][key] for i in range(len(CONV_LAYERS)))
@@ -4318,21 +4481,33 @@ def phase_variant_kernels():
         print(f"  {'toeplitz_fwd[' + kind + ']':<24} a forward of the eight "
               f"layers: kernel {total('kernel'):.4f} ms (device "
               f"{total('device'):.4f} ms), first version "
-              f"{total('cuda_cores'):.4f} ms, plain {total('plain'):.4f} ms, "
-              f"cuDNN {total('library'):.4f} ms (device "
+              f"{total('cuda_cores'):.4f} ms (device "
+              f"{total('first_device'):.4f} ms), plain {total('plain'):.4f} "
+              f"ms, cuDNN {total('library'):.4f} ms (device "
               f"{total('library_device'):.4f} ms), bound "
               f"{total('bound_ms'):.4f} ms")
-        # the kernel line's row: the second encoder layer (the first of the
-        # six 12.9 GFLOP layers)
-        t = layer_ms[kind, 1]
-        rows[f"toeplitz_fwd[{kind}]"] = {
-            "name": f"toeplitz_fwd[{kind}]", "route": "cuda",
-            "source": TC_SOURCE if kind == "bf16" else toe_src,
-            "replaces": tpu_toe, "max_abs_err": err, "ms": t["kernel"],
-            "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library"]}
-        if kind == "bf16":
-            rows["toeplitz_fwd[bf16]"]["first_version_ms"] = t["cuda_cores"]
+        # the kernel line's rows: the second encoder layer (the first of
+        # the six 12.9 GFLOP layers) for the tensor-core and fp32 forms, the
+        # last decoder layer for the narrow form
+        for name, i in (("toeplitz_fwd", 1), ("toeplitz_fwd_narrow", 7)):
+            t = layer_ms[kind, i]
+            rows[f"{name}[{kind}]"] = {
+                "name": f"{name}[{kind}]", "route": "cuda",
+                "source": {"tensor_cores": TC_SOURCE, "sgemm": toe_src,
+                           "narrow": NARROW_SOURCE}[t["form"]],
+                "replaces": tpu_toe, "max_abs_err": err, "ms": t["kernel"],
+                "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library"],
+                "device_ms": t["device"],
+                "library_device_ms": t["library_device"],
+                "first_version_ms": t["cuda_cores"],
+                "first_version_device_ms": t["first_device"],
+                "at": f"configs/conv1d.ini layer {i}, batch {DEEP_BATCH}"}
+    for i, (window_ms, full_ms, window, rows_k) in fp32_windows.items():
+        print(f"  {'toeplitz_fwd[fp32]':<24} layer {i}: the window "
+              f"{window} ({window[1] - window[0]} of {rows_k} rows) "
+              f"{window_ms:.4f} ms of device time, the whole packed stack "
+              f"{full_ms:.4f} ms ({full_ms / window_ms:.3f}x)")
 
     # bf16 on the tensor cores at ragged plans, (B, nb, G, KB, N, t_out,
     # shift): t_out below 64 that does not divide it, above 64 and above
@@ -4403,6 +4578,41 @@ def phase_variant_kernels():
                  toeplitz.toeplitz_fwd(xs, ws, bs, "tanh", t_out, shift),
                  toeplitz.toeplitz_fwd_ref(xs, ws, bs, "tanh", t_out, shift),
                  VARIANT_REL[kind], f"37x9x24 shift {shift} t_out {t_out}")
+    # the narrow and fp32 forms at ragged shapes (a generator of its own):
+    # against plain, the first version's bits (passes = 4 too), the forms
+    # swept against one another
+    g_nw = torch.Generator(device=dev).manual_seed(33)
+    for kind, dt in dtypes.items():
+        for B, nb, G, kb, N, t_out, shift in NARROW_RAGGED:
+            xs = torch.randn((B, nb, G), generator=g_nw, device=dev).to(dt)
+            ws = (torch.randn((kb, G, N), generator=g_nw, device=dev)
+                  / (kb * G) ** 0.5).to(dt)
+            bs = (torch.randn((N,), generator=g_nw, device=dev) * 0.1).to(dt)
+            what = (f"x {(B, nb, G)} w {(kb, G, N)} t_out {t_out} shift "
+                    f"{shift}")
+            for passes in ((1, 4) if kind == "fp32" else (1,)):
+                before = (toeplitz.toeplitz_fwd.narrow_launches,
+                          toeplitz.toeplitz_fwd.sgemm_launches)
+                got = toeplitz.toeplitz_fwd(xs, ws, bs, "tanh", t_out, shift,
+                                            passes)
+                torch.cuda.synchronize()
+                new = (toeplitz.toeplitz_fwd.narrow_launches - before[0],
+                       toeplitz.toeplitz_fwd.sgemm_launches - before[1])
+                narrow = min(G, N) < toeplitz.NARROW_BELOW
+                check(new[0] == narrow, f"toeplitz_fwd[{kind}] {what}: "
+                      f"{new[0]} narrow launches, expected {int(narrow)}")
+                form = "narrow" if new[0] else "sgemm" if new[1] else "auto"
+                held("toeplitz_fwd", kind, got, toeplitz.toeplitz_fwd_ref(
+                    xs, ws, bs, "tanh", t_out, shift, passes),
+                    FOUR_PASS_REL if passes == 4 else VARIANT_REL[kind],
+                    f"{what} passes {passes} ({form})")
+                if any(new):
+                    check(torch.equal(got, toeplitz.toeplitz_fwd(
+                        xs, ws, bs, "tanh", t_out, shift, passes,
+                        kernel="cuda_cores")), f"toeplitz_fwd[{kind}] "
+                          f"{what} passes {passes}: other bits than the "
+                          "first version")
+            narrow_sweep(kind, "ragged", (xs, ws, bs, "tanh", t_out, shift))
     return rows
 
 
@@ -4868,8 +5078,9 @@ def step_pair(cfg, ckpt, x, models, tol, label):
     """One step from checkpoint ``ckpt`` on batch ``x`` with each of the two
     models of ``models`` ({name: build(cfg)}), same noise; the first is the
     kernels', the second the plain one.  Returns the kernel launches of the
-    first, and under "<wrapper>@tc" / "<wrapper>@sgemm" those of a wrapper
-    with a tensor-core / fp32 form that took it."""
+    first, and under "<wrapper>@tc" / "<wrapper>@sgemm" / "<wrapper>@narrow"
+    those of a wrapper with a tensor-core / fp32 / narrow-channel form that
+    took it."""
     from rawaudiovae_kelsey_tpu_torch import ops
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
     from rawaudiovae_kelsey_tpu_torch.train import (
@@ -4892,7 +5103,8 @@ def step_pair(cfg, ckpt, x, models, tol, label):
             w.launches = 0
         fast = [(w, attr, tag) for w in ops.KERNEL_WRAPPERS
                 for attr, tag in (("tensor_core_launches", "tc"),
-                                  ("sgemm_launches", "sgemm"))
+                                  ("sgemm_launches", "sgemm"),
+                                  ("narrow_launches", "narrow"))
                 if hasattr(w, attr)]
         on_fast = [getattr(w, attr) for w, attr, _ in fast]
         state, m = build_train_step(model, cfg, noise=noise)(state, x)
@@ -5192,14 +5404,25 @@ def phase_conv(tmp: Path, card: str):
                            width=width, channels=256))
 
     models = {"toeplitz": op_level, "registry": lambda c: build_model(c, dev)}
+    # the Toeplitz kernels in a trace, by name or template argument: the
+    # tensor-core tile walk, the fp32 kernel, the narrow-channel kernel, the
+    # first version's implicit A
+    focus = {"Toeplitz on the tensor cores": "ToeplitzTiles",
+             "Toeplitz on sgemm.cuh": "sgemm_toeplitz_kernel",
+             "Toeplitz narrow": "narrow_kernel",
+             "Toeplitz first version": "ToeplitzRows"}
     step_counts = {}
     for precision, tol in (("bfloat16", 5e-2), ("highest", 1e-3)):
         cfg.tpu.precision = precision
         counts = step_counts[precision] = step_pair(
             cfg, ckpt, x, models, tol, f"conv1d {precision}")
+        forms = {tag: counts[f"toeplitz_fwd@{tag}"]
+                 for tag in ("tc", "sgemm", "narrow")}
         print(f"  kernel launches in that step: toeplitz_fwd "
-              f"{counts['toeplitz_fwd']} ({counts['toeplitz_fwd@tc']} on the "
-              f"tensor cores), linear_fwd {counts['linear_fwd']} "
+              f"{counts['toeplitz_fwd']} ({forms['tc']} on the tensor "
+              f"cores, {forms['sgemm']} on sgemm.cuh, {forms['narrow']} "
+              f"narrow, {counts['toeplitz_fwd'] - sum(forms.values())} on "
+              f"the first version), linear_fwd {counts['linear_fwd']} "
               f"({counts['linear_fwd@tc']} on the tensor cores), "
               f"linear_ksplit_fwd {counts['linear_ksplit_fwd']}")
         # 8 forward, 7 for dx: the first layer's input is the batch, which
@@ -5208,20 +5431,32 @@ def phase_conv(tmp: Path, card: str):
               and counts["linear_ksplit_fwd"] == 0,
               f"conv1d {precision} step: {counts['toeplitz_fwd']} Toeplitz + "
               f"{counts['linear_fwd']} whole-k launches, expected 8 + 7 and 3")
-        # bf16: all but the first encoder layer (G = 4) and the last decoder
-        # layer and its dx (N = 4, G = 4) take the tensor cores
+        # the first encoder layer (G = 4) and the last decoder layer and its
+        # dx (N = 4, G = 4) take the narrow kernel; the other twelve the
+        # tensor cores in bf16 and the fp32 kernel at `highest`: none the
+        # first version
         bf16 = precision == "bfloat16"
-        check((counts["toeplitz_fwd@tc"], counts["linear_fwd@tc"])
-              == ((12, 3) if bf16 else (0, 0)),
-              f"conv1d {precision} step: {counts['toeplitz_fwd@tc']} Toeplitz "
-              f"and {counts['linear_fwd@tc']} whole-k launches on the tensor "
-              f"cores, expected {'12 and 3' if bf16 else 'none'}")
+        want = {"tc": 12 * bf16, "sgemm": 12 * (not bf16), "narrow": 3}
+        check(forms == want and counts["linear_fwd@tc"] == 3 * bf16,
+              f"conv1d {precision} step: Toeplitz launches by form {forms}, "
+              f"expected {want}; {counts['linear_fwd@tc']} whole-k launches "
+              f"on the tensor cores, expected {3 * bf16}")
     cfg.tpu.precision = "bfloat16"
-    # the Toeplitz kernels by their template arguments: the tensor-core
-    # tile walk, the first version's implicit A
-    step_rates(cfg, x, models, card, focus={
-        "Toeplitz on the tensor cores": "ToeplitzTiles",
-        "Toeplitz first version": "ToeplitzRows"})
+    step_rates(cfg, x, models, card, focus=focus)
+    # the `highest` op-level step's device time by kernel, beside the bf16
+    # one step_rates printed
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg.tpu.precision = "highest"
+    model = op_level(cfg)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    step = build_train_step(model, cfg)
+    step(state, x)                                            # warmup
+    print(f"  one toeplitz highest step by kernel: "
+          f"{device_time_by_kernel(lambda: step(state, x), focus=focus)}")
+    cfg.tpu.precision = "bfloat16"
     return step_counts
 
 
@@ -5522,7 +5757,7 @@ def main() -> int:
     # describes the tensor-core kernel: its launches are those that took it
     for key, row in variant_rows.items():
         name, kind = key[:-1].split("[")
-        if name == "toeplitz_fwd":
+        if name.startswith("toeplitz_fwd"):
             counts = conv_launches["bfloat16" if kind == "bf16"
                                    else "highest"]
         elif kind == "bf16":
@@ -5531,11 +5766,11 @@ def main() -> int:
             counts = deep_serve_launches
         else:
             counts = deep_fp32_launches
-        # a bf16 row describes the tensor-core kernel, an fp32 linear row
-        # csrc/sgemm.cuh
+        # a bf16 row describes the tensor-core kernel, an fp32 one
+        # csrc/sgemm.cuh; the toeplitz_fwd_narrow rows the narrow kernel
         row["launches"] = counts[
-            f"{name}@tc" if kind == "bf16"
-            else name if name == "toeplitz_fwd" else f"{name}@sgemm"]
+            "toeplitz_fwd@narrow" if name == "toeplitz_fwd_narrow"
+            else f"{name}@tc" if kind == "bf16" else f"{name}@sgemm"]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(variant_rows)
     # the probes' kernels: the deep_bwd runs in each dtype, the adam_fusion

@@ -3,9 +3,10 @@
 // rvk_matmul_nt_mask and rvk_matmul_nt2_mask (bwd.cu: sgemm_gated_kernel),
 // rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu), rvk_quantized_decoder_fwd
 // (quant.cu: an int8 B), rvk_dx_fused and rvk_dw_fused (linear_bwd.cu:
-// sgemm_fused_kernel), and the fp32 forms of rvk_enc_bwd_dw1,
+// sgemm_fused_kernel), the fp32 forms of rvk_enc_bwd_dw1,
 // rvk_grad_accum2 and rvk_dec_bwd_fused (bwd.cu: the launches above, one
-// after another).
+// after another), and the fp32 one-pass rvk_toeplitz_fwd (toeplitz.cu:
+// sgemm_toeplitz_kernel on product_tile with an implicit Toeplitz A).
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -27,17 +28,18 @@
 // rawaudiovae_kelsey_tpu/ops/pallas_linear.py, matmul_nt, matmul_nt_mask,
 // matmul_nt2_mask, grad_accum (_grad_accum_kernel), encoder_fwd and
 // decoder_fwd of rawaudiovae_kelsey_tpu/ops/pallas_mlp.py,
-// quantized_decoder_fwd of rawaudiovae_kelsey_tpu/ops/quant.py, and dw_fused
-// and dx_fused of benchmarks/deep_bwd_probe.py, in fp32.  As there, an output
-// tile carries one accumulator across its contraction, and a block walks
-// its k range itself, in order.  The forward products of launch take all
-// of K in one slice: no workspace, no atomics, so two launches give equal
-// bits.  The encoder and decoder (launch_fwd) may cut K into slices (the
-// grid's z) where their output is too few tiles to fill the card (the
-// server's 256 rows), each slice's sums written to a workspace and added
-// in order, the bias and the activation after them (slices_epilogue,
-// slices.cuh); the encoder's two heads are one grid whose tile columns run
-// over both outputs (sgemm_heads_kernel).  The weight gradient (launch_wgrad)
+// quantized_decoder_fwd of rawaudiovae_kelsey_tpu/ops/quant.py, toeplitz_fwd
+// (_toeplitz_kernel) of rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py, and
+// dw_fused and dx_fused of benchmarks/deep_bwd_probe.py, in fp32.  As
+// there, an output tile carries one accumulator across its contraction,
+// and a block walks its k range itself, in order.  The forward products of
+// launch take all of K in one slice: no workspace, no atomics, so two
+// launches give equal bits.  The encoder and decoder (launch_fwd) may cut
+// K into slices (the grid's z) where their output is too few tiles to fill
+// the card (the server's 256 rows), each slice's sums written to a
+// workspace and added in order, the bias and the activation after them
+// (slices_epilogue, slices.cuh); the encoder's two heads are one grid whose
+// tile columns run over both outputs (sgemm_heads_kernel).  The weight gradient (launch_wgrad)
 // computes dW = aᵀ b and db = colsum(b): at the training microbatch dW21,
 // dW22 (2048 x 256) and dW3 (256 x 2048) are 32 tiles of 128 x 128 for
 // 132 SMs, so the batch is cut into slices (the grid's z), each slice a
@@ -105,6 +107,14 @@
 //   once a block, 1/64 of the FFMAs at 64 x 64; the k order and the FFMAs
 //   are the fp32 operand's, so the product equals the fp32 kernel's on the
 //   dequantized matrix bit for bit.
+// * The block-Toeplitz product's A (ToeplitzA, Operand kToe) is the flat
+//   signal read as overlapping rows, row (b, t) starting at element (t −
+//   shift) · G + k0 of batch row b: a thread works out its rows' batch row
+//   and offset once (WindowRows; its rows are the same in every slab), and
+//   each 16-byte copy is checked against its batch row, a zero fill
+//   outside.  Nothing is padded or copied; the rows' overlap is served by
+//   L2.  The contraction is the caller's window of the tap stack (the conv1d
+//   layers' packed stacks hold zeros outside it), B from its origin.
 // * The bias gradient colsum(b) of the weight gradient is summed by the
 //   blocks of dW's first tile row from the B slabs they already hold in
 //   shared memory, while the FFMAs run: thread t adds column t % BN over
@@ -196,10 +206,33 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// The implicit A of the block-Toeplitz product (toeplitz.cu): row m = (b,
+// t) of B · t_out rows, element k the flat element (t − shift) · G + k0 + k
+// of batch row b of x (B, nb · G), zero outside [0, nb · G); k0 is the
+// contraction window's origin.  G and k0 are multiples of 4 (so is
+// row_len = nb · G), so a 16-byte copy, four k from a multiple of 4, lies
+// wholly inside its batch row or wholly outside it: cp.async zero-fills
+// the copies outside, which is the SAME padding and the batch edge.
+struct ToeplitzA {
+  const float* x;
+  int t_out, shift, G, row_len, k0;
+};
+
+// A thread's rows of a Toeplitz A, worked out once before the mainloop (a
+// thread copies the same rows in every slab): each copy's batch row b and
+// the flat offset f = (t − shift) · G + k0 of its row's element k = 0.
+template <int kCopies>
+struct WindowRows {
+  int b[kCopies], f[kCopies];
+};
+
 // One operand seen as R rows (M of A, N of B) by K, staged in slabs of
 // kBK through a ring of kS slabs.  kKMajor: element (r, k) at p[r * ld +
-// k]; otherwise at p[k * ld + r].  Its shared memory, in floats: the ring,
-// and for a K-major operand two transposed compute buffers after it.  A
+// k]; otherwise at p[k * ld + r].  A Toeplitz operand (kToe, K-major fp32
+// only: the block-Toeplitz product's A) reads element (r, k) through a
+// ToeplitzA and the thread's WindowRows instead.  Its shared memory, in
+// floats: the ring, and for a K-major operand two transposed compute
+// buffers after it.  A
 // formed operand (kForm: the cotangent da = act'(y) · dy of the fused
 // linear backward, linear_bwd.cu) has a second ring for dy beside y's, and
 // the pass that reads a slab back forms da from the two (rvk::cotangent):
@@ -212,13 +245,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // has a ring of int8 slabs and, after it, two fp32 compute buffers that
 // the read-back pass fills with the dequantized values q · s[column].
 template <int R, bool kKMajor, int kBK, int kS = kStages, bool kForm = false,
-          bool kJoin = false, typename T = float>
+          bool kJoin = false, typename T = float, bool kToe = false>
 struct Operand {
   static_assert(!kJoin || (kKMajor && !kForm),
                 "a joined operand is K-major and not formed");
   static constexpr bool kQuant = std::is_same<T, int8_t>::value;
   static_assert(!kQuant || (!kKMajor && !kForm && !kJoin),
                 "an int8 operand is N-major, neither formed nor joined");
+  static_assert(!kToe || (kKMajor && !kForm && !kJoin && !kQuant),
+                "a Toeplitz operand is a K-major fp32 A");
   static constexpr int kSlab = R * kBK;  // elements
   static constexpr int kRings = kForm ? 2 : 1;
   // the ring's floats (an int8 slab is a quarter of an fp32 one), then the
@@ -259,13 +294,39 @@ struct Operand {
     }
   }
 
+  // a Toeplitz operand's WindowRows of this thread
+  using Rows = WindowRows<kCopies>;
+
+  // This thread's rows from r0 of a Toeplitz A of M rows (rows past M
+  // are never read: issue zero-fills them).
+  __device__ __forceinline__ static Rows window_rows(const ToeplitzA& toe,
+                                                     int r0, int M) {
+    Rows w{};
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      int r, kq;
+      place(i, r, kq);
+      const int m = r0 + r;
+      if (m < M) {
+        const int b = m / toe.t_out, t = m - b * toe.t_out;
+        w.b[i] = b;
+        w.f[i] = (t - toe.shift) * toe.G + toe.k0;
+      }
+    }
+    return w;
+  }
+
   // start the copies of slab `slab` into ring stage `stage`; rows from r0
   // of `rows`, k of K; a formed operand's q (dy, laid out as p) into the
-  // second ring; a joined operand's k from ld on from q
+  // second ring; a joined operand's k from ld on from q; a Toeplitz
+  // operand's from toe.x through this thread's rows `win`, zero outside
+  // the batch row
   __device__ __forceinline__ static void issue(float* sm, const T* p,
                                                const T* q, int ld, int r0,
                                                int rows, int K, int slab,
-                                               int stage) {
+                                               int stage,
+                                               const ToeplitzA& toe = {},
+                                               const Rows& win = {}) {
     T* ring = reinterpret_cast<T*>(sm) + stage * kSlab;
     const int k0 = slab * kBK;
 #pragma unroll
@@ -273,8 +334,21 @@ struct Operand {
       int r, kq;
       place(i, r, kq);
       const int row = r0 + r, k = k0 + kq;
-      const bool valid = row < rows && k < K;
       const int to = kKMajor ? r * kBK + kq : kq * R + r;
+      if constexpr (kToe) {
+        // the flat element of k in the batch row, in range or not as a
+        // whole 16-byte copy
+        const int e = win.f[i] + k;
+        const bool valid = row < rows && k < K &&
+                           static_cast<unsigned>(e) <
+                               static_cast<unsigned>(toe.row_len);
+        copy4(ring + to,
+              valid ? toe.x + static_cast<size_t>(win.b[i]) * toe.row_len + e
+                    : toe.x,
+              valid);
+        continue;
+      }
+      const bool valid = row < rows && k < K;
       // a joined operand's k from ld on is q's at k - ld
       const bool second = kJoin && k >= ld;
       const int kk = second ? k - ld : k;
@@ -387,10 +461,12 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
 // b2] along k, K the sum of both pairs' (equal) k.  kAct == kActGate: C =
 // where(gate > 0, A · B, 0), gate (M, N) laid out as C, no bias.  TB =
 // int8_t: B is the int8 q (K, N), N-major, dequantized with the column
-// scales `scale` (N,) as its slabs are read back.
+// scales `scale` (N,) as its slabs are read back.  kToe: A is the implicit
+// Toeplitz operand `toe` (K-major; `a` unused), B its taps from the
+// window's origin.
 template <int BM, int BN, bool kAKMajor, bool kBKMajor, int kAct,
           bool kFormA = false, bool kFormB = false, int kS = kStages,
-          bool kJoin = false, typename TB = float>
+          bool kJoin = false, typename TB = float, bool kToe = false>
 __device__ __forceinline__ void product_tile(
     const float* __restrict__ a, const TB* __restrict__ b,
     const float* __restrict__ bias, float* __restrict__ c,
@@ -398,9 +474,9 @@ __device__ __forceinline__ void product_tile(
     int n0, const float* __restrict__ a2 = nullptr,
     const TB* __restrict__ b2 = nullptr, int form = kActNone,
     const float* __restrict__ gate = nullptr,
-    const float* __restrict__ scale = nullptr) {
+    const float* __restrict__ scale = nullptr, const ToeplitzA& toe = {}) {
   constexpr int kBK = kSlabDepth<BM, BN>;
-  using OpA = Operand<BM, kAKMajor, kBK, kS, kFormA, kJoin>;
+  using OpA = Operand<BM, kAKMajor, kBK, kS, kFormA, kJoin, float, kToe>;
   using OpB = Operand<BN, kBKMajor, kBK, kS, kFormB, kJoin, TB>;
   constexpr int RM = BM / 64, RN = BN / 64;  // 4 x 4 sub-tiles a lane
   constexpr int WM = BM / 2, WN = BN / 4;    // the warp tile
@@ -430,11 +506,14 @@ __device__ __forceinline__ void product_tile(
   c += z * stride;
   const bool sums = kColsum && blockIdx.y == 0;
   float csum = 0.f;
+  // a Toeplitz A's rows of this thread (nothing for any other A)
+  typename OpA::Rows win{};
+  if constexpr (kToe) win = OpA::window_rows(toe, m0, M);
 
 #pragma unroll
   for (int s = 0; s < kS - 1; ++s) {
     if (s < slabs) {
-      OpA::issue(sa, a, a2, lda, m0, M, k_end, first + s, s);
+      OpA::issue(sa, a, a2, lda, m0, M, k_end, first + s, s, toe, win);
       OpB::issue(sb, b, b2, ldb, n0, N, k_end, first + s, s);
     }
     cp_async_commit();
@@ -461,7 +540,8 @@ __device__ __forceinline__ void product_tile(
     // barrier after computing it, and read back its own copies of it
     const int next = t + kS - 1;
     if (next < slabs) {
-      OpA::issue(sa, a, a2, lda, m0, M, k_end, first + next, next % kS);
+      OpA::issue(sa, a, a2, lda, m0, M, k_end, first + next, next % kS, toe,
+                 win);
       OpB::issue(sb, b, b2, ldb, n0, N, k_end, first + next, next % kS);
     }
     cp_async_commit();

@@ -44,8 +44,29 @@
 // x is streamed once from device memory into swizzled tiles by the copy
 // engine, not element by element through the registers; the overlapping
 // windows of neighbouring taps are served by L2.
+//
+// fp32 operands with passes = 1, G, N and the contraction window's origin
+// multiples of 4 and 16-byte aligned pointers take sgemm.cuh's register-
+// tiled mainloop (kernel code 2) with the implicit A staged by 16-byte
+// cp.async copies (ToeplitzA): a 16-byte copy lies wholly inside its
+// batch row or wholly outside it, and cp.async zero-fills the outside.
+// The contraction is the caller's window [k0, k0 + k_len) of w viewed as
+// (KB·G, N): conv1d_pallas (ops/conv.py) places the convolution's weight at
+// rows [r0, r0 + K·Cin) of a zero tap stack, a quarter of which is zeros
+// at the conv1d VAE's layers 1-3, and passes that window.  One slice, one
+// FFMA chain an output in k order from +0: the first version's chain, which
+// the zero rows outside the window leave unchanged (fma(x, 0, s) == s for
+// finite x), so the two give equal bits.
+//
+// A tap width G or an output width N below 8 takes the narrow-channel form
+// (kernel code 3, narrow.cuh), in either dtype and pass count: blocks walk
+// items of 128 output positions, copying the next item's window of x while
+// each thread sums one position's row (two in bf16) of this one, with the
+// first version's FMA chain and so its bits.
 
+#include "narrow.cuh"
 #include "product.cuh"
+#include "sgemm.cuh"
 #include "wgmma.cuh"
 
 using rvk::dst;
@@ -86,6 +107,67 @@ cudaError_t toeplitz_fwd(const T* x, const T* w, const T* bias, T* y, int B,
       rvk::BiasActStore<T>{bias, y, N, act}, B * t_out, N, K, 1, K, s);
 }
 
+// fp32, passes = 1, on sgemm.cuh's mainloop: C (M, N) = act(A · w + bias)
+// with A the implicit ToeplitzA and w its window's K rows of taps (K, N),
+// N-major.
+template <int BM, int BN, int kAct>
+__global__ void __launch_bounds__(rvk::sgemm::kThreads, 2)
+sgemm_toeplitz_kernel(const rvk::sgemm::ToeplitzA a,
+                      const float* __restrict__ w,
+                      const float* __restrict__ bias, float* __restrict__ c,
+                      int M, int N, int K) {
+  rvk::sgemm::product_tile<BM, BN, true, false, kAct, false, false,
+                           rvk::sgemm::kStages, false, float, true>(
+      a.x, w, bias, c, nullptr, M, N, K, K, 0, blockIdx.x * BN, nullptr,
+      nullptr, rvk::kActNone, nullptr, nullptr, a);
+}
+
+// y (B·t_out, N) = act(Σ_k A[m, k] · w[k0 + k] + bias) in IEEE fp32 over the
+// contraction window [k0, k0 + K) of w viewed as (KB·G, N): A the
+// ToeplitzA `a` (a.k0 = k0), w the whole tap stack, act an rvk::Act; G, k0,
+// K and N multiples of 4, every pointer 16-byte aligned.  Tile
+// kTiles[tile], the whole window in one slice: each output is one FFMA
+// chain in k order from +0, so that skipping rows of w that are exactly
+// zero changes no bit (fma(x, 0, s) == s for finite x, and s is never -0),
+// and two launches give equal bits.  Nothing to compute launches nothing.
+cudaError_t sgemm_toeplitz(const rvk::sgemm::ToeplitzA& a, const float* w,
+                           const float* bias, float* y, int M, int N, int K,
+                           int act, int tile, cudaStream_t stream) {
+  namespace sg = rvk::sgemm;
+  const float* wk = w + static_cast<size_t>(a.k0) * N;
+  if (!sg::takes(K, N, {a.x, wk, bias, y}) || bias == nullptr ||
+      a.G % 4 != 0 || a.k0 % 4 != 0 || a.k0 < 0 || a.t_out <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const auto product = [&](auto act_of) {
+    constexpr int kA = decltype(act_of)::value;
+    return sg::with_tile(tile, [&](auto index) {
+      constexpr int i = decltype(index)::value;
+      constexpr int BM = sg::kTiles[i][0], BN = sg::kTiles[i][1];
+      if (rvk::cdiv(M, BM) > 65535) return cudaErrorInvalidValue;  // grid y
+      auto kernel = sgemm_toeplitz_kernel<BM, BN, kA>;
+      constexpr int smem = sg::kSmemBytes<BM, BN, true, false>;
+      static uint64_t opted_in = 0;
+      const cudaError_t err = sg::opt_in(kernel, smem, opted_in);
+      if (err != cudaSuccess) return err;
+      const dim3 grid(rvk::cdiv(N, BN), rvk::cdiv(M, BM), 1);
+      kernel<<<grid, sg::kThreads, smem, stream>>>(a, wk, bias, y, M, N, K);
+      return cudaGetLastError();
+    });
+  };
+  switch (act) {
+    case rvk::kActNone:
+      return product(std::integral_constant<int, rvk::kActNone>{});
+    case rvk::kActRelu:
+      return product(std::integral_constant<int, rvk::kActRelu>{});
+    case rvk::kActTanh:
+      return product(std::integral_constant<int, rvk::kActTanh>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -93,19 +175,27 @@ extern "C" {
 // x (B, nb, G); w (kb, G, N); bias (N,); y (B, t_out, N); all of one dtype
 // (rvk::DType); act an rvk::Act (none, relu or tanh); passes 1, or 4 with
 // fp32 operands.  B·t_out, nb·G and kb·G must fit an int (the wrapper
-// checks).  kernel (an rvk::tc::Kernel): 0, the first version above; 1, the
-// tensor-core form, bf16 with passes 1 only, walking the output in halves
-// of b_half batch rows x t_half positions (ops/toeplitz.py tile_plan) in
-// tiles 128 x tile_n (ops/tensor_cores.py tile_n); the first version
-// ignores t_half, b_half and tile_n.
+// checks).  [k0, k0 + k_len): the contraction window of w viewed as
+// (kb·G, N), outside which w is zero (the whole stack, 0 and kb·G, where
+// the caller knows no zero rows); only kernel 2 reads it.  kernel (an
+// rvk::tc::Kernel): 0, the first version above; 1, the tensor-core form,
+// bf16 with passes 1 only, walking the output in halves of b_half batch
+// rows x t_half positions (ops/toeplitz.py tile_plan) in tiles 128 x tile_n
+// (ops/tensor_cores.py tile_n); 2, sgemm.cuh, fp32 with passes 1 only, on
+// the tile kTiles[tile_n] (ops/tensor_cores.py sgemm_whole_tile); 3, the
+// narrow-channel form, tile_n its chunk of output columns and t_half the
+// output positions a thread sums (ops/toeplitz.py narrow_chunk,
+// narrow_rows).  Forms 0 and 2 ignore t_half and b_half, the first version
+// tile_n too.
 int rvk_toeplitz_fwd(const void* x, const void* w, const void* bias, void* y,
                      int B, int nb, int G, int kb, int N, int t_out,
-                     int shift, int act, int passes, int dtype, int t_half,
-                     int b_half, int tile_n, int kernel, void* stream) {
+                     int shift, int act, int passes, int dtype, int k0,
+                     int k_len, int t_half, int b_half, int tile_n,
+                     int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kernel != rvk::tc::kCudaCores) {
-    if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16 ||
-        passes != 1 || reinterpret_cast<uintptr_t>(bias) % 4 != 0) {
+  if (kernel == rvk::tc::kTensorCores) {
+    if (dtype != rvk::kBF16 || passes != 1 ||
+        reinterpret_cast<uintptr_t>(bias) % 4 != 0) {
       return cudaErrorInvalidValue;
     }
     using T = rvk::bf16;
@@ -114,6 +204,25 @@ int rvk_toeplitz_fwd(const void* x, const void* w, const void* bias, void* y,
         rvk::tc::BiasActPair{src<T>(bias), act}, B, nb, G, kb, N, t_out,
         shift, t_half, b_half, tile_n, s);
   }
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32 || passes != 1 || nb < 1 || k0 < 0 ||
+        k_len < 1 || k0 + k_len > kb * G) {
+      return cudaErrorInvalidValue;
+    }
+    return sgemm_toeplitz(
+        rvk::sgemm::ToeplitzA{src<float>(x), t_out, shift, G, nb * G, k0},
+        src<float>(w), src<float>(bias), dst<float>(y), B * t_out, N, k_len,
+        act, tile_n, s);
+  }
+  if (kernel == rvk::tc::kNarrow) {
+    return rvk::with_dtype(dtype, [&](auto tag) {
+      using T = std::remove_pointer_t<decltype(tag)>;
+      return rvk::narrow::launch<T>(src<T>(x), src<T>(w), src<T>(bias),
+                                    dst<T>(y), B, nb, G, kb, N, t_out, shift,
+                                    act, passes, tile_n, t_half, s);
+    });
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
   if (passes == 4) {
     if (dtype != rvk::kF32) return cudaErrorInvalidValue;
     return toeplitz_fwd<4>(src<float>(x), src<float>(w), src<float>(bias),

@@ -229,6 +229,7 @@ enum Kernel : int {
   kCudaCores = 0,    // the first-version kernels: not handled here
   kTensorCores = 1,  // this mainloop, the tile width chosen by shape
   kSgemm = 2,        // the fp32 mainloop of sgemm.cuh, its tile by shape
+  kNarrow = 3,       // the narrow-channel Toeplitz form (narrow.cuh)
 };
 
 constexpr int kTileM = 128;  // two consumer warpgroups of 64 rows

@@ -12,7 +12,8 @@ written, forward or backward:
   ``KB`` whole blocks starting at block ``t - q``, at constant offset ``r0``
   inside it.  Placing the flattened weight at row ``r0`` of a zero ``(KB,
   G, Cout)`` tap stack makes the convolution a Toeplitz product with
-  ``shift = q``.
+  ``shift = q``, whose nonzero rows are the window ``[r0, r0 + K·Cin)``
+  (:func:`conv1d_window`; the fp32 kernel contracts only those).
 * :func:`conv1d_transpose_pallas`: the polyphase identity.  Output phase
   ``r`` (``n = t·S + r``) is a unit-stride correlation of the undilated
   input with the taps ``j ≡ (lo - r) (mod S)``.  Packing all S sub-kernels
@@ -50,6 +51,26 @@ from rawaudiovae_kelsey_tpu_torch.ops.toeplitz import toeplitz_matmul
 Tensor = torch.Tensor
 
 
+def _placement(L: int, K: int, cin: int, stride: int):
+    """``(q, r0, KB)``: window t of the strided conv1d reads flat ``[t·G -
+    lo·Cin, … + K·Cin)`` (``G = S·Cin``), ``KB`` whole blocks from block ``t
+    - q`` at constant offset ``r0`` inside it — the left pad is folded into
+    the tap stack's row placement, no padded copy."""
+    G = stride * cin
+    lo, _ = _same_pad(L, K, stride)
+    q = -(-(lo * cin) // G)
+    r0 = q * G - lo * cin
+    return q, r0, -(-(r0 + K * cin) // G)
+
+
+def conv1d_window(L: int, K: int, cin: int, stride: int):
+    """The rows ``(r0, r0 + K·Cin)`` of :func:`pack_conv1d` 's tap stack,
+    viewed as ``(KB·G, Cout)``, that hold the weight: outside them it is
+    zero."""
+    _, r0, _ = _placement(L, K, cin, stride)
+    return r0, r0 + K * cin
+
+
 def pack_conv1d(x: Tensor, w: Tensor, stride: int):
     """The Toeplitz operands of a SAME-padded strided conv1d whose length
     the stride divides → ``(xf, wpad, t_out, shift)``: the free block view
@@ -58,13 +79,7 @@ def pack_conv1d(x: Tensor, w: Tensor, stride: int):
     K, _, cout = w.shape
     G = stride * cin
     T = L // stride
-    lo, _ = _same_pad(L, K, stride)
-    # window t reads flat [t*G - lo*cin, … + K*cin): constant offset r0
-    # inside block t - q — the left pad is folded into the tap stack's row
-    # placement, no padded copy
-    q = -(-(lo * cin) // G)
-    r0 = q * G - lo * cin
-    KB = -(-(r0 + K * cin) // G)
+    q, r0, KB = _placement(L, K, cin, stride)
     xf = x.reshape(B, T, G)                        # free: row-major
     wpad = F.pad(w.reshape(K * cin, cout),
                  (0, 0, r0, KB * G - r0 - K * cin)).reshape(KB, G, cout)
@@ -78,7 +93,9 @@ def conv1d_pallas(x: Tensor, w: Tensor, b: Tensor, stride: int,
     if x.shape[1] % stride:              # flat stream not block-viewable
         return _conv1d_im2col(x, w, b, stride, act)
     xf, wpad, T, q = pack_conv1d(x.contiguous(), w, stride)
-    return toeplitz_matmul(xf, wpad, b, act, T, q, passes)
+    return toeplitz_matmul(xf, wpad, b, act, T, q, passes,
+                           conv1d_window(x.shape[1], w.shape[0], x.shape[2],
+                                         stride))
 
 
 def _transpose_plan(K: int, stride: int, cin: int, cout: int):

@@ -28,11 +28,12 @@ gradient walked as its transpose, :func:`cotangent_wgrad_plan`), whose A is
 the cotangent formed in registers; and the full chains
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.enc_bwd_full` and
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.dec_bwd_full`, in both dtypes
-(:func:`takes_full_chain`, :func:`full_plan`).  Thirteen of them,
+(:func:`takes_full_chain`, :func:`full_plan`).  Fourteen of them,
 ``linear_fwd``, ``linear_ksplit_fwd``, ``matmul_nt``, ``matmul_nt_mask``,
 ``matmul_nt2_mask``, ``grad_accum``, ``grad_accum2``, ``enc_bwd_dw1``,
-``dec_bwd_fused``, ``encoder_fwd``, ``decoder_fwd``, ``dx_fused`` and
-``dw_fused``, and the int8 decoder
+``dec_bwd_fused``, ``encoder_fwd``, ``decoder_fwd``, ``dx_fused``,
+``dw_fused`` and ``toeplitz_fwd`` (its rule in ``ops/toeplitz.py``), and
+the int8 decoder
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.quant.quantized_decoder_fwd`,
 which has no tensor-core form (:data:`SGEMM_OPS`), have an fp32 form,
 the weight gradients of ``grad_accum``, ``grad_accum2``, ``enc_bwd_dw1``,
@@ -63,6 +64,10 @@ Nothing falls back at run time: a launch that fails raises, and asking for
 ``kernel="tensor_cores"`` or ``kernel="sgemm"`` on operands that kernel
 cannot take raises.
 
+``toeplitz_fwd`` also has a narrow-channel form (:data:`NARROW_OPS`, code
+3: a tap or output width below 8), which ``"auto"`` takes before the fp32
+one (``ops/toeplitz.py`` ``takes_narrow``).
+
 A wrapper's ``kernel`` keyword is ``"auto"`` (the rules above) or a key of
 :data:`KERNEL_CODES`: the checks on the card hold and time the kernels on
 one shape by naming them.  The tensor-core kernel's tiles are 128 rows by
@@ -86,14 +91,17 @@ from typing import Callable
 import torch
 
 # kernel name → the code the C entry points take (csrc/wgmma.cuh Kernel)
-KERNEL_CODES = {"cuda_cores": 0, "tensor_cores": 1, "sgemm": 2}
+KERNEL_CODES = {"cuda_cores": 0, "tensor_cores": 1, "sgemm": 2, "narrow": 3}
 TENSOR_CORES, SGEMM = KERNEL_CODES["tensor_cores"], KERNEL_CODES["sgemm"]
+NARROW = KERNEL_CODES["narrow"]
 # the ops whose C entry points have the fp32 form (code 2)
 SGEMM_OPS = frozenset({"linear_fwd", "linear_ksplit_fwd", "matmul_nt",
                        "matmul_nt_mask", "matmul_nt2_mask", "grad_accum",
                        "grad_accum2", "enc_bwd_dw1", "dec_bwd_fused",
                        "encoder_fwd", "decoder_fwd", "quantized_decoder_fwd",
-                       "dw_fused", "dx_fused"})
+                       "dw_fused", "dx_fused", "toeplitz_fwd"})
+# the ops whose C entry points have the narrow-channel form (code 3)
+NARROW_OPS = frozenset({"toeplitz_fwd"})
 
 # TMA's unit: base pointers and row pitches are multiples of 16 bytes
 TMA_ALIGN_BYTES = 16
@@ -194,6 +202,27 @@ def sgemm_tile(rows: int, n: int, sms: int) -> tuple:
     for bm, bn in SGEMM_TILES:
         tiles = -(-rows // bm) * -(-n // bn)
         cost = -(-tiles // sms) * bm * bn
+        if best is None or cost < best[0]:
+            best = (cost, (bm, bn))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def sgemm_whole_tile(rows: int, n: int, sms: int) -> tuple:
+    """The tile ``(rows, columns)`` of the fp32 kernel for a product of
+    ``rows`` rows and output width ``n`` whose contraction is one slice
+    (the Toeplitz product's, ``ops/toeplitz.py``): the tile of
+    :data:`SGEMM_TILES` whose grid takes the fewest waves of one block an
+    SM times its area times its :data:`SGEMM_TILE_RATE` (a 64 x 64 tile's
+    lane does 16 FFMAs for the 8 floats it reads a k-step, a 128 x 128
+    tile's 64 for 16), the larger on a tie: :func:`sgemm_fwd_plan` 's cost
+    with one slice.  So the conv1d model's fp32 layers take 128 x 128, and
+    128 x 64 where ``n`` is 64 (``chip_smoke.py`` phase 3e sweeps the
+    tiles)."""
+    best = None
+    for index, (bm, bn) in enumerate(SGEMM_TILES):
+        tiles = -(-rows // bm) * -(-n // bn)
+        cost = -(-tiles // sms) * bm * bn * SGEMM_TILE_RATE[index]
         if best is None or cost < best[0]:
             best = (cost, (bm, bn))
     return best[1]
@@ -493,28 +522,36 @@ def resolve_kernel(op: str, kernel: str, dtype: torch.dtype, rows: int,
 TAKES_TENSOR_CORES = (f"bf16 operands with the contraction and the output "
                       f"width multiples of {TMA_ALIGN_BF16} and 16-byte "
                       f"aligned pointers")
+# and the fp32 kernel
+TAKES_SGEMM = (f"fp32 operands with the contraction and the output width "
+               f"multiples of {SGEMM_ALIGN_F32} and 16-byte aligned pointers")
 
 
 def resolve(op: str, kernel: str, fits: bool, got: Callable[[], str],
-            fits_sgemm: bool = False,
-            takes: str = TAKES_TENSOR_CORES) -> int:
+            fits_sgemm: bool = False, takes: str = TAKES_TENSOR_CORES,
+            fits_narrow: bool = False, takes_sgemm: str = TAKES_SGEMM,
+            takes_narrow: str = "") -> int:
     """:func:`resolve_kernel` on what the rules found: ``fits`` the
-    tensor-core kernel, ``fits_sgemm`` the fp32 one; ``got()`` describes
-    the operands in the error (built only then: a call's host time
-    matters), ``takes`` what the tensor-core kernel takes."""
+    tensor-core kernel, ``fits_narrow`` the narrow-channel one (an op of
+    :data:`NARROW_OPS`), ``fits_sgemm`` the fp32 one, taken in that order
+    by ``"auto"``; ``got()`` describes the operands in the error (built
+    only then: a call's host time matters), ``takes``, ``takes_sgemm`` and
+    ``takes_narrow`` what each kernel takes."""
     check_name(op, kernel)
     if kernel == "auto":
         return KERNEL_CODES["tensor_cores" if fits else
+                            "narrow" if fits_narrow else
                             "sgemm" if fits_sgemm else "cuda_cores"]
     if kernel == "tensor_cores" and not fits:
         raise ValueError(f"{op}: kernel {kernel!r} takes {takes}; got "
                          f"{got()}")
-    if kernel == "sgemm" and op not in SGEMM_OPS:
-        raise ValueError(f"{op}: no kernel {kernel!r} (only "
-                         f"{', '.join(sorted(SGEMM_OPS))} have one)")
-    if kernel == "sgemm" and not fits_sgemm:
-        raise ValueError(
-            f"{op}: kernel {kernel!r} takes fp32 operands with the "
-            f"contraction and the output width multiples of "
-            f"{SGEMM_ALIGN_F32} and 16-byte aligned pointers; got {got()}")
+    for name, ops, fits_it, text in (
+            ("sgemm", SGEMM_OPS, fits_sgemm, takes_sgemm),
+            ("narrow", NARROW_OPS, fits_narrow, takes_narrow)):
+        if kernel == name and op not in ops:
+            raise ValueError(f"{op}: no kernel {kernel!r} (only "
+                             f"{', '.join(sorted(ops))} have one)")
+        if kernel == name and not fits_it:
+            raise ValueError(f"{op}: kernel {kernel!r} takes {text}; got "
+                             f"{got()}")
     return KERNEL_CODES[kernel]

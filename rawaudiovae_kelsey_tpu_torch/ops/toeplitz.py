@@ -11,26 +11,46 @@ and blocks outside ``[0, nb)`` read as zero, which is how SAME padding is
 expressed: through ``shift``, with no padded copy.  Both convolution
 directions map onto it (``ops/conv.py``).
 
-Two hand-written kernels run the whole op as one implicit GEMM of
-``B·t_out`` rows against ``w`` viewed as ``(KB·G, N)``:
+Four hand-written kernels run it, one launch a call, chosen in this order:
 
 * bf16 operands with ``passes = 1`` that TMA can address (``G`` and ``N``
   multiples of 8, 16-byte aligned pointers: :func:`takes_tensor_cores`)
   take the tensor-core kernel (``csrc/wgmma.cuh``, its Toeplitz tile walk):
-  each consumer warpgroup's 64 output rows are one box of ``b_half`` batch
-  rows by ``t_half`` positions (:func:`tile_plan`), and tap ``j``'s rows
-  of A are the same box of x shifted by ``j - shift`` positions, loaded by
-  TMA with the rows outside ``[0, nb)`` and past the batch zero-filled;
+  the op as one implicit GEMM of ``B·t_out`` rows against ``w`` viewed as
+  ``(KB·G, N)``, each consumer warpgroup's 64 output rows one box of
+  ``b_half`` batch rows by ``t_half`` positions (:func:`tile_plan`), tap
+  ``j``'s rows of A the same box of x shifted by ``j - shift`` positions,
+  loaded by TMA with the rows outside ``[0, nb)`` and past the batch
+  zero-filled;
+* a tap width ``G`` or an output width ``N`` below 8 (:func:`takes_narrow`:
+  the conv1d model's first and last layers and the last one's ``dx``), in
+  either dtype and pass count, the narrow-channel kernel
+  (``csrc/narrow.cuh``): a block walks items of 128 output positions,
+  copying the window of x the next one reads while each thread computes
+  one position's row of this one;
+* fp32 operands with ``passes = 1``, ``G``, ``N`` and the contraction
+  window's origin and length multiples of 4 and 16-byte aligned pointers
+  (:func:`takes_sgemm`), the register-tiled fp32 kernel
+  (``csrc/sgemm.cuh``) with the implicit A copied 16 bytes at a time;
 * everything else the first version on the CUDA cores
   (``csrc/toeplitz.cu``).  Operand modes: bf16 with fp32 accumulation; fp32
   with ``passes = 1``, IEEE fp32; fp32 with ``passes = 4``, every product
   formed from the bf16 hi/lo split of both operands as ``(hh + ll) + (hl +
   lh)``.
 
+The narrow and fp32 kernels compute each output as the first version does,
+one fp32 FMA chain over the contraction in order, so the three give equal
+bits; the tensor-core kernel adds the same products in another order.
+
+``window = (k0, k1)``: the rows of ``w`` viewed as ``(KB·G, N)`` outside
+``[k0, k1)`` are zero, a promise of the caller (``ops/conv.py``: the
+convolution's weight placed in a zero tap stack).  The fp32 kernel then
+contracts only the window; the function, and so every other kernel and the
+plain version, is the same.
+
 ``passes`` is an explicit argument here: the JAX package reads it from the
 ambient ``jax.default_matmul_precision``, and this package has no ambient
-tier.  The two kernels add the same fp32 products in another order, so the
-output's bits follow the choice (as in ``ops/tensor_cores.py``).
+tier.
 
 :func:`toeplitz_matmul` is the differentiable op.  It is closed under
 differentiation: ``dx`` is the same kernel on the cotangent with the taps
@@ -128,6 +148,101 @@ def takes_tensor_cores(dtype: torch.dtype, B: int, nb: int, t_out: int,
         dtype, B * t_out, G, N, aligned))
 
 
+# the narrow-channel kernel (csrc/narrow.cuh): the widths it takes (G or N
+# below this), the output positions of a work item, the output columns a
+# thread takes (the chunk: the least of these that holds N, else the
+# largest, the grid walking N in chunks), and the shared memory the rule
+# allows a block (narrow_smem)
+NARROW_BELOW = 8
+NARROW_POSITIONS = 128
+NARROW_CHUNKS = (4, 8, 16, 32)
+NARROW_SMEM_BYTES = 64 * 1024
+# the fp32 kernel's grid holds the tile rows in its y (at most 65535): rows
+# of the smallest tile, 64, times that
+SGEMM_MAX_ROWS = 65535 * 64
+
+
+def narrow_rows(dtype: torch.dtype) -> int:
+    """The narrow kernel's output positions a thread sums (its ``t_half``
+    argument): two for bf16, each tap read once for both (a block of 64
+    threads), one for fp32 (and its four passes, whose sixteen chains a
+    position fill the registers).  On an H100, at the conv1d model's
+    narrow launches, two a thread made bf16 layer 7 faster and left layer 0
+    as it was, and made fp32 layer 7 slower (``chip_smoke.py`` phase 3e's
+    narrow sweep; PERF.md section 6)."""
+    return 2 if dtype == torch.bfloat16 else 1
+
+
+def narrow_chunk(N: int) -> int:
+    """The narrow kernel's output columns a thread for output width ``N``:
+    the least of :data:`NARROW_CHUNKS` that holds ``N``, else the largest
+    (the grid's y then walks ``N`` in chunks)."""
+    return next((c for c in NARROW_CHUNKS if c >= N), NARROW_CHUNKS[-1])
+
+
+def narrow_smem(G: int, kb: int, N: int, passes: int = 1,
+                esize: int = 4) -> int:
+    """Bytes of shared memory a narrow block takes (``csrc/narrow.cuh``
+    ``smem_bytes``) for elements of ``esize`` bytes: two buffers for the
+    window of x an item's :data:`NARROW_POSITIONS` positions read, ``(128 +
+    KB - 1)·G`` elements copied as they lie in 16-byte chunks (one more for
+    the window's offset, whole groups of 8); the block's chunk of every tap,
+    ``KB·G·chunk`` fp32 values, twice (hi and lo) for ``passes = 4``; the
+    chunk of the bias; the output rows at a pitch of the chunk + 16
+    bytes."""
+    chunk = narrow_chunk(N)
+    per = 16 // esize
+    chunks = -(-(-(-(NARROW_POSITIONS + kb - 1) * G // per) + 1) // 8) * 8
+    return (2 * chunks * 16
+            + ((2 if passes == 4 else 1) * kb * G * chunk + chunk) * 4
+            + NARROW_POSITIONS * (chunk * esize + 16))
+
+
+def takes_narrow(dtype: torch.dtype, B: int, nb: int, t_out: int, G: int,
+                 N: int, kb: int, passes: int = 1,
+                 aligned: bool = True) -> bool:
+    """Whether a Toeplitz product runs on the narrow-channel kernel: fp32
+    or bf16 (``passes = 4`` with fp32 only), something to compute, an
+    input with rows, a tap width ``G`` or output width ``N`` below
+    :data:`NARROW_BELOW`, 16-byte aligned pointers (x is copied 16 bytes
+    at a time), and a block's window buffers, taps and output rows within
+    :data:`NARROW_SMEM_BYTES` (:func:`narrow_smem`).  At batch 4096 on an
+    H100 it beat the first version and the fp32 kernel at the conv1d
+    model's first and last layers and their ``dx`` (``chip_smoke.py``
+    phase 3e sweeps the forms there; PERF.md section 6)."""
+    return (dtype in (torch.float32, torch.bfloat16)
+            and (passes == 1 or dtype == torch.float32)
+            and B * t_out > 0 and nb >= 1 and N >= 1
+            and min(G, N) < NARROW_BELOW and aligned
+            and narrow_smem(G, kb, N, passes, dtype.itemsize)
+            <= NARROW_SMEM_BYTES)
+
+
+def takes_sgemm(dtype: torch.dtype, B: int, nb: int, t_out: int, G: int,
+                N: int, window: Tuple[int, int], passes: int = 1,
+                aligned: bool = True) -> bool:
+    """Whether a Toeplitz product runs on the fp32 kernel: one pass, an
+    input with rows, ``tensor_cores.takes_sgemm`` on the ``B·t_out`` rows,
+    the contraction window ``(k0, k1)`` and ``N``, the tap width ``G`` and
+    the window's origin multiples of 4 too (a 16-byte copy of the implicit
+    A then lies wholly inside its batch row or wholly outside it), and at
+    most :data:`SGEMM_MAX_ROWS` rows."""
+    k0, k1 = window
+    return (passes == 1 and nb >= 1 and G % tensor_cores.SGEMM_ALIGN_F32 == 0
+            and k0 % tensor_cores.SGEMM_ALIGN_F32 == 0
+            and B * t_out <= SGEMM_MAX_ROWS
+            and tensor_cores.takes_sgemm(dtype, B * t_out, k1 - k0, N,
+                                         aligned))
+
+
+# what the two new forms take, in tensor_cores.resolve's error
+TAKES_NARROW = (f"fp32 or bf16 operands with G or N below {NARROW_BELOW}, "
+                f"16-byte aligned pointers and a block's window and taps "
+                f"within {NARROW_SMEM_BYTES} bytes")
+TAKES_SGEMM = ("fp32 operands with one pass, G, N and the window's origin "
+               "and length multiples of 4 and 16-byte aligned pointers")
+
+
 def check_passes(dtype: torch.dtype, passes: int) -> None:
     """Raise unless ``passes`` is 1, or 4 with fp32 operands."""
     if passes not in (1, 4) or (passes == 4 and dtype != torch.float32):
@@ -170,20 +285,24 @@ def kernel_device(x: Tensor) -> torch.device:
 
 
 def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
-                 shift: int = 0, passes: int = 1,
-                 kernel: str = "auto") -> Tensor:
+                 shift: int = 0, passes: int = 1, kernel: str = "auto",
+                 window: Optional[Tuple[int, int]] = None) -> Tensor:
     """``act(Σ_j x[:, t+j-shift, :] @ w[j] + b)``: x ``(B, nb, G)``, w
     ``(KB, G, N)``, b ``(N,)`` → ``(B, t_out, N)``; input rows out of range
-    contribute zero.  ``t_out`` defaults to ``nb - KB + 1``.
+    contribute zero.  ``t_out`` defaults to ``nb - KB + 1``.  ``window``:
+    ``(k0, k1)``, the rows of ``w`` viewed as ``(KB·G, N)`` outside which it
+    is zero (the module docstring).
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_toeplitz.py``
-    ``toeplitz_fwd``.  CUDA: one launch of one of two hand-written
-    kernels, chosen by :func:`takes_tensor_cores`: the tensor-core kernel
-    (``csrc/wgmma.cuh``) or the first version (``csrc/toeplitz.cu``).
-    ``kernel`` names one instead (``tensor_cores.KERNEL_CODES``); the
-    tensor-core kernel on operands it cannot take raises.  One call counts
-    once in ``launches`` and in ``tensor_core_launches`` too when that
-    kernel ran."""
+    ``toeplitz_fwd``.  CUDA: one launch of one of four hand-written
+    kernels, the first that takes the operands of the tensor-core kernel
+    (:func:`takes_tensor_cores`), the narrow-channel one
+    (:func:`takes_narrow`), the fp32 one (:func:`takes_sgemm`) and the
+    first version.  ``kernel`` names one instead
+    (``tensor_cores.KERNEL_CODES``); a kernel named for operands it cannot
+    take raises.  One call counts once in ``launches``, and in
+    ``tensor_core_launches``, ``narrow_launches`` or ``sgemm_launches`` too
+    when that kernel ran."""
     tensor_cores.check_name("toeplitz_fwd", kernel)
     if x.device.type == "cpu":
         return toeplitz_fwd_ref(x, w, b, act, t_out, shift, passes)
@@ -206,6 +325,10 @@ def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
     if max(B * t, nb * G, (kb + max(t, nb)) * G) > _INT_MAX:
         raise ValueError("toeplitz_fwd: B·t_out, nb·G and (KB + t_out)·G "
                          "must fit a 32-bit int")
+    k0, k1 = (0, kb * G) if window is None else window
+    if not 0 <= k0 < k1 <= kb * G:
+        raise ValueError(f"toeplitz_fwd: window {window} against KB·G = "
+                         f"{kb * G}: expected 0 <= k0 < k1 <= KB·G")
     require(x, "x", (B, nb, G), dev, dt)
     require(w, "w", (kb, G, N), dev, dt)
     require(b, "b", (N,), dev, dt)
@@ -214,36 +337,52 @@ def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
         "toeplitz_fwd", kernel,
         takes_tensor_cores(dt, B, nb, t, G, N, passes, aligned),
         lambda: f"{dt}, passes = {passes}, x {tuple(x.shape)}, w "
-                f"{tuple(w.shape)}, t_out = {t}, aligned = {aligned}")
+                f"{tuple(w.shape)}, t_out = {t}, window ({k0}, {k1}), "
+                f"aligned = {aligned}",
+        takes_sgemm(dt, B, nb, t, G, N, (k0, k1), passes, aligned),
+        fits_narrow=takes_narrow(dt, B, nb, t, G, N, kb, passes, aligned),
+        takes_sgemm=TAKES_SGEMM, takes_narrow=TAKES_NARROW)
     y = torch.empty((B, t, N), device=dev, dtype=dt)
     if y.numel():
         t_half = b_half = tile = 0
-        if code:
+        if code == tensor_cores.TENSOR_CORES:
             t_half, b_half = tile_plan(t)
             halves = tile_halves(B, t, t_half, b_half)
             # two halves of TILE_M / 2 rows a tile
             tile = tensor_cores.tile(code, dev,
                                      halves * (tensor_cores.TILE_M // 2), N)
+        elif code == tensor_cores.SGEMM:
+            tile = tensor_cores.SGEMM_TILES.index(
+                tensor_cores.sgemm_whole_tile(B * t, N,
+                                              tensor_cores.sm_count(dev)))
+        elif code == tensor_cores.NARROW:
+            t_half, tile = narrow_rows(dt), narrow_chunk(N)
         _build.launch("rvk_toeplitz_fwd", dev, x, w, b, y, B, nb, G, kb, N,
-                      t, shift, ACT_CODES[act], passes, DTYPE_CODES[dt],
-                      t_half, b_half, tile, code)
+                      t, shift, ACT_CODES[act], passes, DTYPE_CODES[dt], k0,
+                      k1 - k0, t_half, b_half, tile, code)
         toeplitz_fwd.launches += 1
-        toeplitz_fwd.tensor_core_launches += bool(code)
+        toeplitz_fwd.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+        toeplitz_fwd.sgemm_launches += code == tensor_cores.SGEMM
+        toeplitz_fwd.narrow_launches += code == tensor_cores.NARROW
     return y
 
 
 toeplitz_fwd.launches = 0
 toeplitz_fwd.tensor_core_launches = 0
+toeplitz_fwd.sgemm_launches = 0
+toeplitz_fwd.narrow_launches = 0
 
 
 class ToeplitzMatmul(torch.autograd.Function):
-    """``(x, w, b, act, t_out, shift, passes) → toeplitz_fwd(...)``; saves
-    ``(x, w, y)``.  Backward: ``dx`` through :func:`toeplitz_fwd` again,
-    ``dw`` and ``db`` plain (``pallas_toeplitz.py`` ``_tm_bwd``)."""
+    """``(x, w, b, act, t_out, shift, passes, window) → toeplitz_fwd(...)``;
+    saves ``(x, w, y)``.  Backward: ``dx`` through :func:`toeplitz_fwd`
+    again (no window: the reversed taps spread w's zero rows over the
+    output), ``dw`` and ``db`` plain (``pallas_toeplitz.py``
+    ``_tm_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, act, t_out, shift, passes):
-        y = toeplitz_fwd(x, w, b, act, t_out, shift, passes)
+    def forward(ctx, x, w, b, act, t_out, shift, passes, window=None):
+        y = toeplitz_fwd(x, w, b, act, t_out, shift, passes, window=window)
         ctx.save_for_backward(x, w, y)
         ctx.act, ctx.shift, ctx.passes = act, shift, passes
         return y
@@ -269,10 +408,13 @@ class ToeplitzMatmul(torch.autograd.Function):
             dw[j] = torch.einsum("btg,btn->gn", _f(x[:, a + o:e + o]),
                                  _f(da[:, a:e]))
         db = _f(da).sum((0, 1))
-        return dx, dw.to(w.dtype), db.to(w.dtype), None, None, None, None
+        return (dx, dw.to(w.dtype), db.to(w.dtype), None, None, None, None,
+                None)
 
 
 def toeplitz_matmul(x, w, b, act: str = "none", t_out: Optional[int] = None,
-                    shift: int = 0, passes: int = 1) -> Tensor:
-    """Differentiable fused block-Toeplitz product (relu | tanh | none)."""
-    return ToeplitzMatmul.apply(x, w, b, act, t_out, shift, passes)
+                    shift: int = 0, passes: int = 1,
+                    window: Optional[Tuple[int, int]] = None) -> Tensor:
+    """Differentiable fused block-Toeplitz product (relu | tanh | none);
+    ``window`` as for :func:`toeplitz_fwd`."""
+    return ToeplitzMatmul.apply(x, w, b, act, t_out, shift, passes, window)

@@ -159,9 +159,9 @@ def test_every_wrapper_names_a_bound_entry_point():
     assert _build._SIGNATURES["rvk_decoder_fwd"] == (
         [_build._P] * 8 + [_build._I] * 10 + [_build._P])
     # x, w, bias, y | B, nb, G, kb, N, t_out, shift, act, passes, dtype,
-    # t_half, b_half, tile_n, kernel
+    # k0, k_len, t_half, b_half, tile_n, kernel
     assert _build._SIGNATURES["rvk_toeplitz_fwd"] == (
-        [_build._P] * 4 + [_build._I] * 14 + [_build._P])
+        [_build._P] * 4 + [_build._I] * 16 + [_build._P])
     for w in ops.KERNEL_WRAPPERS:
         if w.__name__ in ("linear_fwd", "linear_ksplit_fwd", "matmul_nt",
                           "toeplitz_fwd", "encoder_fwd", "decoder_fwd",

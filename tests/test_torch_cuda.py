@@ -1375,9 +1375,10 @@ def test_tensor_core_toeplitz_matches_plain_and_first_version(cuda, case,
 
 def test_tensor_core_toeplitz_dispatch_on_the_card(cuda):
     """G = 4 (the first encoder layer), N = 4 (the last decoder layer),
-    fp32 (one pass and four) and a view off a 16-byte boundary keep the
-    first version under ``auto`` and raise when the tensor-core kernel is
-    asked for by name."""
+    fp32 (one pass and four) and a view off a 16-byte boundary run another
+    form than the tensor cores under ``auto`` (the narrow one, the fp32
+    one, the first version) and raise when the tensor-core kernel is asked
+    for by name."""
     from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
 
     cases = [((64, 256, 4, 3, 32, 256, 1), torch.bfloat16, 1),
@@ -1458,9 +1459,10 @@ def test_every_tile_width_matches_plain(cuda, width, monkeypatch):
 def test_conv1d_op_level_step_takes_the_tensor_cores(cuda):
     """configs/conv1d.ini's widths at a small batch, bf16, forward and
     backward through conv_encode_pallas / conv_decode_pallas: 8 + 7 Toeplitz
-    launches, 12 of them on the tensor cores (not the first encoder layer,
-    G = 4, nor the last decoder layer, N = 4, nor its dx, G = 4), and the
-    three whole-k linear launches all on them."""
+    launches, 12 of them on the tensor cores and the other 3 (the first
+    encoder layer, G = 4, the last decoder layer, N = 4, and its dx, G =
+    4) on the narrow-channel kernel, and the three whole-k linear launches
+    all on the tensor cores."""
     from rawaudiovae_kelsey_tpu_torch.models import variants
     from rawaudiovae_kelsey_tpu_torch.ops import conv, linear, toeplitz
     from rawaudiovae_kelsey_tpu_torch.tree import tree_map
@@ -1473,6 +1475,7 @@ def test_conv1d_op_level_step_takes_the_tensor_cores(cuda):
     width = variants.conv_latent_width(1024, 4, 4)
     fns = (toeplitz.toeplitz_fwd, linear.linear_fwd)
     before = [(f.launches, f.tensor_core_launches) for f in fns]
+    narrow = toeplitz.toeplitz_fwd.narrow_launches
     mu, _ = conv.conv_encode_pallas(params, x, 4)
     y = conv.conv_decode_pallas(params, mu, 4, width, 256)
     y.float().square().mean().backward()
@@ -1480,6 +1483,7 @@ def test_conv1d_op_level_step_takes_the_tensor_cores(cuda):
     rose = [(f.launches - a, f.tensor_core_launches - c)
             for f, (a, c) in zip(fns, before)]
     assert rose == [(15, 12), (3, 3)]
+    assert toeplitz.toeplitz_fwd.narrow_launches - narrow == 3
     # the plain convolutions on the same bf16 operands, rounded per layer
     fixed = tree_map(lambda t: t.detach(), params)
     with torch.no_grad():
@@ -1487,6 +1491,179 @@ def test_conv1d_op_level_step_takes_the_tensor_cores(cuda):
             fixed, variants.encode_conv1d(fixed, x, 4)[0], 4, width, 256)
     assert y.shape == plain.shape
     assert _rel(y.detach(), plain) <= 4 * BF16_REL
+
+
+# ---- toeplitz_fwd (row 17)'s narrow-channel form (csrc/narrow.cuh: G or N
+# below 8, either dtype, passes 1 or 4) and its fp32 form (csrc/sgemm.cuh's
+# mainloop with an implicit Toeplitz A, over the contraction window): both
+# compute each output as the first version's FMA chain, so both give its
+# bits (kernel="cuda_cores"), and equal bits on a second launch; within
+# 1e-4 · max|plain| (fp32) / 2^-6 (bf16) of the plain version.  Shapes:
+# every layer of configs/conv1d.ini at batch 64, forward (with its window)
+# and dx; ragged ones (G or N of 3, 4, 6, 8; N = 40 over two column chunks;
+# t_out past nb over three blocks of positions; batch 1); every column
+# chunk and every fp32 tile forced.
+
+CONV1D_LAYERS = [("conv", 1024, 1, 32), ("conv", 256, 32, 64),
+                 ("conv", 64, 64, 128), ("conv", 16, 128, 256),
+                 ("convT", 4, 256, 128), ("convT", 16, 128, 64),
+                 ("convT", 64, 64, 32), ("convT", 256, 32, 1)]
+# (B, nb, G, KB, N, t_out, shift)
+FORMS_RAGGED = [(37, 9, 4, 3, 24, 13, 0), (1, 9, 24, 3, 4, 5, 2),
+                (37, 40, 3, 3, 8, 40, 2), (5, 300, 6, 5, 40, 301, 4),
+                (2, 20, 8, 3, 4, 17, 1), (3, 33, 12, 2, 6, 33, 1),
+                (37, 9, 24, 3, 40, 13, 2), (4, 130, 16, 3, 72, 129, 0)]
+FORM_COUNTERS = {"tensor_cores": "tensor_core_launches",
+                 "sgemm": "sgemm_launches", "narrow": "narrow_launches"}
+
+
+def _forms_rose(fn, *args, **kw):
+    """``fn(*args, **kw)`` and the form its launch took."""
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    f = toeplitz.toeplitz_fwd
+    before = {k: getattr(f, c) for k, c in FORM_COUNTERS.items()}
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    took = [k for k, c in FORM_COUNTERS.items() if getattr(f, c) > before[k]]
+    return out, took[0] if took else "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layer", range(8))
+def test_conv1d_layers_give_the_first_versions_bits(cuda, layer, dtype):
+    from rawaudiovae_kelsey_tpu_torch.ops import conv, toeplitz
+
+    direction, length, cin, cout = CONV1D_LAYERS[layer]
+    g = torch.Generator(device=cuda).manual_seed(layer)
+    x = torch.randn((64, length, cin), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((9, cin, cout), generator=g, device=cuda)
+         / (9 * cin) ** 0.5).to(dtype)
+    b = (torch.randn((cout,), generator=g, device=cuda) * 0.1).to(dtype)
+    if direction == "conv":
+        xf, wp, t_out, shift = conv.pack_conv1d(x, w, 4)
+        bp, window = b, conv.conv1d_window(length, 9, cin, 4)
+    else:
+        xf, wp, bp, t_out, shift = conv.pack_conv1d_transpose(x, w, b, 4)
+        window = None
+    wp = wp.contiguous()
+    da = torch.randn((64, t_out, wp.shape[2]), generator=g,
+                     device=cuda).to(dtype)
+    wrev = wp.flip(0).transpose(1, 2).contiguous()
+    zero = torch.zeros((wp.shape[1],), device=cuda, dtype=dtype)
+    narrow = layer in (0, 7)
+    want_form = "narrow" if narrow else \
+        "sgemm" if dtype == torch.float32 else "tensor_cores"
+    tol = 1e-4 if dtype == torch.float32 else BF16_REL
+    for args, win in (((xf, wp, bp, "relu", t_out, shift), window),
+                      ((da, wrev, zero, "none", xf.shape[1],
+                        wp.shape[0] - 1 - shift), None)):
+        got, form = _forms_rose(toeplitz.toeplitz_fwd, *args, window=win)
+        assert form == want_form
+        assert _rel(got, toeplitz.toeplitz_fwd_ref(*args)) <= tol
+        assert torch.equal(got, toeplitz.toeplitz_fwd(*args, window=win))
+        if form != "tensor_cores":
+            assert torch.equal(got, toeplitz.toeplitz_fwd(
+                *args, kernel="cuda_cores"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", FORMS_RAGGED, ids=str)
+def test_narrow_and_fp32_forms_at_ragged_shapes(cuda, case, dtype):
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    B, nb, G, kb, N, t_out, shift = case
+    for passes in ((1, 4) if dtype == torch.float32 else (1,)):
+        x, w, b = _toeplitz_operands(cuda, B, nb, G, kb, N, dtype,
+                                     seed=passes)
+        args = (x, w, b, "tanh", t_out, shift, passes)
+        got, form = _forms_rose(toeplitz.toeplitz_fwd, *args)
+        if min(G, N) < 8:
+            assert form == "narrow"
+        elif dtype == torch.float32 and passes == 1:
+            assert form == "sgemm"
+        tol = 1e-5 if passes == 4 else \
+            1e-4 if dtype == torch.float32 else BF16_REL
+        assert got.shape == (B, t_out, N)
+        assert _rel(got, toeplitz.toeplitz_fwd_ref(*args)) <= tol
+        if form in ("narrow", "sgemm"):
+            assert torch.equal(got, toeplitz.toeplitz_fwd(
+                *args, kernel="cuda_cores"))
+            assert torch.equal(got, toeplitz.toeplitz_fwd(*args,
+                                                          kernel=form))
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 16, 32])
+def test_every_narrow_column_chunk_gives_the_same_bits(cuda, chunk,
+                                                       monkeypatch):
+    """N = 40 (five, three, two or two column chunks) at G = 4, both
+    dtypes: the staged store where a whole chunk is wider than 16 bytes,
+    the row's own stores elsewhere."""
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    monkeypatch.setattr(toeplitz, "narrow_chunk", lambda n: chunk)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, b = _toeplitz_operands(cuda, 9, 300, 4, 3, 40, dtype)
+        got, form = _forms_rose(toeplitz.toeplitz_fwd, x, w, b, "relu", 300,
+                                1)
+        assert form == "narrow"
+        assert torch.equal(got, toeplitz.toeplitz_fwd(
+            x, w, b, "relu", 300, 1, kernel="cuda_cores"))
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_both_narrow_row_counts_give_the_same_bits(cuda, rows, monkeypatch):
+    """One or two positions a thread (one pass), at the conv1d model's two
+    narrow shapes at batch 37 and t_out past nb, both dtypes."""
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    monkeypatch.setattr(toeplitz, "narrow_rows", lambda passes: rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        for G, N in ((4, 32), (32, 4)):
+            x, w, b = _toeplitz_operands(cuda, 37, 250, G, 3, N, dtype)
+            got, form = _forms_rose(toeplitz.toeplitz_fwd, x, w, b, "tanh",
+                                    257, 1)
+            assert form == "narrow"
+            assert torch.equal(got, toeplitz.toeplitz_fwd(
+                x, w, b, "tanh", 257, 1, kernel="cuda_cores"))
+
+
+@pytest.mark.parametrize("tile", [(128, 128), (128, 64), (64, 64)])
+def test_every_fp32_toeplitz_tile_gives_the_same_bits(cuda, tile,
+                                                      monkeypatch):
+    """The fp32 form on each tile of SGEMM_TILES, forced: layer 1's shape
+    at batch 37 over its window, and a ragged shape."""
+    from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores, toeplitz
+
+    monkeypatch.setattr(tensor_cores, "sgemm_whole_tile",
+                        lambda rows, n, sms: tile)
+    for (B, nb, G, kb, N, t_out, shift), window in (
+            ((37, 64, 128, 3, 64, 64, 1), (64, 352)),
+            ((5, 100, 24, 3, 40, 101, 2), None)):
+        x, w, b = _toeplitz_operands(cuda, B, nb, G, kb, N, torch.float32)
+        if window is not None:
+            w.view(-1, N)[:window[0]] = 0
+            w.view(-1, N)[window[1]:] = 0
+        got, form = _forms_rose(toeplitz.toeplitz_fwd, x, w, b, "tanh",
+                                t_out, shift, window=window)
+        assert form == "sgemm"
+        assert torch.equal(got, toeplitz.toeplitz_fwd(
+            x, w, b, "tanh", t_out, shift, kernel="cuda_cores"))
+
+
+def test_named_toeplitz_forms_raise_on_the_card(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    x, w, b = _toeplitz_operands(cuda, 8, 64, 128, 3, 64)
+    with pytest.raises(ValueError, match="'narrow' takes"):
+        toeplitz.toeplitz_fwd(x, w, b, "relu", 64, 1, kernel="narrow")
+    with pytest.raises(ValueError, match="'sgemm' takes fp32"):
+        toeplitz.toeplitz_fwd(x, w, b, "relu", 64, 1, kernel="sgemm")
+    with pytest.raises(ValueError, match="'sgemm' takes fp32"):
+        toeplitz.toeplitz_fwd(x.float(), w.float(), b.float(), "relu", 64,
+                              1, 4, kernel="sgemm")
 
 
 # ---- fp32 linear_fwd (row 16) and matmul_nt (row 4) on the register-tiled

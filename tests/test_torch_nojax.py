@@ -22,7 +22,7 @@ SLICE = [
     "ops.mlp", "ops.quant", "ops.rng", "ops.loss", "ops._build",
     "ops.linear", "ops.toeplitz", "ops.conv", "ops.linear_bwd", "ops.adam",
     "probes.common", "probes.deep_bwd", "probes.deep_step",
-    "probes.adam_fusion",
+    "probes.adam_fusion", "probes.sass_count",
     "parallel.step",
     "parallel.resident", "train.state",
     "train.optim", "train.checkpoint", "train.loop", "train.interrupt",

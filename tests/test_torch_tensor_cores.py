@@ -110,7 +110,7 @@ def test_kernel_codes_are_the_c_side_codes():
     assert codes == sorted(tensor_cores.KERNEL_CODES.values()) == \
         list(range(len(codes)))
     assert tensor_cores.KERNEL_CODES == {"cuda_cores": 0, "tensor_cores": 1,
-                                         "sgemm": 2}
+                                         "sgemm": 2, "narrow": 3}
 
 
 @pytest.mark.parametrize("batch,k,n,want", [
@@ -498,18 +498,19 @@ def test_linear_fwd_and_toeplitz_pass_the_kernel_code_and_plan(monkeypatch):
     y = toeplitz.toeplitz_fwd(xs, ws, bs, "relu", 64, 1)
     assert y.shape == (4096, 64, 64)
     name, args = launched.pop()
-    # B, nb, G, KB, N, t_out, shift, act, passes, dtype | t_half, b_half,
-    # tile width, kernel
+    # B, nb, G, KB, N, t_out, shift, act, passes, dtype | the contraction
+    # window (k0, k_len) | t_half, b_half, tile width, kernel
     assert name == "rvk_toeplitz_fwd"
     assert args[4:14] == (4096, 64, 128, 3, 64, 64, 1, 1, 1, 1)
-    assert args[14:] == (64, 1, 64, 1)
+    assert args[14:] == (0, 384, 64, 1, 64, 1)
     toeplitz.toeplitz_fwd(xs[:, :16].contiguous(), ws, bs, "relu", 16, 1)
-    assert launched.pop()[1][14:] == (16, 4, 64, 1)
+    assert launched.pop()[1][14:] == (0, 384, 16, 4, 64, 1)
     toeplitz.toeplitz_fwd(xs, ws, bs, "relu", 64, 1, kernel="cuda_cores")
-    assert launched.pop()[1][14:] == (0, 0, 0, 0)
+    assert launched.pop()[1][14:] == (0, 384, 0, 0, 0, 0)
+    # fp32, 4 passes: the first version (wide widths)
     toeplitz.toeplitz_fwd(xs.float(), ws.float(), bs.float(), "relu", 64, 1,
                           4)
-    assert launched.pop()[1][12:] == (4, 0, 0, 0, 0, 0)
+    assert launched.pop()[1][12:] == (4, 0, 0, 384, 0, 0, 0, 0)
     assert (toeplitz.toeplitz_fwd.launches - counts[0],
             toeplitz.toeplitz_fwd.tensor_core_launches - counts[1]) == (4, 2)
 
@@ -737,16 +738,18 @@ def test_a_named_fp32_kernel_raises_on_what_it_cannot_take(monkeypatch):
     with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
         linear.linear_ksplit_fwd(x, w, b, "relu", kernel="sgemm")
     # the encoder's fp32 form takes latent widths of multiples of 4 only;
-    # the Toeplitz product has no fp32 form
+    # the Toeplitz product's takes one pass of fp32 operands
     with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
         mlp.encoder_fwd(*_encoder_operands(8, 64, 32, 18, F32),
                         kernel="sgemm")
     monkeypatch.setattr(toeplitz, "kernel_device", lambda x: x.device)
-    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
-        toeplitz.toeplitz_fwd(
-            *(torch.empty(sh, device="meta") for sh in ((8, 64, 128),
-                                                        (3, 128, 64), (64,))),
-            "relu", 64, 1, kernel="sgemm")
+    for dtype, passes in ((BF16, 1), (F32, 4)):
+        with pytest.raises(ValueError, match="'sgemm' takes fp32 operands "
+                                             "with one pass"):
+            toeplitz.toeplitz_fwd(
+                *(torch.empty(sh, device="meta", dtype=dtype)
+                  for sh in ((8, 64, 128), (3, 128, 64), (64,))),
+                "relu", 64, 1, passes, kernel="sgemm")
     # an unaligned view
     monkeypatch.setattr(tensor_cores, "pointers_aligned", lambda *t: False)
     xf, wf, bf = x.float(), w.float(), b.float()
