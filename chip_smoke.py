@@ -235,8 +235,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    batch 256, all on the tensor cores in bf16, all on the fp32 kernel in
    fp32); the HTTP server (fp32, every launch on the fp32 kernel) on the
    run's ``best_model.npz``
-   against the plain backend; frames/s of both backends and the device's
-   busy share;
+   against the plain backend; ``encode_trajectory`` / ``decode_trajectory``
+   of the same weights through the kernels (11 whole-k launches, all on
+   the fp32 kernel) against the plain backend; frames/s of both backends
+   and the device's busy share;
 9. the conv1d model: ``configs/conv1d.ini`` uncut (channels 32,64,128,256,
    kernel 9, stride 4, bf16, batch 4096) → the ``train`` command through
    the registry (plain convolutions, no kernel launched), a ``--resume``;
@@ -276,7 +278,23 @@ any failure exits non-zero with a traceback (no phase is caught):
    cores in bf16, ``csrc/sgemm.cuh`` in fp32), ``leaf_update`` 22 times a
    deep step, 10 a
    dense one and never under the plain optimizer, and the two optimizers'
-   states are equal bit for bit.
+   states are equal bit for bit;
+11. the library path: ``configs/default.ini`` (dense 1024/2048/256,
+   ``backend = pallas``) → a run workspace with seeded random weights and a
+   synthetic folder of a dozen 1-3 s clips (mixed sines and noise, 44.1
+   kHz) → the ``tutorial``, ``som --grid 8,8 --iters 200`` and ``export``
+   commands in-process: every artifact exists, its audio finite and not
+   silent, ``clusters.json`` read back through ``SomClusters`` and one
+   cluster's audio concatenated; ``encode_trajectory`` of a 4 s clip and
+   deterministic ``interpolate_stepwise`` / ``interpolate_timevarying``
+   through the kernels against a ``backend = xla`` model of the same
+   weights on the card, two stochastic calls of one seed equal bit for bit;
+   every ``encoder_fwd`` / ``decoder_fwd`` launch of the phase on
+   ``csrc/sgemm.cuh``; the deterministic ``.onnx`` through ``OnnxModel``
+   against the deterministic forward on the card, the exported programs
+   run on the card against the plain forward, the npz read back equal;
+   ``encode_trajectory`` frames/s through the kernels and the plain ops at
+   batch 256, in turns, and the SOM fit's time.
 
 ``launches`` in the kernel line: the wrapper's count over the path where
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
@@ -5350,6 +5368,36 @@ def phase_deep(tmp: Path, audio, card: str):
           f"latency {lat_ms:.2f} ms")
     check(e <= HTTP_ATOL, "deep /reconstruct differs from the plain backend")
 
+    # the library path on the served weights: encode_trajectory /
+    # decode_trajectory through the kernels (fp32: the whole-k layer's fp32
+    # kernel) against the plain backend on the same card
+    from rawaudiovae_kelsey_tpu_torch.infer.api import (
+        decode_trajectory,
+        encode_trajectory,
+    )
+
+    for w in ops.DEEP_KERNELS:
+        w.launches = 0
+    on_sg = linear.linear_fwd.sgemm_launches
+    mu, logvar = encode_trajectory(model, served, audio)
+    y = decode_trajectory(model, served, mu)
+    lib = {w.__name__: w.launches for w in ops.DEEP_KERNELS}
+    lib["linear_fwd@sgemm"] = linear.linear_fwd.sgemm_launches - on_sg
+    plain = models["plain"](cfg)
+    want_mu, want_lv = encode_trajectory(plain, served, audio)
+    e = max(float(np.abs(a - b).max()) for a, b in (
+        (mu, want_mu), (logvar, want_lv),
+        (y, decode_trajectory(plain, served, mu))))
+    print(f"  encode_trajectory / decode_trajectory of {len(mu)} frames "
+          f"through the kernels: launches {lib}; vs the plain backend: max "
+          f"err {e:.3e}")
+    check(lib == {"linear_ksplit_fwd": 0, "linear_fwd": 11,
+                  "linear_fwd@sgemm": 11},
+          f"deep library path: launches {lib}, expected 0 k-split and 11 "
+          "whole-k, all on the fp32 kernel")
+    check(e <= HTTP_ATOL, "deep encode_trajectory / decode_trajectory "
+          "differ from the plain backend")
+
     step_rates(cfg, x, models, card)
     return launches, step_counts["highest"], serve_launches
 
@@ -5458,6 +5506,230 @@ def phase_conv(tmp: Path, card: str):
           f"{device_time_by_kernel(lambda: step(state, x), focus=focus)}")
     cfg.tpu.precision = "bfloat16"
     return step_counts
+
+
+LIBRARY_CLIPS = 12            # phase 11's wav folder: clips of 1-3 s
+LIBRARY_RATE_S = 60.0         # the clip encode_trajectory's rate is timed on
+LIBRARY_WAVS = ("source_a.wav", "source_b.wav", "morph_stepwise.wav",
+                "morph_timevarying.wav", "morph_gentle.wav", "recon_ola.wav",
+                "stretch_effect.wav")
+
+
+def phase_library(tmp: Path, card: str, gen_params) -> None:
+    """Phase 11: the tutorial's latent-space API, the SOM and export on the
+    dense model of configs/default.ini, through the commands a user runs
+    and through the library calls beneath them."""
+    import copy
+
+    from rawaudiovae_kelsey_tpu_torch import __main__ as cli
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.compat import params_to_state_dict
+    from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
+    from rawaudiovae_kelsey_tpu_torch.infer import (
+        OnnxModel,
+        SomClusters,
+        api,
+        concat_random_audio,
+        export,
+        som_train,
+    )
+    from rawaudiovae_kelsey_tpu_torch.io import read_wav, write_wav
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.train import save_params
+
+    cfg = load_config(ROOT / "configs" / "default.ini")
+    rng = np.random.default_rng(21)
+    audio_dir = tmp / "wavs"
+    audio_dir.mkdir(parents=True)
+    for i in range(LIBRARY_CLIPS):
+        t = np.arange(int(rng.uniform(1.0, 3.0) * SR)) / SR
+        f1, f2 = rng.uniform(80.0, 2000.0, 2)
+        wave = (0.3 * np.sin(2 * np.pi * f1 * t)
+                + 0.2 * np.sin(2 * np.pi * f2 * t)
+                + 0.05 * rng.standard_normal(t.size))
+        write_wav(audio_dir / f"clip{i:02d}.wav", wave.astype(np.float32), SR)
+    run = tmp / "run-001"
+    save_config(cfg, run / "config.ini")
+    params = gen_params(11)
+    save_params(run / "model" / "best_model.npz", params)
+
+    dense = (ops.encoder_fwd, ops.decoder_fwd)
+    for w in ops.KERNEL_WRAPPERS:
+        w.launches = 0
+    for w in dense:
+        w.sgemm_launches = 0
+    # the commands, as `python -m rawaudiovae_kelsey_tpu_torch <command>`
+    # runs them (on the card: --device defaults to cuda)
+    tut, som_dir, exp = tmp / "tutorial", tmp / "som", tmp / "export"
+    t0 = time.perf_counter()
+    cli.example("tutorial", ["--run", str(run), "--audio", str(audio_dir),
+                             "--out", str(tut)])
+    t1 = time.perf_counter()
+    cli.som(["--run", str(run), "--audio", str(audio_dir), "--out",
+             str(som_dir), "--grid", "8,8", "--iters", "200"])
+    t2 = time.perf_counter()
+    cli.example("export", ["--run", str(run), "--out", str(exp)])
+    t3 = time.perf_counter()
+    print(f"  commands: tutorial {t1 - t0:.2f} s, som {t2 - t1:.2f} s, "
+          f"export {t3 - t2:.2f} s")
+    for name in LIBRARY_WAVS:
+        wave, sr = read_wav(tut / name)
+        check(sr == SR and wave.size > 0 and bool(np.isfinite(wave).all())
+              and float(np.abs(wave).max()) > 1e-3,
+              f"tutorial {name}: empty, non-finite or silent")
+    png = tut / "comparison.png"
+    print(f"  tutorial: {len(LIBRARY_WAVS)} wavs finite and not silent; "
+          + ("comparison.png written" if png.exists() else
+             "no comparison.png (matplotlib is not installed here)"))
+    clusters = SomClusters(som_dir / "clusters.json",
+                           som_dir / "data-concatenated.json")
+    ids = clusters.cluster_ids()
+    members = sum(len(clusters.clusters[str(c)]) for c in ids)
+    check(members == LIBRARY_CLIPS, f"som: {members} clips in clusters.json, "
+          f"expected {LIBRARY_CLIPS}")
+    biggest = max(ids, key=lambda c: len(clusters.clusters[str(c)]))
+    joined = clusters.concat_audio(audio_dir, biggest, sr=SR)
+    check(joined.size > 0 and bool(np.isfinite(joined).all())
+          and float(np.abs(joined).max()) > 1e-3,
+          f"som: cluster {biggest}'s audio is empty or silent")
+    print(f"  som: {len(ids)} populated units of 64; cluster {biggest} "
+          f"({len(clusters.clusters[str(biggest)])} clips) concatenated to "
+          f"{joined.size / SR:.2f} s")
+    exported = sorted(p.name for p in exp.iterdir())
+    check(exported == ["rawaudiovae.onnx", "rawaudiovae.pt2",
+                       "rawaudiovae_det.onnx", "rawaudiovae_det.pt2",
+                       "rawaudiovae_weights.npz"], f"export: {exported}")
+
+    # the library calls, through the kernels and through the plain ops
+    model = build_model(cfg, "cuda")
+    check(model.backend == "pallas", f"backend {model.backend}")
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg.tpu.backend = "xla"
+    plain = build_model(plain_cfg, "cuda")
+    clip = concat_random_audio(audio_dir, 4.0, SR, seed=5)
+    other = concat_random_audio(audio_dir, 4.0, SR, seed=6)
+    out = {}
+    for label, m in (("kernels", model), ("plain", plain)):
+        mu_a, lv_a = api.encode_trajectory(m, params, clip)
+        mu_b, lv_b = api.encode_trajectory(m, params, other)
+        out[label] = {
+            "mu": mu_a, "logvar": lv_a,
+            "stepwise": api.interpolate_stepwise(
+                m, params, mu_a, lv_a, mu_b, lv_b, deterministic=True),
+            "timevarying": api.interpolate_timevarying(
+                m, params, mu_a, lv_a, mu_b, lv_b, api.sine_alfa(20000, 500),
+                deterministic=True)}
+    errs = {k: float(np.abs(v - out["plain"][k]).max())
+            for k, v in out["kernels"].items()}
+    print(f"  4 s clip, {len(out['kernels']['mu'])} frames: kernels vs the "
+          "plain backend, max err "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    for k, e in errs.items():
+        check(e <= HTTP_ATOL, f"{k} through the kernels differs from the "
+              "plain backend")
+    mu_a, lv_a = out["kernels"]["mu"], out["kernels"]["logvar"]
+    mu_b, lv_b = api.encode_trajectory(model, params, other)
+    twice = [api.interpolate_stepwise(model, params, mu_a, lv_a, mu_b, lv_b,
+                                      seed=3) for _ in range(2)]
+    check(np.array_equal(*twice) and bool(np.isfinite(twice[0]).all()),
+          "two stochastic interpolate_stepwise calls of one seed differ")
+    check(not np.array_equal(twice[0], out["kernels"]["stepwise"]),
+          "the stochastic interpolation equals z = mu's")
+    launches = {w.__name__: w.launches for w in dense}
+    on_sgemm = {w.__name__: w.sgemm_launches for w in dense}
+    print("  the phase's launches: " + ", ".join(
+        f"{name} {n} ({on_sgemm[name]} on csrc/sgemm.cuh)"
+        for name, n in launches.items()))
+    for name, n in launches.items():
+        check(n > 0 and on_sgemm[name] == n, f"{name}: {on_sgemm[name]} of "
+              f"{n} library-path launches on csrc/sgemm.cuh")
+
+    # the exports, run on the card
+    x = api.frame_audio(clip, cfg.audio.segment_length)
+    onnx_out = OnnxModel.load(exp / "rawaudiovae_det.onnx").run({"input": x})
+    with torch.inference_mode():
+        fwd = export.make_forward_fn(model, True)(
+            params, torch.from_numpy(x).cuda())
+    for name, want in zip(("recon", "mu", "logvar"), fwd):
+        want = want.cpu().numpy()
+        e = float(np.abs(onnx_out[name] - want).max())
+        scale = float(np.abs(want).max())
+        print(f"  rawaudiovae_det.onnx ({x.shape[0]} frames) vs the "
+              f"forward on the card: {name} max err {e:.3e} (limit "
+              f"{1e-4 * scale:.3e})")
+        check(e <= 1e-4 * scale, f"the .onnx's {name} differs")
+    x1 = torch.from_numpy(x[:1]).cuda()
+    with torch.inference_mode():
+        want = export.make_forward_fn(plain, True)(params, x1)
+        got = export.load_program(exp / "rawaudiovae_det.pt2")(x1)
+        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        torch.manual_seed(0)
+        sto = export.load_program(exp / "rawaudiovae.pt2")(x1)
+    print(f"  rawaudiovae_det.pt2 on the card vs the plain forward: max err "
+          f"{e:.3e}; rawaudiovae.pt2 (noise in the graph) finite: "
+          f"{bool(torch.isfinite(sto[0]).all())}")
+    check(e <= 1e-5, "the exported program differs from the plain forward")
+    check(bool(torch.isfinite(sto[0]).all())
+          and torch.equal(sto[1], got[1]), "the stochastic program's output")
+    with np.load(exp / "rawaudiovae_weights.npz") as npz:
+        want = params_to_state_dict(params)
+        check(sorted(npz.files) == sorted(want) and all(
+            np.array_equal(npz[k], v) for k, v in want.items()),
+            "rawaudiovae_weights.npz does not read back equal")
+
+    # encode_trajectory's rate at batch 256, kernels and plain in turns
+    long = concat_random_audio(audio_dir, LIBRARY_RATE_S, SR, seed=7)
+    frames = len(api.frame_audio(long, cfg.audio.segment_length))
+    rates = {"kernels": [], "plain": []}
+    for label in ("kernels", "plain", "plain", "kernels", "kernels", "plain"):
+        m = model if label == "kernels" else plain
+        t0 = time.perf_counter()
+        api.encode_trajectory(m, params, long, batch_size=BATCH)
+        rates[label].append(frames / (time.perf_counter() - t0))
+    print(f"  encode_trajectory of {frames} frames at batch {BATCH}: "
+          + ", ".join(f"{k} {statistics.median(v):,.0f} frames/s "
+                      f"(runs {[round(r) for r in v]})"
+                      for k, v in rates.items()))
+    feats, _ = som_train.extract_file_features(model, params, audio_dir, SR)
+    fit_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        codebook = som_train.train_som(feats, grid=(8, 8), iters=200,
+                                       device="cuda")
+        fit_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"  SOM fit (8x8 units, 200 iterations, {len(feats)} features of "
+          f"{feats.shape[1]}) on the card: median "
+          f"{statistics.median(fit_ms):.2f} ms (runs "
+          f"{[round(t, 2) for t in fit_ms]})")
+    # the card's fit against the CPU's fp32 and float64 fits from the same
+    # initial codebook: units drawn from one sample sit within the fp32
+    # search's rounding of it, so the fits may part value by value; the
+    # quantization error and every feature's BMU distance hold them alike
+    x = torch.from_numpy(feats)
+    w0 = som_train.initial_codebook(x, (8, 8))
+    cpu32 = som_train.fit_som(x, w0, (8, 8), 200).numpy()
+    cpu64 = som_train.fit_som(x.double(), w0.double(), (8, 8), 200).numpy()
+    spread = float(np.linalg.norm(feats - feats.mean(axis=0), axis=1).mean())
+    quality = {
+        name: som_train.fit_quality(feats, w, som_train.assign_clusters(
+            feats, w, dev))
+        for name, w, dev in (("card", codebook, "cuda"),
+                             ("cpu fp32", cpu32, "cpu"),
+                             ("cpu float64", cpu64, "cpu"))}
+    print(f"  SOM fit values: card vs cpu fp32 max "
+          f"{np.abs(codebook - cpu32).max():.3e}, cpu fp32 vs cpu float64 "
+          f"max {np.abs(cpu32 - cpu64).max():.3e}, card vs cpu float64 max "
+          f"{np.abs(codebook - cpu64).max():.3e}; quantization error / BMU "
+          "gap: " + ", ".join(f"{k} {q:.6e} / {g:.2e}"
+                              for k, (q, g) in quality.items())
+          + f" (data spread {spread:.6e})")
+    qe64 = quality["cpu float64"][0]
+    qe, gap = quality["card"]
+    check(abs(qe - qe64) <= 0.05 * spread, f"the card's SOM fit: "
+          f"quantization error {qe:.6e} against float64's {qe64:.6e}")
+    check(gap <= 1e-5, f"the card's SOM assignment misses a nearest unit "
+          f"by {gap:.2e}")
+    print(f"  {card}")
 
 
 def off_path(row: dict) -> None:
@@ -5692,6 +5964,9 @@ def main() -> int:
         conv_launches = phase_conv(Path(tmp), card)
     print("phase 10: the probes (deep_bwd, deep_step, adam_fusion)")
     probe_launches = phase_probes(card)
+    print("phase 11: the library path (configs/default.ini)")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_library(Path(tmp), card, gen_params)
     # the 3-pass chains against the same products in one fp32 pass: the
     # fp32 split kernels launch the chains' GEMMs without the split
     ms = {k: r["ms"] for k, r in train_rows.items()}

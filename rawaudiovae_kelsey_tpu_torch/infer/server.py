@@ -27,7 +27,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from rawaudiovae_kelsey_tpu_torch.infer.api import frame_audio, stretch_alfa
+from rawaudiovae_kelsey_tpu_torch.infer.api import (
+    frame_audio,
+    seeded_generator,
+    stretch_alfa,
+)
 from rawaudiovae_kelsey_tpu_torch.infer.synthesis import (
     OverlapAddStream,
     flat_concat,
@@ -35,17 +39,6 @@ from rawaudiovae_kelsey_tpu_torch.infer.synthesis import (
 )
 from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef
 from rawaudiovae_kelsey_tpu_torch.models.vae import reparameterize
-
-
-def seeded_generator(device: torch.device, *words: int) -> torch.Generator:
-    """A generator on ``device`` seeded from a tuple of ints (the analog of
-    folding words into a threefry key): distinct tuples give independent
-    streams, equal tuples the same one."""
-    state = np.random.SeedSequence([w & 0xFFFFFFFF for w in words])
-    seed = int(state.generate_state(1, np.uint64)[0]) & ((1 << 63) - 1)
-    g = torch.Generator(device=device)
-    g.manual_seed(seed)
-    return g
 
 
 @dataclass

@@ -41,7 +41,8 @@ from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp
 class ModelDef:
     """A VAE family on one device: ``init`` (a ``torch.Generator`` →
     params dict on ``device``) and ``encode``/``decode`` functions of
-    ``(params, batch)``."""
+    ``(params, batch)``; ``plain_encode``/``plain_decode`` are the family's
+    plain PyTorch ops whatever the backend (what ``torch.export`` traces)."""
 
     name: str
     segment_length: int
@@ -52,6 +53,9 @@ class ModelDef:
     encode: Callable[[vae.Params, torch.Tensor],
                      Tuple[torch.Tensor, torch.Tensor]]
     decode: Callable[[vae.Params, torch.Tensor], torch.Tensor]
+    plain_encode: Callable[[vae.Params, torch.Tensor],
+                           Tuple[torch.Tensor, torch.Tensor]]
+    plain_decode: Callable[[vae.Params, torch.Tensor], torch.Tensor]
 
 
 def resolve_backend(cfg: Config, device: torch.device) -> str:
@@ -98,6 +102,8 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
                          hidden_dims=tuple(hidden), latent_dim=latent,
                          device=device),
             encode=encode_fn, decode=decode_fn,
+            plain_encode=variants.encode_deep,
+            plain_decode=variants.decode_deep,
         )
 
     if arch == "conv1d":
@@ -111,15 +117,17 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
             # the fp32 tiers of this package hold IEEE fp32, as PyTorch's
             # matrix products do by default (a process-wide switch)
             torch.backends.cudnn.allow_tf32 = False
+        encode_fn = partial(variants.encode_conv1d, stride=stride)
+        decode_fn = partial(variants.decode_conv1d, stride=stride,
+                            width=width, channels=channels[-1])
         return ModelDef(
             name="conv1d", segment_length=seg, latent_dim=latent,
             device=device, backend=backend,
             init=partial(variants.init_conv1d, segment_length=seg,
                          channels=tuple(channels), kernel=kernel,
                          stride=stride, latent_dim=latent, device=device),
-            encode=partial(variants.encode_conv1d, stride=stride),
-            decode=partial(variants.decode_conv1d, stride=stride,
-                           width=width, channels=channels[-1]),
+            encode=encode_fn, decode=decode_fn,
+            plain_encode=encode_fn, plain_decode=decode_fn,
         )
 
     if arch != "dense":
@@ -140,6 +148,8 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
                      device=device),
         encode=encode_fn,
         decode=decode_fn,
+        plain_encode=vae.encode,
+        plain_decode=vae.decode,
     )
 
 

@@ -79,20 +79,17 @@ def _commands(doc):
 
 def test_docstring_names_only_real_commands(monkeypatch, capsys):
     documented = _commands(cli.__doc__)
-    assert documented == ["train", "stream", "eval", "serve", "validate"]
-    jax_commands = set(_commands(jcli.__doc__))
-    m = re.search(r"Not ported yet[^:]*:\s*([\w, \n]+)\.", cli.__doc__)
-    unported = [w for w in re.split(r"[,\s]+", m.group(1)) if w]
-    assert unported and set(unported) <= jax_commands
-    # documented and unported together are the JAX CLI's commands
-    assert set(documented) | set(unported) == jax_commands
-    assert not set(documented) & set(unported)
+    assert documented == ["train", "stream", "eval", "serve", "validate",
+                          "tutorial", "export", "som"]
+    # every command of the JAX CLI is ported, and none is named unported
+    assert set(documented) == set(_commands(jcli.__doc__))
+    assert "Not ported" not in cli.__doc__
     # every documented command is dispatched (it parses its own arguments:
-    # --help exits 0), every unported one is refused with exit code 2
+    # --help exits 0), anything else is refused with exit code 2
     for cmd in documented:
         code, out = _run(cli, [cmd, "--help"], monkeypatch, capsys)
         assert code == 0 and "usage:" in out, cmd
-    for cmd in unported + ["generate", "bench"]:
+    for cmd in ["generate", "bench"]:
         code, out = _run(cli, [cmd], monkeypatch, capsys)
         assert code == 2 and "unknown command" in out, cmd
 
@@ -132,3 +129,23 @@ def test_both_trainers_say_it_before_they_set_up(tmp_path, monkeypatch,
         trainer.train(cfg, device="cuda")
     assert "8 CUDA devices are visible and one is used" in \
         capsys.readouterr().out
+
+
+@pytest.mark.parametrize("which,files,want", [
+    ("best", ["best", "last"], "model/best_model.npz"),
+    ("best", ["last"], "model/last_model.npz"),
+    ("last", ["best", "last"], "model/last_model.npz"),
+    ("elsewhere/ckpt_00010", ["best"], "elsewhere/ckpt_00010"),
+])
+def test_params_path_names_the_run_weights(tmp_path, which, files, want):
+    """``serve``, ``eval``, ``som``, ``tutorial`` and ``export`` load a run's
+    weights through ``infer/runs.py``: ``best`` falls back to
+    ``last_model.npz``, and anything but ``best`` / ``last`` is a path."""
+    from rawaudiovae_kelsey_tpu_torch.infer.runs import params_path
+
+    (tmp_path / "model").mkdir()
+    for name in files:
+        (tmp_path / "model" / f"{name}_model.npz").write_bytes(b"")
+    if "/" in which:
+        which = str(tmp_path / which)
+    assert params_path(tmp_path, which) == tmp_path / want

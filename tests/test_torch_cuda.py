@@ -3138,3 +3138,109 @@ def test_sgemm_backward_forms_dispatch_on_the_card(cuda):
         _close_rel(got, getattr(mlp, f"{op.__name__}_ref")(*ops_), GRAD_REL)
         with pytest.raises(ValueError, match="'sgemm' takes fp32 operands"):
             op(*ops_, kernel="sgemm")
+
+
+# ------------------------------------------------- the library path (infer/)
+
+def _library_model(device, arch):
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+
+    cfg = Config()
+    cfg.audio.segment_length = 1024
+    cfg.vae.arch = arch
+    cfg.vae.n_units, cfg.vae.latent_dim = 2048, 256
+    cfg.vae.hidden_dims = "1024,512"
+    cfg.tpu.backend = "pallas"
+    return build_model(cfg, device)
+
+
+@pytest.mark.parametrize("arch", ["dense", "deep"])
+@pytest.mark.parametrize("hop", [None, 256])
+def test_encode_trajectory_on_the_card_matches_the_cpu(cuda, arch, hop):
+    """``encode_trajectory`` / ``decode_trajectory`` of a ``backend =
+    pallas`` model on the card (the dense model's ``encoder_fwd`` /
+    ``decoder_fwd``, the deep model's ``linear_fwd``, all on
+    ``csrc/sgemm.cuh``) against the same calls on the CPU (the plain
+    versions); ragged last batches included."""
+    from rawaudiovae_kelsey_tpu_torch.infer import api
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+    from rawaudiovae_kelsey_tpu_torch.tree import tree_map
+
+    cpu = _library_model("cpu", arch)
+    card = _library_model(cuda, arch)
+    params = cpu.init(torch.Generator().manual_seed(1))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    audio = np.random.default_rng(2).uniform(
+        -0.5, 0.5, 1024 * 300 + 77).astype(np.float32)
+    wrappers = ((ops.encoder_fwd, ops.decoder_fwd) if arch == "dense"
+                else (linear.linear_fwd,))
+    before = [(w.launches, w.sgemm_launches) for w in wrappers]
+    mu, lv = api.encode_trajectory(card, on_card, audio, batch_size=256,
+                                   hop=hop)
+    want_mu, want_lv = api.encode_trajectory(cpu, params, audio, hop=hop)
+    np.testing.assert_allclose(mu, want_mu, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lv, want_lv, atol=ATOL, rtol=0)
+    y = api.decode_trajectory(card, on_card, want_mu, batch_size=100)
+    np.testing.assert_allclose(y, api.decode_trajectory(cpu, params, want_mu),
+                               atol=ATOL, rtol=0)
+    for w, (n, s) in zip(wrappers, before):
+        rose = w.launches - n
+        assert rose > 0 and w.sgemm_launches - s == rose, w.__name__
+
+
+@pytest.mark.parametrize("grid,iters,seed", [((3, 3), 120, 1),
+                                             ((4, 2), 60, 0),
+                                             ((2, 2), 1, 3)])
+def test_som_fit_on_the_card_matches_the_cpu(cuda, grid, iters, seed):
+    """``train_som`` (the init drawn on the CPU, the fit on the card)
+    against the same call on the CPU, on the well-separated blobs of
+    tests/test_torch_som.py.  The BMU search's ``‖x‖² − 2·x·wᵀ + ‖w‖²``
+    cancels, so where two units sit within its rounding of a sample (units
+    drawn from one sample, a tight cluster) the two devices may pick
+    different winners and the fits part ways: these blobs have none.  The
+    ``som`` command's own shape, which has such units, is held by
+    :func:`test_som_fit_at_the_command_shape_on_the_card`."""
+    from rawaudiovae_kelsey_tpu_torch.infer import som_train
+
+    rng = np.random.default_rng(seed)
+    centers = np.zeros((3, 4), np.float32)
+    centers[0, 0], centers[1, 0], centers[2, 1] = 5, -5, 8
+    feats = np.concatenate([c + 0.3 * rng.standard_normal(
+        (30, 4)).astype(np.float32) for c in centers])
+    got = som_train.train_som(feats, grid=grid, iters=iters, seed=seed,
+                              device=cuda)
+    want = som_train.train_som(feats, grid=grid, iters=iters, seed=seed,
+                               device="cpu")
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(
+        som_train.assign_clusters(feats, got, cuda),
+        som_train.assign_clusters(feats, want, "cpu"))
+
+
+@pytest.mark.parametrize("n", [12, 200])
+def test_som_fit_at_the_command_shape_on_the_card(cuda, n):
+    """``train_som`` on the card at the ``som`` command's shape (8x8 units,
+    200 iterations, ``n`` features of 256; units drawn from one sample, so
+    the fp32 search's rounding picks the winners among them and the fit
+    parts from any other device's or summation order's value by value)
+    against the float64 fit on the CPU from the same initial codebook: its
+    quantization error within 5 % of the data's spread of the float64
+    fit's, and every feature's BMU, searched on the card, at its true least
+    distance (to 1e-5 of ``‖x‖² + ‖w‖²``)."""
+    from rawaudiovae_kelsey_tpu_torch.infer import som_train
+
+    grid, iters = (8, 8), 200
+    feats = np.random.default_rng(0).standard_normal(
+        (n, 256)).astype(np.float32)
+    got = som_train.train_som(feats, grid=grid, iters=iters, device=cuda)
+    w0 = som_train.initial_codebook(torch.from_numpy(feats), grid)
+    w64 = som_train.fit_som(torch.from_numpy(feats).double(), w0.double(),
+                            grid, iters).numpy()
+    qe64, _ = som_train.fit_quality(
+        feats, w64, som_train.assign_clusters(feats, w64, "cpu"))
+    qe, gap = som_train.fit_quality(
+        feats, got, som_train.assign_clusters(feats, got, cuda))
+    spread = np.linalg.norm(feats - feats.mean(axis=0), axis=1).mean()
+    assert abs(qe - qe64) <= 0.05 * spread, (qe, qe64, spread)
+    assert gap <= 1e-5, gap

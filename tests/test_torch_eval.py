@@ -115,6 +115,24 @@ def test_eval_options(runs, capsys):
                 "--params", "last"])
     assert _last_json(capsys)["recon_mse"] == pytest.approx(
         by_path["recon_mse"], rel=1e-3)     # 16-bit wav vs decoded floats
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        peval.main(["--run", str(run), "--device", "cpu",
-                    "--params", "model.pt"])
+    # any other path is a reference PyTorch checkpoint: this one holds the
+    # same weights as last_model.npz
+    import torch
+
+    from rawaudiovae_kelsey_tpu_torch.compat import params_to_state_dict
+    from rawaudiovae_kelsey_tpu_torch.train import load_params
+
+    template = {name: {"w": torch.zeros(a, b), "b": torch.zeros(b)}
+                for name, (a, b) in (("fc1", (SEG, UNITS)),
+                                     ("fc21", (UNITS, LATENT)),
+                                     ("fc22", (UNITS, LATENT)),
+                                     ("fc3", (LATENT, UNITS)),
+                                     ("fc4", (UNITS, SEG)))}
+    params = load_params(run / "model" / "last_model.npz", template)
+    torch.save({"epoch": 1, "state_dict": {
+        k: torch.from_numpy(v) for k, v in params_to_state_dict(
+            params).items()}}, run / "model.pt")
+    peval.main(["--run", str(run), "--deterministic", "--device", "cpu",
+                "--params", str(run / "model.pt")])
+    assert _last_json(capsys)["recon_mse"] == pytest.approx(
+        by_path["recon_mse"], rel=1e-3)

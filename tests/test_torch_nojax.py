@@ -30,8 +30,12 @@ SLICE = [
     "observe.tb",
     "observe.timing", "observe.logging", "compat.from_jax",
     "infer.synthesis", "infer.api", "infer.server", "infer.http",
+    "infer.audio_utils", "infer.som", "infer.som_train", "infer.onnx_model",
+    "infer.export", "infer.runs", "observe.viz", "compat.torch_import",
     "__main__",
 ]
+# the port's example scripts, beside the JAX package's
+EXAMPLES = sorted((REPO / "examples").glob("*_torch.py"))
 
 
 def _modules():
@@ -69,6 +73,19 @@ def test_no_source_imports_jax(path):
         r"benchmarks)(\.|\s|$)",
         re.M)
     assert not pattern.findall(path.read_text())
+
+
+def test_the_three_examples_of_the_port_exist():
+    assert [p.name for p in EXAMPLES] == ["export_torch.py",
+                                          "live_session_torch.py",
+                                          "tutorial_torch.py"]
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_no_example_of_the_port_imports_jax(path):
+    assert not re.findall(
+        r"^\s*(import|from)\s+(jax|jaxlib|rawaudiovae_kelsey_tpu|bench|"
+        r"benchmarks)(\.|\s|$)", path.read_text(), re.M)
 
 
 def test_chip_smoke_imports_no_jax_either():
