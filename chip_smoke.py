@@ -294,7 +294,31 @@ any failure exits non-zero with a traceback (no phase is caught):
    against the deterministic forward on the card, the exported programs
    run on the card against the plain forward, the npz read back equal;
    ``encode_trajectory`` frames/s through the kernels and the plain ops at
-   batch 256, in turns, and the SOM fit's time.
+   batch 256, in turns, and the SOM fit's time;
+12. the resident stream: ``configs/default_iterable.ini`` (dense
+   1024/2048/256, batch 4096, bf16, ``backend = pallas``) on a seeded
+   folder of 24 wavs of 10-40 s (one at 22.05 kHz) and one shorter than a
+   segment, with only the datapath, the frame budget (300 batches: the
+   stream wraps the folder several times), both intervals (100) and the
+   ``[tpu]`` keys each run names changed → the ``stream`` command
+   in-process with ``device_resident = always`` in the samples and the
+   frames layout, at ``precision = high``, and a ``--resume`` from the
+   first checkpoint: the ``Device-resident stream`` line names the layout,
+   the host-fed feed is never built, losses finite and falling, rows 1, 2
+   and 7-10 once a step on the tensor cores (rows 11-12 under ``high``);
+   the two layouts, the first 100 batches of a host-fed run with
+   ``feed_dtype = bfloat16`` and the resumed run give equal bits; the gate
+   (a budget between the layouts' sizes trains resident in the samples
+   layout and host-fed in the frames layout, printing the plan; ``always``
+   at 0 raises); the run's peak device memory with the corpus apart; both
+   engines' hot-loop frames/s in turns, each with the device's busy share;
+   whether the C++ wav codec (``io/native.py``) built.
+
+Phases 5 and 8 also hold a bf16 kernel step with ``[tpu] remat = true``
+against the same step without it (same state and noise): equal bits of
+loss, params and moments; the forward kernels (rows 1-2; 15-16) launch
+twice as often, the backward ones as often; both steps' times and peak
+device memory.
 
 ``launches`` in the kernel line: the wrapper's count over the path where
 that dtype runs, set to 0 just before it — fp32 forward kernels: serving
@@ -383,6 +407,7 @@ import contextlib
 import http.client
 import io
 import json
+import re
 import statistics
 import struct
 import subprocess
@@ -3036,7 +3061,7 @@ def write_corpus(root: Path, frames: int, hop: int, seg: int) -> None:
     write_wav(root / "test_audio" / "test.wav", wave[:int(3 * SR)], SR)
 
 
-def phase_train(data: Path):
+def phase_train(data: Path, card: str):
     """Phase 5: the training path of configs/default.ini."""
     from rawaudiovae_kelsey_tpu_torch import ops
 
@@ -3304,6 +3329,12 @@ def phase_train(data: Path):
               f"expected {micro} of {micro} on the tensor cores")
         check(seen["high"][1] == seen["highest"][1] == 0,
               f"an fp32 step ran {name} on the tensor cores")
+
+    # remat: the bf16 kernel step recomputing its forward in the backward
+    cfg.tpu.precision, cfg.tpu.backend = "bfloat16", "pallas"
+    remat_pair(cfg, ckpt, x, (ops.encoder_fwd, ops.decoder_fwd),
+               (ops.grad_accum, ops.enc_bwd_dw1, ops.grad_accum2,
+                ops.dec_bwd_fused), "default.ini bf16", card)
 
     # training rate of both backends on one device-resident batch, and the
     # device's busy share over kernel steps
@@ -3776,7 +3807,9 @@ def phase_stream(tmp: Path):
     def run(name, precision, batches, resume=False):
         """The ``stream`` command on its own copy of the corpus: only the
         datapath, the frame budget, the two intervals (and the precision,
-        for `high`) differ from the file."""
+        for `high`) differ from the file, and a resident budget of 0, so
+        that the gate prints its plan and trains host-fed: this phase
+        holds the host-fed stream, phase 12 the resident one."""
         data = tmp / name
         if not data.exists():
             shutil.copytree(src, data)
@@ -3786,6 +3819,7 @@ def phase_stream(tmp: Path):
         cfg.training.checkpoint_interval = interval
         cfg.tpu.histogram_interval = interval
         cfg.tpu.precision = precision
+        cfg.tpu.resident_budget_gb = 0.0
         ini = data / "stream.ini"
         save_config(cfg, ini)
         for w in ops.KERNEL_WRAPPERS:
@@ -3973,6 +4007,326 @@ def phase_stream(tmp: Path):
               f"({dt / 24 * 1e3:.2f} ms a batch of {batch}); device busy "
               f"share: {busy_share(lambda: loop(24))}")
     return c_bf16, high_counts
+
+
+RESIDENT_STREAM_BATCHES = 300    # phase 12: the stream wraps the folder
+RESIDENT_STREAM_INTERVAL = 100   # checkpoint and histogram boundaries
+RESIDENT_STREAM_RATE_BATCHES = 48
+
+
+def write_resident_stream_corpus(root: Path) -> int:
+    """Phase 12's folder, from a numpy seed: 24 wavs of 10-40 s of mixed
+    sines and noise at 44.1 kHz (one at 22.05 kHz) and one shorter than a
+    segment, about ten minutes in all, and 3 s of test audio.  Returns the
+    samples written."""
+    from rawaudiovae_kelsey_tpu_torch.io import write_wav
+
+    rng = np.random.default_rng(12)
+    (root / "audio").mkdir(parents=True)
+    (root / "test_audio").mkdir()
+    total = 0
+    for k in range(24):
+        sr = SR // 2 if k == 5 else SR
+        n = int(rng.uniform(10, 40) * sr)
+        t = np.arange(n) / sr
+        f1, f2 = rng.uniform(80, 400), rng.uniform(600, 3000)
+        wave = (0.3 * np.sin(2 * np.pi * f1 * t * (1 + 0.2 * np.sin(t)))
+                + 0.1 * np.sin(2 * np.pi * f2 * t)
+                + 0.02 * rng.standard_normal(n)).astype(np.float32)
+        write_wav(root / "audio" / f"clip{k:02d}.wav", wave, sr)
+        total += n
+    write_wav(root / "audio" / "short.wav",
+              rng.uniform(-0.3, 0.3, SEG // 2).astype(np.float32), SR)
+    write_wav(root / "test_audio" / "test.wav",
+              (0.3 * np.sin(np.arange(int(3 * SR)) * 0.05)).astype(
+                  np.float32), SR)
+    return total
+
+
+def phase_resident_stream(tmp: Path, card: str) -> None:
+    """Phase 12: the device-resident stream of configs/default_iterable.ini
+    at full width (dense 1024/2048/256, batch 4096, bf16, pallas)."""
+    import itertools
+    import shutil
+
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
+    from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
+    from rawaudiovae_kelsey_tpu_torch.data import datasets
+    from rawaudiovae_kelsey_tpu_torch.data.loader import (
+        feed_dtype,
+        prefetch_to_device,
+    )
+    from rawaudiovae_kelsey_tpu_torch.io.native import native_available
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState, stream
+    from rawaudiovae_kelsey_tpu_torch.train.cli import main_stream
+
+    base = load_config(ROOT / "configs" / "default_iterable.ini")
+    check(base.tpu.precision == "bfloat16" and base.tpu.backend == "pallas"
+          and base.training.batch_size == 4096
+          and (base.audio.segment_length, base.vae.n_units,
+               base.vae.latent_dim) == (SEG, UNITS, LATENT),
+          "configs/default_iterable.ini is not the bf16 pallas batch-4096 "
+          "1024/2048/256 stream trainer")
+    batch, seg, hop = (base.training.batch_size, base.audio.segment_length,
+                       base.audio.hop_length)
+    n_all, every = RESIDENT_STREAM_BATCHES, RESIDENT_STREAM_INTERVAL
+    print(f"  native codec: {'C++ (io/native.py)' if native_available() else 'numpy (the library did not build)'}")
+    src = tmp / "corpus"
+    t0 = time.perf_counter()
+    n_samples = write_resident_stream_corpus(src)
+    ds = datasets.StreamingFrameDataset(src / "audio", SR, hop, seg)
+    n_frames = stream._estimate_stream_frames(ds, base)[0]
+    print(f"  corpus: 25 wavs, {n_samples:,} samples "
+          f"({n_samples / SR / 60:.1f} min), {n_frames:,} frames a pass, "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    check(n_all * batch > 3 * n_frames, "the stream does not wrap the "
+          "folder several times")
+
+    dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.grad_accum,
+                ops.enc_bwd_dw1, ops.grad_accum2, ops.dec_bwd_fused)
+    full_tc = (ops.enc_bwd_full, ops.dec_bwd_full)
+    # the host-fed feed: counted wherever a run builds it
+    fed = [0]
+    real_batches = datasets.StreamingFrameDataset.batches
+
+    def counted_batches(self, *a, **kw):
+        fed[0] += 1
+        return real_batches(self, *a, **kw)
+
+    datasets.StreamingFrameDataset.batches = counted_batches
+
+    def run(name, batches, resume=False, **tpu):
+        """The ``stream`` command on its own copy of the folder: only the
+        datapath, the frame budget, the two intervals and the [tpu] keys
+        named differ from the file."""
+        data = tmp / name
+        if not data.exists():
+            shutil.copytree(src, data)
+        cfg = load_config(ROOT / "configs" / "default_iterable.ini")
+        cfg.dataset.datapath = str(data)
+        cfg.training.total_num_frames = batches * batch
+        cfg.training.checkpoint_interval = every
+        cfg.tpu.histogram_interval = every
+        for key, value in tpu.items():
+            setattr(cfg.tpu, key, value)
+        ini = data / "stream.ini"
+        save_config(cfg, ini)
+        for w in ops.KERNEL_WRAPPERS:
+            w.launches = 0
+        for w in dense_tc + full_tc:
+            w.tensor_core_launches = 0
+        for w in dense_tc[:2]:
+            w.sgemm_launches = 0
+        fed[0] = 0
+        t0 = time.perf_counter()
+        out = tee_stdout(lambda: main_stream(
+            ["--config", str(ini)] + (["--resume"] if resume else [])))
+        wall = time.perf_counter() - t0
+        ws = iter_runs(data / cfg.extra.description)[-1]
+        counts = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+        counts.update((f"{w.__name__}@tc", w.tensor_core_launches)
+                      for w in dense_tc + full_tc)
+        counts.update((f"{w.__name__}@sgemm", w.sgemm_launches)
+                      for w in dense_tc[:2])
+        return ws, out, wall, counts, fed[0]
+
+    def resident_checks(name, out, counts, steps, layout, n_fed, full=False):
+        check(f"MB on device, {layout} layout)" in out,
+              f"{name}: no Device-resident stream line naming the "
+              f"{layout} layout")
+        check(n_fed == 0, f"{name}: the host-fed feed was built")
+        if full:
+            for w in full_tc:
+                n = (counts[w.__name__], counts[f"{w.__name__}@tc"])
+                check(n == (steps, steps), f"{name}: {w.__name__} launched "
+                      f"{n} (all, tensor cores) in {steps} steps")
+            return
+        for w in dense_tc:
+            n, tc = counts[w.__name__], counts[f"{w.__name__}@tc"]
+            # rows 1-2 also run the fp32 test-set reconstructions on
+            # csrc/sgemm.cuh; no launch takes a first version
+            other = counts.get(f"{w.__name__}@sgemm", 0)
+            check(tc == steps and n == tc + other,
+                  f"{name}: {w.__name__} {n} launches, {tc} on the tensor "
+                  f"cores, {other} on sgemm.cuh, in {steps} steps")
+        check(counts["enc_bwd_full"] == counts["dec_bwd_full"] == 0,
+              f"{name}: a full chain was launched")
+
+    def losses_of(ws, steps):
+        got = read_scalars(ws / "logs", "Loss/Batch")
+        check(sorted(got) == list(steps), f"Loss/Batch steps {sorted(got)}")
+        return got
+
+    # the resident stream, samples layout: the working set beside the corpus
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ws_s, out_s, wall_s, c_s, fed_s = run(
+        "samples", n_all, device_resident="always",
+        resident_layout="samples")
+    peak = torch.cuda.max_memory_allocated() - resident_before
+    resident_checks("samples", out_s, c_s, n_all, "samples", fed_s)
+    corpus_mb = float(re.search(r"Device-resident stream: [\d,]+ frames "
+                                r"\(([\d,]+) MB on device",
+                                out_s).group(1).replace(",", ""))
+    losses = losses_of(ws_s, range(n_all))
+    vals = [losses[k] for k in range(n_all)]
+    check(all(np.isfinite(v) for v in vals), "samples: non-finite loss")
+    head, tail = statistics.mean(vals[:10]), statistics.mean(vals[-10:])
+    check(tail < head, f"samples: the loss did not fall: {head} → {tail}")
+    e2e = re.search(r"Resident stream e2e: .*", out_s).group(0)
+    print(f"  resident[samples]: {n_all} batches of {batch} in {wall_s:.1f} s "
+          f"(the command, set-up included); loss {head:.6f} → {tail:.6f}; "
+          f"{e2e}")
+    print(f"  resident[samples]: peak device memory {peak / 1e6:,.0f} MB "
+          f"(torch.cuda.max_memory_allocated), of it the corpus "
+          f"{corpus_mb:,.0f} MB: working set {peak / 1e6 - corpus_mb:,.0f} MB "
+          f"(the gate keeps {stream.RESIDENT_STEP_BYTES / 1e6:,.0f} MB) "
+          f"[{card}]")
+    check(peak - corpus_mb * 1e6 <= stream.RESIDENT_STEP_BYTES,
+          "the resident step's working set exceeds what the gate keeps")
+    print(f"  resident[samples]: kernel launches {c_s}")
+
+    # the frames layout: the same bits
+    ws_f, out_f, _, c_f, fed_f = run(
+        "frames", n_all, device_resident="always", resident_layout="frames")
+    resident_checks("frames", out_f, c_f, n_all, "frames", fed_f)
+    check(losses_of(ws_f, range(n_all)) == losses,
+          "the frames layout's losses differ from the samples layout's")
+    last = f"model/checkpoints/ckpt_{n_all:05d}.npz"
+    check((ws_f / last).read_bytes() == (ws_s / last).read_bytes(),
+          "the frames layout's final state differs from the samples "
+          "layout's")
+    print(f"  resident[frames]: {n_all} losses and the final checkpoint "
+          "equal the samples layout's, bit for bit")
+
+    # the host-fed stream, bf16 feed: the first `every` batches' bits
+    ws_h, out_h, _, _, fed_h = run("fed", every, device_resident="never",
+                                   feed_dtype="bfloat16")
+    check(fed_h > 0 and "Device-resident" not in out_h,
+          "the host-fed run did not build its feed")
+    fed_losses = losses_of(ws_h, range(every))
+    check(all(fed_losses[k] == losses[k] for k in range(every)),
+          "the host-fed stream's losses differ from the resident one's")
+    ck = f"model/checkpoints/ckpt_{every:05d}.npz"
+    check((ws_h / ck).read_bytes() == (ws_s / ck).read_bytes(),
+          f"the host-fed state after {every} batches differs from the "
+          "resident one's")
+    print(f"  host-fed (feed_dtype = bfloat16): {every} losses and the state "
+          f"after {every} batches equal the resident run's, bit for bit")
+
+    # --resume from the first checkpoint: the straight run's bits
+    run("resume", every, device_resident="always")
+    ws_r, out_r, _, c_r, fed_r = run("resume", n_all, resume=True,
+                                     device_resident="always")
+    check(f"Resuming at batch {every}" in out_r, "the resumed run did not "
+          "continue at the saved batch_id")
+    resident_checks("resume", out_r, c_r, n_all - every, "samples", fed_r)
+    resumed = losses_of(ws_r, range(every, n_all))
+    check(all(resumed[k] == losses[k] for k in resumed),
+          "the resumed run's losses differ from the straight run's")
+    check((ws_r / last).read_bytes() == (ws_s / last).read_bytes(),
+          "the resumed run's final state differs from the straight run's")
+    print(f"  resume from batch {every}: losses {every}-{n_all - 1} and the "
+          "final checkpoint equal the straight run's, bit for bit")
+
+    # precision = high: the 3-pass chains once a step, on the tensor cores
+    n_high = every
+    ws_hi, out_hi, _, c_hi, fed_hi = run(
+        "high", n_high, device_resident="always", precision="high")
+    resident_checks("high", out_hi, c_hi, n_high, "samples", fed_hi,
+                    full=True)
+    vals = [v for _, v in sorted(losses_of(ws_hi, range(n_high)).items())]
+    check(all(np.isfinite(v) for v in vals)
+          and statistics.mean(vals[-10:]) < statistics.mean(vals[:10]),
+          "high: the loss is not finite and falling")
+    print(f"  resident[high]: {n_high} steps, enc_bwd_full / dec_bwd_full "
+          f"{c_hi['enc_bwd_full@tc']} / {c_hi['dec_bwd_full@tc']} on the "
+          f"tensor cores; loss {vals[0]:.6f} → {vals[-1]:.6f}")
+
+    # the gate
+    need = {"samples": None, "frames": None}
+    plan_cfg = load_config(ROOT / "configs" / "default_iterable.ini")
+    for layout in need:
+        plan_cfg.tpu.resident_layout = layout
+        need[layout] = stream.resident_plan(ds, plan_cfg,
+                                            torch.device("cuda")).need_bytes
+    budget_gb = (need["samples"] + need["frames"]) / 2 / (1 << 30)
+    _, out_g, _, _, fed_g = run("gate", 4, resident_budget_gb=budget_gb)
+    check("samples layout)" in out_g and fed_g == 0,
+          "auto with a budget between the layouts did not train resident "
+          "in the samples layout")
+    _, out_g, _, _, fed_g = run("gate", 4, resident_budget_gb=budget_gb,
+                                resident_layout="frames")
+    check("device_resident=auto" in out_g and "frames layout" in out_g
+          and "does not fit" in out_g and "training host-fed" in out_g
+          and fed_g > 0, "auto in the frames layout over budget did not "
+          "train host-fed and print the plan")
+    try:
+        run("gate", 4, device_resident="always", resident_budget_gb=0.0)
+        raised = None
+    except ValueError as err:
+        raised = err
+    check(raised is not None and "does not fit" in str(raised),
+          "always with a budget of 0 did not raise ValueError")
+    print(f"  gate: samples {need['samples'] / 1e6:,.0f} MB, frames "
+          f"{need['frames'] / 1e6:,.0f} MB; a {budget_gb * (1 << 30) / 1e6:,.0f}"
+          f" MB budget trains resident (samples) and host-fed (frames); "
+          f"always at 0 raised: {raised}")
+    datasets.StreamingFrameDataset.batches = real_batches
+
+    # frames/s of the two engines' hot loops on the same config, in turns
+    cfg = load_config(ROOT / "configs" / "default_iterable.ini")
+    cfg.tpu.feed_dtype = "bfloat16"
+    dev = torch.device("cuda")
+    model = build_model(cfg, dev)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)), 0)
+    step = build_train_step(model, cfg)
+    res_ds = datasets.StreamingFrameDataset(src / "audio", SR, hop, seg,
+                                            seed=cfg.tpu.seed)
+    data, starts, _ = stream.upload_corpus(res_ds, cfg, "samples", dev)
+    plan = res_ds.index_batches(batch)
+    fed_ds = datasets.StreamingFrameDataset(src / "audio", SR, hop, seg,
+                                            seed=cfg.tpu.seed)
+    fed_iter = fed_ds.batches(batch)
+    n = RESIDENT_STREAM_RATE_BATCHES
+
+    def resident(n=n):
+        chunks = (np.stack(list(itertools.islice(plan, 16)))
+                  for _ in range(n // 16))
+        staged = prefetch_to_device(chunks, dev, depth=3)
+        for idx in staged:
+            for xb in stream.chunk_rows(data, starts, idx, seg, True):
+                step(state, xb)
+        staged.close()
+
+    def host_fed(n=n):
+        feed = prefetch_to_device(itertools.islice(fed_iter, n), dev,
+                                  depth=cfg.tpu.prefetch,
+                                  cast_dtype=feed_dtype(cfg))
+        for b in feed:
+            step(state, b)
+        feed.close()
+
+    loops = {"resident": resident, "host-fed": host_fed}
+    for fn in loops.values():
+        fn(16)                                                # warm up
+    rates = {name: [] for name in loops}
+    for name in ("resident", "host-fed", "host-fed", "resident"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loops[name]()
+        torch.cuda.synchronize()
+        rates[name].append(n * batch / (time.perf_counter() - t0))
+    for name, fn in loops.items():
+        print(f"  stream hot loop, {name}: "
+              f"{statistics.mean(rates[name]):,.0f} frames/s (runs "
+              f"{[round(r) for r in rates[name]]}); device busy share: "
+              f"{busy_share(fn)} [{card}]")
 
 
 def http_request(port, method, path, body=None):
@@ -5145,6 +5499,76 @@ def step_pair(cfg, ckpt, x, models, tol, label):
     return counts
 
 
+def remat_pair(cfg, ckpt, x, fwd, bwd, label, card) -> None:
+    """One step of ``cfg`` from checkpoint ``ckpt`` on batch ``x`` with
+    ``[tpu] remat = true`` against the same step without it, from the same
+    state and noise: the loss, params and Adam moments must be equal bit
+    for bit; the forward wrappers ``fwd`` must launch twice as often, the
+    backward ones ``bwd`` as often.  Prints both steps' times and peak
+    device memory."""
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import (
+        TrainState,
+        restore_checkpoint,
+    )
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves
+
+    def noise(step, i, shape):
+        g = torch.Generator().manual_seed(1000 * step + (i or 0))
+        return torch.randn(shape, generator=g)
+
+    dev = x.device
+    model = build_model(cfg, dev)
+    start, _ = restore_checkpoint(ckpt, TrainState.create(
+        model.init(torch.Generator().manual_seed(0)), 0))
+    out, steps = {}, {}
+    for remat in (False, True):
+        cfg.tpu.remat = remat
+        steps[remat] = step = build_train_step(build_model(cfg, dev), cfg,
+                                               noise=noise)
+        step(start.clone(), x)                                   # warm up
+        state = start.clone()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = [w.launches for w in fwd + bwd]
+        state, m = step(state, x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        counts = [w.launches - n for w, n in zip(fwd + bwd, before)]
+        out[remat] = (m["loss"], leaves((state.params, state.mu, state.nu)),
+                      counts, peak)
+    cfg.tpu.remat = False
+    # the two steps' times, in turns: plain, remat, remat, plain
+    times = {False: [], True: []}
+    for remat in (False, True, True, False):
+        state = start.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps[remat](state, x)
+        torch.cuda.synchronize()
+        times[remat].append((time.perf_counter() - t0) * 1e3)
+    (l0, s0, c0, p0), (l1, s1, c1, p1) = out[False], out[True]
+    t0_, t1 = statistics.mean(times[False]), statistics.mean(times[True])
+    names = [w.__name__ for w in fwd + bwd]
+    print(f"  {label} step with remat against without: loss "
+          f"{float(l1):.9f} vs {float(l0):.9f}; launches "
+          f"{dict(zip(names, c1))} vs {dict(zip(names, c0))}; "
+          f"{t1:.2f} ms vs {t0_:.2f} ms (runs {times[True]} vs "
+          f"{times[False]}); peak device memory above the state "
+          f"{p1 / 1e6:,.0f} MB vs {p0 / 1e6:,.0f} MB [{card}]")
+    check(torch.equal(l0, l1) and all(torch.equal(a, b)
+                                      for a, b in zip(s0, s1)),
+          f"{label}: the remat step's loss or state differs from the plain "
+          "step's")
+    nf = len(fwd)
+    check(all(c0) and c1[:nf] == [2 * n for n in c0[:nf]]
+          and c1[nf:] == c0[nf:],
+          f"{label}: remat launches {c1}, plain {c0}: the forward kernels "
+          "must launch twice as often, the backward ones as often")
+
+
 def step_rates(cfg, x, models, card, n=3, focus=None):
     """Steps/s of each model of ``models`` on the device-resident batch
     ``x``, timed first, second, second, first; the busy share of the first;
@@ -5310,6 +5734,10 @@ def phase_deep(tmp: Path, audio, card: str):
               f"deep {precision} step: {tc_k} + {tc_w} linear launches on the "
               f"tensor cores, {sg_k} + {sg_w} on the fp32 kernel (bf16 layers "
               "take the tensor cores, fp32 ones csrc/sgemm.cuh)")
+    # remat: the deep bf16 kernel step recomputing its forward
+    cfg.tpu.precision, cfg.tpu.backend = "bfloat16", "pallas"
+    remat_pair(cfg, ckpt, x, (linear.linear_ksplit_fwd, linear.linear_fwd),
+               (), "deep bf16", card)
     # per forward at the server's batch: every layer takes the whole-k
     # kernel; on the fp32 master params the fp32 kernel (csrc/sgemm.cuh), on
     # bf16 ones the tensor cores
@@ -5949,7 +6377,8 @@ def main() -> int:
     print("phase 5: the training path (configs/default.ini)")
     card = smi.stdout.strip()
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, step_launches = phase_train(Path(tmp) / "data")
+        train_launches, step_launches = phase_train(Path(tmp) / "data",
+                                                    card)
         print("phase 6: the device-resident path (configs/perf_bf16.ini)")
         resident_launches, primitive_launches, dx_launches = phase_resident(
             Path(tmp) / "data", card)
@@ -5967,6 +6396,9 @@ def main() -> int:
     print("phase 11: the library path (configs/default.ini)")
     with tempfile.TemporaryDirectory() as tmp:
         phase_library(Path(tmp), card, gen_params)
+    print("phase 12: the resident stream (configs/default_iterable.ini)")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_resident_stream(Path(tmp), card)
     # the 3-pass chains against the same products in one fp32 pass: the
     # fp32 split kernels launch the chains' GEMMs without the split
     ms = {k: r["ms"] for k, r in train_rows.items()}

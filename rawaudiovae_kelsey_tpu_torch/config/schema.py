@@ -191,7 +191,8 @@ class TPUConfig:
     # on-chip PRNG kernel, ops/rng.py: eps never touches HBM; stream is
     # platform-specific).
     rng: str = "threefry"
-    # Rematerialize the forward pass in the backward (jax.checkpoint):
+    # Rematerialize the forward pass in the backward (torch.utils.checkpoint
+    # here, jax.checkpoint in the JAX package):
     # trades ~1/3 more FLOPs for not storing activations — lets deep/wide
     # variants train at batch sizes that would otherwise OOM HBM.
     remat: bool = False

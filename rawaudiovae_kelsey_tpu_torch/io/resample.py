@@ -4,8 +4,8 @@ The JAX package's ``io/resample.py``, copied (pure NumPy and SciPy):
 windowed-sinc polyphase resampling on the host with
 ``scipy.signal.resample_poly`` and a Kaiser window — the filter family of
 torchaudio's ``resampling_method='kaiser_window'`` — and ``load``, which
-decodes through the port's ``io/wavio.py``.  The JAX package's C++ decoder
-(``native/``) is not ported yet; both decoders give the same samples.
+decodes through the C++ codec of ``io/native.py`` where the library builds,
+else through ``io/wavio.py``; both give the same samples.
 """
 
 from __future__ import annotations
@@ -39,12 +39,13 @@ def load(path, sr: int | None = None, mono: str = "mean"
          ) -> tuple[np.ndarray, int]:
     """Decode + mono-mixdown + resample, the ``librosa.load(f, sr=...)``
     contract of train.py:120 / tests.py:30: returns float32 mono at ``sr``
-    (or the native rate when ``sr`` is None)."""
-    from rawaudiovae_kelsey_tpu_torch.io.wavio import read_wav, to_mono
+    (or the native rate when ``sr`` is None).  Decode + mixdown go through
+    the C++ fast path (io/native.py) when libtpuaudio is available."""
+    from rawaudiovae_kelsey_tpu_torch.io.native import decode_mono
 
-    samples, native_sr = read_wav(path)
-    wave = to_mono(samples, mode=mono)
+    wave, native_sr = decode_mono(path, mono=mono)
     if sr is not None and sr != native_sr:
         wave = resample(wave, native_sr, sr)
         native_sr = sr
+    # both producers already return float32 — don't pay a copy per file
     return np.asarray(wave, np.float32), native_sr

@@ -10,7 +10,7 @@ so files with LIST/INFO/fact chunks decode fine.  On write: PCM16 or float32.
 
 A copy of the JAX package's ``io/wavio.py`` (pure NumPy, byte-identical
 output; ``tests/test_torch_config_io.py`` holds the two together).  The
-C++ decode fast path (``io/native.py`` there) is not ported yet.
+C++ decode fast path is ``io/native.py``, which falls back to this codec.
 """
 
 from __future__ import annotations

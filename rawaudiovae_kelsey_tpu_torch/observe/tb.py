@@ -54,9 +54,16 @@ def _crc32c_py(data: bytes) -> int:
 
 
 def crc32c(data: bytes) -> int:
-    """Castagnoli CRC, table-driven in Python (the JAX package's C++ fast
-    path, ``native/``, is not ported: a reconstructed-audio event of a few
-    MB costs a fraction of a second at each checkpoint)."""
+    """Castagnoli CRC — the C++ fast path (``io/native.py``) for large
+    payloads (an audio event is megabytes; the Python loop would stall the
+    training loop for seconds), the table in Python otherwise and where the
+    library is absent."""
+    if len(data) > 4096:
+        from rawaudiovae_kelsey_tpu_torch.io.native import native_crc32c
+
+        got = native_crc32c(data)
+        if got is not None:
+            return got
     return _crc32c_py(data)
 
 

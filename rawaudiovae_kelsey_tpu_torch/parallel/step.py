@@ -26,7 +26,9 @@ forward, reparameterization, loss, backward and Adam, with
   injects other numbers (the tests feed both packages the same ``eps``).
   Under ``[tpu] rng = tpu_prng`` no ``eps`` tensor exists: the sampler of
   ``ops/rng.py`` draws it inside its kernel from the two words of the same
-  seed, and ``noise`` does not apply.
+  seed, and ``noise`` does not apply;
+* ``[tpu] remat``: the loss under ``torch.utils.checkpoint``
+  (:func:`make_loss_fn`), the counterpart of ``jax.checkpoint``.
 
 The row-weighted loss of mesh training is not ported (one device only).
 The state is updated in place; clone it first to keep the old one.
@@ -37,6 +39,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.models import vae
@@ -88,12 +91,15 @@ def make_loss_fn(model: ModelDef, cfg: Config) -> Callable:
     the in-kernel sampler (``ops/rng.py``) draws the noise itself.  The
     loss compares the reconstruction with ``batch`` as it is stored: a bf16
     batch (the resident corpus under ``precision = bfloat16``) is the
-    rounded target, as in the JAX step (``step.py:86-102``)."""
+    rounded target, as in the JAX step (``step.py:86-102``).
+
+    ``[tpu] remat`` wraps the loss in ``torch.utils.checkpoint`` (non-
+    reentrant), as the JAX step wraps it in ``jax.checkpoint``: the
+    backward keeps only the inputs and recomputes the forward, so each
+    microbatch runs its forward twice and holds no activations between
+    forward and backward.  The recomputed forward is the same function of
+    the same inputs, so the step's bits do not change."""
     tpu_prng = cfg.tpu.rng == "tpu_prng"
-    if cfg.tpu.remat:
-        raise NotImplementedError(
-            "[tpu] remat is not ported to the PyTorch package yet "
-            "(ROADMAP.md queue A)")
     seg = model.segment_length
     kl_beta = cfg.vae.kl_beta
     reduction = cfg.training.loss_reduction.split()[0]
@@ -114,7 +120,17 @@ def make_loss_fn(model: ModelDef, cfg: Config) -> Callable:
                                              seg, reduction)
         return loss, (mse, kld)
 
-    return loss_fn
+    if not cfg.tpu.remat:
+        return loss_fn
+
+    def remat_loss_fn(params, eps, batch):
+        # the noise is an input (eps, or the sampler's seed words), so the
+        # forward the backward recomputes is the same function of the same
+        # inputs: no generator state to stash
+        return checkpoint(loss_fn, params, eps, batch, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return remat_loss_fn
 
 
 def build_train_step(model: ModelDef, cfg: Config,

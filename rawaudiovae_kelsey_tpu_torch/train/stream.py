@@ -15,18 +15,29 @@ Contract points kept:
 Fixed, as in the JAX package: the hard-coded segment_length 1024
 (dataset.py:66, quirk #2) and the degenerate best-model gate (quirk #7).
 
-The host-fed path is ported: a background prefetcher decodes, frames and
-copies batches to the device ahead of the step, the per-batch losses stay
-on the device and drain in bursts.  The device-resident replay of the
-stream (the JAX package's ``_run_resident``) is not ported yet: the gate
-below sizes it and says so, and never changes engine silently.
+Two engines share all bookkeeping, chosen by ``[tpu] device_resident``
+through one gate, :func:`resident_plan`:
+  * host-fed (``_run``): a background prefetcher decodes, frames and copies
+    batches to the device ahead of the step, the per-batch losses stay on
+    the device and drain in bursts;
+  * device-resident (``_run_resident``, the JAX package's engine of the
+    same name on one device): the folder is uploaded once in the layout the
+    gate sized — ``samples`` (the hop-padded audio plus an int32 start per
+    frame) or ``frames`` (the window matrix) — and the EXACT stream order
+    (per-pass file shuffle, batches crossing files, bit for bit the host
+    loader's) replays on the device from staged int32 index chunks; the
+    host never builds an audio batch.
+``auto`` takes the resident engine where the plan fits and otherwise prints
+the plan and trains host-fed; ``always`` raises where it does not fit.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple, Optional
+import time
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from rawaudiovae_kelsey_tpu_torch.config import Config
@@ -42,16 +53,20 @@ from rawaudiovae_kelsey_tpu_torch.train import loop as L
 from rawaudiovae_kelsey_tpu_torch.train.epoch import check_supported
 from rawaudiovae_kelsey_tpu_torch.train.interrupt import GracefulInterrupt
 
-RESIDENT_NOT_PORTED = (
-    "the device-resident stream replay is not ported to the PyTorch package "
-    "yet (ROADMAP.md queue A: _run_resident of train/stream.py)")
-# share of the card's free memory the resident corpus may take: the rest
-# is the step's activations, the train state and the allocator's slack.
-# A placeholder: nothing has measured it, because the engine it sizes is
-# not ported and the plan only feeds the gate's printed line.  It is to be
-# set from the resident stream's measured peak memory when that lands
-# (ROADMAP.md queue A).
-RESIDENT_FREE_SHARE = 0.5
+# the device memory the resident stream needs beside the corpus: the train
+# state, the step's activations and gradients, the pregathered chunk of
+# rows (up to PREGATHER_BYTES), a checkpoint boundary's snapshot of the
+# state.  On a card the gate caps the corpus at the free memory less this.
+# Measured: 1,436 and 1,569 MB of peak allocation beside the corpus in two
+# runs of configs/default_iterable.ini (dense 1024/2048/256, batch 4096,
+# bf16, chunks of 64 pregathered; chip_smoke.py phase 12, NVIDIA H100 80GB
+# HBM3, 700.00 W: the snapshot and the next chunk overlap as timing has
+# it), kept with headroom
+RESIDENT_STEP_BYTES = 2 << 30
+# the largest chunk of rows gathered at once (JAX train/stream.py:508-510)
+PREGATHER_BYTES = 1 << 30
+# the most steps a chunk issues (JAX train/stream.py:480)
+MAX_CHUNK = 64
 
 
 def train(cfg: Config, verbose: bool = True,
@@ -80,12 +95,15 @@ class ResidentPlan(NamedTuple):
 
 def resident_plan(dataset: StreamingFrameDataset, cfg: Config,
                   device: torch.device) -> Optional[ResidentPlan]:
-    """Size the device-resident stream in the layout it would take —
+    """Size the device-resident stream in the layout it will take —
     ``samples`` (the hop-padded audio plus an int32 start per frame) when
     ``[tpu] resident_layout`` says so or is ``auto`` with overlapping
-    windows, else the ``frames`` matrix — against the device's free memory
-    (``torch.cuda.mem_get_info``; on the CPU, ``resident_budget_gb``).
-    ``None`` when a wav header cannot be read."""
+    windows, else the ``frames`` matrix — against ``[tpu]
+    resident_budget_gb``, on a card also capped by its free memory
+    (``torch.cuda.mem_get_info``) less :data:`RESIDENT_STEP_BYTES`.
+    A config that asks for microbatch accumulation never fits: the
+    resident step takes one full-batch gradient.  ``None`` when a wav
+    header cannot be read."""
     est = _estimate_stream_frames(dataset, cfg)
     if est is None:
         return None
@@ -97,17 +115,27 @@ def resident_plan(dataset: StreamingFrameDataset, cfg: Config,
         layout, need = "samples", samples * dtype_bytes + 4 * frames
     else:
         layout, need = "frames", frames * seg * dtype_bytes
+    budget = int(cfg.tpu.resident_budget_gb * (1 << 30))
     if device.type == "cuda":
         free, _total = torch.cuda.mem_get_info(device)
-        budget = int(free * RESIDENT_FREE_SHARE)
-    else:
-        budget = int(cfg.tpu.resident_budget_gb * (1 << 30))
-    # the resident step takes one full-batch gradient: it cannot honour
-    # microbatch accumulation
+        budget = min(budget, free - RESIDENT_STEP_BYTES)
     micro = cfg.tpu.microbatch_size
     micro_ok = not (micro and cfg.training.batch_size > micro)
     return ResidentPlan(layout, frames, need, budget,
                         micro_ok and frames > 0 and need <= budget)
+
+
+def describe_plan(plan: Optional[ResidentPlan], cfg: Config) -> str:
+    if plan is None:
+        return "wav headers unreadable"
+    micro = cfg.tpu.microbatch_size
+    extra = ("; microbatch_size is set (the resident step takes one "
+             "full-batch gradient)"
+             if micro and cfg.training.batch_size > micro else "")
+    return (f"{plan.frames:,} frames, {plan.layout} layout, "
+            f"{plan.need_bytes / 1e6:,.0f} MB of a "
+            f"{plan.budget_bytes / 1e6:,.0f} MB budget: "
+            f"{'fits' if plan.fits else 'does not fit'}{extra}")
 
 
 def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
@@ -139,20 +167,20 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
     device = ctx.model.device
 
     # the resident gate: size the layout the resident stream would take
-    # against the device's free memory, then say which engine runs
+    # against the budget, then run the engine it chooses
     if cfg.tpu.device_resident != "never":
         plan = resident_plan(dataset, cfg, device)
-        verdict = ("wav headers unreadable" if plan is None else
-                   f"{plan.frames:,} frames, {plan.layout} layout, "
-                   f"{plan.need_bytes / 1e6:,.0f} MB of a "
-                   f"{plan.budget_bytes / 1e6:,.0f} MB budget: "
-                   f"{'fits' if plan.fits else 'does not fit'}")
+        if plan is not None and plan.fits:
+            return _run_resident(ctx, cfg, verbose, stop, dataset,
+                                 total_num_batches, plan.layout)
         if cfg.tpu.device_resident == "always":
-            raise NotImplementedError(
-                f"device_resident=always: {RESIDENT_NOT_PORTED} "
-                f"({verdict}); use device_resident=auto or never to train "
-                "host-fed")
-        print(f"device_resident=auto: {RESIDENT_NOT_PORTED} ({verdict}); "
+            # never degrade silently to host-fed training
+            raise ValueError(
+                "device_resident=always but the stream does not fit on the "
+                f"device ({describe_plan(plan, cfg)}); raise "
+                "resident_budget_gb, drop microbatch_size or use "
+                "device_resident=auto")
+        print(f"device_resident=auto: {describe_plan(plan, cfg)}; "
               "training host-fed")
 
     interval = cfg.training.checkpoint_interval
@@ -291,3 +319,285 @@ def _estimate_stream_frames(dataset: StreamingFrameDataset, cfg: Config
     except Exception:
         return None
     return frames, samples
+
+
+def k_schedule(start_batch: int, total_num_batches: int, chunk: int,
+               interval: int, hist_every: int) -> List[int]:
+    """Steps of each chunk from ``start_batch`` to the end of the budget:
+    at most ``chunk``, cut so that a chunk ends on every checkpoint and
+    histogram boundary (JAX train/stream.py:621-634)."""
+    bid, out = start_batch, []
+    while bid < total_num_batches:
+        k = min(chunk, total_num_batches - bid)
+        if interval:
+            k = min(k, interval - bid % interval)
+        if hist_every:
+            k = min(k, hist_every - bid % hist_every)
+        out.append(k)
+        bid += k
+    return out
+
+
+def upload_corpus(dataset: StreamingFrameDataset, cfg: Config, layout: str,
+                  device: torch.device
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
+    """The stream's corpus on ``device`` → ``(data, starts, frames)``:
+    in the ``samples`` layout the hop-padded samples and the int32 start
+    of every frame, in the ``frames`` layout the window matrix and no
+    starts.  bf16 under ``precision = bfloat16`` (cast on the host, as the
+    host feed casts a ``feed_dtype = bfloat16`` batch), else fp32."""
+    dtype = (torch.bfloat16 if cfg.tpu.precision == "bfloat16"
+             else torch.float32)
+    if layout == "samples":
+        samples, starts = dataset.all_samples()
+        data = torch.from_numpy(samples).to(dtype).to(device)
+        return data, torch.from_numpy(starts).to(device), len(starts)
+    frames = dataset.all_frames()
+    return torch.from_numpy(frames).to(dtype).to(device), None, len(frames)
+
+
+def rows_of(data: torch.Tensor, starts: Optional[torch.Tensor],
+            idx: torch.Tensor, seg: int) -> torch.Tensor:
+    """The ``(rows, seg)`` windows of frame indices ``idx``: a row gather
+    of the frame matrix, or (samples layout) of the strided window view of
+    the samples at ``starts[idx]`` — only the indexed rows are read (JAX
+    train/stream.py:514-522)."""
+    if starts is None:
+        return data[idx.long()]
+    return data.unfold(0, seg, 1)[starts[idx].long()]
+
+
+def chunk_rows(data: torch.Tensor, starts: Optional[torch.Tensor],
+               idx: torch.Tensor, seg: int, pregather: bool):
+    """The batches of a chunk of index rows ``idx`` (k, rows), in order:
+    one gather for the whole chunk, sliced, when ``pregather``, else a
+    gather a batch.  The rows are equal: data[I][j] == data[I[j]]."""
+    if pregather:
+        k, rows = idx.shape
+        return rows_of(data, starts, idx.reshape(-1), seg).view(
+            k, rows, seg).unbind(0)
+    return (rows_of(data, starts, row, seg) for row in idx.unbind(0))
+
+
+def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
+                  dataset: StreamingFrameDataset, total_num_batches: int,
+                  layout: str) -> L.TrainContext:
+    """The device-resident stream on one device: the corpus is uploaded
+    once; each batch is gathered on the device by int32 frame indices
+    (:func:`rows_of`) that the host stages ahead in chunks; the step is
+    ``ctx.train_step``, the host-fed loop's own (the registry's
+    ``resident_model`` is the model itself here), so a batch's noise seed
+    is the host-fed one and the bits are the same.
+
+    Declared divergence from JAX's ``run_chunk``: no fixed ``(chunk,
+    rows)`` shape with a NaN-masked tail and an active count.  That shape
+    lets one compiled executable serve every chunk; eager PyTorch compiles
+    nothing, so a chunk of ``k`` steps issues ``k`` steps and returns ``k``
+    device losses, with no host synchronisation inside (as
+    ``parallel/resident.py`` does for epochs).
+
+    The mesh and multihost branches of the JAX engine (the row-weighted
+    loss of padded batches, ``idx_base``, ``_sync_stop``) wait for
+    multi-GPU training."""
+    device = ctx.model.device
+    on_cuda = device.type == "cuda"
+    batch_size = cfg.training.batch_size
+    interval = cfg.training.checkpoint_interval
+    hist_every = cfg.tpu.histogram_interval
+    lr = cfg.training.learning_rate
+    seg = cfg.audio.segment_length
+
+    start_batch = ctx.start_step
+    if total_num_batches - start_batch <= 0:
+        print("Nothing to do: checkpoint already covers the frame budget.")
+        return ctx
+    if start_batch:
+        print(f"Resuming at batch {start_batch}")
+
+    data, starts, n_frames = upload_corpus(dataset, cfg, layout, device)
+    chunk = min(MAX_CHUNK, interval or MAX_CHUNK, total_num_batches) or 1
+    # one gather per chunk (the rows of every step at once) where its
+    # buffer is small; per-step gathers otherwise
+    pregather = (chunk * batch_size * seg * data.element_size()
+                 <= PREGATHER_BYTES)
+
+    plan = dataset.index_batches(batch_size)
+    # resume: consume the indices the finished batches already used
+    for _ in range(start_batch):
+        next(plan)
+    # the decoded per-file cache served the upload and the plan's counts;
+    # the data now lives on the device
+    dataset.release_cache()
+    nbytes = data.numel() * data.element_size() + (
+        0 if starts is None else starts.numel() * starts.element_size())
+    print(f"Device-resident stream: {n_frames:,} frames "
+          f"({nbytes / 1e6:,.0f} MB on device, {layout} layout), "
+          f"{chunk} steps/dispatch")
+
+    ks = k_schedule(start_batch, total_num_batches, chunk, interval,
+                    hist_every)
+
+    def chunk_plan():
+        for k in ks:
+            yield np.stack(list(itertools.islice(plan, k)))
+
+    # index chunks staged onto the device ahead of use: the only host→device
+    # traffic of the loop
+    staged = prefetch_to_device(chunk_plan(), device, depth=3)
+
+    def run_chunk(idx: torch.Tensor) -> torch.Tensor:
+        losses = []
+        for xb in chunk_rows(data, starts, idx, seg, pregather):
+            ctx.state, metrics = ctx.train_step(ctx.state, xb)
+            losses.append(metrics["loss"])
+        return torch.stack(losses)
+
+    train_loss_accum = 0.0
+    window_loss, window_count = 0.0, 0
+    batch_id = start_batch
+    # (first batch_id, device losses, done event) — drained off the hot path
+    pending = []
+
+    def drain():
+        nonlocal train_loss_accum, window_loss, window_count
+        if not pending:
+            return
+        # one transfer for every buffered loss
+        values = torch.cat([dl for _, dl, _ in pending]).double().cpu()
+        it = iter(values.tolist())
+        for bid0, dl, _ in pending:
+            for j in range(dl.shape[0]):
+                loss = next(it)
+                train_loss_accum += loss
+                window_loss += loss
+                window_count += 1
+                ctx.writer.add_scalar("Loss/Batch", loss, bid0 + j)
+                ctx.writer.add_scalar("Learning Rate", lr, bid0 + j)
+        pending.clear()
+
+    # resident histograms land on chunk boundaries; a fresh run's first log
+    # fires at the FIRST boundary, so the series has the host-fed path's
+    # sample count (its batch-0 log)
+    hist_marker = (((start_batch // hist_every) if start_batch else -1)
+                   if hist_every else 0)
+    # checkpoint boundaries off the loop: the state is snapshotted on the
+    # device (the step updates the live state in place) and the worker
+    # fetches and writes while the loop issues the next chunks
+    bwriter = L.AsyncBoundaryWriter() if cfg.tpu.async_checkpoint else None
+    ctx.boundary_writer = bwriter  # finish() joins on exception paths
+
+    ctx.timer.start()
+    loop_t0 = time.perf_counter()
+
+    def e2e_summary(bid: int) -> None:
+        # whole-loop wall (after the upload, every checkpoint boundary in
+        # it); the per-window "Checkpoint - Batch" rates leave boundary
+        # I/O out by design
+        done_b = bid - start_batch
+        wall = time.perf_counter() - loop_t0
+        if done_b > 0 and wall > 0:
+            print(f"====> Resident stream e2e: {done_b} batches in "
+                  f"{wall:.2f}s = {done_b * batch_size / wall:,.0f} "
+                  f"frames/s wall-clock incl. checkpoints")
+
+    window_mark = start_batch  # first batch of the current rate window
+    try:
+        for idx in staged:
+            k = idx.shape[0]
+            losses = run_chunk(idx)
+            done = None
+            if on_cuda:
+                done = torch.cuda.Event()
+                done.record()
+            pending.append((batch_id, losses, done))  # no sync here
+            batch_id += k
+            if len(pending) >= 8 and pending[-8][2] is not None:
+                # backpressure on the chunk issued 8 back (drains happen
+                # only at boundaries): in-flight work and interrupt latency
+                # stay bounded with the queue full
+                pending[-8][2].synchronize()
+
+            if verbose:
+                print(f"Batch {batch_id}/{total_num_batches}")
+            crossed_hist = bool(hist_every
+                                and batch_id // hist_every != hist_marker)
+            at_ckpt = bool(interval and batch_id % interval == 0
+                           and batch_id != total_num_batches)
+            if crossed_hist:
+                hist_marker = batch_id // hist_every
+                if not at_ckpt:
+                    L.log_param_histograms(ctx, batch_id)
+                # else: logged in the checkpoint block from its one fetch
+            if stop:
+                staged.close()
+                drain()
+                if bwriter is not None:
+                    bwriter.flush()  # settle the best gate's trail first
+                e2e_summary(batch_id)
+                print(f"Interrupted at batch {batch_id}; checkpointing.")
+                L.save_periodic_checkpoint(ctx, {"batch_id": batch_id},
+                                           label=batch_id)
+                return ctx
+            if not at_ckpt:
+                continue
+            drain()
+            step_time = ctx.timer.stop()
+            # the batches trained in this window (the first window after a
+            # resume is shorter than a full interval)
+            n_window = batch_id - window_mark
+            window_mark = batch_id
+            print(f"Checkpoint - Batch {batch_id} "
+                  f"({n_window * batch_size / max(step_time, 1e-9):,.0f}"
+                  " frames/s)")
+            if cfg.dataset.generate_test:
+                L.reconstruct_test_set(ctx, batch_id)
+            wmean = window_loss / max(window_count, 1)
+            if bwriter is not None:
+                snap = ctx.state.clone()
+                ready = None
+                if on_cuda:
+                    ready = torch.cuda.Event()
+                    ready.record()
+
+                def boundary_io(bs=snap, ready=ready, bid=batch_id,
+                                wl=wmean, hist=crossed_hist):
+                    h = L.fetch_host_state(bs, ready)
+                    if hist:  # a coincident crossing shares this fetch
+                        L.log_param_histograms(ctx, bid, params=h.params)
+                    # best gate first: the meta records this boundary's
+                    L.maybe_save_best(ctx, wl, bid, after=0,
+                                      host_params=h.params)
+                    L.save_periodic_checkpoint(ctx, {"batch_id": bid},
+                                               label=bid, host_state=h)
+
+                bwriter.submit(boundary_io)
+            else:
+                # ONE state fetch shared by the histograms, the best gate
+                # and the checkpoint writer
+                host, host_p = L.boundary_host_state(ctx)
+                if crossed_hist:
+                    L.log_param_histograms(ctx, batch_id, params=host_p)
+                L.maybe_save_best(ctx, wmean, batch_id, after=0,
+                                  host_params=host_p)
+                L.save_periodic_checkpoint(ctx, {"batch_id": batch_id},
+                                           label=batch_id, host_state=host)
+            window_loss, window_count = 0.0, 0
+            ctx.timer.start()  # leave checkpoint I/O out of the next window
+    finally:
+        staged.close()
+
+    drain()
+    if bwriter is not None:
+        bwriter.flush()  # settle the last boundary before the tail reads
+    e2e_summary(batch_id)
+    print(f"Last Checkpoint - Batch {total_num_batches}")
+    host, host_p = L.boundary_host_state(ctx)  # one fetch, whole tail
+    if cfg.dataset.generate_test:
+        L.reconstruct_test_set(ctx, total_num_batches)
+    if window_count:
+        L.maybe_save_best(ctx, window_loss / window_count,
+                          total_num_batches, after=0, host_params=host_p)
+    L.save_periodic_checkpoint(ctx, {"batch_id": total_num_batches},
+                               label=total_num_batches, host_state=host)
+    L.save_last(ctx, host_params=host_p)
+    return ctx

@@ -586,12 +586,122 @@ def test_stream_trainer_on_the_card(cuda, tmp_path, capsys):
     assert ctx.start_step == 20 and ctx.state.step == 24
     always = cfg(24)
     always.tpu.device_resident = "always"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    always.tpu.resident_budget_gb = 0.0
+    with pytest.raises(ValueError, match="does not fit"):
         stream.train(always, verbose=False, device=cuda)
     capsys.readouterr()
     eval_cli.main(["--run", str(ctx.workspace.workdir), "--deterministic"])
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["frames"] == 20 and 0 < report["recon_mse"] < 1
+
+
+
+def _stream_folder(root, rng):
+    from rawaudiovae_kelsey_tpu_torch.io import write_wav
+
+    (root / "audio").mkdir()
+    (root / "test_audio").mkdir()
+    for i, n in enumerate((400_000, 250_000, 500, 330_000)):
+        wave = (0.4 * np.sin(np.linspace(0, 900 * (i + 1), n))
+                + 0.05 * rng.standard_normal(n)).astype(np.float32)
+        write_wav(root / "audio" / f"a{i}.wav", wave, 44100)
+    write_wav(root / "test_audio" / "t.wav",
+              rng.uniform(-0.3, 0.3, 20_000).astype(np.float32), 44100)
+
+
+@pytest.mark.parametrize("layout", ["samples", "frames"])
+def test_resident_stream_on_the_card_equals_host_fed(cuda, tmp_path,
+                                                     capsys, layout):
+    """Twenty batches of the device-resident stream at full width, bf16
+    through the kernels, against the host-fed stream with a bf16 feed
+    (the same bf16 targets): equal losses and state, bit for bit; every
+    step launches the split backward's kernels on the tensor cores."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.train import stream
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves
+
+    _stream_folder(tmp_path, np.random.default_rng(0))
+
+    def cfg(mode):
+        c = Config()
+        c.dataset.datapath = str(tmp_path)
+        c.dataset.generate_test = False
+        c.training.batch_size = 4096
+        c.training.total_num_frames = 20 * 4096
+        c.training.checkpoint_interval = 8
+        c.extra.description = f"cuda_resident_{mode}"
+        c.tpu.precision, c.tpu.backend = "bfloat16", "pallas"
+        c.tpu.device_resident, c.tpu.resident_layout = mode, layout
+        c.tpu.feed_dtype = "bfloat16"
+        return c
+
+    kernels = (mlp.encoder_fwd, mlp.decoder_fwd, mlp.grad_accum,
+               mlp.enc_bwd_dw1, mlp.grad_accum2, mlp.dec_bwd_fused)
+    before = [(w.launches, w.tensor_core_launches) for w in kernels]
+    res = stream.train(cfg("always"), verbose=False, device=cuda)
+    assert f"on device, {layout} layout)" in capsys.readouterr().out
+    for w, (n, tc) in zip(kernels, before):
+        assert (w.launches - n, w.tensor_core_launches - tc) == (20, 20)
+    fed = stream.train(cfg("never"), verbose=False, device=cuda)
+    assert "Device-resident" not in capsys.readouterr().out
+    assert res.state.step == fed.state.step == 20
+    for a, b in zip(leaves((res.state.params, res.state.mu, res.state.nu)),
+                    leaves((fed.state.params, fed.state.mu, fed.state.nu))):
+        assert torch.equal(a, b)
+    # the final checkpoints hold the state after 20 steps in both engines
+    # (a host-fed boundary checkpoint at batch b holds b + 1 steps)
+    ck = "ckpt_00020.npz"
+    assert (res.workspace.checkpoint_dir / ck).read_bytes() == \
+        (fed.workspace.checkpoint_dir / ck).read_bytes()
+
+
+@pytest.mark.parametrize("arch", ["dense", "deep"])
+def test_remat_step_on_the_card_equals_the_plain_step(cuda, arch):
+    """A bf16 ``remat`` step through the kernels against the same step
+    without it, same state and noise: equal loss, params and moments bit
+    for bit; the forward kernels launch twice as often, the backward ones
+    as often as before."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves
+
+    cfg = Config()
+    cfg.tpu.precision, cfg.tpu.backend = "bfloat16", "pallas"
+    cfg.tpu.microbatch_size = 1024
+    rows = 2048
+    if arch == "deep":
+        cfg.vae.arch, cfg.audio.segment_length = "deep", 4096
+        cfg.vae.hidden_dims = "4096,2048,1024,512"
+        # phase 8's batch: 7 k-split and 4 whole-k launches a forward
+        cfg.tpu.microbatch_size, rows = 0, 4096
+        fwd, bwd = (linear.linear_ksplit_fwd, linear.linear_fwd), ()
+    else:
+        fwd = (mlp.encoder_fwd, mlp.decoder_fwd)
+        bwd = (mlp.grad_accum, mlp.enc_bwd_dw1, mlp.grad_accum2,
+               mlp.dec_bwd_fused)
+    x = torch.rand((rows, cfg.audio.segment_length), device=cuda) * 2 - 1
+    model = build_model(cfg, cuda)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              seed=1)
+    out, counts = {}, {}
+    for remat in (False, True):
+        cfg.tpu.remat = remat
+        before = [w.launches for w in fwd + bwd]
+        s, m = build_train_step(build_model(cfg, cuda), cfg)(
+            state.clone(), x)
+        torch.cuda.synchronize()
+        counts[remat] = [w.launches - n for w, n in zip(fwd + bwd, before)]
+        out[remat] = (m["loss"], leaves((s.params, s.mu, s.nu)))
+    assert torch.equal(out[False][0], out[True][0])
+    for a, b in zip(out[False][1], out[True][1]):
+        assert torch.equal(a, b)
+    nf = len(fwd)
+    assert counts[True][:nf] == [2 * n for n in counts[False][:nf]]
+    assert counts[True][nf:] == counts[False][nf:]
+    assert all(counts[False])
 
 
 # ----------------------------------------- the variants' kernels (rows 15-17)

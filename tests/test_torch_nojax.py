@@ -16,6 +16,7 @@ SOURCES = sorted((REPO / PKG).rglob("*.py"))
 
 SLICE = [
     "config.schema", "config.ini", "config.workspace", "io.wavio",
+    "io.native",
     "io.resample", "data.framing", "data.corpus", "data.datasets",
     "data.validate", "data.loader", "models.vae", "models.registry",
     "models.variants", "tree",

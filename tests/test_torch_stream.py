@@ -337,22 +337,39 @@ def test_resume_past_the_budget_does_nothing(stream_folder, capsys):
 
 def test_resident_gate_auto_trains_host_fed_and_says_so(stream_folder,
                                                         capsys):
+    """``auto`` trains resident where the plan fits, and host-fed where it
+    does not, printing the plan."""
     cfg = small_cfg(Config(), stream_folder, batches=2)
     cfg.tpu.device_resident = "auto"
     ctx = port_train(cfg)
     out = capsys.readouterr().out
-    assert "device_resident=auto" in out and "not ported" in out
-    assert "training host-fed" in out
-    # the gate sized the layout it would pick: overlapping windows → samples
-    assert f"{N_FRAMES} frames, samples layout" in out and "fits" in out
+    # the gate sized the layout it picks: overlapping windows → samples
+    assert (f"Device-resident stream: {N_FRAMES} frames" in out
+            and "samples layout" in out)
+    assert "training host-fed" not in out
+    assert ctx.state.step == 2
+    cfg = small_cfg(Config(), stream_folder, batches=2)
+    cfg.tpu.device_resident = "auto"
+    cfg.tpu.resident_budget_gb = 1e-6
+    ctx = port_train(cfg)
+    out = capsys.readouterr().out
+    assert "device_resident=auto" in out and "training host-fed" in out
+    assert f"{N_FRAMES} frames, samples layout" in out
+    assert "does not fit" in out and "Device-resident" not in out
     assert ctx.state.step == 2
 
 
 def test_resident_gate_always_raises_naming_the_roadmap(stream_folder):
+    """``always`` raises, naming the plan, where the stream does not fit;
+    where it fits, it trains resident."""
     cfg = small_cfg(Config(), stream_folder, batches=2)
     cfg.tpu.device_resident = "always"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+    cfg.tpu.resident_budget_gb = 1e-6
+    with pytest.raises(ValueError, match="samples layout.*does not fit"):
         port_train(cfg)
+    cfg = small_cfg(Config(), stream_folder, batches=2)
+    cfg.tpu.device_resident = "always"
+    assert port_train(cfg).state.step == 2
 
 
 def test_resident_plan_sizes_the_layout_it_would_pick(stream_folder):

@@ -44,6 +44,7 @@ from rawaudiovae_kelsey_tpu_torch.config import Config
 from rawaudiovae_kelsey_tpu_torch.models import build_model
 from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
 from rawaudiovae_kelsey_tpu_torch.train import TrainState
+from rawaudiovae_kelsey_tpu_torch.tree import leaves as tree_leaves
 
 SEG, UNITS, LATENT, BATCH, SEED, LR = 128, 192, 32, 48, 5, 1e-3
 FP32 = dict(loss_rel=1e-5, atol=1e-5, mu_rel=None)
@@ -191,11 +192,145 @@ def test_seeded_noise_replays_from_the_step():
 
 @pytest.mark.parametrize("rng", ["threefry", "tpu_prng"])
 def test_unported_step_options_raise(rng):
-    """``remat`` is the one step option still to port; ``rng = tpu_prng``
-    (the in-kernel sampler) builds."""
+    """No step option is left unported: ``remat`` and ``rng = tpu_prng``
+    (the in-kernel sampler) build, alone and together, and the step takes
+    a batch."""
     cfg = _configure(Config(), "xla", "highest", "mean", 0)
     cfg.tpu.rng = rng
     build_train_step(build_model(cfg, "cpu"), cfg)
     cfg.tpu.remat = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(build_model(cfg, "cpu"), cfg)
+    model = build_model(cfg, "cpu")
+    step = build_train_step(model, cfg)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              SEED)
+    state, m = step(state, torch.from_numpy(_batch(1)))
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
+
+
+# ------------------------------------------------------------------ remat
+
+def _variant(cfg, arch):
+    if arch == "deep":
+        cfg.vae.arch = "deep"
+        cfg.vae.hidden_dims = "96,48"
+    elif arch == "conv1d":
+        cfg.vae.arch = "conv1d"
+        cfg.vae.conv_channels = "4,8"
+        cfg.vae.conv_kernel = 5
+        cfg.vae.conv_stride = 4
+    return cfg
+
+
+def _remat_pair(arch, backend, precision, micro, rng="threefry"):
+    """The plain step and the remat step of one config, and one state."""
+    steps = []
+    for remat in (False, True):
+        cfg = _variant(_configure(Config(), backend, precision, "mean",
+                                  micro), arch)
+        cfg.tpu.rng = rng
+        cfg.tpu.remat = remat
+        model = build_model(cfg, "cpu")
+        steps.append(build_train_step(model, cfg, noise=jax_eps))
+    state = TrainState.create(model.init(torch.Generator().manual_seed(1)),
+                              SEED)
+    return steps, state
+
+
+REMAT_CASES = [
+    ("dense", "xla", "highest", 0), ("dense", "pallas", "highest", 0),
+    ("dense", "xla", "bfloat16", 0), ("dense", "pallas", "bfloat16", 20),
+    ("dense", "pallas", "high", 16), ("deep", "xla", "highest", 0),
+    ("deep", "pallas", "bfloat16", 16), ("conv1d", "xla", "highest", 0),
+    ("conv1d", "xla", "bfloat16", 20),
+]
+
+
+@pytest.mark.parametrize("arch,backend,precision,micro", REMAT_CASES)
+def test_remat_step_equals_the_plain_step_bit_for_bit(arch, backend,
+                                                      precision, micro):
+    """The recomputed forward is the same function of the same inputs (the
+    noise is an input), so three coupled remat steps give the plain
+    steps' losses, params and Adam moments bit for bit — every family, on
+    the kernels' wrappers and on the plain ops, microbatched too."""
+    (plain, remat), state = _remat_pair(arch, backend, precision, micro)
+    a, b = state.clone(), state.clone()
+    for k in range(3):
+        x = torch.from_numpy(_batch(20 + k))
+        a, ma = plain(a, x)
+        b, mb = remat(b, x)
+        for name in ("loss", "mse", "kld"):
+            assert torch.equal(ma[name], mb[name]), (k, name)
+    for p, q in zip(tree_leaves((a.params, a.mu, a.nu)),
+                    tree_leaves((b.params, b.mu, b.nu))):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_remat_step_under_the_sampler_equals_the_plain_step(backend):
+    """Under ``rng = tpu_prng`` the sampler draws from the step's seed
+    words, which are the loss's input: recomputing gives the same draw."""
+    (plain, remat), state = _remat_pair("dense", backend, "highest", 16,
+                                        rng="tpu_prng")
+    x = torch.from_numpy(_batch(30))
+    a, ma = plain(state.clone(), x)
+    b, mb = remat(state.clone(), x)
+    assert torch.equal(ma["loss"], mb["loss"])
+    for p, q in zip(_tleaves(a.params), _tleaves(b.params)):
+        np.testing.assert_array_equal(p, q)
+
+
+def test_remat_recomputes_the_forward_only():
+    """Under remat the loss's forward runs twice a microbatch (once in the
+    step, once in the backward) and the backward once."""
+    from rawaudiovae_kelsey_tpu_torch.models import vae
+
+    calls = {"encode": 0, "decode": 0}
+    counted = {}
+    for remat in (False, True):
+        cfg = _configure(Config(), "xla", "highest", "mean", 16)
+        cfg.tpu.remat = remat
+        model = build_model(cfg, "cpu")
+
+        def encode(p, x, _f=model.encode):
+            calls["encode"] += 1
+            return _f(p, x)
+
+        def decode(p, z, _f=model.decode):
+            calls["decode"] += 1
+            return _f(p, z)
+
+        import dataclasses
+
+        model = dataclasses.replace(model, encode=encode, decode=decode)
+        step = build_train_step(model, cfg, noise=jax_eps)
+        state = TrainState.create(vae.init_dense(
+            torch.Generator().manual_seed(0), SEG, UNITS, LATENT), SEED)
+        calls.update(encode=0, decode=0)
+        step(state, torch.from_numpy(_batch(3)))
+        counted[remat] = dict(calls)
+    assert counted[False] == {"encode": 3, "decode": 3}   # 48 rows / 16
+    assert counted[True] == {"encode": 6, "decode": 6}
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("precision", ["highest", "bfloat16"])
+def test_remat_step_matches_the_jax_remat_step(backend, precision):
+    """``remat = true`` on both sides: the JAX step under
+    ``jax.checkpoint`` and the port's under ``torch.utils.checkpoint``
+    agree at the file's tolerances, microbatched."""
+    jcfg = _configure(JConfig(), backend, precision, "mean", 16)
+    jcfg.tpu.remat = True
+    jmodel = jbuild_model(jcfg)
+    opt = jbuild_opt(jcfg)
+    p = jmodel.init(jax.random.PRNGKey(SEED))
+    jstate = JState.create(p, opt.init(p), seed=SEED)
+    jstep = jbuild_step(jmodel, jcfg, opt, donate=False)
+    cfg = _configure(Config(), backend, precision, "mean", 16)
+    cfg.tpu.remat = True
+    step = build_train_step(build_model(cfg, "cpu"), cfg, noise=jax_eps)
+    state = TrainState.create(params_from_jax(jax.device_get(p)), SEED)
+    tol = FP32 if precision == "highest" else BF16
+    x = _batch(40)
+    jstate, jm = jstep(jstate, jnp.asarray(x))
+    state, m = step(state, torch.from_numpy(x))
+    _compare(jstate, jm, state, m, tol)
