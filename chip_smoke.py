@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root
     python3 chip_smoke.py --host-cost   # only the wrappers' host time a call
+    python3 chip_smoke.py --mesh   # the build and phase 13 alone
 
 Drives ``rawaudiovae_kelsey_tpu_torch`` (never JAX) through its serving
 and training paths on the card, in phases; each prints what it found, and
@@ -312,7 +313,33 @@ any failure exits non-zero with a traceback (no phase is caught):
    layout and host-fed in the frames layout, printing the plan; ``always``
    at 0 raises); the run's peak device memory with the corpus apart; both
    engines' hot-loop frames/s in turns, each with the device's busy share;
-   whether the C++ wav codec (``io/native.py``) built.
+   whether the C++ wav codec (``io/native.py``) built;
+13. data parallelism (``parallel/mesh.py``): two ranks, processes started
+   with ``torch.multiprocessing`` (spawn), share the one card on a gloo
+   group the phase initialises (the port uses it as it stands): which
+   collectives gloo takes on CUDA tensors (the port's all_reduce,
+   broadcast, all_gather and all_to_all_single must); the epoch trainer of
+   ``configs/default.ini`` (bf16, pallas, batch 131072 = 65536 a rank,
+   microbatch 8192), 2 steps, each rank on its file shard: one workspace,
+   TensorBoard from rank 0 only, equal params, rows 1, 2 and 7-10 on the
+   tensor cores on each rank; one 2-rank step at bf16 (timed beside the
+   one-rank step on the same card: not a scaling figure), ``high`` (rows
+   11-12) and ``highest`` (rows 4-7 on ``csrc/sgemm.cuh``), and of
+   ``configs/deep_wide.ini`` (rows 15-16), each against the one-rank step
+   at the same global batch and noise within the training-correctness
+   bound (5e-2 bf16, 1e-3 fp32), the ranks' updates equal bit for bit; the
+   sharded resident epochs of ``configs/perf_bf16.ini`` (pallas,
+   ``tpu_prng``, the two-pass shuffle), each rank's first sampler seed
+   folded by its rank and the kernel's words equal to the plain Philox;
+   the stream of ``configs/default_iterable.ini``, 48 batches host-fed and
+   resident (equal losses and params) and resident at batch 4095 (the
+   weighted loss); ``encode_trajectory_sharded`` of 60 s against
+   ``encode_trajectory``; then NCCL at one rank a card through
+   ``maybe_initialize_distributed`` (backend None): the mesh step equals
+   the plain step bit for bit.  With two cards or more every job above
+   runs again with one rank a card over NCCL (the step's wall time then a
+   scaling figure), and the ``train`` command with ``data_parallel = 0``
+   starts one rank a card itself.
 
 Phases 5 and 8 also hold a bf16 kernel step with ``[tpu] remat = true``
 against the same step without it (same state and noise): equal bits of
@@ -355,7 +382,11 @@ tensor cores) and at ``highest`` (those on the fp32 kernel);
 narrow-channel kernel; ``dw_fused`` / ``dx_fused``: the
 ``deep_bwd`` probe runs of phase 10 in each dtype (those on the new form,
 every one); ``leaf_update``: the
-three ``adam_fusion`` probe runs of phase 10.
+three ``adam_fusion`` probe runs of phase 10.  A row on phase 13's path
+also has ``mesh_launches_per_rank``: its launches on each of the two
+ranks there (the bf16 step's rows 1, 2, 7-10, the ``high`` step's 11-12,
+the ``highest`` step's fp32 rows 1, 2, 4-7, the deep step's bf16 15-16,
+the resident epochs' 13).
 ``bound_ms`` is the larger of bytes moved (each input read once, each
 output written once) over 3.35 TB/s and operations over the peak of the
 operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
@@ -6222,6 +6253,700 @@ def host_cost() -> dict:
             for name in calls}
 
 
+# ------------------------------------------------------------- phase 13
+#
+# Data parallelism (parallel/mesh.py): two ranks that share the one card
+# over gloo, each a process started with torch.multiprocessing (spawn), the
+# group initialised here so the port uses it as it stands; then NCCL at one
+# rank a card.  A rank's results come back pickled.
+
+MESH_RANKS = 2
+# the collectives that are called on CUDA tensors under gloo, held first:
+# the port calls all_reduce (the step's bucket, n_real, the stop flag's
+# CPU copy under gloo), broadcast (params, text), all_gather (row counts,
+# encodes, reconstructions) and all_to_all_single (the two-pass shuffle)
+MESH_COLLECTIVES = ("all_reduce", "broadcast", "all_gather",
+                    "all_to_all_single", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "all_to_all")
+
+
+def mesh_device() -> torch.device:
+    """This rank's card: cuda:0 for the ranks that share it, the rank's
+    own under NCCL (``mesh_rank`` set it current)."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def mesh_launches(dense_tc=(), fp32_sgemm=()):
+    """Reset every wrapper's launch counts; returns a reader of them (with
+    "<name>@tc" / "@sgemm" for the forms a wrapper names)."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+
+    for w in ops.KERNEL_WRAPPERS:
+        w.launches = 0
+    for w in dense_tc:
+        w.tensor_core_launches = 0
+    for w in fp32_sgemm:
+        w.sgemm_launches = 0
+
+    def read():
+        counts = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+        counts.update((f"{w.__name__}@tc", w.tensor_core_launches)
+                      for w in dense_tc)
+        counts.update((f"{w.__name__}@sgemm", w.sgemm_launches)
+                      for w in fp32_sgemm)
+        return counts
+    return read
+
+
+def mesh_digest(params) -> str:
+    import hashlib
+
+    from rawaudiovae_kelsey_tpu_torch.tree import flatten
+
+    h = hashlib.sha256()
+    for name, t in flatten(params):
+        h.update(name.encode())
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mesh_collectives(rank, world, data):
+    """Which collectives gloo takes on CUDA tensors with this torch."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.ones(4 * world, device=dev)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x),
+        "broadcast": lambda: dist.broadcast(x, 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty(4, device=dev) for _ in range(world)],
+            torch.ones(4, device=dev)),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=dev), torch.ones(4, device=dev)),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), x),
+        "all_to_all": lambda: dist.all_to_all(
+            [torch.empty(4, device=dev) for _ in range(world)],
+            [torch.ones(4, device=dev) for _ in range(world)]),
+    }
+    out = {}
+    for name in MESH_COLLECTIVES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as err:
+            out[name] = str(err).splitlines()[0][:120]
+    return out
+
+
+def mesh_config(name: str, data: Path, **changes):
+    from rawaudiovae_kelsey_tpu_torch.config import load_config
+
+    cfg = load_config(ROOT / "configs" / name)
+    cfg.dataset.datapath = str(data)
+    cfg.training.save_best_model_after = 0
+    for key, value in changes.items():
+        section, field = key.split("__")
+        setattr(getattr(cfg, section), field, value)
+    return cfg
+
+
+def mesh_epoch_trainer(rank, world, data):
+    """The epoch trainer of configs/default.ini (bf16, pallas, batch
+    131072, microbatch 8192), host-fed, 2 epochs of one global batch."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.train import epoch
+
+    cfg = mesh_config("default.ini", data, training__epochs=2,
+                      training__checkpoint_interval=1,
+                      tpu__device_resident="never")
+    dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.dec_bwd_fused,
+                ops.grad_accum, ops.enc_bwd_dw1, ops.grad_accum2)
+    read = mesh_launches(dense_tc)
+    t0 = time.perf_counter()
+    ctx = epoch.train(cfg, verbose=False, device=mesh_device())
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "launches": read(),
+            "step": ctx.state.step, "digest": mesh_digest(ctx.state.params),
+            "workdir": str(ctx.workspace.workdir),
+            "writer": None if ctx.writer.path is None
+            else str(ctx.writer.path)}
+
+
+def mesh_global_batch(data: Path, rows: int, seg: int, hop: int):
+    """``rows`` frames of the whole folder, the same on every rank."""
+    from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
+    from rawaudiovae_kelsey_tpu_torch.data.datasets import AudioFrameDataset
+
+    corpus = build_corpus(data / "audio", SR)[0]
+    return next(AudioFrameDataset(corpus, seg, hop, SR).batches(
+        rows, seed=99))
+
+
+def mesh_step_pair(rank, world, cfg, batch, label, timed=0):
+    """One mesh step of ``cfg`` on this rank's rows of ``batch`` against
+    the one-rank step on the whole batch (run on rank 0), from the same
+    init and the same global noise: the relative update difference, the
+    losses, the mesh step's launches on this rank, and, with ``timed``,
+    the wall time of ``timed`` mesh steps (both ranks) and one-rank steps
+    (rank 0, the other rank waiting)."""
+    import torch.distributed as dist
+
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import (
+        build_train_step,
+        make_mesh,
+    )
+    from rawaudiovae_kelsey_tpu_torch.parallel.mesh import local_rows
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves, tree_map
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(device=dev)
+
+    def noise(step, i, shape):
+        g = torch.Generator().manual_seed(1000 * step + (i or 0))
+        return torch.randn(shape, generator=g)
+
+    model = build_model(cfg, dev)
+    init = model.init(torch.Generator().manual_seed(0))
+    rows = local_rows(mesh, len(batch), cfg.tpu.microbatch_size)
+    x_local = torch.from_numpy(np.ascontiguousarray(batch[rows])).to(dev)
+    fast = [(w, attr, tag) for w in ops.KERNEL_WRAPPERS
+            for attr, tag in (("tensor_core_launches", "tc"),
+                              ("sgemm_launches", "sgemm"))
+            if hasattr(w, attr)]
+
+    def run(step, state, x):
+        before = tree_map(torch.clone, state.params)
+        state, m = step(state, x)
+        delta = torch.cat([(a - b).ravel() for a, b in
+                           zip(leaves(state.params), leaves(before))])
+        return float(m["loss"]), delta
+
+    mesh_step = build_train_step(model, cfg, noise=noise, mesh=mesh)
+    for w in ops.KERNEL_WRAPPERS:
+        w.launches = 0
+    on_fast = [getattr(w, attr) for w, attr, _ in fast]
+    loss_m, delta_m = run(mesh_step, TrainState.create(
+        tree_map(torch.clone, init), 0), x_local)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    counts.update((f"{w.__name__}@{tag}", getattr(w, attr) - n)
+                  for (w, attr, tag), n in zip(fast, on_fast))
+    out = {"label": label, "launches": counts, "loss_mesh": loss_m,
+           "digest": mesh_digest_tensor(delta_m)}
+    if rank == 0:
+        one_step = build_train_step(model, cfg, noise=noise)
+        x_all = torch.from_numpy(batch).to(dev)
+        loss_1, delta_1 = run(one_step, TrainState.create(
+            tree_map(torch.clone, init), 0), x_all)
+        out.update(loss_one=loss_1, update_rel=float(
+            (delta_m - delta_1).norm() / delta_1.norm()),
+            max_param_diff=float((delta_m - delta_1).abs().max()))
+    if timed:
+        # timed with the steps' own noise (drawn on the card), as the
+        # trainers run them
+        mesh_step = build_train_step(model, cfg, mesh=mesh)
+        if rank == 0:
+            one_step = build_train_step(model, cfg)
+        state = TrainState.create(tree_map(torch.clone, init), 0)
+        mesh_step(state, x_local)                     # warm
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, m = mesh_step(state, x_local)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        out["mesh_ms"] = (time.perf_counter() - t0) / timed * 1e3
+        dist.barrier()
+        if rank == 0:
+            state = TrainState.create(tree_map(torch.clone, init), 0)
+            one_step(state, x_all)                    # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                state, m = one_step(state, x_all)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            out["one_ms"] = (time.perf_counter() - t0) / timed * 1e3
+        dist.barrier()
+    return out
+
+
+def mesh_digest_tensor(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[
+        :16]
+
+
+def mesh_steps(rank, world, data):
+    """The default.ini step at bf16 (timed), `high` and `highest` on 2
+    ranks against the one-rank step, then one 2-rank step of
+    configs/deep_wide.ini (pallas, bf16, batch 4096)."""
+    cfg = mesh_config("default.ini", data)
+    batch = mesh_global_batch(data, cfg.training.batch_size, SEG,
+                              cfg.audio.hop_length)
+    out = [mesh_step_pair(rank, world, cfg, batch, "bfloat16", timed=3)]
+    for precision in ("high", "highest"):
+        cfg.tpu.precision = precision
+        out.append(mesh_step_pair(rank, world, cfg, batch, precision))
+    del batch
+    deep = mesh_config("deep_wide.ini", data, tpu__backend="pallas")
+    rng = np.random.default_rng(3)
+    seg = deep.audio.segment_length
+    t = np.arange(deep.training.batch_size * seg).reshape(-1, seg) / SR
+    xb = (0.3 * np.sin(2 * np.pi * 220 * t)
+          + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
+    out.append(mesh_step_pair(rank, world, deep, xb, "deep_wide bfloat16"))
+    return out
+
+
+def mesh_resident(rank, world, data):
+    """The sharded resident epochs of configs/perf_bf16.ini (tpu_prng, the
+    block shuffle: two passes on a mesh), 2 epochs, kernels by name; the
+    sampler's seed words recorded, and the first held against the plain
+    Philox of the folded seed."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.ops import rng
+    from rawaudiovae_kelsey_tpu_torch.parallel import noise_seed
+    from rawaudiovae_kelsey_tpu_torch.train import epoch
+
+    cfg = mesh_config("perf_bf16.ini", data, training__epochs=2,
+                      training__checkpoint_interval=1, tpu__backend="pallas")
+    seen = []
+    original = rng.reparameterize
+
+    def recording(seed, mu, logvar):
+        if len(seen) < 4:
+            seen.append((tuple(seed), tuple(mu.shape)))
+        return original(seed, mu, logvar)
+
+    dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.dec_bwd_fused,
+                ops.grad_accum, ops.enc_bwd_dw1, ops.grad_accum2)
+    read = mesh_launches(dense_tc)
+    rng.reparameterize = recording
+    try:
+        ctx = epoch.train(cfg, verbose=False, device=mesh_device())
+    finally:
+        rng.reparameterize = original
+    counts = read()
+    seed, shape = seen[0]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    read_words = mesh_launches()
+    words = rng.philox_words(seed, shape[0], shape[1], dev).cpu()
+    ref = rng.philox_words_ref(seed, shape[0], shape[1])
+    want = rng.shard_seed(rng.seed_words(noise_seed(cfg.tpu.seed, 0)), rank)
+    return {"launches": counts, "step": ctx.state.step,
+            "digest": mesh_digest(ctx.state.params), "seed": seed,
+            "folded_as_the_mesh_folds": seed == want, "rows": shape[0],
+            "words_equal": bool(torch.equal(words, ref)),
+            "words": words[:4, :4].numpy().tolist(),
+            "sampler_check_launches": read_words()["reparameterize_prng"]}
+
+
+def mesh_stream(rank, world, data):
+    """configs/default_iterable.ini on 2 ranks, 48 batches: host-fed and
+    resident at batch 4096 (equal losses), then resident at 4095 (the
+    ranks' blocks of 2048 and 2047 rows padded to one size: the weighted
+    loss)."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.train import stream
+
+    dense_tc = (ops.encoder_fwd, ops.decoder_fwd, ops.dec_bwd_fused,
+                ops.grad_accum, ops.enc_bwd_dw1, ops.grad_accum2)
+    out = {}
+    # the host feed casts to bf16 as the resident upload does, so both
+    # engines' steps compare the reconstruction with the same target
+    for label, batch, mode in (("host-fed", 4096, "never"),
+                               ("resident", 4096, "always"),
+                               ("resident, batch 4095", 4095, "always")):
+        cfg = mesh_config("default_iterable.ini", data,
+                          training__batch_size=batch,
+                          training__total_num_frames=48 * batch,
+                          training__checkpoint_interval=16,
+                          tpu__histogram_interval=16,
+                          tpu__device_resident=mode,
+                          tpu__feed_dtype="bfloat16")
+        read = mesh_launches(dense_tc)
+        t0 = time.perf_counter()
+        ctx = stream.train(cfg, verbose=False, device=mesh_device())
+        torch.cuda.synchronize()
+        out[label] = {"seconds": time.perf_counter() - t0,
+                      "launches": read(), "step": ctx.state.step,
+                      "digest": mesh_digest(ctx.state.params),
+                      "workdir": str(ctx.workspace.workdir),
+                      "losses": (read_scalars(ctx.workspace.log_dir,
+                                              "Loss/Batch")
+                                 if rank == 0 else None)}
+    return out
+
+
+def mesh_encode(rank, world, data):
+    """encode_trajectory_sharded of a 60 s clip (fp32, the dense model's
+    server weights) on every rank against encode_trajectory on one."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.config import load_config
+    from rawaudiovae_kelsey_tpu_torch.infer.api import (
+        encode_trajectory,
+        encode_trajectory_sharded,
+    )
+    from rawaudiovae_kelsey_tpu_torch.models import DenseVAE, build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = load_config(ROOT / "configs" / "default.ini")
+    cfg.tpu.precision = "float32"
+    model = build_model(cfg, dev)
+    params = DenseVAE(SEG, UNITS, LATENT, torch.Generator().manual_seed(7),
+                      dev).params()
+    t = np.arange(60 * SR) / SR
+    clip = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.1 * np.sin(
+        2 * np.pi * 1375 * t)).astype(np.float32)
+    read = mesh_launches((), (ops.encoder_fwd,))
+    mu, lv = encode_trajectory_sharded(model, params, clip, make_mesh(
+        device=dev), batch_frames=1024)
+    counts = read()
+    pmu, plv = encode_trajectory(model, params, clip)
+    return {"frames": len(mu), "launches": counts,
+            "max_err": float(max(np.abs(mu - pmu).max(),
+                                 np.abs(lv - plv).max())),
+            "digest": mesh_digest_tensor(torch.from_numpy(mu))}
+
+
+def mesh_rank(rank, world, init, backend, jobs, out):
+    """One rank of phase 13: join the group (``backend``; the port uses it
+    as it stands), run ``jobs`` in order, pickle their results."""
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
+        maybe_initialize_distributed,
+    )
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if init is None:
+        # NCCL at one rank a card, through the port's own start: backend
+        # None on a CUDA device takes NCCL
+        import socket
+
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        maybe_initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                     device=dev,
+                                     timeout=timedelta(seconds=300))
+    else:
+        kwargs = {"device_id": dev} if backend == "nccl" else {}
+        dist.init_process_group(backend, init_method=init, rank=rank,
+                                world_size=world,
+                                timeout=timedelta(seconds=300), **kwargs)
+    results = {"backend": dist.get_backend()}
+    try:
+        for name, data in jobs:
+            results[name] = globals()[name](rank, world, data)
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump(results, fh)
+
+
+def mesh_start(world, backend, jobs, tmp: Path, init=True):
+    """Start ``world`` ranks of ``jobs``; their results in rank order."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    out = tmp / f"ranks-{backend}-{world}-{time.monotonic_ns()}"
+    out.mkdir()
+    store = f"file://{out}/store" if init else None
+    mp.start_processes(mesh_rank, args=(world, store, backend, jobs,
+                                        str(out)),
+                       nprocs=world, join=True, start_method="spawn")
+    res = []
+    for r in range(world):
+        with open(out / f"rank{r}.pkl", "rb") as fh:
+            res.append(pickle.load(fh))
+    return res
+
+
+def mesh_report(ranks, where: str, card: str) -> dict:
+    """Check and print what ``ranks`` (the jobs of :func:`phase_mesh`) found
+    on ``where``; returns the rows the kernel line reads."""
+    world = len(ranks)
+
+    def same(values) -> bool:
+        return all(v == values[0] for v in values)
+
+    # which collectives the backend takes on CUDA tensors
+    col = ranks[0]["mesh_collectives"]
+    print(f"  {ranks[0]['backend']} on CUDA tensors: " + ", ".join(
+        f"{k} {v if v == 'ok' else 'NO (' + v + ')'}" for k, v in col.items()))
+    for name in ("all_reduce", "broadcast", "all_gather",
+                 "all_to_all_single"):
+        check(col[name] == "ok", f"{where}: {name} refused on CUDA "
+              "tensors, which the port calls")
+
+    # the epoch trainer: one workspace, equal replicas, the kernels
+    runs = [r["mesh_epoch_trainer"] for r in ranks]
+    print(f"  epoch trainer, configs/default.ini (bf16, batch 131072 = "
+          f"{131072 // world} a rank, microbatch 8192 = {8192 // world} a "
+          f"rank): {runs[0]['step']} steps in {runs[0]['seconds']:.1f} s "
+          "(ingest, checkpoints and reconstructions included)")
+    check(same([r["workdir"] for r in runs]), "several workspaces")
+    check(runs[0]["writer"] is not None
+          and all(r["writer"] is None for r in runs[1:]),
+          "a rank other than 0 wrote TensorBoard")
+    check(same([r["digest"] for r in runs]),
+          "the replicas' params differ after the epoch trainer")
+    check(runs[0]["step"] == 2, f"{runs[0]['step']} steps, expected 2")
+    for rank, run in enumerate(runs):
+        counts = run["launches"]
+        tc = {k: v for k, v in counts.items() if k.endswith("@tc")}
+        print(f"  rank {rank}: rows 1, 2, 7-10 on the tensor cores "
+              f"(launches; the test-set reconstructions' fp32 encoder and "
+              f"decoder take csrc/sgemm.cuh): {tc} of "
+              + str({k: v for k, v in counts.items()
+                     if v and not k.endswith("@tc")}))
+        # 2 steps of 16 local microbatches: every one on the tensor cores
+        for name, n in tc.items():
+            check(n == 2 * 16, f"rank {rank}: {name[:-3]} {n} launches on "
+                  "the tensor cores, expected 32")
+    print("  replicas after the run: equal bits (params digest "
+          f"{runs[0]['digest']})")
+
+    # the steps against the one-rank step, same global batch and noise
+    rows = {}
+    for pair in zip(*(r["mesh_steps"] for r in ranks)):
+        r0 = pair[0]
+        tol = 5e-2 if "bfloat16" in r0["label"] else 1e-3
+        print(f"  one {world}-rank {r0['label']} step vs the one-rank step: "
+              f"loss {r0['loss_mesh']:.7f} vs {r0['loss_one']:.7f}; |update "
+              f"difference| / |update| = {r0['update_rel']:.3e} (tolerance "
+              f"{tol:g}); max |param difference| "
+              f"{r0['max_param_diff']:.3e}; replicas' updates equal: "
+              f"{same([r['digest'] for r in pair])}")
+        check(r0["update_rel"] <= tol
+              and abs(r0["loss_mesh"] / r0["loss_one"] - 1) <= tol,
+              f"{r0['label']}: the {world}-rank step and the one-rank step "
+              "disagree")
+        check(same([r["digest"] for r in pair]), f"{r0['label']}: the "
+              "ranks' updates differ")
+        for rank, r in enumerate(pair):
+            got = {k: v for k, v in r["launches"].items() if v}
+            print(f"    rank {rank} launches: {got}")
+        rows[r0["label"]] = pair
+    bf = rows["bfloat16"]
+    for rank, r in enumerate(bf):
+        for name in ("encoder_fwd", "decoder_fwd", "grad_accum",
+                     "enc_bwd_dw1", "grad_accum2", "dec_bwd_fused"):
+            n, tc = r["launches"][name], r["launches"].get(f"{name}@tc")
+            check(n == 16 and tc == 16, f"rank {rank}: bf16 step {name} "
+                  f"{tc} of {n} on the tensor cores, expected 16 of 16")
+    for rank, r in enumerate(rows["high"]):
+        for name in ("enc_bwd_full", "dec_bwd_full"):
+            check(r["launches"][name] == 16, f"rank {rank}: `high` step "
+                  f"{r['launches'][name]} {name} launches, expected 16")
+    for rank, r in enumerate(rows["highest"]):
+        for name in ("matmul_nt", "matmul_nt_mask", "matmul_nt2_mask",
+                     "grad_accum"):
+            check(r["launches"][name] > 0 and r["launches"][
+                f"{name}@sgemm"] == r["launches"][name],
+                f"rank {rank}: `highest` step {name} not all on sgemm.cuh")
+    for rank, r in enumerate(rows["deep_wide bfloat16"]):
+        for name in ("linear_ksplit_fwd", "linear_fwd"):
+            check(r["launches"][name] > 0 and r["launches"][
+                f"{name}@tc"] == r["launches"][name],
+                f"rank {rank}: deep step {name} not all on the tensor cores")
+    shared = "gloo" in where
+    print(f"  wall time of a default.ini bf16 step (batch 131072, the "
+          f"steps' own noise), host clock over 3 steps ending in a sync: "
+          f"{world} ranks, {where}: "
+          + " / ".join(f"{r['mesh_ms']:.1f}" for r in bf)
+          + f" ms (rank 0 / ...), one rank {bf[0]['one_ms']:.1f} ms [{card}]"
+          + (" — not a scaling figure: the ranks share one card" if shared
+             else " — one rank a card"))
+
+    # the sharded resident epochs: the rank fold of row 13
+    res = [r["mesh_resident"] for r in ranks]
+    check(same([r["digest"] for r in res]),
+          "resident: the replicas' params differ")
+    for rank, r in enumerate(res):
+        print(f"  resident (perf_bf16.ini, tpu_prng, two passes), rank "
+              f"{rank}: {r['step']} steps; first sampler seed {r['seed']} "
+              f"(the step's words, word 0 ^ {rank} * 0x85EBCA6B: "
+              f"{r['folded_as_the_mesh_folds']}); kernel words = plain "
+              f"Philox: {r['words_equal']}; row 13 launches "
+              f"{r['launches']['reparameterize_prng']}; tensor cores "
+              + str({k: v for k, v in r["launches"].items()
+                     if k.endswith("@tc")}))
+        check(r["folded_as_the_mesh_folds"] and r["words_equal"],
+              f"resident rank {rank}: the sampler's words")
+        check(r["launches"]["reparameterize_prng"] > 0,
+              f"resident rank {rank}: row 13 never launched")
+    check(len({r["seed"] for r in res}) == world
+          and len({str(r["words"]) for r in res}) == world,
+          "two ranks drew the same words")
+
+    # the stream, host-fed and resident
+    st = [r["mesh_stream"] for r in ranks]
+    for label in st[0]:
+        check(same([s_[label]["digest"] for s_ in st])
+              and same([s_[label]["workdir"] for s_ in st]),
+              f"stream {label}: replicas or workspaces differ")
+        a = st[0][label]
+        loss = a["losses"]
+        check(sorted(loss) == list(range(48))
+              and all(np.isfinite(v) for v in loss.values()),
+              f"stream {label}: Loss/Batch steps {sorted(loss)}")
+        print(f"  stream {label}: 48 steps in {a['seconds']:.1f} s, loss "
+              f"{loss[0]:.6f} -> {loss[47]:.6f}; launches rank 0 "
+              + str({k: v for k, v in a["launches"].items() if v}))
+    check(st[0]["host-fed"]["losses"] == st[0]["resident"]["losses"]
+          and st[0]["host-fed"]["digest"] == st[0]["resident"]["digest"],
+          "stream: the resident run's losses differ from the host-fed run's")
+    print("  stream: the resident run's 48 losses and params equal the "
+          "host-fed run's bit for bit")
+
+    enc = [r["mesh_encode"] for r in ranks]
+    print(f"  encode_trajectory_sharded of 60 s ({enc[0]['frames']} "
+          f"frames, chunks of 1024): max |difference| to encode_trajectory "
+          + " / ".join(f"{e['max_err']:.3e}" for e in enc)
+          + "; row 1 on csrc/sgemm.cuh: "
+          + str({k: v for k, v in enc[0]["launches"].items() if v}))
+    check(max(e["max_err"] for e in enc) <= HTTP_ATOL
+          and same([e["digest"] for e in enc]),
+          "encode_trajectory_sharded differs from encode_trajectory")
+    return {"epoch": runs, "steps": rows, "resident": res}
+
+
+def mesh_command(data: Path, tmp: Path, cards: int) -> None:
+    """The ``train`` command on every visible card: ``data_parallel = 0``
+    starts one rank a card (NCCL), joins them; one workspace."""
+    from rawaudiovae_kelsey_tpu_torch.config import save_config
+    from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
+    from rawaudiovae_kelsey_tpu_torch.train.cli import main as train_cli
+
+    cfg = mesh_config("default.ini", data, training__epochs=1,
+                      training__checkpoint_interval=0,
+                      extra__description="mesh_command")
+    check(cfg.tpu.data_parallel == 0, "default.ini sets data_parallel")
+    ini = tmp / "mesh_command.ini"
+    save_config(cfg, ini)
+    t0 = time.perf_counter()
+    out = tee_stdout(lambda: train_cli(["--config", str(ini)]))
+    runs = iter_runs(data / "mesh_command")
+    losses = read_scalars(runs[0] / "logs", "Loss/Batch") if runs else {}
+    print(f"  the train command, data_parallel = 0 on {cards} cards: "
+          f"{time.perf_counter() - t0:.1f} s, {len(runs)} workspace, "
+          f"losses {losses}")
+    check(f"train: starting {cards} ranks (cuda, nccl)" in out
+          and len(runs) == 1 and losses
+          and all(np.isfinite(v) for v in losses.values())
+          and (runs[0] / "model" / "last_model.npz").is_file(),
+          "the train command did not train on every card")
+
+
+def phase_mesh(tmp: Path, card: str) -> dict:
+    """Phase 13: data parallelism through the trainers' entry points."""
+    t_phase = time.perf_counter()
+    data = {"epoch": tmp / "epoch", "resident": tmp / "resident",
+            "stream": tmp / "stream"}
+    # each rank reads its file shard (files 0, 2 / 1, 3): default.ini's
+    # global batch of 131072 is 65536 rows a rank, one full batch each
+    write_corpus(data["epoch"], 2 * 70000, 128, SEG)
+    write_corpus(data["resident"], 24000, 128, SEG)
+    write_corpus(data["stream"], 16000, 128, SEG)
+    jobs = [("mesh_collectives", None),
+            ("mesh_epoch_trainer", data["epoch"]),
+            ("mesh_steps", data["epoch"]),
+            ("mesh_resident", data["resident"]),
+            ("mesh_stream", data["stream"]),
+            ("mesh_encode", None)]
+    t0 = time.perf_counter()
+    ranks = mesh_start(MESH_RANKS, "gloo", jobs, tmp)
+    print(f"  {MESH_RANKS} ranks sharing the card over gloo (torch "
+          f"{torch.__version__}): {time.perf_counter() - t0:.1f} s, the "
+          "ranks' start included")
+    check(all(r["backend"] == "gloo" for r in ranks), "not a gloo group")
+    rows = mesh_report(ranks, "sharing ONE card over gloo", card)
+
+    # NCCL at one rank a card: the port's own start (backend None)
+    t0 = time.perf_counter()
+    nccl = mesh_start(1, "nccl", [("mesh_nccl_step", data["epoch"])], tmp,
+                      init=False)[0]
+    r = nccl["mesh_nccl_step"]
+    print(f"  NCCL, 1 rank on 1 card ({nccl['backend']}, "
+          f"{time.perf_counter() - t0:.1f} s): the bf16 mesh step (its "
+          f"all-reduce on NCCL) equals the plain step bit for bit: "
+          f"{r['equal']}")
+    check(nccl["backend"] == "nccl" and r["equal"],
+          "NCCL: the one-rank mesh step differs from the plain step")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        # every job again, one rank a card on NCCL, then the train command
+        t0 = time.perf_counter()
+        across = mesh_start(cards, "nccl", jobs, tmp)
+        print(f"  {cards} ranks, one a card, over NCCL: "
+              f"{time.perf_counter() - t0:.1f} s, the ranks' start "
+              "included")
+        check(all(r["backend"] == "nccl" for r in across), "not NCCL")
+        mesh_report(across, f"one a card over NCCL ({cards} cards)", card)
+        mesh_command(data["epoch"], tmp, cards)
+    else:
+        print(f"  NCCL across cards: not run ({cards} card visible; NCCL "
+              "refuses two ranks on one GPU in one communicator) — the "
+              "2-rank checks above ran on gloo, all_to_all_single included")
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def mesh_nccl_step(rank, world, data):
+    """The bf16 mesh step of configs/default.ini on a one-rank NCCL group
+    against the plain step, same init, batch and noise."""
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import (
+        build_train_step,
+        make_mesh,
+    )
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves, tree_map
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = mesh_config("default.ini", data)
+    batch = torch.from_numpy(mesh_global_batch(
+        data, cfg.training.batch_size, SEG, cfg.audio.hop_length)).to(dev)
+
+    def noise(step, i, shape):
+        g = torch.Generator().manual_seed(1000 * step + (i or 0))
+        return torch.randn(shape, generator=g)
+
+    model = build_model(cfg, dev)
+    init = model.init(torch.Generator().manual_seed(0))
+    out = []
+    for mesh in (make_mesh(device=dev), None):
+        state = TrainState.create(tree_map(torch.clone, init), 0)
+        state, m = build_train_step(model, cfg, noise=noise,
+                                    mesh=mesh)(state, batch)
+        out.append((float(m["loss"]), [t.clone() for t in
+                                        leaves(state.params)]))
+    (la, pa), (lb, pb) = out
+    return {"equal": la == lb and all(torch.equal(a, b)
+                                      for a, b in zip(pa, pb))}
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda."
           "is_available() is false)")
@@ -6263,6 +6988,18 @@ def main() -> int:
     # plain versions in true fp32: TF32 off for matmuls and convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    if sys.argv[1:] == ["--mesh"]:
+        # phase 13 alone (a machine with several cards runs its NCCL
+        # half across them)
+        print("phase 13: data parallelism")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_mesh(Path(tmp), smi.stdout.strip())
+        print(smi.stdout.strip())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     def gen_params(seed):
         g = torch.Generator().manual_seed(seed)
@@ -6399,6 +7136,10 @@ def main() -> int:
     print("phase 12: the resident stream (configs/default_iterable.ini)")
     with tempfile.TemporaryDirectory() as tmp:
         phase_resident_stream(Path(tmp), card)
+    print("phase 13: data parallelism (two ranks sharing the card over "
+          "gloo; NCCL at one rank a card)")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = phase_mesh(Path(tmp), card)
     # the 3-pass chains against the same products in one fp32 pass: the
     # fp32 split kernels launch the chains' GEMMs without the split
     ms = {k: r["ms"] for k, r in train_rows.items()}
@@ -6490,6 +7231,25 @@ def main() -> int:
         row["launches"] = counts.get(tag, counts[name])
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(probe_rows)
+    # phase 13's launches a rank of the rows on its path: the bf16 step's
+    # rows 1, 2, 7-10, the `high` step's 11-12, the `highest` step's fp32
+    # rows 4-7, the deep step's 15-16, the resident epochs' row 13
+    steps = mesh["steps"]
+    for key, row in rows.items():
+        name, kind = (key[:-1].split("[") if "[" in key else (key, "fp32"))
+        if name == "reparameterize_prng":
+            pair = [r["launches"] for r in mesh["resident"]]
+        elif name in ("linear_ksplit_fwd", "linear_fwd"):
+            pair = ([r["launches"] for r in steps["deep_wide bfloat16"]]
+                    if kind == "bf16" else None)
+        elif name in ("enc_bwd_full", "dec_bwd_full"):
+            pair = [r["launches"] for r in steps["high"]]
+        elif kind == "bf16":
+            pair = [r["launches"] for r in steps["bfloat16"]]
+        else:
+            pair = [r["launches"] for r in steps["highest"]]
+        if pair is not None and all(p.get(name) for p in pair):
+            row["mesh_launches_per_rank"] = [p[name] for p in pair]
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,10 @@ Commands:
             [--grid 8,8] [--iters 200] [--seed 0] [--device cuda]
 
 Every command but ``validate`` refuses to start without a CUDA device unless
-``--device cpu`` is given.  ``tutorial`` and ``export`` run the example
+``--device cpu`` is given.  ``train`` and ``stream`` train on every visible
+card under ``[tpu] data_parallel = 0`` (one rank a card, started by the
+command; ``data_parallel = n`` asks for n) and join a torchrun group where
+one is set up (``train/cli.py``).  ``tutorial`` and ``export`` run the example
 scripts of a source checkout (they do not ship in an installed wheel).
 """
 

@@ -1,5 +1,5 @@
-"""Run-workspace manager — the JAX package's ``config/workspace.py``, ported
-(single process: no multihost writer gate).
+"""Run-workspace manager — the JAX package's ``config/workspace.py``,
+ported; under several ranks only rank 0 writes the config snapshot.
 
 Reproduces the reference's workspace layout and auto-incrementing run ids
 (``train.py:93-111`` / ``train_iterable.py:94-112``):
@@ -54,7 +54,14 @@ class Workspace:
         return self.workdir / "console_log"
 
     def snapshot_config(self, cfg: Config) -> None:
-        save_config(cfg, self.config_path)
+        # several ranks: ONE writer — every rank calls this (setup/finish
+        # in both trainers) with rank-divergent fields (total_frames), and
+        # concurrent rewrites of one file on shared storage would tear or
+        # last-writer-win with the wrong values
+        from rawaudiovae_kelsey_tpu_torch.parallel.mesh import is_coordinator
+
+        if is_coordinator():
+            save_config(cfg, self.config_path)
 
 
 def create_workspace(cfg: Config, base: Path | None = None) -> Workspace:

@@ -7,7 +7,10 @@ non-blocking copy to the device on a side stream, then hands the device
 tensor and the copy's event to the consumer through a bounded queue of
 ``depth`` batches.  The consumer's stream waits on the event (on the
 device, not the host), so the transfer of batch n+1 rides under the step
-of batch n.  On the CPU the batches are handed over as they are.
+of batch n.  On the CPU the batches are handed over as they are.  Under a
+mesh each rank runs its own feed of its own rows onto its own device (one
+card a process), so nothing is sharded here; :func:`pad_batches_for_mesh`
+pads a global batch that every rank cuts the same way.
 """
 
 from __future__ import annotations
@@ -128,3 +131,22 @@ def prefetch_to_device(host_iter: Iterator[np.ndarray], device,
 def feed_dtype(cfg) -> Optional[torch.dtype]:
     """Host-side cast dtype per ``[tpu] feed_dtype``."""
     return torch.bfloat16 if cfg.tpu.feed_dtype == "bfloat16" else None
+
+
+def pad_batches_for_mesh(host_iter: Iterator[np.ndarray], n_devices: int
+                         ) -> Iterator[np.ndarray]:
+    """Make every batch's leading dim divisible by ``n_devices`` by wrapping
+    (repeating rows from the batch start) — the JAX package's
+    ``data/loader.py:125-146``.  The caller must ensure ``batch_size %
+    n_devices == 0`` (the trainers check it), so only a final short batch
+    is ever padded: its repeated rows weigh twice in that one mean-reduced
+    loss (a divergence the JAX package documents).  Without the check EVERY
+    batch would wrap, double-weighting the same rows all run long."""
+    for batch in host_iter:
+        rem = batch.shape[0] % n_devices
+        if rem:
+            extra = n_devices - rem
+            reps = -(-extra // max(batch.shape[0], 1))
+            fill = np.concatenate([batch] * reps, axis=0)[:extra]
+            batch = np.concatenate([batch, fill], axis=0)
+        yield batch

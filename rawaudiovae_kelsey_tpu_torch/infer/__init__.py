@@ -1,6 +1,7 @@
 from rawaudiovae_kelsey_tpu_torch.infer.api import (  # noqa: F401
     decode_trajectory,
     encode_trajectory,
+    encode_trajectory_sharded,
     frame_audio,
     interpolate_stepwise,
     interpolate_timevarying,

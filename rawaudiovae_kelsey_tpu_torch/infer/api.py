@@ -31,8 +31,9 @@ one sample, ``(seed, i)`` for step ``i`` of :func:`interpolate_stepwise`
 (the analog of ``fold_in(key, i)``).  It is not JAX's stream: parity with
 the JAX package is held at ``deterministic=True``.
 
-``encode_trajectory_sharded`` (a mesh-parallel encode) is not ported: it
-waits for multi-GPU (ROADMAP.md queue A.7).
+:func:`encode_trajectory_sharded` is the mesh-parallel encode: every rank
+of a group (``parallel/mesh.py``) encodes its block of each chunk of
+frames on its own device, and the blocks are all-gathered.
 """
 
 from __future__ import annotations
@@ -46,8 +47,14 @@ from rawaudiovae_kelsey_tpu_torch.data.framing import (
     nonoverlapping_frames,
     overlapping_frames,
 )
+from rawaudiovae_kelsey_tpu_torch.data.loader import pad_batches_for_mesh
 from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef
 from rawaudiovae_kelsey_tpu_torch.models.vae import reparameterize
+from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    batch_sharding,
+)
 
 
 def seeded_generator(device: torch.device, *words: int) -> torch.Generator:
@@ -242,3 +249,39 @@ def reconstruct(model: ModelDef, params, audio: np.ndarray,
     mu, logvar = encode_trajectory(model, params, audio, batch_size)
     z = sample_z(seed, mu, logvar, deterministic, model.device)
     return decode_trajectory(model, params, z, batch_size)
+
+
+def encode_trajectory_sharded(model: ModelDef, params, audio: np.ndarray,
+                              mesh: Mesh, batch_frames: int = 0,
+                              hop: Optional[int] = None
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Mesh-parallel batch encode of a long waveform (JAX
+    ``infer/api.py:227-270``).
+
+    The reference's "long sequence" story is framing: minutes of audio
+    become tens of thousands of independent frames, so the parallel form
+    shards the frame axis over the ranks — every rank encodes its block, no
+    cross-rank dependency but the final all-gather.  The audio is framed
+    (non-overlapping, or at ``hop``), cut into chunks of ``batch_frames``
+    (0: one chunk), each chunk wrap-padded to a multiple of the ranks
+    (``data/loader.py`` ``pad_batches_for_mesh``); every rank encodes its
+    rows of it, the blocks are all-gathered in rank order and the pad is
+    dropped.  Every rank of the group must call it; every rank returns the
+    whole ``(mu, logvar)``."""
+    frames = frame_audio(np.asarray(audio, np.float32),
+                         model.segment_length, hop)
+    n = len(frames)
+    if n == 0:
+        raise ValueError("audio shorter than one segment — nothing to encode")
+    chunk = batch_frames or n
+    mus, lvs = [], []
+    with torch.inference_mode():
+        for i in range(0, n, chunk):
+            part = frames[i:i + chunk]
+            (padded,) = pad_batches_for_mesh([part], mesh.data)
+            rows = padded[batch_sharding(mesh, len(padded))]
+            mu, logvar = model.encode(params, _to_device(rows, mesh.device))
+            keep = len(part)
+            mus.append(all_gather_rows(mu)[:keep].float().cpu().numpy())
+            lvs.append(all_gather_rows(logvar)[:keep].float().cpu().numpy())
+    return np.concatenate(mus, axis=0), np.concatenate(lvs, axis=0)

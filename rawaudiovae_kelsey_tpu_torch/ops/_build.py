@@ -10,11 +10,14 @@ failure is remembered for that hash, so every later call in the process
 raises it again at once instead of running the compiler again; an edited
 source has another hash and builds.  Sources in the package are the only
 input; no PyTorch headers are compiled, which keeps the build to seconds.
+The ranks of a multi-GPU run on one host build once: a lock file beside
+the build directory lets the first compile and the others load its file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -100,11 +103,21 @@ def build() -> Path:
     """Compile ``csrc/*.cu`` (or reuse the cached library) → its path.
     The compiler's ``-Xptxas -v`` report (registers, shared memory,
     spills per kernel) is kept beside it as ``<library>.log``."""
-    sources = sorted(CSRC.glob("*.cu"))
     out = BUILD_DIR / f"librvk_{source_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # ranks of one host (the train command's, torchrun's) build once: the
+    # first takes the lock and compiles, the others wait and load its file
+    with open(BUILD_DIR.with_name(BUILD_DIR.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
+    sources = sorted(CSRC.glob("*.cu"))
     tag = f"tmp{os.getpid()}"
     nvcc = _nvcc()
     objs = [out.with_name(f"{out.stem}.{p.stem}.{tag}.o") for p in sources]
@@ -134,7 +147,6 @@ def build() -> Path:
             o.unlink(missing_ok=True)
     out.with_suffix(".log").write_text("".join(logs))
     tmp.rename(out)  # atomic: a concurrent loader never sees a torn file
-    return out
 
 
 def library() -> ctypes.CDLL:

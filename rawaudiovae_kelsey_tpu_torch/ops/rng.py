@@ -23,8 +23,14 @@ of ``csrc/rng.cu`` for CUDA tensors, counted in ``.launches``, never a
 fallback), and the differentiable entry point (:func:`reparameterize`, a
 ``torch.autograd.Function`` with the JAX module's VJP).
 
-``sharded_pallas_reparameterize`` (a per-shard seed fold under a mesh) is
-not ported: the port runs on one device.
+Under a mesh (``parallel/mesh.py``) each rank samples its own rows with
+:func:`shard_seed`: its data index times ``0x85EBCA6B`` (JAX's
+``-2048144789`` as a wrapping int32) XORed into word 0 of the seed, then
+the same kernel — ``sharded_pallas_reparameterize`` of the JAX module.
+Ranks draw distinct streams; ranks of one data index (model-axis peers)
+draw the same words.  The JAX kernel also spreads its tile index into word
+1; Philox's counter is the element's position, so no tile spread is
+needed here.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ _M32 = 0xFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _TWO_PI = 6.283185307179586
+# the data index's spread into word 0 (Murmur3's odd mix constant)
+_SHARD_SPREAD = 0x85EBCA6B
 
 
 def seed_words(seed: int) -> SeedWords:
@@ -51,6 +59,14 @@ def seed_words(seed: int) -> SeedWords:
     one word alone would collide within a long run and replay a whole
     noise tensor (``parallel/step.py`` of the JAX package, lines 71-74)."""
     return seed & _M32, (seed >> 32) & _M32
+
+
+def shard_seed(seed: SeedWords, index: int) -> SeedWords:
+    """``seed`` for the rank at data index ``index``: ``index ·
+    0x85EBCA6B`` (mod 2^32) XORed into word 0, word 1 kept (JAX
+    ``ops/rng.py:118-166``, the fold ``sharded_pallas_reparameterize``
+    makes before the kernel runs)."""
+    return (seed[0] ^ (index * _SHARD_SPREAD)) & _M32, seed[1] & _M32
 
 
 def _mulhilo(m: int, c: Tensor) -> Tuple[Tensor, Tensor]:

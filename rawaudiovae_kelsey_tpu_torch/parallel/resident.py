@@ -36,9 +36,21 @@ What differs from the JAX module, and why:
   ``build_train_step``), one full-batch gradient per batch; it updates the
   state in place.
 
-The mesh-sharded engine (``build_resident_epoch_sharded``,
-``_two_pass_shuffle``, ``put_frames_sharded``, ``align_local_rows``,
-``pad_frames_for_mesh``) waits for multi-GPU training.
+The mesh-sharded engine (JAX ``:235-453``): the frame matrix is sharded
+over the ranks — each rank uploads only its own block, cast on the host
+(:func:`put_frames_sharded`), so no card holds the whole matrix; a rank's
+rows are its file shard's frames wrap-padded to the ranks' largest count
+(:func:`align_local_rows`) or its block of a padded global matrix
+(:func:`pad_frames_for_mesh`).  :func:`build_resident_epoch_sharded` runs
+an epoch as one whole-shard gather by the rank's permutation, then the
+step loop of ``parallel/spmd.py`` (per-rank noise, one gradient all-reduce
+a step).  ``resident_shuffle`` ``global`` and ``block`` shuffle in two
+passes (:func:`_two_pass_shuffle`: a per-rank ``randperm``, then an
+``all_to_all`` of the head blocks), ``local`` within each shard.  The
+permutation seeds are :func:`perm_seed` with the rank folded in (JAX folds
+``shard`` into the epoch key, ``:325-335``); ``randperm`` plus
+``all_to_all`` stand in for threefry's permutation (a declared
+divergence, as on one device).
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.data.framing import (
@@ -54,9 +67,16 @@ from rawaudiovae_kelsey_tpu_torch.data.framing import (
     pad_to_multiple,
 )
 from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef
+from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_ints,
+    world_size,
+)
+from rawaudiovae_kelsey_tpu_torch.parallel.spmd import per_rank_step
 from rawaudiovae_kelsey_tpu_torch.parallel.step import (
     NoiseFn,
     build_train_step,
+    fold_rank,
     mix64,
 )
 from rawaudiovae_kelsey_tpu_torch.train.optim import Adam
@@ -198,6 +218,156 @@ def build_resident_epoch(
             losses = []
             for xb in epoch_batches(data, selection(state, epoch,
                                                     data.device)):
+                state, metrics = step(state, xb)
+                losses.append(metrics["loss"].float())
+            rows.append(torch.stack(losses))
+        return state, torch.stack(rows)
+
+    return run_epochs, n_batches
+
+
+# ------------------------------------------------- the mesh-sharded engine
+
+def pad_frames_for_mesh(frames: np.ndarray, n_shards: int) -> np.ndarray:
+    """Wrap-pad the frame matrix so rows divide evenly across shards."""
+    return _wrap_pad_to(frames, -(-len(frames) // n_shards) * n_shards)
+
+
+def _wrap_pad_to(frames: np.ndarray, target: int) -> np.ndarray:
+    """Wrap-pad ``frames`` to exactly ``target`` rows."""
+    if len(frames) >= target:
+        return frames[:target]
+    if len(frames) == 0:
+        # silently returning short rows would desync this rank from its
+        # peers and deadlock their next collective — fail loudly instead
+        raise ValueError(
+            "cannot wrap-pad an empty frame matrix: this rank's file shard "
+            "yielded no frames (more ranks than audio files?)")
+    extra = target - len(frames)
+    reps = -(-extra // len(frames))
+    fill = np.concatenate([frames] * reps, axis=0)[:extra]
+    return np.concatenate([frames, fill], axis=0)
+
+
+def align_local_rows(frames: np.ndarray, mesh: Mesh) -> np.ndarray:
+    """Wrap-pad this rank's frame rows to the largest count over the ranks
+    (an all-gather of the counts; one device a process, so no further
+    rounding), so every rank contributes an equal block.  Wrap-padding
+    repeats local frames — the epoch semantics of
+    :func:`pad_frames_for_mesh` (duplicated rows train again)."""
+    if world_size() <= 1:
+        return frames
+    counts = all_gather_ints([len(frames)])
+    return _wrap_pad_to(frames, int(counts.max()))
+
+
+def put_frames_sharded(frames: np.ndarray, cfg: Config, mesh: Mesh
+                       ) -> Tensor:
+    """Upload this rank's block of the frame matrix onto its device, cast
+    on the HOST (bf16 under ``precision = bfloat16``, else fp32) so that
+    only the block crosses the link.  ``frames`` is the rank's own rows:
+    its file shard's, aligned by :func:`align_local_rows`, or its block
+    ``[r·N/n, (r+1)·N/n)`` of a global matrix padded by
+    :func:`pad_frames_for_mesh` (``parallel/mesh.py`` ``batch_sharding``
+    names it)."""
+    dtype = (torch.bfloat16 if cfg.tpu.precision == "bfloat16"
+             else torch.float32)
+    host = torch.from_numpy(np.ascontiguousarray(frames, np.float32))
+    return host.to(dtype).to(mesh.device)
+
+
+def _two_pass_shuffle(frames_local: Tensor, seed: int, mesh: Mesh
+                      ) -> Tensor:
+    """A global-ish shuffle of a sharded frame matrix on the devices: pass
+    1 permutes the local rows (``randperm`` seeded by ``seed``), pass 2 is
+    an ``all_to_all`` block transpose — each rank keeps 1/n of its rows and
+    sends 1/n to every other rank, so a shard then holds an equal random
+    slice of every original shard.  The rows past the largest multiple of
+    n stay local (random rows after pass 1).  One collective an epoch."""
+    n_local = frames_local.shape[0]
+    g = torch.Generator(device=frames_local.device)
+    g.manual_seed(seed)
+    pre = torch.randperm(n_local, generator=g, device=frames_local.device)
+    frames_local = frames_local[pre]
+    n = mesh.data
+    blk = n_local // n
+    if n == 1 or blk == 0:
+        return frames_local
+    head = frames_local[: blk * n].contiguous()
+    out = torch.empty_like(head)
+    dist.all_to_all_single(out, head)
+    if blk * n == n_local:
+        return out
+    return torch.cat([out, frames_local[blk * n:]])
+
+
+def build_resident_epoch_sharded(
+    model: ModelDef,
+    cfg: Config,
+    optimizer: Optional[Adam],
+    n_frames_padded: int,
+    mesh: Mesh,
+    noise: Optional[NoiseFn] = None,
+    perm: Optional[PermFn] = None,
+) -> Tuple[Callable, int]:
+    """Multi-rank resident epochs: the frame matrix (``n_frames_padded``
+    rows over all ranks) is sharded over the data axis; every rank draws
+    its epoch's permutation, gathers its whole shard once by it, and runs
+    ``batch/n`` of its rows a step through the per-rank step of
+    ``parallel/spmd.py`` — whose one gradient all-reduce is the only
+    collective of a step.  Returns ``(run_epochs, n_batches)`` with
+    :func:`build_resident_epoch`'s signature; ``data`` is the rank's block
+    from :func:`put_frames_sharded`, and the losses are the reduced global
+    ones, equal on every rank.
+
+    ``resident_shuffle`` ``global`` (and ``block``, a one-device form that
+    keeps the exact two-pass shuffle on a mesh, as in JAX) runs
+    :func:`_two_pass_shuffle` each epoch; ``local`` permutes within each
+    shard.  ``noise`` replaces the rank's draws, ``perm(epoch, n_local)``
+    its final permutation (the callers' functions know the rank)."""
+    batch = cfg.training.batch_size
+    n_shards = mesh.data
+    if batch % n_shards:
+        raise ValueError(
+            f"batch_size {batch} not divisible by data shards {n_shards}")
+    micro = cfg.tpu.microbatch_size
+    if micro and batch > micro:
+        raise ValueError(
+            "the resident epoch takes one full-batch gradient per step and "
+            f"cannot accumulate microbatches (microbatch_size {micro} < "
+            f"batch_size {batch})")
+    local_bs = batch // n_shards
+    n_local = n_frames_padded // n_shards
+    n_batches = n_local // local_bs
+    if n_batches == 0:
+        raise ValueError(
+            f"{n_local} frames/shard < one local batch of {local_bs}")
+    used = n_batches * local_bs
+    seg = model.segment_length
+    index = mesh.data_index
+    global_shuffle = cfg.tpu.resident_shuffle in ("global", "block")
+    step = per_rank_step(model, cfg, optimizer, mesh, noise)
+
+    def run_epochs(state: TrainState, data: Tensor, epoch0: int, k: int = 1):
+        rows = []
+        for epoch in range(epoch0, epoch0 + k):
+            epoch_seed = perm_seed(state.seed, epoch)
+            local = data
+            if global_shuffle and n_shards > 1:
+                local = _two_pass_shuffle(
+                    data, fold_rank(mix64(epoch_seed ^ 0xA110) >> 1, index),
+                    mesh)
+            if perm is not None:
+                sel = perm(epoch, n_local).to(data.device)[:used]
+            else:
+                g = torch.Generator(device=data.device)
+                g.manual_seed(fold_rank(epoch_seed, index))
+                sel = torch.randperm(n_local, generator=g,
+                                     device=data.device)[:used]
+            # one whole-shard gather an epoch, then contiguous slices
+            shuffled = local[sel].view(n_batches, local_bs, seg)
+            losses = []
+            for xb in shuffled.unbind(0):
                 state, metrics = step(state, xb)
                 losses.append(metrics["loss"].float())
             rows.append(torch.stack(losses))

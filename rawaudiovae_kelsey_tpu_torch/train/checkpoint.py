@@ -18,8 +18,13 @@ stored ``(in, out)`` and a conv ``w`` ``(kernel, in, out)``.
   ``[seed >> 32, seed & 0xffffffff]``); ``step`` (int32) — plus a json
   sidecar of loop metadata (epoch, best_loss, step).
 
+Under several ranks only rank 0 writes (:func:`save_checkpoint`, its
+sidecar, :func:`prune_checkpoints`; JAX ``:41-110``): the replicas are
+equal bit for bit, so rank 0's state is the run's.  Every rank restores
+the same file on ``--resume``.
+
 The JAX package's orbax checkpoints (``[tpu] checkpoint_format = orbax``)
-are not ported: asking for one raises.
+are not ported: asking for one raises (ROADMAP.md A.7b).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.parallel.mesh import is_coordinator
 from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
 from rawaudiovae_kelsey_tpu_torch.tree import flatten, unflatten
 
@@ -41,7 +47,7 @@ _CKPT_RE = re.compile(r"ckpt_(\d+)\.npz$")
 _ORBAX_RE = re.compile(r"orbax_(\d+)$")
 ORBAX_NOT_PORTED = (
     "orbax checkpoints are not ported to the PyTorch package (ROADMAP.md "
-    "queue A); use [tpu] checkpoint_format = npz")
+    "queue A.7b); use [tpu] checkpoint_format = npz")
 
 
 def _unique_tmp(path: Path) -> Path:
@@ -144,6 +150,9 @@ def state_from_leaves(leaves: List[Any], template: TrainState
 
 def _write_meta(meta_path: Path, extra: Optional[Dict[str, Any]],
                 step: int) -> None:
+    """Atomic sidecar write (tmp + rename), rank 0 only."""
+    if not is_coordinator():
+        return
     meta = dict(extra or {})
     meta["step"] = step
     tmp = _unique_tmp(meta_path)
@@ -165,11 +174,15 @@ def save_checkpoint(ckpt_dir: Path, state: TrainState,
                     label: Optional[int] = None) -> Path:
     """Write ``ckpt_{label:05d}.npz`` (+ a json sidecar of loop metadata
     such as epoch and best_loss) atomically.  ``label`` defaults to the
-    optimizer step count."""
+    optimizer step count.  Only rank 0 writes (the others return the
+    path it writes): concurrent writers on shared storage would interleave
+    into a corrupt file."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     label = state.step if label is None else label
     path = ckpt_dir / f"ckpt_{label:05d}.npz"
+    if not is_coordinator():
+        return path
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
     arrays = {f"leaf_{i:05d}": a
               for i, a in enumerate(state_leaves(state))}
     tmp = _unique_tmp(path)
@@ -222,8 +235,9 @@ def latest_checkpoint(ckpt_dir: Path) -> Optional[Path]:
 def prune_checkpoints(ckpt_dir: Path, keep: int) -> list:
     """Delete all but the newest ``keep`` periodic npz checkpoints (with
     their sidecars) — ``[training] keep_checkpoints``; ``keep <= 0`` keeps
-    everything.  best/last models live elsewhere.  Returns what went."""
-    if keep <= 0:
+    everything.  best/last models live elsewhere.  Returns what went; only
+    rank 0 removes."""
+    if keep <= 0 or not is_coordinator():
         return []
     found = [p for _, p in _scan_checkpoints(ckpt_dir) if p.is_file()]
     removed = []

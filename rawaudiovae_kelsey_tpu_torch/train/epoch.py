@@ -13,12 +13,25 @@ Differences from the reference (each intentional, as in the JAX package):
   * the best-model gate tracks the true best loss (quirk #7 fix);
   * checkpoint/resume actually restores (SURVEY.md §5.3).
 
-What the port does not carry raises, naming ROADMAP.md: multihost, data or
-model parallelism over more than one device, orbax checkpoints.
+Under several ranks (``parallel/mesh.py``; the ``train`` command starts
+them on one host) every rank reads its own file shard and:
+  * host-fed: feeds ``batch_size / world`` of its rows a step to the mesh
+    step, ``batch_size % world`` checked up front, and every rank runs the
+    smallest full-batch count of the ranks (all-gathered; a rank's last
+    short batch is dropped, as JAX's multihost branch drops it);
+  * resident (``frames`` layout only, ``batch_size % world == 0``): its
+    frames wrap-padded to the largest rank's and uploaded to its own card
+    (``parallel/resident.py`` sharded engine), the budget per card.
+Every decision that selects a collective program is taken from
+all-gathered sizes, so the ranks never diverge; a stop flag acts only by
+agreement (:func:`_sync_stop`).  What the port does not carry raises,
+naming ROADMAP.md: model parallelism and orbax checkpoints.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import time
 from pathlib import Path
 
@@ -28,6 +41,7 @@ import torch
 from rawaudiovae_kelsey_tpu_torch.config import Config
 from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
 from rawaudiovae_kelsey_tpu_torch.data.datasets import AudioFrameDataset
+from rawaudiovae_kelsey_tpu_torch.data.framing import overlapping_frames
 from rawaudiovae_kelsey_tpu_torch.data.loader import (
     feed_dtype,
     prefetch_to_device,
@@ -36,6 +50,14 @@ from rawaudiovae_kelsey_tpu_torch.data.validate import check_before_training
 from rawaudiovae_kelsey_tpu_torch.models.registry import resident_model
 from rawaudiovae_kelsey_tpu_torch.observe.timing import trace_capture
 from rawaudiovae_kelsey_tpu_torch.parallel import resident as R
+from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
+    MODEL_PARALLEL_NOT_PORTED,
+    all_gather_ints,
+    any_rank,
+    host_shard_info,
+    world_size,
+)
+from rawaudiovae_kelsey_tpu_torch.train.checkpoint import ORBAX_NOT_PORTED
 from rawaudiovae_kelsey_tpu_torch.train import loop as L
 from rawaudiovae_kelsey_tpu_torch.train.interrupt import GracefulInterrupt
 from rawaudiovae_kelsey_tpu_torch.tree import leaves as tree_leaves
@@ -43,28 +65,25 @@ from rawaudiovae_kelsey_tpu_torch.tree import leaves as tree_leaves
 
 def check_supported(cfg: Config,
                     device: torch.device | str = "cuda") -> None:
-    """Raise for every setting of the JAX trainer this port lacks, and say
-    so when a default means less here than there: ``data_parallel = 0`` is
-    "all devices on the data axis" in the JAX package, one device here."""
-    t = cfg.tpu
-    unported = {
-        "multihost": t.multihost,
-        f"data_parallel = {t.data_parallel}": t.data_parallel > 1,
-        f"model_parallel = {t.model_parallel}": t.model_parallel > 1,
-        "checkpoint_format = orbax": t.checkpoint_format == "orbax",
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"[tpu] {what} is not ported to the PyTorch package yet "
-                "(ROADMAP.md queue A); the JAX package rawaudiovae_kelsey_tpu "
-                "runs it")
-    if (t.data_parallel == 0 and torch.device(device).type == "cuda"
-            and torch.cuda.device_count() > 1):
+    """Raise for the settings of the JAX trainer this port lacks: model
+    parallelism and orbax checkpoints (ROADMAP.md A.7b).  And say so when
+    the trainer is called as a library on one of several visible cards
+    outside a group of ranks: ``data_parallel = 0`` is "every device" in
+    the JAX package; here the ``train`` and ``stream`` commands start one
+    rank a card (``train/cli.py``), a library call trains where it is."""
+    if cfg.tpu.model_parallel > 1:
+        raise NotImplementedError(MODEL_PARALLEL_NOT_PORTED)
+    if cfg.tpu.checkpoint_format == "orbax":
+        raise NotImplementedError(f"[tpu] {ORBAX_NOT_PORTED}")
+    device = torch.device(device)
+    if (cfg.tpu.data_parallel == 0 and device.type == "cuda"
+            and torch.cuda.device_count() > 1 and world_size() == 1
+            and "RANK" not in os.environ and not cfg.tpu.multihost
+            and not cfg.tpu.coordinator_address):
         print(f"[tpu] data_parallel = 0: {torch.cuda.device_count()} CUDA "
-              f"devices are visible and one is used ({torch.device(device)}"
-              "); training across devices is not ported to the PyTorch "
-              "package yet (ROADMAP.md queue A)")
+              f"devices are visible and one is used ({device}): this "
+              "process is not a rank of a group; the train and stream "
+              "commands start one rank a card (torchrun across hosts)")
 
 
 def train(cfg: Config, verbose: bool = True,
@@ -82,6 +101,17 @@ def train(cfg: Config, verbose: bool = True,
         L.finish(ctx)
 
 
+def _sync_stop(stop, multihost: bool) -> bool:
+    """Act on an interrupt only by agreement of the ranks.  Signals are
+    per-process: one rank taking its stop branch (drain, checkpoint,
+    return) while the others issue the next collective would hang them all
+    — and only rank 0 writes the interrupt checkpoint, which may not be the
+    signalled rank.  All-reduce the flag at every decision point (every
+    rank reaches these points in the same order); any rank's signal stops
+    the run."""
+    return any_rank(bool(stop)) if multihost else bool(stop)
+
+
 def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
          stop=None) -> L.TrainContext:
     # eager ingest (train.py:113-130)
@@ -91,9 +121,11 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
         datapath_audio_dir(cfg), cfg.audio.sampling_rate,
         cfg.dataset.check_dataset, cfg.dataset.check_audio,
     )
+    host_id, num_hosts = host_shard_info()
     corpus, n_samples = build_corpus(
         datapath_audio_dir(cfg), cfg.audio.sampling_rate,
         mono=cfg.dataset.mono, verbose=verbose,
+        host_id=host_id, num_hosts=num_hosts,
     )
     total_frames = n_samples // cfg.audio.segment_length
     print(f"Total number of audio frames: {total_frames}")
@@ -105,32 +137,70 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
         cfg.audio.sampling_rate,
     )
     batch_size = cfg.training.batch_size
+    mesh = ctx.mesh
 
     # device-resident fast path: whole epochs on the device when the corpus
-    # fits the budget
+    # fits the budget.  Under a mesh the decisions must be IDENTICAL on
+    # every rank, or the ranks diverge into different collective
+    # programs: they come from all-gathered sizes (the largest corpus for
+    # the budget, the smallest frame count for the batch gate; the average
+    # loss divides by the global frame count)
     dtype_bytes = 2 if cfg.tpu.precision == "bfloat16" else 4
     budget = int(cfg.tpu.resident_budget_gb * (1 << 30))
-    layout = R.choose_layout(n_samples, cfg.audio.segment_length,
+    if mesh is not None:
+        counts = all_gather_ints([n_samples, len(dataset)])
+        n_samples_eff = int(counts[:, 0].max())
+        min_frames = int(counts[:, 1].min())
+        dataset_len = int(counts[:, 1].sum())
+    else:
+        n_samples_eff, min_frames = n_samples, len(dataset)
+        dataset_len = len(dataset)
+    # the budget is a card's: under a mesh each rank's block of the
+    # (wrap-padded) frame matrix is at most the largest rank's corpus
+    layout = R.choose_layout(n_samples_eff, cfg.audio.segment_length,
                              cfg.audio.hop_length, dtype_bytes, budget)
+    mesh_ok = mesh is None or (layout == "frames"
+                               and batch_size % mesh.data == 0)
     # the resident step takes one full-batch gradient: it cannot honour
     # microbatch accumulation, so configs that ask for it (giant batches)
     # keep the host-fed step that does
     micro = cfg.tpu.microbatch_size
     micro_ok = not (micro and batch_size > micro)
     use_resident = (cfg.tpu.device_resident != "never"
-                    and layout is not None and micro_ok)
-    if use_resident and len(dataset) >= batch_size:
+                    and layout is not None and mesh_ok and micro_ok)
+    if use_resident and min_frames >= batch_size:
         return _run_resident(ctx, cfg, verbose, stop, corpus, n_samples,
-                             len(dataset), layout)
+                             dataset_len, layout)
     if cfg.tpu.device_resident == "always":
         raise ValueError(
             "device_resident=always but the corpus does not fit "
             f"resident_budget_gb={cfg.tpu.resident_budget_gb} (layout="
-            f"{layout!r}), has fewer frames than one batch, or "
-            "microbatch_size is set (the resident step can't accumulate "
-            "microbatches); adjust the config or use device_resident=auto")
+            f"{layout!r}), has fewer frames than one batch, the mesh/batch "
+            "layout is incompatible, or microbatch_size is set (the "
+            "resident step can't accumulate microbatches); adjust the "
+            "config or use device_resident=auto")
 
-    n_batches = dataset.num_batches(batch_size)
+    if mesh is not None:
+        # every rank feeds batch_size / world of its own rows a step; an
+        # indivisible batch_size would leave the ranks unequal blocks.
+        # The ranks' corpora differ: every rank runs the SMALLEST
+        # full-batch count, so every one enters each collective
+        if batch_size % mesh.data:
+            raise ValueError(
+                f"batch_size {batch_size} must be divisible by the "
+                f"{mesh.data} ranks for host-fed mesh training")
+        rank_batch = batch_size // mesh.data
+        local = dataset.num_batches(rank_batch, drop_last=True)
+        n_batches = int(all_gather_ints([local]).min())
+        if n_batches == 0:
+            raise ValueError(
+                "a rank has fewer frames than one batch of "
+                f"{rank_batch} (batch_size {batch_size} over {mesh.data} "
+                "ranks)")
+    else:
+        rank_batch = batch_size
+        n_batches = dataset.num_batches(batch_size)
+    multihost = mesh is not None
     device = ctx.model.device
 
     epochs = cfg.training.epochs
@@ -157,9 +227,12 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
         if verbose:
             print(f"Epoch {epoch}/{epochs - 1}")
             print("-" * 10)
+        # each rank prefetches only its own rows onto its own device
         feed = prefetch_to_device(
-            dataset.batches(batch_size, shuffle=True,
-                            seed=cfg.tpu.seed + epoch),
+            itertools.islice(
+                dataset.batches(rank_batch, shuffle=True,
+                                seed=cfg.tpu.seed + epoch,
+                                drop_last=multihost), n_batches),
             device, depth=cfg.tpu.prefetch, cast_dtype=feed_dtype(cfg))
         batch_losses = []
         ctx.timer.start()
@@ -175,12 +248,15 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
                 ctx.state, metrics = ctx.train_step(ctx.state, batch)
                 batch_losses.append(metrics["loss"])  # no sync
                 global_step += 1
-                if stop:
+                # a mid-epoch break is one rank's only: under a mesh the
+                # others would keep issuing collectives (_sync_stop), so
+                # there the interrupt lands at the epoch's end
+                if stop and not multihost:
                     break
         finally:
             feed.close()
         epoch_s = ctx.timer.stop()
-        if stop:
+        if _sync_stop(stop, multihost):
             print(f"Interrupted in epoch {epoch}; checkpointing.")
             L.save_periodic_checkpoint(ctx, {"epoch": epoch}, label=epoch)
             return ctx
@@ -193,11 +269,12 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
             ctx.writer.add_scalar("Loss/Batch", loss, gstep)
             ctx.writer.add_scalar("Learning Rate", lr, gstep)
 
-        avg = train_loss / max(len(dataset), 1)
+        avg = train_loss / max(dataset_len, 1)
+        frames = len(dataset) if mesh is None else n_batches * batch_size
         print(
             f"====> Epoch: {epoch} - Total loss: {train_loss} - "
             f"Average loss: {avg:.9f} "
-            f"({len(dataset) / max(epoch_s, 1e-9):,.0f} frames/s)"
+            f"({frames / max(epoch_s, 1e-9):,.0f} frames/s)"
         )
         ctx.writer.add_scalar("Loss/train_total", train_loss, epoch)
         ctx.writer.add_scalar("Loss/train_average", avg, epoch)
@@ -247,17 +324,41 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
     The launches are asynchronous, but this thread issues every one of
     them, so a group "dispatched ahead" of a boundary overlaps only the
     boundary work that runs on the worker thread (the state fetch and the
-    histogram / best / checkpoint writes), not this thread's own."""
+    histogram / best / checkpoint writes), not this thread's own.
+
+    Under a mesh the frame matrix is sharded over the ranks
+    (``parallel/resident.py`` ``build_resident_epoch_sharded``): each rank
+    frames its own file shard, wrap-pads it to the largest rank's count
+    and uploads it to its own card; the losses are the reduced global
+    ones, equal on every rank.  The boundary worker holds no collective
+    (rank 0 alone writes; the reconstruction's all-gather runs on this
+    thread), so it stays on under a mesh."""
     device = ctx.model.device
     on_cuda = device.type == "cuda"
     model = resident_model(cfg, ctx.model)
-    run_epochs, n_batches = R.build_resident_epoch(
-        model, cfg, None, n_samples, layout=layout)
-    dev_corpus = R.put_resident(corpus, cfg, layout, device)
-    mb = dev_corpus.numel() * dev_corpus.element_size() / 1e6
-    print(f"Device-resident corpus ({layout} layout): {n_samples:,} "
-          f"samples ({mb:,.0f} MB on device), "
-          f"{n_batches} batches/epoch with no host feed")
+    mesh = ctx.mesh
+    multihost = mesh is not None
+    if mesh is not None:
+        frames = R.align_local_rows(overlapping_frames(
+            corpus, cfg.audio.segment_length, cfg.audio.hop_length), mesh)
+        n_frames_padded = len(frames) * mesh.data
+        dev_corpus = R.put_frames_sharded(frames, cfg, mesh)
+        del frames
+        run_epochs, n_batches = R.build_resident_epoch_sharded(
+            model, cfg, None, n_frames_padded, mesh)
+        mb = dev_corpus.numel() * dev_corpus.element_size() / 1e6
+        print(f"Device-resident corpus (sharded over {mesh.data} devices): "
+              f"{n_frames_padded:,} frames ({mb * mesh.data:,.0f} MB total, "
+              f"{mb:,.0f} MB a card), {n_batches} batches/epoch with no "
+              "host feed")
+    else:
+        run_epochs, n_batches = R.build_resident_epoch(
+            model, cfg, None, n_samples, layout=layout)
+        dev_corpus = R.put_resident(corpus, cfg, layout, device)
+        mb = dev_corpus.numel() * dev_corpus.element_size() / 1e6
+        print(f"Device-resident corpus ({layout} layout): {n_samples:,} "
+              f"samples ({mb:,.0f} MB on device), "
+              f"{n_batches} batches/epoch with no host feed")
 
     batch_size = cfg.training.batch_size
     epochs = cfg.training.epochs
@@ -415,7 +516,8 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
 
         hist_fires = bool(hist_every and epoch % hist_every == 0)
         ckpt_fires = bool(interval and epoch % interval == 0 and epoch != 0)
-        stop_now = bool(stop)
+        # one synced read a group: every rank evaluates it at the same point
+        stop_now = _sync_stop(stop, multihost)
         if not (hist_fires or ckpt_fires or stop_now):
             epoch += 1
             continue
@@ -462,7 +564,8 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
             if hist_fires and not use_async:
                 L.log_param_histograms(ctx, epoch, params=host_p)
             # re-check: a signal may have landed after the dispatch-ahead
-            if stop_now or bool(stop):
+            # (every rank takes the same branch, so the collective matches)
+            if stop_now or _sync_stop(stop, multihost):
                 if bwriter is not None:
                     # settle any in-flight boundary first: the best gate and
                     # artifact trail must be in order before the interrupt

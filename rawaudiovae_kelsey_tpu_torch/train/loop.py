@@ -1,14 +1,24 @@
-"""Machinery of the epoch trainer — the JAX package's
-``train/loop.py``, ported to one device: workspace, writer, test fixture,
-model and state construction, resume, periodic reconstruction, the
-best/last model bookkeeping, and the boundary machinery of the
-device-resident engine (one shared host copy of the state, the background
-boundary writer).  There is no mesh, no orbax and no multihost
-(each raises earlier, in ``train/epoch.py``).
+"""Machinery of the epoch and stream trainers — the JAX package's
+``train/loop.py``, ported: workspace, writer, test fixture, model and state
+construction, resume, periodic reconstruction, the best/last model
+bookkeeping, and the boundary machinery of the device-resident engines
+(one shared host copy of the state, the background boundary writer).
+
+Under several ranks (``parallel/mesh.py``) :func:`setup` builds the mesh
+and broadcasts rank 0's params, rank 0 creates ``run-NNN`` and broadcasts
+its path (:func:`_make_workspace_coordinated`), every rank restores the
+checkpoint rank 0 found, and only rank 0 writes: TensorBoard (the others
+get a writer that drops everything), wavs, checkpoints, the best and last
+models, the config snapshot (the console log: ``train/stream.py``).  The
+state is replicated bit for bit, so rank 0's copy is the run's and every
+fetch of it is local (JAX's ``_host_params`` gathers shards that no
+process holds whole; a replicated state has none).  Orbax checkpoints stay
+a raise (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -23,8 +33,10 @@ from rawaudiovae_kelsey_tpu_torch.config.workspace import (
     Workspace,
     create_workspace,
     iter_runs,
+    open_workspace,
 )
 from rawaudiovae_kelsey_tpu_torch.data.datasets import TestFrameDataset
+from rawaudiovae_kelsey_tpu_torch.data.loader import pad_batches_for_mesh
 from rawaudiovae_kelsey_tpu_torch.eval.fixtures import init_test_audio
 from rawaudiovae_kelsey_tpu_torch.io import write_wav
 from rawaudiovae_kelsey_tpu_torch.models.registry import (
@@ -32,6 +44,18 @@ from rawaudiovae_kelsey_tpu_torch.models.registry import (
     build_model,
 )
 from rawaudiovae_kelsey_tpu_torch.observe import EventWriter, StepTimer
+from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    batch_sharding,
+    broadcast_tensors,
+    broadcast_text,
+    is_coordinator,
+    local_device,
+    make_mesh,
+    maybe_initialize_distributed,
+    world_size,
+)
 from rawaudiovae_kelsey_tpu_torch.parallel.step import (
     build_eval_step,
     build_train_step,
@@ -53,6 +77,7 @@ class TrainContext:
     eval_step: Callable
     writer: EventWriter
     timer: StepTimer
+    mesh: Optional[Mesh] = None
     test_dataset: Optional[TestFrameDataset] = None
     audio_log_dir: Optional[Path] = None
     best_loss: float = float("inf")
@@ -62,6 +87,23 @@ class TrainContext:
 
     def close(self) -> None:
         self.writer.close()
+
+
+class NullWriter:
+    """The TensorBoard writer of a rank other than 0: takes every call,
+    writes nothing."""
+    path = None
+
+    def add_scalar(self, *args, **kwargs) -> None:
+        pass
+
+    add_histogram = add_audio = add_scalar
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def describe_device(device: torch.device) -> str:
@@ -85,36 +127,71 @@ def summarize(params) -> str:
 def setup(cfg: Config, device: torch.device | str,
           resume: Optional[bool] = None) -> TrainContext:
     """Everything up to (but excluding) the batch loop, mirroring the
-    preamble of the reference script (train.py:88-163)."""
-    device = torch.device(device)
+    preamble of the reference script (train.py:88-163).  ``[tpu]
+    multihost``, ``coordinator_address`` or torchrun's ``WORLD_SIZE``
+    joins the process group first
+    (``parallel/mesh.py`` ``maybe_initialize_distributed``); in a group of
+    several ranks the trainer runs on a mesh of them, and asking for
+    ``data_parallel > 1`` outside one raises (no rank trains alone where
+    several were asked for)."""
+    device = local_device(device)
     cfg.validate()
     cfg.stamp_start()
+    # a process torchrun started is a rank whatever the config says: it
+    # joins the group rather than train a copy of its own
+    if (cfg.tpu.multihost or cfg.tpu.coordinator_address
+            or "WORLD_SIZE" in os.environ):
+        maybe_initialize_distributed(cfg.tpu.coordinator_address,
+                                     device=device)
+    mesh = None
+    if world_size() > 1:
+        mesh = make_mesh(cfg.tpu.data_parallel, cfg.tpu.model_parallel,
+                         device)
+    elif cfg.tpu.data_parallel > 1:
+        raise ValueError(
+            f"[tpu] data_parallel = {cfg.tpu.data_parallel} but this process "
+            "is not part of a group of ranks: the train and stream commands "
+            "start the ranks on one host; across hosts use torchrun with "
+            "[tpu] multihost = true")
     device_name = describe_device(device)
+    if mesh is not None:
+        device_name += f" (rank {mesh.rank} of {mesh.size})"
     print(f"Device: {device_name}")
     cfg.vae.device_name = device_name
 
-    ws = create_workspace(cfg)
+    ws = _make_workspace_coordinated(cfg)
     print(f"Workspace: {ws.workdir}")
 
     model = build_model(cfg, device)
     params = model.init(torch.Generator().manual_seed(cfg.tpu.seed))
     state = TrainState.create(params, seed=cfg.tpu.seed)
+    if mesh is not None:
+        # every replica starts from rank 0's params: equal gradients then
+        # keep them equal bit for bit
+        broadcast_tensors(tree_leaves(state.params))
     if cfg.extra.plot_model:
         print(summarize(params))
 
     ctx = TrainContext(
         cfg=cfg, workspace=ws, model=model, state=state,
-        train_step=build_train_step(model, cfg),
-        eval_step=build_eval_step(model, cfg),
-        writer=EventWriter(ws.log_dir), timer=StepTimer(device=device),
+        train_step=build_train_step(model, cfg, mesh=mesh),
+        eval_step=build_eval_step(model, cfg, mesh=mesh),
+        writer=EventWriter(ws.log_dir) if is_coordinator() else NullWriter(),
+        timer=StepTimer(device=device), mesh=mesh,
     )
 
-    # resume (new capability; the reference never reloaded checkpoints)
+    # resume (new capability; the reference never reloaded checkpoints);
+    # every rank restores the file rank 0 found
     want_resume = cfg.training.resume if resume is None else resume
     if want_resume:
-        latest = _find_resume_checkpoint(cfg, exclude=ws.workdir)
-        if latest is not None:
-            ctx.state, meta = ckpt.restore_checkpoint(latest, ctx.state)
+        latest = None
+        if is_coordinator():
+            found = _find_resume_checkpoint(cfg, exclude=ws.workdir)
+            latest = "" if found is None else str(found)
+        latest = broadcast_text(latest)
+        if latest:
+            ctx.state, meta = ckpt.restore_checkpoint(Path(latest),
+                                                      ctx.state)
             ctx.start_step = ctx.state.step
             ctx.best_loss = float(meta.get("best_loss", float("inf")))
             ctx.start_meta = meta
@@ -133,6 +210,36 @@ def setup(cfg: Config, device: torch.device | str,
 
     ws.snapshot_config(cfg)
     return ctx
+
+
+def _make_workspace_coordinated(cfg: Config) -> Workspace:
+    """One rank: plain ``create_workspace``.  Several: rank 0 creates
+    ``run-NNN`` and broadcasts the path, the others open it (independent
+    creation would race into N distinct run dirs).  The path travels in a
+    length-prefixed buffer, so an over-long one fails on every rank."""
+    if world_size() <= 1:
+        return create_workspace(cfg)
+    ws = failed = None
+    if is_coordinator():
+        try:
+            ws = create_workspace(cfg)
+        except OSError as err:
+            failed = err     # raised after the broadcast, on every rank
+    path = broadcast_text("" if ws is None else str(ws.workdir.resolve()))
+    if failed is not None:
+        raise failed
+    if not path:
+        raise RuntimeError("rank 0 could not create the run workspace")
+    cfg.dataset.workspace = path
+    if ws is not None:
+        return ws
+    # the dir may take a moment to appear on shared storage
+    p = Path(path)
+    for _ in range(100):
+        if p.is_dir():
+            break
+        time.sleep(0.05)
+    return open_workspace(p)
 
 
 def _find_resume_checkpoint(cfg: Config,
@@ -154,19 +261,31 @@ def _find_resume_checkpoint(cfg: Config,
 def reconstruct_test_set(ctx: TrainContext, step_label: int) -> np.ndarray:
     """Periodic eval reconstruction (train.py:214-237): run the full test set
     through the model, flatten to one waveform, write
-    ``test_reconst_{step:05d}.wav`` and log it as TB audio."""
+    ``test_reconst_{step:05d}.wav`` and log it as TB audio.  Under a mesh
+    every rank takes part (a collective): each batch is wrap-padded to the
+    world size, each rank reconstructs its block, the blocks are
+    all-gathered and the pad dropped; rank 0 writes."""
     assert ctx.test_dataset is not None and ctx.audio_log_dir is not None
     device = ctx.model.device
+    mesh = ctx.mesh
     outs = []
     for i, batch in enumerate(
         ctx.test_dataset.batches(ctx.cfg.training.batch_size)
     ):
+        rows = batch.shape[0]
+        if mesh is not None:
+            (batch,) = pad_batches_for_mesh([batch], mesh.data)
+            batch = batch[batch_sharding(mesh, batch.shape[0])]
         x = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
         recon = ctx.eval_step(ctx.state.params,
                               eval_generator(device, ctx.state.seed, i),
                               x.to(device))
+        if mesh is not None:
+            recon = all_gather_rows(recon)[:rows]
         outs.append(recon.float().cpu().numpy())
     wave = np.concatenate(outs, axis=0).reshape(-1)
+    if not is_coordinator():
+        return wave  # every rank computed (a collective); one writes
     if ctx.cfg.extra.normalize_examples:
         # the reference's dead normalize_examples key (default.ini:35,
         # quirk #9), made functional: peak-normalize written examples
@@ -287,7 +406,9 @@ def log_param_histograms(ctx: TrainContext, step: int,
     ``fc1.bias``; train.py:203-204); the other families log under dotted
     tree names (``enc.0.w``, ``mu_head.b``), leaves as stored.  ``params``
     may pass a pre-fetched host tree (:func:`fetch_host_state`) to skip the
-    device pull."""
+    device pull.  Rank 0 only."""
+    if not is_coordinator():
+        return
     params = ctx.state.params if params is None else params
     if ctx.model.name != "dense":
         for name, leaf in flatten(params):
@@ -330,10 +451,11 @@ def maybe_save_best(ctx: TrainContext, train_loss: float, step_label: int,
     if step_label > after and train_loss < ctx.best_loss:
         ctx.best_loss = train_loss
         ctx.cfg.training.best_epoch = str(step_label)
-        path = ctx.workspace.model_dir / "best_model.npz"
-        ckpt.save_params(path, ctx.state.params if host_params is None
-                         else host_params)
-        print(f"Step {step_label:05d}: Saved {path}")
+        if is_coordinator():
+            path = ctx.workspace.model_dir / "best_model.npz"
+            ckpt.save_params(path, ctx.state.params if host_params is None
+                             else host_params)
+            print(f"Step {step_label:05d}: Saved {path}")
         return True
     if train_loss > ctx.best_loss:
         print("Loss did not improve.")
@@ -343,8 +465,9 @@ def maybe_save_best(ctx: TrainContext, train_loss: float, step_label: int,
 def save_last(ctx: TrainContext, host_params: Optional[Params] = None
               ) -> Path:
     path = ctx.workspace.model_dir / "last_model.npz"
-    ckpt.save_params(path, ctx.state.params if host_params is None
-                     else host_params)
+    if is_coordinator():
+        ckpt.save_params(path, ctx.state.params if host_params is None
+                         else host_params)
     print("Training Finished: Saved the last model")
     return path
 

@@ -29,10 +29,26 @@ through one gate, :func:`resident_plan`:
     host never builds an audio batch.
 ``auto`` takes the resident engine where the plan fits and otherwise prints
 the plan and trains host-fed; ``always`` raises where it does not fit.
+
+Under several ranks (``parallel/mesh.py``; the ``stream`` command starts
+them on one host) each rank streams its own file shard (the JAX multihost
+branch: the dataset seeded ``seed + rank``), ``batch_size / world`` rows a
+step through the mesh step; the host-fed engine checks ``batch_size %
+world`` up front (JAX ``:178-190``: "divisible by the per-host device
+count").  The resident engine keeps the ``frames`` layout (JAX's
+``resident_layout = auto`` rule: the mesh paths address frame rows), each
+rank's frames on its own card and its own index plan, so its rows are the
+host-fed engine's and the two engines' losses are equal bit for bit; an
+indivisible ``batch_size`` there pads the ranks' index batches to one size
+with rows of weight 0 (the row-weighted loss).  The gate's decision comes
+from all-gathered sizes, the same on every rank, and a stop flag acts only
+by agreement, at the JAX cadences (every ``sync_every`` batches host-fed;
+at histogram and checkpoint crossings and every 8th chunk resident).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from typing import List, NamedTuple, Optional, Tuple
@@ -49,8 +65,17 @@ from rawaudiovae_kelsey_tpu_torch.data.loader import (
 from rawaudiovae_kelsey_tpu_torch.data.validate import check_before_training
 from rawaudiovae_kelsey_tpu_torch.io import wav_info
 from rawaudiovae_kelsey_tpu_torch.observe.logging import tee_stdout
+from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_ints,
+    host_shard_info,
+    is_coordinator,
+)
 from rawaudiovae_kelsey_tpu_torch.train import loop as L
-from rawaudiovae_kelsey_tpu_torch.train.epoch import check_supported
+from rawaudiovae_kelsey_tpu_torch.train.epoch import (
+    _sync_stop,
+    check_supported,
+)
 from rawaudiovae_kelsey_tpu_torch.train.interrupt import GracefulInterrupt
 
 # the device memory the resident stream needs beside the corpus: the train
@@ -76,9 +101,11 @@ def train(cfg: Config, verbose: bool = True,
         raise FileNotFoundError(datapath.resolve())
     check_supported(cfg, device)
     ctx = L.setup(cfg, device)
+    # one console log: rank 0's
+    tee = (tee_stdout(ctx.workspace.console_log_path) if is_coordinator()
+           else contextlib.nullcontext())
     try:
-        with tee_stdout(ctx.workspace.console_log_path), \
-                GracefulInterrupt() as stop:
+        with tee, GracefulInterrupt() as stop:
             return _run(ctx, cfg, verbose, stop)
     finally:
         L.finish(ctx)
@@ -94,24 +121,30 @@ class ResidentPlan(NamedTuple):
 
 
 def resident_plan(dataset: StreamingFrameDataset, cfg: Config,
-                  device: torch.device) -> Optional[ResidentPlan]:
+                  device: torch.device, mesh: Optional[Mesh] = None
+                  ) -> Optional[ResidentPlan]:
     """Size the device-resident stream in the layout it will take —
     ``samples`` (the hop-padded audio plus an int32 start per frame) when
     ``[tpu] resident_layout`` says so or is ``auto`` with overlapping
-    windows, else the ``frames`` matrix — against ``[tpu]
-    resident_budget_gb``, on a card also capped by its free memory
-    (``torch.cuda.mem_get_info``) less :data:`RESIDENT_STEP_BYTES`.
+    windows, else the ``frames`` matrix; always ``frames`` on a mesh —
+    against ``[tpu] resident_budget_gb``, on a card also capped by its free
+    memory (``torch.cuda.mem_get_info``) less :data:`RESIDENT_STEP_BYTES`.
     A config that asks for microbatch accumulation never fits: the
     resident step takes one full-batch gradient.  ``None`` when a wav
-    header cannot be read."""
+    header cannot be read.  On a mesh the plan is the ranks' worst case,
+    the same on every rank (a rank entering the resident engine's
+    collectives while a peer trains host-fed would hang them): any
+    unreadable header gives ``None``; the largest corpus against the
+    smallest budget."""
     est = _estimate_stream_frames(dataset, cfg)
-    if est is None:
-        return None
-    frames, samples = est
     seg, hop = cfg.audio.segment_length, cfg.audio.hop_length
     dtype_bytes = 2 if cfg.tpu.precision == "bfloat16" else 4
     want = cfg.tpu.resident_layout
-    if want == "samples" or (want == "auto" and hop < seg):
+    frames = samples = -1
+    if est is not None:
+        frames, samples = est
+    if mesh is None and (want == "samples" or (want == "auto"
+                                               and hop < seg)):
         layout, need = "samples", samples * dtype_bytes + 4 * frames
     else:
         layout, need = "frames", frames * seg * dtype_bytes
@@ -119,6 +152,14 @@ def resident_plan(dataset: StreamingFrameDataset, cfg: Config,
     if device.type == "cuda":
         free, _total = torch.cuda.mem_get_info(device)
         budget = min(budget, free - RESIDENT_STEP_BYTES)
+    if mesh is not None:
+        sizes = all_gather_ints([frames, need, budget])
+        if int(sizes[:, 0].min()) < 0:
+            est = None
+        frames = int(sizes[:, 0].min())
+        need, budget = int(sizes[:, 1].max()), int(sizes[:, 2].min())
+    if est is None:
+        return None
     micro = cfg.tpu.microbatch_size
     micro_ok = not (micro and cfg.training.batch_size > micro)
     return ResidentPlan(layout, frames, need, budget,
@@ -153,6 +194,8 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
         audio_dir, cfg.audio.sampling_rate,
         cfg.dataset.check_dataset, cfg.dataset.check_audio,
     )
+    # a rank streams its own file shard (JAX's per-host stream)
+    host_id, num_hosts = host_shard_info()
     dataset = StreamingFrameDataset(
         audio_dir,
         cfg.audio.sampling_rate,
@@ -160,16 +203,19 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
         cfg.audio.segment_length,   # quirk #2 fix: honors config
         shuffle=True,
         mono=cfg.dataset.mono,
-        seed=cfg.tpu.seed,
+        seed=cfg.tpu.seed + host_id,
+        host_id=host_id,
+        num_hosts=num_hosts,
     )
     cfg.dataset.total_frames = str(cfg.training.total_num_frames)
     ctx.workspace.snapshot_config(cfg)
     device = ctx.model.device
+    mesh = ctx.mesh
 
     # the resident gate: size the layout the resident stream would take
     # against the budget, then run the engine it chooses
     if cfg.tpu.device_resident != "never":
-        plan = resident_plan(dataset, cfg, device)
+        plan = resident_plan(dataset, cfg, device, mesh)
         if plan is not None and plan.fits:
             return _run_resident(ctx, cfg, verbose, stop, dataset,
                                  total_num_batches, plan.layout)
@@ -196,11 +242,22 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
     if start_batch:
         print(f"Resuming at batch {start_batch}")
 
+    rank_batch = batch_size
+    if mesh is not None:
+        # checked UP FRONT: an indivisible batch would leave the ranks
+        # unequal blocks
+        if batch_size % mesh.data:
+            raise ValueError(
+                f"batch_size {batch_size} must be divisible by the world "
+                f"size ({mesh.data}) for host-fed mesh streaming")
+        rank_batch = batch_size // mesh.data
+
     # islice(start, stop): regenerating and SKIPPING the first start_batch
     # batches keeps the stream order aligned on resume (taking the first
-    # `remaining` would retrain already-seen data and drop the tail)
+    # `remaining` would retrain already-seen data and drop the tail); each
+    # rank prefetches only its own rows onto its own device
     feed = prefetch_to_device(
-        itertools.islice(dataset.batches(batch_size), start_batch,
+        itertools.islice(dataset.batches(rank_batch), start_batch,
                          start_batch + remaining),
         device, depth=cfg.tpu.prefetch, cast_dtype=feed_dtype(cfg),
     )
@@ -230,13 +287,21 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
             ctx.writer.add_scalar("Learning Rate", lr, bid)
         pending.clear()
 
+    # a signal is one rank's: under a mesh the flag is all-reduced at a
+    # fixed batch cadence, the same on every rank, so the collective
+    # always matches up (JAX :226-262)
+    multihost = mesh is not None
+    sync_every = progress_every
+
     try:
         for offset, batch in enumerate(feed):
             batch_id = start_batch + offset
             ctx.state, metrics = ctx.train_step(ctx.state, batch)
             pending.append((batch_id, metrics["loss"]))
 
-            if stop:
+            if (not multihost and stop) or (
+                    multihost and batch_id % sync_every == 0
+                    and _sync_stop(stop, True)):
                 feed.close()
                 drain()
                 print(f"Interrupted at batch {batch_id}; checkpointing.")
@@ -396,11 +461,17 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
     device losses, with no host synchronisation inside (as
     ``parallel/resident.py`` does for epochs).
 
-    The mesh and multihost branches of the JAX engine (the row-weighted
-    loss of padded batches, ``idx_base``, ``_sync_stop``) wait for
-    multi-GPU training."""
+    Under a mesh (JAX ``:360-495``) each rank uploads its own file shard's
+    frames to its own card and replays its own stream's index plan, so a
+    rank's rows are those its host-fed engine would feed; JAX's
+    ``idx_base`` (the offset of a host's block in the stitched global
+    matrix) is 0 by construction, every rank indexing its own tensor.  A
+    ``batch_size`` that does not divide the ranks gives ranks ``⌈B/n⌉`` or
+    ``⌊B/n⌋`` real rows, padded to ``⌈B/n⌉`` with index 0 at weight 0
+    (``pad_rows`` and the row-weighted loss, JAX ``:459-495``)."""
     device = ctx.model.device
     on_cuda = device.type == "cuda"
+    mesh = ctx.mesh
     batch_size = cfg.training.batch_size
     interval = cfg.training.checkpoint_interval
     hist_every = cfg.tpu.histogram_interval
@@ -416,12 +487,21 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
 
     data, starts, n_frames = upload_corpus(dataset, cfg, layout, device)
     chunk = min(MAX_CHUNK, interval or MAX_CHUNK, total_num_batches) or 1
+    rows, pad_rows, weights = batch_size, 0, None
+    if mesh is not None:
+        n, r = mesh.data, mesh.data_index
+        rows = batch_size // n + (r < batch_size % n)
+        pad_rows = -(-batch_size // n) - rows
+        if batch_size % n:
+            # every rank takes the weighted step (its n_real all-reduce)
+            weights = torch.cat([torch.ones(rows), torch.zeros(pad_rows)]
+                                ).to(device)
     # one gather per chunk (the rows of every step at once) where its
     # buffer is small; per-step gathers otherwise
-    pregather = (chunk * batch_size * seg * data.element_size()
+    pregather = (chunk * (rows + pad_rows) * seg * data.element_size()
                  <= PREGATHER_BYTES)
 
-    plan = dataset.index_batches(batch_size)
+    plan = dataset.index_batches(rows)
     # resume: consume the indices the finished batches already used
     for _ in range(start_batch):
         next(plan)
@@ -430,8 +510,12 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
     dataset.release_cache()
     nbytes = data.numel() * data.element_size() + (
         0 if starts is None else starts.numel() * starts.element_size())
+    where = "on device"
+    if mesh is not None:
+        where = (f"rank {mesh.rank}'s shard on its device, sharded over "
+                 f"{mesh.data} ranks")
     print(f"Device-resident stream: {n_frames:,} frames "
-          f"({nbytes / 1e6:,.0f} MB on device, {layout} layout), "
+          f"({nbytes / 1e6:,.0f} MB {where}, {layout} layout), "
           f"{chunk} steps/dispatch")
 
     ks = k_schedule(start_batch, total_num_batches, chunk, interval,
@@ -439,7 +523,11 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
 
     def chunk_plan():
         for k in ks:
-            yield np.stack(list(itertools.islice(plan, k)))
+            batches = list(itertools.islice(plan, k))
+            if pad_rows:       # weight-0 rows; index 0 is always in range
+                batches = [np.concatenate([bb, np.zeros(pad_rows, bb.dtype)])
+                           for bb in batches]
+            yield np.stack(batches)
 
     # index chunks staged onto the device ahead of use: the only host→device
     # traffic of the loop
@@ -447,8 +535,9 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
 
     def run_chunk(idx: torch.Tensor) -> torch.Tensor:
         losses = []
+        extra = () if weights is None else (weights,)
         for xb in chunk_rows(data, starts, idx, seg, pregather):
-            ctx.state, metrics = ctx.train_step(ctx.state, xb)
+            ctx.state, metrics = ctx.train_step(ctx.state, xb, *extra)
             losses.append(metrics["loss"])
         return torch.stack(losses)
 
@@ -502,7 +591,7 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
 
     window_mark = start_batch  # first batch of the current rate window
     try:
-        for idx in staged:
+        for ci, idx in enumerate(staged):
             k = idx.shape[0]
             losses = run_chunk(idx)
             done = None
@@ -528,7 +617,13 @@ def _run_resident(ctx: L.TrainContext, cfg: Config, verbose: bool, stop,
                 if not at_ckpt:
                     L.log_param_histograms(ctx, batch_id)
                 # else: logged in the checkpoint block from its one fetch
-            if stop:
+            # under a mesh the flag is all-reduced where every rank is at
+            # the same chunk: histogram and checkpoint crossings, else every
+            # 8th chunk (the chunk schedule is the same on every rank)
+            stop_now = (bool(stop) if mesh is None
+                        else ((crossed_hist or at_ckpt or ci % 8 == 7)
+                              and _sync_stop(stop, True)))
+            if stop_now:
                 staged.close()
                 drain()
                 if bwriter is not None:

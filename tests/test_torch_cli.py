@@ -2,8 +2,9 @@
 the JAX package's: the ``validate`` command gives the same report and exit
 code on the same folder; every command the docstring documents is
 dispatched and every command it calls unported is one of the JAX CLI's; and
-``data_parallel = 0``, which the JAX package reads as "all devices", says
-that one device is used when several are visible.
+``data_parallel = 0``, which the JAX package reads as "all devices", has
+the ``train`` and ``stream`` commands plan one rank a visible card (a
+library call on one of several cards says that one is used).
 """
 
 import re
@@ -99,17 +100,40 @@ def test_docstring_names_only_real_commands(monkeypatch, capsys):
     (4, "cpu", 0, False), (4, "cuda", 1, False)])
 def test_data_parallel_zero_on_several_gpus_says_one_is_used(
         monkeypatch, capsys, count, device, data_parallel, says):
+    """The commands plan one rank a visible card under ``data_parallel =
+    0`` (a bare ``cuda``), ``data_parallel`` ranks otherwise, and raise for
+    more ranks than cards; only a library call outside a group trains on
+    one of several cards, and says so."""
+    from rawaudiovae_kelsey_tpu_torch.train.cli import plan_ranks
+
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    monkeypatch.delenv("RANK", raising=False)
     cfg = Config()
     cfg.tpu.data_parallel = data_parallel
+    dev = torch.device(device)
+    want = count if (dev.type == "cuda" and dev.index is None
+                     and data_parallel == 0) else 1
+    assert plan_ranks(cfg, dev) == want
     epoch.check_supported(cfg, device)
     out = capsys.readouterr().out
     assert (f"{count} CUDA devices are visible and one is used" in out) \
         == says
     assert out.count("\n") == (1 if says else 0)
     cfg.tpu.data_parallel = 2
-    with pytest.raises(NotImplementedError, match="data_parallel = 2"):
-        epoch.check_supported(cfg, device)
+    epoch.check_supported(cfg, device)          # trains: no raise
+    if dev.type == "cpu":
+        assert plan_ranks(cfg, dev) == 2        # two CPU ranks on gloo
+    elif dev.index is not None:
+        with pytest.raises(ValueError, match="pass --device cuda"):
+            plan_ranks(cfg, dev)
+    elif count >= 2:
+        assert plan_ranks(cfg, dev) == 2
+    else:
+        with pytest.raises(ValueError, match="1 CUDA devices are visible"):
+            plan_ranks(cfg, dev)
+    # a process torchrun started is one rank already: it starts nothing
+    monkeypatch.setenv("RANK", "0")
+    assert plan_ranks(cfg, dev) == 1
 
 
 @pytest.mark.parametrize("trainer", [epoch, stream])

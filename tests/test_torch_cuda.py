@@ -3354,3 +3354,38 @@ def test_som_fit_at_the_command_shape_on_the_card(cuda, n):
     spread = np.linalg.norm(feats - feats.mean(axis=0), axis=1).mean()
     assert abs(qe - qe64) <= 0.05 * spread, (qe, qe64, spread)
     assert gap <= 1e-5, gap
+
+
+# ----------------------------------------------------- data parallelism
+
+@pytest.mark.parametrize("precision,tol", [("bfloat16", 5e-2),
+                                           ("highest", 1e-3)])
+def test_mesh_step_on_the_card_two_ranks_over_gloo(cuda, tmp_path,
+                                                   precision, tol):
+    """Two ranks share the card on a gloo group (tests/torch_ranks.py):
+    their mesh step against the one-device step on the whole batch, within
+    the training-correctness bound (PERF.md §2); the ranks' updates equal
+    bit for bit; the kernels launched on each rank; each rank's sampler
+    words (its folded seed) from the kernel equal the plain Philox, and
+    differ between the ranks."""
+    import torch_ranks
+
+    runs = torch_ranks.launch(torch_ranks.cuda_mesh_step, 2, tmp_path,
+                              precision)
+    assert runs[0]["digest"] == runs[1]["digest"]
+    assert runs[0]["rel"] <= tol
+    assert runs[0]["loss"] == pytest.approx(runs[0]["one_loss"], rel=tol)
+    for r in runs:
+        assert r["launches"]["encoder_fwd"] == 4     # 4 microbatches
+        assert r["words_equal"]
+    assert runs[0]["words"] != runs[1]["words"]
+
+
+def test_mesh_step_on_one_nccl_rank_equals_the_plain_step(cuda, tmp_path):
+    """NCCL at one rank a card: the one-rank mesh step (its all-reduce on
+    NCCL) gives the plain step's update bit for bit."""
+    import torch_ranks
+
+    (run,) = torch_ranks.launch(torch_ranks.cuda_mesh_step, 1, tmp_path,
+                                "bfloat16", backend="nccl")
+    assert run["rel"] == 0.0

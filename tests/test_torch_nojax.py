@@ -24,7 +24,7 @@ SLICE = [
     "ops.linear", "ops.toeplitz", "ops.conv", "ops.linear_bwd", "ops.adam",
     "probes.common", "probes.deep_bwd", "probes.deep_step",
     "probes.adam_fusion", "probes.sass_count",
-    "parallel.step",
+    "parallel.step", "parallel.mesh", "parallel.spmd",
     "parallel.resident", "train.state",
     "train.optim", "train.checkpoint", "train.loop", "train.interrupt",
     "train.epoch", "train.stream", "train.cli", "eval.fixtures", "eval.cli",

@@ -186,11 +186,46 @@ def test_missing_test_dir_raises(scratch_dataset):
     ("multihost", True),
     ("data_parallel", 2), ("model_parallel", 2),
     ("checkpoint_format", "orbax")])
-def test_unported_trainer_options_raise(scratch_dataset, key, value):
-    cfg = small_cfg(Config(), scratch_dataset)
+def test_unported_trainer_options_raise(scratch_dataset, key, value,
+                                        monkeypatch, tmp_path):
+    """``model_parallel > 1`` and orbax still raise naming ROADMAP.md;
+    ``multihost`` joins the group torchrun's environment names (one rank
+    here) and trains; ``data_parallel = 2`` trains on two ranks (CPU
+    processes on gloo, tests/torch_ranks.py) and one rank alone refuses
+    it."""
+    import socket
+
+    import torch.distributed as dist
+
+    import torch_ranks
+
+    cfg = small_cfg(Config(), scratch_dataset, epochs=1, interval=0)
     setattr(cfg.tpu, key, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_train(cfg)
+    if key == "multihost":
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        for name, v in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                        ("MASTER_ADDR", "127.0.0.1"),
+                        ("MASTER_PORT", str(port))):
+            monkeypatch.setenv(name, v)
+        try:
+            ctx = port_train(cfg)
+            assert dist.is_initialized() and dist.get_world_size() == 1
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        assert ctx.state.step == 3 and ctx.mesh is None
+    elif key == "data_parallel":
+        with pytest.raises(ValueError, match="not part of a group"):
+            port_train(cfg)
+        runs = torch_ranks.launch(torch_ranks.train_cfg, 2, tmp_path, cfg)
+        assert runs[0] == runs[1]
+        step, workdir = runs[0]
+        assert step == 1 and workdir.endswith("run-000")
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_train(cfg)
 
 
 def test_loss_history_matches_the_jax_trainer(scratch_dataset, jax_parity):
