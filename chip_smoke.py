@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root
     python3 chip_smoke.py --host-cost   # only the wrappers' host time a call
-    python3 chip_smoke.py --mesh   # the build and phase 13 alone
+    python3 chip_smoke.py --mesh   # the build and phases 13-14 alone
 
 Drives ``rawaudiovae_kelsey_tpu_torch`` (never JAX) through its serving
 and training paths on the card, in phases; each prints what it found, and
@@ -339,7 +339,31 @@ any failure exits non-zero with a traceback (no phase is caught):
    the plain step bit for bit.  With two cards or more every job above
    runs again with one rank a card over NCCL (the step's wall time then a
    scaling figure), and the ``train`` command with ``data_parallel = 0``
-   starts one rank a card itself.
+   starts one rank a card itself;
+14. tensor parallelism (``parallel/sharding.py``,
+   ``parallel/tensor_parallel.py``): the row-parallel forms of rows 1, 2,
+   15 and 16 (``encoder_fwd_partial`` / ``decoder_fwd_partial`` at the
+   dense model's shards in bf16 and fp32, ``linear_partial`` at
+   deep_wide's five row-parallel layers in bf16: fp32 partial sums, no
+   bias, no activation) against their plain versions, equal bits twice,
+   timed in turns with the plain version and, for ``linear_partial``,
+   ``torch.mm(out_dtype=float32)``; then two ranks at ``model_parallel =
+   2`` share the card over gloo: one ``configs/default.ini`` step at bf16
+   (timed beside the one-rank step: no scaling figure), with ``tpu_prng``,
+   at ``high`` and at ``highest``, and one ``configs/deep_wide.ini`` step
+   (pallas, bf16, batch 4096), each against the one-rank step from the
+   same init and global noise (5e-2 bf16, 1e-3 fp32; ``tpu_prng`` only
+   where there is one data index: the sampler folds it), every rank's
+   gathered update equal bit for bit, rows 1, 2 and 7-10 on the tensor
+   cores every microbatch with rows 1 and 2 in their row-parallel form,
+   the fp32 forms on ``csrc/sgemm.cuh``, rows 15-16 on the tensor cores
+   with row-parallel launches, row 13's seed words equal on the model
+   ranks; the bf16 step's state saved in the sharded format at model 2
+   and read back whole at model 1 with equal bits.  With four cards or
+   more the same steps run on a 2x2 mesh over NCCL, one rank a card, and
+   the ``train`` command with ``model_parallel = 2`` and
+   ``checkpoint_format = orbax`` starts one rank a card, writes the
+   sharded format and resumes from it.
 
 Phases 5 and 8 also hold a bf16 kernel step with ``[tpu] remat = true``
 against the same step without it (same state and noise): equal bits of
@@ -386,7 +410,15 @@ three ``adam_fusion`` probe runs of phase 10.  A row on phase 13's path
 also has ``mesh_launches_per_rank``: its launches on each of the two
 ranks there (the bf16 step's rows 1, 2, 7-10, the ``high`` step's 11-12,
 the ``highest`` step's fp32 rows 1, 2, 4-7, the deep step's bf16 15-16,
-the resident epochs' 13).
+the resident epochs' 13); a row on phase 14's path
+``tp_launches_per_rank``: its launches on each rank of the model-2 steps
+there.  The row-parallel forms' rows (``encoder_fwd_partial``,
+``decoder_fwd_partial``: bf16 on the tensor cores, fp32 on
+``csrc/sgemm.cuh``; ``linear_ksplit_fwd_partial`` /
+``linear_fwd_partial``: bf16 on the tensor cores at deep_wide's
+4096x2048->2048 and 4096x512->512 shards) take their launches from phase
+14's steps on rank 0 (bf16: the default.ini and deep_wide steps; fp32: the
+``high`` and ``highest`` steps).
 ``bound_ms`` is the larger of bytes moved (each input read once, each
 output written once) over 3.35 TB/s and operations over the peak of the
 operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
@@ -6947,6 +6979,563 @@ def mesh_nccl_step(rank, world, data):
                                       for a, b in zip(pa, pb))}
 
 
+# ------------------------------------------------------------- phase 14
+#
+# Tensor parallelism (parallel/sharding.py, parallel/tensor_parallel.py):
+# the Megatron split of the model axis, every rank computing on its shards.
+# First the row-parallel forms of rows 1, 2, 15 and 16 (the kernels run on
+# the shards with their epilogue apart: fp32 partial sums, no bias, no
+# activation) against their plain versions at model 2's shard shapes; then
+# two ranks at model 2 that share the one card over gloo (as phase 13's
+# do), and on four cards a 2x2 mesh over NCCL with the train command.
+
+TP_MODEL = 2
+TP_SOURCE = {"encoder_fwd": "rawaudiovae_kelsey_tpu_torch/csrc/mlp.cu",
+             "decoder_fwd": "rawaudiovae_kelsey_tpu_torch/csrc/mlp.cu",
+             "linear_ksplit_fwd": "rawaudiovae_kelsey_tpu_torch/csrc/linear.cu",
+             "linear_fwd": "rawaudiovae_kelsey_tpu_torch/csrc/linear.cu"}
+TP_REPLACES = {
+    "encoder_fwd": "rawaudiovae_kelsey_tpu/ops/pallas_mlp.py:246",
+    "decoder_fwd": "rawaudiovae_kelsey_tpu/ops/pallas_mlp.py:294",
+    "linear_ksplit_fwd": "rawaudiovae_kelsey_tpu/ops/pallas_linear.py:77",
+    "linear_fwd": "rawaudiovae_kelsey_tpu/ops/pallas_linear.py:119"}
+# the deep_wide model's row-parallel layers at model 2, batch 4096: (layer,
+# local contraction, width); the last is the decoder's forced one, its
+# input's columns sliced locally
+TP_DEEP_ROWS = (("enc.1", 2048, 2048), ("enc.3", 512, 512),
+                ("dec.1", 256, 1024), ("dec.3", 1024, 4096),
+                ("dec.4", 2048, 4096))
+TP_DEEP_BATCH = 4096
+# the partial sums against the sums the kernel owes on its own hidden
+# layer (fp32 products of the same rounded operands in another order), fp32
+# and bf16; the hidden layer against the plain version's as the full forms'
+# is held (BF16_REL / GRAD_REL: a bf16 element may sit an ulp off)
+TP_REL = {"fp32": 1e-5, "bf16": 1e-5}
+# the forms held: the kernel "auto" picks, and the first version
+TP_FORMS = ("auto", "cuda_cores")
+
+
+def tp_partial_kernels():
+    """Phase 14's kernel forms against their plain versions on the card:
+    ``encoder_fwd_partial`` / ``decoder_fwd_partial`` at the dense model's
+    shards (units 1024 of 2048) and ``linear_partial`` at deep_wide's
+    row-parallel layers, bf16 (tensor cores) and fp32 (csrc/sgemm.cuh, the
+    `high` and `highest` steps), each form's first version
+    (``kernel="cuda_cores"``) too, each timed in turns with its plain
+    version and its first version and, where one call computes the same
+    function (``torch.mm``, an fp32 output), the library; equal bits on a
+    second launch.  Returns the rows of the kernel line (launches filled
+    later)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp, tensor_cores
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1414)
+    units = UNITS // TP_MODEL
+    rows = {}
+
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return ((torch.rand(shape, generator=g, device=dev) * 2 - 1)
+                * scale).to(dt)
+
+    def held(label, got, want, shard_rows, hidden_rel, rel):
+        """``got`` (the partial sums, then the hidden layer) against the
+        sums on its own hidden layer and the plain version's hidden
+        layer; returns the sums' largest error against the plain
+        version."""
+        for t, w in zip(got, want):
+            check(t.shape == w.shape and t.dtype == w.dtype
+                  and bool(torch.isfinite(t).all()),
+                  f"{label}: shape, dtype or a non-finite value")
+        own = [got[-1].float() @ w.float() for w in shard_rows]
+        e = rel_err(got[:-1], own)
+        e_h = rel_err(got[-1:], want[-1:])
+        print(f"  {label}: rel |sums - own h @ w| {e:.3e}, hidden vs plain "
+              f"{e_h:.3e}")
+        check(e <= rel and e_h <= hidden_rel, f"{label}: error")
+        return max_err(got[:-1], want[:-1])
+
+    for kind, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        enc = (rnd(SEG, units, scale=0.03, dt=dt), rnd(units, scale=0.1,
+                                                        dt=dt),
+               rnd(units, LATENT, scale=0.03, dt=dt),
+               rnd(units, LATENT, scale=0.03, dt=dt))
+        dec = (rnd(LATENT, units, scale=0.06, dt=dt),
+               rnd(units, scale=0.1, dt=dt),
+               rnd(units, SEG, scale=0.03, dt=dt))
+        forms = {
+            "encoder_fwd": (
+                lambda b: rnd(b, SEG, dt=dt),
+                lambda x, k="auto": mlp.encoder_fwd_partial(*enc, x,
+                                                            kernel=k),
+                lambda x: mlp.encoder_fwd_partial_ref(*enc, x),
+                lambda b: 2 * b * (SEG * units + 2 * units * LATENT),
+                enc, enc[2:]),
+            "decoder_fwd": (
+                lambda b: torch.randn((b, LATENT), generator=g,
+                                      device=dev).to(dt),
+                lambda z, k="auto": mlp.decoder_fwd_partial(*dec, z,
+                                                            kernel=k),
+                lambda z: mlp.decoder_fwd_partial_ref(*dec, z),
+                lambda b: 2 * b * (LATENT * units + units * SEG), dec,
+                dec[2:])}
+        hidden_rel = BF16_REL if kind == "bf16" else GRAD_REL
+        for name, (make, kernel, plain, flops, weights, heads) in \
+                forms.items():
+            err = 0.0
+            for b in (TRAIN_BATCH, TRAIN_RAGGED, 1):
+                x = make(b)
+                want = plain(x)
+                for form in TP_FORMS:
+                    label = f"{name}_partial[{kind}] {form} batch {b:>4}"
+                    got = kernel(x, form)
+                    torch.cuda.synchronize()
+                    e = held(label, got, want, heads, hidden_rel,
+                             TP_REL[kind])
+                    check(all(torch.equal(a, c) for a, c in
+                              zip(got, kernel(x, form))),
+                          f"{label}: bits differ on a second launch")
+                    if form == "auto":
+                        err = max(err, e)
+            x = make(TRAIN_BATCH)
+            t, runs = time_in_turns({
+                "kernel": lambda: kernel(x), "plain": lambda: plain(x),
+                "cuda_cores": lambda: kernel(x, "cuda_cores")}, 20)
+            print(f"  {name}_partial[{kind}] batch {TRAIN_BATCH}: kernel "
+                  f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, first "
+                  f"version {t['cuda_cores']:.4f} ms (runs {runs})")
+            rows[f"{name}_partial[{kind}]"] = {
+                "name": f"{name}_partial[{kind}]", "route": "cuda",
+                "source": TP_SOURCE[name], "replaces": TP_REPLACES[name],
+                "max_abs_err": err, "ms": t["kernel"],
+                "plain_ms": t["plain"],
+                **bound(flops(TRAIN_BATCH),
+                        nbytes(x, *weights, *kernel(x)), kind),
+                "library_ms": None, "first_version_ms": t["cuda_cores"]}
+
+    # deep_wide's row-parallel layers: bf16 on the tensor cores (the
+    # step's), fp32 on csrc/sgemm.cuh, and each one's first version
+    timed = {}
+    for kind, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        auto = (tensor_cores.TENSOR_CORES if kind == "bf16"
+                else tensor_cores.SGEMM)
+        for layer, k, n in TP_DEEP_ROWS:
+            ksplit = linear.takes_ksplit(TP_DEEP_BATCH, k, n)
+            name = "linear_ksplit_fwd" if ksplit else "linear_fwd"
+            x = rnd(TP_DEEP_BATCH, k, dt=dt)
+            w = rnd(k, n, scale=k ** -0.5, dt=dt)
+            code = tensor_cores.resolve_kernel(name, "auto", dt,
+                                               TP_DEEP_BATCH, k, n)
+            check(code == auto, f"{name}_partial[{kind}] {layer}: kernel "
+                  f"{code}, expected {auto}")
+            for form in TP_FORMS:
+                errs = []
+                for b in (TP_DEEP_BATCH, TRAIN_RAGGED, 1):
+                    got = linear.linear_partial(x[:b], w, ksplit, form)
+                    want = linear.linear_partial_ref(x[:b], w, ksplit)
+                    torch.cuda.synchronize()
+                    errs.append(rel_err([got], [want]))
+                    check(got.dtype == torch.float32
+                          and errs[-1] <= TP_REL[kind] and torch.equal(
+                              got, linear.linear_partial(x[:b], w, ksplit,
+                                                         form)),
+                          f"{name}_partial[{kind}] {layer} {form} batch "
+                          f"{b}: error {errs[-1]:.3e}")
+                print(f"  {name}_partial[{kind}] {layer} {form} "
+                      f"{TP_DEEP_BATCH}x{k}->{n}: rel |kernel - plain| at "
+                      f"batch {TP_DEEP_BATCH}, {TRAIN_RAGGED}, 1: "
+                      + ", ".join(f"{e:.3e}" for e in errs))
+            if kind == "bf16":
+                timed.setdefault(name, (layer, k, n, x, w, ksplit))
+    for name, (layer, k, n, x, w, ksplit) in timed.items():
+        t, runs = time_in_turns({
+            "kernel": lambda: linear.linear_partial(x, w, ksplit),
+            "plain": lambda: linear.linear_partial_ref(x, w, ksplit),
+            "cuda_cores": lambda: linear.linear_partial(x, w, ksplit,
+                                                        "cuda_cores"),
+            "library": lambda: torch.mm(x, w, out_dtype=torch.float32)}, 20)
+        print(f"  {name}_partial[bf16] {layer}: kernel {t['kernel']:.4f} ms, "
+              f"plain {t['plain']:.4f}, first version "
+              f"{t['cuda_cores']:.4f}, torch.mm(out_dtype=float32) "
+              f"{t['library']:.4f} (runs {runs})")
+        out = linear.linear_partial(x, w, ksplit)
+        rows[f"{name}_partial[bf16]"] = {
+            "name": f"{name}_partial[bf16]", "route": "cuda",
+            "source": TP_SOURCE[name], "replaces": TP_REPLACES[name],
+            "max_abs_err": float((out - linear.linear_partial_ref(
+                x, w, ksplit)).abs().max()),
+            "ms": t["kernel"], "plain_ms": t["plain"],
+            **bound(2 * TP_DEEP_BATCH * k * n, nbytes(x, w, out), "bf16"),
+            "library_ms": t["library"], "first_version_ms": t["cuda_cores"]}
+    return rows
+
+
+def tp_counts():
+    """Reset every wrapper's counters; returns a reader ("<name>",
+    "<name>@tc", "@sgemm", "@partial")."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+
+    tags = (("tensor_core_launches", "tc"), ("sgemm_launches", "sgemm"),
+            ("partial_launches", "partial"))
+    for w in ops.KERNEL_WRAPPERS:
+        w.launches = 0
+        for attr, _ in tags:
+            if hasattr(w, attr):
+                setattr(w, attr, 0)
+
+    def read():
+        out = {}
+        for w in ops.KERNEL_WRAPPERS:
+            out[w.__name__] = w.launches
+            for attr, tag in tags:
+                if hasattr(w, attr):
+                    out[f"{w.__name__}@{tag}"] = getattr(w, attr)
+        return out
+    return read
+
+
+def tp_step_pair(rank, world, cfg, batch, label, timed=0, ckpt_dir=None):
+    """One tensor-parallel step (model 2; data = world / 2) of ``cfg`` on
+    this rank's rows of ``batch`` against the one-rank step on the whole
+    batch (rank 0), same init and global noise: the relative update
+    difference, the gradient's (Adam's first moment, ``0.1 · g`` after one
+    step) relative difference in the leaf where it is largest, the losses,
+    this rank's launches, the digest of the gathered update; with ``timed``, the wall time of ``timed`` steps of
+    each; with ``ckpt_dir``, the state after the step saved in the sharded
+    format and read back whole on rank 0 (model 1)."""
+    import torch.distributed as dist
+
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import rng
+    from rawaudiovae_kelsey_tpu_torch.parallel import (
+        build_train_step,
+        make_mesh,
+    )
+    from rawaudiovae_kelsey_tpu_torch.parallel.mesh import local_rows
+    from rawaudiovae_kelsey_tpu_torch.parallel.sharding import (
+        gather_params,
+        param_specs,
+        shard_params,
+    )
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+    from rawaudiovae_kelsey_tpu_torch.train import checkpoint as ckpt
+    from rawaudiovae_kelsey_tpu_torch.tree import flatten, leaves, tree_map
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(0, TP_MODEL, device=dev)
+    model = build_model(cfg, dev)
+    init = model.init(torch.Generator().manual_seed(0))
+    specs = param_specs(model.name, init, TP_MODEL)
+
+    def noise(step, i, shape):
+        g = torch.Generator().manual_seed(1000 * step + (i or 0))
+        return torch.randn(shape, generator=g)
+
+    def sharded():
+        return TrainState.create(shard_params(tree_map(torch.clone, init),
+                                              mesh, specs), 0)
+
+    rows = local_rows(mesh, len(batch), cfg.tpu.microbatch_size)
+    x_local = torch.from_numpy(np.ascontiguousarray(batch[rows])).to(dev)
+    seeds = []
+    original = rng.reparameterize
+
+    def recording(seed, mu, logvar):
+        seeds.append(tuple(seed))
+        return original(seed, mu, logvar)
+
+    tp_step = build_train_step(model, cfg, noise=noise, mesh=mesh)
+    read = tp_counts()
+    rng.reparameterize = recording
+    try:
+        state, m = tp_step(sharded(), x_local)
+    finally:
+        rng.reparameterize = original
+    torch.cuda.synchronize()
+    counts = read()
+    whole = gather_params(state.params, mesh, specs)
+    whole_mu = gather_params(state.mu, mesh, specs)
+    delta = torch.cat([(a - b).ravel() for a, b in zip(leaves(whole),
+                                                       leaves(init))])
+    out = {"label": label, "launches": counts, "loss_tp": float(m["loss"]),
+           "digest": mesh_digest_tensor(delta), "seeds": seeds[:1],
+           "position": (mesh.data_index, mesh.model_index)}
+    if ckpt_dir is not None:
+        path = ckpt.save_checkpoint_sharded(Path(ckpt_dir), state,
+                                            {"label": label}, label=1,
+                                            mesh=mesh, specs=specs)
+        full = TrainState(params=whole, mu=whole_mu,
+                          nu=gather_params(state.nu, mesh, specs),
+                          count=state.count, seed=state.seed,
+                          step=state.step)
+        if rank == 0:
+            got, _ = ckpt.restore_checkpoint(path, TrainState.create(
+                tree_map(torch.zeros_like, init), 0))
+            out["restored_equal"] = all(
+                torch.equal(a, b) for part in ("params", "mu", "nu")
+                for a, b in zip(leaves(getattr(got, part)),
+                                leaves(getattr(full, part))))
+            out["ckpt_files"] = sorted(p.name for p in path.iterdir())
+        dist.barrier()
+    if rank == 0:
+        one = TrainState.create(tree_map(torch.clone, init), 0)
+        one, m1 = build_train_step(model, cfg, noise=noise)(
+            one, torch.from_numpy(batch).to(dev))
+        d1 = torch.cat([(a - b).ravel() for a, b in
+                        zip(leaves(one.params), leaves(init))])
+        # the gradient leaf by leaf: a leaf's gradient scaled by a
+        # constant (a replicated bias's summed over the model group) moves
+        # Adam's first update by nothing, its first moment by the factor
+        grad_rel = {name: float((a.float() - b.float()).norm()
+                                / b.float().norm())
+                    for (name, a), (_, b) in zip(flatten(whole_mu),
+                                                 flatten(one.mu))
+                    if float(b.float().norm()) > 0}
+        worst = max(grad_rel, key=grad_rel.get)
+        out.update(loss_one=float(m1["loss"]), update_rel=float(
+            (delta - d1).norm() / d1.norm()),
+            max_param_diff=float((delta - d1).abs().max()),
+            grad_rel=grad_rel[worst], grad_worst=worst)
+        del one
+    if timed:
+        tp_step = build_train_step(model, cfg, mesh=mesh)
+        state = sharded()
+        tp_step(state, x_local)                       # warm
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, m = tp_step(state, x_local)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        out["tp_ms"] = (time.perf_counter() - t0) / timed * 1e3
+        dist.barrier()
+        if rank == 0:
+            one_step = build_train_step(model, cfg)
+            x_all = torch.from_numpy(batch).to(dev)
+            state = TrainState.create(tree_map(torch.clone, init), 0)
+            one_step(state, x_all)                    # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                state, m = one_step(state, x_all)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            out["one_ms"] = (time.perf_counter() - t0) / timed * 1e3
+            del state
+        dist.barrier()
+    return out
+
+
+def tp_steps(rank, world, data):
+    """The default.ini step (bf16 timed, with the sharded checkpoint; a
+    `tpu_prng` one; `high`; `highest`) at model 2 against the one-rank
+    step, then one step of configs/deep_wide.ini (pallas, bf16, batch
+    4096)."""
+    cfg = mesh_config("default.ini", data["epoch"])
+    batch = mesh_global_batch(data["epoch"], cfg.training.batch_size, SEG,
+                              cfg.audio.hop_length)
+    out = [tp_step_pair(rank, world, cfg, batch, "bfloat16", timed=3,
+                        ckpt_dir=data["ckpt"])]
+    cfg.tpu.rng = "tpu_prng"
+    out.append(tp_step_pair(rank, world, cfg, batch, "bfloat16 tpu_prng"))
+    cfg.tpu.rng = "threefry"
+    for precision in ("high", "highest"):
+        cfg.tpu.precision = precision
+        out.append(tp_step_pair(rank, world, cfg, batch, precision))
+    del batch
+    deep = mesh_config("deep_wide.ini", data["epoch"], tpu__backend="pallas")
+    r = np.random.default_rng(3)
+    seg = deep.audio.segment_length
+    t = np.arange(deep.training.batch_size * seg).reshape(-1, seg) / SR
+    xb = (0.3 * np.sin(2 * np.pi * 220 * t)
+          + 0.05 * r.standard_normal(t.shape)).astype(np.float32)
+    out.append(tp_step_pair(rank, world, deep, xb, "deep_wide bfloat16"))
+    return out
+
+
+def tp_report(ranks, where: str, card: str) -> dict:
+    """Check and print what the ranks of :func:`tp_steps` found on
+    ``where``; returns the steps by label (each a list over the ranks)."""
+    world = len(ranks)
+    steps = {}
+    for pair in zip(*(r["tp_steps"] for r in ranks)):
+        r0 = pair[0]
+        label = r0["label"]
+        tol = 5e-2 if "bfloat16" in label else 1e-3
+        print(f"  one {world}-rank model-{TP_MODEL} {label} step vs the "
+              f"one-rank step: loss {r0['loss_tp']:.7f} vs "
+              f"{r0['loss_one']:.7f}; |update difference| / |update| = "
+              f"{r0['update_rel']:.3e} (tolerance {tol:g}); max |param "
+              f"difference| {r0['max_param_diff']:.3e}; the gradient's "
+              f"|difference| / |gradient|, its worst leaf "
+              f"({r0['grad_worst']}): {r0['grad_rel']:.3e} (tolerance "
+              f"{tol:g}); every rank's "
+              f"gathered update equal: "
+              f"{len({r['digest'] for r in pair}) == 1}")
+        if "tpu_prng" in label and world > TP_MODEL:
+            # the sampler folds the data index into its seed words: two
+            # data indices draw another noise than one rank does (JAX's
+            # sharded sampler too), so the update is not compared
+            print("    (tpu_prng on several data indices: the noise is "
+                  "another draw than one rank's; not compared)")
+            check(np.isfinite(r0["loss_tp"]), f"{label}: loss not finite")
+        else:
+            check(r0["update_rel"] <= tol and r0["grad_rel"] <= tol
+                  and abs(r0["loss_tp"] / r0["loss_one"] - 1) <= tol,
+                  f"{label}: the tensor-parallel step and the one-rank "
+                  "step disagree")
+        # equal gathered updates: the data replicas and the replicated
+        # leaves of every model rank agree bit for bit
+        check(len({r["digest"] for r in pair}) == 1,
+              f"{label}: the ranks' updates differ")
+        for rank, r in enumerate(pair):
+            got = {k: v for k, v in r["launches"].items() if v}
+            print(f"    rank {rank} {r['position']} launches: {got}")
+        steps[label] = pair
+    micro = 16
+    for rank, r in enumerate(steps["bfloat16"]):
+        c = r["launches"]
+        for name in ("encoder_fwd", "decoder_fwd", "grad_accum",
+                     "enc_bwd_dw1", "grad_accum2", "dec_bwd_fused"):
+            check(c[name] == micro and c[f"{name}@tc"] == micro,
+                  f"rank {rank}: bf16 step {name} {c[f'{name}@tc']} of "
+                  f"{c[name]} on the tensor cores, expected {micro} of "
+                  f"{micro}")
+        for name in ("encoder_fwd", "decoder_fwd"):
+            check(c[f"{name}@partial"] == micro, f"rank {rank}: {name} "
+                  f"{c[f'{name}@partial']} row-parallel launches, expected "
+                  f"{micro}")
+    for label in ("high", "highest"):
+        for rank, r in enumerate(steps[label]):
+            c = r["launches"]
+            for name in ("encoder_fwd", "decoder_fwd"):
+                check(c[f"{name}@partial"] == micro
+                      and c[f"{name}@sgemm"] == micro,
+                      f"rank {rank}: `{label}` {name}: the fp32 partial "
+                      "form not on csrc/sgemm.cuh every microbatch")
+            names = (("enc_bwd_full", "dec_bwd_full") if label == "high"
+                     else ("matmul_nt", "matmul_nt_mask", "matmul_nt2_mask",
+                           "grad_accum"))
+            for name in names:
+                check(c[name] > 0, f"rank {rank}: `{label}` {name} never "
+                      "launched")
+    for rank, r in enumerate(steps["deep_wide bfloat16"]):
+        c = r["launches"]
+        for name in ("linear_ksplit_fwd", "linear_fwd"):
+            check(c[name] > 0 and c[f"{name}@tc"] == c[name]
+                  and c[f"{name}@partial"] > 0,
+                  f"rank {rank}: deep step {name}: {c[f'{name}@tc']} of "
+                  f"{c[name]} on the tensor cores, "
+                  f"{c[f'{name}@partial']} row-parallel")
+    prng = steps["bfloat16 tpu_prng"]
+    by_data = {}
+    for r in prng:
+        check(r["launches"]["reparameterize_prng"] > 0 and r["seeds"],
+              "tpu_prng: row 13 never launched")
+        by_data.setdefault(r["position"][0], set()).add(r["seeds"][0])
+    check(all(len(s) == 1 for s in by_data.values())
+          and len({next(iter(s)) for s in by_data.values()}) == len(by_data),
+          "tpu_prng: the model ranks of a data index drew different seed "
+          "words, or two data indices drew the same")
+    print(f"  tpu_prng: the sampler's seed words by data index {by_data} "
+          "(equal on the model ranks of a data index)")
+    r0 = steps["bfloat16"][0]
+    check(r0["restored_equal"] and "shard_00001-of-00002.npz"
+          in r0["ckpt_files"], "the sharded checkpoint saved at model 2 "
+          "does not restore at model 1 with equal bits")
+    print(f"  sharded checkpoint at model {TP_MODEL} ({r0['ckpt_files']}) "
+          "restored at model 1: equal bits for every leaf of params, mu "
+          "and nu")
+    bf = steps["bfloat16"]
+    shared = "gloo" in where
+    print(f"  wall time of a default.ini bf16 step (batch 131072, the "
+          f"steps' own noise), host clock over 3 steps ending in a sync: "
+          f"{world} ranks at model {TP_MODEL}, {where}: "
+          + " / ".join(f"{r['tp_ms']:.1f}" for r in bf)
+          + f" ms (rank 0 / ...), one rank {bf[0]['one_ms']:.1f} ms [{card}]"
+          + (" — no scaling figure: the ranks share one card" if shared
+             else " — one rank a card"))
+    return steps
+
+
+def tp_command(data: Path, tmp: Path, cards: int) -> None:
+    """The ``train`` command with ``model_parallel = 2`` and the sharded
+    format on every visible card (``data_parallel = 0``: cards / 2 data
+    indices), then ``--resume``: the step count continues."""
+    from rawaudiovae_kelsey_tpu_torch.config import save_config
+    from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
+    from rawaudiovae_kelsey_tpu_torch.train.cli import main as train_cli
+
+    cfg = mesh_config("default.ini", data, training__epochs=1,
+                      training__checkpoint_interval=0,
+                      extra__description="tp_command",
+                      tpu__model_parallel=TP_MODEL,
+                      tpu__checkpoint_format="orbax",
+                      tpu__async_checkpoint=True)
+    ini = tmp / "tp_command.ini"
+    save_config(cfg, ini)
+    t0 = time.perf_counter()
+    first = tee_stdout(lambda: train_cli(["--config", str(ini)]))
+    cfg.training.epochs = 2
+    save_config(cfg, ini)
+    second = tee_stdout(lambda: train_cli(["--config", str(ini),
+                                           "--resume"]))
+    runs = iter_runs(data / "tp_command")
+    found = [sorted(p.name for p in (r / "model" / "checkpoints").iterdir())
+             for r in runs]
+    losses = [read_scalars(r / "logs", "Loss/Batch") for r in runs]
+    steps = [json.loads((r / "model" / "checkpoints" / f[0] / "index.json")
+                        .read_text())["step"] for r, f in zip(runs, found)]
+    print(f"  the train command, model_parallel = {TP_MODEL} on {cards} "
+          f"cards, then --resume: {time.perf_counter() - t0:.1f} s, "
+          f"checkpoints {found} at steps {steps}, Loss/Batch steps "
+          f"{[sorted(x) for x in losses]}")
+    # the resumed run trains the second epoch alone: its first logged step
+    # is the first run's last step + 1, and its checkpoint's step twice it
+    check(f"train: starting {cards} ranks (cuda, nccl)" in first
+          and f"train: starting {cards} ranks (cuda, nccl)" in second
+          and len(runs) == 2
+          and found == [["orbax_00001"], ["orbax_00002"]]
+          and steps[1] == 2 * steps[0] > 0
+          and min(losses[1]) == steps[0] == max(losses[0]) + 1
+          and all((r / "model" / "last_model.npz").is_file() for r in runs)
+          and (runs[0] / "model" / "checkpoints" / "orbax_00001" /
+               f"shard_00001-of-{TP_MODEL:05d}.npz").is_file(),
+          "the train command did not train at model 2, save the sharded "
+          "format and resume from it")
+
+
+def phase_tp(tmp: Path, card: str) -> dict:
+    """Phase 14: tensor parallelism through the step and the trainers."""
+    t_phase = time.perf_counter()
+    data = {"epoch": tmp / "epoch", "ckpt": tmp / "tp_ckpt"}
+    write_corpus(data["epoch"], 2 * 70000, 128, SEG)
+    jobs = [("tp_steps", data)]
+    t0 = time.perf_counter()
+    ranks = mesh_start(TP_MODEL, "gloo", jobs, tmp)
+    print(f"  {TP_MODEL} ranks at model {TP_MODEL} sharing the card over "
+          f"gloo: {time.perf_counter() - t0:.1f} s, the ranks' start "
+          "included")
+    steps = tp_report(ranks, "sharing ONE card over gloo", card)
+    cards = torch.cuda.device_count()
+    if cards >= 2 * TP_MODEL:
+        t0 = time.perf_counter()
+        data["ckpt"] = tmp / "tp_ckpt_nccl"
+        across = mesh_start(2 * TP_MODEL, "nccl", [("tp_steps", data)], tmp)
+        print(f"  {2 * TP_MODEL} ranks, one a card, a {2}x{TP_MODEL} mesh "
+              f"over NCCL: {time.perf_counter() - t0:.1f} s, the ranks' "
+              "start included")
+        check(all(r["backend"] == "nccl" for r in across), "not NCCL")
+        tp_report(across, f"one a card over NCCL ({2 * TP_MODEL} cards)",
+                  card)
+        tp_command(data["epoch"], tmp, cards)
+    else:
+        print(f"  the 2x{TP_MODEL} mesh over NCCL: not run ({cards} card "
+              "visible)")
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return steps
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda."
           "is_available() is false)")
@@ -6990,11 +7579,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     if sys.argv[1:] == ["--mesh"]:
-        # phase 13 alone (a machine with several cards runs its NCCL
-        # half across them)
+        # phases 13 and 14 alone (a machine with several cards runs their
+        # NCCL halves across them)
         print("phase 13: data parallelism")
         with tempfile.TemporaryDirectory() as tmp:
             phase_mesh(Path(tmp), smi.stdout.strip())
+        print("phase 14: tensor parallelism")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_tp(Path(tmp), smi.stdout.strip())
         print(smi.stdout.strip())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7140,6 +7732,12 @@ def main() -> int:
           "gloo; NCCL at one rank a card)")
     with tempfile.TemporaryDirectory() as tmp:
         mesh = phase_mesh(Path(tmp), card)
+    print("phase 14: tensor parallelism (the row-parallel kernel forms; two "
+          "ranks at model 2 sharing the card over gloo)")
+    with torch.no_grad():
+        tp_rows = tp_partial_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = phase_tp(Path(tmp), card)
     # the 3-pass chains against the same products in one fp32 pass: the
     # fp32 split kernels launch the chains' GEMMs without the split
     ms = {k: r["ms"] for k, r in train_rows.items()}
@@ -7250,6 +7848,34 @@ def main() -> int:
             pair = [r["launches"] for r in steps["highest"]]
         if pair is not None and all(p.get(name) for p in pair):
             row["mesh_launches_per_rank"] = [p[name] for p in pair]
+    # phase 14's launches a rank of the rows on its path: the bf16 steps'
+    # rows 1, 2, 7-10 and 13, the `high` step's 11-12, the `highest`
+    # step's fp32 rows 1, 2, 4-7, the deep step's bf16 15-16
+    for key, row in rows.items():
+        name, kind = (key[:-1].split("[") if "[" in key else (key, "fp32"))
+        if name == "reparameterize_prng":
+            label = "bfloat16 tpu_prng"
+        elif name in ("linear_ksplit_fwd", "linear_fwd"):
+            label = "deep_wide bfloat16" if kind == "bf16" else None
+        elif name in ("enc_bwd_full", "dec_bwd_full"):
+            label = "high"
+        else:
+            label = "bfloat16" if kind == "bf16" else "highest"
+        ranks_ = tp.get(label, ()) if label else ()
+        if ranks_ and all(r["launches"].get(name) for r in ranks_):
+            row["tp_launches_per_rank"] = [r["launches"][name]
+                                           for r in ranks_]
+    # the row-parallel forms: their launches in phase 14's steps (rank 0)
+    for key, row in tp_rows.items():
+        name, kind = key[:-1].split("[")
+        name = name[:-len("_partial")]
+        labels = (("deep_wide bfloat16",) if name.startswith("linear")
+                  else ("bfloat16",) if kind == "bf16"
+                  else ("high", "highest"))
+        row["launches"] = sum(tp[label][0]["launches"][f"{name}@partial"]
+                              for label in labels)
+        check(row["launches"] > 0, f"{key}: no launch on its main path")
+    rows.update(tp_rows)
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

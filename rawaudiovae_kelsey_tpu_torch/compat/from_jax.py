@@ -10,7 +10,8 @@ exact.
 A train state crosses as the JAX ``TrainState``'s leaves, in
 ``jax.tree_util`` flatten order — params, optax Adam's count, mu and nu,
 the threefry key, the step — the layout of the checkpoint files
-(``train/checkpoint.py``).  The JAX side takes them back with
+(``train/checkpoint.py``).  :func:`params_to_shards` carries a JAX params
+tree onto a tensor-parallel rank (whole leaves, then the rank's shards).  The JAX side takes them back with
 ``jax.tree_util.tree_unflatten(treedef, leaves)``.
 """
 
@@ -21,6 +22,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.parallel.sharding import shard_params
 from rawaudiovae_kelsey_tpu_torch.train.checkpoint import (
     state_from_leaves,
     state_leaves,
@@ -35,6 +37,15 @@ def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> Any:
     tensors on ``device``."""
     return tree_map(
         lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree)
+
+
+def params_to_shards(tree: Any, mesh, specs: Any,
+                     device: torch.device | str = "cpu") -> Any:
+    """A JAX params tree (NumPy) → the whole leaves as tensors → this
+    rank's shards under ``specs`` on ``mesh`` (``parallel/sharding.py``
+    ``shard_params``): the route that puts both packages' weights onto a
+    tensor-parallel rank."""
+    return shard_params(params_from_jax(tree, device), mesh, specs)
 
 
 def params_to_jax(params: Any) -> Any:

@@ -148,6 +148,43 @@ int tensor_core_linear(const void* x, const void* w, const void* b, void* y,
                                      batch, n, k, tile_n, s);
 }
 
+// The row-parallel forms (tensor parallelism, parallel/tensor_parallel.py):
+// y = x @ w in fp32, the sums as they are, no bias, no activation; the ranks
+// add their partial sums, then the bias, the activation and the one
+// rounding follow.  The first version is linear_fwd's whole-k GEMM with an
+// fp32 output, or the k-split's two stages with an fp32 output and nothing
+// added in the second.
+template <typename T>
+cudaError_t linear_partial(const T* x, const T* w, float* y, int batch,
+                           int k, int n, cudaStream_t s) {
+  rvk::Gemm<T, T, float> g = {};
+  g.a = rvk::view(x, k, k);
+  g.out[0].b = rvk::view(w, n, k);
+  g.out[0].c = y;
+  g.M = batch, g.N = n, g.K = k;
+  g.act = rvk::kActNone;
+  return rvk::launch_gemm<rvk::kKContig, rvk::kRContig>(g, 1, s);
+}
+
+template <typename T>
+cudaError_t linear_ksplit_partial(const T* x, const T* w, float* y,
+                                  float* ws, int batch, int k, int n,
+                                  int slices, int kslice, cudaStream_t s) {
+  if (batch <= 0 || n <= 0) return cudaSuccess;
+  const size_t plane = static_cast<size_t>(batch) * n;
+  const cudaError_t err = rvk::launch_product<1>(
+      MatrixRows<T>{x, k}, w, n, PartialStore{ws, plane, n}, batch, n, k,
+      slices, kslice, s);
+  if (err != cudaSuccess) return err;
+  const size_t want = (plane + rvk::kThreads - 1) / rvk::kThreads;
+  const size_t cap = static_cast<size_t>(rvk::sm_count()) * 16;
+  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+  ksplit_reduce_kernel<float><<<blocks, rvk::kThreads, 0, s>>>(
+      ws, rvk::BiasActStore<float>{nullptr, y, n, rvk::kActNone}, plane,
+      slices);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -214,6 +251,49 @@ int rvk_linear_ksplit_fwd(const void* x, const void* w, const void* b,
     return linear_ksplit_fwd(src<T>(x), src<T>(w), src<T>(b), dst<T>(y),
                              static_cast<float*>(ws), batch, k, n, slices,
                              kslice, act, s);
+  });
+}
+
+// The row-parallel form of both entry points: x (batch, k) a rank's
+// column slice of the layer's input, w (k, n) its row shard, y (batch, n)
+// the fp32 partial sums x @ w, no bias, no activation.  kernel: 0, the first
+// version, rvk_linear_fwd's whole-k GEMM where slices is 0, else the k-split
+// (ws fp32 scratch of slices * batch * n elements, slices = ceil(k /
+// kslice)); 1, the tensor-core form (bf16 only, wgmma.cuh PartialRows) in
+// tiles 128 x tile_n; 2, sgemm.cuh's fp32 mainloop with no bias and no
+// activation (fp32 only, k and n multiples of 4, 16-byte aligned pointers)
+// on the tile sgemm::kTiles[tile_n].  Codes 1 and 2 take no scratch.
+int rvk_linear_partial(const void* x, const void* w, float* y, void* ws,
+                       int batch, int k, int n, int slices, int kslice,
+                       int dtype, int tile_n, int kernel, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32) return cudaErrorInvalidValue;
+    return rvk::sgemm::launch_act<false>(src<float>(x), src<float>(w),
+                                         nullptr, y, batch, n, k,
+                                         rvk::kActNone, tile_n, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores || dtype != rvk::kBF16) {
+      return cudaErrorInvalidValue;
+    }
+    using T = rvk::bf16;
+    const T* const b[1] = {src<T>(w)};
+    float* const c[1] = {y};
+    return rvk::tc::launch_partial<rvk::tc::MatrixTiles>(
+        src<T>(x), b, c, batch, n, k, tile_n, s);
+  }
+  if (slices > 0 && (kslice <= 0 || slices != rvk::cdiv(k, kslice))) {
+    return cudaErrorInvalidValue;
+  }
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    if (slices == 0) {
+      return linear_partial(src<T>(x), src<T>(w), y, batch, k, n, s);
+    }
+    return linear_ksplit_partial(src<T>(x), src<T>(w), y,
+                                 static_cast<float*>(ws), batch, k, n,
+                                 slices, kslice, s);
   });
 }
 

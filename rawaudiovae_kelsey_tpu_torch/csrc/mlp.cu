@@ -175,6 +175,137 @@ int tensor_core_decoder(const void* z, const void* w3, const void* b3,
       tile_out, s);
 }
 
+// The row-parallel forms (tensor parallelism: parallel/tensor_parallel.py).
+// Under the Megatron split the heads and fc4 hold a slice of the hidden
+// units' rows, so each rank's product is a partial sum: these forms compute
+// the hidden layer as the full forms do (bias and ReLU in its epilogue, one
+// rounding to the operand dtype), then the second product's sums in fp32
+// as they are, no bias, no activation.  The caller adds the ranks' sums
+// (one fp32 all-reduce), then the bias, the activation and the one
+// rounding.
+
+// The first version: the hidden layer as encoder_fwd / decoder_fwd's, the
+// second product a Gemm with an fp32 output and no bias.
+template <typename T>
+cudaError_t encoder_fwd_partial(const T* x, const T* w1, const T* b1,
+                                const T* w21, const T* w22, float* mu,
+                                float* logvar, T* h, int batch, int seg,
+                                int units, int latent, cudaStream_t s) {
+  Gemm<T, T, T> hidden = {};
+  hidden.a = view(x, seg, seg);
+  hidden.out[0].b = view(w1, units, seg);
+  hidden.out[0].bias = b1;
+  hidden.out[0].c = h;
+  hidden.M = batch, hidden.N = units, hidden.K = seg;
+  hidden.act = rvk::kActRelu;
+  cudaError_t err = launch_gemm<kKContig, kRContig>(hidden, 1, s);
+  if (err != cudaSuccess) return err;
+  Gemm<T, T, float> heads = {};
+  heads.a = view<T>(h, units, units);
+  heads.out[0].b = view(w21, latent, units);
+  heads.out[0].c = mu;
+  heads.out[1].b = view(w22, latent, units);
+  heads.out[1].c = logvar;
+  heads.M = batch, heads.N = latent, heads.K = units;
+  heads.act = rvk::kActNone;
+  return launch_gemm<kKContig, kRContig>(heads, 2, s);
+}
+
+template <typename T>
+cudaError_t decoder_fwd_partial(const T* z, const T* w3, const T* b3,
+                                const T* w4, float* y, T* h3, int batch,
+                                int latent, int units, int seg,
+                                cudaStream_t s) {
+  Gemm<T, T, T> hidden = {};
+  hidden.a = view(z, latent, latent);
+  hidden.out[0].b = view(w3, units, latent);
+  hidden.out[0].bias = b3;
+  hidden.out[0].c = h3;
+  hidden.M = batch, hidden.N = units, hidden.K = latent;
+  hidden.act = rvk::kActRelu;
+  cudaError_t err = launch_gemm<kKContig, kRContig>(hidden, 1, s);
+  if (err != cudaSuccess) return err;
+  Gemm<T, T, float> out = {};
+  out.a = view<T>(h3, units, units);
+  out.out[0].b = view(w4, seg, units);
+  out.out[0].c = y;
+  out.M = batch, out.N = seg, out.K = units;
+  out.act = rvk::kActNone;
+  return launch_gemm<kKContig, kRContig>(out, 1, s);
+}
+
+// The tensor-core forms: the hidden layer as tensor_core_encoder /
+// tensor_core_decoder launch it, then the heads (HeadsTiles, both in one
+// launch) or y (MatrixTiles) with the PartialRows epilogue of wgmma.cuh.
+int tensor_core_encoder_partial(const void* x, const void* w1,
+                                const void* b1, const void* w21,
+                                const void* w22, float* mu, float* logvar,
+                                void* h, int batch, int seg, int units,
+                                int latent, int dtype, int tile_hidden,
+                                int tile_heads, cudaStream_t s) {
+  if (dtype != rvk::kBF16 || reinterpret_cast<uintptr_t>(b1) % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  using T = rvk::bf16;
+  const cudaError_t err = rvk::tc::launch_wgmma<true>(
+      src<T>(x), src<T>(w1), dst<T>(h),
+      rvk::tc::BiasActPair{src<T>(b1), rvk::kActRelu}, batch, units, seg,
+      tile_hidden, s);
+  if (err != cudaSuccess) return err;
+  const T* const b[2] = {src<T>(w21), src<T>(w22)};
+  float* const c[2] = {mu, logvar};
+  return rvk::tc::launch_partial<rvk::tc::HeadsTiles>(
+      dst<T>(h), b, c, batch, latent, units, tile_heads, s);
+}
+
+int tensor_core_decoder_partial(const void* z, const void* w3,
+                                const void* b3, const void* w4, float* y,
+                                void* h3, int batch, int latent, int units,
+                                int seg, int dtype, int tile_hidden,
+                                int tile_out, cudaStream_t s) {
+  if (dtype != rvk::kBF16 || reinterpret_cast<uintptr_t>(b3) % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  using T = rvk::bf16;
+  const cudaError_t err = rvk::tc::launch_wgmma<true>(
+      src<T>(z), src<T>(w3), dst<T>(h3),
+      rvk::tc::BiasActPair{src<T>(b3), rvk::kActRelu}, batch, units, latent,
+      tile_hidden, s);
+  if (err != cudaSuccess) return err;
+  const T* const b[1] = {src<T>(w4)};
+  float* const c[1] = {y};
+  return rvk::tc::launch_partial<rvk::tc::MatrixTiles>(
+      dst<T>(h3), b, c, batch, seg, units, tile_out, s);
+}
+
+// The fp32 form of the decoder's partial sums on sgemm.cuh: h3 as
+// sgemm_decoder computes it, then y's sums with no bias and no activation
+// (the encoder's is sgemm_encoder with no head biases: its heads' epilogue
+// adds nothing else).
+int sgemm_decoder_partial(const void* z, const void* w3, const void* b3,
+                          const void* w4, float* y, void* h3,
+                          float* workspace, int batch, int latent, int units,
+                          int seg, int dtype, int split_hidden,
+                          int split_out, int tile_hidden, int tile_out,
+                          cudaStream_t s) {
+  if (dtype != rvk::kF32) return cudaErrorInvalidValue;
+  rvk::sgemm::Outs hidden{};
+  hidden.b[0] = src<float>(w3);
+  hidden.bias[0] = src<float>(b3);
+  hidden.c[0] = dst<float>(h3);
+  const cudaError_t err = rvk::sgemm::launch_fwd<1, rvk::kActRelu>(
+      src<float>(z), hidden, workspace, batch, units, latent, tile_hidden,
+      split_hidden, s);
+  if (err != cudaSuccess) return err;
+  rvk::sgemm::Outs out{};
+  out.b[0] = src<float>(w4);
+  out.bias[0] = nullptr;
+  out.c[0] = y;
+  return rvk::sgemm::launch_fwd<1, rvk::kActNone>(
+      dst<float>(h3), out, workspace, batch, seg, units, tile_out, split_out,
+      s);
+}
+
 // The fp32 form of the encoder on sgemm.cuh: h in one launch on tile
 // kTiles[tile_hidden] over split_hidden slices of seg, then both heads in
 // one launch on tile kTiles[tile_heads] over split_heads slices of units;
@@ -318,6 +449,71 @@ int rvk_decoder_fwd(const void* z, const void* w3, const void* b3,
     return decoder_fwd(src<T>(z), src<T>(w3), src<T>(b3), src<T>(w4),
                        src<T>(b4), dst<T>(y), dst<T>(h3), batch, latent,
                        units, seg, s);
+  });
+}
+
+// The row-parallel form of rvk_encoder_fwd (above, "the row-parallel
+// forms"): x (batch, seg); w1 (seg, units) and b1 (units,) a rank's column
+// shard, h (batch, units) as rvk_encoder_fwd writes it; w21, w22 (units,
+// latent) a rank's row shard; mu and logvar (batch, latent) fp32 partial
+// sums h @ w21, h @ w22, no bias.  kernel, tiles, splits and workspace as
+// for rvk_encoder_fwd (code 2: no head biases in sgemm_encoder).
+int rvk_encoder_fwd_partial(const void* x, const void* w1, const void* b1,
+                            const void* w21, const void* w22, float* mu,
+                            float* logvar, void* h, float* workspace,
+                            int batch, int seg, int units, int latent,
+                            int dtype, int split_hidden, int split_heads,
+                            int tile_hidden, int tile_heads, int kernel,
+                            void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    return sgemm_encoder(x, w1, b1, w21, nullptr, w22, nullptr, mu, logvar,
+                         h, workspace, batch, seg, units, latent, dtype,
+                         split_hidden, split_heads, tile_hidden, tile_heads,
+                         s);
+  }
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
+    return tensor_core_encoder_partial(x, w1, b1, w21, w22, mu, logvar, h,
+                                       batch, seg, units, latent, dtype,
+                                       tile_hidden, tile_heads, s);
+  }
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return encoder_fwd_partial(src<T>(x), src<T>(w1), src<T>(b1),
+                               src<T>(w21), src<T>(w22), mu, logvar,
+                               dst<T>(h), batch, seg, units, latent, s);
+  });
+}
+
+// The row-parallel form of rvk_decoder_fwd: z (batch, latent); w3 (latent,
+// units) and b3 (units,) a rank's column shard, h3 (batch, units) as
+// rvk_decoder_fwd writes it; w4 (units, seg) a rank's row shard; y (batch,
+// seg) the fp32 partial sums h3 @ w4, no bias, no tanh.  kernel, tiles,
+// splits and workspace as for rvk_decoder_fwd.
+int rvk_decoder_fwd_partial(const void* z, const void* w3, const void* b3,
+                            const void* w4, float* y, void* h3,
+                            float* workspace, int batch, int latent,
+                            int units, int seg, int dtype, int split_hidden,
+                            int split_out, int tile_hidden, int tile_out,
+                            int kernel, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    return sgemm_decoder_partial(z, w3, b3, w4, y, h3, workspace, batch,
+                                 latent, units, seg, dtype, split_hidden,
+                                 split_out, tile_hidden, tile_out, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) {
+    if (kernel != rvk::tc::kTensorCores) return cudaErrorInvalidValue;
+    return tensor_core_decoder_partial(z, w3, b3, w4, y, h3, batch, latent,
+                                       units, seg, dtype, tile_hidden,
+                                       tile_out, s);
+  }
+  return rvk::with_dtype(dtype, [&](auto tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return decoder_fwd_partial(src<T>(z), src<T>(w3), src<T>(b3),
+                               src<T>(w4), y, dst<T>(h3), batch, latent,
+                               units, seg, s);
   });
 }
 

@@ -207,6 +207,12 @@
 //   plain one and three accumulators take 3 · BN / 2 registers a thread:
 //   tiles 128 x 64 (four stages of 48 KB, 96 accumulators) or 128 x 128
 //   (three of 64 KB, 192), no staging buffers.
+// * Partial sums (PartialRows; the row-parallel layers of tensor
+//   parallelism, mlp.cu and linear.cu rvk_*_partial): a 1-pass product whose
+//   sums are added across ranks before its bias and activation.  The fp32
+//   sums are stored from the accumulators as the weight gradients' are
+//   (store_f32), no staging buffer; the walks are the plain ones
+//   (MatrixTiles, HeadsTiles).
 // * A barrier that never completes traps after ~2 s instead of hanging the
 //   card: the launch then fails with an error the wrapper raises.  The trap
 //   ends the process's CUDA context, and a run slowed many times over (a
@@ -1094,6 +1100,19 @@ struct SplitRows {
   const float* gate;
 };
 
+// The row-parallel epilogue (header, "partial sums"): a 1-pass product's
+// fp32 sums as they are, no bias, no activation, no rounding, output o of
+// the walk to out[o], (M, N) row-major.
+struct PartialRows {
+  static constexpr bool kPartial = true;
+  float* out[kMaxOuts];
+};
+template <typename E, typename = void>
+constexpr bool kPartialOut = false;
+template <typename E>
+constexpr bool kPartialOut<E, std::void_t<decltype(E::kPartial)>> =
+    E::kPartial;
+
 // The tensor maps of one launch: A, and a (B, C) pair for each of the
 // kOuts outputs, and the gate of a gated functor (C's shape; unused
 // otherwise); a k-joined walk's (kJoined) also the second pair's A and B.
@@ -1142,7 +1161,9 @@ struct Ring {
   static constexpr uint32_t kStageBytes = kABytes + kBBytes;
   static constexpr int kStagingCols = kFormed && BN == 256 ? 128 : BN;
   static constexpr uint32_t kStagingBytes =
-      (kFormed && kWgradOut<Epi>) || kSplit ? 0 : 64 * kStagingCols * 2;
+      (kFormed && kWgradOut<Epi>) || kSplit || kPartialOut<Epi>
+          ? 0
+          : 64 * kStagingCols * 2;
   static constexpr int kStages = kSplit      ? (BN == 64 ? 4 : 3)
                                  : !kFormed  ? stages_for(BN)
                                  : BN == 256 ? 3
@@ -1405,6 +1426,11 @@ wgmma_gemm_kernel(const __grid_constant__ KernelMaps<Tiles, Epi> maps,
         } else {
           store_f32<BN>(acc, epi.out, m0, rows, n0, N, epi.gate);
         }
+      } else if constexpr (kPartialOut<Epi>) {
+        // the partial sums as they are, fp32 from the accumulators
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + 8 * prev);
+        store_f32<BN>(acc, pick(epi.out, out), m0, rows, n0, N);
       } else if constexpr (kWgrad) {
         wgmma_wait<0>();
         if (lane == 0) mbar_arrive(empty + 8 * prev);
@@ -1616,6 +1642,37 @@ cudaError_t launch_rows(const bf16* a, const bf16* const* b, bf16* const* c,
     }
     if (err != cudaSuccess) return err;
     return launch_tiles<BN, kBT>(maps, epi, Tiles{M, K}, N, stream);
+  });
+}
+
+// C[o] = A · B[o] in fp32 for each of the Tiles::kOuts outputs, the sums
+// as they are (PartialRows: no bias, no activation, no rounding), on the
+// tensor cores in 128 x tile_n tiles: a (M, K) row-major, each b[o] (K, N)
+// row-major (N-major B), each c[o] (M, N) row-major fp32; all 16-byte
+// aligned, K and N multiples of 8.
+template <typename Tiles>
+cudaError_t launch_partial(const bf16* a, const bf16* const* b,
+                           float* const* c, int M, int N, int K, int tile_n,
+                           cudaStream_t stream) {
+  constexpr int kOuts = Tiles::kOuts;
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(a)) {
+    return cudaErrorInvalidValue;
+  }
+  PartialRows epi{};
+  for (int i = 0; i < kOuts; ++i) {
+    if (!aligned16(b[i]) || !aligned16(c[i])) return cudaErrorInvalidValue;
+    epi.out[i] = c[i];
+  }
+  return with_width(tile_n, [&](auto width) {
+    constexpr int BN = decltype(width)::value;
+    Maps<kOuts> maps{};
+    cudaError_t err = matrix_map(&maps.a, a, M, K, kTileM, kTileK);
+    for (int i = 0; i < kOuts && err == cudaSuccess; ++i) {
+      err = matrix_map(&maps.b[i], b[i], K, N, kTileK, 64);
+    }
+    if (err != cudaSuccess) return err;
+    return launch_tiles<BN, true>(maps, epi, Tiles{M, K}, N, stream);
   });
 }
 

@@ -12,8 +12,11 @@ and ``probes/`` measures: the fused backward of one linear layer
 (``leaf_update``).  ``linear_ksplit_fwd``, ``linear_fwd``, ``matmul_nt``
 and ``toeplitz_fwd`` have a first version on the CUDA cores and a bf16
 tensor-core kernel; ``linear_fwd`` and ``matmul_nt`` also a register-tiled
-fp32 one; ``ops/tensor_cores.py`` chooses by dtype, shape and alignment.  Sources in
-``csrc/``; built by ``ops/_build.py``."""
+fp32 one; ``ops/tensor_cores.py`` chooses by dtype, shape and alignment.
+Rows 1, 2, 15 and 16 also have a row-parallel form for tensor parallelism
+(``encoder_fwd_partial``, ``decoder_fwd_partial``, ``linear_partial``: fp32
+partial sums, no bias, no activation), counted in the row's wrapper.
+Sources in ``csrc/``; built by ``ops/_build.py``."""
 
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
     Decode,
@@ -24,6 +27,8 @@ from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
     dec_bwd_fused_ref,
     decode,
     decoder_fwd,
+    decoder_fwd_partial,
+    decoder_fwd_partial_ref,
     decoder_fwd_ref,
     enc_bwd_full,
     enc_bwd_full_ref,
@@ -31,6 +36,8 @@ from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
     enc_bwd_dw1_ref,
     encode,
     encoder_fwd,
+    encoder_fwd_partial,
+    encoder_fwd_partial_ref,
     encoder_fwd_ref,
     grad_accum,
     grad_accum2,
@@ -70,6 +77,8 @@ from rawaudiovae_kelsey_tpu_torch.ops.linear import (  # noqa: F401
     linear_fwd_ref,
     linear_ksplit_fwd,
     linear_ksplit_fwd_ref,
+    linear_partial,
+    linear_partial_ref,
     pallas_linear,
 )
 from rawaudiovae_kelsey_tpu_torch.ops.tensor_cores import (  # noqa: F401

@@ -41,6 +41,9 @@ _L, _F = ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "rvk_encoder_fwd": [_P] * 11 + [_I] * 10 + [_P],
     "rvk_decoder_fwd": [_P] * 8 + [_I] * 10 + [_P],
+    "rvk_encoder_fwd_partial": [_P] * 9 + [_I] * 10 + [_P],
+    "rvk_decoder_fwd_partial": [_P] * 7 + [_I] * 10 + [_P],
+    "rvk_linear_partial": [_P] * 4 + [_I] * 8 + [_P],
     "rvk_quantized_decoder_fwd": [_P] * 10 + [_I] * 9 + [_P],
     "rvk_grad_accum": [_P] * 5 + [_I] * 7 + [_P],
     "rvk_grad_accum2": [_P] * 8 + [_I] * 7 + [_P],

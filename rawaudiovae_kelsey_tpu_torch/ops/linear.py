@@ -111,6 +111,19 @@ def linear_ksplit_fwd_ref(x, w, b, act: str = "none") -> Tensor:
     return apply_act(act, acc + _f(b)).to(x.dtype)
 
 
+def linear_partial_ref(x, w, ksplit: bool = False) -> Tensor:
+    """Plain version of :func:`linear_partial`: ``x @ w`` in fp32, the
+    k-split's slices added in slice order."""
+    if not ksplit:
+        return _f(x) @ _f(w)
+    xf, wf = _f(x), _f(w)
+    acc = None
+    for k0 in range(0, x.shape[1], KSPLIT_BLOCK_K):
+        part = xf[:, k0:k0 + KSPLIT_BLOCK_K] @ wf[k0:k0 + KSPLIT_BLOCK_K]
+        acc = part if acc is None else acc + part
+    return acc
+
+
 # ----------------------------------------------------------------- wrappers
 
 def _check(name: str, x, w, b, act: str):
@@ -223,6 +236,61 @@ linear_ksplit_fwd.tensor_core_launches = 0
 linear_ksplit_fwd.sgemm_launches = 0
 
 
+def linear_partial(x, w, ksplit: bool = False,
+                   kernel: str = "auto") -> Tensor:
+    """The row-parallel form of :func:`linear_fwd` (``ksplit`` False) or
+    :func:`linear_ksplit_fwd` (True): ``x @ w`` as fp32 partial sums, no
+    bias, no activation — a rank's column slice of the layer's input times
+    its row shard of the weight (``parallel/tensor_parallel.py``).  The
+    model group adds the sums; the bias, the activation and the one
+    rounding follow.
+
+    CUDA, one launch of ``csrc/linear.cu`` ``rvk_linear_partial``, of the
+    kernel ``tensor_cores.resolve_kernel`` picks for that row: bf16
+    operands TMA can address on the tensor cores (``csrc/wgmma.cuh``
+    ``PartialRows``: the accumulators stored as fp32), fp32 operands with k
+    and n multiples of 4 on ``csrc/sgemm.cuh`` (no bias, no activation),
+    everything else the row's first version with an fp32 output (the
+    whole-k GEMM, or the k-split's two stages).  Counts one launch of the
+    row's wrapper (``launches`` and ``partial_launches``, and the kernel's
+    own counter)."""
+    wrapper = linear_ksplit_fwd if ksplit else linear_fwd
+    name = wrapper.__name__
+    tensor_cores.check_name(name, kernel)
+    if x.device.type == "cpu":
+        return linear_partial_ref(x, w, ksplit)
+    dev = cuda_device(x, f"{name}: x")
+    dt = operand_dtype(x, f"{name}: x")
+    batch, k = x.shape
+    if w.dim() != 2 or k < 1:
+        raise ValueError(f"{name}: x {tuple(x.shape)} against w "
+                         f"{tuple(w.shape)}")
+    n = w.shape[1]
+    require(x, "x", (batch, k), dev, dt)
+    require(w, "w", (k, n), dev, dt)
+    code = tensor_cores.resolve_kernel(
+        name, kernel, dt, batch, k, n, tensor_cores.pointers_aligned(x, w))
+    y = torch.empty((batch, n), device=dev, dtype=torch.float32)
+    if batch and n:
+        tile = tensor_cores.tile(code, dev, batch, n)
+        slices = ksplit_slices(k) if ksplit else 0
+        ws = (torch.empty((slices, batch, n), device=dev,
+                          dtype=torch.float32)
+              if slices and code == tensor_cores.KERNEL_CODES["cuda_cores"]
+              else None)
+        _build.launch("rvk_linear_partial", dev, x, w, y, ws, batch, k, n,
+                      slices, KSPLIT_BLOCK_K, DTYPE_CODES[dt], tile, code)
+        wrapper.launches += 1
+        wrapper.partial_launches += 1
+        wrapper.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+        wrapper.sgemm_launches += code == tensor_cores.SGEMM
+    return y
+
+
+linear_fwd.partial_launches = 0
+linear_ksplit_fwd.partial_launches = 0
+
+
 def takes_ksplit(batch: int, k: int, n: int) -> bool:
     """The dispatch rule (``pallas_linear.py`` ``_dispatch_fwd``): large
     layers, where both operands stream, take the k-split kernel."""
@@ -251,6 +319,14 @@ def act_backward(act: str, y: Tensor, dy: Tensor) -> Tensor:
     return da.to(dy.dtype)
 
 
+def linear_grads(act: str, x, w, y, dy, need_dx: bool):
+    """``(dx, dw, db)`` of ``y = act(x @ w + b)`` from the saved ``(x, w,
+    y)``, plain PyTorch; ``dx`` None unless ``need_dx``."""
+    da = act_backward(act, y, dy)
+    dx = (da @ w.t()).to(x.dtype) if need_dx else None
+    return dx, (x.t() @ da).to(w.dtype), da.sum(0).to(w.dtype)
+
+
 class PallasLinear(torch.autograd.Function):
     """``(x, w, b, act) → act(x @ w + b)`` through :func:`dispatch_fwd`;
     saves ``(x, w, y)``.  The backward is plain PyTorch, as the JAX
@@ -266,11 +342,8 @@ class PallasLinear(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, y = ctx.saved_tensors
-        da = act_backward(ctx.act, y, dy)
-        dx = (da @ w.t()).to(x.dtype) if ctx.needs_input_grad[0] else None
-        dw = (x.t() @ da).to(w.dtype)
-        db = da.sum(0).to(w.dtype)
-        return dx, dw, db, None
+        return (*linear_grads(ctx.act, x, w, y, dy, ctx.needs_input_grad[0]),
+                None)
 
 
 def pallas_linear(x, w, b, act: str = "none") -> Tensor:

@@ -69,6 +69,20 @@ def decoder_fwd_ref(w3, b3, w4, b4, z) -> Tuple[Tensor, Tensor]:
     return torch.tanh(_f(h3) @ _f(w4) + _f(b4)).to(dt), h3
 
 
+def encoder_fwd_partial_ref(w1, b1, w21, w22, x
+                            ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of :func:`encoder_fwd_partial`: ``h`` as
+    :func:`encoder_fwd_ref` rounds it, the heads' fp32 sums as they are."""
+    h = torch.relu(_f(x) @ _f(w1) + _f(b1)).to(x.dtype)
+    return _f(h) @ _f(w21), _f(h) @ _f(w22), h
+
+
+def decoder_fwd_partial_ref(w3, b3, w4, z) -> Tuple[Tensor, Tensor]:
+    """Plain version of :func:`decoder_fwd_partial`."""
+    h3 = torch.relu(_f(z) @ _f(w3) + _f(b3)).to(z.dtype)
+    return _f(h3) @ _f(w4), h3
+
+
 def matmul_nt2_mask_ref(a1, w1, a2, w2, gate) -> Tensor:
     """Plain version of :func:`matmul_nt2_mask`."""
     prod = _f(a1) @ _f(w1).t() + _f(a2) @ _f(w2).t()
@@ -279,6 +293,59 @@ def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto"
 encoder_fwd.launches = 0
 encoder_fwd.tensor_core_launches = 0
 encoder_fwd.sgemm_launches = 0
+encoder_fwd.partial_launches = 0
+
+
+def encoder_fwd_partial(w1, b1, w21, w22, x, kernel: str = "auto"
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The row-parallel form of :func:`encoder_fwd` (tensor parallelism,
+    ``parallel/tensor_parallel.py``): ``h = relu(x@W1+b1)`` on a rank's
+    column shard of fc1, rounded once to the operand dtype, then ``(h@W21,
+    h@W22)`` on its row shard of the heads as fp32 partial sums, no bias →
+    ``(mu_part, logvar_part, h)``.  The model group adds the partial sums;
+    the heads' biases and the one rounding come after the sum.
+
+    The same kernels as :func:`encoder_fwd`, chosen by
+    :func:`resolve_encoder` (``csrc/mlp.cu`` ``rvk_encoder_fwd_partial``):
+    on the tensor cores the heads' launch stores the fp32 accumulators
+    (``csrc/wgmma.cuh`` ``PartialRows``); the fp32 kernel and the first
+    version run their heads with no bias into fp32 outputs.  A call counts
+    in ``encoder_fwd.launches`` and ``encoder_fwd.partial_launches`` (and
+    the kernel's own counter) — one launch of row 1's kernel."""
+    tensor_cores.check_name("encoder_fwd", kernel)
+    if x.device.type == "cpu":
+        return encoder_fwd_partial_ref(w1, b1, w21, w22, x)
+    dev = cuda_device(x, "encoder_fwd_partial: x")
+    dt = operand_dtype(x, "encoder_fwd_partial: x")
+    batch, seg = x.shape
+    units, latent = w1.shape[1], w21.shape[1]
+    require(x, "x", (batch, seg), dev, dt)
+    require(w1, "w1", (seg, units), dev, dt)
+    require(b1, "b1", (units,), dev, dt)
+    require(w21, "w21", (units, latent), dev, dt)
+    require(w22, "w22", (units, latent), dev, dt)
+    code = resolve_encoder(kernel, dt, batch, seg, units, latent,
+                           tensor_cores.pointers_aligned(x, w1, b1, w21,
+                                                         w22))
+    mu = torch.empty((batch, latent), device=dev, dtype=torch.float32)
+    logvar = torch.empty((batch, latent), device=dev, dtype=torch.float32)
+    h = torch.empty((batch, units), device=dev, dtype=dt)
+    if batch:
+        (tile_h, split_h), (tile_o, split_o), ws = forward_plans(
+            code, dev, batch, ((seg, units, 1), (units, latent, 2)))
+        _build.launch("rvk_encoder_fwd_partial", dev, x, w1, b1, w21, w22,
+                      mu, logvar, h, ws, batch, seg, units, latent,
+                      DTYPE_CODES[dt], split_h, split_o, tile_h, tile_o, code)
+        _count(encoder_fwd, code)
+    return mu, logvar, h
+
+
+def _count(wrapper, code: int) -> None:
+    """One launch of a row-parallel form: ``wrapper``'s counters."""
+    wrapper.launches += 1
+    wrapper.partial_launches += 1
+    wrapper.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+    wrapper.sgemm_launches += code == tensor_cores.SGEMM
 
 
 def forward_plans(code: int, dev, batch: int, products):
@@ -364,6 +431,42 @@ def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
 decoder_fwd.launches = 0
 decoder_fwd.tensor_core_launches = 0
 decoder_fwd.sgemm_launches = 0
+decoder_fwd.partial_launches = 0
+
+
+def decoder_fwd_partial(w3, b3, w4, z, kernel: str = "auto"
+                        ) -> Tuple[Tensor, Tensor]:
+    """The row-parallel form of :func:`decoder_fwd`: ``h3 =
+    relu(z@W3+b3)`` on a rank's column shard of fc3, rounded once, then
+    ``h3@W4`` on its row shard of fc4 as fp32 partial sums, no bias, no
+    tanh → ``(y_part, h3)``; the model group adds the sums, then ``b4``,
+    tanh and the one rounding.  The same kernels as :func:`decoder_fwd`
+    (``csrc/mlp.cu`` ``rvk_decoder_fwd_partial``; on the tensor cores y's
+    launch stores the fp32 accumulators, ``csrc/wgmma.cuh``
+    ``PartialRows``), counted as :func:`encoder_fwd_partial` is."""
+    tensor_cores.check_name("decoder_fwd", kernel)
+    if z.device.type == "cpu":
+        return decoder_fwd_partial_ref(w3, b3, w4, z)
+    dev = cuda_device(z, "decoder_fwd_partial: z")
+    dt = operand_dtype(z, "decoder_fwd_partial: z")
+    batch, latent = z.shape
+    units, seg = w3.shape[1], w4.shape[1]
+    require(z, "z", (batch, latent), dev, dt)
+    require(w3, "w3", (latent, units), dev, dt)
+    require(b3, "b3", (units,), dev, dt)
+    require(w4, "w4", (units, seg), dev, dt)
+    code = resolve_decoder(kernel, dt, batch, latent, units, seg,
+                           tensor_cores.pointers_aligned(z, w3, b3, w4))
+    y = torch.empty((batch, seg), device=dev, dtype=torch.float32)
+    h3 = torch.empty((batch, units), device=dev, dtype=dt)
+    if batch:
+        (tile_h, split_h), (tile_o, split_o), ws = forward_plans(
+            code, dev, batch, ((latent, units, 1), (units, seg, 1)))
+        _build.launch("rvk_decoder_fwd_partial", dev, z, w3, b3, w4, y, h3,
+                      ws, batch, latent, units, seg, DTYPE_CODES[dt],
+                      split_h, split_o, tile_h, tile_o, code)
+        _count(decoder_fwd, code)
+    return y, h3
 
 
 def resolve_decoder(kernel: str, dtype: torch.dtype, batch: int, latent: int,
@@ -1080,12 +1183,65 @@ def encode_input_grad(h, dmu, dlogvar, w1, w21, w22) -> Tensor:
     return matmul_nt(matmul_nt2_mask(dmu, w21, dlogvar, w22, h), w1)
 
 
+def encode_grads(mode: str, x, h, dmu, dlogvar, w1, w21, w22,
+                 need_dx: bool) -> Tuple[Tensor, ...]:
+    """The backward of :class:`Encode` in ``mode`` → ``(dx, dw1, db1, dw21,
+    db21, dw22, db22)``, the gradients in fp32 (``dx`` in the operand dtype,
+    None unless ``need_dx``): "split", :func:`enc_bwd_dw1` and
+    :func:`grad_accum2`; "primitive", :func:`matmul_nt2_mask` then three
+    :func:`grad_accum`; "full", :func:`enc_bwd_full`.  The tensor-parallel
+    encoder (``parallel/tensor_parallel.py``) calls it on a rank's shards."""
+    dx = None
+    if mode == "primitive":
+        dh = matmul_nt2_mask(dmu, w21, dlogvar, w22, h)
+        dw1, db1 = grad_accum(x, dh)
+        dw21, db21 = grad_accum(h, dmu)
+        dw22, db22 = grad_accum(h, dlogvar)
+        if need_dx:
+            dx = matmul_nt(dh, w1)   # dh is live already: reuse it
+    elif mode == "full":
+        dw1, db1, dw21, db21, dw22, db22 = enc_bwd_full(
+            x, h, dmu, dlogvar, w21, w22)
+        if need_dx:
+            dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22)
+    else:
+        dw1, db1 = enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22)
+        dw21, db21, dw22, db22 = grad_accum2(h, dmu, dlogvar)
+        if need_dx:
+            dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22)
+    return dx, dw1, db1, dw21, db21, dw22, db22
+
+
+def tanh_cotangent(dy: Tensor, y: Tensor) -> Tensor:
+    """``dy · (1 - y²)``, the cotangent before the decoder's tanh: an
+    elementwise pass left to PyTorch, as the JAX package leaves it to XLA;
+    fp32 inside, one rounding."""
+    return (_f(dy) * (1.0 - _f(y) * _f(y))).to(dy.dtype)
+
+
+def decode_grads(mode: str, da, h3, z, w3, w4) -> Tuple[Tensor, ...]:
+    """The backward of :class:`Decode` in ``mode`` from the cotangent
+    ``da`` before the tanh → ``(dz, dw3, db3, dw4, db4)``: "split",
+    :func:`dec_bwd_fused` and :func:`grad_accum`; "primitive",
+    :func:`matmul_nt_mask`, :func:`matmul_nt` and two :func:`grad_accum`;
+    "full", :func:`dec_bwd_full`."""
+    if mode == "full":
+        return dec_bwd_full(da, h3, z, w4, w3)
+    if mode == "primitive":
+        dh3 = matmul_nt_mask(da, w4, h3)
+        dz = matmul_nt(dh3, w3)
+        dw3, db3 = grad_accum(z, dh3)
+        dw4, db4 = grad_accum(h3, da)
+        return dz, dw3, db3, dw4, db4
+    dz, dw3, db3 = dec_bwd_fused(da, h3, z, w4, w3)
+    dw4, db4 = grad_accum(h3, da)
+    return dz, dw3, db3, dw4, db4
+
+
 class Encode(torch.autograd.Function):
     """``(mode, x, w1, b1, w21, b21, w22, b22) → (mu, logvar)`` through
-    :func:`encoder_fwd`.  Backward, "split": :func:`enc_bwd_dw1` and
-    :func:`grad_accum2`; "primitive": :func:`matmul_nt2_mask` then three
-    :func:`grad_accum`; "full": :func:`enc_bwd_full`.  Saves ``(x, h)`` as
-    residuals."""
+    :func:`encoder_fwd`; backward :func:`encode_grads`.  Saves ``(x, h)``
+    as residuals."""
 
     @staticmethod
     def forward(ctx, mode, x, w1, b1, w21, b21, w22, b22):
@@ -1097,36 +1253,16 @@ class Encode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dmu, dlogvar):
         x, h, w1, w21, w22 = ctx.saved_tensors
-        dmu, dlogvar = dmu.contiguous(), dlogvar.contiguous()
-        dx = None
-        if ctx.mode == "primitive":
-            dh = matmul_nt2_mask(dmu, w21, dlogvar, w22, h)
-            dw1, db1 = grad_accum(x, dh)
-            dw21, db21 = grad_accum(h, dmu)
-            dw22, db22 = grad_accum(h, dlogvar)
-            if ctx.needs_input_grad[1]:
-                dx = matmul_nt(dh, w1)   # dh is live already: reuse it
-        elif ctx.mode == "full":
-            dw1, db1, dw21, db21, dw22, db22 = enc_bwd_full(
-                x, h, dmu, dlogvar, w21, w22)
-            if ctx.needs_input_grad[1]:
-                dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22)
-        else:
-            dw1, db1 = enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22)
-            dw21, db21, dw22, db22 = grad_accum2(h, dmu, dlogvar)
-            if ctx.needs_input_grad[1]:
-                dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22)
+        dx, *grads = encode_grads(ctx.mode, x, h, dmu.contiguous(),
+                                  dlogvar.contiguous(), w1, w21, w22,
+                                  ctx.needs_input_grad[1])
         dt = w1.dtype
-        return (None, dx,
-                *(g.to(dt) for g in (dw1, db1, dw21, db21, dw22, db22)))
+        return (None, dx, *(g.to(dt) for g in grads))
 
 
 class Decode(torch.autograd.Function):
-    """``(mode, z, w3, b3, w4, b4) → y`` through :func:`decoder_fwd`.
-    Backward, "split": :func:`dec_bwd_fused` and :func:`grad_accum`;
-    "primitive": :func:`matmul_nt_mask`, :func:`matmul_nt` and two
-    :func:`grad_accum`; "full": :func:`dec_bwd_full`.  Saves ``(z, h3, y)``
-    as residuals."""
+    """``(mode, z, w3, b3, w4, b4) → y`` through :func:`decoder_fwd`;
+    backward :func:`decode_grads`.  Saves ``(z, h3, y)`` as residuals."""
 
     @staticmethod
     def forward(ctx, mode, z, w3, b3, w4, b4):
@@ -1138,21 +1274,10 @@ class Decode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         z, h3, y, w3, w4 = ctx.saved_tensors
-        # tanh derivative: an elementwise pass left to PyTorch, as the JAX
-        # package leaves it to XLA; fp32 inside, one rounding
-        da = (_f(dy) * (1.0 - _f(y) * _f(y))).to(dy.dtype)
-        if ctx.mode == "full":
-            dz, dw3, db3, dw4, db4 = dec_bwd_full(da, h3, z, w4, w3)
-        elif ctx.mode == "primitive":
-            dh3 = matmul_nt_mask(da, w4, h3)
-            dz = matmul_nt(dh3, w3)
-            dw3, db3 = grad_accum(z, dh3)
-            dw4, db4 = grad_accum(h3, da)
-        else:
-            dz, dw3, db3 = dec_bwd_fused(da, h3, z, w4, w3)
-            dw4, db4 = grad_accum(h3, da)
+        dz, *grads = decode_grads(ctx.mode, tanh_cotangent(dy, y), h3, z,
+                                  w3, w4)
         dt = w3.dtype
-        return (None, dz, *(g.to(dt) for g in (dw3, db3, dw4, db4)))
+        return (None, dz, *(g.to(dt) for g in grads))
 
 
 Params = Dict[str, Dict[str, Tensor]]

@@ -15,9 +15,18 @@ counterpart, and here they mean:
   ``align_local_rows`` pads to a multiple of one device a process; the
   multihost batch rule "divisible by the per-host device count" becomes
   "divisible by the world size";
-* a :class:`Mesh` is the ``data × model`` grid of the group's ranks.  Only
-  ``model = 1`` is ported: ``model_parallel > 1`` raises naming ROADMAP.md
-  A.7b;
+* a :class:`Mesh` is the ``data × model`` grid of the group's ranks: rank
+  ``r`` at data index ``r // model`` and model index ``r % model``.  Under
+  ``model_parallel > 1`` (tensor parallelism, ``parallel/sharding.py``) the
+  ranks of one data index hold the shards of one replica of the params and
+  see the same rows; each mesh carries two families of sub-groups (made by
+  :func:`make_mesh` in the same order on every rank): the **model group**,
+  the ranks of this rank's data index, over which the activations' partial
+  sums and the sharded params travel, and the **data group**, the ranks of
+  this rank's model index, over which the gradients and the metrics are
+  reduced (a reduction over the world would count each data index
+  ``model`` times).  A group of every rank is the default group
+  (``None``); a group of one rank has no collective at all;
 * ``batch_sharding`` becomes a row-block helper: rank ``r`` of ``n``
   holds rows ``[r·B/n, (r+1)·B/n)`` of a global batch of ``B`` rows, one
   block per global microbatch when the step accumulates microbatches
@@ -59,9 +68,9 @@ of ``maybe_initialize_distributed``).
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,21 +80,22 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 # what a group waits for a peer before a collective fails
 DEFAULT_TIMEOUT = timedelta(minutes=30)
-MODEL_PARALLEL_NOT_PORTED = (
-    "[tpu] model_parallel > 1 (tensor parallelism, the JAX package's "
-    "parallel/sharding.py) is not ported to the PyTorch package yet "
-    "(ROADMAP.md queue A.7b); the JAX package rawaudiovae_kelsey_tpu runs it")
 
 
 @dataclass(frozen=True)
 class Mesh:
     """The ``data × model`` grid of a group's ranks, seen from one rank:
     rank ``r`` sits at data index ``r // model`` and model index ``r %
-    model``; ``device`` is the card (or the CPU) this rank computes on."""
+    model``; ``device`` is the card (or the CPU) this rank computes on.
+    ``model_group`` / ``data_group`` are the sub-groups of this rank's data
+    index and of its model index (``None``: the default group, or no
+    collective where the axis has one rank)."""
     data: int
     model: int
     rank: int
     device: torch.device
+    model_group: Any = field(default=None, compare=False, repr=False)
+    data_group: Any = field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -98,6 +108,10 @@ class Mesh:
     @property
     def data_index(self) -> int:
         return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
 
 def world_size() -> int:
@@ -113,13 +127,13 @@ def make_mesh(data_parallel: int = 0, model_parallel: int = 1,
     """The mesh over the current group (one rank when there is none).
     ``data_parallel = 0`` means "every rank divided by model_parallel";
     a product other than the world size raises ``ValueError`` as JAX's
-    ``make_mesh`` does; ``model_parallel > 1`` raises
-    ``NotImplementedError`` (ROADMAP.md A.7b).  ``device`` defaults to the
-    current CUDA device under NCCL, else the CPU."""
+    ``make_mesh`` does.  With both axes above one, every rank makes the
+    model groups (one a data index) and then the data groups (one a model
+    index), in that order: ``dist.new_group`` is a collective of the whole
+    group.  ``device`` defaults to the current CUDA device under NCCL, else
+    the CPU."""
     if model_parallel <= 0:
         model_parallel = 1
-    if model_parallel > 1:
-        raise NotImplementedError(MODEL_PARALLEL_NOT_PORTED)
     n = world_size()
     if data_parallel <= 0:
         data_parallel = n // model_parallel
@@ -128,7 +142,21 @@ def make_mesh(data_parallel: int = 0, model_parallel: int = 1,
             f"mesh {data_parallel}x{model_parallel} != {n} devices")
     if device is None:
         device = _collective_device()
-    return Mesh(data_parallel, model_parallel, rank(), torch.device(device))
+    r = rank()
+    model_group = data_group = None
+    if data_parallel > 1 and model_parallel > 1:
+        for d in range(data_parallel):
+            g = dist.new_group([d * model_parallel + m
+                                for m in range(model_parallel)])
+            if d == r // model_parallel:
+                model_group = g
+        for m in range(model_parallel):
+            g = dist.new_group([d * model_parallel + m
+                                for d in range(data_parallel)])
+            if m == r % model_parallel:
+                data_group = g
+    return Mesh(data_parallel, model_parallel, r, torch.device(device),
+                model_group, data_group)
 
 
 def default_backend(device: torch.device | str | None) -> str:
@@ -185,8 +213,12 @@ def local_device(device: torch.device | str | None
     return device
 
 
-def host_shard_info() -> tuple[int, int]:
-    """``(rank, world_size)`` for per-rank ingest sharding."""
+def host_shard_info(mesh: Optional[Mesh] = None) -> tuple[int, int]:
+    """``(rank, world_size)`` for per-rank ingest sharding; on a
+    ``mesh``, ``(data index, data)``: the model ranks of a data index read
+    the same shard, as they hold one replica."""
+    if mesh is not None:
+        return mesh.data_index, mesh.data
     return rank(), world_size()
 
 
@@ -293,16 +325,29 @@ def broadcast_tensors(tensors: List[torch.Tensor]) -> None:
         dist.broadcast(t, 0)
 
 
-def all_reduce_flat(tensors: List[torch.Tensor], mean: bool
+def _axis(mesh: Optional[Mesh], axis: str):
+    """``(group, size)`` of ``mesh``'s ``axis`` (``"data"`` or
+    ``"model"``); without a mesh, the world."""
+    if mesh is None:
+        return None, world_size()
+    if axis == DATA_AXIS:
+        return mesh.data_group, mesh.data
+    return mesh.model_group, mesh.model
+
+
+def all_reduce_flat(tensors: List[torch.Tensor], mean: bool,
+                    mesh: Optional[Mesh] = None
                     ) -> List[torch.Tensor]:
     """One all-reduce of ``tensors`` (fp32) as ONE flat bucket: the sum over
-    the ranks, divided by the world size for ``mean``.  Every rank gets the
-    same bits.  Returns new tensors shaped as the inputs."""
+    the ranks of ``mesh``'s data axis (the world without a mesh), divided
+    by their count for ``mean``.  Every rank gets the same bits.  Returns
+    new tensors shaped as the inputs."""
+    group, size = _axis(mesh, DATA_AXIS)
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    if world_size() > 1:
-        dist.all_reduce(flat)
+    if size > 1:
+        dist.all_reduce(flat, group=group)
     if mean:
-        flat = flat / world_size()
+        flat = flat / size
     out, at = [], 0
     for t in tensors:
         out.append(flat[at: at + t.numel()].view(t.shape))
@@ -310,11 +355,55 @@ def all_reduce_flat(tensors: List[torch.Tensor], mean: bool
     return out
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``t`` (equal counts), concatenated in rank
-    order."""
-    if world_size() == 1:
+def all_gather_rows(t: torch.Tensor, mesh: Optional[Mesh] = None
+                    ) -> torch.Tensor:
+    """Every rank's rows of ``t`` (equal counts) over ``mesh``'s data
+    axis (the world without a mesh), concatenated in rank order."""
+    group, size = _axis(mesh, DATA_AXIS)
+    if size == 1:
         return t
-    parts = [torch.empty_like(t) for _ in range(world_size())]
-    dist.all_gather(parts, t.contiguous())
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
+
+
+# the model axis (tensor parallelism): activations and sharded params
+
+def model_all_reduce(tensors: List[torch.Tensor], mesh: Mesh
+                     ) -> List[torch.Tensor]:
+    """The sum of ``tensors`` over ``mesh``'s model group, in fp32, as ONE
+    flat bucket (the row-parallel products' partial sums); new fp32
+    tensors shaped as the inputs.  Every rank of the group gets the same
+    bits."""
+    if mesh.model == 1:
+        return [t.float() for t in tensors]
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=mesh.model_group)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at: at + t.numel()].view(t.shape))
+        at += t.numel()
+    return out
+
+
+def model_all_gather(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The model group's slices of ``t`` along ``dim``, concatenated in
+    model-index order (a column-parallel output made whole, a sharded
+    leaf gathered)."""
+    if mesh.model == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(mesh.model)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.model_group)
+    return torch.cat(parts, dim=dim)
+
+
+def model_slice(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This rank's contiguous slice of ``t`` along ``dim`` (``t.shape[dim]
+    / model`` wide, at its model index): a copy, never a view."""
+    if mesh.model == 1:
+        return t
+    width = t.shape[dim] // mesh.model
+    # clone: a slice of the first axis is contiguous already, and a view
+    # would keep the whole leaf alive (and share its storage)
+    return t.narrow(dim, mesh.model_index * width, width).clone(
+        memory_format=torch.contiguous_format)

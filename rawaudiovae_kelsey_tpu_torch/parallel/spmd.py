@@ -51,7 +51,13 @@ def build_shard_map_train_step(
     """``(state, batch) → (state, metrics)`` with ``batch`` this rank's
     rows; params and moments replicated.  ``noise(step, None, (rows,
     latent))`` replaces the rank's draw (the caller's function knows the
-    rank).  Raises for ``microbatch_size > 0``, as JAX does."""
+    rank).  Raises for ``microbatch_size > 0``, as JAX does, and for a
+    mesh with a model axis: this path is data-parallel only by design (as
+    JAX's is); tensor parallelism stays with ``build_train_step(mesh=)``."""
+    if mesh.model > 1:
+        raise ValueError(
+            "build_shard_map_train_step is data-parallel only; use "
+            "build_train_step(mesh=) for model_parallel > 1")
     if cfg.tpu.microbatch_size:
         raise ValueError(
             "build_shard_map_train_step does not implement microbatch "
@@ -93,7 +99,8 @@ def per_rank_step(model: ModelDef, cfg: Config, optimizer: Optional[Adam],
         grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
         # THE collective: one reduction of grads and the scalar metrics
         reduced = all_reduce_flat(
-            grads + [loss.detach(), mse.detach(), kld.detach()], mean)
+            grads + [loss.detach(), mse.detach(), kld.detach()], mean,
+            mesh=mesh)
         grads, metrics = reduced[:len(grads)], reduced[len(grads):]
         optimizer.update(state, unflatten(state.params, grads))
         state.step += 1

@@ -50,7 +50,17 @@ forward, reparameterization, loss, backward and Adam, with
   raises for a global batch that does not divide the ranks), so that case
   has no counterpart;
 * ``weights`` (:func:`make_weighted_loss_fn`): the row-weighted loss of
-  padded batches, rows of weight 0 carrying no loss and no gradient.
+  padded batches, rows of weight 0 carrying no loss and no gradient;
+* a mesh with ``model > 1`` (tensor parallelism): ``state`` holds the
+  rank's shards (``parallel/sharding.py`` ``shard_params``; Adam's moments
+  are made from them, so they are sharded too) and the model runs the
+  Megatron split on them (``parallel/tensor_parallel.py``
+  ``tensor_parallel_model``).  The ranks of one data index hold the same
+  rows and draw the same noise (the global microbatch's, sliced by data
+  index; ``shard_seed`` folds the data index only), the gradients and the
+  metrics are reduced over the data group alone, and every rank's Adam
+  updates its own shards; the replicated leaves get equal gradients on the
+  ranks of a model group, so they stay equal bit for bit.
 
 The state is updated in place; clone it first to keep the old one.
 """
@@ -70,6 +80,9 @@ from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_flat,
     batch_sharding,
+)
+from rawaudiovae_kelsey_tpu_torch.parallel.tensor_parallel import (
+    tensor_parallel_model,
 )
 from rawaudiovae_kelsey_tpu_torch.train.optim import Adam, build_optimizer
 from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
@@ -228,7 +241,11 @@ def build_train_step(model: ModelDef, cfg: Config,
     ``local_rows``) and ``microbatch_size`` must divide the ranks.
     ``weights`` (one per row; the resident stream's padded batches) takes
     :func:`make_weighted_loss_fn` in one full-batch gradient: ``n_real``
-    is all-reduced first and the ranks' shares are summed."""
+    is all-reduced first and the ranks' shares are summed.  On a mesh with
+    ``model > 1`` the state holds the rank's shards (the module's
+    docstring)."""
+    if mesh is not None:
+        model = tensor_parallel_model(model, cfg, mesh)
     loss_fn = make_loss_fn(model, cfg)
     wloss_fn = make_weighted_loss_fn(model, cfg)
     tpu_prng = cfg.tpu.rng == "tpu_prng"
@@ -288,7 +305,8 @@ def build_train_step(model: ModelDef, cfg: Config,
                     "rows)")
             n_real = weights.float().sum()
             if mesh is not None:
-                (n_real,) = all_reduce_flat([n_real], mean=False)
+                (n_real,) = all_reduce_flat([n_real], mean=False,
+                                            mesh=mesh)
             metrics, grads = value_and_grad(None, batch, weights, n_real)
         elif micro and local_micro < total:
             # a ragged final batch (the loader keeps it) is one extra grad
@@ -318,7 +336,8 @@ def build_train_step(model: ModelDef, cfg: Config,
             # THE collective: grads and metrics in one flat bucket; the
             # weighted shares are already fractions of the global mean
             reduced = all_reduce_flat(
-                grads + metrics, mean=mean_reduced and weights is None)
+                grads + metrics, mean=mean_reduced and weights is None,
+                mesh=mesh)
             grads, metrics = reduced[:len(grads)], reduced[len(grads):]
         optimizer.update(state, unflatten(state.params, grads))
         state.step += 1
@@ -335,7 +354,11 @@ def build_eval_step(model: ModelDef, cfg: Config,
     ``[tpu] deterministic_inference`` switches to z = mu.  Runs on the
     (fp32 master) params as they are, as the JAX eval step does.  With a
     ``mesh``, ``batch`` is this rank's block: the generator draws the
-    global batch's noise and the rank keeps its rows."""
+    global batch's noise and the rank keeps its rows; with ``model > 1``
+    the params are the rank's shards and every rank of the model group
+    runs the sharded forward."""
+    if mesh is not None:
+        model = tensor_parallel_model(model, cfg, mesh)
     seg = model.segment_length
     deterministic = cfg.tpu.deterministic_inference
 

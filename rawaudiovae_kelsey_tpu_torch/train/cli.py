@@ -15,9 +15,10 @@ as "every device on the data axis", so on a host with several visible
 cards the command starts one rank a card (:func:`plan_ranks`), each a
 process of its own (``torch.multiprocessing``, start method ``spawn``, a
 file store in a temporary directory, NCCL), joins them, and exits non-zero
-if any fails.  ``data_parallel = n`` starts n ranks (n CPU processes on
-gloo under ``--device cpu``) and raises where fewer than n cards are
-visible.  A process that is already a rank — torchrun set ``RANK``, or
+if any fails.  ``data_parallel = n`` starts n × ``model_parallel`` ranks
+(CPU processes on gloo under ``--device cpu``) and raises where fewer
+cards are visible; under ``data_parallel = 0`` the cards are cut into
+``model_parallel`` ranks a data index (tensor parallelism).  A process that is already a rank — torchrun set ``RANK``, or
 ``[tpu] multihost`` / ``coordinator_address`` ask to join a group — starts
 nothing and trains as that rank (``--device cuda`` takes
 ``cuda:LOCAL_RANK``).
@@ -71,29 +72,32 @@ def plan_ranks(cfg, device: torch.device) -> int:
     """How many ranks the command starts on this host: 1 means "train in
     this process" (as one rank of an existing or joined group, or alone).
     ``data_parallel = 0`` on a bare ``cuda`` device is one rank a visible
-    card; ``data_parallel = n`` is n, and more than the visible cards
-    raise (JAX's ``mesh AxB != N devices``).  A named card
-    (``cuda:1``) trains alone unless ``data_parallel > 1`` asks for
-    more, which raises."""
+    card (``make_mesh`` then cuts them into ``model_parallel`` a data
+    index); ``data_parallel = n`` is n × ``model_parallel``, and more than
+    the visible cards raise (JAX's ``mesh AxB != N devices``).  A named
+    card (``cuda:1``) trains alone unless the config asks for more ranks,
+    which raises."""
     if (dist.is_initialized() or "RANK" in os.environ
             or cfg.tpu.multihost or cfg.tpu.coordinator_address):
         return 1
     dp = cfg.tpu.data_parallel
+    mp = max(cfg.tpu.model_parallel, 1)
     if device.type != "cuda":
-        return max(dp, 1)
+        return max(dp, 1) * mp
     if device.index is not None:
-        if dp > 1:
+        if dp > 1 or mp > 1:
+            n = max(dp, 1) * mp
             raise ValueError(
-                f"[tpu] data_parallel = {dp} with --device {device}: pass "
-                "--device cuda to train on cards 0.."
-                f"{dp - 1}")
+                f"[tpu] data_parallel = {dp}, model_parallel = {mp} with "
+                f"--device {device}: pass --device cuda to train on cards "
+                f"0..{n - 1}")
         return 1
     visible = torch.cuda.device_count()
-    n = dp if dp > 0 else visible
+    n = dp * mp if dp > 0 else visible
     if n > visible:
         raise ValueError(
-            f"[tpu] data_parallel = {dp} asks for {n} ranks, one a card, "
-            f"but {visible} CUDA devices are visible")
+            f"[tpu] data_parallel = {dp}, model_parallel = {mp} asks for "
+            f"{n} ranks, one a card, but {visible} CUDA devices are visible")
     return max(n, 1)
 
 

@@ -24,8 +24,11 @@ them on one host) every rank reads its own file shard and:
     (``parallel/resident.py`` sharded engine), the budget per card.
 Every decision that selects a collective program is taken from
 all-gathered sizes, so the ranks never diverge; a stop flag acts only by
-agreement (:func:`_sync_stop`).  What the port does not carry raises,
-naming ROADMAP.md: model parallelism and orbax checkpoints.
+agreement (:func:`_sync_stop`).  Under ``model_parallel > 1`` (tensor
+parallelism) the ranks of one data index read the same file shard and feed
+the same rows to the sharded step; the resident engine refuses the model
+axis, as JAX's does (``train/epoch.py:153-155``): ``auto`` trains host-fed
+and says why, ``always`` raises.
 """
 
 from __future__ import annotations
@@ -51,13 +54,11 @@ from rawaudiovae_kelsey_tpu_torch.models.registry import resident_model
 from rawaudiovae_kelsey_tpu_torch.observe.timing import trace_capture
 from rawaudiovae_kelsey_tpu_torch.parallel import resident as R
 from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
-    MODEL_PARALLEL_NOT_PORTED,
     all_gather_ints,
     any_rank,
     host_shard_info,
     world_size,
 )
-from rawaudiovae_kelsey_tpu_torch.train.checkpoint import ORBAX_NOT_PORTED
 from rawaudiovae_kelsey_tpu_torch.train import loop as L
 from rawaudiovae_kelsey_tpu_torch.train.interrupt import GracefulInterrupt
 from rawaudiovae_kelsey_tpu_torch.tree import leaves as tree_leaves
@@ -65,16 +66,11 @@ from rawaudiovae_kelsey_tpu_torch.tree import leaves as tree_leaves
 
 def check_supported(cfg: Config,
                     device: torch.device | str = "cuda") -> None:
-    """Raise for the settings of the JAX trainer this port lacks: model
-    parallelism and orbax checkpoints (ROADMAP.md A.7b).  And say so when
-    the trainer is called as a library on one of several visible cards
-    outside a group of ranks: ``data_parallel = 0`` is "every device" in
-    the JAX package; here the ``train`` and ``stream`` commands start one
-    rank a card (``train/cli.py``), a library call trains where it is."""
-    if cfg.tpu.model_parallel > 1:
-        raise NotImplementedError(MODEL_PARALLEL_NOT_PORTED)
-    if cfg.tpu.checkpoint_format == "orbax":
-        raise NotImplementedError(f"[tpu] {ORBAX_NOT_PORTED}")
+    """Say so when the trainer is called as a library on one of several
+    visible cards outside a group of ranks: ``data_parallel = 0`` is
+    "every device" in the JAX package; here the ``train`` and ``stream``
+    commands start one rank a card (``train/cli.py``), a library call
+    trains where it is.  Every setting of the JAX trainer runs."""
     device = torch.device(device)
     if (cfg.tpu.data_parallel == 0 and device.type == "cuda"
             and torch.cuda.device_count() > 1 and world_size() == 1
@@ -121,7 +117,7 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
         datapath_audio_dir(cfg), cfg.audio.sampling_rate,
         cfg.dataset.check_dataset, cfg.dataset.check_audio,
     )
-    host_id, num_hosts = host_shard_info()
+    host_id, num_hosts = host_shard_info(ctx.mesh)
     corpus, n_samples = build_corpus(
         datapath_audio_dir(cfg), cfg.audio.sampling_rate,
         mono=cfg.dataset.mono, verbose=verbose,
@@ -148,10 +144,12 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
     dtype_bytes = 2 if cfg.tpu.precision == "bfloat16" else 4
     budget = int(cfg.tpu.resident_budget_gb * (1 << 30))
     if mesh is not None:
+        # rank r is at model index r % model: the rows of model index 0
+        # are one a data index (its model ranks read the same shard)
         counts = all_gather_ints([n_samples, len(dataset)])
         n_samples_eff = int(counts[:, 0].max())
         min_frames = int(counts[:, 1].min())
-        dataset_len = int(counts[:, 1].sum())
+        dataset_len = int(counts[::mesh.model, 1].sum())
     else:
         n_samples_eff, min_frames = n_samples, len(dataset)
         dataset_len = len(dataset)
@@ -159,7 +157,9 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
     # (wrap-padded) frame matrix is at most the largest rank's corpus
     layout = R.choose_layout(n_samples_eff, cfg.audio.segment_length,
                              cfg.audio.hop_length, dtype_bytes, budget)
-    mesh_ok = mesh is None or (layout == "frames"
+    # the resident engine refuses the model axis, as JAX's does
+    model_ok = mesh is None or mesh.model == 1
+    mesh_ok = mesh is None or (model_ok and layout == "frames"
                                and batch_size % mesh.data == 0)
     # the resident step takes one full-batch gradient: it cannot honour
     # microbatch accumulation, so configs that ask for it (giant batches)
@@ -176,9 +176,13 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
             "device_resident=always but the corpus does not fit "
             f"resident_budget_gb={cfg.tpu.resident_budget_gb} (layout="
             f"{layout!r}), has fewer frames than one batch, the mesh/batch "
-            "layout is incompatible, or microbatch_size is set (the "
-            "resident step can't accumulate microbatches); adjust the "
-            "config or use device_resident=auto")
+            "layout is incompatible (the resident engine refuses "
+            "model_parallel > 1), or microbatch_size is set (the resident "
+            "step can't accumulate microbatches); adjust the config or use "
+            "device_resident=auto")
+    if not model_ok and cfg.tpu.device_resident == "auto":
+        print(f"device_resident=auto: model_parallel = {mesh.model} trains "
+              "host-fed (the resident engine refuses the model axis)")
 
     if mesh is not None:
         # every rank feeds batch_size / world of its own rows a step; an

@@ -10,10 +10,15 @@ its path (:func:`_make_workspace_coordinated`), every rank restores the
 checkpoint rank 0 found, and only rank 0 writes: TensorBoard (the others
 get a writer that drops everything), wavs, checkpoints, the best and last
 models, the config snapshot (the console log: ``train/stream.py``).  The
-state is replicated bit for bit, so rank 0's copy is the run's and every
-fetch of it is local (JAX's ``_host_params`` gathers shards that no
-process holds whole; a replicated state has none).  Orbax checkpoints stay
-a raise (``train/checkpoint.py``).
+data replicas are equal bit for bit, so rank 0's copy is the run's.
+Under tensor parallelism (``model_parallel > 1``) :func:`setup` keeps each
+rank's shards of rank 0's params (``parallel/sharding.py``), and every
+path that needs whole leaves — the histograms, the best and last models,
+an npz checkpoint, a boundary's host state — gathers them on every rank of
+the model group first (:func:`full_state`, a collective; JAX's
+``_host_params`` gathers the shards no process holds whole), then rank 0
+writes.  The sharded format (``[tpu] checkpoint_format = orbax``,
+``train/checkpoint.py``) takes the shards as they are.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +61,11 @@ from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
     maybe_initialize_distributed,
     world_size,
 )
+from rawaudiovae_kelsey_tpu_torch.parallel.sharding import (
+    gather_params,
+    param_specs,
+    shard_params,
+)
 from rawaudiovae_kelsey_tpu_torch.parallel.step import (
     build_eval_step,
     build_train_step,
@@ -78,6 +88,9 @@ class TrainContext:
     writer: EventWriter
     timer: StepTimer
     mesh: Optional[Mesh] = None
+    # the spec tree of the params under tensor parallelism (the state then
+    # holds this rank's shards), else None
+    specs: Optional[Any] = None
     test_dataset: Optional[TestFrameDataset] = None
     audio_log_dir: Optional[Path] = None
     best_loss: float = float("inf")
@@ -147,9 +160,11 @@ def setup(cfg: Config, device: torch.device | str,
     if world_size() > 1:
         mesh = make_mesh(cfg.tpu.data_parallel, cfg.tpu.model_parallel,
                          device)
-    elif cfg.tpu.data_parallel > 1:
+    elif cfg.tpu.data_parallel > 1 or cfg.tpu.model_parallel > 1:
+        key = ("data_parallel" if cfg.tpu.data_parallel > 1
+               else "model_parallel")
         raise ValueError(
-            f"[tpu] data_parallel = {cfg.tpu.data_parallel} but this process "
+            f"[tpu] {key} = {getattr(cfg.tpu, key)} but this process "
             "is not part of a group of ranks: the train and stream commands "
             "start the ranks on one host; across hosts use torchrun with "
             "[tpu] multihost = true")
@@ -170,14 +185,21 @@ def setup(cfg: Config, device: torch.device | str,
         # keep them equal bit for bit
         broadcast_tensors(tree_leaves(state.params))
     if cfg.extra.plot_model:
-        print(summarize(params))
+        print(summarize(params))     # the whole leaves' shapes
+    specs = None
+    if mesh is not None and mesh.model > 1:
+        # each rank keeps its shards of rank 0's params; Adam's moments
+        # are made from them, so they are sharded too
+        specs = param_specs(model.name, state.params, mesh.model)
+        state = TrainState.create(shard_params(state.params, mesh, specs),
+                                  seed=cfg.tpu.seed)
 
     ctx = TrainContext(
         cfg=cfg, workspace=ws, model=model, state=state,
         train_step=build_train_step(model, cfg, mesh=mesh),
         eval_step=build_eval_step(model, cfg, mesh=mesh),
         writer=EventWriter(ws.log_dir) if is_coordinator() else NullWriter(),
-        timer=StepTimer(device=device), mesh=mesh,
+        timer=StepTimer(device=device), mesh=mesh, specs=specs,
     )
 
     # resume (new capability; the reference never reloaded checkpoints);
@@ -190,8 +212,8 @@ def setup(cfg: Config, device: torch.device | str,
             latest = "" if found is None else str(found)
         latest = broadcast_text(latest)
         if latest:
-            ctx.state, meta = ckpt.restore_checkpoint(Path(latest),
-                                                      ctx.state)
+            ctx.state, meta = ckpt.restore_checkpoint(
+                Path(latest), ctx.state, mesh, specs)
             ctx.start_step = ctx.state.step
             ctx.best_loss = float(meta.get("best_loss", float("inf")))
             ctx.start_meta = meta
@@ -281,7 +303,7 @@ def reconstruct_test_set(ctx: TrainContext, step_label: int) -> np.ndarray:
                               eval_generator(device, ctx.state.seed, i),
                               x.to(device))
         if mesh is not None:
-            recon = all_gather_rows(recon)[:rows]
+            recon = all_gather_rows(recon, mesh)[:rows]
         outs.append(recon.float().cpu().numpy())
     wave = np.concatenate(outs, axis=0).reshape(-1)
     if not is_coordinator():
@@ -343,10 +365,40 @@ def fetch_host_state(state: TrainState,
     return host
 
 
-def boundary_host_state(ctx: TrainContext) -> Tuple[TrainState, Params]:
+def full_params(ctx: TrainContext, params: Optional[Params] = None
+                ) -> Params:
+    """``params`` (the live ones by default) with whole leaves: under
+    tensor parallelism the model group's shards gathered — a collective
+    every rank calls — else as they are."""
+    params = ctx.state.params if params is None else params
+    if ctx.specs is None:
+        return params
+    return gather_params(params, ctx.mesh, ctx.specs)
+
+
+def full_state(ctx: TrainContext) -> TrainState:
+    """The live state with whole leaves (:func:`full_params` of the
+    params and both moments; a collective under tensor parallelism)."""
+    if ctx.specs is None:
+        return ctx.state
+    s = ctx.state
+    return TrainState(params=full_params(ctx, s.params),
+                      mu=full_params(ctx, s.mu), nu=full_params(ctx, s.nu),
+                      count=s.count, seed=s.seed, step=s.step)
+
+
+def boundary_host_state(ctx: TrainContext
+                        ) -> Tuple[Optional[TrainState], Params]:
     """``(host_state, host_params)`` of the live state for a checkpoint
-    boundary's writers: one device→host pass."""
-    host = fetch_host_state(ctx.state)
+    boundary's writers: one device→host pass of whole leaves (gathered
+    first under tensor parallelism, on every rank).  Under the sharded
+    format the params alone (the histograms and the best gate read them):
+    its writer takes the live shards itself, as JAX's orbax writer takes
+    the live arrays (``train/loop.py:319-330``)."""
+    if ctx.cfg.tpu.checkpoint_format == "orbax":
+        params = full_params(ctx)
+        return None, tree_map(lambda t: t.detach().to("cpu"), params)
+    host = fetch_host_state(full_state(ctx))
     return host, host.params
 
 
@@ -406,10 +458,12 @@ def log_param_histograms(ctx: TrainContext, step: int,
     ``fc1.bias``; train.py:203-204); the other families log under dotted
     tree names (``enc.0.w``, ``mu_head.b``), leaves as stored.  ``params``
     may pass a pre-fetched host tree (:func:`fetch_host_state`) to skip the
-    device pull.  Rank 0 only."""
+    device pull.  Rank 0 writes; under tensor parallelism every rank takes
+    part in gathering the live params."""
+    if params is None:
+        params = full_params(ctx)
     if not is_coordinator():
         return
-    params = ctx.state.params if params is None else params
     if ctx.model.name != "dense":
         for name, leaf in flatten(params):
             ctx.writer.add_histogram(name, leaf.detach().cpu().numpy(), step)
@@ -430,9 +484,21 @@ def save_periodic_checkpoint(ctx: TrainContext, extra: dict,
     pass a pre-fetched host copy (:func:`fetch_host_state`)."""
     extra = dict(extra)
     extra["best_loss"] = ctx.best_loss
-    path = ckpt.save_checkpoint(
-        ctx.workspace.checkpoint_dir,
-        ctx.state if host_state is None else host_state, extra, label=label)
+    if ctx.cfg.tpu.checkpoint_format == "orbax":
+        # the sharded format: every rank calls it, the live shards as they
+        # are (or a host copy of a one-rank state); async_checkpoint
+        # returns after the device→host copy
+        live = host_state is None
+        path = ckpt.save_checkpoint_sharded(
+            ctx.workspace.checkpoint_dir,
+            ctx.state if live else host_state, extra, label=label,
+            mesh=ctx.mesh, specs=ctx.specs if live else None,
+            wait=not ctx.cfg.tpu.async_checkpoint)
+    else:
+        path = ckpt.save_checkpoint(
+            ctx.workspace.checkpoint_dir,
+            full_state(ctx) if host_state is None else host_state, extra,
+            label=label)
     # prune AFTER the new save so a failed write can't leave fewer than
     # `keep` on disk
     keep = ctx.cfg.training.keep_checkpoints
@@ -451,10 +517,10 @@ def maybe_save_best(ctx: TrainContext, train_loss: float, step_label: int,
     if step_label > after and train_loss < ctx.best_loss:
         ctx.best_loss = train_loss
         ctx.cfg.training.best_epoch = str(step_label)
+        params = full_params(ctx) if host_params is None else host_params
         if is_coordinator():
             path = ctx.workspace.model_dir / "best_model.npz"
-            ckpt.save_params(path, ctx.state.params if host_params is None
-                             else host_params)
+            ckpt.save_params(path, params)
             print(f"Step {step_label:05d}: Saved {path}")
         return True
     if train_loss > ctx.best_loss:
@@ -465,9 +531,9 @@ def maybe_save_best(ctx: TrainContext, train_loss: float, step_label: int,
 def save_last(ctx: TrainContext, host_params: Optional[Params] = None
               ) -> Path:
     path = ctx.workspace.model_dir / "last_model.npz"
+    params = full_params(ctx) if host_params is None else host_params
     if is_coordinator():
-        ckpt.save_params(path, ctx.state.params if host_params is None
-                         else host_params)
+        ckpt.save_params(path, params)
     print("Training Finished: Saved the last model")
     return path
 
@@ -482,6 +548,8 @@ def finish(ctx: TrainContext) -> None:
         except Exception as e:
             print(f"WARNING: checkpoint-boundary I/O failed during "
                   f"shutdown: {e!r}")
+    # a pending sharded save commits before the run ends (every rank)
+    ckpt.wait_for_orbax()
     keep = ctx.cfg.training.keep_checkpoints
     if keep > 0:
         ckpt.prune_checkpoints(ctx.workspace.checkpoint_dir, keep)

@@ -44,6 +44,9 @@ with rows of weight 0 (the row-weighted loss).  The gate's decision comes
 from all-gathered sizes, the same on every rank, and a stop flag acts only
 by agreement, at the JAX cadences (every ``sync_every`` batches host-fed;
 at histogram and checkpoint crossings and every 8th chunk resident).
+Under ``model_parallel > 1`` the ranks of one data index stream the same
+shard (seeded ``seed + data index``) into the sharded step, host-fed: the
+resident engine refuses the model axis as JAX's does.
 """
 
 from __future__ import annotations
@@ -194,8 +197,9 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
         audio_dir, cfg.audio.sampling_rate,
         cfg.dataset.check_dataset, cfg.dataset.check_audio,
     )
-    # a rank streams its own file shard (JAX's per-host stream)
-    host_id, num_hosts = host_shard_info()
+    # a rank streams its own file shard (JAX's per-host stream); the model
+    # ranks of a data index stream the same one
+    host_id, num_hosts = host_shard_info(ctx.mesh)
     dataset = StreamingFrameDataset(
         audio_dir,
         cfg.audio.sampling_rate,
@@ -213,8 +217,18 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
     mesh = ctx.mesh
 
     # the resident gate: size the layout the resident stream would take
-    # against the budget, then run the engine it chooses
-    if cfg.tpu.device_resident != "never":
+    # against the budget, then run the engine it chooses.  The resident
+    # engine refuses the model axis, as JAX's does (stream.py:102-103)
+    if mesh is not None and mesh.model > 1 \
+            and cfg.tpu.device_resident != "never":
+        if cfg.tpu.device_resident == "always":
+            raise ValueError(
+                "device_resident=always but model_parallel = "
+                f"{mesh.model}: the resident stream refuses the model axis; "
+                "use device_resident=auto or never")
+        print(f"device_resident=auto: model_parallel = {mesh.model} trains "
+              "host-fed (the resident stream refuses the model axis)")
+    elif cfg.tpu.device_resident != "never":
         plan = resident_plan(dataset, cfg, device, mesh)
         if plan is not None and plan.fits:
             return _run_resident(ctx, cfg, verbose, stop, dataset,

@@ -187,11 +187,17 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch, header):
 def test_the_fp32_forward_entry_points_build_on_sgemm_cuh():
     """rvk_encoder_fwd and rvk_decoder_fwd launch sgemm.cuh's launch_fwd for
     kernel code 2: h with the ReLU, then both heads in one two-output
-    launch; h3 with the ReLU, then y with tanh.  The two-output grid and
-    the epilogue of a split product are sgemm.cuh's and slices.cuh's."""
+    launch; h3 with the ReLU, then y with tanh; so do their row-parallel
+    forms (the encoder's with no head biases, the decoder's y with no bias
+    and no tanh).  The two-output grid and the epilogue of a split product
+    are sgemm.cuh's and slices.cuh's."""
     text = (_build.CSRC / "mlp.cu").read_text()
     assert '#include "sgemm.cuh"' in text
-    assert text.count("kernel == rvk::tc::kSgemm") == 2
+    assert text.count("kernel == rvk::tc::kSgemm") == 4
+    partial = text.split("int sgemm_decoder_partial(")[1].split("}\n")[0]
+    assert partial.count("rvk::sgemm::launch_fwd<1, rvk::kActRelu>") == 1
+    assert partial.count("rvk::sgemm::launch_fwd<1, rvk::kActNone>") == 1
+    assert "sgemm_encoder(x, w1, b1, w21, nullptr, w22, nullptr" in text
     encoder = text.split("int sgemm_encoder(")[1].split(
         "int sgemm_decoder(")[0]
     decoder = text.split("int sgemm_decoder(")[1].split("}  // namespace")[0]
@@ -208,7 +214,8 @@ def test_the_fp32_entry_points_build_on_sgemm_cuh():
     rvk_matmul_nt_mask, rvk_matmul_nt2_mask, rvk_grad_accum,
     rvk_grad_accum2, rvk_enc_bwd_dw1 and rvk_dec_bwd_fused launch the fp32
     mainloop of csrc/sgemm.cuh for kernel code 2 (the rvk::tc::Kernel
-    enum), the two linear entry points with the same call, the gated ones
+    enum), the two linear entry points and their row-parallel form
+    (rvk_linear_partial) with the same call, the gated ones
     its gated form, rvk_grad_accum its weight-gradient form, the last three
     those launches one after another (grad_accum2: the weight gradient
     twice; enc_bwd_dw1: the joined gated form, then the weight gradient;
@@ -220,7 +227,7 @@ def test_the_fp32_entry_points_build_on_sgemm_cuh():
 
     # source → (entry points with an fp32 branch, the launches' calls)
     for src, branches, calls in (
-            ("linear.cu", 2, {"rvk::sgemm::launch_act<false>": 2}),
+            ("linear.cu", 3, {"rvk::sgemm::launch_act<false>": 3}),
             ("bwd.cu", 7, {"rvk::sgemm::launch<true, rvk::kActNone>": 2,
                            "rvk::sgemm::launch_gated<false>(": 2,
                            "rvk::sgemm::launch_gated<true>(": 2,

@@ -3389,3 +3389,54 @@ def test_mesh_step_on_one_nccl_rank_equals_the_plain_step(cuda, tmp_path):
     (run,) = torch_ranks.launch(torch_ranks.cuda_mesh_step, 1, tmp_path,
                                 "bfloat16", backend="nccl")
     assert run["rel"] == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_parallel_forms_match_their_plain_versions(cuda, dtype):
+    """The row-parallel forms of rows 1, 2 and 15-16 at model 2's shards
+    (units 1024 of 2048; deep_wide's 4096x2048->2048), the kernel "auto"
+    picks and the first version (``kernel="cuda_cores"``): the fp32
+    partial sums within 1e-5 of the largest of the sums on the kernel's
+    own hidden layer (the same products of the same rounded operands in
+    another order), the hidden layer as the full form rounds it (within
+    2^-6 of the plain version's largest in bf16, where an element may sit
+    a bf16 ulp off; 1e-4 in fp32), ``linear_partial`` within 1e-5 of its
+    plain version, equal bits on a second launch."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear
+
+    g = torch.Generator(device=cuda).manual_seed(24)
+
+    def rnd(*shape, scale=1.0):
+        return ((torch.rand(shape, generator=g, device=cuda) * 2 - 1)
+                * scale).to(dtype)
+
+    def near(got, want, rel):
+        return float((got.float() - want.float()).abs().max()) <= rel * \
+            float(want.float().abs().max())
+
+    enc = (rnd(1024, 1024, scale=0.03), rnd(1024, scale=0.1),
+           rnd(1024, 256, scale=0.03), rnd(1024, 256, scale=0.03))
+    dec = (rnd(256, 1024, scale=0.06), rnd(1024, scale=0.1),
+           rnd(1024, 1024, scale=0.03))
+    hidden_tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for kernel in ("auto", "cuda_cores"):
+        for batch in (8192, 1000):
+            x, z = rnd(batch, 1024), rnd(batch, 256)
+            for got, want, rows in (
+                    (mlp.encoder_fwd_partial(*enc, x, kernel=kernel),
+                     mlp.encoder_fwd_partial_ref(*enc, x), enc[2:]),
+                    (mlp.decoder_fwd_partial(*dec, z, kernel=kernel),
+                     mlp.decoder_fwd_partial_ref(*dec, z), dec[2:])):
+                for t, w in zip(got[:-1], rows):
+                    assert t.dtype == torch.float32
+                    assert near(t, got[-1].float() @ w.float(), 1e-5)
+                assert near(got[-1], want[-1], hidden_tol)
+            assert all(torch.equal(a, b) for a, b in zip(
+                mlp.encoder_fwd_partial(*enc, x, kernel=kernel),
+                mlp.encoder_fwd_partial(*enc, x, kernel=kernel)))
+        x, w = rnd(4096, 2048), rnd(2048, 2048, scale=2048 ** -0.5)
+        for ksplit in (False, True):
+            got = linear.linear_partial(x, w, ksplit, kernel)
+            assert near(got, linear.linear_partial_ref(x, w, ksplit), 1e-5)
+            assert torch.equal(got, linear.linear_partial(x, w, ksplit,
+                                                          kernel))

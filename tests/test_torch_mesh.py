@@ -262,10 +262,35 @@ def test_make_mesh_raises_for_a_wrong_product_as_jax_does():
     assert host_shard_info() == (0, 1) and is_coordinator()
 
 
+@pytest.fixture(scope="module")
+def tp_groups(tmp_path_factory):
+    """``make_mesh(0, 2)`` and ``make_mesh(0, 4)`` on four ranks."""
+    return R.launch(R.tp_mesh_groups, 4, tmp_path_factory.mktemp("groups"),
+                    [2, 4])
+
+
 @pytest.mark.parametrize("model_parallel", [2, 4])
-def test_model_parallel_raises_naming_the_roadmap(model_parallel):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A.7b"):
+def test_model_parallel_raises_naming_the_roadmap(model_parallel,
+                                                  tp_groups):
+    """``model_parallel > 1`` once raised naming ROADMAP.md; the mesh now
+    builds on four ranks, with its groups: a 2×2 mesh gives each rank the
+    model group of its data index and the data group of its model index,
+    a 1×4 mesh one model group of every rank (the default group).  One
+    rank alone still refuses the product."""
+    with pytest.raises(ValueError, match=f"mesh 0x{model_parallel} != 1"):
         make_mesh(0, model_parallel)
+    for rank, runs in enumerate(tp_groups):
+        run = runs[[2, 4].index(model_parallel)]
+        data = 4 // model_parallel
+        d, m = divmod(rank, model_parallel)
+        assert run["shape"] == (data, model_parallel)
+        assert run["position"] == (d, m)
+        model_ranks = range(d * model_parallel, (d + 1) * model_parallel)
+        assert run["model_sum"] == sum(model_ranks)
+        assert run["data_sum"] == sum(range(m, 4, model_parallel))
+        assert run["gathered"] == [[float(r) for r in model_ranks]]
+        assert run["groups"] == ((True, True) if data > 1
+                                 else (False, False))
 
 
 @pytest.mark.parametrize("n,total,micro", [

@@ -25,7 +25,8 @@ SLICE = [
     "probes.common", "probes.deep_bwd", "probes.deep_step",
     "probes.adam_fusion", "probes.sass_count",
     "parallel.step", "parallel.mesh", "parallel.spmd",
-    "parallel.resident", "train.state",
+    "parallel.resident", "parallel.sharding", "parallel.tensor_parallel",
+    "train.state",
     "train.optim", "train.checkpoint", "train.loop", "train.interrupt",
     "train.epoch", "train.stream", "train.cli", "eval.fixtures", "eval.cli",
     "observe.tb",

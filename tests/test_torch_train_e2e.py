@@ -20,6 +20,7 @@ fp32 differences compound slowly, and the per-batch losses are held at rel
 """
 
 import dataclasses
+from pathlib import Path
 import functools
 
 import jax
@@ -188,11 +189,13 @@ def test_missing_test_dir_raises(scratch_dataset):
     ("checkpoint_format", "orbax")])
 def test_unported_trainer_options_raise(scratch_dataset, key, value,
                                         monkeypatch, tmp_path):
-    """``model_parallel > 1`` and orbax still raise naming ROADMAP.md;
-    ``multihost`` joins the group torchrun's environment names (one rank
-    here) and trains; ``data_parallel = 2`` trains on two ranks (CPU
-    processes on gloo, tests/torch_ranks.py) and one rank alone refuses
-    it."""
+    """Once options the port lacked (``model_parallel > 1`` and orbax
+    raised naming ROADMAP.md); every one now trains: ``multihost`` joins
+    the group torchrun's environment names (one rank here);
+    ``data_parallel = 2`` and ``model_parallel = 2`` train on two ranks
+    (CPU processes on gloo, tests/torch_ranks.py) and one rank alone
+    refuses them; ``checkpoint_format = orbax`` writes the port's sharded
+    directories."""
     import socket
 
     import torch.distributed as dist
@@ -216,16 +219,25 @@ def test_unported_trainer_options_raise(scratch_dataset, key, value,
             if dist.is_initialized():
                 dist.destroy_process_group()
         assert ctx.state.step == 3 and ctx.mesh is None
-    elif key == "data_parallel":
+    elif key in ("data_parallel", "model_parallel"):
         with pytest.raises(ValueError, match="not part of a group"):
             port_train(cfg)
         runs = torch_ranks.launch(torch_ranks.train_cfg, 2, tmp_path, cfg)
         assert runs[0] == runs[1]
         step, workdir = runs[0]
-        assert step == 1 and workdir.endswith("run-000")
+        # a mesh drops a short last batch: two data ranks take 1 full
+        # global batch, two model ranks of one data index the 2 full ones
+        # of the 3
+        assert step == (1 if key == "data_parallel" else 2)
+        assert workdir.endswith("run-000")
+        assert (Path(workdir) / "model" / "last_model.npz").is_file()
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_train(cfg)
+        ctx = port_train(cfg)
+        assert ctx.state.step == 3
+        found = sorted(p.name for p in ctx.workspace.checkpoint_dir.iterdir())
+        assert found == ["orbax_00001"]
+        assert (ctx.workspace.checkpoint_dir / "orbax_00001" /
+                "index.json").is_file()
 
 
 def test_loss_history_matches_the_jax_trainer(scratch_dataset, jax_parity):

@@ -492,3 +492,210 @@ def cuda_mesh_step(rank, world, precision):
         rng.philox_words_ref(words, 64, 256)))
     out["words"] = words
     return out
+
+
+# ------------------------------------------------- tensor parallelism
+
+def _tp_cfg(case):
+    cfg = _tiny_cfg(**case["tpu"])
+    cfg.training.loss_reduction = case.get("reduction", "mean")
+    for k, v in case.get("vae", {}).items():
+        setattr(cfg.vae, k, v)
+    return cfg
+
+
+def tp_steps(rank, world, cases):
+    """The tensor-parallel mesh step (``make_mesh(0, model)``) on this
+    rank's rows for each case: ``cases`` holds the config, the JAX init,
+    the global batch and the injected global eps by (step, microbatch).
+    Returns the losses, the whole params and mu (gathered) and this rank's
+    shards after ``steps`` steps, and the mesh position."""
+    from rawaudiovae_kelsey_tpu_torch.compat import params_to_shards
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import (
+        build_train_step,
+        make_mesh,
+    )
+    from rawaudiovae_kelsey_tpu_torch.parallel.mesh import local_rows
+    from rawaudiovae_kelsey_tpu_torch.parallel.sharding import (
+        gather_params,
+        param_specs,
+    )
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    out = []
+    for case in cases:
+        mesh = make_mesh(0, case["model"])
+        cfg = _tp_cfg(case)
+        model = build_model(cfg, "cpu")
+        eps = case["eps"]
+
+        def noise(step, i, shape, eps=eps):
+            e = eps[(step, i)]
+            assert e.shape == shape, (e.shape, shape)
+            return torch.from_numpy(e)
+
+        specs = param_specs(model.name, case["params"], mesh.model)
+        state = TrainState.create(
+            params_to_shards(case["params"], mesh, specs), case["seed"])
+        step = build_train_step(model, cfg, noise=noise, mesh=mesh)
+        batch = case["batch"]
+        rows = local_rows(mesh, len(batch), cfg.tpu.microbatch_size)
+        losses = []
+        for _ in range(case["steps"]):
+            state, m = step(state, torch.from_numpy(batch[rows]))
+            losses.append([float(m[k]) for k in ("loss", "mse", "kld")])
+        out.append({
+            "losses": losses,
+            "params": _np_params(gather_params(state.params, mesh, specs)),
+            "mu": _np_params(gather_params(state.mu, mesh, specs)),
+            "shards": _np_params(state.params),
+            "position": (mesh.data_index, mesh.model_index)})
+    return out
+
+
+def tp_grads(rank, world, cases):
+    """The whole gradients of one tensor-parallel forward and backward of
+    the loss (no optimizer) for each case on this rank's rows, gathered;
+    ``case["fp32_backward"]`` picks the dense kernels' backward mode."""
+    from rawaudiovae_kelsey_tpu_torch.compat import params_to_shards
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import make_loss_fn, make_mesh
+    from rawaudiovae_kelsey_tpu_torch.parallel.mesh import batch_sharding
+    from rawaudiovae_kelsey_tpu_torch.parallel.sharding import (
+        gather_params,
+        param_specs,
+    )
+    from rawaudiovae_kelsey_tpu_torch.parallel.tensor_parallel import (
+        tensor_parallel_model,
+    )
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves, tree_map, unflatten
+
+    out = []
+    for case in cases:
+        mesh = make_mesh(0, case["model"])
+        cfg = _tp_cfg(case)
+        model = tensor_parallel_model(build_model(cfg, "cpu"), cfg, mesh)
+        specs = param_specs(model.name, case["params"], mesh.model)
+        params = tree_map(lambda t: t.requires_grad_(),
+                          params_to_shards(case["params"], mesh, specs))
+        batch = torch.from_numpy(case["batch"])
+        block = batch_sharding(mesh, len(batch))
+        eps = torch.from_numpy(case["eps"])[block]
+        loss, _ = make_loss_fn(model, cfg)(params, eps, batch[block])
+        grads = torch.autograd.grad(loss, leaves(params))
+        whole = gather_params(unflatten(params, [g.float() for g in grads]),
+                              mesh, specs)
+        out.append({"loss": float(loss), "grads": _np_params(whole)})
+    return out
+
+
+def tp_sampler_seeds(rank, world, case):
+    """One tensor-parallel step under ``rng = tpu_prng``: the seed words
+    that reached this rank's sampler, and its mesh position."""
+    from rawaudiovae_kelsey_tpu_torch.compat import params_to_shards
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import rng
+    from rawaudiovae_kelsey_tpu_torch.parallel import (
+        build_train_step,
+        make_mesh,
+    )
+    from rawaudiovae_kelsey_tpu_torch.parallel.mesh import batch_sharding
+    from rawaudiovae_kelsey_tpu_torch.parallel.sharding import param_specs
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    mesh = make_mesh(0, case["model"])
+    cfg = _tiny_cfg(rng="tpu_prng", model_parallel=case["model"])
+    model = build_model(cfg, "cpu")
+    seen = []
+    original = rng.reparameterize
+
+    def recording(seed, mu, logvar):
+        seen.append(tuple(seed))
+        return original(seed, mu, logvar)
+
+    rng.reparameterize = recording
+    try:
+        specs = param_specs(model.name, case["params"], mesh.model)
+        state = TrainState.create(
+            params_to_shards(case["params"], mesh, specs), case["seed"])
+        batch = case["batch"]
+        build_train_step(model, cfg, mesh=mesh)(
+            state, torch.from_numpy(batch[batch_sharding(mesh, len(batch))]))
+    finally:
+        rng.reparameterize = original
+    return {"seeds": seen, "position": (mesh.data_index, mesh.model_index)}
+
+
+def tp_mesh_groups(rank, world, models):
+    """For each model count: the mesh this rank builds, and what its model
+    group and data group sum (rank ids), gather (model_all_gather of the
+    rank id) and slice (model_slice of a row 0..7)."""
+    import torch.distributed as dist
+
+    from rawaudiovae_kelsey_tpu_torch.parallel import make_mesh
+    from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
+        all_reduce_flat,
+        model_all_gather,
+        model_all_reduce,
+        model_slice,
+    )
+
+    out = []
+    for model in models:
+        mesh = make_mesh(0, model)
+        me = torch.tensor([float(rank)])
+        out.append({
+            "shape": (mesh.data, mesh.model), "rank": mesh.rank,
+            "position": (mesh.data_index, mesh.model_index),
+            "model_sum": float(model_all_reduce([me], mesh)[0]),
+            "data_sum": float(all_reduce_flat([me], False, mesh)[0][0]),
+            "gathered": model_all_gather(me[None], mesh, 1).tolist(),
+            "slice": model_slice(torch.arange(8.0)[None], mesh, 1).tolist(),
+            "groups": (mesh.model_group is not None,
+                       mesh.data_group is not None)})
+        dist.barrier()
+    return out
+
+
+def tp_checkpoint(rank, world, job):
+    """Save or restore a dense model's checkpoint on ``make_mesh(0,
+    model)``: ``job`` = (kind, model, params, path, extra).  "save" writes
+    the JAX init's shards (moments made from the params) at label 7 in the
+    sharded format, or gathered as an npz (``extra["npz"]``); "restore"
+    reads ``path`` into this rank's template and returns the shards."""
+    from rawaudiovae_kelsey_tpu_torch.compat import params_to_shards
+    from rawaudiovae_kelsey_tpu_torch.parallel import make_mesh
+    from rawaudiovae_kelsey_tpu_torch.parallel.sharding import (
+        gather_params,
+        param_specs,
+    )
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+    from rawaudiovae_kelsey_tpu_torch.train import checkpoint as ckpt
+    from rawaudiovae_kelsey_tpu_torch.tree import tree_map
+
+    kind, model, params, path, extra = job
+    mesh = make_mesh(0, model)
+    specs = param_specs("dense", params, mesh.model)
+    shards = params_to_shards(params, mesh, specs)
+    state = TrainState(params=shards, mu=tree_map(lambda t: 0.5 * t, shards),
+                       nu=tree_map(lambda t: t * t, shards), count=3,
+                       seed=11, step=7)
+    if kind == "save":
+        if extra.get("npz"):
+            whole = TrainState(
+                params=gather_params(state.params, mesh, specs),
+                mu=gather_params(state.mu, mesh, specs),
+                nu=gather_params(state.nu, mesh, specs),
+                count=3, seed=11, step=7)
+            return str(ckpt.save_checkpoint(Path(path), whole,
+                                            {"epoch": 7}, label=7))
+        return str(ckpt.save_checkpoint_sharded(
+            Path(path), state, {"epoch": 7}, label=7, mesh=mesh,
+            specs=specs))
+    template = TrainState.create(tree_map(torch.zeros_like, shards), 0)
+    got, meta = ckpt.restore_checkpoint(Path(path), template, mesh, specs)
+    return {"params": _np_params(got.params), "mu": _np_params(got.mu),
+            "nu": _np_params(got.nu), "count": got.count, "seed": got.seed,
+            "step": got.step, "meta": meta,
+            "position": (mesh.data_index, mesh.model_index)}
