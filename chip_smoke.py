@@ -264,22 +264,29 @@ any failure exits non-zero with a traceback (no phase is caught):
    (cotangent -> product, -> sum for dW) and by device time beside the
    bare product, their plans swept at the deep layers; the library
    sequences of the sampler and the loss sums beside their kernels' device
-   time; ``leaf_update`` against its
-   plain version BIT FOR BIT on leaves of 1, 255, 256 and 4,000,003
-   elements, a 3-D leaf and an unaligned view, in place;
+   time; ``leaf_update`` (the tree kernel with a table of one leaf, and
+   ``kernel="first"``, the first version) against its plain version
+   BIT FOR BIT on leaves of 1, 255, 256 and 4,000,003 elements, a 3-D leaf
+   and an unaligned view, in place; ``adam_tree`` bit for bit on a tree of
+   aligned, unaligned and empty leaves (one launch) and on one of
+   ``K_MAX_LEAVES + 3`` leaves (two launches);
    ``fused_adam_apply`` against ``Adam.update`` bit for bit over 5 coupled
-   steps on the deep model's tree; its time on the tree's largest leaf and
-   over the whole tree beside ``torch.optim.Adam(fused=True)``, which is
-   timed here and used nowhere in the package;
+   steps on the deep, dense and conv1d trees at full width, one launch a
+   step; timed in turns (CUDA events over the host loop, and device time)
+   on the deep and dense trees and a 4096x4096 leaf: the tree kernel
+   through ``fused_adam_apply`` and alone, the first version, the plain
+   version and ``torch.optim.Adam(fused=True)``, which is timed here and
+   used nowhere in the package, in five rounds of turns, beside the bytes
+   bound;
 10. the probes through their ``main()`` at full width: ``deep_bwd --all``
    in bf16 (and the largest layer in fp32), ``deep_step`` on the deep
    model, ``adam_fusion`` on deep/``xla``, deep/``pallas`` and
    dense/``pallas``: every parity passes, ``dw_fused`` and ``dx_fused``
    launch once a fused backward, every launch on the new form (the tensor
-   cores in bf16, ``csrc/sgemm.cuh`` in fp32), ``leaf_update`` 22 times a
-   deep step, 10 a
-   dense one and never under the plain optimizer, and the two optimizers'
-   states are equal bit for bit;
+   cores in bf16, ``csrc/sgemm.cuh`` in fp32), ``adam_tree`` once a step
+   (22 leaves deep, 10 dense), ``leaf_update`` never, nothing under the
+   plain optimizer, and the two optimizers' states are equal bit for bit;
+   the two step rates printed;
 11. the library path: ``configs/default.ini`` (dense 1024/2048/256,
    ``backend = pallas``) → a run workspace with seeded random weights and a
    synthetic folder of a dozen 1-3 s clips (mixed sines and noise, 44.1
@@ -405,7 +412,7 @@ tensor cores) and at ``highest`` (those on the fp32 kernel);
 ``toeplitz_fwd_narrow``: the same two steps' launches on the
 narrow-channel kernel; ``dw_fused`` / ``dx_fused``: the
 ``deep_bwd`` probe runs of phase 10 in each dtype (those on the new form,
-every one); ``leaf_update``: the
+every one); ``adam_tree``: the
 three ``adam_fusion`` probe runs of phase 10.  A row on phase 13's path
 also has ``mesh_launches_per_rank``: its launches on each of the two
 ranks there (the bf16 step's rows 1, 2, 7-10, the ``high`` step's 11-12,
@@ -538,8 +545,8 @@ CONV_LAYERS = [("conv", 1024, 1, 32), ("conv", 256, 32, 64),
 
 # phase 3f.  dw_fused / dx_fused hold VARIANT_REL against their plain
 # versions (the same products in another order; bf16: one flipped ulp of dx)
-# and equal bits on a second launch; leaf_update holds no tolerance: equal
-# bits.  Shapes: the deep model's four large layers (k, n) at its batch, and
+# and equal bits on a second launch; leaf_update and adam_tree hold no
+# tolerance: equal bits.  Shapes: the deep model's four large layers (k, n) at its batch, and
 # two ragged ones (batch, k, n).
 DEEP_LAYERS = ((4096, 4096), (4096, 2048), (2048, 1024), (1024, 512))
 # configs/deep_wide.ini's eleven layers (k, n, activation) in the order of
@@ -554,6 +561,10 @@ ADAM_LEAVES = ((1,), (255,), (256,), (4_000_003,), (7, 33, 5))
 ADAM_BYTES = 28              # an element: read p, g, m, v; write p, m, v
 ADAM_OPS = 14                # an element: 6 mul, 3 add, 3 div, 1 sqrt, +eps
 DEEP_LEAVES, DENSE_LEAVES = 22, 10
+# the three models' parameter trees at full width: (leaves, parameters)
+ADAM_TREES = {"deep": (DEEP_LEAVES, 55_987_712),
+              "dense": (DENSE_LEAVES, 5_772_800),
+              "conv1d": (22, 1_563_393)}
 
 
 # phases 3c / 3e, the bf16 tensor-core kernels.  Held within BF16_REL of
@@ -641,11 +652,12 @@ def time_both(kernel, plain, iters: int):
     return statistics.mean(t_kern), statistics.mean(t_plain), t_kern, t_plain
 
 
-def time_in_turns(fns: dict, iters: int):
+def time_in_turns(fns: dict, iters: int, rounds: int = 1):
     """Mean ms of each of ``fns`` and each one's runs, timed in the order
-    given and then in reverse (``time_both``'s order for more than two)."""
+    given and then in reverse (``time_both``'s order for more than two),
+    ``rounds`` times."""
     runs = {name: [] for name in fns}
-    for name in (*fns, *reversed(fns)):
+    for name in (*fns, *reversed(fns)) * rounds:
         runs[name].append(cuda_time_ms(fns[name], iters))
     return {name: statistics.mean(t) for name, t in runs.items()}, runs
 
@@ -5139,16 +5151,10 @@ def sweep_formed(kind, operands, rows):
 
 def phase_probe_kernels():
     """Phase 3f: dw_fused and dx_fused against their plain versions,
-    leaf_update and fused_adam_apply against theirs bit for bit."""
-    from rawaudiovae_kelsey_tpu_torch.models import build_model
-    from rawaudiovae_kelsey_tpu_torch.ops import adam, linear_bwd, tensor_cores
-    from rawaudiovae_kelsey_tpu_torch.probes import (
-        adam_fusion,
-        common,
-        deep_bwd,
-    )
-    from rawaudiovae_kelsey_tpu_torch.train import Adam, TrainState
-    from rawaudiovae_kelsey_tpu_torch.tree import leaves, unflatten
+    leaf_update, adam_tree and fused_adam_apply against theirs bit for
+    bit."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear_bwd, tensor_cores
+    from rawaudiovae_kelsey_tpu_torch.probes import deep_bwd
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(41)
@@ -5306,7 +5312,23 @@ def phase_probe_kernels():
               + ", ".join(f"{label} device {device_ms(fn, 5):.4f} ms"
                           for label, fn in parts.items()))
 
-    # ---- the one-pass Adam: equal bits, not a tolerance
+    rows.update(adam_kernels())
+    return rows
+
+
+def adam_kernels() -> dict:
+    """Phase 3f's one-pass Adam: leaf_update, adam_tree and
+    fused_adam_apply against their plain versions, equal bits and not a
+    tolerance; their times.  Returns the row of the tree kernel."""
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import adam
+    from rawaudiovae_kelsey_tpu_torch.probes import adam_fusion, common
+    from rawaudiovae_kelsey_tpu_torch.train import Adam, TrainState
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves, unflatten
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(43)
+    rows = {}
     hyper = dict(b1=0.9, b2=0.999, eps=1e-8, lr=1e-4)
 
     def adam_operands(shape):
@@ -5319,65 +5341,130 @@ def phase_probe_kernels():
     def bits_differ(a, b):
         return int((a.view(torch.int32) != b.view(torch.int32)).sum())
 
-    bc = [torch.full((), c, device=dev)
-          for c in adam.bias_corrections(0.9, 0.999, 3)]
-    unaligned = torch.empty(4 * 1001, device=dev)
-    cases = [(str(shape), adam_operands(shape)) for shape in ADAM_LEAVES]
-    # four views that start 4 bytes past a 16-byte boundary
-    cases.append(("(1000,) unaligned", tuple(
-        unaligned[i * 1001 + 1:(i + 1) * 1001].copy_(t)
-        for i, t in enumerate(adam_operands((1000,))))))
-    for label, (p, grad, m, v) in cases:
-        want = [t.clone() for t in (p, grad, m, v)]
-        ptrs = [t.data_ptr() for t in (p, m, v)]
-        before = adam.leaf_update.launches
-        adam.leaf_update(p, grad, m, v, *bc, **hyper)
+    bc_host = adam.bias_corrections(0.9, 0.999, 3)
+    bc = [torch.full((), c, device=dev) for c in bc_host]
+
+    def leaf_cases():
+        cases = [(str(shape), adam_operands(shape))
+                 for shape in ADAM_LEAVES]
+        # four views that start 4 bytes past a 16-byte boundary
+        unaligned = torch.empty(4 * 1001, device=dev)
+        cases.append(("(1000,) unaligned", tuple(
+            unaligned[i * 1001 + 1:(i + 1) * 1001].copy_(t)
+            for i, t in enumerate(adam_operands((1000,))))))
+        return cases
+
+    # leaf_update: the tree kernel with a table of one leaf, and the first
+    # version by name
+    for kernel in ("auto", "first"):
+        cases = leaf_cases()
+        for label, (p, grad, m, v) in cases:
+            want = [t.clone() for t in (p, grad, m, v)]
+            ptrs = [t.data_ptr() for t in (p, m, v)]
+            before = adam.leaf_update.launches, adam.adam_tree.launches
+            adam.leaf_update(p, grad, m, v, *bc, kernel=kernel, **hyper)
+            torch.cuda.synchronize()
+            check((adam.leaf_update.launches, adam.adam_tree.launches)
+                  == (before[0] + 1, before[1]),
+                  f"leaf_update[{kernel}]: the launch was not counted")
+            adam.leaf_update_ref(*want, *bc, **hyper)
+            check(ptrs == [t.data_ptr() for t in (p, m, v)]
+                  and torch.equal(grad, want[1]),
+                  f"leaf_update[{kernel}] {label}: not in place, or the "
+                  "gradient changed")
+            diff = [bits_differ(a, b) for a, b in zip((p, m, v),
+                                                      (want[0], *want[2:]))]
+            check(diff == [0, 0, 0] and bool(torch.isfinite(p).all()),
+                  f"leaf_update[{kernel}] {label}: {diff} elements of p, m, "
+                  "v differ from the plain version's bits")
+        print(f"  {'leaf_update[' + kernel + ']':<24} {len(cases)} leaves "
+              f"({', '.join(label for label, _ in cases)}): p, m and v "
+              "equal the plain version's bit for bit, in place")
+
+    # the tree kernel: a tree of aligned, unaligned (all four, or the
+    # gradient alone), empty leaves and a strided gradient in one launch,
+    # and one of
+    # K_MAX_LEAVES + 3 leaves in two
+    def tree_case(shapes, unaligned):
+        leaves_ = []
+        for i, shape in enumerate(shapes):
+            n = int(np.prod(shape))
+            four = []
+            for k, t in enumerate(adam_operands(shape)):
+                off = int(i in unaligned or (k == 1 and -i - 1 in unaligned))
+                four.append(torch.empty(n + 4, device=dev)[off:off + n]
+                            .view(shape).copy_(t))
+            leaves_.append(four)
+        return [list(x) for x in zip(*leaves_)]
+
+    k_max = adam.K_MAX_LEAVES
+    tree_cases = {
+        "mixed": ([(4096, 1024), (0,), (1,), (255,), (1027,), (7, 33, 5),
+                   (0, 3), (4097,), (300, 41), (2048,)], (2, 4, -8), 1),
+        f"{k_max + 3} leaves": ([(1000 + 97 * i,) for i in range(k_max + 3)],
+                                (k_max + 1,), 2)}
+    for label, (shapes, unaligned, n_launch) in tree_cases.items():
+        ps, gs, ms, vs = tree_case(shapes, unaligned)
+        if label == "mixed":
+            # a strided gradient (a convolution's), copied contiguous
+            gs[8] = gs[8].t().contiguous().t()
+        want = [[t.clone() for t in x] for x in (ps, ms, vs)]
+        before = adam.adam_tree.launches
+        adam.adam_tree(ps, gs, ms, vs, *bc_host, **hyper)
         torch.cuda.synchronize()
-        check(adam.leaf_update.launches == before + 1,
-              "leaf_update: the launch was not counted")
-        adam.leaf_update_ref(*want, *bc, **hyper)
-        check(ptrs == [t.data_ptr() for t in (p, m, v)]
-              and torch.equal(grad, want[1]),
-              f"leaf_update {label}: not in place, or the gradient changed")
-        diff = [bits_differ(a, b) for a, b in zip((p, m, v),
-                                                  (want[0], *want[2:]))]
-        check(diff == [0, 0, 0] and bool(torch.isfinite(p).all()),
-              f"leaf_update {label}: {diff} elements of p, m, v differ from "
+        check(adam.adam_tree.launches == before + n_launch,
+              f"adam_tree {label}: {adam.adam_tree.launches - before} "
+              f"launches, expected {n_launch}")
+        for p, grad, m, v in zip(want[0], gs, want[1], want[2]):
+            adam.leaf_update_ref(p, grad, m, v, *bc, **hyper)
+        diff = sum(bits_differ(a, b) for got, ref in zip((ps, ms, vs), want)
+                   for a, b in zip(got, ref))
+        check(diff == 0, f"adam_tree {label}: {diff} elements differ from "
               "the plain version's bits")
-    print(f"  {'leaf_update[fp32]':<24} {len(cases)} leaves "
-          f"({', '.join(label for label, _ in cases)}): p, m and v equal the "
-          "plain version's bit for bit, in place")
+        print(f"  {'adam_tree[fp32]':<24} {label} ({len(shapes)} leaves, "
+              f"{n_launch} launch{'es' if n_launch > 1 else ''}): equal the "
+              "plain version's bits")
 
-    cfg = common.build_cfg("deep", DEEP_BATCH, "bfloat16", "xla")
-    model = build_model(cfg, dev)
-    plain_state = TrainState.create(
-        model.init(torch.Generator().manual_seed(5)), 0)
-    fused_state = plain_state.clone()
-    n_params = sum(t.numel() for t in leaves(plain_state.params))
-    check(len(leaves(plain_state.params)) == DEEP_LEAVES
-          and n_params == 55_987_712,
-          f"the deep tree has {len(leaves(plain_state.params))} leaves, "
-          f"{n_params} parameters")
+    # five coupled steps of each model's tree at full width: one launch a
+    # step, the states equal Adam.update's bit for bit
     opt = Adam(learning_rate=1e-4)
-    before = adam.leaf_update.launches
-    for step in range(5):
-        grads = unflatten(plain_state.params, [
-            torch.randn(t.shape, generator=g, device=dev)
-            * 10.0 ** (step % 3 - 2) for t in leaves(plain_state.params)])
-        opt.update(plain_state, grads)
-        adam.fused_adam_apply(opt, fused_state, grads)
-    torch.cuda.synchronize()
-    check(adam.leaf_update.launches == before + 5 * DEEP_LEAVES,
-          "fused_adam_apply: not one launch a leaf")
-    bad = adam_fusion.differing_leaves(plain_state, fused_state)
-    check(not bad and plain_state.count == fused_state.count == 5,
-          f"fused_adam_apply differs from Adam.update in {bad}")
-    print(f"  {'fused_adam_apply':<24} 5 coupled steps on the deep tree ("
-          f"{DEEP_LEAVES} leaves, {n_params:,} parameters): params, mu and "
-          "nu equal Adam.update's bit for bit")
+    trees = {}
+    for arch, (n_leaves, n_params) in ADAM_TREES.items():
+        model = build_model(common.build_cfg(arch, DEEP_BATCH, "bfloat16",
+                                             "xla"), dev)
+        plain_state = TrainState.create(
+            model.init(torch.Generator().manual_seed(5)), 0)
+        fused_state = plain_state.clone()
+        got = leaves(plain_state.params)
+        check((len(got), sum(t.numel() for t in got)) == (n_leaves,
+                                                          n_params),
+              f"the {arch} tree has {len(got)} leaves, "
+              f"{sum(t.numel() for t in got)} parameters")
+        before = adam.adam_tree.launches, adam.leaf_update.launches
+        for step in range(5):
+            grads = unflatten(plain_state.params, [
+                torch.randn(t.shape, generator=g, device=dev)
+                * 10.0 ** (step % 3 - 2) for t in got])
+            opt.update(plain_state, grads)
+            adam.fused_adam_apply(opt, fused_state, grads)
+        torch.cuda.synchronize()
+        check((adam.adam_tree.launches, adam.leaf_update.launches)
+              == (before[0] + 5, before[1]),
+              f"fused_adam_apply on the {arch} tree: not one launch a step")
+        bad = adam_fusion.differing_leaves(plain_state, fused_state)
+        check(not bad and plain_state.count == fused_state.count == 5,
+              f"fused_adam_apply differs from Adam.update on the {arch} "
+              f"tree in {bad}")
+        print(f"  {'fused_adam_apply':<24} 5 coupled steps on the {arch} "
+              f"tree ({n_leaves} leaves, {n_params:,} parameters, 1 launch "
+              "a step): params, mu and nu equal Adam.update's bit for bit")
+        trees[arch] = (plain_state, fused_state, n_params)
 
-    # timed on the tree's largest leaf (the row) and over the whole tree,
-    # beside PyTorch's own fused Adam: a yardstick, used nowhere in the port
+    # timed in turns, by CUDA events over the host loop and by device time,
+    # beside the bytes bound: the tree kernel through fused_adam_apply and
+    # alone, the first version (a launch a leaf), the plain
+    # Adam.update and PyTorch's own fused Adam (a yardstick, used nowhere
+    # in the port), on the deep and the dense trees and on a 4096x4096 leaf
     def torch_fused(params, grads):
         params = [torch.nn.Parameter(t.clone()) for t in params]
         for t, grad in zip(params, grads):
@@ -5385,36 +5472,87 @@ def phase_probe_kernels():
         lib = torch.optim.Adam(params, lr=1e-4, fused=True)
         return lib.step
 
+    lib = "torch.optim.Adam(fused=True)"
+
+    def timed(label, fns, n_params, iters):
+        # five rounds of turns: the host's rate drifts between runs, and
+        # the kernel and the library call come within that drift on the
+        # dense tree
+        ms, runs = time_in_turns(fns, iters, rounds=5)
+        dev_ms = {name: device_ms(fn, 5) for name, fn in fns.items()}
+        bd = bound(ADAM_OPS * n_params, ADAM_BYTES * n_params, "fp32")
+        first = next(iter(fns))
+        # the turns in which the first of fns beat the library call
+        won = sum(a < b for a, b in zip(runs[first], runs[lib]))
+        print(f"  {'adam_tree[fp32]':<24} {label}: bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}); event / device "
+              "ms: " + ", ".join(f"{name} {ms[name]:.4f} / "
+                                 f"{dev_ms[name]:.4f}" for name in fns))
+        print(f"  {'':<24} event ms min-max: " + ", ".join(
+            f"{name} {min(runs[name]):.4f}-{max(runs[name]):.4f}"
+            for name in fns) + f"; {first} faster than {lib} in {won} of "
+            f"{len(runs[lib])} turns")
+        print(f"  {'':<24} runs {runs}")
+        return ms, dev_ms, bd, won
+
+    out = {}
+    for arch in ("deep", "dense"):
+        plain_state, fused_state, n_params = trees[arch]
+        grads = unflatten(plain_state.params, [
+            torch.randn(t.shape, generator=g, device=dev) * 0.1
+            for t in leaves(plain_state.params)])
+        ps, gs, mus, nus = (leaves(x) for x in (fused_state.params, grads,
+                                                fused_state.mu,
+                                                fused_state.nu))
+        fns = {
+            "fused_adam_apply": lambda: adam.fused_adam_apply(
+                opt, fused_state, grads),
+            "adam_tree": lambda: adam.adam_tree(ps, gs, mus, nus, *bc_host,
+                                                **hyper),
+            "first version": lambda: adam.fused_adam_apply(
+                opt, fused_state, grads, kernel="first"),
+            "Adam.update": lambda: opt.update(plain_state, grads),
+            lib: torch_fused(leaves(plain_state.params), leaves(grads))}
+        out[arch] = timed(f"the {arch} tree, one update", fns, n_params, 20)
     p, grad, m, v = adam_operands((4096, 4096))
-    ms, plain_ms, t_kern, t_plain = time_both(
-        lambda: adam.leaf_update(p, grad, m, v, *bc, **hyper),
-        lambda: adam.leaf_update_ref(p, grad, m, v, *bc, **hyper), 20)
-    lib_ms = cuda_time_ms(torch_fused([p], [grad]), 20)
-    bd = bound(ADAM_OPS * p.numel(), ADAM_BYTES * p.numel(), "fp32")
-    print(f"  {'leaf_update[fp32]':<24} a 4096x4096 leaf: kernel {ms:.4f} ms "
-          f"({ADAM_BYTES * p.numel() / ms / 1e9:.2f} TB/s), plain "
-          f"{plain_ms:.4f} ms, torch.optim.Adam(fused=True) {lib_ms:.4f} ms, "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) (runs {t_kern} "
-          f"/ {t_plain})")
-    rows["leaf_update[fp32]"] = {
-        "name": "leaf_update[fp32]", "route": "cuda",
+    leaf = timed("a 4096x4096 leaf", {
+        "leaf_update": lambda: adam.leaf_update(p, grad, m, v, *bc, **hyper),
+        "first version": lambda: adam.leaf_update(p, grad, m, v, *bc,
+                                                  kernel="first", **hyper),
+        "leaf_update_ref": lambda: adam.leaf_update_ref(p, grad, m, v, *bc,
+                                                        **hyper),
+        lib: torch_fused([p], [grad])},
+        p.numel(), 20)
+
+    # the row: the deep tree, the main path's update, through
+    # fused_adam_apply; the dense tree and the leaf beside it
+    ms, dev_ms, bd, won = out["deep"]
+    rows["adam_tree[fp32]"] = {
+        "name": "adam_tree[fp32]", "route": "cuda",
         "source": "rawaudiovae_kelsey_tpu_torch/csrc/adam.cu",
         "replaces": "benchmarks/adam_fusion_ab.py:93", "max_abs_err": 0.0,
-        "ms": ms, "plain_ms": plain_ms, **bd, "library_ms": lib_ms}
-    grads = unflatten(plain_state.params, [
-        torch.randn(t.shape, generator=g, device=dev) * 0.1
-        for t in leaves(plain_state.params)])
-    tree_ms, tree_plain, t_kern, t_plain = time_both(
-        lambda: adam.fused_adam_apply(opt, fused_state, grads),
-        lambda: opt.update(plain_state, grads), 10)
-    tree_lib = cuda_time_ms(torch_fused(leaves(plain_state.params),
-                                        leaves(grads)), 10)
-    tree_bound = ADAM_BYTES * n_params / HBM_BYTES_S * 1e3
-    print(f"  {'fused_adam_apply':<24} the deep tree, one update: "
-          f"{DEEP_LEAVES} leaf_update launches {tree_ms:.4f} ms, Adam.update "
-          f"{tree_plain:.4f} ms, torch.optim.Adam(fused=True) "
-          f"{tree_lib:.4f} ms, bound {tree_bound:.4f} ms (bytes) (runs "
-          f"{t_kern} / {t_plain})")
+        "shape": f"the deep tree, {DEEP_LEAVES} leaves, "
+                 f"{trees['deep'][2]:,} parameters, one launch",
+        "ms": ms["fused_adam_apply"], "plain_ms": ms["Adam.update"], **bd,
+        "library_ms": ms[lib], "device_ms": dev_ms["fused_adam_apply"],
+        "library_device_ms": dev_ms[lib], "turns_won": won,
+        "alone_ms": ms["adam_tree"], "alone_device_ms": dev_ms["adam_tree"],
+        "first_version_ms": ms["first version"],
+        "first_version_device_ms": dev_ms["first version"],
+        "dense_tree": {key: out["dense"][0][name] for key, name in (
+            ("ms", "fused_adam_apply"), ("first_version_ms",
+                                         "first version"),
+            ("plain_ms", "Adam.update"), ("library_ms", lib))}
+        | {"device_ms": out["dense"][1]["fused_adam_apply"],
+           "library_device_ms": out["dense"][1][lib],
+           "bound_ms": out["dense"][2]["bound_ms"],
+           "turns_won": out["dense"][3]},
+        "leaf_4096x4096": {"ms": leaf[0]["leaf_update"],
+                           "device_ms": leaf[1]["leaf_update"],
+                           "first_version_ms": leaf[0]["first version"],
+                           "plain_ms": leaf[0]["leaf_update_ref"],
+                           "library_ms": leaf[0][lib],
+                           "bound_ms": leaf[2]["bound_ms"]}}
     return rows
 
 
@@ -5482,7 +5620,9 @@ def phase_probes(card: str):
           and t["adam"] >= out["adam_bound_ms"],
           f"deep_step times {t} against the bound {out['adam_bound_ms']}")
 
-    leaf_launches = 0
+    # the whole tree in ONE launch of the tree kernel a step (22 leaves
+    # deep, 10 dense), no launch a leaf
+    tree_launches = 0
     for arch, backend, n_leaves in (("deep", "xla", DEEP_LEAVES),
                                     ("deep", "pallas", DEEP_LEAVES),
                                     ("dense", "pallas", DENSE_LEAVES)):
@@ -5491,21 +5631,30 @@ def phase_probes(card: str):
         check(out["states_equal"] and out["leaves"] == n_leaves
               and out["batch"] == DEEP_BATCH and out["backend"] == backend,
               f"adam_fusion {arch}/{backend}: {out}")
-        check(out["leaf_update_launches_per_step"] == {"plain": 0,
-                                                       "fused": n_leaves},
-              f"adam_fusion {arch}/{backend}: leaf_update launches a step "
-              f"{out['leaf_update_launches_per_step']}")
-        check(counts["leaf_update"] == n_leaves * out["steps_each"],
-              f"adam_fusion {arch}/{backend}: {counts['leaf_update']} "
-              f"launches over {out['steps_each']} steps")
+        check(out["adam_tree_launches_per_step"] == {"plain": 0,
+                                                     "fused": 1},
+              f"adam_fusion {arch}/{backend}: adam_tree launches a step "
+              f"{out['adam_tree_launches_per_step']}")
+        check(counts["adam_tree"] == out["steps_each"]
+              and counts["leaf_update"] == 0,
+              f"adam_fusion {arch}/{backend}: {counts['adam_tree']} tree "
+              f"and {counts['leaf_update']} leaf launches over "
+              f"{out['steps_each']} steps")
         if backend == "pallas":
             used = ops.DEEP_KERNELS if arch == "deep" else \
                 ops.TRAINING_KERNELS
             for w in used:
                 check(counts[w.__name__] > 0, f"adam_fusion {arch}/pallas "
                       f"never launched {w.__name__}")
-        leaf_launches += counts["leaf_update"]
-    launches["fp32"] = dict(launches["fp32"], leaf_update=leaf_launches)
+        rate = out["frames_per_s"]
+        print(f"  adam_fusion {arch}/{backend}: fused {rate['fused']:.1f} "
+              f"against plain {rate['plain']:.1f} frames/s "
+              f"({out['gain_percent']:+.2f} %), step ms "
+              f"{out['ms']['fused']['median']:.4f} / "
+              f"{out['ms']['plain']['median']:.4f}, 1 adam_tree launch a "
+              f"step ({counts['adam_tree']} in {out['steps_each']} steps)")
+        tree_launches += counts["adam_tree"]
+    launches["fp32"] = dict(launches["fp32"], adam_tree=tree_launches)
     return launches
 
 
@@ -6246,12 +6395,21 @@ def host_cost() -> dict:
     the package beside this file ships them, on bf16 operands whose kernels
     take a few µs, and of the two with an fp32 form (``linear_fwd``,
     ``matmul_nt``; "[fp32]") on fp32 operands, each beside the one PyTorch
-    call of the same function.  Needs nothing of this script's other
-    phases, so a copy of it in another checkout times that checkout's
-    wrappers."""
+    call of the same function; and of one Adam update of a tree shaped as
+    the deep model's and as the dense model's (22 and 10 leaves, of 256
+    elements here so that the device never holds the host back):
+    ``fused_adam_apply`` (one launch of the tree kernel), its first version
+    (a launch a leaf), ``Adam.update`` and
+    ``torch.optim.Adam(fused=True)``'s ``step``.  Needs nothing of this
+    script's other phases, so a copy of it in another checkout times that
+    checkout's wrappers."""
     import torch.nn.functional as F
 
-    from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp, toeplitz
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import adam, linear, mlp, toeplitz
+    from rawaudiovae_kelsey_tpu_torch.probes import common
+    from rawaudiovae_kelsey_tpu_torch.train import Adam, TrainState
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves, unflatten
 
     dev = torch.device("cuda")
     bf16 = dict(device=dev, dtype=torch.bfloat16)
@@ -6278,6 +6436,35 @@ def host_cost() -> dict:
         "linear_fwd[fp32]": lambda: linear.linear_fwd(x32, w32, b32),
         "torch.addmm[fp32]": lambda: torch.addmm(b32, x32, w32),
     })
+    opt = Adam(learning_rate=1e-4)
+    for arch in ("deep", "dense"):
+        shape_of = build_model(common.build_cfg(arch, DEEP_BATCH, "bfloat16",
+                                                "xla"), dev).init(
+            torch.Generator().manual_seed(0))
+
+        def small_tree():
+            return unflatten(shape_of, [torch.zeros(256, device=dev)
+                                        for _ in leaves(shape_of)])
+
+        state, grads = TrainState.create(small_tree(), 0), small_tree()
+        plain = state.clone()
+        lib_params = [torch.nn.Parameter(t.clone())
+                      for t in leaves(state.params)]
+        for t, grad in zip(lib_params, leaves(grads)):
+            t.grad = grad
+        tag = f"[{len(lib_params)} leaves]"
+        calls.update({
+            f"fused_adam_apply{tag}": (
+                lambda state=state, grads=grads: adam.fused_adam_apply(
+                    opt, state, grads)),
+            f"fused_adam_apply[first]{tag}": (
+                lambda state=state, grads=grads: adam.fused_adam_apply(
+                    opt, state, grads, kernel="first")),
+            f"Adam.update{tag}": (
+                lambda plain=plain, grads=grads: opt.update(plain, grads)),
+            f"torch.optim.Adam(fused=True){tag}": torch.optim.Adam(
+                lib_params, lr=1e-4, fused=True).step,
+        })
     # the host's rate drifts: five rounds of every call in turn, the median
     rounds = [{name: host_us(fn) for name, fn in calls.items()}
               for _ in range(5)]
@@ -7623,7 +7810,7 @@ def main() -> int:
     with torch.no_grad():
         variant_rows = phase_variant_kernels()
 
-    print("phase 3f: the probes' kernels (dw_fused, dx_fused, leaf_update) "
+    print("phase 3f: the probes' kernels (dw_fused, dx_fused, adam_tree) "
           "against their plain versions")
     with torch.no_grad():
         probe_rows = phase_probe_kernels()

@@ -8,8 +8,9 @@ the fused linear layer in its whole-k and k-split forms (the deep MLP) and
 the block-Toeplitz product with the two convolutions mapped onto it (the
 conv1d model).  Beside them the three kernels that no trainer dispatches
 and ``probes/`` measures: the fused backward of one linear layer
-(``dw_fused``, ``dx_fused``) and the one-pass Adam update of a leaf
-(``leaf_update``).  ``linear_ksplit_fwd``, ``linear_fwd``, ``matmul_nt``
+(``dw_fused``, ``dx_fused``) and the one-pass Adam update of a whole
+parameter tree in one launch (``adam_tree``; ``leaf_update`` is the same
+launch on one leaf).  ``linear_ksplit_fwd``, ``linear_fwd``, ``matmul_nt``
 and ``toeplitz_fwd`` have a first version on the CUDA cores and a bf16
 tensor-core kernel; ``linear_fwd`` and ``matmul_nt`` also a register-tiled
 fp32 one; ``ops/tensor_cores.py`` chooses by dtype, shape and alignment.
@@ -106,6 +107,7 @@ from rawaudiovae_kelsey_tpu_torch.ops.linear_bwd import (  # noqa: F401
 )
 from rawaudiovae_kelsey_tpu_torch.ops.adam import (  # noqa: F401
     FusedAdam,
+    adam_tree,
     fused_adam_apply,
     leaf_update,
     leaf_update_ref,
@@ -126,10 +128,10 @@ DEEP_KERNELS = (linear_ksplit_fwd, linear_fwd)
 # the conv1d model's op-level step (the heads and dec_in are linear layers)
 CONV_KERNELS = (toeplitz_fwd, linear_fwd)
 # the probes' kernels (probes/deep_bwd.py, probes/adam_fusion.py)
-PROBE_KERNELS = (dw_fused, dx_fused, leaf_update)
+PROBE_KERNELS = (dw_fused, dx_fused, adam_tree, leaf_update)
 KERNEL_WRAPPERS = (encoder_fwd, decoder_fwd, quantized_decoder_fwd,
                    enc_bwd_dw1, grad_accum2, dec_bwd_fused, grad_accum,
                    matmul_nt, matmul_nt_mask, matmul_nt2_mask,
                    reparameterize_prng, enc_bwd_full, dec_bwd_full,
                    loss_sums, linear_ksplit_fwd, linear_fwd, toeplitz_fwd,
-                   dw_fused, dx_fused, leaf_update)
+                   dw_fused, dx_fused, adam_tree, leaf_update)

@@ -64,6 +64,7 @@ _SIGNATURES = {
     "rvk_dw_fused": [_P] * 6 + [_I] * 8 + [_P],
     "rvk_dx_fused": [_P] * 4 + [_I] * 7 + [_P],
     "rvk_leaf_update": [_P] * 6 + [_L] + [_F] * 6 + [_P],
+    "rvk_adam_tree": [_P] * 7 + [_I] + [_P] * 2 + [_F] * 8 + [_P],
 }
 
 _lock = threading.Lock()

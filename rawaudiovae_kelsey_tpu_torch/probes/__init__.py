@@ -6,7 +6,8 @@ of the JAX repository's probe scripts under ``benchmarks/``.
 * ``deep_step``   (``benchmarks/deep_step_probe.py``): one train step split
   into full / grads / Adam beside its analytic bounds;
 * ``adam_fusion`` (``benchmarks/adam_fusion_ab.py``): the full train step
-  with the plain Adam against the one-pass ``leaf_update``;
+  with the plain Adam against the one-pass Adam (``fused_adam_apply``: one
+  launch of the tree kernel a step);
 * ``gate_ties`` (the port's own, no JAX counterpart): the deep model's fp32
   step through the kernels against the plain backend, and the ReLU gates
   the two decide differently by rounding (``tests/test_torch_cuda.py``'s

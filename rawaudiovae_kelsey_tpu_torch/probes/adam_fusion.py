@@ -3,8 +3,10 @@ full train step — the port's counterpart of the JAX repository's
 ``benchmarks/adam_fusion_ab.py``.
 
 ``train/optim.py`` runs Adam as a dozen tensor operations a leaf;
-``ops/adam.py`` ``leaf_update`` does a leaf in one kernel, bit for bit the
-same numbers.  The probe builds the real model and the real step twice —
+``ops/adam.py`` ``fused_adam_apply`` does the whole tree in ONE launch of
+the tree kernel a step (``adam_tree``; one more a further 48 leaves, and no
+model here has that many), bit for bit the same numbers.  The probe builds
+the real model and the real step twice —
 ``build_train_step(model, cfg, optimizer=...)`` with ``Adam`` and with
 ``FusedAdam`` — from the same initial state, runs them on the same batch
 and the same noise as alternating pairs of ``--steps`` steps, reports both
@@ -88,12 +90,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
         .uniform(-1, 1, (args.batch, model.segment_length))
         .astype(np.float32)).to(device)
 
-    # launches of the kernel a step, under each optimizer
+    # launches of the tree kernel a step, under each optimizer
     per_step = {}
     for name in optimizers:
-        before = adam_ops.leaf_update.launches
+        before = adam_ops.adam_tree.launches
         steps[name](states[name], batch)
-        per_step[name] = adam_ops.leaf_update.launches - before
+        per_step[name] = adam_ops.adam_tree.launches - before
     common.sync(device)
 
     times = common.alternate(
@@ -113,14 +115,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     for name in optimizers:
         print(f"  {name:<5} adam: step {common.fmt(times[name])}  "
               f"{rate[name] / 1e6:.3f}M frames/s  "
-              f"(leaf_update launches a step: {per_step[name]})")
+              f"(adam_tree launches a step: {per_step[name]})")
     print(f"  fused against plain: {gain:+.1f}% frames/s")
     print(f"  states after {states['plain'].step} steps each: "
           + ("equal bit for bit" if not bad else f"DIFFER in {bad}"))
     out = {"probe": "adam_fusion", "device": card, "arch": args.arch,
            "backend": model.backend, "batch": args.batch, "leaves": n_leaves,
            "ms": times, "frames_per_s": rate, "gain_percent": gain,
-           "leaf_update_launches_per_step": per_step,
+           "adam_tree_launches_per_step": per_step,
            "steps_each": states["plain"].step, "states_equal": not bad,
            "pairs": args.pairs, "steps": args.steps}
     print(json.dumps(out))

@@ -29,8 +29,22 @@ def flatten(tree: Any) -> List[Tuple[str, Any]]:
 
 
 def leaves(tree: Any) -> List[Any]:
-    """The leaves of a tree, in :func:`flatten` order."""
-    return [leaf for _, leaf in flatten(tree)]
+    """The leaves of a tree, in :func:`flatten` order (walked without
+    forming the names: an optimizer step walks four trees)."""
+    out: List[Any] = []
+    _collect(tree, out)
+    return out
+
+
+def _collect(tree: Any, out: List[Any]) -> None:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _collect(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for sub in tree:
+            _collect(sub, out)
+    else:
+        out.append(tree)
 
 
 def unflatten(template: Any, new_leaves: List[Any]) -> Any:

@@ -13,6 +13,7 @@ passes no ``interpret=``, so the test hands the loaded module a ``pl`` whose
 ``pallas_call`` adds it; nothing in benchmarks/ changes.
 """
 
+import bisect
 import importlib.util
 import types
 from pathlib import Path
@@ -23,6 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 from jax.experimental import pallas as real_pl
 
 from rawaudiovae_kelsey_tpu.models import variants as jvariants
@@ -215,4 +217,268 @@ def test_cpu_calls_count_no_launch():
     adam_ops.leaf_update(p, torch.ones(5), torch.zeros(5), torch.zeros(5),
                          torch.full((), 0.1), torch.full((), 0.001), **HYPER)
     assert adam_ops.leaf_update.launches == before
+    assert bool((p < 1).all())
+
+
+# ---- the tree kernel's plan (ops/adam.py tree_plan) and what reaches its
+# entry point.  The kernel runs only on the card; its table is laid out
+# here, and a plain walk of that table — leaf_update_ref tile by tile, as
+# the kernel's blocks take the tiles — is held bit for bit against
+# Adam.update.
+
+def _tiles(plan, sizes, tile):
+    """(leaf, first element, count) of every tile of every launch, found as
+    the kernel finds them: the last leaf that starts at or before the
+    tile."""
+    out = []
+    for launch in plan:
+        assert launch.start[0] == 0
+        assert len(launch.start) == len(launch.leaves) + 1
+        for t in range(launch.start[-1]):
+            j = bisect.bisect_right(launch.start, t) - 1
+            leaf = launch.leaves[j]
+            first = (t - launch.start[j]) * tile
+            out.append((leaf, first, min(sizes[leaf] - first, tile)))
+    return out
+
+
+@settings(max_examples=200, deadline=None)
+@given(sizes=st.lists(st.one_of(st.just(0), st.integers(1, 20_000)),
+                      min_size=0, max_size=120),
+       max_leaves=st.integers(1, 60), tile=st.sampled_from([7, 96, 4096]),
+       data=st.data())
+def test_the_plan_covers_every_element_once(sizes, max_leaves, tile, data):
+    aligned = tuple(data.draw(st.lists(st.booleans(), min_size=len(sizes),
+                                       max_size=len(sizes))))
+    plan = adam_ops.tree_plan(tuple(sizes), aligned, max_leaves, tile)
+    seen = [np.zeros(n, dtype=np.int64) for n in sizes]
+    for leaf, first, count in _tiles(plan, sizes, tile):
+        assert 0 < count <= tile
+        seen[leaf][first:first + count] += 1
+    assert all((s == 1).all() for s in seen)
+    kept = [i for i, n in enumerate(sizes) if n]
+    # every non-empty leaf in order, max_leaves a launch; empty leaves and
+    # an empty tree take no tile and no launch
+    assert [i for launch in plan for i in launch.leaves] == kept
+    assert len(plan) == -(-len(kept) // max_leaves)
+    assert all(0 < len(launch.leaves) <= max_leaves for launch in plan)
+    for launch in plan:
+        for j, i in enumerate(launch.leaves):
+            assert launch.start[j + 1] - launch.start[j] == -(-sizes[i]
+                                                              // tile)
+            assert launch.vec[j] == aligned[i]
+
+
+def test_a_tree_past_k_max_leaves_takes_two_launches():
+    k = adam_ops.K_MAX_LEAVES
+    sizes = (5000,) * (k + 3)
+    plan = adam_ops.tree_plan(sizes, (True,) * (k + 3))
+    assert [len(launch.leaves) for launch in plan] == [k, 3]
+    assert plan[1].leaves == (k, k + 1, k + 2)
+    assert plan[0].start[-1] == 2 * k and plan[1].start == (0, 2, 4, 6)
+    # the deep, dense and conv1d trees (22, 10, <= 22 leaves) take one
+    assert len(adam_ops.tree_plan((3,) * 22, (True,) * 22)) == 1
+
+
+def test_unaligned_leaves_are_flagged_scalar():
+    plan = adam_ops.tree_plan((4096, 1, 0, 8193, 5), (True, False, False,
+                                                      False, True))
+    (launch,) = plan
+    assert launch.leaves == (0, 1, 3, 4)
+    assert launch.vec == (True, False, False, True)
+    assert launch.start == (0, 1, 2, 5, 6)
+
+
+def test_the_plan_matches_the_kernel_source():
+    """TILE and K_MAX_LEAVES are csrc/adam.cu's kTile and kMaxLeaves."""
+    import re
+
+    text = (Path(adam_ops.__file__).parents[1] / "csrc" / "adam.cu"
+            ).read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    assert const("kMaxLeaves") == adam_ops.K_MAX_LEAVES
+    assert const("kThreads") * const("kVec") * 4 == adam_ops.TILE
+    assert "kTile = kThreads * kVec * 4;" in text
+
+
+def _walk(state, grads, adam, max_leaves, tile):
+    """One Adam step as the tree kernel takes it: tree_plan's launches, each
+    tile one leaf_update_ref on its elements."""
+    state.count += 1
+    bc = [torch.full((), c) for c in
+          adam_ops.bias_corrections(adam.b1, adam.b2, state.count)]
+    flat = [[t.view(-1) for t in tree.leaves(x)]
+            for x in (state.params, grads, state.mu, state.nu)]
+    sizes = tuple(t.numel() for t in flat[0])
+    plan = adam_ops.tree_plan(sizes, (True,) * len(sizes), max_leaves, tile)
+    for leaf, first, count in _tiles(plan, sizes, tile):
+        adam_ops.leaf_update_ref(
+            *(x[leaf][first:first + count] for x in flat), *bc, b1=adam.b1,
+            b2=adam.b2, eps=adam.eps, lr=adam.learning_rate)
+
+
+@pytest.mark.parametrize("max_leaves,tile", [(adam_ops.K_MAX_LEAVES,
+                                              adam_ops.TILE), (4, 96)])
+@pytest.mark.parametrize("family", ["dense", "deep", "conv1d"])
+def test_the_plan_walk_equals_adam_update_bit_for_bit(family, max_leaves,
+                                                      tile):
+    params = params_from_jax(jax.device_get(_jparams(family)))
+    plain = TrainState.create(params, seed=0)
+    walked = plain.clone()
+    adam = Adam(learning_rate=1e-2)
+    rng = np.random.default_rng(4)
+    for step in range(5):
+        g = [torch.from_numpy(a) for a in
+             _grads(rng, [t.numpy() for t in tree.leaves(params)], step)]
+        adam.update(plain, tree.unflatten(plain.params, g))
+        _walk(walked, tree.unflatten(walked.params, g), adam, max_leaves,
+              tile)
+    _states_equal(plain, walked)
+
+
+@pytest.mark.parametrize("family", ["dense", "deep", "conv1d"])
+def test_the_first_version_path_equals_adam_update_bit_for_bit(family):
+    params = params_from_jax(jax.device_get(_jparams(family)))
+    plain = TrainState.create(params, seed=0)
+    first = plain.clone()
+    adam = Adam(learning_rate=1e-2)
+    rng = np.random.default_rng(5)
+    for step in range(3):
+        g = [torch.from_numpy(a) for a in
+             _grads(rng, [t.numpy() for t in tree.leaves(params)], step)]
+        adam.update(plain, tree.unflatten(plain.params, g))
+        adam_ops.fused_adam_apply(adam, first,
+                                  tree.unflatten(first.params, g),
+                                  kernel="first")
+    _states_equal(plain, first)
+
+
+def _meta_launches(monkeypatch):
+    """Run the wrappers' CUDA branch on ``meta`` tensors (their data_ptr is
+    the byte offset): record each launch's entry point and arguments, the
+    ctypes arrays as lists."""
+    calls = []
+
+    def launch(name, device, *args):
+        calls.append((name, [list(a) if hasattr(a, "_length_") else a
+                             for a in args]))
+
+    monkeypatch.setattr(adam_ops, "_on_cuda", lambda p, op: None)
+    monkeypatch.setattr(adam_ops._build, "launch", launch)
+    return calls
+
+
+def _meta_tree(shapes, offset=0):
+    base = [torch.zeros(64 + int(np.prod(s)), device="meta") for s in shapes]
+    return [b[offset:offset + int(np.prod(s))].view(s)
+            for b, s in zip(base, shapes)]
+
+
+def test_what_reaches_the_tree_entry_point(monkeypatch):
+    calls = _meta_launches(monkeypatch)
+    shapes = [(5000,), (3, 7), (0,), (64, 64), (1,)]
+    ps, ms, vs = (_meta_tree(shapes) for _ in range(3))
+    # an unaligned gradient (4 bytes past its base) and a strided one
+    gs = _meta_tree(shapes)
+    gs[1] = _meta_tree([(3, 7)], offset=1)[0]
+    gs[3] = torch.zeros((64, 64), device="meta").t()
+    before = adam_ops.adam_tree.launches
+    adam_ops.adam_tree(ps, gs, ms, vs, 0.25, 0.5, **HYPER)
+    assert adam_ops.adam_tree.launches == before + 1
+    ((name, args),) = calls
+    assert name == "rvk_adam_tree"
+    assert len(args) + 1 == len(adam_ops._build._SIGNATURES[name])
+    p, g, m, v, n, start, vec, leaves = args[:8]
+    assert n == [5000, 21, 4096, 1] and leaves == 4
+    assert start == [0, 2, 3, 4, 5] and vec == [1, 0, 1, 1]
+    # a null c_void_p reads back as None
+    assert [a or 0 for a in p] == [0, 0, 0, 0]
+    assert [a or 0 for a in g] == [0, 4, 0, 0]
+    # the corrections by value, no device scalar
+    assert args[8:12] == [None, None, 0.25, 0.5]
+    assert tuple(args[12:]) == adam_ops.hyper(0.9, 0.999, 1e-8, 1e-2)
+
+
+def test_the_state_and_the_gradients_are_checked_every_call(monkeypatch):
+    calls = _meta_launches(monkeypatch)
+    shapes = [(8, 4), (4,)]
+    ps, gs, ms, vs = (_meta_tree(shapes) for _ in range(4))
+    for _ in range(3):
+        adam_ops.adam_tree(ps, gs, ms, vs, 0.1, 0.01, **HYPER)
+    assert len(calls) == 3
+    # other tensors at other addresses: their own alignment
+    ps2 = _meta_tree(shapes, offset=1)
+    adam_ops.adam_tree(ps2, gs, ms, vs, 0.1, 0.01, **HYPER)
+    assert calls[-1][1][6] == [0, 0]
+    # a moment that took a step, then was resized in place at its
+    # address: refused on the next call
+    m0 = torch.zeros((8, 4), device="meta")
+    adam_ops.adam_tree(ps, gs, [m0, ms[1]], vs, 0.1, 0.01, **HYPER)
+    m0.resize_(32)
+    with pytest.raises(ValueError, match=r"m\[0\].*shape"):
+        adam_ops.adam_tree(ps, gs, [m0, ms[1]], vs, 0.1, 0.01, **HYPER)
+    with pytest.raises(TypeError, match=r"p\[1\].*dtype"):
+        adam_ops.adam_tree([ps[0], ps[1].double()], gs, ms, vs, 0.1, 0.01,
+                           **HYPER)
+    for bad, err in (([gs[0].double(), gs[1]], TypeError),
+                     ([gs[0][:4], gs[1]], ValueError),
+                     ([gs[0], 3.0], TypeError),
+                     ([gs[0], torch.zeros(4)], ValueError)):
+        with pytest.raises(err):
+            adam_ops.adam_tree(ps, bad, ms, vs, 0.1, 0.01, **HYPER)
+    with pytest.raises(ValueError, match="shape"):
+        adam_ops.adam_tree(ps, gs, [ms[0], ms[0]], vs, 0.1, 0.01, **HYPER)
+    with pytest.raises(TypeError, match="expected a tensor"):
+        adam_ops.adam_tree(ps, gs, ms, [vs[0], 1.0], 0.1, 0.01, **HYPER)
+    assert len(calls) == 5
+
+
+def test_a_tree_past_k_max_leaves_launches_twice(monkeypatch):
+    calls = _meta_launches(monkeypatch)
+    k = adam_ops.K_MAX_LEAVES
+    shapes = [(100,)] * (k + 3)
+    ps, gs, ms, vs = (_meta_tree(shapes) for _ in range(4))
+    adam_ops.adam_tree(ps, gs, ms, vs, 0.1, 0.01, **HYPER)
+    assert [args[7] for _, args in calls] == [k, 3]
+    assert [args[5][-1] for _, args in calls] == [k, 3]
+
+
+def test_leaf_update_launches_the_tree_or_names_the_first_version(
+        monkeypatch):
+    calls = _meta_launches(monkeypatch)
+    p, g, m, v = _meta_tree([(7, 33, 5)] * 4)
+    s = torch.zeros((), device="meta")
+    before = adam_ops.leaf_update.launches
+    adam_ops.leaf_update(p, g, m, v, s, s, **HYPER)
+    adam_ops.leaf_update(p, g, m, v, s, s, kernel="first", **HYPER)
+    assert adam_ops.leaf_update.launches == before + 2
+    (tree_name, tree_args), (first_name, first_args) = calls
+    assert tree_name == "rvk_adam_tree" and first_name == "rvk_leaf_update"
+    assert tree_args[4:8] == [[1155], [0, 1], [1], 1]
+    # the one-leaf table reads its corrections from the two device scalars
+    assert tree_args[8] is s and tree_args[9] is s
+    assert first_args[6] == 1155
+    with pytest.raises(ValueError, match="unknown kernel"):
+        adam_ops.leaf_update(p, g, m, v, s, s, kernel="tree", **HYPER)
+
+
+def test_the_tree_wrapper_refuses_what_it_does_not_take():
+    t = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="runs on CUDA tensors"):
+        adam_ops.adam_tree([t], [t], [t], [t], 0.1, 0.01, **HYPER)
+    with pytest.raises(ValueError, match="1 params, 2 gradients"):
+        adam_ops.adam_tree([t], [t, t], [t], [t], 0.1, 0.01, **HYPER)
+    with pytest.raises(ValueError, match="runs on CUDA tensors, got float"):
+        adam_ops.adam_tree([1.0], [t], [t], [t], 0.1, 0.01, **HYPER)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        adam_ops.fused_adam_apply(Adam(1e-2), None, None, kernel="tree")
+    before = adam_ops.adam_tree.launches
+    adam_ops.adam_tree([], [], [], [], 0.1, 0.01, **HYPER)
+    p = torch.ones(5)
+    adam_ops.adam_tree([p], [torch.ones(5)], [torch.zeros(5)],
+                       [torch.zeros(5)], 0.1, 0.001, **HYPER)
+    assert adam_ops.adam_tree.launches == before
     assert bool((p < 1).all())

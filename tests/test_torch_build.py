@@ -92,7 +92,7 @@ def test_every_bound_entry_point_is_exported_by_a_source():
     for name in ("rvk_enc_bwd_full", "rvk_dec_bwd_full", "rvk_loss_sums",
                  "rvk_linear_fwd", "rvk_linear_ksplit_fwd",
                  "rvk_toeplitz_fwd", "rvk_dw_fused", "rvk_dx_fused",
-                 "rvk_leaf_update"):
+                 "rvk_leaf_update", "rvk_adam_tree"):
         assert name in exported
     assert "const char* rvk_error_string(int code)" in text
     # the entry points with a tensor-core form name the kernel to run last
@@ -129,7 +129,7 @@ def test_every_wrapper_names_a_bound_entry_point():
     from rawaudiovae_kelsey_tpu_torch import ops
 
     names = {w.__name__ for w in ops.KERNEL_WRAPPERS}
-    assert {"dw_fused", "dx_fused", "leaf_update"} <= names
+    assert {"dw_fused", "dx_fused", "adam_tree", "leaf_update"} <= names
     assert set(ops.PROBE_KERNELS) <= set(ops.KERNEL_WRAPPERS)
     for w in ops.KERNEL_WRAPPERS:
         launched = re.findall(r'launch\(\s*"(rvk_\w+)"',
@@ -139,6 +139,11 @@ def test_every_wrapper_names_a_bound_entry_point():
         assert w.launches == 0 or isinstance(w.launches, int)
     assert _build._SIGNATURES["rvk_leaf_update"] == (
         [_build._P] * 6 + [_build._L] + [_build._F] * 6 + [_build._P])
+    # p, g, m, v, n, start, vec (host arrays) | leaves | bc1_ptr, bc2_ptr
+    # | bc1, bc2, c1, b1, c2, b2, eps, neg_lr
+    assert _build._SIGNATURES["rvk_adam_tree"] == (
+        [_build._P] * 7 + [_build._I] + [_build._P] * 2
+        + [_build._F] * 8 + [_build._P])
     # x, w, b, y, ws | batch, k, n, slices, kslice, act, dtype, tile_n,
     # kernel
     assert _build._SIGNATURES["rvk_linear_ksplit_fwd"] == (

@@ -1176,6 +1176,119 @@ def test_leaf_update_takes_unaligned_views_and_raises_on_the_rest(cuda):
         adam.leaf_update(t, t, t, t, 0.1, bc[1], **hyper)
 
 
+@pytest.mark.parametrize("shape", [(1,), (255,), (1027,), (4_000_003,),
+                                   (7, 33, 5)])
+def test_leaf_update_first_version_equals_the_plain_version_bit_for_bit(
+        cuda, shape):
+    from rawaudiovae_kelsey_tpu_torch.ops import adam
+
+    g = torch.Generator(device=cuda).manual_seed(7 + len(shape))
+    p = torch.randn(shape, generator=g, device=cuda)
+    m = torch.zeros(shape, device=cuda)
+    v = torch.zeros(shape, device=cuda)
+    want = [p.clone(), m.clone(), v.clone()]
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, lr=1e-3)
+    before = ops.adam_tree.launches, ops.leaf_update.launches
+    for step in range(1, 4):
+        grad = torch.randn(shape, generator=g, device=cuda) \
+            * 10.0 ** (step % 3 - 2)
+        bc = [torch.full((), c, device=cuda)
+              for c in adam.bias_corrections(0.9, 0.999, step)]
+        adam.leaf_update(p, grad, m, v, *bc, kernel="first", **hyper)
+        adam.leaf_update_ref(want[0], grad, want[1], want[2], *bc, **hyper)
+    torch.cuda.synchronize()
+    assert (ops.adam_tree.launches, ops.leaf_update.launches) == (
+        before[0], before[1] + 3)
+    for got, ref in zip((p, m, v), want):
+        assert torch.equal(got, ref)
+
+
+def _adam_tree_case(cuda, shapes, unaligned=()):
+    """p, g, m, v of each shape, the leaves named in ``unaligned`` as views
+    4 bytes past a 16-byte boundary (all four of the leaf, or only its
+    gradient where the index is negative)."""
+    gen = torch.Generator(device=cuda).manual_seed(len(shapes))
+    tree = []
+    for i, shape in enumerate(shapes):
+        n = int(np.prod(shape))
+        four = []
+        for k in range(4):
+            off = int(i in unaligned or (k == 1 and -i - 1 in unaligned))
+            buf = torch.rand(n + 4, generator=gen, device=cuda)
+            four.append(buf[off:off + n].view(shape))
+        four[1].mul_(0.1)
+        four[3].mul_(1e-3)
+        tree.append(four)
+    return [list(x) for x in zip(*tree)]
+
+
+def test_adam_tree_on_a_mixed_tree_equals_the_plain_version_bit_for_bit(
+        cuda):
+    """Aligned leaves, unaligned ones (all four, or the gradient alone),
+    empty ones and a strided gradient in one launch; three coupled
+    steps."""
+    from rawaudiovae_kelsey_tpu_torch.ops import adam
+
+    shapes = [(4096, 1024), (0,), (1,), (255,), (1027,), (7, 33, 5),
+              (0, 3), (4097,), (300, 41), (2048,)]
+    ps, gs, ms, vs = _adam_tree_case(cuda, shapes, unaligned=(2, 4, -8))
+    assert gs[7].data_ptr() % 16 == 4 and ps[7].data_ptr() % 16 == 0
+    gs[8] = gs[8].t().contiguous().t()       # strided: copied contiguous
+    assert not gs[8].is_contiguous()
+    want = [[t.clone() for t in x] for x in (ps, ms, vs)]
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, lr=1e-3)
+    before = ops.adam_tree.launches
+    for step in range(1, 4):
+        bc1, bc2 = adam.bias_corrections(0.9, 0.999, step)
+        adam.adam_tree(ps, gs, ms, vs, bc1, bc2, **hyper)
+        dev_bc = [torch.full((), c, device=cuda) for c in (bc1, bc2)]
+        for p, g, m, v in zip(want[0], gs, want[1], want[2]):
+            adam.leaf_update_ref(p, g, m, v, *dev_bc, **hyper)
+    torch.cuda.synchronize()
+    assert ops.adam_tree.launches == before + 3
+    for got, ref in zip((ps, ms, vs), want):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+            assert bool(torch.isfinite(a).all())
+
+
+def test_adam_tree_past_k_max_leaves_launches_twice(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import adam
+
+    k = adam.K_MAX_LEAVES
+    shapes = [(1000 + 97 * i,) for i in range(k + 3)]
+    ps, gs, ms, vs = _adam_tree_case(cuda, shapes, unaligned=(k + 1,))
+    want = [[t.clone() for t in x] for x in (ps, ms, vs)]
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, lr=1e-3)
+    before = ops.adam_tree.launches
+    bc1, bc2 = adam.bias_corrections(0.9, 0.999, 1)
+    adam.adam_tree(ps, gs, ms, vs, bc1, bc2, **hyper)
+    dev_bc = [torch.full((), c, device=cuda) for c in (bc1, bc2)]
+    for p, g, m, v in zip(want[0], gs, want[1], want[2]):
+        adam.leaf_update_ref(p, g, m, v, *dev_bc, **hyper)
+    torch.cuda.synchronize()
+    assert ops.adam_tree.launches == before + 2
+    for got, ref in zip((ps, ms, vs), want):
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+def test_adam_tree_raises_on_what_it_does_not_take(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import adam
+
+    t = torch.zeros((4, 3), device=cuda)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, lr=1e-3)
+    with pytest.raises(TypeError, match="dtype"):
+        adam.adam_tree([t], [t.double()], [t], [t], 0.1, 0.01, **hyper)
+    with pytest.raises(ValueError, match="shape"):
+        adam.adam_tree([t], [t[:2]], [t], [t], 0.1, 0.01, **hyper)
+    with pytest.raises(ValueError, match="on cpu"):
+        adam.adam_tree([t], [t], [t.cpu()], [t], 0.1, 0.01, **hyper)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam.adam_tree([t], [t], [t], [torch.zeros((3, 4), device=cuda).t()],
+                       0.1, 0.01, **hyper)
+
+
 @pytest.mark.parametrize("arch,backend", [("dense", "pallas"),
                                           ("deep", "xla"),
                                           ("conv1d", "xla")])
@@ -1208,12 +1321,15 @@ def test_fused_adam_in_the_train_step_equals_the_plain_one(cuda, arch,
              "fused": build_train_step(model, cfg,
                                        optimizer=adam.FusedAdam(opt))}
     x = torch.rand((512, 256), device=cuda) * 2 - 1
-    before = ops.leaf_update.launches
+    before = ops.adam_tree.launches, ops.leaf_update.launches
     for _ in range(5):
         for name in states:
             steps[name](states[name], x)
     torch.cuda.synchronize()
-    assert ops.leaf_update.launches == before + 5 * len(leaves(first.params))
+    # the whole tree in one launch a step, no launch a leaf
+    assert len(leaves(first.params)) <= adam.K_MAX_LEAVES
+    assert (ops.adam_tree.launches, ops.leaf_update.launches) == (
+        before[0] + 5, before[1])
     for field in ("params", "mu", "nu"):
         for (name, a), (_, b) in zip(flatten(getattr(states["plain"], field)),
                                      flatten(getattr(states["fused"], field))):

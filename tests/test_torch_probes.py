@@ -144,18 +144,20 @@ def test_adam_fusion_runs_and_the_states_are_equal(capsys, tiny, arch,
     # one step to count launches, two of warm-up, then 2 pairs x 2 steps
     assert last["steps_each"] == 1 + 2 + 4
     assert last["leaves"] == {"dense": 10, "deep": 14, "conv1d": 14}[arch]
-    assert last["leaf_update_launches_per_step"] == {"plain": 0, "fused": 0}
+    assert last["adam_tree_launches_per_step"] == {"plain": 0, "fused": 0}
     assert set(last["frames_per_s"]) == {"plain", "fused"}
     assert any("equal bit for bit" in line for line in lines)
 
 
 def test_adam_fusion_exits_when_the_states_differ(monkeypatch, capsys, tiny):
-    def off_by_an_ulp(p, g, m, v, bc1, bc2, **hyper):
-        adam_ops.leaf_update_ref(p, g, m, v, bc1, bc2, **hyper)
-        p.mul_(1 + 2.0 ** -23)
+    tree_update = adam_ops.adam_tree
+
+    def off_by_an_ulp(ps, gs, ms, vs, bc1, bc2, **hyper):
+        tree_update(ps, gs, ms, vs, bc1, bc2, **hyper)
+        ps[0].mul_(1 + 2.0 ** -23)
 
     off_by_an_ulp.launches = 0
-    monkeypatch.setattr(adam_ops, "leaf_update", off_by_an_ulp)
+    monkeypatch.setattr(adam_ops, "adam_tree", off_by_an_ulp)
     with pytest.raises(SystemExit, match="differ"):
         adam_fusion.main(["--device", "cpu", "--arch", "dense", "--batch",
                           "8", "--pairs", "1", "--steps", "1"])
