@@ -127,9 +127,10 @@ any failure exits non-zero with a traceback (no phase is caught):
    step's five ``grad_accum`` launches a microbatch and its
    ``matmul_nt_mask`` and ``matmul_nt2_mask`` launches, one each a
    microbatch, all on ``csrc/sgemm.cuh``, and the ``encoder_fwd`` and
-   ``decoder_fwd`` launches
-   of the ``high`` and ``highest`` steps, one each a microbatch, all on
-   ``csrc/sgemm.cuh``; the ``high`` step's ``enc_bwd_full`` and
+   ``decoder_fwd`` launches of the ``highest`` step, one each a
+   microbatch, all on ``csrc/sgemm.cuh``, those of the ``high`` step all
+   on the 3-pass tensor-core chains (``split_launches``, phase 3g's forms;
+   none on ``csrc/sgemm.cuh``); the ``high`` step's ``enc_bwd_full`` and
    ``dec_bwd_full`` launches, one each a microbatch, all on the tensor
    cores; the device time by kernel of one bf16 kernel step, of one
    ``high`` and of one ``highest`` kernel step;
@@ -145,8 +146,11 @@ any failure exits non-zero with a traceback (no phase is caught):
    resident epoch at ``highest`` through the primitive kernels (``matmul_nt``,
    ``matmul_nt_mask`` and ``matmul_nt2_mask`` on the fp32 kernel once a
    step each) against the plain backend; ``dx`` through the model's encoder
-   in fp32 and bf16 (its dh on ``csrc/sgemm.cuh`` and on the tensor cores);
-   the
+   in fp32 and bf16 (its dh on ``csrc/sgemm.cuh`` and on the tensor cores),
+   and through the ``high`` step's encoder (the model under the tier,
+   ``models/registry.py`` ``under_tier``: the forward, dh and dx in three
+   passes on the tensor cores, one launch each, against the 3-pass plain
+   version); the
    corpus layout under a small budget and the ``always`` error under none;
    resident and host-fed epoch frames/s of both backends and the device's
    busy share over a resident epoch;
@@ -252,6 +256,21 @@ any failure exits non-zero with a traceback (no phase is caught):
    the first version, and 3 whole-k linear launches (bf16: all on the
    tensor cores); step time of both; each step's device time by kernel.
 
+3g. (run with the other kernel phases) the ``high`` tier's 3-pass forms
+   (``passes = 3``: ``csrc/full.cu``'s chains on the tensor cores, the split
+   pass then one 3-pass ``csrc/wgmma.cuh`` launch a product) of
+   ``encoder_fwd``, ``decoder_fwd``, ``matmul_nt2_mask`` (the encoder's dh),
+   ``matmul_nt`` (its dx) and the row-parallel ``encoder_fwd_partial`` /
+   ``decoder_fwd_partial`` (units 1024 of 2048) at full width, batch 8192,
+   4096 and a ragged 4097, against their 3-pass plain versions (1e-4 ·
+   max|plain|) and their first versions (``kernel="cuda_cores"``, gemm.cuh's
+   3-pass mode), equal bits on a second launch, no launch on
+   ``csrc/sgemm.cuh``; bit for bit on ``exact_forward_case`` (every sum one
+   term; y within 8 ulps); timed at 8192 in turns with the plain version
+   and the first version, by device time with the split pass apart, beside
+   the 3-pass library sequence (``torch.mm(bf16, bf16,
+   out_dtype=float32)``) and the bound with and without the split pass's
+   bytes;
 3f. (run with the other kernel phases) the probes' kernels: ``dw_fused`` and
    ``dx_fused`` in fp32 (on ``csrc/sgemm.cuh``) and bf16 (on the tensor
    cores), relu / tanh / none, at the four large layers of
@@ -425,7 +444,14 @@ there.  The row-parallel forms' rows (``encoder_fwd_partial``,
 ``linear_fwd_partial``: bf16 on the tensor cores at deep_wide's
 4096x2048->2048 and 4096x512->512 shards) take their launches from phase
 14's steps on rank 0 (bf16: the default.ini and deep_wide steps; fp32: the
-``high`` and ``highest`` steps).
+``highest`` step).  The ``high`` tier's 3-pass rows (``<name>[3-pass]``,
+phase 3g; ``device_ms``, ``parts_ms``, ``first_version_ms`` and
+``split_bound_ms`` beside the contract's keys) take theirs from the
+launches on the 3-pass tensor cores: ``encoder_fwd`` / ``decoder_fwd``
+from phase 5's ``high`` step (and per rank from phase 13's),
+``matmul_nt2_mask`` / ``matmul_nt`` from phase 6's ``high`` dx, the
+row-parallel forms from phase 14's ``high`` model-2 step (rank 0, and per
+rank).
 ``bound_ms`` is the larger of bytes moved (each input read once, each
 output written once) over 3.35 TB/s and operations over the peak of the
 operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
@@ -2344,6 +2370,48 @@ def exact_split_case(dev, seed=0, seg=SEG, units=UNITS, latent=LATENT):
 DENSE_SUMS = {"enc_bwd_full": (1,), "dec_bwd_full": (2,)}
 
 
+def exact_forward_case(dev, seed=0, seg=SEG, units=UNITS, latent=LATENT):
+    """Operands of the `high` tier's 3-pass forms of rows 1, 2, 6 and 4 at
+    batch = latent on which, as on :func:`exact_split_case`, every
+    contraction has at most one non-zero term: each product is ``(hi·hi +
+    hi·lo) + lo·hi`` of one pair of :func:`split_probe_values`, the bias is
+    added after it and the activation applied, so a kernel that splits and
+    adds as the plain version does gives its bits (y up to its tanh).
+    Returns a dict: "encoder" ``(w1, b1, w21, b21, w22, b22, x)``, x with
+    one non-zero a row and the heads' weights one a column; "decoder"
+    ``(w3, b3, w4, b4, z)``, z one a row and w4 one a column (scaled by
+    2^-6 so that tanh does not saturate); "dh" ``(dmu, w21, dlv, w22, h)``,
+    :func:`exact_split_case` 's encoder operands; "dx" ``(w1,)`` with one
+    non-zero a row, so that ``dh @ w1ᵀ`` has one term a sum.  Needs ``seg
+    >= latent`` and ``units >= latent``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = latent
+
+    def val(*shape):
+        return split_probe_values(g, shape, dev)
+
+    def one_a_row(rows, cols, scale=1.0):
+        t = torch.zeros((rows, cols), device=dev)
+        r = torch.arange(rows, device=dev)
+        t[r, (r * 7 + 3) % cols] = val(rows) * scale
+        return t
+
+    # a column of w21 / w22 / w4 non-zero in one row: the transpose of one
+    # non-zero a row
+    encoder = (val(seg, units), val(units), one_a_row(latent, units).t(),
+               val(latent), one_a_row(latent, units).t().flip(0),
+               val(latent), one_a_row(b, seg))
+    decoder = (val(latent, units), val(units),
+               one_a_row(seg, units, 2.0 ** -6).t(), val(seg),
+               one_a_row(b, latent))
+    enc, _ = exact_split_case(dev, seed, seg, units, latent)
+    x, h, dmu, dlv, w21, w22 = enc
+    return {"encoder": tuple(t.contiguous() for t in encoder),
+            "decoder": tuple(t.contiguous() for t in decoder),
+            "dh": (dmu, w21, dlv, w22, h),
+            "dx": (one_a_row(seg, units),)}
+
+
 # phase 3d: rows 11 and 12's library sequence, the 3-pass chain of library
 # calls where the card's PyTorch has a bf16 product with an fp32 output;
 # beside it the IEEE fp32 sequence, which computes another function
@@ -2721,6 +2789,318 @@ def phase_full_kernels(gen_params):
     check(e <= 1e-5 and eg <= 1e-5, "fused_loss disagrees with the plain "
           "loss")
     return rows, at_train_batch
+
+
+# phase 3g: the `high` tier's 3-pass forms of rows 1, 2, 6 -> 4 and of the
+# row-parallel rows 1 and 2 (passes = 3: csrc/full.cu's chains on the
+# tensor cores; the first version's 3-pass mode, named), at full width,
+# against their 3-pass plain versions: FULL_REL * max|plain| (the same
+# split and bf16 products, summed in another order), equal bits on a second
+# launch, and bit for bit on exact_forward_case (every sum one term; y
+# within TANH_ULPS, the kernel's tanhf beside torch.tanh).  The bound is
+# the contract's (the products' three passes at the bf16 rate, or the
+# function's bytes); split_bound_ms adds the split pass's bytes to the
+# products' time (every split matrix read in fp32, written as two bf16
+# halves: 8 bytes an element).
+HIGH_BATCHES = (TRAIN_BATCH, STREAM_BATCH, FULL_RAGGED)
+TANH_ULPS = 8
+HIGH_LIBRARY = ("the sequence split_hi_lo of each operand -> three "
+                "torch.mm(bf16, bf16, out_dtype=float32) a product, added "
+                "(hh + hl) + lh -> the bias and the activation (the gate) as "
+                "the plain version, device time summed (no one PyTorch call "
+                "computes {})")
+# the parts of a 3-pass form's device time, by the kernels' names
+HIGH_PARTS = {"split pass": "split_", "products": "Split"}
+
+
+def high_library(name, weights, args):
+    """``name`` 's 3-pass form on ``args`` as library calls: each operand
+    split as the kernels split it, each product three ``torch.mm`` of bf16
+    halves with an fp32 output added ``(hh + hl) + lh``, then the bias and
+    the activation (the gate) as the plain version; None where the card's
+    PyTorch has no bf16 product with an fp32 output."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    def split(v):
+        hi, lo = mlp.split_hi_lo(v)
+        return hi.to(torch.bfloat16), lo.to(torch.bfloat16)
+
+    def mm3(a, b):
+        (ah, al), (bh, bl) = split(a), split(b)
+
+        def mm(u, v):
+            return torch.mm(u, v, out_dtype=torch.float32)
+        return (mm(ah, bh) + mm(ah, bl)) + mm(al, bh)
+
+    try:
+        mm3(args[0][:16, :16].contiguous(), args[0][:16, :16].contiguous())
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        print(f"  {name}: no bf16 product with an fp32 output in this "
+              f"PyTorch ({type(e).__name__}: {str(e)[:80]})")
+        return None
+    if name.startswith("encoder_fwd"):
+        w1, b1, w21, b21, w22, b22 = weights
+        (x,) = args
+
+        def run():
+            h = torch.relu(mm3(x, w1) + b1)
+            mu, lv = mm3(h, w21), mm3(h, w22)
+            if b21 is None:
+                return mu, lv, h
+            return mu + b21, lv + b22, h
+        return run
+    if name.startswith("decoder_fwd"):
+        w3, b3, w4, b4 = weights
+        (z,) = args
+
+        def run():
+            h3 = torch.relu(mm3(z, w3) + b3)
+            y = mm3(h3, w4)
+            return (y if b4 is None else torch.tanh(y + b4)), h3
+        return run
+    if name.startswith("matmul_nt2_mask"):
+        w21, w22 = weights
+        dmu, dlv, h = args
+
+        def run():
+            return torch.where(h > 0, mm3(dmu, w21.t()) + mm3(dlv, w22.t()),
+                               0.0)
+        return run
+    (w1,) = weights
+    (dh,) = args
+
+    def run():
+        return mm3(dh, w1.t())
+    return run
+
+
+def phase_high_forward(gen_params):
+    """Phase 3g: the `high` tier's 3-pass forms against their plain
+    versions (header above).  Returns the rows of the kernel line
+    (launches filled in later, from the paths that run them)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    dev = torch.device("cuda")
+    p32 = gen_params(2468)
+    g = torch.Generator(device=dev).manual_seed(2469)
+    tpu = "rawaudiovae_kelsey_tpu/ops/pallas_mlp.py"
+    src = "rawaudiovae_kelsey_tpu_torch/csrc/full.cu"
+    enc = [p32[n][k] for n in ("fc1", "fc21", "fc22") for k in ("w", "b")]
+    dec = [p32[n][k] for n in ("fc3", "fc4") for k in ("w", "b")]
+    w1, w21, w22 = enc[0], enc[2], enc[4]
+    half = UNITS // TP_MODEL
+    # a rank's shards of the model-2 step (phase 14): fc1 / fc3 by columns,
+    # the heads / fc4 by rows, units 1024 of 2048
+    enc_p = (enc[0][:, :half].contiguous(), enc[1][:half].contiguous(),
+             enc[2][:half].contiguous(), None, enc[4][:half].contiguous(),
+             None)
+    dec_p = (dec[0][:, :half].contiguous(), dec[1][:half].contiguous(),
+             dec[2][:half].contiguous(), None)
+
+    def rnd(*shape, scale=1.0, relu=False):
+        t = torch.randn(shape, generator=g, device=dev) * scale
+        return t.clamp_min(0) if relu else t
+
+    # each form's kernel (operands, kernel name) and plain version
+    # (operands), the operands a tuple
+    def enc_call(weights, partial):
+        if partial:
+            w_1, b_1, w_21, _, w_22, _ = weights
+            return (lambda a, k="auto": mlp.encoder_fwd_partial(
+                        w_1, b_1, w_21, w_22, a[0], kernel=k, passes=3),
+                    lambda a: mlp.encoder_fwd_partial_ref(
+                        w_1, b_1, w_21, w_22, a[0], 3))
+        return (lambda a, k="auto": mlp.encoder_fwd(*weights, a[0], kernel=k,
+                                                    passes=3),
+                lambda a: mlp.encoder_fwd_ref(*weights, a[0], 3))
+
+    def dec_call(weights, partial):
+        if partial:
+            w_3, b_3, w_4, _ = weights
+            return (lambda a, k="auto": mlp.decoder_fwd_partial(
+                        w_3, b_3, w_4, a[0], kernel=k, passes=3),
+                    lambda a: mlp.decoder_fwd_partial_ref(
+                        w_3, b_3, w_4, a[0], 3))
+        return (lambda a, k="auto": mlp.decoder_fwd(*weights, a[0], kernel=k,
+                                                    passes=3),
+                lambda a: mlp.decoder_fwd_ref(*weights, a[0], 3))
+
+    # name: (kernel, plain, operands of a batch, weights for the library,
+    # FLOPs a row of one pass, split elements of a batch, TPU line, wrapper)
+    forms = {
+        "encoder_fwd": (*enc_call(enc, False),
+                        lambda b: (rnd(b, SEG, scale=0.3),), enc,
+                        2 * (SEG * UNITS + 2 * UNITS * LATENT),
+                        lambda b: b * SEG + SEG * UNITS + 2 * UNITS * LATENT
+                        + b * UNITS, f"{tpu}:246", mlp.encoder_fwd),
+        "decoder_fwd": (*dec_call(dec, False), lambda b: (rnd(b, LATENT),),
+                        dec, 2 * (LATENT * UNITS + UNITS * SEG),
+                        lambda b: b * LATENT + LATENT * UNITS + UNITS * SEG
+                        + b * UNITS, f"{tpu}:294", mlp.decoder_fwd),
+        "matmul_nt2_mask": (
+            lambda a, k="auto": mlp.matmul_nt2_mask(a[0], w21, a[1], w22,
+                                                    a[2], kernel=k, passes=3),
+            lambda a: mlp.matmul_nt2_mask_ref(a[0], w21, a[1], w22, a[2], 3),
+            lambda b: (rnd(b, LATENT), rnd(b, LATENT),
+                       rnd(b, UNITS, relu=True)), (w21, w22),
+            2 * 2 * LATENT * UNITS,
+            lambda b: 2 * (b * LATENT + UNITS * LATENT), f"{tpu}:398",
+            mlp.matmul_nt2_mask),
+        "matmul_nt": (
+            lambda a, k="auto": mlp.matmul_nt(a[0], w1, kernel=k, passes=3),
+            lambda a: mlp.matmul_nt_ref(a[0], w1, 3),
+            lambda b: (rnd(b, UNITS, scale=1e-2, relu=True),), (w1,),
+            2 * UNITS * SEG, lambda b: b * UNITS + SEG * UNITS,
+            f"{tpu}:333", mlp.matmul_nt),
+        "encoder_fwd_partial": (
+            *enc_call(enc_p, True), lambda b: (rnd(b, SEG, scale=0.3),),
+            enc_p, 2 * (SEG * half + 2 * half * LATENT),
+            lambda b: b * SEG + SEG * half + 2 * half * LATENT + b * half,
+            f"{tpu}:246", mlp.encoder_fwd),
+        "decoder_fwd_partial": (
+            *dec_call(dec_p, True), lambda b: (rnd(b, LATENT),), dec_p,
+            2 * (LATENT * half + half * SEG),
+            lambda b: b * LATENT + LATENT * half + half * SEG + b * half,
+            f"{tpu}:294", mlp.decoder_fwd),
+    }
+
+    def outputs(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    rows = {}
+    for name, (kernel, plain, make, weights, row_flops, split_elems,
+               replaces, wrapper) in forms.items():
+        key = f"{name}[3-pass]"
+        err = 0.0
+        for b in HIGH_BATCHES:
+            a = make(b)
+            want = outputs(plain(a))
+            for form, named in (("tensor cores", "auto"),
+                                ("first version", "cuda_cores")):
+                before = (wrapper.split_launches, wrapper.sgemm_launches)
+                got = outputs(kernel(a, named))
+                again = outputs(kernel(a, named))
+                torch.cuda.synchronize()
+                rose = (wrapper.split_launches - before[0],
+                        wrapper.sgemm_launches - before[1])
+                check(rose == (2 * (named == "auto"), 0), f"{key} batch {b} "
+                      f"({form}): split / sgemm launches rose by {rose}")
+                for t, w in zip(got, want):
+                    check(t.shape == w.shape and t.dtype == w.dtype
+                          and bool(torch.isfinite(t).all()),
+                          f"{key} batch {b} ({form}): shape, dtype or "
+                          "non-finite")
+                e = rel_err(got, want)
+                same = all(torch.equal(t, u) for t, u in zip(got, again))
+                if named == "auto":
+                    err = max(err, max_err(got, want))
+                print(f"  {key:<28} batch {b:>4}, {form}: max |kernel - "
+                      f"plain| / max|plain| = {e:.3e} (tolerance "
+                      f"{FULL_REL:g}); second launch "
+                      f"{'equal bit for bit' if same else 'DIFFERS'}")
+                check(e <= FULL_REL and same, f"{key} batch {b} ({form}): "
+                      f"error {e:.3e}, second launch equal: {same}")
+        a = make(TRAIN_BATCH)
+        t, runs = time_in_turns({
+            "kernel": lambda: kernel(a), "plain": lambda: plain(a),
+            "first": lambda: kernel(a, "cuda_cores")}, 10)
+        dev_ms = device_ms(lambda: kernel(a))
+        parts = {label: device_ms(lambda: kernel(a), match=m)
+                 for label, m in HIGH_PARTS.items()}
+        flops = 3 * TRAIN_BATCH * row_flops
+        outs = outputs(kernel(a))
+        row = {"name": key, "route": "cuda", "source": src,
+               "replaces": replaces, "max_abs_err": err, "ms": t["kernel"],
+               "plain_ms": t["plain"],
+               **bound(flops, nbytes(*a, *(w for w in weights
+                                           if w is not None), *outs),
+                       "bf16"),
+               "library_ms": None, "first_version_ms": t["first"],
+               "device_ms": dev_ms, "parts_ms": parts,
+               "split_bound_ms": (flops / PEAK_FLOPS["bf16"]
+                                  + 8 * split_elems(TRAIN_BATCH)
+                                  / HBM_BYTES_S) * 1e3}
+        library = high_library(name, weights, a)
+        text = ""
+        if library is not None:
+            e = rel_err(outputs(library()), outputs(plain(a)))
+            check(e <= FULL_REL, f"{key}: the library sequence is {e:.3e} "
+                  "from the plain version")
+            lib = device_ms(library)
+            row.update(library_ms=lib, library=HIGH_LIBRARY.format(name))
+            text = f", library sequence {lib:.4f} ms ({dev_ms / lib:.3f}x)"
+        print(f"  {key:<28} batch {TRAIN_BATCH}: kernel {t['kernel']:.4f} ms "
+              f"(device {dev_ms:.4f}: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in parts.items())
+              + f"), plain {t['plain']:.4f}, first version {t['first']:.4f}"
+              f"{text}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"with the split pass's bytes {row['split_bound_ms']:.4f} ms "
+              f"(runs {runs})")
+        rows[key] = row
+
+    # one term a sum: the kernels give the plain version's bits (y up to
+    # its tanh); both forms
+    case = exact_forward_case(dev)
+    e_args, d_args = case["encoder"], case["decoder"]
+    checks = {
+        "encoder_fwd": (lambda k: mlp.encoder_fwd(*e_args, kernel=k,
+                                                  passes=3),
+                        mlp.encoder_fwd_ref(*e_args, passes=3),
+                        mlp.encoder_fwd_ref(*e_args)),
+        "encoder_fwd_partial": (
+            lambda k: mlp.encoder_fwd_partial(*e_args[:3], e_args[4],
+                                              e_args[6], kernel=k, passes=3),
+            mlp.encoder_fwd_partial_ref(*e_args[:3], e_args[4], e_args[6],
+                                        passes=3),
+            mlp.encoder_fwd_partial_ref(*e_args[:3], e_args[4], e_args[6])),
+        "decoder_fwd": (lambda k: mlp.decoder_fwd(*d_args, kernel=k,
+                                                  passes=3)[1:],
+                        mlp.decoder_fwd_ref(*d_args, passes=3)[1:],
+                        mlp.decoder_fwd_ref(*d_args)[1:]),
+        "decoder_fwd_partial": (
+            lambda k: mlp.decoder_fwd_partial(*d_args[:3], d_args[4],
+                                              kernel=k, passes=3),
+            mlp.decoder_fwd_partial_ref(*d_args[:3], d_args[4], passes=3),
+            mlp.decoder_fwd_partial_ref(*d_args[:3], d_args[4])),
+        "matmul_nt2_mask": (
+            lambda k: (mlp.matmul_nt2_mask(*case["dh"], kernel=k,
+                                           passes=3),),
+            (mlp.matmul_nt2_mask_ref(*case["dh"], passes=3),),
+            (mlp.matmul_nt2_mask_ref(*case["dh"]),)),
+    }
+    dh = checks["matmul_nt2_mask"][1][0]
+    checks["matmul_nt"] = (
+        lambda k: (mlp.matmul_nt(dh, *case["dx"], kernel=k, passes=3),),
+        (mlp.matmul_nt_ref(dh, *case["dx"], passes=3),),
+        (mlp.matmul_nt_ref(dh, *case["dx"]),))
+    for name, (kernel, want, once) in checks.items():
+        moved = sum(int((w != o).sum()) for w, o in zip(want, once))
+        total = sum(w.numel() for w in want)
+        check(moved > total // 20, f"{name}[3-pass]: the built operands do "
+              "not tell three passes from one")
+        for form, named in (("tensor cores", "auto"),
+                            ("first version", "cuda_cores")):
+            got = kernel(named)
+            torch.cuda.synchronize()
+            off = sum(int((a != w).sum()) for a, w in zip(got, want))
+            print(f"  {name}[3-pass] on built operands, batch "
+                  f"{e_args[6].shape[0]}, {form}: {off} of {total} values "
+                  f"differ from the 3-pass plain version (one fp32 pass "
+                  f"would move {moved})")
+            check(off == 0, f"{name}[3-pass] ({form}): {off} values differ "
+                  "from the 3-pass plain version on the built operands")
+    want_y = mlp.decoder_fwd_ref(*d_args, passes=3)[0]
+    for form, named in (("tensor cores", "auto"),
+                        ("first version", "cuda_cores")):
+        y = mlp.decoder_fwd(*d_args, kernel=named, passes=3)[0]
+        ulps = int((y.view(torch.int32).long()
+                    - want_y.view(torch.int32).long()).abs().max())
+        print(f"  decoder_fwd[3-pass] y on built operands, {form}: at most "
+              f"{ulps} ulps from the plain version's (tolerance "
+              f"{TANH_ULPS}: tanhf beside torch.tanh)")
+        check(ulps <= TANH_ULPS, f"decoder_fwd[3-pass] y ({form}): {ulps} "
+              "ulps")
+    return rows
 
 
 def read_scalars(log_dir: Path, tag: str) -> dict:
@@ -3146,8 +3526,10 @@ def phase_train(data: Path, card: str):
                 ops.grad_accum, ops.enc_bwd_dw1, ops.grad_accum2)
     fp32_sgemm = (ops.encoder_fwd, ops.decoder_fwd, ops.grad_accum,
                   ops.matmul_nt_mask, ops.matmul_nt2_mask)
-    # the `high` step's full chains, on the tensor cores (3-pass)
+    # the `high` step's full chains, on the tensor cores (3-pass), and its
+    # forward's 3-pass forms
     full_tc = (ops.enc_bwd_full, ops.dec_bwd_full)
+    forward3 = (ops.encoder_fwd, ops.decoder_fwd)
     from rawaudiovae_kelsey_tpu_torch.config import load_config, save_config
     from rawaudiovae_kelsey_tpu_torch.config.workspace import iter_runs
     from rawaudiovae_kelsey_tpu_torch.data.corpus import build_corpus
@@ -3273,6 +3655,8 @@ def phase_train(data: Path, card: str):
                     w.tensor_core_launches = 0
                 for w in fp32_sgemm:
                     w.sgemm_launches = 0
+                for w in forward3:
+                    w.split_launches = 0
             step = build_train_step(model, cfg, noise=noise)
             start = state
             state, m = step(start, x)
@@ -3285,6 +3669,9 @@ def phase_train(data: Path, card: str):
                 step_counts[precision].update(
                     (f"{w.__name__}@sgemm", w.sgemm_launches)
                     for w in fp32_sgemm)
+                step_counts[precision].update(
+                    (f"{w.__name__}@split", w.split_launches)
+                    for w in forward3)
             delta = torch.cat([(state.params[n][k] - before[n][k]).ravel()
                                for n in sorted(before)
                                for k in sorted(before[n])])
@@ -3294,11 +3681,14 @@ def phase_train(data: Path, card: str):
             if backend == "pallas" and precision == "high":
                 high_by_kernel = device_time_by_kernel(
                     lambda: step(start, x), top=8, focus={
-                        "encoder h, decoder h3 and y (sgemm.cuh)":
-                        "true, false, ",
-                        "encoder heads (sgemm.cuh, one launch)":
-                        "sgemm_heads_kernel",
-                        "full chains' split pass (split.cuh)": "split_",
+                        "forward h and h3 (3-pass, SplitBiasRows, ReLU)":
+                        "SplitBiasRows<1>",
+                        "forward y (3-pass, tanh)": "SplitBiasRows<2>",
+                        "encoder heads (3-pass, one two-output walk)":
+                        "SplitBiasRows<0>",
+                        "anything on sgemm.cuh (none expected)": "sgemm_",
+                        "split pass, forward and backward (split.cuh)":
+                        "split_",
                         "full chains' dh, dh3, dz (3-pass, SplitRows)":
                         "SplitRows",
                         "full chains' weight gradients (3-pass)":
@@ -3346,8 +3736,8 @@ def phase_train(data: Path, card: str):
         check(seen == (micro, micro), f"`high` step: {seen} {name} launches "
               f"(all, tensor cores), expected {micro} of {micro} on the "
               "tensor cores")
-    print(f"  one `high` kernel step by kernel (the first-version chains "
-          f"took 16 x (7.1535 + 9.1311) ms of it, PERF.md section 6): "
+    print(f"  one `high` kernel step by kernel (70.33 ms of device time "
+          f"with the forward on csrc/sgemm.cuh, PERF.md section 5): "
           f"{high_by_kernel}")
     for name in ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused"):
         for precision in ("high", "highest"):
@@ -3376,18 +3766,23 @@ def phase_train(data: Path, card: str):
               f"launches (all, sgemm.cuh), expected {micro} of {micro} on "
               f"csrc/sgemm.cuh")
     # the fp32 encoder and decoder: one launch each a microbatch of both
-    # fp32 steps, every one on csrc/sgemm.cuh
+    # fp32 steps, every one on csrc/sgemm.cuh under `highest` and on the
+    # 3-pass tensor-core chains under `high` (rows 1-2 at passes = 3)
     for name in ("encoder_fwd", "decoder_fwd"):
-        seen = {p: (step_counts[p][name], step_counts[p][f"{name}@sgemm"])
+        seen = {p: (step_counts[p][name], step_counts[p][f"{name}@sgemm"],
+                    step_counts[p][f"{name}@split"])
                 for p in ("high", "highest")}
         print(f"  {name} launches in the fp32 steps (all, on "
-              f"csrc/sgemm.cuh): {seen}")
-        for precision, got in seen.items():
-            check(got == (micro, micro), f"`{precision}` step: {got} {name} "
-                  f"launches (all, sgemm.cuh), expected {micro} of {micro} "
-                  f"on csrc/sgemm.cuh")
-        check(step_counts["bfloat16"][f"{name}@sgemm"] == 0,
-              f"the bf16 step ran {name} on csrc/sgemm.cuh")
+              f"csrc/sgemm.cuh, on the 3-pass tensor cores): {seen}")
+        check(seen["highest"] == (micro, micro, 0), f"`highest` step: "
+              f"{seen['highest']} {name} launches (all, sgemm.cuh, 3-pass), "
+              f"expected {micro} of {micro} on csrc/sgemm.cuh")
+        check(seen["high"] == (micro, 0, micro), f"`high` step: "
+              f"{seen['high']} {name} launches (all, sgemm.cuh, 3-pass), "
+              f"expected {micro} of {micro} on the 3-pass tensor cores")
+        check(step_counts["bfloat16"][f"{name}@sgemm"] == 0
+              and step_counts["bfloat16"][f"{name}@split"] == 0,
+              f"the bf16 step ran {name} on csrc/sgemm.cuh or in 3 passes")
     print(f"  one `highest` kernel step by kernel (132.05 ms of device time "
           f"with the first-version rows 5 and 6, PERF.md section 5): "
           f"{highest_by_kernel}")
@@ -3459,7 +3854,7 @@ def phase_train(data: Path, card: str):
     print(f"  one kernel step by kernel (with the first-version grad_accum2 "
           f"the step took 35.63 ms of device time, PERF.md section 5; no "
           f"gain claimed): {by_kernel}")
-    return launches, step_counts["highest"]
+    return launches, step_counts["highest"], step_counts["high"]
 
 
 def tee_stdout(fn):
@@ -3737,6 +4132,48 @@ def phase_resident(data: Path, card: str):
         check(dh_on == ((1, 0) if kind == "bf16" else (0, 1)),
               f"dx [{kind}]: matmul_nt2_mask launches on the tensor cores, "
               f"on csrc/sgemm.cuh: {dh_on}")
+
+    # --- dx through the `high` step's encoder (the model under the tier, as
+    # a step binds it): the forward, dh and dx each in three passes on the
+    # tensor cores (phase 3g's forms), the parameter backward the full chain
+    from rawaudiovae_kelsey_tpu_torch.models.registry import under_tier
+
+    cfg = config(tpu__precision="high")
+    model = under_tier(build_model(cfg, dev), cfg)
+    x = torch.rand((batch, seg), generator=g, device=dev) * 2 - 1
+    cmu = torch.randn((batch, LATENT), generator=g, device=dev)
+    clv = torch.randn((batch, LATENT), generator=g, device=dev)
+    three = (mlp.encoder_fwd, mlp.matmul_nt2_mask, mlp.matmul_nt)
+    for w in ops.KERNEL_WRAPPERS:
+        w.launches = 0
+    for w in three:
+        w.split_launches = w.sgemm_launches = 0
+    xx = x.clone().requires_grad_()
+    mu, lv = model.encode(params, xx)
+    (dx,) = torch.autograd.grad((mu * cmu).sum() + (lv * clv).sum(), xx)
+    torch.cuda.synchronize()
+    dx_counts["high"] = {w.__name__: w.launches for w in ops.KERNEL_WRAPPERS}
+    dx_counts["high"].update((f"{w.__name__}@split", w.split_launches)
+                             for w in three)
+    seen = {w.__name__: (dx_counts["high"][w.__name__],
+                         dx_counts["high"][f"{w.__name__}@split"],
+                         w.sgemm_launches) for w in three}
+    # the plain version of dh and dx on the kernel's own h (phase 3g holds
+    # the forward): the same ReLU gate on both sides, where a plain h a
+    # few ulps off could flip one h ≈ 0 and move dx by ~1e-2
+    enc = [params[n][k] for n in ("fc1", "fc21", "fc22") for k in ("w", "b")]
+    _, _, h = mlp.encoder_fwd(*enc, x, passes=3)
+    want = mlp.matmul_nt_ref(mlp.matmul_nt2_mask_ref(
+        cmu, params["fc21"]["w"], clv, params["fc22"]["w"], h, passes=3),
+        params["fc1"]["w"], passes=3)
+    e = rel_err((dx,), (want,))
+    print(f"  dx through the `high` step's encoder, batch {batch}: relative "
+          f"error {e:.3e} against the 3-pass plain version on the kernel's h "
+          f"(tolerance "
+          f"{GRAD_REL:g}); launches (all, 3-pass tensor cores, sgemm.cuh): "
+          f"{seen}; enc_bwd_full {dx_counts['high']['enc_bwd_full']}")
+    check(e <= GRAD_REL and all(v == (1, 1, 0) for v in seen.values())
+          and dx_counts["high"]["enc_bwd_full"] == 1, "dx [high]")
 
     # --- the corpus layout under a small budget; the error under none
     cfg = config(training__epochs=1, training__checkpoint_interval=0,
@@ -7358,11 +7795,11 @@ def tp_partial_kernels():
 
 def tp_counts():
     """Reset every wrapper's counters; returns a reader ("<name>",
-    "<name>@tc", "@sgemm", "@partial")."""
+    "<name>@tc", "@sgemm", "@partial", "@split")."""
     from rawaudiovae_kelsey_tpu_torch import ops
 
     tags = (("tensor_core_launches", "tc"), ("sgemm_launches", "sgemm"),
-            ("partial_launches", "partial"))
+            ("partial_launches", "partial"), ("split_launches", "split"))
     for w in ops.KERNEL_WRAPPERS:
         w.launches = 0
         for attr, _ in tags:
@@ -7593,13 +8030,17 @@ def tp_report(ranks, where: str, card: str) -> dict:
                   f"{c[f'{name}@partial']} row-parallel launches, expected "
                   f"{micro}")
     for label in ("high", "highest"):
+        # `highest` on csrc/sgemm.cuh, `high` in three passes on the tensor
+        # cores (the step binds the tier)
+        on = "split" if label == "high" else "sgemm"
         for rank, r in enumerate(steps[label]):
             c = r["launches"]
             for name in ("encoder_fwd", "decoder_fwd"):
                 check(c[f"{name}@partial"] == micro
-                      and c[f"{name}@sgemm"] == micro,
+                      and c[f"{name}@{on}"] == micro
+                      and c[f"{name}@split"] + c[f"{name}@sgemm"] == micro,
                       f"rank {rank}: `{label}` {name}: the fp32 partial "
-                      "form not on csrc/sgemm.cuh every microbatch")
+                      f"form not on its kernel ({on}) every microbatch")
             names = (("enc_bwd_full", "dec_bwd_full") if label == "high"
                      else ("matmul_nt", "matmul_nt_mask", "matmul_nt2_mask",
                            "grad_accum"))
@@ -7805,6 +8246,11 @@ def main() -> int:
     with torch.no_grad():
         full_rows, full_at_train_batch = phase_full_kernels(gen_params)
 
+    print("phase 3g: the `high` tier's 3-pass forms (rows 1, 2, 6, 4 and "
+          "the row-parallel rows 1, 2) against their plain versions")
+    with torch.no_grad():
+        high_rows = phase_high_forward(gen_params)
+
     print("phase 3e: the variants' kernels (linear_ksplit_fwd, linear_fwd, "
           "toeplitz_fwd) against their plain versions")
     with torch.no_grad():
@@ -7893,8 +8339,8 @@ def main() -> int:
     print("phase 5: the training path (configs/default.ini)")
     card = smi.stdout.strip()
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, step_launches = phase_train(Path(tmp) / "data",
-                                                    card)
+        train_launches, step_launches, high_step_launches = phase_train(
+            Path(tmp) / "data", card)
         print("phase 6: the device-resident path (configs/perf_bf16.ini)")
         resident_launches, primitive_launches, dx_launches = phase_resident(
             Path(tmp) / "data", card)
@@ -8052,17 +8498,36 @@ def main() -> int:
         if ranks_ and all(r["launches"].get(name) for r in ranks_):
             row["tp_launches_per_rank"] = [r["launches"][name]
                                            for r in ranks_]
-    # the row-parallel forms: their launches in phase 14's steps (rank 0)
+    # the row-parallel forms: their launches in phase 14's steps (rank 0;
+    # the fp32 ones on csrc/sgemm.cuh, the `highest` step's)
     for key, row in tp_rows.items():
         name, kind = key[:-1].split("[")
         name = name[:-len("_partial")]
-        labels = (("deep_wide bfloat16",) if name.startswith("linear")
-                  else ("bfloat16",) if kind == "bf16"
-                  else ("high", "highest"))
-        row["launches"] = sum(tp[label][0]["launches"][f"{name}@partial"]
-                              for label in labels)
+        label = ("deep_wide bfloat16" if name.startswith("linear")
+                 else "bfloat16" if kind == "bf16" else "highest")
+        row["launches"] = tp[label][0]["launches"][f"{name}@partial"]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(tp_rows)
+    # the `high` tier's 3-pass forms: rows 1-2 in phase 5's `high` step,
+    # rows 6 and 4 in phase 6's `high` dx, the row-parallel forms in phase
+    # 14's `high` model-2 step (rank 0); each launch on the 3-pass tensor
+    # cores; per rank in phases 13 and 14's `high` steps
+    for key, row in high_rows.items():
+        name = key[:-len("[3-pass]")]
+        if name.endswith("_partial"):
+            row["launches"] = tp["high"][0]["launches"][
+                f"{name[:-len('_partial')]}@split"]
+            row["tp_launches_per_rank"] = [
+                r["launches"][f"{name[:-len('_partial')]}@split"]
+                for r in tp["high"]]
+        elif name in ("encoder_fwd", "decoder_fwd"):
+            row["launches"] = high_step_launches[f"{name}@split"]
+            row["mesh_launches_per_rank"] = [
+                r["launches"][name] for r in mesh["steps"]["high"]]
+        else:
+            row["launches"] = dx_launches["high"][f"{name}@split"]
+        check(row["launches"] > 0, f"{key}: no launch on its main path")
+    rows.update(high_rows)
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

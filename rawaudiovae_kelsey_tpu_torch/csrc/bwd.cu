@@ -63,6 +63,15 @@
 // db4 (four); fp32 operands in its 3-pass mode (three FMAs a product on the
 // CUDA cores), bf16 in one pass.
 //
+// The `high` tier's input gradient (rvk_matmul_nt2_mask3 then
+// rvk_matmul_nt3: dh, then dx = dh W1ᵀ; fp32 operands, every product in
+// three bf16 passes, as the TPU kernels matmul_nt2_mask and matmul_nt run
+// under JAX's ambient `high` tier, pallas_mlp.py:1038-1041): with n and m
+// multiples of 8 and 16-byte aligned pointers the chains of full.cu on the
+// tensor cores (the split pass, then one 3-pass launch, dh's two products
+// joined along k and gated in fp32); everything else the first version in
+// gemm.cuh's 3-pass operand mode.  dh stays fp32.
+//
 // The input-gradient products (matmul_nt and its gated forms) have no
 // contraction over the batch: each is one launch of the GEMM with both
 // operands read along their contiguous axis (a row of a, a row of W), the
@@ -140,6 +149,12 @@ cudaError_t dec_bwd_split(const float* da, const float* h3, const float* z,
                           int tile_dh3, int tile_dz, int tile_dw3,
                           int split_dw3, int tile_dw4, int split_dw4,
                           cudaStream_t s);
+// the `high` tier's input-gradient products on the tensor cores (full.cu)
+cudaError_t matmul_nt_split(const float* a1, const float* w1,
+                            const float* a2, const float* w2,
+                            const float* gate, float* out, void* splits,
+                            int batch, int n, int m, int tile_n,
+                            cudaStream_t s);
 }  // namespace rvk
 
 namespace {
@@ -517,6 +532,49 @@ int rvk_matmul_nt2_mask(const void* a1, const void* w1, const void* a2,
     return matmul_nt<T>(src<T>(a1), src<T>(w1), src<T>(a2), src<T>(w2),
                         src<T>(gate), dst<T>(out), batch, n, m, s);
   });
+}
+
+// The `high` tier's matmul_nt (above, "the `high` tier's input
+// gradient"): a (batch, n), w (m, n), out (batch, m) = a @ wᵀ, all fp32,
+// in three bf16 passes.  kernel: 0, the first version (gemm.cuh's 3-pass
+// mode; tile_n and splits ignored); 1, the tensor cores, n and m multiples
+// of 8, 16-byte aligned pointers, batch > 0 (full.cu matmul_nt_split:
+// `splits` the bf16 halves of a and w, 2 · their elements; tiles 128 x
+// tile_n, 128 or 64, ops/tensor_cores.py split_tile).
+int rvk_matmul_nt3(const void* a, const void* w, void* out, void* splits,
+                   int batch, int n, int m, int tile_n, int kernel,
+                   void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores) {
+    return rvk::matmul_nt_split(src<float>(a), src<float>(w), nullptr,
+                                nullptr, nullptr, dst<float>(out), splits,
+                                batch, n, m, tile_n, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
+  return matmul_nt<float, 3>(src<float>(a), src<float>(w), nullptr, nullptr,
+                             nullptr, dst<float>(out), batch, n, m, s);
+}
+
+// The `high` tier's matmul_nt2_mask: a1, a2 (batch, n), w1, w2 (m, n),
+// gate and out (batch, m), all fp32: out = where(gate > 0, a1 @ w1ᵀ + a2 @
+// w2ᵀ, 0) in three bf16 passes, the two products joined along k.  kernel
+// and tile_n as for rvk_matmul_nt3 (`splits` the halves of a1, w1, a2 and
+// w2).
+int rvk_matmul_nt2_mask3(const void* a1, const void* w1, const void* a2,
+                         const void* w2, const void* gate, void* out,
+                         void* splits, int batch, int n, int m, int tile_n,
+                         int kernel, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores) {
+    return rvk::matmul_nt_split(src<float>(a1), src<float>(w1),
+                                src<float>(a2), src<float>(w2),
+                                src<float>(gate), dst<float>(out), splits,
+                                batch, n, m, tile_n, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
+  return matmul_nt<float, 3>(src<float>(a1), src<float>(w1), src<float>(a2),
+                             src<float>(w2), src<float>(gate),
+                             dst<float>(out), batch, n, m, s);
 }
 
 // a (batch, n), b (batch, m) of one dtype; dw (n, m), db (m,) fp32.

@@ -1,7 +1,10 @@
-// The `high` tier's full backward chains on the tensor cores: the fp32
-// forms of rvk_enc_bwd_full and rvk_dec_bwd_full (bwd.cu, kernel code 1),
-// every product in three bf16 passes, and the split pass alone as a C entry
-// point (rvk_split_hi_lo; ops/mlp.py split_pass).
+// The `high` tier's products on the tensor cores, every one in three bf16
+// passes: the full backward chains, the fp32 forms of rvk_enc_bwd_full and
+// rvk_dec_bwd_full (bwd.cu, kernel code 1); the forward chains of
+// rvk_encoder_fwd3 and rvk_decoder_fwd3 (mlp.cu) and the input-gradient
+// products of rvk_matmul_nt2_mask3 and rvk_matmul_nt3 (bwd.cu), kernel code
+// 1 (below, "the forward and the input gradient"); and the split pass
+// alone as a C entry point (rvk_split_hi_lo; ops/mlp.py split_pass).
 //
 // They replace the TPU kernels enc_bwd_full (_enc_bwd_full_kernel) and
 // dec_bwd_full (_dec_bwd_full_kernel) of
@@ -24,6 +27,26 @@
 //            zᵀ·dh3; split h3; dW4 = h3ᵀ·da
 // dh and dh3 stay fp32 (pallas_mlp.py:762-775, 859-872): the products that
 // read them take their halves, and db1 / db3 sum the unsplit values.
+//
+// The forward and the input gradient.  Under JAX's ambient `high` tier
+// the TPU kernels encoder_fwd (_enc_fwd_kernel), decoder_fwd
+// (_dec_fwd_kernel), matmul_nt2_mask and matmul_nt (pallas_mlp.py:167
+// _ambient_passes) take every product at passes = 3 too, with the weights
+// split outside the kernel (_stack_hi_lo) and the activation tile inside
+// it; the bias is added after the three-pass sum, then the activation, and
+// h / h3 stay fp32 and are split again for the next product
+// (pallas_mlp.py:233-241, 286-291).  Here each chain splits its operands
+// once and runs each product as one 3-pass launch:
+//   encoder  split x and w1; h = relu(x·W1 + b1), fp32 (SplitBiasRows);
+//            split h, w21 and w22; mu | logvar = h·[W21 W22] + [b21 b22] in
+//            one two-output walk (HeadsTiles), as the 1-pass bf16 heads
+//   decoder  split z and w3; h3 = relu(z·W3 + b3); split h3 and w4; y =
+//            tanh(h3·W4 + b4)
+//   dh       split dmu, dlv, w21, w22; where(h > 0, dmu·W21ᵀ + dlv·W22ᵀ,
+//            0), one k-joined gated walk (SplitRows): the encoder chain's dh
+//   dx       split dh and w1; dh·W1ᵀ (SplitRows, no gate)
+// The row-parallel forms of tensor parallelism are the same chains with no
+// bias on the heads (and no tanh on y): the fp32 partial sums.
 //
 // What bounds them: operations.  At the stream's batch of 4096 the
 // encoder's products are 3 · 34.4 GFLOP on the tensor cores (0.104 ms at
@@ -184,6 +207,124 @@ cudaError_t dec_bwd_split(const float* da, const float* h3, const float* z,
       [&] {
         return wgrad<1>(sh3, &sda, &dw4, workspace, units, seg, batch,
                         tile_dw4, split_dw4, s);
+      });
+}
+
+// The encoder's forward in three passes (header, "the forward and the
+// input gradient"): x (batch, seg), w1 (seg, units), b1 (units,), w21 and
+// w22 (units, latent), b21 and b22 (latent,), all fp32; mu and logvar
+// (batch, latent), h (batch, units) fp32; `splits` the halves of x, w1,
+// w21, w22 and h in that order (bf16, 2 · their elements).  b21 and b22
+// null: the heads' fp32 partial sums, no bias (the row-parallel form).  h
+// in 128 x tile_hidden tiles, both heads in one launch of 128 x tile_heads
+// (ops/tensor_cores.py split_tile).
+cudaError_t encoder_split(const float* x, const float* w1, const float* b1,
+                          const float* w21, const float* b21,
+                          const float* w22, const float* b22, float* mu,
+                          float* logvar, float* h, void* splits, int batch,
+                          int seg, int units, int latent, int tile_hidden,
+                          int tile_heads, cudaStream_t s) {
+  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
+  SplitPool pool{static_cast<bf16*>(splits)};
+  const Split sx = pool.take(batch, seg), s1 = pool.take(seg, units),
+              s21 = pool.take(units, latent), s22 = pool.take(units, latent),
+              sh = pool.take(batch, units);
+  const Halves w1_h = s1, heads_w[2] = {s21, s22};
+  float* const hidden[1] = {h};
+  const float* const hidden_bias[1] = {b1};
+  float* const heads[2] = {mu, logvar};
+  const float* const heads_bias[2] = {b21, b22};
+  return in_order(
+      [&] { return split(x, sx, nullptr, nullptr, batch, seg, s); },
+      [&] { return split(w1, s1, nullptr, nullptr, seg, units, s); },
+      [&] {
+        return tc::launch_split_fwd<tc::MatrixTiles, kActRelu>(
+            sx, &w1_h, hidden, hidden_bias, batch, units, seg, tile_hidden,
+            s);
+      },
+      [&] { return split(h, sh, nullptr, nullptr, batch, units, s); },
+      [&] { return split(w21, s21, nullptr, nullptr, units, latent, s); },
+      [&] { return split(w22, s22, nullptr, nullptr, units, latent, s); },
+      [&] {
+        return tc::launch_split_fwd<tc::HeadsTiles, kActNone>(
+            sh, heads_w, heads, heads_bias, batch, latent, units, tile_heads,
+            s);
+      });
+}
+
+// The decoder's forward in three passes: z (batch, latent), w3 (latent,
+// units), b3 (units,), w4 (units, seg), b4 (seg,), all fp32; y (batch,
+// seg), h3 (batch, units) fp32; `splits` the halves of z, w3, w4 and h3 in
+// that order.  b4 null: y's fp32 partial sums, no bias, no tanh (the
+// row-parallel form).  h3 in 128 x tile_hidden tiles, y in 128 x tile_out.
+cudaError_t decoder_split(const float* z, const float* w3, const float* b3,
+                          const float* w4, const float* b4, float* y,
+                          float* h3, void* splits, int batch, int latent,
+                          int units, int seg, int tile_hidden, int tile_out,
+                          cudaStream_t s) {
+  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
+  SplitPool pool{static_cast<bf16*>(splits)};
+  const Split sz = pool.take(batch, latent), s3 = pool.take(latent, units),
+              s4 = pool.take(units, seg), sh3 = pool.take(batch, units);
+  const Halves w3_h = s3, w4_h = s4;
+  float* const hidden[1] = {h3};
+  const float* const hidden_bias[1] = {b3};
+  float* const out[1] = {y};
+  const float* const out_bias[1] = {b4};
+  return in_order(
+      [&] { return split(z, sz, nullptr, nullptr, batch, latent, s); },
+      [&] { return split(w3, s3, nullptr, nullptr, latent, units, s); },
+      [&] {
+        return tc::launch_split_fwd<tc::MatrixTiles, kActRelu>(
+            sz, &w3_h, hidden, hidden_bias, batch, units, latent,
+            tile_hidden, s);
+      },
+      [&] { return split(h3, sh3, nullptr, nullptr, batch, units, s); },
+      [&] { return split(w4, s4, nullptr, nullptr, units, seg, s); },
+      [&] {
+        return b4 != nullptr
+                   ? tc::launch_split_fwd<tc::MatrixTiles, kActTanh>(
+                         sh3, &w4_h, out, out_bias, batch, seg, units,
+                         tile_out, s)
+                   : tc::launch_split_fwd<tc::MatrixTiles, kActNone>(
+                         sh3, &w4_h, out, out_bias, batch, seg, units,
+                         tile_out, s);
+      });
+}
+
+// An input-gradient product in three passes: out (batch, m) = a1 · w1ᵀ
+// [+ a2 · w2ᵀ, one walk joined along k, where a2 is not null], zeroed where
+// gate (batch, m) is not > 0 [where gate is not null]; a1, a2 (batch, n),
+// w1, w2 (m, n), all fp32; `splits` the halves of a1, w1[, a2, w2] in that
+// order.  Tiles 128 x tile_n.
+cudaError_t matmul_nt_split(const float* a1, const float* w1,
+                            const float* a2, const float* w2,
+                            const float* gate, float* out, void* splits,
+                            int batch, int n, int m, int tile_n,
+                            cudaStream_t s) {
+  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
+  SplitPool pool{static_cast<bf16*>(splits)};
+  const bool joined = a2 != nullptr;
+  const Split sa1 = pool.take(batch, n), sw1 = pool.take(m, n);
+  const Split sa2 = joined ? pool.take(batch, n) : sa1;
+  const Split sw2 = joined ? pool.take(m, n) : sw1;
+  const Halves a[2] = {sa1, sa2}, w[2] = {sw1, sw2};
+  return in_order(
+      [&] { return split(a1, sa1, nullptr, nullptr, batch, n, s); },
+      [&] { return split(w1, sw1, nullptr, nullptr, m, n, s); },
+      [&] {
+        return joined ? split(a2, sa2, nullptr, nullptr, batch, n, s)
+                      : cudaSuccess;
+      },
+      [&] {
+        return joined ? split(w2, sw2, nullptr, nullptr, m, n, s)
+                      : cudaSuccess;
+      },
+      [&] {
+        return joined ? tc::launch_split_rows<true>(a, w, out, gate, batch,
+                                                    m, n, tile_n, s)
+                      : tc::launch_split_rows<false>(a, w, out, gate, batch,
+                                                     m, n, tile_n, s);
       });
 }
 

@@ -39,6 +39,16 @@
 //   two launches of the tiled GEMM of gemm.cuh on the CUDA cores, the
 //   encoder's second computing both heads (Gemm::out[0..1]).
 //
+// The `high` tier's forms, rvk_encoder_fwd3 and rvk_decoder_fwd3 (fp32
+// operands, every product in three bf16 passes, as the TPU kernels run
+// under JAX's ambient `high` tier, pallas_mlp.py:167 _ambient_passes):
+// with the widths multiples of 8 and 16-byte aligned pointers, the chains
+// of full.cu on the tensor cores (the split pass, then each product one
+// 3-pass launch of wgmma.cuh with the bias and the activation after the
+// three-pass sum, h and h3 fp32 and split again); everything else the
+// first version in gemm.cuh's 3-pass operand mode.  Neither takes the IEEE
+// fp32 kernel of sgemm.cuh.
+//
 // Types, as the TPU kernels do them: fp32 accumulation; the bias added and
 // the activation applied in fp32; every output (h, mu, logvar, h3, y) in the
 // operand dtype, rounded once.  h and h3 are rounded before they feed the
@@ -68,10 +78,25 @@ using rvk::launch_gemm;
 using rvk::src;
 using rvk::view;
 
+namespace rvk {
+// the `high` tier's forward chains on the tensor cores (full.cu)
+cudaError_t encoder_split(const float* x, const float* w1, const float* b1,
+                          const float* w21, const float* b21,
+                          const float* w22, const float* b22, float* mu,
+                          float* logvar, float* h, void* splits, int batch,
+                          int seg, int units, int latent, int tile_hidden,
+                          int tile_heads, cudaStream_t s);
+cudaError_t decoder_split(const float* z, const float* w3, const float* b3,
+                          const float* w4, const float* b4, float* y,
+                          float* h3, void* splits, int batch, int latent,
+                          int units, int seg, int tile_hidden, int tile_out,
+                          cudaStream_t s);
+}  // namespace rvk
+
 namespace {
 
 // h = relu(x @ w1 + b1); mu = h @ w21 + b21; logvar = h @ w22 + b22.
-template <typename T>
+template <typename T, int kPasses = 1>
 cudaError_t encoder_fwd(const T* x, const T* w1, const T* b1, const T* w21,
                         const T* b21, const T* w22, const T* b22, T* mu,
                         T* logvar, T* h, int batch, int seg, int units,
@@ -83,7 +108,7 @@ cudaError_t encoder_fwd(const T* x, const T* w1, const T* b1, const T* w21,
   hidden.out[0].c = h;
   hidden.M = batch, hidden.N = units, hidden.K = seg;
   hidden.act = rvk::kActRelu;
-  cudaError_t err = launch_gemm<kKContig, kRContig>(hidden, 1, s);
+  cudaError_t err = launch_gemm<kKContig, kRContig, kPasses>(hidden, 1, s);
   if (err != cudaSuccess) return err;
   Gemm<T, T, T> heads = {};
   heads.a = view<T>(h, units, units);
@@ -95,11 +120,11 @@ cudaError_t encoder_fwd(const T* x, const T* w1, const T* b1, const T* w21,
   heads.out[1].c = logvar;
   heads.M = batch, heads.N = latent, heads.K = units;
   heads.act = rvk::kActNone;
-  return launch_gemm<kKContig, kRContig>(heads, 2, s);
+  return launch_gemm<kKContig, kRContig, kPasses>(heads, 2, s);
 }
 
 // h3 = relu(z @ w3 + b3); y = tanh(h3 @ w4 + b4).
-template <typename T>
+template <typename T, int kPasses = 1>
 cudaError_t decoder_fwd(const T* z, const T* w3, const T* b3, const T* w4,
                         const T* b4, T* y, T* h3, int batch, int latent,
                         int units, int seg, cudaStream_t s) {
@@ -110,7 +135,7 @@ cudaError_t decoder_fwd(const T* z, const T* w3, const T* b3, const T* w4,
   hidden.out[0].c = h3;
   hidden.M = batch, hidden.N = units, hidden.K = latent;
   hidden.act = rvk::kActRelu;
-  cudaError_t err = launch_gemm<kKContig, kRContig>(hidden, 1, s);
+  cudaError_t err = launch_gemm<kKContig, kRContig, kPasses>(hidden, 1, s);
   if (err != cudaSuccess) return err;
   Gemm<T, T, T> out = {};
   out.a = view<T>(h3, units, units);
@@ -119,7 +144,7 @@ cudaError_t decoder_fwd(const T* z, const T* w3, const T* b3, const T* w4,
   out.out[0].c = y;
   out.M = batch, out.N = seg, out.K = units;
   out.act = rvk::kActTanh;
-  return launch_gemm<kKContig, kRContig>(out, 1, s);
+  return launch_gemm<kKContig, kRContig, kPasses>(out, 1, s);
 }
 
 // The tensor-core form of the encoder: bf16 only, the biases 4-byte
@@ -186,7 +211,7 @@ int tensor_core_decoder(const void* z, const void* w3, const void* b3,
 
 // The first version: the hidden layer as encoder_fwd / decoder_fwd's, the
 // second product a Gemm with an fp32 output and no bias.
-template <typename T>
+template <typename T, int kPasses = 1>
 cudaError_t encoder_fwd_partial(const T* x, const T* w1, const T* b1,
                                 const T* w21, const T* w22, float* mu,
                                 float* logvar, T* h, int batch, int seg,
@@ -198,7 +223,7 @@ cudaError_t encoder_fwd_partial(const T* x, const T* w1, const T* b1,
   hidden.out[0].c = h;
   hidden.M = batch, hidden.N = units, hidden.K = seg;
   hidden.act = rvk::kActRelu;
-  cudaError_t err = launch_gemm<kKContig, kRContig>(hidden, 1, s);
+  cudaError_t err = launch_gemm<kKContig, kRContig, kPasses>(hidden, 1, s);
   if (err != cudaSuccess) return err;
   Gemm<T, T, float> heads = {};
   heads.a = view<T>(h, units, units);
@@ -208,10 +233,10 @@ cudaError_t encoder_fwd_partial(const T* x, const T* w1, const T* b1,
   heads.out[1].c = logvar;
   heads.M = batch, heads.N = latent, heads.K = units;
   heads.act = rvk::kActNone;
-  return launch_gemm<kKContig, kRContig>(heads, 2, s);
+  return launch_gemm<kKContig, kRContig, kPasses>(heads, 2, s);
 }
 
-template <typename T>
+template <typename T, int kPasses = 1>
 cudaError_t decoder_fwd_partial(const T* z, const T* w3, const T* b3,
                                 const T* w4, float* y, T* h3, int batch,
                                 int latent, int units, int seg,
@@ -223,7 +248,7 @@ cudaError_t decoder_fwd_partial(const T* z, const T* w3, const T* b3,
   hidden.out[0].c = h3;
   hidden.M = batch, hidden.N = units, hidden.K = latent;
   hidden.act = rvk::kActRelu;
-  cudaError_t err = launch_gemm<kKContig, kRContig>(hidden, 1, s);
+  cudaError_t err = launch_gemm<kKContig, kRContig, kPasses>(hidden, 1, s);
   if (err != cudaSuccess) return err;
   Gemm<T, T, float> out = {};
   out.a = view<T>(h3, units, units);
@@ -231,7 +256,7 @@ cudaError_t decoder_fwd_partial(const T* z, const T* w3, const T* b3,
   out.out[0].c = y;
   out.M = batch, out.N = seg, out.K = units;
   out.act = rvk::kActNone;
-  return launch_gemm<kKContig, kRContig>(out, 1, s);
+  return launch_gemm<kKContig, kRContig, kPasses>(out, 1, s);
 }
 
 // The tensor-core forms: the hidden layer as tensor_core_encoder /
@@ -515,6 +540,76 @@ int rvk_decoder_fwd_partial(const void* z, const void* w3, const void* b3,
                                src<T>(w4), y, dst<T>(h3), batch, latent,
                                units, seg, s);
   });
+}
+
+// The `high` tier's encoder (above, "the `high` tier's forms"): x (batch,
+// seg), w1 (seg, units), b1 (units,), w21, w22 (units, latent), b21, b22
+// (latent,), outputs mu, logvar (batch, latent) and h (batch, units), all
+// fp32; every product in three bf16 passes, the bias after the three-pass
+// sum, then the activation; h stays fp32 and the heads read its halves.
+// b21 and b22 null: the row-parallel form (the heads' fp32 partial sums,
+// no bias).  kernel: 0, the first version (gemm.cuh's 3-pass mode; tiles
+// and splits ignored); 1, the tensor cores, seg, units and latent
+// multiples of 8, 16-byte aligned pointers, batch > 0 (full.cu
+// encoder_split: `splits` the bf16 halves of x, w1, w21, w22 and h, 2 ·
+// their elements; h in tiles 128 x tile_hidden, both heads in one launch
+// of 128 x tile_heads, 128 or 64 each, ops/tensor_cores.py split_tile).
+int rvk_encoder_fwd3(const void* x, const void* w1, const void* b1,
+                     const void* w21, const void* b21, const void* w22,
+                     const void* b22, void* mu, void* logvar, void* h,
+                     void* splits, int batch, int seg, int units, int latent,
+                     int tile_hidden, int tile_heads, int kernel,
+                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((b21 == nullptr) != (b22 == nullptr)) return cudaErrorInvalidValue;
+  if (kernel == rvk::tc::kTensorCores) {
+    return rvk::encoder_split(
+        src<float>(x), src<float>(w1), src<float>(b1), src<float>(w21),
+        src<float>(b21), src<float>(w22), src<float>(b22), dst<float>(mu),
+        dst<float>(logvar), dst<float>(h), splits, batch, seg, units, latent,
+        tile_hidden, tile_heads, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
+  if (b21 == nullptr) {
+    return encoder_fwd_partial<float, 3>(
+        src<float>(x), src<float>(w1), src<float>(b1), src<float>(w21),
+        src<float>(w22), dst<float>(mu), dst<float>(logvar), dst<float>(h),
+        batch, seg, units, latent, s);
+  }
+  return encoder_fwd<float, 3>(
+      src<float>(x), src<float>(w1), src<float>(b1), src<float>(w21),
+      src<float>(b21), src<float>(w22), src<float>(b22), dst<float>(mu),
+      dst<float>(logvar), dst<float>(h), batch, seg, units, latent, s);
+}
+
+// The `high` tier's decoder: z (batch, latent), w3 (latent, units), b3
+// (units,), w4 (units, seg), b4 (seg,), outputs y (batch, seg) and h3
+// (batch, units), all fp32, in three passes as rvk_encoder_fwd3.  b4 null:
+// the row-parallel form (y's fp32 partial sums, no bias, no tanh).
+// kernel: 0, the first version; 1, the tensor cores (full.cu
+// decoder_split: `splits` the halves of z, w3, w4 and h3; h3 in tiles 128
+// x tile_hidden, y in 128 x tile_out), under rvk_encoder_fwd3's conditions.
+int rvk_decoder_fwd3(const void* z, const void* w3, const void* b3,
+                     const void* w4, const void* b4, void* y, void* h3,
+                     void* splits, int batch, int latent, int units, int seg,
+                     int tile_hidden, int tile_out, int kernel,
+                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores) {
+    return rvk::decoder_split(src<float>(z), src<float>(w3), src<float>(b3),
+                              src<float>(w4), src<float>(b4), dst<float>(y),
+                              dst<float>(h3), splits, batch, latent, units,
+                              seg, tile_hidden, tile_out, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
+  if (b4 == nullptr) {
+    return decoder_fwd_partial<float, 3>(
+        src<float>(z), src<float>(w3), src<float>(b3), src<float>(w4),
+        dst<float>(y), dst<float>(h3), batch, latent, units, seg, s);
+  }
+  return decoder_fwd<float, 3>(src<float>(z), src<float>(w3), src<float>(b3),
+                               src<float>(w4), src<float>(b4), dst<float>(y),
+                               dst<float>(h3), batch, latent, units, seg, s);
 }
 
 }  // extern "C"

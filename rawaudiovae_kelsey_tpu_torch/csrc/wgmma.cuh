@@ -3,8 +3,11 @@
 // rvk_matmul_nt, rvk_grad_accum, rvk_grad_accum2, rvk_enc_bwd_dw1 and
 // rvk_dec_bwd_fused (bwd.cu), rvk_toeplitz_fwd (toeplitz.cu),
 // rvk_encoder_fwd and rvk_decoder_fwd (mlp.cu), rvk_dx_fused and
-// rvk_dw_fused (linear_bwd.cu), and of both forms of rvk_enc_bwd_full and
-// rvk_dec_bwd_full (bf16: bwd.cu; fp32 in three bf16 passes: full.cu).
+// rvk_dw_fused (linear_bwd.cu), of both forms of rvk_enc_bwd_full and
+// rvk_dec_bwd_full (bf16: bwd.cu; fp32 in three bf16 passes: full.cu), and
+// of the `high` tier's 3-pass forms of rvk_encoder_fwd3, rvk_decoder_fwd3
+// (mlp.cu), rvk_matmul_nt2_mask3 and rvk_matmul_nt3 (bwd.cu), whose chains
+// are in full.cu.
 //
 //   C[m, n] = epi( sum_k A[m, k] * B[k, n] )
 //
@@ -200,8 +203,12 @@
 //   and lh: on operands where every sum has one term (chip_smoke.py
 //   exact_split_case) three accumulators each hold one exact product, and
 //   the two adds are the plain version's.  The outputs are fp32, stored
-//   from the accumulators as the weight gradients' are: dh, dh3 and dz with
-//   an fp32 gate (h > 0, read at the output's place) or none, and the
+//   from the accumulators as the weight gradients' are: dh, dh3, dz and dx
+//   with an fp32 gate (h > 0, read at the output's place) or none
+//   (SplitRows), the forward's h, mu | logvar, h3 and y with the bias added
+//   after the three-pass sum and then the activation (SplitBiasRows, the
+//   order of _enc_fwd_kernel and _dec_fwd_kernel; B N-major, x @ w; the
+//   encoder's heads as one walk of two outputs, HeadsTiles), and the
 //   weight gradients over slices of the batch without column sums (the
 //   split pass takes them from the unsplit values).  A stage is twice a
 //   plain one and three accumulators take 3 · BN / 2 registers a thread:
@@ -752,11 +759,14 @@ __device__ __forceinline__ void stage_tile(
 // (and its 128 KB at BN = 256 in fp32) is not worth having.  With a `gate`
 // (fp32, out's shape: a 3-pass dh or dh3), a value is kept where the gate's
 // value at its place is > 0 and is 0 elsewhere, the pair read as one float2
-// beside where it goes.
-template <int BN>
+// beside where it goes.  With a `bias` (fp32, (N,): a 3-pass forward), the
+// pair's bias is added with IEEE adds; then the activation kAct (an
+// rvk::Act: none, relu, tanh) is applied.
+template <int BN, int kAct = kActNone>
 __device__ __forceinline__ void store_f32(float* acc, float* out, int m0,
                                           int rows, int n0, int N,
-                                          const float* gate = nullptr) {
+                                          const float* gate = nullptr,
+                                          const float* bias = nullptr) {
   fence_accumulators<BN>(acc);
   const int t = threadIdx.x % 128;
   const int r = 16 * (t / 32) + (t % 32) / 4;
@@ -768,6 +778,13 @@ __device__ __forceinline__ void store_f32(float* acc, float* out, int m0,
       v0 = g.x > 0.f ? v0 : 0.f;
       v1 = g.y > 0.f ? v1 : 0.f;
     }
+    if (bias != nullptr) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(bias + n));
+      v0 = __fadd_rn(v0, b.x);
+      v1 = __fadd_rn(v1, b.y);
+    }
+    v0 = activate<kAct>(v0);
+    v1 = activate<kAct>(v1);
     *reinterpret_cast<float2*>(out + at) = make_float2(v0, v1);
   };
 #pragma unroll
@@ -1099,6 +1116,22 @@ struct SplitRows {
   float* out;
   const float* gate;
 };
+// The 3-pass forward's epilogue: output o of the walk to out[o] (M, N)
+// fp32 row-major, each value the three sums added, then bias[o] (N,) added
+// where it is not null, then the activation kActivation (an rvk::Act:
+// none, relu, tanh), one store.
+template <int kActivation>
+struct SplitBiasRows {
+  static constexpr bool kSplit = true;
+  static constexpr int kAct = kActivation;
+  float* out[kMaxOuts];
+  const float* bias[kMaxOuts];
+};
+template <typename E, typename = void>
+constexpr bool kSplitBiasOut = false;
+template <typename E>
+constexpr bool kSplitBiasOut<E, std::void_t<decltype(E::kAct)>> =
+    kSplitPass<E>;
 
 // The row-parallel epilogue (header, "partial sums"): a 1-pass product's
 // fp32 sums as they are, no bias, no activation, no rounding, output o of
@@ -1423,6 +1456,9 @@ wgmma_gemm_kernel(const __grid_constant__ KernelMaps<Tiles, Epi> maps,
                         pick(epi.dw, out) + size_t(tiles.slice(tm)) *
                                                 epi.stride,
                         m0, rows, n0, N);
+        } else if constexpr (kSplitBiasOut<Epi>) {
+          store_f32<BN, Epi::kAct>(acc, pick(epi.out, out), m0, rows, n0, N,
+                                   nullptr, pick(epi.bias, out));
         } else {
           store_f32<BN>(acc, epi.out, m0, rows, n0, N, epi.gate);
         }
@@ -1775,6 +1811,53 @@ cudaError_t launch_split_rows(const Halves* a, const Halves* b, float* c,
     }
     return launch_tiles<BN, false>(maps, SplitRows{c, gate}, tiles, N,
                                    stream);
+  });
+}
+
+// The 3-pass forward product (header, "the 3-pass product"): for each of
+// the Tiles::kOuts outputs o (MatrixTiles one, HeadsTiles the encoder's
+// two heads in one walk), c[o] (M, N) = act(a · b[o] + bias[o]) in fp32 on
+// the tensor cores in 128 x tile_n tiles (128 or 64), the three products'
+// sums added (hh + hl) + lh before the bias.  a (M, K) row-major and each
+// b[o] (K, N) row-major (N-major B: x @ w) are the bf16 halves of fp32
+// matrices (the split pass's hi and lo); c[o] (M, N) and bias[o] (N,) fp32,
+// a null bias[o] adding nothing; all 16-byte aligned, K and N multiples of
+// 8.
+template <typename Tiles, int kAct>
+cudaError_t launch_split_fwd(const Halves& a, const Halves* b,
+                             float* const* c, const float* const* bias,
+                             int M, int N, int K, int tile_n,
+                             cudaStream_t stream) {
+  constexpr int kOuts = Tiles::kOuts;
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (K <= 0 || K % 8 != 0 || N % 8 != 0 || !aligned16(a.hi) ||
+      !aligned16(a.lo)) {
+    return cudaErrorInvalidValue;
+  }
+  SplitBiasRows<kAct> epi{};
+  for (int o = 0; o < kOuts; ++o) {
+    if (!aligned16(b[o].hi) || !aligned16(b[o].lo) || !aligned16(c[o]) ||
+        !aligned16(bias[o])) {
+      return cudaErrorInvalidValue;
+    }
+    epi.out[o] = c[o];
+    epi.bias[o] = bias[o];
+  }
+  return with_width<true>(tile_n, [&](auto width) {
+    constexpr int BN = decltype(width)::value;
+    KernelMaps<Tiles, SplitBiasRows<kAct>> maps{};
+    // the hi halves' maps, then the lo halves'
+    Maps<kOuts>* const halves[2] = {&maps, &maps.lo};
+    for (int h = 0; h < 2; ++h) {
+      cudaError_t e = matrix_map(&halves[h]->a, h ? a.lo : a.hi, M, K,
+                                 kTileM, kTileK);
+      for (int o = 0; o < kOuts && e == cudaSuccess; ++o) {
+        e = matrix_map(&halves[h]->b[o], h ? b[o].lo : b[o].hi, K, N,
+                       kTileK, 64);
+      }
+      if (e != cudaSuccess) return e;
+    }
+    return launch_tiles<BN, true>(maps, epi, Tiles{M, K}, N, stream);
   });
 }
 

@@ -19,14 +19,20 @@ Under ``pallas`` the dense model's backward of fp32 operands follows
 ``highest`` take the "primitive" composition (``matmul_nt*`` +
 ``grad_accum``), ``high`` the "full" chains (``enc_bwd_full`` /
 ``dec_bwd_full``, every product in three bf16 passes); bf16 operands always
-take "split".  The forward kernels and the input-gradient products run IEEE
-fp32 under ``high`` too: at least as accurate as the 3-pass product the JAX
-package gives them.
+take "split".  The forward's pass count is the step's, not the model's:
+JAX traces its train, eval, resident, spmd and stream steps under
+``jax.default_matmul_precision(precision)``, and its dense kernels take
+three passes under an ambient ``high`` (``pallas_mlp.py:167``), while its
+server, ``infer/api.py`` and export run outside any scope, in one pass.
+So a ``ModelDef`` computes the forward in one IEEE fp32 pass, and the
+steps bind ``passes = 3`` under ``high`` (:func:`under_tier`): the forward
+kernels, and the encoder's input gradient, then compute what the TPU
+kernels compute.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -151,6 +157,35 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
         plain_encode=vae.encode,
         plain_decode=vae.decode,
     )
+
+
+def tier_passes(cfg: Config, model: ModelDef) -> int:
+    """The pass count of ``model`` 's kernel products inside a train or eval
+    step of ``cfg``: 3 for the dense model on the kernels under ``high``
+    (fp32 operands: JAX ``pallas_mlp.py:167`` ``_ambient_passes`` in the
+    step's ``jax.default_matmul_precision``), 1 otherwise.  ``float32``,
+    ``highest`` and ``bfloat16`` keep one pass, and so does ``xla`` (its
+    plain ops hold IEEE fp32 with TF32 off, as PyTorch's matmuls do)."""
+    if (cfg.tpu.precision == "high" and model.name == "dense"
+            and model.backend == "pallas"):
+        return 3
+    return 1
+
+
+def under_tier(model: ModelDef, cfg: Config) -> ModelDef:
+    """``model`` as a train or eval step of ``cfg`` runs it: JAX's
+    ``jax.default_matmul_precision(cfg.tpu.precision)`` scope around its
+    steps (``parallel/step.py:174``, ``:268``; ``parallel/resident.py:208``,
+    ``:375``; ``parallel/spmd.py:100``; ``train/stream.py:536``), carried as
+    an argument: where :func:`tier_passes` is 3, ``encode`` / ``decode``
+    get ``passes = 3`` bound (``ops/mlp.py`` ``encode``, the tensor-parallel
+    forms alike); otherwise ``model`` itself.  The server, ``infer/api.py``
+    and export never call it, so they keep the one-pass forward, as JAX's
+    run outside any scope."""
+    if tier_passes(cfg, model) == 1:
+        return model
+    return replace(model, encode=partial(model.encode, passes=3),
+                   decode=partial(model.decode, passes=3))
 
 
 def resident_model(cfg: Config, model: ModelDef) -> ModelDef:

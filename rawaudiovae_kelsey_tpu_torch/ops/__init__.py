@@ -16,7 +16,10 @@ tensor-core kernel; ``linear_fwd`` and ``matmul_nt`` also a register-tiled
 fp32 one; ``ops/tensor_cores.py`` chooses by dtype, shape and alignment.
 Rows 1, 2, 15 and 16 also have a row-parallel form for tensor parallelism
 (``encoder_fwd_partial``, ``decoder_fwd_partial``, ``linear_partial``: fp32
-partial sums, no bias, no activation), counted in the row's wrapper.
+partial sums, no bias, no activation), counted in the row's wrapper.  Rows
+1, 2, 4 and 6 (and the row-parallel 1 and 2) also have the ``high`` tier's
+3-pass form (``passes = 3``, fp32 operands: ``csrc/full.cu``'s chains on
+the tensor cores), counted in ``split_launches``.
 Sources in ``csrc/``; built by ``ops/_build.py``."""
 
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "rvk_decoder_fwd": [_P] * 8 + [_I] * 10 + [_P],
     "rvk_encoder_fwd_partial": [_P] * 9 + [_I] * 10 + [_P],
     "rvk_decoder_fwd_partial": [_P] * 7 + [_I] * 10 + [_P],
+    "rvk_encoder_fwd3": [_P] * 11 + [_I] * 7 + [_P],
+    "rvk_decoder_fwd3": [_P] * 8 + [_I] * 7 + [_P],
     "rvk_linear_partial": [_P] * 4 + [_I] * 8 + [_P],
     "rvk_quantized_decoder_fwd": [_P] * 10 + [_I] * 9 + [_P],
     "rvk_grad_accum": [_P] * 5 + [_I] * 7 + [_P],
@@ -56,6 +58,8 @@ _SIGNATURES = {
     "rvk_matmul_nt": [_P] * 3 + [_I] * 6 + [_P],
     "rvk_matmul_nt_mask": [_P] * 4 + [_I] * 6 + [_P],
     "rvk_matmul_nt2_mask": [_P] * 6 + [_I] * 6 + [_P],
+    "rvk_matmul_nt3": [_P] * 4 + [_I] * 5 + [_P],
+    "rvk_matmul_nt2_mask3": [_P] * 7 + [_I] * 5 + [_P],
     "rvk_reparameterize": [_U] * 2 + [_P] * 3 + [_I] * 2 + [_P],
     "rvk_philox_words": [_U] * 2 + [_P] + [_I] * 2 + [_P],
     "rvk_linear_fwd": [_P] * 4 + [_I] * 7 + [_P],

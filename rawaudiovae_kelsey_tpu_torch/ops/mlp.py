@@ -22,7 +22,17 @@ Each op has three parts, side by side:
   and "full", the ``high`` tier's — ``enc_bwd_full`` and ``dec_bwd_full``,
   one call per chain, every product of fp32 operands in three bf16 passes
   (:func:`split_hi_lo`).  The encoder's input gradient is
-  ``matmul_nt2_mask`` followed by ``matmul_nt`` in all three.
+  ``matmul_nt2_mask`` followed by ``matmul_nt`` in all three, in three
+  passes in "full" with fp32 operands.
+
+The forward kernels, ``matmul_nt2_mask`` and ``matmul_nt`` take
+``passes``: 1, or 3 with fp32 operands, the TPU kernels' pass count under
+JAX's ambient ``high`` tier (``pallas_mlp.py:167`` ``_ambient_passes``).
+At 3 they launch the ``high`` tier's 3-pass forms (``csrc/full.cu``'s
+chains on the tensor cores, "the 3-pass forms" below) and compute what the
+TPU kernels compute there; a train or eval step binds it under ``high``
+(``models/registry.py`` ``under_tier``), the server and the library path
+never do.
 
 Layouts are the JAX package's: weights ``(in, out)``, biases ``(out,)``.
 Operands are fp32 or bf16, all of one dtype per call; accumulation is fp32;
@@ -51,41 +61,56 @@ def _f(t: Tensor) -> Tensor:
 
 
 # ----------------------------------------------------------- plain versions
+#
+# ``passes`` (1, or 3 with fp32 operands; :func:`check_passes`): the pass
+# count of every product, as the TPU kernels read it from JAX's ambient
+# precision tier (``pallas_mlp.py:167`` ``_ambient_passes``).  At 3 each
+# product is :func:`mm3`, the bias is added after the three-pass sum, then
+# the activation (``pallas_mlp.py:233-241``, ``:286-291``); h and h3 stay
+# fp32 and the next product splits them again.
 
-def encoder_fwd_ref(w1, b1, w21, b21, w22, b22, x
+def encoder_fwd_ref(w1, b1, w21, b21, w22, b22, x, passes: int = 1
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of :func:`encoder_fwd`."""
+    check_passes(x.dtype, passes)
     dt = x.dtype
-    h = torch.relu(_f(x) @ _f(w1) + _f(b1)).to(dt)
-    mu = (_f(h) @ _f(w21) + _f(b21)).to(dt)
-    logvar = (_f(h) @ _f(w22) + _f(b22)).to(dt)
+    h = torch.relu(_mm(x, w1, passes) + _f(b1)).to(dt)
+    mu = (_mm(h, w21, passes) + _f(b21)).to(dt)
+    logvar = (_mm(h, w22, passes) + _f(b22)).to(dt)
     return mu, logvar, h
 
 
-def decoder_fwd_ref(w3, b3, w4, b4, z) -> Tuple[Tensor, Tensor]:
+def decoder_fwd_ref(w3, b3, w4, b4, z, passes: int = 1
+                    ) -> Tuple[Tensor, Tensor]:
     """Plain version of :func:`decoder_fwd`."""
+    check_passes(z.dtype, passes)
     dt = z.dtype
-    h3 = torch.relu(_f(z) @ _f(w3) + _f(b3)).to(dt)
-    return torch.tanh(_f(h3) @ _f(w4) + _f(b4)).to(dt), h3
+    h3 = torch.relu(_mm(z, w3, passes) + _f(b3)).to(dt)
+    return torch.tanh(_mm(h3, w4, passes) + _f(b4)).to(dt), h3
 
 
-def encoder_fwd_partial_ref(w1, b1, w21, w22, x
+def encoder_fwd_partial_ref(w1, b1, w21, w22, x, passes: int = 1
                             ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of :func:`encoder_fwd_partial`: ``h`` as
     :func:`encoder_fwd_ref` rounds it, the heads' fp32 sums as they are."""
-    h = torch.relu(_f(x) @ _f(w1) + _f(b1)).to(x.dtype)
-    return _f(h) @ _f(w21), _f(h) @ _f(w22), h
+    check_passes(x.dtype, passes)
+    h = torch.relu(_mm(x, w1, passes) + _f(b1)).to(x.dtype)
+    return _mm(h, w21, passes), _mm(h, w22, passes), h
 
 
-def decoder_fwd_partial_ref(w3, b3, w4, z) -> Tuple[Tensor, Tensor]:
+def decoder_fwd_partial_ref(w3, b3, w4, z, passes: int = 1
+                            ) -> Tuple[Tensor, Tensor]:
     """Plain version of :func:`decoder_fwd_partial`."""
-    h3 = torch.relu(_f(z) @ _f(w3) + _f(b3)).to(z.dtype)
-    return _f(h3) @ _f(w4), h3
+    check_passes(z.dtype, passes)
+    h3 = torch.relu(_mm(z, w3, passes) + _f(b3)).to(z.dtype)
+    return _mm(h3, w4, passes), h3
 
 
-def matmul_nt2_mask_ref(a1, w1, a2, w2, gate) -> Tensor:
-    """Plain version of :func:`matmul_nt2_mask`."""
-    prod = _f(a1) @ _f(w1).t() + _f(a2) @ _f(w2).t()
+def matmul_nt2_mask_ref(a1, w1, a2, w2, gate, passes: int = 1) -> Tensor:
+    """Plain version of :func:`matmul_nt2_mask`: at 3 passes the two
+    products' three-pass sums added (``pallas_mlp.py:390-392``)."""
+    check_passes(a1.dtype, passes)
+    prod = _mm(a1, w1.t(), passes) + _mm(a2, w2.t(), passes)
     return torch.where(_f(gate) > 0, prod, 0.0).to(a1.dtype)
 
 
@@ -94,9 +119,10 @@ def matmul_nt_mask_ref(a, w, gate) -> Tensor:
     return torch.where(_f(gate) > 0, _f(a) @ _f(w).t(), 0.0).to(a.dtype)
 
 
-def matmul_nt_ref(a, w) -> Tensor:
+def matmul_nt_ref(a, w, passes: int = 1) -> Tensor:
     """Plain version of :func:`matmul_nt`."""
-    return (_f(a) @ _f(w).t()).to(a.dtype)
+    check_passes(a.dtype, passes)
+    return _mm(a, w.t(), passes).to(a.dtype)
 
 
 def grad_accum_ref(a, b) -> Tuple[Tensor, Tensor]:
@@ -235,8 +261,8 @@ def operand_dtype(x: Tensor, name: str) -> torch.dtype:
 
 # ----------------------------------------------------------- forward kernels
 
-def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto"
-                ) -> Tuple[Tensor, Tensor, Tensor]:
+def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto",
+                passes: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
     """Fused ``relu(x@W1+b1)`` → ``(mu, logvar, h)``.
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``encoder_fwd``.
@@ -255,12 +281,15 @@ def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto"
     ``tensor_cores.KERNEL_CODES``) names one instead; a kernel named on
     operands it cannot take raises.  Either way h, mu and logvar are each
     rounded once to the operand dtype from fp32 sums, and the heads read the
-    rounded h.  One call counts once in ``launches``, and in
-    ``tensor_core_launches`` or ``sgemm_launches`` too when that kernel ran
-    it."""
+    rounded h.  ``passes = 3`` (fp32 operands; the ``high`` tier of a train
+    or eval step, ``models/registry.py`` ``under_tier``) takes the 3-pass
+    form instead (:func:`encoder_fwd3`).  One call counts once in
+    ``launches``, and in ``tensor_core_launches``, ``sgemm_launches`` or
+    ``split_launches`` too when that kernel ran it."""
     tensor_cores.check_name("encoder_fwd", kernel)
+    check_passes(x.dtype, passes)
     if x.device.type == "cpu":
-        return encoder_fwd_ref(w1, b1, w21, b21, w22, b22, x)
+        return encoder_fwd_ref(w1, b1, w21, b21, w22, b22, x, passes)
     dev = cuda_device(x, "encoder_fwd: x")
     dt = operand_dtype(x, "encoder_fwd: x")
     batch, seg = x.shape
@@ -272,6 +301,8 @@ def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto"
     require(b21, "b21", (latent,), dev, dt)
     require(w22, "w22", (units, latent), dev, dt)
     require(b22, "b22", (latent,), dev, dt)
+    if passes == 3:
+        return encoder_fwd3(kernel, dev, x, w1, b1, w21, b21, w22, b22)
     code = resolve_encoder(kernel, dt, batch, seg, units, latent,
                            tensor_cores.pointers_aligned(x, w1, b1, w21, b21,
                                                          w22, b22))
@@ -293,11 +324,12 @@ def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto"
 encoder_fwd.launches = 0
 encoder_fwd.tensor_core_launches = 0
 encoder_fwd.sgemm_launches = 0
+encoder_fwd.split_launches = 0
 encoder_fwd.partial_launches = 0
 
 
-def encoder_fwd_partial(w1, b1, w21, w22, x, kernel: str = "auto"
-                        ) -> Tuple[Tensor, Tensor, Tensor]:
+def encoder_fwd_partial(w1, b1, w21, w22, x, kernel: str = "auto",
+                        passes: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
     """The row-parallel form of :func:`encoder_fwd` (tensor parallelism,
     ``parallel/tensor_parallel.py``): ``h = relu(x@W1+b1)`` on a rank's
     column shard of fc1, rounded once to the operand dtype, then ``(h@W21,
@@ -309,12 +341,14 @@ def encoder_fwd_partial(w1, b1, w21, w22, x, kernel: str = "auto"
     :func:`resolve_encoder` (``csrc/mlp.cu`` ``rvk_encoder_fwd_partial``):
     on the tensor cores the heads' launch stores the fp32 accumulators
     (``csrc/wgmma.cuh`` ``PartialRows``); the fp32 kernel and the first
-    version run their heads with no bias into fp32 outputs.  A call counts
-    in ``encoder_fwd.launches`` and ``encoder_fwd.partial_launches`` (and
-    the kernel's own counter) — one launch of row 1's kernel."""
+    version run their heads with no bias into fp32 outputs; ``passes = 3``
+    the 3-pass form with no head biases (:func:`encoder_fwd3`).  A call
+    counts in ``encoder_fwd.launches`` and ``encoder_fwd.partial_launches``
+    (and the kernel's own counter) — one launch of row 1's kernel."""
     tensor_cores.check_name("encoder_fwd", kernel)
+    check_passes(x.dtype, passes)
     if x.device.type == "cpu":
-        return encoder_fwd_partial_ref(w1, b1, w21, w22, x)
+        return encoder_fwd_partial_ref(w1, b1, w21, w22, x, passes)
     dev = cuda_device(x, "encoder_fwd_partial: x")
     dt = operand_dtype(x, "encoder_fwd_partial: x")
     batch, seg = x.shape
@@ -324,6 +358,8 @@ def encoder_fwd_partial(w1, b1, w21, w22, x, kernel: str = "auto"
     require(b1, "b1", (units,), dev, dt)
     require(w21, "w21", (units, latent), dev, dt)
     require(w22, "w22", (units, latent), dev, dt)
+    if passes == 3:
+        return encoder_fwd3(kernel, dev, x, w1, b1, w21, None, w22, None)
     code = resolve_encoder(kernel, dt, batch, seg, units, latent,
                            tensor_cores.pointers_aligned(x, w1, b1, w21,
                                                          w22))
@@ -346,6 +382,119 @@ def _count(wrapper, code: int) -> None:
     wrapper.partial_launches += 1
     wrapper.tensor_core_launches += code == tensor_cores.TENSOR_CORES
     wrapper.sgemm_launches += code == tensor_cores.SGEMM
+
+
+# --------------------------------------------------- the 3-pass forms (high)
+#
+# Under JAX's ambient ``high`` tier the TPU kernels of rows 1, 2, 4 and 6
+# take every fp32 product in three bf16 passes (``pallas_mlp.py:167``
+# ``_ambient_passes``).  Their ``passes = 3`` forms here launch the chains
+# of ``csrc/full.cu`` on the tensor cores (the split pass, then each
+# product one 3-pass launch of ``csrc/wgmma.cuh``) or, for widths no
+# multiple of 8 and unaligned views, the first version's 3-pass operand
+# mode (``csrc/gemm.cuh``); never the IEEE fp32 kernel of ``sgemm.cuh``.
+# A launch counts in its wrapper's ``launches`` and, on the tensor cores,
+# ``split_launches`` (and ``partial_launches`` for a row-parallel form).
+
+# what a 3-pass form takes, in resolve's errors
+TAKES_SPLIT = ("fp32 operands with every width a multiple of "
+               f"{tensor_cores.TMA_ALIGN_BF16}, at least one row and 16-byte "
+               "aligned pointers")
+IEEE_ONLY = "one pass (IEEE fp32; passes = 3 runs on the tensor cores or " \
+    "the first version)"
+
+
+def resolve_split(op: str, kernel: str, batch: int, *widths: int,
+                  aligned: bool = True) -> int:
+    """The kernel code a 3-pass form of ``op`` launches with: the tensor
+    cores when ``tensor_cores.takes_full_chain`` holds for fp32 operands
+    (every width a multiple of 8, 16-byte aligned pointers), else the first
+    version; ``kernel`` names one instead, and ``"sgemm"`` (IEEE fp32)
+    raises."""
+    return tensor_cores.resolve(
+        op, kernel,
+        tensor_cores.takes_full_chain(torch.float32, batch, *widths,
+                                      aligned=aligned),
+        lambda: f"batch {batch}, widths {widths}, aligned = {aligned}",
+        takes=TAKES_SPLIT, takes_sgemm=IEEE_ONLY)
+
+
+def split_scratch(dev, code: int, *shapes) -> Tensor | None:
+    """The bf16 halves (hi then lo) of the fp32 matrices of ``shapes``, in
+    that order, that a 3-pass chain on the tensor cores splits into
+    (``csrc/full.cu`` ``SplitPool``); None for the first version."""
+    if code != tensor_cores.TENSOR_CORES:
+        return None
+    return torch.empty((2 * sum(r * c for r, c in shapes),), device=dev,
+                       dtype=torch.bfloat16)
+
+
+def _count3(wrapper, code: int, partial: bool) -> None:
+    """One launch of a 3-pass form: ``wrapper``'s counters."""
+    wrapper.launches += 1
+    wrapper.split_launches += code == tensor_cores.TENSOR_CORES
+    if partial:
+        wrapper.partial_launches += 1
+
+
+def encoder_fwd3(kernel: str, dev, x, w1, b1, w21, b21, w22, b22
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The 3-pass form of :func:`encoder_fwd` (the ``high`` tier's row 1)
+    on operands the wrapper has checked: ``h = relu(x@W1 + b1)``, then
+    ``h@W21 + b21`` and ``h@W22 + b22``, each product in three bf16 passes
+    with the bias after the three-pass sum, h fp32 and split again for the
+    heads.  ``b21`` and ``b22`` None: the row-parallel form (the heads'
+    fp32 partial sums, no bias).  One call of ``rvk_encoder_fwd3``: on the
+    tensor cores the split pass of x, W1, W21, W22 and h, h as one 3-pass
+    launch and both heads in one two-output 3-pass launch
+    (``csrc/full.cu`` ``encoder_split``); the first version in
+    ``csrc/gemm.cuh`` 's 3-pass mode."""
+    batch, seg = x.shape
+    units, latent = w1.shape[1], w21.shape[1]
+    code = resolve_split("encoder_fwd", kernel, batch, seg, units, latent,
+                         aligned=tensor_cores.pointers_aligned(
+                             x, w1, b1, w21, w22,
+                             *(b for b in (b21, b22) if b is not None)))
+    mu = torch.empty((batch, latent), device=dev)
+    logvar = torch.empty((batch, latent), device=dev)
+    h = torch.empty((batch, units), device=dev)
+    if batch:
+        splits = split_scratch(dev, code, (batch, seg), (seg, units),
+                               (units, latent), (units, latent),
+                               (batch, units))
+        _build.launch("rvk_encoder_fwd3", dev, x, w1, b1, w21, b21, w22, b22,
+                      mu, logvar, h, splits, batch, seg, units, latent,
+                      tensor_cores.split_tile(code, dev, batch, units),
+                      tensor_cores.split_tile(code, dev, batch, latent, 2),
+                      code)
+        _count3(encoder_fwd, code, b21 is None)
+    return mu, logvar, h
+
+
+def decoder_fwd3(kernel: str, dev, z, w3, b3, w4, b4
+                 ) -> Tuple[Tensor, Tensor]:
+    """The 3-pass form of :func:`decoder_fwd` (the ``high`` tier's row 2):
+    ``h3 = relu(z@W3 + b3)``, then ``tanh(h3@W4 + b4)``, as
+    :func:`encoder_fwd3`; ``b4`` None: the row-parallel form (y's fp32
+    partial sums, no bias, no tanh).  One call of ``rvk_decoder_fwd3``
+    (``csrc/full.cu`` ``decoder_split``: the split pass of z, W3, W4 and
+    h3, then h3 and y each one 3-pass launch)."""
+    batch, latent = z.shape
+    units, seg = w3.shape[1], w4.shape[1]
+    code = resolve_split("decoder_fwd", kernel, batch, latent, units, seg,
+                         aligned=tensor_cores.pointers_aligned(
+                             z, w3, b3, w4, *(() if b4 is None else (b4,))))
+    y = torch.empty((batch, seg), device=dev)
+    h3 = torch.empty((batch, units), device=dev)
+    if batch:
+        splits = split_scratch(dev, code, (batch, latent), (latent, units),
+                               (units, seg), (batch, units))
+        _build.launch("rvk_decoder_fwd3", dev, z, w3, b3, w4, b4, y, h3,
+                      splits, batch, latent, units, seg,
+                      tensor_cores.split_tile(code, dev, batch, units),
+                      tensor_cores.split_tile(code, dev, batch, seg), code)
+        _count3(decoder_fwd, code, b4 is None)
+    return y, h3
 
 
 def forward_plans(code: int, dev, batch: int, products):
@@ -382,7 +531,7 @@ def resolve_encoder(kernel: str, dtype: torch.dtype, batch: int, seg: int,
         and tensor_cores.takes_sgemm(dtype, batch, units, latent))
 
 
-def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
+def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto", passes: int = 1
                 ) -> Tuple[Tensor, Tensor]:
     """Fused ``tanh(relu(z@W3+b3)@W4+b4)`` → ``(y, h3)``.
 
@@ -397,12 +546,14 @@ def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
     ``kernel`` (``"auto"`` or a key of ``tensor_cores.KERNEL_CODES``) names
     one instead; a kernel named on operands it cannot take raises.  Either
     way h3 and y are each rounded once to the operand dtype from fp32 sums,
-    and y reads the rounded h3.  One call counts once in ``launches``, and
-    in ``tensor_core_launches`` or ``sgemm_launches`` too when that kernel
-    ran it."""
+    and y reads the rounded h3.  ``passes = 3`` (fp32 operands, the
+    ``high`` tier of a step) takes the 3-pass form (:func:`decoder_fwd3`).
+    One call counts once in ``launches``, and in ``tensor_core_launches``,
+    ``sgemm_launches`` or ``split_launches`` too when that kernel ran it."""
     tensor_cores.check_name("decoder_fwd", kernel)
+    check_passes(z.dtype, passes)
     if z.device.type == "cpu":
-        return decoder_fwd_ref(w3, b3, w4, b4, z)
+        return decoder_fwd_ref(w3, b3, w4, b4, z, passes)
     dev = cuda_device(z, "decoder_fwd: z")
     dt = operand_dtype(z, "decoder_fwd: z")
     batch, latent = z.shape
@@ -412,6 +563,8 @@ def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
     require(b3, "b3", (units,), dev, dt)
     require(w4, "w4", (units, seg), dev, dt)
     require(b4, "b4", (seg,), dev, dt)
+    if passes == 3:
+        return decoder_fwd3(kernel, dev, z, w3, b3, w4, b4)
     code = resolve_decoder(kernel, dt, batch, latent, units, seg,
                            tensor_cores.pointers_aligned(z, w3, b3, w4, b4))
     y = torch.empty((batch, seg), device=dev, dtype=dt)
@@ -431,11 +584,12 @@ def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto"
 decoder_fwd.launches = 0
 decoder_fwd.tensor_core_launches = 0
 decoder_fwd.sgemm_launches = 0
+decoder_fwd.split_launches = 0
 decoder_fwd.partial_launches = 0
 
 
-def decoder_fwd_partial(w3, b3, w4, z, kernel: str = "auto"
-                        ) -> Tuple[Tensor, Tensor]:
+def decoder_fwd_partial(w3, b3, w4, z, kernel: str = "auto",
+                        passes: int = 1) -> Tuple[Tensor, Tensor]:
     """The row-parallel form of :func:`decoder_fwd`: ``h3 =
     relu(z@W3+b3)`` on a rank's column shard of fc3, rounded once, then
     ``h3@W4`` on its row shard of fc4 as fp32 partial sums, no bias, no
@@ -443,10 +597,13 @@ def decoder_fwd_partial(w3, b3, w4, z, kernel: str = "auto"
     tanh and the one rounding.  The same kernels as :func:`decoder_fwd`
     (``csrc/mlp.cu`` ``rvk_decoder_fwd_partial``; on the tensor cores y's
     launch stores the fp32 accumulators, ``csrc/wgmma.cuh``
-    ``PartialRows``), counted as :func:`encoder_fwd_partial` is."""
+    ``PartialRows``; ``passes = 3`` the 3-pass form with no bias and no
+    tanh, :func:`decoder_fwd3`), counted as :func:`encoder_fwd_partial`
+    is."""
     tensor_cores.check_name("decoder_fwd", kernel)
+    check_passes(z.dtype, passes)
     if z.device.type == "cpu":
-        return decoder_fwd_partial_ref(w3, b3, w4, z)
+        return decoder_fwd_partial_ref(w3, b3, w4, z, passes)
     dev = cuda_device(z, "decoder_fwd_partial: z")
     dt = operand_dtype(z, "decoder_fwd_partial: z")
     batch, latent = z.shape
@@ -455,6 +612,8 @@ def decoder_fwd_partial(w3, b3, w4, z, kernel: str = "auto"
     require(w3, "w3", (latent, units), dev, dt)
     require(b3, "b3", (units,), dev, dt)
     require(w4, "w4", (units, seg), dev, dt)
+    if passes == 3:
+        return decoder_fwd3(kernel, dev, z, w3, b3, w4, None)
     code = resolve_decoder(kernel, dt, batch, latent, units, seg,
                            tensor_cores.pointers_aligned(z, w3, b3, w4))
     y = torch.empty((batch, seg), device=dev, dtype=torch.float32)
@@ -494,7 +653,7 @@ def _grads(dev, *shapes) -> Tuple[Tensor, ...]:
                  for s in shapes)
 
 
-def matmul_nt(a, w, kernel: str = "auto") -> Tensor:
+def matmul_nt(a, w, kernel: str = "auto", passes: int = 1) -> Tensor:
     """``a @ wᵀ``: ``(batch, n) @ (m, n)ᵀ → (batch, m)`` in the operand
     dtype — the input-gradient product (``dz``, ``dx``).
 
@@ -509,18 +668,35 @@ def matmul_nt(a, w, kernel: str = "auto") -> Tensor:
     (``tensor_cores.KERNEL_CODES``); a kernel named on operands it cannot
     take raises.  The kernels round differently, so the output's bits
     depend on the choice and hence on the pointers' alignment (an unaligned
-    contiguous view may differ from the aligned tensor by a bf16 ulp).  One
-    call counts once in ``launches``, whichever ran, and in
-    ``tensor_core_launches`` or ``sgemm_launches`` too when that one ran."""
+    contiguous view may differ from the aligned tensor by a bf16 ulp).
+    ``passes = 3`` (fp32 operands: ``dx`` under the ``high`` tier) takes
+    the 3-pass form: one call of ``rvk_matmul_nt3``, on the tensor cores
+    the split pass of a and w, then one 3-pass launch (``csrc/full.cu``
+    ``matmul_nt_split``), for widths no multiple of 8 and unaligned views
+    the first version's 3-pass mode.  One call counts once in
+    ``launches``, whichever ran, and in ``tensor_core_launches``,
+    ``sgemm_launches`` or ``split_launches`` too when that one ran."""
     tensor_cores.check_name("matmul_nt", kernel)
+    check_passes(a.dtype, passes)
     if a.device.type == "cpu":
-        return matmul_nt_ref(a, w)
+        return matmul_nt_ref(a, w, passes)
     dev = cuda_device(a, "matmul_nt: a")
     dt = operand_dtype(a, "matmul_nt: a")
     batch, n = a.shape
     m = w.shape[0]
     require(a, "a", (batch, n), dev, dt)
     require(w, "w", (m, n), dev, dt)
+    if passes == 3:
+        code = resolve_split("matmul_nt", kernel, batch, n, m,
+                             aligned=tensor_cores.pointers_aligned(a, w))
+        out = torch.empty((batch, m), device=dev)
+        if batch:
+            _build.launch("rvk_matmul_nt3", dev, a, w, out,
+                          split_scratch(dev, code, (batch, n), (m, n)),
+                          batch, n, m,
+                          tensor_cores.split_tile(code, dev, batch, m), code)
+            _count3(matmul_nt, code, False)
+        return out
     code = tensor_cores.resolve_kernel(
         "matmul_nt", kernel, dt, batch, n, m,
         tensor_cores.pointers_aligned(a, w))
@@ -538,6 +714,7 @@ def matmul_nt(a, w, kernel: str = "auto") -> Tensor:
 matmul_nt.launches = 0
 matmul_nt.tensor_core_launches = 0
 matmul_nt.sgemm_launches = 0
+matmul_nt.split_launches = 0
 
 
 def matmul_nt_mask(a, w, gate, kernel: str = "auto") -> Tensor:
@@ -590,7 +767,8 @@ matmul_nt_mask.tensor_core_launches = 0
 matmul_nt_mask.sgemm_launches = 0
 
 
-def matmul_nt2_mask(a1, w1, a2, w2, gate, kernel: str = "auto") -> Tensor:
+def matmul_nt2_mask(a1, w1, a2, w2, gate, kernel: str = "auto",
+                    passes: int = 1) -> Tensor:
     """The two-head ReLU backward ``(a1 @ w1ᵀ + a2 @ w2ᵀ) · (gate > 0)``:
     the encoder's ``dh`` from ``(dmu, dlogvar)``.  The gate compares in
     fp32; one rounding to the operand dtype.
@@ -605,10 +783,18 @@ def matmul_nt2_mask(a1, w1, a2, w2, gate, kernel: str = "auto") -> Tensor:
     launch), fp32 ones the register-tiled fp32 kernel (``csrc/sgemm.cuh``
     ``launch_gated``, both operands joined as their slabs are copied),
     everything else the tiled GEMM on the CUDA cores.  ``kernel``, the
-    counters and the bits as for :func:`matmul_nt_mask`."""
+    counters and the bits as for :func:`matmul_nt_mask`.  ``passes = 3``
+    (fp32 operands: the encoder's ``dh`` for ``dx`` under the ``high``
+    tier) takes the 3-pass form: one call of ``rvk_matmul_nt2_mask3``, on
+    the tensor cores the split pass of the four operands, then one 3-pass
+    walk joined along k and gated in fp32 (``csrc/full.cu``
+    ``matmul_nt_split``, the dh launch of ``enc_bwd_full`` 's chain), for
+    widths no multiple of 8 and unaligned views the first version's 3-pass
+    mode; counted in ``split_launches`` on the tensor cores."""
     tensor_cores.check_name("matmul_nt2_mask", kernel)
+    check_passes(a1.dtype, passes)
     if a1.device.type == "cpu":
-        return matmul_nt2_mask_ref(a1, w1, a2, w2, gate)
+        return matmul_nt2_mask_ref(a1, w1, a2, w2, gate, passes)
     dev = cuda_device(a1, "matmul_nt2_mask: a1")
     dt = operand_dtype(a1, "matmul_nt2_mask: a1")
     batch, n = a1.shape
@@ -618,6 +804,19 @@ def matmul_nt2_mask(a1, w1, a2, w2, gate, kernel: str = "auto") -> Tensor:
     require(a2, "a2", (batch, n), dev, dt)
     require(w2, "w2", (m, n), dev, dt)
     require(gate, "gate", (batch, m), dev, dt)
+    if passes == 3:
+        code = resolve_split(
+            "matmul_nt2_mask", kernel, batch, n, m,
+            aligned=tensor_cores.pointers_aligned(a1, w1, a2, w2, gate))
+        out = torch.empty((batch, m), device=dev)
+        if batch:
+            _build.launch("rvk_matmul_nt2_mask3", dev, a1, w1, a2, w2, gate,
+                          out, split_scratch(dev, code, (batch, n), (m, n),
+                                             (batch, n), (m, n)),
+                          batch, n, m,
+                          tensor_cores.split_tile(code, dev, batch, m), code)
+            _count3(matmul_nt2_mask, code, False)
+        return out
     code = tensor_cores.resolve_kernel(
         "matmul_nt2_mask", kernel, dt, batch, n, m,
         tensor_cores.pointers_aligned(a1, w1, a2, w2, gate))
@@ -636,6 +835,7 @@ def matmul_nt2_mask(a1, w1, a2, w2, gate, kernel: str = "auto") -> Tensor:
 matmul_nt2_mask.launches = 0
 matmul_nt2_mask.tensor_core_launches = 0
 matmul_nt2_mask.sgemm_launches = 0
+matmul_nt2_mask.split_launches = 0
 
 
 def _workspace(dev, split: int, m: int, n: int, outputs: int = 1):
@@ -1176,11 +1376,15 @@ def backward_mode(dtype: torch.dtype, fp32_backward: str) -> str:
     return "split"
 
 
-def encode_input_grad(h, dmu, dlogvar, w1, w21, w22) -> Tensor:
+def encode_input_grad(h, dmu, dlogvar, w1, w21, w22, passes: int = 1
+                      ) -> Tensor:
     """The encoder's input gradient ``dx = dh @ w1ᵀ`` with ``dh`` from
-    :func:`matmul_nt2_mask` (``pallas_mlp.py:1038-1041``).  Training never
-    asks for it (the JAX package leaves it to dead-code elimination)."""
-    return matmul_nt(matmul_nt2_mask(dmu, w21, dlogvar, w22, h), w1)
+    :func:`matmul_nt2_mask` (``pallas_mlp.py:1038-1041``), both in
+    ``passes`` passes.  Training never asks for it (the JAX package leaves
+    it to dead-code elimination)."""
+    return matmul_nt(
+        matmul_nt2_mask(dmu, w21, dlogvar, w22, h, passes=passes), w1,
+        passes=passes)
 
 
 def encode_grads(mode: str, x, h, dmu, dlogvar, w1, w21, w22,
@@ -1189,8 +1393,11 @@ def encode_grads(mode: str, x, h, dmu, dlogvar, w1, w21, w22,
     db21, dw22, db22)``, the gradients in fp32 (``dx`` in the operand dtype,
     None unless ``need_dx``): "split", :func:`enc_bwd_dw1` and
     :func:`grad_accum2`; "primitive", :func:`matmul_nt2_mask` then three
-    :func:`grad_accum`; "full", :func:`enc_bwd_full`.  The tensor-parallel
-    encoder (``parallel/tensor_parallel.py``) calls it on a rank's shards."""
+    :func:`grad_accum`; "full", :func:`enc_bwd_full`, and ``dx`` in as many
+    passes as its chain (:func:`full_passes`: three for fp32 operands, the
+    ``high`` tier's, ``pallas_mlp.py:1038-1041`` under the ambient tier).
+    The tensor-parallel encoder (``parallel/tensor_parallel.py``) calls it
+    on a rank's shards."""
     dx = None
     if mode == "primitive":
         dh = matmul_nt2_mask(dmu, w21, dlogvar, w22, h)
@@ -1203,7 +1410,8 @@ def encode_grads(mode: str, x, h, dmu, dlogvar, w1, w21, w22,
         dw1, db1, dw21, db21, dw22, db22 = enc_bwd_full(
             x, h, dmu, dlogvar, w21, w22)
         if need_dx:
-            dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22)
+            dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22,
+                                   full_passes(x.dtype))
     else:
         dw1, db1 = enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22)
         dw21, db21, dw22, db22 = grad_accum2(h, dmu, dlogvar)
@@ -1239,13 +1447,14 @@ def decode_grads(mode: str, da, h3, z, w3, w4) -> Tuple[Tensor, ...]:
 
 
 class Encode(torch.autograd.Function):
-    """``(mode, x, w1, b1, w21, b21, w22, b22) → (mu, logvar)`` through
-    :func:`encoder_fwd`; backward :func:`encode_grads`.  Saves ``(x, h)``
-    as residuals."""
+    """``(mode, passes, x, w1, b1, w21, b21, w22, b22) → (mu, logvar)``
+    through :func:`encoder_fwd` in ``passes`` passes; backward
+    :func:`encode_grads`.  Saves ``(x, h)`` as residuals."""
 
     @staticmethod
-    def forward(ctx, mode, x, w1, b1, w21, b21, w22, b22):
-        mu, logvar, h = encoder_fwd(w1, b1, w21, b21, w22, b22, x)
+    def forward(ctx, mode, passes, x, w1, b1, w21, b21, w22, b22):
+        mu, logvar, h = encoder_fwd(w1, b1, w21, b21, w22, b22, x,
+                                    passes=passes)
         ctx.save_for_backward(x, h, w1, w21, w22)
         ctx.mode = mode
         return mu, logvar
@@ -1255,18 +1464,19 @@ class Encode(torch.autograd.Function):
         x, h, w1, w21, w22 = ctx.saved_tensors
         dx, *grads = encode_grads(ctx.mode, x, h, dmu.contiguous(),
                                   dlogvar.contiguous(), w1, w21, w22,
-                                  ctx.needs_input_grad[1])
+                                  ctx.needs_input_grad[2])
         dt = w1.dtype
-        return (None, dx, *(g.to(dt) for g in grads))
+        return (None, None, dx, *(g.to(dt) for g in grads))
 
 
 class Decode(torch.autograd.Function):
-    """``(mode, z, w3, b3, w4, b4) → y`` through :func:`decoder_fwd`;
-    backward :func:`decode_grads`.  Saves ``(z, h3, y)`` as residuals."""
+    """``(mode, passes, z, w3, b3, w4, b4) → y`` through
+    :func:`decoder_fwd` in ``passes`` passes; backward
+    :func:`decode_grads`.  Saves ``(z, h3, y)`` as residuals."""
 
     @staticmethod
-    def forward(ctx, mode, z, w3, b3, w4, b4):
-        y, h3 = decoder_fwd(w3, b3, w4, b4, z)
+    def forward(ctx, mode, passes, z, w3, b3, w4, b4):
+        y, h3 = decoder_fwd(w3, b3, w4, b4, z, passes=passes)
         ctx.save_for_backward(z, h3, y, w3, w4)
         ctx.mode = mode
         return y
@@ -1277,32 +1487,34 @@ class Decode(torch.autograd.Function):
         dz, *grads = decode_grads(ctx.mode, tanh_cotangent(dy, y), h3, z,
                                   w3, w4)
         dt = w3.dtype
-        return (None, dz, *(g.to(dt) for g in grads))
+        return (None, None, dz, *(g.to(dt) for g in grads))
 
 
 Params = Dict[str, Dict[str, Tensor]]
 
 
-def encode(params: Params, x: Tensor, fp32_backward: str = "primitive"
-           ) -> Tuple[Tensor, Tensor]:
+def encode(params: Params, x: Tensor, fp32_backward: str = "primitive",
+           passes: int = 1) -> Tuple[Tensor, Tensor]:
     """``models.vae.encode`` through the kernels (the role of the JAX
     package's ``pallas_encode``).  ``fp32_backward`` is the backward mode
-    of fp32 operands (:func:`backward_mode`)."""
+    of fp32 operands (:func:`backward_mode`); ``passes`` the forward's pass
+    count (3: the ``high`` tier inside a step, ``models/registry.py``
+    ``under_tier``)."""
     return Encode.apply(
-        backward_mode(x.dtype, fp32_backward), x,
+        backward_mode(x.dtype, fp32_backward), passes, x,
         params["fc1"]["w"], params["fc1"]["b"],
         params["fc21"]["w"], params["fc21"]["b"],
         params["fc22"]["w"], params["fc22"]["b"],
     )
 
 
-def decode(params: Params, z: Tensor, fp32_backward: str = "primitive"
-           ) -> Tensor:
+def decode(params: Params, z: Tensor, fp32_backward: str = "primitive",
+           passes: int = 1) -> Tensor:
     """``models.vae.decode`` through the kernels (the role of the JAX
-    package's ``pallas_decode``).  ``fp32_backward`` as in
+    package's ``pallas_decode``).  ``fp32_backward`` and ``passes`` as in
     :func:`encode`."""
     return Decode.apply(
-        backward_mode(z.dtype, fp32_backward), z,
+        backward_mode(z.dtype, fp32_backward), passes, z,
         params["fc3"]["w"], params["fc3"]["b"],
         params["fc4"]["w"], params["fc4"]["b"],
     )

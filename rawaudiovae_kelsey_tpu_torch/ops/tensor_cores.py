@@ -52,7 +52,10 @@ before the launch:
 * fp32 operands take the tensor cores only in the ``high`` tier's full
   chains (:func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.enc_bwd_full`,
   :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.dec_bwd_full`;
-  :func:`takes_full_chain`), whose product is three bf16 passes on the
+  :func:`takes_full_chain`) and its forward and input gradient (the
+  ``passes = 3`` forms of ``encoder_fwd``, ``decoder_fwd``,
+  ``matmul_nt2_mask``, ``matmul_nt`` and the row-parallel forms;
+  :func:`split_tile`), whose product is three bf16 passes on the
   operands' hi and lo halves, the TPU kernels' own; the ``float32`` and
   ``highest`` tiers promise IEEE fp32 products, and the tensor cores offer
   fp32 data only TF32 or bf16 splits, which is another result.  Where an
@@ -433,6 +436,20 @@ def tile(code: int, device: torch.device, rows: int, n: int,
     if code == SGEMM:
         return SGEMM_TILES.index(sgemm_tile(rows, n, sm_count(device)))
     return 0
+
+
+def split_tile(code: int, device: torch.device, rows: int, n: int,
+               outputs: int = 1) -> int:
+    """The ``tile_n`` argument of a 3-pass product of ``rows`` rows and
+    output width ``n`` (the ``high`` tier's forward and input gradient,
+    ``ops/mlp.py`` ``encoder_fwd3``): :func:`tile_n` over
+    :data:`SPLIT_WIDTHS` on the tensor cores (``code`` 1; ``outputs``
+    outputs side by side in one walk, as the heads), 0 for the first
+    version."""
+    if code != TENSOR_CORES:
+        return 0
+    return tile_n(outputs * -(-rows // TILE_M), n, sm_count(device),
+                  SPLIT_WIDTHS)
 
 
 def takes_full_chain(dtype: torch.dtype, batch: int, *widths: int,

@@ -13,8 +13,10 @@ forward, reparameterization, loss, backward and Adam, with
   of ``float32`` and ``highest`` is the JAX package's "primitive"
   composition in IEEE fp32, that of ``high`` its "full" chains
   (``enc_bwd_full`` / ``dec_bwd_full``) with every product in three bf16
-  passes; the forward runs IEEE fp32 in all three
-  (``models/registry.py``);
+  passes; the forward runs IEEE fp32 under ``float32`` and ``highest`` and
+  three bf16 passes under ``high``, bound here as JAX's step scope binds
+  its ambient tier (``models/registry.py`` ``under_tier``; the train and
+  eval steps, and through them the resident, spmd and stream engines);
 * microbatch accumulation: the fp32 gradient sum of the full microbatches
   is scaled by ``micro/total`` after summing, and a ragged tail is one more
   gradient call weighted ``rem/total``; under ``sum`` reduction both
@@ -74,7 +76,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.models import vae
-from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef
+from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef, under_tier
 from rawaudiovae_kelsey_tpu_torch.ops import rng
 from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
     Mesh,
@@ -132,7 +134,9 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
 def _make_forward(model: ModelDef, cfg: Config) -> Callable:
     """``(params, eps, batch) → (x, recon, mu, logvar)``: the forward flow
     shared by the plain and the row-weighted loss (bf16 casts, encode,
-    reparameterize, decode; JAX ``step.py:86-102``)."""
+    reparameterize, decode; JAX ``step.py:86-102``), the model under the
+    step's precision tier (:func:`under_tier`)."""
+    model = under_tier(model, cfg)
     tpu_prng = cfg.tpu.rng == "tpu_prng"
     seg = model.segment_length
     work = torch.bfloat16 if cfg.tpu.precision == "bfloat16" else torch.float32
@@ -356,9 +360,11 @@ def build_eval_step(model: ModelDef, cfg: Config,
     ``mesh``, ``batch`` is this rank's block: the generator draws the
     global batch's noise and the rank keeps its rows; with ``model > 1``
     the params are the rank's shards and every rank of the model group
-    runs the sharded forward."""
+    runs the sharded forward.  The forward runs under the step's precision
+    tier (:func:`under_tier`), as JAX's eval step runs in its scope."""
     if mesh is not None:
         model = tensor_parallel_model(model, cfg, mesh)
+    model = under_tier(model, cfg)
     seg = model.segment_length
     deterministic = cfg.tpu.deterministic_inference
 

@@ -130,18 +130,21 @@ def scatter_columns(x: Tensor, mesh: Mesh) -> Tensor:
 # ----------------------------------------------------- the dense model, kernels
 
 class ShardedEncode(torch.autograd.Function):
-    """``(mode, mesh, x, w1, b1, w21, b21, w22, b22) → (mu, logvar)`` on a
-    rank's shards: :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.encoder_fwd_partial`
-    (h on fc1's column shard, the heads' fp32 partial sums), one fp32
-    all-reduce of both heads, then their biases and one rounding.
+    """``(mode, passes, mesh, x, w1, b1, w21, b21, w22, b22) → (mu,
+    logvar)`` on a rank's shards:
+    :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.encoder_fwd_partial` in
+    ``passes`` passes (h on fc1's column shard, the heads' fp32 partial
+    sums), one fp32 all-reduce of both heads, then their biases and one
+    rounding.
     Backward: ``ops/mlp.py`` ``encode_grads`` on the shards (dh is local:
     h is the rank's columns); ``b21`` / ``b22`` get the whole cotangent's
     column sums, equal on every rank; ``dx``, where it is asked for, is
     added over the model group."""
 
     @staticmethod
-    def forward(ctx, mode, mesh, x, w1, b1, w21, b21, w22, b22):
-        mu_p, lv_p, h = mlp.encoder_fwd_partial(w1, b1, w21, w22, x)
+    def forward(ctx, mode, passes, mesh, x, w1, b1, w21, b21, w22, b22):
+        mu_p, lv_p, h = mlp.encoder_fwd_partial(w1, b1, w21, w22, x,
+                                                passes=passes)
         mu_p, lv_p = model_all_reduce([mu_p, lv_p], mesh)
         dt = x.dtype
         mu = (mu_p + _f(b21)).to(dt)
@@ -155,26 +158,27 @@ class ShardedEncode(torch.autograd.Function):
         x, h, w1, w21, w22 = ctx.saved_tensors
         dx, *grads = mlp.encode_grads(ctx.mode, x, h, dmu.contiguous(),
                                       dlogvar.contiguous(), w1, w21, w22,
-                                      ctx.needs_input_grad[2])
+                                      ctx.needs_input_grad[3])
         if dx is not None:
             (total,) = model_all_reduce([dx], ctx.mesh)
             dx = total.to(x.dtype)
         dt = w1.dtype
-        return (None, None, dx, *(g.to(dt) for g in grads))
+        return (None, None, None, dx, *(g.to(dt) for g in grads))
 
 
 class ShardedDecode(torch.autograd.Function):
-    """``(mode, mesh, z, w3, b3, w4, b4) → y`` on a rank's shards:
-    :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.decoder_fwd_partial` (h3
-    on fc3's column shard, y's fp32 partial sums), one fp32 all-reduce,
+    """``(mode, passes, mesh, z, w3, b3, w4, b4) → y`` on a rank's shards:
+    :func:`~rawaudiovae_kelsey_tpu_torch.ops.mlp.decoder_fwd_partial` in
+    ``passes`` passes (h3 on fc3's column shard, y's fp32 partial sums),
+    one fp32 all-reduce,
     then ``b4``, tanh and one rounding.  Backward: ``ops/mlp.py``
     ``decode_grads`` on the shards from the replicated cotangent; ``dz`` is
     a partial sum (z meets fc3's column shard), added over the model group
     in fp32."""
 
     @staticmethod
-    def forward(ctx, mode, mesh, z, w3, b3, w4, b4):
-        y_p, h3 = mlp.decoder_fwd_partial(w3, b3, w4, z)
+    def forward(ctx, mode, passes, mesh, z, w3, b3, w4, b4):
+        y_p, h3 = mlp.decoder_fwd_partial(w3, b3, w4, z, passes=passes)
         (y_p,) = model_all_reduce([y_p], mesh)
         y = torch.tanh(y_p + _f(b4)).to(z.dtype)
         ctx.save_for_backward(z, h3, y, w3, w4)
@@ -188,25 +192,28 @@ class ShardedDecode(torch.autograd.Function):
                                       h3, z, w3, w4)
         (total,) = model_all_reduce([dz], ctx.mesh)
         dt = w3.dtype
-        return (None, None, total.to(z.dtype), *(g.to(dt) for g in grads))
+        return (None, None, None, total.to(z.dtype),
+                *(g.to(dt) for g in grads))
 
 
 def dense_encode_sharded(params, x: Tensor, mesh: Mesh,
-                         fp32_backward: str = "primitive"
+                         fp32_backward: str = "primitive", passes: int = 1
                          ) -> Tuple[Tensor, Tensor]:
-    """The dense encoder on a rank's shards through the kernels."""
+    """The dense encoder on a rank's shards through the kernels, the
+    forward in ``passes`` passes (``ops/mlp.py`` ``encode``)."""
     return ShardedEncode.apply(
-        mlp.backward_mode(x.dtype, fp32_backward), mesh, x,
+        mlp.backward_mode(x.dtype, fp32_backward), passes, mesh, x,
         params["fc1"]["w"], params["fc1"]["b"],
         params["fc21"]["w"], params["fc21"]["b"],
         params["fc22"]["w"], params["fc22"]["b"])
 
 
 def dense_decode_sharded(params, z: Tensor, mesh: Mesh,
-                         fp32_backward: str = "primitive") -> Tensor:
+                         fp32_backward: str = "primitive", passes: int = 1
+                         ) -> Tensor:
     """The dense decoder on a rank's shards through the kernels."""
     return ShardedDecode.apply(
-        mlp.backward_mode(z.dtype, fp32_backward), mesh, z,
+        mlp.backward_mode(z.dtype, fp32_backward), passes, mesh, z,
         params["fc3"]["w"], params["fc3"]["b"],
         params["fc4"]["w"], params["fc4"]["b"])
 
@@ -329,7 +336,9 @@ def tensor_parallel_model(model: ModelDef, cfg: Config, mesh: Mesh
     take a rank's shards (``parallel/sharding.py`` ``shard_params``) and
     give the replicated outputs every rank of the model group shares.
     ``model`` itself where the mesh has one model rank or the family is
-    replicated whole (conv1d)."""
+    replicated whole (conv1d).  The dense kernels' ``encode`` / ``decode``
+    take ``passes`` as ``ops/mlp.py`` ``encode`` does, which a step binds
+    (``models/registry.py`` ``under_tier``)."""
     if mesh.model <= 1 or model.name not in ("dense", "deep"):
         return model
     pallas = model.backend == "pallas"
@@ -343,11 +352,11 @@ def tensor_parallel_model(model: ModelDef, cfg: Config, mesh: Mesh
         def plain_dec(p, z):
             return dense_decode_plain(p, z, mesh)
 
-        def enc(p, x):
-            return dense_encode_sharded(p, x, mesh, fp32_backward)
+        def enc(p, x, passes=1):
+            return dense_encode_sharded(p, x, mesh, fp32_backward, passes)
 
-        def dec(p, z):
-            return dense_decode_sharded(p, z, mesh, fp32_backward)
+        def dec(p, z, passes=1):
+            return dense_decode_sharded(p, z, mesh, fp32_backward, passes)
     else:
         def plain_enc(p, x):
             return deep_encode_sharded(p, x, mesh, False)

@@ -444,6 +444,90 @@ def test_full_backward_chains_at_odd_widths_and_bad_passes(cuda):
         mlp.dec_bwd_full(t["da"], t["h3"].bfloat16(), *dec[2:])
 
 
+# ---- the `high` tier's 3-pass forms of rows 1, 2, 6 and 4 and of the
+# row-parallel rows 1 and 2 (csrc/full.cu's chains on the tensor cores; the
+# first version's 3-pass mode at other widths): 1e-4 · max|plain| of the
+# 3-pass plain version (the same split and products, summed in another
+# order), equal bits on a second launch, bit for bit on built operands
+
+def _three_pass_cases(device, batch, seg, units, latent):
+    w, t = _backward_inputs(device, batch, torch.float32, seg, units, latent)
+    enc = [w[n][k] for n, k in ENC]
+    dec = [w[n][k] for n, k in DEC]
+    x = t["x"] * 0.3
+    return {
+        "encoder_fwd": (mlp.encoder_fwd, mlp.encoder_fwd_ref, (*enc, x)),
+        "encoder_fwd_partial": (mlp.encoder_fwd_partial,
+                                mlp.encoder_fwd_partial_ref,
+                                (enc[0], enc[1], enc[2], enc[4], x)),
+        "decoder_fwd": (mlp.decoder_fwd, mlp.decoder_fwd_ref,
+                        (*dec, t["z"])),
+        "decoder_fwd_partial": (mlp.decoder_fwd_partial,
+                                mlp.decoder_fwd_partial_ref,
+                                (*dec[:3], t["z"])),
+        "matmul_nt2_mask": (mlp.matmul_nt2_mask, mlp.matmul_nt2_mask_ref,
+                            (t["dmu"], w["fc21"]["w"], t["dlv"],
+                             w["fc22"]["w"], t["h"])),
+        "matmul_nt": (mlp.matmul_nt, mlp.matmul_nt_ref,
+                      (t["h"] * 1e-2, w["fc1"]["w"])),
+    }
+
+
+def _counter(name):
+    return getattr(mlp, name.replace("_partial", ""))
+
+
+@pytest.mark.parametrize("widths", [(1024, 2048, 256), (70, 130, 18)],
+                         ids=["full-width", "odd-widths"])
+@pytest.mark.parametrize("batch", [4096, 4097, 1])
+def test_three_pass_forms_match_their_plain_versions(cuda, batch, widths):
+    on_tc = all(v % 8 == 0 for v in widths)
+    for name, (fn, ref, args) in _three_pass_cases(cuda, batch,
+                                                   *widths).items():
+        f = _counter(name)
+        before = (f.launches, f.split_launches, f.sgemm_launches)
+        got = fn(*args, passes=3)
+        again = fn(*args, passes=3)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        again = again if isinstance(again, tuple) else (again,)
+        want = ref(*args, passes=3)
+        want = want if isinstance(want, tuple) else (want,)
+        _close_rel(got, want, 1e-4)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b), name
+        assert (f.launches - before[0], f.split_launches - before[1],
+                f.sgemm_launches - before[2]) == (2, 2 * on_tc, 0), name
+        with pytest.raises(ValueError, match="sgemm"):
+            fn(*args, kernel="sgemm", passes=3)
+
+
+@pytest.mark.parametrize("widths", [(1024, 2048, 256), (70, 130, 18)],
+                         ids=["full-width", "odd-widths"])
+def test_three_pass_forms_split_and_add_bit_for_bit(cuda, widths):
+    """On ``chip_smoke.py`` 's exact_forward_case (every sum one term) the
+    kernels give the 3-pass plain version's bits: h, mu, logvar, h3, dh
+    and dx equal, y within 8 ulps (two tanh implementations)."""
+    case = _smoke().exact_forward_case(cuda, 0, *widths)
+    got = (*mlp.encoder_fwd(*case["encoder"], passes=3),
+           mlp.decoder_fwd(*case["decoder"], passes=3)[1])
+    want = (*mlp.encoder_fwd_ref(*case["encoder"], passes=3),
+            mlp.decoder_fwd_ref(*case["decoder"], passes=3)[1])
+    dh = mlp.matmul_nt2_mask(*case["dh"], passes=3)
+    dx = mlp.matmul_nt(dh, *case["dx"], passes=3)
+    want_dh = mlp.matmul_nt2_mask_ref(*case["dh"], passes=3)
+    want_dx = mlp.matmul_nt_ref(want_dh, *case["dx"], passes=3)
+    y = mlp.decoder_fwd(*case["decoder"], passes=3)[0]
+    torch.cuda.synchronize()
+    for a, b in zip((*got, dh, dx), (*want, want_dh, want_dx)):
+        assert torch.equal(a, b), int((a != b).sum())
+    want_y = mlp.decoder_fwd_ref(*case["decoder"], passes=3)[0]
+    ulps = (y.view(torch.int32).long() - want_y.view(torch.int32).long())
+    assert int(ulps.abs().max()) <= 8
+    once = mlp.encoder_fwd_ref(*case["encoder"])[2]
+    assert int((once != want[2]).sum()) > once.numel() // 10
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("batch", [4096, 25_810, 1])
@@ -2912,7 +2996,9 @@ def test_sgemm_dense_forward_dispatch_on_the_card(cuda, kind):
 def test_fp32_steps_run_the_dense_forward_on_sgemm(cuda, precision):
     """One fp32 step of the dense kernel backend at batch 3 x 1024 with
     microbatch 1024 plus a ragged tail: the encoder and the decoder once a
-    microbatch, every launch on csrc/sgemm.cuh."""
+    microbatch, every launch on csrc/sgemm.cuh under ``highest``, and on
+    the 3-pass tensor-core chains (``split_launches``), none on sgemm.cuh,
+    under ``high``, whose step binds three passes."""
     from rawaudiovae_kelsey_tpu_torch.config import Config
     from rawaudiovae_kelsey_tpu_torch.models import build_model
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
@@ -2927,11 +3013,13 @@ def test_fp32_steps_run_the_dense_forward_on_sgemm(cuda, precision):
     state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
                               0)
     fns = (mlp.encoder_fwd, mlp.decoder_fwd)
-    before = [(f.launches, f.sgemm_launches) for f in fns]
+    before = [(f.launches, f.sgemm_launches, f.split_launches) for f in fns]
     state, m = build_train_step(model, cfg)(state, x)
     torch.cuda.synchronize()
-    for f, (n, n_sgemm) in zip(fns, before):
-        assert (f.launches - n, f.sgemm_launches - n_sgemm) == (4, 4)
+    want = (4, 0, 4) if precision == "high" else (4, 4, 0)
+    for f, (n, n_sgemm, n_split) in zip(fns, before):
+        assert (f.launches - n, f.sgemm_launches - n_sgemm,
+                f.split_launches - n_split) == want
     assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
 
 
@@ -3203,10 +3291,17 @@ def test_high_step_runs_the_full_chains_on_the_tensor_cores(cuda):
                               0)
     chains = (mlp.enc_bwd_full, mlp.dec_bwd_full)
     before = [(f.launches, f.tensor_core_launches) for f in chains]
+    fwd = (mlp.encoder_fwd, mlp.decoder_fwd)
+    fwd_before = [(f.launches, f.split_launches, f.sgemm_launches)
+                  for f in fwd]
     state, m = build_train_step(model, cfg)(state, x)
     torch.cuda.synchronize()
     for f, (n, tc) in zip(chains, before):
         assert (f.launches - n, f.tensor_core_launches - tc) == (16, 16)
+    # the forward: 16 of 16 on the 3-pass tensor-core chains
+    for f, (n, split, sgemm) in zip(fwd, fwd_before):
+        assert (f.launches - n, f.split_launches - split,
+                f.sgemm_launches - sgemm) == (16, 16, 0)
     assert bool(torch.isfinite(torch.as_tensor(float(m["loss"]))))
 
 
