@@ -271,6 +271,25 @@ any failure exits non-zero with a traceback (no phase is caught):
    the 3-pass library sequence (``torch.mm(bf16, bf16,
    out_dtype=float32)``) and the bound with and without the split pass's
    bytes;
+3h. (run with the other kernel phases) the backward-fusion switch
+   (``ops/mlp.py`` ``BWD_FUSION``): the 3-pass forms of ``matmul_nt_mask``,
+   ``grad_accum``, ``enc_bwd_dw1``, ``grad_accum2`` and ``dec_bwd_fused``
+   (``csrc/full.cu``'s parts of the chains) and ``enc_bwd_full`` /
+   ``dec_bwd_full`` in one fp32 pass (``csrc/sgemm.cuh``'s launches of the
+   split kernels in turn) at batch 8192 and 4097, each new form and its
+   first version against the plain version (1e-4 · max|plain|), equal bits
+   twice; the 3-pass forms bit for bit on ``exact_split_case``, the
+   one-pass chains bit for bit against the kernels they launch; timed at
+   8192 in turns with the plain version and the first version, by device
+   time beside the 3-pass library sequence or the IEEE one; then one step
+   of ``configs/default.ini``'s model (two microbatches of 8192) for every
+   mode forced (primitive, split, full) and tier (bfloat16, high,
+   highest), kernels against the plain step of the same mode and pass
+   count (the wrappers' plain versions on the card): the loss, the update
+   outside Adam's eps zone and the gradient within PERF.md section 2's
+   bound, every launch of the mode's kernels and of the forward on the
+   tier's form, none of another mode's; then ``probes/fusion_ab.py`` at
+   ``bfloat16`` and ``high`` (10 alternating pairs of 5 steps);
 3f. (run with the other kernel phases) the probes' kernels: ``dw_fused`` and
    ``dx_fused`` in fp32 (on ``csrc/sgemm.cuh``) and bf16 (on the tensor
    cores), relu / tanh / none, at the four large layers of
@@ -451,7 +470,12 @@ launches on the 3-pass tensor cores: ``encoder_fwd`` / ``decoder_fwd``
 from phase 5's ``high`` step (and per rank from phase 13's),
 ``matmul_nt2_mask`` / ``matmul_nt`` from phase 6's ``high`` dx, the
 row-parallel forms from phase 14's ``high`` model-2 step (rank 0, and per
-rank).
+rank).  Phase 3h's rows (``<name>[3-pass]`` for rows 5 and 7-10,
+``<name>[fp32-1pass]`` for rows 11-12) and the rows the switch puts on a
+path (fp32 ``enc_bwd_dw1``, ``grad_accum2``, ``dec_bwd_fused``; bf16
+``matmul_nt_mask``, ``enc_bwd_full``, ``dec_bwd_full``) take theirs from
+phase 3h's step of the tier and mode that runs them, on the form the row
+describes (its ``path`` key names the step).
 ``bound_ms`` is the larger of bytes moved (each input read once, each
 output written once) over 3.35 TB/s and operations over the peak of the
 operand type (67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16:
@@ -2814,7 +2838,8 @@ HIGH_PARTS = {"split pass": "split_", "products": "Split"}
 
 
 def high_library(name, weights, args):
-    """``name`` 's 3-pass form on ``args`` as library calls: each operand
+    """``name`` 's 3-pass form (phase 3g's, or phase 3h's backward forms)
+    on ``args`` as library calls: each operand
     split as the kernels split it, each product three ``torch.mm`` of bf16
     halves with an fp32 output added ``(hh + hl) + lh``, then the bias and
     the activation (the gate) as the plain version; None where the card's
@@ -2865,6 +2890,29 @@ def high_library(name, weights, args):
         def run():
             return torch.where(h > 0, mm3(dmu, w21.t()) + mm3(dlv, w22.t()),
                                0.0)
+        return run
+    # the backward's forms (phase 3h): their weights among ``args``
+    if name == "matmul_nt_mask":
+        a, w, gate = args
+        return lambda: (torch.where(gate > 0, mm3(a, w.t()), 0.0),)
+    if name in ("grad_accum", "grad_accum2"):
+        a, *bs = args
+        return lambda: tuple(v for b in bs for v in (mm3(a.t(), b),
+                                                     b.sum(0)))
+    if name == "enc_bwd_dw1":
+        x, h, dmu, dlv, w21, w22 = args
+
+        def run():
+            dh = torch.where(h > 0, mm3(dmu, w21.t()) + mm3(dlv, w22.t()),
+                             0.0)
+            return mm3(x.t(), dh), dh.sum(0)
+        return run
+    if name == "dec_bwd_fused":
+        da, h3, z, w4, w3 = args
+
+        def run():
+            dh3 = torch.where(h3 > 0, mm3(da, w4.t()), 0.0)
+            return mm3(dh3, w3.t()), mm3(z.t(), dh3), dh3.sum(0)
         return run
     (w1,) = weights
     (dh,) = args
@@ -3101,6 +3149,403 @@ def phase_high_forward(gen_params):
         check(ulps <= TANH_ULPS, f"decoder_fwd[3-pass] y ({form}): {ulps} "
               "ulps")
     return rows
+
+
+# phase 3h: the backward-fusion switch (ops/mlp.py BWD_FUSION, the JAX
+# package's pallas_mlp.py:993) and the forms of the dense backward it
+# reaches: rows 5 and 7-10 in three bf16 passes (passes = 3: csrc/full.cu's
+# parts of the chains on the tensor cores; the first version's 3-pass mode,
+# named) and rows 11-12 in one fp32 pass (sgemm.cuh's launches of rows 6,
+# 7 / 5, 4, 7, 7 in turn; the first version at one pass, named), at the
+# training microbatch and a ragged batch, against their plain versions:
+# FULL_REL * max|plain| (the same products summed in another order), equal
+# bits on a second launch, the 3-pass forms bit for bit on exact_split_case
+# (every sum one term but the dense bias gradients, EXACT_DB_REL) and the
+# one-pass chains bit for bit against the kernels they launch, one by one.
+# Then one step of configs/default.ini's model (two microbatches of 8192)
+# for every forced mode and tier, through the kernels against the plain step
+# of the same mode and pass count (the wrappers' plain versions on the
+# card), PERF.md section 2's update bound on the update outside Adam's eps
+# zone and on the gradient (Adam's first moment); every launch of the mode's
+# kernels on the tier's form and none on a first version.  Then
+# probes/fusion_ab.py at bfloat16 and high.
+FUSION_BATCHES = (TRAIN_BATCH, FULL_RAGGED)
+FUSION_STEP_BATCH = 2 * TRAIN_BATCH
+# |g| below which a first Adam step's update is the rounding of g
+# (tests/test_torch_mesh.py)
+ADAM_EPS_ZONE = 1e-7
+FUSION_TIERS = ("bfloat16", "high", "highest")
+FUSION_MODES = ("primitive", "split", "full")
+IEEE_LIBRARY = ("the one-pass plain version: fp32 matmuls (TF32 off) -> "
+                "where -> sum(0), device time summed (no one PyTorch call "
+                "computes {})")
+# the wrappers a plain step replaces by their plain versions
+PLAIN_WRAPPERS = ("encoder_fwd", "decoder_fwd", "matmul_nt", "matmul_nt_mask",
+                  "matmul_nt2_mask", "grad_accum", "grad_accum2",
+                  "enc_bwd_dw1", "dec_bwd_fused", "enc_bwd_full",
+                  "dec_bwd_full")
+# the kernels of each backward mode, and the launch counter of the form
+# each tier takes (fusion_step's tags)
+FUSION_KERNELS = {"primitive": ("matmul_nt2_mask", "matmul_nt_mask",
+                                "matmul_nt", "grad_accum"),
+                  "split": ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused",
+                            "grad_accum"),
+                  "full": ("enc_bwd_full", "dec_bwd_full")}
+FUSION_FORM = {"bfloat16": "tc", "high": "split", "highest": "sgemm"}
+
+
+@contextlib.contextmanager
+def plain_wrappers():
+    """``ops/mlp.py`` 's kernel wrappers replaced by their plain versions,
+    which then run on CUDA tensors too: a step in it is the plain step of
+    its backward mode and pass count."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    saved = {name: getattr(mlp, name) for name in PLAIN_WRAPPERS}
+
+    def plain(name):
+        ref = getattr(mlp, name + "_ref")
+
+        def run(*args, kernel="auto", passes=None):
+            if passes is None:
+                passes = (mlp.full_passes(args[0].dtype)
+                          if name.endswith("_full") else 1)
+            return ref(*args, passes=passes)
+        return run
+
+    try:
+        for name in PLAIN_WRAPPERS:
+            setattr(mlp, name, plain(name))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(mlp, name, fn)
+
+
+def fusion_step(cfg, mode, x):
+    """One step of ``cfg`` 's model with the switch forced to ``mode``,
+    through the kernels and as the plain step of the same mode (same
+    state and noise): the update held at PERF.md section 2's bound.
+    Returns the kernels' launches by wrapper, "<name>@<form>" for each
+    counter of a faster form."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+    from rawaudiovae_kelsey_tpu_torch.tree import leaves
+
+    dev = x.device
+
+    def noise(step, i, shape):
+        return torch.randn(shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1000 * step + (i or 0)))
+
+    saved = mlp.BWD_FUSION
+    mlp.BWD_FUSION = mode
+    try:
+        model = build_model(cfg, dev)
+    finally:
+        mlp.BWD_FUSION = saved
+    check(model.encode.keywords == {"mode": mode},
+          f"{cfg.tpu.precision} {mode}: the model bound "
+          f"{model.encode.keywords}")
+    start = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              0)
+    counters = ("tensor_core_launches", "sgemm_launches", "split_launches")
+    out, counts = {}, None
+    for kind in ("kernels", "plain"):
+        state = start.clone()
+        before = [(w.launches, *(getattr(w, c, 0) for c in counters))
+                  for w in ops.KERNEL_WRAPPERS]
+        with (plain_wrappers() if kind == "plain"
+              else contextlib.nullcontext()):
+            state, m = build_train_step(model, cfg, noise=noise)(state, x)
+        torch.cuda.synchronize()
+        if kind == "kernels":
+            counts = {}
+            for w, b in zip(ops.KERNEL_WRAPPERS, before):
+                counts[w.__name__] = w.launches - b[0]
+                for c, tag, n in zip(counters, ("tc", "sgemm", "split"),
+                                     b[1:]):
+                    counts[f"{w.__name__}@{tag}"] = getattr(w, c, 0) - n
+        else:
+            check(all(w.launches == b[0] for w, b in
+                      zip(ops.KERNEL_WRAPPERS, before)),
+                  "the plain step launched a kernel")
+        out[kind] = (float(m["loss"]), torch.cat(
+            [(a - b).ravel() for a, b in zip(leaves(state.params),
+                                             leaves(start.params))]),
+                     torch.cat([a.ravel() for a in leaves(state.mu)]))
+    (lk, dk, mk), (lp, dp, mp) = out["kernels"], out["plain"]
+    # Adam's first step moves a param by lr·g/(|g| + 1e-8): where |g| is
+    # within a few eps the absolute rounding of g moves it by a share of lr
+    # (3.4 % of the params at this width, in bf16), so the update is held
+    # outside that zone and the gradient itself, through the first moment
+    # mu = 0.1·g, everywhere
+    zone = mp.abs() / 0.1 < ADAM_EPS_ZONE
+    upd = float((dk - dp)[~zone].norm() / dp[~zone].norm())
+    grad = float((mk - mp).norm() / mp.norm())
+    whole = float((dk - dp).norm() / dp.norm())
+    tol = 5e-2 if cfg.tpu.precision == "bfloat16" else 1e-3
+    print(f"  {cfg.tpu.precision:<8} {mode:<9} one step of "
+          f"{x.shape[0]}, kernels vs plain: loss {lk:.7f} vs {lp:.7f}; "
+          f"|update difference| / |update| = {upd:.3e} outside Adam's eps "
+          f"zone ({int(zone.sum())} params; {whole:.3e} with it), "
+          f"|gradient difference| / |gradient| = {grad:.3e} (tolerance "
+          f"{tol:g})")
+    check(abs(lk / lp - 1) <= tol and upd <= tol and grad <= tol,
+          f"{cfg.tpu.precision} {mode} step: kernels and plain disagree")
+    return counts
+
+
+def phase_fusion(gen_params, card):
+    """Phase 3h (header above).  Returns the rows of the kernel line, the
+    launch counts of each (tier, mode) step and the probe's results."""
+    from rawaudiovae_kelsey_tpu_torch.config import load_config
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+    from rawaudiovae_kelsey_tpu_torch.probes import fusion_ab
+
+    dev = torch.device("cuda")
+    p32 = gen_params(8642)
+    g = torch.Generator(device=dev).manual_seed(8643)
+    tpu = "rawaudiovae_kelsey_tpu/ops/pallas_mlp.py"
+    w21, w22, w3, w4 = (p32[n]["w"] for n in ("fc21", "fc22", "fc3", "fc4"))
+
+    def rnd(*shape, relu=False):
+        t = torch.randn(shape, generator=g, device=dev)
+        return t.clamp_min(0) if relu else t
+
+    def inputs(b):
+        return dict(x=rnd(b, SEG), h=rnd(b, UNITS, relu=True),
+                    dmu=rnd(b, LATENT), dlv=rnd(b, LATENT), da=rnd(b, SEG),
+                    h3=rnd(b, UNITS, relu=True), z=rnd(b, LATENT))
+
+    # name: (operands of a batch's inputs, FLOPs a row of one pass, split
+    # elements of a batch, TPU line, passes)
+    forms = {
+        "matmul_nt_mask": (lambda t: (t["da"], w4, t["h3"]),
+                           2 * SEG * UNITS,
+                           lambda b: b * SEG + UNITS * SEG, f"{tpu}:364", 3),
+        "grad_accum": (lambda t: (t["h3"], t["da"]), 2 * UNITS * SEG,
+                       lambda b: b * UNITS + b * SEG, f"{tpu}:453", 3),
+        "enc_bwd_dw1": (lambda t: (t["x"], t["h"], t["dmu"], t["dlv"], w21,
+                                   w22),
+                        2 * (2 * LATENT * UNITS + SEG * UNITS),
+                        lambda b: 2 * b * LATENT + 2 * UNITS * LATENT
+                        + b * UNITS + b * SEG, f"{tpu}:542", 3),
+        "grad_accum2": (lambda t: (t["h"], t["dmu"], t["dlv"]),
+                        2 * 2 * UNITS * LATENT,
+                        lambda b: b * UNITS + 2 * b * LATENT, f"{tpu}:624",
+                        3),
+        "dec_bwd_fused": (lambda t: (t["da"], t["h3"], t["z"], w4, w3),
+                          2 * (SEG * UNITS + 2 * UNITS * LATENT),
+                          lambda b: b * SEG + UNITS * SEG + b * UNITS
+                          + LATENT * UNITS + b * LATENT, f"{tpu}:695", 3),
+        "enc_bwd_full": (lambda t: (t["x"], t["h"], t["dmu"], t["dlv"], w21,
+                                    w22),
+                         2 * (2 * LATENT * UNITS + SEG * UNITS
+                              + 2 * UNITS * LATENT), None, f"{tpu}:789", 1),
+        "dec_bwd_full": (lambda t: (t["da"], t["h3"], t["z"], w4, w3),
+                         2 * (2 * SEG * UNITS + 2 * UNITS * LATENT), None,
+                         f"{tpu}:886", 1),
+    }
+    rows = {}
+    for name, (make, row_flops, split_elems, replaces, passes) in \
+            forms.items():
+        key = f"{name}[{'3-pass' if passes == 3 else 'fp32-1pass'}]"
+        wrapper, plain = getattr(mlp, name), getattr(mlp, name + "_ref")
+        fast = "split_launches" if passes == 3 else "sgemm_launches"
+        err = 0.0
+        for b in FUSION_BATCHES:
+            a = make(inputs(b))
+            want = plain(*a, passes=passes)
+            want = want if isinstance(want, tuple) else (want,)
+            for form, named in (("new form", "auto"),
+                                ("first version", "cuda_cores")):
+                n0 = (wrapper.launches, getattr(wrapper, fast))
+                got = wrapper(*a, kernel=named, passes=passes)
+                again = wrapper(*a, kernel=named, passes=passes)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                again = again if isinstance(again, tuple) else (again,)
+                rose = (wrapper.launches - n0[0],
+                        getattr(wrapper, fast) - n0[1])
+                check(rose == (2, 2 * (named == "auto")), f"{key} batch {b} "
+                      f"({form}): launches / {fast} rose by {rose}")
+                for t, w in zip(got, want):
+                    check(t.shape == w.shape and t.dtype == w.dtype
+                          and bool(torch.isfinite(t).all()),
+                          f"{key} batch {b} ({form}): shape, dtype or "
+                          "non-finite")
+                e = rel_err(got, want)
+                same = all(torch.equal(t, u) for t, u in zip(got, again))
+                if named == "auto":
+                    err = max(err, max_err(got, want))
+                print(f"  {key:<26} batch {b:>4}, {form}: max |kernel - "
+                      f"plain| / max|plain| = {e:.3e} (tolerance "
+                      f"{FULL_REL:g}); second launch "
+                      f"{'equal bit for bit' if same else 'DIFFERS'}")
+                check(e <= FULL_REL and same, f"{key} batch {b} ({form}): "
+                      f"error {e:.3e}, second launch equal: {same}")
+        a = make(inputs(TRAIN_BATCH))
+        t, runs = time_in_turns({
+            "kernel": lambda: wrapper(*a, passes=passes),
+            "plain": lambda: plain(*a, passes=passes),
+            "first": lambda: wrapper(*a, kernel="cuda_cores",
+                                     passes=passes)}, 10)
+        dev_ms = device_ms(lambda: wrapper(*a, passes=passes))
+        flops = passes * TRAIN_BATCH * row_flops
+        outs = wrapper(*a, passes=passes)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        row = {"name": key, "route": "cuda",
+               "source": "rawaudiovae_kelsey_tpu_torch/csrc/"
+                         + ("full.cu" if passes == 3 else "sgemm.cuh"),
+               "replaces": replaces, "max_abs_err": err, "ms": t["kernel"],
+               "plain_ms": t["plain"],
+               **bound(flops, nbytes(*a, *outs),
+                       "bf16" if passes == 3 else "fp32"),
+               "library_ms": None, "first_version_ms": t["first"],
+               "device_ms": dev_ms}
+        if passes == 3:
+            row["split_bound_ms"] = (flops / PEAK_FLOPS["bf16"]
+                                     + 8 * split_elems(TRAIN_BATCH)
+                                     / HBM_BYTES_S) * 1e3
+            row["parts_ms"] = {
+                label: device_ms(lambda: wrapper(*a, passes=3), match=m)
+                for label, m in FULL_PARTS.items()}
+            library = high_library(name, (), a)
+            text = FULL_LIBRARY
+        else:
+            library = (lambda: plain(*a, passes=1))
+            text = IEEE_LIBRARY
+        if library is not None:
+            want = plain(*a, passes=passes)
+            e = rel_err(library(), want if isinstance(want, tuple)
+                        else (want,))
+            check(e <= FULL_REL, f"{key}: the library sequence is {e:.3e} "
+                  "from the plain version")
+            row.update(library_ms=device_ms(library),
+                       library=text.format(name))
+        lib = row["library_ms"]
+        print(f"  {key:<26} batch {TRAIN_BATCH}: kernel {t['kernel']:.4f} "
+              f"ms (device {dev_ms:.4f}"
+              + "".join(f", {k} {v:.4f}" for k, v in
+                        row.get("parts_ms", {}).items())
+              + f"), plain {t['plain']:.4f}, first version {t['first']:.4f}"
+              + (f", library {lib:.4f} ({dev_ms / lib:.3f}x)" if lib
+                 else "")
+              + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+              + (f", with the split pass's bytes {row['split_bound_ms']:.4f}"
+                 if passes == 3 else "") + f" (runs {runs})")
+        rows[key] = row
+
+    # one term a sum: the 3-pass forms give the 3-pass plain version's bits
+    enc, dec = exact_split_case(dev)
+    x, h, dmu, dlv = enc[:4]
+    da, h3 = dec[:2]
+    exact = {"enc_bwd_dw1": (enc, (1,)), "dec_bwd_fused": (dec, (2,)),
+             "grad_accum2": ((h, dmu, dlv), ()), "grad_accum": ((h3, da), ()),
+             "matmul_nt_mask": ((da, dec[3], h3), ())}
+    for name, (args, dense) in exact.items():
+        want = getattr(mlp, name + "_ref")(*args, passes=3)
+        once = getattr(mlp, name + "_ref")(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        once = once if isinstance(once, tuple) else (once,)
+        for form, named in (("new form", "auto"),
+                            ("first version", "cuda_cores")):
+            got = getattr(mlp, name)(*args, kernel=named, passes=3)
+            got = got if isinstance(got, tuple) else (got,)
+            torch.cuda.synchronize()
+            off = moved = total = 0
+            for i, (a, w, o) in enumerate(zip(got, want, once)):
+                if i in dense:
+                    e = rel_err((a,), (w,))
+                    check(e <= EXACT_DB_REL, f"{name}[3-pass] ({form}): "
+                          f"dense bias gradient {e:.3e}")
+                    continue
+                off += int((a != w).sum())
+                moved += int((w != o).sum())
+                total += w.numel()
+            print(f"  {name}[3-pass] on built operands, {form}: {off} of "
+                  f"{total} values differ from the 3-pass plain version "
+                  f"(one pass would move {moved})")
+            check(off == 0 and moved > total // 10, f"{name}[3-pass] "
+                  f"({form}): {off} values off the plain version's bits, "
+                  f"{moved} moved by one pass")
+    # rows 11-12 in three passes at the microbatch beside their library
+    # sequence (phase 3d holds and times them at 4096)
+    t = inputs(TRAIN_BATCH)
+    for name in ("enc_bwd_full", "dec_bwd_full"):
+        ops_ = forms[name][0](t)
+        three = device_ms(lambda: getattr(mlp, name)(*ops_, passes=3))
+        library = full_chain_library(name, ops_)
+        text = ""
+        if library is not None:
+            lib = device_ms(library)
+            text = (f", the 3-pass library sequence {lib:.4f} ms "
+                    f"({three / lib:.3f}x)")
+        print(f"  {name}[fp32] in three passes, batch {TRAIN_BATCH}: device "
+              f"{three:.4f} ms{text}")
+    # the one-pass chains are the split kernels' fp32 launches in turn
+    e_args = forms["enc_bwd_full"][0](t)
+    d_args = forms["dec_bwd_full"][0](t)
+    for name, got, parts in (
+            ("enc_bwd_full", mlp.enc_bwd_full(*e_args, passes=1),
+             (*mlp.enc_bwd_dw1(*e_args), *mlp.grad_accum2(*e_args[1:4]))),
+            ("dec_bwd_full", mlp.dec_bwd_full(*d_args, passes=1),
+             (*mlp.dec_bwd_fused(*d_args),
+              *mlp.grad_accum(d_args[1], d_args[0])))):
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, parts))
+        print(f"  {name}[fp32-1pass] against the kernels it launches, one "
+              f"by one: {'equal bit for bit' if same else 'DIFFERS'}")
+        check(same, f"{name}[fp32-1pass] differs from its parts")
+
+    # one step for every forced mode and tier
+    cfg = load_config(ROOT / "configs" / "default.ini")
+    cfg.tpu.backend = "pallas"
+    check(cfg.tpu.microbatch_size == TRAIN_BATCH, "configs/default.ini's "
+          "microbatch is not the training batch of the forms")
+    cfg.training.batch_size = FUSION_STEP_BATCH
+    micro = FUSION_STEP_BATCH // TRAIN_BATCH
+    x = torch.rand((FUSION_STEP_BATCH, SEG), generator=g, device=dev) * 2 - 1
+    steps = {}
+    for tier in FUSION_TIERS:
+        cfg.tpu.precision = tier
+        fwd_tag = FUSION_FORM[tier]
+        for mode in FUSION_MODES:
+            counts = fusion_step(cfg, mode, x)
+            # the 3-pass full chains count on the tensor cores
+            bwd_tag = "tc" if (tier, mode) == ("high", "full") else fwd_tag
+            seen = {n: (counts[n], counts[f"{n}@{bwd_tag}"])
+                    for n in FUSION_KERNELS[mode]}
+            seen.update((n, (counts[n], counts[f"{n}@{fwd_tag}"]))
+                        for n in ("encoder_fwd", "decoder_fwd"))
+            others = {n: counts[n] for m, ns in FUSION_KERNELS.items()
+                      for n in ns if n not in FUSION_KERNELS[mode]}
+            print(f"  {tier:<8} {mode:<9} launches (all, on the tier's form):"
+                  f" {seen}; the other modes' kernels {others}")
+            for n, (all_, on) in seen.items():
+                check(all_ >= micro and on == all_, f"{tier} {mode}: {n} "
+                      f"{all_} launches, {on} on its form")
+            check(not any(others.values()), f"{tier} {mode}: another "
+                  f"mode's kernel launched: {others}")
+            steps[(tier, mode)] = counts
+
+    # the probe, both modes from one state, at least 10 alternating pairs
+    probe = {}
+    for precision in ("bfloat16", "high"):
+        probe[precision] = out = fusion_ab.main(
+            ["--precision", precision, "--pairs", "10", "--steps", "5"])
+        check(out["launches_per_step"]["full"] == {"enc_bwd_full": 1,
+                                                   "dec_bwd_full": 1},
+              f"fusion_ab {precision}: {out['launches_per_step']}")
+        split = out["launches_per_step"]["split"]
+        check(all(split.get(n) == 1 for n in FUSION_KERNELS["split"][:3])
+              and split.get("grad_accum") == 1, f"fusion_ab {precision}: "
+              f"{split}")
+    return rows, steps, probe
 
 
 def read_scalars(log_dir: Path, tag: str) -> dict:
@@ -8251,6 +8696,12 @@ def main() -> int:
     with torch.no_grad():
         high_rows = phase_high_forward(gen_params)
 
+    print("phase 3h: the backward-fusion switch (the 3-pass forms of rows 5 "
+          "and 7-10, rows 11-12 in one fp32 pass, a step of every mode and "
+          "tier, probes/fusion_ab.py)")
+    fusion_rows, fusion_steps, _ = phase_fusion(gen_params,
+                                                smi.stdout.strip())
+
     print("phase 3e: the variants' kernels (linear_ksplit_fwd, linear_fwd, "
           "toeplitz_fwd) against their plain versions")
     with torch.no_grad():
@@ -8381,11 +8832,11 @@ def main() -> int:
         print(f"  {chain}[fp32] at batch {TRAIN_BATCH}: {three:.4f} ms in "
               f"three passes, {one:.4f} ms in one fp32 pass ("
               f"{' + '.join(parts)}): {three / one:.2f}x")
-    # no path of the package runs these three on fp32 operands (`high`
-    # takes the full chains, `highest` the primitive kernels): phase 3b held
-    # them against their plain versions, and they stay out of the line
-    for name in ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused"):
-        off_path(train_rows.pop(f"{name}[fp32]"))
+    # these three run on fp32 operands with the switch forced to "split"
+    # (phase 3h's `highest` step gives their launches, at the end)
+    forced_rows = {f"{name}[fp32]": train_rows.pop(f"{name}[fp32]")
+                   for name in ("enc_bwd_dw1", "grad_accum2",
+                                "dec_bwd_fused")}
     for key, row in train_rows.items():
         name, kind = key[:-1].split("[")
         counts = step_launches if kind == "fp32" else train_launches
@@ -8395,11 +8846,9 @@ def main() -> int:
         row["launches"] = counts[on_fast if on_fast in counts else name]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(train_rows)
-    # no path of the package runs matmul_nt_mask on bf16 operands (the bf16
-    # step takes the fused dec_bwd_fused): phase 3c held it against its
-    # plain version and its first version, and it stays out of the line of
-    # path kernels
-    off_path(new_rows.pop("matmul_nt_mask[bf16]"))
+    # matmul_nt_mask runs on bf16 operands with the switch forced to
+    # "primitive" (phase 3h's bf16 step, at the end)
+    forced_rows["matmul_nt_mask[bf16]"] = new_rows.pop("matmul_nt_mask[bf16]")
     for key, row in new_rows.items():
         name, kind = key[:-1].split("[")
         if name == "reparameterize_prng":
@@ -8415,11 +8864,12 @@ def main() -> int:
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(new_rows)
     # the full chains run in fp32 under `high` and the loss reduction on a
-    # `high` step's fp32 tensors; their bf16 forms are on no path of the
-    # package (phase 3d held them against their plain versions)
-    for key in ("enc_bwd_full[bf16]", "dec_bwd_full[bf16]",
-                "loss_sums[bf16]"):
-        off_path(full_rows.pop(key))
+    # `high` step's fp32 tensors; the chains' bf16 forms run with the switch
+    # forced to "full" (phase 3h's bf16 step, at the end), the loss
+    # reduction's bf16 form on no path (phase 3d held it)
+    off_path(full_rows.pop("loss_sums[bf16]"))
+    for key in ("enc_bwd_full[bf16]", "dec_bwd_full[bf16]"):
+        forced_rows[key] = full_rows.pop(key)
     for key, row in full_rows.items():
         # the full chains' rows describe the tensor-core form: its launches
         name = key[:-1].split("[")[0]
@@ -8528,6 +8978,36 @@ def main() -> int:
             row["launches"] = dx_launches["high"][f"{name}@split"]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(high_rows)
+    # the backward-fusion switch's forms and the forms it puts on a path:
+    # their launches in phase 3h's step of the (tier, mode) that runs them,
+    # on the form the row describes
+    where = {"matmul_nt_mask[3-pass]": ("high", "primitive", "split"),
+             "grad_accum[3-pass]": ("high", "primitive", "split"),
+             "enc_bwd_dw1[3-pass]": ("high", "split", "split"),
+             "grad_accum2[3-pass]": ("high", "split", "split"),
+             "dec_bwd_fused[3-pass]": ("high", "split", "split"),
+             "enc_bwd_full[fp32-1pass]": ("highest", "full", "sgemm"),
+             "dec_bwd_full[fp32-1pass]": ("highest", "full", "sgemm"),
+             "enc_bwd_dw1[fp32]": ("highest", "split", "sgemm"),
+             "grad_accum2[fp32]": ("highest", "split", "sgemm"),
+             "dec_bwd_fused[fp32]": ("highest", "split", "sgemm"),
+             "matmul_nt_mask[bf16]": ("bfloat16", "primitive", "tc"),
+             "enc_bwd_full[bf16]": ("bfloat16", "full", "tc"),
+             "dec_bwd_full[bf16]": ("bfloat16", "full", "tc")}
+    for key, row in {**fusion_rows, **forced_rows}.items():
+        tier, mode, tag = where[key]
+        row["launches"] = fusion_steps[(tier, mode)][
+            f"{key.split('[')[0]}@{tag}"]
+        row["path"] = (f"phase 3h: a {tier} step with BWD_FUSION forced to "
+                       f"{mode!r}")
+        check(row["launches"] > 0, f"{key}: no launch on its main path")
+        rows[key] = row
+    for key, row in rows.items():
+        row.setdefault("library_ms", None)
+        missing = [k for k in ("name", "route", "source", "replaces",
+                               "launches", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by") if k not in row]
+        check(not missing, f"{key}: the kernel line's row lacks {missing}")
     print(card)
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@
 //   rvk_dec_bwd_fused  dec_bwd_fused  dh3 = (da W4ᵀ)·(h3>0), then dz = dh3 W3ᵀ,
 //                                     dW3 = zᵀ dh3, db3 = colsum(dh3)
 // and its "full" backward (the `high` tier's: fp32 operands, every product
-// in three bf16 passes; also bf16 operands in one pass) from
+// in three bf16 passes; also, with the switch BWD_FUSION forced, bf16
+// operands and fp32 ones in one pass) from
 //   rvk_enc_bwd_full   enc_bwd_full   dh as above, kept for the chain, then
 //                                     dW1, db1, dW21, db21, dW22, db22
 //   rvk_dec_bwd_full   dec_bwd_full   dh3 as above, then dz, dW3, db3 and
@@ -63,6 +64,18 @@
 // db4 (four); fp32 operands in its 3-pass mode (three FMAs a product on the
 // CUDA cores), bf16 in one pass.
 //
+// The backward-fusion switch.  The JAX package picks the backward mode by
+// BWD_FUSION (pallas_mlp.py:993-1011; ops/mlp.py fusion): under "auto"
+// the bf16 step "split", the `float32` / `highest` steps "primitive" and
+// the `high` step "full", and a forced mode any of the three for every
+// tier.  So every kernel above runs in each dtype and pass count the tiers
+// give: the primitive and split kernels also in three passes (the "3"
+// entry points below; full.cu's parts of the chains on the tensor cores,
+// gemm.cuh's 3-pass mode as their first version), and the full chains in
+// one fp32 pass under `float32` / `highest` (kernel code 2: sgemm.cuh's
+// launches of the split kernels, sgemm_enc_bwd_full / sgemm_dec_bwd_full
+// below; the first version at one pass for other widths).
+//
 // The `high` tier's input gradient (rvk_matmul_nt2_mask3 then
 // rvk_matmul_nt3: dh, then dx = dh W1ᵀ; fp32 operands, every product in
 // three bf16 passes, as the TPU kernels matmul_nt2_mask and matmul_nt run
@@ -107,10 +120,10 @@
 // weight gradient (tensor_core_enc_bwd_dw1 below).  The fp32 forms of
 // rvk_enc_bwd_dw1, rvk_grad_accum2 and rvk_dec_bwd_fused are sgemm.cuh's
 // launches of the entry points above, one after another (sgemm_enc_bwd_dw1,
-// sgemm_grad_accum2, sgemm_dec_bwd below): no path runs them on fp32
-// operands (the `float32` and `highest` tiers take the primitive backward,
-// `high` the full chains), and each computes what those launches compute
-// one by one.  At the step's microbatch the bf16 weight gradients are far
+// sgemm_grad_accum2, sgemm_dec_bwd below): the `float32` and `highest`
+// steps run them with BWD_FUSION forced to "split", and the full chains'
+// fp32 one-pass form runs them in turn; each computes what those launches
+// compute one by one.  At the step's microbatch the bf16 weight gradients are far
 // above the ridge (dW1 and dW4: 34 GFLOP on 58 MB of operands and output,
 // ~590 FLOP a byte), so the tensor cores bound them.  The template matmul_nt<T> below stays on
 // gemm.cuh: the first versions of the entry points above (kernel code 0,
@@ -149,6 +162,27 @@ cudaError_t dec_bwd_split(const float* da, const float* h3, const float* z,
                           int tile_dh3, int tile_dz, int tile_dw3,
                           int split_dw3, int tile_dw4, int split_dw4,
                           cudaStream_t s);
+// their parts, the other 3-pass forms of the `high` backward (full.cu)
+cudaError_t enc_bwd_dw1_split(const float* x, const float* h,
+                              const float* dmu, const float* dlv,
+                              const float* w21, const float* w22, float* dh,
+                              float* dw1, float* db1, void* splits,
+                              float* workspace, int batch, int seg, int units,
+                              int latent, int tile_dh, int tile_dw,
+                              int split_dw, cudaStream_t s);
+cudaError_t dec_bwd_fused_split(const float* da, const float* h3,
+                                const float* z, const float* w4,
+                                const float* w3, float* dh3, float* dz,
+                                float* dw3, float* db3, void* splits,
+                                float* workspace, int batch, int seg,
+                                int units, int latent, int tile_dh3,
+                                int tile_dz, int tile_dw, int split_dw,
+                                cudaStream_t s);
+template <int kOuts>
+cudaError_t grad_accum_split(const float* a, const float* const* b,
+                             float* const* dw, float* const* db, void* splits,
+                             float* workspace, int batch, int n, int m,
+                             int tile_dw, int slices, cudaStream_t s);
 // the `high` tier's input-gradient products on the tensor cores (full.cu)
 cudaError_t matmul_nt_split(const float* a1, const float* w1,
                             const float* a2, const float* w2,
@@ -207,80 +241,74 @@ cudaError_t matmul_nt(const T* a, const T* w, const T* a2, const T* w2,
 
 // dh (batch, units) = ((dmu @ w21ᵀ + dlv @ w22ᵀ) · (h > 0)) in T; then
 // dw1 (seg, units) = xᵀ dh and db1 = colsum(dh).
-template <typename T>
+template <typename T, int kPasses = 1>
 cudaError_t enc_bwd_dw1(const T* x, const T* h, const T* dmu, const T* dlv,
                         const T* w21, const T* w22, T* dh, float* dw1,
                         float* db1, int batch, int seg, int units, int latent,
                         cudaStream_t s) {
-  cudaError_t err =
-      matmul_nt<T>(dmu, w21, dlv, w22, h, dh, batch, latent, units, s);
+  cudaError_t err = matmul_nt<T, kPasses>(dmu, w21, dlv, w22, h, dh, batch,
+                                          latent, units, s);
   if (err != cudaSuccess) return err;
-  return grad_accum<T>(x, dh, nullptr, dw1, db1, nullptr, nullptr, batch,
-                       seg, units, s);
+  return grad_accum<T, kPasses>(x, dh, nullptr, dw1, db1, nullptr, nullptr,
+                                batch, seg, units, s);
 }
 
 // dh3 (batch, units) = ((da @ w4ᵀ) · (h3 > 0)) in T; dz (batch, latent) =
 // dh3 @ w3ᵀ in T; dw3 (latent, units) = zᵀ dh3 and db3 = colsum(dh3).
-template <typename T>
+template <typename T, int kPasses = 1>
 cudaError_t dec_bwd_fused(const T* da, const T* h3, const T* z, const T* w4,
                           const T* w3, T* dh3, T* dz, float* dw3, float* db3,
                           int batch, int seg, int units, int latent,
                           cudaStream_t s) {
-  cudaError_t err = matmul_nt<T>(da, w4, nullptr, nullptr, h3, dh3, batch,
-                                 seg, units, s);
-  if (err != cudaSuccess) return err;
-  err = matmul_nt<T>(dh3, w3, nullptr, nullptr, nullptr, dz, batch, units,
-                     latent, s);
-  if (err != cudaSuccess) return err;
-  return grad_accum<T>(z, dh3, nullptr, dw3, db3, nullptr, nullptr, batch,
-                       latent, units, s);
-}
-
-// The encoder's whole parameter backward: dh (batch, units) = ((dmu @ w21ᵀ
-// + dlv @ w22ᵀ) · (h > 0)) in T; dw1 (seg, units) = xᵀ dh, db1 = colsum(dh);
-// dw21, dw22 (units, latent) = hᵀ dmu, hᵀ dlv with their column sums.
-template <typename T, int kPasses>
-cudaError_t enc_bwd_full(const T* x, const T* h, const T* dmu, const T* dlv,
-                         const T* w21, const T* w22, T* dh, float* dw1,
-                         float* db1, float* dw21, float* db21, float* dw22,
-                         float* db22, int batch, int seg, int units,
-                         int latent, cudaStream_t s) {
-  cudaError_t err = matmul_nt<T, kPasses>(dmu, w21, dlv, w22, h, dh, batch,
-                                          latent, units, s);
-  if (err != cudaSuccess) return err;
-  err = grad_accum<T, kPasses>(x, dh, nullptr, dw1, db1, nullptr, nullptr,
-                               batch, seg, units, s);
-  if (err != cudaSuccess) return err;
-  return grad_accum<T, kPasses>(h, dmu, dlv, dw21, db21, dw22, db22, batch,
-                                units, latent, s);
-}
-
-// The decoder's whole backward: dh3 (batch, units) = ((da @ w4ᵀ) · (h3 > 0))
-// in T; dz (batch, latent) = dh3 @ w3ᵀ in T; dw3 (latent, units) = zᵀ dh3,
-// db3 = colsum(dh3); dw4 (units, seg) = h3ᵀ da, db4 = colsum(da).
-template <typename T, int kPasses>
-cudaError_t dec_bwd_full(const T* da, const T* h3, const T* z, const T* w4,
-                         const T* w3, T* dh3, T* dz, float* dw3, float* db3,
-                         float* dw4, float* db4, int batch, int seg,
-                         int units, int latent, cudaStream_t s) {
   cudaError_t err = matmul_nt<T, kPasses>(da, w4, nullptr, nullptr, h3, dh3,
                                           batch, seg, units, s);
   if (err != cudaSuccess) return err;
   err = matmul_nt<T, kPasses>(dh3, w3, nullptr, nullptr, nullptr, dz, batch,
                               units, latent, s);
   if (err != cudaSuccess) return err;
-  err = grad_accum<T, kPasses>(z, dh3, nullptr, dw3, db3, nullptr, nullptr,
-                               batch, latent, units, s);
+  return grad_accum<T, kPasses>(z, dh3, nullptr, dw3, db3, nullptr, nullptr,
+                                batch, latent, units, s);
+}
+
+// The encoder's whole parameter backward: enc_bwd_dw1, then dw21, dw22
+// (units, latent) = hᵀ dmu, hᵀ dlv with their column sums, one launch.
+template <typename T, int kPasses>
+cudaError_t enc_bwd_full(const T* x, const T* h, const T* dmu, const T* dlv,
+                         const T* w21, const T* w22, T* dh, float* dw1,
+                         float* db1, float* dw21, float* db21, float* dw22,
+                         float* db22, int batch, int seg, int units,
+                         int latent, cudaStream_t s) {
+  const cudaError_t err = enc_bwd_dw1<T, kPasses>(
+      x, h, dmu, dlv, w21, w22, dh, dw1, db1, batch, seg, units, latent, s);
+  if (err != cudaSuccess) return err;
+  return grad_accum<T, kPasses>(h, dmu, dlv, dw21, db21, dw22, db22, batch,
+                                units, latent, s);
+}
+
+// The decoder's whole backward: dec_bwd_fused, then dw4 (units, seg) = h3ᵀ
+// da, db4 = colsum(da).
+template <typename T, int kPasses>
+cudaError_t dec_bwd_full(const T* da, const T* h3, const T* z, const T* w4,
+                         const T* w3, T* dh3, T* dz, float* dw3, float* db3,
+                         float* dw4, float* db4, int batch, int seg,
+                         int units, int latent, cudaStream_t s) {
+  const cudaError_t err = dec_bwd_fused<T, kPasses>(
+      da, h3, z, w4, w3, dh3, dz, dw3, db3, batch, seg, units, latent, s);
   if (err != cudaSuccess) return err;
   return grad_accum<T, kPasses>(h3, da, nullptr, dw4, db4, nullptr, nullptr,
                                 batch, units, seg, s);
 }
 
-// The pass count of a full chain follows from its operand type: fp32
-// operands reach the chains only as the `high` tier and take the 3-pass
-// product, bf16 operands take one pass.
-template <typename T>
-constexpr int kFullPasses = std::is_same<T, float>::value ? 3 : 1;
+// A first version at `passes` passes, 1 or 3 (fp32 only): f(pass count
+// tag), any other count refused.
+template <typename T, typename F>
+cudaError_t with_passes(int passes, F&& f) {
+  if (passes == 1) return f(std::integral_constant<int, 1>{});
+  if constexpr (std::is_same<T, float>::value) {
+    if (passes == 3) return f(std::integral_constant<int, 3>{});
+  }
+  return cudaErrorInvalidValue;
+}
 
 // dh3's epilogue on the tensor cores: where(gate > 0, sum, 0), the gate
 // (h3's pair at the same place, which the mainloop has TMA load into the
@@ -425,6 +453,44 @@ int sgemm_dec_bwd(const void* da, const void* h3, const void* z,
   return rvk::sgemm::launch_wgrad(src<float>(z), dst<float>(dh3), dw3, db3,
                                   workspace, latent, units, batch, tile_dw,
                                   split, s);
+}
+
+// The fp32 full chains in one IEEE pass on sgemm.cuh (rows 11 and 12 under
+// the `float32` and `highest` tiers with BWD_FUSION = "full"): the encoder
+// sgemm_enc_bwd_dw1, then sgemm_grad_accum2 for dW21 | db21 and dW22 |
+// db22; the decoder sgemm_dec_bwd, then dW4 | db4 on rvk_grad_accum's
+// fp32 launch.  One workspace serves every weight gradient in turn.
+int sgemm_enc_bwd_full(const void* x, const void* h, const void* dmu,
+                       const void* dlv, const void* w21, const void* w22,
+                       void* dh, float* dw1, float* db1, float* dw21,
+                       float* db21, float* dw22, float* db22,
+                       float* workspace, int batch, int seg, int units,
+                       int latent, int dtype, int tile_dh, int tile_dw1,
+                       int split_dw1, int tile_dw2, int split_dw2,
+                       cudaStream_t s) {
+  const int err = sgemm_enc_bwd_dw1(x, h, dmu, dlv, w21, w22, dh, dw1, db1,
+                                    workspace, batch, seg, units, latent,
+                                    dtype, tile_dh, tile_dw1, split_dw1, s);
+  if (err != cudaSuccess) return err;
+  return sgemm_grad_accum2(h, dmu, dlv, dw21, db21, dw22, db22, workspace,
+                           batch, units, latent, dtype, tile_dw2, split_dw2,
+                           s);
+}
+
+int sgemm_dec_bwd_full(const void* da, const void* h3, const void* z,
+                       const void* w4, const void* w3, void* dh3, void* dz,
+                       float* dw3, float* db3, float* dw4, float* db4,
+                       float* workspace, int batch, int seg, int units,
+                       int latent, int dtype, int tile_dh3, int tile_dz,
+                       int tile_dw3, int split_dw3, int tile_dw4,
+                       int split_dw4, cudaStream_t s) {
+  const int err = sgemm_dec_bwd(da, h3, z, w4, w3, dh3, dz, dw3, db3,
+                                workspace, batch, seg, units, latent, dtype,
+                                tile_dh3, tile_dz, tile_dw3, split_dw3, s);
+  if (err != cudaSuccess) return err;
+  return rvk::sgemm::launch_wgrad(src<float>(h3), src<float>(da), dw4, db4,
+                                  workspace, units, seg, batch, tile_dw4,
+                                  split_dw4, s);
 }
 
 }  // namespace
@@ -575,6 +641,126 @@ int rvk_matmul_nt2_mask3(const void* a1, const void* w1, const void* a2,
   return matmul_nt<float, 3>(src<float>(a1), src<float>(w1), src<float>(a2),
                              src<float>(w2), src<float>(gate),
                              dst<float>(out), batch, n, m, s);
+}
+
+// The 3-pass forms of the backward's other kernels ("the parts of the
+// chains", full.cu), all operands fp32.  kernel: 0, the first version
+// (gemm.cuh's 3-pass mode; the tiles, slices, `splits` and `workspace`
+// ignored); 1, the tensor cores, every width a multiple of 8, 16-byte
+// aligned pointers, batch > 0: `splits` the bf16 halves full.cu names for
+// each, `workspace` the column sums' partials and the weight gradient's
+// slices (ops/mlp.py split_workspace), tiles 128 x tile (128 or 64) and
+// `split` slices of the batch (ops/tensor_cores.py split_tile and
+// split_wgrad).
+//
+// out (batch, m) = where(gate > 0, a @ wᵀ, 0): a (batch, n), w (m, n),
+// gate (batch, m); `splits` the halves of a and w (full.cu matmul_nt_split,
+// dh3's launch).
+int rvk_matmul_nt_mask3(const void* a, const void* w, const void* gate,
+                        void* out, void* splits, int batch, int n, int m,
+                        int tile_n, int kernel, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores) {
+    return rvk::matmul_nt_split(src<float>(a), src<float>(w), nullptr,
+                                nullptr, src<float>(gate), dst<float>(out),
+                                splits, batch, n, m, tile_n, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
+  return matmul_nt<float, 3>(src<float>(a), src<float>(w), nullptr, nullptr,
+                             src<float>(gate), dst<float>(out), batch, n, m,
+                             s);
+}
+
+// dw (n, m) = aᵀ b, both operands split, and db (m,) = colsum(b) of the
+// unsplit b: a (batch, n), b (batch, m) (full.cu grad_accum_split<1>).
+int rvk_grad_accum3(const void* a, const void* b, float* dw, float* db,
+                    void* splits, float* workspace, int batch, int n, int m,
+                    int tile_dw, int split, int kernel, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores) {
+    const float* const bs[1] = {src<float>(b)};
+    float* const dws[1] = {dw};
+    float* const dbs[1] = {db};
+    return rvk::grad_accum_split<1>(src<float>(a), bs, dws, dbs, splits,
+                                    workspace, batch, n, m, tile_dw, split,
+                                    s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
+  return grad_accum<float, 3>(src<float>(a), src<float>(b), nullptr, dw, db,
+                              nullptr, nullptr, batch, n, m, s);
+}
+
+// rvk_grad_accum3 for two cotangents b1, b2 (batch, m) of one a, both in
+// one launch (full.cu grad_accum_split<2>; the first version one launch
+// carrying both).
+int rvk_grad_accum2_3(const void* a, const void* b1, const void* b2,
+                      float* dw1, float* db1, float* dw2, float* db2,
+                      void* splits, float* workspace, int batch, int n,
+                      int m, int tile_dw, int split, int kernel,
+                      void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores) {
+    const float* const bs[2] = {src<float>(b1), src<float>(b2)};
+    float* const dws[2] = {dw1, dw2};
+    float* const dbs[2] = {db1, db2};
+    return rvk::grad_accum_split<2>(src<float>(a), bs, dws, dbs, splits,
+                                    workspace, batch, n, m, tile_dw, split,
+                                    s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
+  return grad_accum<float, 3>(src<float>(a), src<float>(b1), src<float>(b2),
+                              dw1, db1, dw2, db2, batch, n, m, s);
+}
+
+// dh (batch, units) = where(h > 0, dmu @ w21ᵀ + dlv @ w22ᵀ, 0), fp32, into
+// the scratch dh; dw1 (seg, units) = xᵀ dh, db1 = colsum(dh) (full.cu
+// enc_bwd_dw1_split; dh in 128 x tile_dh, dW1 in 128 x tile_dw over `split`
+// slices).
+int rvk_enc_bwd_dw1_3(const void* x, const void* h, const void* dmu,
+                      const void* dlv, const void* w21, const void* w22,
+                      void* dh, float* dw1, float* db1, void* splits,
+                      float* workspace, int batch, int seg, int units,
+                      int latent, int tile_dh, int tile_dw, int split,
+                      int kernel, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores) {
+    return rvk::enc_bwd_dw1_split(
+        src<float>(x), src<float>(h), src<float>(dmu), src<float>(dlv),
+        src<float>(w21), src<float>(w22), dst<float>(dh), dw1, db1, splits,
+        workspace, batch, seg, units, latent, tile_dh, tile_dw, split, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
+  return enc_bwd_dw1<float, 3>(src<float>(x), src<float>(h), src<float>(dmu),
+                               src<float>(dlv), src<float>(w21),
+                               src<float>(w22), dst<float>(dh), dw1, db1,
+                               batch, seg, units, latent, s);
+}
+
+// dh3 (batch, units) = where(h3 > 0, da @ w4ᵀ, 0) and dz (batch, latent) =
+// dh3 @ w3ᵀ, fp32, into the scratch dh3 and dz; dw3 (latent, units) = zᵀ
+// dh3, db3 = colsum(dh3) (full.cu dec_bwd_fused_split; dh3 in 128 x
+// tile_dh3, dz in 128 x tile_dz, dW3 in 128 x tile_dw over `split`
+// slices).
+int rvk_dec_bwd_fused3(const void* da, const void* h3, const void* z,
+                       const void* w4, const void* w3, void* dh3, void* dz,
+                       float* dw3, float* db3, void* splits, float* workspace,
+                       int batch, int seg, int units, int latent,
+                       int tile_dh3, int tile_dz, int tile_dw, int split,
+                       int kernel, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores) {
+    return rvk::dec_bwd_fused_split(
+        src<float>(da), src<float>(h3), src<float>(z), src<float>(w4),
+        src<float>(w3), dst<float>(dh3), dst<float>(dz), dw3, db3, splits,
+        workspace, batch, seg, units, latent, tile_dh3, tile_dz, tile_dw,
+        split, s);
+  }
+  if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
+  return dec_bwd_fused<float, 3>(src<float>(da), src<float>(h3),
+                                 src<float>(z), src<float>(w4),
+                                 src<float>(w3), dst<float>(dh3),
+                                 dst<float>(dz), dw3, db3, batch, seg, units,
+                                 latent, s);
 }
 
 // a (batch, n), b (batch, m) of one dtype; dw (n, m), db (m,) fp32.
@@ -737,26 +923,44 @@ int rvk_dec_bwd_fused(const void* da, const void* h3, const void* z,
 // x (batch, seg), h (batch, units), dmu and dlv (batch, latent), w21 and
 // w22 (units, latent), scratch dh (batch, units), all of one dtype; dw1
 // (seg, units), db1 (units,), dw21 and dw22 (units, latent), db21 and db22
-// (latent,) fp32.  kernel (an rvk::tc::Kernel): 0, the first version, three
-// launches of the tiled GEMM on the CUDA cores, fp32 operands in its 3-pass
-// mode and bf16 in one pass (the tiles, splits, `splits` and `workspace`
-// ignored); 1, the tensor cores, seg, units and latent multiples of 8,
-// 16-byte aligned pointers, batch > 0: fp32 operands the 3-pass chain
-// (rvk::enc_bwd_split, full.cu: `splits` the bf16 halves of x, h, dmu, dlv,
-// w21, w22 and dh, `workspace` the column sums' partials and the slices),
-// bf16 operands tensor_core_enc_bwd_dw1 then launch_wgrad2 (`workspace` the
-// slices); dh in tiles 128 x tile_dh, dW1 in 128 x tile_dw1 over split_dw1
-// slices of the batch, dW21 | dW22 in 128 x tile_dw2 over split_dw2
-// (ops/tensor_cores.py full_plan).
+// (latent,) fp32.  passes: 1, or 3 with fp32 operands.  kernel (an
+// rvk::tc::Kernel): 0, the first version, three launches of the tiled GEMM
+// on the CUDA cores in `passes` passes (the tiles, splits, `splits` and
+// `workspace` ignored); 1, the tensor cores, seg, units and latent
+// multiples of 8, 16-byte aligned pointers, batch > 0: fp32 operands at 3
+// passes the 3-pass chain (rvk::enc_bwd_split, full.cu: `splits` the bf16
+// halves of dmu, dlv, w21, w22, dh, x and h, `workspace` the column sums'
+// partials and the slices), bf16 operands tensor_core_enc_bwd_dw1 then
+// launch_wgrad2 (`workspace` the slices); dh in tiles 128 x tile_dh, dW1 in
+// 128 x tile_dw1 over split_dw1 slices of the batch, dW21 | dW22 in 128 x
+// tile_dw2 over split_dw2 (ops/tensor_cores.py full_plan); 2, fp32
+// operands at one pass, seg, units and latent multiples of 4, 16-byte
+// aligned pointers, batch > 0: sgemm_enc_bwd_full (dh on the tile
+// sgemm::kTiles[tile_dh], dW1 on kTiles[tile_dw1] over split_dw1 slices,
+// each head's weight gradient on kTiles[tile_dw2] over split_dw2, one
+// `workspace` in turn).
 int rvk_enc_bwd_full(const void* x, const void* h, const void* dmu,
                      const void* dlv, const void* w21, const void* w22,
                      void* dh, float* dw1, float* db1, float* dw21,
                      float* db21, float* dw22, float* db22, void* splits,
                      float* workspace, int batch, int seg, int units,
-                     int latent, int dtype, int tile_dh, int tile_dw1,
-                     int split_dw1, int tile_dw2, int split_dw2, int kernel,
-                     void* stream) {
+                     int latent, int dtype, int passes, int tile_dh,
+                     int tile_dw1, int split_dw1, int tile_dw2,
+                     int split_dw2, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32 || passes != 1 || batch <= 0) {
+      return cudaErrorInvalidValue;
+    }
+    return sgemm_enc_bwd_full(x, h, dmu, dlv, w21, w22, dh, dw1, db1, dw21,
+                              db21, dw22, db22, workspace, batch, seg, units,
+                              latent, dtype, tile_dh, tile_dw1, split_dw1,
+                              tile_dw2, split_dw2, s);
+  }
+  if (kernel == rvk::tc::kTensorCores &&
+      (dtype == rvk::kF32) != (passes == 3)) {
+    return cudaErrorInvalidValue;
+  }
   if (kernel == rvk::tc::kTensorCores && dtype == rvk::kF32) {
     return rvk::enc_bwd_split(
         src<float>(x), src<float>(h), src<float>(dmu), src<float>(dlv),
@@ -777,32 +981,50 @@ int rvk_enc_bwd_full(const void* x, const void* h, const void* dmu,
   if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
-    return enc_bwd_full<T, kFullPasses<T>>(
-        src<T>(x), src<T>(h), src<T>(dmu), src<T>(dlv), src<T>(w21),
-        src<T>(w22), dst<T>(dh), dw1, db1, dw21, db21, dw22, db22, batch,
-        seg, units, latent, s);
+    return with_passes<T>(passes, [&](auto count) {
+      return enc_bwd_full<T, decltype(count)::value>(
+          src<T>(x), src<T>(h), src<T>(dmu), src<T>(dlv), src<T>(w21),
+          src<T>(w22), dst<T>(dh), dw1, db1, dw21, db21, dw22, db22, batch,
+          seg, units, latent, s);
+    });
   });
 }
 
 // da (batch, seg), h3 (batch, units), z (batch, latent), w4 (units, seg),
 // w3 (latent, units), scratch dh3 (batch, units), dz (batch, latent), all
 // of one dtype; dw3 (latent, units), db3 (units,), dw4 (units, seg), db4
-// (seg,) fp32.  kernel: 0, the first version, four launches of the tiled
-// GEMM (fp32 3-pass, bf16 one pass); 1, the tensor cores, seg, units and
-// latent multiples of 8, 16-byte aligned pointers, batch > 0: fp32 operands
-// the 3-pass chain (rvk::dec_bwd_split, full.cu: `splits` the halves of da,
-// h3, z, w4, w3 and dh3), bf16 operands tensor_core_dec_bwd then dW4 | db4
-// on launch_wgrad; dh3 in tiles 128 x tile_dh3, dz in 128 x tile_dz, dW3
-// in 128 x tile_dw3 over split_dw3 slices, dW4 in 128 x tile_dw4 over
-// split_dw4 (ops/tensor_cores.py full_plan).
+// (seg,) fp32.  passes as for rvk_enc_bwd_full.  kernel: 0, the first
+// version, four launches of the tiled GEMM in `passes` passes; 1, the
+// tensor cores, seg, units and latent multiples of 8, 16-byte aligned
+// pointers, batch > 0: fp32 operands at 3 passes the 3-pass chain
+// (rvk::dec_bwd_split, full.cu: `splits` the halves of da, w4, dh3, w3, z
+// and h3), bf16 operands tensor_core_dec_bwd then dW4 | db4 on
+// launch_wgrad; dh3 in tiles 128 x tile_dh3, dz in 128 x tile_dz, dW3 in
+// 128 x tile_dw3 over split_dw3 slices, dW4 in 128 x tile_dw4 over
+// split_dw4 (ops/tensor_cores.py full_plan); 2, fp32 operands at one pass
+// with widths multiples of 4: sgemm_dec_bwd_full (the tiles indices of
+// sgemm::kTiles).
 int rvk_dec_bwd_full(const void* da, const void* h3, const void* z,
                      const void* w4, const void* w3, void* dh3, void* dz,
                      float* dw3, float* db3, float* dw4, float* db4,
                      void* splits, float* workspace, int batch, int seg,
-                     int units, int latent, int dtype, int tile_dh3,
-                     int tile_dz, int tile_dw3, int split_dw3, int tile_dw4,
-                     int split_dw4, int kernel, void* stream) {
+                     int units, int latent, int dtype, int passes,
+                     int tile_dh3, int tile_dz, int tile_dw3, int split_dw3,
+                     int tile_dw4, int split_dw4, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kSgemm) {
+    if (dtype != rvk::kF32 || passes != 1 || batch <= 0) {
+      return cudaErrorInvalidValue;
+    }
+    return sgemm_dec_bwd_full(da, h3, z, w4, w3, dh3, dz, dw3, db3, dw4, db4,
+                              workspace, batch, seg, units, latent, dtype,
+                              tile_dh3, tile_dz, tile_dw3, split_dw3,
+                              tile_dw4, split_dw4, s);
+  }
+  if (kernel == rvk::tc::kTensorCores &&
+      (dtype == rvk::kF32) != (passes == 3)) {
+    return cudaErrorInvalidValue;
+  }
   if (kernel == rvk::tc::kTensorCores && dtype == rvk::kF32) {
     return rvk::dec_bwd_split(
         src<float>(da), src<float>(h3), src<float>(z), src<float>(w4),
@@ -822,10 +1044,12 @@ int rvk_dec_bwd_full(const void* da, const void* h3, const void* z,
   if (kernel != rvk::tc::kCudaCores) return cudaErrorInvalidValue;
   return rvk::with_dtype(dtype, [&](auto tag) {
     using T = std::remove_pointer_t<decltype(tag)>;
-    return dec_bwd_full<T, kFullPasses<T>>(
-        src<T>(da), src<T>(h3), src<T>(z), src<T>(w4), src<T>(w3),
-        dst<T>(dh3), dst<T>(dz), dw3, db3, dw4, db4, batch, seg, units,
-        latent, s);
+    return with_passes<T>(passes, [&](auto count) {
+      return dec_bwd_full<T, decltype(count)::value>(
+          src<T>(da), src<T>(h3), src<T>(z), src<T>(w4), src<T>(w3),
+          dst<T>(dh3), dst<T>(dz), dw3, db3, dw4, db4, batch, seg, units,
+          latent, s);
+    });
   });
 }
 

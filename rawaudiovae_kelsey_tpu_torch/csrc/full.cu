@@ -1,10 +1,13 @@
 // The `high` tier's products on the tensor cores, every one in three bf16
 // passes: the full backward chains, the fp32 forms of rvk_enc_bwd_full and
-// rvk_dec_bwd_full (bwd.cu, kernel code 1); the forward chains of
-// rvk_encoder_fwd3 and rvk_decoder_fwd3 (mlp.cu) and the input-gradient
-// products of rvk_matmul_nt2_mask3 and rvk_matmul_nt3 (bwd.cu), kernel code
-// 1 (below, "the forward and the input gradient"); and the split pass
-// alone as a C entry point (rvk_split_hi_lo; ops/mlp.py split_pass).
+// rvk_dec_bwd_full (bwd.cu, kernel code 1); their parts, the 3-pass forms
+// of rvk_enc_bwd_dw1_3, rvk_dec_bwd_fused3, rvk_grad_accum3,
+// rvk_grad_accum2_3 and rvk_matmul_nt_mask3 (bwd.cu, kernel code 1; below,
+// "the parts of the chains"); the forward chains of rvk_encoder_fwd3 and
+// rvk_decoder_fwd3 (mlp.cu) and the input-gradient products of
+// rvk_matmul_nt2_mask3 and rvk_matmul_nt3 (bwd.cu), kernel code 1 (below,
+// "the forward and the input gradient"); and the split pass alone as a C
+// entry point (rvk_split_hi_lo; ops/mlp.py split_pass).
 //
 // They replace the TPU kernels enc_bwd_full (_enc_bwd_full_kernel) and
 // dec_bwd_full (_dec_bwd_full_kernel) of
@@ -27,6 +30,18 @@
 //            zᵀ·dh3; split h3; dW4 = h3ᵀ·da
 // dh and dh3 stay fp32 (pallas_mlp.py:762-775, 859-872): the products that
 // read them take their halves, and db1 / db3 sum the unsplit values.
+//
+// The parts of the chains.  With the JAX package's BWD_FUSION forced to
+// "split" or "primitive" (pallas_mlp.py:993-1011), the `high` tier's
+// backward runs the TPU kernels enc_bwd_dw1, dec_bwd_fused, grad_accum,
+// grad_accum2 and matmul_nt_mask at passes = 3 (_grad_accum_kernel splits
+// both of its operands, :439-449; dh and dh3 stay fp32, :524-530, 676-684).
+// Each is a part of a chain above, with the chain's own launches:
+//   enc_bwd_dw1     the encoder's chain up to dW1 (no db21, db22)
+//   dec_bwd_fused   the decoder's chain up to dW3 (no db4)
+//   grad_accum      split a, and b with its column sums (db); dW = aᵀ·b
+//   grad_accum2     the same for two cotangents, both in one launch
+//   matmul_nt_mask  dh3's launch (matmul_nt_split with a gate, no a2)
 //
 // The forward and the input gradient.  Under JAX's ambient `high` tier
 // the TPU kernels encoder_fwd (_enc_fwd_kernel), decoder_fwd
@@ -114,76 +129,56 @@ cudaError_t wgrad(const Split& a, const Split* b, float* const* dw,
                                             lo);
 }
 
-}  // namespace
-
-// The encoder's chain (header): x (batch, seg), h (batch, units), dmu and
-// dlv (batch, latent), w21 and w22 (units, latent), all fp32; the scratch
-// dh (batch, units) fp32; dw1 (seg, units), db1 (units,), dw21 and dw22
-// (units, latent), db21 and db22 (latent,) fp32; `splits` the halves of x,
-// h, dmu, dlv, w21, w22 and dh in that order (bf16, 2 · their elements);
-// `workspace` the column sums' partials and the weight gradients' slices,
-// fp32, as ops/mlp.py full_scratch sizes it.  dh in 128 x tile_dh tiles;
-// dW1 in 128 x tile_dw1 over split_dw1 slices, dW21 | dW22 in 128 x tile_dw2
-// over split_dw2 (ops/tensor_cores.py split_tile_n, split_wgrad_plan).
-cudaError_t enc_bwd_split(const float* x, const float* h, const float* dmu,
-                          const float* dlv, const float* w21,
-                          const float* w22, float* dh, float* dw1,
-                          float* db1, float* dw21, float* db21, float* dw22,
-                          float* db22, void* splits, float* workspace,
-                          int batch, int seg, int units, int latent,
-                          int tile_dh, int tile_dw1, int split_dw1,
-                          int tile_dw2, int split_dw2, cudaStream_t s) {
-  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
-  SplitPool pool{static_cast<bf16*>(splits)};
-  const Split sx = pool.take(batch, seg), sh = pool.take(batch, units),
-              smu = pool.take(batch, latent), slv = pool.take(batch, latent),
-              s21 = pool.take(units, latent), s22 = pool.take(units, latent),
-              sdh = pool.take(batch, units);
-  const Halves heads[2] = {smu, slv}, weights[2] = {s21, s22};
-  const Split heads_b[2] = {smu, slv};
-  float* const dw2[2] = {dw21, dw22};
+// The encoder's chain up to dW1 (header), on halves taken from `pool`:
+// split dmu and dlv (their column sums into db21 and db22 where those are
+// not null), w21 and w22; dh = where(h > 0, dmu·W21ᵀ + dlv·W22ᵀ, 0), fp32,
+// one k-joined walk in 128 x tile_dh tiles; split dh (db1) and x; dW1 =
+// xᵀ·dh in 128 x tile_dw1 over split_dw1 slices.  dmu's and dlv's halves
+// come back in `heads` for the rest of a chain.
+cudaError_t enc_dh_dw1(SplitPool& pool, Split* heads, const float* x,
+                       const float* h, const float* dmu, const float* dlv,
+                       const float* w21, const float* w22, float* dh,
+                       float* dw1, float* db1, float* db21, float* db22,
+                       float* workspace, int batch, int seg, int units,
+                       int latent, int tile_dh, int tile_dw1, int split_dw1,
+                       cudaStream_t s) {
+  heads[0] = pool.take(batch, latent);
+  heads[1] = pool.take(batch, latent);
+  const Split s21 = pool.take(units, latent), s22 = pool.take(units, latent),
+              sdh = pool.take(batch, units), sx = pool.take(batch, seg);
+  const Halves a[2] = {heads[0], heads[1]}, weights[2] = {s21, s22};
   return in_order(
-      [&] { return split(dmu, smu, db21, workspace, batch, latent, s); },
-      [&] { return split(dlv, slv, db22, workspace, batch, latent, s); },
+      [&] { return split(dmu, heads[0], db21, workspace, batch, latent, s); },
+      [&] { return split(dlv, heads[1], db22, workspace, batch, latent, s); },
       [&] { return split(w21, s21, nullptr, nullptr, units, latent, s); },
       [&] { return split(w22, s22, nullptr, nullptr, units, latent, s); },
       [&] {
-        return tc::launch_split_rows<true>(heads, weights, dh, h, batch,
-                                           units, latent, tile_dh, s);
+        return tc::launch_split_rows<true>(a, weights, dh, h, batch, units,
+                                           latent, tile_dh, s);
       },
       [&] { return split(dh, sdh, db1, workspace, batch, units, s); },
       [&] { return split(x, sx, nullptr, nullptr, batch, seg, s); },
       [&] {
         return wgrad<1>(sx, &sdh, &dw1, workspace, seg, units, batch,
                         tile_dw1, split_dw1, s);
-      },
-      [&] { return split(h, sh, nullptr, nullptr, batch, units, s); },
-      [&] {
-        return wgrad<2>(sh, heads_b, dw2, workspace, units, latent, batch,
-                        tile_dw2, split_dw2, s);
       });
 }
 
-// The decoder's chain (header): da (batch, seg), h3 (batch, units), z
-// (batch, latent), w4 (units, seg), w3 (latent, units), all fp32; the
-// scratch dh3 (batch, units) and dz (batch, latent) fp32; dw3 (latent,
-// units), db3 (units,), dw4 (units, seg), db4 (seg,) fp32; `splits` the
-// halves of da, h3, z, w4, w3 and dh3 in that order; `workspace` as for
-// the encoder.  dh3 in 128 x tile_dh3 tiles, dz in 128 x tile_dz, dW3 and
-// dW4 in 128 x tile_dw3 / tile_dw4 over split_dw3 / split_dw4 slices.
-cudaError_t dec_bwd_split(const float* da, const float* h3, const float* z,
-                          const float* w4, const float* w3, float* dh3,
-                          float* dz, float* dw3, float* db3, float* dw4,
-                          float* db4, void* splits, float* workspace,
-                          int batch, int seg, int units, int latent,
-                          int tile_dh3, int tile_dz, int tile_dw3,
-                          int split_dw3, int tile_dw4, int split_dw4,
-                          cudaStream_t s) {
-  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
-  SplitPool pool{static_cast<bf16*>(splits)};
-  const Split sda = pool.take(batch, seg), sh3 = pool.take(batch, units),
-              sz = pool.take(batch, latent), s4 = pool.take(units, seg),
-              s3 = pool.take(latent, units), sdh3 = pool.take(batch, units);
+// The decoder's chain up to dW3 (header), on halves taken from `pool`:
+// split da (its column sums into db4 where that is not null) and w4; dh3 =
+// where(h3 > 0, da·W4ᵀ, 0), fp32, in 128 x tile_dh3; split dh3 (db3) and
+// w3; dz = dh3·W3ᵀ, fp32, in 128 x tile_dz; split z; dW3 = zᵀ·dh3 in 128 x
+// tile_dw3 over split_dw3 slices.  da's halves come back in `da_halves`.
+cudaError_t dec_dh3_dw3(SplitPool& pool, Split* da_halves, const float* da,
+                        const float* h3, const float* z, const float* w4,
+                        const float* w3, float* dh3, float* dz, float* dw3,
+                        float* db3, float* db4, float* workspace, int batch,
+                        int seg, int units, int latent, int tile_dh3,
+                        int tile_dz, int tile_dw3, int split_dw3,
+                        cudaStream_t s) {
+  const Split sda = *da_halves = pool.take(batch, seg);
+  const Split s4 = pool.take(units, seg), sdh3 = pool.take(batch, units),
+              s3 = pool.take(latent, units), sz = pool.take(batch, latent);
   const Halves da_h = sda, w4_h = s4, dh3_h = sdh3, w3_h = s3;
   return in_order(
       [&] { return split(da, sda, db4, workspace, batch, seg, s); },
@@ -202,13 +197,152 @@ cudaError_t dec_bwd_split(const float* da, const float* h3, const float* z,
       [&] {
         return wgrad<1>(sz, &sdh3, &dw3, workspace, latent, units, batch,
                         tile_dw3, split_dw3, s);
-      },
-      [&] { return split(h3, sh3, nullptr, nullptr, batch, units, s); },
+      });
+}
+
+}  // namespace
+
+// The encoder's chain (header): x (batch, seg), h (batch, units), dmu and
+// dlv (batch, latent), w21 and w22 (units, latent), all fp32; the scratch
+// dh (batch, units) fp32; dw1 (seg, units), db1 (units,), dw21 and dw22
+// (units, latent), db21 and db22 (latent,) fp32; `splits` the halves of
+// dmu, dlv, w21, w22, dh, x and h in that order (bf16, 2 · their elements);
+// `workspace` the column sums' partials and the weight gradients' slices,
+// fp32, as ops/mlp.py full_scratch sizes it.  dh in 128 x tile_dh tiles;
+// dW1 in 128 x tile_dw1 over split_dw1 slices, dW21 | dW22 in 128 x tile_dw2
+// over split_dw2 (ops/tensor_cores.py split_tile_n, split_wgrad_plan).
+cudaError_t enc_bwd_split(const float* x, const float* h, const float* dmu,
+                          const float* dlv, const float* w21,
+                          const float* w22, float* dh, float* dw1,
+                          float* db1, float* dw21, float* db21, float* dw22,
+                          float* db22, void* splits, float* workspace,
+                          int batch, int seg, int units, int latent,
+                          int tile_dh, int tile_dw1, int split_dw1,
+                          int tile_dw2, int split_dw2, cudaStream_t s) {
+  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
+  SplitPool pool{static_cast<bf16*>(splits)};
+  Split heads[2];
+  float* const dw2[2] = {dw21, dw22};
+  return in_order(
       [&] {
+        return enc_dh_dw1(pool, heads, x, h, dmu, dlv, w21, w22, dh, dw1, db1,
+                          db21, db22, workspace, batch, seg, units, latent,
+                          tile_dh, tile_dw1, split_dw1, s);
+      },
+      [&] {
+        const Split sh = pool.take(batch, units);
+        const cudaError_t err = split(h, sh, nullptr, nullptr, batch, units,
+                                      s);
+        if (err != cudaSuccess) return err;
+        return wgrad<2>(sh, heads, dw2, workspace, units, latent, batch,
+                        tile_dw2, split_dw2, s);
+      });
+}
+// The decoder's chain (header): da (batch, seg), h3 (batch, units), z
+// (batch, latent), w4 (units, seg), w3 (latent, units), all fp32; the
+// scratch dh3 (batch, units) and dz (batch, latent) fp32; dw3 (latent,
+// units), db3 (units,), dw4 (units, seg), db4 (seg,) fp32; `splits` the
+// halves of da, w4, dh3, w3, z and h3 in that order; `workspace` as for
+// the encoder.  dh3 in 128 x tile_dh3 tiles, dz in 128 x tile_dz, dW3 and
+// dW4 in 128 x tile_dw3 / tile_dw4 over split_dw3 / split_dw4 slices.
+cudaError_t dec_bwd_split(const float* da, const float* h3, const float* z,
+                          const float* w4, const float* w3, float* dh3,
+                          float* dz, float* dw3, float* db3, float* dw4,
+                          float* db4, void* splits, float* workspace,
+                          int batch, int seg, int units, int latent,
+                          int tile_dh3, int tile_dz, int tile_dw3,
+                          int split_dw3, int tile_dw4, int split_dw4,
+                          cudaStream_t s) {
+  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
+  SplitPool pool{static_cast<bf16*>(splits)};
+  Split sda;
+  return in_order(
+      [&] {
+        return dec_dh3_dw3(pool, &sda, da, h3, z, w4, w3, dh3, dz, dw3, db3,
+                           db4, workspace, batch, seg, units, latent,
+                           tile_dh3, tile_dz, tile_dw3, split_dw3, s);
+      },
+      [&] {
+        const Split sh3 = pool.take(batch, units);
+        const cudaError_t err = split(h3, sh3, nullptr, nullptr, batch,
+                                      units, s);
+        if (err != cudaSuccess) return err;
         return wgrad<1>(sh3, &sda, &dw4, workspace, units, seg, batch,
                         tile_dw4, split_dw4, s);
       });
 }
+
+// The parts of the chains (header): the 3-pass forms of enc_bwd_dw1,
+// dec_bwd_fused, grad_accum and grad_accum2.  Operands and outputs as the
+// chains take them, all fp32.
+//   enc_bwd_dw1_split    the encoder's chain up to dW1 (no db21, db22);
+//                        `splits` the halves of dmu, dlv, w21, w22, dh, x
+//   dec_bwd_fused_split  the decoder's chain up to dW3 (no db4); `splits`
+//                        the halves of da, w4, dh3, w3, z
+//   grad_accum_split     a (batch, n) and kOuts cotangents b[o] (batch, m):
+//                        split a, then each b[o] with its column sums db[o]
+//                        of the unsplit values; dW[o] = aᵀ·b[o] in one
+//                        launch of kOuts outputs, 128 x tile_dw over
+//                        `slices` slices; `splits` the halves of a, b[0][,
+//                        b[1]]
+cudaError_t enc_bwd_dw1_split(const float* x, const float* h,
+                              const float* dmu, const float* dlv,
+                              const float* w21, const float* w22, float* dh,
+                              float* dw1, float* db1, void* splits,
+                              float* workspace, int batch, int seg, int units,
+                              int latent, int tile_dh, int tile_dw,
+                              int split_dw, cudaStream_t s) {
+  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
+  SplitPool pool{static_cast<bf16*>(splits)};
+  Split heads[2];
+  return enc_dh_dw1(pool, heads, x, h, dmu, dlv, w21, w22, dh, dw1, db1,
+                    nullptr, nullptr, workspace, batch, seg, units, latent,
+                    tile_dh, tile_dw, split_dw, s);
+}
+
+cudaError_t dec_bwd_fused_split(const float* da, const float* h3,
+                                const float* z, const float* w4,
+                                const float* w3, float* dh3, float* dz,
+                                float* dw3, float* db3, void* splits,
+                                float* workspace, int batch, int seg,
+                                int units, int latent, int tile_dh3,
+                                int tile_dz, int tile_dw, int split_dw,
+                                cudaStream_t s) {
+  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
+  SplitPool pool{static_cast<bf16*>(splits)};
+  Split sda;
+  return dec_dh3_dw3(pool, &sda, da, h3, z, w4, w3, dh3, dz, dw3, db3,
+                     nullptr, workspace, batch, seg, units, latent, tile_dh3,
+                     tile_dz, tile_dw, split_dw, s);
+}
+
+template <int kOuts>
+cudaError_t grad_accum_split(const float* a, const float* const* b,
+                             float* const* dw, float* const* db, void* splits,
+                             float* workspace, int batch, int n, int m,
+                             int tile_dw, int slices, cudaStream_t s) {
+  if (batch <= 0 || splits == nullptr) return cudaErrorInvalidValue;
+  SplitPool pool{static_cast<bf16*>(splits)};
+  const Split sa = pool.take(batch, n);
+  Split sb[kOuts];
+  cudaError_t err = split(a, sa, nullptr, nullptr, batch, n, s);
+  for (int o = 0; o < kOuts && err == cudaSuccess; ++o) {
+    sb[o] = pool.take(batch, m);
+    err = split(b[o], sb[o], db[o], workspace, batch, m, s);
+  }
+  if (err != cudaSuccess) return err;
+  return wgrad<kOuts>(sa, sb, dw, workspace, n, m, batch, tile_dw, slices,
+                      s);
+}
+
+template cudaError_t grad_accum_split<1>(const float*, const float* const*,
+                                         float* const*, float* const*, void*,
+                                         float*, int, int, int, int, int,
+                                         cudaStream_t);
+template cudaError_t grad_accum_split<2>(const float*, const float* const*,
+                                         float* const*, float* const*, void*,
+                                         float*, int, int, int, int, int,
+                                         cudaStream_t);
 
 // The encoder's forward in three passes (header, "the forward and the
 // input gradient"): x (batch, seg), w1 (seg, units), b1 (units,), w21 and

@@ -14,20 +14,22 @@ ops won every cell measured (PERF.md §5), and unmeasured corners take them
 as in JAX, so ``best`` resolves to ``xla``.  The conv1d model runs the plain
 convolutions under every backend, as the JAX registry routes it on purpose;
 its block-Toeplitz path (``ops/conv.py``) is an explicit op-level API.
-Under ``pallas`` the dense model's backward of fp32 operands follows
-``[tpu] precision`` as the JAX package's ``_fusion`` does: ``float32`` and
-``highest`` take the "primitive" composition (``matmul_nt*`` +
-``grad_accum``), ``high`` the "full" chains (``enc_bwd_full`` /
-``dec_bwd_full``, every product in three bf16 passes); bf16 operands always
-take "split".  The forward's pass count is the step's, not the model's:
+Under ``pallas`` the dense model's backward mode is ``ops/mlp.py``
+``fusion`` of the step's operand dtype and pass count, as the JAX
+package's ``_fusion`` picks it when its step is traced
+(:func:`backward_fusion`, read when the model is built): under the switch's
+"auto" ``float32`` and ``highest`` take the "primitive" composition
+(``matmul_nt*`` + ``grad_accum``), ``high`` the "full" chains
+(``enc_bwd_full`` / ``dec_bwd_full``, every product in three bf16 passes),
+``bfloat16`` "split"; a forced ``mlp.BWD_FUSION`` is taken by every tier.
+The forward's pass count is the step's, not the model's:
 JAX traces its train, eval, resident, spmd and stream steps under
 ``jax.default_matmul_precision(precision)``, and its dense kernels take
 three passes under an ambient ``high`` (``pallas_mlp.py:167``), while its
 server, ``infer/api.py`` and export run outside any scope, in one pass.
 So a ``ModelDef`` computes the forward in one IEEE fp32 pass, and the
 steps bind ``passes = 3`` under ``high`` (:func:`under_tier`): the forward
-kernels, and the encoder's input gradient, then compute what the TPU
-kernels compute.
+kernels and the backward then compute what the TPU kernels compute.
 """
 
 from __future__ import annotations
@@ -140,9 +142,9 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
         raise ValueError(f"unknown arch {arch!r}")
     encode_fn, decode_fn = vae.encode, vae.decode
     if backend == "pallas":
-        fp32_backward = "full" if cfg.tpu.precision == "high" else "primitive"
-        encode_fn = partial(mlp.encode, fp32_backward=fp32_backward)
-        decode_fn = partial(mlp.decode, fp32_backward=fp32_backward)
+        mode = backward_fusion(cfg)
+        encode_fn = partial(mlp.encode, mode=mode)
+        decode_fn = partial(mlp.decode, mode=mode)
     return ModelDef(
         name="dense",
         segment_length=seg,
@@ -157,6 +159,19 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
         plain_encode=vae.encode,
         plain_decode=vae.decode,
     )
+
+
+def backward_fusion(cfg: Config) -> str:
+    """The dense kernels' backward mode in a step of ``cfg``: ``ops/mlp.py``
+    ``fusion`` of the step's operand dtype (bf16 under ``bfloat16``, fp32
+    otherwise) and pass count (3 under ``high``), reading the switch
+    ``mlp.BWD_FUSION`` as it stands now.  ``build_model`` and
+    ``parallel/tensor_parallel.py`` ``tensor_parallel_model`` call it, so
+    a step runs the mode its model was built with, as a JAX step runs the
+    mode it was traced with."""
+    work = torch.bfloat16 if cfg.tpu.precision == "bfloat16" \
+        else torch.float32
+    return mlp.fusion(work, 3 if cfg.tpu.precision == "high" else 1)
 
 
 def tier_passes(cfg: Config, model: ModelDef) -> int:

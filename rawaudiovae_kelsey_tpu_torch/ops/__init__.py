@@ -17,9 +17,12 @@ fp32 one; ``ops/tensor_cores.py`` chooses by dtype, shape and alignment.
 Rows 1, 2, 15 and 16 also have a row-parallel form for tensor parallelism
 (``encoder_fwd_partial``, ``decoder_fwd_partial``, ``linear_partial``: fp32
 partial sums, no bias, no activation), counted in the row's wrapper.  Rows
-1, 2, 4 and 6 (and the row-parallel 1 and 2) also have the ``high`` tier's
+1, 2 and 4-10 (and the row-parallel 1 and 2) also have the ``high`` tier's
 3-pass form (``passes = 3``, fp32 operands: ``csrc/full.cu``'s chains on
-the tensor cores), counted in ``split_launches``.
+the tensor cores), counted in ``split_launches``, and the full chains a
+one-pass fp32 form; which backward a step runs is the switch
+``mlp.BWD_FUSION`` (``mlp.fusion``).  ``encoder_bwd`` / ``decoder_bwd`` are
+the primitive backward as plain functions over the wrappers.
 Sources in ``csrc/``; built by ``ops/_build.py``."""
 
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
@@ -30,6 +33,7 @@ from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
     dec_bwd_fused,
     dec_bwd_fused_ref,
     decode,
+    decoder_bwd,
     decoder_fwd,
     decoder_fwd_partial,
     decoder_fwd_partial_ref,
@@ -39,6 +43,7 @@ from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
     enc_bwd_dw1,
     enc_bwd_dw1_ref,
     encode,
+    encoder_bwd,
     encoder_fwd,
     encoder_fwd_partial,
     encoder_fwd_partial_ref,

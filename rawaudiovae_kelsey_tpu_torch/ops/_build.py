@@ -51,14 +51,19 @@ _SIGNATURES = {
     "rvk_grad_accum2": [_P] * 8 + [_I] * 7 + [_P],
     "rvk_enc_bwd_dw1": [_P] * 10 + [_I] * 9 + [_P],
     "rvk_dec_bwd_fused": [_P] * 10 + [_I] * 10 + [_P],
-    "rvk_enc_bwd_full": [_P] * 15 + [_I] * 11 + [_P],
-    "rvk_dec_bwd_full": [_P] * 13 + [_I] * 12 + [_P],
+    "rvk_enc_bwd_full": [_P] * 15 + [_I] * 12 + [_P],
+    "rvk_dec_bwd_full": [_P] * 13 + [_I] * 13 + [_P],
+    "rvk_grad_accum3": [_P] * 6 + [_I] * 6 + [_P],
+    "rvk_grad_accum2_3": [_P] * 9 + [_I] * 6 + [_P],
+    "rvk_enc_bwd_dw1_3": [_P] * 11 + [_I] * 8 + [_P],
+    "rvk_dec_bwd_fused3": [_P] * 11 + [_I] * 9 + [_P],
     "rvk_split_hi_lo": [_P] * 5 + [_I] * 3 + [_P],
     "rvk_loss_sums": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P],
     "rvk_matmul_nt": [_P] * 3 + [_I] * 6 + [_P],
     "rvk_matmul_nt_mask": [_P] * 4 + [_I] * 6 + [_P],
     "rvk_matmul_nt2_mask": [_P] * 6 + [_I] * 6 + [_P],
     "rvk_matmul_nt3": [_P] * 4 + [_I] * 5 + [_P],
+    "rvk_matmul_nt_mask3": [_P] * 5 + [_I] * 5 + [_P],
     "rvk_matmul_nt2_mask3": [_P] * 7 + [_I] * 5 + [_P],
     "rvk_reparameterize": [_U] * 2 + [_P] * 3 + [_I] * 2 + [_P],
     "rvk_philox_words": [_U] * 2 + [_P] + [_I] * 2 + [_P],

@@ -13,26 +13,28 @@ Each op has three parts, side by side:
   anything the kernel does not take raises;
 * the model-level entry points ``encode`` / ``decode``: the
   ``torch.autograd.Function`` s that play the roles of ``pallas_encode`` /
-  ``pallas_decode``.  Their backward has the JAX package's three modes
-  (``pallas_mlp.py`` ``_fusion``): "split", the bf16 step's — ``enc_bwd_dw1``
-  + ``grad_accum2`` for the encoder, ``dec_bwd_fused`` + ``grad_accum`` for
-  the decoder; "primitive", the ``float32`` / ``highest`` tiers' —
-  ``matmul_nt2_mask`` then three ``grad_accum`` for the encoder,
-  ``matmul_nt_mask``, ``matmul_nt`` and two ``grad_accum`` for the decoder;
-  and "full", the ``high`` tier's — ``enc_bwd_full`` and ``dec_bwd_full``,
-  one call per chain, every product of fp32 operands in three bf16 passes
-  (:func:`split_hi_lo`).  The encoder's input gradient is
-  ``matmul_nt2_mask`` followed by ``matmul_nt`` in all three, in three
-  passes in "full" with fp32 operands.
+  ``pallas_decode``.  Their backward has the JAX package's three modes,
+  chosen by the switch :data:`BWD_FUSION` (:func:`fusion`, the
+  counterpart of ``pallas_mlp.py:993-1011``): "split", under "auto" the
+  bf16 step's — ``enc_bwd_dw1`` + ``grad_accum2`` for the encoder,
+  ``dec_bwd_fused`` + ``grad_accum`` for the decoder; "primitive", under
+  "auto" the ``float32`` / ``highest`` tiers' — ``matmul_nt2_mask`` then
+  three ``grad_accum`` for the encoder, ``matmul_nt_mask``, ``matmul_nt``
+  and two ``grad_accum`` for the decoder; and "full", under "auto" the
+  ``high`` tier's — ``enc_bwd_full`` and ``dec_bwd_full``, one call per
+  chain.  The encoder's input gradient is ``matmul_nt2_mask`` followed by
+  ``matmul_nt`` in all three.  A forced mode applies to every dtype and
+  tier, and every call of a mode takes the forward's pass count.
 
-The forward kernels, ``matmul_nt2_mask`` and ``matmul_nt`` take
-``passes``: 1, or 3 with fp32 operands, the TPU kernels' pass count under
-JAX's ambient ``high`` tier (``pallas_mlp.py:167`` ``_ambient_passes``).
-At 3 they launch the ``high`` tier's 3-pass forms (``csrc/full.cu``'s
-chains on the tensor cores, "the 3-pass forms" below) and compute what the
-TPU kernels compute there; a train or eval step binds it under ``high``
-(``models/registry.py`` ``under_tier``), the server and the library path
-never do.
+Every kernel takes ``passes``: 1, or 3 with fp32 operands, the TPU
+kernels' pass count under JAX's ambient ``high`` tier (``pallas_mlp.py:167``
+``_ambient_passes``).  At 3 they launch the ``high`` tier's 3-pass forms
+(``csrc/full.cu``'s chains and their parts on the tensor cores, "the
+3-pass forms" below) and compute what the TPU kernels compute there; a
+train or eval step binds it under ``high`` (``models/registry.py``
+``under_tier``), the server and the library path never do.  The full
+chains take one fp32 pass too (``float32`` / ``highest`` with "full"
+forced: ``csrc/sgemm.cuh``'s launches of the split kernels).
 
 Layouts are the JAX package's: weights ``(in, out)``, biases ``(out,)``.
 Operands are fp32 or bf16, all of one dtype per call; accumulation is fp32;
@@ -114,9 +116,12 @@ def matmul_nt2_mask_ref(a1, w1, a2, w2, gate, passes: int = 1) -> Tensor:
     return torch.where(_f(gate) > 0, prod, 0.0).to(a1.dtype)
 
 
-def matmul_nt_mask_ref(a, w, gate) -> Tensor:
-    """Plain version of :func:`matmul_nt_mask`."""
-    return torch.where(_f(gate) > 0, _f(a) @ _f(w).t(), 0.0).to(a.dtype)
+def matmul_nt_mask_ref(a, w, gate, passes: int = 1) -> Tensor:
+    """Plain version of :func:`matmul_nt_mask`: at 3 passes the product's
+    three-pass sum, gated, kept fp32 (``pallas_mlp.py:357-360``)."""
+    check_passes(a.dtype, passes)
+    return torch.where(_f(gate) > 0, _mm(a, w.t(), passes),
+                       0.0).to(a.dtype)
 
 
 def matmul_nt_ref(a, w, passes: int = 1) -> Tensor:
@@ -125,28 +130,36 @@ def matmul_nt_ref(a, w, passes: int = 1) -> Tensor:
     return _mm(a, w.t(), passes).to(a.dtype)
 
 
-def grad_accum_ref(a, b) -> Tuple[Tensor, Tensor]:
-    """Plain version of :func:`grad_accum`."""
-    return _f(a).t() @ _f(b), _f(b).sum(0)
+def grad_accum_ref(a, b, passes: int = 1) -> Tuple[Tensor, Tensor]:
+    """Plain version of :func:`grad_accum`: at 3 passes ``aᵀ b`` with both
+    operands split and ``colsum(b)`` of the unsplit values
+    (``pallas_mlp.py:439-449``)."""
+    check_passes(a.dtype, passes)
+    return _mm(a.t(), b, passes), _f(b).sum(0)
 
 
-def grad_accum2_ref(a, b1, b2) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+def grad_accum2_ref(a, b1, b2, passes: int = 1
+                    ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain version of :func:`grad_accum2`."""
-    return (*grad_accum_ref(a, b1), *grad_accum_ref(a, b2))
+    return (*grad_accum_ref(a, b1, passes), *grad_accum_ref(a, b2, passes))
 
 
-def enc_bwd_dw1_ref(x, h, dmu, dlogvar, w21, w22) -> Tuple[Tensor, Tensor]:
+def enc_bwd_dw1_ref(x, h, dmu, dlogvar, w21, w22, passes: int = 1
+                    ) -> Tuple[Tensor, Tensor]:
     """Plain version of :func:`enc_bwd_dw1`: ``dh`` rounded to the operand
-    dtype (``pallas_mlp.py:535``), then ``(xᵀ dh, colsum(dh))``."""
-    return grad_accum_ref(x, matmul_nt2_mask_ref(dmu, w21, dlogvar, w22, h))
+    dtype (``pallas_mlp.py:535``; at 3 passes fp32 and unrounded,
+    ``:524-530``), then ``(xᵀ dh, colsum(dh))``."""
+    return grad_accum_ref(
+        x, matmul_nt2_mask_ref(dmu, w21, dlogvar, w22, h, passes), passes)
 
 
-def dec_bwd_fused_ref(da, h3, z, w4, w3) -> Tuple[Tensor, Tensor, Tensor]:
+def dec_bwd_fused_ref(da, h3, z, w4, w3, passes: int = 1
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """Plain version of :func:`dec_bwd_fused`: ``dh3`` rounded to the
-    operand dtype (``pallas_mlp.py:686``), then ``dz = dh3 @ w3ᵀ`` in it and
-    ``(zᵀ dh3, colsum(dh3))`` in fp32."""
-    dh3 = matmul_nt_mask_ref(da, w4, h3)
-    return (matmul_nt_ref(dh3, w3), *grad_accum_ref(z, dh3))
+    operand dtype (``pallas_mlp.py:686``; at 3 passes fp32, ``:676-684``),
+    then ``dz = dh3 @ w3ᵀ`` in it and ``(zᵀ dh3, colsum(dh3))`` in fp32."""
+    dh3 = matmul_nt_mask_ref(da, w4, h3, passes)
+    return (matmul_nt_ref(dh3, w3, passes), *grad_accum_ref(z, dh3, passes))
 
 
 def split_hi_lo(v: Tensor) -> Tuple[Tensor, Tensor]:
@@ -386,15 +399,17 @@ def _count(wrapper, code: int) -> None:
 
 # --------------------------------------------------- the 3-pass forms (high)
 #
-# Under JAX's ambient ``high`` tier the TPU kernels of rows 1, 2, 4 and 6
-# take every fp32 product in three bf16 passes (``pallas_mlp.py:167``
-# ``_ambient_passes``).  Their ``passes = 3`` forms here launch the chains
-# of ``csrc/full.cu`` on the tensor cores (the split pass, then each
-# product one 3-pass launch of ``csrc/wgmma.cuh``) or, for widths no
-# multiple of 8 and unaligned views, the first version's 3-pass operand
-# mode (``csrc/gemm.cuh``); never the IEEE fp32 kernel of ``sgemm.cuh``.
-# A launch counts in its wrapper's ``launches`` and, on the tensor cores,
-# ``split_launches`` (and ``partial_launches`` for a row-parallel form).
+# Under JAX's ambient ``high`` tier the dense TPU kernels take every fp32
+# product in three bf16 passes (``pallas_mlp.py:167`` ``_ambient_passes``):
+# rows 1, 2, 4 and 6 in the ``high`` step, rows 5 and 7-10 with the
+# backward-fusion switch forced to "split" or "primitive".  Their
+# ``passes = 3`` forms here launch the chains of ``csrc/full.cu`` on the
+# tensor cores (the split pass, then each product one 3-pass launch of
+# ``csrc/wgmma.cuh``) or, for widths no multiple of 8 and unaligned views,
+# the first version's 3-pass operand mode (``csrc/gemm.cuh``); never the
+# IEEE fp32 kernel of ``sgemm.cuh``.  A launch counts in its wrapper's
+# ``launches`` and, on the tensor cores, ``split_launches`` (and
+# ``partial_launches`` for a row-parallel form).
 
 # what a 3-pass form takes, in resolve's errors
 TAKES_SPLIT = ("fp32 operands with every width a multiple of "
@@ -427,6 +442,24 @@ def split_scratch(dev, code: int, *shapes) -> Tensor | None:
         return None
     return torch.empty((2 * sum(r * c for r, c in shapes),), device=dev,
                        dtype=torch.bfloat16)
+
+
+def split_workspace(dev, batch: int, summed: Tuple[int, ...],
+                    slices: Tuple[Tuple[int, int, int, int], ...]
+                    ) -> Tensor | None:
+    """The fp32 workspace of a chain of launches on one stream, which take
+    turns with it: the split pass's column-sum partials of ``batch`` rows
+    of each width in ``summed`` (a partial a block of :data:`SPLIT_ROWS`
+    rows, ``csrc/split.cuh``), and each weight gradient's slices ``(split,
+    m, n, outputs)``: ``outputs · split · (m·n + n)`` floats for a dW
+    ``(m, n)`` cut into more than one slice.  None where nothing needs
+    it."""
+    need = max([outs * split * (m * n + n) for split, m, n, outs in slices
+                if split > 1], default=0)
+    blocks = -(-batch // SPLIT_ROWS)
+    if summed and blocks > 1:
+        need = max(need, blocks * max(summed))
+    return torch.empty((need,), device=dev) if need else None
 
 
 def _count3(wrapper, code: int, partial: bool) -> None:
@@ -717,7 +750,8 @@ matmul_nt.sgemm_launches = 0
 matmul_nt.split_launches = 0
 
 
-def matmul_nt_mask(a, w, gate, kernel: str = "auto") -> Tensor:
+def matmul_nt_mask(a, w, gate, kernel: str = "auto", passes: int = 1
+                   ) -> Tensor:
     """The ReLU-backward step ``(a @ wᵀ) · (gate > 0)``: the decoder's
     ``dh3`` from ``da``, ``W4`` and ``h3``.  The gate compares in fp32; one
     rounding to the operand dtype.
@@ -734,12 +768,19 @@ def matmul_nt_mask(a, w, gate, kernel: str = "auto") -> Tensor:
     ``launch_gated``: IEEE FFMAs, the gate's 16-byte chunk read where the
     output's goes); everything else the tiled GEMM on the CUDA cores.
     ``kernel`` names one instead; a kernel named on operands it cannot take
-    raises.  Every kernel gives equal bits on a second launch.  One call
-    counts once in ``launches``, and in ``tensor_core_launches`` or
-    ``sgemm_launches`` too when that one ran."""
+    raises.  Every kernel gives equal bits on a second launch.  ``passes =
+    3`` (fp32 operands: dh3 under the ``high`` tier with the switch forced
+    to "primitive") takes the 3-pass form: one call of
+    ``rvk_matmul_nt_mask3``, on the tensor cores the split pass of a and w,
+    then dh3's gated 3-pass launch of ``dec_bwd_full`` 's chain
+    (``csrc/full.cu`` ``matmul_nt_split``), fp32 out, for widths no multiple
+    of 8 and unaligned views the first version's 3-pass mode.  One call
+    counts once in ``launches``, and in ``tensor_core_launches``,
+    ``sgemm_launches`` or ``split_launches`` too when that one ran."""
     tensor_cores.check_name("matmul_nt_mask", kernel)
+    check_passes(a.dtype, passes)
     if a.device.type == "cpu":
-        return matmul_nt_mask_ref(a, w, gate)
+        return matmul_nt_mask_ref(a, w, gate, passes)
     dev = cuda_device(a, "matmul_nt_mask: a")
     dt = operand_dtype(a, "matmul_nt_mask: a")
     batch, n = a.shape
@@ -747,6 +788,18 @@ def matmul_nt_mask(a, w, gate, kernel: str = "auto") -> Tensor:
     require(a, "a", (batch, n), dev, dt)
     require(w, "w", (m, n), dev, dt)
     require(gate, "gate", (batch, m), dev, dt)
+    if passes == 3:
+        code = resolve_split(
+            "matmul_nt_mask", kernel, batch, n, m,
+            aligned=tensor_cores.pointers_aligned(a, w, gate))
+        out = torch.empty((batch, m), device=dev)
+        if batch:
+            _build.launch("rvk_matmul_nt_mask3", dev, a, w, gate, out,
+                          split_scratch(dev, code, (batch, n), (m, n)),
+                          batch, n, m,
+                          tensor_cores.split_tile(code, dev, batch, m), code)
+            _count3(matmul_nt_mask, code, False)
+        return out
     code = tensor_cores.resolve_kernel(
         "matmul_nt_mask", kernel, dt, batch, n, m,
         tensor_cores.pointers_aligned(a, w, gate))
@@ -765,6 +818,7 @@ def matmul_nt_mask(a, w, gate, kernel: str = "auto") -> Tensor:
 matmul_nt_mask.launches = 0
 matmul_nt_mask.tensor_core_launches = 0
 matmul_nt_mask.sgemm_launches = 0
+matmul_nt_mask.split_launches = 0
 
 
 def matmul_nt2_mask(a1, w1, a2, w2, gate, kernel: str = "auto",
@@ -848,7 +902,8 @@ def _workspace(dev, split: int, m: int, n: int, outputs: int = 1):
                        dtype=torch.float32)
 
 
-def grad_accum(a, b, kernel: str = "auto") -> Tuple[Tensor, Tensor]:
+def grad_accum(a, b, kernel: str = "auto", passes: int = 1
+               ) -> Tuple[Tensor, Tensor]:
     """Weight and bias gradients of ``y = a @ W + bias`` given the
     cotangent ``b``: ``(aᵀ b, colsum(b))`` in fp32, contracting the batch.
 
@@ -867,18 +922,30 @@ def grad_accum(a, b, kernel: str = "auto") -> Tuple[Tensor, Tensor]:
     column sums from the staged ``b``); everything else the tiled GEMM on
     the CUDA cores, each of whose blocks loops over the whole batch for its
     tile of dW.  ``kernel`` names one instead, as for :func:`decoder_fwd`.
-    Every kernel gives equal bits on a second launch.  One call counts once
-    in ``launches``, and in ``tensor_core_launches`` or ``sgemm_launches``
-    too when the tensor cores or the fp32 kernel ran it."""
+    Every kernel gives equal bits on a second launch.  ``passes = 3`` (fp32
+    operands: the ``high`` tier with the switch forced to "split" or
+    "primitive") takes the 3-pass form, both operands split
+    (``pallas_mlp.py:439-449``): one call of ``rvk_grad_accum3``, on the
+    tensor cores the split pass of a and of b with db as b's column sums of
+    the unsplit values, then one 3-pass weight-gradient launch over
+    ``tensor_cores.split_wgrad`` 's slices (``csrc/full.cu``
+    ``grad_accum_split``), for widths no multiple of 8 and unaligned views
+    the first version's 3-pass mode.  One call counts once in ``launches``,
+    and in ``tensor_core_launches``, ``sgemm_launches`` or
+    ``split_launches`` too when the tensor cores, the fp32 kernel or the
+    3-pass tensor cores ran it."""
     tensor_cores.check_name("grad_accum", kernel)
+    check_passes(a.dtype, passes)
     if a.device.type == "cpu":
-        return grad_accum_ref(a, b)
+        return grad_accum_ref(a, b, passes)
     dev = cuda_device(a, "grad_accum: a")
     dt = operand_dtype(a, "grad_accum: a")
     batch, n = a.shape
     m = b.shape[1]
     require(a, "a", (batch, n), dev, dt)
     require(b, "b", (batch, m), dev, dt)
+    if passes == 3:
+        return grad_accum3(kernel, dev, a, (b,))
     code = resolve_grad_accum(kernel, dt, batch, n, m,
                               tensor_cores.pointers_aligned(a, b))
     dw, db = _grads(dev, (n, m), (m,))
@@ -895,6 +962,32 @@ def grad_accum(a, b, kernel: str = "auto") -> Tuple[Tensor, Tensor]:
 grad_accum.launches = 0
 grad_accum.tensor_core_launches = 0
 grad_accum.sgemm_launches = 0
+grad_accum.split_launches = 0
+
+
+def grad_accum3(kernel: str, dev, a, bs) -> Tuple[Tensor, ...]:
+    """The 3-pass form of :func:`grad_accum` (one cotangent in ``bs``) or
+    :func:`grad_accum2` (two) on operands the wrapper has checked → each
+    cotangent's ``(dw, db)`` in turn: one call of ``rvk_grad_accum3`` /
+    ``rvk_grad_accum2_3`` (``csrc/full.cu`` ``grad_accum_split``: the halves
+    of a and of each b, the column sums of each b, one 3-pass launch of
+    ``len(bs)`` outputs; the first version's 3-pass mode)."""
+    op = "grad_accum" if len(bs) == 1 else "grad_accum2"
+    batch, n = a.shape
+    m = bs[0].shape[1]
+    code = resolve_split(op, kernel, batch, n, m,
+                         aligned=tensor_cores.pointers_aligned(a, *bs))
+    grads = _grads(dev, *((n, m), (m,)) * len(bs))
+    tile_dw, split = tensor_cores.split_wgrad(code, dev, n, m, batch,
+                                              len(bs))
+    splits = split_scratch(dev, code, (batch, n), *[(batch, m)] * len(bs))
+    ws = None if splits is None else split_workspace(
+        dev, batch, (m,), ((split, n, m, len(bs)),))
+    _build.launch("rvk_grad_accum3" if len(bs) == 1 else "rvk_grad_accum2_3",
+                  dev, a, *bs, *grads, splits, ws, batch, n, m, tile_dw,
+                  split, code)
+    _count3(grad_accum if len(bs) == 1 else grad_accum2, code, False)
+    return grads
 
 
 def resolve_grad_accum(kernel: str, dtype: torch.dtype, batch: int, n: int,
@@ -913,7 +1006,7 @@ def resolve_grad_accum(kernel: str, dtype: torch.dtype, batch: int, n: int,
         tensor_cores.takes_sgemm(dtype, batch, n, m, aligned))
 
 
-def grad_accum2(a, b1, b2, kernel: str = "auto"
+def grad_accum2(a, b1, b2, kernel: str = "auto", passes: int = 1
                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Two :func:`grad_accum` s that share ``a``: ``(aᵀ b1, colsum(b1),
     aᵀ b2, colsum(b2))`` — the encoder's two latent heads, both
@@ -933,12 +1026,14 @@ def grad_accum2(a, b1, b2, kernel: str = "auto"
     's slices through one workspace); everything else one launch of the
     tiled GEMM on the CUDA cores carrying both products.  ``kernel`` names
     one instead, as for :func:`decoder_fwd`.  Every kernel gives equal bits
-    on a second launch.  One call counts once in ``launches``, and in
-    ``tensor_core_launches`` or ``sgemm_launches`` too when that kernel ran
-    it."""
+    on a second launch.  ``passes = 3`` (fp32 operands) takes the 3-pass
+    form, both heads in one 3-pass launch (:func:`grad_accum3`).  One call
+    counts once in ``launches``, and in ``tensor_core_launches``,
+    ``sgemm_launches`` or ``split_launches`` too when that kernel ran it."""
     tensor_cores.check_name("grad_accum2", kernel)
+    check_passes(a.dtype, passes)
     if a.device.type == "cpu":
-        return grad_accum2_ref(a, b1, b2)
+        return grad_accum2_ref(a, b1, b2, passes)
     dev = cuda_device(a, "grad_accum2: a")
     dt = operand_dtype(a, "grad_accum2: a")
     batch, n = a.shape
@@ -946,6 +1041,8 @@ def grad_accum2(a, b1, b2, kernel: str = "auto"
     require(a, "a", (batch, n), dev, dt)
     require(b1, "b1", (batch, m), dev, dt)
     require(b2, "b2", (batch, m), dev, dt)
+    if passes == 3:
+        return grad_accum3(kernel, dev, a, (b1, b2))
     code = resolve_grad_accum2(kernel, dt, batch, n, m,
                                tensor_cores.pointers_aligned(a, b1, b2))
     dw1, db1, dw2, db2 = _grads(dev, (n, m), (m,), (n, m), (m,))
@@ -965,6 +1062,7 @@ def grad_accum2(a, b1, b2, kernel: str = "auto"
 grad_accum2.launches = 0
 grad_accum2.tensor_core_launches = 0
 grad_accum2.sgemm_launches = 0
+grad_accum2.split_launches = 0
 
 
 def resolve_grad_accum2(kernel: str, dtype: torch.dtype, batch: int, n: int,
@@ -982,8 +1080,8 @@ def resolve_grad_accum2(kernel: str, dtype: torch.dtype, batch: int, n: int,
         tensor_cores.takes_sgemm(dtype, batch, n, m, aligned))
 
 
-def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
-                ) -> Tuple[Tensor, Tensor]:
+def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto",
+                passes: int = 1) -> Tuple[Tensor, Tensor]:
     """Encoder first-layer gradients: ``dh = (dmu@w21ᵀ +
     dlogvar@w22ᵀ)·(h>0)`` rounded to the operand dtype, then ``(xᵀ dh,
     colsum(dh))`` in fp32.
@@ -1003,12 +1101,20 @@ def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
     :func:`decoder_fwd`.  ``dh`` goes through a scratch buffer between the
     two instead of staying in VMEM: at the step's microbatch 32 MB written
     and read back, ~0.02 ms of an H100's memory time.  Every kernel gives
-    equal bits on a second launch.  One call counts once in ``launches``,
-    and in ``tensor_core_launches`` or ``sgemm_launches`` too when that
-    kernel ran it."""
+    equal bits on a second launch.  ``passes = 3`` (fp32 operands: the
+    ``high`` tier with the switch forced to "split") takes the 3-pass form,
+    dh kept fp32: one call of ``rvk_enc_bwd_dw1_3``, on the tensor cores
+    ``enc_bwd_full`` 's chain up to dW1 (``csrc/full.cu``
+    ``enc_bwd_dw1_split``: the split pass of dmu, dlv, W21, W22, dh and x,
+    db1 as dh's column sums of the unsplit values; dh one k-joined gated
+    3-pass launch, dW1 one 3-pass weight gradient), for widths no multiple
+    of 8 and unaligned views the first version's 3-pass mode.  One call
+    counts once in ``launches``, and in ``tensor_core_launches``,
+    ``sgemm_launches`` or ``split_launches`` too when that kernel ran it."""
     tensor_cores.check_name("enc_bwd_dw1", kernel)
+    check_passes(x.dtype, passes)
     if x.device.type == "cpu":
-        return enc_bwd_dw1_ref(x, h, dmu, dlogvar, w21, w22)
+        return enc_bwd_dw1_ref(x, h, dmu, dlogvar, w21, w22, passes)
     dev = cuda_device(x, "enc_bwd_dw1: x")
     dt = operand_dtype(x, "enc_bwd_dw1: x")
     batch, seg = x.shape
@@ -1019,6 +1125,8 @@ def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
     require(dlogvar, "dlogvar", (batch, latent), dev, dt)
     require(w21, "w21", (units, latent), dev, dt)
     require(w22, "w22", (units, latent), dev, dt)
+    if passes == 3:
+        return enc_bwd_dw1_3(kernel, dev, x, h, dmu, dlogvar, w21, w22)
     code = resolve_enc_bwd_dw1(
         kernel, dt, batch, seg, units, latent,
         tensor_cores.pointers_aligned(x, h, dmu, dlogvar, w21, w22))
@@ -1039,6 +1147,33 @@ def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
 enc_bwd_dw1.launches = 0
 enc_bwd_dw1.tensor_core_launches = 0
 enc_bwd_dw1.sgemm_launches = 0
+enc_bwd_dw1.split_launches = 0
+
+
+def enc_bwd_dw1_3(kernel: str, dev, x, h, dmu, dlogvar, w21, w22
+                  ) -> Tuple[Tensor, Tensor]:
+    """The 3-pass form of :func:`enc_bwd_dw1` on operands the wrapper has
+    checked (its docstring): dh fp32 into a scratch buffer, then
+    ``(dw1, db1)``."""
+    batch, seg = x.shape
+    units, latent = h.shape[1], dmu.shape[1]
+    code = resolve_split("enc_bwd_dw1", kernel, batch, seg, units, latent,
+                         aligned=tensor_cores.pointers_aligned(
+                             x, h, dmu, dlogvar, w21, w22))
+    dh = torch.empty((batch, units), device=dev)
+    dw1, db1 = _grads(dev, (seg, units), (units,))
+    tile_dw, split = tensor_cores.split_wgrad(code, dev, seg, units, batch)
+    splits = split_scratch(dev, code, (batch, latent), (batch, latent),
+                           (units, latent), (units, latent), (batch, units),
+                           (batch, seg))
+    ws = None if splits is None else split_workspace(
+        dev, batch, (units,), ((split, seg, units, 1),))
+    _build.launch("rvk_enc_bwd_dw1_3", dev, x, h, dmu, dlogvar, w21, w22, dh,
+                  dw1, db1, splits, ws, batch, seg, units, latent,
+                  tensor_cores.split_tile(code, dev, batch, units), tile_dw,
+                  split, code)
+    _count3(enc_bwd_dw1, code, False)
+    return dw1, db1
 
 
 def resolve_enc_bwd_dw1(kernel: str, dtype: torch.dtype, batch: int,
@@ -1060,7 +1195,7 @@ def resolve_enc_bwd_dw1(kernel: str, dtype: torch.dtype, batch: int,
         and tensor_cores.takes_sgemm(dtype, batch, seg, units))
 
 
-def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
+def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto", passes: int = 1
                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """Decoder backward minus the dW4 product: ``dh3 = (da@w4ᵀ)·(h3>0)``
     rounded to the operand dtype feeds ``dz = dh3@w3ᵀ`` (operand dtype)
@@ -1080,12 +1215,20 @@ def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
     plans); everything else the tiled GEMM on the CUDA cores.  ``kernel``
     names one instead, as for :func:`decoder_fwd`.  ``dh3`` goes through a
     scratch buffer instead of staying in VMEM.  Every kernel gives equal
-    bits on a second launch.  One call counts once in ``launches``, and in
-    ``tensor_core_launches`` or ``sgemm_launches`` too when that kernel ran
-    it."""
+    bits on a second launch.  ``passes = 3`` (fp32 operands: the ``high``
+    tier with the switch forced to "split") takes the 3-pass form, dh3 kept
+    fp32 and dz fp32: one call of ``rvk_dec_bwd_fused3``, on the tensor
+    cores ``dec_bwd_full`` 's chain up to dW3 (``csrc/full.cu``
+    ``dec_bwd_fused_split``: the split pass of da, W4, dh3, W3 and z, db3
+    as dh3's column sums; dh3, dz and dW3 each one 3-pass launch), for
+    widths no multiple of 8 and unaligned views the first version's 3-pass
+    mode.  One call counts once in ``launches``, and in
+    ``tensor_core_launches``, ``sgemm_launches`` or ``split_launches`` too
+    when that kernel ran it."""
     tensor_cores.check_name("dec_bwd_fused", kernel)
+    check_passes(da.dtype, passes)
     if da.device.type == "cpu":
-        return dec_bwd_fused_ref(da, h3, z, w4, w3)
+        return dec_bwd_fused_ref(da, h3, z, w4, w3, passes)
     dev = cuda_device(da, "dec_bwd_fused: da")
     dt = operand_dtype(da, "dec_bwd_fused: da")
     batch, seg = da.shape
@@ -1095,6 +1238,8 @@ def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
     require(z, "z", (batch, latent), dev, dt)
     require(w4, "w4", (units, seg), dev, dt)
     require(w3, "w3", (latent, units), dev, dt)
+    if passes == 3:
+        return dec_bwd_fused3(kernel, dev, da, h3, z, w4, w3)
     code = resolve_dec_bwd(kernel, dt, batch, seg, units, latent,
                            tensor_cores.pointers_aligned(da, h3, z, w4, w3))
     dh3 = torch.empty((batch, units), device=dev, dtype=dt)
@@ -1116,6 +1261,33 @@ def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto"
 dec_bwd_fused.launches = 0
 dec_bwd_fused.tensor_core_launches = 0
 dec_bwd_fused.sgemm_launches = 0
+dec_bwd_fused.split_launches = 0
+
+
+def dec_bwd_fused3(kernel: str, dev, da, h3, z, w4, w3
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The 3-pass form of :func:`dec_bwd_fused` on operands the wrapper
+    has checked (its docstring) → ``(dz, dw3, db3)``, dz fp32."""
+    batch, seg = da.shape
+    units, latent = h3.shape[1], z.shape[1]
+    code = resolve_split("dec_bwd_fused", kernel, batch, seg, units, latent,
+                         aligned=tensor_cores.pointers_aligned(
+                             da, h3, z, w4, w3))
+    dh3 = torch.empty((batch, units), device=dev)
+    dz = torch.empty((batch, latent), device=dev)
+    dw3, db3 = _grads(dev, (latent, units), (units,))
+    tile_dw, split = tensor_cores.split_wgrad(code, dev, latent, units, batch)
+    splits = split_scratch(dev, code, (batch, seg), (units, seg),
+                           (batch, units), (latent, units), (batch, latent))
+    ws = None if splits is None else split_workspace(
+        dev, batch, (units,), ((split, latent, units, 1),))
+    _build.launch("rvk_dec_bwd_fused3", dev, da, h3, z, w4, w3, dh3, dz, dw3,
+                  db3, splits, ws, batch, seg, units, latent,
+                  tensor_cores.split_tile(code, dev, batch, units),
+                  tensor_cores.split_tile(code, dev, batch, latent), tile_dw,
+                  split, code)
+    _count3(dec_bwd_fused, code, False)
+    return dz, dw3, db3
 
 
 def resolve_dec_bwd(kernel: str, dtype: torch.dtype, batch: int, seg: int,
@@ -1139,9 +1311,11 @@ def resolve_dec_bwd(kernel: str, dtype: torch.dtype, batch: int, seg: int,
 
 
 def full_passes(dtype: torch.dtype) -> int:
-    """The pass count of a full chain: fp32 operands reach it only as the
-    ``high`` tier, whose products are the 3-pass ones; bf16 operands take
-    one pass."""
+    """The pass count of a full chain called with none: three for fp32
+    operands (the ``high`` tier's chains, the form the JAX package's "auto"
+    switch gives them), one for bf16.  The autograd Functions always pass
+    the forward's count (one fp32 pass under ``float32`` / ``highest`` with
+    "full" forced)."""
     return 3 if dtype == torch.float32 else 1
 
 
@@ -1187,67 +1361,75 @@ def full_scratch(dev, code: int, dtype: torch.dtype, chain: str, batch: int,
                  seg: int, units: int, latent: int, plan: tuple):
     """``(splits, workspace)`` of a full chain (``chain`` "enc" or "dec")
     launched with ``code`` and ``plan`` (``tensor_cores.full_plan``):
-    ``splits`` the bf16 halves of every fp32 operand the tensor-core chain
-    splits, in the order ``csrc/full.cu`` takes them (fp32 on the tensor
-    cores only); ``workspace`` fp32 room for the largest of the weight
-    gradients' slices and the split pass's column-sum partials, which run
-    one after another on one stream and share it.  None where nothing is
-    needed (and for the first version)."""
-    if code != tensor_cores.TENSOR_CORES:
+    ``splits`` the bf16 halves of every fp32 operand the 3-pass chain on
+    the tensor cores splits, in the order ``csrc/full.cu`` takes them;
+    ``workspace`` (:func:`split_workspace`) fp32 room for the largest of the
+    weight gradients' slices and, in three passes, the split pass's
+    column-sum partials, which run one after another on one stream and
+    share it (the fp32 kernel's two head gradients one after the other,
+    the tensor cores' side by side).  None where nothing is needed (and for
+    the first version)."""
+    if code not in (tensor_cores.TENSOR_CORES, tensor_cores.SGEMM):
         return None, None
     if chain == "enc":
-        slices = ((plan[2], seg, units, 1), (plan[4], units, latent, 2))
-        halves = ((batch, seg), (batch, units), (batch, latent),
-                  (batch, latent), (units, latent), (units, latent),
+        heads = 2 if code == tensor_cores.TENSOR_CORES else 1
+        slices = ((plan[2], seg, units, 1), (plan[4], units, latent, heads))
+        halves = ((batch, latent), (batch, latent), (units, latent),
+                  (units, latent), (batch, units), (batch, seg),
                   (batch, units))
         summed = (latent, units)            # dmu and dlogvar; dh
     else:
         slices = ((plan[3], latent, units, 1), (plan[5], units, seg, 1))
-        halves = ((batch, seg), (batch, units), (batch, latent),
-                  (units, seg), (latent, units), (batch, units))
+        halves = ((batch, seg), (units, seg), (batch, units),
+                  (latent, units), (batch, latent), (batch, units))
         summed = (seg, units)               # da; dh3
-    need = max([outs * split * (m * n + n) for split, m, n, outs in slices
-                if split > 1], default=0)
-    splits = None
-    if dtype == torch.float32:
-        blocks = -(-batch // SPLIT_ROWS)
-        if blocks > 1:
-            need = max(need, blocks * max(summed))
-        splits = torch.empty((2 * sum(r * c for r, c in halves),),
-                             device=dev, dtype=torch.bfloat16)
-    workspace = torch.empty((need,), device=dev) if need else None
-    return splits, workspace
+    if dtype != torch.float32 or code == tensor_cores.SGEMM:
+        return None, split_workspace(dev, batch, (), slices)
+    return (split_scratch(dev, code, *halves),
+            split_workspace(dev, batch, summed, slices))
 
 
 def resolve_full(op: str, kernel: str, dtype: torch.dtype, batch: int,
-                 seg: int, units: int, latent: int,
-                 aligned: bool = True) -> int:
+                 seg: int, units: int, latent: int, aligned: bool = True,
+                 passes: int | None = None) -> int:
     """The kernel code a full chain (``op``: ``enc_bwd_full`` or
-    ``dec_bwd_full``) launches with: the tensor cores when
-    ``tensor_cores.takes_full_chain`` holds (fp32: the 3-pass chain of
-    ``csrc/full.cu``; bf16: the split backward's tensor-core launches),
-    else the first version; ``kernel`` names one instead
-    (``tensor_cores.resolve``; it has no fp32 ``sgemm`` form)."""
+    ``dec_bwd_full``) launches with in ``passes`` passes (None:
+    :func:`full_passes`): the tensor cores when
+    ``tensor_cores.takes_full_chain`` holds for bf16 operands (the split
+    backward's tensor-core launches) or fp32 ones in three passes (the
+    3-pass chain of ``csrc/full.cu``); the fp32 kernel for fp32 operands in
+    one pass when ``tensor_cores.takes_sgemm`` holds for every product
+    (``csrc/sgemm.cuh``, the split kernels' fp32 launches in turn); else
+    the first version.  ``kernel`` names one instead
+    (``tensor_cores.resolve``)."""
+    passes = full_passes(dtype) if passes is None else passes
+    ieee = dtype == torch.float32 and passes == 1
     return tensor_cores.resolve(
         op, kernel,
-        tensor_cores.takes_full_chain(dtype, batch, seg, units, latent,
-                                      aligned=aligned),
-        lambda: f"{dtype}, batch {batch}, seg {seg}, units {units}, latent "
-                f"{latent}, aligned = {aligned}",
-        takes="fp32 or bf16 operands with seg, units and latent multiples "
-              f"of {tensor_cores.TMA_ALIGN_BF16}, at least one row and "
-              "16-byte aligned pointers")
+        not ieee and tensor_cores.takes_full_chain(
+            dtype, batch, seg, units, latent, aligned=aligned),
+        lambda: f"{dtype}, {passes} passes, batch {batch}, seg {seg}, units "
+                f"{units}, latent {latent}, aligned = {aligned}",
+        ieee and tensor_cores.takes_sgemm(dtype, batch, seg, units, aligned)
+        and tensor_cores.takes_sgemm(dtype, batch, units, latent),
+        takes="fp32 or bf16 operands (fp32 in three passes) with seg, units "
+              f"and latent multiples of {tensor_cores.TMA_ALIGN_BF16}, at "
+              "least one row and 16-byte aligned pointers",
+        takes_sgemm="fp32 operands in one pass with seg, units and latent "
+                    f"multiples of {tensor_cores.SGEMM_ALIGN_F32}, at least "
+                    "one row and 16-byte aligned pointers")
 
 
-def enc_bwd_full(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
-                 ) -> Tuple[Tensor, ...]:
+def enc_bwd_full(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto",
+                 passes: int | None = None) -> Tuple[Tensor, ...]:
     """The encoder's whole parameter backward from one call → ``(dw1, db1,
     dw21, db21, dw22, db22)`` in fp32: ``dh = (dmu@w21ᵀ +
     dlogvar@w22ᵀ)·(h>0)`` feeds ``(xᵀ dh, colsum(dh))`` and one read of
-    ``h`` feeds both head gradients.  fp32 operands (the ``high`` tier) run
-    every product as the bf16 hi/lo 3-pass product with ``dh`` kept in
-    fp32; bf16 operands take one pass and round ``dh`` to bf16
-    (:func:`full_passes`).
+    ``h`` feeds both head gradients.  ``passes`` (None:
+    :func:`full_passes`): 3, fp32 operands (the ``high`` tier), every
+    product the bf16 hi/lo 3-pass product with ``dh`` kept in fp32; 1, dh
+    rounded to the operand dtype (a no-op for fp32: the ``float32`` /
+    ``highest`` tiers with "full" forced, ``pallas_mlp.py:776-785``).
 
     Replaces ``rawaudiovae_kelsey_tpu/ops/pallas_mlp.py`` ``enc_bwd_full``.
     CUDA: one call of ``rvk_enc_bwd_full`` (``csrc/bwd.cu``), a chain of
@@ -1262,17 +1444,23 @@ def enc_bwd_full(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
     backward's launches (:func:`enc_bwd_dw1` 's, then :func:`grad_accum2`
     's), each product's tile and slices from ``tensor_cores.full_plan``
     and the halves and slices in scratch allocated here
-    (:func:`full_scratch`); everything else the first version, three
-    launches of the tiled GEMM on the CUDA cores.  ``kernel`` names one
-    instead; naming the tensor cores for operands they cannot take raises.
-    ``dh`` goes through a scratch buffer instead of staying in VMEM.  Both
-    forms give equal bits on a second launch.  One call counts once in
-    ``launches``, and in ``tensor_core_launches`` too when the tensor
-    cores ran it."""
+    (:func:`full_scratch`); fp32 operands in one pass with the widths
+    multiples of 4 and 16-byte aligned pointers the fp32 kernel
+    (``csrc/sgemm.cuh``: :func:`enc_bwd_dw1` 's fp32 launches, then
+    :func:`grad_accum2` 's, each at its plan from ``tensor_cores.full_plan``;
+    the IEEE one-pass chain of rows 6 and 7); everything else the first
+    version, three launches of the tiled GEMM on the CUDA cores in
+    ``passes`` passes.  ``kernel`` names one instead; naming a kernel for
+    operands it cannot take raises.  ``dh`` goes through a scratch buffer
+    instead of staying in VMEM.  Every form gives equal bits on a second
+    launch.  One call counts once in ``launches``, and in
+    ``tensor_core_launches`` or ``sgemm_launches`` too when the tensor cores
+    or the fp32 kernel ran it."""
     tensor_cores.check_name("enc_bwd_full", kernel)
+    passes = full_passes(x.dtype) if passes is None else passes
+    check_passes(x.dtype, passes)
     if x.device.type == "cpu":
-        return enc_bwd_full_ref(x, h, dmu, dlogvar, w21, w22,
-                                full_passes(x.dtype))
+        return enc_bwd_full_ref(x, h, dmu, dlogvar, w21, w22, passes)
     dev = cuda_device(x, "enc_bwd_full: x")
     dt = operand_dtype(x, "enc_bwd_full: x")
     batch, seg = x.shape
@@ -1285,7 +1473,7 @@ def enc_bwd_full(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
     require(w22, "w22", (units, latent), dev, dt)
     code = resolve_full(
         "enc_bwd_full", kernel, dt, batch, seg, units, latent,
-        tensor_cores.pointers_aligned(x, h, dmu, dlogvar, w21, w22))
+        tensor_cores.pointers_aligned(x, h, dmu, dlogvar, w21, w22), passes)
     dh = torch.empty((batch, units), device=dev, dtype=dt)
     grads = _grads(dev, (seg, units), (units,), (units, latent), (latent,),
                    (units, latent), (latent,))
@@ -1295,18 +1483,20 @@ def enc_bwd_full(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto"
                                      latent, plan)
     _build.launch("rvk_enc_bwd_full", dev, x, h, dmu, dlogvar, w21, w22, dh,
                   *grads, splits, workspace, batch, seg, units, latent,
-                  DTYPE_CODES[dt], *plan, code)
+                  DTYPE_CODES[dt], passes, *plan, code)
     enc_bwd_full.launches += 1
     enc_bwd_full.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+    enc_bwd_full.sgemm_launches += code == tensor_cores.SGEMM
     return grads
 
 
 enc_bwd_full.launches = 0
 enc_bwd_full.tensor_core_launches = 0
+enc_bwd_full.sgemm_launches = 0
 
 
-def dec_bwd_full(da, h3, z, w4, w3, kernel: str = "auto"
-                 ) -> Tuple[Tensor, ...]:
+def dec_bwd_full(da, h3, z, w4, w3, kernel: str = "auto",
+                 passes: int | None = None) -> Tuple[Tensor, ...]:
     """The decoder's whole backward from one call → ``(dz, dw3, db3, dw4,
     db4)``: ``dh3 = (da@w4ᵀ)·(h3>0)`` feeds ``dz = dh3@w3ᵀ`` (operand
     dtype) and ``(zᵀ dh3, colsum(dh3))``; ``(h3ᵀ da, colsum(da))`` comes
@@ -1319,12 +1509,15 @@ def dec_bwd_full(da, h3, z, w4, w3, kernel: str = "auto"
     db4 and db3 as fp32 column sums; dh3 gated in fp32, dz, dW3 and dW4 as
     3-pass products), bf16 ones the split backward's launches
     (:func:`dec_bwd_fused` 's, then :func:`grad_accum` 's for dW4 and db4);
-    everything else four launches of the tiled GEMM.  ``dh3`` goes through
-    a scratch buffer instead of staying in VMEM.  Counted as
-    :func:`enc_bwd_full` is."""
+    fp32 ones in one pass on the fp32 kernel (:func:`dec_bwd_fused` 's fp32
+    launches, then :func:`grad_accum` 's: rows 5, 4, 7, 7); everything else
+    four launches of the tiled GEMM.  ``dh3`` goes through a scratch buffer
+    instead of staying in VMEM.  Counted as :func:`enc_bwd_full` is."""
     tensor_cores.check_name("dec_bwd_full", kernel)
+    passes = full_passes(da.dtype) if passes is None else passes
+    check_passes(da.dtype, passes)
     if da.device.type == "cpu":
-        return dec_bwd_full_ref(da, h3, z, w4, w3, full_passes(da.dtype))
+        return dec_bwd_full_ref(da, h3, z, w4, w3, passes)
     dev = cuda_device(da, "dec_bwd_full: da")
     dt = operand_dtype(da, "dec_bwd_full: da")
     batch, seg = da.shape
@@ -1336,7 +1529,8 @@ def dec_bwd_full(da, h3, z, w4, w3, kernel: str = "auto"
     require(w3, "w3", (latent, units), dev, dt)
     code = resolve_full("dec_bwd_full", kernel, dt, batch, seg, units,
                         latent,
-                        tensor_cores.pointers_aligned(da, h3, z, w4, w3))
+                        tensor_cores.pointers_aligned(da, h3, z, w4, w3),
+                        passes)
     dh3 = torch.empty((batch, units), device=dev, dtype=dt)
     dz = torch.empty((batch, latent), device=dev, dtype=dt)
     grads = _grads(dev, (latent, units), (units,), (units, seg), (seg,))
@@ -1346,14 +1540,16 @@ def dec_bwd_full(da, h3, z, w4, w3, kernel: str = "auto"
                                      latent, plan)
     _build.launch("rvk_dec_bwd_full", dev, da, h3, z, w4, w3, dh3, dz,
                   *grads, splits, workspace, batch, seg, units, latent,
-                  DTYPE_CODES[dt], *plan, code)
+                  DTYPE_CODES[dt], passes, *plan, code)
     dec_bwd_full.launches += 1
     dec_bwd_full.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+    dec_bwd_full.sgemm_launches += code == tensor_cores.SGEMM
     return (dz, *grads)
 
 
 dec_bwd_full.launches = 0
 dec_bwd_full.tensor_core_launches = 0
+dec_bwd_full.sgemm_launches = 0
 
 
 # ------------------------------------------------------ autograd Functions
@@ -1361,19 +1557,40 @@ dec_bwd_full.tensor_core_launches = 0
 # the backward modes of Encode / Decode (the JAX package's ``_fusion``)
 BACKWARD_MODES = ("primitive", "split", "full")
 
+# The backward-fusion switch, the JAX package's ``pallas_mlp.py:993``
+# ``BWD_FUSION``: "auto" (the rule of :func:`fusion`) or one of
+# BACKWARD_MODES, forced for every dtype and tier.  JAX reads it when it
+# traces a step; here it is read when a step's model is built
+# (``models/registry.py`` ``backward_fusion``: ``build_model`` and
+# ``parallel/tensor_parallel.py`` ``tensor_parallel_model``), so a step
+# keeps the mode it was built with, as a traced JAX step keeps its trace;
+# :func:`encode` / :func:`decode` called with no mode read it at the call.
+# JAX's "auto" rule is its TPU measurement (``pallas_mlp.py:984-992``),
+# kept as it is.
+BWD_FUSION = "auto"
 
-def backward_mode(dtype: torch.dtype, fp32_backward: str) -> str:
-    """The backward mode for operands of ``dtype``: fp32 takes
-    ``fp32_backward`` ("primitive" for the ``float32`` and ``highest``
-    tiers, "full" for ``high``, as ``pallas_mlp.py`` ``_fusion`` picks);
-    bf16 takes "split" unless "full" is asked for by name (the JAX
-    package's ``BWD_FUSION = "full"``)."""
-    if fp32_backward not in BACKWARD_MODES:
-        raise ValueError(f"unknown backward mode {fp32_backward!r}; "
-                         f"expected one of {BACKWARD_MODES}")
-    if dtype == torch.float32 or fp32_backward == "full":
-        return fp32_backward
-    return "split"
+
+def fusion(dtype: torch.dtype, passes: int = 1) -> str:
+    """The backward mode for operands of ``dtype`` whose products take
+    ``passes`` passes (:func:`check_passes`), as ``pallas_mlp.py:996``
+    ``_fusion`` picks it: a forced :data:`BWD_FUSION` as it is; under
+    "auto", "full" at three passes (the ``high`` tier), "primitive" for
+    fp32 operands in one pass (``float32`` / ``highest``), "split"
+    otherwise (bf16)."""
+    check_passes(dtype, passes)
+    if BWD_FUSION != "auto":
+        return check_mode(BWD_FUSION)
+    if passes == 3:
+        return "full"
+    return "primitive" if dtype == torch.float32 else "split"
+
+
+def check_mode(mode: str) -> str:
+    """``mode`` if it is one of :data:`BACKWARD_MODES`; raises otherwise."""
+    if mode not in BACKWARD_MODES:
+        raise ValueError(f"unknown backward mode {mode!r}; expected one of "
+                         f"{BACKWARD_MODES} (or 'auto' for BWD_FUSION)")
+    return mode
 
 
 def encode_input_grad(h, dmu, dlogvar, w1, w21, w22, passes: int = 1
@@ -1387,36 +1604,35 @@ def encode_input_grad(h, dmu, dlogvar, w1, w21, w22, passes: int = 1
         passes=passes)
 
 
-def encode_grads(mode: str, x, h, dmu, dlogvar, w1, w21, w22,
+def encode_grads(mode: str, passes: int, x, h, dmu, dlogvar, w1, w21, w22,
                  need_dx: bool) -> Tuple[Tensor, ...]:
-    """The backward of :class:`Encode` in ``mode`` → ``(dx, dw1, db1, dw21,
-    db21, dw22, db22)``, the gradients in fp32 (``dx`` in the operand dtype,
-    None unless ``need_dx``): "split", :func:`enc_bwd_dw1` and
-    :func:`grad_accum2`; "primitive", :func:`matmul_nt2_mask` then three
-    :func:`grad_accum`; "full", :func:`enc_bwd_full`, and ``dx`` in as many
-    passes as its chain (:func:`full_passes`: three for fp32 operands, the
-    ``high`` tier's, ``pallas_mlp.py:1038-1041`` under the ambient tier).
-    The tensor-parallel encoder (``parallel/tensor_parallel.py``) calls it
-    on a rank's shards."""
+    """The backward of :class:`Encode` in ``mode`` with every product in
+    ``passes`` passes (the forward's; ``pallas_mlp.py:1012-1041`` under the
+    ambient tier) → ``(dx, dw1, db1, dw21, db21, dw22, db22)``, the
+    gradients in fp32 (``dx`` in the operand dtype, None unless
+    ``need_dx``): "split", :func:`enc_bwd_dw1` and :func:`grad_accum2`;
+    "primitive", :func:`matmul_nt2_mask` then three :func:`grad_accum`;
+    "full", :func:`enc_bwd_full`.  The tensor-parallel encoder
+    (``parallel/tensor_parallel.py``) calls it on a rank's shards."""
     dx = None
     if mode == "primitive":
-        dh = matmul_nt2_mask(dmu, w21, dlogvar, w22, h)
-        dw1, db1 = grad_accum(x, dh)
-        dw21, db21 = grad_accum(h, dmu)
-        dw22, db22 = grad_accum(h, dlogvar)
+        dh = matmul_nt2_mask(dmu, w21, dlogvar, w22, h, passes=passes)
+        dw1, db1 = grad_accum(x, dh, passes=passes)
+        dw21, db21 = grad_accum(h, dmu, passes=passes)
+        dw22, db22 = grad_accum(h, dlogvar, passes=passes)
         if need_dx:
-            dx = matmul_nt(dh, w1)   # dh is live already: reuse it
-    elif mode == "full":
-        dw1, db1, dw21, db21, dw22, db22 = enc_bwd_full(
-            x, h, dmu, dlogvar, w21, w22)
-        if need_dx:
-            dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22,
-                                   full_passes(x.dtype))
+            dx = matmul_nt(dh, w1, passes=passes)   # dh is live: reuse it
     else:
-        dw1, db1 = enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22)
-        dw21, db21, dw22, db22 = grad_accum2(h, dmu, dlogvar)
+        if mode == "full":
+            dw1, db1, dw21, db21, dw22, db22 = enc_bwd_full(
+                x, h, dmu, dlogvar, w21, w22, passes=passes)
+        else:
+            dw1, db1 = enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22,
+                                   passes=passes)
+            dw21, db21, dw22, db22 = grad_accum2(h, dmu, dlogvar,
+                                                 passes=passes)
         if need_dx:
-            dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22)
+            dx = encode_input_grad(h, dmu, dlogvar, w1, w21, w22, passes)
     return dx, dw1, db1, dw21, db21, dw22, db22
 
 
@@ -1427,44 +1643,80 @@ def tanh_cotangent(dy: Tensor, y: Tensor) -> Tensor:
     return (_f(dy) * (1.0 - _f(y) * _f(y))).to(dy.dtype)
 
 
-def decode_grads(mode: str, da, h3, z, w3, w4) -> Tuple[Tensor, ...]:
-    """The backward of :class:`Decode` in ``mode`` from the cotangent
-    ``da`` before the tanh → ``(dz, dw3, db3, dw4, db4)``: "split",
-    :func:`dec_bwd_fused` and :func:`grad_accum`; "primitive",
-    :func:`matmul_nt_mask`, :func:`matmul_nt` and two :func:`grad_accum`;
-    "full", :func:`dec_bwd_full`."""
+def decode_grads(mode: str, passes: int, da, h3, z, w3, w4
+                 ) -> Tuple[Tensor, ...]:
+    """The backward of :class:`Decode` in ``mode`` with every product in
+    ``passes`` passes, from the cotangent ``da`` before the tanh → ``(dz,
+    dw3, db3, dw4, db4)``: "split", :func:`dec_bwd_fused` and
+    :func:`grad_accum`; "primitive", :func:`matmul_nt_mask`,
+    :func:`matmul_nt` and two :func:`grad_accum`; "full",
+    :func:`dec_bwd_full` (``pallas_mlp.py:1074-1091``)."""
     if mode == "full":
-        return dec_bwd_full(da, h3, z, w4, w3)
+        return dec_bwd_full(da, h3, z, w4, w3, passes=passes)
     if mode == "primitive":
-        dh3 = matmul_nt_mask(da, w4, h3)
-        dz = matmul_nt(dh3, w3)
-        dw3, db3 = grad_accum(z, dh3)
-        dw4, db4 = grad_accum(h3, da)
+        dh3 = matmul_nt_mask(da, w4, h3, passes=passes)
+        dz = matmul_nt(dh3, w3, passes=passes)
+        dw3, db3 = grad_accum(z, dh3, passes=passes)
+        dw4, db4 = grad_accum(h3, da, passes=passes)
         return dz, dw3, db3, dw4, db4
-    dz, dw3, db3 = dec_bwd_fused(da, h3, z, w4, w3)
-    dw4, db4 = grad_accum(h3, da)
+    dz, dw3, db3 = dec_bwd_fused(da, h3, z, w4, w3, passes=passes)
+    dw4, db4 = grad_accum(h3, da, passes=passes)
+    return dz, dw3, db3, dw4, db4
+
+
+def encoder_bwd(w1, w21, w22, x, h, dmu, dlogvar, passes: int = 1
+                ) -> Tuple[Tensor, ...]:
+    """Backward of :func:`encoder_fwd` → ``(dx, dw1, db1, dw21, db21, dw22,
+    db22)`` from the primitive kernels alone, every product in ``passes``
+    passes: the counterpart of ``pallas_mlp.py:938`` ``encoder_bwd``
+    (:func:`matmul_nt2_mask`, :func:`matmul_nt`, three
+    :func:`grad_accum`)."""
+    dh = matmul_nt2_mask(dmu, w21, dlogvar, w22, h, passes=passes)
+    dx = matmul_nt(dh, w1, passes=passes)
+    dw1, db1 = grad_accum(x, dh, passes=passes)
+    dw21, db21 = grad_accum(h, dmu, passes=passes)
+    dw22, db22 = grad_accum(h, dlogvar, passes=passes)
+    return dx, dw1, db1, dw21, db21, dw22, db22
+
+
+def decoder_bwd(w3, w4, z, h3, y, dy, passes: int = 1
+                ) -> Tuple[Tensor, ...]:
+    """Backward of :func:`decoder_fwd` → ``(dz, dw3, db3, dw4, db4)`` from
+    the primitive kernels alone, every product in ``passes`` passes: the
+    counterpart of ``pallas_mlp.py:950`` ``decoder_bwd`` (the tanh
+    cotangent, :func:`matmul_nt_mask`, :func:`matmul_nt`, two
+    :func:`grad_accum`).  The cotangent ``da = dy·(1 - y²)`` is
+    :func:`tanh_cotangent` 's: fp32 inside, one rounding to dy's dtype
+    (the same values in fp32; JAX's bf16 elementwise pass may round
+    between its ops)."""
+    da = tanh_cotangent(dy, y)
+    dh3 = matmul_nt_mask(da, w4, h3, passes=passes)
+    dz = matmul_nt(dh3, w3, passes=passes)
+    dw4, db4 = grad_accum(h3, da, passes=passes)
+    dw3, db3 = grad_accum(z, dh3, passes=passes)
     return dz, dw3, db3, dw4, db4
 
 
 class Encode(torch.autograd.Function):
     """``(mode, passes, x, w1, b1, w21, b21, w22, b22) → (mu, logvar)``
     through :func:`encoder_fwd` in ``passes`` passes; backward
-    :func:`encode_grads`.  Saves ``(x, h)`` as residuals."""
+    :func:`encode_grads` in ``mode`` and the same passes.  Saves ``(x,
+    h)`` as residuals."""
 
     @staticmethod
     def forward(ctx, mode, passes, x, w1, b1, w21, b21, w22, b22):
         mu, logvar, h = encoder_fwd(w1, b1, w21, b21, w22, b22, x,
                                     passes=passes)
         ctx.save_for_backward(x, h, w1, w21, w22)
-        ctx.mode = mode
+        ctx.mode, ctx.passes = mode, passes
         return mu, logvar
 
     @staticmethod
     def backward(ctx, dmu, dlogvar):
         x, h, w1, w21, w22 = ctx.saved_tensors
-        dx, *grads = encode_grads(ctx.mode, x, h, dmu.contiguous(),
-                                  dlogvar.contiguous(), w1, w21, w22,
-                                  ctx.needs_input_grad[2])
+        dx, *grads = encode_grads(ctx.mode, ctx.passes, x, h,
+                                  dmu.contiguous(), dlogvar.contiguous(),
+                                  w1, w21, w22, ctx.needs_input_grad[2])
         dt = w1.dtype
         return (None, None, dx, *(g.to(dt) for g in grads))
 
@@ -1472,20 +1724,21 @@ class Encode(torch.autograd.Function):
 class Decode(torch.autograd.Function):
     """``(mode, passes, z, w3, b3, w4, b4) → y`` through
     :func:`decoder_fwd` in ``passes`` passes; backward
-    :func:`decode_grads`.  Saves ``(z, h3, y)`` as residuals."""
+    :func:`decode_grads` in ``mode`` and the same passes.  Saves ``(z, h3,
+    y)`` as residuals."""
 
     @staticmethod
     def forward(ctx, mode, passes, z, w3, b3, w4, b4):
         y, h3 = decoder_fwd(w3, b3, w4, b4, z, passes=passes)
         ctx.save_for_backward(z, h3, y, w3, w4)
-        ctx.mode = mode
+        ctx.mode, ctx.passes = mode, passes
         return y
 
     @staticmethod
     def backward(ctx, dy):
         z, h3, y, w3, w4 = ctx.saved_tensors
-        dz, *grads = decode_grads(ctx.mode, tanh_cotangent(dy, y), h3, z,
-                                  w3, w4)
+        dz, *grads = decode_grads(ctx.mode, ctx.passes,
+                                  tanh_cotangent(dy, y), h3, z, w3, w4)
         dt = w3.dtype
         return (None, None, dz, *(g.to(dt) for g in grads))
 
@@ -1493,28 +1746,32 @@ class Decode(torch.autograd.Function):
 Params = Dict[str, Dict[str, Tensor]]
 
 
-def encode(params: Params, x: Tensor, fp32_backward: str = "primitive",
+def encode(params: Params, x: Tensor, mode: str | None = None,
            passes: int = 1) -> Tuple[Tensor, Tensor]:
     """``models.vae.encode`` through the kernels (the role of the JAX
-    package's ``pallas_encode``).  ``fp32_backward`` is the backward mode
-    of fp32 operands (:func:`backward_mode`); ``passes`` the forward's pass
-    count (3: the ``high`` tier inside a step, ``models/registry.py``
-    ``under_tier``)."""
+    package's ``pallas_encode``).  ``mode`` the backward mode
+    (:data:`BACKWARD_MODES`; a step's model binds it when it is built,
+    ``models/registry.py`` ``backward_fusion``), None: :func:`fusion` of
+    x's dtype and ``passes``, read at this call; ``passes`` the pass count
+    of every product, forward and backward (3: the ``high`` tier inside a
+    step, ``models/registry.py`` ``under_tier``)."""
     return Encode.apply(
-        backward_mode(x.dtype, fp32_backward), passes, x,
+        fusion(x.dtype, passes) if mode is None else check_mode(mode),
+        passes, x,
         params["fc1"]["w"], params["fc1"]["b"],
         params["fc21"]["w"], params["fc21"]["b"],
         params["fc22"]["w"], params["fc22"]["b"],
     )
 
 
-def decode(params: Params, z: Tensor, fp32_backward: str = "primitive",
+def decode(params: Params, z: Tensor, mode: str | None = None,
            passes: int = 1) -> Tensor:
     """``models.vae.decode`` through the kernels (the role of the JAX
-    package's ``pallas_decode``).  ``fp32_backward`` and ``passes`` as in
+    package's ``pallas_decode``).  ``mode`` and ``passes`` as in
     :func:`encode`."""
     return Decode.apply(
-        backward_mode(z.dtype, fp32_backward), passes, z,
+        fusion(z.dtype, passes) if mode is None else check_mode(mode),
+        passes, z,
         params["fc3"]["w"], params["fc3"]["b"],
         params["fc4"]["w"], params["fc4"]["b"],
     )

@@ -32,8 +32,9 @@ the cotangent formed in registers; and the full chains
 ``linear_fwd``, ``linear_ksplit_fwd``, ``matmul_nt``, ``matmul_nt_mask``,
 ``matmul_nt2_mask``, ``grad_accum``, ``grad_accum2``, ``enc_bwd_dw1``,
 ``dec_bwd_fused``, ``encoder_fwd``, ``decoder_fwd``, ``dx_fused``,
-``dw_fused`` and ``toeplitz_fwd`` (its rule in ``ops/toeplitz.py``), and
-the int8 decoder
+``dw_fused`` and ``toeplitz_fwd`` (its rule in ``ops/toeplitz.py``), the
+full chains in one fp32 pass (the split kernels' fp32 launches in turn,
+:func:`full_plan`), and the int8 decoder
 :func:`~rawaudiovae_kelsey_tpu_torch.ops.quant.quantized_decoder_fwd`,
 which has no tensor-core form (:data:`SGEMM_OPS`), have an fp32 form,
 the weight gradients of ``grad_accum``, ``grad_accum2``, ``enc_bwd_dw1``,
@@ -55,7 +56,10 @@ before the launch:
   :func:`takes_full_chain`) and its forward and input gradient (the
   ``passes = 3`` forms of ``encoder_fwd``, ``decoder_fwd``,
   ``matmul_nt2_mask``, ``matmul_nt`` and the row-parallel forms;
-  :func:`split_tile`), whose product is three bf16 passes on the
+  :func:`split_tile`) and, with the backward-fusion switch forced, its
+  other backward kernels (the ``passes = 3`` forms of ``matmul_nt_mask``,
+  ``grad_accum``, ``grad_accum2``, ``enc_bwd_dw1`` and ``dec_bwd_fused``;
+  :func:`split_wgrad`), whose product is three bf16 passes on the
   operands' hi and lo halves, the TPU kernels' own; the ``float32`` and
   ``highest`` tiers promise IEEE fp32 products, and the tensor cores offer
   fp32 data only TF32 or bf16 splits, which is another result.  Where an
@@ -102,7 +106,8 @@ SGEMM_OPS = frozenset({"linear_fwd", "linear_ksplit_fwd", "matmul_nt",
                        "matmul_nt_mask", "matmul_nt2_mask", "grad_accum",
                        "grad_accum2", "enc_bwd_dw1", "dec_bwd_fused",
                        "encoder_fwd", "decoder_fwd", "quantized_decoder_fwd",
-                       "dw_fused", "dx_fused", "toeplitz_fwd"})
+                       "dw_fused", "dx_fused", "toeplitz_fwd",
+                       "enc_bwd_full", "dec_bwd_full"})
 # the ops whose C entry points have the narrow-channel form (code 3)
 NARROW_OPS = frozenset({"toeplitz_fwd"})
 
@@ -452,6 +457,18 @@ def split_tile(code: int, device: torch.device, rows: int, n: int,
                   SPLIT_WIDTHS)
 
 
+def split_wgrad(code: int, device: torch.device, m: int, n: int, k: int,
+                outputs: int = 1) -> tuple:
+    """The ``(tile_dw, split)`` arguments of a 3-pass weight gradient (the
+    ``high`` tier's ``grad_accum``, ``grad_accum2``, ``enc_bwd_dw1`` and
+    ``dec_bwd_fused``, ``ops/mlp.py``): :func:`wgrad_plan` over
+    :data:`SPLIT_WIDTHS` on the tensor cores (``code`` 1), ``(0, 0)`` for
+    the first version."""
+    if code != TENSOR_CORES:
+        return 0, 0
+    return wgrad_plan(m, n, k, sm_count(device), outputs, SPLIT_WIDTHS)
+
+
 def takes_full_chain(dtype: torch.dtype, batch: int, *widths: int,
                      aligned: bool = True) -> bool:
     """Whether a full chain (``enc_bwd_full`` or ``dec_bwd_full``, widths
@@ -475,8 +492,19 @@ def full_plan(code: int, dtype: torch.dtype, device: torch.device,
     takes :func:`tile_n` and each weight gradient :func:`wgrad_plan` (dW21
     and dW22 as two outputs of one launch), from :data:`SPLIT_WIDTHS` for
     fp32 operands (the 3-pass mode) and from :data:`TILE_WIDTHS` for bf16
-    (the split backward's launches, with the plans those take); zeros for
-    the first version."""
+    (the split backward's launches, with the plans those take); on the
+    fp32 kernel (``code`` 2, the chains' one-pass fp32 form) the tile index
+    of each product and :func:`sgemm_wgrad_plan` of each weight gradient,
+    dW21 and dW22 one after the other; zeros for the first version."""
+    if code == SGEMM:
+        if chain == "enc":
+            return (tile(code, device, batch, units),
+                    *wgrad(code, device, seg, units, batch),
+                    *wgrad(code, device, units, latent, batch))
+        return (tile(code, device, batch, units),
+                tile(code, device, batch, latent),
+                *wgrad(code, device, latent, units, batch),
+                *wgrad(code, device, units, seg, batch))
     if code != TENSOR_CORES:
         return (0,) * (5 if chain == "enc" else 6)
     widths = SPLIT_WIDTHS if dtype == torch.float32 else TILE_WIDTHS

@@ -10,11 +10,12 @@ forward, reparameterization, loss, backward and Adam, with
   to fp32, so the loss and the optimizer run in fp32 on fp32 master params
   (``step.py:86-102``).  ``float32``, ``high`` and ``highest`` all hold
   fp32 operands (TF32 stays off).  Under ``backend = pallas`` the backward
-  of ``float32`` and ``highest`` is the JAX package's "primitive"
-  composition in IEEE fp32, that of ``high`` its "full" chains
-  (``enc_bwd_full`` / ``dec_bwd_full``) with every product in three bf16
-  passes; the forward runs IEEE fp32 under ``float32`` and ``highest`` and
-  three bf16 passes under ``high``, bound here as JAX's step scope binds
+  mode is the switch ``ops/mlp.py`` ``BWD_FUSION`` as the model was built
+  with it (under "auto": the bf16 step "split", ``float32`` and
+  ``highest`` the "primitive" composition in IEEE fp32, ``high`` the
+  "full" chains), every product at the forward's pass count; the forward
+  runs IEEE fp32 under ``float32`` and ``highest`` and three bf16 passes
+  under ``high``, bound here as JAX's step scope binds
   its ambient tier (``models/registry.py`` ``under_tier``; the train and
   eval steps, and through them the resident, spmd and stream engines);
 * microbatch accumulation: the fp32 gradient sum of the full microbatches

@@ -51,7 +51,10 @@ import torch
 
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.models import vae
-from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef
+from rawaudiovae_kelsey_tpu_torch.models.registry import (
+    ModelDef,
+    backward_fusion,
+)
 from rawaudiovae_kelsey_tpu_torch.ops import linear as L
 from rawaudiovae_kelsey_tpu_torch.ops import mlp
 from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
@@ -136,8 +139,9 @@ class ShardedEncode(torch.autograd.Function):
     ``passes`` passes (h on fc1's column shard, the heads' fp32 partial
     sums), one fp32 all-reduce of both heads, then their biases and one
     rounding.
-    Backward: ``ops/mlp.py`` ``encode_grads`` on the shards (dh is local:
-    h is the rank's columns); ``b21`` / ``b22`` get the whole cotangent's
+    Backward: ``ops/mlp.py`` ``encode_grads`` on the shards in ``mode`` and
+    ``passes`` passes (dh is local: h is the rank's columns); ``b21`` /
+    ``b22`` get the whole cotangent's
     column sums, equal on every rank; ``dx``, where it is asked for, is
     added over the model group."""
 
@@ -150,15 +154,15 @@ class ShardedEncode(torch.autograd.Function):
         mu = (mu_p + _f(b21)).to(dt)
         logvar = (lv_p + _f(b22)).to(dt)
         ctx.save_for_backward(x, h, w1, w21, w22)
-        ctx.mode, ctx.mesh = mode, mesh
+        ctx.mode, ctx.passes, ctx.mesh = mode, passes, mesh
         return mu, logvar
 
     @staticmethod
     def backward(ctx, dmu, dlogvar):
         x, h, w1, w21, w22 = ctx.saved_tensors
-        dx, *grads = mlp.encode_grads(ctx.mode, x, h, dmu.contiguous(),
-                                      dlogvar.contiguous(), w1, w21, w22,
-                                      ctx.needs_input_grad[3])
+        dx, *grads = mlp.encode_grads(ctx.mode, ctx.passes, x, h,
+                                      dmu.contiguous(), dlogvar.contiguous(),
+                                      w1, w21, w22, ctx.needs_input_grad[3])
         if dx is not None:
             (total,) = model_all_reduce([dx], ctx.mesh)
             dx = total.to(x.dtype)
@@ -172,7 +176,8 @@ class ShardedDecode(torch.autograd.Function):
     ``passes`` passes (h3 on fc3's column shard, y's fp32 partial sums),
     one fp32 all-reduce,
     then ``b4``, tanh and one rounding.  Backward: ``ops/mlp.py``
-    ``decode_grads`` on the shards from the replicated cotangent; ``dz`` is
+    ``decode_grads`` on the shards in ``mode`` and ``passes`` passes from
+    the replicated cotangent; ``dz`` is
     a partial sum (z meets fc3's column shard), added over the model group
     in fp32."""
 
@@ -182,14 +187,15 @@ class ShardedDecode(torch.autograd.Function):
         (y_p,) = model_all_reduce([y_p], mesh)
         y = torch.tanh(y_p + _f(b4)).to(z.dtype)
         ctx.save_for_backward(z, h3, y, w3, w4)
-        ctx.mode, ctx.mesh = mode, mesh
+        ctx.mode, ctx.passes, ctx.mesh = mode, passes, mesh
         return y
 
     @staticmethod
     def backward(ctx, dy):
         z, h3, y, w3, w4 = ctx.saved_tensors
-        dz, *grads = mlp.decode_grads(ctx.mode, mlp.tanh_cotangent(dy, y),
-                                      h3, z, w3, w4)
+        dz, *grads = mlp.decode_grads(ctx.mode, ctx.passes,
+                                      mlp.tanh_cotangent(dy, y), h3, z, w3,
+                                      w4)
         (total,) = model_all_reduce([dz], ctx.mesh)
         dt = w3.dtype
         return (None, None, None, total.to(z.dtype),
@@ -197,23 +203,27 @@ class ShardedDecode(torch.autograd.Function):
 
 
 def dense_encode_sharded(params, x: Tensor, mesh: Mesh,
-                         fp32_backward: str = "primitive", passes: int = 1
+                         mode: str | None = None, passes: int = 1
                          ) -> Tuple[Tensor, Tensor]:
-    """The dense encoder on a rank's shards through the kernels, the
-    forward in ``passes`` passes (``ops/mlp.py`` ``encode``)."""
+    """The dense encoder on a rank's shards through the kernels, every
+    product in ``passes`` passes, the backward in ``mode`` (``ops/mlp.py``
+    ``encode``: None reads the switch, ``mlp.fusion``)."""
     return ShardedEncode.apply(
-        mlp.backward_mode(x.dtype, fp32_backward), passes, mesh, x,
+        mlp.fusion(x.dtype, passes) if mode is None else mlp.check_mode(mode),
+        passes, mesh, x,
         params["fc1"]["w"], params["fc1"]["b"],
         params["fc21"]["w"], params["fc21"]["b"],
         params["fc22"]["w"], params["fc22"]["b"])
 
 
 def dense_decode_sharded(params, z: Tensor, mesh: Mesh,
-                         fp32_backward: str = "primitive", passes: int = 1
+                         mode: str | None = None, passes: int = 1
                          ) -> Tensor:
-    """The dense decoder on a rank's shards through the kernels."""
+    """The dense decoder on a rank's shards through the kernels, as
+    :func:`dense_encode_sharded`."""
     return ShardedDecode.apply(
-        mlp.backward_mode(z.dtype, fp32_backward), passes, mesh, z,
+        mlp.fusion(z.dtype, passes) if mode is None else mlp.check_mode(mode),
+        passes, mesh, z,
         params["fc3"]["w"], params["fc3"]["b"],
         params["fc4"]["w"], params["fc4"]["b"])
 
@@ -338,13 +348,14 @@ def tensor_parallel_model(model: ModelDef, cfg: Config, mesh: Mesh
     ``model`` itself where the mesh has one model rank or the family is
     replicated whole (conv1d).  The dense kernels' ``encode`` / ``decode``
     take ``passes`` as ``ops/mlp.py`` ``encode`` does, which a step binds
-    (``models/registry.py`` ``under_tier``)."""
+    (``models/registry.py`` ``under_tier``), and the backward mode of
+    ``models/registry.py`` ``backward_fusion``, read here, as
+    ``build_model`` reads it."""
     if mesh.model <= 1 or model.name not in ("dense", "deep"):
         return model
     pallas = model.backend == "pallas"
     if model.name == "dense":
-        fp32_backward = "full" if cfg.tpu.precision == "high" \
-            else "primitive"
+        mode = backward_fusion(cfg)
 
         def plain_enc(p, x):
             return dense_encode_plain(p, x, mesh)
@@ -353,10 +364,10 @@ def tensor_parallel_model(model: ModelDef, cfg: Config, mesh: Mesh
             return dense_decode_plain(p, z, mesh)
 
         def enc(p, x, passes=1):
-            return dense_encode_sharded(p, x, mesh, fp32_backward, passes)
+            return dense_encode_sharded(p, x, mesh, mode, passes)
 
         def dec(p, z, passes=1):
-            return dense_decode_sharded(p, z, mesh, fp32_backward, passes)
+            return dense_decode_sharded(p, z, mesh, mode, passes)
     else:
         def plain_enc(p, x):
             return deep_encode_sharded(p, x, mesh, False)

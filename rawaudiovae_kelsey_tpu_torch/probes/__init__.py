@@ -8,6 +8,9 @@ of the JAX repository's probe scripts under ``benchmarks/``.
 * ``adam_fusion`` (``benchmarks/adam_fusion_ab.py``): the full train step
   with the plain Adam against the one-pass Adam (``fused_adam_apply``: one
   launch of the tree kernel a step);
+* ``fusion_ab`` (``benchmarks/fusion_ab.py``): the dense train step under
+  each backward-fusion mode (``ops/mlp.py`` ``BWD_FUSION``: "split" against
+  "full") at ``bfloat16`` or ``high``;
 * ``gate_ties`` (the port's own, no JAX counterpart): the deep model's fp32
   step through the kernels against the plain backend, and the ReLU gates
   the two decide differently by rounding (``tests/test_torch_cuda.py``'s

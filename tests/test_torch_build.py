@@ -224,8 +224,10 @@ def test_the_fp32_entry_points_build_on_sgemm_cuh():
     its gated form, rvk_grad_accum its weight-gradient form, the last three
     those launches one after another (grad_accum2: the weight gradient
     twice; enc_bwd_dw1: the joined gated form, then the weight gradient;
-    dec_bwd_fused: the gated form, the plain one, the weight gradient), and
-    its tile table is the wrappers' SGEMM_TILES."""
+    dec_bwd_fused: the gated form, the plain one, the weight gradient), the
+    full chains in one fp32 pass (rvk_enc_bwd_full, rvk_dec_bwd_full) those
+    of enc_bwd_dw1 and grad_accum2, and of dec_bwd_fused and one more
+    weight gradient, and its tile table is the wrappers' SGEMM_TILES."""
     import re
 
     from rawaudiovae_kelsey_tpu_torch.ops import tensor_cores
@@ -233,10 +235,10 @@ def test_the_fp32_entry_points_build_on_sgemm_cuh():
     # source → (entry points with an fp32 branch, the launches' calls)
     for src, branches, calls in (
             ("linear.cu", 3, {"rvk::sgemm::launch_act<false>": 3}),
-            ("bwd.cu", 7, {"rvk::sgemm::launch<true, rvk::kActNone>": 2,
+            ("bwd.cu", 9, {"rvk::sgemm::launch<true, rvk::kActNone>": 2,
                            "rvk::sgemm::launch_gated<false>(": 2,
                            "rvk::sgemm::launch_gated<true>(": 2,
-                           "rvk::sgemm::launch_wgrad(src<float>": 5})):
+                           "rvk::sgemm::launch_wgrad(src<float>": 6})):
         text = (_build.CSRC / src).read_text()
         assert '#include "sgemm.cuh"' in text
         assert text.count("kernel == rvk::tc::kSgemm") == branches, src

@@ -252,7 +252,7 @@ def test_encoder_input_grad_on_cuda(cuda):
     for mode in mlp.BACKWARD_MODES:
         x = t["x"].clone().requires_grad_()
         before = (mlp.matmul_nt2_mask.launches, mlp.matmul_nt.launches)
-        mu, lv = mlp.encode(w, x, fp32_backward=mode)
+        mu, lv = mlp.encode(w, x, mode=mode)
         (dx,) = torch.autograd.grad((mu * t["dmu"]).sum()
                                     + (lv * t["dlv"]).sum(), x)
         assert (mlp.matmul_nt2_mask.launches, mlp.matmul_nt.launches) == \
@@ -3651,3 +3651,177 @@ def test_row_parallel_forms_match_their_plain_versions(cuda, dtype):
             assert near(got, linear.linear_partial_ref(x, w, ksplit), 1e-5)
             assert torch.equal(got, linear.linear_partial(x, w, ksplit,
                                                           kernel))
+
+
+# ---- the backward-fusion switch (ops/mlp.py BWD_FUSION): the 3-pass forms
+# of rows 5 and 7-10 (csrc/full.cu's parts of the chains on the tensor
+# cores; the first version's 3-pass mode at other widths) and the full
+# chains in one fp32 pass (rows 11-12 on sgemm.cuh), each against its plain
+# version: 1e-4 · max|plain|, equal bits on a second launch, bit for bit on
+# built operands where every sum has one term
+
+def _backward_forms(device, batch, seg, units, latent):
+    w, t = _backward_inputs(device, batch, torch.float32, seg, units, latent)
+    w21, w22, w3, w4 = (w[n]["w"] for n in ("fc21", "fc22", "fc3", "fc4"))
+    return {
+        "matmul_nt_mask": (t["da"], w4, t["h3"]),
+        "grad_accum": (t["h3"], t["da"]),
+        "grad_accum2": (t["h"], t["dmu"], t["dlv"]),
+        "enc_bwd_dw1": (t["x"], t["h"], t["dmu"], t["dlv"], w21, w22),
+        "dec_bwd_fused": (t["da"], t["h3"], t["z"], w4, w3),
+    }
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("widths", [(1024, 2048, 256), (70, 130, 18)],
+                         ids=["full-width", "odd-widths"])
+@pytest.mark.parametrize("batch", [8192, 4097, 1])
+def test_backward_three_pass_forms_match_their_plain_versions(cuda, batch,
+                                                              widths):
+    on_tc = all(v % 8 == 0 for v in widths)
+    for name, args in _backward_forms(cuda, batch, *widths).items():
+        f = getattr(mlp, name)
+        before = (f.launches, f.split_launches, f.sgemm_launches)
+        got = _outs(f(*args, passes=3))
+        again = _outs(f(*args, passes=3))
+        torch.cuda.synchronize()
+        want = _outs(getattr(mlp, name + "_ref")(*args, passes=3))
+        _close_rel(got, want, 1e-4)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b), name
+        assert (f.launches - before[0], f.split_launches - before[1],
+                f.sgemm_launches - before[2]) == (2, 2 * on_tc, 0), name
+        first = _outs(f(*args, kernel="cuda_cores", passes=3))
+        _close_rel(first, want, 1e-4)
+        with pytest.raises(ValueError, match="sgemm"):
+            f(*args, kernel="sgemm", passes=3)
+        if not on_tc:
+            with pytest.raises(ValueError, match="tensor_cores"):
+                f(*args, kernel="tensor_cores", passes=3)
+
+
+@pytest.mark.parametrize("widths", [(1024, 2048, 256), (70, 130, 18)],
+                         ids=["full-width", "odd-widths"])
+def test_backward_three_pass_forms_split_and_add_bit_for_bit(cuda, widths):
+    """On exact_split_case every sum has one term but the bias gradients of
+    a dense hidden cotangent (db1, db3): the forms give the 3-pass plain
+    version's bits, which one pass would move."""
+    smoke = _smoke()
+    enc, dec = smoke.exact_split_case(cuda, 0, *widths)
+    x, h, dmu, dlv = enc[:4]
+    da, h3 = dec[:2]
+    cases = {"enc_bwd_dw1": (enc, (1,)), "dec_bwd_fused": (dec, (2,)),
+             "grad_accum2": ((h, dmu, dlv), ()),
+             "grad_accum": ((h3, da), ()),
+             "matmul_nt_mask": ((da, dec[3], h3), ())}
+    for name, (args, dense) in cases.items():
+        for kernel in ("auto", "cuda_cores"):
+            got = _outs(getattr(mlp, name)(*args, kernel=kernel, passes=3))
+            torch.cuda.synchronize()
+            want = _outs(getattr(mlp, name + "_ref")(*args, passes=3))
+            once = _outs(getattr(mlp, name + "_ref")(*args))
+            moved = total = 0
+            for i, (a, b, c) in enumerate(zip(got, want, once)):
+                if i in dense:
+                    _close_rel((a,), (b,), smoke.EXACT_DB_REL)
+                    continue
+                assert torch.equal(a, b), (name, kernel, i,
+                                           int((a != b).sum()))
+                moved, total = moved + int((b != c).sum()), total + b.numel()
+            assert moved > total // 10, name
+
+
+@pytest.mark.parametrize("op", FULL_OPS)
+@pytest.mark.parametrize("widths", [(1024, 2048, 256), (72, 136, 20)],
+                         ids=["full-width", "widths-of-4"])
+@pytest.mark.parametrize("batch", [8192, 4097, 1])
+def test_full_chains_in_one_fp32_pass(cuda, op, batch, widths):
+    """Rows 11-12 under ``float32`` / ``highest`` with "full" forced: the
+    split kernels' fp32 launches on sgemm.cuh in turn, the same bits as
+    those kernels one by one, within 1e-4 · max|plain| of the one-pass
+    plain version; the first version in one pass likewise."""
+    w, t = _backward_inputs(cuda, batch, torch.float32, *widths)
+    args = _full_args(t, w, op)
+    f = getattr(mlp, op)
+    before = (f.launches, f.sgemm_launches, f.tensor_core_launches)
+    got = f(*args, passes=1)
+    again = f(*args, passes=1)
+    torch.cuda.synchronize()
+    assert (f.launches - before[0], f.sgemm_launches - before[1],
+            f.tensor_core_launches - before[2]) == (2, 2, 0)
+    want = getattr(mlp, op + "_ref")(*args, 1)
+    _close_rel(got, want, 1e-4)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _close_rel(f(*args, kernel="cuda_cores", passes=1), want, 1e-4)
+    if op == "enc_bwd_full":
+        parts = (*mlp.enc_bwd_dw1(*args), *mlp.grad_accum2(*args[1:4]))
+    else:
+        parts = (*mlp.dec_bwd_fused(*args), *mlp.grad_accum(args[1],
+                                                            args[0]))
+    for a, b in zip(got, parts):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="tensor_cores"):
+        f(*args, kernel="tensor_cores", passes=1)
+
+
+@pytest.mark.parametrize("mode", ["primitive", "split", "full"])
+@pytest.mark.parametrize("precision", ["bfloat16", "high", "highest"])
+def test_forced_modes_step_on_the_card(cuda, monkeypatch, mode, precision):
+    """One step of default.ini's model at batch 1024 for each forced mode
+    and tier: every launch of the mode's backward kernels on the form the
+    tier takes (bf16 the tensor cores, `high` the 3-pass tensor cores,
+    `highest` sgemm.cuh), none on the first version; the loss and the
+    gradient (Adam's first moment, linear in it) within PERF §2's bound of
+    the plain backend's step (the update itself, ``lr·g/(|g| + eps)``,
+    turns bf16 noise on a near-zero gradient into a move of up to lr)."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    monkeypatch.setattr(mlp, "BWD_FUSION", mode)
+    cfg = Config()
+    cfg.tpu.precision = precision
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.rand((1024, 1024), generator=g, device=cuda) * 2 - 1
+    kernels = {"primitive": ("matmul_nt2_mask", "matmul_nt_mask",
+                             "grad_accum"),
+               "split": ("enc_bwd_dw1", "grad_accum2", "dec_bwd_fused",
+                         "grad_accum"),
+               "full": ("enc_bwd_full", "dec_bwd_full")}[mode]
+    fast = {"bfloat16": "tensor_core_launches", "high": "split_launches",
+            "highest": "sgemm_launches"}[precision]
+    if mode == "full" and precision == "high":
+        fast = "tensor_core_launches"
+    out = {}
+    for backend in ("pallas", "xla"):
+        cfg.tpu.backend = backend
+        model = build_model(cfg, cuda)
+        state = TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), seed=1)
+        before = {n: (getattr(mlp, n).launches,
+                      getattr(getattr(mlp, n), fast)) for n in kernels}
+
+        def noise(step, i, shape):
+            return torch.randn(shape, generator=torch.Generator(
+                device=cuda).manual_seed(7), device=cuda)
+
+        state, m = build_train_step(model, cfg, noise=noise)(state, x)
+        torch.cuda.synchronize()
+        for n in kernels:
+            all_, on = (getattr(mlp, n).launches - before[n][0],
+                        getattr(getattr(mlp, n), fast) - before[n][1])
+            if backend == "pallas":
+                assert all_ > 0 and on == all_, (n, all_, on)
+            else:
+                assert all_ == 0, n
+        out[backend] = (float(m["loss"]), torch.cat(
+            [t.ravel() for q in state.mu.values() for t in q.values()]))
+    tol = 5e-2 if precision == "bfloat16" else 1e-3
+    (lk, dk), (lx, dx) = out["pallas"], out["xla"]
+    assert abs(lk / lx - 1) <= tol
+    assert float((dk - dx).norm() / dx.norm()) <= tol

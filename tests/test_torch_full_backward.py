@@ -283,8 +283,8 @@ def test_encode_decode_full_mode_match_pallas_under_high(jparams, batch):
             t.requires_grad_()
     x = torch.from_numpy(x_np).requires_grad_()
     z = torch.from_numpy(z_np).requires_grad_()
-    mu, logvar = mlp.encode(params, x, fp32_backward="full", passes=3)
-    y = mlp.decode(params, z, fp32_backward="full", passes=3)
+    mu, logvar = mlp.encode(params, x, mode="full", passes=3)
+    y = mlp.decode(params, z, mode="full", passes=3)
     loss = ((mu * torch.from_numpy(cmu)).sum()
             + (logvar * torch.from_numpy(clv)).sum()
             + (y * torch.from_numpy(cy)).sum())
@@ -321,25 +321,25 @@ def test_full_mode_runs_the_full_kernels_and_nothing_else(jparams,
         for t in layer.values():
             t.requires_grad_()
     x, z = (torch.from_numpy(a) for a in _arrays(8, (8, SEG), (8, LATENT)))
-    mu, logvar = mlp.encode(params, x, fp32_backward="full")
+    mu, logvar = mlp.encode(params, x, mode="full", passes=3)
     (mu.sum() + logvar.sum()
-     + mlp.decode(params, z, fp32_backward="full").sum()).backward()
-    # fp32 operands: three passes (on the CPU the wrapper hands the count
-    # to its plain version)
+     + mlp.decode(params, z, mode="full", passes=3).sum()).backward()
+    # fp32 operands in the `high` tier: three passes, the forward's (on the
+    # CPU the wrapper hands the count to its plain version)
     assert sorted(calls) == [
-        ("dec_bwd_full", None), ("dec_bwd_full_ref", 3),
-        ("enc_bwd_full", None), ("enc_bwd_full_ref", 3)]
+        ("dec_bwd_full", 3), ("dec_bwd_full_ref", 3),
+        ("enc_bwd_full", 3), ("enc_bwd_full_ref", 3)]
     # bf16 operands reach the full chains only by name, in one pass
     calls.clear()
     bparams = {n: {k: t.detach().bfloat16().requires_grad_()
                    for k, t in p.items()} for n, p in params.items()}
-    mu, logvar = mlp.encode(bparams, x.bfloat16(), fp32_backward="full")
+    mu, logvar = mlp.encode(bparams, x.bfloat16(), mode="full")
     (mu.float().sum() + logvar.float().sum()
      + mlp.decode(bparams, z.bfloat16(),
-                  fp32_backward="full").float().sum()).backward()
+                  mode="full").float().sum()).backward()
     assert sorted(calls) == [
-        ("dec_bwd_full", None), ("dec_bwd_full_ref", 1),
-        ("enc_bwd_full", None), ("enc_bwd_full_ref", 1)]
+        ("dec_bwd_full", 1), ("dec_bwd_full_ref", 1),
+        ("enc_bwd_full", 1), ("enc_bwd_full_ref", 1)]
 
 
 # ------------------------------------------------------------ the registry
@@ -352,19 +352,25 @@ def test_build_model_picks_full_for_high_only(precision, want):
     cfg.tpu.backend = "pallas"
     cfg.tpu.precision = precision
     model = build_model(cfg, "cpu")
-    assert model.encode.keywords == {"fp32_backward": want}
-    assert model.decode.keywords == {"fp32_backward": want}
-    # bf16 operands take "split" whatever the fp32 tier says, unless
-    # "full" is passed by name
-    assert mlp.backward_mode(torch.bfloat16, "primitive") == "split"
-    assert mlp.backward_mode(torch.bfloat16, "split") == "split"
-    assert mlp.backward_mode(torch.bfloat16, "full") == "full"
-    assert mlp.backward_mode(torch.float32, want) == want
+    # `want` is the fp32 tiers' mode under the switch's "auto"; the bf16
+    # tier's operands take "split" (ops/mlp.py fusion)
+    mode = "split" if precision == "bfloat16" else want
+    assert model.encode.keywords == {"mode": mode}
+    assert model.decode.keywords == {"mode": mode}
+    assert mlp.fusion(torch.bfloat16) == "split"
+    if precision != "bfloat16":
+        assert mlp.fusion(torch.float32,
+                          3 if precision == "high" else 1) == want
 
 
 def test_unknown_backward_mode_raises():
     with pytest.raises(ValueError, match="backward mode"):
-        mlp.backward_mode(torch.float32, "fused")
+        mlp.check_mode("fused")
+    x = torch.zeros((4, 8))
+    params = {n: {"w": torch.zeros(s), "b": torch.zeros(s[1])} for n, s in
+              (("fc1", (8, 8)), ("fc21", (8, 4)), ("fc22", (8, 4)))}
+    with pytest.raises(ValueError, match="backward mode"):
+        mlp.encode(params, x, mode="fused")
 
 
 # ------------------------------------- the built operands of the card check

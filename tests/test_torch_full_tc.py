@@ -94,7 +94,9 @@ def test_the_dispatch_table(op, dtype, batch, seg, units, latent, aligned,
 
 @pytest.mark.parametrize("op", OPS)
 def test_names_the_chains_have_not_raise(op):
-    with pytest.raises(ValueError, match="no kernel 'sgemm'"):
+    # three passes (the default for fp32) have no sgemm.cuh form
+    with pytest.raises(ValueError, match="kernel 'sgemm' takes fp32 "
+                       "operands in one pass"):
         mlp.resolve_full(op, "sgemm", F32, 4096, 1024, 2048, 256)
     with pytest.raises(ValueError, match="unknown kernel"):
         mlp.resolve_full(op, "wgmma", F32, 4096, 1024, 2048, 256)
@@ -215,9 +217,11 @@ def test_the_entry_points_get_scratch_plan_and_kernel(monkeypatch, op, dtype,
     assert args[-1] == TENSOR_CORES
     assert plan == tensor_cores.full_plan(TENSOR_CORES, dtype, None, chain,
                                           batch, seg, units, latent)
-    assert args[-2 - n_plan - 4:-1 - n_plan] == (
-        batch, seg, units, latent, mlp.DTYPE_CODES[dtype])
-    splits, workspace = args[-2 - n_plan - 6:-2 - n_plan - 4]
+    # the pass count after the dtype: the default, full_passes
+    assert args[-2 - n_plan - 5:-1 - n_plan] == (
+        batch, seg, units, latent, mlp.DTYPE_CODES[dtype],
+        mlp.full_passes(dtype))
+    splits, workspace = args[-2 - n_plan - 7:-2 - n_plan - 5]
     if dtype == F32:
         assert splits.dtype == BF16
         assert splits.numel() == 2 * _halves(op, batch, seg, units, latent)

@@ -303,11 +303,11 @@ def test_the_tier_binds_three_passes_only_in_a_high_pallas_step():
     model = build_model(cfg, "cpu")
     assert tier_passes(cfg, model) == 3
     bound = under_tier(model, cfg)
-    assert bound.encode.keywords == {"fp32_backward": "full", "passes": 3}
-    assert bound.decode.keywords == {"fp32_backward": "full", "passes": 3}
+    assert bound.encode.keywords == {"mode": "full", "passes": 3}
+    assert bound.decode.keywords == {"mode": "full", "passes": 3}
     # the ModelDef itself, which the server and the library path take,
     # keeps one pass
-    assert model.encode.keywords == {"fp32_backward": "full"}
+    assert model.encode.keywords == {"mode": "full"}
     for precision, backend, arch in (
             ("highest", "pallas", "dense"), ("float32", "pallas", "dense"),
             ("bfloat16", "pallas", "dense"), ("high", "xla", "dense"),

@@ -188,13 +188,13 @@ def _cfg(backend, arch="dense"):
 ])
 def test_registry_backends_on_cpu(backend, resolved, encode):
     model = build_model(_cfg(backend), "cpu")
-    # under `pallas` the registry binds the fp32 backward mode to the
-    # kernels' entry points (functools.partial)
+    # under `pallas` the registry binds the backward mode (the switch's,
+    # ops/mlp.py fusion) to the kernels' entry points (functools.partial)
     assert (model.name, model.backend,
             getattr(model.encode, "func", model.encode)) == \
         ("dense", resolved, encode)
     assert (getattr(model.encode, "keywords", None) ==
-            ({"fp32_backward": "primitive"} if resolved == "pallas"
+            ({"mode": "primitive"} if resolved == "pallas"
              else None))
     assert (model.segment_length, model.latent_dim) == (SEG, LATENT)
     p = model.init(torch.Generator().manual_seed(1))

@@ -16,11 +16,13 @@ import torch
 
 from rawaudiovae_kelsey_tpu_torch.ops import adam as adam_ops
 from rawaudiovae_kelsey_tpu_torch.ops import linear_bwd
+from rawaudiovae_kelsey_tpu_torch.ops import mlp
 from rawaudiovae_kelsey_tpu_torch.probes import (
     adam_fusion,
     common,
     deep_bwd,
     deep_step,
+    fusion_ab,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -182,3 +184,37 @@ def test_alternate_reverses_the_order_every_round():
     assert order == ["a", "b", "b", "a", "a", "b"]
     s = common.summary([float(v) for v in range(1, 11)])
     assert (s["median"], s["n"]) == (5.5, 10) and s["p10"] < 2 < 9 < s["p90"]
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "high"])
+def test_fusion_ab_runs_and_prints_its_line(tiny, capsys, monkeypatch,
+                                            precision):
+    """Both modes' steps from one state, each through its own backward (the
+    calls of the chains and of the split kernels, counted here: on the CPU
+    the wrappers run their plain versions and count no launch), a rate for
+    each, the JSON line last; the switch put back."""
+    calls = {}
+    for name in ("enc_bwd_full", "dec_bwd_full", "enc_bwd_dw1",
+                 "dec_bwd_fused"):
+        real = getattr(mlp, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(mlp, name, spy)
+    out = fusion_ab.main(["--device", "cpu", "--batch", "64", "--precision",
+                          precision, "--pairs", "2", "--steps", "1"])
+    last, lines = _last_json(capsys)
+    assert last == json.loads(json.dumps(out)) and last["device"] == "cpu"
+    assert (last["probe"], last["precision"], last["modes"]) == (
+        "fusion_ab", precision, ["split", "full"])
+    # a step each, alternate's two warm-up calls, two pairs of one step
+    assert calls == {name: 1 + 2 + 2 for name in calls} and len(calls) == 4
+    assert last["launches_per_step"] == {"split": {}, "full": {}}
+    for mode in ("split", "full"):
+        f = last["frames_per_s"][mode]
+        assert f["p10"] <= f["median"] <= f["p90"]
+        assert any(line.strip().startswith(f"{precision} {mode}")
+                   for line in lines)
+    assert mlp.BWD_FUSION == "auto"

@@ -169,8 +169,8 @@ def test_primitive_backward_matches_jax_grad_at_highest(jparams, batch):
               for n, q in p.items()}
     xx = torch.from_numpy(x).requires_grad_()
     zz = torch.from_numpy(z).requires_grad_()
-    mu, lv = ops.encode(leaves, xx, fp32_backward="primitive")
-    y = ops.decode(leaves, zz, fp32_backward="primitive")
+    mu, lv = ops.encode(leaves, xx, mode="primitive")
+    y = ops.decode(leaves, zz, mode="primitive")
     ((mu * torch.from_numpy(dmu)).sum() + (lv * torch.from_numpy(dlv)).sum()
      + (y * torch.from_numpy(dy)).sum()).backward()
     np.testing.assert_allclose(xx.grad.numpy(), np.asarray(gx), atol=ATOL,
@@ -194,8 +194,8 @@ def test_primitive_and_split_agree_in_fp32(jparams):
         leaves = {n: {k: t.clone().requires_grad_() for k, t in q.items()}
                   for n, q in p.items()}
         xx = x.clone().requires_grad_()
-        mu, lv = ops.encode(leaves, xx, fp32_backward=mode)
-        y = ops.decode(leaves, z, fp32_backward=mode)
+        mu, lv = ops.encode(leaves, xx, mode=mode)
+        y = ops.decode(leaves, z, mode=mode)
         (mu.sum() + lv.square().sum() + y.square().sum()).backward()
         grads[mode] = [xx.grad] + [leaves[n][k].grad for n in sorted(p)
                                    for k in sorted(p[n])]
@@ -203,22 +203,28 @@ def test_primitive_and_split_agree_in_fp32(jparams):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
 
 
-def test_backward_mode_follows_the_jax_rule():
-    assert mlp.backward_mode(torch.float32, "primitive") == "primitive"
-    assert mlp.backward_mode(torch.float32, "split") == "split"
-    assert mlp.backward_mode(torch.bfloat16, "primitive") == "split"
-    assert mlp.backward_mode(torch.float32, "full") == "full"
+def test_backward_mode_follows_the_jax_rule(monkeypatch):
+    # the switch's "auto" (ops/mlp.py fusion, pallas_mlp.py _fusion)
+    assert mlp.BWD_FUSION == "auto"
+    assert mlp.fusion(torch.float32) == "primitive"
+    assert mlp.fusion(torch.float32, 3) == "full"
+    assert mlp.fusion(torch.bfloat16) == "split"
+    # a forced mode holds for every dtype
+    monkeypatch.setattr(mlp, "BWD_FUSION", "split")
+    assert mlp.fusion(torch.float32) == "split"
+    monkeypatch.setattr(mlp, "BWD_FUSION", "fused")
     with pytest.raises(ValueError, match="backward mode"):
-        mlp.backward_mode(torch.float32, "fused")
+        mlp.fusion(torch.float32)
+    monkeypatch.setattr(mlp, "BWD_FUSION", "auto")
     cfg = Config()
     cfg.tpu.backend = "pallas"
     for precision, want in (("float32", "primitive"), ("highest",
                             "primitive"), ("high", "full"),
-                            ("bfloat16", "primitive")):
+                            ("bfloat16", "split")):
         cfg.tpu.precision = precision
         model = build_model(cfg, "cpu")
-        assert model.encode.keywords == {"fp32_backward": want}
-        assert model.decode.keywords == {"fp32_backward": want}
+        assert model.encode.keywords == {"mode": want}
+        assert model.decode.keywords == {"mode": want}
 
 
 # ------------------------------------------------------ layout and blocks

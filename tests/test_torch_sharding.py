@@ -57,6 +57,7 @@ from rawaudiovae_kelsey_tpu.train import TrainState as JState
 from rawaudiovae_kelsey_tpu.train import build_optimizer as jbuild_opt
 from rawaudiovae_kelsey_tpu_torch.compat import params_from_jax
 from rawaudiovae_kelsey_tpu_torch.models import build_model
+from rawaudiovae_kelsey_tpu_torch.ops import mlp
 from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
 from rawaudiovae_kelsey_tpu_torch.parallel.mesh import Mesh
 from rawaudiovae_kelsey_tpu_torch.parallel.sharding import (
@@ -155,12 +156,18 @@ def _named(tree):
 
 
 def _one_rank_step(case):
-    """The port's one-device step on the whole batch, same init and
-    eps."""
+    """The port's one-device step on the whole batch, same init and eps,
+    built under the case's backward-fusion switch (``"fusion"``, "auto" if
+    absent)."""
     cfg = R._tp_cfg(case)
-    step = build_train_step(
-        build_model(cfg, "cpu"), cfg,
-        noise=lambda s, i, shape: torch.from_numpy(case["eps"][(s, i)]))
+    saved = mlp.BWD_FUSION
+    mlp.BWD_FUSION = case.get("fusion", "auto")
+    try:
+        step = build_train_step(
+            build_model(cfg, "cpu"), cfg,
+            noise=lambda s, i, shape: torch.from_numpy(case["eps"][(s, i)]))
+    finally:
+        mlp.BWD_FUSION = saved
     state = TrainState.create(params_from_jax(case["params"]), SEED)
     state, m = step(state, torch.from_numpy(case["batch"]))
     return (float(m["loss"]), R._np_params(state.params),
@@ -212,13 +219,17 @@ def tp_runs(tmp_path_factory):
                               params=_jax_init(), batch=_batch(),
                               eps=_jax_eps(0, None, BATCH)))
     sampler = dict(model=2, params=_jax_init(), seed=SEED, batch=_batch())
+    # a `high` step with the backward-fusion switch forced to "split"
+    forced = [dict(_case("dense-high-split", "high", "dense", "", "pallas", 0,
+                         steps=1), fusion="split")]
     tmp = tmp_path_factory.mktemp("tp")
     four = R.launch(R.run_jobs, 4, tmp, [
         ("tp_steps", (cases1,)), ("tp_steps", (cases3,)),
         ("tp_sampler_seeds", (sampler,)),
         ("tp_mesh_groups", ([2, 4],))], deadline=400)
     two = R.launch(R.run_jobs, 2, tmp, [("tp_steps", (cases1,)),
-                                        ("tp_grads", (grads,))],
+                                        ("tp_grads", (grads,)),
+                                        ("tp_steps", (forced,))],
                    deadline=400)
     refs = []
     for c in cases1:
@@ -228,7 +239,7 @@ def tp_runs(tmp_path_factory):
         refs.append((_jax_tp_step(jcfg, c["params"], c["batch"]),
                      _one_rank_step(c)))
     return {"four": four, "two": two, "refs": refs, "cases1": cases1,
-            "cases3": cases3}
+            "cases3": cases3, "forced": forced[0]}
 
 
 def _hold(run, want, precision):
@@ -401,6 +412,16 @@ def test_each_backward_mode_matches_the_plain_split(tp_runs, mode,
             np.testing.assert_allclose(
                 kern["grads"][name], g, rtol=0,
                 atol=rel * float(np.abs(g).max()), err_msg=name)
+
+
+def test_a_forced_split_high_step_matches_one_rank(tp_runs):
+    """A model-2 step under ``high`` with the switch forced to "split":
+    ShardedEncode / ShardedDecode run ``enc_bwd_dw1`` + ``grad_accum2`` and
+    ``dec_bwd_fused`` + ``grad_accum`` on the shards at the forward's three
+    passes, against the one-rank step built under the same switch."""
+    want = _one_rank_step(tp_runs["forced"])
+    for r in tp_runs["two"]:
+        _hold(r[2][0], want, "high")
 
 
 def test_the_model_ranks_of_a_data_index_draw_the_same_noise(tp_runs):

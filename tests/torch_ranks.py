@@ -507,9 +507,25 @@ def _tp_cfg(case):
 def tp_steps(rank, world, cases):
     """The tensor-parallel mesh step (``make_mesh(0, model)``) on this
     rank's rows for each case: ``cases`` holds the config, the JAX init,
-    the global batch and the injected global eps by (step, microbatch).
-    Returns the losses, the whole params and mu (gathered) and this rank's
-    shards after ``steps`` steps, and the mesh position."""
+    the global batch and the injected global eps by (step, microbatch),
+    and the backward-fusion switch (``case["fusion"]``, "auto" if absent)
+    while the model and the step are built.  Returns the losses, the whole
+    params and mu (gathered) and this rank's shards after ``steps`` steps,
+    and the mesh position."""
+    from rawaudiovae_kelsey_tpu_torch.ops import mlp
+
+    out = []
+    for case in cases:
+        mlp.BWD_FUSION = case.get("fusion", "auto")
+        try:
+            out.append(_tp_step_case(case))
+        finally:
+            mlp.BWD_FUSION = "auto"
+    return out
+
+
+def _tp_step_case(case):
+    """One case of :func:`tp_steps`."""
     from rawaudiovae_kelsey_tpu_torch.compat import params_to_shards
     from rawaudiovae_kelsey_tpu_torch.models import build_model
     from rawaudiovae_kelsey_tpu_torch.parallel import (
@@ -523,35 +539,32 @@ def tp_steps(rank, world, cases):
     )
     from rawaudiovae_kelsey_tpu_torch.train import TrainState
 
-    out = []
-    for case in cases:
-        mesh = make_mesh(0, case["model"])
-        cfg = _tp_cfg(case)
-        model = build_model(cfg, "cpu")
-        eps = case["eps"]
+    mesh = make_mesh(0, case["model"])
+    cfg = _tp_cfg(case)
+    model = build_model(cfg, "cpu")
+    eps = case["eps"]
 
-        def noise(step, i, shape, eps=eps):
-            e = eps[(step, i)]
-            assert e.shape == shape, (e.shape, shape)
-            return torch.from_numpy(e)
+    def noise(step, i, shape):
+        e = eps[(step, i)]
+        assert e.shape == shape, (e.shape, shape)
+        return torch.from_numpy(e)
 
-        specs = param_specs(model.name, case["params"], mesh.model)
-        state = TrainState.create(
-            params_to_shards(case["params"], mesh, specs), case["seed"])
-        step = build_train_step(model, cfg, noise=noise, mesh=mesh)
-        batch = case["batch"]
-        rows = local_rows(mesh, len(batch), cfg.tpu.microbatch_size)
-        losses = []
-        for _ in range(case["steps"]):
-            state, m = step(state, torch.from_numpy(batch[rows]))
-            losses.append([float(m[k]) for k in ("loss", "mse", "kld")])
-        out.append({
-            "losses": losses,
-            "params": _np_params(gather_params(state.params, mesh, specs)),
-            "mu": _np_params(gather_params(state.mu, mesh, specs)),
-            "shards": _np_params(state.params),
-            "position": (mesh.data_index, mesh.model_index)})
-    return out
+    specs = param_specs(model.name, case["params"], mesh.model)
+    state = TrainState.create(
+        params_to_shards(case["params"], mesh, specs), case["seed"])
+    step = build_train_step(model, cfg, noise=noise, mesh=mesh)
+    batch = case["batch"]
+    rows = local_rows(mesh, len(batch), cfg.tpu.microbatch_size)
+    losses = []
+    for _ in range(case["steps"]):
+        state, m = step(state, torch.from_numpy(batch[rows]))
+        losses.append([float(m[k]) for k in ("loss", "mse", "kld")])
+    return {
+        "losses": losses,
+        "params": _np_params(gather_params(state.params, mesh, specs)),
+        "mu": _np_params(gather_params(state.mu, mesh, specs)),
+        "shards": _np_params(state.params),
+        "position": (mesh.data_index, mesh.model_index)}
 
 
 def tp_grads(rank, world, cases):
