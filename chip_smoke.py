@@ -642,6 +642,23 @@ SGEMM_SOURCE = "rawaudiovae_kelsey_tpu_torch/csrc/sgemm.cuh"
 # does not take (G and N of 8 or more; the last at the rule's edge at full
 # batch).
 NARROW_SOURCE = "rawaudiovae_kelsey_tpu_torch/csrc/narrow.cuh"
+# the tensor-core Toeplitz walk's ragged plans, (B, nb, G, KB, N, t_out,
+# shift): t_out below 64 that does not divide it, above 64 and above 128,
+# shift 0 and KB - 1, G no multiple of 64 and below it, B = 1, output rows
+# past nb; held in bf16 and in four passes (phase 3e)
+TC_TOEPLITZ_RAGGED = (
+    (37, 48, 24, 3, 40, 48, 0), (5, 100, 72, 3, 136, 100, 2),
+    (3, 200, 64, 5, 64, 200, 0), (9, 16, 128, 4, 256, 13, 3),
+    (1, 64, 128, 3, 64, 64, 1), (6, 9, 16, 3, 24, 13, 2))
+# row 17's 4-pass form: its library sequence and the parts of its device
+# time, by the kernels' names
+FOUR_PASS_LIBRARY = ("the sequence split_hi_lo of x and w -> four "
+                     "torch.mm(bf16, bf16, out_dtype=float32) a tap over its "
+                     "valid rows, added (hh + ll) + (hl + lh), the taps in "
+                     "order -> the bias and the activation as the plain "
+                     "version, device time summed (no one PyTorch call "
+                     "computes toeplitz_fwd in four passes)")
+FOUR_PASS_PARTS = {"split pass": "split_pass", "walk": "FourPassRows"}
 NARROW_RAGGED = ((37, 9, 4, 3, 24, 13, 0), (1, 9, 24, 3, 4, 5, 2),
                  (37, 40, 3, 3, 8, 40, 2), (5, 300, 6, 5, 40, 301, 4),
                  (2, 20, 8, 3, 4, 17, 1), (3, 33, 12, 2, 6, 33, 1),
@@ -2386,6 +2403,22 @@ def exact_split_case(dev, seed=0, seg=SEG, units=UNITS, latent=LATENT):
     dec = (da, val(b, units).clamp_min(0), torch.diag(val(b)),
            val(units, seg), w3)
     return enc, dec
+
+
+def exact_toeplitz_case(dev, B, nb, G, kb, N, seed=0):
+    """Operands ``(x (B, nb, G), w (KB, G, N), b (N,))`` of ``toeplitz_fwd``
+    on which the 4-pass product leaves no room for summation order: column
+    n of w is non-zero in one row (tap j, channel g) of w viewed as (KB·G,
+    N) alone, so each output is one product ``(hh + ll) + (hl + lh)`` of
+    one pair of values (each partial product exact in fp32), or none where
+    its tap reads outside x, and a kernel that splits and adds as the plain
+    version does gives its bits.  The values are :func:`split_probe_values`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = split_probe_values(g, (B, nb, G), dev)
+    rows = torch.randint(0, kb * G, (N,), generator=g, device=dev)
+    w = torch.zeros((kb * G, N), device=dev)
+    w[rows, torch.arange(N, device=dev)] = split_probe_values(g, (N,), dev)
+    return x, w.reshape(kb, G, N), split_probe_values(g, (N,), dev)
 
 
 # outputs of the two chains that sum a dense cotangent over the batch (db1
@@ -5380,6 +5413,39 @@ def phase_serve(run_dir, audio, quantize):
     return out, statistics.median(lat_ms)
 
 
+def four_pass_library(x, w, b, act, t_out, shift):
+    """``toeplitz_fwd(x, w, b, act, t_out, shift, passes=4)`` as library
+    calls (:data:`FOUR_PASS_LIBRARY`), or None where the card's PyTorch has
+    no bf16 product with an fp32 output."""
+    from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp, toeplitz
+
+    B, nb, G = x.shape
+    kb, _, N = w.shape
+
+    def mm(u, v):
+        return torch.mm(u, v, out_dtype=torch.float32)
+
+    def run():
+        xh, xl = (t.to(torch.bfloat16) for t in mlp.split_hi_lo(x))
+        wh, wl = (t.to(torch.bfloat16) for t in mlp.split_hi_lo(w))
+        acc = torch.zeros((B, t_out, N), device=x.device)
+        for j, o, a, e in toeplitz.tap_ranges(kb, shift, t_out, nb):
+            uh, ul = (v[:, a + o:e + o].reshape(-1, G) for v in (xh, xl))
+            p = ((mm(uh, wh[j]) + mm(ul, wl[j]))
+                 + (mm(uh, wl[j]) + mm(ul, wh[j])))
+            acc[:, a:e] += p.view(B, e - a, N)
+        return linear.apply_act(act, acc + b)
+
+    try:
+        probe = torch.zeros((16, 16), device=x.device, dtype=torch.bfloat16)
+        mm(probe, probe)
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        print(f"  toeplitz_fwd[4-pass]: no bf16 product with an fp32 output "
+              f"in this PyTorch ({type(e).__name__}: {str(e)[:80]})")
+        return None
+    return run
+
+
 def phase_variant_kernels():
     """Phase 3e: linear_ksplit_fwd, linear_fwd and toeplitz_fwd against
     their plain versions."""
@@ -5838,14 +5904,8 @@ def phase_variant_kernels():
               f"{window_ms:.4f} ms of device time, the whole packed stack "
               f"{full_ms:.4f} ms ({full_ms / window_ms:.3f}x)")
 
-    # bf16 on the tensor cores at ragged plans, (B, nb, G, KB, N, t_out,
-    # shift): t_out below 64 that does not divide it, above 64 and above
-    # 128, shift 0 and KB - 1, G no multiple of 64 and below it, B = 1,
-    # output rows past nb
-    for B, nb, G, kb, N, t_out, shift in (
-            (37, 48, 24, 3, 40, 48, 0), (5, 100, 72, 3, 136, 100, 2),
-            (3, 200, 64, 5, 64, 200, 0), (9, 16, 128, 4, 256, 13, 3),
-            (1, 64, 128, 3, 64, 64, 1), (6, 9, 16, 3, 24, 13, 2)):
+    # bf16 on the tensor cores at ragged plans
+    for B, nb, G, kb, N, t_out, shift in TC_TOEPLITZ_RAGGED:
         xs = torch.randn((B, nb, G), generator=g_tc, device=dev).bfloat16()
         ws = (torch.randn((kb, G, N), generator=g_tc, device=dev)
               / (kb * G) ** 0.5).bfloat16()
@@ -5942,7 +6002,166 @@ def phase_variant_kernels():
                           f"{what} passes {passes}: other bits than the "
                           "first version")
             narrow_sweep(kind, "ragged", (xs, ws, bs, "tanh", t_out, shift))
+    rows["toeplitz_fwd[4-pass]"] = four_pass_kernels(dev, held, both,
+                                                     tpu_toe)
     return rows
+
+
+def four_pass_kernels(dev, held, both, tpu_toe) -> dict:
+    """Phase 3e's 4-pass part (row 17 at ``passes = 4``, the fp32 layers of
+    a ``high`` op-level step): every wide layer of configs/conv1d.ini
+    (1-6) at batch 4096, forward and dx, on the tensor cores' 4-pass form,
+    held within FOUR_PASS_REL of its 4-pass plain version and of the first
+    version, equal bits on a second launch and with the plain version on
+    single-term operands (:func:`exact_toeplitz_case`, 64 batch rows);
+    timed in turns with the first version, the plain version and the
+    library sequence, its device time in parts, its bound with and without
+    the split pass's bytes; then the ragged plans.  Returns the kernel
+    line's row (layer 1's forward)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import conv, toeplitz
+
+    g = torch.Generator(device=dev).manual_seed(35)
+    counters = ("launches", "split_launches")
+
+    def on_form(fn, what):
+        before = [getattr(toeplitz.toeplitz_fwd, c) for c in counters]
+        out = fn()
+        torch.cuda.synchronize()
+        rose = [getattr(toeplitz.toeplitz_fwd, c) - n
+                for c, n in zip(counters, before)]
+        check(rose == [1, 1], f"toeplitz_fwd[4-pass] {what}: launches "
+              f"{rose}, expected one on the 4-pass tensor-core form")
+        return out
+
+    def exact(args, what, seed):
+        B, nb, G = args[0].shape
+        kb, _, N = args[1].shape
+        ea = (*exact_toeplitz_case(dev, min(B, 64), nb, G, kb, N, seed),
+              "relu", *args[4:])
+        check(torch.equal(toeplitz.toeplitz_fwd(*ea, 4),
+                          toeplitz.toeplitz_fwd_ref(*ea, 4)),
+              f"toeplitz_fwd[4-pass] {what}: single-term operands gave "
+              "other bits than the plain version")
+
+    err, out = 0.0, {}
+    for i, (direction, length, cin, cout) in enumerate(CONV_LAYERS):
+        if i in (0, len(CONV_LAYERS) - 1):
+            continue                      # G or N below 8: narrow.cuh
+        x = torch.randn((DEEP_BATCH, length, cin), generator=g, device=dev)
+        w = torch.randn((CONV_K, cin, cout), generator=g, device=dev) \
+            / (CONV_K * cin) ** 0.5
+        b = torch.randn((cout,), generator=g, device=dev) * 0.1
+        pack = both(direction)[2]
+        if direction == "conv":
+            xf, wp, t_out, shift = pack(x, w, CONV_S)
+            bp = b
+        else:
+            xf, wp, bp, t_out, shift = pack(x, w, b, CONV_S)
+        wp = wp.contiguous()
+        da = torch.randn((DEEP_BATCH, t_out, wp.shape[2]), generator=g,
+                         device=dev)
+        wrev = wp.flip(0).transpose(1, 2).contiguous()
+        zero = torch.zeros((wp.shape[1],), device=dev)
+        # the convolution's own multiply-adds in four bf16 passes (the
+        # packed tap stack's zero rows are not work the function needs)
+        flops = 4 * 2 * DEEP_BATCH * length * CONV_K * cin * cout // (
+            CONV_S if direction == "conv" else 1)
+        for part, args in (
+                ("forward", (xf, wp, bp, "relu", t_out, shift)),
+                ("dx", (da, wrev, zero, "none", xf.shape[1],
+                        wp.shape[0] - 1 - shift))):
+            def call(kernel="auto", args=args):
+                return toeplitz.toeplitz_fwd(*args, 4, kernel=kernel)
+
+            what = (f"layer {i} {part} x {tuple(args[0].shape)} w "
+                    f"{tuple(args[1].shape)}")
+            got = on_form(call, what)
+            want = toeplitz.toeplitz_fwd_ref(*args, 4)
+            err = max(err, held("toeplitz_fwd", "4-pass", got, want,
+                                FOUR_PASS_REL, what + ", tensor cores"))
+            check(torch.equal(got, call()), f"toeplitz_fwd[4-pass] {what}: "
+                  "a second launch gave other bits")
+            held("toeplitz_fwd", "4-pass", got, call("cuda_cores"),
+                 FOUR_PASS_REL, what + ", against the first version")
+            exact(args, what, i)
+            fns = {"plain": lambda args=args: toeplitz.toeplitz_fwd_ref(
+                       *args, 4),
+                   "cuda_cores": lambda: call("cuda_cores"),
+                   "kernel": call}
+            lib = four_pass_library(*args)
+            if lib is not None:
+                e = rel_err([lib()], [want])
+                check(e <= FOUR_PASS_REL, f"toeplitz_fwd[4-pass] {what}: "
+                      f"the library sequence is {e:.3e} from the plain "
+                      "version")
+                fns["library"] = lib
+            t, runs = time_in_turns(fns, 5)
+            moved = nbytes(*args[:3], got)
+            # the split pass writes x's and w's halves and the walk reads
+            # them: 4 + 4 bytes an element
+            halves = 8 * (args[0].numel() + args[1].numel())
+            row = {"ms": t["kernel"], "plain_ms": t["plain"],
+                   "first_version_ms": t["cuda_cores"],
+                   "library_ms": t.get("library"),
+                   "device_ms": device_ms(call),
+                   "parts_ms": {label: device_ms(call, match=m)
+                                for label, m in FOUR_PASS_PARTS.items()},
+                   "first_version_device_ms": device_ms(
+                       lambda: call("cuda_cores"), calls=3),
+                   "library_device_ms": (device_ms(lib) if lib is not None
+                                         else None),
+                   **bound(flops, moved, "bf16"),
+                   "split_bound_ms": bound(flops, moved + halves,
+                                           "bf16")["bound_ms"]}
+            out[i, part] = row
+            lib_text = ("" if lib is None else
+                        f", library {row['library_ms']:.4f} (device "
+                        f"{row['library_device_ms']:.4f}, kernel / library "
+                        f"{row['device_ms'] / row['library_device_ms']:.3f}"
+                        "x by device time)")
+            print(f"  {'toeplitz_fwd[4-pass]':<24} {what}: kernel "
+                  f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}: "
+                  + ", ".join(f"{k} {v:.4f}"
+                              for k, v in row["parts_ms"].items())
+                  + f"), first version {row['first_version_ms']:.4f} (device "
+                  f"{row['first_version_device_ms']:.4f}), plain "
+                  f"{row['plain_ms']:.4f}{lib_text}; bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"{row['split_bound_ms']:.4f} with the split pass's bytes "
+                  f"(runs {runs})")
+    for key in ("ms", "device_ms", "first_version_ms", "plain_ms",
+                "library_device_ms", "bound_ms", "split_bound_ms"):
+        if all(r[key] is not None for r in out.values()):
+            print(f"  {'toeplitz_fwd[4-pass]':<24} layers 1-6, forward + dx "
+                  f"(12 launches): {key} "
+                  f"{sum(r[key] for r in out.values()):.4f}")
+    # the ragged plans in four passes (fp32 operands of the same draws'
+    # shapes as bf16's)
+    for B, nb, G, kb, N, t_out, shift in TC_TOEPLITZ_RAGGED:
+        xs = torch.randn((B, nb, G), generator=g, device=dev)
+        ws = torch.randn((kb, G, N), generator=g, device=dev) / (kb * G) ** 0.5
+        bs = torch.randn((N,), generator=g, device=dev) * 0.1
+        args = (xs, ws, bs, "tanh", t_out, shift)
+        what = (f"x {(B, nb, G)} w {(kb, G, N)} t_out {t_out} shift {shift} "
+                f"plan {toeplitz.tile_plan(t_out)}")
+        got = on_form(lambda: toeplitz.toeplitz_fwd(*args, 4), what)
+        check(torch.equal(got, toeplitz.toeplitz_fwd(*args, 4)),
+              f"toeplitz_fwd[4-pass] {what}: a second launch gave other bits")
+        held("toeplitz_fwd", "4-pass", got, toeplitz.toeplitz_fwd_ref(
+            *args, 4), FOUR_PASS_REL, what + ", tensor cores")
+        held("toeplitz_fwd", "4-pass", got, toeplitz.toeplitz_fwd(
+            *args, 4, kernel="cuda_cores"), FOUR_PASS_REL,
+            what + ", against the first version")
+        exact(args, what, B)
+    print(f"  {'toeplitz_fwd[4-pass]':<24} equal bits on a second launch and "
+          "with the plain version on single-term operands at every wide "
+          "layer, forward and dx, and at the ragged plans")
+    t = out[1, "forward"]
+    return {"name": "toeplitz_fwd[4-pass]", "route": "cuda",
+            "source": TC_SOURCE, "replaces": tpu_toe, "max_abs_err": err,
+            **t, "library": FOUR_PASS_LIBRARY,
+            "at": f"configs/conv1d.ini layer 1 forward, batch {DEEP_BATCH}, "
+                  "passes = 4 (fp32)"}
 
 
 # phase 3f: the new form of each dtype of dw_fused / dx_fused, the library
@@ -6545,8 +6764,8 @@ def step_pair(cfg, ckpt, x, models, tol, label):
     models of ``models`` ({name: build(cfg)}), same noise; the first is the
     kernels', the second the plain one.  Returns the kernel launches of the
     first, and under "<wrapper>@tc" / "<wrapper>@sgemm" / "<wrapper>@narrow"
-    those of a wrapper with a tensor-core / fp32 / narrow-channel form that
-    took it."""
+    / "<wrapper>@split" those of a wrapper with a tensor-core / fp32 /
+    narrow-channel / 3- or 4-pass tensor-core form that took it."""
     from rawaudiovae_kelsey_tpu_torch import ops
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
     from rawaudiovae_kelsey_tpu_torch.train import (
@@ -6570,7 +6789,8 @@ def step_pair(cfg, ckpt, x, models, tol, label):
         fast = [(w, attr, tag) for w in ops.KERNEL_WRAPPERS
                 for attr, tag in (("tensor_core_launches", "tc"),
                                   ("sgemm_launches", "sgemm"),
-                                  ("narrow_launches", "narrow"))
+                                  ("narrow_launches", "narrow"),
+                                  ("split_launches", "split"))
                 if hasattr(w, attr)]
         on_fast = [getattr(w, attr) for w, attr, _ in fast]
         state, m = build_train_step(model, cfg, noise=noise)(state, x)
@@ -6975,25 +7195,35 @@ def phase_conv(tmp: Path, card: str):
 
     models = {"toeplitz": op_level, "registry": lambda c: build_model(c, dev)}
     # the Toeplitz kernels in a trace, by name or template argument: the
-    # tensor-core tile walk, the fp32 kernel, the narrow-channel kernel, the
-    # first version's implicit A
+    # tensor-core tile walk (the 4-pass form's too), the 4-pass form and
+    # its split pass, the fp32 kernel, the narrow-channel kernel, the first
+    # version's implicit A
     focus = {"Toeplitz on the tensor cores": "ToeplitzTiles",
+             "of which 4-pass": "FourPassRows",
+             "split pass": "split_pass",
              "Toeplitz on sgemm.cuh": "sgemm_toeplitz_kernel",
              "Toeplitz narrow": "narrow_kernel",
              "Toeplitz first version": "ToeplitzRows"}
     step_counts = {}
-    for precision, tol in (("bfloat16", 5e-2), ("highest", 1e-3)):
+    # the `high` step: every wide Toeplitz product in four bf16 passes on
+    # the tensor cores (JAX's toeplitz_fwd under `high`), the heads and
+    # dec_in in one fp32 pass, as in JAX; held against the registry's IEEE
+    # fp32 step with `highest`'s tolerance
+    for precision, tol in (("bfloat16", 5e-2), ("highest", 1e-3),
+                           ("high", 1e-3)):
         cfg.tpu.precision = precision
         counts = step_counts[precision] = step_pair(
             cfg, ckpt, x, models, tol, f"conv1d {precision}")
         forms = {tag: counts[f"toeplitz_fwd@{tag}"]
-                 for tag in ("tc", "sgemm", "narrow")}
+                 for tag in ("tc", "split", "sgemm", "narrow")}
         print(f"  kernel launches in that step: toeplitz_fwd "
               f"{counts['toeplitz_fwd']} ({forms['tc']} on the tensor "
-              f"cores, {forms['sgemm']} on sgemm.cuh, {forms['narrow']} "
-              f"narrow, {counts['toeplitz_fwd'] - sum(forms.values())} on "
-              f"the first version), linear_fwd {counts['linear_fwd']} "
-              f"({counts['linear_fwd@tc']} on the tensor cores), "
+              f"cores, {forms['split']} on the tensor cores in four passes, "
+              f"{forms['sgemm']} on sgemm.cuh, {forms['narrow']} narrow, "
+              f"{counts['toeplitz_fwd'] - sum(forms.values())} on the first "
+              f"version), linear_fwd {counts['linear_fwd']} "
+              f"({counts['linear_fwd@tc']} on the tensor cores, "
+              f"{counts['linear_fwd@sgemm']} on sgemm.cuh), "
               f"linear_ksplit_fwd {counts['linear_ksplit_fwd']}")
         # 8 forward, 7 for dx: the first layer's input is the batch, which
         # needs no gradient; the two heads and dec_in take the whole-k kernel
@@ -7003,14 +7233,19 @@ def phase_conv(tmp: Path, card: str):
               f"{counts['linear_fwd']} whole-k launches, expected 8 + 7 and 3")
         # the first encoder layer (G = 4) and the last decoder layer and its
         # dx (N = 4, G = 4) take the narrow kernel; the other twelve the
-        # tensor cores in bf16 and the fp32 kernel at `highest`: none the
-        # first version
+        # tensor cores in bf16, the fp32 kernel at `highest` and the 4-pass
+        # tensor-core form under `high`: none the first version
         bf16 = precision == "bfloat16"
-        want = {"tc": 12 * bf16, "sgemm": 12 * (not bf16), "narrow": 3}
-        check(forms == want and counts["linear_fwd@tc"] == 3 * bf16,
+        wide = {"bfloat16": "tc", "highest": "sgemm", "high": "split"}
+        want = {tag: 12 * (tag == wide[precision])
+                for tag in ("tc", "split", "sgemm")}
+        want["narrow"] = 3
+        check(forms == want and counts["linear_fwd@tc"] == 3 * bf16
+              and counts["linear_fwd@sgemm"] == 3 * (not bf16),
               f"conv1d {precision} step: Toeplitz launches by form {forms}, "
-              f"expected {want}; {counts['linear_fwd@tc']} whole-k launches "
-              f"on the tensor cores, expected {3 * bf16}")
+              f"expected {want}; {counts['linear_fwd@tc']} / "
+              f"{counts['linear_fwd@sgemm']} whole-k launches on the tensor "
+              f"cores / sgemm.cuh, expected {3 * bf16} / {3 * (not bf16)}")
     cfg.tpu.precision = "bfloat16"
     step_rates(cfg, x, models, card, focus=focus)
     # the `highest` op-level step's device time by kernel, beside the bf16
@@ -7018,14 +7253,17 @@ def phase_conv(tmp: Path, card: str):
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
     from rawaudiovae_kelsey_tpu_torch.train import TrainState
 
-    cfg.tpu.precision = "highest"
-    model = op_level(cfg)
-    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
-                              0)
-    step = build_train_step(model, cfg)
-    step(state, x)                                            # warmup
-    print(f"  one toeplitz highest step by kernel: "
-          f"{device_time_by_kernel(lambda: step(state, x), focus=focus)}")
+    # and the `high` one's
+    for precision in ("highest", "high"):
+        cfg.tpu.precision = precision
+        model = op_level(cfg)
+        state = TrainState.create(
+            model.init(torch.Generator().manual_seed(0)), 0)
+        step = build_train_step(model, cfg)
+        step(state, x)                                        # warmup
+        by_kernel = device_time_by_kernel(lambda: step(state, x), top=8,
+                                          focus=focus)
+        print(f"  one toeplitz {precision} step by kernel: {by_kernel}")
     cfg.tpu.precision = "bfloat16"
     return step_counts
 
@@ -8887,8 +9125,8 @@ def main() -> int:
     for key, row in variant_rows.items():
         name, kind = key[:-1].split("[")
         if name.startswith("toeplitz_fwd"):
-            counts = conv_launches["bfloat16" if kind == "bf16"
-                                   else "highest"]
+            counts = conv_launches[{"bf16": "bfloat16", "fp32": "highest",
+                                    "4-pass": "high"}[kind]]
         elif kind == "bf16":
             counts = deep_launches
         elif name == "linear_fwd":
@@ -8896,9 +9134,12 @@ def main() -> int:
         else:
             counts = deep_fp32_launches
         # a bf16 row describes the tensor-core kernel, an fp32 one
-        # csrc/sgemm.cuh; the toeplitz_fwd_narrow rows the narrow kernel
+        # csrc/sgemm.cuh, the 4-pass one the tensor cores' 4-pass form (the
+        # `high` op-level step's); the toeplitz_fwd_narrow rows the narrow
+        # kernel
         row["launches"] = counts[
             "toeplitz_fwd@narrow" if name == "toeplitz_fwd_narrow"
+            else "toeplitz_fwd@split" if kind == "4-pass"
             else f"{name}@tc" if kind == "bf16" else f"{name}@sgemm"]
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(variant_rows)

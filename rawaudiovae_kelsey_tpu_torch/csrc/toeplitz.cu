@@ -63,10 +63,24 @@
 // items of 128 output positions, copying the next item's window of x while
 // each thread sums one position's row (two in bf16) of this one, with the
 // first version's FMA chain and so its bits.
+//
+// fp32 operands with passes = 4 that TMA can address through their halves
+// (G and N multiples of 8, 16-byte aligned pointers) take the tensor cores
+// too (kernel code 1): the split pass (split.cuh, bit for bit the TPU
+// kernel's _split_hi_lo) turns x viewed as (B·nb, G) and w viewed as (KB·G,
+// N) into bf16 halves in the caller's workspace, then wgmma.cuh's Toeplitz
+// walk multiplies each stage four ways into four fp32 accumulators and adds
+// them (hh + ll) + (hl + lh) before the bias and the activation, fp32 out
+// (FourPassRows).  What bounds it: at the conv1d VAE's wide layers the
+// bytes (layer 1 at batch 4096: x read, its halves written and read, y
+// written, ~470 MB against 12.9 GFLOP in four bf16 passes), and the split
+// pass is about half of them: splitting x's boxes in shared memory would
+// save that, and is not done here.
 
 #include "narrow.cuh"
 #include "product.cuh"
 #include "sgemm.cuh"
+#include "split.cuh"
 #include "wgmma.cuh"
 
 using rvk::dst;
@@ -168,6 +182,34 @@ cudaError_t sgemm_toeplitz(const rvk::sgemm::ToeplitzA& a, const float* w,
   }
 }
 
+// fp32, passes = 4, on the tensor cores: x viewed as (B·nb, G) and w as
+// (KB·G, N) split into bf16 halves in `ws` (x's hi and lo, then w's, one
+// after another: 2 · (B·nb·G + KB·G·N) values), then the 4-pass Toeplitz
+// walk (wgmma.cuh launch_toeplitz4) on the plan (t_half, b_half).
+cudaError_t toeplitz_split(const float* x, const float* w, const float* bias,
+                           float* y, rvk::bf16* ws, int B, int nb, int G,
+                           int kb, int N, int t_out, int shift, int act,
+                           int t_half, int b_half, cudaStream_t s) {
+  if (B <= 0 || t_out <= 0 || N <= 0) return cudaSuccess;
+  if (ws == nullptr || nb < 1) return cudaErrorInvalidValue;
+  const size_t nx = size_t(B) * nb * G, nw = size_t(kb) * G * N;
+  rvk::bf16* const x_hi = ws;
+  rvk::bf16* const x_lo = x_hi + nx;
+  rvk::bf16* const w_hi = x_lo + nx;
+  rvk::bf16* const w_lo = w_hi + nw;
+  cudaError_t err = rvk::split_matrix(x, x_hi, x_lo, nullptr, nullptr,
+                                      B * nb, G, s);
+  if (err == cudaSuccess) {
+    err = rvk::split_matrix(w, w_hi, w_lo, nullptr, nullptr, kb * G, N, s);
+  }
+  if (err != cudaSuccess) return err;
+  return rvk::tc::with_act(act, [&](auto a) {
+    return rvk::tc::launch_toeplitz4<decltype(a)::value>(
+        {x_hi, x_lo}, {w_hi, w_lo}, y, bias, B, nb, G, kb, N, t_out, shift,
+        t_half, b_half, s);
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -175,24 +217,38 @@ extern "C" {
 // x (B, nb, G); w (kb, G, N); bias (N,); y (B, t_out, N); all of one dtype
 // (rvk::DType); act an rvk::Act (none, relu or tanh); passes 1, or 4 with
 // fp32 operands.  B·t_out, nb·G and kb·G must fit an int (the wrapper
-// checks).  [k0, k0 + k_len): the contraction window of w viewed as
-// (kb·G, N), outside which w is zero (the whole stack, 0 and kb·G, where
-// the caller knows no zero rows); only kernel 2 reads it.  kernel (an
-// rvk::tc::Kernel): 0, the first version above; 1, the tensor-core form,
-// bf16 with passes 1 only, walking the output in halves of b_half batch
-// rows x t_half positions (ops/toeplitz.py tile_plan) in tiles 128 x tile_n
-// (ops/tensor_cores.py tile_n); 2, sgemm.cuh, fp32 with passes 1 only, on
+// checks).  workspace: the 4-pass tensor-core form's bf16 halves, 2 · (B·nb·G
+// + kb·G·N) values, 16-byte aligned (null for every other form).  [k0, k0 +
+// k_len): the contraction window of w viewed as (kb·G, N), outside which w
+// is zero (the whole stack, 0 and kb·G, where the caller knows no zero
+// rows); only kernel 2 reads it.  kernel (an rvk::tc::Kernel): 0, the first
+// version above; 1, the tensor-core form, bf16 with passes 1 or fp32 with
+// passes 4 (B·nb and kb·G at most 65535 · 64 rows, the split pass's grid),
+// walking the output in halves of b_half batch rows x t_half positions
+// (ops/toeplitz.py tile_plan) in tiles 128 x tile_n (ops/tensor_cores.py
+// tile_n; 64 at passes 4); 2, sgemm.cuh, fp32 with passes 1 only, on
 // the tile kTiles[tile_n] (ops/tensor_cores.py sgemm_whole_tile); 3, the
 // narrow-channel form, tile_n its chunk of output columns and t_half the
 // output positions a thread sums (ops/toeplitz.py narrow_chunk,
 // narrow_rows).  Forms 0 and 2 ignore t_half and b_half, the first version
 // tile_n too.
 int rvk_toeplitz_fwd(const void* x, const void* w, const void* bias, void* y,
-                     int B, int nb, int G, int kb, int N, int t_out,
-                     int shift, int act, int passes, int dtype, int k0,
-                     int k_len, int t_half, int b_half, int tile_n,
+                     void* workspace, int B, int nb, int G, int kb, int N,
+                     int t_out, int shift, int act, int passes, int dtype,
+                     int k0, int k_len, int t_half, int b_half, int tile_n,
                      int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == rvk::tc::kTensorCores && passes == 4) {
+    if (dtype != rvk::kF32 || tile_n != 64 ||
+        size_t(B) * nb > size_t(65535) * rvk::kSplitRows ||
+        size_t(kb) * G > size_t(65535) * rvk::kSplitRows) {
+      return cudaErrorInvalidValue;
+    }
+    return toeplitz_split(src<float>(x), src<float>(w), src<float>(bias),
+                          dst<float>(y), static_cast<rvk::bf16*>(workspace),
+                          B, nb, G, kb, N, t_out, shift, act, t_half, b_half,
+                          s);
+  }
   if (kernel == rvk::tc::kTensorCores) {
     if (dtype != rvk::kBF16 || passes != 1 ||
         reinterpret_cast<uintptr_t>(bias) % 4 != 0) {

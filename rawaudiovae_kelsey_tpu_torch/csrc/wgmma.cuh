@@ -214,6 +214,19 @@
 //   plain one and three accumulators take 3 · BN / 2 registers a thread:
 //   tiles 128 x 64 (four stages of 48 KB, 96 accumulators) or 128 x 128
 //   (three of 64 KB, 192), no staging buffers.
+// * The 4-pass Toeplitz product (FourPassRows on ToeplitzTiles; the fp32
+//   conv1d layers under the `high` tier, toeplitz.cu): the 3-pass mode's
+//   stage of four boxes, A_hi and A_lo the 3-D boxes of x's halves, and
+//   FOUR products a stage, hh, ll, hl and lh, into four fp32 accumulators;
+//   the epilogue adds them (hh + ll) + (hl + lh) with IEEE adds, then the
+//   bias, then the activation, the order of the TPU kernel
+//   (_toeplitz_kernel at passes = 4), and stores fp32 y from the
+//   accumulators, each row of a half mapped to its (batch row, position)
+//   and the rows past t_out or B masked (ToeplitzTiles::out_row).  Four
+//   accumulators take 2 · BN registers a thread: tiles 128 x 64 only (128
+//   accumulators), four stages of 48 KB.  One accumulator a pair would let
+//   the tensor core's accumulation add two passes: the reason above for
+//   three.
 // * Partial sums (PartialRows; the row-parallel layers of tensor
 //   parallelism, mlp.cu and linear.cu rvk_*_partial): a 1-pass product whose
 //   sums are added across ranks before its bias and activation.  The fp32
@@ -696,6 +709,13 @@ template <typename E, typename = void>
 constexpr bool kSplitPass = false;
 template <typename E>
 constexpr bool kSplitPass<E, std::void_t<decltype(E::kSplit)>> = E::kSplit;
+// A 4-pass functor (Epi::kPasses == 4, header "the 4-pass Toeplitz
+// product"): a 3-pass stage multiplied four ways, into four accumulators.
+template <typename E, typename = void>
+constexpr bool kFourPass = false;
+template <typename E>
+constexpr bool kFourPass<E, std::void_t<decltype(E::kPasses)>> =
+    E::kPasses == 4;
 
 // A warpgroup's accumulators → its staging buffer (64 rows x BN columns as
 // BN / 64 chunks of 64 rows x 128 bytes, 128-byte swizzle: the layout a TMA
@@ -793,6 +813,35 @@ __device__ __forceinline__ void store_f32(float* acc, float* out, int m0,
     if (n < N) {
       if (r < rows) put(r, n, acc[4 * j], acc[4 * j + 1]);
       if (r + 8 < rows) put(r + 8, n, acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+// store_f32 with the bias and the activation for rows that are not
+// consecutive: row r of the warpgroup's half goes to row row_of(r) of `out`
+// (row-major, N wide), and nowhere where that is negative (the 4-pass
+// Toeplitz product's half: ToeplitzTiles::out_row).  N a multiple of 8.
+template <int BN, int kAct, typename RowOf>
+__device__ __forceinline__ void store_f32_rows(float* acc, float* out,
+                                               const RowOf& row_of, int n0,
+                                               int N, const float* bias) {
+  fence_accumulators<BN>(acc);
+  const int t = threadIdx.x % 128;
+  const int r = 16 * (t / 32) + (t % 32) / 4;
+  const int col = 2 * (t % 4);
+  const long long rows[2] = {row_of(r), row_of(r + 8)};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + col + 8 * j;
+    if (n >= N) continue;
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + n));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] < 0) continue;
+      const float v0 = activate<kAct>(__fadd_rn(acc[4 * j + 2 * h], b.x));
+      const float v1 =
+          activate<kAct>(__fadd_rn(acc[4 * j + 2 * h + 1], b.y));
+      *reinterpret_cast<float2*>(out + rows[h] * N + n) = make_float2(v0, v1);
     }
   }
 }
@@ -1015,7 +1064,7 @@ struct JoinedKTiles : MatrixTiles {
 // rows [bg·b_half, +b_half), with tc = h % n_t and bg = h / n_t.
 struct ToeplitzTiles {
   static constexpr int kOuts = 1;
-  int t_out, shift, G, t_half, b_half;
+  int B, t_out, shift, G, t_half, b_half;
   int n_t;      // ceil(t_out / t_half): halves along a batch row
   int halves;   // n_t · ceil(B / b_half)
   int g_steps;  // ceil(G / 64): k-steps a tap
@@ -1052,6 +1101,17 @@ struct ToeplitzTiles {
     const int at = 2 * tm + wg;
     const int bg = at / n_t, tc = at - bg * n_t;
     tma_store(map, src, n, tc * t_half, bg * b_half);
+  }
+  // Row r of that half → its row of y viewed as (B·t_out, N), or -1 where
+  // r lies past t_half · b_half or its position past t_out or its batch
+  // row past B (the 4-pass form's store from the accumulators, which has
+  // no TMA clipping).
+  __device__ long long out_row(int tm, int wg, int r) const {
+    const int at = 2 * tm + wg;
+    const int bg = at / n_t, tc = at - bg * n_t;
+    const int b = bg * b_half + r / t_half, t = tc * t_half + r % t_half;
+    if (r >= t_half * b_half || b >= B || t >= t_out) return -1;
+    return static_cast<long long>(b) * t_out + t;
   }
 };
 
@@ -1132,6 +1192,18 @@ constexpr bool kSplitBiasOut = false;
 template <typename E>
 constexpr bool kSplitBiasOut<E, std::void_t<decltype(E::kAct)>> =
     kSplitPass<E>;
+// The 4-pass Toeplitz epilogue (header, "the 4-pass Toeplitz product"): y
+// (B, t_out, N) fp32, each value the four sums added (hh + ll) + (hl +
+// lh), then bias (N,) fp32, then the activation kActivation (an rvk::Act),
+// one store; on ToeplitzTiles only.
+template <int kActivation>
+struct FourPassRows {
+  static constexpr bool kSplit = true;
+  static constexpr int kPasses = 4;
+  static constexpr int kAct = kActivation;
+  float* out;
+  const float* bias;
+};
 
 // The row-parallel epilogue (header, "partial sums"): a 1-pass product's
 // fp32 sums as they are, no bias, no activation, no rounding, output o of
@@ -1181,9 +1253,9 @@ using KernelMaps =
 // A's stage is 16 KB larger: at 128 x 256 three stages fit only beside
 // staging buffers half the tile wide, which the epilogue fills and stores
 // twice; at 128 x 128 four, at 128 x 64 five (header, "the fused linear
-// backward").  A 3-pass stage holds both halves of A and of B, twice a
-// plain one, and needs no staging: four stages at 128 x 64, three at 128 x
-// 128 (header, "the 3-pass product").
+// backward").  A 3-pass (or 4-pass) stage holds both halves of A and of
+// B, twice a plain one, and needs no staging: four stages at 128 x 64,
+// three at 128 x 128 (header, "the 3-pass product").
 template <int BN, typename Tiles, typename Epi>
 struct Ring {
   static constexpr bool kFormed = kFormedA<Tiles>;
@@ -1230,6 +1302,10 @@ wgmma_gemm_kernel(const __grid_constant__ KernelMaps<Tiles, Epi> maps,
   constexpr bool kSplit = kSplitPass<Epi>;
   static_assert(!kSplit || (!kFormed && !kGate && BN <= 128),
                 "a 3-pass product: plain operands, 64 or 128 wide");
+  constexpr bool kFour = kFourPass<Epi>;
+  static_assert(!kFour || (kSplit && BN == 64),
+                "a 4-pass product: a 3-pass stage, four accumulators of "
+                "128 x 64");
   constexpr uint32_t kBTileBytes = BN * kTileK * 2;
   constexpr uint32_t kABytes = Ring<BN, Tiles, Epi>::kABytes;
   constexpr uint32_t kStageBytes = Ring<BN, Tiles, Epi>::kStageBytes;
@@ -1344,8 +1420,10 @@ wgmma_gemm_kernel(const __grid_constant__ KernelMaps<Tiles, Epi> maps,
     const bool leader = threadIdx.x % 128 == 0;
     const uint32_t staged = staging + wg * kStagingBytes;
     float acc[BN / 2];
-    // a 3-pass product's A_hi·B_lo and A_lo·B_hi (acc takes A_hi·B_hi)
+    // a 3-pass product's A_hi·B_lo and A_lo·B_hi (acc takes A_hi·B_hi), a
+    // 4-pass one's A_lo·B_lo too
     float acc_hl[kSplit ? BN / 2 : 1], acc_lh[kSplit ? BN / 2 : 1];
+    float acc_ll[kFour ? BN / 2 : 1];
     // a formed A's fragments: two sets, taken by turns (formed_product)
     uint32_t frag[2][kTileK / 16][4];
     int s = 0, prev = 0;
@@ -1373,6 +1451,10 @@ wgmma_gemm_kernel(const __grid_constant__ KernelMaps<Tiles, Epi> maps,
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) acc_hl[i] = acc_lh[i] = 0.f;
       }
+      if constexpr (kFour) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc_ll[i] = 0.f;
+      }
       // one k-step; a formed A's registers are `a`
       auto k_step = [&](int kb, uint32_t(&a)[kTileK / 16][4]) {
         mbar_wait(full + 8 * s, phase);
@@ -1391,6 +1473,10 @@ wgmma_gemm_kernel(const __grid_constant__ KernelMaps<Tiles, Epi> maps,
           if constexpr (kSplit) {
             stage_product<BN, kAT, kBT>(acc_hl, a_wg, b_tile + kBTileBytes);
             stage_product<BN, kAT, kBT>(acc_lh, a_wg + kATileBytes, b_tile);
+          }
+          if constexpr (kFour) {
+            stage_product<BN, kAT, kBT>(acc_ll, a_wg + kATileBytes,
+                                        b_tile + kBTileBytes);
           }
         }
         wgmma_commit();
@@ -1441,17 +1527,34 @@ wgmma_gemm_kernel(const __grid_constant__ KernelMaps<Tiles, Epi> maps,
       }
       if constexpr (kSplit) {
         // (hh + hl) + lh with IEEE adds, then the fp32 store: a weight
-        // gradient's slice to its place, a product's rows through the gate
+        // gradient's slice to its place, a product's rows through the gate;
+        // four passes (hh + ll) + (hl + lh), the Toeplitz rows
         wgmma_wait<0>();
         if (lane == 0) mbar_arrive(empty + 8 * prev);
         fence_accumulators<BN>(acc);
         fence_accumulators<BN>(acc_hl);
         fence_accumulators<BN>(acc_lh);
+        if constexpr (kFour) {
+          fence_accumulators<BN>(acc_ll);
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          acc[i] = __fadd_rn(__fadd_rn(acc[i], acc_hl[i]), acc_lh[i]);
+          for (int i = 0; i < BN / 2; ++i) {
+            acc[i] = __fadd_rn(__fadd_rn(acc[i], acc_ll[i]),
+                               __fadd_rn(acc_hl[i], acc_lh[i]));
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            acc[i] = __fadd_rn(__fadd_rn(acc[i], acc_hl[i]), acc_lh[i]);
+          }
         }
-        if constexpr (kWgrad) {
+        if constexpr (kFour) {
+          if (rows > 0) {
+            store_f32_rows<BN, Epi::kAct>(
+                acc, epi.out,
+                [&](int r) { return tiles.out_row(tm, wg, r); }, n0, N,
+                epi.bias);
+          }
+        } else if constexpr (kWgrad) {
           store_f32<BN>(acc,
                         pick(epi.dw, out) + size_t(tiles.slice(tm)) *
                                                 epi.stride,
@@ -1970,19 +2073,19 @@ cudaError_t launch_heads(const bf16* h, const bf16* w21, const bf16* w22,
 // aligned, G and N multiples of 8, 0 <= shift < KB; the plan (t_half,
 // b_half) has t_half · b_half <= 64 and t_half >= t_out where b_half > 1
 // (ops/toeplitz.py tile_plan).
-template <typename Epi>
-cudaError_t launch_toeplitz(const bf16* x, const bf16* w, bf16* y,
-                            const Epi& epi, int B, int nb, int G, int KB,
-                            int N, int t_out, int shift, int t_half,
-                            int b_half, int tile_n, cudaStream_t stream) {
-  if (B <= 0 || t_out <= 0 || N <= 0) return cudaSuccess;
+// The walk of a Toeplitz launch of B >= 1 batch rows and t_out >= 1
+// positions; false where the shapes or the plan are refused (G and N
+// multiples of 8, 0 <= shift < KB, t_half · b_half <= 64 and t_half >=
+// t_out where b_half > 1).
+inline bool toeplitz_walk(ToeplitzTiles& tiles, int B, int nb, int G, int KB,
+                          int N, int t_out, int shift, int t_half,
+                          int b_half) {
   if (nb <= 0 || G <= 0 || KB <= 0 || G % 8 != 0 || N % 8 != 0 ||
       shift < 0 || shift >= KB || t_half < 1 || b_half < 1 ||
-      t_half * b_half > 64 || (b_half > 1 && t_half < t_out) ||
-      !aligned16(x) || !aligned16(w) || !aligned16(y)) {
-    return cudaErrorInvalidValue;
+      t_half * b_half > 64 || (b_half > 1 && t_half < t_out)) {
+    return false;
   }
-  ToeplitzTiles tiles;
+  tiles.B = B;
   tiles.t_out = t_out;
   tiles.shift = shift;
   tiles.G = G;
@@ -1992,6 +2095,20 @@ cudaError_t launch_toeplitz(const bf16* x, const bf16* w, bf16* y,
   tiles.halves = tiles.n_t * cdiv(B, b_half);
   tiles.g_steps = cdiv(G, kTileK);
   tiles.steps = KB * tiles.g_steps;
+  return true;
+}
+
+template <typename Epi>
+cudaError_t launch_toeplitz(const bf16* x, const bf16* w, bf16* y,
+                            const Epi& epi, int B, int nb, int G, int KB,
+                            int N, int t_out, int shift, int t_half,
+                            int b_half, int tile_n, cudaStream_t stream) {
+  if (B <= 0 || t_out <= 0 || N <= 0) return cudaSuccess;
+  ToeplitzTiles tiles;
+  if (!toeplitz_walk(tiles, B, nb, G, KB, N, t_out, shift, t_half, b_half) ||
+      !aligned16(x) || !aligned16(w) || !aligned16(y)) {
+    return cudaErrorInvalidValue;
+  }
   return with_width(tile_n, [&](auto width) {
     constexpr int BN = decltype(width)::value;
     Maps<1> maps;
@@ -2003,6 +2120,42 @@ cudaError_t launch_toeplitz(const bf16* x, const bf16* w, bf16* y,
     if (err != cudaSuccess) return err;
     return launch_tiles<BN, true>(maps, epi, tiles, N, stream);
   });
+}
+
+// The 4-pass Toeplitz product (header, "the 4-pass Toeplitz product"): y
+// (B, t_out, N) fp32 = act(Σ_j x[b, t + j - shift] @ w[j] + bias) with
+// every product taken (hh + ll) + (hl + lh) over the bf16 halves x_h of x
+// (B, nb, G) and w_h of w (KB, G, N) (the split pass's hi and lo), the
+// act kAct, on the tensor cores in 128 x 64 tiles; bias (N,) and y fp32;
+// every pointer 16-byte aligned, the shapes and the plan as
+// launch_toeplitz takes them.
+template <int kAct>
+cudaError_t launch_toeplitz4(const Halves& x_h, const Halves& w_h, float* y,
+                             const float* bias, int B, int nb, int G, int KB,
+                             int N, int t_out, int shift, int t_half,
+                             int b_half, cudaStream_t stream) {
+  if (B <= 0 || t_out <= 0 || N <= 0) return cudaSuccess;
+  ToeplitzTiles tiles;
+  if (!toeplitz_walk(tiles, B, nb, G, KB, N, t_out, shift, t_half, b_half) ||
+      !aligned16(x_h.hi) || !aligned16(x_h.lo) || !aligned16(w_h.hi) ||
+      !aligned16(w_h.lo) || !aligned16(y) || bias == nullptr ||
+      !aligned16(bias)) {
+    return cudaErrorInvalidValue;
+  }
+  using Epi = FourPassRows<kAct>;
+  KernelMaps<ToeplitzTiles, Epi> maps{};
+  // the hi halves' maps, then the lo halves'
+  Maps<1>* const halves[2] = {&maps, &maps.lo};
+  for (int h = 0; h < 2; ++h) {
+    cudaError_t err = cube_map(&halves[h]->a, h ? x_h.lo : x_h.hi, B, nb, G,
+                               t_half, b_half);
+    if (err == cudaSuccess) {
+      err = matrix_map(&halves[h]->b[0], h ? w_h.lo : w_h.hi, KB * G, N,
+                       kTileK, 64);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  return launch_tiles<64, true>(maps, Epi{y, bias}, tiles, N, stream);
 }
 
 // The linear layer's epilogue, and the Toeplitz product's: bias and

@@ -28,8 +28,12 @@ JAX traces its train, eval, resident, spmd and stream steps under
 three passes under an ambient ``high`` (``pallas_mlp.py:167``), while its
 server, ``infer/api.py`` and export run outside any scope, in one pass.
 So a ``ModelDef`` computes the forward in one IEEE fp32 pass, and the
-steps bind ``passes = 3`` under ``high`` (:func:`under_tier`): the forward
-kernels and the backward then compute what the TPU kernels compute.
+steps bind under ``high`` the pass count each op-level function declares
+(:func:`under_tier`): 3 for the dense kernels, 4 for the op-level conv1d
+model (``ops/conv.py`` ``conv_encode_pallas`` / ``conv_decode_pallas``,
+whose Toeplitz products JAX takes in four bf16 passes under ``high``,
+``pallas_toeplitz.py:177-182``): the kernels then compute what the TPU
+kernels compute.
 """
 
 from __future__ import annotations
@@ -174,17 +178,29 @@ def backward_fusion(cfg: Config) -> str:
     return mlp.fusion(work, 3 if cfg.tpu.precision == "high" else 1)
 
 
+def step_passes(cfg: Config, fn: Callable) -> int:
+    """The pass count op-level function ``fn`` (through any
+    ``functools.partial``) takes inside a train or eval step of ``cfg``:
+    under ``high`` the ``high_passes`` it declares, 1 otherwise and where it
+    declares none.  The dense kernels' ``ops/mlp.py`` ``encode`` /
+    ``decode`` (and the tensor-parallel forms) declare 3 (fp32 operands:
+    JAX ``pallas_mlp.py:167`` ``_ambient_passes`` in the step's
+    ``jax.default_matmul_precision``), the op-level conv1d model's
+    ``ops/conv.py`` functions 4 (``pallas_toeplitz.py:177-182``).
+    ``float32``, ``highest`` and ``bfloat16`` keep one pass, and so do the
+    plain ops (``xla``; the registry's conv1d model under every backend):
+    they hold IEEE fp32 with TF32 off, as PyTorch's matmuls do."""
+    if cfg.tpu.precision != "high":
+        return 1
+    while isinstance(fn, partial):
+        fn = fn.func
+    return getattr(fn, "high_passes", 1)
+
+
 def tier_passes(cfg: Config, model: ModelDef) -> int:
     """The pass count of ``model`` 's kernel products inside a train or eval
-    step of ``cfg``: 3 for the dense model on the kernels under ``high``
-    (fp32 operands: JAX ``pallas_mlp.py:167`` ``_ambient_passes`` in the
-    step's ``jax.default_matmul_precision``), 1 otherwise.  ``float32``,
-    ``highest`` and ``bfloat16`` keep one pass, and so does ``xla`` (its
-    plain ops hold IEEE fp32 with TF32 off, as PyTorch's matmuls do)."""
-    if (cfg.tpu.precision == "high" and model.name == "dense"
-            and model.backend == "pallas"):
-        return 3
-    return 1
+    step of ``cfg``: :func:`step_passes` of its ``encode``."""
+    return step_passes(cfg, model.encode)
 
 
 def under_tier(model: ModelDef, cfg: Config) -> ModelDef:
@@ -192,15 +208,20 @@ def under_tier(model: ModelDef, cfg: Config) -> ModelDef:
     ``jax.default_matmul_precision(cfg.tpu.precision)`` scope around its
     steps (``parallel/step.py:174``, ``:268``; ``parallel/resident.py:208``,
     ``:375``; ``parallel/spmd.py:100``; ``train/stream.py:536``), carried as
-    an argument: where :func:`tier_passes` is 3, ``encode`` / ``decode``
-    get ``passes = 3`` bound (``ops/mlp.py`` ``encode``, the tensor-parallel
-    forms alike); otherwise ``model`` itself.  The server, ``infer/api.py``
-    and export never call it, so they keep the one-pass forward, as JAX's
-    run outside any scope."""
-    if tier_passes(cfg, model) == 1:
+    an argument: ``encode`` / ``decode`` get ``passes`` bound where
+    :func:`step_passes` is more than 1 (3 for ``ops/mlp.py`` ``encode``
+    and the tensor-parallel forms, 4 for the op-level conv1d model);
+    otherwise ``model`` itself.  The server, ``infer/api.py`` and export
+    never call it, so they keep the one-pass forward, as JAX's run outside
+    any scope."""
+    enc, dec = (step_passes(cfg, f) for f in (model.encode, model.decode))
+    if enc == dec == 1:
         return model
-    return replace(model, encode=partial(model.encode, passes=3),
-                   decode=partial(model.decode, passes=3))
+    return replace(
+        model,
+        encode=partial(model.encode, passes=enc) if enc > 1 else model.encode,
+        decode=partial(model.decode, passes=dec) if dec > 1
+        else model.decode)
 
 
 def resident_model(cfg: Config, model: ModelDef) -> ModelDef:

@@ -19,7 +19,9 @@ Rows 1, 2, 15 and 16 also have a row-parallel form for tensor parallelism
 partial sums, no bias, no activation), counted in the row's wrapper.  Rows
 1, 2 and 4-10 (and the row-parallel 1 and 2) also have the ``high`` tier's
 3-pass form (``passes = 3``, fp32 operands: ``csrc/full.cu``'s chains on
-the tensor cores), counted in ``split_launches``, and the full chains a
+the tensor cores), counted in ``split_launches``, as is row 17's 4-pass
+form (``toeplitz_fwd`` at ``passes = 4`` on the tensor cores, the fp32
+conv1d layers of a ``high`` op-level step), and the full chains a
 one-pass fp32 form; which backward a step runs is the switch
 ``mlp.BWD_FUSION`` (``mlp.fusion``).  ``encoder_bwd`` / ``decoder_bwd`` are
 the primitive backward as plain functions over the wrappers.

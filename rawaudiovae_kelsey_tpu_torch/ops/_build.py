@@ -69,7 +69,7 @@ _SIGNATURES = {
     "rvk_philox_words": [_U] * 2 + [_P] + [_I] * 2 + [_P],
     "rvk_linear_fwd": [_P] * 4 + [_I] * 7 + [_P],
     "rvk_linear_ksplit_fwd": [_P] * 5 + [_I] * 9 + [_P],
-    "rvk_toeplitz_fwd": [_P] * 4 + [_I] * 16 + [_P],
+    "rvk_toeplitz_fwd": [_P] * 5 + [_I] * 16 + [_P],
     "rvk_dw_fused": [_P] * 6 + [_I] * 8 + [_P],
     "rvk_dx_fused": [_P] * 4 + [_I] * 7 + [_P],
     "rvk_leaf_update": [_P] * 6 + [_L] + [_F] * 6 + [_P],

@@ -29,7 +29,11 @@ conv1d model to the plain convolutions under every backend, as the JAX
 registry does; these functions are an explicit op-level API
 (:func:`conv_encode_pallas` / :func:`conv_decode_pallas` run the model on
 them).  ``passes`` (1, or 4 for the bf16 hi/lo split of fp32 operands) is
-passed down explicitly.
+passed down explicitly; the two model functions declare the pass count a
+train or eval step under ``high`` binds to them (``high_passes``,
+``ops/toeplitz.py`` ``HIGH_PASSES``: JAX's ``toeplitz_fwd`` takes four
+passes on fp32 operands under that tier), read by ``models/registry.py``
+``under_tier``.
 
 A length that the stride does not divide has no block view: that case
 takes :func:`_conv1d_im2col`, patches gathered by indexing and the product
@@ -46,7 +50,10 @@ import torch.nn.functional as F
 
 from rawaudiovae_kelsey_tpu_torch.models.variants import same_pad as _same_pad
 from rawaudiovae_kelsey_tpu_torch.ops.linear import pallas_linear
-from rawaudiovae_kelsey_tpu_torch.ops.toeplitz import toeplitz_matmul
+from rawaudiovae_kelsey_tpu_torch.ops.toeplitz import (
+    HIGH_PASSES,
+    toeplitz_matmul,
+)
 
 Tensor = torch.Tensor
 
@@ -188,3 +195,7 @@ def conv_decode_pallas(params, z, stride: int, width: int, channels: int,
     h = conv1d_transpose_pallas(h, last["w"], last["b"], stride, "tanh",
                                 passes)
     return h[..., 0]
+
+
+conv_encode_pallas.high_passes = conv_decode_pallas.high_passes = \
+    HIGH_PASSES

@@ -1745,6 +1745,10 @@ class Decode(torch.autograd.Function):
 
 Params = Dict[str, Dict[str, Tensor]]
 
+# the pass count a train or eval step under ``high`` binds to :func:`encode`
+# and :func:`decode` (``models/registry.py`` ``under_tier``)
+HIGH_PASSES = 3
+
 
 def encode(params: Params, x: Tensor, mode: str | None = None,
            passes: int = 1) -> Tuple[Tensor, Tensor]:
@@ -1775,3 +1779,6 @@ def decode(params: Params, z: Tensor, mode: str | None = None,
         params["fc3"]["w"], params["fc3"]["b"],
         params["fc4"]["w"], params["fc4"]["b"],
     )
+
+
+encode.high_passes = decode.high_passes = HIGH_PASSES

@@ -60,7 +60,9 @@ before the launch:
   other backward kernels (the ``passes = 3`` forms of ``matmul_nt_mask``,
   ``grad_accum``, ``grad_accum2``, ``enc_bwd_dw1`` and ``dec_bwd_fused``;
   :func:`split_wgrad`), whose product is three bf16 passes on the
-  operands' hi and lo halves, the TPU kernels' own; the ``float32`` and
+  operands' hi and lo halves, the TPU kernels' own, and in the Toeplitz
+  product's ``passes = 4`` (four bf16 passes, the ``high`` tier's
+  op-level conv1d layers; its rule in ``ops/toeplitz.py``); the ``float32`` and
   ``highest`` tiers promise IEEE fp32 products, and the tensor cores offer
   fp32 data only TF32 or bf16 splits, which is another result.  Where an
   op has an fp32 form they take it when ``k`` and ``n`` are multiples of 4

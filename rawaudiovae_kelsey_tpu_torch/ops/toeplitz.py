@@ -11,7 +11,8 @@ and blocks outside ``[0, nb)`` read as zero, which is how SAME padding is
 expressed: through ``shift``, with no padded copy.  Both convolution
 directions map onto it (``ops/conv.py``).
 
-Four hand-written kernels run it, one launch a call, chosen in this order:
+Four hand-written kernels run it, one launch a call (and the split pass
+before the 4-pass tensor-core form), chosen in this order:
 
 * bf16 operands with ``passes = 1`` that TMA can address (``G`` and ``N``
   multiples of 8, 16-byte aligned pointers: :func:`takes_tensor_cores`)
@@ -21,7 +22,12 @@ Four hand-written kernels run it, one launch a call, chosen in this order:
   ``b_half`` batch rows by ``t_half`` positions (:func:`tile_plan`), tap
   ``j``'s rows of A the same box of x shifted by ``j - shift`` positions,
   loaded by TMA with the rows outside ``[0, nb)`` and past the batch
-  zero-filled;
+  zero-filled; fp32 operands with ``passes = 4`` and the same widths and
+  alignment take the same walk on their bf16 halves: the split pass
+  (``csrc/split.cuh``) writes x's and w's hi and lo halves to a workspace
+  allocated here, and each stage is multiplied four ways into four fp32
+  accumulators added ``(hh + ll) + (hl + lh)`` before the bias and the
+  activation (``FourPassRows``, 128 x 64 tiles, fp32 out);
 * a tap width ``G`` or an output width ``N`` below 8 (:func:`takes_narrow`:
   the conv1d model's first and last layers and the last one's ``dx``), in
   either dtype and pass count, the narrow-channel kernel
@@ -40,7 +46,9 @@ Four hand-written kernels run it, one launch a call, chosen in this order:
 
 The narrow and fp32 kernels compute each output as the first version does,
 one fp32 FMA chain over the contraction in order, so the three give equal
-bits; the tensor-core kernel adds the same products in another order.
+bits; the tensor-core kernel adds the same products in another order (in
+four passes each pass's sum over all taps, where the first version and the
+plain version add the four passes of each tap).
 
 ``window = (k0, k1)``: the rows of ``w`` viewed as ``(KB·G, N)`` outside
 ``[k0, k1)`` are zero, a promise of the caller (``ops/conv.py``: the
@@ -48,9 +56,14 @@ convolution's weight placed in a zero tap stack).  The fp32 kernel then
 contracts only the window; the function, and so every other kernel and the
 plain version, is the same.
 
-``passes`` is an explicit argument here: the JAX package reads it from the
-ambient ``jax.default_matmul_precision``, and this package has no ambient
-tier.
+``passes`` is an argument here: the JAX package reads it from the ambient
+``jax.default_matmul_precision``, and upgrades one pass on fp32 operands to
+four under ``high`` (``pallas_toeplitz.py:177-182``).  This package carries
+the tier as an argument instead: a train or eval step under ``high`` binds
+``passes =`` :data:`HIGH_PASSES` to the op-level model functions of
+``ops/conv.py``, which declare it (``models/registry.py`` ``under_tier``)
+and pass it down to here and to ``dx``; a call outside a step keeps the
+pass count it names, one by default.
 
 :func:`toeplitz_matmul` is the differentiable op.  It is closed under
 differentiation: ``dx`` is the same kernel on the cotangent with the taps
@@ -74,6 +87,7 @@ from rawaudiovae_kelsey_tpu_torch.ops.linear import (
 )
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (
     DTYPE_CODES,
+    SPLIT_ROWS,
     _f,
     operand_dtype,
     require,
@@ -82,6 +96,15 @@ from rawaudiovae_kelsey_tpu_torch.ops.mlp import (
 
 Tensor = torch.Tensor
 _INT_MAX = 2 ** 31 - 1
+# the pass count a train or eval step under ``high`` binds to the op-level
+# convolutions (fp32 operands: JAX's upgrade, ``pallas_toeplitz.py:177``)
+HIGH_PASSES = 4
+# the 4-pass tensor-core form: its tile width (four accumulators of 128 x
+# 64 take 128 registers a thread, csrc/wgmma.cuh), and the most rows of x
+# viewed as (B·nb, G) or of w as (KB·G, N) the split pass takes (its grid's
+# y of 65535 blocks of SPLIT_ROWS rows)
+FOUR_PASS_WIDTH = 64
+SPLIT_MAX_ROWS = 65535 * SPLIT_ROWS
 
 
 def tap_ranges(kb: int, shift: int, t: int, nb: int
@@ -138,14 +161,22 @@ def k_step(kb: int, G: int) -> Tuple[int, int]:
 
 
 def takes_tensor_cores(dtype: torch.dtype, B: int, nb: int, t_out: int,
-                       G: int, N: int, passes: int = 1,
-                       aligned: bool = True) -> bool:
+                       G: int, N: int, passes: int = 1, aligned: bool = True,
+                       kb: int = 1) -> bool:
     """Whether a Toeplitz product runs on the tensor-core kernel:
     ``tensor_cores.takes_tensor_cores`` with the contraction ``G`` a tap
-    and output width ``N`` (row pitches of x, w and y of 16 bytes), one
-    pass, and an input with rows (``nb >= 1``)."""
-    return (passes == 1 and nb >= 1 and tensor_cores.takes_tensor_cores(
-        dtype, B * t_out, G, N, aligned))
+    and output width ``N`` (row pitches of x, w and y of 16 bytes) and an
+    input with rows (``nb >= 1``), for bf16 operands in one pass or fp32
+    ones in four, whose bf16 halves it multiplies; in four passes also at
+    most :data:`SPLIT_MAX_ROWS` rows of x viewed as ``(B·nb, G)`` and of
+    the ``kb`` taps viewed as ``(KB·G, N)``."""
+    halves = passes == 4 and dtype == torch.float32
+    if halves and max(B * nb, kb * G) > SPLIT_MAX_ROWS:
+        return False
+    return ((passes == 1 or halves) and nb >= 1
+            and tensor_cores.takes_tensor_cores(
+                torch.bfloat16 if halves else dtype, B * t_out, G, N,
+                aligned))
 
 
 # the narrow-channel kernel (csrc/narrow.cuh): the widths it takes (G or N
@@ -235,7 +266,11 @@ def takes_sgemm(dtype: torch.dtype, B: int, nb: int, t_out: int, G: int,
                                          aligned))
 
 
-# what the two new forms take, in tensor_cores.resolve's error
+# what the tensor-core kernel takes, in tensor_cores.resolve's error
+TAKES_TENSOR_CORES = (f"bf16 operands with one pass or fp32 ones with four, "
+                      f"G and N multiples of {tensor_cores.TMA_ALIGN_BF16} "
+                      f"and 16-byte aligned pointers")
+# and the two newer forms
 TAKES_NARROW = (f"fp32 or bf16 operands with G or N below {NARROW_BELOW}, "
                 f"16-byte aligned pointers and a block's window and taps "
                 f"within {NARROW_SMEM_BYTES} bytes")
@@ -300,9 +335,11 @@ def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
     (:func:`takes_narrow`), the fp32 one (:func:`takes_sgemm`) and the
     first version.  ``kernel`` names one instead
     (``tensor_cores.KERNEL_CODES``); a kernel named for operands it cannot
-    take raises.  One call counts once in ``launches``, and in
-    ``tensor_core_launches``, ``narrow_launches`` or ``sgemm_launches`` too
-    when that kernel ran."""
+    take raises.  fp32 operands in four passes on the tensor cores are
+    split first into a bf16 workspace allocated here.  One call counts once
+    in ``launches``, and in ``tensor_core_launches`` (one pass),
+    ``split_launches`` (four passes on the tensor cores),
+    ``narrow_launches`` or ``sgemm_launches`` too when that kernel ran."""
     tensor_cores.check_name("toeplitz_fwd", kernel)
     if x.device.type == "cpu":
         return toeplitz_fwd_ref(x, w, b, act, t_out, shift, passes)
@@ -335,17 +372,26 @@ def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
     aligned = tensor_cores.pointers_aligned(x, w, b)
     code = tensor_cores.resolve(
         "toeplitz_fwd", kernel,
-        takes_tensor_cores(dt, B, nb, t, G, N, passes, aligned),
+        takes_tensor_cores(dt, B, nb, t, G, N, passes, aligned, kb),
         lambda: f"{dt}, passes = {passes}, x {tuple(x.shape)}, w "
                 f"{tuple(w.shape)}, t_out = {t}, window ({k0}, {k1}), "
                 f"aligned = {aligned}",
         takes_sgemm(dt, B, nb, t, G, N, (k0, k1), passes, aligned),
+        takes=TAKES_TENSOR_CORES,
         fits_narrow=takes_narrow(dt, B, nb, t, G, N, kb, passes, aligned),
         takes_sgemm=TAKES_SGEMM, takes_narrow=TAKES_NARROW)
     y = torch.empty((B, t, N), device=dev, dtype=dt)
     if y.numel():
         t_half = b_half = tile = 0
-        if code == tensor_cores.TENSOR_CORES:
+        workspace = None
+        split = code == tensor_cores.TENSOR_CORES and passes == 4
+        if split:
+            t_half, b_half = tile_plan(t)
+            tile = FOUR_PASS_WIDTH
+            # x's hi and lo halves, then w's
+            workspace = torch.empty((2 * (B * nb * G + kb * G * N),),
+                                    device=dev, dtype=torch.bfloat16)
+        elif code == tensor_cores.TENSOR_CORES:
             t_half, b_half = tile_plan(t)
             halves = tile_halves(B, t, t_half, b_half)
             # two halves of TILE_M / 2 rows a tile
@@ -357,11 +403,14 @@ def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
                                               tensor_cores.sm_count(dev)))
         elif code == tensor_cores.NARROW:
             t_half, tile = narrow_rows(dt), narrow_chunk(N)
-        _build.launch("rvk_toeplitz_fwd", dev, x, w, b, y, B, nb, G, kb, N,
-                      t, shift, ACT_CODES[act], passes, DTYPE_CODES[dt], k0,
-                      k1 - k0, t_half, b_half, tile, code)
+        _build.launch("rvk_toeplitz_fwd", dev, x, w, b, y, workspace, B, nb,
+                      G, kb, N, t, shift, ACT_CODES[act], passes,
+                      DTYPE_CODES[dt], k0, k1 - k0, t_half, b_half, tile,
+                      code)
         toeplitz_fwd.launches += 1
-        toeplitz_fwd.tensor_core_launches += code == tensor_cores.TENSOR_CORES
+        toeplitz_fwd.tensor_core_launches += (
+            code == tensor_cores.TENSOR_CORES and not split)
+        toeplitz_fwd.split_launches += split
         toeplitz_fwd.sgemm_launches += code == tensor_cores.SGEMM
         toeplitz_fwd.narrow_launches += code == tensor_cores.NARROW
     return y
@@ -369,6 +418,7 @@ def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
 
 toeplitz_fwd.launches = 0
 toeplitz_fwd.tensor_core_launches = 0
+toeplitz_fwd.split_launches = 0
 toeplitz_fwd.sgemm_launches = 0
 toeplitz_fwd.narrow_launches = 0
 

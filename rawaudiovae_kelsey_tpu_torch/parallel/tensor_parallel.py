@@ -368,6 +368,9 @@ def tensor_parallel_model(model: ModelDef, cfg: Config, mesh: Mesh
 
         def dec(p, z, passes=1):
             return dense_decode_sharded(p, z, mesh, mode, passes)
+
+        # a step under ``high`` binds ops/mlp.py encode's pass count
+        enc.high_passes = dec.high_passes = mlp.HIGH_PASSES
     else:
         def plain_enc(p, x):
             return deep_encode_sharded(p, x, mesh, False)

@@ -163,10 +163,10 @@ def test_every_wrapper_names_a_bound_entry_point():
     # dtype, split_hidden, split_out, tile_hidden, tile_out, kernel
     assert _build._SIGNATURES["rvk_decoder_fwd"] == (
         [_build._P] * 8 + [_build._I] * 10 + [_build._P])
-    # x, w, bias, y | B, nb, G, kb, N, t_out, shift, act, passes, dtype,
-    # k0, k_len, t_half, b_half, tile_n, kernel
+    # x, w, bias, y, workspace | B, nb, G, kb, N, t_out, shift, act,
+    # passes, dtype, k0, k_len, t_half, b_half, tile_n, kernel
     assert _build._SIGNATURES["rvk_toeplitz_fwd"] == (
-        [_build._P] * 4 + [_build._I] * 16 + [_build._P])
+        [_build._P] * 5 + [_build._I] * 16 + [_build._P])
     for w in ops.KERNEL_WRAPPERS:
         if w.__name__ in ("linear_fwd", "linear_ksplit_fwd", "matmul_nt",
                           "toeplitz_fwd", "encoder_fwd", "decoder_fwd",

@@ -884,14 +884,18 @@ def test_toeplitz_kernel_matches_plain_version(cuda, act, shift, t_out,
 
 @pytest.mark.parametrize("n", [4, 16, 40, 130])
 def test_toeplitz_four_passes_on_the_card(cuda, n):
-    """Every tile shape (narrow, 32x32, 64x64) in the 4-pass mode."""
+    """Each form in the 4-pass mode: n = 4 the narrow kernel, 16 and 40 the
+    tensor cores on the operands' bf16 halves, 130 (no multiple of 8) the
+    first version."""
     from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
 
     g = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn((300, 16, 48), generator=g, device=cuda)
     w = torch.randn((3, 48, n), generator=g, device=cuda) * 0.1
     b = torch.randn((n,), generator=g, device=cuda)
+    before = toeplitz.toeplitz_fwd.split_launches
     four = toeplitz.toeplitz_fwd(x, w, b, "none", 16, 1, 4)
+    assert toeplitz.toeplitz_fwd.split_launches - before == (n in (16, 40))
     one = toeplitz.toeplitz_fwd(x, w, b, "none", 16, 1, 1)
     torch.cuda.synchronize()
     assert _rel(four, toeplitz.toeplitz_fwd_ref(x, w, b, "none", 16, 1, 4)) \
@@ -1683,18 +1687,50 @@ def test_tensor_core_toeplitz_matches_plain_and_first_version(cuda, case,
     assert torch.equal(got, toeplitz.toeplitz_fwd(x, w, b, act, t_out, shift))
 
 
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("case", CONV_TC + TOE_RAGGED, ids=str)
+def test_four_pass_toeplitz_on_the_tensor_cores(cuda, case, act):
+    """fp32 in four passes (the `high` op-level step's wide layers; row 17's
+    4-pass form: the split pass, then the Toeplitz walk's four products a
+    stage): on the tensor cores (``split_launches``), within 1e-5 ·
+    max|plain| of the 4-pass plain version and of the first version, equal
+    bits on a second launch, and on single-term operands
+    (``chip_smoke.py`` ``exact_toeplitz_case``) the plain version's bits."""
+    from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
+
+    B, nb, G, kb, N, t_out, shift = case
+    x, w, b = _toeplitz_operands(cuda, B, nb, G, kb, N, torch.float32)
+    counts = (toeplitz.toeplitz_fwd.split_launches,
+              toeplitz.toeplitz_fwd.tensor_core_launches)
+    got = toeplitz.toeplitz_fwd(x, w, b, act, t_out, shift, 4)
+    torch.cuda.synchronize()
+    assert (toeplitz.toeplitz_fwd.split_launches - counts[0],
+            toeplitz.toeplitz_fwd.tensor_core_launches - counts[1]) == (1, 0)
+    assert got.shape == (B, t_out, N) and got.dtype == torch.float32
+    assert _rel(got, toeplitz.toeplitz_fwd_ref(x, w, b, act, t_out, shift,
+                                               4)) <= 1e-5
+    assert _rel(got, toeplitz.toeplitz_fwd(x, w, b, act, t_out, shift, 4,
+                                           kernel="cuda_cores")) <= 1e-5
+    assert torch.equal(got, toeplitz.toeplitz_fwd(x, w, b, act, t_out, shift,
+                                                  4, kernel="tensor_cores"))
+    xe, we, be = _smoke().exact_toeplitz_case(cuda, min(B, 64), nb, G, kb, N)
+    assert torch.equal(
+        toeplitz.toeplitz_fwd(xe, we, be, "relu", t_out, shift, 4),
+        toeplitz.toeplitz_fwd_ref(xe, we, be, "relu", t_out, shift, 4))
+
+
 def test_tensor_core_toeplitz_dispatch_on_the_card(cuda):
     """G = 4 (the first encoder layer), N = 4 (the last decoder layer),
-    fp32 (one pass and four) and a view off a 16-byte boundary run another
-    form than the tensor cores under ``auto`` (the narrow one, the fp32
-    one, the first version) and raise when the tensor-core kernel is asked
-    for by name."""
+    fp32 (one pass, and four where N is no multiple of 8) and a view off a
+    16-byte boundary run another form than the tensor cores under ``auto``
+    (the narrow one, the fp32 one, the first version) and raise when the
+    tensor-core kernel is asked for by name."""
     from rawaudiovae_kelsey_tpu_torch.ops import toeplitz
 
     cases = [((64, 256, 4, 3, 32, 256, 1), torch.bfloat16, 1),
              ((64, 256, 32, 3, 4, 256, 1), torch.bfloat16, 1),
              ((64, 64, 128, 3, 64, 64, 1), torch.float32, 1),
-             ((64, 64, 128, 3, 64, 64, 1), torch.float32, 4)]
+             ((64, 64, 128, 3, 60, 64, 1), torch.float32, 4)]
     for (B, nb, G, kb, N, t_out, shift), dtype, passes in cases:
         x, w, b = _toeplitz_operands(cuda, B, nb, G, kb, N, dtype)
         got, rose = _ran(toeplitz.toeplitz_fwd, x, w, b, "relu", t_out,

@@ -390,7 +390,8 @@ def _conv1d_toeplitz_calls(dtype, passes=1):
 def test_twelve_of_the_fifteen_conv1d_launches_take_the_tensor_cores():
     """bf16: 8 forward + 7 dx launches; all but the first encoder layer (G
     = 4), the last decoder layer (N = 4) and its dx (G = 4) take them; fp32
-    one pass and four, none."""
+    in one pass none, in four passes the same twelve (on their bf16
+    halves)."""
     calls = _conv1d_toeplitz_calls(BF16)
     assert len(calls) == 15
     takes = [toeplitz.takes_tensor_cores(*c[:6], passes=c[6]) for c in calls]
@@ -398,16 +399,18 @@ def test_twelve_of_the_fifteen_conv1d_launches_take_the_tensor_cores():
     for call, took in zip(calls, takes):
         assert took == (call[4] % 8 == 0 and call[5] % 8 == 0), call
     assert sorted(c[4] for c, t in zip(calls, takes) if not t) == [4, 4, 32]
-    for passes in (1, 4):
-        calls = _conv1d_toeplitz_calls(F32, passes)
-        assert len(calls) == 15
-        assert not any(toeplitz.takes_tensor_cores(*c[:6], passes=c[6])
-                       for c in calls)
+    calls = _conv1d_toeplitz_calls(F32, 1)
+    assert len(calls) == 15
+    assert not any(toeplitz.takes_tensor_cores(*c[:6], passes=c[6])
+                   for c in calls)
+    calls = _conv1d_toeplitz_calls(F32, 4)
+    assert [toeplitz.takes_tensor_cores(*c[:6], passes=c[6])
+            for c in calls] == takes
 
 
 @pytest.mark.parametrize("dtype,B,nb,t_out,G,N,passes,aligned", [
     (F32, 64, 64, 64, 128, 64, 1, True),      # fp32 promises IEEE products
-    (F32, 64, 64, 64, 128, 64, 4, True),      # the 4-pass hi/lo mode
+    (F32, 64, 64, 64, 128, 60, 4, True),      # the 4-pass mode, N % 8
     (BF16, 64, 256, 256, 4, 32, 1, True),     # the first encoder layer
     (BF16, 64, 256, 256, 32, 4, 1, True),     # the last decoder layer
     (BF16, 64, 64, 64, 124, 64, 1, True),     # G % 8 != 0
@@ -500,17 +503,22 @@ def test_linear_fwd_and_toeplitz_pass_the_kernel_code_and_plan(monkeypatch):
     name, args = launched.pop()
     # B, nb, G, KB, N, t_out, shift, act, passes, dtype | the contraction
     # window (k0, k_len) | t_half, b_half, tile width, kernel
-    assert name == "rvk_toeplitz_fwd"
-    assert args[4:14] == (4096, 64, 128, 3, 64, 64, 1, 1, 1, 1)
-    assert args[14:] == (0, 384, 64, 1, 64, 1)
+    # (after x, w, b, y and the workspace, None but in four passes)
+    assert name == "rvk_toeplitz_fwd" and args[4] is None
+    assert args[5:15] == (4096, 64, 128, 3, 64, 64, 1, 1, 1, 1)
+    assert args[15:] == (0, 384, 64, 1, 64, 1)
     toeplitz.toeplitz_fwd(xs[:, :16].contiguous(), ws, bs, "relu", 16, 1)
-    assert launched.pop()[1][14:] == (0, 384, 16, 4, 64, 1)
+    assert launched.pop()[1][15:] == (0, 384, 16, 4, 64, 1)
     toeplitz.toeplitz_fwd(xs, ws, bs, "relu", 64, 1, kernel="cuda_cores")
-    assert launched.pop()[1][14:] == (0, 384, 0, 0, 0, 0)
-    # fp32, 4 passes: the first version (wide widths)
+    assert launched.pop()[1][15:] == (0, 384, 0, 0, 0, 0)
+    # fp32, 4 passes: the tensor cores on the bf16 halves, 64 wide, the
+    # halves' workspace (x's then w's, hi and lo) passed
     toeplitz.toeplitz_fwd(xs.float(), ws.float(), bs.float(), "relu", 64, 1,
                           4)
-    assert launched.pop()[1][12:] == (4, 0, 0, 384, 0, 0, 0, 0)
+    args = launched.pop()[1]
+    assert args[13:] == (4, 0, 0, 384, 64, 1, 64, 1)
+    assert args[4].dtype == BF16 and args[4].shape == (
+        2 * (4096 * 64 * 128 + 3 * 128 * 64),)
     assert (toeplitz.toeplitz_fwd.launches - counts[0],
             toeplitz.toeplitz_fwd.tensor_core_launches - counts[1]) == (4, 2)
 
@@ -526,7 +534,7 @@ def test_named_tensor_cores_raise_for_linear_fwd_and_toeplitz(monkeypatch):
             (((8, 256, 4), (3, 4, 32), (32,)), BF16, 1),        # G = 4
             (((8, 256, 32), (3, 32, 4), (4,)), BF16, 1),        # N = 4
             (((8, 64, 128), (3, 128, 64), (64,)), F32, 1),
-            (((8, 64, 128), (3, 128, 64), (64,)), F32, 4)):
+            (((8, 64, 128), (3, 128, 60), (60,)), F32, 4)):     # N % 8
         xs, ws, bs = (torch.empty(sh, device="meta", dtype=dtype)
                       for sh in shapes)
         with pytest.raises(ValueError, match="takes bf16 operands"):

@@ -81,8 +81,8 @@ def _layer_launches(monkeypatch, direction, length, cin, cout, dtype,
                     passes=1, batch=BATCH):
     """The two launches (forward, then dx) of one conv1d layer's forward
     and backward through ``ops/conv.py`` on ``meta`` tensors, as ``(args,
-    code)``: ``args`` what reached ``rvk_toeplitz_fwd`` after the four
-    pointers."""
+    code)``: ``args`` what reached ``rvk_toeplitz_fwd`` after the five
+    pointers (x, w, b, y and the workspace)."""
     launched = _stand_in(monkeypatch)
     op = conv.conv1d_pallas if direction == "conv" \
         else conv.conv1d_transpose_pallas
@@ -93,14 +93,14 @@ def _layer_launches(monkeypatch, direction, length, cin, cout, dtype,
     b = torch.empty((cout,), device="meta", dtype=dtype, requires_grad=True)
     op(x, w, b, 4, "relu", passes).sum().backward()
     assert [name for name, _ in launched] == ["rvk_toeplitz_fwd"] * 2
-    return [(args[4:], args[-1]) for _, args in launched]
+    return [(args[5:], args[-1]) for _, args in launched]
 
 
 # (layer) → the forms of its forward and dx launches, by dtype
 EXPECTED = {
     "fp32": [(NARROW, NARROW)] + [(SGEMM, SGEMM)] * 6 + [(NARROW, NARROW)],
     "bf16": [(NARROW, NARROW)] + [(TC, TC)] * 6 + [(NARROW, NARROW)],
-    "fp32, 4 passes": [(NARROW, NARROW)] + [(FIRST, FIRST)] * 6
+    "fp32, 4 passes": [(NARROW, NARROW)] + [(TC, TC)] * 6
     + [(NARROW, NARROW)],
 }
 
@@ -111,7 +111,8 @@ def test_auto_picks_a_new_form_at_every_conv1d_layer(monkeypatch, kind,
                                                      layer):
     """fp32: the first and last layers and their dx narrow (G or N of 4),
     layers 1-6 on the fp32 kernel; bf16: the same narrow ones, 1-6 on the
-    tensor cores; passes = 4 keeps the first version at the wide layers."""
+    tensor cores; passes = 4 takes the tensor cores at the wide layers too,
+    on the operands' bf16 halves."""
     dtype = BF16 if kind == "bf16" else F32
     passes = 4 if "4 passes" in kind else 1
     launches = _layer_launches(monkeypatch, *_conv1d_layers()[layer], dtype,
@@ -173,7 +174,7 @@ def test_the_narrow_form_sums_two_positions_a_thread_in_bf16(
                for sh in ((8, 256, 4), (3, 4, 32), (32,)))
     toeplitz.toeplitz_fwd(x, w, b, "relu", 256, 1, passes)
     args = launched.pop()[1]
-    assert args[12:] == (passes, int(dtype == BF16), 0, 12, rows, 0, 32,
+    assert args[13:] == (passes, int(dtype == BF16), 0, 12, rows, 0, 32,
                          NARROW)
     assert toeplitz.narrow_rows(dtype) == rows
 
