@@ -225,7 +225,8 @@ class TPUConfig:
     # pods the coordinator/process info comes from the environment.
     multihost: bool = False
     coordinator_address: str = ""
-    # Capture a jax.profiler trace for steps [profile_start, profile_start +
+    # Capture a torch.profiler Chrome trace, with the program's rvk.* spans
+    # (observe/spans.py), for steps [profile_start, profile_start +
     # profile_steps) into <workdir>/logs/profile (0 = off).
     profile_steps: int = 0
     profile_start: int = 10

@@ -1,19 +1,20 @@
-"""Step timing → frames/sec accounting, and profiler capture — the JAX
-package's ``observe/timing.py``, ported.
+"""Step timing and profiler capture — the JAX package's
+``observe/timing.py``, ported.
 
 ``StepTimer`` reads the host clock; on a CUDA device it synchronises first,
 so a window ends when the device's queued work has ended, not when the host
 finished enqueueing it.  ``trace_capture`` wraps a window of steps in a
 ``torch.profiler`` trace (CPU and, where there is one, CUDA activity),
-written as a Chrome trace into the log directory.
+written as a Chrome trace into the log directory; the program's spans
+(``observe/spans.py``) are in it.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional
+from typing import Optional
 
 import torch
 
@@ -25,13 +26,11 @@ def synchronize(device: Optional[torch.device]) -> None:
 
 @dataclass
 class StepTimer:
-    """Collects per-window durations; excludes the first ``warmup`` ones
-    (kernel build + allocator warmup) from throughput stats."""
+    """The host clock around a window of steps, synchronised at both ends:
+    ``start()``, then ``stop()`` returns the window's seconds."""
 
-    warmup: int = 2
     device: Optional[torch.device] = None
     _t0: Optional[float] = None
-    durations: List[float] = field(default_factory=list)
 
     def start(self) -> None:
         synchronize(self.device)
@@ -39,26 +38,7 @@ class StepTimer:
 
     def stop(self) -> float:
         synchronize(self.device)
-        dt = time.perf_counter() - self._t0
-        self.durations.append(dt)
-        return dt
-
-    @property
-    def steady(self) -> List[float]:
-        """Post-warmup durations.  A run too short to pass warmup falls
-        back to the LAST duration only — never the full list, which would
-        average the first window's one-time costs into the throughput."""
-        if len(self.durations) > self.warmup:
-            return self.durations[self.warmup:]
-        return self.durations[-1:]
-
-    def mean_step_s(self) -> float:
-        s = self.steady
-        return sum(s) / len(s) if s else float("nan")
-
-    def frames_per_sec(self, batch_size: int) -> float:
-        m = self.mean_step_s()
-        return batch_size / m if m and m == m else float("nan")
+        return time.perf_counter() - self._t0
 
 
 class trace_capture:

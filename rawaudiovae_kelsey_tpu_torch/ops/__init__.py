@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version
-(``<op>_ref``) and a launch counter (``<op>.launches``).  For the dense
-VAE: the forward kernels of serving and training, the int8 serving decoder,
+(``<op>_ref``) and a launch counter (``<op>.launches``); while a profiler
+records, a wrapper's call, kernel or plain version, is the span
+``rvk.rowNN.<op>``, NN its row of PERF.md's kernel table
+(``observe/spans.py``).  For the dense VAE: the forward kernels of serving
+and training, the int8 serving decoder,
 the backward kernels of the training step (the bf16 "split" set, the fp32
 "primitive" set and the 3-pass "full" set of the ``high`` tier), the fused
 loss reduction and the in-kernel Gaussian sampler.  For the model variants:

@@ -47,6 +47,7 @@ from typing import Any, Sequence, Tuple
 
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.observe.spans import spanned
 from rawaudiovae_kelsey_tpu_torch.ops import _build
 from rawaudiovae_kelsey_tpu_torch.tree import leaves
 
@@ -184,6 +185,7 @@ def _check_kernel(op: str, kernel: str) -> None:
 
 
 @torch.no_grad()
+@spanned("rvk.row20.leaf_update")
 def leaf_update(p, g, m, v, bc1, bc2, *, b1: float, b2: float, eps: float,
                 lr: float, kernel: str = "auto") -> None:
     """One Adam step of the leaf ``p`` from its gradient ``g`` and moments
@@ -227,6 +229,7 @@ leaf_update.launches = 0
 # ----------------------------------------------------------- the whole tree
 
 @torch.no_grad()
+@spanned("rvk.row20.adam_tree")
 def adam_tree(ps: Sequence[Tensor], gs: Sequence[Tensor],
               ms: Sequence[Tensor], vs: Sequence[Tensor], bc1: float,
               bc2: float, *, b1: float, b2: float, eps: float, lr: float

@@ -53,6 +53,7 @@ from typing import Tuple
 
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.observe.spans import span, spanned
 from rawaudiovae_kelsey_tpu_torch.ops import _build, tensor_cores
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (
     DTYPE_CODES,
@@ -142,6 +143,7 @@ def _check(name: str, x, w, b, act: str):
     return dev, dt, batch, k, n
 
 
+@spanned("rvk.row16.linear_fwd")
 def linear_fwd(x, w, b, act: str = "none", kernel: str = "auto") -> Tensor:
     """``act(x @ w + b)``, the whole contraction in one pass per output
     tile.
@@ -187,6 +189,7 @@ def _prepare(name: str, x, w, b, act: str, kernel: str):
     return dev, dt, batch, k, n, code, tile
 
 
+@spanned("rvk.row15.linear_ksplit_fwd")
 def linear_ksplit_fwd(x, w, b, act: str = "none",
                       kernel: str = "auto") -> Tensor:
     """``act(x @ w + b)`` with the contraction walked in
@@ -253,8 +256,13 @@ def linear_partial(x, w, ksplit: bool = False,
     everything else the row's first version with an fp32 output (the
     whole-k GEMM, or the k-split's two stages).  Counts one launch of the
     row's wrapper (``launches`` and ``partial_launches``, and the kernel's
-    own counter)."""
+    own counter), in the row's span."""
     wrapper = linear_ksplit_fwd if ksplit else linear_fwd
+    with span(wrapper.span_name):
+        return _linear_partial(wrapper, x, w, ksplit, kernel)
+
+
+def _linear_partial(wrapper, x, w, ksplit: bool, kernel: str) -> Tensor:
     name = wrapper.__name__
     tensor_cores.check_name(name, kernel)
     if x.device.type == "cpu":

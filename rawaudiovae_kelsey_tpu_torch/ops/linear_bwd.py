@@ -52,6 +52,7 @@ from typing import Tuple
 
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.observe.spans import spanned
 from rawaudiovae_kelsey_tpu_torch.ops import _build, tensor_cores
 from rawaudiovae_kelsey_tpu_torch.ops.linear import ACT_CODES, act_backward
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (
@@ -102,6 +103,7 @@ def dx_fused_ref(y, dy, w, act: str = "relu") -> Tensor:
 
 # ----------------------------------------------------------------- wrappers
 
+@spanned("rvk.row18.dw_fused")
 def dw_fused(x, y, dy, act: str = "relu", kernel: str = "auto"
              ) -> Tuple[Tensor, Tensor]:
     """``(dW, db) = (xᵀ · da, Σ_rows da)``, fp32, with ``da`` formed inside
@@ -160,6 +162,7 @@ def resolve_dw_fused(kernel: str, dtype: torch.dtype, batch: int, k: int,
         tensor_cores.takes_sgemm(dtype, batch, k, n, aligned))
 
 
+@spanned("rvk.row19.dx_fused")
 def dx_fused(y, dy, w, act: str = "relu", kernel: str = "auto") -> Tensor:
     """``dx = da · wᵀ`` in the operand dtype, with ``da`` formed inside the
     kernel from ``y`` and ``dy``; fp32 accumulation over all of n, one

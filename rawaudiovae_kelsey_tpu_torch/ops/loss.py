@@ -29,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.observe.spans import spanned
 from rawaudiovae_kelsey_tpu_torch.ops import _build
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (
     DTYPE_CODES,
@@ -65,6 +66,7 @@ def _same_dtype(*tensors: Tensor) -> Tuple[Tensor, ...]:
     return tuple(_f(t) for t in tensors)
 
 
+@spanned("rvk.row14.loss_sums")
 def loss_sums(recon, x, mu, logvar) -> Tuple[Tensor, Tensor]:
     """``(Σ(recon−x)², Σ(1+logvar−mu²−e^logvar))`` as two 0-d fp32 tensors,
     from one pass.  ``recon``/``x`` are ``(batch, seg)``, ``mu``/``logvar``

@@ -50,6 +50,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.observe.spans import spanned
 from rawaudiovae_kelsey_tpu_torch.ops import _build, tensor_cores
 
 Tensor = torch.Tensor
@@ -274,6 +275,7 @@ def operand_dtype(x: Tensor, name: str) -> torch.dtype:
 
 # ----------------------------------------------------------- forward kernels
 
+@spanned("rvk.row01.encoder_fwd")
 def encoder_fwd(w1, b1, w21, b21, w22, b22, x, kernel: str = "auto",
                 passes: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
     """Fused ``relu(x@W1+b1)`` → ``(mu, logvar, h)``.
@@ -341,6 +343,7 @@ encoder_fwd.split_launches = 0
 encoder_fwd.partial_launches = 0
 
 
+@spanned("rvk.row01.encoder_fwd")
 def encoder_fwd_partial(w1, b1, w21, w22, x, kernel: str = "auto",
                         passes: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
     """The row-parallel form of :func:`encoder_fwd` (tensor parallelism,
@@ -564,6 +567,7 @@ def resolve_encoder(kernel: str, dtype: torch.dtype, batch: int, seg: int,
         and tensor_cores.takes_sgemm(dtype, batch, units, latent))
 
 
+@spanned("rvk.row02.decoder_fwd")
 def decoder_fwd(w3, b3, w4, b4, z, kernel: str = "auto", passes: int = 1
                 ) -> Tuple[Tensor, Tensor]:
     """Fused ``tanh(relu(z@W3+b3)@W4+b4)`` → ``(y, h3)``.
@@ -621,6 +625,7 @@ decoder_fwd.split_launches = 0
 decoder_fwd.partial_launches = 0
 
 
+@spanned("rvk.row02.decoder_fwd")
 def decoder_fwd_partial(w3, b3, w4, z, kernel: str = "auto",
                         passes: int = 1) -> Tuple[Tensor, Tensor]:
     """The row-parallel form of :func:`decoder_fwd`: ``h3 =
@@ -686,6 +691,7 @@ def _grads(dev, *shapes) -> Tuple[Tensor, ...]:
                  for s in shapes)
 
 
+@spanned("rvk.row04.matmul_nt")
 def matmul_nt(a, w, kernel: str = "auto", passes: int = 1) -> Tensor:
     """``a @ wᵀ``: ``(batch, n) @ (m, n)ᵀ → (batch, m)`` in the operand
     dtype — the input-gradient product (``dz``, ``dx``).
@@ -750,6 +756,7 @@ matmul_nt.sgemm_launches = 0
 matmul_nt.split_launches = 0
 
 
+@spanned("rvk.row05.matmul_nt_mask")
 def matmul_nt_mask(a, w, gate, kernel: str = "auto", passes: int = 1
                    ) -> Tensor:
     """The ReLU-backward step ``(a @ wᵀ) · (gate > 0)``: the decoder's
@@ -821,6 +828,7 @@ matmul_nt_mask.sgemm_launches = 0
 matmul_nt_mask.split_launches = 0
 
 
+@spanned("rvk.row06.matmul_nt2_mask")
 def matmul_nt2_mask(a1, w1, a2, w2, gate, kernel: str = "auto",
                     passes: int = 1) -> Tensor:
     """The two-head ReLU backward ``(a1 @ w1ᵀ + a2 @ w2ᵀ) · (gate > 0)``:
@@ -902,6 +910,7 @@ def _workspace(dev, split: int, m: int, n: int, outputs: int = 1):
                        dtype=torch.float32)
 
 
+@spanned("rvk.row07.grad_accum")
 def grad_accum(a, b, kernel: str = "auto", passes: int = 1
                ) -> Tuple[Tensor, Tensor]:
     """Weight and bias gradients of ``y = a @ W + bias`` given the
@@ -1006,6 +1015,7 @@ def resolve_grad_accum(kernel: str, dtype: torch.dtype, batch: int, n: int,
         tensor_cores.takes_sgemm(dtype, batch, n, m, aligned))
 
 
+@spanned("rvk.row09.grad_accum2")
 def grad_accum2(a, b1, b2, kernel: str = "auto", passes: int = 1
                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Two :func:`grad_accum` s that share ``a``: ``(aᵀ b1, colsum(b1),
@@ -1080,6 +1090,7 @@ def resolve_grad_accum2(kernel: str, dtype: torch.dtype, batch: int, n: int,
         tensor_cores.takes_sgemm(dtype, batch, n, m, aligned))
 
 
+@spanned("rvk.row08.enc_bwd_dw1")
 def enc_bwd_dw1(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto",
                 passes: int = 1) -> Tuple[Tensor, Tensor]:
     """Encoder first-layer gradients: ``dh = (dmu@w21ᵀ +
@@ -1195,6 +1206,7 @@ def resolve_enc_bwd_dw1(kernel: str, dtype: torch.dtype, batch: int,
         and tensor_cores.takes_sgemm(dtype, batch, seg, units))
 
 
+@spanned("rvk.row10.dec_bwd_fused")
 def dec_bwd_fused(da, h3, z, w4, w3, kernel: str = "auto", passes: int = 1
                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """Decoder backward minus the dW4 product: ``dh3 = (da@w4ᵀ)·(h3>0)``
@@ -1420,6 +1432,7 @@ def resolve_full(op: str, kernel: str, dtype: torch.dtype, batch: int,
                     "one row and 16-byte aligned pointers")
 
 
+@spanned("rvk.row11.enc_bwd_full")
 def enc_bwd_full(x, h, dmu, dlogvar, w21, w22, kernel: str = "auto",
                  passes: int | None = None) -> Tuple[Tensor, ...]:
     """The encoder's whole parameter backward from one call → ``(dw1, db1,
@@ -1495,6 +1508,7 @@ enc_bwd_full.tensor_core_launches = 0
 enc_bwd_full.sgemm_launches = 0
 
 
+@spanned("rvk.row12.dec_bwd_full")
 def dec_bwd_full(da, h3, z, w4, w3, kernel: str = "auto",
                  passes: int | None = None) -> Tuple[Tensor, ...]:
     """The decoder's whole backward from one call → ``(dz, dw3, db3, dw4,

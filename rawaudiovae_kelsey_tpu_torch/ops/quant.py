@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.observe.spans import spanned
 from rawaudiovae_kelsey_tpu_torch.ops import _build, tensor_cores
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import (
     cuda_device,
@@ -61,6 +62,7 @@ def quantized_decode_ref(qparams, z: Tensor) -> Tensor:
     return torch.tanh(h3 @ w4 + qparams["fc4"]["b"])
 
 
+@spanned("rvk.row03.quantized_decoder_fwd")
 def quantized_decoder_fwd(qparams, z: Tensor, kernel: str = "auto"
                           ) -> Tensor:
     """Int8-weight decode ``tanh(relu(z@W3+b3)@W4+b4)``, W3/W4 dequantized

@@ -39,6 +39,7 @@ from typing import Tuple
 
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.observe.spans import spanned
 from rawaudiovae_kelsey_tpu_torch.ops import _build
 from rawaudiovae_kelsey_tpu_torch.ops.mlp import cuda_device, require
 
@@ -139,6 +140,7 @@ def reparameterize_prng_ref(seed: SeedWords, mu: Tensor, logvar: Tensor
     return z.to(mu.dtype)
 
 
+@spanned("rvk.row13.reparameterize_prng")
 def reparameterize_prng(seed: SeedWords, mu: Tensor, logvar: Tensor
                         ) -> Tensor:
     """``z = mu + eps · exp(0.5 · logvar)`` with ``eps`` drawn inside the

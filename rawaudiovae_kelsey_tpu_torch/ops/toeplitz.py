@@ -79,6 +79,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from rawaudiovae_kelsey_tpu_torch.observe.spans import spanned
 from rawaudiovae_kelsey_tpu_torch.ops import _build, tensor_cores
 from rawaudiovae_kelsey_tpu_torch.ops.linear import (
     ACT_CODES,
@@ -319,6 +320,7 @@ def kernel_device(x: Tensor) -> torch.device:
     return x.device
 
 
+@spanned("rvk.row17.toeplitz_fwd")
 def toeplitz_fwd(x, w, b, act: str = "none", t_out: Optional[int] = None,
                  shift: int = 0, passes: int = 1, kernel: str = "auto",
                  window: Optional[Tuple[int, int]] = None) -> Tensor:

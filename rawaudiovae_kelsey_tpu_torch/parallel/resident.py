@@ -67,6 +67,7 @@ from rawaudiovae_kelsey_tpu_torch.data.framing import (
     pad_to_multiple,
 )
 from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef
+from rawaudiovae_kelsey_tpu_torch.observe.spans import span
 from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather_ints,
@@ -204,26 +205,33 @@ def build_resident_epoch(
                 # ONE whole-matrix gather per epoch; the steps then take
                 # contiguous slices: data[sel][a:b] == data[sel[a:b]]
                 shuffled = data[sel]
-            yield from shuffled.view(n_batches, batch, seg).unbind(0)
-            return
+            return shuffled.view(n_batches, batch, seg).unbind(0)
         # corpus layout: seg-sample runs at start * hop — indexing the
         # window view with a batch's starts gathers only those rows
         windows = data.unfold(0, seg, hop)
-        for starts in sel.view(n_batches, batch).unbind(0):
-            yield windows[starts]
+        return (_gather(windows, starts)
+                for starts in sel.view(n_batches, batch).unbind(0))
 
     def run_epochs(state: TrainState, data: Tensor, epoch0: int, k: int = 1):
         rows = []
         for epoch in range(epoch0, epoch0 + k):
             losses = []
-            for xb in epoch_batches(data, selection(state, epoch,
-                                                    data.device)):
+            with span("rvk.epoch"):
+                batches = epoch_batches(
+                    data, selection(state, epoch, data.device))
+            for xb in batches:
                 state, metrics = step(state, xb)
                 losses.append(metrics["loss"].float())
             rows.append(torch.stack(losses))
         return state, torch.stack(rows)
 
     return run_epochs, n_batches
+
+
+def _gather(windows: Tensor, starts: Tensor) -> Tensor:
+    """A batch's rows of the ``corpus`` layout's window view."""
+    with span("rvk.gather"):
+        return windows[starts]
 
 
 # ------------------------------------------------- the mesh-sharded engine
@@ -348,24 +356,28 @@ def build_resident_epoch_sharded(
     global_shuffle = cfg.tpu.resident_shuffle in ("global", "block")
     step = per_rank_step(model, cfg, optimizer, mesh, noise)
 
+    def shuffled_shard(data: Tensor, epoch: int, seed: int) -> Tensor:
+        epoch_seed = perm_seed(seed, epoch)
+        local = data
+        if global_shuffle and n_shards > 1:
+            local = _two_pass_shuffle(
+                data, fold_rank(mix64(epoch_seed ^ 0xA110) >> 1, index),
+                mesh)
+        if perm is not None:
+            sel = perm(epoch, n_local).to(data.device)[:used]
+        else:
+            g = torch.Generator(device=data.device)
+            g.manual_seed(fold_rank(epoch_seed, index))
+            sel = torch.randperm(n_local, generator=g,
+                                 device=data.device)[:used]
+        # one whole-shard gather an epoch, then contiguous slices
+        return local[sel].view(n_batches, local_bs, seg)
+
     def run_epochs(state: TrainState, data: Tensor, epoch0: int, k: int = 1):
         rows = []
         for epoch in range(epoch0, epoch0 + k):
-            epoch_seed = perm_seed(state.seed, epoch)
-            local = data
-            if global_shuffle and n_shards > 1:
-                local = _two_pass_shuffle(
-                    data, fold_rank(mix64(epoch_seed ^ 0xA110) >> 1, index),
-                    mesh)
-            if perm is not None:
-                sel = perm(epoch, n_local).to(data.device)[:used]
-            else:
-                g = torch.Generator(device=data.device)
-                g.manual_seed(fold_rank(epoch_seed, index))
-                sel = torch.randperm(n_local, generator=g,
-                                     device=data.device)[:used]
-            # one whole-shard gather an epoch, then contiguous slices
-            shuffled = local[sel].view(n_batches, local_bs, seg)
+            with span("rvk.epoch"):
+                shuffled = shuffled_shard(data, epoch, state.seed)
             losses = []
             for xb in shuffled.unbind(0):
                 state, metrics = step(state, xb)

@@ -26,6 +26,7 @@ import torch
 
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef
+from rawaudiovae_kelsey_tpu_torch.observe.spans import span
 from rawaudiovae_kelsey_tpu_torch.ops import rng
 from rawaudiovae_kelsey_tpu_torch.parallel.mesh import Mesh, all_reduce_flat
 from rawaudiovae_kelsey_tpu_torch.parallel.step import (
@@ -90,19 +91,27 @@ def per_rank_step(model: ModelDef, cfg: Config, optimizer: Optional[Adam],
                                                 fold_rank(seed, index)))
 
     def step(state: TrainState, batch: torch.Tensor):
+        with span("rvk.step"):
+            return update(state, batch)
+
+    def update(state: TrainState, batch: torch.Tensor):
         x = batch.reshape(-1, seg)
         params = tree_map(lambda t: t.detach().requires_grad_(),
                           state.params)
         leaves = tree_leaves(params)
-        loss, (mse, kld) = loss_fn(params, eps_for(state, x.shape[0],
-                                                   x.device), x)
-        grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+        with span("rvk.forward"):
+            loss, (mse, kld) = loss_fn(params, eps_for(state, x.shape[0],
+                                                       x.device), x)
+        with span("rvk.backward"):
+            grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
         # THE collective: one reduction of grads and the scalar metrics
-        reduced = all_reduce_flat(
-            grads + [loss.detach(), mse.detach(), kld.detach()], mean,
-            mesh=mesh)
+        with span("rvk.allreduce"):
+            reduced = all_reduce_flat(
+                grads + [loss.detach(), mse.detach(), kld.detach()], mean,
+                mesh=mesh)
         grads, metrics = reduced[:len(grads)], reduced[len(grads):]
-        optimizer.update(state, unflatten(state.params, grads))
+        with span("rvk.adam"):
+            optimizer.update(state, unflatten(state.params, grads))
         state.step += 1
         return state, dict(zip(("loss", "mse", "kld"), metrics))
 

@@ -78,6 +78,7 @@ from torch.utils.checkpoint import checkpoint
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.models import vae
 from rawaudiovae_kelsey_tpu_torch.models.registry import ModelDef, under_tier
+from rawaudiovae_kelsey_tpu_torch.observe.spans import span
 from rawaudiovae_kelsey_tpu_torch.ops import rng
 from rawaudiovae_kelsey_tpu_torch.parallel.mesh import (
     Mesh,
@@ -285,20 +286,26 @@ def build_train_step(model: ModelDef, cfg: Config,
 
     def step(state: TrainState, batch: Tensor,
              weights: Optional[Tensor] = None):
+        with span("rvk.step"):
+            return update(state, batch, weights)
+
+    def update(state: TrainState, batch: Tensor,
+               weights: Optional[Tensor]):
         batch = batch.reshape(-1, seg)
         params = tree_map(lambda t: t.detach().requires_grad_(),
                           state.params)
         leaves = tree_leaves(params)
 
         def value_and_grad(i, rows, *weighted):
-            eps = eps_for(state, i, rows.shape[0], rows.device)
-            if weighted:
-                loss, (mse, kld) = wloss_fn(params, eps, rows, *weighted)
-            else:
-                loss, (mse, kld) = loss_fn(params, eps, rows)
-            grads = torch.autograd.grad(loss, leaves)
-            return ([loss.detach(), mse.detach(), kld.detach()],
-                    [g.float() for g in grads])
+            with span("rvk.forward"):
+                eps = eps_for(state, i, rows.shape[0], rows.device)
+                if weighted:
+                    loss, (mse, kld) = wloss_fn(params, eps, rows, *weighted)
+                else:
+                    loss, (mse, kld) = loss_fn(params, eps, rows)
+            with span("rvk.backward"):
+                grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+            return [loss.detach(), mse.detach(), kld.detach()], grads
 
         total = batch.shape[0]           # this rank's rows
         local_micro = micro // n
@@ -310,8 +317,9 @@ def build_train_step(model: ModelDef, cfg: Config,
                     "rows)")
             n_real = weights.float().sum()
             if mesh is not None:
-                (n_real,) = all_reduce_flat([n_real], mean=False,
-                                            mesh=mesh)
+                with span("rvk.allreduce"):
+                    (n_real,) = all_reduce_flat([n_real], mean=False,
+                                                mesh=mesh)
             metrics, grads = value_and_grad(None, batch, weights, n_real)
         elif micro and local_micro < total:
             # a ragged final batch (the loader keeps it) is one extra grad
@@ -340,11 +348,13 @@ def build_train_step(model: ModelDef, cfg: Config,
         if mesh is not None:
             # THE collective: grads and metrics in one flat bucket; the
             # weighted shares are already fractions of the global mean
-            reduced = all_reduce_flat(
-                grads + metrics, mean=mean_reduced and weights is None,
-                mesh=mesh)
+            with span("rvk.allreduce"):
+                reduced = all_reduce_flat(
+                    grads + metrics, mean=mean_reduced and weights is None,
+                    mesh=mesh)
             grads, metrics = reduced[:len(grads)], reduced[len(grads):]
-        optimizer.update(state, unflatten(state.params, grads))
+        with span("rvk.adam"):
+            optimizer.update(state, unflatten(state.params, grads))
         state.step += 1
         return state, dict(zip(("loss", "mse", "kld"), metrics))
 
