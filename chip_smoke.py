@@ -174,6 +174,9 @@ any failure exits non-zero with a traceback (no phase is caught):
    gives other bits); ``loss_sums`` on fp32 and bf16 inputs at batch 4096
    and 25,810 (equal bits on a second launch) with both times;
    ``fused_loss`` and its closed-form backward against the plain loss;
+   ``loss_sums`` (bf16 recon / x, fp32 mu / logvar) and ``loss_grads``
+   (that pair and fp32) at the benchmark's batch of 131,072 against their
+   plain versions, by device time against their bytes bound;
 7. the streaming path: ``configs/default_iterable.ini`` (batch 4096, bf16,
    pallas) on a synthetic folder of five wavs of unequal length, one of
    them resampled, with only the datapath, the frame budget (40 batches)
@@ -184,8 +187,9 @@ any failure exits non-zero with a traceback (no phase is caught):
    kernels and the ``high`` run ``enc_bwd_full`` and ``dec_bwd_full`` once
    each, every one on the tensor cores, and no split kernel; one ``high``
    step against the plain backend
-   from the same state and noise, and ``fused_loss`` on that step's
-   tensors against its loss; ``--resume`` with a larger budget against a
+   from the same state and noise, and the plain loss on that step's
+   tensors against its loss (row 14's kernels); ``loss_sums`` and
+   ``loss_grads`` once a step in each run; ``--resume`` with a larger budget against a
    straight run of that budget (equal losses); ``eval`` on the run; the hot
    loop's frames/s and the device's busy share for both precisions.
 
@@ -433,8 +437,9 @@ beside their fp32 library sequences, and they stay out of the kernel line,
 printed as "on no path");
 ``enc_bwd_full`` / ``dec_bwd_full``: the
 ``high`` stream run of phase 7 (those on the tensor cores, every one);
-``loss_sums``: the ``fused_loss`` call on a
-``high`` step's tensors in phase 7 (no step dispatches it); fp32
+``loss_sums`` / ``loss_grads``: the steps of phase 7's stream runs
+(``[fp32]``: the ``high`` run; ``[bf16-fp32]``: the bf16 run), whose loss
+runs on them as every ``pallas`` step's on the card; fp32
 ``matmul_nt*``: the ``highest`` resident epoch of phase 6 (those on the
 fp32 kernel); bf16
 ``matmul_nt`` / ``matmul_nt2_mask``: the bf16 ``dx`` of phase 6
@@ -524,6 +529,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import http.client
 import io
 import json
@@ -575,6 +581,13 @@ FULL_REL = 1e-4
 EXACT_DB_REL = 1e-5
 LOSS_BATCH, LOSS_RAGGED = 4096, 25_810
 SUMS_REL = 1e-5
+# row 14's two kernels at the benchmark cells' whole batch (the dense
+# model's 131,072 rows), in the pairs of dtypes the train steps pass: the
+# gradient is the plain version's formula with its roundings, so d recon
+# within one bf16 ulp (fp32: rel LOSS_GRAD_REL) and d mu, d logvar within
+# rel LOSS_GRAD_REL (the precise expf beside torch.exp)
+LOSS_STEP_ROWS = 131_072
+LOSS_GRAD_REL = 1e-6
 # phase 3e.  The variants' kernels: fp32 within 1e-4 * max|plain| (the same
 # products summed in another order), bf16 within 2^-6 * max|plain| (a
 # flipped bf16 ulp, and one more carried through an activation); the 4-pass
@@ -2845,7 +2858,114 @@ def phase_full_kernels(gen_params):
           f"{e:.3e}, input gradients {eg:.3e}")
     check(e <= 1e-5 and eg <= 1e-5, "fused_loss disagrees with the plain "
           "loss")
+    rows.update(loss_step_rows(dev))
     return rows, at_train_batch
+
+
+def bf16_ulps(a, b) -> int:
+    """The largest elementwise distance of two bf16 tensors, in ulps."""
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max())
+
+
+def loss_step_rows(dev):
+    """Phase 3d: row 14 as the train steps run it, at LOSS_STEP_ROWS x SEG
+    (+ x LATENT): ``loss_sums`` and ``loss_grads`` on bf16 recon / x
+    beside fp32 mu / logvar (the bf16 step), ``loss_grads`` on fp32 (the
+    fp32 tiers; the fp32 sums row is LOSS_BATCH's, above).  Each against
+    its plain version: the sums within SUMS_REL and bit for bit those of
+    the fp32 copies of recon and x (the order of the additions is a
+    function of the shapes alone); the gradient's d recon within one bf16
+    ulp (fp32: LOSS_GRAD_REL), d mu and d logvar within LOSS_GRAD_REL; two
+    launches a pair of calls and equal bits on the second; timed in turns
+    beside the plain version, and by device time against the bytes bound
+    (operands read once, the gradients written once)."""
+    from rawaudiovae_kelsey_tpu_torch.ops import loss
+
+    # a generator of its own: the draws of the other phases stay as they were
+    g = torch.Generator(device=dev).manual_seed(1414)
+    b = LOSS_STEP_ROWS
+    n_x, n_l = b * SEG, b * LATENT
+    g_m = torch.tensor(1.0, device=dev)
+    g_k = torch.tensor(1e-4, device=dev)
+    rows = {}
+    for kind, pair in (("bf16-fp32", torch.bfloat16),
+                       ("fp32", torch.float32)):
+        recon = torch.tanh(torch.randn((b, SEG), generator=g,
+                                       device=dev)).to(pair)
+        x = (torch.rand((b, SEG), generator=g, device=dev) * 2 - 1).to(pair)
+        mu = torch.randn((b, LATENT), generator=g, device=dev)
+        lv = torch.randn((b, LATENT), generator=g, device=dev) * 0.5
+        four = (recon, x, mu, lv)
+        calls = {"loss_grads": (
+            lambda: loss.loss_grads(*four, g_m, g_k, n_x, n_l),
+            lambda: loss.loss_grads_ref(*four, g_m, g_k, n_x, n_l),
+            "rawaudiovae_kelsey_tpu/ops/pallas_loss.py:145",
+            3 * n_x + 9 * n_l)}
+        if kind == "bf16-fp32":
+            calls["loss_sums"] = (
+                lambda: loss.loss_sums(*four),
+                lambda: loss.loss_sums_ref(*four),
+                "rawaudiovae_kelsey_tpu/ops/pallas_loss.py:53",
+                3 * n_x + 8 * n_l)
+        for name, (kernel, plain, replaces, flops) in calls.items():
+            key = f"{name}[{kind}]"
+            wrapper = getattr(loss, name)
+            n0 = wrapper.launches
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            check(wrapper.launches - n0 == 2, f"{key}: {wrapper.launches - n0}"
+                  " launches for two calls")
+            want = plain()
+            same = all(torch.equal(a, r) for a, r in zip(got, again))
+            check(same, f"{key}: two launches differ")
+            check(all(a.dtype == r.dtype and a.shape == r.shape
+                      and bool(torch.isfinite(a).all())
+                      for a, r in zip(got, want)),
+                  f"{key}: dtype, shape or non-finite")
+            if name == "loss_sums":
+                e = max(abs(float(a) / float(r) - 1)
+                        for a, r in zip(got, want))
+                copy = loss.loss_sums(recon.float(), x.float(), mu, lv)
+                exact = all(torch.equal(a, c) for a, c in zip(got, copy))
+                print(f"  {key:<22} batch {b}: max |kernel / plain - 1| = "
+                      f"{e:.3e} (tolerance {SUMS_REL:g}); the fp32 copies' "
+                      f"sums {'equal bit for bit' if exact else 'DIFFER'}")
+                check(e <= SUMS_REL and exact, f"{key}: {e:.3e}, fp32 "
+                      f"copies equal: {exact}")
+                moved = nbytes(*four) + 8
+            else:
+                if kind == "bf16-fp32":
+                    ulps = bf16_ulps(got[0], want[0])
+                    first, ok = f"{ulps} bf16 ulp (tolerance 1)", ulps <= 1
+                else:
+                    e0 = rel_err(got[:1], want[:1])
+                    first = f"rel {e0:.3e} (tolerance {LOSS_GRAD_REL:g})"
+                    ok = e0 <= LOSS_GRAD_REL
+                e = rel_err(got[1:], want[1:])
+                print(f"  {key:<22} batch {b}: d recon {first}; d mu, d "
+                      f"logvar rel {e:.3e} (tolerance {LOSS_GRAD_REL:g}); "
+                      "second launch equal bit for bit")
+                check(ok and e <= LOSS_GRAD_REL, f"{key}: d recon {first}, "
+                      f"d mu / d logvar {e:.3e}")
+                moved = nbytes(*four, *got)
+            err = max_err(got, want)
+            del got, again, want
+            ms, plain_ms, t_kern, t_plain = time_both(kernel, plain, 20)
+            dev_ms = device_ms(kernel)
+            row = {"name": key, "route": "cuda",
+                   "source": "rawaudiovae_kelsey_tpu_torch/csrc/loss.cu",
+                   "replaces": replaces, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "device_ms": dev_ms,
+                   **bound(flops, moved, "fp32"), "library_ms": None}
+            print(f"  {key:<22} batch {b}: kernel {ms:.4f} ms (runs "
+                  f"{t_kern}), device {dev_ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms (runs {t_plain}); bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}, {moved / 1e9:.3f} GB): the kernel "
+                  f"at {row['bound_ms'] / dev_ms:.1%} of its bound")
+            rows[key] = row
+        del recon, x, mu, lv, four
+    return rows
 
 
 # phase 3g: the `high` tier's 3-pass forms of rows 1, 2, 6 -> 4 and of the
@@ -3258,11 +3378,13 @@ def plain_wrappers():
 def fusion_step(cfg, mode, x):
     """One step of ``cfg`` 's model with the switch forced to ``mode``,
     through the kernels and as the plain step of the same mode (same
-    state and noise): the update held at PERF.md section 2's bound.
+    state and noise; its loss on plain ops, not on row 14's kernels): the
+    update held at PERF.md section 2's bound.
     Returns the kernels' launches by wrapper, "<name>@<form>" for each
     counter of a faster form."""
     from rawaudiovae_kelsey_tpu_torch import ops
     from rawaudiovae_kelsey_tpu_torch.models import build_model
+    from rawaudiovae_kelsey_tpu_torch.models.registry import plain_loss
     from rawaudiovae_kelsey_tpu_torch.ops import mlp
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
     from rawaudiovae_kelsey_tpu_torch.train import TrainState
@@ -3291,9 +3413,15 @@ def fusion_step(cfg, mode, x):
         state = start.clone()
         before = [(w.launches, *(getattr(w, c, 0) for c in counters))
                   for w in ops.KERNEL_WRAPPERS]
+        # the plain step: ops/mlp.py's plain versions, and the loss on
+        # plain ops where the model binds row 14's kernels
+        step_model = (model if kind == "kernels"
+                      else dataclasses.replace(model,
+                                               loss_components=plain_loss))
         with (plain_wrappers() if kind == "plain"
               else contextlib.nullcontext()):
-            state, m = build_train_step(model, cfg, noise=noise)(state, x)
+            state, m = build_train_step(step_model, cfg, noise=noise)(state,
+                                                                      x)
         torch.cuda.synchronize()
         if kind == "kernels":
             counts = {}
@@ -4543,11 +4671,12 @@ def phase_resident(data: Path, card: str):
                        "matmul_nt2_mask": 1, "matmul_nt2_mask@sgemm": 1,
                        "matmul_nt_mask": 1, "matmul_nt_mask@sgemm": 1,
                        "matmul_nt": 1, "matmul_nt@sgemm": 1, "grad_accum": 5,
-                       "grad_accum@sgemm": 5, "reparameterize_prng": 1},
+                       "grad_accum@sgemm": 5, "reparameterize_prng": 1,
+                       "loss_sums": 1, "loss_grads": 1},
           f"unexpected launches per `highest` step (the encoder, the "
           f"decoder, matmul_nt, matmul_nt_mask, matmul_nt2_mask and the "
-          f"five grad_accum on the fp32 kernel of csrc/sgemm.cuh): "
-          f"{per_step}")
+          f"five grad_accum on the fp32 kernel of csrc/sgemm.cuh, the "
+          f"sampler, row 14's sums and gradient): {per_step}")
     (dk, lk), (dx, lx) = deltas["pallas"], deltas["xla"]
     upd = float((dk - dx).norm() / dx.norm())
     print(f"  `highest` resident epoch, kernels vs plain: first loss "
@@ -4768,6 +4897,11 @@ def phase_stream(tmp: Path):
     )
     from rawaudiovae_kelsey_tpu_torch.eval.cli import main as eval_cli
     from rawaudiovae_kelsey_tpu_torch.models import build_model, vae
+    from rawaudiovae_kelsey_tpu_torch.models.registry import (
+        kernel_loss,
+        plain_loss,
+        under_tier,
+    )
     from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
     from rawaudiovae_kelsey_tpu_torch.train import (
         TrainState,
@@ -4903,6 +5037,9 @@ def phase_stream(tmp: Path):
     for backend in ("pallas", "xla"):
         cfg_high.tpu.backend = backend
         model = build_model(cfg_high, dev)
+        check(model.loss_components is (kernel_loss if backend == "pallas"
+                                        else plain_loss),
+              f"high {backend}: the model bound {model.loss_components}")
         state, _ = restore_checkpoint(ckpt, TrainState.create(
             model.init(torch.Generator().manual_seed(0)), 0))
         before = {n: {k: t.clone() for k, t in q.items()}
@@ -4913,13 +5050,17 @@ def phase_stream(tmp: Path):
                            for n in sorted(before) for k in sorted(before[n])])
         out[backend] = (float(m["loss"]), delta)
         if backend == "pallas":
+            # the step's forward on the same state and noise (its pass
+            # count bound as the step binds it), the loss on plain ops
+            tiered = under_tier(model, cfg_high)
             with torch.no_grad():
-                mu, logvar = model.encode(before, x)
+                mu, logvar = tiered.encode(before, x)
                 eps = noise(step_no, None, mu.shape).to(dev)
-                recon = model.decode(
+                recon = tiered.decode(
                     before, vae.reparameterize(mu, logvar, eps=eps))
-                fused = float(ops.fused_loss(recon, x, mu, logvar,
-                                             cfg_high.vae.kl_beta))
+                plain = float(plain_loss(
+                    recon, x, mu, logvar, cfg_high.vae.kl_beta, seg,
+                    cfg_high.training.loss_reduction.split()[0])[0])
     cfg_high.tpu.backend = "pallas"
     (lk, dk), (lx, dx) = out["pallas"], out["xla"]
     upd = float((dk - dx).norm() / dx.norm())
@@ -4927,14 +5068,21 @@ def phase_stream(tmp: Path):
           f"|update difference| / |update| = {upd:.3e} (tolerance 1e-3)")
     check(abs(lk / lx - 1) <= 1e-3 and upd <= 1e-3,
           "high step: kernels and plain disagree")
-    print(f"  fused_loss on that step's recon, x, mu, logvar: {fused:.9f} vs "
-          f"the step's loss {lk:.9f} (rel {abs(fused / lk - 1):.3e})")
-    check(abs(fused / lk - 1) <= 1e-6, "fused_loss differs from the step's "
-          "loss")
-    # the full chains' counts are the `high` stream run's alone; the loss
-    # reduction is dispatched by no step, so its count is the call above
-    high_counts = dict(c_high, loss_sums=ops.loss_sums.launches)
-    check(high_counts["loss_sums"] >= 1, "loss_sums was never launched")
+    print(f"  the plain loss (models/vae.py) on that step's recon, x, mu, "
+          f"logvar: {plain:.9f} vs the step's loss on row 14's kernels "
+          f"{lk:.9f} (rel {abs(plain / lk - 1):.3e})")
+    check(abs(plain / lk - 1) <= 1e-6, "the step's loss differs from the "
+          "plain loss")
+    # row 14 in each stream run (counters reset before it): the sums and
+    # the gradient once a step, bf16 recon / x beside fp32 mu / logvar in
+    # the bf16 run, fp32 in the `high` run
+    for name, counts in (("bf16", c_bf16), ("high", c_high)):
+        seen = (counts["loss_sums"], counts["loss_grads"])
+        print(f"  stream[{name}]: loss_sums / loss_grads launched {seen} "
+              f"times in {n_batches} steps")
+        check(seen == (n_batches, n_batches), f"stream[{name}]: loss_sums "
+              f"/ loss_grads launched {seen} times in {n_batches} steps")
+    high_counts = c_high
 
     # resume the bf16 run with a larger budget; a straight run of that
     # budget must log the same losses for the batches the resume trained:
@@ -9101,11 +9249,21 @@ def main() -> int:
             row["launches"] = counts.get(f"{name}@tc", counts[name])
         check(row["launches"] > 0, f"{key}: no launch on its main path")
     rows.update(new_rows)
-    # the full chains run in fp32 under `high` and the loss reduction on a
-    # `high` step's fp32 tensors; the chains' bf16 forms run with the switch
-    # forced to "full" (phase 3h's bf16 step, at the end), the loss
-    # reduction's bf16 form on no path (phase 3d held it)
+    # the full chains run in fp32 under `high`; their bf16 forms run with
+    # the switch forced to "full" (phase 3h's bf16 step, at the end); the
+    # loss reduction's bf16 row (all four operands bf16; the bf16 step
+    # passes fp32 mu and logvar) is reported off the path (phase 3d held it)
     off_path(full_rows.pop("loss_sums[bf16]"))
+    # row 14 in the steps of phase 7's stream runs (counters reset before
+    # each): the fp32 rows in the `high` run's, the bf16-fp32 rows in the
+    # bf16 run's
+    for key in [k for k in full_rows if k.startswith("loss_")]:
+        row = full_rows.pop(key)
+        counts = (stream_launches if key.endswith("[bf16-fp32]")
+                  else high_launches)
+        row["launches"] = counts[key.split("[")[0]]
+        check(row["launches"] > 0, f"{key}: no launch on its main path")
+        rows[key] = row
     for key in ("enc_bwd_full[bf16]", "dec_bwd_full[bf16]"):
         forced_rows[key] = full_rows.pop(key)
     for key, row in full_rows.items():
@@ -9166,7 +9324,7 @@ def main() -> int:
                     if kind == "bf16" else None)
         elif name in ("enc_bwd_full", "dec_bwd_full"):
             pair = [r["launches"] for r in steps["high"]]
-        elif kind == "bf16":
+        elif kind.startswith("bf16"):
             pair = [r["launches"] for r in steps["bfloat16"]]
         else:
             pair = [r["launches"] for r in steps["highest"]]
@@ -9184,7 +9342,7 @@ def main() -> int:
         elif name in ("enc_bwd_full", "dec_bwd_full"):
             label = "high"
         else:
-            label = "bfloat16" if kind == "bf16" else "highest"
+            label = "bfloat16" if kind.startswith("bf16") else "highest"
         ranks_ = tp.get(label, ()) if label else ()
         if ranks_ and all(r["launches"].get(name) for r in ranks_):
             row["tp_launches_per_rank"] = [r["launches"][name]

@@ -46,7 +46,7 @@ import torch
 
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.models import vae, variants
-from rawaudiovae_kelsey_tpu_torch.ops import linear, mlp
+from rawaudiovae_kelsey_tpu_torch.ops import linear, loss, mlp
 
 
 @dataclass(frozen=True)
@@ -54,7 +54,11 @@ class ModelDef:
     """A VAE family on one device: ``init`` (a ``torch.Generator`` →
     params dict on ``device``) and ``encode``/``decode`` functions of
     ``(params, batch)``; ``plain_encode``/``plain_decode`` are the family's
-    plain PyTorch ops whatever the backend (what ``torch.export`` traces)."""
+    plain PyTorch ops whatever the backend (what ``torch.export`` traces).
+    ``loss_components`` is the train step's loss, ``(recon, x, mu, logvar,
+    kl_beta, segment_length, reduction) → (loss, mse, kld)`` on the
+    decoder's output in its own dtype: :func:`kernel_loss` under
+    ``pallas`` (the dense and deep families), :func:`plain_loss` otherwise."""
 
     name: str
     segment_length: int
@@ -68,6 +72,33 @@ class ModelDef:
     plain_encode: Callable[[vae.Params, torch.Tensor],
                            Tuple[torch.Tensor, torch.Tensor]]
     plain_decode: Callable[[vae.Params, torch.Tensor], torch.Tensor]
+    loss_components: Callable[..., Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]]
+
+
+def plain_loss(recon, x, mu, logvar, kl_beta: float, segment_length: int,
+               reduction: str):
+    """The step's loss on plain ops: ``models/vae.py`` ``loss_components``
+    on the reconstruction brought to fp32, as the JAX step leaves its loss
+    to XLA."""
+    return vae.loss_components(recon.float(), x, mu, logvar, kl_beta,
+                               segment_length, reduction)
+
+
+def kernel_loss(recon, x, mu, logvar, kl_beta: float, segment_length: int,
+                reduction: str):
+    """The step's loss under ``backend = pallas``: row 14's two kernels
+    (``ops/loss.py`` ``fused_loss_components``) on the reconstruction in
+    the decoder's dtype where ``ops/loss.py`` ``takes_fused_loss`` says
+    they take the tensors (CUDA, the shapes and dtypes), so no fp32 copy
+    of it and no elementwise pass of the plain loss reaches device memory;
+    :func:`plain_loss` elsewhere.  The same fp32 function; the sums add in
+    another order."""
+    if loss.takes_fused_loss(recon, x, mu, logvar):
+        return loss.fused_loss_components(recon, x, mu, logvar, kl_beta,
+                                          reduction)
+    return plain_loss(recon, x, mu, logvar, kl_beta, segment_length,
+                      reduction)
 
 
 def resolve_backend(cfg: Config, device: torch.device) -> str:
@@ -100,6 +131,7 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
     arch = cfg.vae.arch
     backend = resolve_backend(cfg, device)
     seg, latent = cfg.audio.segment_length, cfg.vae.latent_dim
+    loss_fn = kernel_loss if backend == "pallas" else plain_loss
 
     if arch == "deep":
         hidden = _parse_int_list(cfg.vae.hidden_dims, (4096, 2048, 1024, 512))
@@ -116,14 +148,16 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
             encode=encode_fn, decode=decode_fn,
             plain_encode=variants.encode_deep,
             plain_decode=variants.decode_deep,
+            loss_components=loss_fn,
         )
 
     if arch == "conv1d":
         channels = _parse_int_list(cfg.vae.conv_channels, (32, 64, 128, 256))
         kernel, stride = cfg.vae.conv_kernel, cfg.vae.conv_stride
         width = variants.conv_latent_width(seg, len(channels), stride)
-        # backend = pallas keeps the plain convolutions: the JAX registry
-        # routes the family so, and ops/conv.py stays an op-level API
+        # backend = pallas keeps the plain convolutions and the plain loss:
+        # the JAX registry routes the family so, and ops/conv.py stays an
+        # op-level API
         if device.type == "cuda":
             # cuDNN runs fp32 convolutions in TF32 unless told otherwise;
             # the fp32 tiers of this package hold IEEE fp32, as PyTorch's
@@ -140,6 +174,7 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
                          stride=stride, latent_dim=latent, device=device),
             encode=encode_fn, decode=decode_fn,
             plain_encode=encode_fn, plain_decode=decode_fn,
+            loss_components=plain_loss,
         )
 
     if arch != "dense":
@@ -162,6 +197,7 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
         decode=decode_fn,
         plain_encode=vae.encode,
         plain_decode=vae.decode,
+        loss_components=loss_fn,
     )
 
 

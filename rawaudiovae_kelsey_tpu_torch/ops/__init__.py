@@ -6,7 +6,8 @@ records, a wrapper's call, kernel or plain version, is the span
 and training, the int8 serving decoder,
 the backward kernels of the training step (the bf16 "split" set, the fp32
 "primitive" set and the 3-pass "full" set of the ``high`` tier), the fused
-loss reduction and the in-kernel Gaussian sampler.  For the model variants:
+loss reduction and its one-pass gradient (the step's loss under ``backend
+= pallas``) and the in-kernel Gaussian sampler.  For the model variants:
 the fused linear layer in its whole-k and k-split forms (the deep MLP) and
 the block-Toeplitz product with the two convolutions mapped onto it (the
 conv1d model).  Beside them the three kernels that no trainer dispatches
@@ -69,6 +70,8 @@ from rawaudiovae_kelsey_tpu_torch.ops.mlp import (  # noqa: F401
 from rawaudiovae_kelsey_tpu_torch.ops.loss import (  # noqa: F401
     fused_loss,
     fused_loss_components,
+    loss_grads,
+    loss_grads_ref,
     loss_sums,
     loss_sums_ref,
 )
@@ -146,5 +149,5 @@ KERNEL_WRAPPERS = (encoder_fwd, decoder_fwd, quantized_decoder_fwd,
                    enc_bwd_dw1, grad_accum2, dec_bwd_fused, grad_accum,
                    matmul_nt, matmul_nt_mask, matmul_nt2_mask,
                    reparameterize_prng, enc_bwd_full, dec_bwd_full,
-                   loss_sums, linear_ksplit_fwd, linear_fwd, toeplitz_fwd,
-                   dw_fused, dx_fused, adam_tree, leaf_update)
+                   loss_sums, loss_grads, linear_ksplit_fwd, linear_fwd,
+                   toeplitz_fwd, dw_fused, dx_fused, adam_tree, leaf_update)

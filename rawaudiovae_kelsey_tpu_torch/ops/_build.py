@@ -58,7 +58,8 @@ _SIGNATURES = {
     "rvk_enc_bwd_dw1_3": [_P] * 11 + [_I] * 8 + [_P],
     "rvk_dec_bwd_fused3": [_P] * 11 + [_I] * 9 + [_P],
     "rvk_split_hi_lo": [_P] * 5 + [_I] * 3 + [_P],
-    "rvk_loss_sums": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P],
+    "rvk_loss_sums": [_P] * 6 + [_L] * 2 + [_I] * 3 + [_P],
+    "rvk_loss_grads": [_P] * 9 + [_L] * 2 + [_F] * 3 + [_I] * 3 + [_P],
     "rvk_matmul_nt": [_P] * 3 + [_I] * 6 + [_P],
     "rvk_matmul_nt_mask": [_P] * 4 + [_I] * 6 + [_P],
     "rvk_matmul_nt2_mask": [_P] * 6 + [_I] * 6 + [_P],

@@ -8,7 +8,9 @@ forward, reparameterization, loss, backward and Adam, with
   the batch to bf16, brings ``mu`` / ``logvar`` back to fp32, samples ``z``
   in fp32, casts ``z`` to bf16 for the decoder and the reconstruction back
   to fp32, so the loss and the optimizer run in fp32 on fp32 master params
-  (``step.py:86-102``).  ``float32``, ``high`` and ``highest`` all hold
+  (``step.py:86-102``); under ``backend = pallas`` on the card the
+  loss's kernels read the bf16 reconstruction and compute in fp32
+  (:func:`make_loss_fn`).  ``float32``, ``high`` and ``highest`` all hold
   fp32 operands (TF32 stays off).  Under ``backend = pallas`` the backward
   mode is the switch ``ops/mlp.py`` ``BWD_FUSION`` as the model was built
   with it (under "auto": the bf16 step "split", ``float32`` and
@@ -137,7 +139,8 @@ def _make_forward(model: ModelDef, cfg: Config) -> Callable:
     """``(params, eps, batch) → (x, recon, mu, logvar)``: the forward flow
     shared by the plain and the row-weighted loss (bf16 casts, encode,
     reparameterize, decode; JAX ``step.py:86-102``), the model under the
-    step's precision tier (:func:`under_tier`)."""
+    step's precision tier (:func:`under_tier`).  ``recon`` is the decoder's
+    output in the step's working dtype: the loss brings it to fp32."""
     model = under_tier(model, cfg)
     tpu_prng = cfg.tpu.rng == "tpu_prng"
     seg = model.segment_length
@@ -152,8 +155,7 @@ def _make_forward(model: ModelDef, cfg: Config) -> Callable:
             z = rng.reparameterize(eps, mu, logvar).to(work)
         else:
             z = vae.reparameterize(mu, logvar, eps=eps).to(work)
-        recon = model.decode(cparams, z).float()
-        return x, recon, mu, logvar
+        return x, model.decode(cparams, z), mu, logvar
 
     return forward
 
@@ -186,7 +188,16 @@ def make_loss_fn(model: ModelDef, cfg: Config) -> Callable:
     backward keeps only the inputs and recomputes the forward, so each
     microbatch runs its forward twice and holds no activations between
     forward and backward.  The recomputed forward is the same function of
-    the same inputs, so the step's bits do not change."""
+    the same inputs, so the step's bits do not change.
+
+    The loss is the model's ``loss_components`` (``models/registry.py``):
+    under ``backend = pallas``, on CUDA tensors the kernels take, row 14's
+    two kernels on the reconstruction in the decoder's dtype, so no fp32
+    copy of it, and no elementwise pass of the plain loss, reaches device
+    memory (the same fp32 function; the sums add in another order).
+    Elsewhere (the CPU, ``backend = xla``, shapes the kernels do not take)
+    the reconstruction is brought to fp32 and the loss is
+    ``models/vae.py``'s plain ops, as the JAX step leaves it to XLA."""
     forward = _make_forward(model, cfg)
     seg = model.segment_length
     kl_beta = cfg.vae.kl_beta
@@ -194,8 +205,8 @@ def make_loss_fn(model: ModelDef, cfg: Config) -> Callable:
 
     def loss_fn(params, eps, batch):
         x, recon, mu, logvar = forward(params, eps, batch)
-        loss, mse, kld = vae.loss_components(recon, x, mu, logvar, kl_beta,
-                                             seg, reduction)
+        loss, mse, kld = model.loss_components(recon, x, mu, logvar,
+                                               kl_beta, seg, reduction)
         return loss, (mse, kld)
 
     return _remat(cfg, loss_fn)
@@ -217,6 +228,7 @@ def make_weighted_loss_fn(model: ModelDef, cfg: Config) -> Callable:
 
     def loss_fn(params, eps, batch, weights, n_real):
         x, recon, mu, logvar = forward(params, eps, batch)
+        recon = recon.float()
         wv = weights.float()
         se = torch.sum(torch.square(recon - x), dim=1)
         kl = -0.5 * torch.sum(

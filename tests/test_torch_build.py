@@ -90,11 +90,25 @@ def test_every_bound_entry_point_is_exported_by_a_source():
             assert param.startswith("float ") == (ctype is _build._F), \
                 (name, param)
     for name in ("rvk_enc_bwd_full", "rvk_dec_bwd_full", "rvk_loss_sums",
-                 "rvk_linear_fwd", "rvk_linear_ksplit_fwd",
+                 "rvk_loss_grads", "rvk_linear_fwd", "rvk_linear_ksplit_fwd",
                  "rvk_toeplitz_fwd", "rvk_dw_fused", "rvk_dx_fused",
                  "rvk_leaf_update", "rvk_adam_tree"):
         assert name in exported
     assert "const char* rvk_error_string(int code)" in text
+    # the loss: a dtype code for recon / x and one for mu / logvar after
+    # the grid; the gradient reads its two cotangents through pointers
+    assert exported["rvk_loss_sums"] == [
+        "const void* recon", "const void* x", "const void* mu",
+        "const void* logvar", "float* partials", "float* out",
+        "long long n_x", "long long n_l", "int n_blocks", "int dtype_x",
+        "int dtype_l", "void* stream"]
+    assert exported["rvk_loss_grads"] == [
+        "const void* recon", "const void* x", "const void* mu",
+        "const void* logvar", "const float* g_m", "const float* g_k",
+        "void* d_recon", "void* d_mu", "void* d_logvar", "long long n_x",
+        "long long n_l", "float scale_x", "float scale_mu",
+        "float scale_lv", "int n_blocks", "int dtype_x", "int dtype_l",
+        "void* stream"]
     # the entry points with a tensor-core form name the kernel to run last
     # before the stream, its tile width before that, and their sources
     # build on the shared mainloop

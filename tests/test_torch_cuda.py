@@ -587,6 +587,128 @@ def test_fused_loss_on_the_card_matches_the_plain_loss(cuda):
                    torch.autograd.grad(want[0], b), 1e-5)
 
 
+def _loss_operands(device, rows, kind, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    pair = torch.bfloat16 if kind == "bf16-fp32" else torch.float32
+    recon = torch.tanh(torch.randn((rows, 1024), generator=g,
+                                   device=device)).to(pair)
+    x = (torch.rand((rows, 1024), generator=g, device=device) * 2
+         - 1).to(pair)
+    mu = torch.randn((rows, 256), generator=g, device=device)
+    lv = torch.randn((rows, 256), generator=g, device=device) * 0.5
+    return recon, x, mu, lv
+
+
+@pytest.mark.parametrize("kind", ["bf16-fp32", "fp32"])
+@pytest.mark.parametrize("rows", [8192, 4097])
+def test_loss_grads_kernel_matches_plain_version(cuda, rows, kind):
+    """Row 14's gradient at the training microbatch and a ragged batch,
+    bf16 recon / x beside fp32 mu / logvar and all fp32, under a mean
+    and a sum: ``d recon`` within one bf16 ulp (fp32: rel 1e-6), ``d mu``
+    and ``d logvar`` within rel 1e-6 of the plain version; a second
+    launch gives the same bits; one launch a call."""
+    from rawaudiovae_kelsey_tpu_torch.ops import loss
+
+    recon, x, mu, lv = _loss_operands(cuda, rows, kind, rows)
+    g_m = torch.tensor(1.25, device=cuda)
+    g_k = torch.tensor(1e-4, device=cuda)
+    for n_x, n_l in ((recon.numel(), mu.numel()), (1, 1)):
+        before = loss.loss_grads.launches
+        got = loss.loss_grads(recon, x, mu, lv, g_m, g_k, n_x, n_l)
+        again = loss.loss_grads(recon, x, mu, lv, g_m, g_k, n_x, n_l)
+        want = loss.loss_grads_ref(recon, x, mu, lv, g_m, g_k, n_x, n_l)
+        torch.cuda.synchronize()
+        assert loss.loss_grads.launches == before + 2
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        if kind == "bf16-fp32":
+            assert got[0].dtype == torch.bfloat16
+            ulps = (got[0].view(torch.int16).int()
+                    - want[0].view(torch.int16).int()).abs()
+            assert int(ulps.max()) <= 1
+        else:
+            _close_rel(got[:1], want[:1], 1e-6)
+        _close_rel(got[1:], want[1:], 1e-6)
+
+
+def test_loss_kernels_take_ragged_and_unaligned_operands(cuda):
+    """Widths no multiple of 8 (the masked tails) and views off a 16-byte
+    boundary (scalar loads): the sums give the bits of an aligned copy
+    and of the fp32 copies, the gradients those of an aligned copy, both
+    close to their plain versions."""
+    from rawaudiovae_kelsey_tpu_torch.ops import loss
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    shapes = [(37, 1001), (37, 1001), (37, 13), (37, 13)]
+    flat = [torch.randn(r * c + 1, generator=g, device=cuda)
+            for r, c in shapes]
+    flat[0], flat[1] = flat[0].tanh().bfloat16(), flat[1].bfloat16()
+    off = [f[1:].view(s) for f, s in zip(flat, shapes)]
+    on = [t.clone() for t in off]
+    assert off[0].data_ptr() % 16 and on[0].data_ptr() % 16 == 0
+    sums = loss.loss_sums(*off)
+    assert all(torch.equal(a, b) for a, b in zip(sums, loss.loss_sums(*on)))
+    fp32 = loss.loss_sums(on[0].float(), on[1].float(), *on[2:])
+    assert all(torch.equal(a, b) for a, b in zip(sums, fp32))
+    for a, b in zip(sums, loss.loss_sums_ref(*on)):
+        assert float(a) == pytest.approx(float(b), rel=1e-5)
+    g_m, g_k = (torch.tensor(v, device=cuda) for v in (0.5, 2e-4))
+    n = (on[0].numel(), on[2].numel())
+    got = loss.loss_grads(*off, g_m, g_k, *n)
+    torch.cuda.synchronize()
+    for a, b in zip(got, loss.loss_grads(*on, g_m, g_k, *n)):
+        assert torch.equal(a, b)
+    want = loss.loss_grads_ref(*on, g_m, g_k, *n)
+    ulps = (got[0].view(torch.int16).int()
+            - want[0].view(torch.int16).int()).abs()
+    assert int(ulps.max()) <= 1
+    _close_rel(got[1:], want[1:], 1e-6)
+
+
+def test_bf16_step_on_the_card_runs_its_loss_on_row_14(cuda, monkeypatch):
+    """One ``backend = pallas`` dense bf16 step: ``loss_sums`` and
+    ``loss_grads`` launch once each, on the decoder's bf16 output, and the
+    step's loss, MSE and KLD equal ``models/vae.py`` ``loss_components``
+    on the same tensors within rel 1e-6."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import build_model, vae
+    from rawaudiovae_kelsey_tpu_torch.ops import loss
+    from rawaudiovae_kelsey_tpu_torch.parallel import build_train_step
+    from rawaudiovae_kelsey_tpu_torch.train import TrainState
+
+    cfg = Config()
+    cfg.tpu.precision, cfg.tpu.backend = "bfloat16", "pallas"
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = (torch.rand((4096, 1024), generator=g, device=cuda) * 2
+         - 1).bfloat16()
+    model = build_model(cfg, cuda)
+    state = TrainState.create(
+        model.init(torch.Generator().manual_seed(0)), seed=1)
+    seen = []
+    real = loss.fused_loss_components
+
+    def spy(*args):
+        seen.append([a.detach() if isinstance(a, torch.Tensor) else a
+                     for a in args])
+        return real(*args)
+
+    monkeypatch.setattr(loss, "fused_loss_components", spy)
+    before = (loss.loss_sums.launches, loss.loss_grads.launches)
+    state, m = build_train_step(model, cfg)(state, x)
+    torch.cuda.synchronize()
+    assert (loss.loss_sums.launches - before[0],
+            loss.loss_grads.launches - before[1]) == (1, 1)
+    (recon, xx, mu, lv, beta, reduction), = seen
+    assert recon.dtype == xx.dtype == torch.bfloat16
+    assert mu.dtype == lv.dtype == torch.float32
+    want = vae.loss_components(recon.float(), xx, mu, lv, beta, 1024,
+                               reduction)
+    for name, w in zip(("loss", "mse", "kld"), want):
+        assert float(m[name]) == pytest.approx(float(w), rel=1e-6)
+    assert all(bool(torch.isfinite(t).all())
+               for q in state.params.values() for t in q.values())
+
+
 def test_high_step_on_the_card_runs_the_full_chains(cuda):
     """One ``precision = high`` step through the kernels and one through
     the plain ops, same state and noise: ``enc_bwd_full`` and

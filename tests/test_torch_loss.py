@@ -10,6 +10,12 @@ Inputs come from numpy seeds and go to both packages.
 Tolerances: values rel 1e-6 (fp32 sums in another order); the closed-form
 input gradients ``atol=1e-7, rtol=1e-5`` — the same elementwise formula on
 both sides.
+
+Beside them, without JAX: ``loss_grads`` (the backward's kernel) against
+autograd through ``models/vae.py``'s loss, ``takes_fused_loss`` (the rule
+that puts the train step's loss on the kernels) on its inputs, and what
+reaches the two C entry points, on ``meta`` tensors with the launch
+recorded.
 """
 
 import importlib
@@ -173,3 +179,215 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="dtype"):
         mlp.operand_dtype(torch.zeros(2, 2, dtype=torch.float64), "recon")
     assert loss.loss_sums.launches == 0
+
+
+def _bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors of one sign, in ulps."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+@pytest.mark.parametrize("reduction", REDUCTIONS)
+@pytest.mark.parametrize("kind", ["fp32", "bf16-recon"])
+def test_components_backward_matches_autograd_of_the_vae_loss(kind,
+                                                              reduction):
+    """``FusedLossComponents``' backward on the CPU (``loss_grads``' plain
+    version) against autograd through ``models/vae.py``
+    ``loss_components`` on the fp32 reconstruction, as the step's plain
+    path runs it: fp32 within 1e-6 of each gradient's largest entry; with
+    a bf16 reconstruction and target, ``d recon`` within one bf16 ulp."""
+    arrays = _inputs(4, 200)
+    bf16 = kind == "bf16-recon"
+    ts = _t(arrays, grad=True)
+    ps = _t(arrays, grad=True)
+    if bf16:
+        ts[0] = ts[0].detach().bfloat16().requires_grad_()
+        ps[0] = ps[0].detach().bfloat16().requires_grad_()
+        ts[1], ps[1] = ts[1].detach().bfloat16(), ps[1].detach().bfloat16()
+    got = loss.fused_loss_components(*ts, BETA, reduction)
+    want = vae.loss_components(ps[0].float(), *ps[1:], BETA, SEG, reduction)
+    for g, w in zip(got, want):
+        assert float(g.detach()) == pytest.approx(float(w.detach()),
+                                                  rel=1e-6)
+    c = (1.0, 0.25, -3.0)
+    gg = torch.autograd.grad(sum(a * b for a, b in zip(c, got)),
+                             [ts[0], ts[2], ts[3]])
+    wg = torch.autograd.grad(sum(a * b for a, b in zip(c, want)),
+                             [ps[0], ps[2], ps[3]])
+    for i, (a, b) in enumerate(zip(gg, wg)):
+        assert a.dtype == b.dtype
+        if i == 0 and bf16:
+            assert int(_bf16_ulps(a, b).max()) <= 1
+        else:
+            tol = 1e-6 * float(b.abs().max())
+            assert float((a - b).abs().max()) <= tol
+
+
+def test_loss_grads_off_the_card_is_its_plain_version_bit_for_bit():
+    """``loss_grads`` on CPU tensors is ``loss_grads_ref``, the gradients
+    the Functions' backward formed inline before, and launches nothing."""
+    r, x, mu, lv = _t(_inputs(5, 37))
+    g_m, g_k = torch.tensor(0.75), torch.tensor(2.5e-4)
+    before = loss.loss_grads.launches
+    n_x, n_l = r.numel(), mu.numel()
+    got = loss.loss_grads(r.bfloat16(), x.bfloat16(), mu, lv, g_m, g_k,
+                          n_x, n_l)
+    d = (2.0 / n_x) * (r.bfloat16().float() - x.bfloat16().float()) * g_m
+    want = (d.bfloat16(), ((1.0 / n_l) * mu * g_k),
+            ((1.0 / (2.0 * n_l)) * (torch.exp(lv) - 1.0) * g_k))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert loss.loss_grads.launches == before
+
+
+CARD = torch.device("meta")
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, device=CARD, dtype=dtype)
+
+
+@pytest.mark.parametrize("case", [
+    "pallas", "xla", "best", "cpu", "recon-3d", "x-shape", "logvar-shape",
+    "rows", "x-strided", "fp64", "empty"])
+def test_takes_fused_loss_on_backend_device_and_shapes(case, monkeypatch):
+    """The rule that puts the step's loss on the kernels, through the loss
+    a model binds (``models/registry.py``): ``pallas`` binds
+    ``kernel_loss``, which takes the kernels on a CUDA device (``meta``
+    stands in for it here), recon and x of one 2-D shape, mu and logvar
+    of one 2-D shape with as many rows, fp32 or bf16, contiguous, not
+    empty; ``xla`` and ``best`` bind ``plain_loss``.  Only the first case
+    takes the kernels; every other runs the plain loss."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import registry
+
+    monkeypatch.setattr(loss, "on_card", lambda t: t.device == CARD)
+    monkeypatch.setattr(loss, "fused_loss_components",
+                        lambda *a: "kernels")
+    monkeypatch.setattr(registry, "plain_loss", lambda *a: "plain")
+    cfg = Config()
+    cfg.tpu.backend = case if case in ("xla", "best") else "pallas"
+    model = registry.build_model(cfg, "cpu")
+    assert model.loss_components is (
+        registry.kernel_loss if cfg.tpu.backend == "pallas"
+        else registry.plain_loss)
+    rows, seg, latent = 64, 32, 8
+    args = [_meta((rows, seg), torch.bfloat16),
+            _meta((rows, seg), torch.bfloat16),
+            _meta((rows, latent)), _meta((rows, latent))]
+    if case == "cpu":
+        args = [torch.zeros(a.shape, dtype=a.dtype) for a in args]
+    elif case == "recon-3d":
+        args[:2] = [_meta((rows, 1, seg), torch.bfloat16)] * 2
+    elif case == "x-shape":
+        args[1] = _meta((rows, seg + 1), torch.bfloat16)
+    elif case == "logvar-shape":
+        args[3] = _meta((rows, latent + 1))
+    elif case == "rows":
+        args[2:] = [_meta((rows + 1, latent))] * 2
+    elif case == "x-strided":
+        args[1] = _meta((seg, rows), torch.bfloat16).t()
+    elif case == "fp64":
+        args[2] = _meta((rows, latent), torch.float64)
+    elif case == "empty":
+        args = [_meta((0, a.shape[1]), a.dtype) for a in args]
+    assert loss.takes_fused_loss(*args) == (case in ("pallas", "xla",
+                                                     "best"))
+    got = model.loss_components(*args, BETA, seg, "mean")
+    assert got == ("kernels" if case == "pallas" else "plain")
+
+
+@pytest.mark.parametrize("arch", ["dense", "deep", "conv1d"])
+def test_pallas_binds_the_kernel_loss_but_for_conv1d(arch):
+    """Under ``backend = pallas`` the dense and deep families bind
+    ``kernel_loss``; the conv1d family keeps its plain convolutions and
+    the plain loss under every backend."""
+    from rawaudiovae_kelsey_tpu_torch.config import Config
+    from rawaudiovae_kelsey_tpu_torch.models import registry
+
+    cfg = Config()
+    cfg.vae.arch, cfg.tpu.backend = arch, "pallas"
+    model = registry.build_model(cfg, "cpu")
+    assert model.loss_components is (
+        registry.plain_loss if arch == "conv1d" else registry.kernel_loss)
+
+
+def _recording(monkeypatch):
+    """The device check stood in for and the launches recorded; the launch
+    counters come back to their values when the test ends."""
+    launched = []
+    for w in (loss.loss_sums, loss.loss_grads):
+        monkeypatch.setattr(w, "launches", w.launches)
+    monkeypatch.setattr(loss, "cuda_device", lambda t, name: t.device)
+    monkeypatch.setattr(loss._build, "launch",
+                        lambda name, dev, *args: launched.append((name, args)))
+    return launched
+
+
+@pytest.mark.parametrize("reduction", REDUCTIONS)
+def test_what_reaches_the_loss_entry_points(reduction, monkeypatch):
+    """On ``meta`` tensors: each pair's dtype code, the operands as they
+    lie (no fp32 copy), the element counts, the grid (a function of the
+    shape alone), the scales; one launch of each kernel for a forward and
+    a backward of ``fused_loss_components``, the cotangents passed as
+    device tensors."""
+    launched = _recording(monkeypatch)
+    rows, seg, latent = 4097, 1024, 256
+    n_x, n_l = rows * seg, rows * latent
+    r = _meta((rows, seg), torch.bfloat16).requires_grad_()
+    x = _meta((rows, seg), torch.bfloat16)
+    mu, lv = (_meta((rows, latent)).requires_grad_() for _ in range(2))
+    before = (loss.loss_sums.launches, loss.loss_grads.launches)
+    out = loss.fused_loss_components(r, x, mu, lv, BETA, reduction)
+    assert [o.shape for o in out] == [()] * 3
+    name, args = launched.pop()
+    assert name == "rvk_loss_sums" and launched == []
+    assert all(a is b for a, b in zip(args[:4], (r, x, mu, lv)))
+    assert args[4].shape == (1024, 2) and args[5].shape == (2,)
+    # n_x, n_l, blocks (ceil(n_x / 4096) = 1025, at most 1024), dtypes
+    assert args[6:] == (n_x, n_l, 1024, 1, 0)
+    d_r, d_mu, d_lv = torch.autograd.grad(out[0], [r, mu, lv])
+    name, args = launched.pop()
+    assert name == "rvk_loss_grads" and launched == []
+    assert all(a is b for a, b in zip(args[:4], (r, x, mu, lv)))
+    assert all(g.shape == () and g.dtype == torch.float32
+               for g in args[4:6])
+    assert [a.dtype for a in args[6:9]] == [torch.bfloat16] + \
+        [torch.float32] * 2
+    nx, nl = (n_x, n_l) if reduction == "mean" else (1, 1)
+    # the gradient's grid: a bf16 reconstruction takes up to 8448 blocks
+    assert args[9:] == (n_x, n_l, 2.0 / nx, 1.0 / nl, 1.0 / (2.0 * nl),
+                        1025, 1, 0)
+    assert (d_r.dtype, d_mu.dtype, d_lv.dtype) == (torch.bfloat16,
+                                                   torch.float32,
+                                                   torch.float32)
+    assert (loss.loss_sums.launches - before[0],
+            loss.loss_grads.launches - before[1]) == (1, 1)
+
+
+def test_a_pair_of_two_dtypes_reaches_the_kernels_in_fp32(monkeypatch):
+    """A bf16 recon beside an fp32 x: that pair in fp32 (code 0), and with
+    it the bf16 mu / logvar (the kernels take no fp32 recon beside bf16
+    mu), each gradient rounded back to its input's bf16; a small batch
+    takes one block."""
+    launched = _recording(monkeypatch)
+    r = _meta((37, 64), torch.bfloat16)
+    x = _meta((37, 64))
+    mu, lv = _meta((37, 16), torch.bfloat16), _meta((37, 16), torch.bfloat16)
+    loss.loss_sums(r, x, mu, lv)
+    name, args = launched.pop()
+    assert args[0].dtype == torch.float32 and args[1] is x
+    assert args[2].dtype == args[3].dtype == torch.float32
+    assert args[6:] == (37 * 64, 37 * 16, 1, 0, 0)
+    g = _meta(())
+    d_r, d_mu, d_lv = loss.loss_grads(r, x, mu, lv, g, g, 1, 1)
+    name, args = launched.pop()
+    assert all(a.dtype == torch.float32 for a in args[6:9])
+    assert args[-3:] == (1, 0, 0)
+    # an fp32 reconstruction's gradient takes at most 264 blocks
+    big = _meta((8192, 1024))
+    loss.loss_grads(big, big, mu[:1].expand(8192, 16).contiguous(),
+                    mu[:1].expand(8192, 16).contiguous(), g, g, 1, 1)
+    assert launched.pop()[1][-3:] == (264, 0, 0)
+    assert (d_r.dtype, d_mu.dtype, d_lv.dtype) == (torch.bfloat16,) * 3
+    with pytest.raises(TypeError, match="dtype"):
+        loss.loss_grads(r, x, mu, lv, g.bfloat16(), g, 1, 1)

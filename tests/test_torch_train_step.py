@@ -334,3 +334,68 @@ def test_remat_step_matches_the_jax_remat_step(backend, precision):
     jstate, jm = jstep(jstate, jnp.asarray(x))
     state, m = step(state, torch.from_numpy(x))
     _compare(jstate, jm, state, m, tol)
+
+
+# ------------------------------------------------- the loss off the card
+
+LOSS_CASES = [(arch, backend, precision, reduction)
+              for arch in ("dense", "deep")
+              for backend in ("xla", "pallas")
+              for precision in ("highest", "bfloat16")
+              for reduction in ("mean", "sum")
+              if arch == "dense" or reduction == "mean"]
+
+
+@pytest.mark.parametrize("arch,backend,precision,reduction", LOSS_CASES)
+def test_step_loss_off_the_card_is_the_plain_loss_bit_for_bit(
+        arch, backend, precision, reduction):
+    """On the CPU, under either backend, the step's loss is
+    ``models/vae.py``'s plain ops on the reconstruction brought to fp32,
+    written out here as the step ran them before its loss went to row
+    14's kernels on the card: the loss, the metrics and the gradients
+    equal bit for bit, and neither loss kernel launches."""
+    from rawaudiovae_kelsey_tpu_torch.models import vae
+    from rawaudiovae_kelsey_tpu_torch.models.registry import under_tier
+    from rawaudiovae_kelsey_tpu_torch.ops import loss as fused
+    from rawaudiovae_kelsey_tpu_torch.parallel.step import make_loss_fn
+    from rawaudiovae_kelsey_tpu_torch.tree import tree_map
+
+    cfg = _variant(_configure(Config(), backend, precision, reduction, 0),
+                   arch)
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(SEED))
+    x = torch.from_numpy(_batch(6))
+    eps = jax_eps(0, None, (BATCH, LATENT))
+    before = (fused.loss_sums.launches, fused.loss_grads.launches)
+
+    def fresh():
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+        return p, tree_leaves(p)
+
+    p, leaves = fresh()
+    got, (mse, kld) = make_loss_fn(model, cfg)(p, eps, x)
+    got_grads = torch.autograd.grad(got, leaves)
+
+    q, qleaves = fresh()
+    tiered = under_tier(model, cfg)
+    work = torch.bfloat16 if precision == "bfloat16" else torch.float32
+    cq = tree_map(lambda t: t.to(work), q)
+    rows = x.reshape(-1, SEG)
+    mu, logvar = tiered.encode(cq, rows.to(work))
+    mu, logvar = mu.float(), logvar.float()
+    z = vae.reparameterize(mu, logvar, eps=eps).to(work)
+    recon = tiered.decode(cq, z).float()
+    want = vae.loss_components(recon, rows, mu, logvar, cfg.vae.kl_beta,
+                               SEG, reduction)
+    want_grads = torch.autograd.grad(want[0], qleaves)
+
+    for a, b in zip((got, mse, kld), want):
+        assert torch.equal(a, b)
+    for a, b in zip(got_grads, want_grads):
+        assert torch.equal(a, b)
+    # the whole step reports the same metrics
+    state = TrainState.create(tree_map(lambda t: t.clone(), params), SEED)
+    _, m = build_train_step(model, cfg, noise=jax_eps)(state, x)
+    for name, w in zip(("loss", "mse", "kld"), want):
+        assert torch.equal(m[name], w.detach())
+    assert (fused.loss_sums.launches, fused.loss_grads.launches) == before
