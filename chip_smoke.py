@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # from the repository root
     python3 chip_smoke.py --host-cost   # only the wrappers' host time a call
     python3 chip_smoke.py --mesh   # the build and phases 13-14 alone
+    python3 chip_smoke.py --oobleck   # the build and phase 15 alone
 
 Drives ``rawaudiovae_kelsey_tpu_torch`` (never JAX) through its serving
 and training paths on the card, in phases; each prints what it found, and
@@ -412,7 +413,18 @@ any failure exits non-zero with a traceback (no phase is caught):
    more the same steps run on a 2x2 mesh over NCCL, one rank a card, and
    the ``train`` command with ``model_parallel = 2`` and
    ``checkpoint_format = orbax`` starts one rank a card, writes the
-   sharded format and resumes from it.
+   sharded format and resumes from it;
+15. the Oobleck model (``configs/port/stable_audio_vae.ini``): row 21
+   (``snake_fwd`` / ``snake_bwd``, ``csrc/snake.cu``) in bf16 and fp32 at
+   each stage's shape of the cell's step (batch 48, from (128, 65536) to
+   (2048, 32)) against its plain versions in float64 on the same rounded
+   operands (bounds that carry the arguments' size, d alpha and d beta
+   included; a second backward equal bit for bit), timed against them
+   beside the bytes bound; then one resident epoch of two steps
+   (``build_model``, ``resident_model``, ``build_resident_epoch``) in bf16
+   at the cell's batch and in fp32 (``highest``) at a batch of 4: finite
+   losses, 72 + 72 launches of row 21 a step, row 20's ``adam_tree`` 8 a
+   step (365 leaves), row 14's two kernels once a step in bf16.
 
 Phases 5 and 8 also hold a bf16 kernel step with ``[tpu] remat = true``
 against the same step without it (same state and noise): equal bits of
@@ -456,7 +468,10 @@ tensor cores) and at ``highest`` (those on the fp32 kernel);
 narrow-channel kernel; ``dw_fused`` / ``dx_fused``: the
 ``deep_bwd`` probe runs of phase 10 in each dtype (those on the new form,
 every one); ``adam_tree``: the
-three ``adam_fusion`` probe runs of phase 10.  A row on phase 13's path
+three ``adam_fusion`` probe runs of phase 10; ``snake_fwd`` /
+``snake_bwd``: phase 15's resident epochs (bf16 at the cell's batch, fp32
+at 4), each row at the cell's stage-0 shape with every stage's numbers
+under ``stages``.  A row on phase 13's path
 also has ``mesh_launches_per_rank``: its launches on each of the two
 ranks there (the bf16 step's rows 1, 2, 7-10, the ``high`` step's 11-12,
 the ``highest`` step's fp32 rows 1, 2, 4-7, the deep step's bf16 15-16,
@@ -8995,6 +9010,248 @@ def phase_tp(tmp: Path, card: str) -> dict:
     return steps
 
 
+# phase 15: the Oobleck model's SnakeBeta (row 21, csrc/snake.cu) at the
+# shapes of configs/port/stable_audio_vae.ini's step: batch 48, 65,536 stereo
+# frames, each stage's (channels, length)
+OOBLECK_BATCH = 48
+SNAKE_SHAPES = ((128, 65536), (128, 32768), (256, 8192), (512, 2048),
+                (1024, 256), (2048, 32))
+# SnakeBeta calls a step: 5 stages x 3 residual units x 2, each stage's
+# own, the encoder's last, in the encoder and the decoder alike
+SNAKE_CALLS = 72
+SNAKE_ROWS = 4   # rows of a batch the float64 plain version takes at a time
+
+
+def snake_inputs(shape, dtype, g, dev):
+    """The card test's operands: x ~ 2·N(0, 1), dy ~ N(0, 1), alpha and
+    beta ~ 0.5·N(0, 1), drawn on the card in fp32 and rounded once."""
+    x = (2.0 * torch.randn(shape, generator=g, device=dev)).to(dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    alpha = (0.5 * torch.randn(shape[1], generator=g, device=dev)).to(dtype)
+    beta = (0.5 * torch.randn(shape[1], generator=g, device=dev)).to(dtype)
+    return x, alpha, beta, dy
+
+
+def hold_snake(snake, x, alpha, beta, dy):
+    """Row 21's forward and backward on ``x`` against the float64 plain
+    versions on the same rounded operands, within bounds that carry the
+    arguments' size (tests/test_torch_cuda.py's): y within tol · (|x| +
+    inv · (1 + 2|t|)), dx within tol · |dy| · (1 + inv · A · (1 + 2|t|)),
+    tol 4e-7 in fp32 and 2^-8 in bf16; d alpha and d beta within 1e-5 of
+    the sum of their terms' bounds, plus one bf16 rounding in bf16.  The
+    float64 work runs SNAKE_ROWS rows at a time.  Returns the largest
+    absolute error of y, dx, d alpha and d beta."""
+    fp32 = x.dtype == torch.float32
+    tol = 4e-7 if fp32 else 2.0 ** -8
+    ptol = 1e-5 if fp32 else 1e-5 + 2.0 ** -8
+    y = snake.snake_fwd(x, alpha, beta)
+    dx, da, db = snake.snake_bwd(x, alpha, beta, dy)
+    check(y.dtype == dx.dtype == x.dtype and da.dtype == db.dtype
+          == alpha.dtype, "row 21: output dtypes")
+    a64, b64 = alpha.double(), beta.double()
+    a = torch.exp(a64)[:, None]
+    eb = torch.exp(b64)
+    inv = (1.0 / (eb + 1e-9))[:, None]
+    want_da = torch.zeros_like(a64)
+    want_db = torch.zeros_like(b64)
+    sum_a = torch.zeros_like(a64)
+    sum_b = torch.zeros_like(b64)
+    err_y = err_dx = 0.0
+    for r in range(0, x.shape[0], SNAKE_ROWS):
+        xs, gs = x[r:r + SNAKE_ROWS].double(), dy[r:r + SNAKE_ROWS].double()
+        want_y = snake.snake_ref(xs, a64, b64)
+        want_dx, part_a, part_b = snake.snake_bwd_ref(xs, a64, b64, gs)
+        want_da += part_a
+        want_db += part_b
+        t = a * xs
+        grow = 1.0 + 2.0 * t.abs()
+        off_y = (y[r:r + SNAKE_ROWS].double() - want_y).abs()
+        off_dx = (dx[r:r + SNAKE_ROWS].double() - want_dx).abs()
+        check(bool((off_y <= tol * (xs.abs() + inv * grow)).all()),
+              f"snake_fwd {tuple(x.shape)} {x.dtype}: y off its bound")
+        check(bool((off_dx <= tol * gs.abs() * (1.0 + inv * a * grow))
+                   .all()),
+              f"snake_bwd {tuple(x.shape)} {x.dtype}: dx off its bound")
+        err_y = max(err_y, float(off_y.max()))
+        err_dx = max(err_dx, float(off_dx.max()))
+        g_ = gs.abs() * grow
+        sum_a += (g_ * t.abs()).sum(dim=(0, 2))
+        sum_b += g_.sum(dim=(0, 2))
+        del xs, gs, want_y, want_dx, t, grow, off_y, off_dx, g_
+    bound_a = inv[:, 0] * sum_a + want_da.abs()
+    bound_b = inv[:, 0] ** 2 * eb * sum_b + want_db.abs()
+    off_a = (da.double() - want_da).abs()
+    off_b = (db.double() - want_db).abs()
+    check(bool((off_a <= ptol * bound_a).all()),
+          f"snake_bwd {tuple(x.shape)} {x.dtype}: d alpha off its bound "
+          f"(worst {float((off_a / bound_a).max()):.3e} of the sum's bound)")
+    check(bool((off_b <= ptol * bound_b).all()),
+          f"snake_bwd {tuple(x.shape)} {x.dtype}: d beta off its bound "
+          f"(worst {float((off_b / bound_b).max()):.3e} of the sum's bound)")
+    again = snake.snake_bwd(x, alpha, beta, dy)
+    check(all(torch.equal(p, q) for p, q in zip((dx, da, db), again)),
+          f"snake_bwd {tuple(x.shape)} {x.dtype}: a second launch differs")
+    return {"y": err_y, "dx": err_dx, "d_alpha": float(off_a.max()),
+            "d_beta": float(off_b.max())}
+
+
+def snake_rows(dev):
+    """Row 21 at each stage's shape of the cell's step in bf16 and fp32:
+    held against the plain versions, then timed against them (device time
+    by events, kernel and plain in turns) beside the bytes bound (x read
+    and y written; x and dy read and dx written).  The rows carry stage
+    0's shape, the largest, and each stage's numbers under ``stages``."""
+    from rawaudiovae_kelsey_tpu_torch.ops import snake
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    rows = {}
+    for kind, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        per = {"snake_fwd": [], "snake_bwd": []}
+        err = {"snake_fwd": 0.0, "snake_bwd": 0.0}
+        for channels, length in SNAKE_SHAPES:
+            shape = (OOBLECK_BATCH, channels, length)
+            x, alpha, beta, dy = snake_inputs(shape, dt, g, dev)
+            e = hold_snake(snake, x, alpha, beta, dy)
+            err["snake_fwd"] = max(err["snake_fwd"], e["y"])
+            err["snake_bwd"] = max(err["snake_bwd"], e["dx"], e["d_alpha"],
+                                   e["d_beta"])
+            calls = {
+                "snake_fwd": (lambda: snake.snake_fwd(x, alpha, beta),
+                              lambda: snake.snake_ref(x, alpha, beta),
+                              nbytes(x) * 2),
+                "snake_bwd": (lambda: snake.snake_bwd(x, alpha, beta, dy),
+                              lambda: snake.snake_bwd_ref(x, alpha, beta,
+                                                          dy),
+                              nbytes(x) * 3)}
+            iters = 10 if channels * length >= 1 << 23 else 50
+            for name, (kern, plain, moved) in calls.items():
+                ms, plain_ms, t_kern, t_plain = time_both(kern, plain, iters)
+                b = bound(0, moved, "fp32")
+                per[name].append({"shape": list(shape), "ms": ms,
+                                  "plain_ms": plain_ms, **b})
+                print(f"  {name + '[' + kind + ']':<16} {str(shape):<18} "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bytes "
+                      f"bound {b['bound_ms']:.4f} ms: {b['bound_ms'] / ms:.1%}"
+                      f" of it (runs {[round(t, 4) for t in t_kern]} / "
+                      f"{[round(t, 4) for t in t_plain]})")
+            print(f"  row 21 [{kind}] {str(shape):<18} held: max abs err y "
+                  f"{e['y']:.3e}, dx {e['dx']:.3e}, d alpha "
+                  f"{e['d_alpha']:.3e}, d beta {e['d_beta']:.3e}; a second "
+                  "backward equal bit for bit")
+            del x, alpha, beta, dy
+            torch.cuda.empty_cache()
+        for name, stages in per.items():
+            first = stages[0]
+            rows[f"{name}[{kind}]"] = {
+                "name": f"{name}[{kind}]", "route": "cuda",
+                "source": "rawaudiovae_kelsey_tpu_torch/csrc/snake.cu",
+                "replaces": "none: a port-only kernel (plain version "
+                            "rawaudiovae_kelsey_tpu_torch/ops/snake.py "
+                            f"{name.replace('_fwd', '')}_ref)",
+                "shape": first["shape"], "ms": first["ms"],
+                "plain_ms": first["plain_ms"],
+                "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                "max_abs_err": err[name], "library_ms": None,
+                "stages": stages}
+    return rows
+
+
+def oobleck_epoch_launches(dev, precision: str, batch: int) -> dict:
+    """The launches of one resident epoch of two steps of
+    ``configs/port/stable_audio_vae.ini`` at ``precision`` and ``batch``
+    (the engine the cell runs: ``build_model``, ``resident_model``,
+    ``build_resident_epoch``), every wrapper's counter set to 0 just
+    before it; and the epoch's losses."""
+    from rawaudiovae_kelsey_tpu_torch import ops
+    from rawaudiovae_kelsey_tpu_torch.config import load_config
+    from rawaudiovae_kelsey_tpu_torch.models.registry import (
+        build_model,
+        resident_model,
+    )
+    from rawaudiovae_kelsey_tpu_torch.ops import snake
+    from rawaudiovae_kelsey_tpu_torch.parallel import resident
+    from rawaudiovae_kelsey_tpu_torch.train.optim import build_optimizer
+    from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
+
+    cfg = load_config(ROOT / "configs" / "port" / "stable_audio_vae.ini")
+    check((cfg.vae.arch, cfg.vae.io_channels, cfg.training.batch_size,
+           cfg.tpu.precision, cfg.tpu.backend)
+          == ("oobleck", 2, OOBLECK_BATCH, "bfloat16", "pallas"),
+          "configs/port/stable_audio_vae.ini is not the bf16 pallas stereo "
+          "Oobleck trainer at batch 48")
+    cfg.tpu.precision, cfg.training.batch_size = precision, batch
+    cfg.validate()
+    seg = cfg.audio.segment_length
+    n_samples = 2 * batch * seg
+    t = torch.arange(n_samples, device=dev, dtype=torch.float64) / SR
+    host = (0.3 * torch.sin(2 * np.pi * 220 * t)
+            + 0.2 * torch.sin(2 * np.pi * 1375 * t)).float().cpu().numpy()
+    del t
+    model = resident_model(cfg, build_model(cfg, dev))
+    layout = resident.choose_layout(
+        n_samples, seg, cfg.audio.hop_length,
+        2 if precision == "bfloat16" else 4,
+        int(cfg.tpu.resident_budget_gb * (1 << 30)))
+    run_epochs, n_batches = resident.build_resident_epoch(
+        model, cfg, build_optimizer(cfg), n_samples, layout=layout)
+    data = resident.put_resident(host, cfg, layout, dev)
+    state = TrainState.create(model.init(torch.Generator().manual_seed(0)),
+                              seed=0)
+    wrappers = (*ops.KERNEL_WRAPPERS, snake.snake_fwd, snake.snake_bwd)
+    for w in wrappers:
+        w.launches = 0
+    state, losses = run_epochs(state, data, 0, k=1)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    out = {"steps": n_batches, "layout": layout,
+           "losses": losses[0].tolist(),
+           "launches": {k: v for k, v in launches.items() if v}}
+    del state, data, run_epochs, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_oobleck(card: str) -> dict:
+    """Phase 15: the Oobleck model (``configs/port/stable_audio_vae.ini``):
+    row 21 against its plain versions at the step's shapes, and its
+    launches on the resident path, bf16 at the cell's batch and fp32
+    (``highest``) at a batch of 4."""
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        rows = snake_rows(dev)
+    runs = {"bf16": oobleck_epoch_launches(dev, "bfloat16", OOBLECK_BATCH),
+            "fp32": oobleck_epoch_launches(dev, "highest", 4)}
+    for kind, run in runs.items():
+        steps, seen = run["steps"], run["launches"]
+        print(f"  resident epoch [{kind}], {steps} steps ({run['layout']} "
+              f"layout): losses {[round(v, 6) for v in run['losses']]}, "
+              f"launches {seen}")
+        check(bool(np.isfinite(run["losses"]).all()),
+              f"oobleck [{kind}]: a loss is not finite")
+        check(seen.get("snake_fwd") == SNAKE_CALLS * steps
+              and seen.get("snake_bwd") == SNAKE_CALLS * steps,
+              f"oobleck [{kind}]: row 21 launched {seen.get('snake_fwd')} / "
+              f"{seen.get('snake_bwd')} times in {steps} steps, not "
+              f"{SNAKE_CALLS} + {SNAKE_CALLS} a step")
+        # Adam: row 20's whole-tree kernel, 365 leaves in 8 launches
+        check(seen.get("adam_tree") == 8 * steps and not seen.get(
+              "leaf_update"), f"oobleck [{kind}]: adam_tree launched "
+              f"{seen.get('adam_tree')} times in {steps} steps, not 8 a step")
+        for name in ("snake_fwd", "snake_bwd"):
+            rows[f"{name}[{kind}]"]["launches"] = seen[name]
+            rows[f"{name}[{kind}]"]["path"] = (
+                f"phase 15: a resident epoch of {steps} steps, {kind}")
+    seen = runs["bf16"]["launches"]
+    check(seen.get("loss_sums") == seen.get("loss_grads")
+          == runs["bf16"]["steps"], "oobleck [bf16]: row 14's loss kernels "
+          f"launched {seen.get('loss_sums')} / {seen.get('loss_grads')} "
+          f"times in {runs['bf16']['steps']} steps")
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return rows
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA device (torch.cuda."
           "is_available() is false)")
@@ -9047,6 +9304,18 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase_tp(Path(tmp), smi.stdout.strip())
         print(smi.stdout.strip())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if sys.argv[1:] == ["--oobleck"]:
+        # phase 15 alone
+        print("phase 15: the Oobleck model (configs/port/"
+              "stable_audio_vae.ini): row 21 and its resident path")
+        oobleck_rows = phase_oobleck(smi.stdout.strip())
+        print(smi.stdout.strip())
+        print(json.dumps({"kernels": list(oobleck_rows.values())}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -9208,6 +9477,10 @@ def main() -> int:
         tp_rows = tp_partial_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         tp = phase_tp(Path(tmp), card)
+    print("phase 15: the Oobleck model (configs/port/stable_audio_vae.ini): "
+          "row 21 and its resident path")
+    torch.cuda.empty_cache()
+    oobleck_rows = phase_oobleck(card)
     # the 3-pass chains against the same products in one fp32 pass: the
     # fp32 split kernels launch the chains' GEMMs without the split
     ms = {k: r["ms"] for k, r in train_rows.items()}
@@ -9401,6 +9674,7 @@ def main() -> int:
                        f"{mode!r}")
         check(row["launches"] > 0, f"{key}: no launch on its main path")
         rows[key] = row
+    rows.update(oobleck_rows)
     for key, row in rows.items():
         row.setdefault("library_ms", None)
         missing = [k for k in ("name", "route", "source", "replaces",

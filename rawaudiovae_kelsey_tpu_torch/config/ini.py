@@ -37,6 +37,11 @@ _SECTIONS = {
     "tpu": ("tpu", TPUConfig),
 }
 
+# keys of the port alone (section, key) → default: save_config leaves them
+# out at their defaults, so a config the JAX package can read stays one
+PORT_ONLY = {("VAE", "conv_strides"): VAEConfig().conv_strides,
+             ("VAE", "io_channels"): VAEConfig().io_channels}
+
 _TRUTHY = {"1", "yes", "true", "on"}
 _FALSY = {"0", "no", "false", "off", ""}
 
@@ -142,13 +147,17 @@ def load_config(path: Union[str, Path]) -> Config:
 
 def save_config(cfg: Config, path: Union[str, Path]) -> None:
     """Write a :class:`Config` back to INI (the workspace snapshot of
-    ``train.py:136-139``), preserving unknown keys."""
+    ``train.py:136-139``), preserving unknown keys; the port-only keys
+    (:data:`PORT_ONLY`) only where they differ from their defaults."""
     cp = _parser()
     for section, (attr, _) in _SECTIONS.items():
         cp.add_section(section)
         dc = getattr(cfg, attr)
         for f in dataclasses.fields(dc):
             val = getattr(dc, f.name)
+            key = (section, f.name)
+            if key in PORT_ONLY and PORT_ONLY[key] == val:
+                continue
             if isinstance(val, bool):
                 val = "True" if val else "False"
             cp.set(section, f.name, str(val))

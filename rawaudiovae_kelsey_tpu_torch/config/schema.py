@@ -91,6 +91,12 @@ class VAEConfig:
     conv_channels: str = "32,64,128,256"
     conv_kernel: int = 9
     conv_stride: int = 4
+    # Port-only keys (the JAX package has neither): the oobleck variant's
+    # per-stage strides, and the channels a frame interleaves (2: stereo,
+    # L, R, L, R, ... as a WAV stores them).  Written by save_config only
+    # when they differ from these defaults (config/ini.py PORT_ONLY).
+    conv_strides: str = "2,4,4,8,8"
+    io_channels: int = 1
 
 
 @dataclass
@@ -276,8 +282,11 @@ class Config:
             raise ValueError(
                 f"unknown device_resident {self.tpu.device_resident!r}"
             )
-        if self.vae.arch not in ("dense", "deep", "conv1d"):
+        if self.vae.arch not in ("dense", "deep", "conv1d", "oobleck"):
             raise ValueError(f"unknown arch {self.vae.arch!r}")
+        if self.vae.io_channels < 1:
+            raise ValueError(
+                f"io_channels must be positive, got {self.vae.io_channels}")
         if self.dataset.mono not in ("mean", "first"):
             raise ValueError(
                 f"unknown mono mode {self.dataset.mono!r} (expected 'mean' — "

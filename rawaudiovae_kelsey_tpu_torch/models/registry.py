@@ -4,7 +4,10 @@ so the server, checkpointing and kernel dispatch are variant-agnostic.
 
 The three families of the JAX package: ``arch = dense`` (the reference
 architecture), ``deep`` (the deep/wide MLP) and ``conv1d``
-(``models/variants.py``).  ``[tpu] backend`` keeps its values: ``pallas``
+(``models/variants.py``), and one of the port's own, ``oobleck`` (Stable
+Audio Open's autoencoder: its SnakeBeta on row 21's kernels,
+``ops/snake.py``, under ``pallas``, its convolutions on cuDNN under every
+backend).  ``[tpu] backend`` keeps its values: ``pallas``
 runs the hand-written CUDA kernels (``ops/mlp.py`` for the dense model,
 ``ops/linear.py`` for the deep one; on CPU tensors their wrappers run the
 plain versions), ``xla`` the plain PyTorch ops (``models/vae.py``,
@@ -46,7 +49,7 @@ import torch
 
 from rawaudiovae_kelsey_tpu_torch.config.schema import Config
 from rawaudiovae_kelsey_tpu_torch.models import vae, variants
-from rawaudiovae_kelsey_tpu_torch.ops import linear, loss, mlp
+from rawaudiovae_kelsey_tpu_torch.ops import linear, loss, mlp, snake
 
 
 @dataclass(frozen=True)
@@ -177,6 +180,24 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
             loss_components=plain_loss,
         )
 
+    if arch == "oobleck":
+        spec = oobleck_spec(cfg)
+        latent = spec.latent_dim(seg)
+        if device.type == "cuda":
+            # IEEE fp32 convolutions in the fp32 tiers, as for conv1d
+            torch.backends.cudnn.allow_tf32 = False
+        act = snake.snake if backend == "pallas" else variants.snake_plain
+        return ModelDef(
+            name="oobleck", segment_length=seg, latent_dim=latent,
+            device=device, backend=backend,
+            init=partial(variants.init_oobleck, spec=spec, device=device),
+            encode=partial(variants.encode_oobleck, spec=spec, act=act),
+            decode=partial(variants.decode_oobleck, spec=spec, act=act),
+            plain_encode=partial(variants.encode_oobleck, spec=spec),
+            plain_decode=partial(variants.decode_oobleck, spec=spec),
+            loss_components=loss_fn,
+        )
+
     if arch != "dense":
         raise ValueError(f"unknown arch {arch!r}")
     encode_fn, decode_fn = vae.encode, vae.decode
@@ -199,6 +220,24 @@ def build_model(cfg: Config, device: torch.device | str = "cpu") -> ModelDef:
         plain_decode=vae.decode,
         loss_components=loss_fn,
     )
+
+
+def oobleck_spec(cfg: Config) -> variants.OobleckSpec:
+    """The Oobleck VAE's widths from ``[VAE]``: ``conv_channels`` C0..Cn
+    (empty: Stable Audio Open's 128·[1, 1, 2, 4, 8, 16]), ``conv_strides``,
+    ``conv_kernel`` (the residual units' kernel), ``io_channels`` and
+    ``latent_dim`` (the bottleneck's channels)."""
+    channels = _parse_int_list(cfg.vae.conv_channels,
+                               (128, 128, 256, 512, 1024, 2048))
+    strides = _parse_int_list(cfg.vae.conv_strides, (2, 4, 4, 8, 8))
+    if len(channels) != len(strides) + 1:
+        raise ValueError(
+            f"conv_channels has {len(channels)} widths; the {len(strides)} "
+            f"conv_strides need {len(strides) + 1}")
+    return variants.OobleckSpec(
+        channels=tuple(channels), strides=tuple(strides),
+        kernel=cfg.vae.conv_kernel, io_channels=cfg.vae.io_channels,
+        latent_channels=cfg.vae.latent_dim)
 
 
 def backward_fusion(cfg: Config) -> str:

@@ -6,9 +6,14 @@ package's ``models/variants.py``:
   (:func:`init_deep` / :func:`encode_deep` / :func:`decode_deep`);
 * the conv1d VAE over raw frames: strided convolutions down, transpose
   convolutions back (:func:`init_conv1d` / :func:`encode_conv1d` /
-  :func:`decode_conv1d`).
+  :func:`decode_conv1d`);
+* the Oobleck VAE, Stable Audio Open's autoencoder: weight-normalised
+  convolutions, residual units dilated 1, 3 and 9, SnakeBeta activations
+  and a softplus bottleneck, over interleaved multichannel frames
+  (:func:`init_oobleck` / :func:`encode_oobleck` / :func:`decode_oobleck`;
+  a port-only family, which the JAX package does not have).
 
-Both reuse the dense VAE's reparameterization and loss (``models/vae.py``),
+All reuse the dense VAE's reparameterization and loss (``models/vae.py``),
 so a variant swaps only the encode/decode pair.  The params trees are the
 JAX package's: ``{"enc": [layer, ...], "dec": [layer, ...], "mu_head":
 layer, "logvar_head": layer}`` (+ ``"dec_in"`` for conv1d), a layer being
@@ -38,7 +43,8 @@ weights.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +56,7 @@ from rawaudiovae_kelsey_tpu_torch.models.vae import (
     forward_with,
     linear,
 )
+from rawaudiovae_kelsey_tpu_torch.observe.spans import span
 from rawaudiovae_kelsey_tpu_torch.tree import tree_map
 
 Tensor = torch.Tensor
@@ -268,3 +275,204 @@ def decode_conv1d(params: Params, z: Tensor, stride: int, width: int,
         h = torch.relu(conv_transpose_same(layer, h, stride))
     h = torch.tanh(conv_transpose_same(params["dec"][-1], h, stride))
     return h[..., 0]  # (B, seg, 1) → (B, seg)
+
+
+# ----------------------------------------------------------------- oobleck --
+#
+# Stable Audio Open's autoencoder (Evans et al., arXiv:2407.14358; the
+# ``OobleckEncoder`` / ``OobleckDecoder`` of stable-audio-tools'
+# ``models/autoencoders.py``), with C = channels, s = strides:
+#
+#   encoder  conv(io→C0, k7) · for each stage i: RU(Ci, 1), RU(Ci, 3),
+#            RU(Ci, 9), snake, conv(Ci→Ci+1, k 2si, stride si, pad
+#            ceil(si/2)) · snake · conv(Cn→2·latent, k3)
+#   decoder  conv(latent→Cn, k7) · for each stage from the last: snake,
+#            convT(Ci+1→Ci, k 2si, stride si, pad ceil(si/2)), RU(Ci, 1),
+#            RU(Ci, 3), RU(Ci, 9) · snake · conv(C0→io, k7, no bias)
+#   RU(c, d) x + conv(c→c, k1)(snake(conv(c→c, k, dilation d)(snake(x))))
+#
+# Every convolution is weight-normalised, ``w = g · v / ‖v‖`` with the norm
+# per slice of dim 0 (``torch.nn.utils.weight_norm``'s default: per output
+# channel of a convolution, per input channel of a transpose convolution),
+# recomputed from ``g`` and ``v`` at every call.  The params tree holds
+# ``{"g", "v", "b"}`` a convolution (``v`` in PyTorch's layout, ``g`` of
+# shape ``(v.shape[0], 1, 1)``, no ``b`` for the last) and ``{"alpha",
+# "beta"}`` a SnakeBeta.  Activations are NCW.  The bottleneck is
+# ``VAEBottleneck``'s: the encoder's 2·latent channels are mean and scale,
+# ``stdev = softplus(scale) + 1e-4``, returned as ``mu = mean`` and
+# ``logvar = 2·log(stdev)`` (fp32), each flattened channel-major to
+# ``(B, latent · T / Π s)``, so the step's reparameterisation and loss
+# apply unchanged.  Frames are interleaved: ``(B, io · T)`` holds sample
+# ``t`` of channel ``c`` at ``io · t + c``, as a WAV stores it.
+
+OOBLECK_DILATIONS = (1, 3, 9)
+OOBLECK_MIN_STD = 1e-4
+SNAKE_EPS = 1e-9
+
+
+@dataclass(frozen=True)
+class OobleckSpec:
+    """The widths of an Oobleck VAE: ``channels`` C0..Cn (n stages),
+    ``strides`` s0..s(n-1), the residual units' ``kernel``, the frames'
+    ``io_channels`` and the bottleneck's ``latent_channels``."""
+
+    channels: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    kernel: int
+    io_channels: int
+    latent_channels: int
+
+    @property
+    def ratio(self) -> int:
+        return math.prod(self.strides)
+
+    def latent_dim(self, segment_length: int) -> int:
+        """The flat latent size of a frame of ``segment_length`` samples;
+        ``ValueError`` unless it holds whole steps of the downsampling."""
+        step = self.io_channels * self.ratio
+        if segment_length % step:
+            raise ValueError(
+                f"segment_length {segment_length} is not a multiple of "
+                f"io_channels × Π strides = {step}")
+        return self.latent_channels * (segment_length // step)
+
+
+def _wn_conv(generator, in_ch: int, out_ch: int, kernel: int,
+             where: str, bias: bool = True, transposed: bool = False
+             ) -> dict:
+    """A weight-normalised convolution's leaves with ``nn.Conv1d``'s (or
+    ``nn.ConvTranspose1d``'s) init, U(±1/sqrt(fan_in)) for ``v`` and
+    ``b``, fan_in being ``v``'s dim 1 times the kernel, and ``g = ‖v‖``, so
+    that ``w = v`` at the start."""
+    shape = (in_ch, out_ch, kernel) if transposed else (out_ch, in_ch, kernel)
+    bound = 1.0 / math.sqrt(shape[1] * kernel)
+    v = torch.empty(shape, device=where).uniform_(-bound, bound,
+                                                   generator=generator)
+    p = {"g": torch.linalg.vector_norm(v, dim=(1, 2), keepdim=True), "v": v}
+    if bias:
+        p["b"] = torch.empty(out_ch, device=where).uniform_(
+            -bound, bound, generator=generator)
+    return p
+
+
+def _snake_params(channels: int, where: str) -> dict:
+    return {"alpha": torch.zeros(channels, device=where),
+            "beta": torch.zeros(channels, device=where)}
+
+
+def _res_unit(generator, channels: int, kernel: int, where: str) -> dict:
+    return {"act1": _snake_params(channels, where),
+            "conv1": _wn_conv(generator, channels, channels, kernel, where),
+            "act2": _snake_params(channels, where),
+            "conv2": _wn_conv(generator, channels, channels, 1, where)}
+
+
+def init_oobleck(generator: Optional[torch.Generator], spec: OobleckSpec,
+                 device: torch.device | str | None = None) -> Params:
+    """Fresh params tree of ``spec``, drawn in forward order on the CPU
+    from ``generator`` (the same numbers for every target device), then
+    moved to ``device``; on the ``meta`` device nothing is drawn."""
+    device = torch.device(device or "cpu")
+    where = "meta" if device.type == "meta" else "cpu"
+    g, ch, k = generator, spec.channels, spec.kernel
+
+    def units(c):
+        return [_res_unit(g, c, k, where) for _ in OOBLECK_DILATIONS]
+
+    encoder = {"conv_in": _wn_conv(g, spec.io_channels, ch[0], 7, where),
+               "blocks": []}
+    for i, s in enumerate(spec.strides):
+        encoder["blocks"].append({
+            "res": units(ch[i]), "act": _snake_params(ch[i], where),
+            "down": _wn_conv(g, ch[i], ch[i + 1], 2 * s, where)})
+    encoder["act"] = _snake_params(ch[-1], where)
+    encoder["conv_out"] = _wn_conv(g, ch[-1], 2 * spec.latent_channels, 3,
+                                   where)
+    decoder = {"conv_in": _wn_conv(g, spec.latent_channels, ch[-1], 7,
+                                   where), "blocks": []}
+    for i in reversed(range(len(spec.strides))):
+        s = spec.strides[i]
+        decoder["blocks"].append({
+            "act": _snake_params(ch[i + 1], where),
+            "up": _wn_conv(g, ch[i + 1], ch[i], 2 * s, where,
+                           transposed=True),
+            "res": units(ch[i])})
+    decoder["act"] = _snake_params(ch[0], where)
+    decoder["conv_out"] = _wn_conv(g, ch[0], spec.io_channels, 7, where,
+                                   bias=False)
+    params = {"encoder": encoder, "decoder": decoder}
+    return tree_map(lambda t: t.to(device), params)
+
+
+def snake_plain(x: Tensor, alpha: Tensor, beta: Tensor) -> Tensor:
+    """SnakeBeta on plain ops, in ``x``'s dtype: ``x + 1 / (e^beta + 1e-9)
+    · sin²(e^alpha · x)``, ``alpha`` and ``beta`` one value a channel of
+    ``x`` ``(B, C, L)``."""
+    a = torch.exp(alpha)[:, None]
+    inv = 1.0 / (torch.exp(beta)[:, None] + SNAKE_EPS)
+    return x + inv * torch.square(torch.sin(a * x))
+
+
+def weight_norm(p: dict) -> Tensor:
+    """``g · v / ‖v‖``, the norm over every dim of ``v`` but the first."""
+    with span("rvk.wnorm"):
+        return torch._weight_norm(p["v"], p["g"], 0)
+
+
+def _conv(p: dict, x: Tensor, stride: int = 1, padding: int = 0,
+          dilation: int = 1) -> Tensor:
+    return F.conv1d(x, weight_norm(p), p.get("b"), stride, padding, dilation)
+
+
+def _res_apply(p: dict, x: Tensor, dilation: int, act: Callable) -> Tensor:
+    k = p["conv1"]["v"].shape[-1]
+    y = act(x, p["act1"]["alpha"], p["act1"]["beta"])
+    y = _conv(p["conv1"], y, padding=(k - 1) * dilation // 2,
+              dilation=dilation)
+    y = act(y, p["act2"]["alpha"], p["act2"]["beta"])
+    return x + _conv(p["conv2"], y)
+
+
+def _act(p: dict, x: Tensor, act: Callable) -> Tensor:
+    return act(x, p["alpha"], p["beta"])
+
+
+def encode_oobleck(params: Params, x: Tensor, spec: OobleckSpec,
+                   act: Callable = snake_plain) -> Tuple[Tensor, Tensor]:
+    """Interleaved frames ``(B, io · T)`` → ``(mu, logvar)``, each fp32
+    ``(B, latent · T / Π s)``.  ``act(x, alpha, beta)`` is SnakeBeta:
+    :func:`snake_plain`, or ``ops/snake.py`` ``snake`` (the kernels)."""
+    p = params["encoder"]
+    rows = x.shape[0]
+    h = x.reshape(rows, -1, spec.io_channels).transpose(1, 2)
+    h = _conv(p["conv_in"], h, padding=3)
+    for block, s in zip(p["blocks"], spec.strides):
+        for unit, d in zip(block["res"], OOBLECK_DILATIONS):
+            h = _res_apply(unit, h, d, act)
+        h = _act(block["act"], h, act)
+        h = _conv(block["down"], h, stride=s, padding=-(-s // 2))
+    h = _conv(p["conv_out"], _act(p["act"], h, act), padding=1)
+    mean, scale = h.float().chunk(2, dim=1)
+    std = F.softplus(scale) + OOBLECK_MIN_STD
+    # contiguous, as row 14's loss kernels take them (a view of the
+    # channels' first half is not)
+    return (mean.reshape(rows, -1).contiguous(),
+            (2.0 * torch.log(std)).reshape(rows, -1))
+
+
+def decode_oobleck(params: Params, z: Tensor, spec: OobleckSpec,
+                   act: Callable = snake_plain) -> Tensor:
+    """``z`` ``(B, latent · T / Π s)`` → interleaved frames ``(B, io ·
+    T)``, in ``z``'s dtype (no tanh: the published decoder has none)."""
+    p = params["decoder"]
+    rows = z.shape[0]
+    h = _conv(p["conv_in"], z.reshape(rows, spec.latent_channels, -1),
+              padding=3)
+    for block, s in zip(p["blocks"], reversed(spec.strides)):
+        h = _act(block["act"], h, act)
+        h = F.conv_transpose1d(h, weight_norm(block["up"]),
+                               block["up"]["b"], s, -(-s // 2))
+        for unit, d in zip(block["res"], OOBLECK_DILATIONS):
+            h = _res_apply(unit, h, d, act)
+    h = _conv(p["conv_out"], _act(p["act"], h, act), padding=3)
+    return h.transpose(1, 2).reshape(rows, -1)

@@ -21,6 +21,8 @@ Every name starts with ``rvk.``:
 ``rvk.backward``     a ``torch.autograd.grad``
 ``rvk.adam``         ``optimizer.update``
 ``rvk.allreduce``    a mesh collective
+``rvk.wnorm``        a weight norm's recomputation from ``g`` and ``v``
+                     (the Oobleck model's convolutions)
 ``rvk.rowNN.<op>``   a call of an ``ops/`` wrapper, NN its row of the
                      port's kernel table (PERF.md), whether it launches
                      the kernel or runs its plain version

@@ -10,7 +10,8 @@ loss reduction and its one-pass gradient (the step's loss under ``backend
 = pallas``) and the in-kernel Gaussian sampler.  For the model variants:
 the fused linear layer in its whole-k and k-split forms (the deep MLP) and
 the block-Toeplitz product with the two convolutions mapped onto it (the
-conv1d model).  Beside them the three kernels that no trainer dispatches
+conv1d model), and SnakeBeta's fused forward and backward (the Oobleck
+model's activation, row 21, a port-only kernel).  Beside them the three kernels that no trainer dispatches
 and ``probes/`` measures: the fused backward of one linear layer
 (``dw_fused``, ``dx_fused``) and the one-pass Adam update of a whole
 parameter tree in one launch (``adam_tree``; ``leaf_update`` is the same
@@ -74,6 +75,13 @@ from rawaudiovae_kelsey_tpu_torch.ops.loss import (  # noqa: F401
     loss_grads_ref,
     loss_sums,
     loss_sums_ref,
+)
+from rawaudiovae_kelsey_tpu_torch.ops.snake import (  # noqa: F401
+    Snake,
+    snake_bwd,
+    snake_bwd_ref,
+    snake_fwd,
+    snake_ref,
 )
 from rawaudiovae_kelsey_tpu_torch.ops.quant import (  # noqa: F401
     dequantize_weight,

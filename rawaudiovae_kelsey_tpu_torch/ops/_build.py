@@ -75,6 +75,8 @@ _SIGNATURES = {
     "rvk_dx_fused": [_P] * 4 + [_I] * 7 + [_P],
     "rvk_leaf_update": [_P] * 6 + [_L] + [_F] * 6 + [_P],
     "rvk_adam_tree": [_P] * 7 + [_I] + [_P] * 2 + [_F] * 8 + [_P],
+    "rvk_snake_fwd": [_P] * 4 + [_I] * 6 + [_P],
+    "rvk_snake_bwd": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -122,6 +122,7 @@ def _run(ctx: L.TrainContext, cfg: Config, verbose: bool,
         datapath_audio_dir(cfg), cfg.audio.sampling_rate,
         mono=cfg.dataset.mono, verbose=verbose,
         host_id=host_id, num_hosts=num_hosts,
+        channels=cfg.vae.io_channels,
     )
     total_frames = n_samples // cfg.audio.segment_length
     print(f"Total number of audio frames: {total_frames}")

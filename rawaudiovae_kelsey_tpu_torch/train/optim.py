@@ -17,6 +17,13 @@ host never waits for the step it has just queued (a copied scalar blocks
 until the stream drains, which idles the device between the small steps of
 a device-resident epoch).  The JAX update is XLA's, not a Pallas kernel, so
 there is no kernel to port here.
+
+On the card, a tree of more leaves than one launch of row 20's whole-tree
+kernel takes (``ops/adam.py`` ``K_MAX_LEAVES``, 48; the Oobleck model's 365)
+is updated through that kernel (``fused_adam_apply``): the same bits, in
+``ceil(leaves / 48)`` launches where the update below takes 16 a leaf, so
+the host no longer paces the step.  The MLP models' trees (10 and 22
+leaves) keep the update below.
 """
 
 from __future__ import annotations
@@ -30,6 +37,11 @@ from rawaudiovae_kelsey_tpu_torch.train.state import Params, TrainState
 from rawaudiovae_kelsey_tpu_torch.tree import leaves
 
 
+# the fewest leaves updated through row 20's kernel: one more than a launch
+# of it takes (ops/adam.py K_MAX_LEAVES)
+FUSED_MIN_LEAVES = 49
+
+
 @dataclass(frozen=True)
 class Adam:
     learning_rate: float
@@ -40,7 +52,21 @@ class Adam:
     @torch.no_grad()
     def update(self, state: TrainState, grads: Params) -> None:
         """One Adam update of ``state`` (params, moments, count) from fp32
-        ``grads``, in place."""
+        ``grads``, in place: row 20's kernel for a tree of more than
+        ``FUSED_MIN_LEAVES - 1`` leaves on the card, else
+        :meth:`update_leafwise`; the same bits either way."""
+        params = leaves(state.params)
+        if len(params) >= FUSED_MIN_LEAVES and params[0].is_cuda:
+            from rawaudiovae_kelsey_tpu_torch.ops.adam import (
+                fused_adam_apply,
+            )
+            fused_adam_apply(self, state, grads)
+            return
+        self.update_leafwise(state, grads)
+
+    @torch.no_grad()
+    def update_leafwise(self, state: TrainState, grads: Params) -> None:
+        """:meth:`update` in eager elementwise ops, one leaf at a time."""
         state.count += 1
         f32 = torch.float32
         bc1 = float(1.0 - torch.tensor(self.b1, dtype=f32) ** state.count)

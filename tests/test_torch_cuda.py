@@ -3983,3 +3983,110 @@ def test_forced_modes_step_on_the_card(cuda, monkeypatch, mode, precision):
     (lk, dk), (lx, dx) = out["pallas"], out["xla"]
     assert abs(lk / lx - 1) <= tol
     assert float((dk - dx).norm() / dx.norm()) <= tol
+
+
+# ---------------------------------------------------- row 21: SnakeBeta
+
+def _snake_inputs(shape, dtype, device):
+    g = torch.Generator().manual_seed(sum(shape))
+    x = (2.0 * torch.randn(shape, generator=g)).to(device, dtype)
+    dy = torch.randn(shape, generator=g).to(device, dtype)
+    alpha = (0.5 * torch.randn(shape[1], generator=g)).to(device, dtype)
+    beta = (0.5 * torch.randn(shape[1], generator=g)).to(device, dtype)
+    return x, alpha, beta, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 128, 65536), (3, 2048, 32),
+                                   (2, 5, 37)],
+                         ids=["stage1", "deepest", "odd"])
+def test_snake_kernels_match_plain_versions(cuda, dtype, shape):
+    """Row 21 against its plain version in float64 on the same rounded
+    inputs.  The kernel rounds ``t = e^alpha · x`` to fp32, and sin(t)
+    moves by |t| times that rounding, so each bound carries the
+    arguments' size: y within ``tol · (|x| + inv · (1 + 2|t|))``, dx within
+    ``tol · |dy| · (1 + inv · A · (1 + 2|t|))``, tol 4e-7 (about 3 fp32
+    ulps) in fp32 and 2^-8 (two roundings to bf16) in bf16; d alpha and
+    d beta, sums over B·L terms, within 1e-5 of the sum of the terms'
+    bounds (fp32 partial sums), plus one bf16 rounding in bf16."""
+    from rawaudiovae_kelsey_tpu_torch.ops import snake
+
+    x, alpha, beta, dy = _snake_inputs(shape, dtype, cuda)
+    launched = (snake.snake_fwd.launches, snake.snake_bwd.launches)
+    y = snake.snake_fwd(x, alpha, beta)
+    dx, da, db = snake.snake_bwd(x, alpha, beta, dy)
+    assert (snake.snake_fwd.launches - launched[0],
+            snake.snake_bwd.launches - launched[1]) == (1, 1)
+    assert y.dtype == dx.dtype == dtype and da.dtype == db.dtype == dtype
+    d = [t.double() for t in (x, alpha, beta, dy)]
+    want_y = snake.snake_ref(*d[:3])
+    want_dx, want_da, want_db = snake.snake_bwd_ref(*d)
+    a = torch.exp(d[1])[:, None]
+    eb = torch.exp(d[2])
+    inv = (1.0 / (eb + 1e-9))[:, None]
+    t = a * d[0]
+    grow = 1.0 + 2.0 * t.abs()
+    tol = 4e-7 if dtype == torch.float32 else 2.0 ** -8
+    assert bool(((y.double() - want_y).abs()
+                 <= tol * (d[0].abs() + inv * grow)).all())
+    assert bool(((dx.double() - want_dx).abs()
+                 <= tol * d[3].abs() * (1.0 + inv * a * grow)).all())
+    g = d[3].abs() * grow
+    ptol = 1e-5 if dtype == torch.float32 else 1e-5 + 2.0 ** -8
+    bound_a = inv[:, 0] * (g * t.abs()).sum(dim=(0, 2)) + want_da.abs()
+    bound_b = inv[:, 0] ** 2 * eb * g.sum(dim=(0, 2)) + want_db.abs()
+    assert bool(((da.double() - want_da).abs() <= ptol * bound_a).all())
+    assert bool(((db.double() - want_db).abs() <= ptol * bound_b).all())
+    # the order of the sums is a function of the shape: equal bits again
+    again = snake.snake_bwd(x, alpha, beta, dy)
+    for first, second in zip((dx, da, db), again):
+        assert torch.equal(first, second)
+
+
+def test_snake_function_saves_its_input_and_runs_both_kernels(cuda):
+    from rawaudiovae_kelsey_tpu_torch.ops import snake
+
+    x, alpha, beta, dy = _snake_inputs((2, 64, 4096), torch.bfloat16, cuda)
+    x.requires_grad_(True)
+    alpha.requires_grad_(True)
+    beta.requires_grad_(True)
+    before = snake.snake_bwd.launches
+    y = snake.snake(x, alpha, beta)
+    y.backward(dy)
+    assert snake.snake_bwd.launches == before + 1
+    want = snake.snake_bwd(x.detach(), alpha.detach(), beta.detach(), dy)
+    for got, w in zip((x.grad, alpha.grad, beta.grad), want):
+        assert torch.equal(got, w)
+
+
+def test_adam_updates_a_tree_of_many_leaves_through_row_20(cuda):
+    """A tree of more leaves than one launch of row 20 takes (the Oobleck
+    model's 365) is updated by ``adam_tree``: the same bits as the eager
+    leaf-by-leaf update, over three coupled steps."""
+    from rawaudiovae_kelsey_tpu_torch.ops import adam as adam_ops
+    from rawaudiovae_kelsey_tpu_torch.train.optim import (
+        FUSED_MIN_LEAVES,
+        Adam,
+    )
+    from rawaudiovae_kelsey_tpu_torch.train.state import TrainState
+
+    g = torch.Generator().manual_seed(5)
+    shapes = [(7,), (64, 3, 5), (128,), (1, 1), (33, 17)]
+    params = {f"l{i}": torch.randn(shapes[i % 5], generator=g).to(cuda)
+              for i in range(FUSED_MIN_LEAVES + 11)}
+    grads = [{k: torch.randn(v.shape, generator=g).to(cuda)
+              for k, v in params.items()} for _ in range(3)]
+    fused = TrainState.create(params, seed=0)
+    plain = fused.clone()
+    opt = Adam(learning_rate=1e-3)
+    before = adam_ops.adam_tree.launches
+    for gr in grads:
+        opt.update(fused, gr)
+        opt.update_leafwise(plain, gr)
+    assert adam_ops.adam_tree.launches - before == 3 * 2  # 60 leaves: 2
+    assert fused.count == plain.count == 3
+    for a, b in ((fused.params, plain.params), (fused.mu, plain.mu),
+                 (fused.nu, plain.nu)):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k

@@ -22,6 +22,7 @@ SLICE = [
     "models.variants", "tree",
     "ops.mlp", "ops.quant", "ops.rng", "ops.loss", "ops._build",
     "ops.linear", "ops.toeplitz", "ops.conv", "ops.linear_bwd", "ops.adam",
+    "ops.snake",
     "probes.common", "probes.deep_bwd", "probes.deep_step",
     "probes.adam_fusion", "probes.sass_count",
     "parallel.step", "parallel.mesh", "parallel.spmd",
